@@ -41,3 +41,11 @@ def _periodic_cache_clear():
     _TESTS_RUN["n"] += 1
     if _TESTS_RUN["n"] % 50 == 0:
         jax.clear_caches()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs an NVIDIA card; skips without one (run with "
+        "`python -m pytest --noconftest -p no:cacheprovider "
+        "tests/test_torch_gpu.py` on the card)")
