@@ -31,10 +31,15 @@
 // E=256 on ex5-msrtf-machine, 14 B x 4,194,304 sites = 58.7 MB, which is
 // 17.5 us at the H100's 3.35 TB/s. The bound is bytes. What this design
 // does about it: the walk reads no tables from device memory (the
-// machine's plan, under 1 KB, is copied to shared memory per block),
-// cells that the spec leaves alone are not stored, and consecutive
-// threads touch consecutive bytes of a plane row. Each access is one
-// byte, though: loads of 16 bytes a thread are left for a later change.
+// machine's plan, a few KB, is copied to shared memory per block, with
+// its packed fields also stored unpacked so no lookup divides); the
+// window cells stay in registers (packed 8 to a 64-bit word, the word
+// count a template parameter, every cell index a compile-time constant
+// after unrolling), so nothing spills to local memory; the per-round
+// plane and spill of each cell are computed once per block; cells that
+// the spec leaves alone are not stored; and consecutive threads touch
+// consecutive bytes of a plane row. Each access is still one byte:
+// loads of 16 bytes a thread are left for a later change.
 //
 // Arithmetic is exact: build with -fmad=false so that nothing is
 // contracted; double division and subtraction are IEEE round-to-nearest,
@@ -43,12 +48,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#define MAX_CELLS 32  // engine/ensemble.py: _MAX_CELLS
+#define MAX_WORDS 4  // window cells: at most 8 * MAX_WORDS = 32
 #define PLAN_HEADER 16
-#define LEVEL_WORDS 8
+#define LEVEL_WORDS 10
 #define GROUP_WORDS 5
 
 namespace {
+
+typedef unsigned long long u64;
 
 __device__ __forceinline__ int floor_div(int a, int b) {
   int q = a / b;
@@ -67,6 +74,28 @@ __device__ __forceinline__ int unpack_field(const int* words, int n_words,
   return (w >> sh) & ((1 << bits) - 1);
 }
 
+// Field `idx` of packed `words`: from the unpacked copy where the words
+// cover it, else by the reference's rule (floored index arithmetic).
+__device__ __forceinline__ int field_at(const int* plan, int n_fields,
+                                        int off_fields, int n_words,
+                                        int off_words, int idx, int bits) {
+  if (idx >= 0 && idx < n_fields) return plan[off_fields + idx];
+  const int per = 31 / bits;
+  return unpack_field(plan + off_words, n_words, floor_div(idx, per),
+                      bits * floor_mod(idx, per), bits);
+}
+
+// Window cell `idx` (sign-extended int8) from the packed registers.
+template <int NW>
+__device__ __forceinline__ int cell_at(const u64 (&w)[NW], int idx) {
+  u64 s = w[0];
+#pragma unroll
+  for (int q = 1; q < NW; ++q)
+    if ((idx >> 3) == q) s = w[q];
+  return (int)(int8_t)(uint8_t)(s >> (8 * (idx & 7)));
+}
+
+template <int NW>
 __global__ void plane_round_kernel(int8_t* __restrict__ p_st,
                                    int8_t* __restrict__ d_st,
                                    const float* __restrict__ uniforms,
@@ -75,35 +104,47 @@ __global__ void plane_round_kernel(int8_t* __restrict__ p_st,
                                    const double* __restrict__ gfplan,
                                    int n_float, int B, int E, int stride) {
   extern __shared__ double smem[];
+  __shared__ long long cell_base[8 * MAX_WORDS];
+  __shared__ int cell_spill[8 * MAX_WORDS];
   double* fplan = smem;
   int* plan = reinterpret_cast<int*>(smem + n_float);
   for (int k = threadIdx.x; k < n_float; k += blockDim.x) fplan[k] = gfplan[k];
   for (int k = threadIdx.x; k < n_int; k += blockDim.x) plan[k] = gplan[k];
+  const int n_p = gplan[0], n_cells = gplan[8];
+  if (threadIdx.x < n_cells) {
+    // Plane and spill of window cell k at this round's phase (floored:
+    // the offset can be negative).
+    const int k = threadIdx.x;
+    const int off = k >= n_p ? gplan[3] + (k - n_p) : gplan[2] + k;
+    const int a = shifts[round] + off;
+    cell_base[k] = (long long)floor_mod(a, stride) * B * E;
+    cell_spill[k] = floor_div(a, stride);
+  }
   __syncthreads();
 
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= (long long)B * E) return;
-  const int b = (int)(t / E);
-  const int i = (int)(t - (long long)b * E);
-  const int shift = shifts[round];
+  const long long row = t / E * E;
+  const int i = (int)(t - row);
 
-  const int n_p = plan[0], p_lo = plan[2], d_lo = plan[3];
-  const int S = plan[4], n_levels = plan[5], wr_bits = plan[6];
-  const int off_wr = plan[7], n_cells = plan[8];
-
-  int cells[MAX_CELLS];
-  long long addr[MAX_CELLS];
-  for (int k = 0; k < n_cells; ++k) {
-    const bool data = k >= n_p;
-    const int a = shift + (data ? d_lo + (k - n_p) : p_lo + k);
-    const int c = floor_mod(a, stride);
-    const int e = floor_div(a, stride);
-    addr[k] = ((long long)c * B + b) * E + floor_mod(i + e, E);
-    cells[k] = (data ? d_st : p_st)[addr[k]];
+  u64 w[NW];
+  long long addr[8 * NW];
+#pragma unroll
+  for (int q = 0; q < NW; ++q) w[q] = 0ull;
+#pragma unroll
+  for (int k = 0; k < 8 * NW; ++k) {
+    if (k < n_cells) {
+      int col = i + cell_spill[k];
+      if (col < 0 || col >= E) col = floor_mod(col, E);
+      addr[k] = cell_base[k] + row + col;
+      const int8_t v = (k >= n_p ? d_st : p_st)[addr[k]];
+      w[k >> 3] |= (u64)(uint8_t)v << (8 * (k & 7));
+    }
   }
 
   // Level-synchronous walk: live states are S + local id, terminal
   // states (< S) are the write spec.
+  const int S = plan[4], n_levels = plan[5];
   int state = S;
   double u = uniforms ? (double)uniforms[t] : 0.0;
   for (int l = 0; l < n_levels; ++l) {
@@ -112,9 +153,9 @@ __global__ void plane_round_kernel(int8_t* __restrict__ p_st,
     const int* cg = plan + lv[1];
     int branch = 0;
     if (n_cg > 0) {
-      branch = cells[cg[0]];
+      branch = cell_at<NW>(w, cg[0]);
       for (int g = 1; g < n_cg; ++g)
-        if (state >= S + cg[2 * g + 1]) branch = cells[cg[2 * g]];
+        if (state >= S + cg[2 * g + 1]) branch = cell_at<NW>(w, cg[2 * g]);
     }
     const int n_groups = lv[2];
     for (int g = 0; g < n_groups; ++g) {
@@ -124,62 +165,74 @@ __global__ void plane_round_kernel(int8_t* __restrict__ p_st,
       const double* cum = fplan + grp[3];
       const double* width = cum + (n_br - 1);
       int bb = 0;
-      double lo = 0.0, w = width[0];
+      double lo = 0.0, wd = width[0];
       for (int j = 1; j < n_br; ++j) {
         if (u >= cum[j - 1]) {
           bb = j;
           lo = cum[j - 1];
-          w = width[j];
+          wd = width[j];
         }
       }
       branch = bb;
       if (grp[4]) {
         // Single branch while the reference's uniform is still float32.
-        u = (double)__fdiv_rn((float)u, (float)w);
+        u = (double)__fdiv_rn((float)u, (float)wd);
       } else {
-        u = __ddiv_rn(__dsub_rn(u, lo), w);
+        u = __ddiv_rn(__dsub_rn(u, lo), wd);
       }
     }
-    const int max_deg = lv[4], bits = lv[5], n_tw = lv[6];
-    const int idx = max(state - S, 0) * max_deg + branch;
-    const int fields = 31 / bits;
-    const int nxt = unpack_field(plan + lv[7], n_tw, floor_div(idx, fields),
-                                 bits * floor_mod(idx, fields), bits);
+    const int idx = max(state - S, 0) * lv[4] + branch;
+    const int nxt = field_at(plan, lv[8], lv[9], lv[6], lv[7], idx, lv[5]);
     if (state >= S) state = nxt;
   }
 
   // Write phase: field `state` of each cell's write words is
   // (writes? << (wr_bits-1) | symbol).
-  const int per = 31 / wr_bits;
-  const int widx = floor_div(state, per);
-  const int sh = wr_bits * floor_mod(state, per);
-  const int* wr = plan + off_wr;
-  for (int k = 0; k < n_cells; ++k) {
-    const int f = unpack_field(plan + wr[2 * k + 1], wr[2 * k], widx, sh,
-                               wr_bits);
-    if ((f >> (wr_bits - 1)) == 1)
-      (k >= n_p ? d_st : p_st)[addr[k]] =
-          (int8_t)(f & ((1 << (wr_bits - 1)) - 1));
+  const int wr_bits = plan[6], off_wr = plan[7];
+  const int off_wf = plan[9], n_wf = plan[10];
+  const bool direct = state >= 0 && state < n_wf;
+#pragma unroll
+  for (int k = 0; k < 8 * NW; ++k) {
+    if (k < n_cells) {
+      const int* wr = plan + off_wr + 2 * k;
+      const int f = direct ? plan[off_wf + state * n_cells + k]
+                           : field_at(plan, 0, 0, wr[0], wr[1], state,
+                                      wr_bits);
+      if ((f >> (wr_bits - 1)) == 1)
+        (k >= n_p ? d_st : p_st)[addr[k]] =
+            (int8_t)(f & ((1 << (wr_bits - 1)) - 1));
+    }
   }
 }
 
 }  // namespace
 
+// n_cells must equal the plan's; it picks the register width.
 extern "C" int ckpe_plane_round(void* p_st, void* d_st, const void* uniforms,
                                 const void* shifts, int round,
                                 const void* plan, int n_int,
-                                const void* fplan, int n_float, int B, int E,
-                                int stride, void* stream) {
+                                const void* fplan, int n_float, int n_cells,
+                                int B, int E, int stride, void* stream) {
   const long long n_sites = (long long)B * E;
-  const int threads = 256;
-  const long long blocks = (n_sites + threads - 1) / threads;
-  const size_t smem = (size_t)n_float * sizeof(double) + n_int * sizeof(int);
   if (n_sites == 0) return (int)cudaGetLastError();
-  plane_round_kernel<<<(unsigned)blocks, threads, smem,
-                       (cudaStream_t)stream>>>(
-      (int8_t*)p_st, (int8_t*)d_st, (const float*)uniforms,
-      (const int*)shifts, round, (const int*)plan, n_int,
-      (const double*)fplan, n_float, B, E, stride);
+  if (n_cells < 1 || n_cells > 8 * MAX_WORDS)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((n_sites + threads - 1) / threads);
+  const size_t smem = (size_t)n_float * sizeof(double) + n_int * sizeof(int);
+  cudaStream_t st = (cudaStream_t)stream;
+#define CKPE_LAUNCH(NW)                                                    \
+  plane_round_kernel<NW><<<blocks, threads, smem, st>>>(                   \
+      (int8_t*)p_st, (int8_t*)d_st, (const float*)uniforms,                \
+      (const int*)shifts, round, (const int*)plan, n_int,                  \
+      (const double*)fplan, n_float, B, E, stride)
+  switch ((n_cells + 7) / 8) {
+    case 1: CKPE_LAUNCH(1); break;
+    case 2: CKPE_LAUNCH(2); break;
+    case 3: CKPE_LAUNCH(3); break;
+    default: CKPE_LAUNCH(4); break;
+  }
+#undef CKPE_LAUNCH
   return (int)cudaGetLastError();
 }
 

@@ -93,9 +93,9 @@ def load() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once."""
     lib = ctypes.CDLL(str(build()[0]))
     # ckpe_plane_round(p_st, d_st, uniforms, shifts, round, plan, n_int,
-    #                  fplan, n_float, B, E, stride, stream)
+    #                  fplan, n_float, n_cells, B, E, stride, stream)
     lib.ckpe_plane_round.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I,
-                                     _I, _I, _I, _P]
+                                     _I, _I, _I, _I, _P]
     lib.ckpe_plane_round.restype = _I
     # ckpe_window_counts(tape, B, L, size_a, cl_k, counts, stream)
     lib.ckpe_window_counts.argtypes = [_P, ctypes.c_longlong, _I, _I, _I,

@@ -488,9 +488,16 @@ def _choose_plan(dm: DeviceMachine):
 # k + floor((s+off)/stride), the floor being -1, 0 or +1.
 
 _PLAN_HEADER = 16
-_LEVEL_WORDS = 8
+_LEVEL_WORDS = 10
 _GROUP_WORDS = 5
-_MAX_CELLS = 32  # csrc/plane_round.cu: MAX_CELLS
+_MAX_CELLS = 32  # csrc/plane_round.cu: 8 * MAX_WORDS
+
+
+def _unpacked(words, bits):
+    """Every field of little-endian packed ``words``, in order."""
+    per = 31 // bits
+    return [(w >> (bits * f)) & ((1 << bits) - 1)
+            for w in words for f in range(per)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -499,14 +506,21 @@ def _kernel_plan(dm: DeviceMachine):
 
     int32 layout (offsets are indices into the same array):
       header  [n_p, n_d, p_lo, d_lo, num_specs, n_levels, wr_bits,
-               off_wr, n_cells, 0...] (16 words)
+               off_wr, n_cells, off_wr_fields, n_wr_fields, 0...]
+              (16 words)
       levels  [n_cg, off_cg, n_groups, off_groups, max_deg, bits,
-               n_trans_words, off_trans_words] per level
+               n_trans_words, off_trans_words, n_trans_fields,
+               off_trans_fields] per level
       cell groups  (cell, lo) pairs
       choose groups  (id_lo, id_hi, n_branches, off_float, f32_div)
-      trans words
+      trans words, then the same fields unpacked
       write table  (n_words, off_words) per cell, then the words
+      write fields  [spec * n_cells + cell] for every packed spec slot
     float64 layout: per choose group cum[0..n-2] then widths[0..n-1].
+
+    The unpacked fields spare the kernel a division per lookup; it
+    reads them for every index the packed words cover and falls back to
+    the words (with the reference's out-of-range rule) only beyond.
     """
     levels = _level_plan(dm)
     groups = _choose_plan(dm)
@@ -525,19 +539,26 @@ def _kernel_plan(dm: DeviceMachine):
                          int(g.f32_div)))
             floats.extend(g.cum)
             floats.extend(g.widths)
-        ints[rec + 4] = lv.max_deg
-        ints[rec + 5] = lv.bits
-        ints[rec + 6] = len(lv.trans_words)
-        ints[rec + 7] = len(ints)
+        fields = _unpacked(lv.trans_words, lv.bits)
+        ints[rec + 4:rec + 10] = [lv.max_deg, lv.bits, len(lv.trans_words),
+                                  len(ints), len(fields),
+                                  len(ints) + len(lv.trans_words)]
         ints.extend(lv.trans_words)
+        ints.extend(fields)
     off_wr = len(ints)
     ints.extend([0, 0] * dm.n_cells)
     for c, words in enumerate(dm.wr_words):
         ints[off_wr + 2 * c] = len(words)
         ints[off_wr + 2 * c + 1] = len(ints)
         ints.extend(words)
-    ints[:9] = [dm.n_p, dm.n_d, dm.p_lo, dm.d_lo, dm.num_specs,
-                len(levels), dm.wr_bits, off_wr, dm.n_cells]
+    per_cell = [_unpacked(words, dm.wr_bits) for words in dm.wr_words]
+    n_wr_fields = min(len(f) for f in per_cell)
+    off_wr_fields = len(ints)
+    for spec in range(n_wr_fields):
+        ints.extend(f[spec] for f in per_cell)
+    ints[:11] = [dm.n_p, dm.n_d, dm.p_lo, dm.d_lo, dm.num_specs,
+                 len(levels), dm.wr_bits, off_wr, dm.n_cells,
+                 off_wr_fields, n_wr_fields]
     return np.asarray(ints, np.int32), np.asarray(floats, np.float64)
 
 
@@ -721,7 +742,8 @@ def plane_round(dm: DeviceMachine, p_st, d_st, shifts, k, uniforms=None,
             p_st.data_ptr(), d_st.data_ptr(), u_ptr, shifts.data_ptr(),
             int(k), ints.data_ptr(), int(ints.numel()),
             floats.data_ptr() if floats.numel() else None,
-            int(floats.numel()), int(B), int(E), int(stride), stream)
+            int(floats.numel()), dm.n_cells, int(B), int(E), int(stride),
+            stream)
     cuda.check(rc, "plane_round")
     plane_round.launches += 1
 

@@ -301,14 +301,18 @@ def _kernel_model_round(dm, p_st, d_st, shift, uniforms):
     """A line-by-line Python model of `csrc/plane_round.cu`'s per-site
     loop, reading only the flat plan arrays (the kernel's inputs)."""
     ints, fl = (a.tolist() for a in tens._kernel_plan(dm))
-    n_p, p_lo, d_lo, S, n_levels, wr_bits, off_wr, n_cells = (
-        ints[0], ints[2], ints[3], ints[4], ints[5], ints[6], ints[7],
-        ints[8])
+    n_p, (p_lo, d_lo, S, n_levels, wr_bits, off_wr, n_cells) = (
+        ints[0], ints[2:9])
+    off_wf, n_wf = ints[9], ints[10]
     stride, B, E = p_st.shape
     sts = (p_st, d_st)
 
-    def unpack(off, n_words, widx, sh, bits):
-        w = ints[off + widx] if 1 <= widx < n_words else ints[off]
+    def field_at(n_fields, off_fields, n_words, off_words, idx, bits):
+        if 0 <= idx < n_fields:
+            return ints[off_fields + idx]
+        per = 31 // bits
+        widx, sh = idx // per, bits * (idx % per)
+        w = ints[off_words + widx] if 1 <= widx < n_words else ints[off_words]
         return (w >> sh) & ((1 << bits) - 1)
 
     for b in range(B):
@@ -323,7 +327,7 @@ def _kernel_model_round(dm, p_st, d_st, shift, uniforms):
             state = S
             u = float(uniforms[b, i]) if uniforms is not None else 0.0
             for lvl in range(n_levels):
-                lv = ints[16 + 8 * lvl:24 + 8 * lvl]
+                lv = ints[16 + 10 * lvl:26 + 10 * lvl]
                 branch = 0
                 if lv[0]:
                     branch = cells[ints[lv[1]]]
@@ -345,15 +349,15 @@ def _kernel_model_round(dm, p_st, d_st, shift, uniforms):
                     u = (float(np.float32(u) / np.float32(w)) if f32_div
                          else (u - lo) / w)
                 idx = max(state - S, 0) * lv[4] + branch
-                fields = 31 // lv[5]
-                nxt = unpack(lv[7], lv[6], idx // fields,
-                             lv[5] * (idx % fields), lv[5])
+                nxt = field_at(lv[8], lv[9], lv[6], lv[7], idx, lv[5])
                 if state >= S:
                     state = nxt
-            per = 31 // wr_bits
             for k in range(n_cells):
-                f = unpack(ints[off_wr + 2 * k + 1], ints[off_wr + 2 * k],
-                           state // per, wr_bits * (state % per), wr_bits)
+                if 0 <= state < n_wf:
+                    f = ints[off_wf + state * n_cells + k]
+                else:
+                    f = field_at(0, 0, ints[off_wr + 2 * k],
+                                 ints[off_wr + 2 * k + 1], state, wr_bits)
                 if f >> (wr_bits - 1) == 1:
                     t, c, col = loc[k]
                     sts[t][c, b, col] = f & ((1 << (wr_bits - 1)) - 1)
