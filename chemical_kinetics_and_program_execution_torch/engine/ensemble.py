@@ -27,10 +27,8 @@ advances time by ``-log1p(-E/L)``.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
-import math
 
 import numpy as np
 import torch
@@ -911,9 +909,10 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
         plane_round(dm, p_st, d_st, shifts, k, uniforms, plan=plan)
     applied = torch.full((num_steps,), B * events, dtype=torch.int64,
                          device=device)
-    dt_round = -torch.log1p(torch.tensor(-events / L, dtype=torch.float64))
+    f64 = config.DEFAULT_FLOAT
+    dt_round = -torch.log1p(torch.tensor(-events / L, dtype=f64))
     times = dt_round.to(device) * torch.arange(
-        1, num_steps + 1, dtype=torch.float64, device=device)
+        1, num_steps + 1, dtype=f64, device=device)
     if keep_planes:
         out = PlaneState(p_st, d_st, batch=B, length=L)
     else:
@@ -978,7 +977,7 @@ def window_counts(tape, size_a: int, cl_k: int, *, device=None):
         tape = tape[None]
     B, L = tape.shape
     counts = _window_counts_int(tape, size_a, cl_k)
-    return counts.to(torch.float64) / (B * L)
+    return counts.to(config.DEFAULT_FLOAT) / (B * L)
 
 
 window_counts.launches = 0
@@ -1009,7 +1008,7 @@ def sample_tapes_from_spd(generator, spd, size_a: int, cl_k: int,
 
     device = config.get_device(device)
     gen = config.make_generator(generator, device)
-    f64 = torch.float64
+    f64 = config.DEFAULT_FLOAT
     n_ctx = size_a ** (cl_k - 1)
     mpp_np = np.asarray(
         mpp_from_spd(np.asarray(spd).reshape([size_a] * cl_k)),

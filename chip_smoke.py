@@ -180,8 +180,15 @@ def main(dev=None):
                 max_err["K1"] = max(max_err["K1"], int(
                     (x.to(torch.int32) - y.to(torch.int32)).abs().max()))
             changed = int((kd != start_d).sum() + (kp != start_p).sum())
+            it = iter(range(10 ** 9))
+            cycle = torch.arange(STRIDE, dtype=torch.int32, device=dev)
+            ms = cuda_ms(lambda: ens.plane_round(
+                dm, kp, kd, cycle, next(it) % STRIDE,
+                u[0] if dm.has_choose else None, plan=plan), 200)
             say(f"K1 {tag}: {STRIDE} rounds, shifts {shifts.tolist()}, "
-                f"bit-identical to plain; {changed} cells changed")
+                f"bit-identical to plain; {changed} cells changed; "
+                f"{ms * 1e3:.2f} us a round (every phase in turn), bound "
+                f"{k1_bytes(dm) / HBM_BYTES_PER_S * 1e6:.2f} us")
             if changed == 0:
                 raise AssertionError(f"K1 changed nothing on {tag}")
 

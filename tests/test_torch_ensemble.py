@@ -86,6 +86,13 @@ def _planes(tape, stride):
                                 stride)
 
 
+def _to_jax(t):
+    """A JAX copy of a torch tensor. (A view could alias memory that the
+    port then updates in place while JAX's asynchronous dispatch still
+    reads it.)"""
+    return jnp.array(t.numpy(), copy=True)
+
+
 @functools.lru_cache(maxsize=None)
 def _jax_round(tag):
     jdm = _machines(tag)[0]
@@ -151,7 +158,7 @@ def test_one_round_matches_jax_every_shift(tag):
     for shift in range(stride):
         u = jax.random.uniform(keys[shift], (B, E), dtype=jnp.float32)
         p_st, d_st = _planes(pt, stride), _planes(dt, stride)
-        wp, wd = jround(jnp.asarray(p_st.numpy()), jnp.asarray(d_st.numpy()),
+        wp, wd = jround(_to_jax(p_st), _to_jax(d_st),
                         jnp.int32(shift), u)
         tens.run_rounds(tdm, p_st, d_st,
                         torch.tensor([shift], dtype=torch.int32),
@@ -191,7 +198,7 @@ def test_one_round_matches_jax_rare_branches(tag):
     for shift in range(stride):
         pt, dt, u = _active_draws(rng, tag, tdm.size_a, B, L, E)
         p_st, d_st = _planes(pt, stride), _planes(dt, stride)
-        wp, wd = jround(jnp.asarray(p_st.numpy()), jnp.asarray(d_st.numpy()),
+        wp, wd = jround(_to_jax(p_st), _to_jax(d_st),
                         jnp.int32(shift), jnp.asarray(u))
         tens.run_rounds(tdm, p_st, d_st,
                         torch.tensor([shift], dtype=torch.int32),
@@ -214,7 +221,7 @@ def test_fifty_rounds_match_jax(tag):
     uniforms = rng.rand(n, B, E).astype(np.float32)
     jround = _jax_round(tag)
     p_st, d_st = _planes(pt, stride), _planes(dt, stride)
-    jp, jd = jnp.asarray(p_st.numpy()), jnp.asarray(d_st.numpy())
+    jp, jd = _to_jax(p_st), _to_jax(d_st)
     for k in range(n):
         jp, jd = jround(jp, jd, jnp.int32(shifts[k]),
                         jnp.asarray(uniforms[k]))
