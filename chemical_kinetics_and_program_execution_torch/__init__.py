@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of `chemical_kinetics_and_program_execution_tpu`.
+"""PyTorch/CUDA port of the JAX package beside it.
 
 The JAX package beside this one is the reference; this package imports
 neither it nor `jax`. It keeps the reference's module layout where that

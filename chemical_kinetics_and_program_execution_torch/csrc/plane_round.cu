@@ -95,8 +95,21 @@ __device__ __forceinline__ int cell_at(const u64 (&w)[NW], int idx) {
   return (int)(int8_t)(uint8_t)(s >> (8 * (idx & 7)));
 }
 
+// Address of window cell k of the site at (row, i), from the per-block
+// plane base and spill.
+__device__ __forceinline__ long long cell_addr(const long long* base,
+                                               const int* spill, int k,
+                                               long long row, int i, int E) {
+  int col = i + spill[k];
+  if (col < 0 || col >= E) col = floor_mod(col, E);
+  return base[k] + row + col;
+}
+
+// At most 32 registers a thread at 256 threads a block, so that a whole
+// SM's worth of warps is resident: the walk is latency-bound, and the
+// window's addresses are recomputed at the write rather than held.
 template <int NW>
-__global__ void plane_round_kernel(int8_t* __restrict__ p_st,
+__global__ void __launch_bounds__(256, 8) plane_round_kernel(int8_t* __restrict__ p_st,
                                    int8_t* __restrict__ d_st,
                                    const float* __restrict__ uniforms,
                                    const int* __restrict__ shifts, int round,
@@ -128,16 +141,13 @@ __global__ void plane_round_kernel(int8_t* __restrict__ p_st,
   const int i = (int)(t - row);
 
   u64 w[NW];
-  long long addr[8 * NW];
 #pragma unroll
   for (int q = 0; q < NW; ++q) w[q] = 0ull;
 #pragma unroll
   for (int k = 0; k < 8 * NW; ++k) {
     if (k < n_cells) {
-      int col = i + cell_spill[k];
-      if (col < 0 || col >= E) col = floor_mod(col, E);
-      addr[k] = cell_base[k] + row + col;
-      const int8_t v = (k >= n_p ? d_st : p_st)[addr[k]];
+      const int8_t v = (k >= n_p ? d_st : p_st)[cell_addr(
+          cell_base, cell_spill, k, row, i, E)];
       w[k >> 3] |= (u64)(uint8_t)v << (8 * (k & 7));
     }
   }
@@ -199,7 +209,8 @@ __global__ void plane_round_kernel(int8_t* __restrict__ p_st,
                            : field_at(plan, 0, 0, wr[0], wr[1], state,
                                       wr_bits);
       if ((f >> (wr_bits - 1)) == 1)
-        (k >= n_p ? d_st : p_st)[addr[k]] =
+        (k >= n_p ? d_st : p_st)[cell_addr(cell_base, cell_spill, k, row,
+                                           i, E)] =
             (int8_t)(f & ((1 << (wr_bits - 1)) - 1));
     }
   }

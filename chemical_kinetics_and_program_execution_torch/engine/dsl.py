@@ -1,6 +1,6 @@
 """Reaction-rule DSL and the problem registry.
 
-Counterpart of `chemical_kinetics_and_program_execution_tpu/engine/dsl.py`.
+Counterpart of the JAX package's `engine/dsl.py`.
 A rule is a plain Python function ``rule(t)`` over a :class:`Tape`
 context:
 

@@ -1,6 +1,6 @@
 """Ensemble mode: step a batch of concrete tapes in lockstep.
 
-Counterpart of `chemical_kinetics_and_program_execution_tpu/engine/ensemble.py`,
+Counterpart of the JAX package's `engine/ensemble.py`,
 first slice: the decision-machine compiler, the stacked-plane FSM round
 behind `run_ensemble`, and the observables `window_counts` and
 `sample_tapes_from_spd`.

@@ -1,6 +1,6 @@
 """Host-side multiverse enumeration (the compile-time half of the engine).
 
-Counterpart of `chemical_kinetics_and_program_execution_tpu/engine/enumerate.py`.
+Counterpart of the JAX package's `engine/enumerate.py`.
 The branch *structure* of a rule depends only on revealed symbol values
 and choice indices, so the complete multiverse is enumerated once, by
 re-executing the (deterministic, replayable) rule with an odometer over

@@ -1,7 +1,7 @@
 """Markov-process helpers over sequence probability distributions (SPDs).
 
 Numpy copies of the two helpers of
-`chemical_kinetics_and_program_execution_tpu/markov.py` that the ensemble
+the JAX package's `markov.py` that the ensemble
 slice needs: `mpp_from_spd` (the sampler's conditional next-symbol
 probabilities) and `pyramid_offsets` (the enumerator's pyramid layout).
 The rest arrives with the exact-closure slice.

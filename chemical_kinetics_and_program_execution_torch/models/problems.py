@@ -1,7 +1,7 @@
 """The built-in reaction rules the port's ensemble slice runs.
 
 Numpy-free copies of three registrations of
-`chemical_kinetics_and_program_execution_tpu/models/problems.py`, with
+the JAX package's `models/problems.py`, with
 tape-access and ``choose`` ordering kept identical so the enumerated
 multiverse matches branch for branch:
 

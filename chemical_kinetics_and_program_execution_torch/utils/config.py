@@ -1,6 +1,6 @@
 """Device and dtype defaults for the PyTorch port.
 
-Counterpart of `chemical_kinetics_and_program_execution_tpu/utils/config.py`.
+Counterpart of the JAX package's `utils/config.py`.
 There, float64 is switched on in JAX at import time; here every tensor
 on a float64 path names its dtype, and `DEFAULT_FLOAT` is that dtype.
 """

@@ -56,11 +56,11 @@ TAGS = ["ex5-msrtf-machine", "ex4-chemical-turing", "ex2-ferromagnetic-chain"]
 # Symbols that reach ex4's reverse reaction at a useful rate.
 ACTIVE_SYMBOLS = {"ex4-chemical-turing": ((6, 7), (0, 1, 2, 3, 4, 5))}
 K1_REPLACES = ("probes/pallas_plane_round.py:41 fsm_kernel; "
-               "probes/pallas_packed32.py:126 fsm_kernel_packed; "
-               "chemical_kinetics_and_program_execution_tpu/engine/"
-               "ensemble.py:1170 _apply_plane_round_fsm_stacked")
-K2_REPLACES = ("chemical_kinetics_and_program_execution_tpu/engine/"
-               "ensemble.py:2919 window_counts (XLA)")
+               "probes/pallas_packed32.py:126 fsm_kernel_packed; the JAX "
+               "package's engine/ensemble.py:1170 "
+               "_apply_plane_round_fsm_stacked (XLA)")
+K2_REPLACES = ("the JAX package's engine/ensemble.py:2919 window_counts "
+               "(XLA)")
 
 
 def say(*parts):
@@ -82,10 +82,12 @@ class Phase:
         return False
 
 
-def cuda_ms(fn, reps, warmup=3):
+def cuda_ms(fn, reps, warmup=3, host=None):
     """Mean device milliseconds per call of ``fn`` by CUDA events. A
     sleep kernel holds the stream while the host queues the calls, so
-    host-side launch cost does not show in the time."""
+    host-side launch cost does not show in the time; the host's own
+    milliseconds per call (queueing only) go to ``host[0]`` when a list
+    is given."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -93,8 +95,11 @@ def cuda_ms(fn, reps, warmup=3):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    if host is not None:
+        host[:] = [(time.perf_counter() - t0) * 1e3 / reps]
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
@@ -279,8 +284,10 @@ def main(dev=None):
                                device=dev, dtype=torch.int32)
         plan = ens.device_plan(dm, dev)
         it = iter(range(reps + 3))
+        host = []
         k1_ms = cuda_ms(lambda: ens.plane_round(dm, p_st, d_st, shifts,
-                                                next(it), plan=plan), reps)
+                                                next(it), plan=plan), reps,
+                        host=host)
         it = iter(range(5 + 3))
         k1_plain_ms = cuda_ms(lambda: ens.plane_round_plain(
             dm, p_st, d_st, shifts, next(it)), 5)
@@ -288,7 +295,8 @@ def main(dev=None):
         say(f"K1: {k1_ms * 1e3:.2f} us/round against a bound of "
             f"{k1_bound * 1e3:.2f} us ({k1_bytes(dm) / 1e6:.1f} MB at "
             f"3.35 TB/s): {k1_bound / k1_ms:.3f} of the bound; "
-            f"plain {k1_plain_ms:.3f} ms")
+            f"plain {k1_plain_ms:.3f} ms; host {host[0] * 1e3:.2f} us a "
+            "launch (wrapper checks + ctypes call)")
 
         k2_ms = cuda_ms(lambda: ens._window_counts_int(pt, dm.size_a, CL_K),
                         20)
