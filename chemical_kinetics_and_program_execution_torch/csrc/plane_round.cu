@@ -96,10 +96,10 @@ __device__ __forceinline__ int cell_at(const u64 (&w)[NW], int idx) {
 }
 
 // Address of window cell k of the site at (row, i), from the per-block
-// plane base and spill.
-__device__ __forceinline__ long long cell_addr(const long long* base,
-                                               const int* spill, int k,
-                                               long long row, int i, int E) {
+// plane base and spill. 32-bit: the wrapper keeps the planes under 2^31
+// symbols.
+__device__ __forceinline__ int cell_addr(const int* base, const int* spill,
+                                         int k, int row, int i, int E) {
   int col = i + spill[k];
   if (col < 0 || col >= E) col = floor_mod(col, E);
   return base[k] + row + col;
@@ -109,15 +109,15 @@ __device__ __forceinline__ long long cell_addr(const long long* base,
 // SM's worth of warps is resident: the walk is latency-bound, and the
 // window's addresses are recomputed at the write rather than held.
 template <int NW>
-__global__ void __launch_bounds__(256, 8) plane_round_kernel(int8_t* __restrict__ p_st,
-                                   int8_t* __restrict__ d_st,
-                                   const float* __restrict__ uniforms,
-                                   const int* __restrict__ shifts, int round,
-                                   const int* __restrict__ gplan, int n_int,
-                                   const double* __restrict__ gfplan,
-                                   int n_float, int B, int E, int stride) {
+__global__ void __launch_bounds__(256, 8)
+    plane_round_kernel(int8_t* __restrict__ p_st, int8_t* __restrict__ d_st,
+                       const float* __restrict__ uniforms,
+                       const int* __restrict__ shifts, int round,
+                       const int* __restrict__ gplan, int n_int,
+                       const double* __restrict__ gfplan, int n_float, int B,
+                       int E, int stride) {
   extern __shared__ double smem[];
-  __shared__ long long cell_base[8 * MAX_WORDS];
+  __shared__ int cell_base[8 * MAX_WORDS];
   __shared__ int cell_spill[8 * MAX_WORDS];
   double* fplan = smem;
   int* plan = reinterpret_cast<int*>(smem + n_float);
@@ -130,15 +130,15 @@ __global__ void __launch_bounds__(256, 8) plane_round_kernel(int8_t* __restrict_
     const int k = threadIdx.x;
     const int off = k >= n_p ? gplan[3] + (k - n_p) : gplan[2] + k;
     const int a = shifts[round] + off;
-    cell_base[k] = (long long)floor_mod(a, stride) * B * E;
+    cell_base[k] = floor_mod(a, stride) * B * E;
     cell_spill[k] = floor_div(a, stride);
   }
   __syncthreads();
 
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * E) return;
-  const long long row = t / E * E;
-  const int i = (int)(t - row);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= B * E) return;
+  const int i = t % E;
+  const int row = t - i;
 
   u64 w[NW];
 #pragma unroll
@@ -226,6 +226,7 @@ extern "C" int ckpe_plane_round(void* p_st, void* d_st, const void* uniforms,
                                 int B, int E, int stride, void* stream) {
   const long long n_sites = (long long)B * E;
   if (n_sites == 0) return (int)cudaGetLastError();
+  if (n_sites * stride >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   if (n_cells < 1 || n_cells > 8 * MAX_WORDS)
     return (int)cudaErrorInvalidValue;
   const int threads = 256;

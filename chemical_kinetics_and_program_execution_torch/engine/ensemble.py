@@ -696,6 +696,8 @@ def _check_planes(dm, p_st, d_st, shifts, k, uniforms):
             raise ValueError(
                 f"{dm.tag} has choose nodes: uniforms must be a "
                 f"contiguous float32 [{B}, {E}] tensor")
+    if p_st.numel() >= 2**31:
+        raise ValueError("K1 takes planes of fewer than 2**31 symbols")
     if dm.n_cells > _MAX_CELLS:
         raise ValueError(
             f"{dm.tag} reads {dm.n_cells} window cells; K1 takes at most "
@@ -721,12 +723,13 @@ def plane_round(dm: DeviceMachine, p_st, d_st, shifts, k, uniforms=None,
         return
     if dev.type != "cuda":
         raise ValueError(f"K1 runs on cuda or cpu tensors, not {dev}")
-    for name, t in (("d_st", d_st), ("shifts", shifts)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, planes on {dev}")
     if plan is None:
         plan = device_plan(dm, dev)
     ints, floats = plan
+    for name, t in (("d_st", d_st), ("shifts", shifts), ("plan", ints),
+                    ("plan", floats)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, planes on {dev}")
     u_ptr = None
     if dm.has_choose:
         if uniforms.device != dev:
