@@ -70,9 +70,10 @@ def build() -> tuple[Path, str, float]:
     target = library_path()
     if target.exists():
         return target, "", 0.0
+    compiler = nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

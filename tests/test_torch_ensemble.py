@@ -27,6 +27,7 @@ from chemical_kinetics_and_program_execution_tpu.engine import (
 from chemical_kinetics_and_program_execution_tpu.engine import (
     enumerate as jenum,
 )
+from chemical_kinetics_and_program_execution_torch import cuda
 from chemical_kinetics_and_program_execution_torch.engine import dsl as tdsl
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as tens,
@@ -579,3 +580,16 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    """Without `nvcc` the build raises (nothing falls back to the plain
+    versions on a card) and leaves no build directory behind."""
+    monkeypatch.setattr(cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(cuda.Path, "is_file", lambda self: False)
+    monkeypatch.setattr(cuda, "library_path",
+                        lambda: cuda.BUILD_DIR / "absent.so")
+    existed = cuda.BUILD_DIR.exists()
+    with pytest.raises(FileNotFoundError, match="nvcc"):
+        cuda.build()
+    assert cuda.BUILD_DIR.exists() == existed
