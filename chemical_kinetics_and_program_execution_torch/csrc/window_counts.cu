@@ -84,3 +84,7 @@ extern "C" int ckpe_window_counts(const void* tape, long long B, int L,
       (unsigned long long*)counts, shared_hist);
   return (int)cudaGetLastError();
 }
+
+extern "C" const char* ckpe_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

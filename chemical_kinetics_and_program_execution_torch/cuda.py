@@ -1,12 +1,18 @@
 """Builds the port's CUDA kernels and binds them with ctypes.
 
-One `nvcc` call compiles every source under `csrc/` into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library lands in `_build/` beside this file, named by a
-hash of the sources and flags: a changed source builds anew, an
-unchanged one loads the library already there. The new library is
-written under a temporary name and renamed into place, so concurrent
-builds need no lock file.
+Two kinds of library, both with a plain C interface (no PyTorch headers,
+so a build takes seconds) and both landing in `_build/` beside this file:
+
+- `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2) into
+  one shared library;
+- `build_unit`: one `nvcc` call compiles one generated translation unit,
+  which includes headers from `csrc/` (K1, one library per decision
+  machine, from `engine/k1_source.py`).
+
+Each library is named by a hash of what goes into it (sources, included
+templates, flags): a changed source builds anew, an unchanged one loads
+the library already there. A new library is written under a temporary
+name and renamed into place, so concurrent builds need no lock file.
 
 Each C entry point launches on the stream it is given and returns
 `cudaGetLastError()`; `check` raises when that is not 0.
@@ -37,16 +43,17 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def _digest() -> str:
+def _digest(paths, text: str = "") -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC_DIR.iterdir()):
+    h.update(text.encode())
+    for path in paths:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
 def library_path() -> Path:
-    return BUILD_DIR / f"{LIB_STEM}-{_digest()}.so"
+    return BUILD_DIR / f"{LIB_STEM}-{_digest(sources())}.so"
 
 
 def nvcc() -> str:
@@ -62,18 +69,16 @@ def nvcc() -> str:
         "kernels cannot be built")
 
 
-def build() -> tuple[Path, str, float]:
-    """Compiles `csrc/*.cu` with one `nvcc` call unless the library for
-    these sources is already built. Returns (library path, nvcc's
-    output with the `-Xptxas -v` resource lines, seconds spent; 0 when
-    nothing was built)."""
-    target = library_path()
+def _compile(target: Path, inputs, extra=()) -> tuple[Path, str, float]:
+    """One `nvcc` call from ``inputs`` into ``target`` unless it exists.
+    Returns (target, nvcc's output with the `-Xptxas -v` resource lines,
+    seconds spent; 0 when nothing was built)."""
     if target.exists():
         return target, "", 0.0
     compiler = nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [compiler, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    cmd = [compiler, *NVCC_FLAGS, *extra, "-o", str(tmp), *map(str, inputs)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -85,6 +90,36 @@ def build() -> tuple[Path, str, float]:
     return target, proc.stdout + proc.stderr, seconds
 
 
+def build() -> tuple[Path, str, float]:
+    """Compiles `csrc/*.cu` with one `nvcc` call unless the library for
+    these sources is already built; returns as `_compile`."""
+    return _compile(library_path(), sources())
+
+
+def unit_library_path(stem: str, source: str) -> Path:
+    """Where `build_unit` puts the library of ``source``: named by a hash
+    of the unit, the headers `csrc/*.cuh` and the flags."""
+    digest = _digest(sorted(CSRC_DIR.glob("*.cuh")), source)
+    return BUILD_DIR / f"lib{stem}-{digest}.so"
+
+
+def build_unit(stem: str, source: str) -> tuple[Path, str, float]:
+    """Compiles one generated translation unit ``source``, which may
+    include the headers `csrc/*.cuh`, into `_build/lib{stem}-{hash}.so`
+    unless it is already built; returns as `_compile`. The unit is kept
+    beside the library as `{stem}-{hash}.cu`."""
+    target = unit_library_path(stem, source)
+    if target.exists():
+        return target, "", 0.0
+    nvcc()  # raises before any directory is made when there is none
+    BUILD_DIR.mkdir(exist_ok=True)
+    unit = target.with_name(f"{target.stem[3:]}.cu")
+    tmp = unit.with_name(f"{unit.name}.{os.getpid()}.tmp")
+    tmp.write_text(source)
+    os.replace(tmp, unit)
+    return _compile(target, [unit], ("-I", str(CSRC_DIR)))
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
@@ -93,11 +128,6 @@ _I = ctypes.c_int
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once."""
     lib = ctypes.CDLL(str(build()[0]))
-    # ckpe_plane_round(p_st, d_st, uniforms, shifts, round, plan, n_int,
-    #                  fplan, n_float, n_cells, B, E, stride, stream)
-    lib.ckpe_plane_round.argtypes = [_P, _P, _P, _P, _I, _P, _I, _P, _I,
-                                     _I, _I, _I, _I, _P]
-    lib.ckpe_plane_round.restype = _I
     # ckpe_window_counts(tape, B, L, size_a, cl_k, counts, stream)
     lib.ckpe_window_counts.argtypes = [_P, ctypes.c_longlong, _I, _I, _I,
                                        _P, _P]
@@ -107,8 +137,8 @@ def load() -> ctypes.CDLL:
     return lib
 
 
-def check(rc: int, name: str) -> None:
-    """Raises when a C entry point reported a CUDA error."""
+def check(rc: int, name: str, lib: ctypes.CDLL) -> None:
+    """Raises when a C entry point of ``lib`` reported a CUDA error."""
     if rc:
-        msg = load().ckpe_error_string(rc).decode()
+        msg = lib.ckpe_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} at launch: {msg}")

@@ -9,7 +9,9 @@ Two kernels carry the device work (sources in `csrc/`, built by
 `cuda.py`):
 
 - **K1** `plane_round` — one stratified round on the stacked int8 planes,
-  in place. It replaces the reference's `_apply_plane_round_fsm_stacked`,
+  in place, compiled for each decision machine (`k1_source.py` writes
+  the machine's unit, `csrc/plane_round.cuh` is the kernel). It replaces
+  the reference's `_apply_plane_round_fsm_stacked`,
   `_machine_specs_planes_leveled` and `_machine_writes_planes` (and the
   Pallas probes `probes/pallas_plane_round.py:fsm_kernel` and
   `probes/pallas_packed32.py:fsm_kernel_packed`, which compute the same
@@ -485,88 +487,11 @@ def _choose_plan(dm: DeviceMachine):
 # cell at offset `off` lives in plane (s+off) mod stride at element
 # k + floor((s+off)/stride), the floor being -1, 0 or +1.
 
-_PLAN_HEADER = 16
-_LEVEL_WORDS = 10
-_GROUP_WORDS = 5
-_MAX_CELLS = 32  # csrc/plane_round.cu: 8 * MAX_WORDS
-
-
 def _unpacked(words, bits):
     """Every field of little-endian packed ``words``, in order."""
     per = 31 // bits
     return [(w >> (bits * f)) & ((1 << bits) - 1)
             for w in words for f in range(per)]
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_plan(dm: DeviceMachine):
-    """The machine flattened for K1: an int32 and a float64 array.
-
-    int32 layout (offsets are indices into the same array):
-      header  [n_p, n_d, p_lo, d_lo, num_specs, n_levels, wr_bits,
-               off_wr, n_cells, off_wr_fields, n_wr_fields, 0...]
-              (16 words)
-      levels  [n_cg, off_cg, n_groups, off_groups, max_deg, bits,
-               n_trans_words, off_trans_words, n_trans_fields,
-               off_trans_fields] per level
-      cell groups  (cell, lo) pairs
-      choose groups  (id_lo, id_hi, n_branches, off_float, f32_div)
-      trans words, then the same fields unpacked
-      write table  (n_words, off_words) per cell, then the words
-      write fields  [spec * n_cells + cell] for every packed spec slot
-    float64 layout: per choose group cum[0..n-2] then widths[0..n-1].
-
-    The unpacked fields spare the kernel a division per lookup; it
-    reads them for every index the packed words cover and falls back to
-    the words (with the reference's out-of-range rule) only beyond.
-    """
-    levels = _level_plan(dm)
-    groups = _choose_plan(dm)
-    ints = [0] * (_PLAN_HEADER + _LEVEL_WORDS * len(levels))
-    floats: list[float] = []
-    for li, (lv, grp) in enumerate(zip(levels, groups)):
-        rec = _PLAN_HEADER + _LEVEL_WORDS * li
-        ints[rec + 0] = len(lv.cell_groups)
-        ints[rec + 1] = len(ints)
-        for cell, lo in lv.cell_groups:
-            ints.extend((cell, lo))
-        ints[rec + 2] = len(grp)
-        ints[rec + 3] = len(ints)
-        for g in grp:
-            ints.extend((g.id_lo, g.id_hi, len(g.widths), len(floats),
-                         int(g.f32_div)))
-            floats.extend(g.cum)
-            floats.extend(g.widths)
-        fields = _unpacked(lv.trans_words, lv.bits)
-        ints[rec + 4:rec + 10] = [lv.max_deg, lv.bits, len(lv.trans_words),
-                                  len(ints), len(fields),
-                                  len(ints) + len(lv.trans_words)]
-        ints.extend(lv.trans_words)
-        ints.extend(fields)
-    off_wr = len(ints)
-    ints.extend([0, 0] * dm.n_cells)
-    for c, words in enumerate(dm.wr_words):
-        ints[off_wr + 2 * c] = len(words)
-        ints[off_wr + 2 * c + 1] = len(ints)
-        ints.extend(words)
-    per_cell = [_unpacked(words, dm.wr_bits) for words in dm.wr_words]
-    n_wr_fields = min(len(f) for f in per_cell)
-    off_wr_fields = len(ints)
-    for spec in range(n_wr_fields):
-        ints.extend(f[spec] for f in per_cell)
-    ints[:11] = [dm.n_p, dm.n_d, dm.p_lo, dm.d_lo, dm.num_specs,
-                 len(levels), dm.wr_bits, off_wr, dm.n_cells,
-                 off_wr_fields, n_wr_fields]
-    return np.asarray(ints, np.int32), np.asarray(floats, np.float64)
-
-
-def device_plan(dm: DeviceMachine, device) -> tuple[torch.Tensor,
-                                                   torch.Tensor]:
-    """:func:`_kernel_plan` as tensors on ``device`` (one small copy;
-    build it once per run and pass it to every :func:`plane_round`)."""
-    ints, floats = _kernel_plan(dm)
-    return (torch.as_tensor(ints, device=device),
-            torch.as_tensor(floats, device=device))
 
 
 def _unpack_field(words, widx, shift_amt, bits):
@@ -675,7 +600,9 @@ def plane_round_plain(dm: DeviceMachine, p_st, d_st, shifts, k,
 plane_round_plain.calls = 0
 
 
-def _check_planes(dm, p_st, d_st, shifts, k, uniforms):
+def _check_planes(dm, p_st, d_st, shifts, k0, n, uniforms):
+    """Checks the planes, ``shifts`` and the uniforms of rounds
+    [k0, k0+n) (``uniforms`` [n, B, E], read only by choose machines)."""
     if p_st.dtype != torch.int8 or d_st.dtype != torch.int8:
         raise TypeError("planes must be int8")
     if p_st.dim() != 3 or p_st.shape != d_st.shape:
@@ -686,67 +613,67 @@ def _check_planes(dm, p_st, d_st, shifts, k, uniforms):
         raise ValueError("planes must be contiguous")
     if shifts.dtype != torch.int32 or shifts.dim() != 1:
         raise TypeError("shifts must be a 1-D int32 tensor")
-    if not 0 <= k < shifts.shape[0]:
-        raise IndexError(f"round {k} outside shifts[0:{shifts.shape[0]}]")
+    if not (0 <= k0 and k0 + n <= shifts.shape[0]):
+        raise IndexError(f"rounds [{k0}, {k0 + n}) outside "
+                         f"shifts[0:{shifts.shape[0]}]")
+    dev = p_st.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"K1 runs on cuda or cpu tensors, not {dev}")
+    for name, t in (("d_st", d_st), ("shifts", shifts)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, planes on {dev}")
     if dm.has_choose:
         _, B, E = p_st.shape
         if (uniforms is None or uniforms.dtype != torch.float32
-                or tuple(uniforms.shape) != (B, E)
+                or tuple(uniforms.shape) != (n, B, E)
                 or not uniforms.is_contiguous()):
             raise ValueError(
                 f"{dm.tag} has choose nodes: uniforms must be a "
-                f"contiguous float32 [{B}, {E}] tensor")
+                f"contiguous float32 [{n}, {B}, {E}] tensor")
+        if uniforms.device != dev:
+            raise ValueError(f"uniforms on {uniforms.device}, planes on {dev}")
     if p_st.numel() >= 2**31:
         raise ValueError("K1 takes planes of fewer than 2**31 symbols")
-    if dm.n_cells > _MAX_CELLS:
-        raise ValueError(
-            f"{dm.tag} reads {dm.n_cells} window cells; K1 takes at most "
-            f"{_MAX_CELLS}")
 
 
-def plane_round(dm: DeviceMachine, p_st, d_st, shifts, k, uniforms=None,
-                *, plan=None):
+def _rounds(dm, p_st, d_st, shifts, k0, n, uniforms):
+    """Rounds [k0, k0+n), checked by the caller: the plain version a
+    round on the CPU; on the card one C call that launches K1 once a
+    round on the current stream."""
+    if p_st.device.type == "cpu":
+        for j in range(n):
+            plane_round_plain(dm, p_st, d_st, shifts, k0 + j,
+                              None if uniforms is None else uniforms[j])
+        return
+    from .k1_source import k1_library
+
+    lib = k1_library(dm)
+    stride, B, E = p_st.shape
+    u_ptr = uniforms.data_ptr() if dm.has_choose else None
+    with torch.cuda.device(p_st.device):
+        stream = torch.cuda.current_stream(p_st.device).cuda_stream
+        rc = lib.ckpe_k1_rounds(p_st.data_ptr(), d_st.data_ptr(), u_ptr,
+                                shifts.data_ptr(), int(k0), int(n), int(B),
+                                int(E), int(stride), stream)
+    cuda.check(rc, "plane_round", lib)
+    plane_round.launches += n
+
+
+def plane_round(dm: DeviceMachine, p_st, d_st, shifts, k, uniforms=None):
     """Round ``k`` of a run on the stacked planes, in place (K1).
 
     ``shifts`` is the run's int32 phase array on the planes' device; the
     kernel reads ``shifts[k]`` there, so no round waits on the host.
     ``uniforms`` ([B, E] float32) is read only by machines with choose
-    nodes. ``plan`` is :func:`device_plan` (built here when omitted).
+    nodes.
 
-    CPU tensors take :func:`plane_round_plain`; CUDA tensors launch
-    `csrc/plane_round.cu`.
+    CPU tensors take :func:`plane_round_plain`; CUDA tensors launch the
+    machine's K1 (`k1_source.k1_library`).
     """
-    _check_planes(dm, p_st, d_st, shifts, k, uniforms)
-    dev = p_st.device
-    if dev.type == "cpu":
-        plane_round_plain(dm, p_st, d_st, shifts, k, uniforms)
-        return
-    if dev.type != "cuda":
-        raise ValueError(f"K1 runs on cuda or cpu tensors, not {dev}")
-    if plan is None:
-        plan = device_plan(dm, dev)
-    ints, floats = plan
-    for name, t in (("d_st", d_st), ("shifts", shifts), ("plan", ints),
-                    ("plan", floats)):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, planes on {dev}")
-    u_ptr = None
-    if dm.has_choose:
-        if uniforms.device != dev:
-            raise ValueError(f"uniforms on {uniforms.device}, planes on {dev}")
-        u_ptr = uniforms.data_ptr()
-    stride, B, E = p_st.shape
-    lib = cuda.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ckpe_plane_round(
-            p_st.data_ptr(), d_st.data_ptr(), u_ptr, shifts.data_ptr(),
-            int(k), ints.data_ptr(), int(ints.numel()),
-            floats.data_ptr() if floats.numel() else None,
-            int(floats.numel()), dm.n_cells, int(B), int(E), int(stride),
-            stream)
-    cuda.check(rc, "plane_round")
-    plane_round.launches += 1
+    if uniforms is not None:
+        uniforms = uniforms[None]
+    _check_planes(dm, p_st, d_st, shifts, k, 1, uniforms)
+    _rounds(dm, p_st, d_st, shifts, k, 1, uniforms)
 
 
 plane_round.launches = 0
@@ -824,16 +751,18 @@ def run_rounds(dm: DeviceMachine, p_st, d_st, shifts, uniforms=None):
 
     This is `run_ensemble`'s round loop without the random draws, so a
     caller can feed it draws made elsewhere (the tests feed it the JAX
-    package's own).
+    package's own). On the card every round is launched from one C call.
     """
     if dm.has_choose and uniforms is None:
         raise ValueError(f"{dm.tag} has choose nodes: pass uniforms")
-    plan = None if p_st.device.type == "cpu" else device_plan(dm,
-                                                             p_st.device)
-    for k in range(shifts.shape[0]):
-        plane_round(dm, p_st, d_st, shifts, k,
-                    None if uniforms is None else uniforms[k], plan=plan)
+    n = shifts.shape[0]
+    _check_planes(dm, p_st, d_st, shifts, 0, n, uniforms)
+    _rounds(dm, p_st, d_st, shifts, 0, n, uniforms)
     return p_st, d_st
+
+
+# Uniforms drawn ahead of the launches, at most this many a chunk.
+_UNIFORM_CHUNK = 2**25
 
 
 def run_ensemble(generator, tapes, dm, steps_events, *,
@@ -852,9 +781,11 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     Draws come from ``generator`` (a `torch.Generator` on the run's
     device, or an int seed): first all ``num_steps`` shifts at once, as
     one int32 tensor on the device, then each round's [B, E] float32
-    uniforms. Machines without choose nodes read no uniforms, so none are
-    drawn for them (the reference draws and discards them). The stream
-    is not the JAX package's; :func:`run_rounds` takes explicit draws.
+    uniforms, round by round into a buffer of a chunk of rounds, which
+    one call then runs. Machines without choose nodes read no uniforms,
+    so none are drawn for them (the reference draws and discards them),
+    and one call runs every round. The stream is not the JAX package's;
+    :func:`run_rounds` takes explicit draws.
 
     Args:
       generator: `torch.Generator` on the run's device, or an int seed.
@@ -904,12 +835,20 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     gen = config.make_generator(generator, device)
     shifts = torch.randint(0, stride, (num_steps,), generator=gen,
                            device=device, dtype=torch.int32)
-    plan = None if device.type == "cpu" else device_plan(dm, device)
-    for k in range(num_steps):
-        uniforms = (torch.rand((B, events), generator=gen, device=device,
-                               dtype=torch.float32)
-                    if dm.has_choose else None)
-        plane_round(dm, p_st, d_st, shifts, k, uniforms, plan=plan)
+    if not dm.has_choose:
+        _check_planes(dm, p_st, d_st, shifts, 0, num_steps, None)
+        _rounds(dm, p_st, d_st, shifts, 0, num_steps, None)
+    else:
+        chunk = max(1, min(num_steps, _UNIFORM_CHUNK // (B * events)))
+        buf = torch.empty((chunk, B, events), dtype=torch.float32,
+                          device=device)
+        for k0 in range(0, num_steps, chunk):
+            n = min(chunk, num_steps - k0)
+            for j in range(n):
+                torch.rand((B, events), generator=gen, device=device,
+                           dtype=torch.float32, out=buf[j])
+            _check_planes(dm, p_st, d_st, shifts, k0, n, buf[:n])
+            _rounds(dm, p_st, d_st, shifts, k0, n, buf[:n])
     applied = torch.full((num_steps,), B * events, dtype=torch.int64,
                          device=device)
     f64 = config.DEFAULT_FLOAT
@@ -961,7 +900,7 @@ def _window_counts_int(tape, size_a: int, cl_k: int):
         rc = lib.ckpe_window_counts(tape.data_ptr(), int(B), int(L),
                                     int(size_a), int(cl_k),
                                     counts.data_ptr(), stream)
-    cuda.check(rc, "window_counts")
+    cuda.check(rc, "window_counts", lib)
     window_counts.launches += 1
     return counts
 

@@ -11,19 +11,22 @@ Phases (each prints its wall time; every check raises on failure):
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
-2. build: one `nvcc` call compiles `csrc/*.cu` (K1 and K2), with the
-   `-Xptxas -v` register, shared-memory and spill lines;
+2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2) and
+   one for K1's generated unit of each machine, each with its seconds
+   and its `-Xptxas -v` register, shared-memory and spill lines;
 3. kernels against their plain versions on the card, at full width:
    K1 on ex5-msrtf-machine, ex4-chemical-turing and
    ex2-ferromagnetic-chain, one round at every phase in [0, 16), planes
-   bit-identical after each; K2 against its plain version and
-   `torch.bincount`, exactly equal;
+   bit-identical after each, at E=256 (the word path) and at E=255
+   (the byte path, an E that is not a multiple of 4); K2 against its
+   plain version and `torch.bincount`, exactly equal;
 4. main path: `run_ensemble` at B=16384, L=4096, E=256 on
    ex5-msrtf-machine for 2,000 rounds, then `window_counts` at cl_k=3;
    K1 must launch exactly 2,000 times and the plain round never, K2
    once; per-round time and transitions/s, and each kernel's time
    (CUDA events) beside its bound, its plain version and the library
-   call;
+   call; the host's cost a launch, by one `plane_round` call a round
+   and by `run_rounds`' one call for all rounds;
 5. end to end on a small input: explicit draws through the card and
    through the CPU's plain path give the same tapes and window counts.
 
@@ -36,6 +39,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,11 +48,13 @@ from chemical_kinetics_and_program_execution_torch import cuda
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
+from chemical_kinetics_and_program_execution_torch.engine import k1_source
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 B, L = 16384, 4096
 E = L // 16
 STRIDE = L // E
+E_TAIL = E - 1  # the byte path: an E that is not a multiple of 4
 NUM_STEPS = 2000
 CL_K = 3
 MAIN_TAG = "ex5-msrtf-machine"
@@ -105,27 +111,55 @@ def cuda_ms(fn, reps, warmup=3, host=None):
     return start.elapsed_time(end) / reps
 
 
-def active_draws(gen, tag, dm, device):
+def active_draws(gen, tag, dm, device, events=E):
     """Full-width planes over each tape's active symbols, and uniforms a
     third each near 0, near 1 and anywhere in [0, 1)."""
     p_sym, d_sym = ACTIVE_SYMBOLS.get(tag, (range(dm.size_a),) * 2)
     planes = []
     for sym in (p_sym, d_sym):
         sym = torch.as_tensor(list(sym), dtype=torch.int8, device=device)
-        idx = torch.randint(0, len(sym), (STRIDE, B, E), generator=gen,
+        idx = torch.randint(0, len(sym), (STRIDE, B, events), generator=gen,
                             device=device)
         planes.append(sym[idx].contiguous())
-    u = torch.rand((STRIDE, B, E), generator=gen, device=device)
-    pick = torch.randint(0, 3, (STRIDE, B, E), generator=gen, device=device)
+    u = torch.rand((STRIDE, B, events), generator=gen, device=device)
+    pick = torch.randint(0, 3, (STRIDE, B, events), generator=gen,
+                         device=device)
     u = torch.where(pick == 0, u * 1e-3,
                     torch.where(pick == 1, 0.95 + 0.05 * u, u))
     return planes[0], planes[1], u.contiguous()
 
 
-def k1_bytes(dm):
+def k1_against_plain(gen, tag, dm, dev, events):
+    """K1 and its plain version, one round at every phase on the same
+    planes; raises unless bit-identical after each. Returns K1's planes,
+    the uniforms, the largest difference and the cells changed."""
+    kp, kd, u = active_draws(gen, tag, dm, dev, events)
+    pp, pd = kp.clone(), kd.clone()
+    start_p, start_d = kp.clone(), kd.clone()
+    shifts = torch.as_tensor(
+        np.random.RandomState(len(tag)).permutation(STRIDE),
+        dtype=torch.int32, device=dev)
+    for k in range(STRIDE):
+        uk = u[k] if dm.has_choose else None
+        ens.plane_round(dm, kp, kd, shifts, k, uk)
+        ens.plane_round_plain(dm, pp, pd, shifts, k, uk)
+        torch.cuda.synchronize()
+        if not (torch.equal(kp, pp) and torch.equal(kd, pd)):
+            raise AssertionError(
+                f"K1 != plain on {tag}, E={events}, at round {k} "
+                f"(shift {int(shifts[k])})")
+    err = max(int((x.to(torch.int32) - y.to(torch.int32)).abs().max())
+              for x, y in ((kp, pp), (kd, pd)))
+    changed = int((kd != start_d).sum() + (kp != start_p).sum())
+    if changed == 0:
+        raise AssertionError(f"K1 changed nothing on {tag}, E={events}")
+    return kp, kd, u, err, changed
+
+
+def k1_bytes(dm, events=E):
     """Least bytes a round moves: each window cell read and written once
     (int8), plus one float32 uniform a site for a machine with chooses."""
-    return B * E * (2 * dm.n_cells + (4 if dm.has_choose else 0))
+    return B * events * (2 * dm.n_cells + (4 if dm.has_choose else 0))
 
 
 def main(dev=None):
@@ -150,52 +184,45 @@ def main(dev=None):
         say(smi_line)
 
     with Phase("2 build"):
-        path, log, seconds = cuda.build()
-        say(f"nvcc: {seconds:.2f} s -> {path.name}"
-            if seconds else f"library already built: {path.name}")
-        for line in log.splitlines():
-            if any(w in line for w in ("Compiling entry", "registers",
-                                       "spill", "smem")):
-                say("  " + line.strip())
+        machines = {tag: ens.compile_decision_machine(tag) for tag in TAGS}
+        jobs = {"K2 (csrc/*.cu)": cuda.build}
+        for tag, dm in machines.items():
+            src = k1_source.k1_source(dm)
+            jobs[f"K1 {tag}"] = (lambda src=src: cuda.build_unit("k1", src))
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            futures = {name: pool.submit(fn) for name, fn in jobs.items()}
+            built = {name: f.result() for name, f in futures.items()}
+        for name, (path, log, seconds) in built.items():
+            say(f"{name}: nvcc {seconds:.2f} s -> {path.name}"
+                if seconds else f"{name}: already built: {path.name}")
+            for line in log.splitlines():
+                if any(w in line for w in ("Compiling entry", "registers",
+                                           "spill", "smem")):
+                    say("  " + line.strip())
         cuda.load()
+        for dm in machines.values():
+            k1_source.k1_library(dm)
 
     kernels = {}
     max_err = {"K1": 0, "K2": 0}
     with Phase("3 kernels against plain versions (full width)"):
         gen = torch.Generator(device=dev).manual_seed(1234)
-        for tag in TAGS:
-            dm = ens.compile_decision_machine(tag)
-            kp, kd, u = active_draws(gen, tag, dm, dev)
-            pp, pd = kp.clone(), kd.clone()
-            start_p, start_d = kp.clone(), kd.clone()
-            shifts = torch.as_tensor(
-                np.random.RandomState(len(tag)).permutation(STRIDE),
-                dtype=torch.int32, device=dev)
-            plan = ens.device_plan(dm, dev)
-            for k in range(STRIDE):
-                uk = u[k] if dm.has_choose else None
-                ens.plane_round(dm, kp, kd, shifts, k, uk, plan=plan)
-                ens.plane_round_plain(dm, pp, pd, shifts, k, uk)
-                torch.cuda.synchronize()
-                if not (torch.equal(kp, pp) and torch.equal(kd, pd)):
-                    raise AssertionError(
-                        f"K1 != plain on {tag} at round {k} "
-                        f"(shift {int(shifts[k])})")
-            for x, y in ((kp, pp), (kd, pd)):
-                max_err["K1"] = max(max_err["K1"], int(
-                    (x.to(torch.int32) - y.to(torch.int32)).abs().max()))
-            changed = int((kd != start_d).sum() + (kp != start_p).sum())
-            it = iter(range(10 ** 9))
-            cycle = torch.arange(STRIDE, dtype=torch.int32, device=dev)
-            ms = cuda_ms(lambda: ens.plane_round(
-                dm, kp, kd, cycle, next(it) % STRIDE,
-                u[0] if dm.has_choose else None, plan=plan), 200)
-            say(f"K1 {tag}: {STRIDE} rounds, shifts {shifts.tolist()}, "
-                f"bit-identical to plain; {changed} cells changed; "
-                f"{ms * 1e3:.2f} us a round (every phase in turn), bound "
-                f"{k1_bytes(dm) / HBM_BYTES_PER_S * 1e6:.2f} us")
-            if changed == 0:
-                raise AssertionError(f"K1 changed nothing on {tag}")
+        for tag, dm in machines.items():
+            for events in (E, E_TAIL):
+                kp, kd, u, err, changed = k1_against_plain(gen, tag, dm,
+                                                           dev, events)
+                max_err["K1"] = max(max_err["K1"], err)
+                it = iter(range(10 ** 9))
+                cycle = torch.arange(STRIDE, dtype=torch.int32, device=dev)
+                ms = cuda_ms(lambda: ens.plane_round(
+                    dm, kp, kd, cycle, next(it) % STRIDE,
+                    u[0] if dm.has_choose else None), 200)
+                bound = k1_bytes(dm, events)
+                say(f"K1 {tag}, E={events}: {STRIDE} rounds bit-identical "
+                    f"to plain; {changed} cells changed; {ms * 1e3:.2f} us "
+                    "a round (every phase in turn), bound "
+                    f"{bound / HBM_BYTES_PER_S * 1e6:.2f} us")
+                del kp, kd, u
 
         tape = torch.randint(0, 5, (B, L), generator=gen, device=dev,
                              dtype=torch.int32)
@@ -212,7 +239,7 @@ def main(dev=None):
             raise AssertionError("K2 != plain / bincount")
         say(f"K2: {5**CL_K} bins over {B}x{L} sites equal to plain and "
             "torch.bincount")
-        del kp, kd, pp, pd, start_p, start_d, u, tape, rank
+        del tape, rank
         torch.cuda.empty_cache()
 
     with Phase("4 main path"):
@@ -282,21 +309,27 @@ def main(dev=None):
         reps = 500
         shifts = torch.randint(0, STRIDE, (reps + 3,), generator=gen,
                                device=dev, dtype=torch.int32)
-        plan = ens.device_plan(dm, dev)
         it = iter(range(reps + 3))
         host = []
         k1_ms = cuda_ms(lambda: ens.plane_round(dm, p_st, d_st, shifts,
-                                                next(it), plan=plan), reps,
-                        host=host)
+                                                next(it)), reps, host=host)
+        host_c = []
+        rounds_ms = cuda_ms(lambda: ens.run_rounds(dm, p_st, d_st, shifts),
+                            1, warmup=1, host=host_c) / len(shifts)
         it = iter(range(5 + 3))
         k1_plain_ms = cuda_ms(lambda: ens.plane_round_plain(
             dm, p_st, d_st, shifts, next(it)), 5)
         k1_bound = k1_bytes(dm) / HBM_BYTES_PER_S * 1e3
+        host_us = host[0] * 1e3
+        host_c_us = host_c[0] * 1e3 / len(shifts)
         say(f"K1: {k1_ms * 1e3:.2f} us/round against a bound of "
             f"{k1_bound * 1e3:.2f} us ({k1_bytes(dm) / 1e6:.1f} MB at "
             f"3.35 TB/s): {k1_bound / k1_ms:.3f} of the bound; "
-            f"plain {k1_plain_ms:.3f} ms; host {host[0] * 1e3:.2f} us a "
-            "launch (wrapper checks + ctypes call)")
+            f"plain {k1_plain_ms:.3f} ms; {rounds_ms * 1e3:.2f} us a round "
+            f"by run_rounds")
+        say(f"host a launch: {host_us:.2f} us by plane_round (checks + "
+            f"one ctypes call a round), {host_c_us:.2f} us by run_rounds "
+            f"(one check and one ctypes call for {len(shifts)} rounds)")
 
         k2_ms = cuda_ms(lambda: ens._window_counts_int(pt, dm.size_a, CL_K),
                         20)
@@ -317,13 +350,15 @@ def main(dev=None):
         kernels["K1"] = {
             "name": "K1 plane_round", "route": "cuda",
             "source": "chemical_kinetics_and_program_execution_torch/csrc/"
-                      "plane_round.cu",
+                      "plane_round.cuh",
             "replaces": K1_REPLACES, "launches": launches["plane_round"],
             "max_abs_err": max_err["K1"],
-            "match": "bit-identical on ex5, ex4, ex2",
+            "match": "bit-identical on ex5, ex4, ex2 at E=256 and E=255",
             "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": "bytes", "library_ms": None,
             "run_ms_per_round": ms_round,
+            "host_us_per_launch": {"plane_round": host_us,
+                                   "run_rounds": host_c_us},
         }
         kernels["K2"] = {
             "name": "K2 window_counts", "route": "cuda",

@@ -4,12 +4,15 @@ The same inputs, made with numpy or drawn by JAX, go through the JAX
 functions and through the port's plain path; integer and bit logic must
 agree bit for bit, and float64 observables exactly where the arithmetic
 is the same. The port's CUDA kernels run only on the card
-(`tests/test_torch_gpu.py`); here the flat kernel plan they read is
-checked through a Python model of the kernel's per-site loop.
+(`tests/test_torch_gpu.py`); here K1's generated unit is built with the
+host's C++ compiler and its per-thread body, run for every thread in a
+host loop, is held against the plain round.
 """
 
+import ctypes
 import dataclasses
 import functools
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -35,6 +38,7 @@ from chemical_kinetics_and_program_execution_torch.engine import (
 from chemical_kinetics_and_program_execution_torch.engine import (
     enumerate as tenum,
 )
+from chemical_kinetics_and_program_execution_torch.engine import k1_source
 from chemical_kinetics_and_program_execution_torch.utils import config
 
 TAGS = ["ex5-msrtf-machine", "ex4-chemical-turing", "ex2-ferromagnetic-chain"]
@@ -274,6 +278,21 @@ def test_run_rounds_matches_jax_run_ensemble(tag):
                                rtol=1e-15, atol=0)
 
 
+_NESTED_CUM2 = np.array([0.5, 0.75])  # the second choose's thresholds
+
+
+def _nested_threshold_uniforms():
+    """float32 uniforms in the first choose's branch 0, packed next to
+    the second choose's thresholds as the first renormalises them."""
+    us = []
+    for c in _NESTED_CUM2:
+        centre = np.float32(c * 0.7)
+        us.append(centre + np.arange(-2000, 2000, dtype=np.float32)
+                  * np.spacing(centre))
+    u = np.concatenate(us).astype(np.float32)
+    return u[u < 0.7]
+
+
 def test_nested_choose_float32_width_matches_jax():
     """The reference's walk divides the first choose group's branch-0
     uniform by a float32 width; the port reproduces that rounding.
@@ -282,14 +301,8 @@ def test_nested_choose_float32_width_matches_jax():
     would indeed have picked other branches there."""
     jdm, tdm = _machines(_NESTED_TAG)
     w0 = np.float64(np.float32(0.7))
-    cum2 = np.array([0.5, 0.75])  # the second choose's thresholds
-    us = []
-    for c in cum2:
-        centre = np.float32(c * 0.7)
-        us.append(centre + np.arange(-2000, 2000, dtype=np.float32)
-                  * np.spacing(centre))
-    u = np.concatenate(us).astype(np.float32)
-    u = u[u < 0.7]  # branch 0 of the first choose
+    u = _nested_threshold_uniforms()
+    cum2 = _NESTED_CUM2
     u64 = u.astype(np.float64)
     with_f32 = np.searchsorted(cum2, u64 / w0, side="right")
     with_f64 = np.searchsorted(cum2, u64 / 0.7, side="right")
@@ -302,95 +315,94 @@ def test_nested_choose_float32_width_matches_jax():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-# --- The flat plan K1 reads ---------------------------------------------------
+# --- K1's generated unit, built for the host ------------------------------------
 
 
-def _kernel_model_round(dm, p_st, d_st, shift, uniforms):
-    """A line-by-line Python model of `csrc/plane_round.cu`'s per-site
-    loop, reading only the flat plan arrays (the kernel's inputs)."""
-    ints, fl = (a.tolist() for a in tens._kernel_plan(dm))
-    n_p, (p_lo, d_lo, S, n_levels, wr_bits, off_wr, n_cells) = (
-        ints[0], ints[2:9])
-    off_wf, n_wf = ints[9], ints[10]
-    stride, B, E = p_st.shape
-    sts = (p_st, d_st)
-
-    def field_at(n_fields, off_fields, n_words, off_words, idx, bits):
-        if 0 <= idx < n_fields:
-            return ints[off_fields + idx]
-        per = 31 // bits
-        widx, sh = idx // per, bits * (idx % per)
-        w = ints[off_words + widx] if 1 <= widx < n_words else ints[off_words]
-        return (w >> sh) & ((1 << bits) - 1)
-
-    for b in range(B):
-        for i in range(E):
-            loc, cells = [], []
-            for k in range(n_cells):
-                data = k >= n_p
-                a = shift + (d_lo + k - n_p if data else p_lo + k)
-                c, e = a % stride, a // stride
-                loc.append((int(data), c, (i + e) % E))
-                cells.append(int(sts[int(data)][c, b, (i + e) % E]))
-            state = S
-            u = float(uniforms[b, i]) if uniforms is not None else 0.0
-            for lvl in range(n_levels):
-                lv = ints[16 + 10 * lvl:26 + 10 * lvl]
-                branch = 0
-                if lv[0]:
-                    branch = cells[ints[lv[1]]]
-                    for g in range(1, lv[0]):
-                        if state >= S + ints[lv[1] + 2 * g + 1]:
-                            branch = cells[ints[lv[1] + 2 * g]]
-                for g in range(lv[2]):
-                    id_lo, id_hi, n_br, off_f, f32_div = ints[
-                        lv[3] + 5 * g:lv[3] + 5 * g + 5]
-                    if not S + id_lo <= state <= S + id_hi:
-                        continue
-                    cum, width = fl[off_f:off_f + n_br - 1], fl[
-                        off_f + n_br - 1:off_f + 2 * n_br - 1]
-                    bb, lo, w = 0, 0.0, width[0]
-                    for j in range(1, n_br):
-                        if u >= cum[j - 1]:
-                            bb, lo, w = j, cum[j - 1], width[j]
-                    branch = bb
-                    u = (float(np.float32(u) / np.float32(w)) if f32_div
-                         else (u - lo) / w)
-                idx = max(state - S, 0) * lv[4] + branch
-                nxt = field_at(lv[8], lv[9], lv[6], lv[7], idx, lv[5])
-                if state >= S:
-                    state = nxt
-            for k in range(n_cells):
-                if 0 <= state < n_wf:
-                    f = ints[off_wf + state * n_cells + k]
-                else:
-                    f = field_at(0, 0, ints[off_wr + 2 * k],
-                                 ints[off_wr + 2 * k + 1], state, wr_bits)
-                if f >> (wr_bits - 1) == 1:
-                    t, c, col = loc[k]
-                    sts[t][c, b, col] = f & ((1 << (wr_bits - 1)) - 1)
+def _cxx():
+    return next((c for c in (shutil.which(n) for n in ("g++", "c++",
+                                                       "clang++")) if c),
+                None)
 
 
-@pytest.mark.parametrize("tag", TAGS)
-def test_kernel_plan_model_matches_plain_round(tag):
-    """K1's flat plan, read the way the CUDA kernel reads it, gives the
-    plain round's planes at every phase (so a fault on the card is in
-    the CUDA code, not in the plan it was handed)."""
+@pytest.fixture(scope="module")
+def k1_host_library(tmp_path_factory):
+    """Builds K1's unit of a machine with the host's C++ compiler (once
+    per machine) and returns its `ckpe_k1_host_round`."""
+    cxx = _cxx()
+    if cxx is None:
+        pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
+    built = {}
+
+    def get(tag):
+        if tag not in built:
+            out = tmp_path_factory.mktemp("k1")
+            unit = out / "k1.cpp"
+            unit.write_text(k1_source.k1_source(_machines(tag)[1]))
+            lib = out / "libk1.so"
+            subprocess.run(
+                [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+                 "-shared", "-fPIC", "-I", str(cuda.CSRC_DIR), "-o",
+                 str(lib), str(unit)], check=True, capture_output=True,
+                timeout=300)
+            fn = ctypes.CDLL(str(lib)).ckpe_k1_host_round
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+            fn.restype = ctypes.c_int
+            built[tag] = fn
+        return built[tag]
+
+    return get
+
+
+@pytest.mark.parametrize("B,L,E", [(6, 128, 8), (5, 112, 7)],
+                         ids=["words", "bytes"])
+@pytest.mark.parametrize("tag", TAGS + [_NESTED_TAG])
+def test_generated_kernel_matches_plain_round(k1_host_library, tag, B, L, E):
+    """K1's per-thread body, compiled from the machine's generated unit
+    and run for every thread on the host, gives the plain round's planes
+    at every phase: on the word path (E a multiple of 4) and the byte
+    path (E not), with cells that spill to either side of the row, and
+    with out-of-range symbols in two rows (the exact walk)."""
     _, tdm = _machines(tag)
-    rng = np.random.RandomState(2)
-    B, L, E = 4, 128, 8
+    round_fn = k1_host_library(tag)
+    rng = np.random.RandomState(4)
     stride = L // E
-    pt, dt = _random_tapes(rng, tdm.size_a, B, L)
+    changed = 0
     for shift in range(stride):
-        u = torch.as_tensor(rng.rand(B, E).astype(np.float32))
+        pt, dt, u = _active_draws(rng, tag, tdm.size_a, B, L, E)
+        if tag == _NESTED_TAG:
+            near = _nested_threshold_uniforms()
+            u.ravel()[::2] = rng.choice(near, u.size - u.size // 2)
+        pt[0, ::9] = tdm.size_a + 3
+        dt[1, ::5] = -2
         p_st, d_st = _planes(pt, stride), _planes(dt, stride)
-        mp, md = p_st.numpy().copy(), d_st.numpy().copy()
-        _kernel_model_round(tdm, mp, md, shift,
-                            u.numpy() if tdm.has_choose else None)
-        tens.run_rounds(tdm, p_st, d_st,
-                        torch.tensor([shift], dtype=torch.int32), u[None])
-        np.testing.assert_array_equal(mp, p_st.numpy())
-        np.testing.assert_array_equal(md, d_st.numpy())
+        kp, kd = p_st.numpy().copy(), d_st.numpy().copy()
+        assert round_fn(kp.ctypes.data, kd.ctypes.data, u.ctypes.data,
+                        shift, B, E, stride) == 0
+        tens.plane_round_plain(tdm, p_st, d_st,
+                               torch.tensor([shift], dtype=torch.int32), 0,
+                               torch.as_tensor(u))
+        np.testing.assert_array_equal(kp, p_st.numpy())
+        np.testing.assert_array_equal(kd, d_st.numpy())
+        changed += int((tens._planes_to_tape(d_st).numpy() != dt).sum())
+    assert changed > 0
+
+
+def test_generated_source_is_deterministic_and_keyed_on_fields():
+    """The same machine gives the same unit, and so the same library
+    name; a machine with the same tag and other fields gives another."""
+    _, tdm = _machines("ex5-msrtf-machine")
+    fresh = tens.compile_decision_machine("ex5-msrtf-machine")
+    src = k1_source.k1_source(tdm)
+    assert src == k1_source.k1_source.__wrapped__(fresh)
+    path = cuda.unit_library_path("k1", src)
+    assert path == cuda.unit_library_path("k1", k1_source.k1_source(fresh))
+    wr = list(tdm.wr_words)
+    wr[4] = (wr[4][0] ^ (1 << 4),) + wr[4][1:]
+    other = dataclasses.replace(tdm, wr_words=tuple(wr))
+    assert other.tag == tdm.tag
+    other_src = k1_source.k1_source(other)
+    assert other_src != src
+    assert cuda.unit_library_path("k1", other_src) != path
 
 
 # --- run_ensemble --------------------------------------------------------------
@@ -440,6 +452,23 @@ def test_plane_state_continuation_matches_one_long_run(tag):
         assert torch.equal(got_p, long_p) and torch.equal(got_d, long_d)
     assert torch.equal(app_a, app_b) and torch.equal(t_a, t_b)
     assert not torch.equal(long_d, torch.as_tensor(dt))
+
+
+def test_chunked_uniform_draws_match_one_chunk(monkeypatch):
+    """`run_ensemble` draws a choose machine's uniforms a chunk of rounds
+    at a time; chunks of three rounds give the tapes of one chunk."""
+    _, tdm = _machines("ex4-chemical-turing")
+    rng = np.random.RandomState(12)
+    B, L, E, n = 16, 128, 8, 7
+    tapes = _active_draws(rng, "ex4-chemical-turing", tdm.size_a, B, L, E)[:2]
+    (p_one, d_one), _ = tens.run_ensemble(3, tapes, tdm, (n, E),
+                                          device="cpu")
+    monkeypatch.setattr(tens, "_UNIFORM_CHUNK", 3 * B * E)
+    calls = tens.plane_round_plain.calls
+    (p_ch, d_ch), _ = tens.run_ensemble(3, tapes, tdm, (n, E), device="cpu")
+    assert tens.plane_round_plain.calls == calls + n
+    assert torch.equal(p_one, p_ch) and torch.equal(d_one, d_ch)
+    assert not torch.equal(d_one, torch.as_tensor(tapes[1]))
 
 
 def test_plane_storage_roundtrip():

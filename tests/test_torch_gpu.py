@@ -53,28 +53,54 @@ def _planes(tape, stride, device):
         torch.as_tensor(tape, device=device).to(torch.int8), stride)
 
 
-@pytest.mark.parametrize("tag", TAGS)
-def test_plane_round_kernel_matches_plain(cuda, tag):
-    """K1 and its plain version, both on the card, give identical planes
-    after every round; every phase is covered."""
+def _kernel_against_plain(cuda, tag, B, L, E, n, seed, shifts=None):
+    """Runs K1 and its plain version, both on the card, round by round,
+    and checks the planes after each; returns the number of cells K1
+    changed."""
     dm = tens.compile_decision_machine(tag)
-    rng = np.random.RandomState(1)
-    B, L, E, n = 512, 1024, 64, 24
+    rng = np.random.RandomState(seed)
     stride = L // E
-    pt, dt, shifts, u = _draws(rng, tag, dm, B, L, E, n)
+    pt, dt, drawn, u = _draws(rng, tag, dm, B, L, E, n)
     kp, kd = _planes(pt, stride, cuda), _planes(dt, stride, cuda)
+    start_p, start_d = kp.clone(), kd.clone()
     pp, pd = kp.clone(), kd.clone()
-    shifts_t = torch.as_tensor(shifts, device=cuda)
+    shifts_t = torch.as_tensor(drawn if shifts is None else shifts,
+                               dtype=torch.int32, device=cuda)
     u_t = torch.as_tensor(u, device=cuda)
-    plan = tens.device_plan(dm, cuda)
     launches = tens.plane_round.launches
     for k in range(n):
-        tens.plane_round(dm, kp, kd, shifts_t, k, u_t[k], plan=plan)
+        tens.plane_round(dm, kp, kd, shifts_t, k, u_t[k])
         tens.plane_round_plain(dm, pp, pd, shifts_t, k, u_t[k])
         torch.cuda.synchronize()
         assert torch.equal(kp, pp) and torch.equal(kd, pd), k
     assert tens.plane_round.launches == launches + n
-    assert not torch.equal(kd, _planes(dt, stride, cuda))
+    return int((kp != start_p).sum() + (kd != start_d).sum())
+
+
+@pytest.mark.parametrize("B,L,E", [(512, 1024, 64), (300, 1008, 63)],
+                         ids=["words", "bytes"])
+@pytest.mark.parametrize("tag", TAGS)
+def test_plane_round_kernel_matches_plain(cuda, tag, B, L, E):
+    """K1 and its plain version, both on the card, give identical planes
+    after every round; every phase is covered, on the word path (E a
+    multiple of 4) and the byte path (E not)."""
+    assert _kernel_against_plain(cuda, tag, B, L, E, 24, 1) > 0
+
+
+@pytest.mark.parametrize("tag,spill", [("ex4-chemical-turing", -1),
+                                       ("ex5-msrtf-machine", 1)])
+def test_plane_round_kernel_spilled_cells(cuda, tag, spill):
+    """Phases at which a window cell spills into the row's previous
+    (ex4, offset -2 at phase 0) or next (ex5, offset 3 at the last
+    phase) element, on the word path, where such a cell is funnelled
+    from two words and stored byte by byte."""
+    dm = tens.compile_decision_machine(tag)
+    B, L, E = 256, 1024, 64
+    stride = L // E
+    shift = 0 if spill < 0 else stride - 1
+    assert spill in {e for _, _, e in tens._round_cells(dm, shift, stride)}
+    assert _kernel_against_plain(cuda, tag, B, L, E, 8, 5,
+                                 shifts=[shift] * 8) > 0
 
 
 @pytest.mark.parametrize("tag", TAGS)
