@@ -24,22 +24,29 @@
 // can be negative. For a phase in [0, stride) e is -1, 0 or 1; any other
 // phase takes the division (a branch that is uniform over the grid).
 //
-// Design. A thread takes K1_SITES consecutive sites of one row when E is
-// a multiple of K1_SITES and the planes are word-aligned (the word path),
-// else one site (the byte path, which also serves every E that is not a
-// multiple of K1_SITES). On the word path each window cell of the
-// thread's sites is one aligned word, or two words funnelled when the
-// cell's spill is not a multiple of the word; the uniforms are 16-byte
-// loads. The walk reads no plan: levels, cell groups, next-state rows,
-// choose thresholds and write specs are immediates of the generated unit,
-// so there is no shared-memory copy and no barrier. The sites of a
-// thread are independent walks, which the compiler interleaves.
+// Design. A thread takes four sites at a time, in K1_ROWS rows: four
+// consecutive sites of a row when E is a multiple of 4 and the planes
+// are word-aligned (the word path), else one column of four rows (the
+// byte path, which serves every other E). The cells' planes and spills,
+// which depend on the phase and the column only, are worked out once
+// for all its rows. On the word path each window cell of the four sites
+// is one aligned word, or two words funnelled when the cell's spill is
+// not a multiple of 4; the uniforms are 16-byte loads. The walk reads
+// no plan: levels,
+// cell groups, next-state tables, choose thresholds and write specs are
+// immediates of the generated unit, so there is no shared-memory copy
+// and no barrier. The bound on this card is the integer issue rate (64
+// results a clock an SM), so the walk runs on the four sites at once,
+// one byte lane each of a 32-bit word: byte-wise compares give lane
+// masks, and one `prmt` looks up four lanes in an 8-entry byte table.
+// Only choose levels, which divide in float64, take the sites one by
+// one.
 //
-// Exactness. The fast walk assumes every window symbol is in
+// Exactness. The lane walk assumes every window symbol is in
 // [0, size_a); one test a word checks that, and a thread that sees any
-// other byte takes the exact walk, which reproduces the reference's
-// packed-field rule for out-of-range indices. Arithmetic is IEEE: built
-// with -fmad=false, and double subtraction and division are the
+// other byte walks its sites one by one by the reference's packed-field
+// rule for out-of-range indices. Arithmetic is IEEE: built with
+// -fmad=false, and double subtraction and division are the
 // round-to-nearest intrinsics (plain operators on the host, where the
 // CPU test builds this file with g++ -ffp-contract=off).
 //
@@ -72,20 +79,59 @@
 #define K1_FDIV(a, b) ((a) / (b))
 #endif
 
-#define K1_SITES 4      // sites a thread on the word path
+#define K1_ROWS 8       // rows a thread
 #define K1_THREADS 256  // threads a block
 
 // The generated unit defines K1_N_P, K1_N_D, K1_P_LO, K1_D_LO, K1_SIZE_A
 // and K1_CHOOSE before it includes this file, and these after it:
-//   k1_walk<EXACT>(c, u): the write spec of a site with window cells
-//     c[0..n_cells) and uniform u;
+//   k1_walk_lanes(x, u): the write specs of four sites, one byte lane
+//     each, with window cells x[0..n_cells) (lane j of x[k] is site j's
+//     cell k) and uniforms u[0..4), all symbols in [0, size_a);
+//   k1_walk_exact(c, u): the write spec of one site with window cells
+//     c[0..n_cells) (any int8) and uniform u;
 //   k1_written(k): whether any spec writes window cell k;
-//   k1_new_symbol(k, spec, old): window cell k's symbol after spec.
+//   k1_write_lanes(k, spec, x): window cell k's lanes x after the specs.
 #define K1_N_CELLS (K1_N_P + K1_N_D)
-template <bool EXACT>
-K1_FN int k1_walk(const int* c, double u);
+K1_FN uint32_t k1_walk_lanes(const uint32_t* x, double* u);
+K1_FN int k1_walk_exact(const int* c, double u);
 K1_FN bool k1_written(int k);
-K1_FN int k1_new_symbol(int k, int spec, int old);
+K1_FN uint32_t k1_write_lanes(int k, uint32_t spec, uint32_t x);
+
+// prmt.b32 in its default mode: byte i of the result is byte (s_i & 7)
+// of {b, a} (a holds bytes 0-3), with its top bit copied to all eight
+// bits when s_i & 8, s_i being nibble i of s.
+K1_FN uint32_t k1_prmt(uint32_t a, uint32_t b, uint32_t s) {
+#ifdef __CUDACC__
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+#else
+  const uint64_t ab = ((uint64_t)b << 32) | a;
+  uint32_t d = 0;
+  for (int i = 0; i < 4; ++i) {
+    const unsigned n = (s >> (4 * i)) & 0xf;
+    uint32_t byte = (uint32_t)(ab >> (8 * (n & 7))) & 0xff;
+    if (n & 8) byte = (byte & 0x80) ? 0xff : 0;
+    d |= byte << (8 * i);
+  }
+  return d;
+#endif
+}
+
+// 0xff in each lane whose top bit is set, else 0.
+K1_FN uint32_t k1_lane_mask(uint32_t x) { return k1_prmt(x, 0, 0xba98); }
+
+// Lanes of x (each below 128) that are >= k (at most 128), as a mask.
+K1_FN uint32_t k1_lanes_ge(uint32_t x, uint32_t k) {
+  return k1_lane_mask((x | 0x80808080u) - k * 0x01010101u);
+}
+
+// The low three bits of each lane of idx as the selector of a prmt
+// lookup in an 8-entry table.
+K1_FN uint32_t k1_selector(uint32_t idx) {
+  const uint32_t lo = idx & 0x07070707u;
+  return k1_prmt(lo | (lo >> 4), 0, 0x20);
+}
 
 K1_FN int k1_floor_div(int a, int b) {
   const int q = a / b;
@@ -98,168 +144,164 @@ K1_FN void k1_cell_place(int k, int s, int stride, int E, int& plane,
                          int& spill) {
   const int off = k < K1_N_P ? K1_P_LO + k : K1_D_LO + (k - K1_N_P);
   const int a = s + off;
-  int q = a < 0 ? -1 : (a >= stride ? 1 : 0);
-  if (a < -stride || a >= 2 * stride) q = k1_floor_div(a, stride);
+  if (a < -stride || a >= 2 * stride) {
+    const int q = k1_floor_div(a, stride);
+    plane = a - q * stride;
+    spill = q - k1_floor_div(q, E) * E;
+    return;
+  }
+  const int q = a < 0 ? -1 : (a >= stride ? 1 : 0);
   plane = a - q * stride;
-  spill = q - k1_floor_div(q, E) * E;
+  spill = q < 0 ? q + E : q;
+  if (spill >= E) spill -= E;  // E == 1
 }
 
-template <int V>
-struct K1Word;
-template <>
-struct K1Word<4> {
-  typedef uint32_t T;
-};
-template <>
-struct K1Word<8> {
-  typedef uint64_t T;
-};
-
-// Nonzero when a byte of x lies outside [0, K1_SIZE_A) as an unsigned
-// byte (a negative int8 has its high bit set).
-template <typename W>
-K1_FN W k1_bad_bytes(W x) {
-  const W ones = (W)0x0101010101010101ull;
-  return (x | ((x & (W)(0x7f * ones)) + (W)((0x80 - K1_SIZE_A) * ones))) &
-         (W)(0x80 * ones);
-}
-
-// Word path: the thread's V consecutive sites of one row.
-template <int V>
-K1_FN void k1_sites_words(int t, int8_t* p_st, int8_t* d_st,
-                          const float* uniforms, int s, int B, int E,
-                          int stride) {
-  typedef typename K1Word<V>::T W;
-  const int wpr = E / V;  // words a row
-  const int row = t / wpr;
-  const int q = t - row * wpr;
-  W x[K1_N_CELLS];
-  W* rows[K1_N_CELLS];
-  int spill[K1_N_CELLS];
-  W bad = 0;
-#pragma unroll
-  for (int k = 0; k < K1_N_CELLS; ++k) {
-    int plane;
-    k1_cell_place(k, s, stride, E, plane, spill[k]);
-    rows[k] = reinterpret_cast<W*>((k < K1_N_P ? p_st : d_st) +
-                                   plane * (B * E) + row * E);
-    int q0 = q + spill[k] / V;
-    if (q0 >= wpr) q0 -= wpr;
-    const int sub = spill[k] % V;
-    if (sub == 0) {
-      x[k] = rows[k][q0];
-    } else {
-      const W lo = rows[k][q0];
-      const W hi = rows[k][q0 + 1 == wpr ? 0 : q0 + 1];
-      x[k] = (lo >> (8 * sub)) | (hi << (8 * (V - sub)));
-    }
-    bad |= k1_bad_bytes(x[k]);
-  }
-
-  double u[V];
-#pragma unroll
-  for (int j = 0; j < V; ++j) u[j] = 0.0;
-  if (K1_CHOOSE) {
+// Funnel shift: the 32 bits of {hi, lo} from bit sh (sh < 32).
+K1_FN uint32_t k1_funnel(uint32_t lo, uint32_t hi, int sh) {
 #ifdef __CUDACC__
-    const float4* u4 = reinterpret_cast<const float4*>(uniforms) + t * (V / 4);
-#pragma unroll
-    for (int h = 0; h < V / 4; ++h) {
-      const float4 f = u4[h];
-      u[4 * h] = f.x;
-      u[4 * h + 1] = f.y;
-      u[4 * h + 2] = f.z;
-      u[4 * h + 3] = f.w;
-    }
+  return __funnelshift_r(lo, hi, sh);
 #else
-    for (int j = 0; j < V; ++j) u[j] = uniforms[t * V + j];
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> sh);
 #endif
-  }
+}
 
-  int spec[V];
-  int c[V][K1_N_CELLS];
-#pragma unroll
-  for (int j = 0; j < V; ++j)
-#pragma unroll
-    for (int k = 0; k < K1_N_CELLS; ++k)
-      c[j][k] = (int)(int8_t)(uint8_t)(x[k] >> (8 * j));
-  if (bad) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) spec[j] = k1_walk<true>(c[j], u[j]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) spec[j] = k1_walk<false>(c[j], u[j]);
-  }
-
+// Thread t's sites, four lanes at a time. On the word path (WORDS) the
+// lanes are the sites of one word, its column col of the row's E/4
+// words, in each of rows [row0, row0 + K1_ROWS) in turn; on the byte
+// path they are column col of four rows at a time.
+template <bool WORDS>
+K1_FN void k1_thread(int t, int8_t* p_st, int8_t* d_st,
+                     const float* uniforms, int s, int B, int E,
+                     int stride) {
+  const int cols = WORDS ? E / 4 : E;
+  const int group = t / cols;
+  const int col = t - group * cols;
+  const int row0 = group * K1_ROWS;
+  // Per window cell: its plane's first row; the byte, in that row, that
+  // holds the cell of the thread's first site (on the word path the word
+  // holding it, the step to the next word round the ring and the funnel
+  // shift); and the spill.
+  int8_t* plane[K1_N_CELLS];
+  int8_t* at[K1_N_CELLS];
+  int next[K1_N_CELLS], sh[K1_N_CELLS], spill[K1_N_CELLS];
 #pragma unroll
   for (int k = 0; k < K1_N_CELLS; ++k) {
-    if (!k1_written(k)) continue;
-    W y = x[k];
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const W nb = (W)(uint8_t)k1_new_symbol(k, spec[j], c[j][k]);
-      y = (y & ~((W)0xff << (8 * j))) | (nb << (8 * j));
-    }
-    if (y == x[k]) continue;
-    if (spill[k] % V == 0) {
-      int q0 = q + spill[k] / V;
-      if (q0 >= wpr) q0 -= wpr;
-      rows[k][q0] = y;
+    int pl;
+    k1_cell_place(k, s, stride, E, pl, spill[k]);
+    plane[k] = (k < K1_N_P ? p_st : d_st) + pl * (B * E);
+    if (WORDS) {
+      int q0 = col + (unsigned)spill[k] / 4;
+      if (q0 >= cols) q0 -= cols;
+      at[k] = plane[k] + 4 * q0;
+      next[k] = q0 + 1 == cols ? 4 - E : 4;
+      sh[k] = 8 * ((unsigned)spill[k] % 4);
     } else {
-      int8_t* bytes = reinterpret_cast<int8_t*>(rows[k]);
+      int e = col + spill[k];
+      if (e >= E) e -= E;
+      at[k] = plane[k] + e;
+    }
+  }
+  const int row_end = row0 + K1_ROWS < B ? row0 + K1_ROWS : B;
+  for (int row = row0; row < row_end; row += WORDS ? 1 : 4) {
+    const int rE = row * E;
+    const int lanes = WORDS ? 4 : (row_end - row < 4 ? row_end - row : 4);
+    uint32_t x[K1_N_CELLS];
+    uint32_t bad = 0;
 #pragma unroll
-      for (int j = 0; j < V; ++j) {
+    for (int k = 0; k < K1_N_CELLS; ++k) {
+      if (WORDS) {
+        const uint32_t lo = *reinterpret_cast<const uint32_t*>(at[k] + rE);
+        x[k] = lo;
+        if (sh[k])
+          x[k] = k1_funnel(
+              lo, *reinterpret_cast<const uint32_t*>(at[k] + rE + next[k]),
+              sh[k]);
+      } else {
+        x[k] = 0;
+        for (int j = 0; j < lanes; ++j)
+          x[k] |= (uint32_t)(uint8_t)at[k][rE + j * E] << (8 * j);
+      }
+      // Lanes >= 128 set their own top bit; lanes in [size_a, 128) set
+      // it after the add (a carry out of a lane >= 128 lands in a word
+      // already marked).
+      bad |= x[k] | (x[k] + (0x80 - K1_SIZE_A) * 0x01010101u);
+    }
+    bad &= 0x80808080u;
+
+    double u[4] = {0.0, 0.0, 0.0, 0.0};
+    if (K1_CHOOSE) {
+      if (WORDS) {
+        const float* ur = uniforms + rE + 4 * col;
+#ifdef __CUDACC__
+        const float4 f = *reinterpret_cast<const float4*>(ur);
+        u[0] = f.x;
+        u[1] = f.y;
+        u[2] = f.z;
+        u[3] = f.w;
+#else
+        for (int j = 0; j < 4; ++j) u[j] = ur[j];
+#endif
+      } else {
+        for (int j = 0; j < lanes; ++j) u[j] = uniforms[rE + j * E + col];
+      }
+    }
+
+    uint32_t spec = 0;
+    if (bad) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int c[K1_N_CELLS];
+#pragma unroll
+        for (int k = 0; k < K1_N_CELLS; ++k)
+          c[k] = (int)(int8_t)(uint8_t)(x[k] >> (8 * j));
+        spec |= (uint32_t)k1_walk_exact(c, u[j]) << (8 * j);
+      }
+    } else {
+      spec = k1_walk_lanes(x, u);
+    }
+
+#pragma unroll
+    for (int k = 0; k < K1_N_CELLS; ++k) {
+      if (!k1_written(k)) continue;
+      const uint32_t y = k1_write_lanes(k, spec, x[k]);
+      if (y == x[k]) continue;
+      if (WORDS && sh[k] == 0) {
+        *reinterpret_cast<uint32_t*>(at[k] + rE) = y;
+        continue;
+      }
+      for (int j = 0; j < lanes; ++j) {
         const uint8_t nb = (uint8_t)(y >> (8 * j));
         if (nb == (uint8_t)(x[k] >> (8 * j))) continue;
-        int col = q * V + j + spill[k];
-        if (col >= E) col -= E;
-        bytes[col] = (int8_t)nb;
+        if (WORDS) {
+          int e = 4 * col + j + spill[k];
+          if (e >= E) e -= E;
+          plane[k][rE + e] = (int8_t)nb;
+        } else {
+          at[k][rE + j * E] = (int8_t)nb;
+        }
       }
     }
   }
 }
 
-// Byte path: one site a thread.
-K1_FN void k1_site_bytes(int t, int8_t* p_st, int8_t* d_st,
-                         const float* uniforms, int s, int B, int E,
-                         int stride) {
-  const int row = t / E;
-  const int i = t - row * E;
-  int8_t* at[K1_N_CELLS];
-  int c[K1_N_CELLS];
-  bool bad = false;
-#pragma unroll
-  for (int k = 0; k < K1_N_CELLS; ++k) {
-    int plane, spill;
-    k1_cell_place(k, s, stride, E, plane, spill);
-    int col = i + spill;
-    if (col >= E) col -= E;
-    at[k] = (k < K1_N_P ? p_st : d_st) + plane * (B * E) + row * E + col;
-    c[k] = *at[k];
-    bad |= (unsigned)c[k] >= (unsigned)K1_SIZE_A;
-  }
-  const double u = K1_CHOOSE ? (double)uniforms[t] : 0.0;
-  const int spec = bad ? k1_walk<true>(c, u) : k1_walk<false>(c, u);
-#pragma unroll
-  for (int k = 0; k < K1_N_CELLS; ++k) {
-    if (!k1_written(k)) continue;
-    const int8_t nb = (int8_t)k1_new_symbol(k, spec, c[k]);
-    if (nb != c[k]) *at[k] = nb;
-  }
+// Threads a round takes: one per four sites of a row (the word path) or
+// per column (the byte path), in each K1_ROWS rows.
+static inline long long k1_threads(int B, int E, bool words) {
+  return (long long)(words ? E / 4 : E) * ((B + K1_ROWS - 1) / K1_ROWS);
 }
 
-// Whether a launch can take the word path: E a multiple of K1_SITES,
-// the planes word-aligned and the uniforms 16-byte aligned.
+// Whether a launch can take the word path: E a multiple of 4, the
+// planes word-aligned and the uniforms 16-byte aligned.
 static inline bool k1_word_path(const void* p_st, const void* d_st,
                                 const void* uniforms, int E) {
-  const uintptr_t w = sizeof(K1Word<K1_SITES>::T);
-  return E % K1_SITES == 0 && (uintptr_t)p_st % w == 0 &&
-         (uintptr_t)d_st % w == 0 &&
+  return E % 4 == 0 && (uintptr_t)p_st % 4 == 0 &&
+         (uintptr_t)d_st % 4 == 0 &&
          (!K1_CHOOSE || (uintptr_t)uniforms % 16 == 0);
 }
 
 #ifdef __CUDACC__
 
-template <int V>
+template <bool WORDS>
 __global__ void __launch_bounds__(K1_THREADS)
     k1_kernel(int8_t* __restrict__ p_st, int8_t* __restrict__ d_st,
               const float* __restrict__ uniforms,
@@ -267,11 +309,7 @@ __global__ void __launch_bounds__(K1_THREADS)
               int stride, int n_threads) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_threads) return;
-  const int s = shifts[round];
-  if constexpr (V == 1)
-    k1_site_bytes(t, p_st, d_st, uniforms, s, B, E, stride);
-  else
-    k1_sites_words<V>(t, p_st, d_st, uniforms, s, B, E, stride);
+  k1_thread<WORDS>(t, p_st, d_st, uniforms, shifts[round], B, E, stride);
 }
 
 // Rounds [k0, k0+n) of a run, one launch a round on `stream`: round
@@ -285,7 +323,7 @@ extern "C" int ckpe_k1_rounds(void* p_st, void* d_st, const void* uniforms,
   if (n_sites * stride >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   if (n_sites == 0 || n <= 0) return (int)cudaGetLastError();
   const bool words = k1_word_path(p_st, d_st, uniforms, E);
-  const int n_threads = (int)(words ? n_sites / K1_SITES : n_sites);
+  const int n_threads = (int)k1_threads(B, E, words);
   const unsigned blocks = (unsigned)((n_threads + K1_THREADS - 1) /
                                      K1_THREADS);
   cudaStream_t st = (cudaStream_t)stream;
@@ -293,11 +331,11 @@ extern "C" int ckpe_k1_rounds(void* p_st, void* d_st, const void* uniforms,
     const float* u = K1_CHOOSE ? (const float*)uniforms + j * n_sites
                                : nullptr;
     if (words)
-      k1_kernel<K1_SITES><<<blocks, K1_THREADS, 0, st>>>(
+      k1_kernel<true><<<blocks, K1_THREADS, 0, st>>>(
           (int8_t*)p_st, (int8_t*)d_st, u, (const int*)shifts, k0 + j, B, E,
           stride, n_threads);
     else
-      k1_kernel<1><<<blocks, K1_THREADS, 0, st>>>(
+      k1_kernel<false><<<blocks, K1_THREADS, 0, st>>>(
           (int8_t*)p_st, (int8_t*)d_st, u, (const int*)shifts, k0 + j, B, E,
           stride, n_threads);
     const cudaError_t err = cudaGetLastError();
@@ -317,14 +355,13 @@ extern "C" const char* ckpe_error_string(int code) {
 extern "C" int ckpe_k1_host_round(int8_t* p_st, int8_t* d_st,
                                   const float* uniforms, int shift, int B,
                                   int E, int stride) {
-  const long long n_sites = (long long)B * E;
-  if (n_sites * stride >= (1LL << 31)) return 1;
-  if (k1_word_path(p_st, d_st, uniforms, E)) {
-    for (int t = 0; t < (int)(n_sites / K1_SITES); ++t)
-      k1_sites_words<K1_SITES>(t, p_st, d_st, uniforms, shift, B, E, stride);
-  } else {
-    for (int t = 0; t < (int)n_sites; ++t)
-      k1_site_bytes(t, p_st, d_st, uniforms, shift, B, E, stride);
+  if ((long long)B * E * stride >= (1LL << 31)) return 1;
+  const bool words = k1_word_path(p_st, d_st, uniforms, E);
+  for (int t = 0; t < k1_threads(B, E, words); ++t) {
+    if (words)
+      k1_thread<true>(t, p_st, d_st, uniforms, shift, B, E, stride);
+    else
+      k1_thread<false>(t, p_st, d_st, uniforms, shift, B, E, stride);
   }
   return 0;
 }

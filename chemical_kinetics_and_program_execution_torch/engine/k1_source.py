@@ -9,12 +9,15 @@ time (`probes/pallas_plane_round.py:49`). The unit includes the
 hand-written template `csrc/plane_round.cuh` (loads, stores, sites per
 thread, launch loop), which documents the kernel's design.
 
-Two walks are written. The fast walk indexes each level's next-state
-rows by live node and branch; it is right whenever every window symbol
-lies in [0, size_a). The exact walk reads the reference's packed words
-with the reference's rule for indices outside them (floored word index,
-word 0 out of range); the template takes it for any thread that sees
-another symbol.
+Two walks are written. The lane walk steps a thread's four sites at
+once, one byte lane each of a 32-bit word: a level's next state is an
+8-entry byte-table lookup (`prmt`) per chunk of its (node, branch)
+table, chunks picked by lane masks; it is right whenever every window
+symbol lies in [0, size_a). The exact walk takes one site at a time and
+reads the reference's packed words with the reference's rule for
+indices outside them (floored word index, word 0 out of range); the
+template takes it for any thread that sees another symbol. The writes
+are lane lookups over the write specs.
 
 :func:`k1_library` builds the unit with `cuda.build_unit` (one `nvcc`
 call per machine, cached on disk by a hash of the source, the template
@@ -38,20 +41,8 @@ def _hex(x: float) -> str:
     return float(x).hex()
 
 
-def _literal(value: int, width: int) -> str:
-    return f"0x{value:x}u" if width == 32 else f"0x{value:x}ull"
-
-
-def _pack(vals, bits: int) -> tuple[str, int] | None:
-    """``vals`` packed ``bits`` wide into one C word: (type, literal), or
-    None when they need more than 64 bits."""
-    if len(vals) * bits > 64:
-        return None
-    word = 0
-    for j, v in enumerate(vals):
-        word |= int(v) << (bits * j)
-    width = 32 if len(vals) * bits <= 32 else 64
-    return f"uint{width}_t", _literal(word, width)
+def _literal(value: int) -> str:
+    return f"0x{value:x}u"
 
 
 def _field_fn(name: str, words, bits: int) -> list[str]:
@@ -62,135 +53,184 @@ def _field_fn(name: str, words, bits: int) -> list[str]:
     bias = per * -(_MIN_INDEX // per)
     out = [f"K1_FN int {name}(int idx) {{",
            f"  const int r = (idx + {bias}) % {per};",
-           f"  uint32_t w = {_literal(words[0], 32)};"]
+           f"  uint32_t w = {_literal(words[0])};"]
     if len(words) > 1:
         out.append(f"  const int q = (idx + {bias}) / {per} - {bias // per};")
-        out += [f"  if (q == {wi}) w = {_literal(x, 32)};"
+        out += [f"  if (q == {wi}) w = {_literal(x)};"
                 for wi, x in enumerate(words) if wi]
     out += [f"  return (int)((w >> ({bits} * r)) & {(1 << bits) - 1}u);",
             "}"]
     return out
 
 
-def _level_fns(li: int, lv, S: int) -> list[str]:
-    """Level ``li``'s next state: ``k1_l{li}_exact(idx)`` by the
-    reference's rule, and ``k1_l{li}_fast(v, b)`` for a live state ``v``
-    and a branch in range, from one row of immediates per node."""
-    out = _field_fn(f"k1_l{li}_exact", lv.trans_words, lv.bits)
-    fields = ens._unpacked(lv.trans_words, lv.bits)
-    rows = [_pack(fields[j * lv.max_deg:(j + 1) * lv.max_deg], lv.bits)
-            for j in range(lv.n_nodes)]
-    out.append(f"K1_FN int k1_l{li}_fast(int v, int b) {{")
-    if rows[0] is None:
-        out += [f"  return k1_l{li}_exact((v - {S}) * {lv.max_deg} + b);",
-                "}"]
-        return out
-    out.append(f"  {rows[0][0]} r = {rows[0][1]};")
-    out += [f"  if (v == {S + j}) r = {row[1]};"
-            for j, row in enumerate(rows) if j]
-    out += [f"  return (int)((r >> ({lv.bits} * b)) & "
-            f"{(1 << lv.bits) - 1}u);", "}"]
+def _lane_lookup(var: str, idx: str, table, indent: str) -> list[str]:
+    """Sets ``var`` to lane-wise ``table[idx]`` (bytes, at most 128
+    entries; every lane of ``idx`` indexes the table): one `prmt` per
+    chunk of 8 entries, the chunk picked by a lane mask."""
+    padded = list(table) + [0] * (-len(table) % 8)
+    words = [_literal(sum(int(v) << (8 * i)
+                          for i, v in enumerate(padded[w * 4:w * 4 + 4])))
+             for w in range(len(padded) // 4)]
+    out = [f"{indent}{{",
+           f"{indent}  const uint32_t sel = k1_selector({idx});",
+           f"{indent}  {var} = k1_prmt({words[0]}, {words[1]}, sel);"]
+    for c in range(1, len(padded) // 8):
+        out.append(f"{indent}  {{ const uint32_t m = k1_lanes_ge({idx}, "
+                   f"{8 * c}); {var} = ({var} & ~m) | (k1_prmt("
+                   f"{words[2 * c]}, {words[2 * c + 1]}, sel) & m); }}")
+    out.append(f"{indent}}}")
     return out
 
 
-def _choose_block(groups, S: int) -> list[str]:
-    """The choose groups of one level: branch and renormalised uniform
-    of the group holding ``v``, as `ensemble._walk_plain` computes them
-    (float64 throughout, or one float32 division where the reference's
-    uniform is still float32)."""
-    out = []
-    for gi, g in enumerate(groups):
-        head = "if" if gi == 0 else "} else if"
-        out.append(f"  {head} (v >= {S + g.id_lo} && v <= {S + g.id_hi}) {{")
-        if g.f32_div:
-            out.append("    b = 0;")
-            out.append(f"    u = (double)K1_FDIV((float)u, "
-                       f"(float){_hex(g.widths[0])});")
-            continue
-        out.append(f"    int bb = 0; double lo = 0.0, wd = "
-                   f"{_hex(g.widths[0])};")
+def _choose_fn(li: int, groups, S: int) -> list[str]:
+    """``bool k1_choose_l{li}(int v, double& u, int& b)``: the choose
+    groups of level ``li`` as `ensemble._walk_plain` computes them. The
+    group holding state ``v`` picks branch ``b`` from ``u``, and ``u`` is
+    renormalised into it, in float64 (or by one float32 division where
+    the reference's uniform is still float32); false when no group holds
+    ``v``. The groups only pick constants; the one division comes after
+    them."""
+    f32 = any(g.f32_div for g in groups)
+    out = [f"K1_FN bool k1_choose_l{li}(int v, double& u, int& b) {{",
+           "  bool hit = false;",
+           "  int bb = 0;",
+           "  double lo = 0.0, wd = 1.0;"]
+    if f32:
+        out.append("  bool f32 = false;")
+    for g in groups:
+        out.append(f"  if (v >= {S + g.id_lo} && v <= {S + g.id_hi}) {{")
+        out.append("    hit = true;")
+        if f32:
+            out.append(f"    f32 = {str(g.f32_div).lower()};")
+        out.append(f"    bb = 0; lo = 0.0; wd = {_hex(g.widths[0])};")
         for j in range(1, len(g.widths)):
             c = _hex(g.cum[j - 1])
             out.append(f"    if (u >= {c}) {{ bb = {j}; lo = {c}; "
                        f"wd = {_hex(g.widths[j])}; }}")
-        out.append("    b = bb;")
-        out.append("    u = K1_DDIV(K1_DSUB(u, lo), wd);")
-    if groups:
         out.append("  }")
+    div = "K1_DDIV(K1_DSUB(u, lo), wd)"
+    if f32:
+        div = f"f32 ? (double)K1_FDIV((float)u, (float)wd) : {div}"
+    out += ["  if (hit) {",
+            "    b = bb;",
+            f"    u = {div};",
+            "  }",
+            "  return hit;",
+            "}"]
     return out
 
 
-def _walk(dm, levels, groups) -> list[str]:
-    """The level-synchronous walk of `ensemble._walk_plain`, one block of
-    code a level: live states are S + local id, terminal ones (< S) the
-    write spec."""
-    S = dm.num_specs
-    out = ["template <bool EXACT>",
-           "K1_FN int k1_walk(const int* c, double u) {",
+def _walk_exact(levels, groups, S: int) -> list[str]:
+    """`ensemble._walk_plain` for one site, one block of code a level:
+    live states are S + local id, terminal ones (< S) the write spec."""
+    out = ["K1_FN int k1_walk_exact(const int* c, double u) {",
            f"  int v = {S};",
            "  int b;",
            "  (void)u;"]
     for li, (lv, grp) in enumerate(zip(levels, groups)):
-        out.append(f"  // level {li}: {lv.n_nodes} live nodes")
         if lv.cell_groups:
             out.append(f"  b = c[{lv.cell_groups[0][0]}];")
-            out += [f"  if (v >= {S + lo}) b = c[{cell}];"
+            out += [f"  b = v >= {S + lo} ? c[{cell}] : b;"
                     for cell, lo in lv.cell_groups[1:]]
         else:
             out.append("  b = 0;")
-        out += _choose_block(grp, S)
-        out.append(f"  if (v >= {S}) v = EXACT ? k1_l{li}_exact((v - {S}) * "
-                   f"{lv.max_deg} + b) : k1_l{li}_fast(v, b);")
+        if grp:
+            out.append(f"  {{ int bb; if (k1_choose_l{li}(v, u, bb)) b = bb; }}")
+        out += [f"  if (v >= {S}) v = k1_l{li}_exact((v - {S}) * "
+                f"{lv.max_deg} + b);"]
+    out += ["  return v;", "}"]
+    return out
+
+
+def _walk_lanes(levels, groups, S: int) -> list[str]:
+    """The walk of four sites at once, one byte lane each: per level the
+    branch lanes (cell groups by lane masks, choose nodes site by site),
+    then the next state of every live lane by a lane lookup in the
+    level's (node, branch) table."""
+    out = ["K1_FN uint32_t k1_walk_lanes(const uint32_t* x, double* u) {",
+           f"  uint32_t v = {S}u * 0x01010101u;",
+           "  uint32_t b, r;",
+           "  (void)u;"]
+    for li, (lv, grp) in enumerate(zip(levels, groups)):
+        out.append(f"  // level {li}: {lv.n_nodes} live nodes")
+        if lv.cell_groups:
+            out.append(f"  b = x[{lv.cell_groups[0][0]}];")
+            out += [f"  {{ const uint32_t m = k1_lanes_ge(v, {S + lo}); "
+                    f"b = (b & ~m) | (x[{cell}] & m); }}"
+                    for cell, lo in lv.cell_groups[1:]]
+        else:
+            out.append("  b = 0;")
+        if grp:
+            out += ["#pragma unroll",
+                    "  for (int j = 0; j < 4; ++j) {",
+                    "    int bb;",
+                    f"    if (k1_choose_l{li}((v >> (8 * j)) & 0xff, u[j], bb))",
+                    "      b = (b & ~(0xffu << (8 * j))) | ((uint32_t)bb << "
+                    "(8 * j));",
+                    "  }"]
+        fields = ens._unpacked(lv.trans_words, lv.bits)
+        table = fields[:lv.n_nodes * lv.max_deg]
+        out += ["  {",
+                f"    const uint32_t t = (v | 0x80808080u) - {S}u * "
+                "0x01010101u;",
+                "    const uint32_t live = k1_lane_mask(t);",
+                f"    const uint32_t idx = (t & 0x7f7f7f7fu & live) * "
+                f"{lv.max_deg}u + b;"]
+        out += _lane_lookup("r", "idx", table, "    ")
+        out += ["    v = (v & ~live) | (r & live);", "  }"]
     out += ["  return v;", "}"]
     return out
 
 
 def _writes(dm) -> list[str]:
-    """Per window cell: which specs write it and with which symbol (the
-    fields of `dm.wr_words`). The walk's spec is always below
-    `num_specs`, so every lookup is in range."""
+    """Per window cell: the new symbol of each lane from its spec (the
+    fields of `dm.wr_words`, as one lane lookup over the specs with
+    0x80 for a spec that leaves the cell alone). The walk's spec is
+    always below `num_specs`."""
     wb = dm.wr_bits
     sym_bits = wb - 1
-    sym_mask = (1 << sym_bits) - 1
-    written, fns, cases = [], [], []
+    written, cases = [], []
     for k, words in enumerate(dm.wr_words):
         fields = ens._unpacked(words, wb)[:dm.num_specs]
-        writes = [f >> sym_bits for f in fields]
-        if not any(writes):
+        if not any(f >> sym_bits for f in fields):
             continue
         written.append(k)
-        syms = [f & sym_mask if w else 0 for f, w in zip(fields, writes)]
-        mask = _pack(writes, 1)
-        table = _pack(syms, sym_bits)
-        distinct = {s for s, w in zip(syms, writes) if w}
-        if mask is None or table is None:
-            fns += _field_fn(f"k1_w{k}", words, wb)
-            cases.append(f"    case {k}: {{ const int f = k1_w{k}(spec); "
-                         f"return (f >> {sym_bits}) ? (f & {sym_mask}) : "
-                         "old; }")
-            continue
-        new = (str(distinct.pop()) if len(distinct) == 1 else
-               f"(int)((({table[0]}){table[1]} >> ({sym_bits} * spec)) & "
-               f"{sym_mask}u)")
-        cases.append(f"    case {k}: return ((({mask[0]}){mask[1]} >> spec) "
-                     f"& 1u) ? {new} : old;")
+        table = [f & ((1 << sym_bits) - 1) if f >> sym_bits else 0x80
+                 for f in fields]
+        cases.append(f"    case {k}: {{")
+        cases += ["      uint32_t r;"] + _lane_lookup("r", "spec", table,
+                                                      "      ")
+        cases += ["      const uint32_t keep = k1_lane_mask(r);",
+                  "      return (r & ~keep) | (x & keep);",
+                  "    }"]
     written_expr = " || ".join(f"k == {k}" for k in written) or "false"
-    return fns + [
+    return [
         "K1_FN bool k1_written(int k) {",
         f"  return {written_expr};", "}",
-        "K1_FN int k1_new_symbol(int k, int spec, int old) {",
+        "K1_FN uint32_t k1_write_lanes(int k, uint32_t spec, uint32_t x) {",
         "  switch (k) {"] + cases + [
-        "    default: return old;", "  }", "}"]
+        "    default: return x;", "  }", "}"]
+
+
+def _check_lanes(dm, levels) -> None:
+    """The lane walk keeps states, symbols and table indices below 128."""
+    top = dm.num_specs + max(lv.n_nodes for lv in levels)
+    widest = max(lv.n_nodes * lv.max_deg for lv in levels)
+    if top > 128 or widest > 128 or dm.size_a > 128:
+        raise ValueError(
+            f"{dm.tag}: K1 takes machines whose write specs and live "
+            f"nodes of a level number at most 128 (here {top}), whose "
+            f"levels have at most 128 (node, branch) pairs (here "
+            f"{widest}) and at most 128 symbols (here {dm.size_a})")
 
 
 @functools.lru_cache(maxsize=None)
 def k1_source(dm: ens.DeviceMachine) -> str:
     """The CUDA translation unit of K1 for machine ``dm`` (deterministic:
     the same machine gives the same text)."""
-    if dm.size_a > 128:
-        raise ValueError(f"{dm.tag}: K1 takes at most 128 symbols")
     levels = ens._level_plan(dm)
     groups = ens._choose_plan(dm)
+    _check_lanes(dm, levels)
     lines = [
         f"// K1 for decision machine {dm.tag!r}: generated by",
         "// chemical_kinetics_and_program_execution_torch/engine/k1_source.py",
@@ -206,9 +246,12 @@ def k1_source(dm: ens.DeviceMachine) -> str:
         '#include "plane_round.cuh"',
         "",
     ]
-    for li, lv in enumerate(levels):
-        lines += _level_fns(li, lv, dm.num_specs)
-    lines += _walk(dm, levels, groups)
+    for li, (lv, grp) in enumerate(zip(levels, groups)):
+        lines += _field_fn(f"k1_l{li}_exact", lv.trans_words, lv.bits)
+        if grp:
+            lines += _choose_fn(li, grp, dm.num_specs)
+    lines += _walk_exact(levels, groups, dm.num_specs)
+    lines += _walk_lanes(levels, groups, dm.num_specs)
     lines += _writes(dm)
     return "\n".join(lines) + "\n"
 

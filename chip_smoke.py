@@ -253,6 +253,7 @@ def main(dev=None):
         dtape = torch.zeros((B, L), dtype=torch.int32, device=dev)
         torch.cuda.synchronize()
 
+        gen_state = gen.get_state()
         ens.plane_round.launches = 0
         ens.plane_round_plain.calls = 0
         ens.window_counts.launches = 0
@@ -302,7 +303,37 @@ def main(dev=None):
         say(f"SPD(cl_k={CL_K}) top windows: "
             f"{torch.topk(spd, 3).indices.tolist()}")
 
-        # K1 alone, on the run's own planes and a fresh random shift
+        # K1 over the run's own rounds: the same start and shifts (the
+        # run's first draw), launched by run_rounds, once behind a
+        # sleeping stream (device time) and once as the run launches
+        # them (the host's pacing included).
+        replay = torch.Generator(device=dev)
+        replay.set_state(gen_state)
+        run_shifts = torch.randint(0, STRIDE, (NUM_STEPS,), generator=replay,
+                                   device=dev, dtype=torch.int32)
+        start_p = ens._tape_to_planes(ptape.to(torch.int8), STRIDE)
+        start_d = ens._tape_to_planes(dtape.to(torch.int8), STRIDE)
+        p_st, d_st = start_p.clone(), start_d.clone()
+        replay_ms = cuda_ms(lambda: ens.run_rounds(dm, p_st, d_st,
+                                                   run_shifts),
+                            1, warmup=0) / NUM_STEPS
+        if not (torch.equal(ens._planes_to_tape(p_st).to(torch.int32), pt)
+                and torch.equal(ens._planes_to_tape(d_st).to(torch.int32),
+                                dt)):
+            raise AssertionError("replayed rounds differ from the run")
+        p_st, d_st = start_p.clone(), start_d.clone()
+        torch.cuda.synchronize()
+        start.record()
+        ens.run_rounds(dm, p_st, d_st, run_shifts)
+        end.record()
+        torch.cuda.synchronize()
+        paced_ms = start.elapsed_time(end) / NUM_STEPS
+        say(f"K1 over the run's {NUM_STEPS} rounds: {replay_ms * 1e3:.2f} "
+            f"us a round device time, {paced_ms * 1e3:.2f} us a round as "
+            f"launched; run_ensemble {ms_round * 1e3:.2f} us a round")
+        del start_p, start_d
+
+        # K1 alone, on the run's final planes and a fresh random shift
         # sequence, as the run launches it.
         p_st = ens._tape_to_planes(pt.to(torch.int8), STRIDE)
         d_st = ens._tape_to_planes(dt.to(torch.int8), STRIDE)
@@ -357,6 +388,8 @@ def main(dev=None):
             "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
             "bound_by": "bytes", "library_ms": None,
             "run_ms_per_round": ms_round,
+            "run_rounds_ms_per_round": {"device": replay_ms,
+                                        "as_launched": paced_ms},
             "host_us_per_launch": {"plane_round": host_us,
                                    "run_rounds": host_c_us},
         }

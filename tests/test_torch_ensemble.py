@@ -353,7 +353,7 @@ def k1_host_library(tmp_path_factory):
     return get
 
 
-@pytest.mark.parametrize("B,L,E", [(6, 128, 8), (5, 112, 7)],
+@pytest.mark.parametrize("B,L,E", [(61, 128, 8), (37, 112, 7)],
                          ids=["words", "bytes"])
 @pytest.mark.parametrize("tag", TAGS + [_NESTED_TAG])
 def test_generated_kernel_matches_plain_round(k1_host_library, tag, B, L, E):
