@@ -487,12 +487,6 @@ def _choose_plan(dm: DeviceMachine):
 # cell at offset `off` lives in plane (s+off) mod stride at element
 # k + floor((s+off)/stride), the floor being -1, 0 or +1.
 
-def _unpacked(words, bits):
-    """Every field of little-endian packed ``words``, in order."""
-    per = 31 // bits
-    return [(w >> (bits * f)) & ((1 << bits) - 1)
-            for w in words for f in range(per)]
-
 
 def _unpack_field(words, widx, shift_amt, bits):
     """Selects words[widx] >> shift_amt & mask (words[0] when widx is out
@@ -645,7 +639,7 @@ def _rounds(dm, p_st, d_st, shifts, k0, n, uniforms):
             plane_round_plain(dm, p_st, d_st, shifts, k0 + j,
                               None if uniforms is None else uniforms[j])
         return
-    from .k1_source import k1_library
+    from .k1_source import k1_library  # k1_source imports this module
 
     lib = k1_library(dm)
     stride, B, E = p_st.shape
@@ -835,20 +829,20 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     gen = config.make_generator(generator, device)
     shifts = torch.randint(0, stride, (num_steps,), generator=gen,
                            device=device, dtype=torch.int32)
-    if not dm.has_choose:
-        _check_planes(dm, p_st, d_st, shifts, 0, num_steps, None)
-        _rounds(dm, p_st, d_st, shifts, 0, num_steps, None)
-    else:
-        chunk = max(1, min(num_steps, _UNIFORM_CHUNK // (B * events)))
-        buf = torch.empty((chunk, B, events), dtype=torch.float32,
-                          device=device)
+    if num_steps:
+        chunk, buf = num_steps, None
+        if dm.has_choose:
+            chunk = max(1, min(num_steps, _UNIFORM_CHUNK // (B * events)))
+            buf = torch.empty((chunk, B, events), dtype=torch.float32,
+                              device=device)
+        _check_planes(dm, p_st, d_st, shifts, 0, chunk, buf)
         for k0 in range(0, num_steps, chunk):
             n = min(chunk, num_steps - k0)
-            for j in range(n):
+            uniforms = None if buf is None else buf[:n]
+            for j in range(n if dm.has_choose else 0):
                 torch.rand((B, events), generator=gen, device=device,
-                           dtype=torch.float32, out=buf[j])
-            _check_planes(dm, p_st, d_st, shifts, k0, n, buf[:n])
-            _rounds(dm, p_st, d_st, shifts, k0, n, buf[:n])
+                           dtype=torch.float32, out=uniforms[j])
+            _rounds(dm, p_st, d_st, shifts, k0, n, uniforms)
     applied = torch.full((num_steps,), B * events, dtype=torch.int64,
                          device=device)
     f64 = config.DEFAULT_FLOAT

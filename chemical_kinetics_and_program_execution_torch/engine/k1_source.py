@@ -45,6 +45,13 @@ def _literal(value: int) -> str:
     return f"0x{value:x}u"
 
 
+def _unpacked(words, bits):
+    """Every field of little-endian packed ``words``, in order."""
+    per = 31 // bits
+    return [(w >> (bits * f)) & ((1 << bits) - 1)
+            for w in words for f in range(per)]
+
+
 def _field_fn(name: str, words, bits: int) -> list[str]:
     """``int name(int idx)``: field ``idx`` of the reference's packed
     ``words`` by the reference's rule (`ensemble._unpack_field`: floored
@@ -168,7 +175,7 @@ def _walk_lanes(levels, groups, S: int) -> list[str]:
                     "      b = (b & ~(0xffu << (8 * j))) | ((uint32_t)bb << "
                     "(8 * j));",
                     "  }"]
-        fields = ens._unpacked(lv.trans_words, lv.bits)
+        fields = _unpacked(lv.trans_words, lv.bits)
         table = fields[:lv.n_nodes * lv.max_deg]
         out += ["  {",
                 f"    const uint32_t t = (v | 0x80808080u) - {S}u * "
@@ -191,7 +198,7 @@ def _writes(dm) -> list[str]:
     sym_bits = wb - 1
     written, cases = [], []
     for k, words in enumerate(dm.wr_words):
-        fields = ens._unpacked(words, wb)[:dm.num_specs]
+        fields = _unpacked(words, wb)[:dm.num_specs]
         if not any(f >> sym_bits for f in fields):
             continue
         written.append(k)
