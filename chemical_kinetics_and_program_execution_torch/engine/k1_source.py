@@ -279,8 +279,17 @@ def _load(source: str) -> ctypes.CDLL:
     return lib
 
 
+# Loaded libraries by machine identity (the machine is kept alive beside
+# its library): hashing a DeviceMachine walks all its fields, which
+# costs the host more than a launch.
+_by_machine: dict[int, tuple] = {}
+
+
 def k1_library(dm: ens.DeviceMachine) -> ctypes.CDLL:
     """K1 for ``dm``, built on first use and loaded once per process.
-    The cache is keyed by the generated source, so two machines share a
-    library only when their kernels are the same code."""
-    return _load(k1_source(dm))
+    Libraries are keyed by the generated source, so two machines share
+    one only when their kernels are the same code."""
+    hit = _by_machine.get(id(dm))
+    if hit is None:
+        hit = _by_machine[id(dm)] = (dm, _load(k1_source(dm)))
+    return hit[1]
