@@ -57,10 +57,13 @@
 // by byte. It reads all its cells before it writes any; the neighbours'
 // bytes that a funnelled load also reads are discarded.
 //
-// Bound. A round moves n_cells int8 reads and writes per site, plus 4 B
-// of uniform per site for a machine with choose nodes: on
-// ex5-msrtf-machine at B=16384, E=256, 14 B x 4,194,304 sites = 58.7 MB,
-// 17.5 us at the H100's 3.35 TB/s. The bound is bytes.
+// Bound. A round must read, a byte a site, the cells the walk reveals
+// and the written cells that some spec leaves alone, and must write the
+// cells that some spec writes (`k1_source.cell_traffic`), plus 4 B of
+// uniform per site for a machine with choose nodes: on
+// ex5-msrtf-machine at B=16384, E=256, 7 reads and 3 writes, 10 B x
+// 4,194,304 sites = 41.9 MB, 12.5 us at the H100's 3.35 TB/s. The bound
+// is bytes.
 
 #pragma once
 

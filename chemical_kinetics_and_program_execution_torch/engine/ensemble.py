@@ -846,9 +846,10 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     applied = torch.full((num_steps,), B * events, dtype=torch.int64,
                          device=device)
     f64 = config.DEFAULT_FLOAT
-    dt_round = -torch.log1p(torch.tensor(-events / L, dtype=f64))
-    times = dt_round.to(device) * torch.arange(
-        1, num_steps + 1, dtype=f64, device=device)
+    # A Python float, not a tensor copied to the card: that copy would
+    # make the host wait for every queued round before it queues the rest.
+    dt_round = float(-torch.log1p(torch.tensor(-events / L, dtype=f64)))
+    times = torch.arange(1, num_steps + 1, dtype=f64, device=device) * dt_round
     if keep_planes:
         out = PlaneState(p_st, d_st, batch=B, length=L)
     else:

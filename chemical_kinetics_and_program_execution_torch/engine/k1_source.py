@@ -194,11 +194,9 @@ def _writes(dm) -> list[str]:
     fields of `dm.wr_words`, as one lane lookup over the specs with
     0x80 for a spec that leaves the cell alone). The walk's spec is
     always below `num_specs`."""
-    wb = dm.wr_bits
-    sym_bits = wb - 1
+    sym_bits = dm.wr_bits - 1
     written, cases = [], []
-    for k, words in enumerate(dm.wr_words):
-        fields = _unpacked(words, wb)[:dm.num_specs]
+    for k, fields in enumerate(_spec_fields(dm)):
         if not any(f >> sym_bits for f in fields):
             continue
         written.append(k)
@@ -219,6 +217,29 @@ def _writes(dm) -> list[str]:
         "    default: return x;", "  }", "}"]
 
 
+def _spec_fields(dm) -> list[list[int]]:
+    """Per window cell, its field of each write spec (`dm.wr_words`):
+    the top bit says the spec writes the cell, the rest is the symbol."""
+    return [_unpacked(words, dm.wr_bits)[:dm.num_specs]
+            for words in dm.wr_words]
+
+
+def cell_traffic(dm: ens.DeviceMachine) -> tuple[list[int], list[int]]:
+    """The window cells a round must read and those it must write: it
+    reads the cells the walk reveals and the written cells that some
+    spec leaves alone, and writes the cells that some spec writes."""
+    sym_bits = dm.wr_bits - 1
+    read = {cell for lv in ens._level_plan(dm) for cell, _ in lv.cell_groups}
+    written = []
+    for k, fields in enumerate(_spec_fields(dm)):
+        hits = [f >> sym_bits for f in fields]
+        if any(hits):
+            written.append(k)
+            if not all(hits):
+                read.add(k)
+    return sorted(read), written
+
+
 def _check_lanes(dm, levels) -> None:
     """The lane walk keeps states, symbols and table indices below 128."""
     top = dm.num_specs + max(lv.n_nodes for lv in levels)
@@ -231,7 +252,6 @@ def _check_lanes(dm, levels) -> None:
             f"{widest}) and at most 128 symbols (here {dm.size_a})")
 
 
-@functools.lru_cache(maxsize=None)
 def k1_source(dm: ens.DeviceMachine) -> str:
     """The CUDA translation unit of K1 for machine ``dm`` (deterministic:
     the same machine gives the same text)."""

@@ -14,20 +14,22 @@ Phases (each prints its wall time; every check raises on failure):
 2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2) and
    one for K1's generated unit of each machine, each with its seconds
    and its `-Xptxas -v` register, shared-memory and spill lines;
-3. kernels against their plain versions on the card, at full width:
+3. main path: `run_ensemble` at B=16384, L=4096, E=256 on
+   ex5-msrtf-machine for 2,000 rounds, then `window_counts` at cl_k=3;
+   K1 must launch exactly 2,000 times and the plain round never, K2
+   once; per-round time and transitions/s of the process's first call
+   (cold: PyTorch loads its own kernels on their first launch and the
+   allocator takes the buffers from the card) and of the same call
+   again (warm), which must give the same tapes; each kernel's time
+   (CUDA events) beside its bound, its plain version and the library
+   call; the host's cost a launch, by one `plane_round` call a round
+   and by `run_rounds`' one call for all rounds;
+4. kernels against their plain versions on the card, at full width:
    K1 on ex5-msrtf-machine, ex4-chemical-turing and
    ex2-ferromagnetic-chain, one round at every phase in [0, 16), planes
    bit-identical after each, at E=256 (the word path) and at E=255
    (the byte path, an E that is not a multiple of 4); K2 against its
    plain version and `torch.bincount`, exactly equal;
-4. main path: after a warm-up call of 8 rounds, `run_ensemble` at
-   B=16384, L=4096, E=256 on ex5-msrtf-machine for 2,000 rounds, then
-   `window_counts` at cl_k=3;
-   K1 must launch exactly 2,000 times and the plain round never, K2
-   once; per-round time and transitions/s, and each kernel's time
-   (CUDA events) beside its bound, its plain version and the library
-   call; the host's cost a launch, by one `plane_round` call a round
-   and by `run_rounds`' one call for all rounds;
 5. end to end on a small input: explicit draws through the card and
    through the CPU's plain path give the same tapes and window counts.
 
@@ -57,7 +59,6 @@ E = L // 16
 STRIDE = L // E
 E_TAIL = E - 1  # the byte path: an E that is not a multiple of 4
 NUM_STEPS = 2000
-WARMUP_STEPS = 8
 CL_K = 3
 MAIN_TAG = "ex5-msrtf-machine"
 TAGS = ["ex5-msrtf-machine", "ex4-chemical-turing", "ex2-ferromagnetic-chain"]
@@ -159,9 +160,12 @@ def k1_against_plain(gen, tag, dm, dev, events):
 
 
 def k1_bytes(dm, events=E):
-    """Least bytes a round moves: each window cell read and written once
-    (int8), plus one float32 uniform a site for a machine with chooses."""
-    return B * events * (2 * dm.n_cells + (4 if dm.has_choose else 0))
+    """Least bytes a round moves: a byte a site for each window cell the
+    round must read and each it must write (`k1_source.cell_traffic`),
+    plus one float32 uniform a site for a machine with chooses."""
+    read, written = k1_source.cell_traffic(dm)
+    return B * events * (len(read) + len(written)
+                         + (4 if dm.has_choose else 0))
 
 
 def main(dev=None):
@@ -207,7 +211,163 @@ def main(dev=None):
 
     kernels = {}
     max_err = {"K1": 0, "K2": 0}
-    with Phase("3 kernels against plain versions (full width)"):
+    with Phase("3 main path"):
+        dm = machines[MAIN_TAG]
+        say(f"{MAIN_TAG}: {dm.n_cells} window cells, {len(dm.nodes)} "
+            f"decision nodes, {dm.num_specs} write specs, "
+            f"{len(ens._level_plan(dm))} levels")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        ptape = torch.randint(0, 3, (B, L), generator=gen, device=dev,
+                              dtype=torch.int32)
+        dtape = torch.zeros((B, L), dtype=torch.int32, device=dev)
+        gen_state = gen.get_state()
+        torch.cuda.synchronize()
+
+        def main_path(label):
+            """One `run_ensemble` call from ``gen_state`` and one
+            `window_counts`, counts set to 0 just before and read just
+            after; returns the outputs and the call's device ms."""
+            gen.set_state(gen_state)
+            ens.plane_round.launches = 0
+            ens.plane_round_plain.calls = 0
+            ens.window_counts.launches = 0
+            t0 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = ens.run_ensemble(gen, (ptape, dtape), dm, (NUM_STEPS, E),
+                                   device=dev)
+            end.record()
+            spd = ens.window_counts(out[0][0], dm.size_a, CL_K, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"plane_round": ens.plane_round.launches,
+                        "window_counts": ens.window_counts.launches}
+            plain_calls = ens.plane_round_plain.calls
+            say(f"{label}: launches {launches}, plain round calls "
+                f"{plain_calls}; wall {wall:.3f} s")
+            if launches["plane_round"] != NUM_STEPS or plain_calls != 0:
+                raise AssertionError("main path did not run K1 once a round")
+            if launches["window_counts"] != 1:
+                raise AssertionError("main path did not run K2")
+            return out, spd, launches, start.elapsed_time(end)
+
+        # The process's first call (cold) and the same call again (warm).
+        ((pt, dt), (applied, times)), spd, launches, run_ms = main_path(
+            "cold call")
+        ((pt_w, dt_w), _), spd_w, _, warm_ms = main_path("warm call")
+        if not (torch.equal(pt, pt_w) and torch.equal(dt, dt_w)
+                and torch.equal(spd, spd_w)):
+            raise AssertionError("the warm call differs from the cold one")
+        del pt_w, dt_w
+
+        # What came out: valid symbols, the run's bookkeeping, an SPD.
+        if pt.shape != (B, L) or pt.dtype != torch.int32:
+            raise AssertionError(f"tapes {tuple(pt.shape)} {pt.dtype}")
+        for t in (pt, dt):
+            if int(t.min()) < 0 or int(t.max()) >= dm.size_a:
+                raise AssertionError("symbol out of range")
+        if not torch.all(applied == B * E):
+            raise AssertionError("applied counts")
+        want_t = -math.log1p(-E / L) * NUM_STEPS
+        if not (torch.all(torch.isfinite(times))
+                and abs(float(times[-1]) - want_t) <= 1e-12 * want_t):
+            raise AssertionError("times")
+        if not (torch.all(torch.isfinite(spd))
+                and abs(float(spd.sum()) - 1.0) < 1e-12
+                and spd.shape == (dm.size_a**CL_K,)):
+            raise AssertionError("window_counts")
+        if int((dt != 0).sum()) == 0:
+            raise AssertionError("the data tape never changed")
+        ms_round, warm_round = run_ms / NUM_STEPS, warm_ms / NUM_STEPS
+        for label, ms in (("cold", run_ms), ("warm", warm_ms)):
+            say(f"run_ensemble, {label}: {ms:.3f} ms for {NUM_STEPS} rounds "
+                f"(tape<->plane conversion included): "
+                f"{ms / NUM_STEPS * 1e3:.2f} us/round, "
+                f"{B * E * NUM_STEPS / (ms * 1e-3):.4e} transitions/s")
+        say(f"first call's extra cost: {run_ms - warm_ms:.3f} ms")
+        say(f"SPD(cl_k={CL_K}) top windows: "
+            f"{torch.topk(spd, 3).indices.tolist()}")
+
+        # K1 over the run's own rounds: the same start and shifts (the
+        # run's first draw), launched by run_rounds, once behind a
+        # sleeping stream (device time) and once as the run launches
+        # them (the host's pacing included).
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        replay = torch.Generator(device=dev)
+        replay.set_state(gen_state)
+        run_shifts = torch.randint(0, STRIDE, (NUM_STEPS,), generator=replay,
+                                   device=dev, dtype=torch.int32)
+        start_p = ens._tape_to_planes(ptape.to(torch.int8), STRIDE)
+        start_d = ens._tape_to_planes(dtape.to(torch.int8), STRIDE)
+        p_st, d_st = start_p.clone(), start_d.clone()
+        replay_ms = cuda_ms(lambda: ens.run_rounds(dm, p_st, d_st,
+                                                   run_shifts),
+                            1, warmup=0) / NUM_STEPS
+        if not (torch.equal(ens._planes_to_tape(p_st).to(torch.int32), pt)
+                and torch.equal(ens._planes_to_tape(d_st).to(torch.int32),
+                                dt)):
+            raise AssertionError("replayed rounds differ from the run")
+        p_st, d_st = start_p.clone(), start_d.clone()
+        torch.cuda.synchronize()
+        start.record()
+        ens.run_rounds(dm, p_st, d_st, run_shifts)
+        end.record()
+        torch.cuda.synchronize()
+        paced_ms = start.elapsed_time(end) / NUM_STEPS
+        say(f"K1 over the run's {NUM_STEPS} rounds: {replay_ms * 1e3:.2f} "
+            f"us a round device time, {paced_ms * 1e3:.2f} us a round as "
+            f"launched; run_ensemble {ms_round * 1e3:.2f} us a round cold, "
+            f"{warm_round * 1e3:.2f} warm")
+        del start_p, start_d
+
+        # K1 alone, on the run's final planes and a fresh random shift
+        # sequence, as the run launches it.
+        p_st = ens._tape_to_planes(pt.to(torch.int8), STRIDE)
+        d_st = ens._tape_to_planes(dt.to(torch.int8), STRIDE)
+        reps = 500
+        shifts = torch.randint(0, STRIDE, (reps + 3,), generator=gen,
+                               device=dev, dtype=torch.int32)
+        it = iter(range(reps + 3))
+        host = []
+        k1_ms = cuda_ms(lambda: ens.plane_round(dm, p_st, d_st, shifts,
+                                                next(it)), reps, host=host)
+        host_c = []
+        rounds_ms = cuda_ms(lambda: ens.run_rounds(dm, p_st, d_st, shifts),
+                            1, warmup=1, host=host_c) / len(shifts)
+        it = iter(range(5 + 3))
+        k1_plain_ms = cuda_ms(lambda: ens.plane_round_plain(
+            dm, p_st, d_st, shifts, next(it)), 5)
+        k1_bound = k1_bytes(dm) / HBM_BYTES_PER_S * 1e3
+        host_us = host[0] * 1e3
+        host_c_us = host_c[0] * 1e3 / len(shifts)
+        say(f"K1: {k1_ms * 1e3:.2f} us/round against a bound of "
+            f"{k1_bound * 1e3:.2f} us ({k1_bytes(dm) / 1e6:.2f} MB at "
+            f"3.35 TB/s): {k1_bound / k1_ms:.3f} of the bound; "
+            f"plain {k1_plain_ms:.3f} ms; {rounds_ms * 1e3:.2f} us a round "
+            f"by run_rounds")
+        say(f"host a launch: {host_us:.2f} us by plane_round (checks + "
+            f"one ctypes call a round), {host_c_us:.2f} us by run_rounds "
+            f"(one check and one ctypes call for {len(shifts)} rounds)")
+
+        k2_ms = cuda_ms(lambda: ens._window_counts_int(pt, dm.size_a, CL_K),
+                        20)
+        k2_plain_ms = cuda_ms(
+            lambda: ens.window_counts_plain(pt, dm.size_a, CL_K), 5)
+        rank = torch.zeros_like(pt, dtype=torch.int64)
+        for j in range(CL_K):
+            rank = rank * dm.size_a + torch.roll(pt, -j, dims=1)
+        flat = rank.reshape(-1)
+        k2_lib_ms = cuda_ms(
+            lambda: torch.bincount(flat, minlength=dm.size_a**CL_K), 20)
+        k2_bytes = B * L * 4 + dm.size_a**CL_K * 8
+        k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
+        say(f"K2: {k2_ms:.4f} ms against a bound of {k2_bound:.4f} ms; "
+            f"plain {k2_plain_ms:.4f} ms; torch.bincount on the ranks "
+            f"{k2_lib_ms:.4f} ms")
+
+    with Phase("4 kernels against plain versions (full width)"):
         gen = torch.Generator(device=dev).manual_seed(1234)
         for tag, dm in machines.items():
             for events in (E, E_TAIL):
@@ -244,177 +404,32 @@ def main(dev=None):
         del tape, rank
         torch.cuda.empty_cache()
 
-    with Phase("4 main path"):
-        dm = ens.compile_decision_machine(MAIN_TAG)
-        say(f"{MAIN_TAG}: {dm.n_cells} window cells, {len(dm.nodes)} "
-            f"decision nodes, {dm.num_specs} write specs, "
-            f"{len(ens._level_plan(dm))} levels")
-        gen = torch.Generator(device=dev).manual_seed(0)
-        ptape = torch.randint(0, 3, (B, L), generator=gen, device=dev,
-                              dtype=torch.int32)
-        dtape = torch.zeros((B, L), dtype=torch.int32, device=dev)
-        # A short call at the same shapes first: PyTorch loads its own
-        # kernels on their first launch and the allocator takes the run's
-        # buffers from the card, which would otherwise land in the timed
-        # call.
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ens.run_ensemble(torch.Generator(device=dev).manual_seed(1),
-                         (ptape, dtape), dm, (WARMUP_STEPS, E), device=dev)
-        torch.cuda.synchronize()
-        say(f"warm-up run_ensemble of {WARMUP_STEPS} rounds: "
-            f"{(time.perf_counter() - t0) * 1e3:.3f} ms")
+    kernels["K1"] = {
+        "name": "K1 plane_round", "route": "cuda",
+        "source": "chemical_kinetics_and_program_execution_torch/csrc/"
+                  "plane_round.cuh",
+        "replaces": K1_REPLACES, "launches": launches["plane_round"],
+        "max_abs_err": max_err["K1"],
+        "match": "bit-identical on ex5, ex4, ex2 at E=256 and E=255",
+        "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+        "bound_by": "bytes", "library_ms": None,
+        "run_ms_per_round": {"cold": ms_round, "warm": warm_round},
+        "run_rounds_ms_per_round": {"device": replay_ms,
+                                    "as_launched": paced_ms},
+        "host_us_per_launch": {"plane_round": host_us,
+                               "run_rounds": host_c_us},
+    }
+    kernels["K2"] = {
+        "name": "K2 window_counts", "route": "cuda",
+        "source": "chemical_kinetics_and_program_execution_torch/csrc/"
+                  "window_counts.cu",
+        "replaces": K2_REPLACES, "launches": launches["window_counts"],
+        "max_abs_err": max_err["K2"],
+        "match": "exact vs plain and torch.bincount",
+        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
+        "bound_by": "bytes", "library_ms": k2_lib_ms,
+    }
 
-        gen_state = gen.get_state()
-        ens.plane_round.launches = 0
-        ens.plane_round_plain.calls = 0
-        ens.window_counts.launches = 0
-        t0 = time.perf_counter()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        (pt, dt), (applied, times) = ens.run_ensemble(
-            gen, (ptape, dtape), dm, (NUM_STEPS, E), device=dev)
-        end.record()
-        spd = ens.window_counts(pt, dm.size_a, CL_K, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"plane_round": ens.plane_round.launches,
-                    "window_counts": ens.window_counts.launches}
-        plain_calls = ens.plane_round_plain.calls
-        run_ms = start.elapsed_time(end)
-        say(f"launches: {launches}, plain round calls: {plain_calls}")
-        if launches["plane_round"] != NUM_STEPS or plain_calls != 0:
-            raise AssertionError("main path did not run K1 once a round")
-        if launches["window_counts"] != 1:
-            raise AssertionError("main path did not run K2")
-
-        # What came out: valid symbols, the run's bookkeeping, an SPD.
-        if pt.shape != (B, L) or pt.dtype != torch.int32:
-            raise AssertionError(f"tapes {tuple(pt.shape)} {pt.dtype}")
-        for t in (pt, dt):
-            if int(t.min()) < 0 or int(t.max()) >= dm.size_a:
-                raise AssertionError("symbol out of range")
-        if not torch.all(applied == B * E):
-            raise AssertionError("applied counts")
-        want_t = -math.log1p(-E / L) * NUM_STEPS
-        if not (torch.all(torch.isfinite(times))
-                and abs(float(times[-1]) - want_t) <= 1e-12 * want_t):
-            raise AssertionError("times")
-        if not (torch.all(torch.isfinite(spd))
-                and abs(float(spd.sum()) - 1.0) < 1e-12
-                and spd.shape == (dm.size_a**CL_K,)):
-            raise AssertionError("window_counts")
-        if int((dt != 0).sum()) == 0:
-            raise AssertionError("the data tape never changed")
-        ms_round = run_ms / NUM_STEPS
-        say(f"run_ensemble: {run_ms:.3f} ms for {NUM_STEPS} rounds "
-            f"(tape<->plane conversion included): {ms_round * 1e3:.2f} "
-            f"us/round, {B * E * NUM_STEPS / (run_ms * 1e-3):.4e} "
-            f"transitions/s; main path wall {wall:.3f} s")
-        say(f"SPD(cl_k={CL_K}) top windows: "
-            f"{torch.topk(spd, 3).indices.tolist()}")
-
-        # K1 over the run's own rounds: the same start and shifts (the
-        # run's first draw), launched by run_rounds, once behind a
-        # sleeping stream (device time) and once as the run launches
-        # them (the host's pacing included).
-        replay = torch.Generator(device=dev)
-        replay.set_state(gen_state)
-        run_shifts = torch.randint(0, STRIDE, (NUM_STEPS,), generator=replay,
-                                   device=dev, dtype=torch.int32)
-        start_p = ens._tape_to_planes(ptape.to(torch.int8), STRIDE)
-        start_d = ens._tape_to_planes(dtape.to(torch.int8), STRIDE)
-        p_st, d_st = start_p.clone(), start_d.clone()
-        replay_ms = cuda_ms(lambda: ens.run_rounds(dm, p_st, d_st,
-                                                   run_shifts),
-                            1, warmup=0) / NUM_STEPS
-        if not (torch.equal(ens._planes_to_tape(p_st).to(torch.int32), pt)
-                and torch.equal(ens._planes_to_tape(d_st).to(torch.int32),
-                                dt)):
-            raise AssertionError("replayed rounds differ from the run")
-        p_st, d_st = start_p.clone(), start_d.clone()
-        torch.cuda.synchronize()
-        start.record()
-        ens.run_rounds(dm, p_st, d_st, run_shifts)
-        end.record()
-        torch.cuda.synchronize()
-        paced_ms = start.elapsed_time(end) / NUM_STEPS
-        say(f"K1 over the run's {NUM_STEPS} rounds: {replay_ms * 1e3:.2f} "
-            f"us a round device time, {paced_ms * 1e3:.2f} us a round as "
-            f"launched; run_ensemble {ms_round * 1e3:.2f} us a round")
-        del start_p, start_d
-
-        # K1 alone, on the run's final planes and a fresh random shift
-        # sequence, as the run launches it.
-        p_st = ens._tape_to_planes(pt.to(torch.int8), STRIDE)
-        d_st = ens._tape_to_planes(dt.to(torch.int8), STRIDE)
-        reps = 500
-        shifts = torch.randint(0, STRIDE, (reps + 3,), generator=gen,
-                               device=dev, dtype=torch.int32)
-        it = iter(range(reps + 3))
-        host = []
-        k1_ms = cuda_ms(lambda: ens.plane_round(dm, p_st, d_st, shifts,
-                                                next(it)), reps, host=host)
-        host_c = []
-        rounds_ms = cuda_ms(lambda: ens.run_rounds(dm, p_st, d_st, shifts),
-                            1, warmup=1, host=host_c) / len(shifts)
-        it = iter(range(5 + 3))
-        k1_plain_ms = cuda_ms(lambda: ens.plane_round_plain(
-            dm, p_st, d_st, shifts, next(it)), 5)
-        k1_bound = k1_bytes(dm) / HBM_BYTES_PER_S * 1e3
-        host_us = host[0] * 1e3
-        host_c_us = host_c[0] * 1e3 / len(shifts)
-        say(f"K1: {k1_ms * 1e3:.2f} us/round against a bound of "
-            f"{k1_bound * 1e3:.2f} us ({k1_bytes(dm) / 1e6:.1f} MB at "
-            f"3.35 TB/s): {k1_bound / k1_ms:.3f} of the bound; "
-            f"plain {k1_plain_ms:.3f} ms; {rounds_ms * 1e3:.2f} us a round "
-            f"by run_rounds")
-        say(f"host a launch: {host_us:.2f} us by plane_round (checks + "
-            f"one ctypes call a round), {host_c_us:.2f} us by run_rounds "
-            f"(one check and one ctypes call for {len(shifts)} rounds)")
-
-        k2_ms = cuda_ms(lambda: ens._window_counts_int(pt, dm.size_a, CL_K),
-                        20)
-        k2_plain_ms = cuda_ms(
-            lambda: ens.window_counts_plain(pt, dm.size_a, CL_K), 5)
-        rank = torch.zeros_like(pt, dtype=torch.int64)
-        for j in range(CL_K):
-            rank = rank * dm.size_a + torch.roll(pt, -j, dims=1)
-        flat = rank.reshape(-1)
-        k2_lib_ms = cuda_ms(
-            lambda: torch.bincount(flat, minlength=dm.size_a**CL_K), 20)
-        k2_bytes = B * L * 4 + dm.size_a**CL_K * 8
-        k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
-        say(f"K2: {k2_ms:.4f} ms against a bound of {k2_bound:.4f} ms; "
-            f"plain {k2_plain_ms:.4f} ms; torch.bincount on the ranks "
-            f"{k2_lib_ms:.4f} ms")
-
-        kernels["K1"] = {
-            "name": "K1 plane_round", "route": "cuda",
-            "source": "chemical_kinetics_and_program_execution_torch/csrc/"
-                      "plane_round.cuh",
-            "replaces": K1_REPLACES, "launches": launches["plane_round"],
-            "max_abs_err": max_err["K1"],
-            "match": "bit-identical on ex5, ex4, ex2 at E=256 and E=255",
-            "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-            "bound_by": "bytes", "library_ms": None,
-            "run_ms_per_round": ms_round,
-            "run_rounds_ms_per_round": {"device": replay_ms,
-                                        "as_launched": paced_ms},
-            "host_us_per_launch": {"plane_round": host_us,
-                                   "run_rounds": host_c_us},
-        }
-        kernels["K2"] = {
-            "name": "K2 window_counts", "route": "cuda",
-            "source": "chemical_kinetics_and_program_execution_torch/csrc/"
-                      "window_counts.cu",
-            "replaces": K2_REPLACES, "launches": launches["window_counts"],
-            "max_abs_err": max_err["K2"],
-            "match": "exact vs plain and torch.bincount",
-            "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-            "bound_by": "bytes", "library_ms": k2_lib_ms,
-        }
 
     with Phase("5 end to end against the CPU on a small input"):
         dm = ens.compile_decision_machine("ex4-chemical-turing")

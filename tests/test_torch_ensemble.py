@@ -393,7 +393,7 @@ def test_generated_source_is_deterministic_and_keyed_on_fields():
     _, tdm = _machines("ex5-msrtf-machine")
     fresh = tens.compile_decision_machine("ex5-msrtf-machine")
     src = k1_source.k1_source(tdm)
-    assert src == k1_source.k1_source.__wrapped__(fresh)
+    assert src == k1_source.k1_source(fresh)
     path = cuda.unit_library_path("k1", src)
     assert path == cuda.unit_library_path("k1", k1_source.k1_source(fresh))
     wr = list(tdm.wr_words)
@@ -403,6 +403,31 @@ def test_generated_source_is_deterministic_and_keyed_on_fields():
     other_src = k1_source.k1_source(other)
     assert other_src != src
     assert cuda.unit_library_path("k1", other_src) != path
+
+
+@pytest.mark.parametrize("tag", TAGS + [_NESTED_TAG])
+def test_cell_traffic_is_what_the_round_reads_and_writes(tag):
+    """K1's bound counts the cells of `cell_traffic`: cells outside its
+    written set keep their symbols, and cells outside its read set change
+    no written cell."""
+    _, tdm = _machines(tag)
+    read, written = k1_source.cell_traffic(tdm)
+    rng = np.random.RandomState(7)
+    n = 4096
+    cells = [torch.as_tensor(rng.randint(0, tdm.size_a, n).astype(np.int8))
+             for _ in range(tdm.n_cells)]
+    u = torch.as_tensor(rng.rand(n).astype(np.float32))
+    outs = tens._writes_plain(tdm, tens._walk_plain(tdm, cells, u), cells)
+    for c in range(tdm.n_cells):
+        if c not in written:
+            assert torch.equal(outs[c], cells[c])
+    assert any(not torch.equal(outs[c], cells[c]) for c in written)
+    other = [x if c in read else torch.as_tensor(
+        rng.randint(0, tdm.size_a, n).astype(np.int8))
+        for c, x in enumerate(cells)]
+    outs2 = tens._writes_plain(tdm, tens._walk_plain(tdm, other, u), other)
+    for c in written:
+        assert torch.equal(outs2[c], outs[c])
 
 
 # --- run_ensemble --------------------------------------------------------------

@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Times the port's `run_ensemble` on chip_smoke.py's main path: ex5 at
+B=16384, L=4096, E=256 for 2,000 rounds, the process's first call and
+then the same call again, by CUDA events.
+
+    python3 time_run_ensemble.py [ROOT]
+
+ROOT is the root of a checkout whose port is imported (default: this
+script's own), so two commits can be timed alike on one card. The
+kernels are built and loaded before the first call; nothing else runs
+on the card before it. Prints the card's name and power limit, then a
+line a call, then one JSON object. Needs one CUDA card and `nvcc`.
+"""
+
+import argparse
+import importlib
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+B, L, E, NUM_STEPS = 16384, 4096, 256, 2000
+CALLS = 5
+TAG = "ex5-msrtf-machine"
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root", nargs="?", default=str(Path(__file__).parent))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_run_ensemble: no CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    pkg = "chemical_kinetics_and_program_execution_torch"
+    cuda = importlib.import_module(f"{pkg}.cuda")
+    ens = importlib.import_module(f"{pkg}.engine.ensemble")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+
+    dev = torch.device("cuda")
+    dm = ens.compile_decision_machine(TAG)
+    cuda.load()  # K2, and K1 where the checkout builds it with K2
+    if importlib.util.find_spec(f"{pkg}.engine.k1_source") is not None:
+        importlib.import_module(f"{pkg}.engine.k1_source").k1_library(dm)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ptape = torch.randint(0, 3, (B, L), generator=gen, device=dev,
+                          dtype=torch.int32)
+    dtape = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    state = gen.get_state()
+    us = []
+    for call in range(CALLS):
+        gen.set_state(state)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ens.run_ensemble(gen, (ptape, dtape), dm, (NUM_STEPS, E),
+                         device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        us.append(start.elapsed_time(end) * 1e3 / NUM_STEPS)
+        print(f"call {call}: {us[-1]:.2f} us a round", flush=True)
+    print(json.dumps({"root": args.root, "us_per_round": us}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
