@@ -3,8 +3,8 @@
 Two kinds of library, both with a plain C interface (no PyTorch headers,
 so a build takes seconds) and both landing in `_build/` beside this file:
 
-- `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2) into
-  one shared library;
+- `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2), which
+  may include headers from `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1, one library per decision
   machine, from `engine/k1_source.py`).
@@ -52,8 +52,14 @@ def _digest(paths, text: str = "") -> str:
     return h.hexdigest()[:16]
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
-    return BUILD_DIR / f"{LIB_STEM}-{_digest(sources())}.so"
+    """Where `build` puts the library: named by a hash of the sources,
+    the headers `csrc/*.cuh` and the flags."""
+    return BUILD_DIR / f"{LIB_STEM}-{_digest(sources() + headers())}.so"
 
 
 def nvcc() -> str:
@@ -99,7 +105,7 @@ def build() -> tuple[Path, str, float]:
 def unit_library_path(stem: str, source: str) -> Path:
     """Where `build_unit` puts the library of ``source``: named by a hash
     of the unit, the headers `csrc/*.cuh` and the flags."""
-    digest = _digest(sorted(CSRC_DIR.glob("*.cuh")), source)
+    digest = _digest(headers(), source)
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 

@@ -861,18 +861,32 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
 # --- K2: window histogram -----------------------------------------------------
 
 
-def window_counts_plain(tape, size_a: int, cl_k: int):
-    """K2's plain version: int64 counts of every circular length-cl_k
-    window of the [B, L] int32 ``tape``, by rank (out-of-range ranks are
-    dropped, as the reference's scatter drops them)."""
+def window_bins(tape, size_a: int, cl_k: int):
+    """The bin of every circular length-cl_k window of the [B, L] int32
+    ``tape`` that the reference counts, as a flat int64 tensor.
+
+    The reference's rank is an int32 Horner sum, which wraps; its
+    scatter then reads a rank in [-n, 0) as bin rank + n (numpy's rule
+    for negative indices) and drops any other rank outside [0, n), with
+    n = size_a**cl_k. The sum is taken here in int64 and kept to its low
+    32 bits at every step, which is the int32 sum modulo 2**32."""
     rank = torch.zeros(tape.shape, dtype=torch.int64, device=tape.device)
     for j in range(cl_k):
-        rank = rank * size_a + torch.roll(tape, -j, dims=1)
+        rank = (rank * size_a + torch.roll(tape, -j, dims=1)) & 0xFFFFFFFF
     rank = rank.reshape(-1)
+    rank = torch.where(rank >= 2**31, rank - 2**32, rank)
     n_bins = size_a**cl_k
-    rank = rank[(rank >= 0) & (rank < n_bins)]
-    counts = torch.zeros(n_bins, dtype=torch.int64, device=tape.device)
-    counts.index_add_(0, rank, torch.ones_like(rank))
+    rank = torch.where(rank < 0, rank + n_bins, rank)
+    return rank[(rank >= 0) & (rank < n_bins)]
+
+
+def window_counts_plain(tape, size_a: int, cl_k: int):
+    """K2's plain version: int64 counts of every circular length-cl_k
+    window of the [B, L] int32 ``tape`` by the bin `window_bins` gives
+    it."""
+    bins = window_bins(tape, size_a, cl_k)
+    counts = torch.zeros(size_a**cl_k, dtype=torch.int64, device=tape.device)
+    counts.index_add_(0, bins, torch.ones_like(bins))
     return counts
 
 

@@ -582,6 +582,113 @@ def test_window_counts_matches_jax(size_a, cl_k, B, L):
                                     cl_k).sum() == B * L
 
 
+def _wrap_symbol(size_a, cl_k):
+    """An int32 symbol s for which the int32 rank of the window
+    [s, 0, ..., 0], s * size_a**(cl_k-1), wraps into [0, size_a**cl_k)
+    although s * size_a**(cl_k-1) itself lies far above it."""
+    s = 2**32 // size_a ** (cl_k - 1) + 1
+    return s - 2**32 if s >= 2**31 else s
+
+
+def _edge_tape(kind, rng, size_a, cl_k, B, L):
+    """A [B, L] int32 tape whose windows the reference's rank rule
+    treats apart from in-range ones: ``negative`` symbols in
+    [-size_a, size_a); ``wrap``, in-range symbols with every tenth site
+    the wrap symbol or its negative; ``edge``, windows of rank exactly
+    -n and -n-1 (n = size_a**cl_k) among in-range symbols; ``constant``,
+    every symbol -1."""
+    if kind == "negative":
+        return rng.randint(-size_a, size_a, (B, L)).astype(np.int32)
+    if kind == "constant":
+        return np.full((B, L), -1, np.int32)
+    tape = rng.randint(0, size_a, (B, L)).astype(np.int64)
+    if kind == "wrap":
+        s = _wrap_symbol(size_a, cl_k)
+        pick = rng.randint(0, 10, (B, L))
+        tape[pick == 0] = s
+        tape[pick == 1] = -s
+    else:
+        assert kind == "edge"
+        for b in range(B):
+            for i in range(0, L - cl_k, 2 * cl_k):
+                tape[b, i:i + cl_k] = 0
+                tape[b, i] = -size_a  # rank -n
+                if (b + i) % 3 == 0:
+                    tape[b, i + cl_k - 1] = -1  # rank -n-1
+    return tape.astype(np.int32)
+
+
+_EDGE_KINDS = ["negative", "wrap", "edge", "constant"]
+
+
+@pytest.mark.parametrize("cl_k", [2, 3, 4])
+@pytest.mark.parametrize("size_a", [2, 5, 9])
+@pytest.mark.parametrize("kind", _EDGE_KINDS)
+def test_window_counts_out_of_range_symbols_match_jax(kind, size_a, cl_k):
+    """Symbols outside [0, size_a): the reference's int32 rank wraps and
+    its scatter counts a rank in [-n, 0) in bin rank + n; the port's
+    counts equal it exactly."""
+    rng = np.random.RandomState(100 * size_a + 10 * cl_k
+                                + _EDGE_KINDS.index(kind))
+    tape = _edge_tape(kind, rng, size_a, cl_k, 5, 37)
+    want = np.asarray(jens.window_counts(jnp.asarray(tape), size_a, cl_k))
+    got = tens.window_counts(tape, size_a, cl_k, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+_K2_HOST_DRIVER = r"""
+#include "window_rule.cuh"
+extern "C" void k2_host_counts(const int* tape, long long B, int L,
+                               int size_a, int cl_k, long long* counts) {
+  long long n = 1;
+  for (int j = 0; j < cl_k; ++j) n *= size_a;
+  for (long long b = 0; b < B; ++b)
+    for (int i = 0; i < L; ++i) {
+      unsigned int rank = 0;
+      for (int j = 0; j < cl_k; ++j)
+        rank = k2_rank_step(rank, size_a, tape[b * L + (i + j) % L]);
+      const int bin = k2_bin(rank, (int)n);
+      if (bin >= 0) ++counts[bin];
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k2_host_counts(tmp_path_factory):
+    """K2's per-site rule (`csrc/window_rule.cuh`) built with the host's
+    C++ compiler into a loop over every site."""
+    cxx = _cxx()
+    if cxx is None:
+        pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
+    out = tmp_path_factory.mktemp("k2")
+    (out / "k2.cpp").write_text(_K2_HOST_DRIVER)
+    lib = out / "libk2.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
+                    str(cuda.CSRC_DIR), "-o", str(lib), str(out / "k2.cpp")],
+                   check=True, capture_output=True, timeout=120)
+    fn = ctypes.CDLL(str(lib)).k2_host_counts
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = None
+    return fn
+
+
+@pytest.mark.parametrize("size_a,cl_k", [(2, 2), (5, 3), (9, 4), (2, 14)])
+@pytest.mark.parametrize("kind", _EDGE_KINDS)
+def test_window_rule_matches_plain(k2_host_counts, kind, size_a, cl_k):
+    """K2's rank-and-bin rule, compiled for the host, counts every window
+    as `window_counts_plain` does, out-of-range symbols included."""
+    rng = np.random.RandomState(size_a + cl_k)
+    tape = _edge_tape(kind, rng, size_a, cl_k, 6, 41)
+    counts = np.zeros(size_a**cl_k, np.int64)
+    k2_host_counts(tape.ctypes.data, *tape.shape, size_a, cl_k,
+                   counts.ctypes.data)
+    np.testing.assert_array_equal(
+        counts, tens.window_counts_plain(torch.as_tensor(tape), size_a,
+                                         cl_k).numpy())
+
+
 def test_window_counts_simple():
     counts = tens.window_counts(np.asarray([[0, 1, 0, 1]]), 2, 2,
                                 device="cpu")
