@@ -22,14 +22,17 @@ Phases (each prints its wall time; every check raises on failure):
    allocator takes the buffers from the card) and of the same call
    again (warm), which must give the same tapes; each kernel's time
    (CUDA events) beside its bound, its plain version and the library
-   call; the host's cost a launch, by one `plane_round` call a round
-   and by `run_rounds`' one call for all rounds;
+   call, K2's on each tape of `time_run_ensemble.k2_tapes` (the main
+   path's final tapes, uniform, constant, 15,625 and 16,384 bins); the
+   host's cost a launch, by one `plane_round` call a round and by
+   `run_rounds`' one call for all rounds;
 4. kernels against their plain versions on the card, at full width:
    K1 on ex5-msrtf-machine, ex4-chemical-turing and
    ex2-ferromagnetic-chain, one round at every phase in [0, 16), planes
    bit-identical after each, at E=256 (the word path) and at E=255
    (the byte path, an E that is not a multiple of 4); K2 against its
-   plain version and `torch.bincount`, exactly equal;
+   plain version and `torch.bincount`, exactly equal, on each of those
+   tapes and on one with symbols outside [0, size_a);
 5. end to end on a small input: explicit draws through the card and
    through the CPU's plain path give the same tapes and window counts.
 
@@ -52,6 +55,8 @@ from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
 from chemical_kinetics_and_program_execution_torch.engine import k1_source
+import time_run_ensemble
+from time_run_ensemble import cuda_ms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 B, L = 16384, 4096
@@ -89,29 +94,6 @@ class Phase:
         if exc[0] is None:
             say(f"== {self.name}: {time.perf_counter() - self.t0:.2f} s")
         return False
-
-
-def cuda_ms(fn, reps, warmup=3, host=None):
-    """Mean device milliseconds per call of ``fn`` by CUDA events. A
-    sleep kernel holds the stream while the host queues the calls, so
-    host-side launch cost does not show in the time; the host's own
-    milliseconds per call (queueing only) go to ``host[0]`` when a list
-    is given."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    if host is not None:
-        host[:] = [(time.perf_counter() - t0) * 1e3 / reps]
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def active_draws(gen, tag, dm, device, events=E):
@@ -166,6 +148,12 @@ def k1_bytes(dm, events=E):
     read, written = k1_source.cell_traffic(dm)
     return B * events * (len(read) + len(written)
                          + (4 if dm.has_choose else 0))
+
+
+def k2_bytes(n_bins):
+    """Least bytes K2 moves: the [B, L] int32 tape read once and the
+    int64 counts written once."""
+    return B * L * 4 + n_bins * 8
 
 
 def main(dev=None):
@@ -351,18 +339,30 @@ def main(dev=None):
             f"one ctypes call a round), {host_c_us:.2f} us by run_rounds "
             f"(one check and one ctypes call for {len(shifts)} rounds)")
 
-        k2_ms = cuda_ms(lambda: ens._window_counts_int(pt, dm.size_a, CL_K),
-                        20)
-        k2_plain_ms = cuda_ms(
-            lambda: ens.window_counts_plain(pt, dm.size_a, CL_K), 5)
-        flat = ens.window_bins(pt, dm.size_a, CL_K)
-        k2_lib_ms = cuda_ms(
-            lambda: torch.bincount(flat, minlength=dm.size_a**CL_K), 20)
-        k2_bytes = B * L * 4 + dm.size_a**CL_K * 8
-        k2_bound = k2_bytes / HBM_BYTES_PER_S * 1e3
-        say(f"K2: {k2_ms:.4f} ms against a bound of {k2_bound:.4f} ms; "
-            f"plain {k2_plain_ms:.4f} ms; torch.bincount on the bins "
-            f"{k2_lib_ms:.4f} ms")
+        # K2 on the main path's tape and on the tapes that tell skew
+        # from index arithmetic, each beside its bound, its plain version
+        # and torch.bincount on the same bins.
+        k2_tapes = time_run_ensemble.k2_tapes(pt, dt, gen)
+        k2_times = {}
+        for name, tape, size_a, cl_k in k2_tapes:
+            bins = ens.window_bins(tape, size_a, cl_k)
+            k2_times[name] = {
+                "ms": cuda_ms(lambda: ens._window_counts_int(
+                    tape, size_a, cl_k), 20),
+                "plain_ms": cuda_ms(lambda: ens.window_counts_plain(
+                    tape, size_a, cl_k), 3),
+                "library_ms": cuda_ms(lambda: torch.bincount(
+                    bins, minlength=size_a**cl_k), 20),
+                "bound_ms": k2_bytes(size_a**cl_k) / HBM_BYTES_PER_S * 1e3,
+                "bins": size_a**cl_k}
+            del bins
+            t = k2_times[name]
+            say(f"K2 {name} ({t['bins']} bins): {t['ms']:.4f} ms against a "
+                f"bound of {t['bound_ms']:.4f} ms "
+                f"({t['bound_ms'] / t['ms']:.3f} of it); plain "
+                f"{t['plain_ms']:.4f} ms; torch.bincount on the bins "
+                f"{t['library_ms']:.4f} ms")
+        k2_main = k2_times[k2_tapes[0][0]]
 
     with Phase("4 kernels against plain versions (full width)"):
         gen = torch.Generator(device=dev).manual_seed(1234)
@@ -383,20 +383,33 @@ def main(dev=None):
                     f"{bound / HBM_BYTES_PER_S * 1e6:.2f} us")
                 del kp, kd, u
 
-        tape = torch.randint(0, 5, (B, L), generator=gen, device=dev,
-                             dtype=torch.int32)
-        got = ens._window_counts_int(tape, 5, CL_K)
-        plain = ens.window_counts_plain(tape, 5, CL_K)
-        lib = torch.bincount(ens.window_bins(tape, 5, CL_K),
-                             minlength=5**CL_K)
-        torch.cuda.synchronize()
-        max_err["K2"] = int(torch.maximum((got - plain).abs().max(),
-                                          (got - lib).abs().max()))
-        if not (torch.equal(got, plain) and torch.equal(got, lib)):
-            raise AssertionError("K2 != plain / bincount")
-        say(f"K2: {5**CL_K} bins over {B}x{L} sites equal to plain and "
-            "torch.bincount")
-        del tape
+        # K2 on every timed tape and on one with symbols outside
+        # [0, size_a): negative ones, and ones whose int32 rank wraps.
+        uniform5 = next(t for name, t, _, _ in k2_tapes
+                        if name == "uniform 5")
+        wrap = 2**32 // 5 ** (CL_K - 1) + 1
+        pick = torch.randint(0, 10, (B, L), generator=gen, device=dev)
+        negative = -torch.randint(1, 6, (B, L), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        odd = torch.where(pick == 0, negative, uniform5)
+        odd = torch.where(pick == 1, wrap, odd)
+        odd = torch.where(pick == 2, -wrap, odd).to(torch.int32)
+        del pick, negative
+        for name, tape, size_a, cl_k in k2_tapes + [
+                ("out of range", odd, 5, CL_K)]:
+            got = ens._window_counts_int(tape, size_a, cl_k)
+            plain = ens.window_counts_plain(tape, size_a, cl_k)
+            lib = torch.bincount(ens.window_bins(tape, size_a, cl_k),
+                                 minlength=size_a**cl_k)
+            torch.cuda.synchronize()
+            max_err["K2"] = max(max_err["K2"], int(torch.maximum(
+                (got - plain).abs().max(), (got - lib).abs().max())))
+            if not (torch.equal(got, plain) and torch.equal(got, lib)):
+                raise AssertionError(f"K2 != plain / bincount on {name}")
+            say(f"K2 {name}: {size_a**cl_k} bins over {B}x{L} sites "
+                f"({int(got.sum())} counted) equal to plain and "
+                "torch.bincount")
+        del k2_tapes, uniform5, odd, tape
         torch.cuda.empty_cache()
 
     kernels["K1"] = {
@@ -420,9 +433,10 @@ def main(dev=None):
                   "window_counts.cu",
         "replaces": K2_REPLACES, "launches": launches["window_counts"],
         "max_abs_err": max_err["K2"],
-        "match": "exact vs plain and torch.bincount",
-        "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-        "bound_by": "bytes", "library_ms": k2_lib_ms,
+        "match": "exact vs plain and torch.bincount on every tape",
+        "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
+        "bound_ms": k2_main["bound_ms"], "bound_by": "bytes",
+        "library_ms": k2_main["library_ms"], "tapes": k2_times,
     }
 
 

@@ -139,13 +139,35 @@ def test_run_ensemble_goes_through_the_kernel(cuda):
     assert torch.all(torch.diff(times) > 0)
 
 
-@pytest.mark.parametrize("size_a,cl_k", [(2, 2), (5, 3), (9, 4), (2, 14)])
-def test_window_counts_kernel_matches_plain(cuda, size_a, cl_k):
-    """K2 equals its plain version and `torch.bincount` exactly, with
-    the shared-memory histogram (small alphabets) and without it
-    (2**14 bins)."""
+def _window_tape(rng, kind, size_a, cl_k, B, L):
+    """A tape uniform over [0, size_a); all 0 (``constant``); or with a
+    tenth of its symbols negative and a tenth each s and -s, where the
+    int32 rank of [s, 0, ..., 0] wraps into range (``out of range``)."""
+    if kind == "constant":
+        return np.zeros((B, L), np.int32)
+    tape = rng.randint(0, size_a, (B, L))
+    if kind == "out of range":
+        s = 2**32 // size_a ** (cl_k - 1) + 1
+        s = s - 2**32 if s >= 2**31 else s
+        pick = rng.randint(0, 10, (B, L))
+        tape = np.where(pick == 0, -rng.randint(1, size_a + 1, (B, L)), tape)
+        tape = np.where(pick == 1, s, np.where(pick == 2, -s, tape))
+    return tape.astype(np.int32)
+
+
+@pytest.mark.parametrize("L", [999, 1000], ids=["scalar", "int4"])
+@pytest.mark.parametrize("size_a,cl_k,kind", [
+    (2, 2, "uniform"), (5, 3, "uniform"), (9, 4, "uniform"),
+    (2, 14, "uniform"), (5, 3, "out of range"), (5, 3, "constant"),
+    (5, 6, "uniform"), (2, 16, "uniform"),
+])
+def test_window_counts_kernel_matches_plain(cuda, size_a, cl_k, kind, L):
+    """K2 equals its plain version and `torch.bincount` exactly: with the
+    histogram in shared memory (up to 2**14 bins here) and in device
+    memory (2**16 bins), on rows read a symbol at a time (L = 999) and
+    16 bytes at a time (L = 1000), with symbols outside [0, size_a)."""
     rng = np.random.RandomState(size_a + cl_k)
-    tape = torch.as_tensor(rng.randint(0, size_a, (64, 999)).astype(np.int32),
+    tape = torch.as_tensor(_window_tape(rng, kind, size_a, cl_k, 64, L),
                            device=cuda)
     launches = tens.window_counts.launches
     got = tens.window_counts(tape, size_a, cl_k)

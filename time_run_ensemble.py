@@ -3,21 +3,26 @@
 B=16384, L=4096, E=256 for 2,000 rounds, the process's first call and
 then the same call again, by CUDA events.
 
-    python3 time_run_ensemble.py [ROOT]
+    python3 time_run_ensemble.py [--window-counts] [ROOT]
 
 ROOT is the root of a checkout whose port is imported (default: this
 script's own), so two commits can be timed alike on one card. The
 kernels are built and loaded before the first call; nothing else runs
-on the card before it. Prints the card's name and power limit, then a
-line a call, then one JSON object. Needs one CUDA card and `nvcc`.
+on the card before it. With ``--window-counts`` it then times K2
+(`_window_counts_int`) on each tape of `k2_tapes`, the first call's
+final tapes among them. Prints the card's name and power limit, then a
+line a call (and a tape), then one JSON object. Needs one CUDA card and
+`nvcc`.
 """
 
 import argparse
+import hashlib
 import importlib
 import importlib.util
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -27,9 +32,54 @@ CALLS = 5
 TAG = "ex5-msrtf-machine"
 
 
+def cuda_ms(fn, reps, warmup=3, host=None):
+    """Mean device milliseconds per call of ``fn`` by CUDA events. A
+    sleep kernel holds the stream while the host queues the calls, so
+    host-side launch cost does not show in the time; the host's own
+    milliseconds per call (queueing only) go to ``host[0]`` when a list
+    is given."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    if host is not None:
+        host[:] = [(time.perf_counter() - t0) * 1e3 / reps]
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k2_tapes(ptape, dtape, gen):
+    """The [B, L] int32 tapes K2 is timed on, as (name, tape, size_a,
+    cl_k): the main path's final program and data tapes (``ptape``,
+    ``dtape``; the data tape started all zero) at its cl_k=3; a tape
+    uniform over 5 symbols (no skew) at cl_k 3 and 6 (15,625 bins); a
+    constant tape (every window in one bin); a tape uniform over 2
+    symbols at cl_k 14 (16,384 bins). New tapes are drawn from ``gen``
+    on ``ptape``'s card."""
+    dev = ptape.device
+    uniform5 = torch.randint(0, 5, (B, L), generator=gen, device=dev,
+                             dtype=torch.int32)
+    uniform2 = torch.randint(0, 2, (B, L), generator=gen, device=dev,
+                             dtype=torch.int32)
+    return [("ex5 program", ptape, 5, 3), ("ex5 data", dtape, 5, 3),
+            ("uniform 5", uniform5, 5, 3),
+            ("constant 0", torch.zeros_like(ptape), 5, 3),
+            ("uniform 5, cl_k 6", uniform5, 5, 6),
+            ("uniform 2, cl_k 14", uniform2, 2, 14)]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).parent))
+    ap.add_argument("--window-counts", action="store_true",
+                    help="also time K2 on each tape of k2_tapes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("time_run_ensemble: no CUDA card", file=sys.stderr)
@@ -60,13 +110,27 @@ def main():
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        ens.run_ensemble(gen, (ptape, dtape), dm, (NUM_STEPS, E),
-                         device=dev)
+        out = ens.run_ensemble(gen, (ptape, dtape), dm, (NUM_STEPS, E),
+                               device=dev)[0]
         end.record()
         torch.cuda.synchronize()
         us.append(start.elapsed_time(end) * 1e3 / NUM_STEPS)
         print(f"call {call}: {us[-1]:.2f} us a round", flush=True)
-    print(json.dumps({"root": args.root, "us_per_round": us}))
+        if call == 0:
+            final = out
+    result = {"root": args.root, "us_per_round": us}
+    if args.window_counts:
+        del ptape, dtape, out
+        result["k2_ms"] = {}
+        for name, tape, size_a, cl_k in k2_tapes(*final, gen):
+            counts = ens._window_counts_int(tape, size_a, cl_k)
+            digest = hashlib.sha256(counts.cpu().numpy().tobytes())
+            ms = cuda_ms(lambda: ens._window_counts_int(tape, size_a, cl_k),
+                         20)
+            result["k2_ms"][name] = ms
+            print(f"K2 {name} (size_a {size_a}, cl_k {cl_k}): {ms:.4f} ms; "
+                  f"counts sha256 {digest.hexdigest()[:16]}", flush=True)
+    print(json.dumps(result))
     return 0
 
 
