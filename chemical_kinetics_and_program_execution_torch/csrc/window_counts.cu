@@ -19,8 +19,9 @@
 //   one row at a time (row and column computed once a run), stages the
 //   run's symbols in shared memory with 16-byte loads coalesced across
 //   the warp, plus the cl_k - 1 symbols that follow it (wrapping to the
-//   row's start), and forms each site's rank from there. A persistent
-//   grid, sized by the occupancy of the SMs, walks the runs.
+//   row's start), and forms each site's rank from there. The next run's
+//   loads are in flight while a run is counted. A persistent grid,
+//   sized by the occupancy of the SMs, walks the runs.
 // - Counts that tolerate skew. Each block keeps a private uint32
 //   histogram in shared memory; where the bins fit, one copy for each
 //   lane, laid out so that lane l always hits bank l: a warp's 32
@@ -28,9 +29,9 @@
 //   bin. The copies are summed and added to the int64 counts once at
 //   the block's end.
 // - Many bins. The histogram takes up to the block's opt-in shared
-//   memory (227 KB on the H100, some 56,000 bins with one copy); above
-//   that the same kernel adds each window to the int64 counts in device
-//   memory.
+//   memory beside the staged runs (227 KB on the H100: some 50,000 bins
+//   with one copy); above that the same kernel adds each window to the
+//   int64 counts in device memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,7 +42,7 @@ namespace {
 
 constexpr int kThreads = 256;            // 8 warps a block
 constexpr int kWarps = kThreads / 32;
-constexpr int kRun = 512;                // sites a warp stages at a time
+constexpr int kRun = 1024;               // sites a warp stages at a time
 constexpr int kVecs = kRun / 128;        // int4 loads a lane a run
 constexpr int kMaxCopies = 32;           // one histogram copy a lane
 constexpr int kCopiesBytes = 48 * 1024;  // room for the copies
@@ -73,30 +74,47 @@ window_counts_kernel(const int* __restrict__ tape, long long B, int L,
   const int lane_copy = lane & (copies - 1);
   const int runs_per_row = (L + kRun - 1) / kRun;
   const long long n_runs = B * runs_per_row;
-  for (long long w = (long long)blockIdx.x * kWarps + warp; w < n_runs;
-       w += (long long)gridDim.x * kWarps) {
-    const long long row = w / runs_per_row;
-    const int start = (int)(w - row * runs_per_row) * kRun;
-    const int n = min(kRun, L - start);
+  const long long step = (long long)gridDim.x * kWarps;
+  // A run's place in the tape: its row, first column and sites.
+  auto locate = [&](long long w, long long& row, int& start, int& n) {
+    row = w / runs_per_row;
+    start = (int)(w - row * runs_per_row) * kRun;
+    n = min(kRun, L - start);
+  };
+  // The next run's symbols, loaded while this one is counted (vec only:
+  // L % 4 == 0 and the tape 16-byte aligned).
+  int4 v[kVecs];
+  auto fetch = [&](long long w) {
+    long long row;
+    int start, n;
+    locate(w, row, start, n);
     const int* src = tape + row * L + start;
-    if (vec) {  // L % 4 == 0 and the tape 16-byte aligned
-      int4 v[kVecs];
 #pragma unroll
-      for (int u = 0; u < kVecs; ++u) {
-        const int k = (lane + 32 * u) * 4;
-        if (k < n) v[u] = __ldg(reinterpret_cast<const int4*>(src + k));
-      }
+    for (int u = 0; u < kVecs; ++u) {
+      const int k = (lane + 32 * u) * 4;
+      if (k < n) v[u] = __ldg(reinterpret_cast<const int4*>(src + k));
+    }
+  };
+  long long w = (long long)blockIdx.x * kWarps + warp;
+  if (vec && w < n_runs) fetch(w);
+  for (; w < n_runs; w += step) {
+    long long row;
+    int start, n;
+    locate(w, row, start, n);
+    if (vec) {
 #pragma unroll
       for (int u = 0; u < kVecs; ++u) {
         const int k = (lane + 32 * u) * 4;
         if (k < n) *reinterpret_cast<int4*>(run + k) = v[u];
       }
     } else {
+      const int* src = tape + row * L + start;
       for (int k = lane; k < n; k += 32) run[k] = __ldg(src + k);
     }
     for (int k = lane; k < cl_k - 1; k += 32)
       run[n + k] = __ldg(tape + row * L + (start + n + k) % L);
     __syncwarp();
+    if (vec && w + step < n_runs) fetch(w + step);
     for (int i = lane; i < n; i += 32) {
       unsigned int rank = 0;
 #pragma unroll
@@ -114,9 +132,9 @@ window_counts_kernel(const int* __restrict__ tape, long long B, int L,
   if (shared_hist) {
     __syncthreads();
     for (int b = threadIdx.x; b < n_bins; b += kThreads) {
-      unsigned int v = 0;
-      for (int c = 0; c < copies; ++c) v += hist[b * copies + c];
-      if (v) atomicAdd(&counts[b], (unsigned long long)v);
+      unsigned int sum = 0;
+      for (int c = 0; c < copies; ++c) sum += hist[b * copies + c];
+      if (sum) atomicAdd(&counts[b], (unsigned long long)sum);
     }
   }
 }
@@ -157,7 +175,8 @@ cudaError_t launch(const int* tape, long long B, int L, int size_a,
   if (blocks > needed) blocks = needed;
   const long long floor_blocks = B * L / (1LL << 31) + 1;
   if (blocks < floor_blocks) blocks = floor_blocks;
-  const bool vec = L % 4 == 0 && (reinterpret_cast<uintptr_t>(tape) & 15) == 0;
+  const bool vec =
+      L % 4 == 0 && (reinterpret_cast<uintptr_t>(tape) & 15) == 0;
   kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(
       tape, B, L, size_a, cl_k, n_bins, copies, shared_hist, vec, counts);
   return cudaGetLastError();
@@ -168,10 +187,10 @@ cudaError_t launch(const int* tape, long long B, int L, int size_a,
 extern "C" int ckpe_window_counts(const void* tape, long long B, int L,
                                   int size_a, int cl_k, void* counts,
                                   void* stream) {
+  if (cl_k < 1 || L < 1 || size_a < 1) return (int)cudaErrorInvalidValue;
   long long n_bins = 1;
-  for (int j = 0; j < cl_k; ++j) n_bins *= size_a;
-  if (n_bins >= (1LL << 31) || cl_k < 1 || L < 1)
-    return (int)cudaErrorInvalidValue;
+  for (int j = 0; j < cl_k; ++j)
+    if ((n_bins *= size_a) >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   if (B == 0) return (int)cudaGetLastError();
   const int* t = static_cast<const int*>(tape);
   auto* c = static_cast<unsigned long long*>(counts);
