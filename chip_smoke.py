@@ -55,8 +55,7 @@ from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
 from chemical_kinetics_and_program_execution_torch.engine import k1_source
-import time_run_ensemble
-from time_run_ensemble import cuda_ms
+from time_run_ensemble import cuda_ms, k2_tapes
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 B, L = 16384, 4096
@@ -342,9 +341,9 @@ def main(dev=None):
         # K2 on the main path's tape and on the tapes that tell skew
         # from index arithmetic, each beside its bound, its plain version
         # and torch.bincount on the same bins.
-        k2_tapes = time_run_ensemble.k2_tapes(pt, dt, gen)
+        k2_inputs = k2_tapes(pt, dt, gen)
         k2_times = {}
-        for name, tape, size_a, cl_k in k2_tapes:
+        for name, tape, size_a, cl_k in k2_inputs:
             bins = ens.window_bins(tape, size_a, cl_k)
             k2_times[name] = {
                 "ms": cuda_ms(lambda: ens._window_counts_int(
@@ -362,7 +361,7 @@ def main(dev=None):
                 f"({t['bound_ms'] / t['ms']:.3f} of it); plain "
                 f"{t['plain_ms']:.4f} ms; torch.bincount on the bins "
                 f"{t['library_ms']:.4f} ms")
-        k2_main = k2_times[k2_tapes[0][0]]
+        k2_main = k2_times[k2_inputs[0][0]]
 
     with Phase("4 kernels against plain versions (full width)"):
         gen = torch.Generator(device=dev).manual_seed(1234)
@@ -385,7 +384,7 @@ def main(dev=None):
 
         # K2 on every timed tape and on one with symbols outside
         # [0, size_a): negative ones, and ones whose int32 rank wraps.
-        uniform5 = next(t for name, t, _, _ in k2_tapes
+        uniform5 = next(t for name, t, _, _ in k2_inputs
                         if name == "uniform 5")
         wrap = 2**32 // 5 ** (CL_K - 1) + 1
         pick = torch.randint(0, 10, (B, L), generator=gen, device=dev)
@@ -395,7 +394,7 @@ def main(dev=None):
         odd = torch.where(pick == 1, wrap, odd)
         odd = torch.where(pick == 2, -wrap, odd).to(torch.int32)
         del pick, negative
-        for name, tape, size_a, cl_k in k2_tapes + [
+        for name, tape, size_a, cl_k in k2_inputs + [
                 ("out of range", odd, 5, CL_K)]:
             got = ens._window_counts_int(tape, size_a, cl_k)
             plain = ens.window_counts_plain(tape, size_a, cl_k)
@@ -409,7 +408,7 @@ def main(dev=None):
             say(f"K2 {name}: {size_a**cl_k} bins over {B}x{L} sites "
                 f"({int(got.sum())} counted) equal to plain and "
                 "torch.bincount")
-        del k2_tapes, uniform5, odd, tape
+        del k2_inputs, uniform5, odd, tape
         torch.cuda.empty_cache()
 
     kernels["K1"] = {

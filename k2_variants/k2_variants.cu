@@ -10,6 +10,8 @@
 //   K2_RUN=n        sites a run (a multiple of 128)
 //   K2_THREADS=n    threads a block
 //   K2_MINB=n       __launch_bounds__ minimum blocks an SM
+//   K2_GENERIC=1    cl_k read at run time for every cl_k (else 1-6 are
+//                   compiled as constants)
 //   K2_PREFETCH=1   the next run's loads in flight while a run is counted
 //                   (with K2_RUN=1024 this is `csrc/window_counts.cu`)
 //   K2_ASYNC=1      runs staged by cp.async, double-buffered
@@ -41,6 +43,9 @@ namespace {
 #endif
 #ifndef K2_NOCOMPUTE
 #define K2_NOCOMPUTE 0
+#endif
+#ifndef K2_GENERIC
+#define K2_GENERIC 0
 #endif
 #ifndef K2_PROBE_BLOCKS
 #define K2_PROBE_BLOCKS 8
@@ -438,7 +443,7 @@ extern "C" int ckpe_window_counts(const void* tape, long long B, int L,
   auto* c = static_cast<unsigned long long*>(counts);
   auto s = static_cast<cudaStream_t>(stream);
   const int n = (int)n_bins;
-  switch (cl_k) {
+  switch (K2_GENERIC ? 0 : cl_k) {
     case 1: return (int)launch<1>(t, B, L, size_a, cl_k, n, c, s);
     case 2: return (int)launch<2>(t, B, L, size_a, cl_k, n, c, s);
     case 3: return (int)launch<3>(t, B, L, size_a, cl_k, n, c, s);
