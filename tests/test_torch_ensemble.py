@@ -636,7 +636,7 @@ def test_window_counts_out_of_range_symbols_match_jax(kind, size_a, cl_k):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-_K2_HOST_DRIVER = r"""
+_K2_HOST_LOOP = r"""
 #include "window_rule.cuh"
 extern "C" void k2_host_counts(const int* tape, long long B, int L,
                                int size_a, int cl_k, long long* counts) {
@@ -662,7 +662,7 @@ def k2_host_counts(tmp_path_factory):
     if cxx is None:
         pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
     out = tmp_path_factory.mktemp("k2")
-    (out / "k2.cpp").write_text(_K2_HOST_DRIVER)
+    (out / "k2.cpp").write_text(_K2_HOST_LOOP)
     lib = out / "libk2.so"
     subprocess.run([cxx, "-std=c++17", "-O2", "-shared", "-fPIC", "-I",
                     str(cuda.CSRC_DIR), "-o", str(lib), str(out / "k2.cpp")],
