@@ -22,7 +22,7 @@ Phases (each prints its wall time; every check raises on failure):
    allocator takes the buffers from the card) and of the same call
    again (warm), which must give the same tapes; each kernel's time
    (CUDA events) beside its bound, its plain version and the library
-   call, K2's on each tape of `time_run_ensemble.k2_tapes` (the main
+   call, K2's on each tape of `card_timing.k2_tapes` (the main
    path's final tapes, uniform, constant, 15,625 and 16,384 bins); the
    host's cost a launch, by one `plane_round` call a round and by
    `run_rounds`' one call for all rounds;
@@ -31,8 +31,11 @@ Phases (each prints its wall time; every check raises on failure):
    ex2-ferromagnetic-chain, one round at every phase in [0, 16), planes
    bit-identical after each, at E=256 (the word path) and at E=255
    (the byte path, an E that is not a multiple of 4); K2 against its
-   plain version and `torch.bincount`, exactly equal, on each of those
-   tapes and on one with symbols outside [0, size_a);
+   plain version and `torch.bincount` (on bins found apart from the
+   port's), exactly equal, on each of those tapes, on one with symbols
+   outside [0, size_a), at 65,536 bins (the histogram in device
+   memory) and on rows of 4,095 symbols (loads a symbol a lane), the
+   last three also timed;
 5. end to end on a small input: explicit draws through the card and
    through the CPU's plain path give the same tapes and window counts.
 
@@ -55,7 +58,7 @@ from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
 from chemical_kinetics_and_program_execution_torch.engine import k1_source
-from time_run_ensemble import cuda_ms, k2_tapes
+from card_timing import cuda_ms, k2_tapes
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 B, L = 16384, 4096
@@ -147,6 +150,25 @@ def k1_bytes(dm, events=E):
     read, written = k1_source.cell_traffic(dm)
     return B * events * (len(read) + len(written)
                          + (4 if dm.has_choose else 0))
+
+
+def yardstick_bins(tape, size_a, cl_k):
+    """The bin of every window that the reference counts, found apart
+    from the port's `window_bins` for the `torch.bincount` yardstick:
+    each rank as sum_j tape[:, (i+j) mod L] * (size_a**(cl_k-1-j) mod
+    2**32), taken mod 2**32 by `torch.remainder` and read as an int32;
+    a rank in [-n, 0) counts in bin rank + n, any other outside [0, n)
+    is dropped."""
+    n, L = size_a**cl_k, tape.shape[1]
+    cols = torch.arange(L, device=tape.device)
+    rank = torch.zeros(tape.shape, dtype=torch.int64, device=tape.device)
+    for j in range(cl_k):
+        term = tape[:, (cols + j) % L].to(torch.int64) * pow(
+            size_a, cl_k - 1 - j, 2**32)
+        rank = torch.remainder(rank + torch.remainder(term, 2**32), 2**32)
+    rank = torch.where(rank >= 2**31, rank - 2**32, rank)
+    rank = torch.where(rank < 0, rank + n, rank)
+    return rank[(rank >= 0) & (rank < n)]
 
 
 def k2_bytes(n_bins):
@@ -344,7 +366,7 @@ def main(dev=None):
         k2_inputs = k2_tapes(pt, dt, gen)
         k2_times = {}
         for name, tape, size_a, cl_k in k2_inputs:
-            bins = ens.window_bins(tape, size_a, cl_k)
+            bins = yardstick_bins(tape, size_a, cl_k)
             k2_times[name] = {
                 "ms": cuda_ms(lambda: ens._window_counts_int(
                     tape, size_a, cl_k), 20),
@@ -382,10 +404,14 @@ def main(dev=None):
                     f"{bound / HBM_BYTES_PER_S * 1e6:.2f} us")
                 del kp, kd, u
 
-        # K2 on every timed tape and on one with symbols outside
-        # [0, size_a): negative ones, and ones whose int32 rank wraps.
-        uniform5 = next(t for name, t, _, _ in k2_inputs
-                        if name == "uniform 5")
+        # K2 on every timed tape; on one with symbols outside [0,
+        # size_a): negative ones, and ones whose int32 rank wraps; on
+        # 65,536 bins (256 KB, above the block's shared memory: the
+        # histogram in device memory); and on rows of L - 1 symbols
+        # (the symbol-a-lane loads, not the 16-byte ones).
+        by_name = {name: t for name, t, _, _ in k2_inputs}
+        uniform5 = by_name["uniform 5"]
+        uniform2 = by_name["uniform 2, cl_k 14"]
         wrap = 2**32 // 5 ** (CL_K - 1) + 1
         pick = torch.randint(0, 10, (B, L), generator=gen, device=dev)
         negative = -torch.randint(1, 6, (B, L), generator=gen, device=dev,
@@ -394,21 +420,29 @@ def main(dev=None):
         odd = torch.where(pick == 1, wrap, odd)
         odd = torch.where(pick == 2, -wrap, odd).to(torch.int32)
         del pick, negative
-        for name, tape, size_a, cl_k in k2_inputs + [
-                ("out of range", odd, 5, CL_K)]:
+        more = [("out of range", odd, 5, CL_K),
+                ("uniform 2, cl_k 16", uniform2, 2, 16),
+                (f"uniform 5, L {L - 1}", uniform5[:, :L - 1].contiguous(),
+                 5, CL_K)]
+        for name, tape, size_a, cl_k in more:
+            ms = cuda_ms(lambda: ens._window_counts_int(tape, size_a, cl_k),
+                         20)
+            say(f"K2 {name} ({size_a**cl_k} bins): {ms:.4f} ms")
+        for name, tape, size_a, cl_k in k2_inputs + more:
             got = ens._window_counts_int(tape, size_a, cl_k)
             plain = ens.window_counts_plain(tape, size_a, cl_k)
-            lib = torch.bincount(ens.window_bins(tape, size_a, cl_k),
+            lib = torch.bincount(yardstick_bins(tape, size_a, cl_k),
                                  minlength=size_a**cl_k)
             torch.cuda.synchronize()
             max_err["K2"] = max(max_err["K2"], int(torch.maximum(
                 (got - plain).abs().max(), (got - lib).abs().max())))
             if not (torch.equal(got, plain) and torch.equal(got, lib)):
                 raise AssertionError(f"K2 != plain / bincount on {name}")
-            say(f"K2 {name}: {size_a**cl_k} bins over {B}x{L} sites "
+            say(f"K2 {name}: {size_a**cl_k} bins over "
+                f"{tape.shape[0]}x{tape.shape[1]} sites "
                 f"({int(got.sum())} counted) equal to plain and "
                 "torch.bincount")
-        del k2_inputs, uniform5, odd, tape
+        del k2_inputs, by_name, more, uniform5, uniform2, odd, tape
         torch.cuda.empty_cache()
 
     kernels["K1"] = {

@@ -155,6 +155,23 @@ def _window_tape(rng, kind, size_a, cl_k, B, L):
     return tape.astype(np.int32)
 
 
+def _yardstick_bins(tape, size_a, cl_k):
+    """The bins the reference counts, found apart from `window_bins`:
+    each rank as sum_j tape[:, (i+j) mod L] * (size_a**(cl_k-1-j) mod
+    2**32) mod 2**32, read as an int32; a rank in [-n, 0) in bin
+    rank + n, any other outside [0, n) dropped."""
+    n, L = size_a**cl_k, tape.shape[1]
+    cols = torch.arange(L, device=tape.device)
+    rank = torch.zeros(tape.shape, dtype=torch.int64, device=tape.device)
+    for j in range(cl_k):
+        term = tape[:, (cols + j) % L].to(torch.int64) * pow(
+            size_a, cl_k - 1 - j, 2**32)
+        rank = torch.remainder(rank + torch.remainder(term, 2**32), 2**32)
+    rank = torch.where(rank >= 2**31, rank - 2**32, rank)
+    rank = torch.where(rank < 0, rank + n, rank)
+    return rank[(rank >= 0) & (rank < n)]
+
+
 @pytest.mark.parametrize("L", [999, 1000], ids=["scalar", "int4"])
 @pytest.mark.parametrize("size_a,cl_k,kind", [
     (2, 2, "uniform"), (5, 3, "uniform"), (9, 4, "uniform"),
@@ -174,7 +191,7 @@ def test_window_counts_kernel_matches_plain(cuda, size_a, cl_k, kind, L):
     assert tens.window_counts.launches == launches + 1
     plain = tens.window_counts_plain(tape, size_a, cl_k)
     assert torch.equal(got, plain.to(torch.float64) / tape.numel())
-    lib = torch.bincount(tens.window_bins(tape, size_a, cl_k),
+    lib = torch.bincount(_yardstick_bins(tape, size_a, cl_k),
                          minlength=size_a**cl_k)
     assert torch.equal(plain, lib)
 

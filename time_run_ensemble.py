@@ -9,10 +9,10 @@ ROOT is the root of a checkout whose port is imported (default: this
 script's own), so two commits can be timed alike on one card. The
 kernels are built and loaded before the first call; nothing else runs
 on the card before it. With ``--window-counts`` it then times K2
-(`_window_counts_int`) on each tape of `k2_tapes`, the first call's
-final tapes among them. Prints the card's name and power limit, then a
-line a call (and a tape), then one JSON object. Needs one CUDA card and
-`nvcc`.
+(`_window_counts_int`) on each tape of `card_timing.k2_tapes`, the
+first call's final tapes among them. Prints the card's name and power
+limit, then a line a call (and a tape), then one JSON object. Needs one
+CUDA card and `nvcc`.
 """
 
 import argparse
@@ -22,57 +22,15 @@ import importlib.util
 import json
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import torch
 
+from card_timing import cuda_ms, k2_tapes
+
 B, L, E, NUM_STEPS = 16384, 4096, 256, 2000
 CALLS = 5
 TAG = "ex5-msrtf-machine"
-
-
-def cuda_ms(fn, reps, warmup=3, host=None):
-    """Mean device milliseconds per call of ``fn`` by CUDA events. A
-    sleep kernel holds the stream while the host queues the calls, so
-    host-side launch cost does not show in the time; the host's own
-    milliseconds per call (queueing only) go to ``host[0]`` when a list
-    is given."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    torch.cuda._sleep(200_000_000)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    if host is not None:
-        host[:] = [(time.perf_counter() - t0) * 1e3 / reps]
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def k2_tapes(ptape, dtape, gen):
-    """The [B, L] int32 tapes K2 is timed on, as (name, tape, size_a,
-    cl_k): the main path's final program and data tapes (``ptape``,
-    ``dtape``; the data tape started all zero) at its cl_k=3; a tape
-    uniform over 5 symbols (no skew) at cl_k 3 and 6 (15,625 bins); a
-    constant tape (every window in one bin); a tape uniform over 2
-    symbols at cl_k 14 (16,384 bins). New tapes are drawn from ``gen``
-    on ``ptape``'s card."""
-    dev = ptape.device
-    uniform5 = torch.randint(0, 5, (B, L), generator=gen, device=dev,
-                             dtype=torch.int32)
-    uniform2 = torch.randint(0, 2, (B, L), generator=gen, device=dev,
-                             dtype=torch.int32)
-    return [("ex5 program", ptape, 5, 3), ("ex5 data", dtape, 5, 3),
-            ("uniform 5", uniform5, 5, 3),
-            ("constant 0", torch.zeros_like(ptape), 5, 3),
-            ("uniform 5, cl_k 6", uniform5, 5, 6),
-            ("uniform 2, cl_k 14", uniform2, 2, 14)]
 
 
 def main():
