@@ -3,8 +3,9 @@
 Two kinds of library, both with a plain C interface (no PyTorch headers,
 so a build takes seconds) and both landing in `_build/` beside this file:
 
-- `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2), which
-  may include headers from `csrc/`, into one shared library;
+- `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
+  `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`), which may
+  include headers from `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1, one library per decision
   machine, from `engine/k1_source.py`).
@@ -28,6 +29,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -128,6 +131,8 @@ def build_unit(stem: str, source: str) -> tuple[Path, str, float]:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_D = ctypes.c_double
 
 
 @functools.lru_cache(maxsize=1)
@@ -138,9 +143,52 @@ def load() -> ctypes.CDLL:
     lib.ckpe_window_counts.argtypes = [_P, ctypes.c_longlong, _I, _I, _I,
                                        _P, _P]
     lib.ckpe_window_counts.restype = _I
+    # ckpe_pyramid_ratios(p, a, k, pyr, rat, stream)
+    lib.ckpe_pyramid_ratios.argtypes = [_P, _I, _I, _P, _P, _P]
+    # ckpe_signature_weights(pyr, w_num, w_den, w_const, W, C, csr_ptr,
+    #                        csr_world, n_sig, wv, s, stream)
+    lib.ckpe_signature_weights.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P,
+                                           _I, _P, _P, _P]
+    # ckpe_dense_sweep(steps, n_steps, a, n, work, dy, rat, sig_w,
+    #                  seed_rank, seed_sid, pairs, interior, stream)
+    lib.ckpe_dense_sweep.argtypes = [_P, _I, _I, _L, _P, _P, _P, _P, _P, _P,
+                                     _P, _P, _P]
+    # ckpe_k6_stage(y, ks, n, h, rows, coefs, m, out, stream)
+    lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _D, _P, _P, _I, _P, _P]
+    # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, rows5,
+    #               coefs5, m5, rows3, coefs3, m3, partial, out, stream)
+    lib.ckpe_k6_norms.argtypes = [_I, _L, _D, _D, _P, _P, _P, _P, _P, _P,
+                                  _P, _I, _P, _P, _I, _P, _P, _P]
+    # ckpe_k6_dense_coeffs(y, y_new, f_old, f_new, ks, n, h, rows, coefs,
+    #                      m, out, stream)
+    lib.ckpe_k6_dense_coeffs.argtypes = [_P, _P, _P, _P, _P, _L, _D, _P, _P,
+                                         _P, _P, _P]
+    # ckpe_k6_dense_eval(F, y, n, x, one_minus_x, out, stream)
+    lib.ckpe_k6_dense_eval.argtypes = [_P, _P, _L, _D, _D, _P, _P]
+    for name in ("ckpe_pyramid_ratios", "ckpe_signature_weights",
+                 "ckpe_dense_sweep", "ckpe_k6_stage", "ckpe_k6_norms",
+                 "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval"):
+        getattr(lib, name).restype = _I
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def on_card(tensor, name: str) -> bool:
+    """True for a CUDA tensor (the wrapper ``name`` launches its kernel),
+    False for a CPU one (it runs its plain version); raises for any
+    other device."""
+    if tensor.device.type == "cpu":
+        return False
+    if tensor.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not "
+                         f"{tensor.device}")
+    return True
+
+
+def stream(tensor) -> int:
+    """The current CUDA stream of ``tensor``'s card, as an int."""
+    return torch.cuda.current_stream(tensor.device).cuda_stream
 
 
 def check(rc: int, name: str, lib: ctypes.CDLL) -> None:

@@ -1,16 +1,23 @@
-"""The built-in reaction rules the port's ensemble slice runs.
+"""The built-in reaction rules of the port.
 
-Numpy-free copies of three registrations of
-the JAX package's `models/problems.py`, with
-tape-access and ``choose`` ordering kept identical so the enumerated
-multiverse matches branch for branch:
+Numpy-free copies of the JAX package's `models/problems.py`
+registrations, with tape-access and ``choose`` ordering kept identical
+so the enumerated multiverse matches branch for branch:
 
-- ``ex2-ferromagnetic-chain`` (reference `problems.scm:30-55`),
-- ``ex4-chemical-turing`` (`problems.scm:186-244`),
-- ``ex5-msrtf-machine`` (`problems.scm:439-527`).
+- the import-time canary and ``ex1-radioactive-decay``
+  (reference `problems.scm:22-26`),
+- ``ex2-ferromagnetic-chain`` (`problems.scm:30-55`),
+- ``ex3-copolymerization`` and its variants 1 and 2
+  (`problems.scm:59-181`),
+- ``ex4-chemical-turing``, ``ex4var1-`` and ``ex4var2-chemical-turing``
+  (`problems.scm:186-434`),
+- ``ex5-msrtf-machine`` and ``ex5var1-`` (`problems.scm:439-527`),
+- ``ex6-mini-bff-lite``, the mini-BFF register machine at an
+  enumerable depth (`problems.scm:531-629`, repaired as in the JAX
+  package).
 
-The other rules (and the traced-parameter variants) arrive with the
-slices that need them; ROADMAP.md lists them.
+The rate-parameter (``-p``) variants, the other ex6 registrations and
+the fuzz rule are not ported yet; ROADMAP.md lists them.
 """
 
 from __future__ import annotations
@@ -18,6 +25,21 @@ from __future__ import annotations
 import math
 
 from ..engine.dsl import DATA, PROGRAM, register_problem
+
+
+# --- Example 1: radioactive decay --------------------------------------------
+
+@register_problem("__canary_problem_radioactive_decay", ("A", "B"))
+def _canary(t):
+    """Import-time smoke-test problem of the reference."""
+    if t.get_sym(DATA, 0) == "B":
+        t.set_sym(DATA, 0, "A")
+
+
+@register_problem("ex1-radioactive-decay", ("A", "B"))
+def ex1_radioactive_decay(t):
+    if t.get_sym(DATA, 0) == "B":
+        t.set_sym(DATA, 0, "A")
 
 
 # --- Example 2: ferromagnetic chain ------------------------------------------
@@ -42,6 +64,77 @@ def ex2_ferromagnetic_chain(t):
     p_flip = factor_a * factor_b
     if t.choose([(p_flip, True), (1 - p_flip, False)]):
         t.set_sym(DATA, 0, "D" if mid == "U" else "U")
+
+
+# --- Example 3: copolymerization ---------------------------------------------
+
+@register_problem("ex3-copolymerization", ("O", "A", "M", "N"))
+def ex3_copolymerization(t):
+    p0 = t.get_sym(PROGRAM, 0)
+    if (p0 != "O" and t.get_sym(PROGRAM, -1) == "O"
+            and t.get_sym(PROGRAM, +1) == "O"):
+        # Isolated monomer on the P-tape.
+        d0 = t.get_sym(DATA, 0)
+        if ((p0 == "A" and d0 in ("M", "N"))
+                or (d0 == "A" and p0 in ("M", "N"))):
+            # Compatible monomers; try a chain end on a random side.
+            i = t.choose([(1.0, -1), (1.0, +1)])
+            if (t.get_sym(DATA, i) == "O"
+                    and t.get_sym(DATA, 2 * i) == "O"):
+                t.set_sym(PROGRAM, 0, "O")
+                t.set_sym(DATA, i, p0)
+
+
+@register_problem("ex3var1-copolymerization", ("O", "A", "M", "N"))
+def ex3var1_copolymerization(t):
+    """Variant 1: same-comonomer addition rejected 75% of the time."""
+    p0 = t.get_sym(PROGRAM, 0)
+    if (p0 != "O" and t.get_sym(PROGRAM, -1) == "O"
+            and t.get_sym(PROGRAM, +1) == "O"):
+        d0 = t.get_sym(DATA, 0)
+        if ((p0 == "A" and d0 in ("M", "N"))
+                or (d0 == "A" and p0 in ("M", "N"))):
+            i = t.choose([(1.0, -1), (1.0, +1)])
+            if (t.get_sym(DATA, i) == "O"
+                    and t.get_sym(DATA, 2 * i) == "O"):
+                if (p0 != "A" and t.get_sym(DATA, -i) == p0
+                        and t.choose([(75.0, True), (25.0, False)])):
+                    pass  # alternation preference: reject
+                else:
+                    t.set_sym(PROGRAM, 0, "O")
+                    t.set_sym(DATA, i, p0)
+
+
+@register_problem("ex3var2-copolymerization", ("O", "A", "M", "N"))
+def ex3var2_copolymerization(t):
+    """Variant 2: reversible depolymerization at chain ends at a 1:50
+    relative rate."""
+    p0 = t.get_sym(PROGRAM, 0)
+    if p0 == "O":
+        # Empty P-tape cell: try dissociation.
+        if (t.get_sym(PROGRAM, -1) == "O"
+                and t.get_sym(PROGRAM, +1) == "O"):
+            d0 = t.get_sym(DATA, 0)
+            if d0 != "O":
+                d1_right = t.get_sym(DATA, 1)
+                d1_left = t.get_sym(DATA, -1)
+                if ((0 if d1_left == "O" else 1)
+                        + (0 if d1_right == "O" else 1)) == 1:
+                    # At a chain end; depolymerize at reduced rate.
+                    if t.choose([(1.0, True), (50.0, False)]):
+                        t.set_sym(PROGRAM, 0, d0)
+                        t.set_sym(DATA, 0, "O")
+    else:
+        if (t.get_sym(PROGRAM, -1) == "O"
+                and t.get_sym(PROGRAM, +1) == "O"):
+            d0 = t.get_sym(DATA, 0)
+            if ((p0 == "A" and d0 in ("M", "N"))
+                    or (d0 == "A" and p0 in ("M", "N"))):
+                i = t.choose([(1.0, -1), (1.0, +1)])
+                if (t.get_sym(DATA, i) == "O"
+                        and t.get_sym(DATA, 2 * i) == "O"):
+                    t.set_sym(PROGRAM, 0, "O")
+                    t.set_sym(DATA, i, p0)
 
 
 # --- Example 4: chemical Turing machine --------------------------------------
@@ -97,6 +190,119 @@ _EX4_SUPPRESSION = 0.05
 register_problem("ex4-chemical-turing", _EX4_SYMBOLS)(
     _ex4_rule([(1.0 - _EX4_SUPPRESSION, False), (_EX4_SUPPRESSION, True)])
 )
+# Variant 1: thermodynamically neutral reverse reaction (note the flipped
+# option order).
+register_problem("ex4var1-chemical-turing", _EX4_SYMBOLS)(
+    _ex4_rule([(1.0, True), (0.0, False)])
+)
+
+
+# Variant 2: detachable evaluator with free-enthalpy rate bookkeeping. The
+# rate tables are built at registration time with the reference's
+# setup-error checks; the JAX package's branch for traced rate parameters
+# has no counterpart here (the parametric rules are not ported).
+
+def _ex4var2_tables(beta, G_P, G_X, G_E, G_A, G_B, G_C, G_D):
+    """The delta-G-derived rate tables."""
+    delta_g_fastest = (G_B + G_X) - (G_A + G_P)
+
+    def rate_factor(g_left, g_right):
+        r = math.exp(-(beta * (g_right - g_left - delta_g_fastest)))
+        if r > 1.001:
+            raise ValueError(
+                "Setup error: Delta-G-fastest not actually fastest."
+            )
+        return min(1.0, r)
+
+    def rate_choices(g_left, g_right):
+        r = rate_factor(g_left, g_right)
+        return [(r, True), (1 - r, False)]
+
+    r_a = rate_factor(G_E, G_A)
+    r_d = rate_factor(G_E, G_D)
+    if r_a + r_d > 1.0:
+        raise ValueError(
+            "E->A+D rates too high to merge, given Delta-G-fastest."
+        )
+    return {
+        "A+P->B+X": rate_choices(G_A + G_P, G_B + G_X),
+        "B+X->A+P": rate_choices(G_B + G_X, G_A + G_P),
+        "B+P->C+X": rate_choices(G_B + G_P, G_C + G_X),
+        "C+X->B+P": rate_choices(G_C + G_X, G_B + G_P),
+        "C+P->D+X": rate_choices(G_C + G_P, G_D + G_X),
+        "D+X->C+P": rate_choices(G_D + G_X, G_C + G_P),
+        "A->E": rate_choices(G_A, G_E),
+        "D->E": rate_choices(G_D, G_E),
+        "E->A+D": [(r_a, "A"), (r_d, "D"), (1.0 - r_a - r_d, False)],
+    }
+
+
+_EX4V2_G = {"beta": 1.0, "G_P": 6.0, "G_X": 0.0, "G_E": 1.0,
+            "G_A": -1.0, "G_B": -1.0, "G_C": -1.0, "G_D": 1.5}
+_EX4V2_RATES = _ex4var2_tables(**_EX4V2_G)
+_CHOICE_IO = [(1.0, "I"), (1.0, "O")]
+_CHOICE_11 = [(1.0, True), (1.0, False)]
+
+
+def _ex4var2_rule(t, r):
+    p0 = t.get_sym(PROGRAM, 0)
+    if (p0 == "P" and _is_io(t.get_sym(DATA, 1))
+            and _is_io(t.get_sym(DATA, 2)) and t.choose(_CHOICE_11)):
+        d0 = t.get_sym(DATA, 0)
+        if d0 == "A" and t.choose(r["A+P->B+X"]):
+            t.set_sym(PROGRAM, 0, "X")
+            t.set_sym(DATA, 0, "I")
+            t.set_sym(DATA, 1, "B")
+        elif d0 == "B" and t.choose(r["B+P->C+X"]):
+            t.set_sym(PROGRAM, 0, "X")
+            t.set_sym(DATA, 0, "O")
+            t.set_sym(DATA, 1, "C")
+        elif d0 == "C" and t.choose(r["C+P->D+X"]):
+            t.set_sym(PROGRAM, 0, "X")
+            t.set_sym(DATA, 0, "I")
+            t.set_sym(DATA, 1, "D")
+    elif (p0 == "X" and _is_io(t.get_sym(DATA, -1))
+            and _is_io(t.get_sym(DATA, -2))):
+        d0 = t.get_sym(DATA, 0)
+        if d0 == "B" and t.choose(r["B+X->A+P"]):
+            t.set_sym(PROGRAM, 0, "P")
+            t.set_sym(DATA, 0, t.choose(_CHOICE_IO))
+            t.set_sym(DATA, -1, "A")
+        elif d0 == "C" and t.choose(r["C+X->B+P"]):
+            t.set_sym(PROGRAM, 0, "P")
+            t.set_sym(DATA, 0, t.choose(_CHOICE_IO))
+            t.set_sym(DATA, -1, "B")
+        elif d0 == "D" and t.choose(r["D+X->C+P"]):
+            t.set_sym(PROGRAM, 0, "P")
+            t.set_sym(DATA, 0, t.choose(_CHOICE_IO))
+            t.set_sym(DATA, -1, "C")
+    elif (p0 == "E" and _is_io(t.get_sym(DATA, 0))
+            and _is_io(t.get_sym(DATA, +1))
+            and _is_io(t.get_sym(DATA, -1)) and t.choose(_CHOICE_11)):
+        a_d_f = t.choose(r["E->A+D"])
+        if a_d_f == "A":
+            t.set_sym(PROGRAM, 0, "S")
+            t.set_sym(DATA, 0, "A")
+        elif a_d_f == "D":
+            t.set_sym(PROGRAM, 0, "S")
+            t.set_sym(DATA, 0, "D")
+    elif (p0 == "S" and _is_io(t.get_sym(DATA, +1))
+            and _is_io(t.get_sym(DATA, -1))):
+        d0 = t.get_sym(DATA, 0)
+        if d0 == "A" and t.choose(r["A->E"]):
+            t.set_sym(PROGRAM, 0, "E")
+            t.set_sym(DATA, 0, t.choose(_CHOICE_IO))
+        elif d0 == "D" and t.choose(r["D->E"]):
+            t.set_sym(PROGRAM, 0, "E")
+            t.set_sym(DATA, 0, t.choose(_CHOICE_IO))
+
+
+_EX4V2_SYMBOLS = ("A", "B", "C", "D", "I", "O", "P", "X", "S", "E")
+
+
+@register_problem("ex4var2-chemical-turing", _EX4V2_SYMBOLS)
+def ex4var2_chemical_turing(t):
+    _ex4var2_rule(t, _EX4V2_RATES)
 
 
 # --- Example 5: MSRTF machine ------------------------------------------------
@@ -147,3 +353,92 @@ def _ex5_rule(single_r_can_execute: bool):
 register_problem("ex5-msrtf-machine", ("M", "S", "R", "T", "F"))(
     _ex5_rule(single_r_can_execute=False)
 )
+register_problem("ex5var1-msrtf-machine", ("M", "S", "R", "T", "F"))(
+    _ex5_rule(single_r_can_execute=True)
+)
+
+
+# --- Example 6: mini-BFF (repaired as in the JAX package) ---------------------
+
+_EX6_SYMBOLS = ("lt", "gt", "cl", "cr", "minus", "plus", "dot", "comma",
+                "bl", "br", "zero", "nop")
+
+
+def _ex6_rule(fuel: int, d1_start: int = 12, *,
+              code_tape: bool = PROGRAM, data_tape: bool = DATA):
+    """The mini-BFF register machine as a DSL rule. ``code_tape`` /
+    ``data_tape`` select where opcodes are fetched and where the data
+    heads read/write."""
+
+    def rule(t):
+        def loop(budget, p_off, d0_off, d1_off, scan_mode):
+            if budget == 0:
+                return
+            op = t.get_sym(code_tape, p_off)
+            if scan_mode < 0:
+                # Looking left for the (-scan_mode)-th '[' bracket.
+                if op == "bl":
+                    if scan_mode == -1:
+                        loop(budget - 1, p_off + 1, d0_off, d1_off, 0)
+                    else:
+                        loop(budget - 1, p_off - 1, d0_off, d1_off,
+                             scan_mode + 1)
+                elif op == "br":
+                    loop(budget - 1, p_off - 1, d0_off, d1_off,
+                         scan_mode - 1)
+                else:
+                    loop(budget - 1, p_off - 1, d0_off, d1_off, scan_mode)
+            elif scan_mode > 0:
+                # Looking right for the scan_mode-th ']' bracket.
+                if op == "br":
+                    if scan_mode == 1:
+                        loop(budget - 1, p_off + 1, d0_off, d1_off, 0)
+                    else:
+                        loop(budget - 1, p_off + 1, d0_off, d1_off,
+                             scan_mode - 1)
+                elif op == "bl":
+                    loop(budget - 1, p_off + 1, d0_off, d1_off,
+                         scan_mode + 1)
+                else:
+                    loop(budget - 1, p_off + 1, d0_off, d1_off, scan_mode)
+            else:
+                if op in ("lt", "gt"):
+                    loop(budget - 1, p_off + 1,
+                         d0_off + (-1 if op == "lt" else +1), d1_off, 0)
+                elif op in ("cl", "cr"):
+                    loop(budget - 1, p_off + 1, d0_off,
+                         d1_off + (-1 if op == "cl" else +1), 0)
+                elif op in ("plus", "minus"):
+                    t.set(data_tape, d0_off,
+                          (t.get(data_tape, d0_off)
+                           + (1 if op == "plus" else -1))
+                          % len(_EX6_SYMBOLS))
+                    loop(budget - 1, p_off + 1, d0_off, d1_off, 0)
+                elif op == "dot":
+                    t.set(data_tape, d1_off, t.get(data_tape, d0_off))
+                    loop(budget - 1, p_off + 1, d0_off, d1_off, 0)
+                elif op == "comma":
+                    t.set(data_tape, d0_off, t.get(data_tape, d1_off))
+                    loop(budget - 1, p_off + 1, d0_off, d1_off, 0)
+                elif op == "bl":
+                    loop(budget - 1, p_off + 1, d0_off, d1_off,
+                         +1 if t.get_sym(data_tape, d0_off) == "zero"
+                         else 0)
+                elif op == "br":
+                    if t.get_sym(data_tape, d0_off) == "zero":
+                        loop(budget - 1, p_off + 1, d0_off, d1_off, 0)
+                    else:
+                        loop(budget - 1, p_off - 1, d0_off, d1_off, -1)
+                else:
+                    loop(budget - 1, p_off + 1, d0_off, d1_off, 0)
+
+        loop(fuel, 0, 0, d1_start, 0)
+
+    return rule
+
+
+# The "lite" variant keeps the full instruction set at an enumerable
+# depth: fuel 2 and the second data head next to the first (some 13k
+# execution paths).
+register_problem("ex6-mini-bff-lite", _EX6_SYMBOLS)(
+    _ex6_rule(fuel=2, d1_start=1))

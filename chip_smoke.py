@@ -37,7 +37,21 @@ Phases (each prints its wall time; every check raises on failure):
    memory) and on rows of 4,095 symbols (loads a symbol a lane), the
    last three also timed;
 5. end to end on a small input: explicit draws through the card and
-   through the CPU's plain path give the same tapes and window counts.
+   through the CPU's plain path give the same tapes and window counts;
+6. the exact SPD closure (K3-K6, built in phase 2 into K2's library):
+   the canary exactly equal to its golden list; dp/dt by the kernels
+   against the plain version on the card (rtol 1e-12, atol 1e-14) on
+   the 13 cases of the JAX package's `tests/test_engine.py:18-32` and on
+   ex4 at cl_k 5-8 (43,046,721 states), each kernel alone against its
+   plain version at cl_k 5 and 8; the main path: ex4 scenarios a and b
+   at cl_k 5 solved to t=2000 (2,001 samples, rtol = atol = 1e-13)
+   through `markov_tapes.ode_integrate_ivp(backend="torch")`, K3-K6 each
+   launched and no plain version called, the eight observables at
+   t=2000 equal to the reference's oracles to rel 2e-6; the same two
+   solves at cl_k 6 (531,441 states) within rel 0.05, abs 1e-9 of cl_k
+   5; each solve's seconds, steps and RHS calls, the RHS's time at cl_k
+   5-8, and each kernel's time beside its bound, its plain version, the
+   library call where one exists, and the host's cost a launch.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -53,11 +67,21 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from chemical_kinetics_and_program_execution_torch import cuda
+from chemical_kinetics_and_program_execution_torch import cuda, markov_tapes
+from chemical_kinetics_and_program_execution_torch.engine import (
+    dense as tdense,
+)
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
 from chemical_kinetics_and_program_execution_torch.engine import k1_source
+from chemical_kinetics_and_program_execution_torch.models.initial_states import (  # noqa: E501
+    chemical_turing_p0,
+)
+from chemical_kinetics_and_program_execution_torch.ode import dop853
+from chemical_kinetics_and_program_execution_torch.ops.observables import (
+    seq_prob_projector,
+)
 from card_timing import cuda_ms, k2_tapes
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -177,6 +201,409 @@ def k2_bytes(n_bins):
     return B * L * 4 + n_bins * 8
 
 
+# --- Phase 6: the exact SPD closure --------------------------------------------
+
+EX4 = "ex4-chemical-turing"
+# The cases of the JAX package's tests/test_engine.py:18-32.
+EXACT_CASES = [
+    ("ex1-radioactive-decay", 3), ("ex1-radioactive-decay", 5),
+    ("ex2-ferromagnetic-chain", 3), ("ex2-ferromagnetic-chain", 5),
+    ("ex3-copolymerization", 4), ("ex3var1-copolymerization", 4),
+    ("ex3var2-copolymerization", 4), ("ex4-chemical-turing", 3),
+    ("ex4var1-chemical-turing", 3), ("ex4var2-chemical-turing", 3),
+    ("ex5-msrtf-machine", 3), ("ex5var1-msrtf-machine", 3),
+    ("ex6-mini-bff-lite", 2),
+]
+# Kernel path against the plain version on the card: the same
+# arithmetic, the plain scatters' atomics in varying order.
+RHS_RTOL, RHS_ATOL = 1e-12, 1e-14
+# The reference's ex4 observables at t=2000 (its
+# examples/ex4_chemical_turing.py:150-170), as the JAX package's
+# tests/test_oracles.py:99-133 pins them.
+SEQS = {
+    "OAOOO": (5, 0, 5, 5, 5), "OIBOO": (5, 4, 1, 5, 5),
+    "OIBIO": (5, 4, 1, 4, 5), "OIOCO": (5, 4, 5, 2, 5),
+    "OIOCI": (5, 4, 5, 2, 4), "OIOID": (5, 4, 5, 4, 3),
+    "P": (6,), "X": (7,),
+}
+ORACLE_A = {
+    "OAOOO": 1.069972289390935e-08, "OIBOO": 6.515573824924313e-07,
+    "OIBIO": 6.515311604360241e-07, "OIOCO": 3.968674272397802e-05,
+    "OIOCI": 3.968643987041947e-05, "OIOID": 0.00241751541540069,
+    "P": 0.02258485544510012, "X": 0.007415144554899872,
+}
+ORACLE_B = {
+    "OAOOO": 0.00012550563638350954, "OIBOO": 0.00031502540335240174,
+    "OIBIO": 5.084130198577003e-05, "OIOCO": 0.0005186964734668385,
+    "OIOCI": 9.96749791258151e-05, "OIOID": 0.0013280547249873754,
+    "P": 0.0019018941966848447, "X": 0.005598105803315155,
+}
+SCENARIOS = (("a", 0.04, ORACLE_A), ("b", 0.01, ORACLE_B))
+T_END, N_SAMPLES, SOLVE_TOL = 2000.0, 2001, 1e-13
+ORACLE_REL, CONV_REL, CONV_ABS = 2e-6, 0.05, 1e-9
+RHS_CL_K, TIMED_CL_K, SOLVE_CL_K = (5, 6, 7, 8), (5, 8), (5, 6)
+SRC = "chemical_kinetics_and_program_execution_torch/csrc/"
+EXACT_KERNELS = {
+    "K3": ("K3 pyramid_ratios", SRC + "dense_rhs.cu",
+           "the JAX package's engine/dense.py:423 _levels, :432 "
+           "_ratio_tables; markov.py:174 guarded_ratio, :194 pyramid (XLA)"),
+    "K4": ("K4 signature_weights", SRC + "dense_rhs.cu",
+           "the JAX package's engine/dense.py:464-468: markov.py:189 "
+           "guarded_ratio_prod, then segment_sum (XLA)"),
+    "K5": ("K5 sweep_step", SRC + "dense_rhs.cu",
+           "the JAX package's engine/dense.py:310 _apply_group (XLA)"),
+    "K6": ("K6 dop853_arith", SRC + "dop853.cu",
+           "the JAX package's ode/dop853.py:157 odeint_dop853_dense; "
+           "ode/streamed_solve.py:54-135 (XLA)"),
+}
+EXACT_WRAPPERS = {"K3": [tdense.pyramid_ratios],
+                  "K4": [tdense.signature_weights], "K5": [tdense.sweep],
+                  "K6": list(dop853.KERNELS)}
+EXACT_PLAIN = [tdense.pyramid_ratios_plain, tdense.signature_weights_plain,
+               tdense.sweep_plain, *dop853.PLAIN]
+
+
+def exact_launches():
+    return {k: sum(f.launches for f in fs)
+            for k, fs in EXACT_WRAPPERS.items()}
+
+
+def zero_exact_counts():
+    for fs in EXACT_WRAPPERS.values():
+        for f in fs:
+            f.launches = 0
+    for f in EXACT_PLAIN:
+        f.calls = 0
+
+
+def held_to_plain(got, want, what):
+    """Raises unless ``got`` (the kernels) equals ``want`` (the plain
+    version) to rounding; returns the largest difference."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=RHS_RTOL, atol=RHS_ATOL):
+        raise AssertionError(f"{what}: kernels != plain, max |diff| {err}")
+    return err
+
+
+def device_spd(gen, n, dev, concentrated=False):
+    """A Dirichlet(1) SPD drawn on the card (normalised exponentials), or
+    a concentrated one (their fifth powers)."""
+    e = -torch.log1p(-torch.rand(n, generator=gen, dtype=torch.float64,
+                                 device=dev))
+    if concentrated:
+        e = e**5
+    return e / e.sum()
+
+
+def queued_reps(reps, launches):
+    """``reps`` cut so that a timed run queues under 900 launches behind
+    `cuda_ms`' sleeping stream: past the card's queue of pending launches
+    the host blocks until the sleep ends, and its time a launch says
+    nothing."""
+    return max(1, min(reps, 900 // launches))
+
+
+def wall_ms(fn, reps):
+    """Host milliseconds a call of ``fn`` as the host paces it, the card's
+    queue drained at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def solve_ex4(dev, cl_k, powered):
+    """One ex4 scenario through `markov_tapes.ode_integrate_ivp` on the
+    card, observables projected there, the counts set to 0 just before
+    and read just after; raises unless K3-K6 each launched and no plain
+    version ran. Returns (observables at t=2000, info, seconds,
+    launches)."""
+    p0 = chemical_turing_p0(cl_k, powered_fraction=powered).ravel()
+    proj = seq_prob_projector(list(SEQS.values()), 9, cl_k)
+    ts = np.linspace(0.0, T_END, N_SAMPLES)
+    zero_exact_counts()
+    t0 = time.perf_counter()
+    obs, info = markov_tapes.ode_integrate_ivp(
+        tag=EX4, size_a=9, cl_k=cl_k, p0=p0, ts=ts, backend="torch",
+        device=dev, ivp_kwargs=dict(rtol=SOLVE_TOL, atol=SOLVE_TOL,
+                                    method="DOP853", project=proj,
+                                    return_info=True))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = exact_launches()
+    plain = sum(f.calls for f in EXACT_PLAIN)
+    if obs.shape != (N_SAMPLES, len(SEQS)) or not np.isfinite(obs).all():
+        raise AssertionError(f"cl_k {cl_k}: observables {obs.shape}")
+    if plain or min(launches.values()) == 0:
+        raise AssertionError(f"cl_k {cl_k}: launches {launches}, plain "
+                             f"calls {plain}")
+    return dict(zip(SEQS, obs[-1].tolist())), info, seconds, launches
+
+
+def exact_bytes(dp):
+    """Least bytes each of K3-K5 moves for one RHS (each input read once,
+    each output written once)."""
+    prog, plan = dp.prog, dp.plan
+    a, k, n = prog.size_a, prog.cl_k, prog.state_size
+    rat_len = tdense.ratio_offsets(a, k)[1]
+    k3 = 8 * (n + prog.pyramid_size + rat_len)
+    W, C = prog.w_num.shape
+    gathered = len(np.union1d(prog.w_num, prog.w_den))
+    k4 = (8 * W * C + 8 * W + 4 * (prog.num_signatures + 1)
+          + 4 * len(prog.pair_world) + 8 * gathered
+          + 8 * prog.num_signatures)
+    tables = {(r[5], r[1]) for r in plan.steps.tolist() if r[5] >= 0}
+    k5 = (8 * sum(size for _, size in tables) + 8 * prog.num_signatures
+          + plan.steps.nbytes + plan.seed_rank.nbytes + plan.seed_sid.nbytes
+          + plan.pairs.nbytes + plan.interior.nbytes + 8 * n)
+    return {"K3": k3, "K4": k4, "K5": k5}
+
+
+def time_exact_kernels(dp, p, gen, out):
+    """K3-K5 on ``p`` and K6 on random stages of its size: kernel, plain
+    and library times, bounds, host cost a launch; each kernel also held
+    to its plain version. Adds to ``out`` and returns the largest
+    differences."""
+    a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
+    err = {}
+    pyr, rat = tdense.pyramid_ratios(p, a, k)
+    want_pyr, want_rat = tdense.pyramid_ratios_plain(p, a, k)
+    err["K3"] = max(held_to_plain(pyr, want_pyr, f"K3 cl_k {k} pyramid"),
+                    held_to_plain(rat, want_rat, f"K3 cl_k {k} ratios"))
+    s = tdense.signature_weights(dp, pyr)
+    err["K4"] = held_to_plain(s, tdense.signature_weights_plain(dp, pyr),
+                              f"K4 cl_k {k}")
+    dy = tdense.sweep(dp, rat, s)
+    err["K5"] = held_to_plain(dy, tdense.sweep_plain(dp, rat, s),
+                              f"K5 cl_k {k}")
+    del want_pyr, want_rat
+    big = k >= 7
+    reps, plain_reps = (3, 1) if big else (20, 3)
+    bound = exact_bytes(dp)
+    per_call = {"K3": k + 1, "K4": 1, "K5": dp.plan.num_launches}
+    calls = {"K3": (lambda: tdense.pyramid_ratios(p, a, k),
+                    lambda: tdense.pyramid_ratios_plain(p, a, k)),
+             "K4": (lambda: tdense.signature_weights(dp, pyr),
+                    lambda: tdense.signature_weights_plain(dp, pyr)),
+             "K5": (lambda: tdense.sweep(dp, rat, s),
+                    lambda: tdense.sweep_plain(dp, rat, s))}
+    for name, (kern, plain) in calls.items():
+        host = []
+        ms = cuda_ms(kern, queued_reps(reps, per_call[name]), warmup=1,
+                     host=host)
+        out.setdefault(name, {})[k] = {
+            "ms": ms, "plain_ms": cuda_ms(plain, plain_reps, warmup=0),
+            "bound_ms": bound[name] / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None, "launches_per_call": per_call[name],
+            "host_us_per_launch": host[0] * 1e3 / per_call[name]}
+    del pyr, rat, s, dy
+    # K6 at this state size, on random stages.
+    ks = torch.rand((16, n), generator=gen, dtype=torch.float64,
+                    device=p.device) - 0.5
+    y = torch.rand(n, generator=gen, dtype=torch.float64, device=p.device)
+    y_new = y + 1e-3 * ks[3]
+    rows = list(range(16))
+    f_out, p_out = torch.empty_like(y), torch.empty_like(y)
+    F, F_plain = (torch.empty((7, n), dtype=torch.float64, device=p.device)
+                  for _ in range(2))
+    h = 0.37
+    b_terms = dop853._terms(dop853._B, rows[:12])
+    err_kw = dict(y_new=y_new, ks=ks,
+                  terms5=dop853._terms(dop853._E5, rows[:13]),
+                  terms3=dop853._terms(dop853._E3, rows[:13]))
+    fns = {
+        "stage": (lambda: dop853.stage(y, ks, h, b_terms, f_out),
+                  lambda: dop853.stage_plain(y, ks, h, b_terms, p_out),
+                  8 * (len(b_terms) + 2) * n, 1),
+        "norms": (lambda: dop853.norms(dop853._ERR, y, 1e-13, 1e-13,
+                                       **err_kw),
+                  lambda: dop853.norms_plain(dop853._ERR, y, 1e-13, 1e-13,
+                                             **err_kw),
+                  8 * (2 + len({r for r, _ in err_kw["terms5"]
+                                + err_kw["terms3"]})) * n, 2),
+        "dense_coeffs": (
+            lambda: dop853.dense_coeffs(y, y_new, h, ks[0], ks[12], ks,
+                                        rows, F),
+            lambda: dop853.dense_coeffs_plain(y, y_new, h, ks[0], ks[12], ks,
+                                              rows, F_plain),
+            8 * (4 + len({r for t in dop853._dense_terms(rows)
+                          for r, _ in t}) + 7) * n, 1),
+        "dense_eval": (lambda: dop853.dense_eval(F, y, 0.3, f_out),
+                       lambda: dop853.dense_eval_plain(F, y, 0.3, p_out),
+                       8 * 9 * n, 1),
+    }
+    k6, err["K6"] = {}, 0.0
+    for name, (kern, plain, nbytes, launches) in fns.items():
+        err["K6"] = max(err["K6"], held_to_plain(kern(), plain(),
+                                                 f"K6 {name} n={n}"))
+        host = []
+        k6[name] = {"ms": cuda_ms(kern, 3 * reps, warmup=1, host=host),
+                    "plain_ms": cuda_ms(plain, plain_reps, warmup=0),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "library_ms": None, "launches_per_call": launches,
+                    "host_us_per_launch": host[0] * 1e3 / launches}
+    coef = torch.as_tensor(h * dop853._B, device=p.device)
+    k6["stage"]["library_ms"] = cuda_ms(
+        lambda: torch.addmv(y, ks[:12].T, coef), 3 * reps, warmup=1)
+    out.setdefault("K6", {})[k] = k6
+    del ks, y, y_new, F, F_plain
+    return err
+
+
+def exact_closure(dev, kernels):
+    """Phase 6; adds K3-K6 to ``kernels``."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    max_err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "RHS": 0.0}
+    lib = cuda.load()
+    say("K3-K6 entry points in the library built in phase 2: "
+        + ", ".join(n for n in ("ckpe_pyramid_ratios",
+                                "ckpe_signature_weights", "ckpe_dense_sweep",
+                                "ckpe_k6_stage", "ckpe_k6_norms",
+                                "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval")
+                    if hasattr(lib, n)))
+    got = markov_tapes._run_validation(device=dev)
+    say(f"canary: {got} (exactly the golden list)")
+
+    # dp/dt through the kernels against the plain version on the card.
+    rng = np.random.RandomState(7)
+    for tag, cl_k in EXACT_CASES:
+        prog = tdense.compile_dense(tag, cl_k)
+        fn = tdense.make_dense_dy_dt(prog, device=dev)
+        for concentrated in (False, True):
+            p = torch.as_tensor(rng.dirichlet(
+                np.ones(prog.state_size) * (0.2 if concentrated else 1.0)),
+                device=dev)
+            dy = fn(p)
+            if dy.dtype != torch.float64 or abs(float(dy.sum())) >= 1e-13:
+                raise AssertionError(f"{tag}: dtype or conservation")
+            max_err["RHS"] = max(max_err["RHS"], held_to_plain(
+                dy, tdense.dy_dt_dense(fn.device_program, p), tag))
+    say(f"dp/dt, kernels == plain on the {len(EXACT_CASES)} cases of "
+        "tests/test_engine.py:18-32 (random and concentrated SPDs)")
+
+    times, rhs = {}, {}
+    for cl_k in RHS_CL_K:
+        prog = tdense.compile_dense(EX4, cl_k)
+        fn = tdense.make_dense_dy_dt(prog, device=dev)
+        dp = fn.device_program
+        t0 = time.perf_counter()
+        p0 = torch.as_tensor(chemical_turing_p0(
+            cl_k, powered_fraction=0.04).ravel(), device=dev)
+        p0_s = time.perf_counter() - t0
+        for name, p in (("chemical_turing_p0", p0),
+                        ("random", device_spd(gen, prog.state_size, dev))):
+            max_err["RHS"] = max(max_err["RHS"], held_to_plain(
+                fn(p), tdense.dy_dt_dense(dp, p), f"ex4 cl_k {cl_k} {name}"))
+        reps = 3 if cl_k >= 7 else 20
+        launches = cl_k + 2 + dp.plan.num_launches
+        host = []
+        rhs[cl_k] = {"device_ms": cuda_ms(lambda: fn(p0),
+                                          queued_reps(reps, launches),
+                                          warmup=1, host=host),
+                     "host_ms": host[0], "wall_ms": wall_ms(lambda: fn(p0),
+                                                            reps),
+                     "launches": launches,
+                     "bytes_mb": sum(exact_bytes(dp).values()) / 1e6}
+        r = rhs[cl_k]
+        say(f"ex4 cl_k {cl_k} ({prog.state_size} states, "
+            f"{dp.plan.num_groups} groups, {r['launches']} launches an RHS; "
+            f"p0 built in {p0_s:.2f} s): kernels == plain on p0 and a "
+            f"random SPD; RHS {r['device_ms'] * 1e3:.1f} us device, "
+            f"{r['wall_ms'] * 1e3:.1f} us as the host paces it (host "
+            f"{r['host_ms'] * 1e3:.1f} us to queue); K3-K5 bytes "
+            f"{r['bytes_mb']:.1f} MB")
+        if cl_k in TIMED_CL_K:
+            errs = time_exact_kernels(dp, p0, gen, times)
+            for name, e in errs.items():
+                max_err[name] = max(max_err[name], e)
+            say(f"cl_k {cl_k}: each of K3-K6 alone == its plain version "
+                f"(max |diff| {errs})")
+        del fn, dp, p0, p
+        torch.cuda.empty_cache()
+
+    # The main path: the paper's ex4 result at cl_k 5, then cl_k 6.
+    finals, solves, main_launches = {}, {}, None
+    for cl_k in SOLVE_CL_K:
+        for label, powered, oracle in SCENARIOS:
+            final, info, seconds, launches = solve_ex4(dev, cl_k, powered)
+            finals[label, cl_k] = final
+            solves[f"{label} cl_k {cl_k}"] = {
+                "seconds": seconds, "accepted": info["num_accepted"],
+                "rejected": info["num_rejected"], "rhs": info["num_rhs"],
+                "launches": launches}
+            if cl_k == SOLVE_CL_K[0]:
+                main_launches = ({k: v + launches[k] for k, v in
+                                  main_launches.items()}
+                                 if main_launches else dict(launches))
+            say(f"solve {label}, cl_k {cl_k}: {seconds:.2f} s, "
+                f"{info['num_accepted']} accepted, {info['num_rejected']} "
+                f"rejected, {info['num_rhs']} RHS calls "
+                f"({info['num_rhs'] / seconds:.0f} a second); launches "
+                f"{launches}; plain calls 0")
+            for name, want in oracle.items():
+                got = final[name]
+                if (cl_k == SOLVE_CL_K[0]
+                        and not abs(got - want) <= ORACLE_REL * abs(want)):
+                    raise AssertionError(
+                        f"scenario {label} p({name}) = {got!r}, oracle "
+                        f"{want!r}")
+                if cl_k != SOLVE_CL_K[0]:
+                    ref = finals[label, SOLVE_CL_K[0]][name]
+                    if not abs(got - ref) <= max(CONV_REL * abs(ref),
+                                                 CONV_ABS):
+                        raise AssertionError(
+                            f"scenario {label} p({name}): cl_k 6 {got!r} "
+                            f"vs cl_k 5 {ref!r}")
+            rel = max(abs(final[m] / oracle[m] - 1) for m in oracle)
+            say(f"  observables at t={T_END:g}: {final}; largest rel. "
+                f"distance from the oracle {rel:.3e}"
+                + (" (within 2e-6)" if cl_k == SOLVE_CL_K[0] else
+                   " (cl_k 6 within rel 0.05, abs 1e-9 of cl_k 5)"))
+
+    for name in ("K3", "K4", "K5"):
+        for cl_k, t in times[name].items():
+            say(f"{name} cl_k {cl_k}: {t['ms'] * 1e3:.2f} us a call "
+                f"({t['launches_per_call']} launches, "
+                f"{t['ms'] * 1e3 / t['launches_per_call']:.2f} us each) "
+                f"against a bound of {t['bound_ms'] * 1e3:.3f} us; plain "
+                f"{t['plain_ms'] * 1e3:.1f} us; host "
+                f"{t['host_us_per_launch']:.2f} us a launch")
+    for cl_k, fns in times["K6"].items():
+        for fname, t in fns.items():
+            say(f"K6 {fname} cl_k {cl_k}: {t['ms'] * 1e3:.2f} us against a "
+                f"bound of {t['bound_ms'] * 1e3:.2f} us; plain "
+                f"{t['plain_ms'] * 1e3:.1f} us; library "
+                + (f"{t['library_ms'] * 1e3:.2f} us (torch.addmv)"
+                   if t["library_ms"] else "none")
+                + f"; host {t['host_us_per_launch']:.2f} us a launch")
+    say("at cl_k 5 and 6 the working set (under 50 MB) sits in the 50 MB "
+        "L2: those times are launches and host pacing, not bytes")
+
+    small, full = TIMED_CL_K
+    for key, (name, source, replaces) in EXACT_KERNELS.items():
+        t5 = times[key][small]
+        if key == "K6":
+            t5, extra = t5["stage"], {"functions": times["K6"]}
+        else:
+            extra = {"cl_k8": times[key][full],
+                     "launches_per_rhs": t5["launches_per_call"]}
+        kernels[key] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[key],
+            "max_abs_err": max_err[key], "ms": t5["ms"],
+            "plain_ms": t5["plain_ms"], "bound_ms": t5["bound_ms"],
+            "bound_by": "bytes", "library_ms": t5["library_ms"],
+            "shape": "ex4 cl_k 5 (59,049 states)", **extra}
+    kernels["K5"]["rule"] = SRC + "sweep_rule.cuh"
+    kernels["K5"]["rhs_ms"] = rhs
+    kernels["K5"]["solves"] = solves
+    kernels["K5"]["rhs_max_abs_err"] = max_err["RHS"]
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -200,7 +627,7 @@ def main(dev=None):
 
     with Phase("2 build"):
         machines = {tag: ens.compile_decision_machine(tag) for tag in TAGS}
-        jobs = {"K2 (csrc/*.cu)": cuda.build}
+        jobs = {"K2-K6 (csrc/*.cu)": cuda.build}
         for tag, dm in machines.items():
             src = k1_source.k1_source(dm)
             jobs[f"K1 {tag}"] = (lambda src=src: cuda.build_unit("k1", src))
@@ -498,6 +925,9 @@ def main(dev=None):
                 raise AssertionError("card and CPU runs differ")
         say(f"ex4 {n} rounds at B={b}, L={l}: card == CPU (tapes and "
             "window counts)")
+
+    with Phase("6 the exact SPD closure (K3-K6)"):
+        exact_closure(dev, kernels)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -724,8 +724,8 @@ def test_ring_bridge_sampling_has_no_seam_artifact():
 
 
 def test_port_imports_no_jax():
-    """The port (every module of it) imports neither jax nor the JAX
-    package."""
+    """The port (every module of it, the exact closure's solve driven
+    once) imports neither jax nor the JAX package."""
     code = (
         "import sys\n"
         "import chemical_kinetics_and_program_execution_torch as p\n"
@@ -733,6 +733,20 @@ def test_port_imports_no_jax():
         "from chemical_kinetics_and_program_execution_torch.engine import "
         "ensemble\n"
         "ensemble.compile_decision_machine('ex4-chemical-turing')\n"
+        "from chemical_kinetics_and_program_execution_torch import "
+        "markov_tapes\n"
+        "from chemical_kinetics_and_program_execution_torch.engine import "
+        "compile, dense\n"
+        "from chemical_kinetics_and_program_execution_torch.models import "
+        "initial_states\n"
+        "from chemical_kinetics_and_program_execution_torch.ode import "
+        "dop853, integrate\n"
+        "from chemical_kinetics_and_program_execution_torch.ops import "
+        "observables\n"
+        "markov_tapes._run_validation(device='cpu')\n"
+        "markov_tapes.ode_integrate_ivp(tag='ex1-radioactive-decay', "
+        "size_a=2, cl_k=3, p0=[1/8] * 8, ts=[0, 1], backend='torch', "
+        "device='cpu', ivp_kwargs=dict(rtol=1e-10, atol=1e-10))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'chemical_kinetics_and_program_execution_tpu'))]\n"
         "assert not bad, bad\n"

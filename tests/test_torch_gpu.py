@@ -13,9 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+from chemical_kinetics_and_program_execution_torch import markov_tapes
+from chemical_kinetics_and_program_execution_torch.engine import (
+    dense as tdense,
+)
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as tens,
 )
+from chemical_kinetics_and_program_execution_torch.models.initial_states import (  # noqa: E501
+    chemical_turing_p0,
+)
+from chemical_kinetics_and_program_execution_torch.ode import dop853
+from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
 
 pytestmark = pytest.mark.gpu
 
@@ -207,3 +216,159 @@ def test_kernel_wrappers_reject_bad_inputs(cuda):
         tens.plane_round(dm, p8, p8.clone(), shifts, 1)
     with pytest.raises(ValueError, match="shifts"):
         tens.plane_round(dm, p8, p8.clone(), shifts.cpu(), 0)
+
+
+# --- The exact closure: K3-K6 ---------------------------------------------------
+
+# The cases of the JAX package's `tests/test_engine.py:18-32`.
+EXACT_CASES = [
+    ("ex1-radioactive-decay", 3), ("ex1-radioactive-decay", 5),
+    ("ex2-ferromagnetic-chain", 3), ("ex2-ferromagnetic-chain", 5),
+    ("ex3-copolymerization", 4), ("ex3var1-copolymerization", 4),
+    ("ex3var2-copolymerization", 4), ("ex4-chemical-turing", 3),
+    ("ex4var1-chemical-turing", 3), ("ex4var2-chemical-turing", 3),
+    ("ex5-msrtf-machine", 3), ("ex5var1-msrtf-machine", 3),
+    ("ex6-mini-bff-lite", 2),
+]
+# dp/dt against the plain version on the card: the digit sums run in the
+# same order, the plain version's scatters use atomics (their order
+# varies), so agreement is to rounding.
+RTOL, ATOL = 1e-12, 1e-14
+
+
+def _spd(rng, size, concentrated=False):
+    return rng.dirichlet(np.ones(size) * (0.2 if concentrated else 1.0))
+
+
+def _programs(tag, cl_k, cuda):
+    prog = tdense.compile_dense(tag, cl_k)
+    return prog, tdense.device_program(prog, cuda)
+
+
+def _close(got, want):
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("cl_k", [3, 5, 8], ids=["small", "k5", "full"])
+def test_pyramid_ratios_kernel_matches_plain(cuda, cl_k):
+    """K3 (k + 1 launches) against its plain version on the card, ex4's
+    alphabet, a random SPD with exact zeros."""
+    rng = np.random.RandomState(cl_k)
+    p = _spd(rng, 9**cl_k, concentrated=True)
+    p[rng.rand(p.size) < 0.3] = 0.0
+    p = torch.as_tensor(p, device=cuda)
+    launches = tdense.pyramid_ratios.launches
+    pyr, rat = tdense.pyramid_ratios(p, 9, cl_k)
+    assert tdense.pyramid_ratios.launches == launches + cl_k + 1
+    want_pyr, want_rat = tdense.pyramid_ratios_plain(p, 9, cl_k)
+    _close(pyr, want_pyr)
+    _close(rat, want_rat)
+
+
+@pytest.mark.parametrize("tag,cl_k", [("ex4-chemical-turing", 5),
+                                      ("ex5-msrtf-machine", 3),
+                                      ("ex6-mini-bff-lite", 2)])
+def test_signature_weights_kernel_matches_plain(cuda, tag, cl_k):
+    """K4 (one launch) against its plain version, up to ex6-lite's
+    11,520 worlds and 4,536 signatures."""
+    prog, dp = _programs(tag, cl_k, cuda)
+    p = torch.as_tensor(_spd(np.random.RandomState(1), prog.state_size),
+                        device=cuda)
+    pyr, _ = tdense.pyramid_ratios_plain(p, prog.size_a, cl_k)
+    launches = tdense.signature_weights.launches
+    got = tdense.signature_weights(dp, pyr)
+    assert tdense.signature_weights.launches == launches + 1
+    _close(got, tdense.signature_weights_plain(dp, pyr))
+
+
+@pytest.mark.parametrize("tag,cl_k", EXACT_CASES
+                         + [("ex4-chemical-turing", 5),
+                            ("ex4-chemical-turing", 8)])
+def test_sweep_kernel_matches_plain(cuda, tag, cl_k):
+    """K5 (one launch a step) against its plain version, on the same
+    ratio tables and signature weights."""
+    prog, dp = _programs(tag, cl_k, cuda)
+    p = torch.as_tensor(_spd(np.random.RandomState(2), prog.state_size),
+                        device=cuda)
+    pyr, rat = tdense.pyramid_ratios_plain(p, prog.size_a, cl_k)
+    s = tdense.signature_weights_plain(dp, pyr)
+    launches = tdense.sweep.launches
+    got = tdense.sweep(dp, rat, s)
+    assert tdense.sweep.launches == launches + dp.plan.num_launches
+    _close(got, tdense.sweep_plain(dp, rat, s))
+
+
+@pytest.mark.parametrize("tag,cl_k", EXACT_CASES)
+def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
+    """The kernel path K3 -> K4 -> K5 against the plain dp/dt on the card,
+    on a random and a concentrated SPD; float64; conserves probability."""
+    prog = tdense.compile_dense(tag, cl_k)
+    fn = tdense.make_dense_dy_dt(prog, device=cuda)
+    rng = np.random.RandomState(3)
+    for concentrated in (False, True):
+        p = torch.as_tensor(_spd(rng, prog.state_size, concentrated),
+                            device=cuda)
+        got = fn(p)
+        assert got.dtype == torch.float64 and got.device.type == "cuda"
+        _close(got, tdense.dy_dt_dense(fn.device_program, p))
+        assert abs(float(got.sum())) < 1e-13
+
+
+@pytest.mark.parametrize("n", [9**5, 9**8], ids=["k5", "full"])
+def test_dop853_kernels_match_plain(cuda, n):
+    """Each K6 kernel against its plain version on random stages."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    ks = torch.rand((16, n), generator=gen, dtype=torch.float64,
+                    device=cuda) - 0.5
+    y = torch.rand(n, generator=gen, dtype=torch.float64, device=cuda)
+    y_new = y + 1e-3 * ks[3]
+    rows = list(range(16))
+    before = [k.launches for k in dop853.KERNELS]
+    terms = dop853._terms(dop853._A[11, :11], rows[:11])
+    out, want = torch.empty_like(y), torch.empty_like(y)
+    _close(dop853.stage(y, ks, 0.37, terms, out),
+           dop853.stage_plain(y, ks, 0.37, terms, want))
+    kw = dict(y_new=y_new, ks=ks,
+              terms5=dop853._terms(dop853._E5, rows[:13]),
+              terms3=dop853._terms(dop853._E3, rows[:13]))
+    for mode, args in ((dop853._RMS, dict(f0=ks[0])),
+                       (dop853._RMS_DIFF, dict(f0=ks[0], f1=ks[1])),
+                       (dop853._ERR, kw)):
+        got = dop853.norms(mode, y, 1e-10, 1e-12, **args)
+        torch.testing.assert_close(
+            got, dop853.norms_plain(mode, y, 1e-10, 1e-12, **args),
+            rtol=1e-12, atol=0)
+    F = torch.empty((7, n), dtype=torch.float64, device=cuda)
+    F_want = torch.empty_like(F)
+    _close(dop853.dense_coeffs(y, y_new, 0.37, ks[0], ks[12], ks, rows, F),
+           dop853.dense_coeffs_plain(y, y_new, 0.37, ks[0], ks[12], ks,
+                                     rows, F_want))
+    _close(dop853.dense_eval(F, y, 0.3, out),
+           dop853.dense_eval_plain(F, y, 0.3, want))
+    assert [k.launches - b for k, b in zip(dop853.KERNELS, before)] == \
+        [1, 6, 1, 1]
+
+
+def test_exact_canary_on_card(cuda):
+    assert markov_tapes._run_validation(device=cuda) == [
+        0.375, 0.125, 0.125, -0.125, 0.125, -0.125, -0.125, -0.375]
+
+
+def test_exact_solve_on_card_matches_cpu(cuda):
+    """ex4 cl_k 3: the solve through K3-K6 walks the CPU's plain solve's
+    steps; no plain version runs on the card."""
+    y0 = chemical_turing_p0(3, powered_fraction=0.04).ravel()
+    ts = np.linspace(0.0, 50.0, 6)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        dy_dt = markov_tapes.get_dy_dt(tag="ex4-chemical-turing", size_a=9,
+                                       cl_k=3, device=dev)
+        plain = [f.calls for f in dop853.PLAIN]
+        out.append(solve(markov_tapes._device_rhs(dy_dt), y0, ts, rtol=1e-10,
+                         atol=1e-12, return_info=True, device=dev))
+        if dev.type == "cuda":
+            assert [f.calls for f in dop853.PLAIN] == plain
+    (got, info), (want, want_info) = out
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert info["num_accepted"] == want_info["num_accepted"]
+    assert info["num_rejected"] == want_info["num_rejected"]
