@@ -589,3 +589,8 @@ def test_sweep_rule_matches_plain_step(k5_host_step, tag, cl_k):
             bufs[f["dst"]] = want_t
         dy = want_dy
     assert {k for k, _ in kinds} >= {tdense.SHIFT, tdense.RIGHT}
+    if tag == "ex4-chemical-turing":  # every kind, from seeds and vectors
+        assert kinds == {(tdense.IDENT, True), (tdense.EXTEND, True),
+                         (tdense.EXTEND, False), (tdense.SHIFT, False),
+                         (tdense.RIGHT, True), (tdense.RIGHT, False),
+                         (tdense.RSHIFT, False)}
