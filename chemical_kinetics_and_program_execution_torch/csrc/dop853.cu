@@ -7,7 +7,10 @@
 // Plain PyTorch versions: `ode/dop853.py` (`*_plain`). The host drives
 // the steps (`ode/dop853.py:odeint_dop853_dense`) and reads two scalars
 // a step; the state and the 16 stages ([16, n] float64, one tensor) stay
-// on the card.
+// on the card. Stage rows lie ``ks_ld`` doubles apart and the stack's
+// rows ``f_ld`` apart: the solver rounds both up to a multiple of 32, so
+// each row starts on a 256-byte boundary (n = A^k is odd, and a row at a
+// stride of n would start 8 bytes into a sector every other row).
 //
 // - stage: y + h * sum_j c_j k_j, one elementwise launch; the host drops
 //   the zero coefficients and passes the rest in stage order, the sum
@@ -19,6 +22,12 @@
 //   runs give the same bits (the order differs from torch.sum's, which
 //   the solver's tolerance absorbs).
 // - dense_coeffs: the 7-row continuous-output stack [7, n] in one launch.
+//   A thread loads each stage row that D reads once into registers and
+//   forms D's four combinations from them, each in stage order (the
+//   plain version's order). Read row by row through `lincomb`, an
+//   element took 40-odd loads, and with the stage rows on 256-byte
+//   boundaries the kernel ran far slower than at a stride of n
+//   (PERF.md).
 // - dense_eval: the 7th-order interpolant at one fraction x, one launch.
 //
 // Bound: bytes. A stage reads y and its m nonzero stages and writes one
@@ -41,23 +50,26 @@ struct Terms {
 };
 
 struct DenseRows {
-  Terms d[4];
+  int nu;                  // stage rows D reads, in stage order
+  int row[kMaxTerms];
+  double c[4][kMaxTerms];  // D row r's weight of row[u]; 0 where none
 };
 
 __device__ __forceinline__ double lincomb(const double* __restrict__ ks,
-                                          long long n, const Terms& t,
+                                          long long ld, const Terms& t,
                                           long long i) {
-  double acc = t.c[0] * ks[t.row[0] * n + i];
-  for (int q = 1; q < t.n; ++q) acc = acc + t.c[q] * ks[t.row[q] * n + i];
+  double acc = t.c[0] * ks[t.row[0] * ld + i];
+  for (int q = 1; q < t.n; ++q) acc = acc + t.c[q] * ks[t.row[q] * ld + i];
   return acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
 k6_stage_kernel(const double* __restrict__ y, const double* __restrict__ ks,
-                long long n, double h, Terms t, double* __restrict__ out) {
+                long long ks_ld, long long n, double h, Terms t,
+                double* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  out[i] = y[i] + h * lincomb(ks, n, t, i);
+  out[i] = y[i] + h * lincomb(ks, ks_ld, t, i);
 }
 
 enum { kRms = 0, kRmsDiff = 1, kErr = 2 };
@@ -70,7 +82,8 @@ struct NormArgs {
   const double* y_new;
   const double* f0;     // kRms: f; kRmsDiff: f0
   const double* f1;     // kRmsDiff: f1
-  const double* ks;     // kErr: the stages
+  const double* ks;     // kErr: the stages, rows ks_ld apart
+  long long ks_ld;
   Terms e5, e3;
 };
 
@@ -100,8 +113,8 @@ k6_norm_partial_kernel(NormArgs g, double* __restrict__ partial) {
     if (g.mode == kErr) {
       const double ay = fabs(g.y[i]), an = fabs(g.y_new[i]);
       const double scale = g.atol + (an > ay ? an : ay) * g.rtol;
-      const double e5 = lincomb(g.ks, g.n, g.e5, i) / scale;
-      const double e3 = lincomb(g.ks, g.n, g.e3, i) / scale;
+      const double e5 = lincomb(g.ks, g.ks_ld, g.e5, i) / scale;
+      const double e3 = lincomb(g.ks, g.ks_ld, g.e3, i) / scale;
       s0 = s0 + e5 * e5;
       s1 = s1 + e3 * e3;
     } else {
@@ -144,27 +157,44 @@ k6_dense_coeffs_kernel(const double* __restrict__ y,
                        const double* __restrict__ y_new,
                        const double* __restrict__ f_old,
                        const double* __restrict__ f_new,
-                       const double* __restrict__ ks, long long n, double h,
-                       DenseRows rows, double* __restrict__ out) {
+                       const double* __restrict__ ks, long long ks_ld,
+                       long long n, double h, DenseRows rows,
+                       double* __restrict__ out, long long f_ld) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   const double delta = y_new[i] - y[i];
   out[i] = delta;
-  out[n + i] = h * f_old[i] - delta;
-  out[2 * n + i] = 2.0 * delta - h * (f_new[i] + f_old[i]);
-  for (int r = 0; r < 4; ++r)
-    out[(3 + r) * n + i] = h * lincomb(ks, n, rows.d[r], i);
+  out[f_ld + i] = h * f_old[i] - delta;
+  out[2 * f_ld + i] = 2.0 * delta - h * (f_new[i] + f_old[i]);
+  double v[kMaxTerms];
+#pragma unroll
+  for (int u = 0; u < kMaxTerms; ++u)
+    v[u] = u < rows.nu ? ks[rows.row[u] * ks_ld + i] : 0.0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    double acc = 0.0;
+    bool first = true;
+#pragma unroll
+    for (int u = 0; u < kMaxTerms; ++u) {
+      if (u < rows.nu && rows.c[r][u] != 0.0) {
+        const double t = rows.c[r][u] * v[u];
+        acc = first ? t : acc + t;
+        first = false;
+      }
+    }
+    out[(3 + r) * f_ld + i] = h * acc;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
-k6_dense_eval_kernel(const double* __restrict__ F,
+k6_dense_eval_kernel(const double* __restrict__ F, long long f_ld,
                      const double* __restrict__ y, long long n, double x,
                      double one_minus_x, double* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
   double acc = 0.0;
   for (int r = 6; r >= 0; --r) {
-    acc = acc + F[r * n + i];
+    acc = acc + F[r * f_ld + i];
     acc = acc * ((6 - r) % 2 == 0 ? x : one_minus_x);
   }
   out[i] = y[i] + acc;
@@ -192,12 +222,14 @@ bool make_terms(const int* rows, const double* coefs, int m, Terms* t) {
 }  // namespace
 
 // Stage: out = y + h * sum_q coefs[q] * ks[rows[q]] (host arrays of m).
-extern "C" int ckpe_k6_stage(const double* y, const double* ks, long long n,
-                             double h, const int* rows, const double* coefs,
-                             int m, double* out, cudaStream_t stream) {
+extern "C" int ckpe_k6_stage(const double* y, const double* ks,
+                             long long ks_ld, long long n, double h,
+                             const int* rows, const double* coefs, int m,
+                             double* out, cudaStream_t stream) {
   Terms t;
   if (!make_terms(rows, coefs, m, &t)) return (int)cudaErrorInvalidValue;
-  k6_stage_kernel<<<blocks(n), kThreads, 0, stream>>>(y, ks, n, h, t, out);
+  k6_stage_kernel<<<blocks(n), kThreads, 0, stream>>>(y, ks, ks_ld, n, h, t,
+                                                      out);
   return (int)cudaGetLastError();
 }
 
@@ -208,7 +240,8 @@ extern "C" int ckpe_k6_stage(const double* y, const double* ks, long long n,
 extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
                              const double* y, const double* y_new,
                              const double* f0, const double* f1,
-                             const double* ks, const int* rows5,
+                             const double* ks, long long ks_ld,
+                             const int* rows5,
                              const double* coefs5, int m5, const int* rows3,
                              const double* coefs3, int m3, double* partial,
                              double* out, cudaStream_t stream) {
@@ -222,6 +255,7 @@ extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
   g.f0 = f0;
   g.f1 = f1;
   g.ks = ks;
+  g.ks_ld = ks_ld;
   g.e5.n = g.e3.n = 0;
   if (mode == kErr && !(make_terms(rows5, coefs5, m5, &g.e5) &&
                         make_terms(rows3, coefs3, m3, &g.e3)))
@@ -234,30 +268,31 @@ extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
   return (int)cudaGetLastError();
 }
 
-// The [7, n] continuous-output stack; rows 3..6 from the terms
-// (rows[r], coefs[r], m[r]) of D's four rows.
+// The [7, n] continuous-output stack; rows 3..6 weigh the nu stage rows
+// rows[u] (in stage order) by coefs[r * nu + u], skipping the zeros.
 extern "C" int ckpe_k6_dense_coeffs(const double* y, const double* y_new,
                                     const double* f_old, const double* f_new,
-                                    const double* ks, long long n, double h,
-                                    const int* rows, const double* coefs,
-                                    const int* m, double* out,
-                                    cudaStream_t stream) {
+                                    const double* ks, long long ks_ld,
+                                    long long n, double h, const int* rows,
+                                    const double* coefs, int nu, double* out,
+                                    long long f_ld, cudaStream_t stream) {
+  if (nu < 1 || nu > kMaxTerms) return (int)cudaErrorInvalidValue;
   DenseRows d;
-  int pos = 0;
-  for (int r = 0; r < 4; ++r) {
-    if (!make_terms(rows + pos, coefs + pos, m[r], &d.d[r]))
-      return (int)cudaErrorInvalidValue;
-    pos += m[r];
+  d.nu = nu;
+  for (int u = 0; u < kMaxTerms; ++u) {
+    d.row[u] = u < nu ? rows[u] : 0;
+    for (int r = 0; r < 4; ++r) d.c[r][u] = u < nu ? coefs[r * nu + u] : 0.0;
   }
   k6_dense_coeffs_kernel<<<blocks(n), kThreads, 0, stream>>>(
-      y, y_new, f_old, f_new, ks, n, h, d, out);
+      y, y_new, f_old, f_new, ks, ks_ld, n, h, d, out, f_ld);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ckpe_k6_dense_eval(const double* F, const double* y,
-                                  long long n, double x, double one_minus_x,
-                                  double* out, cudaStream_t stream) {
-  k6_dense_eval_kernel<<<blocks(n), kThreads, 0, stream>>>(F, y, n, x,
-                                                           one_minus_x, out);
+extern "C" int ckpe_k6_dense_eval(const double* F, long long f_ld,
+                                  const double* y, long long n, double x,
+                                  double one_minus_x, double* out,
+                                  cudaStream_t stream) {
+  k6_dense_eval_kernel<<<blocks(n), kThreads, 0, stream>>>(
+      F, f_ld, y, n, x, one_minus_x, out);
   return (int)cudaGetLastError();
 }

@@ -153,18 +153,19 @@ def load() -> ctypes.CDLL:
     #                  seed_rank, seed_sid, pairs, interior, stream)
     lib.ckpe_dense_sweep.argtypes = [_P, _I, _I, _L, _P, _P, _P, _P, _P, _P,
                                      _P, _P, _P]
-    # ckpe_k6_stage(y, ks, n, h, rows, coefs, m, out, stream)
-    lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _D, _P, _P, _I, _P, _P]
-    # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, rows5,
-    #               coefs5, m5, rows3, coefs3, m3, partial, out, stream)
-    lib.ckpe_k6_norms.argtypes = [_I, _L, _D, _D, _P, _P, _P, _P, _P, _P,
-                                  _P, _I, _P, _P, _I, _P, _P, _P]
-    # ckpe_k6_dense_coeffs(y, y_new, f_old, f_new, ks, n, h, rows, coefs,
-    #                      m, out, stream)
-    lib.ckpe_k6_dense_coeffs.argtypes = [_P, _P, _P, _P, _P, _L, _D, _P, _P,
-                                         _P, _P, _P]
-    # ckpe_k6_dense_eval(F, y, n, x, one_minus_x, out, stream)
-    lib.ckpe_k6_dense_eval.argtypes = [_P, _P, _L, _D, _D, _P, _P]
+    # ckpe_k6_stage(y, ks, ks_ld, n, h, rows, coefs, m, out, stream)
+    lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _L, _D, _P, _P, _I, _P, _P]
+    # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, ks_ld,
+    #               rows5, coefs5, m5, rows3, coefs3, m3, partial, out,
+    #               stream)
+    lib.ckpe_k6_norms.argtypes = [_I, _L, _D, _D, _P, _P, _P, _P, _P, _L,
+                                  _P, _P, _I, _P, _P, _I, _P, _P, _P]
+    # ckpe_k6_dense_coeffs(y, y_new, f_old, f_new, ks, ks_ld, n, h, rows,
+    #                      coefs, nu, out, f_ld, stream)
+    lib.ckpe_k6_dense_coeffs.argtypes = [_P, _P, _P, _P, _P, _L, _L, _D,
+                                         _P, _P, _I, _P, _L, _P]
+    # ckpe_k6_dense_eval(F, f_ld, y, n, x, one_minus_x, out, stream)
+    lib.ckpe_k6_dense_eval.argtypes = [_P, _L, _P, _L, _D, _D, _P, _P]
     for name in ("ckpe_pyramid_ratios", "ckpe_signature_weights",
                  "ckpe_dense_sweep", "ckpe_k6_stage", "ckpe_k6_norms",
                  "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval"):

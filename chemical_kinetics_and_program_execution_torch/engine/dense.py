@@ -557,12 +557,15 @@ def emit_plain(dy: torch.Tensor, t: torch.Tensor, lo: int, span: int,
     d3.index_add_(1, adj, sub)
 
 
-def sweep_plain(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor):
-    """Plain version of K5: every group's sweep into a new dy [A^k]."""
+def sweep_plain(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor,
+                out: torch.Tensor | None = None):
+    """Plain version of K5: every group's sweep into ``out`` (a new dy
+    [A^k] when None)."""
     sweep_plain.calls += 1
     a, k = dp.prog.size_a, dp.prog.cl_k
     n = a**k
-    dy = torch.zeros(n, dtype=s.dtype, device=s.device)
+    dy = (torch.zeros(n, dtype=s.dtype, device=s.device) if out is None
+          else _checked_out(out, n, s.device).zero_())
     bufs = {}
     for row in dp.plan.steps.tolist():
         f = dict(zip(STEP_FIELDS, row))
@@ -597,12 +600,22 @@ def sweep_plain(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor):
 sweep_plain.calls = 0
 
 
-def sweep(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor):
-    """K5: dp/dt [A^k] from the ratio tables and signature weights; the
-    kernel for CUDA tensors (one launch a step of ``dp.plan``, one C call),
-    the plain version for CPU ones."""
+def _checked_out(out: torch.Tensor, n: int, device) -> torch.Tensor:
+    if (out.dtype != torch.float64 or out.shape != (n,)
+            or out.device != device or not out.is_contiguous()):
+        raise TypeError(f"out must be a contiguous float64 [{n}] tensor "
+                        f"on {device}")
+    return out
+
+
+def sweep(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor,
+          out: torch.Tensor | None = None):
+    """K5: dp/dt [A^k] from the ratio tables and signature weights, into
+    ``out`` (a new tensor when None); the kernel for CUDA tensors (one
+    launch a step of ``dp.plan``, one C call), the plain version for CPU
+    ones."""
     if not cuda.on_card(rat, "sweep"):
-        return sweep_plain(dp, rat, s)
+        return sweep_plain(dp, rat, s, out)
     a, k = dp.prog.size_a, dp.prog.cl_k
     n = a**k
     if rat.device != dp.device or s.device != dp.device:
@@ -612,7 +625,8 @@ def sweep(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor):
             or s.shape != (dp.prog.num_signatures,)):
         raise TypeError("rat and s must be float64 K3 and K4 outputs")
     rat, s = rat.contiguous(), s.contiguous()
-    dy = torch.empty(n, dtype=torch.float64, device=rat.device)
+    dy = (torch.empty(n, dtype=torch.float64, device=rat.device)
+          if out is None else _checked_out(out, n, rat.device))
     work = torch.empty(2 * n + n // a, dtype=torch.float64, device=rat.device)
     steps = np.ascontiguousarray(dp.plan.steps)
     lib = cuda.load()
@@ -643,24 +657,25 @@ def dy_dt_dense(dp: DeviceProgram, p: torch.Tensor) -> torch.Tensor:
 
 def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
                      device=None):
-    """Builds ``fn(p) -> dp/dt`` (float64) for a dense program on
-    ``device`` (``cuda`` unless named): K3 -> K4 -> K5 on a card, their
+    """Builds ``fn(p, out=None) -> dp/dt`` (float64) for a dense program
+    on ``device`` (``cuda`` unless named): K3 -> K4 -> K5 on a card, their
     plain versions on the CPU. ``p`` is a tensor or an array of A^k
-    values; it is moved to the device as float64. ``with_mass`` (pruned
-    programs) raises NotImplementedError."""
+    values; it is moved to the device as float64. K5 writes dp/dt into
+    ``out`` where one is given (a solver's stage row), else into a new
+    tensor. ``with_mass`` (pruned programs) raises NotImplementedError."""
     if with_mass:
         raise NotImplementedError(f"with_mass is {_UNPORTED}")
     dp = device_program(prog, device)
     a, k, n = prog.size_a, prog.cl_k, prog.state_size
 
-    def fn(p):
+    def fn(p, out=None):
         p = torch.as_tensor(p, dtype=torch.float64,
                             device=dp.device).reshape(-1)
         if p.numel() != n:
             raise ValueError(f"p has {p.numel()} entries, the program "
                              f"{n}")
         pyr, rat = pyramid_ratios(p, a, k)
-        return sweep(dp, rat, signature_weights(dp, pyr))
+        return sweep(dp, rat, signature_weights(dp, pyr), out)
 
     fn.device_program = dp
     return fn

@@ -134,10 +134,11 @@ def ode_integrate_ivp(*, tag, size_a, cl_k, p0, ts,
 def _device_rhs(dy_dt):
     fn = dy_dt.device_fn
 
-    def rhs(y, t):
+    def rhs(y, t, out=None):
         del t
-        return fn(y)
+        return fn(y, out)
 
+    rhs.takes_out = True
     return rhs
 
 

@@ -64,6 +64,25 @@ def _on_card(t: torch.Tensor, name: str) -> bool:
     return t.device.type == "cuda"
 
 
+def _ld(rows: torch.Tensor, name: str) -> int:
+    """The row stride of a [m, n] tensor of rows for the kernel, whose
+    rows must each be contiguous."""
+    if rows.dim() != 2 or rows.stride(1) != 1:
+        raise ValueError(f"{name}: rows must be a [m, n] tensor of "
+                         "contiguous rows")
+    return rows.stride(0)
+
+
+def rows_tensor(m: int, n: int, device) -> torch.Tensor:
+    """A float64 [m, n] tensor whose rows start 256 bytes apart at least
+    and on 256-byte boundaries (row stride n rounded up to 32), as the
+    solver keeps its stages and its dense-output stack: a row at a
+    stride of n (odd for n = A^k) starts off a sector boundary every
+    other row."""
+    ld = -(-n // 32) * 32
+    return torch.empty((m, ld), dtype=torch.float64, device=device)[:, :n]
+
+
 def _arrays(terms):
     rows = np.asarray([r for r, _ in terms], dtype=np.int32)
     coefs = np.asarray([c for _, c in terms], dtype=np.float64)
@@ -90,9 +109,10 @@ def stage(y, ks, h: float, terms, out):
     rows, coefs = _arrays(terms)
     lib = cuda.load()
     with torch.cuda.device(y.device):
-        rc = lib.ckpe_k6_stage(y.data_ptr(), ks.data_ptr(), y.numel(), h,
-                               rows.ctypes.data, coefs.ctypes.data,
-                               len(terms), out.data_ptr(), cuda.stream(y))
+        rc = lib.ckpe_k6_stage(y.data_ptr(), ks.data_ptr(), _ld(ks, "stage"),
+                               y.numel(), h, rows.ctypes.data,
+                               coefs.ctypes.data, len(terms), out.data_ptr(),
+                               cuda.stream(y))
     cuda.check(rc, "stage", lib)
     stage.launches += 1
     return out
@@ -149,7 +169,8 @@ def norms(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None, ks=None,
     with torch.cuda.device(y.device):
         rc = lib.ckpe_k6_norms(
             mode, y.numel(), rtol, atol, y.data_ptr(), ptr(y_new), ptr(f0),
-            ptr(f1), ptr(ks), r5.ctypes.data, c5.ctypes.data, len(r5),
+            ptr(f1), ptr(ks), 0 if ks is None else _ld(ks, "norms"),
+            r5.ctypes.data, c5.ctypes.data, len(r5),
             r3.ctypes.data, c3.ctypes.data, len(r3), partial.data_ptr(),
             out.data_ptr(), cuda.stream(y))
     cuda.check(rc, "norms", lib)
@@ -185,15 +206,16 @@ def dense_coeffs(y, y_new, h: float, f_old, f_new, ks, rows, out):
     ``rows[i]`` of ``ks``; one launch."""
     if not _on_card(y, "dense_coeffs"):
         return dense_coeffs_plain(y, y_new, h, f_old, f_new, ks, rows, out)
-    terms = _dense_terms(rows)
-    r, c = _arrays([x for t in terms for x in t])
-    m = np.asarray([len(t) for t in terms], dtype=np.int32)
+    used = [q for q in range(_N_EXTENDED) if _D[:, q].any()]
+    r = np.asarray([rows[q] for q in used], dtype=np.int32)
+    c = np.ascontiguousarray(_D[:, used], dtype=np.float64)
     lib = cuda.load()
     with torch.cuda.device(y.device):
         rc = lib.ckpe_k6_dense_coeffs(
             y.data_ptr(), y_new.data_ptr(), f_old.data_ptr(),
-            f_new.data_ptr(), ks.data_ptr(), y.numel(), h, r.ctypes.data,
-            c.ctypes.data, m.ctypes.data, out.data_ptr(), cuda.stream(y))
+            f_new.data_ptr(), ks.data_ptr(), _ld(ks, "dense_coeffs"),
+            y.numel(), h, r.ctypes.data, c.ctypes.data, len(used),
+            out.data_ptr(), _ld(out, "dense_coeffs"), cuda.stream(y))
     cuda.check(rc, "dense_coeffs", lib)
     dense_coeffs.launches += 1
     return out
@@ -223,8 +245,9 @@ def dense_eval(F, y, x: float, out):
         return dense_eval_plain(F, y, x, out)
     lib = cuda.load()
     with torch.cuda.device(y.device):
-        rc = lib.ckpe_k6_dense_eval(F.data_ptr(), y.data_ptr(), y.numel(),
-                                    x, 1 - x, out.data_ptr(), cuda.stream(y))
+        rc = lib.ckpe_k6_dense_eval(F.data_ptr(), _ld(F, "dense_eval"),
+                                    y.data_ptr(), y.numel(), x, 1 - x,
+                                    out.data_ptr(), cuda.stream(y))
     cuda.check(rc, "dense_eval", lib)
     dense_eval.launches += 1
     return out
@@ -253,8 +276,11 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
     """Integrates ``dy/dt = fn(y, t)`` from ``y0`` (a float64 vector on
     its device) sampling at times ``ts`` (``ts[0]`` is the start).
 
-    ``fn(y, t)`` returns dp/dt on ``y``'s device. ``sample_fn`` maps a
-    ``[m, n]`` block of sampled states to rows (default: the states).
+    ``fn(y, t)`` returns dp/dt on ``y``'s device; a ``fn`` marked
+    ``takes_out`` (`markov_tapes`' device RHS) is called as
+    ``fn(y, t, out=row)`` and writes dp/dt straight into the stage row.
+    ``sample_fn`` maps a ``[m, n]`` block of sampled states to rows
+    (default: the states).
     Returns ``(rows [len(ts), width] on the device, SolveStats)``; like
     the JAX stepper it stops once every sample is written or after
     ``max_steps`` steps (``completed`` False).
@@ -266,12 +292,17 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
     n_out = len(ts)
     sample_fn = sample_fn or (lambda s: s)
     stats = SolveStats()
-    K = torch.empty((_N_EXTENDED, n), dtype=torch.float64, device=dev)
+    K = rows_tensor(_N_EXTENDED, n, dev)
     rows = list(range(_N_EXTENDED))  # logical stage -> row of K
+
+    takes_out = getattr(fn, "takes_out", False)
 
     def rhs(v, t, i):
         stats.num_rhs += 1
-        K[rows[i]].copy_(fn(v, t))
+        if takes_out:
+            fn(v, t, out=K[rows[i]])
+        else:
+            K[rows[i]].copy_(fn(v, t))
 
     out_rows = [sample_fn(y[None]).clone()]
     t0, t_end = float(ts[0]), float(ts[-1])
@@ -327,12 +358,11 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
                           scratch)
                     rhs(scratch, t + _C_EXTRA[j] * h, s)
                 if F is None:
-                    F = torch.empty((7, n), dtype=torch.float64, device=dev)
+                    F = rows_tensor(7, n, dev)
                 dense_coeffs(y, y_new, h, K[rows[0]], K[rows[_N_STAGES]],
                              K, rows, F)
                 if samples is None or samples.shape[0] < m:
-                    samples = torch.empty((m, n), dtype=torch.float64,
-                                          device=dev)
+                    samples = rows_tensor(m, n, dev)
                 for q in range(m):
                     x = min(max((ts[i_out + q] - t) / h, 0.0), 1.0)
                     dense_eval(F, y, x, samples[q])

@@ -33,10 +33,12 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
 
     Returns a numpy array ``[len(ts), n]`` like ``scipy.integrate.odeint``.
     ``fn(y, t)`` takes and returns float64 tensors on ``device``
-    (``cuda`` unless named). By default tight tolerances (< 1e-9) route
-    to DOP853 (``method`` "dop853" or "DOP853"; other scipy names such as
-    "RK45" land there too, as in the JAX package), looser ones to dopri5,
-    which is not ported.
+    (``cuda`` unless named); a ``fn`` marked ``takes_out`` also takes
+    ``out=`` and writes dp/dt into the solver's stage row (see
+    `dop853.odeint_dop853_dense`). By default tight tolerances (< 1e-9)
+    route to DOP853 (``method`` "dop853" or "DOP853"; other scipy names
+    such as "RK45" land there too, as in the JAX package), looser ones to
+    dopri5, which is not ported.
 
     ``project`` maps sampled states ``[m, n]`` (a tensor on the device)
     to observables ``[m, n_obs]``; it is applied on the device as the

@@ -50,8 +50,10 @@ Phases (each prints its wall time; every check raises on failure):
    t=2000 equal to the reference's oracles to rel 2e-6; the same two
    solves at cl_k 6 (531,441 states) within rel 0.05, abs 1e-9 of cl_k
    5; each solve's seconds, steps and RHS calls, the RHS's time at cl_k
-   5-8, and each kernel's time beside its bound, its plain version, the
-   library call where one exists, and the host's cost a launch.
+   5-8 (also written into a padded stage row, into a row at a stride of
+   n, and copied in), and each kernel's time beside its bound, its plain
+   version, the library call where one exists, and the host's cost a
+   launch.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -402,15 +404,16 @@ def time_exact_kernels(dp, p, gen, out):
             "host_us_per_launch": host[0] * 1e3 / per_call[name]}
     del pyr, rat, s, dy
     # K6 at this state size, on random stages.
-    ks = torch.rand((16, n), generator=gen, dtype=torch.float64,
-                    device=p.device) - 0.5
+    # The solver's layout: rows on 256-byte boundaries.
+    ks = dop853.rows_tensor(16, n, p.device)
+    ks.copy_(torch.rand((16, n), generator=gen, dtype=torch.float64,
+                        device=p.device) - 0.5)
     y = torch.rand(n, generator=gen, dtype=torch.float64, device=p.device)
     y_new = y + 1e-3 * ks[3]
     rows = list(range(16))
     f_out, p_out = torch.empty_like(y), torch.empty_like(y)
-    F, F_plain = (torch.empty((7, n), dtype=torch.float64, device=p.device)
-                  for _ in range(2))
-    h = 0.37
+    F, F_plain = (dop853.rows_tensor(7, n, p.device) for _ in range(2))
+    h, x = 0.37, 0.3
     b_terms = dop853._terms(dop853._B, rows[:12])
     err_kw = dict(y_new=y_new, ks=ks,
                   terms5=dop853._terms(dop853._E5, rows[:13]),
@@ -430,10 +433,13 @@ def time_exact_kernels(dp, p, gen, out):
                                         rows, F),
             lambda: dop853.dense_coeffs_plain(y, y_new, h, ks[0], ks[12], ks,
                                               rows, F_plain),
-            8 * (4 + len({r for t in dop853._dense_terms(rows)
-                          for r, _ in t}) + 7) * n, 1),
-        "dense_eval": (lambda: dop853.dense_eval(F, y, 0.3, f_out),
-                       lambda: dop853.dense_eval_plain(F, y, 0.3, p_out),
+            # y, y_new and the stage rows read (f_old and f_new are rows
+            # 0 and 12), each once; 7 rows written.
+            8 * (2 + len({rows[0], rows[12]}
+                         | {r for t in dop853._dense_terms(rows)
+                            for r, _ in t}) + 7) * n, 1),
+        "dense_eval": (lambda: dop853.dense_eval(F, y, x, f_out),
+                       lambda: dop853.dense_eval_plain(F, y, x, p_out),
                        8 * 9 * n, 1),
     }
     k6, err["K6"] = {}, 0.0
@@ -449,6 +455,17 @@ def time_exact_kernels(dp, p, gen, out):
     coef = torch.as_tensor(h * dop853._B, device=p.device)
     k6["stage"]["library_ms"] = cuda_ms(
         lambda: torch.addmv(y, ks[:12].T, coef), 3 * reps, warmup=1)
+    # dense_eval is y + sum_r F[r] c_r with c_r the running product of
+    # x, 1 - x, x, ... (its Horner loop unrolled on the host).
+    c_eval = torch.as_tensor(np.cumprod([x if r % 2 == 0 else 1 - x
+                                         for r in range(7)]),
+                             device=p.device)
+    if not torch.allclose(torch.addmv(y, F.T, c_eval),
+                          dop853.dense_eval_plain(F, y, x, p_out),
+                          rtol=RHS_RTOL, atol=RHS_ATOL):
+        raise AssertionError("torch.addmv yardstick != dense_eval")
+    k6["dense_eval"]["library_ms"] = cuda_ms(
+        lambda: torch.addmv(y, F.T, c_eval), 3 * reps, warmup=1)
     out.setdefault("K6", {})[k] = k6
     del ks, y, y_new, F, F_plain
     return err
@@ -509,6 +526,27 @@ def exact_closure(dev, kernels):
                      "launches": launches,
                      "bytes_mb": sum(exact_bytes(dp).values()) / 1e6}
         r = rhs[cl_k]
+        # Where the RHS lands in the solver: K5 into a padded stage row
+        # (`dop853.rows_tensor`, what the solver does), K5 into a row at a
+        # stride of n, and a new dy copied into a row at a stride of n;
+        # alternated twice, as paced and on the card.
+        aligned = dop853.rows_tensor(2, prog.state_size, dev)[1]
+        strided = torch.empty((2, prog.state_size), dtype=torch.float64,
+                              device=dev)[1]
+        forms = {"stage_row": lambda: fn(p0, aligned),
+                 "row_at_stride_n": lambda: fn(p0, strided),
+                 "copy_at_stride_n": lambda: strided.copy_(fn(p0))}
+        paced_reps = 3 if cl_k >= 7 else 200
+        for _ in range(2):
+            for form, call in forms.items():
+                r.setdefault(f"{form}_wall_ms", []).append(
+                    wall_ms(call, paced_reps))
+        for form, call in forms.items():
+            r[f"{form}_device_ms"] = cuda_ms(
+                call, queued_reps(reps, launches + 1), warmup=1)
+            say(f"ex4 cl_k {cl_k}: RHS {form.replace('_', ' ')} "
+                f"{[round(v * 1e3, 1) for v in r[f'{form}_wall_ms']]} us "
+                f"as paced, {r[f'{form}_device_ms'] * 1e3:.1f} on the card")
         say(f"ex4 cl_k {cl_k} ({prog.state_size} states, "
             f"{dp.plan.num_groups} groups, {r['launches']} launches an RHS; "
             f"p0 built in {p0_s:.2f} s): kernels == plain on p0 and a "

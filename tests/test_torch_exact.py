@@ -287,6 +287,48 @@ def test_dop853_dense_output_samples_inside_steps():
     np.testing.assert_array_equal(fine[[0, 20, 40]], coarse)
 
 
+def test_dense_rhs_writes_into_out():
+    """``fn(p, out=buf)`` writes dp/dt into ``buf`` and returns it, the
+    same bits as a new tensor; an ``out`` of the wrong shape raises."""
+    fn, prog = t_build("ex4-chemical-turing", 3, device="cpu")
+    p = torch.as_tensor(_spd(np.random.RandomState(11), prog.state_size))
+    buf = torch.full((2, prog.state_size), 7.0, dtype=torch.float64)
+    got = fn(p, out=buf[1])
+    assert got.data_ptr() == buf[1].data_ptr()
+    assert torch.equal(buf[1], fn(p)) and bool((buf[0] == 7.0).all())
+    with pytest.raises(TypeError):
+        fn(p, out=buf[:, :5].reshape(-1))
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 9**3])
+def test_rows_tensor_pads_rows_to_256_bytes(n):
+    """The solver's stage and dense-stack layout: [m, n] float64, each
+    row contiguous, rows a multiple of 32 doubles apart, at least n."""
+    t = t_dop.rows_tensor(3, n, "cpu")
+    assert t.shape == (3, n) and t.dtype == torch.float64
+    assert t.stride(1) == 1 and t.stride(0) % 32 == 0
+    assert n <= t.stride(0) < n + 32 and t[2].is_contiguous()
+
+
+def test_dop853_stage_row_rhs_walks_the_same_steps():
+    """A ``takes_out`` RHS (written into the stage row) and a returning
+    one give the same samples, bit for bit, and the same steps."""
+    y0 = _ex4_p0(3, 0.04)
+    ts = np.linspace(0.0, 30.0, 7)
+    tfn, _ = t_build("ex4-chemical-turing", 3, device="cpu")
+
+    def into_row(y, t, out=None):
+        return tfn(y, out)
+
+    into_row.takes_out = True
+    got = [t_solve(f, y0, ts, rtol=1e-10, atol=1e-12, return_info=True,
+                   device="cpu")
+           for f in (into_row, lambda y, t: tfn(y))]
+    (rows, info), (want, want_info) = got
+    np.testing.assert_array_equal(rows, want)
+    assert info == want_info and info["num_accepted"] > 3
+
+
 @pytest.mark.parametrize("fn", ["stage", "norms", "dense"])
 def test_dop853_plain_arithmetic_matches_jax_streamed(fn):
     """K6's plain versions against the JAX package's host-stepped twins

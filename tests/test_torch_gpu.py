@@ -296,6 +296,12 @@ def test_sweep_kernel_matches_plain(cuda, tag, cl_k):
     got = tdense.sweep(dp, rat, s)
     assert tdense.sweep.launches == launches + dp.plan.num_launches
     _close(got, tdense.sweep_plain(dp, rat, s))
+    # Into a caller's row (a solver's stage row): the same bits, nothing
+    # else of the tensor touched.
+    rows = torch.full((2, prog.state_size), 7.0, dtype=torch.float64,
+                      device=cuda)
+    assert tdense.sweep(dp, rat, s, rows[1]).data_ptr() == rows[1].data_ptr()
+    assert torch.equal(rows[1], got) and bool((rows[0] == 7.0).all())
 
 
 @pytest.mark.parametrize("tag,cl_k", EXACT_CASES)
@@ -316,37 +322,47 @@ def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
 
 @pytest.mark.parametrize("n", [9**5, 9**8], ids=["k5", "full"])
 def test_dop853_kernels_match_plain(cuda, n):
-    """Each K6 kernel against its plain version on random stages."""
+    """Each K6 kernel against its plain version on random stages, with
+    the stages and the dense stack at a row stride of n and in the
+    solver's padded rows (`dop853.rows_tensor`)."""
     gen = torch.Generator(device=cuda).manual_seed(4)
-    ks = torch.rand((16, n), generator=gen, dtype=torch.float64,
-                    device=cuda) - 0.5
-    y = torch.rand(n, generator=gen, dtype=torch.float64, device=cuda)
-    y_new = y + 1e-3 * ks[3]
-    rows = list(range(16))
     before = [k.launches for k in dop853.KERNELS]
-    terms = dop853._terms(dop853._A[11, :11], rows[:11])
-    out, want = torch.empty_like(y), torch.empty_like(y)
-    _close(dop853.stage(y, ks, 0.37, terms, out),
-           dop853.stage_plain(y, ks, 0.37, terms, want))
-    kw = dict(y_new=y_new, ks=ks,
-              terms5=dop853._terms(dop853._E5, rows[:13]),
-              terms3=dop853._terms(dop853._E3, rows[:13]))
-    for mode, args in ((dop853._RMS, dict(f0=ks[0])),
-                       (dop853._RMS_DIFF, dict(f0=ks[0], f1=ks[1])),
-                       (dop853._ERR, kw)):
-        got = dop853.norms(mode, y, 1e-10, 1e-12, **args)
-        torch.testing.assert_close(
-            got, dop853.norms_plain(mode, y, 1e-10, 1e-12, **args),
-            rtol=1e-12, atol=0)
-    F = torch.empty((7, n), dtype=torch.float64, device=cuda)
-    F_want = torch.empty_like(F)
-    _close(dop853.dense_coeffs(y, y_new, 0.37, ks[0], ks[12], ks, rows, F),
-           dop853.dense_coeffs_plain(y, y_new, 0.37, ks[0], ks[12], ks,
-                                     rows, F_want))
-    _close(dop853.dense_eval(F, y, 0.3, out),
-           dop853.dense_eval_plain(F, y, 0.3, want))
+    for padded in (False, True):
+        if padded:
+            ks = dop853.rows_tensor(16, n, cuda)
+            F = dop853.rows_tensor(7, n, cuda)
+            assert ks.stride(0) % 32 == 0 and ks.stride(0) > n
+        else:
+            ks = torch.empty((16, n), dtype=torch.float64, device=cuda)
+            F = torch.empty((7, n), dtype=torch.float64, device=cuda)
+        ks.copy_(torch.rand((16, n), generator=gen, dtype=torch.float64,
+                            device=cuda) - 0.5)
+        y = torch.rand(n, generator=gen, dtype=torch.float64, device=cuda)
+        y_new = y + 1e-3 * ks[3]
+        rows = list(range(16))
+        terms = dop853._terms(dop853._A[11, :11], rows[:11])
+        out, want = torch.empty_like(y), torch.empty_like(y)
+        _close(dop853.stage(y, ks, 0.37, terms, out),
+               dop853.stage_plain(y, ks, 0.37, terms, want))
+        kw = dict(y_new=y_new, ks=ks,
+                  terms5=dop853._terms(dop853._E5, rows[:13]),
+                  terms3=dop853._terms(dop853._E3, rows[:13]))
+        for mode, args in ((dop853._RMS, dict(f0=ks[0])),
+                           (dop853._RMS_DIFF, dict(f0=ks[0], f1=ks[1])),
+                           (dop853._ERR, kw)):
+            got = dop853.norms(mode, y, 1e-10, 1e-12, **args)
+            torch.testing.assert_close(
+                got, dop853.norms_plain(mode, y, 1e-10, 1e-12, **args),
+                rtol=1e-12, atol=0)
+        F_want = torch.empty((7, n), dtype=torch.float64, device=cuda)
+        _close(dop853.dense_coeffs(y, y_new, 0.37, ks[0], ks[12], ks, rows,
+                                   F),
+               dop853.dense_coeffs_plain(y, y_new, 0.37, ks[0], ks[12], ks,
+                                         rows, F_want))
+        _close(dop853.dense_eval(F, y, 0.3, out),
+               dop853.dense_eval_plain(F, y, 0.3, want))
     assert [k.launches - b for k, b in zip(dop853.KERNELS, before)] == \
-        [1, 6, 1, 1]
+        [2, 12, 2, 2]
 
 
 def test_exact_canary_on_card(cuda):
