@@ -2,44 +2,52 @@
 //
 // They replace the jitted XLA program of the JAX package's
 // `engine/dense.py:dy_dt_dense` (the JAX package has no Pallas kernel on
-// this path). Plain PyTorch versions: `engine/dense.py`
-// `pyramid_ratios_plain`, `signature_weights_plain`, `sweep_plain`.
-// Every sum is taken in a fixed order and no float atomic is used, so
-// two runs give the same bits; built with `-fmad=false` (no contraction
-// of a product into a sum), so each element's arithmetic is the plain
-// version's.
+// this path). Plain PyTorch versions: `engine/dense.py` `pyramid_plain`,
+// `signature_weights_plain`, `sweep_plain`. Every sum is taken in a fixed
+// order and no float atomic is used, so two runs give the same bits;
+// built with `-fmad=false` (no contraction of a product into a sum), so
+// each element's arithmetic is the plain version's. `ckpe_dense_rhs`
+// runs K3 -> K4 -> K5 from one host call.
 //
-// K3 `pyramid_ratios` (`dense.py:423 _levels`, `:432 _ratio_tables`;
-// `markov.py:174 guarded_ratio`, `:194 pyramid`). One launch a level:
-// thread i sums its A children in digit order into level j (the first
-// launch also copies p into the flat pyramid, the last writes its
-// constant-1 slot); then one launch forms every ratio table,
-// r_le[j][f] = g(lv[j][f], lv[j-1][f mod A^(j-1)]) for j = 1..k and
-// r_re[w] = g(lv[k][w], lv[k-1][w / A]), g(n, d) = n > 0 ? n / max(n, d)
-// : 0. Bound: bytes, p read once, the pyramid (about 1.13 A^k doubles)
-// and the tables (about 2.13 A^k) written once.
+// K3 `pyramid` (`dense.py:423 _levels`; `markov.py:194 pyramid`). The
+// levels below p, [lv[k-1], ..., lv[0], 1]; p itself is not copied (K4
+// and K5 read it as level k). A block stages a tile of A^m entries of p
+// in shared memory with 16-byte loads and writes every level inside its
+// tile (levels k-1 .. k-m); where m < k, one single-block launch finishes
+// levels k-m-1 .. 0. Each entry sums its A children in digit order, as
+// the plain version does. No ratio table is written: K5 forms each ratio
+// where it needs one. Bound: bytes, p read once and about A^k / (A - 1)
+// doubles written once.
 //
 // K4 `signature_weights` (`dense.py:464-468`: `markov.py:189
 // guarded_ratio_prod`, then `segment_sum`). One single-block launch:
 // a thread takes a world's chain product of guarded ratios in chain
 // order, times w_const; after a barrier a thread takes a signature and
 // sums its worlds' weights walking a CSR of its pairs, built on the
-// host once a program, in the original pair order. Tens to thousands
-// of worlds: bound by the launch, not by bytes.
+// host once a program, in the original pair order. The pyramid is read
+// as p below index A^k and K3's levels above. Tens to thousands of
+// worlds: bound by the launch, not by bytes.
 //
-// K5 `sweep_step` (`dense.py:310 _apply_group`). One launch a sweep
-// step (`sweep_rule.cuh`): thread j forms the step's value t[j] from the
-// previous vector and a ratio table (a shift step's digit reduce fused
-// into its gather), writes it for the next step, and adds the step's
-// emission into dy[j] as a gather, recomputing the partner values it
-// needs. The group's one-hot seed is read sparsely by the first step
-// that uses it (a binary search in the seed's sorted ranks), and the
-// interior emissions of a revealed run longer than the window (l0 > k,
-// duplicate ranks legal) go to one single-thread launch that walks the
-// members in order. Bound: bytes; a step reads its source and its
-// ratio table and reads and writes dy, where a fused sweep would read
-// each table once and write dy once. One launch a step is the simple
-// first cut: a later version fuses a group's steps.
+// K5 `sweep` (`dense.py:310 _apply_group`). One cooperative launch for
+// the whole sweep of every group: the plan's phases in turn, a grid
+// barrier (an integer counter and generation, no float atomic) between
+// two phases. A phase's items (`sweep_rule.cuh`) run side by side, a
+// thread an element in a grid-stride loop: compute items form a step's
+// vector over its live windows only (a step's A^k D / span windows, not
+// A^k), reading the previous step's vector or the group's seed and
+// forming each ratio from the pyramid; EMIT items read and write dy only
+// at the step's target windows. Phase 0 also zeroes dy. The plan puts two
+// emissions that share a window in two phases, in plan order, so each dy
+// window takes its terms in plan order and two threads of a phase never
+// write one element. Vectors written in one phase are read in a later one
+// through L2 (`__ldcg`). A block unpacks a phase's items into shared
+// memory, with host-made multipliers for their divisors. Bound: bytes, dy
+// written once and each distinct entry of p and lv[k-1] that the live
+// windows need read once, with the signature weights and the plan. Steps
+// whose run is the trailing digits (lo = 1) read p and dy at scattered
+// windows, a 32-byte sector for few of them (`chip_smoke.py:
+// k5_sector_bytes` counts that traffic); at cl_k 5 the 40 phases'
+// barriers and small items, not bytes, set the time.
 
 #include <cuda_runtime.h>
 
@@ -48,65 +56,87 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxK = 16;
+constexpr int kTileThreads = 512;
+constexpr int kFinishThreads = 1024;
+constexpr int kStaged = 32;  // K5 items unpacked into shared memory at once
 
-__device__ __forceinline__ double guarded(double num, double den) {
-  const bool pos = num > 0.0;
-  double m = den > num ? den : num;
-  if (den != den) m = den;  // max propagates NaN, as torch.maximum does
-  return (pos ? num : 0.0) / (pos ? m : 1.0);
-}
-
-// K3: level j from level j + 1 (or from p); thread i sums its A children.
-__global__ void __launch_bounds__(kThreads)
-k3_level_kernel(const double* __restrict__ src, double* __restrict__ dst,
-                unsigned n_out, int a, double* __restrict__ copy,
-                double* __restrict__ one_slot) {
-  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
-  if (i == 0 && one_slot) *one_slot = 1.0;
-  if (i >= n_out) return;
-  const double* c = src + (size_t)i * a;
-  double acc = c[0];
-  if (copy) copy[(size_t)i * a] = acc;
-  for (int d = 1; d < a; ++d) {
-    const double v = c[d];
-    if (copy) copy[(size_t)i * a + d] = v;
-    acc = acc + v;
-  }
-  dst[i] = acc;
-}
-
-struct K3Tables {
-  int k, a;
-  unsigned lv_off[kMaxK + 1];   // level j's offset in the pyramid
-  unsigned lv_size[kMaxK + 1];  // A^j
-  unsigned rat_off[kMaxK + 2];  // r_le[j] at rat_off[j], r_re at [k + 1]
+struct K3Levels {
+  int a, k, m;
+  unsigned lv_off[kMaxK + 1];  // level j < k at low + lv_off[j]
+  unsigned pw[kMaxK + 1];      // A^j
+  unsigned one_slot;
 };
 
-// K3: every ratio table in one launch.
-__global__ void __launch_bounds__(kThreads)
-k3_ratio_kernel(const double* __restrict__ pyr, double* __restrict__ rat,
-                K3Tables tb, unsigned n_total) {
-  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n_total) return;
-  int j = 1;
-  while (j <= tb.k && i >= tb.rat_off[j] + tb.lv_size[j]) ++j;
-  double num, den;
-  if (j <= tb.k) {  // r_le[j]: tile of level j - 1
-    const unsigned f = i - tb.rat_off[j];
-    num = pyr[tb.lv_off[j] + f];
-    den = pyr[tb.lv_off[j - 1] + f % tb.lv_size[j - 1]];
-  } else {  // r_re: repeat of level k - 1
-    const unsigned w = i - tb.rat_off[tb.k + 1];
-    num = pyr[tb.lv_off[tb.k] + w];
-    den = pyr[tb.lv_off[tb.k - 1] + w / (unsigned)tb.a];
+// K3, first launch: block b sums the tile p[b A^m, (b + 1) A^m) into its
+// share of levels k-1 .. k-m.
+__global__ void __launch_bounds__(kTileThreads)
+k3_tile_kernel(const double* __restrict__ p, double* __restrict__ low,
+               K3Levels lv) {
+  extern __shared__ double sm[];
+  const unsigned tile = lv.pw[lv.m];
+  const double* src = p + (size_t)blockIdx.x * tile;
+  // Stage the tile: one lead double up to a 16-byte boundary, then
+  // 16-byte loads, then the tail.
+  const unsigned head = ((size_t)src & 15) ? 1u : 0u;
+  const unsigned pairs = (tile - head) / 2;
+  if (head && threadIdx.x == 0) sm[0] = src[0];
+  const double2* src2 = reinterpret_cast<const double2*>(src + head);
+  for (unsigned q = threadIdx.x; q < pairs; q += blockDim.x) {
+    const double2 v = src2[q];
+    sm[head + 2 * q] = v.x;
+    sm[head + 2 * q + 1] = v.y;
   }
-  rat[i] = guarded(num, den);
+  const unsigned tail = head + 2 * pairs;
+  if (tail < tile && threadIdx.x == 0) sm[tail] = src[tail];
+  __syncthreads();
+  const unsigned a = (unsigned)lv.a;
+  double* cur = sm;
+  unsigned size = tile;
+  for (int i = 1; i <= lv.m; ++i) {
+    const unsigned out = size / a;
+    double* nxt = cur + size;
+    double* dst = low + lv.lv_off[lv.k - i] + (size_t)blockIdx.x * out;
+    for (unsigned o = threadIdx.x; o < out; o += blockDim.x) {
+      const double* ch = cur + (size_t)o * a;
+      double acc = ch[0];
+      for (unsigned d = 1; d < a; ++d) acc = acc + ch[d];
+      nxt[o] = acc;
+      dst[o] = acc;
+    }
+    __syncthreads();
+    cur = nxt;
+    size = out;
+  }
+  if (lv.m == lv.k && threadIdx.x == 0) low[lv.one_slot] = 1.0;
+}
+
+// K3, second launch (m < k): levels k-m-1 .. 0 in one block.
+__global__ void __launch_bounds__(kFinishThreads)
+k3_finish_kernel(double* __restrict__ low, K3Levels lv) {
+  const unsigned a = (unsigned)lv.a;
+  for (int j = lv.k - lv.m - 1; j >= 0; --j) {
+    const double* src = low + lv.lv_off[j + 1];
+    double* dst = low + lv.lv_off[j];
+    for (unsigned o = threadIdx.x; o < lv.pw[j]; o += blockDim.x) {
+      const double* ch = src + (size_t)o * a;
+      double acc = ch[0];
+      for (unsigned d = 1; d < a; ++d) acc = acc + ch[d];
+      dst[o] = acc;
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) low[lv.one_slot] = 1.0;
+}
+
+__device__ __forceinline__ double pyr_at(const double* p, unsigned n,
+                                         const double* low, int x) {
+  return (unsigned)x < n ? p[x] : low[x - n];
 }
 
 // K4: world weights, then signature weights, in one block.
 __global__ void __launch_bounds__(1024)
-k4_kernel(const double* __restrict__ pyr, const int* __restrict__ w_num,
+k4_kernel(const double* __restrict__ p, unsigned n,
+          const double* __restrict__ low, const int* __restrict__ w_num,
           const int* __restrict__ w_den, const double* __restrict__ w_const,
           int n_worlds, int chain, const int* __restrict__ csr_ptr,
           const int* __restrict__ csr_world, int n_sig,
@@ -114,9 +144,11 @@ k4_kernel(const double* __restrict__ pyr, const int* __restrict__ w_num,
   for (int w = threadIdx.x; w < n_worlds; w += blockDim.x) {
     const int* num = w_num + (size_t)w * chain;
     const int* den = w_den + (size_t)w * chain;
-    double prod = guarded(pyr[num[0]], pyr[den[0]]);
+    double prod = k5_guarded(pyr_at(p, n, low, num[0]),
+                             pyr_at(p, n, low, den[0]));
     for (int c = 1; c < chain; ++c)
-      prod = prod * guarded(pyr[num[c]], pyr[den[c]]);
+      prod = prod * k5_guarded(pyr_at(p, n, low, num[c]),
+                               pyr_at(p, n, low, den[c]));
     wv[w] = w_const[w] * prod;
   }
   __syncthreads();
@@ -128,119 +160,209 @@ k4_kernel(const double* __restrict__ pyr, const int* __restrict__ w_num,
   }
 }
 
-// K5: one sweep step over n_out window ranks.
-__global__ void __launch_bounds__(kThreads) k5_step_kernel(K5Step step) {
-  const unsigned j = blockIdx.x * kThreads + threadIdx.x;
-  if (j < step.n_out) k5_element(step, j);
+// All blocks of the grid wait here until each has arrived. bar[0] counts
+// arrivals (back to 0 at each barrier), bar[1] is the generation.
+__device__ __forceinline__ void grid_barrier(unsigned* bar,
+                                             unsigned nblocks) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile unsigned* gen = bar + 1;
+    const unsigned g = *gen;
+    __threadfence();
+    if (atomicAdd(bar, 1u) == nblocks - 1) {
+      atomicExch(bar, 0u);
+      __threadfence();
+      atomicAdd(bar + 1, 1u);
+    } else {
+      while (*gen == g) __nanosleep(20);
+    }
+    __threadfence();
+  }
+  __syncthreads();
 }
 
-// K5: a group's interior emissions, (rank, signature id, sign) in order.
-__global__ void k5_interior_kernel(double* __restrict__ dy,
-                                   const int* __restrict__ ops, int n_ops,
-                                   const double* __restrict__ sig_w) {
-  for (int q = 0; q < n_ops; ++q) {
-    const double w = sig_w[ops[3 * q + 1]];
-    double* d = dy + ops[3 * q];
-    *d = *d + (ops[3 * q + 2] < 0 ? -w : w);
+struct K5Launch {
+  K5Ctx ctx;
+  const long long* items;
+  const long long* phase_ptr;
+  int n_phases;
+  unsigned n;  // A^k
+  unsigned* bar;
+};
+
+// K5: every phase of the sweep in one cooperative launch. A block
+// unpacks up to kStaged of a phase's items (fields and divisors) into
+// shared memory at a time, then takes their elements grid-stride.
+__global__ void __launch_bounds__(kThreads) k5_sweep_kernel(K5Launch L) {
+  __shared__ K5Item staged[kStaged];
+  const unsigned stride = gridDim.x * kThreads;
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
+  for (unsigned x = tid; x < L.n; x += stride) L.ctx.dy[x] = 0.0;
+  for (int ph = 0; ph < L.n_phases; ++ph) {
+    if (ph > 0) grid_barrier(L.bar, gridDim.x);
+    const long long end = L.phase_ptr[ph + 1];
+    for (long long first = L.phase_ptr[ph]; first < end;
+         first += kStaged) {
+      const int count = (int)(end - first < kStaged ? end - first : kStaged);
+      __syncthreads();  // the previous chunk's elements are done
+      for (int q = threadIdx.x; q < count; q += kThreads)
+        staged[q] = k5_item(L.items + (first + q) * K5_FIELDS, L.ctx);
+      __syncthreads();
+      const long long base = staged[0].start;
+      const unsigned total =
+          (unsigned)(staged[count - 1].start + staged[count - 1].n - base);
+      for (unsigned x = tid; x < total; x += stride) {
+        int lo = 0, hi = count - 1;  // the last item starting <= x
+        while (lo < hi) {
+          const int mid = (lo + hi + 1) >> 1;
+          if (staged[mid].start - base <= (long long)x)
+            lo = mid;
+          else
+            hi = mid - 1;
+        }
+        k5_element(L.ctx, staged[lo],
+                   (unsigned)(x - (staged[lo].start - base)));
+      }
+    }
   }
 }
 
-unsigned blocks(unsigned n) { return (n + kThreads - 1) / kThreads; }
+K3Levels k3_levels(int a, int k, int m) {
+  K3Levels lv;
+  lv.a = a;
+  lv.k = k;
+  lv.m = m;
+  unsigned size = 1;
+  for (int j = 0; j <= k; ++j) {
+    lv.pw[j] = size;
+    size *= (unsigned)a;
+  }
+  unsigned pos = 0;
+  for (int j = k - 1; j >= 0; --j) {
+    lv.lv_off[j] = pos;
+    pos += lv.pw[j];
+  }
+  lv.one_slot = pos;
+  return lv;
+}
+
+// The most blocks of k5_sweep_kernel that fit on the card at once.
+int k5_resident_blocks() {
+  static int cached[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  if (!cached[dev]) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, k5_sweep_kernel, kThreads, 0) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    cached[dev] = per_sm * sms;
+  }
+  return cached[dev];
+}
 
 }  // namespace
 
-// K3. ``pyr`` holds (A^(k+1) - 1) / (A - 1) + 1 doubles, ``rat``
-// sum_{j=1..k} A^j + A^k; k + 1 launches.
-extern "C" int ckpe_pyramid_ratios(const double* p, int a, int k,
-                                   double* pyr, double* rat,
-                                   cudaStream_t stream) {
-  if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
-  K3Tables tb;
-  tb.k = k;
-  tb.a = a;
-  unsigned pos = 0;
-  for (int j = k; j >= 0; --j) {
-    unsigned size = 1;
-    for (int i = 0; i < j; ++i) size *= (unsigned)a;
-    tb.lv_size[j] = size;
-    tb.lv_off[j] = pos;
-    pos += size;
-  }
-  double* one_slot = pyr + pos;
-  for (int j = k - 1; j >= 0; --j) {
-    const double* src = j == k - 1 ? p : pyr + tb.lv_off[j + 1];
-    k3_level_kernel<<<blocks(tb.lv_size[j]), kThreads, 0, stream>>>(
-        src, pyr + tb.lv_off[j], tb.lv_size[j], a,
-        j == k - 1 ? pyr : nullptr, j == 0 ? one_slot : nullptr);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  unsigned r = 0;
-  for (int j = 1; j <= k; ++j) {
-    tb.rat_off[j] = r;
-    r += tb.lv_size[j];
-  }
-  tb.rat_off[k + 1] = r;
-  r += tb.lv_size[k];
-  k3_ratio_kernel<<<blocks(r), kThreads, 0, stream>>>(pyr, rat, tb, r);
+// K3. ``low`` holds (A^k - 1) / (A - 1) + 1 doubles; m is the tile's
+// digits (`dense.py:pyramid_tile_digits`); one launch when m == k, else
+// two.
+extern "C" int ckpe_pyramid(const double* p, int a, int k, int m,
+                            double* low, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || m < 1 || m > k) return (int)cudaErrorInvalidValue;
+  const K3Levels lv = k3_levels(a, k, m);
+  size_t smem = 0;
+  for (int i = 0; i <= m; ++i) smem += lv.pw[i];
+  smem *= sizeof(double);
+  cudaError_t err = cudaFuncSetAttribute(
+      k3_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  k3_tile_kernel<<<lv.pw[k - m], kTileThreads, smem, stream>>>(p, low, lv);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || m == k) return (int)err;
+  k3_finish_kernel<<<1, kFinishThreads, 0, stream>>>(low, lv);
   return (int)cudaGetLastError();
 }
 
 // K4. ``wv`` is scratch of n_worlds doubles; one launch.
-extern "C" int ckpe_signature_weights(const double* pyr, const int* w_num,
+extern "C" int ckpe_signature_weights(const double* p, long long n,
+                                      const double* low, const int* w_num,
                                       const int* w_den, const double* w_const,
                                       int n_worlds, int chain,
                                       const int* csr_ptr,
                                       const int* csr_world, int n_sig,
                                       double* wv, double* s,
                                       cudaStream_t stream) {
-  k4_kernel<<<1, 1024, 0, stream>>>(pyr, w_num, w_den, w_const, n_worlds,
-                                    chain, csr_ptr, csr_world, n_sig, wv, s);
+  k4_kernel<<<1, 1024, 0, stream>>>(p, (unsigned)n, low, w_num, w_den,
+                                    w_const, n_worlds, chain, csr_ptr,
+                                    csr_world, n_sig, wv, s);
   return (int)cudaGetLastError();
 }
 
-// K5: a whole sweep, one launch a step. ``steps`` is a host array of
-// ``n_steps`` rows of 13 int64 fields (`engine/dense.py:sweep_plan`):
-// kind, n_out, n_src, src buffer (-1: the sparse seed), dst buffer (-1:
-// none), ratio offset, emits, lo, span, pair offset, pairs, seed (or
-// interior) offset, seed (or interior) length. Buffer b is ``work`` + b
-// * n (b = 0, 1: A^k doubles; b = 2: A^(k-1)). dy is zeroed first.
-extern "C" int ckpe_dense_sweep(const long long* steps, int n_steps,
-                                int a, long long n, double* work,
-                                double* dy, const double* rat,
-                                const double* sig_w, const int* seed_rank,
-                                const int* seed_sid, const int* pairs,
-                                const int* interior, cudaStream_t stream) {
-  cudaError_t err = cudaMemsetAsync(dy, 0, (size_t)n * sizeof(double),
-                                    stream);
+// K5: the whole sweep, one cooperative launch. ``items`` (int64 rows of
+// K5_FIELDS), ``phase_ptr`` (n_phases + 1 item offsets) and ``table``
+// are the plan on the card (`engine/dense.py:sweep_plan`); ``work`` holds
+// every step's vector; ``bar`` is two unsigned ints, 0 before the first
+// launch, left so by every launch. max_phase sizes the grid.
+extern "C" int ckpe_dense_sweep(const long long* items,
+                                const long long* phase_ptr, int n_phases,
+                                long long max_phase, const int* table,
+                                double* work, double* dy, long long n,
+                                const double* p, const double* low,
+                                const double* sig_w, int a, int k,
+                                unsigned* bar, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  K5Launch L;
+  L.ctx.a = a;
+  L.ctx.k = k;
+  L.ctx.p = p;
+  L.ctx.low = low;
+  L.ctx.s = sig_w;
+  L.ctx.table = table;
+  L.ctx.work = work;
+  L.ctx.dy = dy;
+  k5_levels(L.ctx);
+  L.items = items;
+  L.phase_ptr = phase_ptr;
+  L.n_phases = n_phases;
+  L.n = (unsigned)n;
+  L.bar = bar;
+  const int resident = k5_resident_blocks();
+  if (resident <= 0) return (int)cudaErrorLaunchFailure;
+  // About four elements a thread in the largest phase, at most what fits.
+  long long want = (max_phase + 4 * kThreads - 1) / (4 * kThreads);
+  const int grid = (int)(want < 1 ? 1 : want > resident ? resident : want);
+  void* args[] = {&L};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      (const void*)k5_sweep_kernel, dim3(grid), dim3(kThreads), args, 0,
+      stream);
   if (err != cudaSuccess) return (int)err;
-  for (int q = 0; q < n_steps; ++q) {
-    const long long* f = steps + 13 * (size_t)q;
-    if (f[0] == K5_INTERIOR) {
-      k5_interior_kernel<<<1, 1, 0, stream>>>(dy, interior + 3 * f[11],
-                                              (int)f[12], sig_w);
-    } else {
-      K5Step s;
-      s.kind = (int)f[0];
-      s.a = a;
-      s.n_out = (unsigned)f[1];
-      s.n_src = (unsigned)f[2];
-      s.src = f[3] >= 0 ? work + f[3] * n : nullptr;
-      s.seed_rank = seed_rank + f[11];
-      s.seed_sid = seed_sid + f[11];
-      s.seed_len = (int)f[12];
-      s.sig_w = sig_w;
-      s.ratio = f[5] >= 0 ? rat + f[5] : nullptr;
-      s.dst = f[4] >= 0 ? work + f[4] * n : nullptr;
-      s.dy = f[6] ? dy : nullptr;
-      s.lo = (unsigned)f[7];
-      s.span = (unsigned)f[8];
-      s.pairs = pairs + 2 * f[9];
-      s.n_pairs = (int)f[10];
-      k5_step_kernel<<<blocks(s.n_out), kThreads, 0, stream>>>(s);
-    }
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  return (int)cudaGetLastError();
+}
+
+// K3 -> K4 -> K5 from one host call: the K4 and K5 arguments as their
+// own entry points take them, m as K3's.
+extern "C" int ckpe_dense_rhs(int m, const double* p, long long n,
+                              const double* low, const int* w_num,
+                              const int* w_den, const double* w_const,
+                              int n_worlds, int chain, const int* csr_ptr,
+                              const int* csr_world, int n_sig, double* wv,
+                              double* s, const long long* items,
+                              const long long* phase_ptr, int n_phases,
+                              long long max_phase, const int* table,
+                              double* work, double* dy, long long n5,
+                              const double* p5, const double* low5,
+                              const double* s5, int a, int k, unsigned* bar,
+                              cudaStream_t stream) {
+  int rc = ckpe_pyramid(p, a, k, m, const_cast<double*>(low), stream);
+  if (rc) return rc;
+  rc = ckpe_signature_weights(p, n, low, w_num, w_den, w_const, n_worlds,
+                              chain, csr_ptr, csr_world, n_sig, wv, s,
+                              stream);
+  if (rc) return rc;
+  return ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table,
+                          work, dy, n5, p5, low5, s5, a, k, bar, stream);
 }

@@ -1,35 +1,49 @@
-// K5's per-element rule: one step of a signature group's window sweep at
-// one window rank j, as the JAX package's `engine/dense.py:_apply_group`
-// computes it (phases A, B and C and the +-emission).
+// K5's per-element rule: one element of one item of the live-window sweep
+// (`engine/dense.py:sweep_plan`), as the JAX package's
+// `engine/dense.py:_apply_group` computes it (phases A, B and C and the
+// +-emission).
 //
-// A step forms a vector t over window ranks from the previous vector (or
-// from a group's sparse one-hot seed) and a ratio table:
+// A step's vector is stored compactly, over its live windows only: for a
+// layout (hi, D, lo, span) and the step's sorted live run ranks R[0..D),
+// compact index c = (h * D + i) * lo + s holds window rank
+// j = (h * span + R[i]) * lo + s (prefix digits h < hi, suffix s < lo).
+// Every other window of the dense vector is an exact 0 for a finite p
+// (the module docstring of `engine/dense.py` gives the argument). A
+// compute item forms t[c] from its source vector (or the group's seed)
+// and a guarded ratio formed at window j from the pyramid:
 //
-//   IDENT   t[j] = src[j]                               (the seed itself)
-//   EXTEND  t[j] = ratio[j] * src[j mod n_src]          (jnp.tile: left-extend)
-//   SHIFT   t[j] = ratio[j] * sum_d src[(j mod n1)*A + d]
-//                                  (trailing-digit reduce, then tile)
-//   RIGHT   t[j] = src[j / A] * ratio[j]                (jnp.repeat: right-extend)
-//   RSHIFT  t[j] = (sum_d src[d*n1 + j / A]) * ratio[j]
-//                                  (leading-digit reduce, then repeat)
+//   IDENT       t = seed[i]
+//   EXTEND      t = r_le[lev](j) * src[c mod xn]       (tile: left-extend)
+//   SHIFT       t = r_le[k](j) * sum_kids src[(h mod hx) * xd + kid]
+//                                 (trailing run digit reduced, then tile)
+//   RIGHT       t = src[c / A] * r_re(j)               (repeat: right-extend)
+//   RSHIFT      t = (sum_d src[d * xn/A + c/A]) * r_re(j)
+//                                 (leading prefix digit reduced, then repeat)
+//   RSHIFT_RUN  t = (sum_kids src[kid * xlo + (c/A) mod xlo]) * r_re(j)
+//                                 (leading run digit reduced, then repeat)
 //
-// and, when the step emits, adds its +-emission into dy[j] as a gather:
-// with r = (j / lo) mod span the window's revealed-run digits, dy[j]
-// gets -t[j] if r is one of the step's original run ranks, then +t[j']
-// for each (orig o, adj a) pair with a == r, in pair order, where j' is
-// j with its run digits set to o. t[j'] is recomputed from the step's
-// inputs, never read from another thread's write, so no two threads
-// write one element and the order of every sum is fixed. The digit sums
-// run in digit order, d = 0 first.
+// with r_le[lev](j) = g(lv[lev][j], lv[lev-1][j mod A^(lev-1)]),
+// r_re(j) = g(p[j], lv[k-1][j / A]) and g(n, d) = n > 0 ? n / max(n, d)
+// : 0 (NaN in d propagates, as torch.maximum does). The sums run over
+// the live children in digit order (d = 0 first), the order of the dense
+// digit sum less its exact zeros. A seed's value at live index i is the
+// sum of the signature weights of the members at rank R[i], from 0.0, in
+// member order.
 //
-// A sparse seed is a list of (rank, signature id) sorted by rank (stable,
-// so equal ranks keep member order); its value at x is the sum of the
-// signature weights at rank x in that order, 0 where none.
+// An EMIT item runs over the step's target windows: those whose run
+// digits are one of the step's original or adjusted ranks. Each gets its
+// terms in pair order, dy[j] + (-t[own]) (when its run digits are an
+// original rank) + t[o] for each pair (o, a) with a = its run digits; no
+// two elements of one item share a window, so no atomics. An INTERIOR
+// item (l0 > k; one element) walks the group's (rank, signature id,
+// sign) ops in member order.
 //
-// Plain C++ under `g++` as well, so a CPU test holds it to the plain
-// step (`engine/dense.py:sweep_step_plain`) for every j.
+// Plain C++ under `g++` as well, so a CPU test holds it to the plain step
+// (`engine/dense.py:sweep_step_plain`, `emit_plain`) for every element.
 
 #pragma once
+
+#include <cstddef>
 
 #ifdef __CUDACC__
 #define K5_FN __host__ __device__ __forceinline__
@@ -43,83 +57,216 @@ enum {
   K5_SHIFT = 2,
   K5_RIGHT = 3,
   K5_RSHIFT = 4,
-  K5_INTERIOR = 5,
+  K5_RSHIFT_RUN = 5,
+  K5_EMIT = 6,
+  K5_INTERIOR = 7,
 };
 
-struct K5Step {
-  int kind;
-  int a;                  // alphabet size
-  unsigned n_out;         // elements of t (threads)
-  unsigned n_src;         // EXTEND: the source's size; SHIFT/RSHIFT: A^(k-1)
-  const double* src;      // dense source, or null for a sparse seed
-  const int* seed_rank;   // sparse seed: ranks, ascending
-  const int* seed_sid;    // sparse seed: signature ids
-  int seed_len;
-  const double* sig_w;    // signature weights (K4's output)
-  const double* ratio;    // this step's ratio table (null for IDENT)
-  double* dst;            // where t goes for the next step, or null
-  double* dy;             // the RHS, or null when the step emits nothing
-  unsigned lo, span;      // emission: run digits of j are (j / lo) % span
-  const int* pairs;       // emission: (orig, adj) run ranks, 2 ints a pair
-  int n_pairs;
+// Fields of an item row (`engine/dense.py:ITEM_FIELDS`).
+enum {
+  F_OP, F_START, F_N, F_DST, F_SRC, F_HI, F_D, F_LO, F_SPAN, F_TAB, F_LEV,
+  F_XN, F_XD, F_XLO, F_KIDS, F_SEED,
+  // the multipliers of the divisors lo, d, ne, xn, hx, xlo, A, A^(lev-1)
+  F_M_LO, F_M_D, F_M_NE, F_M_XN, F_M_HX, F_M_XLO, F_M_A, F_M_PW1, K5_FIELDS,
 };
 
-// The source vector at index x.
-K5_FN double k5_src(const K5Step& s, unsigned x) {
-  if (s.src) return s.src[x];
-  int lo = 0, hi = s.seed_len;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if ((unsigned)s.seed_rank[mid] < x) lo = mid + 1; else hi = mid;
-  }
+constexpr int kMaxK = 16;
+
+struct K5Ctx {
+  int a, k;
+  const double* p;              // level k
+  const double* low;            // [lv[k-1], ..., lv[0], 1]
+  unsigned lv_off[kMaxK + 1];   // level j < k at low + lv_off[j]
+  unsigned pw[kMaxK + 1];       // A^j
+  const double* s;              // signature weights (K4's output)
+  const int* table;             // ranks, children, seeds, targets, ops
+  double* work;                 // every step's compact vector
+  double* dy;
+};
+
+K5_FN double k5_guarded(double num, double den) {
+  const bool pos = num > 0.0;
+  double m = den > num ? den : num;
+  if (den != den) m = den;  // max propagates NaN, as torch.maximum does
+  return (pos ? num : 0.0) / (pos ? m : 1.0);
+}
+
+// A value written by another block in an earlier phase: from L2, not L1.
+K5_FN double k5_load(const double* x) {
+#if defined(__CUDA_ARCH__)
+  return __ldcg(x);
+#else
+  return *x;
+#endif
+}
+
+// Division by a divisor fixed for an item, as a multiply and a shift:
+// for x < 2^31 and d >= 1, q = (x * m) >> s with s = 31 + ceil(log2 d)
+// and m = ceil(2^s / d), made on the host (`engine/dense.py:_magic`;
+// Granlund and Montgomery: m d - 2^s < d <= 2^(s - 31), so q = floor(x /
+// d) exactly).
+struct K5Div {
+  unsigned long long m;
+  unsigned s, d;
+};
+
+K5_FN K5Div k5_div(long long d, long long m) {
+  K5Div v;
+  const unsigned below = (unsigned)(d - 1);  // d <= 2^31
+#if defined(__CUDA_ARCH__)
+  v.s = 31 + (below ? 32 - __clz(below) : 0);
+#else
+  v.s = 31 + (below ? 32 - __builtin_clz(below) : 0);
+#endif
+  v.d = (unsigned)d;
+  v.m = (unsigned long long)m;
+  return v;
+}
+
+K5_FN unsigned k5_q(unsigned x, const K5Div& v) {
+  return (unsigned)(((unsigned long long)x * v.m) >> v.s);
+}
+
+K5_FN unsigned k5_r(unsigned x, const K5Div& v) {
+  return x - k5_q(x, v) * v.d;
+}
+
+// An item row unpacked, with its divisors (built once a phase).
+struct K5Item {
+  int op, tab, lev, kids, seed;
+  unsigned n, span, xd, n1;  // n1 = xn / A
+  long long start, dst, src;
+  K5Div lo, d, ne, xn, hx, xlo, a, pw1;
+};
+
+K5_FN long long k5_at_least_1(long long x) { return x < 1 ? 1 : x; }
+
+K5_FN K5Item k5_item(const long long* r, const K5Ctx& c) {
+  K5Item it;
+  it.op = (int)r[F_OP];
+  it.tab = (int)r[F_TAB];
+  it.lev = (int)r[F_LEV];
+  it.kids = (int)r[F_KIDS];
+  it.seed = (int)r[F_SEED];
+  it.n = (unsigned)r[F_N];
+  it.span = (unsigned)r[F_SPAN];
+  it.xd = (unsigned)r[F_XD];
+  it.n1 = (unsigned)r[F_XN] / (unsigned)c.a;
+  it.start = r[F_START];
+  it.dst = r[F_DST];
+  it.src = r[F_SRC];
+  it.lo = k5_div(k5_at_least_1(r[F_LO]), r[F_M_LO]);
+  it.d = k5_div(k5_at_least_1(r[F_D]), r[F_M_D]);
+  it.ne = k5_div(it.op == K5_EMIT ? k5_at_least_1(r[F_LEV]) : 1, r[F_M_NE]);
+  it.xn = k5_div(k5_at_least_1(r[F_XN]), r[F_M_XN]);
+  it.hx = k5_div(r[F_XD] > 0 ? k5_at_least_1(r[F_XN] / r[F_XD]) : 1,
+                 r[F_M_HX]);
+  it.xlo = k5_div(k5_at_least_1(r[F_XLO]), r[F_M_XLO]);
+  it.a = k5_div(c.a, r[F_M_A]);
+  it.pw1 = k5_div(it.lev >= 1 && it.lev <= c.k ? c.pw[it.lev - 1] : 1,
+                  r[F_M_PW1]);
+  return it;
+}
+
+K5_FN double k5_level(const K5Ctx& c, int j, unsigned x) {
+  return j == c.k ? c.p[x] : c.low[c.lv_off[j] + x];
+}
+
+K5_FN double k5_ratio(const K5Ctx& c, const K5Item& it, unsigned j) {
+  if (it.op == K5_RIGHT || it.op == K5_RSHIFT || it.op == K5_RSHIFT_RUN)
+    return k5_guarded(c.p[j], k5_level(c, c.k - 1, k5_q(j, it.a)));
+  return k5_guarded(k5_level(c, it.lev, j),
+                    k5_level(c, it.lev - 1, k5_r(j, it.pw1)));
+}
+
+// The source vector at compact index x (the seed's at live index x).
+K5_FN double k5_src(const K5Ctx& c, const K5Item& it, unsigned x) {
+  if (it.src >= 0) return k5_load(c.work + it.src + x);
+  const int* t = c.table;
+  const int row = it.seed + (int)x;
   double acc = 0.0;
-  for (int i = lo; i < s.seed_len && (unsigned)s.seed_rank[i] == x; ++i)
-    acc = acc + s.sig_w[s.seed_sid[i]];
+  for (int q = t[row]; q < t[row + 1]; ++q) acc = acc + c.s[t[q]];
   return acc;
 }
 
-// The step's new value t[j].
-K5_FN double k5_value(const K5Step& s, unsigned j) {
-  switch (s.kind) {
-    case K5_IDENT:
-      return k5_src(s, j);
+// A compute item's value at compact index e.
+K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
+  const int op = it.op;
+  const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.d);
+  const unsigned i = rest - h * it.d.d;
+  const unsigned j = (h * it.span + (unsigned)c.table[it.tab + i]) * it.lo.d +
+                     (e - rest * it.lo.d);
+  if (op == K5_IDENT) return k5_src(c, it, e);
+  const double r = k5_ratio(c, it, j);
+  switch (op) {
     case K5_EXTEND:
-      return s.ratio[j] * k5_src(s, j % s.n_src);
-    case K5_SHIFT: {
-      const unsigned base = (j % s.n_src) * (unsigned)s.a;
-      double c = k5_src(s, base);
-      for (int d = 1; d < s.a; ++d) c = c + k5_src(s, base + d);
-      return s.ratio[j] * c;
-    }
+      return r * k5_src(c, it, k5_r(e, it.xn));
     case K5_RIGHT:
-      return k5_src(s, j / (unsigned)s.a) * s.ratio[j];
-    default: {  // K5_RSHIFT
-      const unsigned ctx = j / (unsigned)s.a;
-      double c = k5_src(s, ctx);
-      for (int d = 1; d < s.a; ++d) c = c + k5_src(s, d * s.n_src + ctx);
-      return c * s.ratio[j];
+      return k5_src(c, it, k5_q(e, it.a)) * r;
+    case K5_RSHIFT: {
+      const unsigned cc = k5_q(e, it.a);
+      double sum = k5_src(c, it, cc);
+      for (unsigned dd = 1; dd < it.a.d; ++dd)
+        sum = sum + k5_src(c, it, dd * it.n1 + cc);
+      return sum * r;
+    }
+    default: {  // K5_SHIFT, K5_RSHIFT_RUN: the live children of i
+      const int* t = c.table;
+      const int row = it.kids + (int)i;
+      unsigned base, step;
+      if (op == K5_SHIFT) {
+        base = k5_r(h, it.hx) * it.xd;
+        step = 1;
+      } else {
+        base = k5_r(k5_q(e, it.a), it.xlo);
+        step = it.xlo.d;
+      }
+      double sum = k5_src(c, it, base + (unsigned)t[t[row]] * step);
+      for (int q = t[row] + 1; q < t[row + 1]; ++q)
+        sum = sum + k5_src(c, it, base + (unsigned)t[q] * step);
+      return op == K5_SHIFT ? r * sum : sum * r;
     }
   }
 }
 
-// One element of one step: t[j] into dst, the emission into dy[j].
-K5_FN void k5_element(const K5Step& s, unsigned j) {
-  const double t = k5_value(s, j);
-  if (s.dst) s.dst[j] = t;
-  if (!s.dy) return;
-  const unsigned r = (j / s.lo) % s.span;
-  double acc = s.dy[j];
-  for (int p = 0; p < s.n_pairs; ++p) {
-    if ((unsigned)s.pairs[2 * p] == r) {  // orig ranks are unique
-      acc = acc + (-t);
-      break;
+// One element e of one item.
+K5_FN void k5_element(const K5Ctx& c, const K5Item& it, unsigned e) {
+  if (it.op == K5_INTERIOR) {
+    const int* ops = c.table + it.tab;
+    for (int q = 0; q < it.lev; ++q) {
+      const double w = c.s[ops[3 * q + 1]];
+      double* x = c.dy + ops[3 * q];
+      *x = k5_load(x) + (ops[3 * q + 2] < 0 ? -w : w);
     }
+    return;
   }
-  for (int p = 0; p < s.n_pairs; ++p) {
-    if ((unsigned)s.pairs[2 * p + 1] == r) {
-      const unsigned jp = j - r * s.lo + (unsigned)s.pairs[2 * p] * s.lo;
-      acc = acc + k5_value(s, jp);
-    }
+  if (it.op != K5_EMIT) {
+    c.work[it.dst + e] = k5_value(c, it, e);
+    return;
   }
-  s.dy[j] = acc;
+  const unsigned lo = it.lo.d;
+  const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.ne);
+  const unsigned s = e - rest * lo, q = rest - h * it.ne.d;
+  const int* tg = c.table + it.tab + 4 * q;  // rank, own, partners
+  const unsigned j = (h * it.span + (unsigned)tg[0]) * lo + s;
+  const double* t = c.work + it.dst + (size_t)h * it.d.d * lo + s;
+  double acc = k5_load(c.dy + j);
+  if (tg[1] >= 0) acc = acc + (-k5_load(t + (size_t)tg[1] * lo));
+  for (int x = 0; x < tg[3]; ++x)
+    acc = acc + k5_load(t + (size_t)c.table[tg[2] + x] * lo);
+  c.dy[j] = acc;
+}
+
+// The context's level offsets and powers of A.
+K5_FN void k5_levels(K5Ctx& c) {
+  unsigned pos = 0, size = 1;
+  for (int j = 0; j <= c.k; ++j) {
+    c.pw[j] = size;
+    size *= (unsigned)c.a;
+  }
+  for (int j = c.k - 1; j >= 0; --j) {
+    c.lv_off[j] = pos;
+    pos += c.pw[j];
+  }
+  c.lv_off[c.k] = 0;
 }

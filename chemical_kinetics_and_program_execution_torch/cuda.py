@@ -143,16 +143,18 @@ def load() -> ctypes.CDLL:
     lib.ckpe_window_counts.argtypes = [_P, ctypes.c_longlong, _I, _I, _I,
                                        _P, _P]
     lib.ckpe_window_counts.restype = _I
-    # ckpe_pyramid_ratios(p, a, k, pyr, rat, stream)
-    lib.ckpe_pyramid_ratios.argtypes = [_P, _I, _I, _P, _P, _P]
-    # ckpe_signature_weights(pyr, w_num, w_den, w_const, W, C, csr_ptr,
-    #                        csr_world, n_sig, wv, s, stream)
-    lib.ckpe_signature_weights.argtypes = [_P, _P, _P, _P, _I, _I, _P, _P,
-                                           _I, _P, _P, _P]
-    # ckpe_dense_sweep(steps, n_steps, a, n, work, dy, rat, sig_w,
-    #                  seed_rank, seed_sid, pairs, interior, stream)
-    lib.ckpe_dense_sweep.argtypes = [_P, _I, _I, _L, _P, _P, _P, _P, _P, _P,
-                                     _P, _P, _P]
+    # ckpe_pyramid(p, a, k, m, low, stream)
+    lib.ckpe_pyramid.argtypes = [_P, _I, _I, _I, _P, _P]
+    # ckpe_signature_weights(p, n, low, w_num, w_den, w_const, W, C,
+    #                        csr_ptr, csr_world, n_sig, wv, s, stream)
+    k4 = [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P]
+    lib.ckpe_signature_weights.argtypes = k4 + [_P]
+    # ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table, work,
+    #                  dy, n, p, low, sig_w, a, k, bar, stream)
+    k5 = [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P, _I, _I, _P]
+    lib.ckpe_dense_sweep.argtypes = k5 + [_P]
+    # ckpe_dense_rhs(m, <K4's arguments>, <K5's arguments>, stream)
+    lib.ckpe_dense_rhs.argtypes = [_I] + k4 + k5 + [_P]
     # ckpe_k6_stage(y, ks, ks_ld, n, h, rows, coefs, m, out, stream)
     lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _L, _D, _P, _P, _I, _P, _P]
     # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, ks_ld,
@@ -166,9 +168,10 @@ def load() -> ctypes.CDLL:
                                          _P, _P, _I, _P, _L, _P]
     # ckpe_k6_dense_eval(F, f_ld, y, n, x, one_minus_x, out, stream)
     lib.ckpe_k6_dense_eval.argtypes = [_P, _L, _P, _L, _D, _D, _P, _P]
-    for name in ("ckpe_pyramid_ratios", "ckpe_signature_weights",
-                 "ckpe_dense_sweep", "ckpe_k6_stage", "ckpe_k6_norms",
-                 "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval"):
+    for name in ("ckpe_pyramid", "ckpe_signature_weights",
+                 "ckpe_dense_sweep", "ckpe_dense_rhs", "ckpe_k6_stage",
+                 "ckpe_k6_norms", "ckpe_k6_dense_coeffs",
+                 "ckpe_k6_dense_eval"):
         getattr(lib, name).restype = _I
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p

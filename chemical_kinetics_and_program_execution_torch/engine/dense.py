@@ -9,23 +9,45 @@ the same (revealed length, changed positions) share one window sweep
 CUDA kernel on the card (`csrc/dense_rhs.cu`) with its plain PyTorch
 version here, which the wrapper runs for a CPU tensor:
 
-- K3 `pyramid_ratios`: the marginal levels, the flat pyramid and the
-  guarded ratio tables (`_levels`, `_ratio_tables` there);
+- K3 `pyramid`: the marginal levels below p (`_levels` there);
 - K4 `signature_weights`: world weights, chain products of guarded
   ratios, summed into signature weights;
-- K5 `sweep`: every group's sweep, one kernel launch a step
-  (`csrc/sweep_rule.cuh` is the per-element rule), its steps planned
-  once a program on the host (`sweep_plan`).
+- K5 `sweep`: every group's sweep in one launch (`csrc/sweep_rule.cuh`
+  is the per-element rule), planned once a program on the host
+  (`sweep_plan`), each ratio formed where it is needed from the pyramid
+  (`_ratio_tables` there).
+
+On a card `make_dense_dy_dt`'s fn runs the three from one C call
+(`dense_rhs`).
 
 The sweep plan follows `_apply_group` step for step: seed a one-hot
 vector, left-extend it to a (k-1)-context (phase A), emit and left-shift
 while a changed cell stays in frame (phase C), right-extend while a
 changed cell stays in context (phase B). The plain version computes each
-step as `_apply_group` does (tile, repeat, reshape-sum, a sub-slice
-scatter for the emission) and sums digits in digit order, the kernel's
-order. The TPU's emission layout guard (`_ROLL_EMIT_MIN_STATE` there)
-has no counterpart: the plain version uses one emission form at every
-size.
+step densely as `_apply_group` does (tile, repeat, reshape-sum, a
+sub-slice scatter for the emission), sums digits in digit order and adds
+each dy window's terms in plan order. The TPU's emission layout guard
+(`_ROLL_EMIT_MIN_STATE` there) has no counterpart: the plain version
+uses one emission form at every size.
+
+K5 forms each step only at its live windows. Why that is exact: a
+group's seed is one-hot at its members' ranks, so it is nonzero only
+where the revealed run digits are a member's original digits. A step
+multiplies by a guarded ratio, g(n, d) = n > 0 ? n / max(n, d) : 0,
+which for a finite p is finite (at most 1), and moves digits: a tile or
+repeat adds an unrevealed digit, a digit sum drops one. So after each
+step the vector is nonzero only at windows whose revealed-run digits
+(``(j / lo) % span``) equal one of the members' in-window original
+digits, the step's sorted live ranks: A^k D / span windows for D
+distinct ranks. Every skipped window holds an exact 0 (+-0). A digit sum
+over the remaining terms, still in digit order (d = 0 first), gives the
+dense sum's bits: adding an exact 0 leaves a nonzero partial sum as it
+is and changes at most the sign of a zero one. The emission then reads
+and writes dy only where a run is an original or adjusted rank, and dy,
+zeroed once, never holds -0, so the skipped +-0 terms would not have
+changed its bits either. For a p with a NaN or an infinity the ratio can
+be NaN, and a dense step's NaN * 0 spreads where K5 forms nothing: both
+give a non-finite dy, not the same one.
 
 Not ported yet (ROADMAP Queue 1 item 4): pruned programs with their mass
 tables (`BeamGuide`, ``with_mass``), dual-SPD programs and the streamed
@@ -34,6 +56,7 @@ RHS.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -210,40 +233,106 @@ def _group_plans(plans, a: int, k: int):
 
 # --- The sweep plan ------------------------------------------------------------
 
-# Step kinds (`csrc/sweep_rule.cuh`).
-IDENT, EXTEND, SHIFT, RIGHT, RSHIFT, INTERIOR = range(6)
-# Work buffers: two of A^k doubles, then the (k-1)-context of A^(k-1).
-_P0, _P1, _CTX = 0, 1, 2
-# Fields of a step row, in order (`csrc/dense_rhs.cu:ckpe_dense_sweep`).
-STEP_FIELDS = ("kind", "n_out", "n_src", "src", "dst", "ratio", "emit",
-               "lo", "span", "pair_off", "n_pairs", "seed_off", "seed_len")
+# Step kinds. IDENT to RSHIFT are `_apply_group`'s dense steps (the plain
+# version walks them); RSHIFT_RUN is an RSHIFT whose dropped leading digit
+# is revealed (its compact form differs); EMIT and INTERIOR are K5's
+# emission items (`csrc/sweep_rule.cuh`).
+IDENT, EXTEND, SHIFT, RIGHT, RSHIFT, RSHIFT_RUN, EMIT, INTERIOR = range(8)
+# Fields of a K5 item row, in order (`csrc/sweep_rule.cuh:K5_*`).
+ITEM_FIELDS = ("op", "start", "n", "dst", "src", "hi", "d", "lo", "span",
+               "tab", "lev", "xn", "xd", "xlo", "kids", "seed",
+               # multipliers of the item's divisors (`_magic`)
+               "m_lo", "m_d", "m_ne", "m_xn", "m_hx", "m_xlo", "m_a", "m_pw1")
+
+
+@dataclasses.dataclass(frozen=True)
+class Step:
+    """One step of a group's sweep: its dense form (what `_apply_group`
+    and the plain version compute, over A^lev windows) and the compact
+    layout K5 stores it in: window rank j = (h * span + ranks[i]) * lo +
+    s at compact index c = (h * len(ranks) + i) * lo + s, for prefix h <
+    hi and suffix s < lo. ``ranks`` are the live run ranks; every other
+    window of the dense vector is an exact 0 for a finite p."""
+
+    kind: int
+    level: int  # dependency depth: 0 reads a seed
+    lev: int  # the dense vector has A^lev windows
+    src: int  # index of the source step, -1 for the seed
+    seed: tuple = ()  # ((rank, sid), ...) by rank, member order kept
+    seed_size: int = 0  # A^(length of the seed's ranks)
+    hi: int = 1
+    ranks: tuple = ()
+    lo: int = 1
+    span: int = 1
+    kids: tuple = ()  # SHIFT, RSHIFT_RUN: source live indices of each i
+    pairs: tuple = ()  # emission (orig, adj) run ranks; () emits nothing
+    interior: tuple = ()  # INTERIOR: (rank, sid, sign) in member order
+
+    @property
+    def n(self) -> int:
+        return self.hi * len(self.ranks) * self.lo
+
+    def live(self) -> np.ndarray:
+        """Dense window ranks of the compact vector, in compact order."""
+        h = np.arange(self.hi)[:, None, None] * self.span
+        r = np.asarray(self.ranks, dtype=np.int64)[None, :, None]
+        return ((h + r) * self.lo + np.arange(self.lo)[None, None, :]
+                ).reshape(-1)
+
+    def targets(self) -> tuple[int, ...]:
+        """Run ranks of the windows the emission reads and writes."""
+        return tuple(sorted({o for o, _ in self.pairs}
+                            | {x for _, x in self.pairs}))
+
+    def target_windows(self) -> np.ndarray:
+        if self.kind == INTERIOR:
+            return np.unique([r for r, _, _ in self.interior])
+        h = np.arange(self.hi)[:, None, None] * self.span
+        e = np.asarray(self.targets(), dtype=np.int64)[None, :, None]
+        return ((h + e) * self.lo + np.arange(self.lo)[None, None, :]
+                ).reshape(-1)
 
 
 @dataclasses.dataclass(frozen=True)
 class SweepPlan:
-    """Every K5 launch of one RHS, planned once a program.
+    """Every group's sweep, planned once a program: ``steps`` in plan
+    order (group by group, each in `_apply_group`'s order), and K5's one
+    launch: ``items`` (int64 rows, `ITEM_FIELDS`) grouped into phases
+    (``phase_ptr``), each phase's items run side by side and a grid
+    barrier between phases; ``table`` holds the items' int32 lists
+    (ranks, children, seeds, emission targets, interior ops); ``work``
+    doubles hold every step's compact vector."""
 
-    ``steps`` is int64 [n_steps, 13] (`STEP_FIELDS`); ``src`` -1 reads
-    the sparse seed ``seed_rank/seed_sid[seed_off:seed_off+seed_len]``
-    (ranks ascending, equal ranks in member order); ``dst`` -1 keeps
-    nothing; an INTERIOR step walks ``interior[seed_off:+seed_len]``
-    rows of (rank, signature id, sign)."""
-
-    steps: np.ndarray
-    seed_rank: np.ndarray
-    seed_sid: np.ndarray
-    pairs: np.ndarray
-    interior: np.ndarray
+    steps: tuple
+    items: np.ndarray
+    item_step: np.ndarray  # the step of each item
+    phase_ptr: np.ndarray
+    table: np.ndarray
+    work_size: int
+    max_phase: int  # elements of the largest phase
     num_groups: int
 
     @property
     def num_launches(self) -> int:
-        return len(self.steps)
+        """K5 launches an RHS: one."""
+        return 1
+
+    @property
+    def num_phases(self) -> int:
+        return len(self.phase_ptr) - 1
+
+    @property
+    def element_steps(self) -> tuple[int, int]:
+        """(live, dense) elements over the sweep's steps: what K5 forms
+        against what a dense step by step sweep forms."""
+        steps = [s for s in self.steps if s.kind != INTERIOR]
+        return (sum(s.n for s in steps), sum(s.hi * s.span * s.lo
+                                             for s in steps))
 
 
 def ratio_offsets(a: int, k: int) -> tuple[dict, int]:
-    """Layout of K3's ratio buffer: r_le[j] (A^j) at ``offsets[j]`` for
-    j = 1..k, then r_re (A^k) at ``offsets["re"]``; and its length."""
+    """Layout of the plain ratio tables: r_le[j] (A^j) at ``offsets[j]``
+    for j = 1..k, then r_re (A^k) at ``offsets["re"]``; and its length."""
     offsets, pos = {}, 0
     for j in range(1, k + 1):
         offsets[j] = pos
@@ -252,108 +341,290 @@ def ratio_offsets(a: int, k: int) -> tuple[dict, int]:
     return offsets, pos + a**k
 
 
-def sweep_plan(prog: DenseProgram) -> SweepPlan:
-    """The steps of every group's sweep, in `_apply_group`'s order."""
-    a, k = prog.size_a, prog.cl_k
-    n, n1 = a**k, a ** (k - 1)
-    r_off, _ = ratio_offsets(a, k)
-    rows, seed_rank, seed_sid, pairs, interior = [], [], [], [], []
-    groups = _group_plans(prog.plans, a, k)
+def _magic(d: int) -> int:
+    """m = ceil(2^s / d), s = 31 + ceil(log2 d): x // d = (x * m) >> s
+    for 0 <= x < 2^31 (`csrc/sweep_rule.cuh:K5Div`)."""
+    s = 31 + (d - 1).bit_length()
+    return -(-(1 << s) // d)
 
-    def seed(ranks, sids):
-        order = sorted(range(len(ranks)), key=lambda i: ranks[i])
-        off = len(seed_rank)
-        seed_rank.extend(ranks[i] for i in order)
-        seed_sid.extend(sids[i] for i in order)
-        return (-1, off, len(ranks))
 
-    def step(kind, n_out, n_src, src, dst, ratio, emit=None):
-        buf, s_off, s_len = src if src[0] == -1 else (src[0], 0, 0)
-        row = [kind, n_out, n_src, buf, dst, ratio, 0, 1, 1, 0, 0, s_off,
-               s_len]
-        if emit is not None:
-            lo, span, prs = emit
-            row[6:11] = [1, lo, span, len(pairs), len(prs)]
-            pairs.extend(prs)
-        rows.append(row)
+def _with_magic(row: list, a: int, k: int) -> list:
+    """An item row with the multipliers of its divisors appended."""
+    f = dict(zip(ITEM_FIELDS, row))
+    lev = f["lev"]
+    divisors = (f["lo"], f["d"], lev if f["op"] == EMIT else 1, f["xn"],
+                f["xn"] // f["xd"] if f["xd"] > 0 else 1, f["xlo"], a,
+                a ** (lev - 1) if 1 <= lev <= k else 1)
+    return row + [_magic(max(x, 1)) for x in divisors]
 
-    for l0, changed, members in groups:
-        m_l, m_r, _ = _sweep_meta(l0, changed, k)
-        base = min(l0, k)
-        sids = [m.sid for m in members]
 
-        def emission(s0, l0=l0, members=members):
+def _ilog(x: int, a: int) -> int:
+    e = 0
+    while x > 1:
+        x //= a
+        e += 1
+    return e
+
+
+def _group_steps(l0: int, changed, members, a: int, k: int,
+                 first_index: int) -> list[Step]:
+    """One group's steps in `_apply_group`'s order, with their compact
+    layouts; indices in ``src`` count from ``first_index``."""
+    m_l, m_r, _ = _sweep_meta(l0, changed, k)
+    base = min(l0, k)
+    sids = [m.sid for m in members]
+    out: list[Step] = []
+
+    def add(kind, lev, src, layout, kids=(), s0=None, seed=(),
+            seed_size=0):
+        hi, ranks, lo, span = layout
+        pairs = ()
+        if s0 is not None:
+            pairs = tuple(sorted({_emit_sub_ranks(m, s0, k, a)
+                                  for m in members}))
             q_lo = max(0, s0)
-            q_hi = min(l0 - 1, s0 + k - 1)
-            run = q_hi - q_lo + 1
-            lo = a ** (k - (q_lo - s0) - run)
-            prs = sorted({_emit_sub_ranks(m, s0, k, a) for m in members})
-            return lo, a**run, prs
+            run = min(l0 - 1, s0 + k - 1) - q_lo + 1
+            assert (lo, span) == (a ** (k - (q_lo - s0) - run), a**run)
+            assert tuple(sorted({o for o, _ in pairs})) == ranks
+        level = 0 if src < 0 else out[src - first_index].level + 1
+        out.append(Step(kind, level, lev, src, seed, seed_size, hi,
+                        ranks, lo, span, kids, pairs))
+        return first_index + len(out) - 1
 
-        if l0 <= k - 1:
-            cur = seed([_rank(m.orig, a) for m in members], sids)
-            nxt = _P0
-            for j in range(l0 + 1, k):
-                dst = _CTX if j == k - 1 else nxt
-                step(EXTEND, a**j, a ** (j - 1), cur, dst, r_off[j])
-                cur, nxt = (dst, 0, 0), _P1 if nxt == _P0 else _P0
-            ctx = cur
-            first = (EXTEND, n1, ctx, r_off[k])
+    def seed(ranks, length):
+        pairs = tuple(sorted(zip(ranks, sids), key=lambda x: x[0]))
+        return pairs, (1, tuple(sorted(set(ranks))), 1, a**length)
+
+    def layout(i):
+        s = out[i - first_index]
+        return s.hi, s.ranks, s.lo, s.span
+
+    def shifted(lay):  # drop the trailing (run) digit, add a leading one
+        hi, ranks, lo, span = lay
+        new = tuple(sorted({r // a for r in ranks}))
+        kids = tuple(tuple(i for i, r in enumerate(ranks) if r // a == x)
+                     for x in new)
+        return (hi * a, new, 1, span // a), kids
+
+    def rshifted(lay):  # drop the leading digit, add a trailing one
+        hi, ranks, lo, span = lay
+        if hi > 1:
+            return RSHIFT, (hi // a, ranks, lo * a, span), ()
+        sub = span // a
+        new = tuple(sorted({r % sub for r in ranks}))
+        kids = tuple(tuple(i for i, r in enumerate(ranks) if r % sub == x)
+                     for x in new)
+        return RSHIFT_RUN, (1, new, lo * a, sub), kids
+
+    if l0 > k:
+        ops = []
+        for j in range(1, l0 - k + 1):
+            if any(j <= q <= j + k - 1 for q in changed):
+                ops.extend((_rank(m.orig[j:j + k], a), m.sid, -1)
+                           for m in members)
+                ops.extend((_rank(m.adj[j:j + k], a), m.sid, 1)
+                           for m in members)
+        if ops:
+            out.append(Step(INTERIOR, 0, k, -1, interior=tuple(ops)))
+    if l0 <= k - 1:
+        sd, sd_lay = seed([_rank(m.orig, a) for m in members], l0)
+        cur, lay = -1, sd_lay
+        for j in range(l0 + 1, k):
+            hi, ranks, lo, span = lay
+            lay = (hi * a, ranks, lo, span)
+            cur = add(EXTEND, j, cur, lay,
+                      **(dict(seed=sd, seed_size=a ** (j - 1))
+                         if cur < 0 else {}))
+        ctx, ctx_seed = cur, (sd, a ** (k - 1))
+        ctx_lay = lay
+        hi, ranks, lo, span = lay
+        first = (EXTEND, (hi * a, ranks, lo, span), ctx,
+                 ctx_seed if ctx < 0 else ((), 0))
+    else:
+        sd, sd_lay = seed([_rank(m.orig[:k], a) for m in members], k)
+        first = (IDENT, sd_lay, -1, (sd, a**k))
+        csd, ctx_lay = seed([_rank(m.orig[l0 - k + 1:], a)
+                             for m in members], k - 1)
+        ctx, ctx_seed = -1, (csd, a ** (k - 1))
+
+    # Phase C: emit the length-k frame, then left-shift while changed.
+    prev = None
+    for m in range(0, m_l + 1):
+        if m == 0:
+            kind, lay, src, (sd, size) = first
+            prev = add(kind, k, src, lay, s0=base - k, seed=sd,
+                       seed_size=size)
         else:
-            if l0 > k:
-                # Interior emissions at fully revealed windows; each
-                # member scatters its own weight (duplicate ranks legal).
-                off = len(interior)
-                for j in range(1, l0 - k + 1):
-                    if any(j <= q <= j + k - 1 for q in changed):
-                        interior.extend((_rank(m.orig[j:j + k], a), m.sid,
-                                         -1) for m in members)
-                        interior.extend((_rank(m.adj[j:j + k], a), m.sid,
-                                         1) for m in members)
-                if len(interior) > off:
-                    rows.append([INTERIOR, 0, 0, -1, -1, -1, 0, 1, 1, 0, 0,
-                                 off, len(interior) - off])
-            first = (IDENT, n, seed([_rank(m.orig[:k], a) for m in members],
-                                    sids), -1)
-            ctx = seed([_rank(m.orig[l0 - k + 1:], a) for m in members],
-                       sids)
+            lay, kids = shifted(layout(prev))
+            prev = add(SHIFT, k, prev, lay, kids=kids, s0=base - k - m)
+    # Phase B: right-extend while a changed cell stays in context.
+    for m in range(1, m_r + 1):
+        if m == 1:
+            hi, ranks, lo, span = ctx_lay
+            sd, size = ctx_seed if ctx < 0 else ((), 0)
+            prev = add(RIGHT, k, ctx, (hi, ranks, lo * a, span),
+                       s0=l0 + m - k, seed=sd, seed_size=size)
+        else:
+            kind, lay, kids = rshifted(layout(prev))
+            prev = add(kind, k, prev, lay, kids=kids, s0=l0 + m - k)
+    return out
 
-        # Phase C: emit the length-k frame, then left-shift while changed.
-        prev, buf = None, _P0
-        for m in range(0, m_l + 1):
-            dst = buf if m < m_l else -1
-            if m == 0:
-                kind, n_src, src, ratio = first
-                step(kind, n, n_src, src, dst, ratio, emission(base - k))
-            else:
-                step(SHIFT, n, n1, (prev, 0, 0), dst, r_off[k],
-                     emission(base - k - m))
-            prev, buf = buf, _P1 if buf == _P0 else _P0
-        # Phase B: right-extend while a changed cell stays in context.
-        for m in range(1, m_r + 1):
-            dst = buf if m < m_r else -1
-            if m == 1:
-                step(RIGHT, n, n1, ctx, dst, r_off["re"],
-                     emission(l0 + m - k))
-            else:
-                step(RSHIFT, n, n1, (prev, 0, 0), dst, r_off["re"],
-                     emission(l0 + m - k))
-            prev, buf = buf, _P1 if buf == _P0 else _P0
 
+def _digits_agree(x1, e1, r1, x2, e2, r2, a) -> bool:
+    """Whether run rank x1 at digits [e1, e1 + r1) and x2 at [e2, e2 +
+    r2) (counted from the least significant) agree where they overlap."""
+    for pos in range(max(e1, e2), min(e1 + r1, e2 + r2)):
+        if (x1 // a ** (pos - e1)) % a != (x2 // a ** (pos - e2)) % a:
+            return False
+    return True
+
+
+def _emissions_meet(s1: Step, s2: Step, a: int) -> bool:
+    """Whether two emissions read and write a common dy window."""
+    if s1.kind == INTERIOR or s2.kind == INTERIOR:
+        if s1.kind != INTERIOR:
+            s1, s2 = s2, s1
+        w = set(s1.target_windows().tolist())
+        if s2.kind == INTERIOR:
+            return bool(w & set(s2.target_windows().tolist()))
+        e, span = set(s2.targets()), s2.span
+        return any((j // s2.lo) % span in e for j in w)
+    e1, r1 = _ilog(s1.lo, a), _ilog(s1.span, a)
+    e2, r2 = _ilog(s2.lo, a), _ilog(s2.span, a)
+    return any(_digits_agree(x1, e1, r1, x2, e2, r2, a)
+               for x1 in s1.targets() for x2 in s2.targets())
+
+
+def _phases(steps, a: int, n: int) -> list[int]:
+    """K5's phase of each step. A step that forms a vector runs in the
+    phase of its level; an emission after the phase of its vector and
+    after every emission before it in plan order that shares a dy window
+    with it, so each dy window takes its terms in plan order. Phase 0
+    also zeroes dy, so every emission comes later."""
+    phase = [0] * len(steps)
+    emits = [i for i, s in enumerate(steps) if s.pairs or s.interior]
+    if n <= 1 << 16:  # the windows themselves
+        last = np.zeros(n, dtype=np.int64)
+        for i in emits:
+            w = steps[i].target_windows()
+            p = max(steps[i].level + 1, int(last[w].max()) + 1)
+            phase[i] = p
+            last[w] = p
+    else:  # the windows' digit patterns
+        for q, i in enumerate(emits):
+            p = steps[i].level + 1
+            for i2 in emits[:q]:
+                if phase[i2] >= p and _emissions_meet(steps[i2], steps[i],
+                                                      a):
+                    p = phase[i2] + 1
+            phase[i] = p
+    return phase
+
+
+def sweep_plan(prog: DenseProgram) -> SweepPlan:
+    """Every group's steps, their compact layouts and K5's items."""
+    a, k = prog.size_a, prog.cl_k
+    n = a**k
+    if n >= 2**31:
+        raise ValueError(f"A^k = {n} windows: K5 indexes them in 31 bits")
+    groups = _group_plans(prog.plans, a, k)
+    steps: list[Step] = []
+    for l0, changed, members in groups:
+        steps.extend(_group_steps(l0, changed, members, a, k, len(steps)))
+    phase = _phases(steps, a, n)
+
+    table: list[int] = []
+    dst, work = {}, 0
+    rows = []  # (phase, step, row)
+
+    def csr(lists):
+        off = len(table)
+        pos = off + len(lists) + 1
+        for lst in lists:
+            table.append(pos)
+            pos += len(lst)
+        table.append(pos)
+        for lst in lists:
+            table.extend(lst)
+        return off
+
+    for i, s in enumerate(steps):
+        if s.kind == INTERIOR:
+            tab = len(table)
+            for op in s.interior:
+                table.extend(op)
+            rows.append((phase[i], i, [INTERIOR, 0, 1, 0, -1, 1, 0, 1, 1,
+                                       tab, len(s.interior), 0, 0, 0, 0,
+                                       0]))
+            continue
+        dst[i] = work
+        work += s.n
+        tab = len(table)
+        table.extend(s.ranks)
+        if s.src >= 0:
+            x = steps[s.src]
+            xn, xd, xlo, seed = x.n, len(x.ranks), x.lo, 0
+        else:
+            ranks = sorted({r for r, _ in s.seed})
+            xn, xd, xlo = len(ranks), len(ranks), 1
+            seed = csr([[sid for r, sid in s.seed if r == x]
+                        for x in ranks])
+        kids = csr(s.kids) if s.kids else 0
+        rows.append((s.level, i, [s.kind, 0, s.n, dst[i],
+                                  dst[s.src] if s.src >= 0 else -1, s.hi,
+                                  len(s.ranks), s.lo, s.span, tab, s.lev,
+                                  xn, xd, xlo, kids, seed]))
+        if s.pairs:
+            e = s.targets()
+            adj = dict(s.pairs)
+            tab = len(table)
+            block = []
+            for x in e:
+                block.append([x, s.ranks.index(x) if x in adj else -1,
+                              [ix for ix, r in enumerate(s.ranks)
+                               if adj[r] == x]])
+            pos = tab + 4 * len(e)
+            for x, own, partners in block:
+                table.extend([x, own, pos, len(partners)])
+                pos += len(partners)
+            for _, _, partners in block:
+                table.extend(partners)
+            rows.append((phase[i], i, [EMIT, 0, s.hi * len(e) * s.lo,
+                                       dst[i], -1, s.hi, len(s.ranks), s.lo,
+                                       s.span, tab, len(e), 0, 0, 0, 0, 0]))
+    used = {p: q for q, p in enumerate(sorted({r[0] for r in rows} | {0}))}
+    rows = [(used[p], i, row) for p, i, row in rows]  # no empty phase
+    order = sorted(range(len(rows)), key=lambda q: rows[q][0])
+    n_phases = len(used)
+    items, item_step, phase_ptr, totals = [], [], [0], [0] * n_phases
+    for q in order:
+        p, i, row = rows[q]
+        item_step.append(i)
+        while len(phase_ptr) <= p:
+            phase_ptr.append(len(items))
+        row[1] = totals[p]
+        totals[p] += row[2]
+        items.append(_with_magic(row, a, k))
+    while len(phase_ptr) <= n_phases:
+        phase_ptr.append(len(items))
+    if any(x >= 2**31 for x in table):
+        raise ValueError("the sweep's table outgrows int32")
     return SweepPlan(
-        steps=np.asarray(rows, dtype=np.int64).reshape(-1, len(STEP_FIELDS)),
-        seed_rank=np.asarray(seed_rank, dtype=np.int32),
-        seed_sid=np.asarray(seed_sid, dtype=np.int32),
-        pairs=np.asarray(pairs, dtype=np.int32).reshape(-1, 2),
-        interior=np.asarray(interior, dtype=np.int32).reshape(-1, 3),
-        num_groups=len(groups),
+        steps=tuple(steps),
+        items=np.asarray(items, dtype=np.int64).reshape(-1,
+                                                        len(ITEM_FIELDS)),
+        item_step=np.asarray(item_step, dtype=np.int64),
+        phase_ptr=np.asarray(phase_ptr, dtype=np.int64),
+        table=np.asarray(table, dtype=np.int32),
+        work_size=work, max_phase=max(totals + [n]), num_groups=len(groups),
     )
 
 
 @dataclasses.dataclass
 class DeviceProgram:
     """A :class:`DenseProgram`, its sweep plan and its tables on one
-    device (CSR of each signature's pairs in pair order for K4)."""
+    device (CSR of each signature's pairs in pair order for K4; K5's
+    items, table, work vectors and grid-barrier state on a card)."""
 
     prog: DenseProgram
     plan: SweepPlan
@@ -365,10 +636,11 @@ class DeviceProgram:
     pair_sig: torch.Tensor
     csr_ptr: torch.Tensor
     csr_world: torch.Tensor
-    seed_rank: torch.Tensor
-    seed_sid: torch.Tensor
-    pairs: torch.Tensor
-    interior: torch.Tensor
+    items: torch.Tensor
+    phase_ptr: torch.Tensor
+    table: torch.Tensor
+    work: torch.Tensor | None
+    barrier: torch.Tensor | None
 
 
 def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
@@ -386,6 +658,7 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
 
     i32, f64 = torch.int32, config.DEFAULT_FLOAT
     w_const = dev(prog.w_const, f64)
+    on_card = w_const.device.type == "cuda"
     return DeviceProgram(
         prog=prog, plan=plan, device=w_const.device,  # "cuda" -> "cuda:0"
         w_num=dev(prog.w_num, i32), w_den=dev(prog.w_den, i32),
@@ -394,8 +667,13 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
         pair_sig=dev(prog.pair_sig, i32),
         csr_ptr=dev(csr_ptr, i32),
         csr_world=dev(prog.pair_world[order], i32),
-        seed_rank=dev(plan.seed_rank, i32), seed_sid=dev(plan.seed_sid, i32),
-        pairs=dev(plan.pairs, i32), interior=dev(plan.interior, i32),
+        items=dev(plan.items, torch.int64),
+        phase_ptr=dev(plan.phase_ptr, torch.int64),
+        table=dev(plan.table, i32),
+        work=(torch.empty(max(plan.work_size, 1), dtype=f64,
+                          device=w_const.device) if on_card else None),
+        barrier=(torch.zeros(2, dtype=i32, device=w_const.device)
+                 if on_card else None),
     )
 
 
@@ -417,97 +695,128 @@ def _digit_sum_first(x: torch.Tensor, a: int) -> torch.Tensor:
     return c
 
 
-# --- K3: pyramid and ratio tables ----------------------------------------------
+# --- K3: the pyramid -----------------------------------------------------------
 
 
-def pyramid_ratios_plain(p: torch.Tensor, a: int, k: int):
-    """Plain version of K3: ``(pyr, rat)``, the flat pyramid
-    ``[lv[k], ..., lv[0], 1]`` and the ratio tables in `ratio_offsets`'
-    layout, ``r_le[j] = g(lv[j], tile(lv[j-1], A))``,
-    ``r_re = g(lv[k], repeat(lv[k-1], A))``."""
-    pyramid_ratios_plain.calls += 1
-    lv = [None] * (k + 1)
-    lv[k] = p
+def pyramid_tile_digits(a: int, k: int) -> int:
+    """m: K3's first launch sums tiles of A^m entries of p, the largest
+    power of A up to 8,192 doubles (at most k digits)."""
+    m = 1
+    while m < k and a ** (m + 1) <= 8192:
+        m += 1
+    return m
+
+
+def pyramid_launches(a: int, k: int) -> int:
+    """K3's launches: one when a tile holds all of p, else two."""
+    return 1 if pyramid_tile_digits(a, k) == k else 2
+
+
+def pyramid_plain(p: torch.Tensor, a: int, k: int) -> torch.Tensor:
+    """Plain version of K3: the pyramid below p, ``[lv[k-1], ..., lv[0],
+    1]`` (the flat pyramid less its level k, which is p), each level
+    summed over its trailing digit in digit order."""
+    pyramid_plain.calls += 1
+    lv, cur = [], p
     for j in range(k - 1, -1, -1):
-        lv[j] = _digit_sum_last(lv[j + 1], a)
-    pyr = torch.cat([lv[j] for j in range(k, -1, -1)]
-                    + [torch.ones(1, dtype=p.dtype, device=p.device)])
-    tables = [guarded_ratio(lv[j], lv[j - 1].repeat(a))
-              for j in range(1, k + 1)]
-    tables.append(guarded_ratio(lv[k], torch.repeat_interleave(lv[k - 1], a)))
-    return pyr, torch.cat(tables)
+        cur = _digit_sum_last(cur, a)
+        lv.append(cur)
+    return torch.cat(lv + [torch.ones(1, dtype=p.dtype, device=p.device)])
 
 
-pyramid_ratios_plain.calls = 0
+pyramid_plain.calls = 0
 
 
-def pyramid_ratios(p: torch.Tensor, a: int, k: int):
-    """K3: ``(pyr, rat)`` of a float64 SPD vector ``p`` [A^k]; the kernel
-    for a CUDA tensor (k + 1 launches), the plain version for a CPU one."""
-    if not cuda.on_card(p, "pyramid_ratios"):
-        return pyramid_ratios_plain(p, a, k)
+def pyramid(p: torch.Tensor, a: int, k: int) -> torch.Tensor:
+    """K3: the pyramid below a float64 SPD vector ``p`` [A^k] (see
+    `pyramid_plain`); the kernel for a CUDA tensor (`pyramid_launches`),
+    the plain version for a CPU one."""
+    if not cuda.on_card(p, "pyramid"):
+        return pyramid_plain(p, a, k)
     if p.dtype != torch.float64 or p.shape != (a**k,):
         raise TypeError(f"p must be a float64 [{a**k}] tensor")
     p = p.contiguous()
-    _, pyr_total = pyramid_offsets(a, k)
-    pyr = torch.empty(pyr_total, dtype=p.dtype, device=p.device)
-    rat = torch.empty(ratio_offsets(a, k)[1], dtype=p.dtype, device=p.device)
+    low = torch.empty(pyramid_offsets(a, k)[1] - a**k, dtype=p.dtype,
+                      device=p.device)
     lib = cuda.load()
     with torch.cuda.device(p.device):
-        rc = lib.ckpe_pyramid_ratios(p.data_ptr(), a, k, pyr.data_ptr(),
-                                     rat.data_ptr(), cuda.stream(p))
-    cuda.check(rc, "pyramid_ratios", lib)
-    pyramid_ratios.launches += k + 1
-    return pyr, rat
+        rc = lib.ckpe_pyramid(p.data_ptr(), a, k, pyramid_tile_digits(a, k),
+                              low.data_ptr(), cuda.stream(p))
+    cuda.check(rc, "pyramid", lib)
+    pyramid.launches += pyramid_launches(a, k)
+    return low
 
 
-pyramid_ratios.launches = 0
+pyramid.launches = 0
+
+
+def levels(p: torch.Tensor, low: torch.Tensor, a: int, k: int) -> list:
+    """lv[0..k] as views of p (level k) and the lower pyramid."""
+    off, _ = pyramid_offsets(a, k)
+    return [low[off[j] - a**k:off[j] - a**k + a**j] for j in range(k)] + [p]
+
+
+def ratio_tables_plain(p: torch.Tensor, low: torch.Tensor, a: int, k: int):
+    """The guarded ratio tables in `ratio_offsets`' layout, ``r_le[j] =
+    g(lv[j], tile(lv[j-1], A))``, ``r_re = g(p, repeat(lv[k-1], A))``:
+    the yardstick of K5's ratio rule, which forms them at the live
+    windows from the pyramid."""
+    lv = levels(p, low, a, k)
+    tables = [guarded_ratio(lv[j], lv[j - 1].repeat(a))
+              for j in range(1, k + 1)]
+    tables.append(guarded_ratio(p, torch.repeat_interleave(lv[k - 1], a)))
+    return torch.cat(tables)
 
 
 # --- K4: signature weights -----------------------------------------------------
 
 
-def signature_weights_plain(dp: DeviceProgram, pyr: torch.Tensor):
+def signature_weights_plain(dp: DeviceProgram, p: torch.Tensor,
+                            low: torch.Tensor):
     """Plain version of K4: ``s[sig] = sum over the pairs of sig of
     w_const[w] * prod_c g(pyr[w_num[w, c]], pyr[w_den[w, c]])``, the
-    product in chain order."""
+    product in chain order, pyr = [p, low]."""
     signature_weights_plain.calls += 1
+    pyr = torch.cat([p, low])
     g = guarded_ratio(pyr[dp.w_num.long()], pyr[dp.w_den.long()])
     prod = g[:, 0].clone()
     for c in range(1, g.shape[1]):
         prod = prod * g[:, c]
     wv = dp.w_const * prod
-    s = torch.zeros(dp.prog.num_signatures, dtype=pyr.dtype,
-                    device=pyr.device)
+    s = torch.zeros(dp.prog.num_signatures, dtype=p.dtype, device=p.device)
     return s.index_add_(0, dp.pair_sig.long(), wv[dp.pair_world.long()])
 
 
 signature_weights_plain.calls = 0
 
 
-def signature_weights(dp: DeviceProgram, pyr: torch.Tensor):
-    """K4: signature weights [num_signatures] from the flat pyramid; the
-    kernel for a CUDA tensor (one launch), the plain version for a CPU
-    one."""
-    if not cuda.on_card(pyr, "signature_weights"):
-        return signature_weights_plain(dp, pyr)
+def _check_pyramid(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor):
     prog = dp.prog
-    if pyr.dtype != torch.float64 or pyr.shape != (prog.pyramid_size,):
-        raise TypeError(f"pyr must be a float64 [{prog.pyramid_size}] "
-                        "tensor")
-    if pyr.device != dp.device:
-        raise ValueError(f"pyr on {pyr.device}, the program on {dp.device}")
-    pyr = pyr.contiguous()
-    wv = torch.empty(prog.num_worlds, dtype=pyr.dtype, device=pyr.device)
-    s = torch.empty(prog.num_signatures, dtype=pyr.dtype, device=pyr.device)
+    n = prog.state_size
+    if (p.dtype != torch.float64 or low.dtype != torch.float64
+            or p.shape != (n,) or low.shape != (prog.pyramid_size - n,)):
+        raise TypeError(f"p must be a float64 [{n}] tensor and low K3's "
+                        f"float64 [{prog.pyramid_size - n}] output")
+    if p.device != dp.device or low.device != dp.device:
+        raise ValueError(f"p on {p.device}, low on {low.device}, the "
+                         f"program on {dp.device}")
+    return p.contiguous(), low.contiguous()
+
+
+def signature_weights(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor):
+    """K4: signature weights [num_signatures] from p and the pyramid
+    below it; the kernel for a CUDA tensor (one launch), the plain
+    version for a CPU one."""
+    if not cuda.on_card(p, "signature_weights"):
+        return signature_weights_plain(dp, p, low)
+    prog = dp.prog
+    p, low = _check_pyramid(dp, p, low)
+    wv = torch.empty(prog.num_worlds, dtype=p.dtype, device=p.device)
+    s = torch.empty(prog.num_signatures, dtype=p.dtype, device=p.device)
     lib = cuda.load()
-    with torch.cuda.device(pyr.device):
-        rc = lib.ckpe_signature_weights(
-            pyr.data_ptr(), dp.w_num.data_ptr(), dp.w_den.data_ptr(),
-            dp.w_const.data_ptr(), prog.num_worlds, prog.w_num.shape[1],
-            dp.csr_ptr.data_ptr(), dp.csr_world.data_ptr(),
-            prog.num_signatures, wv.data_ptr(), s.data_ptr(),
-            cuda.stream(pyr))
+    with torch.cuda.device(p.device):
+        rc = lib.ckpe_signature_weights(*_k4_args(dp, p, low, wv, s),
+                                        cuda.stream(p))
     cuda.check(rc, "signature_weights", lib)
     signature_weights.launches += 1
     return s
@@ -516,84 +825,104 @@ def signature_weights(dp: DeviceProgram, pyr: torch.Tensor):
 signature_weights.launches = 0
 
 
+def _k4_args(dp, p, low, wv, s):
+    prog = dp.prog
+    return (p.data_ptr(), prog.state_size, low.data_ptr(),
+            dp.w_num.data_ptr(), dp.w_den.data_ptr(), dp.w_const.data_ptr(),
+            prog.num_worlds, prog.w_num.shape[1], dp.csr_ptr.data_ptr(),
+            dp.csr_world.data_ptr(), prog.num_signatures, wv.data_ptr(),
+            s.data_ptr())
+
+
 # --- K5: the sweep -------------------------------------------------------------
 
 
-def _seed_dense(dp: DeviceProgram, s: torch.Tensor, off: int, length: int,
-                size: int) -> torch.Tensor:
-    """A sparse seed as a dense one-hot sum over ``size`` ranks."""
-    out = torch.zeros(size, dtype=s.dtype, device=s.device)
-    ranks = dp.seed_rank[off:off + length].long()
-    return out.index_add_(0, ranks, s[dp.seed_sid[off:off + length].long()])
+def _seed_dense(step: Step, s: torch.Tensor) -> torch.Tensor:
+    """A step's seed as a dense one-hot sum over ``step.seed_size`` ranks
+    (equal ranks in member order)."""
+    out = torch.zeros(step.seed_size, dtype=s.dtype, device=s.device)
+    ranks = torch.as_tensor([r for r, _ in step.seed], device=s.device)
+    sids = torch.as_tensor([x for _, x in step.seed], device=s.device)
+    return out.index_add_(0, ranks, s[sids])
 
 
-def sweep_step_plain(kind: int, src: torch.Tensor, ratio, a: int,
-                     n_out: int) -> torch.Tensor:
-    """Plain version of one K5 step's value t (`csrc/sweep_rule.cuh`):
-    ``src`` is the dense previous vector (a seed made dense), ``ratio``
-    the step's table."""
+def sweep_step_plain(step: Step, src: torch.Tensor, tables: dict,
+                     a: int) -> torch.Tensor:
+    """Plain version of one step's dense vector t (`_apply_group`'s):
+    ``src`` is the dense previous vector (a seed made dense), ``tables``
+    the ratio tables by name ("le", j) and "re"."""
+    kind = step.kind
     if kind == IDENT:
         return src
     if kind == EXTEND:
-        return ratio * src.repeat(n_out // src.numel())
+        return tables["le", step.lev] * src.repeat(a)
     if kind == SHIFT:
-        return ratio * _digit_sum_last(src, a).repeat(a)
+        return tables["le", step.lev] * _digit_sum_last(src, a).repeat(a)
     if kind == RIGHT:
-        return torch.repeat_interleave(src, a) * ratio
-    if kind == RSHIFT:
-        return torch.repeat_interleave(_digit_sum_first(src, a), a) * ratio
-    raise ValueError(f"unknown sweep step kind {kind}")
+        return torch.repeat_interleave(src, a) * tables["re"]
+    if kind in (RSHIFT, RSHIFT_RUN):
+        return torch.repeat_interleave(_digit_sum_first(src, a),
+                                       a) * tables["re"]
+    raise ValueError(f"step kind {kind} forms no vector")
 
 
 def emit_plain(dy: torch.Tensor, t: torch.Tensor, lo: int, span: int,
-               pairs: torch.Tensor) -> None:
+               pairs) -> None:
     """Plain version of a step's +-emission, in place: ``dy`` loses t at
     every window whose run digits are an orig rank and gains it at the
     adjusted rank, as `_apply_group`'s sub-slice scatter does."""
-    o, adj = pairs[:, 0].long(), pairs[:, 1].long()
+    pairs = torch.as_tensor(pairs, device=dy.device).reshape(-1, 2)
+    o, adj = pairs[:, 0], pairs[:, 1]
     d3 = dy.view(-1, span, lo)
     sub = t.view(-1, span, lo)[:, o, :]
     d3.index_add_(1, o, -sub)
     d3.index_add_(1, adj, sub)
 
 
-def sweep_plain(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor,
-                out: torch.Tensor | None = None):
-    """Plain version of K5: every group's sweep into ``out`` (a new dy
-    [A^k] when None)."""
+def interior_plain(dy: torch.Tensor, s: torch.Tensor, ops) -> None:
+    """Plain version of a group's interior emissions (l0 > k), in member
+    order: each op (rank, signature id, sign) adds +-s[sid] at rank."""
+    for rank, sid, sign in ops:
+        dy[rank] += -s[sid] if sign < 0 else s[sid]
+
+
+def named_tables(p, low, a, k) -> dict:
+    rat = ratio_tables_plain(p, low, a, k)
+    off, _ = ratio_offsets(a, k)
+    tables = {("le", j): rat[off[j]:off[j] + a**j] for j in range(1, k + 1)}
+    tables["re"] = rat[off["re"]:]
+    return tables
+
+
+def sweep_plain(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
+                s: torch.Tensor, out: torch.Tensor | None = None):
+    """Plain version of K5: every group's dense sweep into ``out`` (a new
+    dy [A^k] when None), each dy window taking its terms in plan order,
+    K5's order."""
     sweep_plain.calls += 1
     a, k = dp.prog.size_a, dp.prog.cl_k
     n = a**k
     dy = (torch.zeros(n, dtype=s.dtype, device=s.device) if out is None
           else _checked_out(out, n, s.device).zero_())
-    bufs = {}
-    for row in dp.plan.steps.tolist():
-        f = dict(zip(STEP_FIELDS, row))
-        if f["kind"] == INTERIOR:
-            ops = dp.interior[f["seed_off"]:f["seed_off"] + f["seed_len"]]
-            sign = ops[:, 2].tolist()
-            start = 0
-            for q in range(1, len(sign) + 1):
-                if q == len(sign) or sign[q] != sign[start]:
-                    w = s[ops[start:q, 1].long()]
-                    dy.index_add_(0, ops[start:q, 0].long(),
-                                  -w if sign[start] < 0 else w)
-                    start = q
+    tables = named_tables(p, low, a, k)
+    readers = collections.Counter(st.src for st in dp.plan.steps)
+    vecs = {}  # the vectors a later step still reads
+    for i, step in enumerate(dp.plan.steps):
+        if step.kind == INTERIOR:
+            interior_plain(dy, s, step.interior)
             continue
-        kind, n_out = f["kind"], f["n_out"]
-        if f["src"] >= 0:
-            src = bufs[f["src"]]
+        if step.src >= 0:
+            src = vecs[step.src]
+            readers[step.src] -= 1
+            if not readers[step.src]:
+                del vecs[step.src]
         else:
-            size = {IDENT: n_out, EXTEND: f["n_src"]}.get(kind, n_out // a)
-            src = _seed_dense(dp, s, f["seed_off"], f["seed_len"], size)
-        ratio = (rat[f["ratio"]:f["ratio"] + n_out] if f["ratio"] >= 0
-                 else None)
-        t = sweep_step_plain(kind, src, ratio, a, n_out)
-        if f["emit"]:
-            emit_plain(dy, t, f["lo"], f["span"],
-                       dp.pairs[f["pair_off"]:f["pair_off"] + f["n_pairs"]])
-        if f["dst"] >= 0:
-            bufs[f["dst"]] = t
+            src = _seed_dense(step, s)
+        t = sweep_step_plain(step, src, tables, a)
+        if step.pairs:
+            emit_plain(dy, t, step.lo, step.span, step.pairs)
+        if readers[i]:
+            vecs[i] = t
     return dy
 
 
@@ -608,36 +937,35 @@ def _checked_out(out: torch.Tensor, n: int, device) -> torch.Tensor:
     return out
 
 
-def sweep(dp: DeviceProgram, rat: torch.Tensor, s: torch.Tensor,
-          out: torch.Tensor | None = None):
-    """K5: dp/dt [A^k] from the ratio tables and signature weights, into
-    ``out`` (a new tensor when None); the kernel for CUDA tensors (one
-    launch a step of ``dp.plan``, one C call), the plain version for CPU
-    ones."""
-    if not cuda.on_card(rat, "sweep"):
-        return sweep_plain(dp, rat, s, out)
-    a, k = dp.prog.size_a, dp.prog.cl_k
-    n = a**k
-    if rat.device != dp.device or s.device != dp.device:
-        raise ValueError("rat, s and the program must share one card")
-    if (rat.dtype != torch.float64 or s.dtype != torch.float64
-            or rat.shape != (ratio_offsets(a, k)[1],)
-            or s.shape != (dp.prog.num_signatures,)):
-        raise TypeError("rat and s must be float64 K3 and K4 outputs")
-    rat, s = rat.contiguous(), s.contiguous()
-    dy = (torch.empty(n, dtype=torch.float64, device=rat.device)
-          if out is None else _checked_out(out, n, rat.device))
-    work = torch.empty(2 * n + n // a, dtype=torch.float64, device=rat.device)
-    steps = np.ascontiguousarray(dp.plan.steps)
+def _k5_args(dp, p, low, s, dy):
+    prog, plan = dp.prog, dp.plan
+    return (dp.items.data_ptr(), dp.phase_ptr.data_ptr(), plan.num_phases,
+            plan.max_phase, dp.table.data_ptr(), dp.work.data_ptr(),
+            dy.data_ptr(), prog.state_size, p.data_ptr(), low.data_ptr(),
+            s.data_ptr(), prog.size_a, prog.cl_k, dp.barrier.data_ptr())
+
+
+def sweep(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
+          s: torch.Tensor, out: torch.Tensor | None = None):
+    """K5: dp/dt [A^k] from p, the pyramid below it and the signature
+    weights, into ``out`` (a new tensor when None); the kernel for CUDA
+    tensors (one launch), the plain version for CPU ones."""
+    if not cuda.on_card(p, "sweep"):
+        return sweep_plain(dp, p, low, s, out)
+    p, low = _check_pyramid(dp, p, low)
+    if (s.dtype != torch.float64 or s.shape != (dp.prog.num_signatures,)
+            or s.device != dp.device):
+        raise TypeError("s must be K4's float64 output on the program's "
+                        "card")
+    n = dp.prog.state_size
+    dy = (torch.empty(n, dtype=torch.float64, device=p.device)
+          if out is None else _checked_out(out, n, p.device))
     lib = cuda.load()
-    with torch.cuda.device(rat.device):
-        rc = lib.ckpe_dense_sweep(
-            steps.ctypes.data, len(steps), a, n, work.data_ptr(),
-            dy.data_ptr(), rat.data_ptr(), s.data_ptr(),
-            dp.seed_rank.data_ptr(), dp.seed_sid.data_ptr(),
-            dp.pairs.data_ptr(), dp.interior.data_ptr(), cuda.stream(rat))
+    with torch.cuda.device(p.device):
+        rc = lib.ckpe_dense_sweep(*_k5_args(dp, p, low, s.contiguous(), dy),
+                                  cuda.stream(p))
     cuda.check(rc, "sweep", lib)
-    sweep.launches += len(steps)
+    sweep.launches += 1
     return dy
 
 
@@ -647,26 +975,59 @@ sweep.launches = 0
 # --- dp/dt ---------------------------------------------------------------------
 
 
-def dy_dt_dense(dp: DeviceProgram, p: torch.Tensor) -> torch.Tensor:
+def dy_dt_dense(dp: DeviceProgram, p: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain dp/dt: K3's, K4's and K5's plain versions in turn, on ``p``'s
-    device."""
+    device, into ``out`` as `sweep_plain`."""
     a, k = dp.prog.size_a, dp.prog.cl_k
-    pyr, rat = pyramid_ratios_plain(p.reshape(-1), a, k)
-    return sweep_plain(dp, rat, signature_weights_plain(dp, pyr))
+    p = p.reshape(-1)
+    low = pyramid_plain(p, a, k)
+    return sweep_plain(dp, p, low, signature_weights_plain(dp, p, low), out)
+
+
+def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """dp/dt of a float64 ``p`` [A^k] into ``out`` (a new tensor when
+    None): on a card K3, K4 and K5 through one C call
+    (`ckpe_dense_rhs`), on the CPU their plain versions."""
+    a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
+    if not cuda.on_card(p, "dense_rhs"):
+        return dy_dt_dense(dp, p, out)
+    low = torch.empty(dp.prog.pyramid_size - n, dtype=torch.float64,
+                      device=p.device)
+    p, low = _check_pyramid(dp, p, low)
+    wv = torch.empty(dp.prog.num_worlds, dtype=torch.float64,
+                     device=p.device)
+    s = torch.empty(dp.prog.num_signatures, dtype=torch.float64,
+                    device=p.device)
+    dy = (torch.empty(n, dtype=torch.float64, device=p.device)
+          if out is None else _checked_out(out, n, p.device))
+    lib = cuda.load()
+    with torch.cuda.device(p.device):
+        rc = lib.ckpe_dense_rhs(pyramid_tile_digits(a, k),
+                                *_k4_args(dp, p, low, wv, s),
+                                *_k5_args(dp, p, low, s, dy),
+                                cuda.stream(p))
+    cuda.check(rc, "dense_rhs", lib)
+    pyramid.launches += pyramid_launches(a, k)
+    signature_weights.launches += 1
+    sweep.launches += 1
+    return dy
 
 
 def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
                      device=None):
     """Builds ``fn(p, out=None) -> dp/dt`` (float64) for a dense program
-    on ``device`` (``cuda`` unless named): K3 -> K4 -> K5 on a card, their
-    plain versions on the CPU. ``p`` is a tensor or an array of A^k
-    values; it is moved to the device as float64. K5 writes dp/dt into
-    ``out`` where one is given (a solver's stage row), else into a new
-    tensor. ``with_mass`` (pruned programs) raises NotImplementedError."""
+    on ``device`` (``cuda`` unless named): K3 -> K4 -> K5 in one C call
+    on a card (`dense_rhs`), their plain versions on the CPU. ``p`` is a
+    tensor or an array of A^k values; it is moved to the device as
+    float64. K5 writes dp/dt into ``out`` where one is given (a solver's
+    stage row), else into a new tensor. ``with_mass`` (pruned programs)
+    raises NotImplementedError."""
     if with_mass:
         raise NotImplementedError(f"with_mass is {_UNPORTED}")
     dp = device_program(prog, device)
-    a, k, n = prog.size_a, prog.cl_k, prog.state_size
+    n = prog.state_size
 
     def fn(p, out=None):
         p = torch.as_tensor(p, dtype=torch.float64,
@@ -674,8 +1035,7 @@ def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
         if p.numel() != n:
             raise ValueError(f"p has {p.numel()} entries, the program "
                              f"{n}")
-        pyr, rat = pyramid_ratios(p, a, k)
-        return sweep(dp, rat, signature_weights(dp, pyr), out)
+        return dense_rhs(dp, p, out)
 
     fn.device_program = dp
     return fn

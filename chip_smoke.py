@@ -42,16 +42,21 @@ Phases (each prints its wall time; every check raises on failure):
    the canary exactly equal to its golden list; dp/dt by the kernels
    against the plain version on the card (rtol 1e-12, atol 1e-14) on
    the 13 cases of the JAX package's `tests/test_engine.py:18-32` and on
-   ex4 at cl_k 5-8 (43,046,721 states), each kernel alone against its
-   plain version at cl_k 5 and 8; the main path: ex4 scenarios a and b
-   at cl_k 5 solved to t=2000 (2,001 samples, rtol = atol = 1e-13)
-   through `markov_tapes.ode_integrate_ivp(backend="torch")`, K3-K6 each
+   ex4 at cl_k 5-8 (43,046,721 states); at each cl_k 5-8 the launches
+   an RHS (counted, and held to the plan's), K5's phases, its live
+   element-steps against a dense sweep's, each of K3-K6 alone against
+   its plain version (K3 and K5 also run twice for the same bits), and
+   K3, K5 and the RHS on the card and as the host paces them beside
+   their bounds and the RHS's floor (p read once, dy written once); the
+   main path: ex4 scenarios a and b at cl_k 5 solved to t=2000 (2,001
+   samples, rtol = atol = 1e-13) through
+   `markov_tapes.ode_integrate_ivp(backend="torch")`, K3-K6 each
    launched and no plain version called, the eight observables at
    t=2000 equal to the reference's oracles to rel 2e-6; the same two
    solves at cl_k 6 (531,441 states) within rel 0.05, abs 1e-9 of cl_k
-   5; each solve's seconds, steps and RHS calls, the RHS's time at cl_k
-   5-8 (also written into a padded stage row, into a row at a stride of
-   n, and copied in), and each kernel's time beside its bound, its plain
+   5; each solve's seconds, steps and RHS calls a second, the RHS also
+   written into a padded stage row, into a row at a stride of n and
+   copied in, and each kernel's time beside its bound, its plain
    version, the library call where one exists, and the host's cost a
    launch.
 
@@ -243,25 +248,26 @@ ORACLE_B = {
 SCENARIOS = (("a", 0.04, ORACLE_A), ("b", 0.01, ORACLE_B))
 T_END, N_SAMPLES, SOLVE_TOL = 2000.0, 2001, 1e-13
 ORACLE_REL, CONV_REL, CONV_ABS = 2e-6, 0.05, 1e-9
-RHS_CL_K, TIMED_CL_K, SOLVE_CL_K = (5, 6, 7, 8), (5, 8), (5, 6)
+RHS_CL_K, SOLVE_CL_K = (5, 6, 7, 8), (5, 6)
 SRC = "chemical_kinetics_and_program_execution_torch/csrc/"
 EXACT_KERNELS = {
-    "K3": ("K3 pyramid_ratios", SRC + "dense_rhs.cu",
-           "the JAX package's engine/dense.py:423 _levels, :432 "
-           "_ratio_tables; markov.py:174 guarded_ratio, :194 pyramid (XLA)"),
+    "K3": ("K3 pyramid", SRC + "dense_rhs.cu",
+           "the JAX package's engine/dense.py:423 _levels; markov.py:194 "
+           "pyramid (XLA)"),
     "K4": ("K4 signature_weights", SRC + "dense_rhs.cu",
            "the JAX package's engine/dense.py:464-468: markov.py:189 "
            "guarded_ratio_prod, then segment_sum (XLA)"),
-    "K5": ("K5 sweep_step", SRC + "dense_rhs.cu",
-           "the JAX package's engine/dense.py:310 _apply_group (XLA)"),
+    "K5": ("K5 sweep", SRC + "dense_rhs.cu",
+           "the JAX package's engine/dense.py:310 _apply_group, :432 "
+           "_ratio_tables; markov.py:174 guarded_ratio (XLA)"),
     "K6": ("K6 dop853_arith", SRC + "dop853.cu",
            "the JAX package's ode/dop853.py:157 odeint_dop853_dense; "
            "ode/streamed_solve.py:54-135 (XLA)"),
 }
-EXACT_WRAPPERS = {"K3": [tdense.pyramid_ratios],
+EXACT_WRAPPERS = {"K3": [tdense.pyramid],
                   "K4": [tdense.signature_weights], "K5": [tdense.sweep],
                   "K6": list(dop853.KERNELS)}
-EXACT_PLAIN = [tdense.pyramid_ratios_plain, tdense.signature_weights_plain,
+EXACT_PLAIN = [tdense.pyramid_plain, tdense.signature_weights_plain,
                tdense.sweep_plain, *dop853.PLAIN]
 
 
@@ -346,23 +352,72 @@ def solve_ex4(dev, cl_k, powered):
     return dict(zip(SEQS, obs[-1].tolist())), info, seconds, launches
 
 
+def k5_reads(dp):
+    """Distinct entries of p and of each lower level that K5's ratios
+    read at the plan's live windows (r_le[j] at level j and j - 1, r_re
+    and r_le[k] at p and lv[k-1])."""
+    a, k = dp.prog.size_a, dp.prog.cl_k
+    seen = {j: np.zeros(a**j, dtype=bool) for j in range(k + 1)}
+    for st in dp.plan.steps:
+        if st.kind in (tdense.INTERIOR, tdense.IDENT):
+            continue
+        j = st.live()
+        seen[st.lev][j] = True
+        if st.kind in (tdense.RIGHT, tdense.RSHIFT, tdense.RSHIFT_RUN):
+            seen[k - 1][j // a] = True
+        else:
+            seen[st.lev - 1][j % a ** (st.lev - 1)] = True
+    return sum(int(m.sum()) for m in seen.values())
+
+
+def k5_sector_bytes(dp):
+    """K5's traffic in whole 32-byte sectors, as its design moves it with
+    nothing found in L2: each compute step reads the sectors of p (or of
+    its level) and of the level below that its live windows' ratios
+    touch, reads its source and writes its vector (compact, so 8 bytes
+    an element), and each emission reads and writes the dy sectors of
+    its target windows and reads its vector. Steps whose run is the
+    trailing digits (lo = 1) touch a sector for few live windows."""
+    a, k = dp.prog.size_a, dp.prog.cl_k
+    total = 0
+    mask = np.zeros(a**k // 4 + 1, dtype=bool)
+
+    def sectors(idx):
+        mask[idx >> 2] = True
+        count = int(mask.sum())
+        mask[:] = False
+        return count
+
+    for st in dp.plan.steps:
+        if st.kind == tdense.INTERIOR:
+            continue
+        j = st.live()
+        total += 8 * 2 * st.n  # the source read, the vector written
+        if st.kind != tdense.IDENT:
+            den = (j // a if st.kind in (tdense.RIGHT, tdense.RSHIFT,
+                                         tdense.RSHIFT_RUN)
+                   else j % a ** (st.lev - 1))
+            total += 32 * (sectors(j) + sectors(den))
+        if st.pairs:
+            total += 32 * 2 * sectors(st.target_windows()) + 8 * st.n
+    return total
+
+
 def exact_bytes(dp):
     """Least bytes each of K3-K5 moves for one RHS (each input read once,
-    each output written once)."""
+    each output written once), and the RHS's floor (p read once, dy
+    written once)."""
     prog, plan = dp.prog, dp.plan
-    a, k, n = prog.size_a, prog.cl_k, prog.state_size
-    rat_len = tdense.ratio_offsets(a, k)[1]
-    k3 = 8 * (n + prog.pyramid_size + rat_len)
+    n = prog.state_size
+    k3 = 8 * prog.pyramid_size  # p read, the levels below written
     W, C = prog.w_num.shape
     gathered = len(np.union1d(prog.w_num, prog.w_den))
     k4 = (8 * W * C + 8 * W + 4 * (prog.num_signatures + 1)
           + 4 * len(prog.pair_world) + 8 * gathered
           + 8 * prog.num_signatures)
-    tables = {(r[5], r[1]) for r in plan.steps.tolist() if r[5] >= 0}
-    k5 = (8 * sum(size for _, size in tables) + 8 * prog.num_signatures
-          + plan.steps.nbytes + plan.seed_rank.nbytes + plan.seed_sid.nbytes
-          + plan.pairs.nbytes + plan.interior.nbytes + 8 * n)
-    return {"K3": k3, "K4": k4, "K5": k5}
+    k5 = (8 * n + 8 * k5_reads(dp) + 8 * prog.num_signatures
+          + plan.items.nbytes + plan.phase_ptr.nbytes + plan.table.nbytes)
+    return {"K3": k3, "K4": k4, "K5": k5, "floor": 16 * n}
 
 
 def time_exact_kernels(dp, p, gen, out):
@@ -372,37 +427,41 @@ def time_exact_kernels(dp, p, gen, out):
     differences."""
     a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
     err = {}
-    pyr, rat = tdense.pyramid_ratios(p, a, k)
-    want_pyr, want_rat = tdense.pyramid_ratios_plain(p, a, k)
-    err["K3"] = max(held_to_plain(pyr, want_pyr, f"K3 cl_k {k} pyramid"),
-                    held_to_plain(rat, want_rat, f"K3 cl_k {k} ratios"))
-    s = tdense.signature_weights(dp, pyr)
-    err["K4"] = held_to_plain(s, tdense.signature_weights_plain(dp, pyr),
+    low = tdense.pyramid(p, a, k)
+    err["K3"] = held_to_plain(low, tdense.pyramid_plain(p, a, k),
+                              f"K3 cl_k {k}")
+    if not torch.equal(low, tdense.pyramid(p, a, k)):
+        raise AssertionError(f"K3 cl_k {k}: two runs differ")
+    s = tdense.signature_weights(dp, p, low)
+    err["K4"] = held_to_plain(s, tdense.signature_weights_plain(dp, p, low),
                               f"K4 cl_k {k}")
-    dy = tdense.sweep(dp, rat, s)
-    err["K5"] = held_to_plain(dy, tdense.sweep_plain(dp, rat, s),
+    dy = tdense.sweep(dp, p, low, s)
+    err["K5"] = held_to_plain(dy, tdense.sweep_plain(dp, p, low, s),
                               f"K5 cl_k {k}")
-    del want_pyr, want_rat
+    if not torch.equal(dy, tdense.sweep(dp, p, low, s)):
+        raise AssertionError(f"K5 cl_k {k}: two runs differ")
     big = k >= 7
     reps, plain_reps = (3, 1) if big else (20, 3)
     bound = exact_bytes(dp)
-    per_call = {"K3": k + 1, "K4": 1, "K5": dp.plan.num_launches}
-    calls = {"K3": (lambda: tdense.pyramid_ratios(p, a, k),
-                    lambda: tdense.pyramid_ratios_plain(p, a, k)),
-             "K4": (lambda: tdense.signature_weights(dp, pyr),
-                    lambda: tdense.signature_weights_plain(dp, pyr)),
-             "K5": (lambda: tdense.sweep(dp, rat, s),
-                    lambda: tdense.sweep_plain(dp, rat, s))}
+    per_call = {"K3": tdense.pyramid_launches(a, k), "K4": 1,
+                "K5": dp.plan.num_launches}
+    calls = {"K3": (lambda: tdense.pyramid(p, a, k),
+                    lambda: tdense.pyramid_plain(p, a, k)),
+             "K4": (lambda: tdense.signature_weights(dp, p, low),
+                    lambda: tdense.signature_weights_plain(dp, p, low)),
+             "K5": (lambda: tdense.sweep(dp, p, low, s),
+                    lambda: tdense.sweep_plain(dp, p, low, s))}
     for name, (kern, plain) in calls.items():
         host = []
         ms = cuda_ms(kern, queued_reps(reps, per_call[name]), warmup=1,
                      host=host)
         out.setdefault(name, {})[k] = {
-            "ms": ms, "plain_ms": cuda_ms(plain, plain_reps, warmup=0),
+            "ms": ms, "paced_ms": wall_ms(kern, reps),
+            "plain_ms": cuda_ms(plain, plain_reps, warmup=0),
             "bound_ms": bound[name] / HBM_BYTES_PER_S * 1e3,
             "library_ms": None, "launches_per_call": per_call[name],
             "host_us_per_launch": host[0] * 1e3 / per_call[name]}
-    del pyr, rat, s, dy
+    del low, s, dy
     # K6 at this state size, on random stages.
     # The solver's layout: rows on 256-byte boundaries.
     ks = dop853.rows_tensor(16, n, p.device)
@@ -477,8 +536,8 @@ def exact_closure(dev, kernels):
     max_err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "RHS": 0.0}
     lib = cuda.load()
     say("K3-K6 entry points in the library built in phase 2: "
-        + ", ".join(n for n in ("ckpe_pyramid_ratios",
-                                "ckpe_signature_weights", "ckpe_dense_sweep",
+        + ", ".join(n for n in ("ckpe_pyramid", "ckpe_signature_weights",
+                                "ckpe_dense_sweep", "ckpe_dense_rhs",
                                 "ckpe_k6_stage", "ckpe_k6_norms",
                                 "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval")
                     if hasattr(lib, n)))
@@ -516,15 +575,30 @@ def exact_closure(dev, kernels):
             max_err["RHS"] = max(max_err["RHS"], held_to_plain(
                 fn(p), tdense.dy_dt_dense(dp, p), f"ex4 cl_k {cl_k} {name}"))
         reps = 3 if cl_k >= 7 else 20
-        launches = cl_k + 2 + dp.plan.num_launches
+        launches = (tdense.pyramid_launches(9, cl_k) + 1
+                    + dp.plan.num_launches)
+        zero_exact_counts()
+        fn(p0)
+        counted = sum(exact_launches().values())
+        if counted != launches:
+            raise AssertionError(f"cl_k {cl_k}: {counted} launches an RHS, "
+                                 f"planned {launches}")
         host = []
+        live, dense = dp.plan.element_steps
+        nbytes = exact_bytes(dp)
+        floor = nbytes.pop("floor")
         rhs[cl_k] = {"device_ms": cuda_ms(lambda: fn(p0),
                                           queued_reps(reps, launches),
                                           warmup=1, host=host),
                      "host_ms": host[0], "wall_ms": wall_ms(lambda: fn(p0),
                                                             reps),
-                     "launches": launches,
-                     "bytes_mb": sum(exact_bytes(dp).values()) / 1e6}
+                     "launches": launches, "phases": dp.plan.num_phases,
+                     "live_element_steps": live,
+                     "dense_element_steps": dense,
+                     "bytes_mb": sum(nbytes.values()) / 1e6,
+                     "k5_sector_mb": k5_sector_bytes(dp) / 1e6,
+                     "bound_ms": sum(nbytes.values()) / HBM_BYTES_PER_S * 1e3,
+                     "floor_ms": floor / HBM_BYTES_PER_S * 1e3}
         r = rhs[cl_k]
         # Where the RHS lands in the solver: K5 into a padded stage row
         # (`dop853.rows_tensor`, what the solver does), K5 into a row at a
@@ -548,18 +622,24 @@ def exact_closure(dev, kernels):
                 f"{[round(v * 1e3, 1) for v in r[f'{form}_wall_ms']]} us "
                 f"as paced, {r[f'{form}_device_ms'] * 1e3:.1f} on the card")
         say(f"ex4 cl_k {cl_k} ({prog.state_size} states, "
-            f"{dp.plan.num_groups} groups, {r['launches']} launches an RHS; "
-            f"p0 built in {p0_s:.2f} s): kernels == plain on p0 and a "
-            f"random SPD; RHS {r['device_ms'] * 1e3:.1f} us device, "
+            f"{dp.plan.num_groups} groups, {r['launches']} launches an RHS, "
+            f"K5 in {r['phases']} phases; live element-steps {live} "
+            f"({live / prog.state_size:.3f} A^k) against {dense} dense "
+            f"({dense / prog.state_size:.3f} A^k); p0 built in "
+            f"{p0_s:.2f} s): kernels == plain on p0 and a random SPD; RHS "
+            f"{r['device_ms'] * 1e3:.1f} us device, "
             f"{r['wall_ms'] * 1e3:.1f} us as the host paces it (host "
             f"{r['host_ms'] * 1e3:.1f} us to queue); K3-K5 bytes "
-            f"{r['bytes_mb']:.1f} MB")
-        if cl_k in TIMED_CL_K:
-            errs = time_exact_kernels(dp, p0, gen, times)
-            for name, e in errs.items():
-                max_err[name] = max(max_err[name], e)
-            say(f"cl_k {cl_k}: each of K3-K6 alone == its plain version "
-                f"(max |diff| {errs})")
+            f"{r['bytes_mb']:.1f} MB, their bound {r['bound_ms'] * 1e3:.2f} "
+            f"us; the RHS floor (p read, dy written once) "
+            f"{r['floor_ms'] * 1e3:.2f} us; K5's traffic in 32-byte sectors "
+            f"{r['k5_sector_mb']:.1f} MB "
+            f"({r['k5_sector_mb'] / 1e6 / HBM_BYTES_PER_S * 1e6:.2f} us)")
+        errs = time_exact_kernels(dp, p0, gen, times)
+        for name, e in errs.items():
+            max_err[name] = max(max_err[name], e)
+        say(f"cl_k {cl_k}: each of K3-K6 alone == its plain version "
+            f"(max |diff| {errs})")
         del fn, dp, p0, p
         torch.cuda.empty_cache()
 
@@ -604,7 +684,8 @@ def exact_closure(dev, kernels):
 
     for name in ("K3", "K4", "K5"):
         for cl_k, t in times[name].items():
-            say(f"{name} cl_k {cl_k}: {t['ms'] * 1e3:.2f} us a call "
+            say(f"{name} cl_k {cl_k}: {t['ms'] * 1e3:.2f} us a call on the "
+                f"card, {t['paced_ms'] * 1e3:.2f} as paced "
                 f"({t['launches_per_call']} launches, "
                 f"{t['ms'] * 1e3 / t['launches_per_call']:.2f} us each) "
                 f"against a bound of {t['bound_ms'] * 1e3:.3f} us; plain "
@@ -621,7 +702,7 @@ def exact_closure(dev, kernels):
     say("at cl_k 5 and 6 the working set (under 50 MB) sits in the 50 MB "
         "L2: those times are launches and host pacing, not bytes")
 
-    small, full = TIMED_CL_K
+    small, full = RHS_CL_K[0], RHS_CL_K[-1]
     for key, (name, source, replaces) in EXACT_KERNELS.items():
         t5 = times[key][small]
         if key == "K6":

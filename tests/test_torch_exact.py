@@ -208,7 +208,9 @@ def test_dense_long_signature_pops():
     tprog = tdense.compile_dense(_LONG_TAG, cl_k)
     assert max(p.length for p in tprog.plans) > cl_k
     plan = tdense.sweep_plan(tprog)
-    interior = plan.interior
+    interior = np.asarray([op for st in plan.steps
+                           if st.kind == tdense.INTERIOR
+                           for op in st.interior])
     assert len(interior) and len(np.unique(interior[:, 0])) < len(interior)
     fn = tdense.make_dense_dy_dt(tprog, device="cpu")
     jfn = jdense.make_dense_dy_dt(jdense.compile_dense(_LONG_TAG, cl_k))
@@ -453,20 +455,24 @@ def test_initial_states_equal_jax(name, kwargs):
                                       ("ex6-mini-bff-lite", 2)])
 def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
     """K3's and K4's plain versions (the CPU path of their wrappers)
-    against the JAX package's `_levels`, `_ratio_tables`, `pyramid` and
-    the world-to-signature stage."""
+    against the JAX package's `_levels`, `pyramid` and the
+    world-to-signature stage, and the plain ratio function (the
+    yardstick of K5's ratio rule) against `_ratio_tables`."""
     jprog, tprog = _programs(tag, cl_k)
     a = tprog.size_a
     p = _spd(np.random.RandomState(12), tprog.state_size, True)
-    pyr, rat = tdense.pyramid_ratios(torch.as_tensor(p), a, cl_k)
+    pt = torch.as_tensor(p)
+    low = tdense.pyramid(pt, a, cl_k)
     jp = jnp.asarray(p)
-    np.testing.assert_allclose(pyr.numpy(), np.asarray(
+    np.testing.assert_allclose(torch.cat([pt, low]).numpy(), np.asarray(
         jmarkov.pyramid(jp, a, cl_k)), rtol=1e-14)
+    rat = tdense.ratio_tables_plain(pt, low, a, cl_k)
     r_le, r_re = jdense._ratio_tables(jdense._levels(jp, a, cl_k), a, cl_k)
     want = np.concatenate([np.asarray(r) for r in r_le[1:]]
                           + [np.asarray(r_re)])
     np.testing.assert_allclose(rat.numpy(), want, rtol=1e-14)
-    s = tdense.signature_weights(tdense.device_program(tprog, "cpu"), pyr)
+    s = tdense.signature_weights(tdense.device_program(tprog, "cpu"), pt,
+                                 low)
     jpyr = jmarkov.pyramid(jp, a, cl_k)
     wv = jprog.w_const * np.asarray(jmarkov.guarded_ratio_prod(
         jpyr, jnp.asarray(jprog.w_num), jnp.asarray(jprog.w_den)))
@@ -538,101 +544,157 @@ def test_markov_tapes_validation():
 # --- K5's per-element rule, built with the host's C++ compiler ------------
 
 
-_K5_HOST_STEP = r"""
+_K5_HOST_ITEM = r"""
 #include "sweep_rule.cuh"
-extern "C" void k5_host_step(int kind, int a, unsigned n_out, unsigned n_src,
-                             const double* src, const int* seed_rank,
-                             const int* seed_sid, int seed_len,
-                             const double* sig_w, const double* ratio,
-                             double* dst, double* dy, unsigned lo,
-                             unsigned span, const int* pairs, int n_pairs) {
-  const K5Step s{kind, a, n_out, n_src, src, seed_rank, seed_sid, seed_len,
-                 sig_w, ratio, dst, dy, lo, span, pairs, n_pairs};
-  for (unsigned j = 0; j < n_out; ++j) k5_element(s, j);
+extern "C" void k5_host_item(int a, int k, const double* p,
+                             const double* low, const double* s,
+                             const int* table, double* work, double* dy,
+                             const long long* item) {
+  K5Ctx c;
+  c.a = a;
+  c.k = k;
+  c.p = p;
+  c.low = low;
+  c.s = s;
+  c.table = table;
+  c.work = work;
+  c.dy = dy;
+  k5_levels(c);
+  const K5Item it = k5_item(item, c);
+  for (unsigned e = 0; e < it.n; ++e) k5_element(c, it, e);
 }
 """
 
 
 @pytest.fixture(scope="module")
-def k5_host_step(tmp_path_factory):
+def k5_host_item(tmp_path_factory):
     """K5's rule (`csrc/sweep_rule.cuh`) built with the host's C++
     compiler, without contraction of products into sums, into a loop
-    over every element of one step."""
+    over every element of one item."""
     cxx = next((c for c in (shutil.which(n) for n in ("g++", "c++",
                                                       "clang++")) if c), None)
     if cxx is None:
         pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
     out = tmp_path_factory.mktemp("k5")
-    (out / "k5.cpp").write_text(_K5_HOST_STEP)
+    (out / "k5.cpp").write_text(_K5_HOST_ITEM)
     lib = out / "libk5.so"
     subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
                     "-fPIC", "-I", str(cuda.CSRC_DIR), "-o", str(lib),
                     str(out / "k5.cpp")], check=True, capture_output=True,
                    timeout=120)
-    fn = ctypes.CDLL(str(lib)).k5_host_step
-    u, i, p = ctypes.c_uint, ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, u, u, p, p, p, i, p, p, p, p, u, u, p, i]
+    fn = ctypes.CDLL(str(lib)).k5_host_item
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, i, p, p, p, p, p, p, p]
     fn.restype = None
     return fn
+
+
+def _dense_steps(dp, p, low, s):
+    """Every step's dense vector by the plain step, in plan order."""
+    a, k = dp.prog.size_a, dp.prog.cl_k
+    tables = tdense.named_tables(p, low, a, k)
+    vecs = {}
+    for i, st in enumerate(dp.plan.steps):
+        if st.kind != tdense.INTERIOR:
+            src = (vecs[st.src] if st.src >= 0
+                   else tdense._seed_dense(st, s))
+            vecs[i] = tdense.sweep_step_plain(st, src, tables, a)
+    return vecs
+
+
+@pytest.mark.parametrize("tag,cl_k", [("ex4-chemical-turing", 3),
+                                      ("ex6-mini-bff-lite", 2),
+                                      (_LONG_TAG, 3)])
+def test_sweep_rule_matches_plain_step(k5_host_item, tag, cl_k):
+    """Every item of the plan in K5's order, computed for every element
+    by the kernel's rule (compact vectors over the live windows, seeds
+    read sparsely, ratios from the pyramid, the emission as a gather at
+    the target windows) and by the plain step (dense vectors, the
+    sub-slice scatter) from the same inputs: the live windows' t equal
+    bit for bit, every other window exactly 0 in the plain step, dy bit
+    for bit after each emission and at the end equal to `sweep_plain`'s
+    (plan order)."""
+    prog = tdense.compile_dense(tag, cl_k)
+    dp = tdense.device_program(prog, "cpu")
+    a, n = prog.size_a, prog.state_size
+    plan = dp.plan
+    p = torch.as_tensor(_spd(np.random.RandomState(13), n, True))
+    low = tdense.pyramid(p, a, cl_k)
+    s = tdense.signature_weights(dp, p, low)
+    dense = _dense_steps(dp, p, low, s)
+    work = torch.zeros(max(plan.work_size, 1), dtype=torch.float64)
+    table = torch.as_tensor(plan.table)
+    got_dy = torch.zeros(n, dtype=torch.float64)
+    want_dy = torch.zeros(n, dtype=torch.float64)
+    kinds = set()
+    for q, row in enumerate(plan.items):
+        row = np.ascontiguousarray(row)
+        st = plan.steps[plan.item_step[q]]
+        k5_host_item(a, cl_k, _ptr(p), _ptr(low), _ptr(s), _ptr(table),
+                     _ptr(work), _ptr(got_dy), row.ctypes.data)
+        op = int(row[0])
+        kinds.add((op, int(row[4]) < 0))
+        if op == tdense.INTERIOR:
+            tdense.interior_plain(want_dy, s, st.interior)
+        elif op == tdense.EMIT:
+            tdense.emit_plain(want_dy, dense[plan.item_step[q]], st.lo,
+                              st.span, st.pairs)
+        else:
+            want = dense[plan.item_step[q]]
+            live = torch.as_tensor(st.live())
+            got = work[row[3]:row[3] + row[2]]
+            assert torch.equal(got, want[live]), row
+            dead = torch.ones(want.numel(), dtype=torch.bool)
+            dead[live] = False
+            assert bool((want[dead] == 0).all()), row
+        assert torch.equal(got_dy, want_dy), row
+    assert torch.equal(got_dy, tdense.sweep_plain(dp, p, low, s))
+    assert {k for k, _ in kinds} >= {tdense.SHIFT, tdense.RIGHT,
+                                     tdense.EMIT}
+    if tag == "ex4-chemical-turing":  # every kind, from seeds and vectors
+        assert kinds == {
+            (tdense.IDENT, True), (tdense.EXTEND, True),
+            (tdense.EXTEND, False), (tdense.SHIFT, False),
+            (tdense.RIGHT, True), (tdense.RIGHT, False),
+            (tdense.RSHIFT, False), (tdense.RSHIFT_RUN, False),
+            (tdense.EMIT, True)}
+    if tag == _LONG_TAG:
+        assert (tdense.INTERIOR, True) in kinds
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-@pytest.mark.parametrize("tag,cl_k", [("ex4-chemical-turing", 3),
-                                      ("ex6-mini-bff-lite", 2),
-                                      (_LONG_TAG, 3)])
-def test_sweep_rule_matches_plain_step(k5_host_step, tag, cl_k):
-    """Every step of every group plan, computed for every window rank by
-    the kernel's rule (a sparse seed read by binary search, the emission
-    as a gather) and by the plain step (a dense seed, the sub-slice
-    scatter) from the same inputs: t and dy bit for bit."""
-    prog = tdense.compile_dense(tag, cl_k)
+@pytest.mark.parametrize("tag,cl_k", CASES, ids=IDS)
+def test_sweep_live_set_holds_every_nonzero(tag, cl_k):
+    """The guard on K5's zero-skipping: every nonzero of the plain
+    sweep's dense vectors lies in its step's live set, on a random SPD
+    with no zero entry."""
+    _, prog = _programs(tag, cl_k)
     dp = tdense.device_program(prog, "cpu")
-    a, n = prog.size_a, prog.state_size
-    p = torch.as_tensor(_spd(np.random.RandomState(13), n, True))
-    pyr, rat = tdense.pyramid_ratios(p, a, cl_k)
-    s = tdense.signature_weights(dp, pyr)
-    dy = torch.as_tensor(np.random.RandomState(14).rand(n) - 0.5)
-    bufs, kinds = {}, set()
-    for row in dp.plan.steps.tolist():
-        f = dict(zip(tdense.STEP_FIELDS, row))
-        if f["kind"] == tdense.INTERIOR:
-            continue
-        kind, n_out = f["kind"], f["n_out"]
-        kinds.add((kind, f["src"] < 0))
-        off, length = f["seed_off"], f["seed_len"]
-        if f["src"] >= 0:
-            src = bufs[f["src"]]
-        else:
-            size = {tdense.IDENT: n_out, tdense.EXTEND: f["n_src"]}.get(
-                kind, n_out // a)
-            src = tdense._seed_dense(dp, s, off, length, size)
-        ratio = (rat[f["ratio"]:f["ratio"] + n_out].contiguous()
-                 if f["ratio"] >= 0 else None)
-        pairs = dp.pairs[f["pair_off"]:f["pair_off"] + f["n_pairs"]]
-        want_t = tdense.sweep_step_plain(kind, src, ratio, a, n_out)
-        want_dy = dy.clone()
-        got_dy = dy.clone()
-        if f["emit"]:
-            tdense.emit_plain(want_dy, want_t, f["lo"], f["span"], pairs)
-        got_t = torch.empty(n_out, dtype=torch.float64)
-        k5_host_step(
-            kind, a, n_out, f["n_src"],
-            _ptr(src) if f["src"] >= 0 else None,
-            _ptr(dp.seed_rank[off:]), _ptr(dp.seed_sid[off:]), length,
-            _ptr(s), _ptr(ratio), _ptr(got_t),
-            _ptr(got_dy) if f["emit"] else None, f["lo"], f["span"],
-            _ptr(pairs.contiguous()), f["n_pairs"])
-        assert torch.equal(got_t, want_t), row
-        assert torch.equal(got_dy, want_dy), row
-        if f["dst"] >= 0:
-            bufs[f["dst"]] = want_t
-        dy = want_dy
-    assert {k for k, _ in kinds} >= {tdense.SHIFT, tdense.RIGHT}
-    if tag == "ex4-chemical-turing":  # every kind, from seeds and vectors
-        assert kinds == {(tdense.IDENT, True), (tdense.EXTEND, True),
-                         (tdense.EXTEND, False), (tdense.SHIFT, False),
-                         (tdense.RIGHT, True), (tdense.RIGHT, False),
-                         (tdense.RSHIFT, False)}
+    a = prog.size_a
+    p = torch.as_tensor(_spd(np.random.RandomState(15), prog.state_size))
+    low = tdense.pyramid(p, a, cl_k)
+    s = tdense.signature_weights(dp, p, low)
+    for i, t in _dense_steps(dp, p, low, s).items():
+        st = dp.plan.steps[i]
+        nonzero = set(torch.nonzero(t).reshape(-1).tolist())
+        assert nonzero <= set(st.live().tolist()), (tag, i)
+        assert t.numel() == st.hi * st.span * st.lo
+    live, dense = dp.plan.element_steps
+    assert live <= dense
+
+
+def test_nan_entry_gives_nonfinite_dy():
+    """A p with a NaN entry: dy is not finite, through the wrapper and
+    through the plain version (which K5 does not match element for
+    element there: the dense step's NaN * 0 lies outside the live
+    windows)."""
+    fn, prog = t_build("ex4-chemical-turing", 3, device="cpu")
+    p = _spd(np.random.RandomState(16), prog.state_size)
+    p[prog.state_size // 3] = np.nan
+    assert not torch.isfinite(fn(p)).all()
+    dp = fn.device_program
+    assert not torch.isfinite(tdense.dy_dt_dense(
+        dp, torch.as_tensor(p))).all()

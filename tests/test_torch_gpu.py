@@ -249,20 +249,25 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("cl_k", [3, 5, 8], ids=["small", "k5", "full"])
-def test_pyramid_ratios_kernel_matches_plain(cuda, cl_k):
-    """K3 (k + 1 launches) against its plain version on the card, ex4's
-    alphabet, a random SPD with exact zeros."""
+K3_CASES = [(9, k) for k in (3, 5, 6, 7, 8)] + [(2, 5), (2, 13), (2, 16),
+                                                (5, 6), (6, 3)]
+
+
+@pytest.mark.parametrize("a,cl_k", K3_CASES)
+def test_pyramid_kernel_matches_plain(cuda, a, cl_k):
+    """K3 (one launch when a tile holds p, else two) against its plain
+    version on the card, a random SPD with exact zeros: the same sums in
+    the same order, so the same bits; and the same bits twice."""
     rng = np.random.RandomState(cl_k)
-    p = _spd(rng, 9**cl_k, concentrated=True)
+    p = _spd(rng, a**cl_k, concentrated=True)
     p[rng.rand(p.size) < 0.3] = 0.0
     p = torch.as_tensor(p, device=cuda)
-    launches = tdense.pyramid_ratios.launches
-    pyr, rat = tdense.pyramid_ratios(p, 9, cl_k)
-    assert tdense.pyramid_ratios.launches == launches + cl_k + 1
-    want_pyr, want_rat = tdense.pyramid_ratios_plain(p, 9, cl_k)
-    _close(pyr, want_pyr)
-    _close(rat, want_rat)
+    launches = tdense.pyramid.launches
+    low = tdense.pyramid(p, a, cl_k)
+    assert tdense.pyramid.launches == launches + tdense.pyramid_launches(
+        a, cl_k)
+    assert torch.equal(low, tdense.pyramid_plain(p, a, cl_k))
+    assert torch.equal(low, tdense.pyramid(p, a, cl_k))
 
 
 @pytest.mark.parametrize("tag,cl_k", [("ex4-chemical-turing", 5),
@@ -274,40 +279,67 @@ def test_signature_weights_kernel_matches_plain(cuda, tag, cl_k):
     prog, dp = _programs(tag, cl_k, cuda)
     p = torch.as_tensor(_spd(np.random.RandomState(1), prog.state_size),
                         device=cuda)
-    pyr, _ = tdense.pyramid_ratios_plain(p, prog.size_a, cl_k)
+    low = tdense.pyramid_plain(p, prog.size_a, cl_k)
     launches = tdense.signature_weights.launches
-    got = tdense.signature_weights(dp, pyr)
+    got = tdense.signature_weights(dp, p, low)
     assert tdense.signature_weights.launches == launches + 1
-    _close(got, tdense.signature_weights_plain(dp, pyr))
+    _close(got, tdense.signature_weights_plain(dp, p, low))
 
 
 @pytest.mark.parametrize("tag,cl_k", EXACT_CASES
-                         + [("ex4-chemical-turing", 5),
-                            ("ex4-chemical-turing", 8)])
+                         + [("ex4-chemical-turing", k) for k in (5, 6, 7, 8)])
 def test_sweep_kernel_matches_plain(cuda, tag, cl_k):
-    """K5 (one launch a step) against its plain version, on the same
-    ratio tables and signature weights."""
+    """K5 (one launch) against its plain version, on the same pyramid and
+    signature weights: each dy window's terms in the same order, so equal
+    to the plain version's own rounding (its scatters' atomics); two runs
+    the same bits."""
     prog, dp = _programs(tag, cl_k, cuda)
     p = torch.as_tensor(_spd(np.random.RandomState(2), prog.state_size),
                         device=cuda)
-    pyr, rat = tdense.pyramid_ratios_plain(p, prog.size_a, cl_k)
-    s = tdense.signature_weights_plain(dp, pyr)
+    low = tdense.pyramid_plain(p, prog.size_a, cl_k)
+    s = tdense.signature_weights_plain(dp, p, low)
     launches = tdense.sweep.launches
-    got = tdense.sweep(dp, rat, s)
-    assert tdense.sweep.launches == launches + dp.plan.num_launches
-    _close(got, tdense.sweep_plain(dp, rat, s))
+    got = tdense.sweep(dp, p, low, s)
+    assert tdense.sweep.launches == launches + 1
+    _close(got, tdense.sweep_plain(dp, p, low, s))
     # Into a caller's row (a solver's stage row): the same bits, nothing
     # else of the tensor touched.
     rows = torch.full((2, prog.state_size), 7.0, dtype=torch.float64,
                       device=cuda)
-    assert tdense.sweep(dp, rat, s, rows[1]).data_ptr() == rows[1].data_ptr()
+    assert tdense.sweep(dp, p, low, s, rows[1]).data_ptr() == \
+        rows[1].data_ptr()
     assert torch.equal(rows[1], got) and bool((rows[0] == 7.0).all())
+
+
+def test_dense_kernels_reject_bad_inputs(cuda):
+    prog, dp = _programs("ex4-chemical-turing", 3, cuda)
+    n = prog.state_size
+    p = torch.as_tensor(_spd(np.random.RandomState(4), n), device=cuda)
+    low = tdense.pyramid(p, 9, 3)
+    s = tdense.signature_weights(dp, p, low)
+    with pytest.raises(TypeError, match="float64"):
+        tdense.pyramid(p.float(), 9, 3)
+    with pytest.raises(TypeError, match="float64"):
+        tdense.pyramid(p[:-1], 9, 3)
+    with pytest.raises(TypeError):
+        tdense.signature_weights(dp, p, low[:-1])
+    with pytest.raises(ValueError):
+        tdense.signature_weights(dp, p, low.cpu())
+    with pytest.raises(TypeError):
+        tdense.sweep(dp, p, low, s.float())
+    with pytest.raises(TypeError):
+        tdense.sweep(dp, p, low, s, torch.empty(n + 1, dtype=torch.float64,
+                                                device=cuda)[1:][:-1])
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tdense.pyramid(p.to("meta"), 9, 3)
 
 
 @pytest.mark.parametrize("tag,cl_k", EXACT_CASES)
 def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
-    """The kernel path K3 -> K4 -> K5 against the plain dp/dt on the card,
-    on a random and a concentrated SPD; float64; conserves probability."""
+    """The kernel path K3 -> K4 -> K5 (one C call) against the plain dp/dt
+    on the card, on a random and a concentrated SPD; float64; conserves
+    probability; two runs the same bits; a NaN in p gives a non-finite
+    dy, as the plain version's."""
     prog = tdense.compile_dense(tag, cl_k)
     fn = tdense.make_dense_dy_dt(prog, device=cuda)
     rng = np.random.RandomState(3)
@@ -317,7 +349,12 @@ def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
         got = fn(p)
         assert got.dtype == torch.float64 and got.device.type == "cuda"
         _close(got, tdense.dy_dt_dense(fn.device_program, p))
+        assert torch.equal(got, fn(p))
         assert abs(float(got.sum())) < 1e-13
+    p[prog.state_size // 2] = float("nan")
+    assert not bool(torch.isfinite(fn(p)).all())
+    assert not bool(torch.isfinite(tdense.dy_dt_dense(
+        fn.device_program, p)).all())
 
 
 @pytest.mark.parametrize("n", [9**5, 9**8], ids=["k5", "full"])
