@@ -36,18 +36,18 @@
 // vector over its live windows only (a step's A^k D / span windows, not
 // A^k), reading the previous step's vector or the group's seed and
 // forming each ratio from the pyramid; EMIT items read and write dy only
-// at the step's target windows. Phase 0 also zeroes dy. The plan puts two
-// emissions that share a window in two phases, in plan order, so each dy
-// window takes its terms in plan order and two threads of a phase never
-// write one element. Vectors written in one phase are read in a later one
-// through L2 (`__ldcg`). A block unpacks a phase's items into shared
-// memory, with host-made multipliers for their divisors. Bound: bytes, dy
-// written once and each distinct entry of p and lv[k-1] that the live
-// windows need read once, with the signature weights and the plan. Steps
-// whose run is the trailing digits (lo = 1) read p and dy at scattered
-// windows, a 32-byte sector for few of them (`chip_smoke.py:
-// k5_sector_bytes` counts that traffic); at cl_k 5 the 40 phases'
-// barriers and small items, not bytes, set the time.
+// at the step's target windows. Phase 0 also zeroes dy. The plan puts
+// two emissions that share a window in two phases (a greedy colouring of
+// their conflicts), so each dy window takes its terms in phase order and
+// two threads of a phase never write one element. Vectors written in one
+// phase are read in a later one through L2 (`__ldcg`). A block unpacks a
+// phase's items into shared memory, with host-made multipliers for their
+// divisors. Bound: bytes, dy written once and each distinct entry of p
+// and lv[k-1] that the live windows need read once, with the signature
+// weights and the plan. Steps whose run is the trailing digits (lo = 1)
+// read p and dy at scattered windows, a 32-byte sector for few of them
+// (`chip_smoke.py:k5_sector_bytes` counts that traffic); at cl_k 5 the
+// phases' barriers and small items, not bytes, set the time.
 
 #include <cuda_runtime.h>
 

@@ -26,7 +26,8 @@ while a changed cell stays in frame (phase C), right-extend while a
 changed cell stays in context (phase B). The plain version computes each
 step densely as `_apply_group` does (tile, repeat, reshape-sum, a
 sub-slice scatter for the emission), sums digits in digit order and adds
-each dy window's terms in plan order. The TPU's emission layout guard
+each dy window's terms in K5's order: the plan's phase order
+(`_phases`). The TPU's emission layout guard
 (`_ROLL_EMIT_MIN_STATE` there) has no counterpart: the plain version
 uses one emission form at every size.
 
@@ -497,27 +498,38 @@ def _emissions_meet(s1: Step, s2: Step, a: int) -> bool:
 
 def _phases(steps, a: int, n: int) -> list[int]:
     """K5's phase of each step. A step that forms a vector runs in the
-    phase of its level; an emission after the phase of its vector and
-    after every emission before it in plan order that shares a dy window
-    with it, so each dy window takes its terms in plan order. Phase 0
-    also zeroes dy, so every emission comes later."""
+    phase of its level. Two emissions that share a dy window run in
+    different phases, so each window takes its terms in phase order, and
+    each runs after its vector's phase (phase 0 also zeroes dy): a
+    greedy colouring of the emissions' conflict graph, the most
+    conflicted first, each in the first phase after its vector that no
+    emission it meets holds."""
     phase = [0] * len(steps)
     emits = [i for i, s in enumerate(steps) if s.pairs or s.interior]
+    meets = {i: set() for i in emits}
     if n <= 1 << 16:  # the windows themselves
-        last = np.zeros(n, dtype=np.int64)
-        for i in emits:
-            w = steps[i].target_windows()
-            p = max(steps[i].level + 1, int(last[w].max()) + 1)
-            phase[i] = p
-            last[w] = p
+        windows = {i: steps[i].target_windows() for i in emits}
+        mask = np.zeros(n, dtype=bool)
+        for x, i in enumerate(emits):
+            mask[:] = False
+            mask[windows[i]] = True
+            meets[i].update(i2 for i2 in emits[:x] if mask[windows[i2]].any())
     else:  # the windows' digit patterns
-        for q, i in enumerate(emits):
-            p = steps[i].level + 1
-            for i2 in emits[:q]:
-                if phase[i2] >= p and _emissions_meet(steps[i2], steps[i],
-                                                      a):
-                    p = phase[i2] + 1
-            phase[i] = p
+        for x, i in enumerate(emits):
+            meets[i].update(i2 for i2 in emits[:x]
+                            if _emissions_meet(steps[i2], steps[i], a))
+    for i in emits:
+        for i2 in meets[i]:
+            meets[i2].add(i)
+    placed = set()
+    for i in sorted(emits, key=lambda i: (-len(meets[i]), steps[i].level,
+                                          i)):
+        taken = {phase[i2] for i2 in meets[i] if i2 in placed}
+        p = steps[i].level + 1
+        while p in taken:
+            p += 1
+        phase[i] = p
+        placed.add(i)
     return phase
 
 
@@ -897,32 +909,39 @@ def named_tables(p, low, a, k) -> dict:
 def sweep_plain(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
                 s: torch.Tensor, out: torch.Tensor | None = None):
     """Plain version of K5: every group's dense sweep into ``out`` (a new
-    dy [A^k] when None), each dy window taking its terms in plan order,
-    K5's order."""
+    dy [A^k] when None), walking K5's items in their order, so each dy
+    window takes its terms in K5's (phase) order."""
     sweep_plain.calls += 1
     a, k = dp.prog.size_a, dp.prog.cl_k
     n = a**k
     dy = (torch.zeros(n, dtype=s.dtype, device=s.device) if out is None
           else _checked_out(out, n, s.device).zero_())
     tables = named_tables(p, low, a, k)
-    readers = collections.Counter(st.src for st in dp.plan.steps)
-    vecs = {}  # the vectors a later step still reads
-    for i, step in enumerate(dp.plan.steps):
-        if step.kind == INTERIOR:
+    steps = dp.plan.steps
+    # The vectors a later item still reads: the next steps and the emission.
+    readers = collections.Counter(st.src for st in steps)
+    readers.update(i for i, st in enumerate(steps) if st.pairs)
+    vecs = {}
+
+    def read(i):
+        t = vecs[i]
+        readers[i] -= 1
+        if not readers[i]:
+            del vecs[i]
+        return t
+
+    for op, i in zip(dp.plan.items[:, 0].tolist(),
+                     dp.plan.item_step.tolist()):
+        step = steps[i]
+        if op == INTERIOR:
             interior_plain(dy, s, step.interior)
-            continue
-        if step.src >= 0:
-            src = vecs[step.src]
-            readers[step.src] -= 1
-            if not readers[step.src]:
-                del vecs[step.src]
+        elif op == EMIT:
+            emit_plain(dy, read(i), step.lo, step.span, step.pairs)
         else:
-            src = _seed_dense(step, s)
-        t = sweep_step_plain(step, src, tables, a)
-        if step.pairs:
-            emit_plain(dy, t, step.lo, step.span, step.pairs)
-        if readers[i]:
-            vecs[i] = t
+            src = read(step.src) if step.src >= 0 else _seed_dense(step, s)
+            t = sweep_step_plain(step, src, tables, a)
+            if readers[i]:
+                vecs[i] = t
     return dy
 
 
