@@ -30,8 +30,8 @@
 //
 // K5 `sweep` (`dense.py:310 _apply_group`). One cooperative launch for
 // the whole sweep of every group: the plan's phases in turn, a grid
-// barrier (an integer counter and generation, no float atomic) between
-// two phases. A phase's items (`sweep_rule.cuh`) run side by side, a
+// barrier (`cooperative_groups`' grid sync, its state the launch's own)
+// between two phases. A phase's items (`sweep_rule.cuh`) run side by side, a
 // thread an element in a grid-stride loop: compute items form a step's
 // vector over its live windows only (a step's A^k D / span windows, not
 // A^k), reading the previous step's vector or the group's seed and
@@ -46,12 +46,15 @@
 // and lv[k-1] that the live windows need read once, with the signature
 // weights and the plan. Steps whose run is the trailing digits (lo = 1)
 // read p and dy at scattered windows, a 32-byte sector for few of them
-// (`chip_smoke.py:k5_sector_bytes` counts that traffic); at cl_k 5 the
+// (`chip_smoke.py:k5_sector_bytes` models that traffic); at cl_k 5 the
 // phases' barriers and small items, not bytes, set the time.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "sweep_rule.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -160,35 +163,12 @@ k4_kernel(const double* __restrict__ p, unsigned n,
   }
 }
 
-// All blocks of the grid wait here until each has arrived. bar[0] counts
-// arrivals (back to 0 at each barrier), bar[1] is the generation.
-__device__ __forceinline__ void grid_barrier(unsigned* bar,
-                                             unsigned nblocks) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == nblocks - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(20);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 struct K5Launch {
   K5Ctx ctx;
   const long long* items;
   const long long* phase_ptr;
   int n_phases;
   unsigned n;  // A^k
-  unsigned* bar;
 };
 
 // K5: every phase of the sweep in one cooperative launch. A block
@@ -200,7 +180,7 @@ __global__ void __launch_bounds__(kThreads) k5_sweep_kernel(K5Launch L) {
   const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
   for (unsigned x = tid; x < L.n; x += stride) L.ctx.dy[x] = 0.0;
   for (int ph = 0; ph < L.n_phases; ++ph) {
-    if (ph > 0) grid_barrier(L.bar, gridDim.x);
+    if (ph > 0) cg::this_grid().sync();
     const long long end = L.phase_ptr[ph + 1];
     for (long long first = L.phase_ptr[ph]; first < end;
          first += kStaged) {
@@ -305,15 +285,15 @@ extern "C" int ckpe_signature_weights(const double* p, long long n,
 // K5: the whole sweep, one cooperative launch. ``items`` (int64 rows of
 // K5_FIELDS), ``phase_ptr`` (n_phases + 1 item offsets) and ``table``
 // are the plan on the card (`engine/dense.py:sweep_plan`); ``work`` holds
-// every step's vector; ``bar`` is two unsigned ints, 0 before the first
-// launch, left so by every launch. max_phase sizes the grid.
+// every step's vector (the launch's own: two launches at once need two).
+// max_phase sizes the grid.
 extern "C" int ckpe_dense_sweep(const long long* items,
                                 const long long* phase_ptr, int n_phases,
                                 long long max_phase, const int* table,
                                 double* work, double* dy, long long n,
                                 const double* p, const double* low,
                                 const double* sig_w, int a, int k,
-                                unsigned* bar, cudaStream_t stream) {
+                                cudaStream_t stream) {
   if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
   K5Launch L;
   L.ctx.a = a;
@@ -329,7 +309,6 @@ extern "C" int ckpe_dense_sweep(const long long* items,
   L.phase_ptr = phase_ptr;
   L.n_phases = n_phases;
   L.n = (unsigned)n;
-  L.bar = bar;
   const int resident = k5_resident_blocks();
   if (resident <= 0) return (int)cudaErrorLaunchFailure;
   // About four elements a thread in the largest phase, at most what fits.
@@ -343,26 +322,25 @@ extern "C" int ckpe_dense_sweep(const long long* items,
   return (int)cudaGetLastError();
 }
 
-// K3 -> K4 -> K5 from one host call: the K4 and K5 arguments as their
-// own entry points take them, m as K3's.
+// K3 -> K4 -> K5 from one host call: p [n], the pyramid below it (K3's
+// output, ``low``) and the signature weights ``s`` are given once and
+// passed to each; the rest as K4's and K5's own entry points take it.
 extern "C" int ckpe_dense_rhs(int m, const double* p, long long n,
-                              const double* low, const int* w_num,
+                              double* low, const int* w_num,
                               const int* w_den, const double* w_const,
                               int n_worlds, int chain, const int* csr_ptr,
                               const int* csr_world, int n_sig, double* wv,
                               double* s, const long long* items,
                               const long long* phase_ptr, int n_phases,
                               long long max_phase, const int* table,
-                              double* work, double* dy, long long n5,
-                              const double* p5, const double* low5,
-                              const double* s5, int a, int k, unsigned* bar,
+                              double* work, double* dy, int a, int k,
                               cudaStream_t stream) {
-  int rc = ckpe_pyramid(p, a, k, m, const_cast<double*>(low), stream);
+  int rc = ckpe_pyramid(p, a, k, m, low, stream);
   if (rc) return rc;
   rc = ckpe_signature_weights(p, n, low, w_num, w_den, w_const, n_worlds,
                               chain, csr_ptr, csr_world, n_sig, wv, s,
                               stream);
   if (rc) return rc;
   return ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table,
-                          work, dy, n5, p5, low5, s5, a, k, bar, stream);
+                          work, dy, n, p, low, s, a, k, stream);
 }

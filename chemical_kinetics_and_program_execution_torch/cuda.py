@@ -150,11 +150,12 @@ def load() -> ctypes.CDLL:
     k4 = [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P]
     lib.ckpe_signature_weights.argtypes = k4 + [_P]
     # ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table, work,
-    #                  dy, n, p, low, sig_w, a, k, bar, stream)
-    k5 = [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P, _I, _I, _P]
+    #                  dy, n, p, low, sig_w, a, k, stream)
+    k5 = [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P, _I, _I]
     lib.ckpe_dense_sweep.argtypes = k5 + [_P]
-    # ckpe_dense_rhs(m, <K4's arguments>, <K5's arguments>, stream)
-    lib.ckpe_dense_rhs.argtypes = [_I] + k4 + k5 + [_P]
+    # ckpe_dense_rhs(m, <K4's arguments>, <K5's less n, p, low and sig_w>,
+    #                stream)
+    lib.ckpe_dense_rhs.argtypes = [_I] + k4 + k5[:7] + k5[11:] + [_P]
     # ckpe_k6_stage(y, ks, ks_ld, n, h, rows, coefs, m, out, stream)
     lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _L, _D, _P, _P, _I, _P, _P]
     # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, ks_ld,

@@ -301,8 +301,8 @@ class SweepPlan:
     launch: ``items`` (int64 rows, `ITEM_FIELDS`) grouped into phases
     (``phase_ptr``), each phase's items run side by side and a grid
     barrier between phases; ``table`` holds the items' int32 lists
-    (ranks, children, seeds, emission targets, interior ops); ``work``
-    doubles hold every step's compact vector."""
+    (ranks, children, seeds, emission targets, interior ops);
+    ``work_size`` doubles hold every step's compact vector."""
 
     steps: tuple
     items: np.ndarray
@@ -471,53 +471,53 @@ def _group_steps(l0: int, changed, members, a: int, k: int,
     return out
 
 
-def _digits_agree(x1, e1, r1, x2, e2, r2, a) -> bool:
-    """Whether run rank x1 at digits [e1, e1 + r1) and x2 at [e2, e2 +
-    r2) (counted from the least significant) agree where they overlap."""
-    for pos in range(max(e1, e2), min(e1 + r1, e2 + r2)):
-        if (x1 // a ** (pos - e1)) % a != (x2 // a ** (pos - e2)) % a:
-            return False
-    return True
+def _emission_pattern(s: Step, a: int):
+    """What `_emissions_meet` reads of an emission: an INTERIOR item's
+    windows, or an EMIT step's run (its digit position and length, lo,
+    span and target ranks). An EMIT step's targets span every prefix and
+    suffix (its dense vector holds all A^k windows), so its windows are
+    exactly those whose run digits are a target rank."""
+    if s.kind == INTERIOR:
+        return None, set(s.target_windows().tolist())
+    return (_ilog(s.lo, a), _ilog(s.span, a), s.lo, s.span), s.targets()
 
 
-def _emissions_meet(s1: Step, s2: Step, a: int) -> bool:
-    """Whether two emissions read and write a common dy window."""
-    if s1.kind == INTERIOR or s2.kind == INTERIOR:
-        if s1.kind != INTERIOR:
-            s1, s2 = s2, s1
-        w = set(s1.target_windows().tolist())
-        if s2.kind == INTERIOR:
-            return bool(w & set(s2.target_windows().tolist()))
-        e, span = set(s2.targets()), s2.span
-        return any((j // s2.lo) % span in e for j in w)
-    e1, r1 = _ilog(s1.lo, a), _ilog(s1.span, a)
-    e2, r2 = _ilog(s2.lo, a), _ilog(s2.span, a)
-    return any(_digits_agree(x1, e1, r1, x2, e2, r2, a)
-               for x1 in s1.targets() for x2 in s2.targets())
+def _emissions_meet(x1, x2, a: int) -> bool:
+    """Whether two emissions (`_emission_pattern`s) read and write a
+    common dy window: two EMIT steps where two of their target ranks
+    agree on the digits their runs share."""
+    (r1, t1), (r2, t2) = x1, x2
+    if r1 is None and r2 is None:
+        return bool(t1 & t2)
+    if r1 is None or r2 is None:
+        if r2 is None:
+            (r1, t1), (r2, t2) = (r2, t2), (r1, t1)
+        _, _, lo, span = r2
+        targets = set(t2)
+        return any((j // lo) % span in targets for j in t1)
+    # The digits both runs cover, [lo, hi) from the least significant.
+    lo, hi = max(r1[0], r2[0]), min(r1[0] + r1[1], r2[0] + r2[1])
+    if lo >= hi:
+        return True
+    return bool({(y // a ** (lo - r1[0])) % a ** (hi - lo) for y in t1}
+                & {(y // a ** (lo - r2[0])) % a ** (hi - lo) for y in t2})
 
 
-def _phases(steps, a: int, n: int) -> list[int]:
+def _phases(steps, a: int) -> list[int]:
     """K5's phase of each step. A step that forms a vector runs in the
-    phase of its level. Two emissions that share a dy window run in
-    different phases, so each window takes its terms in phase order, and
-    each runs after its vector's phase (phase 0 also zeroes dy): a
-    greedy colouring of the emissions' conflict graph, the most
-    conflicted first, each in the first phase after its vector that no
-    emission it meets holds."""
+    phase of its level. Two emissions that share a dy window
+    (`_emissions_meet`) run in different phases, so each window takes
+    its terms in phase order, and each runs after its vector's phase
+    (phase 0 also zeroes dy): a greedy colouring of the emissions'
+    conflict graph, the most conflicted first, each in the first phase
+    after its vector that no emission it meets holds."""
     phase = [0] * len(steps)
     emits = [i for i, s in enumerate(steps) if s.pairs or s.interior]
+    pattern = {i: _emission_pattern(steps[i], a) for i in emits}
     meets = {i: set() for i in emits}
-    if n <= 1 << 16:  # the windows themselves
-        windows = {i: steps[i].target_windows() for i in emits}
-        mask = np.zeros(n, dtype=bool)
-        for x, i in enumerate(emits):
-            mask[:] = False
-            mask[windows[i]] = True
-            meets[i].update(i2 for i2 in emits[:x] if mask[windows[i2]].any())
-    else:  # the windows' digit patterns
-        for x, i in enumerate(emits):
-            meets[i].update(i2 for i2 in emits[:x]
-                            if _emissions_meet(steps[i2], steps[i], a))
+    for x, i in enumerate(emits):
+        meets[i].update(i2 for i2 in emits[:x]
+                        if _emissions_meet(pattern[i2], pattern[i], a))
     for i in emits:
         for i2 in meets[i]:
             meets[i2].add(i)
@@ -543,7 +543,7 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
     steps: list[Step] = []
     for l0, changed, members in groups:
         steps.extend(_group_steps(l0, changed, members, a, k, len(steps)))
-    phase = _phases(steps, a, n)
+    phase = _phases(steps, a)
 
     table: list[int] = []
     dst, work = {}, 0
@@ -636,7 +636,7 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
 class DeviceProgram:
     """A :class:`DenseProgram`, its sweep plan and its tables on one
     device (CSR of each signature's pairs in pair order for K4; K5's
-    items, table, work vectors and grid-barrier state on a card)."""
+    items and table)."""
 
     prog: DenseProgram
     plan: SweepPlan
@@ -651,8 +651,6 @@ class DeviceProgram:
     items: torch.Tensor
     phase_ptr: torch.Tensor
     table: torch.Tensor
-    work: torch.Tensor | None
-    barrier: torch.Tensor | None
 
 
 def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
@@ -670,7 +668,6 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
 
     i32, f64 = torch.int32, config.DEFAULT_FLOAT
     w_const = dev(prog.w_const, f64)
-    on_card = w_const.device.type == "cuda"
     return DeviceProgram(
         prog=prog, plan=plan, device=w_const.device,  # "cuda" -> "cuda:0"
         w_num=dev(prog.w_num, i32), w_den=dev(prog.w_den, i32),
@@ -682,10 +679,6 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
         items=dev(plan.items, torch.int64),
         phase_ptr=dev(plan.phase_ptr, torch.int64),
         table=dev(plan.table, i32),
-        work=(torch.empty(max(plan.work_size, 1), dtype=f64,
-                          device=w_const.device) if on_card else None),
-        barrier=(torch.zeros(2, dtype=i32, device=w_const.device)
-                 if on_card else None),
     )
 
 
@@ -956,12 +949,21 @@ def _checked_out(out: torch.Tensor, n: int, device) -> torch.Tensor:
     return out
 
 
-def _k5_args(dp, p, low, s, dy):
-    prog, plan = dp.prog, dp.plan
+def _k5_plan_args(dp, work, dy):
+    """K5's plan, its work buffer and dy, as `ckpe_dense_sweep` and
+    `ckpe_dense_rhs` take them. The work buffer is a call's own (`_work`),
+    so two calls on two streams do not share one."""
+    plan = dp.plan
     return (dp.items.data_ptr(), dp.phase_ptr.data_ptr(), plan.num_phases,
-            plan.max_phase, dp.table.data_ptr(), dp.work.data_ptr(),
-            dy.data_ptr(), prog.state_size, p.data_ptr(), low.data_ptr(),
-            s.data_ptr(), prog.size_a, prog.cl_k, dp.barrier.data_ptr())
+            plan.max_phase, dp.table.data_ptr(), work.data_ptr(),
+            dy.data_ptr())
+
+
+def _work(dp, p):
+    """K5's work buffer for one call (every step's compact vector), from
+    the caching allocator on ``p``'s stream."""
+    return torch.empty(max(dp.plan.work_size, 1), dtype=torch.float64,
+                       device=p.device)
 
 
 def sweep(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
@@ -979,9 +981,12 @@ def sweep(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
     n = dp.prog.state_size
     dy = (torch.empty(n, dtype=torch.float64, device=p.device)
           if out is None else _checked_out(out, n, p.device))
+    work, s = _work(dp, p), s.contiguous()
     lib = cuda.load()
     with torch.cuda.device(p.device):
-        rc = lib.ckpe_dense_sweep(*_k5_args(dp, p, low, s.contiguous(), dy),
+        rc = lib.ckpe_dense_sweep(*_k5_plan_args(dp, work, dy), n,
+                                  p.data_ptr(), low.data_ptr(), s.data_ptr(),
+                                  dp.prog.size_a, dp.prog.cl_k,
                                   cuda.stream(p))
     cuda.check(rc, "sweep", lib)
     sweep.launches += 1
@@ -1021,11 +1026,12 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
                     device=p.device)
     dy = (torch.empty(n, dtype=torch.float64, device=p.device)
           if out is None else _checked_out(out, n, p.device))
+    work = _work(dp, p)
     lib = cuda.load()
     with torch.cuda.device(p.device):
         rc = lib.ckpe_dense_rhs(pyramid_tile_digits(a, k),
                                 *_k4_args(dp, p, low, wv, s),
-                                *_k5_args(dp, p, low, s, dy),
+                                *_k5_plan_args(dp, work, dy), a, k,
                                 cuda.stream(p))
     cuda.check(rc, "dense_rhs", lib)
     pyramid.launches += pyramid_launches(a, k)

@@ -43,8 +43,10 @@ Phases (each prints its wall time; every check raises on failure):
    against the plain version on the card (rtol 1e-12, atol 1e-14) on
    the 13 cases of the JAX package's `tests/test_engine.py:18-32` and on
    ex4 at cl_k 5-8 (43,046,721 states); at each cl_k 5-8 the launches
-   an RHS (counted, and held to the plan's), K5's phases, its live
-   element-steps against a dense sweep's, each of K3-K6 alone against
+   an RHS (counted, and held to the plan's); from the plan, printed but
+   kept out of the `kernels` line: K5's phases, its live element-steps
+   against a dense sweep's and a model of its sector traffic; each of
+   K3-K6 alone against
    its plain version (K3 and K5 also run twice for the same bits), and
    K3, K5 and the RHS on the card and as the host paces them beside
    their bounds and the RHS's floor (p read once, dy written once); the
@@ -371,7 +373,8 @@ def k5_reads(dp):
 
 
 def k5_sector_bytes(dp):
-    """K5's traffic in whole 32-byte sectors, as its design moves it with
+    """A model of K5's traffic in whole 32-byte sectors, computed from the
+    plan (not read from the card), as its design would move it with
     nothing found in L2: each compute step reads the sectors of p (or of
     its level) and of the level below that its live windows' ratios
     touch, reads its source and writes its vector (compact, so 8 bytes
@@ -590,21 +593,20 @@ def exact_closure(dev, kernels):
             raise AssertionError(f"cl_k {cl_k}: {counted} launches an RHS, "
                                  f"planned {launches}")
         host = []
+        # Plan arithmetic, printed below and kept out of the kernels line:
+        # element-steps, bytes, and K5's traffic as modelled in sectors.
         live, dense = dp.plan.element_steps
         nbytes = exact_bytes(dp)
         floor = nbytes.pop("floor")
+        sector_mb = k5_sector_bytes(dp) / 1e6
         rhs[cl_k] = {"device_ms": cuda_ms(lambda: fn(p0),
                                           queued_reps(reps, launches),
                                           warmup=1, host=host),
                      "host_ms": host[0], "wall_ms": wall_ms(lambda: fn(p0),
                                                             reps),
-                     "launches": launches, "phases": dp.plan.num_phases,
-                     "live_element_steps": live,
-                     "dense_element_steps": dense,
-                     "bytes_mb": sum(nbytes.values()) / 1e6,
-                     "k5_sector_mb": k5_sector_bytes(dp) / 1e6,
+                     "launches": counted,
                      "bound_ms": sum(nbytes.values()) / HBM_BYTES_PER_S * 1e3,
-                     "floor_ms": floor / HBM_BYTES_PER_S * 1e3}
+                     "floor_bound_ms": floor / HBM_BYTES_PER_S * 1e3}
         r = rhs[cl_k]
         # Where the RHS lands in the solver: K5 into a padded stage row
         # (`dop853.rows_tensor`, what the solver does), K5 into a row at a
@@ -628,20 +630,21 @@ def exact_closure(dev, kernels):
                 f"{[round(v * 1e3, 1) for v in r[f'{form}_wall_ms']]} us "
                 f"as paced, {r[f'{form}_device_ms'] * 1e3:.1f} on the card")
         say(f"ex4 cl_k {cl_k} ({prog.state_size} states, "
-            f"{dp.plan.num_groups} groups, {r['launches']} launches an RHS, "
-            f"K5 in {r['phases']} phases; live element-steps {live} "
-            f"({live / prog.state_size:.3f} A^k) against {dense} dense "
-            f"({dense / prog.state_size:.3f} A^k); p0 built in "
-            f"{p0_s:.2f} s): kernels == plain on p0 and a random SPD; RHS "
-            f"{r['device_ms'] * 1e3:.1f} us device, "
+            f"{dp.plan.num_groups} groups, {r['launches']} launches an RHS "
+            f"(counted); p0 built in {p0_s:.2f} s): kernels == plain on p0 "
+            f"and a random SPD; RHS {r['device_ms'] * 1e3:.1f} us device, "
             f"{r['wall_ms'] * 1e3:.1f} us as the host paces it (host "
-            f"{r['host_ms'] * 1e3:.1f} us to queue); K3-K5 bytes "
-            f"{r['bytes_mb']:.1f} MB, their bound {r['bound_ms'] * 1e3:.2f} "
-            f"us; the RHS floor (p read, dy written once) "
-            f"{r['floor_ms'] * 1e3:.2f} us; K5's traffic in 32-byte sectors "
-            f"{r['k5_sector_mb']:.1f} MB "
-            f"({r['k5_sector_mb'] * 1e6 / HBM_BYTES_PER_S * 1e6:.2f} us at "
-            "3.35 TB/s)")
+            f"{r['host_ms'] * 1e3:.1f} us to queue)")
+        say(f"ex4 cl_k {cl_k}, from the plan (not measured): K5 in "
+            f"{dp.plan.num_phases} phases; live element-steps {live} "
+            f"({live / prog.state_size:.3f} A^k) against {dense} dense "
+            f"({dense / prog.state_size:.3f} A^k); K3-K5 bytes "
+            f"{sum(nbytes.values()) / 1e6:.1f} MB, their bound "
+            f"{r['bound_ms'] * 1e3:.2f} us; the RHS floor (p read, dy "
+            f"written once) {r['floor_bound_ms'] * 1e3:.2f} us; a model of "
+            f"K5's traffic in 32-byte sectors with no L2 hits "
+            f"(k5_sector_bytes) {sector_mb:.1f} MB, "
+            f"{sector_mb * 1e6 / HBM_BYTES_PER_S * 1e6:.2f} us at 3.35 TB/s")
         errs = time_exact_kernels(dp, p0, gen, times)
         for name, e in errs.items():
             max_err[name] = max(max_err[name], e)

@@ -686,6 +686,34 @@ def test_sweep_live_set_holds_every_nonzero(tag, cl_k):
     assert live <= dense
 
 
+@pytest.mark.parametrize("tag,cl_k", CASES, ids=IDS)
+def test_emission_conflicts_match_their_windows(tag, cl_k):
+    """K5's phases rest on `_emissions_meet`, which reads digit patterns:
+    for every two emissions it says they meet exactly when their target
+    windows, listed in full, share one; and no two emissions of one
+    phase share a window."""
+    _, prog = _programs(tag, cl_k)
+    a, n = prog.size_a, prog.state_size
+    plan = tdense.sweep_plan(prog)
+    emits = [i for i, st in enumerate(plan.steps) if st.pairs or st.interior]
+    pattern = {i: tdense._emission_pattern(plan.steps[i], a) for i in emits}
+    windows = {i: plan.steps[i].target_windows() for i in emits}
+    phase = {}
+    for q, i in enumerate(plan.item_step.tolist()):
+        if plan.items[q, 0] in (tdense.EMIT, tdense.INTERIOR):
+            phase[i] = int(np.searchsorted(plan.phase_ptr, q, "right"))
+    assert set(phase) == set(emits)
+    mask = np.zeros(n, dtype=bool)
+    for x, i in enumerate(emits):
+        mask[:] = False
+        mask[windows[i]] = True
+        for i2 in emits[:x]:
+            shared = bool(mask[windows[i2]].any())
+            assert tdense._emissions_meet(pattern[i2], pattern[i],
+                                          a) == shared, (i2, i)
+            assert not (shared and phase[i] == phase[i2]), (i2, i)
+
+
 def test_item_divisor_multipliers_are_exact():
     """K5 divides by each item's fixed divisors as (x * m) >> s
     (`csrc/sweep_rule.cuh:K5Div`, m from `dense._magic`): exact for every

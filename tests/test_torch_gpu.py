@@ -357,6 +357,28 @@ def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
         fn.device_program, p)).all())
 
 
+def test_dense_rhs_on_two_streams_at_once(cuda):
+    """One program's RHS queued on two streams in turn, so that their K5
+    launches may overlap: each call has its own work buffer and grid
+    barrier, so each gives the bits it gives alone."""
+    prog = tdense.compile_dense("ex4-chemical-turing", 4)
+    fn = tdense.make_dense_dy_dt(prog, device=cuda)
+    rng = np.random.RandomState(5)
+    ps = [torch.as_tensor(_spd(rng, prog.state_size), device=cuda)
+          for _ in range(2)]
+    want = [fn(p) for p in ps]
+    streams = [torch.cuda.Stream(cuda) for _ in ps]
+    torch.cuda.synchronize(cuda)
+    got = [[], []]
+    for _ in range(20):
+        for q, (p, st) in enumerate(zip(ps, streams)):
+            with torch.cuda.stream(st):
+                got[q].append(fn(p))
+    torch.cuda.synchronize(cuda)
+    for q in range(2):
+        assert all(torch.equal(g, want[q]) for g in got[q])
+
+
 @pytest.mark.parametrize("n", [9**5, 9**8], ids=["k5", "full"])
 def test_dop853_kernels_match_plain(cuda, n):
     """Each K6 kernel against its plain version on random stages, with
