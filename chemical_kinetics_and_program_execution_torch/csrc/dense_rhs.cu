@@ -41,10 +41,10 @@
 // their conflicts), so each dy window takes its terms in phase order and
 // two threads of a phase never write one element. Vectors written in one
 // phase are read in a later one through L2 (`__ldcg`). A block unpacks a
-// phase's items into shared memory, then takes their elements. Bound:
-// bytes, dy written once and each distinct entry of p and lv[k-1] that
-// the live windows need read once, with the signature weights and the
-// plan. Steps whose run is the trailing digits (lo = 1)
+// phase's items into shared memory, with host-made multipliers for their
+// divisors. Bound: bytes, dy written once and each distinct entry of p
+// and lv[k-1] that the live windows need read once, with the signature
+// weights and the plan. Steps whose run is the trailing digits (lo = 1)
 // read p and dy at scattered windows, a 32-byte sector for few of them
 // (`chip_smoke.py:k5_sector_bytes` models that traffic); at cl_k 5 the
 // phases' barriers and small items, not bytes, set the time.

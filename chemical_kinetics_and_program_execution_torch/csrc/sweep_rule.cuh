@@ -65,7 +65,9 @@ enum {
 // Fields of an item row (`engine/dense.py:ITEM_FIELDS`).
 enum {
   F_OP, F_START, F_N, F_DST, F_SRC, F_HI, F_D, F_LO, F_SPAN, F_TAB, F_LEV,
-  F_XN, F_XD, F_XLO, F_KIDS, F_SEED, K5_FIELDS,
+  F_XN, F_XD, F_XLO, F_KIDS, F_SEED,
+  // the multipliers of the divisors lo, d, ne, xn, hx, xlo, A, A^(lev-1)
+  F_M_LO, F_M_D, F_M_NE, F_M_XN, F_M_HX, F_M_XLO, F_M_A, F_M_PW1, K5_FIELDS,
 };
 
 constexpr int kMaxK = 16;
@@ -98,16 +100,43 @@ K5_FN double k5_load(const double* x) {
 #endif
 }
 
-K5_FN unsigned k5_q(unsigned x, unsigned d) { return x / d; }
+// Division by a divisor fixed for an item, as a multiply and a shift:
+// for x < 2^31 and d >= 1, q = (x * m) >> s with s = 31 + ceil(log2 d)
+// and m = ceil(2^s / d), made on the host (`engine/dense.py:_magic`;
+// Granlund and Montgomery: m d - 2^s < d <= 2^(s - 31), so q = floor(x /
+// d) exactly).
+struct K5Div {
+  unsigned long long m;
+  unsigned s, d;
+};
 
-K5_FN unsigned k5_r(unsigned x, unsigned d) { return x % d; }
+K5_FN K5Div k5_div(long long d, long long m) {
+  K5Div v;
+  const unsigned below = (unsigned)(d - 1);  // d <= 2^31
+#if defined(__CUDA_ARCH__)
+  v.s = 31 + (below ? 32 - __clz(below) : 0);
+#else
+  v.s = 31 + (below ? 32 - __builtin_clz(below) : 0);
+#endif
+  v.d = (unsigned)d;
+  v.m = (unsigned long long)m;
+  return v;
+}
+
+K5_FN unsigned k5_q(unsigned x, const K5Div& v) {
+  return (unsigned)(((unsigned long long)x * v.m) >> v.s);
+}
+
+K5_FN unsigned k5_r(unsigned x, const K5Div& v) {
+  return x - k5_q(x, v) * v.d;
+}
 
 // An item row unpacked, with its divisors (built once a phase).
 struct K5Item {
   int op, tab, lev, kids, seed;
   unsigned n, span, xd, n1;  // n1 = xn / A
   long long start, dst, src;
-  unsigned lo, d, ne, xn, hx, xlo, a, pw1;  // divisors, each at least 1
+  K5Div lo, d, ne, xn, hx, xlo, a, pw1;
 };
 
 K5_FN long long k5_at_least_1(long long x) { return x < 1 ? 1 : x; }
@@ -126,14 +155,16 @@ K5_FN K5Item k5_item(const long long* r, const K5Ctx& c) {
   it.start = r[F_START];
   it.dst = r[F_DST];
   it.src = r[F_SRC];
-  it.lo = (unsigned)k5_at_least_1(r[F_LO]);
-  it.d = (unsigned)k5_at_least_1(r[F_D]);
-  it.ne = it.op == K5_EMIT ? (unsigned)k5_at_least_1(r[F_LEV]) : 1u;
-  it.xn = (unsigned)k5_at_least_1(r[F_XN]);
-  it.hx = r[F_XD] > 0 ? (unsigned)k5_at_least_1(r[F_XN] / r[F_XD]) : 1u;
-  it.xlo = (unsigned)k5_at_least_1(r[F_XLO]);
-  it.a = (unsigned)c.a;
-  it.pw1 = it.lev >= 1 && it.lev <= c.k ? c.pw[it.lev - 1] : 1u;
+  it.lo = k5_div(k5_at_least_1(r[F_LO]), r[F_M_LO]);
+  it.d = k5_div(k5_at_least_1(r[F_D]), r[F_M_D]);
+  it.ne = k5_div(it.op == K5_EMIT ? k5_at_least_1(r[F_LEV]) : 1, r[F_M_NE]);
+  it.xn = k5_div(k5_at_least_1(r[F_XN]), r[F_M_XN]);
+  it.hx = k5_div(r[F_XD] > 0 ? k5_at_least_1(r[F_XN] / r[F_XD]) : 1,
+                 r[F_M_HX]);
+  it.xlo = k5_div(k5_at_least_1(r[F_XLO]), r[F_M_XLO]);
+  it.a = k5_div(c.a, r[F_M_A]);
+  it.pw1 = k5_div(it.lev >= 1 && it.lev <= c.k ? c.pw[it.lev - 1] : 1,
+                  r[F_M_PW1]);
   return it;
 }
 
@@ -162,9 +193,9 @@ K5_FN double k5_src(const K5Ctx& c, const K5Item& it, unsigned x) {
 K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
   const int op = it.op;
   const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.d);
-  const unsigned i = rest - h * it.d;
-  const unsigned j = (h * it.span + (unsigned)c.table[it.tab + i]) * it.lo +
-                     (e - rest * it.lo);
+  const unsigned i = rest - h * it.d.d;
+  const unsigned j = (h * it.span + (unsigned)c.table[it.tab + i]) * it.lo.d +
+                     (e - rest * it.lo.d);
   if (op == K5_IDENT) return k5_src(c, it, e);
   const double r = k5_ratio(c, it, j);
   switch (op) {
@@ -175,7 +206,7 @@ K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
     case K5_RSHIFT: {
       const unsigned cc = k5_q(e, it.a);
       double sum = k5_src(c, it, cc);
-      for (unsigned dd = 1; dd < it.a; ++dd)
+      for (unsigned dd = 1; dd < it.a.d; ++dd)
         sum = sum + k5_src(c, it, dd * it.n1 + cc);
       return sum * r;
     }
@@ -188,7 +219,7 @@ K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
         step = 1;
       } else {
         base = k5_r(k5_q(e, it.a), it.xlo);
-        step = it.xlo;
+        step = it.xlo.d;
       }
       double sum = k5_src(c, it, base + (unsigned)t[t[row]] * step);
       for (int q = t[row] + 1; q < t[row + 1]; ++q)
@@ -213,12 +244,12 @@ K5_FN void k5_element(const K5Ctx& c, const K5Item& it, unsigned e) {
     c.work[it.dst + e] = k5_value(c, it, e);
     return;
   }
-  const unsigned lo = it.lo;
+  const unsigned lo = it.lo.d;
   const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.ne);
-  const unsigned s = e - rest * lo, q = rest - h * it.ne;
+  const unsigned s = e - rest * lo, q = rest - h * it.ne.d;
   const int* tg = c.table + it.tab + 4 * q;  // rank, own, partners
   const unsigned j = (h * it.span + (unsigned)tg[0]) * lo + s;
-  const double* t = c.work + it.dst + (size_t)h * it.d * lo + s;
+  const double* t = c.work + it.dst + (size_t)h * it.d.d * lo + s;
   double acc = k5_load(c.dy + j);
   if (tg[1] >= 0) acc = acc + (-k5_load(t + (size_t)tg[1] * lo));
   for (int x = 0; x < tg[3]; ++x)

@@ -241,7 +241,9 @@ def _group_plans(plans, a: int, k: int):
 IDENT, EXTEND, SHIFT, RIGHT, RSHIFT, RSHIFT_RUN, EMIT, INTERIOR = range(8)
 # Fields of a K5 item row, in order (`csrc/sweep_rule.cuh:K5_*`).
 ITEM_FIELDS = ("op", "start", "n", "dst", "src", "hi", "d", "lo", "span",
-               "tab", "lev", "xn", "xd", "xlo", "kids", "seed")
+               "tab", "lev", "xn", "xd", "xlo", "kids", "seed",
+               # multipliers of the item's divisors (`_magic`)
+               "m_lo", "m_d", "m_ne", "m_xn", "m_hx", "m_xlo", "m_a", "m_pw1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -338,6 +340,23 @@ def ratio_offsets(a: int, k: int) -> tuple[dict, int]:
         pos += a**j
     offsets["re"] = pos
     return offsets, pos + a**k
+
+
+def _magic(d: int) -> int:
+    """m = ceil(2^s / d), s = 31 + ceil(log2 d): x // d = (x * m) >> s
+    for 0 <= x < 2^31 (`csrc/sweep_rule.cuh:K5Div`)."""
+    s = 31 + (d - 1).bit_length()
+    return -(-(1 << s) // d)
+
+
+def _with_magic(row: list, a: int, k: int) -> list:
+    """An item row with the multipliers of its divisors appended."""
+    f = dict(zip(ITEM_FIELDS, row))
+    lev = f["lev"]
+    divisors = (f["lo"], f["d"], lev if f["op"] == EMIT else 1, f["xn"],
+                f["xn"] // f["xd"] if f["xd"] > 0 else 1, f["xlo"], a,
+                a ** (lev - 1) if 1 <= lev <= k else 1)
+    return row + [_magic(max(x, 1)) for x in divisors]
 
 
 def _ilog(x: int, a: int) -> int:
@@ -597,7 +616,7 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
             phase_ptr.append(len(items))
         row[1] = totals[p]
         totals[p] += row[2]
-        items.append(row)
+        items.append(_with_magic(row, a, k))
     while len(phase_ptr) <= n_phases:
         phase_ptr.append(len(items))
     if any(x >= 2**31 for x in table):

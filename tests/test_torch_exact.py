@@ -714,6 +714,35 @@ def test_emission_conflicts_match_their_windows(tag, cl_k):
             assert not (shared and phase[i] == phase[i2]), (i2, i)
 
 
+def test_item_divisor_multipliers_are_exact():
+    """K5 divides by each item's fixed divisors as (x * m) >> s
+    (`csrc/sweep_rule.cuh:K5Div`, m from `dense._magic`): exact for every
+    x < 2^31, here at the edges and at random x, for every divisor of
+    the ex4 cl_k 8 and ex6-lite plans and for random ones."""
+    rng = np.random.RandomState(17)
+    plans = [tdense.sweep_plan(tdense.compile_dense(tag, k))
+             for tag, k in (("ex4-chemical-turing", 8),
+                            ("ex6-mini-bff-lite", 2))]
+    n = len(tdense.ITEM_FIELDS)
+    divisors = {1, 2, 3, 2**31 - 1, 2**30 + 3}
+    for plan in plans:
+        # the plan's multipliers: those of divisors >= 1
+        assert plan.items[:, n - 8:].min() >= 2**31
+        for row in plan.items.tolist():
+            f = dict(zip(tdense.ITEM_FIELDS, row))
+            divisors |= {max(f[x], 1) for x in ("lo", "d", "xn", "xlo")}
+            divisors.add(max(f["lev"], 1))
+    divisors |= set(rng.randint(1, 2**31, 500).tolist())
+    for d in sorted(divisors):
+        m, shift = tdense._magic(d), 31 + (d - 1).bit_length()
+        assert m < 2**33
+        xs = [0, 1, d - 1, d, d + 1, 2**31 - 1, 2**31 - 2]
+        xs += rng.randint(0, 2**31, 64).tolist()
+        for x in xs:
+            if x < 2**31:
+                assert (x * m) >> shift == x // d, (x, d)
+
+
 def test_nan_entry_gives_nonfinite_dy():
     """A p with a NaN entry: dy is not finite, through the wrapper and
     through the plain version (which K5 does not match element for
