@@ -7,7 +7,8 @@
 // order and no float atomic is used, so two runs give the same bits;
 // built with `-fmad=false` (no contraction of a product into a sum), so
 // each element's arithmetic is the plain version's. `ckpe_dense_rhs`
-// runs K3 -> K4 -> K5 from one host call.
+// runs K3 -> K5 from one host call: K3's one or two launches, then K5's
+// one, whose phase 0 is K4.
 //
 // K3 `pyramid` (`dense.py:423 _levels`; `markov.py:194 pyramid`). The
 // levels below p, [lv[k-1], ..., lv[0], 1]; p itself is not copied (K4
@@ -20,34 +21,47 @@
 // doubles written once.
 //
 // K4 `signature_weights` (`dense.py:464-468`: `markov.py:189
-// guarded_ratio_prod`, then `segment_sum`). One single-block launch:
-// a thread takes a world's chain product of guarded ratios in chain
-// order, times w_const; after a barrier a thread takes a signature and
-// sums its worlds' weights walking a CSR of its pairs, built on the
-// host once a program, in the original pair order. The pyramid is read
-// as p below index A^k and K3's levels above. Tens to thousands of
-// worlds: bound by the launch, not by bytes.
+// guarded_ratio_prod`, then `segment_sum`) is K5's phase 0, before its
+// first grid barrier: a warp a signature, grid-stride. The signature's
+// pairs lie in CSR order, each with its world's chain indices and
+// w_const (built on the host once a program); lane l forms the weight of
+// pairs l, l + 32, ... (`sweep_rule.cuh:k4_pair_weight`: the chain's
+// guarded ratios multiplied in chain order, their loads issued four
+// at a time), and the warp adds them from 0.0 in pair order by
+// shuffles, the plain version's order. The pyramid is read as p below
+// index A^k and K3's levels above. Tens to thousands of worlds: a
+// launch of its own cost a launch and its place in the chain K3 -> K4
+// -> K5, not bytes; as a phase it costs one grid barrier and a few
+// dependent loads (a thread walking a signature's 12 pairs in turn took
+// 13 µs more at cl_k 5). A world that serves several signatures (ex4's
+// serve two each) is formed again for each: one code path for every
+// program, where per-block copies of the world weights in shared memory
+// would not fit beside K5's staging for the largest (ex6-mini-bff-lite:
+// 11,520 worlds, 4,536 signatures).
 //
 // K5 `sweep` (`dense.py:310 _apply_group`). One cooperative launch for
-// the whole sweep of every group: the plan's phases in turn, a grid
+// the whole sweep of every group: phase 0 (K4's signature weights into
+// the launch's own ``s``), then the plan's phases in turn, a grid
 // barrier (`cooperative_groups`' grid sync, its state the launch's own)
-// between two phases. A phase's items (`sweep_rule.cuh`) run side by side, a
-// thread an element in a grid-stride loop: compute items form a step's
-// vector over its live windows only (a step's A^k D / span windows, not
-// A^k), reading the previous step's vector or the group's seed and
-// forming each ratio from the pyramid; EMIT items read and write dy only
-// at the step's target windows. Phase 0 also zeroes dy. The plan puts
-// two emissions that share a window in two phases (a greedy colouring of
+// before each; the first of them also zeroes dy. A phase's items (`sweep_rule.cuh`) run side
+// by side, a thread an element in a grid-stride loop: compute items form
+// a step's vector over its live windows only (a step's A^k D / span
+// windows, not A^k), reading the previous step's vector or the group's
+// seed and forming each ratio from the pyramid; EMIT items read and
+// write dy only at the step's target windows. The plan puts two
+// emissions that share a window in two phases (a greedy colouring of
 // their conflicts), so each dy window takes its terms in phase order and
-// two threads of a phase never write one element. Vectors written in one
-// phase are read in a later one through L2 (`__ldcg`). A block unpacks a
-// phase's items into shared memory, with host-made multipliers for their
-// divisors. Bound: bytes, dy written once and each distinct entry of p
-// and lv[k-1] that the live windows need read once, with the signature
-// weights and the plan. Steps whose run is the trailing digits (lo = 1)
-// read p and dy at scattered windows, a 32-byte sector for few of them
-// (`chip_smoke.py:k5_sector_bytes` models that traffic); at cl_k 5 the
-// phases' barriers and small items, not bytes, set the time.
+// two threads of a phase never write one element. Vectors written in
+// one phase are read in a later one through L2 (`__ldcg`); the signature
+// weights, which no block reads before the barrier after phase 0, by
+// plain loads. A block unpacks a phase's items into shared memory, with
+// host-made multipliers for their divisors. Bound: bytes, dy written
+// once and each distinct entry of p and lv[k-1] that the live windows
+// need read once, with the signature weights and the plan. Steps whose
+// run is the trailing digits (lo = 1) read p and dy at scattered
+// windows, a 32-byte sector for few of them (`chip_smoke.py:
+// k5_sector_bytes` models that traffic); at cl_k 5 the phases' barriers
+// and small items, not bytes, set the time.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -62,6 +76,9 @@ constexpr int kThreads = 256;
 constexpr int kTileThreads = 512;
 constexpr int kFinishThreads = 1024;
 constexpr int kStaged = 32;  // K5 items unpacked into shared memory at once
+// K5 keeps 4 blocks an SM (64 registers a thread): at cl_k 7-8 its grid
+// is what fits, and phase 0's code at 66 registers left room for 3.
+constexpr int kK5BlocksPerSm = 4;
 
 struct K3Levels {
   int a, k, m;
@@ -131,56 +148,44 @@ k3_finish_kernel(double* __restrict__ low, K3Levels lv) {
   if (threadIdx.x == 0) low[lv.one_slot] = 1.0;
 }
 
-__device__ __forceinline__ double pyr_at(const double* p, unsigned n,
-                                         const double* low, int x) {
-  return (unsigned)x < n ? p[x] : low[x - n];
-}
-
-// K4: world weights, then signature weights, in one block.
-__global__ void __launch_bounds__(1024)
-k4_kernel(const double* __restrict__ p, unsigned n,
-          const double* __restrict__ low, const int* __restrict__ w_num,
-          const int* __restrict__ w_den, const double* __restrict__ w_const,
-          int n_worlds, int chain, const int* __restrict__ csr_ptr,
-          const int* __restrict__ csr_world, int n_sig,
-          double* __restrict__ wv, double* __restrict__ s) {
-  for (int w = threadIdx.x; w < n_worlds; w += blockDim.x) {
-    const int* num = w_num + (size_t)w * chain;
-    const int* den = w_den + (size_t)w * chain;
-    double prod = k5_guarded(pyr_at(p, n, low, num[0]),
-                             pyr_at(p, n, low, den[0]));
-    for (int c = 1; c < chain; ++c)
-      prod = prod * k5_guarded(pyr_at(p, n, low, num[c]),
-                               pyr_at(p, n, low, den[c]));
-    wv[w] = w_const[w] * prod;
-  }
-  __syncthreads();
-  for (int g = threadIdx.x; g < n_sig; g += blockDim.x) {
-    double acc = 0.0;
-    for (int q = csr_ptr[g]; q < csr_ptr[g + 1]; ++q)
-      acc = acc + wv[csr_world[q]];
-    s[g] = acc;
-  }
-}
-
 struct K5Launch {
   K5Ctx ctx;
+  K4Pairs pairs;
+  double* s;  // the signature weights, phase 0's output (ctx.s)
+  int n_sig;
   const long long* items;
   const long long* phase_ptr;
   int n_phases;
   unsigned n;  // A^k
 };
 
-// K5: every phase of the sweep in one cooperative launch. A block
-// unpacks up to kStaged of a phase's items (fields and divisors) into
-// shared memory at a time, then takes their elements grid-stride.
-__global__ void __launch_bounds__(kThreads) k5_sweep_kernel(K5Launch L) {
+// K5: phase 0 (K4), then every phase of the sweep, in one cooperative
+// launch. A block unpacks up to kStaged of a phase's items (fields and
+// divisors) into shared memory at a time, then takes their elements
+// grid-stride.
+__global__ void __launch_bounds__(kThreads, kK5BlocksPerSm)
+k5_sweep_kernel(K5Launch L) {
   __shared__ K5Item staged[kStaged];
   const unsigned stride = gridDim.x * kThreads;
   const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
-  for (unsigned x = tid; x < L.n; x += stride) L.ctx.dy[x] = 0.0;
+  const int lane = (int)(threadIdx.x & 31);
+  for (unsigned g = tid >> 5; g < (unsigned)L.n_sig; g += stride >> 5) {
+    const int q0 = L.pairs.csr_ptr[g], q1 = L.pairs.csr_ptr[g + 1];
+    double acc = 0.0;
+    for (int base = q0; base < q1; base += 32) {
+      const double w =
+          base + lane < q1 ? k4_pair_weight(L.ctx, L.pairs, base + lane)
+                           : 0.0;
+      const int count = q1 - base < 32 ? q1 - base : 32;
+      for (int j = 0; j < count; ++j)
+        acc = acc + __shfl_sync(0xffffffffu, w, j);
+    }
+    if (lane == 0) L.s[g] = acc;
+  }
   for (int ph = 0; ph < L.n_phases; ++ph) {
-    if (ph > 0) cg::this_grid().sync();
+    cg::this_grid().sync();
+    if (ph == 0)  // no item of the first phase touches dy
+      for (unsigned x = tid; x < L.n; x += stride) L.ctx.dy[x] = 0.0;
     const long long end = L.phase_ptr[ph + 1];
     for (long long first = L.phase_ptr[ph]; first < end;
          first += kStaged) {
@@ -267,52 +272,53 @@ extern "C" int ckpe_pyramid(const double* p, int a, int k, int m,
   return (int)cudaGetLastError();
 }
 
-// K4. ``wv`` is scratch of n_worlds doubles; one launch.
-extern "C" int ckpe_signature_weights(const double* p, long long n,
-                                      const double* low, const int* w_num,
-                                      const int* w_den, const double* w_const,
-                                      int n_worlds, int chain,
-                                      const int* csr_ptr,
-                                      const int* csr_world, int n_sig,
-                                      double* wv, double* s,
-                                      cudaStream_t stream) {
-  k4_kernel<<<1, 1024, 0, stream>>>(p, (unsigned)n, low, w_num, w_den,
-                                    w_const, n_worlds, chain, csr_ptr,
-                                    csr_world, n_sig, wv, s);
-  return (int)cudaGetLastError();
-}
-
-// K5: the whole sweep, one cooperative launch. ``items`` (int64 rows of
-// K5_FIELDS), ``phase_ptr`` (n_phases + 1 item offsets) and ``table``
-// are the plan on the card (`engine/dense.py:sweep_plan`); ``work`` holds
-// every step's vector (the launch's own: two launches at once need two).
-// max_phase sizes the grid.
+// K5: the signature weights (phase 0, K4) and the whole sweep, one
+// cooperative launch. ``items`` (int64 rows of K5_FIELDS), ``phase_ptr``
+// (n_phases + 1 item offsets) and ``table`` are the plan on the card
+// (`engine/dense.py:sweep_plan`); csr_ptr [n_sig + 1] each signature's
+// pairs, and pair_num, pair_den [pairs, chain] and pair_const [pairs]
+// their worlds' chains and w_const; ``work`` holds every step's vector
+// and ``s``
+// the signature weights (both the launch's own: two launches at once
+// need two of each). max_phase sizes the grid.
 extern "C" int ckpe_dense_sweep(const long long* items,
                                 const long long* phase_ptr, int n_phases,
                                 long long max_phase, const int* table,
                                 double* work, double* dy, long long n,
                                 const double* p, const double* low,
-                                const double* sig_w, int a, int k,
-                                cudaStream_t stream) {
-  if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+                                const int* pair_num, const int* pair_den,
+                                const double* pair_const, int chain,
+                                const int* csr_ptr, int n_sig, double* s,
+                                int a, int k, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || chain < 1) return (int)cudaErrorInvalidValue;
   K5Launch L;
   L.ctx.a = a;
   L.ctx.k = k;
   L.ctx.p = p;
   L.ctx.low = low;
-  L.ctx.s = sig_w;
+  L.ctx.s = s;
   L.ctx.table = table;
   L.ctx.work = work;
   L.ctx.dy = dy;
   k5_levels(L.ctx);
+  L.pairs.num = pair_num;
+  L.pairs.den = pair_den;
+  L.pairs.w_const = pair_const;
+  L.pairs.csr_ptr = csr_ptr;
+  L.pairs.chain = chain;
+  L.s = s;
+  L.n_sig = n_sig;
   L.items = items;
   L.phase_ptr = phase_ptr;
   L.n_phases = n_phases;
   L.n = (unsigned)n;
   const int resident = k5_resident_blocks();
   if (resident <= 0) return (int)cudaErrorLaunchFailure;
-  // About four elements a thread in the largest phase, at most what fits.
-  long long want = (max_phase + 4 * kThreads - 1) / (4 * kThreads);
+  // About four elements a thread in the largest phase (a lane each for
+  // a signature's pairs in phase 0), at most what fits.
+  const long long most =
+      max_phase > 32LL * n_sig ? max_phase : 32LL * n_sig;
+  long long want = (most + 4 * kThreads - 1) / (4 * kThreads);
   const int grid = (int)(want < 1 ? 1 : want > resident ? resident : want);
   void* args[] = {&L};
   const cudaError_t err = cudaLaunchCooperativeKernel(
@@ -322,25 +328,20 @@ extern "C" int ckpe_dense_sweep(const long long* items,
   return (int)cudaGetLastError();
 }
 
-// K3 -> K4 -> K5 from one host call: p [n], the pyramid below it (K3's
-// output, ``low``) and the signature weights ``s`` are given once and
-// passed to each; the rest as K4's and K5's own entry points take it.
-extern "C" int ckpe_dense_rhs(int m, const double* p, long long n,
-                              double* low, const int* w_num,
-                              const int* w_den, const double* w_const,
-                              int n_worlds, int chain, const int* csr_ptr,
-                              const int* csr_world, int n_sig, double* wv,
-                              double* s, const long long* items,
+// K3 -> K5 from one host call: K3's pyramid below p into ``low``, then
+// K5 (phase 0 and the sweep) with the arguments `ckpe_dense_sweep` takes.
+extern "C" int ckpe_dense_rhs(int m, const long long* items,
                               const long long* phase_ptr, int n_phases,
                               long long max_phase, const int* table,
-                              double* work, double* dy, int a, int k,
-                              cudaStream_t stream) {
-  int rc = ckpe_pyramid(p, a, k, m, low, stream);
-  if (rc) return rc;
-  rc = ckpe_signature_weights(p, n, low, w_num, w_den, w_const, n_worlds,
-                              chain, csr_ptr, csr_world, n_sig, wv, s,
-                              stream);
+                              double* work, double* dy, long long n,
+                              const double* p, double* low,
+                              const int* pair_num, const int* pair_den,
+                              const double* pair_const, int chain,
+                              const int* csr_ptr, int n_sig, double* s,
+                              int a, int k, cudaStream_t stream) {
+  const int rc = ckpe_pyramid(p, a, k, m, low, stream);
   if (rc) return rc;
   return ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table,
-                          work, dy, n, p, low, s, a, k, stream);
+                          work, dy, n, p, low, pair_num, pair_den,
+                          pair_const, chain, csr_ptr, n_sig, s, a, k, stream);
 }

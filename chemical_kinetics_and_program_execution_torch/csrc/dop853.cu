@@ -12,15 +12,30 @@
 // each row starts on a 256-byte boundary (n = A^k is odd, and a row at a
 // stride of n would start 8 bytes into a sector every other row).
 //
-// - stage: y + h * sum_j c_j k_j, one elementwise launch; the host drops
-//   the zero coefficients and passes the rest in stage order, the sum
-//   taken in that order (the plain version's order, `-fmad=false`).
+// At the solver's sizes (n = 9^5 is 231 blocks of 256 threads) a launch
+// is mostly ramp and tail, and the host's cost to queue one (a Python
+// call, ctypes, building its arguments) is larger than the card's time.
+// So the design cuts launches and what the host builds for each:
+//
+// - The tableau: DOP853's fixed stage combinations (`ode/dop853.py:
+//   TABLEAU`: the initial step's Euler row, A's rows 1-11, B, the three
+//   extra rows, E5 and E3), each as its nonzero (stage, coefficient)
+//   terms in stage order, live in `__constant__` memory, uploaded once a
+//   card (`ckpe_k6_tableau`). A launch names its row; a warp reads each
+//   term by broadcast. The one row map the solver makes, stage 0 and
+//   stage 12 swapping rows after an accepted step (first same as last),
+//   is one flag.
+// - stage: y + h * sum_q c_q k_q, one elementwise launch, the sum taken
+//   in stage order (the plain version's order, `-fmad=false`).
 // - norms: the combined 5th/3rd-order error sums, and the initial-step
-//   rule's scaled sums, as a two-pass block reduction: a fixed grid
-//   whose blocks each reduce a fixed slice in a fixed tree, then one
-//   block that reduces the partials in a fixed tree. No atomics: two
-//   runs give the same bits (the order differs from torch.sum's, which
-//   the solver's tolerance absorbs).
+//   rule's scaled sums, in one launch: a fixed grid whose blocks each
+//   reduce a fixed slice in a fixed tree and write a partial; the last
+//   block to finish (a `__threadfence` and an atomic ticket) reduces the
+//   partials in a fixed tree and resets the ticket. No float atomics:
+//   two runs give the same bits, the plain version's (it sums in this
+//   order, `ode/dop853.py:_norm_order_sum`). The partials, the ticket and
+//   the sums are the caller's scratch: one a solve, so two solves on two
+//   streams never share a ticket.
 // - dense_coeffs: the 7-row continuous-output stack [7, n] in one launch.
 //   A thread loads each stage row that D reads once into registers and
 //   forms D's four combinations from them, each in stage order (the
@@ -28,12 +43,18 @@
 //   element took 40-odd loads, and with the stage rows on 256-byte
 //   boundaries the kernel ran far slower than at a stride of n
 //   (PERF.md).
-// - dense_eval: the 7th-order interpolant at one fraction x, one launch.
+// - dense_eval: the 7th-order interpolant at every sample time a step
+//   holds, one launch. A thread loads its element of the stack's 7 rows
+//   and of y once, forms each sample's fraction x = min(max((ts[q] - t) /
+//   h, 0), 1) as the host did (a subtraction and a division, which
+//   cannot fuse) and writes its element of every row of its chunk by the
+//   per-fraction Horner order. Chunks of kEvalRows rows go to blockIdx.y,
+//   so a step with many samples fills the card.
 //
 // Bound: bytes. A stage reads y and its m nonzero stages and writes one
 // vector: (m + 2) n doubles; the error sums read y, y_new and 12 stages;
 // the coefficients read y, y_new and 12 stages and write 7 rows; an
-// evaluation reads the 7 rows and y and writes one vector.
+// evaluation of m samples reads the 7 rows and y and writes m vectors.
 
 #include <cuda_runtime.h>
 
@@ -42,6 +63,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxTerms = 16;
 constexpr int kReduceBlocks = 1024;
+constexpr int kTableRows = 18;  // `ode/dop853.py:TABLEAU`
+constexpr int kE5 = 16, kE3 = 17;
+constexpr int kFsal = 12;  // the stage that swaps rows with stage 0
+constexpr int kEvalRows = 8;
+constexpr int kMaxEvalChunks = 65535;
 
 struct Terms {
   int n;
@@ -49,33 +75,43 @@ struct Terms {
   double c[kMaxTerms];
 };
 
+__constant__ Terms c_tableau[kTableRows];
+
 struct DenseRows {
   int nu;                  // stage rows D reads, in stage order
   int row[kMaxTerms];
   double c[4][kMaxTerms];  // D row r's weight of row[u]; 0 where none
 };
 
+// The row of ks that holds stage r.
+__device__ __forceinline__ int stage_row(int r, int swap) {
+  return swap && (r == 0 || r == kFsal) ? kFsal - r : r;
+}
+
+// sum_q c_q ks[stage q] over tableau row `which`, in stage order.
 __device__ __forceinline__ double lincomb(const double* __restrict__ ks,
-                                          long long ld, const Terms& t,
+                                          long long ld, int which, int swap,
                                           long long i) {
-  double acc = t.c[0] * ks[t.row[0] * ld + i];
-  for (int q = 1; q < t.n; ++q) acc = acc + t.c[q] * ks[t.row[q] * ld + i];
+  const Terms& t = c_tableau[which];
+  double acc = t.c[0] * ks[stage_row(t.row[0], swap) * ld + i];
+  for (int q = 1; q < t.n; ++q)
+    acc = acc + t.c[q] * ks[stage_row(t.row[q], swap) * ld + i];
   return acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
 k6_stage_kernel(const double* __restrict__ y, const double* __restrict__ ks,
-                long long ks_ld, long long n, double h, Terms t,
+                long long ks_ld, long long n, int which, int swap, double h,
                 double* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  out[i] = y[i] + h * lincomb(ks, ks_ld, t, i);
+  out[i] = y[i] + h * lincomb(ks, ks_ld, which, swap, i);
 }
 
 enum { kRms = 0, kRmsDiff = 1, kErr = 2 };
 
 struct NormArgs {
-  int mode;
+  int mode, swap;
   long long n;
   double rtol, atol;
   const double* y;      // scale from y (and y_new in kErr)
@@ -84,7 +120,9 @@ struct NormArgs {
   const double* f1;     // kRmsDiff: f1
   const double* ks;     // kErr: the stages, rows ks_ld apart
   long long ks_ld;
-  Terms e5, e3;
+  double* partial;      // 2 a block
+  unsigned* ticket;     // 0 between launches
+  double* out;          // the two sums
 };
 
 __device__ __forceinline__ void block_sum2(double& a, double& b) {
@@ -103,9 +141,10 @@ __device__ __forceinline__ void block_sum2(double& a, double& b) {
   b = sb[0];
 }
 
-// Pass 1: block b reduces elements b*kThreads + t + m*stride, in order.
-__global__ void __launch_bounds__(kThreads)
-k6_norm_partial_kernel(NormArgs g, double* __restrict__ partial) {
+// Block b reduces elements b*kThreads + t + m*stride, in order, and
+// writes its partial; the last block to finish sums the partials, thread
+// t taking blocks t, t + kThreads, ... in order, then the block's tree.
+__global__ void __launch_bounds__(kThreads) k6_norms_kernel(NormArgs g) {
   double s0 = 0.0, s1 = 0.0;
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < g.n;
@@ -113,8 +152,8 @@ k6_norm_partial_kernel(NormArgs g, double* __restrict__ partial) {
     if (g.mode == kErr) {
       const double ay = fabs(g.y[i]), an = fabs(g.y_new[i]);
       const double scale = g.atol + (an > ay ? an : ay) * g.rtol;
-      const double e5 = lincomb(g.ks, g.ks_ld, g.e5, i) / scale;
-      const double e3 = lincomb(g.ks, g.ks_ld, g.e3, i) / scale;
+      const double e5 = lincomb(g.ks, g.ks_ld, kE5, g.swap, i) / scale;
+      const double e3 = lincomb(g.ks, g.ks_ld, kE3, g.swap, i) / scale;
       s0 = s0 + e5 * e5;
       s1 = s1 + e3 * e3;
     } else {
@@ -130,25 +169,26 @@ k6_norm_partial_kernel(NormArgs g, double* __restrict__ partial) {
     }
   }
   block_sum2(s0, s1);
+  __shared__ bool last;
   if (threadIdx.x == 0) {
-    partial[2 * blockIdx.x] = s0;
-    partial[2 * blockIdx.x + 1] = s1;
+    g.partial[2 * blockIdx.x] = s0;
+    g.partial[2 * blockIdx.x + 1] = s1;
+    __threadfence();  // the partial is visible before the ticket counts it
+    last = atomicAdd(g.ticket, 1u) == gridDim.x - 1;
   }
-}
-
-// Pass 2: one block sums the partials in a fixed tree.
-__global__ void __launch_bounds__(kThreads)
-k6_norm_final_kernel(const double* __restrict__ partial, int n_partial,
-                     double* __restrict__ out) {
-  double s0 = 0.0, s1 = 0.0;
-  for (int b = threadIdx.x; b < n_partial; b += kThreads) {
-    s0 = s0 + partial[2 * b];
-    s1 = s1 + partial[2 * b + 1];
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  double t0 = 0.0, t1 = 0.0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
+    t0 = t0 + __ldcg(g.partial + 2 * b);
+    t1 = t1 + __ldcg(g.partial + 2 * b + 1);
   }
-  block_sum2(s0, s1);
+  block_sum2(t0, t1);
   if (threadIdx.x == 0) {
-    out[0] = s0;
-    out[1] = s1;
+    g.out[0] = t0;
+    g.out[1] = t1;
+    *g.ticket = 0u;
   }
 }
 
@@ -186,18 +226,36 @@ k6_dense_coeffs_kernel(const double* __restrict__ y,
   }
 }
 
+// Rows q0 .. q0 + kEvalRows - 1 (below m) of the samples at ts[i_out + q].
 __global__ void __launch_bounds__(kThreads)
 k6_dense_eval_kernel(const double* __restrict__ F, long long f_ld,
-                     const double* __restrict__ y, long long n, double x,
-                     double one_minus_x, double* __restrict__ out) {
+                     const double* __restrict__ y, long long n,
+                     const double* __restrict__ ts, long long i_out, int m,
+                     double t, double h, double* __restrict__ out,
+                     long long out_ld) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  double acc = 0.0;
-  for (int r = 6; r >= 0; --r) {
-    acc = acc + F[r * f_ld + i];
-    acc = acc * ((6 - r) % 2 == 0 ? x : one_minus_x);
+  double f[7];
+#pragma unroll
+  for (int r = 0; r < 7; ++r) f[r] = F[r * f_ld + i];
+  const double yi = y[i];
+  const int q0 = blockIdx.y * kEvalRows;
+  const int q1 = m - q0 < kEvalRows ? m : q0 + kEvalRows;
+  for (int q = q0; q < q1; ++q) {
+    // min(max(v, 0), 1) as the host takes it: v unless 0 > v, then that
+    // unless 1 < it.
+    const double v = (ts[i_out + q] - t) / h;
+    const double lo = 0.0 > v ? 0.0 : v;
+    const double x = 1.0 < lo ? 1.0 : lo;
+    const double one_minus_x = 1.0 - x;
+    double acc = 0.0;
+#pragma unroll
+    for (int r = 6; r >= 0; --r) {
+      acc = acc + f[r];
+      acc = acc * ((6 - r) % 2 == 0 ? x : one_minus_x);
+    }
+    out[q * out_ld + i] = yi + acc;
   }
-  out[i] = y[i] + acc;
 }
 
 unsigned blocks(long long n) {
@@ -209,44 +267,51 @@ int reduce_blocks(long long n) {
   return (int)(b < kReduceBlocks ? (b > 0 ? b : 1) : kReduceBlocks);
 }
 
-bool make_terms(const int* rows, const double* coefs, int m, Terms* t) {
-  if (m < 1 || m > kMaxTerms) return false;
-  t->n = m;
-  for (int q = 0; q < m; ++q) {
-    t->row[q] = rows[q];
-    t->c[q] = coefs[q];
-  }
-  return true;
-}
-
 }  // namespace
 
-// Stage: out = y + h * sum_q coefs[q] * ks[rows[q]] (host arrays of m).
+// The tableau into the current card's constant memory: row r has
+// count[r] terms, (rows[r * 16 + q], coefs[r * 16 + q]) in stage order.
+extern "C" int ckpe_k6_tableau(const int* count, const int* rows,
+                               const double* coefs, int n_rows) {
+  if (n_rows != kTableRows) return (int)cudaErrorInvalidValue;
+  Terms t[kTableRows];
+  for (int r = 0; r < kTableRows; ++r) {
+    if (count[r] < 1 || count[r] > kMaxTerms)
+      return (int)cudaErrorInvalidValue;
+    t[r].n = count[r];
+    for (int q = 0; q < kMaxTerms; ++q) {
+      t[r].row[q] = rows[r * kMaxTerms + q];
+      t[r].c[q] = coefs[r * kMaxTerms + q];
+    }
+  }
+  return (int)cudaMemcpyToSymbol(c_tableau, t, sizeof(t));
+}
+
+// Stage: out = y + h * sum_q c_q * ks[stage q] over tableau row `which`;
+// with `swap`, stages 0 and 12 each read the other's row.
 extern "C" int ckpe_k6_stage(const double* y, const double* ks,
-                             long long ks_ld, long long n, double h,
-                             const int* rows, const double* coefs, int m,
-                             double* out, cudaStream_t stream) {
-  Terms t;
-  if (!make_terms(rows, coefs, m, &t)) return (int)cudaErrorInvalidValue;
-  k6_stage_kernel<<<blocks(n), kThreads, 0, stream>>>(y, ks, ks_ld, n, h, t,
-                                                      out);
+                             long long ks_ld, long long n, int which,
+                             int swap, double h, double* out,
+                             cudaStream_t stream) {
+  if (which < 0 || which >= kTableRows) return (int)cudaErrorInvalidValue;
+  k6_stage_kernel<<<blocks(n), kThreads, 0, stream>>>(y, ks, ks_ld, n, which,
+                                                      swap, h, out);
   return (int)cudaGetLastError();
 }
 
-// The scratch ``partial`` holds 2 * 1024 doubles; two sums go to out[0..1].
-// mode 0: sum (y/scale)^2, sum (f0/scale)^2; mode 1: sum ((f1-f0)/scale)^2;
-// mode 2: sum (e5/scale)^2, sum (e3/scale)^2 with e5, e3 the stage
-// combinations given by (rows5, coefs5, m5) and (rows3, coefs3, m3).
+// Two sums into scratch[2048..2049], one launch; scratch holds 2 * 1024
+// partials, the two sums, and the ticket (an unsigned, 0 between calls)
+// in the first bytes of scratch[2050]. mode 0: sum (y/scale)^2, sum
+// (f0/scale)^2; mode 1: sum ((f1-f0)/scale)^2; mode 2: sum (e5/scale)^2,
+// sum (e3/scale)^2 with e5, e3 the tableau's error rows.
 extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
                              const double* y, const double* y_new,
                              const double* f0, const double* f1,
-                             const double* ks, long long ks_ld,
-                             const int* rows5,
-                             const double* coefs5, int m5, const int* rows3,
-                             const double* coefs3, int m3, double* partial,
-                             double* out, cudaStream_t stream) {
+                             const double* ks, long long ks_ld, int swap,
+                             double* scratch, cudaStream_t stream) {
   NormArgs g;
   g.mode = mode;
+  g.swap = swap;
   g.n = n;
   g.rtol = rtol;
   g.atol = atol;
@@ -256,15 +321,10 @@ extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
   g.f1 = f1;
   g.ks = ks;
   g.ks_ld = ks_ld;
-  g.e5.n = g.e3.n = 0;
-  if (mode == kErr && !(make_terms(rows5, coefs5, m5, &g.e5) &&
-                        make_terms(rows3, coefs3, m3, &g.e3)))
-    return (int)cudaErrorInvalidValue;
-  const int nb = reduce_blocks(n);
-  k6_norm_partial_kernel<<<nb, kThreads, 0, stream>>>(g, partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  k6_norm_final_kernel<<<1, kThreads, 0, stream>>>(partial, nb, out);
+  g.partial = scratch;
+  g.out = scratch + 2 * kReduceBlocks;
+  g.ticket = reinterpret_cast<unsigned*>(scratch + 2 * kReduceBlocks + 2);
+  k6_norms_kernel<<<reduce_blocks(n), kThreads, 0, stream>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -288,11 +348,16 @@ extern "C" int ckpe_k6_dense_coeffs(const double* y, const double* y_new,
   return (int)cudaGetLastError();
 }
 
+// The samples at ts[i_out .. i_out + m) (ts on the card) of the step from
+// t of size h, into rows 0..m-1 of out (rows out_ld apart); one launch.
 extern "C" int ckpe_k6_dense_eval(const double* F, long long f_ld,
-                                  const double* y, long long n, double x,
-                                  double one_minus_x, double* out,
-                                  cudaStream_t stream) {
-  k6_dense_eval_kernel<<<blocks(n), kThreads, 0, stream>>>(
-      F, f_ld, y, n, x, one_minus_x, out);
+                                  const double* y, long long n,
+                                  const double* ts, long long i_out, int m,
+                                  double t, double h, double* out,
+                                  long long out_ld, cudaStream_t stream) {
+  const int chunks = (m + kEvalRows - 1) / kEvalRows;
+  if (m < 1 || chunks > kMaxEvalChunks) return (int)cudaErrorInvalidValue;
+  k6_dense_eval_kernel<<<dim3(blocks(n), chunks), kThreads, 0, stream>>>(
+      F, f_ld, y, n, ts, i_out, m, t, h, out, out_ld);
   return (int)cudaGetLastError();
 }

@@ -78,7 +78,7 @@ struct K5Ctx {
   const double* low;            // [lv[k-1], ..., lv[0], 1]
   unsigned lv_off[kMaxK + 1];   // level j < k at low + lv_off[j]
   unsigned pw[kMaxK + 1];       // A^j
-  const double* s;              // signature weights (K4's output)
+  const double* s;              // signature weights (phase 0's output)
   const int* table;             // ranks, children, seeds, targets, ops
   double* work;                 // every step's compact vector
   double* dy;
@@ -269,4 +269,51 @@ K5_FN void k5_levels(K5Ctx& c) {
     pos += c.pw[j];
   }
   c.lv_off[c.k] = 0;
+}
+
+// K4's rule, K5's phase 0 (`engine/dense.py:signature_weights_plain`):
+// signature g's weight is the sum from 0.0, over its pairs in pair
+// order, of each pair's world weight: w_const[w] times the product of
+// w's guarded ratios in chain order (`k4_pair_weight`). The pairs lie in
+// CSR order (by signature, pair order kept), each with its world's
+// chain indices and w_const, so a world that serves several signatures
+// is formed anew for each. The pyramid is read as p below A^k and the
+// levels below p above.
+struct K4Pairs {
+  const int* num;       // [pairs, chain] pyramid indices
+  const int* den;
+  const double* w_const;  // [pairs]
+  const int* csr_ptr;   // [signatures + 1]
+  int chain;
+};
+
+constexpr int kK4Batch = 4;  // chain factors whose loads issue together
+
+K5_FN double k4_pyramid(const K5Ctx& c, int x) {
+  const unsigned n = c.pw[c.k];
+  return (unsigned)x < n ? c.p[x] : c.low[x - n];
+}
+
+K5_FN double k4_pair_weight(const K5Ctx& c, const K4Pairs& w, int q) {
+  const int* num = w.num + (size_t)q * w.chain;
+  const int* den = w.den + (size_t)q * w.chain;
+  double prod = 0.0;
+  for (int j0 = 0; j0 < w.chain; j0 += kK4Batch) {
+    double vn[kK4Batch], vd[kK4Batch];
+#pragma unroll
+    for (int u = 0; u < kK4Batch; ++u) {
+      if (j0 + u < w.chain) {
+        vn[u] = k4_pyramid(c, num[j0 + u]);
+        vd[u] = k4_pyramid(c, den[j0 + u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kK4Batch; ++u) {
+      if (j0 + u < w.chain) {
+        const double g = k5_guarded(vn[u], vd[u]);
+        prod = j0 + u == 0 ? g : prod * g;
+      }
+    }
+  }
+  return w.w_const[q] * prod;
 }

@@ -145,34 +145,33 @@ def load() -> ctypes.CDLL:
     lib.ckpe_window_counts.restype = _I
     # ckpe_pyramid(p, a, k, m, low, stream)
     lib.ckpe_pyramid.argtypes = [_P, _I, _I, _I, _P, _P]
-    # ckpe_signature_weights(p, n, low, w_num, w_den, w_const, W, C,
-    #                        csr_ptr, csr_world, n_sig, wv, s, stream)
-    k4 = [_P, _L, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P]
-    lib.ckpe_signature_weights.argtypes = k4 + [_P]
     # ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table, work,
-    #                  dy, n, p, low, sig_w, a, k, stream)
-    k5 = [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P, _I, _I]
-    lib.ckpe_dense_sweep.argtypes = k5 + [_P]
-    # ckpe_dense_rhs(m, <K4's arguments>, <K5's less n, p, low and sig_w>,
-    #                stream)
-    lib.ckpe_dense_rhs.argtypes = [_I] + k4 + k5[:7] + k5[11:] + [_P]
-    # ckpe_k6_stage(y, ks, ks_ld, n, h, rows, coefs, m, out, stream)
-    lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _L, _D, _P, _P, _I, _P, _P]
-    # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, ks_ld,
-    #               rows5, coefs5, m5, rows3, coefs3, m3, partial, out,
-    #               stream)
+    #                  dy, n, p, low, pair_num, pair_den, pair_const,
+    #                  chain, csr_ptr, n_sig, s, a, k, stream)
+    k5 = [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I,
+          _P, _I, _I, _P]
+    lib.ckpe_dense_sweep.argtypes = k5
+    # ckpe_dense_rhs(m, <ckpe_dense_sweep's arguments>)
+    lib.ckpe_dense_rhs.argtypes = [_I] + k5
+    # ckpe_k6_tableau(count, rows, coefs, n_rows)
+    lib.ckpe_k6_tableau.argtypes = [_P, _P, _P, _I]
+    # ckpe_k6_stage(y, ks, ks_ld, n, which, swap, h, out, stream)
+    lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _L, _I, _I, _D, _P, _P]
+    # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, ks_ld, swap,
+    #               scratch, stream)
     lib.ckpe_k6_norms.argtypes = [_I, _L, _D, _D, _P, _P, _P, _P, _P, _L,
-                                  _P, _P, _I, _P, _P, _I, _P, _P, _P]
+                                  _I, _P, _P]
     # ckpe_k6_dense_coeffs(y, y_new, f_old, f_new, ks, ks_ld, n, h, rows,
     #                      coefs, nu, out, f_ld, stream)
     lib.ckpe_k6_dense_coeffs.argtypes = [_P, _P, _P, _P, _P, _L, _L, _D,
                                          _P, _P, _I, _P, _L, _P]
-    # ckpe_k6_dense_eval(F, f_ld, y, n, x, one_minus_x, out, stream)
-    lib.ckpe_k6_dense_eval.argtypes = [_P, _L, _P, _L, _D, _D, _P, _P]
-    for name in ("ckpe_pyramid", "ckpe_signature_weights",
-                 "ckpe_dense_sweep", "ckpe_dense_rhs", "ckpe_k6_stage",
-                 "ckpe_k6_norms", "ckpe_k6_dense_coeffs",
-                 "ckpe_k6_dense_eval"):
+    # ckpe_k6_dense_eval(F, f_ld, y, n, ts, i_out, m, t, h, out, out_ld,
+    #                    stream)
+    lib.ckpe_k6_dense_eval.argtypes = [_P, _L, _P, _L, _P, _L, _I, _D, _D,
+                                       _P, _L, _P]
+    for name in ("ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
+                 "ckpe_k6_tableau", "ckpe_k6_stage", "ckpe_k6_norms",
+                 "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval"):
         getattr(lib, name).restype = _I
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p

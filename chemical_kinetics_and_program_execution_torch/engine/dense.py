@@ -5,20 +5,22 @@ on the host into a :class:`DenseProgram` (`compile_dense`): per-world
 factor chains into the flat marginal pyramid, world-to-signature pairs,
 and one :class:`SigPlan` per revealed-window signature. Signatures with
 the same (revealed length, changed positions) share one window sweep
-(`_group_plans`). dp/dt then takes three stages, each a hand-written
-CUDA kernel on the card (`csrc/dense_rhs.cu`) with its plain PyTorch
-version here, which the wrapper runs for a CPU tensor:
+(`_group_plans`). dp/dt then takes three stages, each hand-written
+CUDA on the card (`csrc/dense_rhs.cu`) with its plain PyTorch version
+here, which the wrapper runs for a CPU tensor:
 
 - K3 `pyramid`: the marginal levels below p (`_levels` there);
-- K4 `signature_weights`: world weights, chain products of guarded
-  ratios, summed into signature weights;
+- K4, the signature weights: world weights, chain products of guarded
+  ratios, summed into signature weights (`signature_weights_plain`); on
+  the card phase 0 of K5's launch (`csrc/sweep_rule.cuh:
+  k4_pair_weight`, a warp a signature);
 - K5 `sweep`: every group's sweep in one launch (`csrc/sweep_rule.cuh`
   is the per-element rule), planned once a program on the host
   (`sweep_plan`), each ratio formed where it is needed from the pyramid
   (`_ratio_tables` there).
 
-On a card `make_dense_dy_dt`'s fn runs the three from one C call
-(`dense_rhs`).
+On a card `make_dense_dy_dt`'s fn runs K3 and K5 from one C call
+(`dense_rhs`): 3 launches at ex4's cl_k 5-8.
 
 The sweep plan follows `_apply_group` step for step: seed a one-hot
 vector, left-extend it to a (k-1)-context (phase A), emit and left-shift
@@ -635,8 +637,10 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
 @dataclasses.dataclass
 class DeviceProgram:
     """A :class:`DenseProgram`, its sweep plan and its tables on one
-    device (CSR of each signature's pairs in pair order for K4; K5's
-    items and table)."""
+    device: for K4 each signature's pairs in CSR order (pair order kept),
+    each with its world's chain indices and w_const, and the same pairs
+    as columns of world indices for its plain version; K5's items and
+    table."""
 
     prog: DenseProgram
     plan: SweepPlan
@@ -644,10 +648,11 @@ class DeviceProgram:
     w_num: torch.Tensor
     w_den: torch.Tensor
     w_const: torch.Tensor
-    pair_world: torch.Tensor
-    pair_sig: torch.Tensor
-    csr_ptr: torch.Tensor
-    csr_world: torch.Tensor
+    csr_ptr: torch.Tensor  # [signatures + 1]
+    pair_num: torch.Tensor  # [pairs, chain], CSR order
+    pair_den: torch.Tensor
+    pair_const: torch.Tensor  # [pairs]
+    sig_pairs: torch.Tensor  # [most pairs of a signature, signatures]
     items: torch.Tensor
     phase_ptr: torch.Tensor
     table: torch.Tensor
@@ -661,6 +666,13 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
     order = np.argsort(prog.pair_sig, kind="stable")
     counts = np.bincount(prog.pair_sig, minlength=prog.num_signatures)
     csr_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    csr_world = prog.pair_world[order]
+    # Column c: each signature's c-th world in pair order, num_worlds (a
+    # weight of 0) past its last.
+    rank = np.arange(len(order)) - csr_ptr[prog.pair_sig[order]]
+    sig_pairs = np.full((max(counts.max(initial=0), 1), prog.num_signatures),
+                        prog.num_worlds, dtype=np.int64)
+    sig_pairs[rank, prog.pair_sig[order]] = csr_world
 
     def dev(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
@@ -672,10 +684,11 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
         prog=prog, plan=plan, device=w_const.device,  # "cuda" -> "cuda:0"
         w_num=dev(prog.w_num, i32), w_den=dev(prog.w_den, i32),
         w_const=w_const,
-        pair_world=dev(prog.pair_world, i32),
-        pair_sig=dev(prog.pair_sig, i32),
         csr_ptr=dev(csr_ptr, i32),
-        csr_world=dev(prog.pair_world[order], i32),
+        pair_num=dev(prog.w_num[csr_world], i32),
+        pair_den=dev(prog.w_den[csr_world], i32),
+        pair_const=dev(prog.w_const[csr_world], f64),
+        sig_pairs=dev(sig_pairs, torch.int64),
         items=dev(plan.items, torch.int64),
         phase_ptr=dev(plan.phase_ptr, torch.int64),
         table=dev(plan.table, i32),
@@ -778,18 +791,23 @@ def ratio_tables_plain(p: torch.Tensor, low: torch.Tensor, a: int, k: int):
 
 def signature_weights_plain(dp: DeviceProgram, p: torch.Tensor,
                             low: torch.Tensor):
-    """Plain version of K4: ``s[sig] = sum over the pairs of sig of
-    w_const[w] * prod_c g(pyr[w_num[w, c]], pyr[w_den[w, c]])``, the
-    product in chain order, pyr = [p, low]."""
+    """Plain version of K4 (on the card K5's phase 0): ``s[sig] = sum over
+    the pairs of sig of w_const[w] * prod_c g(pyr[w_num[w, c]],
+    pyr[w_den[w, c]])``, the product in chain order, pyr = [p, low], the
+    sum from 0 in pair order: a column of pairs at a time (`sig_pairs`),
+    so on a card too, where an ``index_add_`` would add in no fixed
+    order."""
     signature_weights_plain.calls += 1
     pyr = torch.cat([p, low])
     g = guarded_ratio(pyr[dp.w_num.long()], pyr[dp.w_den.long()])
     prod = g[:, 0].clone()
     for c in range(1, g.shape[1]):
         prod = prod * g[:, c]
-    wv = dp.w_const * prod
+    wv = torch.cat([dp.w_const * prod, prod.new_zeros(1)])
     s = torch.zeros(dp.prog.num_signatures, dtype=p.dtype, device=p.device)
-    return s.index_add_(0, dp.pair_sig.long(), wv[dp.pair_world.long()])
+    for col in dp.sig_pairs:
+        s = s + wv[col]
+    return s
 
 
 signature_weights_plain.calls = 0
@@ -806,37 +824,6 @@ def _check_pyramid(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor):
         raise ValueError(f"p on {p.device}, low on {low.device}, the "
                          f"program on {dp.device}")
     return p.contiguous(), low.contiguous()
-
-
-def signature_weights(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor):
-    """K4: signature weights [num_signatures] from p and the pyramid
-    below it; the kernel for a CUDA tensor (one launch), the plain
-    version for a CPU one."""
-    if not cuda.on_card(p, "signature_weights"):
-        return signature_weights_plain(dp, p, low)
-    prog = dp.prog
-    p, low = _check_pyramid(dp, p, low)
-    wv = torch.empty(prog.num_worlds, dtype=p.dtype, device=p.device)
-    s = torch.empty(prog.num_signatures, dtype=p.dtype, device=p.device)
-    lib = cuda.load()
-    with torch.cuda.device(p.device):
-        rc = lib.ckpe_signature_weights(*_k4_args(dp, p, low, wv, s),
-                                        cuda.stream(p))
-    cuda.check(rc, "signature_weights", lib)
-    signature_weights.launches += 1
-    return s
-
-
-signature_weights.launches = 0
-
-
-def _k4_args(dp, p, low, wv, s):
-    prog = dp.prog
-    return (p.data_ptr(), prog.state_size, low.data_ptr(),
-            dp.w_num.data_ptr(), dp.w_den.data_ptr(), dp.w_const.data_ptr(),
-            prog.num_worlds, prog.w_num.shape[1], dp.csr_ptr.data_ptr(),
-            dp.csr_world.data_ptr(), prog.num_signatures, wv.data_ptr(),
-            s.data_ptr())
 
 
 # --- K5: the sweep -------------------------------------------------------------
@@ -949,14 +936,21 @@ def _checked_out(out: torch.Tensor, n: int, device) -> torch.Tensor:
     return out
 
 
-def _k5_plan_args(dp, work, dy):
-    """K5's plan, its work buffer and dy, as `ckpe_dense_sweep` and
-    `ckpe_dense_rhs` take them. The work buffer is a call's own (`_work`),
-    so two calls on two streams do not share one."""
-    plan = dp.plan
+def _k5_args(dp, p, low, work, dy, s):
+    """K5's arguments as `ckpe_dense_sweep` and `ckpe_dense_rhs` take
+    them, less the stream: the plan, the work buffer, dy, the pyramid,
+    each signature's pairs with their worlds' chains, and the signature
+    weights ``s`` that phase 0 writes. The work buffer and ``s`` are a
+    call's own (`_work`, `_weights_out`), so two calls on two streams do
+    not share them."""
+    prog, plan = dp.prog, dp.plan
     return (dp.items.data_ptr(), dp.phase_ptr.data_ptr(), plan.num_phases,
             plan.max_phase, dp.table.data_ptr(), work.data_ptr(),
-            dy.data_ptr())
+            dy.data_ptr(), prog.state_size, p.data_ptr(), low.data_ptr(),
+            dp.pair_num.data_ptr(), dp.pair_den.data_ptr(),
+            dp.pair_const.data_ptr(), prog.w_num.shape[1],
+            dp.csr_ptr.data_ptr(), prog.num_signatures, s.data_ptr(),
+            prog.size_a, prog.cl_k)
 
 
 def _work(dp, p):
@@ -966,27 +960,39 @@ def _work(dp, p):
                        device=p.device)
 
 
+def _weights_out(dp, s):
+    """Where K5's phase 0 writes the signature weights: ``s`` (checked),
+    or a call's own tensor when None."""
+    n_sig = dp.prog.num_signatures
+    if s is None:
+        return torch.empty(n_sig, dtype=torch.float64, device=dp.device)
+    if (s.dtype != torch.float64 or s.shape != (n_sig,)
+            or s.device != dp.device or not s.is_contiguous()):
+        raise TypeError(f"s must be a contiguous float64 [{n_sig}] tensor "
+                        f"on {dp.device}")
+    return s
+
+
 def sweep(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
-          s: torch.Tensor, out: torch.Tensor | None = None):
-    """K5: dp/dt [A^k] from p, the pyramid below it and the signature
-    weights, into ``out`` (a new tensor when None); the kernel for CUDA
-    tensors (one launch), the plain version for CPU ones."""
+          out: torch.Tensor | None = None, s: torch.Tensor | None = None):
+    """K5: dp/dt [A^k] from p and the pyramid below it, into ``out`` (a
+    new tensor when None), the signature weights formed first (phase 0,
+    K4) and left in ``s`` when one is given; the kernel for CUDA tensors
+    (one launch), the plain versions (`signature_weights_plain`,
+    `sweep_plain`) for CPU ones."""
     if not cuda.on_card(p, "sweep"):
-        return sweep_plain(dp, p, low, s, out)
+        w = signature_weights_plain(dp, p, low)
+        if s is not None:
+            s.copy_(w)
+        return sweep_plain(dp, p, low, w, out)
     p, low = _check_pyramid(dp, p, low)
-    if (s.dtype != torch.float64 or s.shape != (dp.prog.num_signatures,)
-            or s.device != dp.device):
-        raise TypeError("s must be K4's float64 output on the program's "
-                        "card")
     n = dp.prog.state_size
     dy = (torch.empty(n, dtype=torch.float64, device=p.device)
           if out is None else _checked_out(out, n, p.device))
-    work, s = _work(dp, p), s.contiguous()
+    work, s = _work(dp, p), _weights_out(dp, s)
     lib = cuda.load()
     with torch.cuda.device(p.device):
-        rc = lib.ckpe_dense_sweep(*_k5_plan_args(dp, work, dy), n,
-                                  p.data_ptr(), low.data_ptr(), s.data_ptr(),
-                                  dp.prog.size_a, dp.prog.cl_k,
+        rc = lib.ckpe_dense_sweep(*_k5_args(dp, p, low, work, dy, s),
                                   cuda.stream(p))
     cuda.check(rc, "sweep", lib)
     sweep.launches += 1
@@ -1012,30 +1018,24 @@ def dy_dt_dense(dp: DeviceProgram, p: torch.Tensor,
 def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
               out: torch.Tensor | None = None) -> torch.Tensor:
     """dp/dt of a float64 ``p`` [A^k] into ``out`` (a new tensor when
-    None): on a card K3, K4 and K5 through one C call
-    (`ckpe_dense_rhs`), on the CPU their plain versions."""
+    None): on a card K3 and K5 (with K4 as its phase 0) through one C
+    call (`ckpe_dense_rhs`), on the CPU their plain versions."""
     a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
     if not cuda.on_card(p, "dense_rhs"):
         return dy_dt_dense(dp, p, out)
     low = torch.empty(dp.prog.pyramid_size - n, dtype=torch.float64,
                       device=p.device)
     p, low = _check_pyramid(dp, p, low)
-    wv = torch.empty(dp.prog.num_worlds, dtype=torch.float64,
-                     device=p.device)
-    s = torch.empty(dp.prog.num_signatures, dtype=torch.float64,
-                    device=p.device)
     dy = (torch.empty(n, dtype=torch.float64, device=p.device)
           if out is None else _checked_out(out, n, p.device))
-    work = _work(dp, p)
+    work, s = _work(dp, p), _weights_out(dp, None)
     lib = cuda.load()
     with torch.cuda.device(p.device):
         rc = lib.ckpe_dense_rhs(pyramid_tile_digits(a, k),
-                                *_k4_args(dp, p, low, wv, s),
-                                *_k5_plan_args(dp, work, dy), a, k,
+                                *_k5_args(dp, p, low, work, dy, s),
                                 cuda.stream(p))
     cuda.check(rc, "dense_rhs", lib)
     pyramid.launches += pyramid_launches(a, k)
-    signature_weights.launches += 1
     sweep.launches += 1
     return dy
 
@@ -1043,8 +1043,8 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
 def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
                      device=None):
     """Builds ``fn(p, out=None) -> dp/dt`` (float64) for a dense program
-    on ``device`` (``cuda`` unless named): K3 -> K4 -> K5 in one C call
-    on a card (`dense_rhs`), their plain versions on the CPU. ``p`` is a
+    on ``device`` (``cuda`` unless named): K3 -> K5 in one C call on a
+    card (`dense_rhs`), their plain versions on the CPU. ``p`` is a
     tensor or an array of A^k values; it is moved to the device as
     float64. K5 writes dp/dt into ``out`` where one is given (a solver's
     stage row), else into a new tensor. ``with_mass`` (pruned programs)

@@ -15,7 +15,12 @@ The vector arithmetic is kernel K6 (`csrc/dop853.cu`): the stage states
 (`stage`), the error and initial-step sums (`norms`), the
 continuous-output stack (`dense_coeffs`) and its evaluation
 (`dense_eval`). Each wrapper runs its plain PyTorch version (``*_plain``)
-for a CPU tensor and launches the kernel for a CUDA one.
+for a CPU tensor and launches the kernel for a CUDA one. A step costs
+the host little: a stage launch names a row of the fixed tableau
+(`TABLEAU`, on the card once) and one flag for the swap of stages 0 and
+12; the error sums are one launch into the solve's own scratch; the
+sample times go to the card once a solve, and one launch evaluates every
+sample a step holds.
 """
 
 from __future__ import annotations
@@ -48,6 +53,69 @@ def _terms(coefs, rows):
     """The nonzero (row, coefficient) terms of a stage combination, in
     stage order: what the kernel sums and the plain version too."""
     return [(int(r), float(c)) for c, r in zip(coefs, rows) if c != 0.0]
+
+
+# The fixed stage combinations, by row: 0 the initial step's Euler
+# state, 1-11 A's rows (stage i), 12 B (y_new), 13-15 the extra stages,
+# 16 and 17 the error rows E5 and E3. Each row's terms name logical
+# stages; K6 holds the table in constant memory (`csrc/dop853.cu`).
+_EULER, _B_ROW, _E5_ROW, _E3_ROW = 0, _N_STAGES, 16, 17
+_STAGES = range(_N_EXTENDED)
+TABLEAU = tuple(
+    [[(0, 1.0)]]
+    + [_terms(_A[i, :i], _STAGES[:i]) for i in range(1, _N_STAGES)]
+    + [_terms(_B, _STAGES[:_N_STAGES])]
+    + [_terms(_A_EXTRA[j, :_N_STAGES + 1 + j], _STAGES[:_N_STAGES + 1 + j])
+       for j in range(_N_EXTENDED - _N_STAGES - 1)]
+    + [_terms(_E5, _STAGES[:_N_STAGES + 1]),
+       _terms(_E3, _STAGES[:_N_STAGES + 1])])
+_MAX_TERMS = 16
+
+
+def stage_rows(swap: int) -> list:
+    """Row of the stage tensor that holds each stage: stage 0 and stage 12
+    swap rows after every accepted step (first same as last)."""
+    rows = list(_STAGES)
+    if swap:
+        rows[0], rows[_N_STAGES] = rows[_N_STAGES], rows[0]
+    return rows
+
+
+def tableau_terms(which: int, swap: int = 0):
+    """Row ``which`` of `TABLEAU` as (row of the stage tensor, c) terms,
+    stage 0 and stage 12 swapped when ``swap``: what the plain versions
+    sum."""
+    rows = stage_rows(swap)
+    return [(rows[r], c) for r, c in TABLEAU[which]]
+
+
+def tableau_arrays():
+    """`TABLEAU` as K6 uploads it: int32 term counts [18], int32 stages
+    [18, 16] and float64 coefficients [18, 16], zero past each count."""
+    count = np.asarray([len(t) for t in TABLEAU], dtype=np.int32)
+    rows = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.int32)
+    coefs = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.float64)
+    for w, terms in enumerate(TABLEAU):
+        for q, (r, c) in enumerate(terms):
+            rows[w, q], coefs[w, q] = r, c
+    return count, rows, coefs
+
+
+_ON_CARD = set()  # cards that hold the tableau
+
+
+def _lib(device):
+    """The kernel library, with the tableau uploaded to ``device``'s
+    constant memory on its first use there."""
+    lib = cuda.load()
+    if device.index not in _ON_CARD:
+        count, rows, coefs = tableau_arrays()
+        with torch.cuda.device(device):
+            rc = lib.ckpe_k6_tableau(count.ctypes.data, rows.ctypes.data,
+                                     coefs.ctypes.data, len(TABLEAU))
+        cuda.check(rc, "K6 tableau", lib)
+        _ON_CARD.add(device.index)
+    return lib
 
 
 def _lincomb_plain(ks, terms):
@@ -83,17 +151,12 @@ def rows_tensor(m: int, n: int, device) -> torch.Tensor:
     return torch.empty((m, ld), dtype=torch.float64, device=device)[:, :n]
 
 
-def _arrays(terms):
-    rows = np.asarray([r for r, _ in terms], dtype=np.int32)
-    coefs = np.asarray([c for _, c in terms], dtype=np.float64)
-    return rows, coefs
-
-
 # --- K6: stage states ----------------------------------------------------------
 
 
 def stage_plain(y, ks, h: float, terms, out):
-    """Plain version of `stage`: ``out = y + h * sum c * ks[row]``."""
+    """Plain version of `stage`: ``out = y + h * sum c * ks[row]`` over
+    ``terms`` [(row, c), ...] (nonzero coefficients, stage order)."""
     stage_plain.calls += 1
     return torch.add(y, h * _lincomb_plain(ks, terms), out=out)
 
@@ -101,17 +164,16 @@ def stage_plain(y, ks, h: float, terms, out):
 stage_plain.calls = 0
 
 
-def stage(y, ks, h: float, terms, out):
+def stage(y, ks, h: float, which: int, out, swap: int = 0):
     """K6 stage state into ``out``: ``y + h * sum_q c_q * ks[row_q]`` over
-    ``terms`` [(row, c), ...] (nonzero coefficients, stage order)."""
+    `TABLEAU` row ``which``, stages 0 and 12 in each other's rows when
+    ``swap`` (`tableau_terms`); one launch, no host-built terms."""
     if not _on_card(y, "stage"):
-        return stage_plain(y, ks, h, terms, out)
-    rows, coefs = _arrays(terms)
-    lib = cuda.load()
+        return stage_plain(y, ks, h, tableau_terms(which, swap), out)
+    lib = _lib(y.device)
     with torch.cuda.device(y.device):
         rc = lib.ckpe_k6_stage(y.data_ptr(), ks.data_ptr(), _ld(ks, "stage"),
-                               y.numel(), h, rows.ctypes.data,
-                               coefs.ctypes.data, len(terms), out.data_ptr(),
+                               y.numel(), which, swap, h, out.data_ptr(),
                                cuda.stream(y))
     cuda.check(rc, "stage", lib)
     stage.launches += 1
@@ -123,59 +185,111 @@ stage.launches = 0
 
 # --- K6: norms -----------------------------------------------------------------
 
+# Scratch of one `norms` launch, in doubles: 1,024 blocks' two partials,
+# the two sums, and the ticket (`csrc/dop853.cu:ckpe_k6_norms`).
+_NORM_PARTIALS = 2048
+_NORM_SCRATCH = _NORM_PARTIALS + 3
+
+
+def norm_scratch(device) -> torch.Tensor:
+    """Scratch for `norms` on ``device``, its ticket 0: one for a solve,
+    reused by each of its calls (calls on two streams need two)."""
+    return torch.zeros(_NORM_SCRATCH, dtype=torch.float64, device=device)
+
+
+def _norm_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of ``v`` in the order K6's `norms` takes it: 1,024 blocks
+    at most of 256 threads, thread t of block b adding elements b*256 + t
+    + q*stride in turn from 0, each block's tree (the upper half added to
+    the lower, halving), then thread t adding partials t, t + 256, ...
+    from 0, and one more tree. (Padding adds exact zeros to sums that
+    start at +0.0, which leaves their bits as they are.)"""
+    n = v.numel()
+    blocks = min(max(-(-n // 256), 1), _NORM_PARTIALS // 2)
+
+    def threads(x, width):  # [width] sums, each over x[t + q*width]
+        pad = x.new_zeros(-(-x.numel() // width) * width)
+        pad[:x.numel()] = x
+        acc = x.new_zeros(width)
+        for row in pad.view(-1, width):
+            acc = acc + row
+        return acc
+
+    def tree(x):  # [rows, 256] -> [rows]
+        w = 128
+        while w:
+            x = x[:, :w] + x[:, w:2 * w]
+            w //= 2
+        return x[:, 0]
+
+    partials = tree(threads(v, blocks * 256).view(blocks, 256))
+    return tree(threads(partials, 256).view(1, 256))[0]
+
 
 def norms_plain(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None,
                 ks=None, terms5=None, terms3=None):
-    """Plain version of `norms`: two sums as a float64 [2] tensor."""
+    """Plain version of `norms`: two sums as a float64 [2] tensor, the
+    error sums over explicit ``terms5`` and ``terms3``, each element's
+    terms formed as the kernel forms them and summed in its order
+    (`_norm_order_sum`)."""
     norms_plain.calls += 1
     if mode == _ERR:
         scale = atol + torch.maximum(y.abs(), y_new.abs()) * rtol
         err5 = _lincomb_plain(ks, terms5) / scale
         err3 = _lincomb_plain(ks, terms3) / scale
-        return torch.stack([torch.sum(err5 * err5), torch.sum(err3 * err3)])
-    scale = atol + y.abs() * rtol
-    if mode == _RMS:
-        return torch.stack([torch.sum((y / scale) ** 2),
-                            torch.sum((f0 / scale) ** 2)])
-    d = torch.sum(((f1 - f0) / scale) ** 2)
-    return torch.stack([d, torch.zeros_like(d)])
+        terms = (err5 * err5, err3 * err3)
+    else:
+        scale = atol + y.abs() * rtol
+        if mode == _RMS:
+            u, v = y / scale, f0 / scale
+            terms = (u * u, v * v)
+        else:
+            u = (f1 - f0) / scale
+            terms = (u * u, torch.zeros_like(u))
+    return torch.stack([_norm_order_sum(x) for x in terms])
 
 
 norms_plain.calls = 0
 
 
 def norms(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None, ks=None,
-          terms5=None, terms3=None):
-    """K6 sums, a float64 [2] tensor on ``y``'s device (two launches: a
-    block reduction, then one block over the partials):
+          swap: int = 0, scratch=None):
+    """K6 sums, a float64 [2] tensor on ``y``'s device, one launch:
 
     - ``_RMS``: sum (y/scale)^2, sum (f0/scale)^2, scale = atol + |y| rtol;
     - ``_RMS_DIFF``: sum ((f1 - f0)/scale)^2, and 0;
     - ``_ERR``: sum (e5/scale)^2, sum (e3/scale)^2, scale = atol +
-      max(|y|, |y_new|) rtol, e5/e3 the stage sums over ``terms5/3``.
-    """
+      max(|y|, |y_new|) rtol, e5/e3 the stage sums of `TABLEAU`'s error
+      rows (stages 0 and 12 swapped when ``swap``).
+
+    On a card the sums are a view of ``scratch`` (`norm_scratch`; a new
+    one when None), which the next call with it overwrites."""
     if not _on_card(y, "norms"):
+        terms = {}
+        if mode == _ERR:
+            terms = dict(terms5=tableau_terms(_E5_ROW, swap),
+                         terms3=tableau_terms(_E3_ROW, swap))
         return norms_plain(mode, y, rtol, atol, y_new=y_new, f0=f0, f1=f1,
-                           ks=ks, terms5=terms5, terms3=terms3)
-    partial = torch.empty(2048, dtype=torch.float64, device=y.device)
-    out = torch.empty(2, dtype=torch.float64, device=y.device)
-    r5, c5 = _arrays(terms5 or [])
-    r3, c3 = _arrays(terms3 or [])
+                           ks=ks, **terms)
+    if scratch is None:
+        scratch = norm_scratch(y.device)
+    elif (scratch.dtype != torch.float64 or scratch.device != y.device
+          or scratch.shape != (_NORM_SCRATCH,)):
+        raise TypeError(f"norms: scratch must be a float64 "
+                        f"[{_NORM_SCRATCH}] tensor on {y.device}")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    lib = cuda.load()
+    lib = _lib(y.device)
     with torch.cuda.device(y.device):
         rc = lib.ckpe_k6_norms(
             mode, y.numel(), rtol, atol, y.data_ptr(), ptr(y_new), ptr(f0),
-            ptr(f1), ptr(ks), 0 if ks is None else _ld(ks, "norms"),
-            r5.ctypes.data, c5.ctypes.data, len(r5),
-            r3.ctypes.data, c3.ctypes.data, len(r3), partial.data_ptr(),
-            out.data_ptr(), cuda.stream(y))
+            ptr(f1), ptr(ks), 0 if ks is None else _ld(ks, "norms"), swap,
+            scratch.data_ptr(), cuda.stream(y))
     cuda.check(rc, "norms", lib)
-    norms.launches += 2
-    return out
+    norms.launches += 1
+    return scratch[_NORM_PARTIALS:_NORM_PARTIALS + 2]
 
 
 norms.launches = 0
@@ -186,6 +300,12 @@ norms.launches = 0
 
 def _dense_terms(rows):
     return [_terms(d_row, rows) for d_row in _D]
+
+
+# The stages D weighs and its weights of them, as `dense_coeffs` passes
+# them.
+_D_USED = np.flatnonzero(_D.any(axis=0))
+_D_COEFS = np.ascontiguousarray(_D[:, _D_USED], dtype=np.float64)
 
 
 def dense_coeffs_plain(y, y_new, h, f_old, f_new, ks, rows, out):
@@ -206,15 +326,13 @@ def dense_coeffs(y, y_new, h: float, f_old, f_new, ks, rows, out):
     ``rows[i]`` of ``ks``; one launch."""
     if not _on_card(y, "dense_coeffs"):
         return dense_coeffs_plain(y, y_new, h, f_old, f_new, ks, rows, out)
-    used = [q for q in range(_N_EXTENDED) if _D[:, q].any()]
-    r = np.asarray([rows[q] for q in used], dtype=np.int32)
-    c = np.ascontiguousarray(_D[:, used], dtype=np.float64)
+    r = np.asarray(rows, dtype=np.int32)[_D_USED]
     lib = cuda.load()
     with torch.cuda.device(y.device):
         rc = lib.ckpe_k6_dense_coeffs(
             y.data_ptr(), y_new.data_ptr(), f_old.data_ptr(),
             f_new.data_ptr(), ks.data_ptr(), _ld(ks, "dense_coeffs"),
-            y.numel(), h, r.ctypes.data, c.ctypes.data, len(used),
+            y.numel(), h, r.ctypes.data, _D_COEFS.ctypes.data, len(r),
             out.data_ptr(), _ld(out, "dense_coeffs"), cuda.stream(y))
     cuda.check(rc, "dense_coeffs", lib)
     dense_coeffs.launches += 1
@@ -224,9 +342,22 @@ def dense_coeffs(y, y_new, h: float, f_old, f_new, ks, rows, out):
 dense_coeffs.launches = 0
 
 
-def dense_eval_plain(F, y, x: float, out):
-    """Plain version of `dense_eval`."""
-    dense_eval_plain.calls += 1
+def fractions(ts: torch.Tensor, i_out: int, m: int, t: float, h: float):
+    """The fractions of the step from ``t`` of size ``h`` at the sample
+    times ``ts[i_out:i_out + m]``: min(max((ts - t) / h, 0), 1), as the
+    host forms each (a float64 tensor on ``ts``' device)."""
+    # A 0-dim divisor on ts' device: PyTorch multiplies a CUDA tensor by
+    # the reciprocal of a Python scalar divisor, which is not the host's
+    # division.
+    v = (ts[i_out:i_out + m] - t) / torch.tensor(h, dtype=ts.dtype,
+                                                 device=ts.device)
+    v = torch.where(v < 0.0, 0.0, v)
+    return torch.where(v > 1.0, 1.0, v)
+
+
+def dense_eval_at(F, y, x: float, out):
+    """The continuous output at one fraction ``x`` into ``out``: y + the
+    stack's rows by Horner, from the last, times x and 1 - x in turn."""
     acc = torch.zeros_like(y)
     n_rows = F.shape[0]
     for i in range(n_rows - 1, -1, -1):
@@ -235,22 +366,48 @@ def dense_eval_plain(F, y, x: float, out):
     return torch.add(y, acc, out=out)
 
 
+def dense_eval_plain(F, y, ts, i_out: int, m: int, t: float, h: float, out):
+    """Plain version of `dense_eval`: `dense_eval_at` at each fraction in
+    turn."""
+    dense_eval_plain.calls += 1
+    for q, x in enumerate(fractions(ts, i_out, m, t, h).tolist()):
+        dense_eval_at(F, y, x, out[q])
+    return out[:m]
+
+
 dense_eval_plain.calls = 0
 
+# Rows of one `dense_eval` launch: 65,535 chunks of 8 (`csrc/dop853.cu`).
+_EVAL_ROWS = 65535 * 8
 
-def dense_eval(F, y, x: float, out):
-    """K6: the continuous output at fraction ``x`` in [0, 1] into
-    ``out``, one launch."""
+
+def dense_eval(F, y, ts, i_out: int, m: int, t: float, h: float, out):
+    """K6: the continuous output of the step from ``t`` of size ``h`` at
+    the ``m`` sample times ``ts[i_out:i_out + m]`` (a float64 tensor on
+    ``y``'s device) into rows 0..m-1 of ``out`` (a tensor of rows); one
+    launch for up to 524,280 samples. Each row has the bits of
+    `dense_eval_at` at its fraction (`fractions`)."""
+    if (ts.dtype != torch.float64 or ts.get_device() != y.get_device()
+            or ts.dim() != 1 or not ts.is_contiguous()):
+        raise TypeError(f"dense_eval: ts must be a contiguous float64 "
+                        f"vector on {y.device}")
+    if m < 1 or i_out < 0 or i_out + m > ts.numel() or out.shape[0] < m:
+        raise ValueError(f"dense_eval: {m} samples from {i_out} of "
+                         f"{ts.numel()} times into {out.shape[0]} rows")
     if not _on_card(y, "dense_eval"):
-        return dense_eval_plain(F, y, x, out)
+        return dense_eval_plain(F, y, ts, i_out, m, t, h, out)
     lib = cuda.load()
+    f_ld, out_ld = _ld(F, "dense_eval"), _ld(out, "dense_eval")
+    out_ptr = out.data_ptr()
     with torch.cuda.device(y.device):
-        rc = lib.ckpe_k6_dense_eval(F.data_ptr(), _ld(F, "dense_eval"),
-                                    y.data_ptr(), y.numel(), x, 1 - x,
-                                    out.data_ptr(), cuda.stream(y))
-    cuda.check(rc, "dense_eval", lib)
-    dense_eval.launches += 1
-    return out
+        for q in range(0, m, _EVAL_ROWS):
+            rc = lib.ckpe_k6_dense_eval(
+                F.data_ptr(), f_ld, y.data_ptr(), y.numel(), ts.data_ptr(),
+                i_out + q, min(_EVAL_ROWS, m - q), t, h,
+                out_ptr + 8 * q * out_ld, out_ld, cuda.stream(y))
+            cuda.check(rc, "dense_eval", lib)
+            dense_eval.launches += 1
+    return out[:m]
 
 
 dense_eval.launches = 0
@@ -267,6 +424,7 @@ class SolveStats:
     num_accepted: int = 0
     num_rejected: int = 0
     num_rhs: int = 0
+    num_sampled: int = 0  # accepted steps that hold samples
     completed: bool = False
     y_final: torch.Tensor | None = None
 
@@ -289,11 +447,14 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
     y = y0.reshape(-1).to(torch.float64, copy=True)
     dev, n = y.device, y.numel()
     ts = np.asarray(ts, dtype=np.float64)
+    ts_dev = torch.as_tensor(ts, device=dev)
     n_out = len(ts)
     sample_fn = sample_fn or (lambda s: s)
     stats = SolveStats()
     K = rows_tensor(_N_EXTENDED, n, dev)
-    rows = list(range(_N_EXTENDED))  # logical stage -> row of K
+    scratch = norm_scratch(dev)
+    swap = 0  # stages 0 and 12 in each other's rows of K
+    rows = stage_rows(swap)  # logical stage -> row of K
 
     takes_out = getattr(fn, "takes_out", False)
 
@@ -310,13 +471,15 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
 
     # Initial step (Hairer/Wanner, scipy's _select_initial_step).
     d0, d1 = (math.sqrt(v / n) for v in
-              norms(_RMS, y, rtol, atol, f0=K[rows[0]]).tolist())
+              norms(_RMS, y, rtol, atol, f0=K[rows[0]],
+                    scratch=scratch).tolist())
     h0 = 1e-6 if (d0 < 1e-5 or d1 < 1e-5) else 0.01 * d0 / d1
     y_new = torch.empty_like(y)
-    stage(y, K, h0, [(rows[0], 1.0)], y_new)
+    stage(y, K, h0, _EULER, y_new, swap)
     rhs(y_new, t0 + h0, 1)
     d2 = math.sqrt(norms(_RMS_DIFF, y, rtol, atol, f0=K[rows[0]],
-                         f1=K[rows[1]]).tolist()[0] / n) / h0
+                         f1=K[rows[1]], scratch=scratch).tolist()[0]
+                   / n) / h0
     if d1 <= 1e-15 and d2 <= 1e-15:
         h1 = max(1e-6, h0 * 1e-3)
     else:
@@ -331,13 +494,12 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
            and stats.num_accepted + stats.num_rejected < max_steps):
         h = min(dt, t_end - t)
         for i in range(1, _N_STAGES):
-            stage(y, K, h, _terms(_A[i, :i], rows[:i]), y_new)
+            stage(y, K, h, i, y_new, swap)
             rhs(y_new, t + _C[i] * h, i)
-        stage(y, K, h, _terms(_B, rows[:_N_STAGES]), y_new)
+        stage(y, K, h, _B_ROW, y_new, swap)
         rhs(y_new, t + h, _N_STAGES)
-        n5, n3 = norms(_ERR, y, rtol, atol, y_new=y_new, ks=K,
-                       terms5=_terms(_E5, rows[:_N_STAGES + 1]),
-                       terms3=_terms(_E3, rows[:_N_STAGES + 1])).tolist()
+        n5, n3 = norms(_ERR, y, rtol, atol, y_new=y_new, ks=K, swap=swap,
+                       scratch=scratch).tolist()
         denom = np.sqrt((n5 + 0.01 * n3) * n)
         err = max(abs(h) * n5 / max(denom, 1e-300), 1e-30)
         accept = err <= 1.0
@@ -351,26 +513,24 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
             while i_out + m < n_out and (ts[i_out + m] <= t_new or at_end):
                 m += 1
             if m:
-                scratch = torch.empty_like(y)
-                for j in range(_N_EXTENDED - _N_STAGES - 1):
-                    s = _N_STAGES + 1 + j
-                    stage(y, K, h, _terms(_A_EXTRA[j, :s], rows[:s]),
-                          scratch)
-                    rhs(scratch, t + _C_EXTRA[j] * h, s)
+                scratch_y = torch.empty_like(y)
+                for s in range(_N_STAGES + 1, _N_EXTENDED):
+                    stage(y, K, h, s, scratch_y, swap)
+                    rhs(scratch_y, t + _C_EXTRA[s - _N_STAGES - 1] * h, s)
                 if F is None:
                     F = rows_tensor(7, n, dev)
                 dense_coeffs(y, y_new, h, K[rows[0]], K[rows[_N_STAGES]],
                              K, rows, F)
                 if samples is None or samples.shape[0] < m:
                     samples = rows_tensor(m, n, dev)
-                for q in range(m):
-                    x = min(max((ts[i_out + q] - t) / h, 0.0), 1.0)
-                    dense_eval(F, y, x, samples[q])
+                dense_eval(F, y, ts_dev, i_out, m, t, h, samples)
                 out_rows.append(sample_fn(samples[:m]).clone())
                 i_out += m
+                stats.num_sampled += 1
             t = t_new
             y, y_new = y_new, y
-            rows[0], rows[_N_STAGES] = rows[_N_STAGES], rows[0]
+            swap = 1 - swap
+            rows = stage_rows(swap)
             stats.num_accepted += 1
         else:
             stats.num_rejected += 1

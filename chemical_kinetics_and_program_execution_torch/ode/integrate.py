@@ -45,7 +45,8 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     samples are made, so the full state never leaves it, and the result
     is ``[len(ts), n_obs]``; with ``return_info`` the final state rides
     in ``info["y_final"]``. ``info`` also counts accepted and rejected
-    steps and RHS calls.
+    steps, RHS calls and the accepted steps that hold samples
+    (``num_sampled``: one `dense_eval` launch each on a card).
     """
     if chunk_size is not None:
         raise NotImplementedError(f"chunk_size {_UNPORTED}")
@@ -64,7 +65,7 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     if len(ts) < 2:
         out = sample_fn(y0[None])
         info = {"num_accepted": 0, "num_rejected": 0, "num_rhs": 0,
-                "completed": True}
+                "num_sampled": 0, "completed": True}
     else:
         out, stats = odeint_dop853_dense(fn_dy_dt, y0, ts, (rtol, atol),
                                          max_steps=max_steps,
@@ -76,7 +77,8 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
                 f"rejected={stats.num_rejected}).")
         info = {"num_accepted": stats.num_accepted,
                 "num_rejected": stats.num_rejected,
-                "num_rhs": stats.num_rhs, "completed": True}
+                "num_rhs": stats.num_rhs, "num_sampled": stats.num_sampled,
+                "completed": True}
         y0 = stats.y_final
     ys = out.detach().cpu().numpy()
     if project is not None:

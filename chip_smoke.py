@@ -38,34 +38,42 @@ Phases (each prints its wall time; every check raises on failure):
    last three also timed;
 5. end to end on a small input: explicit draws through the card and
    through the CPU's plain path give the same tapes and window counts;
-6. the exact SPD closure (K3-K6, built in phase 2 into K2's library):
+6. the exact SPD closure (K3-K6, built in phase 2 into K2's library;
+   K4 runs as phase 0 of K5's launch):
    the canary exactly equal to its golden list; dp/dt by the kernels
    against the plain version on the card (rtol 1e-12, atol 1e-14) on
    the 13 cases of the JAX package's `tests/test_engine.py:18-32` and on
-   ex4 at cl_k 5-8 (43,046,721 states); at each cl_k 5-8 the launches
-   an RHS (counted, and held to the plan's); from the plan, printed but
-   kept out of the `kernels` line: K5's phases, its live element-steps
-   against a dense sweep's and a model of its sector traffic; each of
-   K3-K6 alone against
-   its plain version (K3 and K5 also run twice for the same bits), and
-   K3, K5 and the RHS on the card and as the host paces them beside
-   their bounds and the RHS's floor (p read once, dy written once); the
-   main path: ex4 scenarios a and b at cl_k 5 solved to t=2000 (2,001
-   samples, rtol = atol = 1e-13) through
-   `markov_tapes.ode_integrate_ivp(backend="torch")`, K3-K6 each
-   launched and no plain version called, the eight observables at
-   t=2000 equal to the reference's oracles to rel 2e-6; the same two
-   solves at cl_k 6 (531,441 states) within rel 0.05, abs 1e-9 of cl_k
-   5; each solve's seconds, steps and RHS calls a second, the RHS also
-   written into a padded stage row, into a row at a stride of n and
-   copied in, and each kernel's time beside its bound, its plain
-   version, the library call where one exists, and the host's cost a
-   launch.
+   ex4 at cl_k 5-8 (43,046,721 states), K5's signature weights (its
+   phase 0) equal to K4's plain version bit for bit on each; at each
+   cl_k 5-8 the launches an RHS (counted: 3, K3 2 and K5 1); from the
+   plan, printed but kept out of the `kernels` line: K5's phases, its
+   live element-steps against a dense sweep's and a model of its sector
+   traffic; each of K3-K6 alone against its plain version (K3 and K5
+   also run twice for the same bits; K4 timed as a K5 launch over a plan
+   with no sweep phases; K6's stage at B's tableau row, its one-launch
+   norms, dense_coeffs and a step's dense_eval each the plain version's
+   bits and the same twice), and K3, K5 and the RHS
+   on the card and as the host paces them beside their bounds and the
+   RHS's floor (p read once, dy written once); the main path: ex4
+   scenarios a and b at cl_k 5 solved to t=2000 (2,001 samples, rtol =
+   atol = 1e-13) through `markov_tapes.ode_integrate_ivp(backend=
+   "torch")`, K3, K5 and K6 each launched and no plain version called,
+   the eight observables at t=2000 equal to the reference's oracles to
+   rel 2e-6; the same two solves at cl_k 6 (531,441 states) within rel
+   0.05, abs 1e-9 of cl_k 5; each solve's seconds, steps, RHS calls a
+   second and K6's launches by function (`dense_eval` once an accepted
+   step that holds samples) with the host's microseconds a launch
+   inside each wrapper; the RHS also written into a padded stage row,
+   into a row at a stride of n and copied in; each kernel's time beside
+   its bound, its plain version, the library call where one exists, and
+   the host's cost a launch; `dense_eval` also at each cl_k 5 solve's
+   mean samples a step.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -256,7 +264,8 @@ EXACT_KERNELS = {
     "K3": ("K3 pyramid", SRC + "dense_rhs.cu",
            "the JAX package's engine/dense.py:423 _levels; markov.py:194 "
            "pyramid (XLA)"),
-    "K4": ("K4 signature_weights", SRC + "dense_rhs.cu",
+    "K4": ("K4 signature_weights (phase 0 of K5's launch)",
+           SRC + "dense_rhs.cu",
            "the JAX package's engine/dense.py:464-468: markov.py:189 "
            "guarded_ratio_prod, then segment_sum (XLA)"),
     "K5": ("K5 sweep", SRC + "dense_rhs.cu",
@@ -266,9 +275,10 @@ EXACT_KERNELS = {
            "the JAX package's ode/dop853.py:157 odeint_dop853_dense; "
            "ode/streamed_solve.py:54-135 (XLA)"),
 }
-EXACT_WRAPPERS = {"K3": [tdense.pyramid],
-                  "K4": [tdense.signature_weights], "K5": [tdense.sweep],
+# K4 has no launch of its own: K5's phase 0 runs it, once a K5 launch.
+EXACT_WRAPPERS = {"K3": [tdense.pyramid], "K5": [tdense.sweep],
                   "K6": list(dop853.KERNELS)}
+K6_NAMES = tuple(f.__name__ for f in dop853.KERNELS)
 EXACT_PLAIN = [tdense.pyramid_plain, tdense.signature_weights_plain,
                tdense.sweep_plain, *dop853.PLAIN]
 
@@ -276,6 +286,39 @@ EXACT_PLAIN = [tdense.pyramid_plain, tdense.signature_weights_plain,
 def exact_launches():
     return {k: sum(f.launches for f in fs)
             for k, fs in EXACT_WRAPPERS.items()}
+
+
+def k6_launches():
+    return {f.__name__: f.launches for f in dop853.KERNELS}
+
+
+class K6HostClock:
+    """Host seconds spent inside each K6 wrapper while the solver runs:
+    for the duration each wrapper of `dop853` is replaced by one that
+    times it with the host's clock (a launch does not wait for the card,
+    so that is the host's cost to queue it), then restored. A wrapper
+    counts its launches on the module's name for it, so the stand-in
+    carries the count meanwhile and hands it back."""
+
+    def __enter__(self):
+        self.seconds = dict.fromkeys(K6_NAMES, 0.0)
+        self.saved = {name: getattr(dop853, name) for name in K6_NAMES}
+        for name, fn in self.saved.items():
+            def timed(*args, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*args, **kw)
+                finally:
+                    self.seconds[_name] += time.perf_counter() - t0
+            timed.launches = fn.launches
+            setattr(dop853, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            fn.launches = getattr(dop853, name).launches
+            setattr(dop853, name, fn)
+        return False
 
 
 def zero_exact_counts():
@@ -329,29 +372,44 @@ def wall_ms(fn, reps):
 def solve_ex4(dev, cl_k, powered):
     """One ex4 scenario through `markov_tapes.ode_integrate_ivp` on the
     card, observables projected there, the counts set to 0 just before
-    and read just after; raises unless K3-K6 each launched and no plain
-    version ran. Returns (observables at t=2000, info, seconds,
-    launches)."""
+    and read just after, the host's time inside each K6 wrapper on its
+    clock (`K6HostClock`); raises unless K3, K5 and K6 each launched, no
+    plain version ran, and K6 launched as the step count says: one
+    `dense_eval` an accepted step that holds samples, one `norms` a step
+    and two for the initial step, 12 stages a step and 3 more a step
+    that holds samples, one `dense_coeffs` a step that holds samples.
+    Returns (observables at t=2000, info, seconds, launches, K6's
+    launches and host µs a launch by function)."""
     p0 = chemical_turing_p0(cl_k, powered_fraction=powered).ravel()
     proj = seq_prob_projector(list(SEQS.values()), 9, cl_k)
     ts = np.linspace(0.0, T_END, N_SAMPLES)
     zero_exact_counts()
     t0 = time.perf_counter()
-    obs, info = markov_tapes.ode_integrate_ivp(
-        tag=EX4, size_a=9, cl_k=cl_k, p0=p0, ts=ts, backend="torch",
-        device=dev, ivp_kwargs=dict(rtol=SOLVE_TOL, atol=SOLVE_TOL,
-                                    method="DOP853", project=proj,
-                                    return_info=True))
-    torch.cuda.synchronize()
+    with K6HostClock() as clock:
+        obs, info = markov_tapes.ode_integrate_ivp(
+            tag=EX4, size_a=9, cl_k=cl_k, p0=p0, ts=ts, backend="torch",
+            device=dev, ivp_kwargs=dict(rtol=SOLVE_TOL, atol=SOLVE_TOL,
+                                        method="DOP853", project=proj,
+                                        return_info=True))
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = exact_launches()
+    launches, k6 = exact_launches(), k6_launches()
     plain = sum(f.calls for f in EXACT_PLAIN)
     if obs.shape != (N_SAMPLES, len(SEQS)) or not np.isfinite(obs).all():
         raise AssertionError(f"cl_k {cl_k}: observables {obs.shape}")
     if plain or min(launches.values()) == 0:
         raise AssertionError(f"cl_k {cl_k}: launches {launches}, plain "
                              f"calls {plain}")
-    return dict(zip(SEQS, obs[-1].tolist())), info, seconds, launches
+    steps, sampled = info["num_accepted"] + info["num_rejected"], \
+        info["num_sampled"]
+    want = {"stage": 1 + 12 * steps + 3 * sampled, "norms": 2 + steps,
+            "dense_coeffs": sampled, "dense_eval": sampled}
+    if k6 != want:
+        raise AssertionError(f"cl_k {cl_k}: K6 launches {k6}, the steps "
+                             f"say {want}")
+    host_us = {name: clock.seconds[name] * 1e6 / k6[name] for name in k6}
+    return (dict(zip(SEQS, obs[-1].tolist())), info, seconds, launches,
+            k6, host_us)
 
 
 def k5_reads(dp):
@@ -423,10 +481,70 @@ def exact_bytes(dp):
     return {"K3": k3, "K4": k4, "K5": k5, "floor": 16 * n}
 
 
+def phase0_program(dp):
+    """``dp`` with a plan of no sweep phases: a K5 launch then runs its
+    phase 0 alone (K4's signature weights) on the grid the whole plan
+    gets, which times K4 as K5 runs it, with the launch."""
+    plan = dataclasses.replace(dp.plan, phase_ptr=dp.plan.phase_ptr[:1])
+    return dataclasses.replace(dp, plan=plan, phase_ptr=dp.phase_ptr[:1])
+
+
+def eval_times(m, t, h, device):
+    """``t`` and m sample times spread over the step (t, t + h]: the times
+    `dense_eval` reads from index 1."""
+    return torch.as_tensor(np.concatenate([[t], t + h * np.arange(1, m + 1)
+                                           / m]), device=device)
+
+
+def eval_call(F, y, m, out, plain=False):
+    """`dense_eval` (or its plain version) of m samples of a step from 0
+    of size 0.37, into ``out``; its bound's bytes (the stack's 7 rows and
+    y read, m rows written) and, for the library's yardstick, the
+    coefficients of `torch.addmm(y, C, F)` that give the same rows."""
+    h = 0.37
+    ts = eval_times(m, 0.0, h, y.device)
+    fn = dop853.dense_eval_plain if plain else dop853.dense_eval
+    xs = dop853.fractions(ts, 1, m, 0.0, h).tolist()
+    coef = torch.as_tensor(np.asarray([np.cumprod(
+        [x if r % 2 == 0 else 1 - x for r in range(7)]) for x in xs]),
+        device=y.device)
+    return (lambda: fn(F, y, ts, 1, m, 0.0, h, out), 8 * (8 + m) * y.numel(),
+            coef)
+
+
+def time_dense_eval(F, y, m, reps, plain_reps):
+    """`dense_eval` of m samples on the card held bit for bit to its plain
+    version, timed beside its bound, the plain version and
+    `torch.addmm`, with the host's µs a launch."""
+    n = y.numel()
+    got, want = (dop853.rows_tensor(m, n, y.device) for _ in range(2))
+    kern, nbytes, coef = eval_call(F, y, m, got)
+    plain, _, _ = eval_call(F, y, m, want, plain=True)
+    kern(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K6 dense_eval m={m} n={n}: kernel != plain, "
+                             f"max |diff| {float((got - want).abs().max())}")
+    lib_out = torch.addmm(y.expand(m, n), coef, F)
+    if not torch.allclose(lib_out, want, rtol=RHS_RTOL, atol=RHS_ATOL):
+        raise AssertionError("torch.addmm yardstick != dense_eval")
+    host = []
+    t = {"ms": cuda_ms(kern, reps, warmup=1, host=host),
+         "plain_ms": cuda_ms(plain, plain_reps, warmup=0),
+         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "library_ms": cuda_ms(lambda: torch.addmm(y.expand(m, n), coef, F),
+                               reps, warmup=1),
+         "launches_per_call": 1, "host_us_per_launch": host[0] * 1e3,
+         "samples": m}
+    del got, want, lib_out
+    return t
+
+
 def time_exact_kernels(dp, p, gen, out):
     """K3-K5 on ``p`` and K6 on random stages of its size: kernel, plain
     and library times, bounds, host cost a launch; each kernel also held
-    to its plain version. Adds to ``out`` and returns the largest
+    to its plain version (K4 as K5's phase 0, the weights it leaves
+    behind bit for bit). Adds to ``out`` and returns the largest
     differences."""
     a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
     err = {}
@@ -435,25 +553,34 @@ def time_exact_kernels(dp, p, gen, out):
                               f"K3 cl_k {k}")
     if not torch.equal(low, tdense.pyramid(p, a, k)):
         raise AssertionError(f"K3 cl_k {k}: two runs differ")
-    s = tdense.signature_weights(dp, p, low)
-    err["K4"] = held_to_plain(s, tdense.signature_weights_plain(dp, p, low),
-                              f"K4 cl_k {k}")
-    dy = tdense.sweep(dp, p, low, s)
-    err["K5"] = held_to_plain(dy, tdense.sweep_plain(dp, p, low, s),
+    s_plain = tdense.signature_weights_plain(dp, p, low)
+    phase0 = phase0_program(dp)
+    for prog in (dp, phase0):
+        s = torch.full_like(s_plain, float("nan"))
+        tdense.sweep(prog, p, low, s=s)
+        torch.cuda.synchronize()
+        if not torch.equal(s, s_plain):
+            raise AssertionError(f"K4 (K5's phase 0) cl_k {k}: != plain")
+        err["K4"] = float((s - s_plain).abs().max())
+    dy = tdense.sweep(dp, p, low)
+    err["K5"] = held_to_plain(dy, tdense.sweep_plain(dp, p, low, s_plain),
                               f"K5 cl_k {k}")
-    if not torch.equal(dy, tdense.sweep(dp, p, low, s)):
+    if not torch.equal(dy, tdense.sweep(dp, p, low)):
         raise AssertionError(f"K5 cl_k {k}: two runs differ")
     big = k >= 7
     reps, plain_reps = (3, 1) if big else (20, 3)
     bound = exact_bytes(dp)
     per_call = {"K3": tdense.pyramid_launches(a, k), "K4": 1,
                 "K5": dp.plan.num_launches}
+    s = torch.empty_like(s_plain)
     calls = {"K3": (lambda: tdense.pyramid(p, a, k),
                     lambda: tdense.pyramid_plain(p, a, k)),
-             "K4": (lambda: tdense.signature_weights(dp, p, low),
+             "K4": (lambda: tdense.sweep(phase0, p, low, s=s),
                     lambda: tdense.signature_weights_plain(dp, p, low)),
-             "K5": (lambda: tdense.sweep(dp, p, low, s),
-                    lambda: tdense.sweep_plain(dp, p, low, s))}
+             "K5": (lambda: tdense.sweep(dp, p, low),
+                    lambda: tdense.sweep_plain(
+                        dp, p, low, tdense.signature_weights_plain(dp, p,
+                                                                   low)))}
     for name, (kern, plain) in calls.items():
         host = []
         ms = cuda_ms(kern, queued_reps(reps, per_call[name]), warmup=1,
@@ -475,21 +602,23 @@ def time_exact_kernels(dp, p, gen, out):
     rows = list(range(16))
     f_out, p_out = torch.empty_like(y), torch.empty_like(y)
     F, F_plain = (dop853.rows_tensor(7, n, p.device) for _ in range(2))
-    h, x = 0.37, 0.3
-    b_terms = dop853._terms(dop853._B, rows[:12])
-    err_kw = dict(y_new=y_new, ks=ks,
-                  terms5=dop853._terms(dop853._E5, rows[:13]),
-                  terms3=dop853._terms(dop853._E3, rows[:13]))
+    scratch = dop853.norm_scratch(p.device)
+    h = 0.37
+    b_terms = dop853.tableau_terms(dop853._B_ROW)
+    err_kw = dict(y_new=y_new, ks=ks)
+    plain_err_kw = dict(err_kw,
+                        terms5=dop853.tableau_terms(dop853._E5_ROW),
+                        terms3=dop853.tableau_terms(dop853._E3_ROW))
     fns = {
-        "stage": (lambda: dop853.stage(y, ks, h, b_terms, f_out),
+        "stage": (lambda: dop853.stage(y, ks, h, dop853._B_ROW, f_out),
                   lambda: dop853.stage_plain(y, ks, h, b_terms, p_out),
-                  8 * (len(b_terms) + 2) * n, 1),
+                  8 * (len(b_terms) + 2) * n),
         "norms": (lambda: dop853.norms(dop853._ERR, y, 1e-13, 1e-13,
-                                       **err_kw),
+                                       scratch=scratch, **err_kw),
                   lambda: dop853.norms_plain(dop853._ERR, y, 1e-13, 1e-13,
-                                             **err_kw),
-                  8 * (2 + len({r for r, _ in err_kw["terms5"]
-                                + err_kw["terms3"]})) * n, 2),
+                                             **plain_err_kw),
+                  8 * (2 + len({r for r, _ in plain_err_kw["terms5"]
+                                + plain_err_kw["terms3"]})) * n),
         "dense_coeffs": (
             lambda: dop853.dense_coeffs(y, y_new, h, ks[0], ks[12], ks,
                                         rows, F),
@@ -499,40 +628,32 @@ def time_exact_kernels(dp, p, gen, out):
             # 0 and 12), each once; 7 rows written.
             8 * (2 + len({rows[0], rows[12]}
                          | {r for t in dop853._dense_terms(rows)
-                            for r, _ in t}) + 7) * n, 1),
-        "dense_eval": (lambda: dop853.dense_eval(F, y, x, f_out),
-                       lambda: dop853.dense_eval_plain(F, y, x, p_out),
-                       8 * 9 * n, 1),
+                            for r, _ in t}) + 7) * n),
     }
     k6, err["K6"] = {}, 0.0
-    for name, (kern, plain, nbytes, launches) in fns.items():
-        got, want = kern(), plain()
-        err["K6"] = max(err["K6"], held_to_plain(got, want,
-                                                 f"K6 {name} n={n}"))
-        # The error norms are sums of order 1e31 here: their absolute
-        # difference says little, the relative one does.
-        err["K6 rel"] = max(err.get("K6 rel", 0.0), float(
-            (got - want).abs().max() / want.abs().max().clamp_min(1e-300)))
+    for name, (kern, plain, nbytes) in fns.items():
+        got, want = kern().clone(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K6 {name} n={n}: kernel != plain, max "
+                                 f"|diff| {float((got - want).abs().max())}")
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"K6 {name} n={n}: two runs differ")
         host = []
         k6[name] = {"ms": cuda_ms(kern, 3 * reps, warmup=1, host=host),
                     "plain_ms": cuda_ms(plain, plain_reps, warmup=0),
                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                    "library_ms": None, "launches_per_call": launches,
-                    "host_us_per_launch": host[0] * 1e3 / launches}
+                    "library_ms": None, "launches_per_call": 1,
+                    "host_us_per_launch": host[0] * 1e3}
     coef = torch.as_tensor(h * dop853._B, device=p.device)
     k6["stage"]["library_ms"] = cuda_ms(
         lambda: torch.addmv(y, ks[:12].T, coef), 3 * reps, warmup=1)
-    # dense_eval is y + sum_r F[r] c_r with c_r the running product of
-    # x, 1 - x, x, ... (its Horner loop unrolled on the host).
-    c_eval = torch.as_tensor(np.cumprod([x if r % 2 == 0 else 1 - x
-                                         for r in range(7)]),
-                             device=p.device)
-    if not torch.allclose(torch.addmv(y, F.T, c_eval),
-                          dop853.dense_eval_plain(F, y, x, p_out),
-                          rtol=RHS_RTOL, atol=RHS_ATOL):
-        raise AssertionError("torch.addmv yardstick != dense_eval")
-    k6["dense_eval"]["library_ms"] = cuda_ms(
-        lambda: torch.addmv(y, F.T, c_eval), 3 * reps, warmup=1)
+    # dense_eval: one sample, and at cl_k 7-8 eight (a step's 60-120 rows
+    # of 43 M doubles would not fit beside the stages); the solve's mean
+    # samples a step at cl_k 5 after the solves (`exact_closure`).
+    for m in ((1, 8) if big else (1,)):
+        k6[f"dense_eval m={m}"] = time_dense_eval(F, y, m, 3 * reps,
+                                                  plain_reps)
     out.setdefault("K6", {})[k] = k6
     del ks, y, y_new, F, F_plain
     return err
@@ -541,12 +662,11 @@ def time_exact_kernels(dp, p, gen, out):
 def exact_closure(dev, kernels):
     """Phase 6; adds K3-K6 to ``kernels``."""
     gen = torch.Generator(device=dev).manual_seed(7)
-    max_err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "K6 rel": 0.0,
-               "RHS": 0.0}
+    max_err = {"K3": 0.0, "K4": 0.0, "K5": 0.0, "K6": 0.0, "RHS": 0.0}
     lib = cuda.load()
     say("K3-K6 entry points in the library built in phase 2: "
-        + ", ".join(n for n in ("ckpe_pyramid", "ckpe_signature_weights",
-                                "ckpe_dense_sweep", "ckpe_dense_rhs",
+        + ", ".join(n for n in ("ckpe_pyramid", "ckpe_dense_sweep",
+                                "ckpe_dense_rhs", "ckpe_k6_tableau",
                                 "ckpe_k6_stage", "ckpe_k6_norms",
                                 "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval")
                     if hasattr(lib, n)))
@@ -567,8 +687,17 @@ def exact_closure(dev, kernels):
                 raise AssertionError(f"{tag}: dtype or conservation")
             max_err["RHS"] = max(max_err["RHS"], held_to_plain(
                 dy, tdense.dy_dt_dense(fn.device_program, p), tag))
+            dp = fn.device_program
+            low = tdense.pyramid_plain(p, prog.size_a, cl_k)
+            s = torch.full((prog.num_signatures,), float("nan"),
+                           dtype=torch.float64, device=dev)
+            tdense.sweep(dp, p, low, s=s)
+            if not torch.equal(s, tdense.signature_weights_plain(dp, p,
+                                                                 low)):
+                raise AssertionError(f"{tag}: K5's phase 0 != K4's plain")
     say(f"dp/dt, kernels == plain on the {len(EXACT_CASES)} cases of "
-        "tests/test_engine.py:18-32 (random and concentrated SPDs)")
+        "tests/test_engine.py:18-32 (random and concentrated SPDs); K5's "
+        "signature weights (phase 0) == K4's plain version, bit for bit")
 
     times, rhs = {}, {}
     for cl_k in RHS_CL_K:
@@ -584,14 +713,13 @@ def exact_closure(dev, kernels):
             max_err["RHS"] = max(max_err["RHS"], held_to_plain(
                 fn(p), tdense.dy_dt_dense(dp, p), f"ex4 cl_k {cl_k} {name}"))
         reps = 3 if cl_k >= 7 else 20
-        launches = (tdense.pyramid_launches(9, cl_k) + 1
-                    + dp.plan.num_launches)
+        launches = tdense.pyramid_launches(9, cl_k) + dp.plan.num_launches
         zero_exact_counts()
         fn(p0)
         counted = sum(exact_launches().values())
-        if counted != launches:
+        if counted != launches or counted != 3:
             raise AssertionError(f"cl_k {cl_k}: {counted} launches an RHS, "
-                                 f"planned {launches}")
+                                 f"planned {launches}, 3 wanted")
         host = []
         # Plan arithmetic, printed below and kept out of the kernels line:
         # element-steps, bytes, and K5's traffic as modelled in sectors.
@@ -657,21 +785,27 @@ def exact_closure(dev, kernels):
     finals, solves, main_launches = {}, {}, None
     for cl_k in SOLVE_CL_K:
         for label, powered, oracle in SCENARIOS:
-            final, info, seconds, launches = solve_ex4(dev, cl_k, powered)
+            final, info, seconds, launches, k6, host_us = solve_ex4(
+                dev, cl_k, powered)
             finals[label, cl_k] = final
             solves[f"{label} cl_k {cl_k}"] = {
                 "seconds": seconds, "accepted": info["num_accepted"],
                 "rejected": info["num_rejected"], "rhs": info["num_rhs"],
-                "launches": launches}
+                "sampled_steps": info["num_sampled"], "launches": launches,
+                "k6_launches": k6, "k6_host_us_per_launch": host_us}
             if cl_k == SOLVE_CL_K[0]:
                 main_launches = ({k: v + launches[k] for k, v in
                                   main_launches.items()}
                                  if main_launches else dict(launches))
             say(f"solve {label}, cl_k {cl_k}: {seconds:.2f} s, "
                 f"{info['num_accepted']} accepted, {info['num_rejected']} "
-                f"rejected, {info['num_rhs']} RHS calls "
+                f"rejected, {info['num_sampled']} holding samples, "
+                f"{info['num_rhs']} RHS calls "
                 f"({info['num_rhs'] / seconds:.0f} a second); launches "
-                f"{launches}; plain calls 0")
+                f"{launches} (K4: K5's phase 0); plain calls 0")
+            say(f"  K6 launches {k6} ({sum(k6.values())}; dense_eval once "
+                f"a step that holds samples); host us a launch inside each "
+                f"wrapper {({k: round(v, 2) for k, v in host_us.items()})}")
             for name, want in oracle.items():
                 got = final[name]
                 if (cl_k == SOLVE_CL_K[0]
@@ -692,6 +826,20 @@ def exact_closure(dev, kernels):
                 + (" (within 2e-6)" if cl_k == SOLVE_CL_K[0] else
                    " (cl_k 6 within rel 0.05, abs 1e-9 of cl_k 5)"))
 
+    # dense_eval at each cl_k 5 solve's mean samples a step.
+    small = RHS_CL_K[0]
+    n = 9**small
+    F = dop853.rows_tensor(7, n, dev)
+    F.copy_(torch.rand((7, n), generator=gen, dtype=torch.float64,
+                       device=dev) - 0.5)
+    y = torch.rand(n, generator=gen, dtype=torch.float64, device=dev)
+    for label, _, _ in SCENARIOS:
+        sampled = solves[f"{label} cl_k {small}"]["sampled_steps"]
+        m = round((N_SAMPLES - 1) / sampled)
+        times["K6"][small][f"dense_eval m={m} (solve {label}'s mean)"] = \
+            time_dense_eval(F, y, m, 60, 3)
+    del F, y
+
     for name in ("K3", "K4", "K5"):
         for cl_k, t in times[name].items():
             say(f"{name} cl_k {cl_k}: {t['ms'] * 1e3:.2f} us a call on the "
@@ -700,19 +848,23 @@ def exact_closure(dev, kernels):
                 f"{t['ms'] * 1e3 / t['launches_per_call']:.2f} us each) "
                 f"against a bound of {t['bound_ms'] * 1e3:.3f} us; plain "
                 f"{t['plain_ms'] * 1e3:.1f} us; host "
-                f"{t['host_us_per_launch']:.2f} us a launch")
+                f"{t['host_us_per_launch']:.2f} us a launch"
+                + (" (K4: a K5 launch over a plan of no sweep phases: "
+                   "its phase 0 alone)" if name == "K4" else ""))
     for cl_k, fns in times["K6"].items():
         for fname, t in fns.items():
+            lib_name = ("torch.addmm" if fname.startswith("dense_eval")
+                        else "torch.addmv")
             say(f"K6 {fname} cl_k {cl_k}: {t['ms'] * 1e3:.2f} us against a "
                 f"bound of {t['bound_ms'] * 1e3:.2f} us; plain "
                 f"{t['plain_ms'] * 1e3:.1f} us; library "
-                + (f"{t['library_ms'] * 1e3:.2f} us (torch.addmv)"
+                + (f"{t['library_ms'] * 1e3:.2f} us ({lib_name})"
                    if t["library_ms"] else "none")
                 + f"; host {t['host_us_per_launch']:.2f} us a launch")
     say("at cl_k 5 and 6 the working set (under 50 MB) sits in the 50 MB "
         "L2: those times are launches and host pacing, not bytes")
 
-    small, full = RHS_CL_K[0], RHS_CL_K[-1]
+    full = RHS_CL_K[-1]
     for key, (name, source, replaces) in EXACT_KERNELS.items():
         t5 = times[key][small]
         if key == "K6":
@@ -722,12 +874,15 @@ def exact_closure(dev, kernels):
                      "launches_per_rhs": t5["launches_per_call"]}
         kernels[key] = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": main_launches[key],
+            "replaces": replaces,
+            # K4 runs as phase 0 of every K5 launch.
+            "launches": main_launches["K5" if key == "K4" else key],
             "max_abs_err": max_err[key], "ms": t5["ms"],
             "plain_ms": t5["plain_ms"], "bound_ms": t5["bound_ms"],
             "bound_by": "bytes", "library_ms": t5["library_ms"],
             "shape": "ex4 cl_k 5 (59,049 states)", **extra}
-    kernels["K6"]["max_rel_err"] = max_err["K6 rel"]
+    kernels["K4"]["phase_of"] = "K5"
+    kernels["K4"]["launches_per_rhs"] = 0
     kernels["K5"]["rule"] = SRC + "sweep_rule.cuh"
     kernels["K5"]["rhs_ms"] = rhs
     kernels["K5"]["solves"] = solves

@@ -11,6 +11,7 @@ themselves run only on the card (`tests/test_torch_gpu.py`).
 """
 
 import ctypes
+import math
 import shutil
 import subprocess
 
@@ -345,15 +346,12 @@ def test_dop853_plain_arithmetic_matches_jax_streamed(fn):
     rows = list(range(16))
     if fn == "stage":
         coefs = t_dop._A[7, :7]
-        got = t_dop.stage(yt, kt, 0.3, t_dop._terms(coefs, rows[:7]),
-                          torch.empty(n, dtype=torch.float64))
+        got = t_dop.stage(yt, kt, 0.3, 7, torch.empty(n, dtype=torch.float64))
         want = j_streamed._lincomb(y, 0.3, tuple(coefs), list(ks[:7]))
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=1e-15, atol=1e-15)
     elif fn == "norms":
-        got = t_dop.norms(t_dop._ERR, yt, 1e-10, 1e-12, y_new=ynt, ks=kt,
-                          terms5=t_dop._terms(t_dop._E5, rows[:13]),
-                          terms3=t_dop._terms(t_dop._E3, rows[:13]))
+        got = t_dop.norms(t_dop._ERR, yt, 1e-10, 1e-12, y_new=ynt, ks=kt)
         want = j_streamed._error_norms(y, y_new, list(ks[:13]), 1e-10, 1e-12)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-13)
         got = t_dop.norms(t_dop._RMS, yt, 1e-10, 1e-12, f0=kt[0])
@@ -371,11 +369,142 @@ def test_dop853_plain_arithmetic_matches_jax_streamed(fn):
         want = np.asarray(j_streamed._dense_coeffs(y, y_new, 0.3, ks[0],
                                                    ks[12], list(ks)))
         np.testing.assert_allclose(F.numpy(), want, rtol=RTOL, atol=ATOL)
-        got = t_dop.dense_eval(F, yt, 0.35, torch.empty(n,
-                                                        dtype=torch.float64))
+        got = t_dop.dense_eval(F, yt, torch.tensor([0.0, 0.35], dtype=torch.float64), 1, 1, 0.0,
+                               1.0, torch.empty((1, n), dtype=torch.float64))
         np.testing.assert_allclose(
-            got.numpy(), np.asarray(j_streamed._dense_eval(want, y, 0.35)),
+            got[0].numpy(), np.asarray(j_streamed._dense_eval(want, y, 0.35)),
             rtol=RTOL, atol=ATOL)
+
+
+def _per_fraction_rule(F, y, x):
+    """A sample at one fraction as the solver formed each before the
+    step's samples became one launch: Horner from the stack's last row,
+    times x and 1 - x in turn, then y added."""
+    acc = torch.zeros_like(y)
+    for i in range(6, -1, -1):
+        acc = acc + F[i]
+        acc = acc * (x if (6 - i) % 2 == 0 else (1 - x))
+    return y + acc
+
+
+@pytest.mark.parametrize("m", [1, 7, 200])
+def test_dense_eval_step_matches_jax_and_per_fraction_rule(m):
+    """A step's samples from one `dense_eval` call (its plain version on
+    the CPU): each row equals the JAX package's `_dense_eval` at its
+    fraction (rtol 1e-12: XLA may fuse a product into a sum) and, bit
+    for bit, the per-fraction rule at the fraction the host forms; a
+    sample time before the step gives fraction 0 and one past it 1."""
+    rng = np.random.RandomState(20 + m)
+    n = 257
+    F = rng.rand(7, n) - 0.5
+    y = rng.rand(n)
+    t, h = 3.0, 0.7
+    ts = np.concatenate([[0.0, t - 0.1], np.sort(t + h * rng.rand(m)),
+                         [t + h + 0.2]])
+    i_out, count = 1, m + 2
+    Ft, yt = torch.as_tensor(F), torch.as_tensor(y)
+    out = t_dop.rows_tensor(count + 3, n, "cpu")
+    got = t_dop.dense_eval(Ft, yt, torch.as_tensor(ts), i_out, count, t, h,
+                           out)
+    assert got.shape == (count, n) and got.data_ptr() == out.data_ptr()
+    xs = [min(max((ts[i_out + q] - t) / h, 0.0), 1.0) for q in range(count)]
+    assert xs[0] == 0.0 and xs[-1] == 1.0
+    for q, x in enumerate(xs):
+        assert torch.equal(got[q], _per_fraction_rule(Ft, yt, x)), q
+        np.testing.assert_allclose(
+            got[q].numpy(), np.asarray(j_streamed._dense_eval(F, y, x)),
+            rtol=1e-12, atol=1e-15)
+
+
+def test_dense_eval_fractions_equal_the_hosts():
+    """The fractions `dense_eval` forms from (ts, i_out, t, h), elementwise
+    as the kernel does, have the bits of the host's min(max((ts[q] - t) /
+    h, 0), 1) in Python floats, for steps and sample times of every
+    scale, at the clamp's edges and on ex4's grid of 2,001 samples."""
+    rng = np.random.RandomState(21)
+    grid = np.linspace(0.0, 2000.0, 2001)
+    cases = [(grid, 1, 2000, 0.0, 0.6931), (grid, 700, 60, 699.3, 61.27)]
+    for _ in range(200):
+        t = rng.rand() * 10.0 ** rng.randint(-6, 4)
+        h = rng.rand() * 10.0 ** rng.randint(-9, 3) + 1e-300
+        ts = np.sort(t + h * (1.4 * rng.rand(50) - 0.2))
+        cases.append((ts, rng.randint(0, 10), rng.randint(1, 40), t, h))
+    cases.append((np.asarray([1.0, 1.0, 2.0]), 0, 3, 1.0, 1.0))
+    for ts, i_out, m, t, h in cases:
+        got = t_dop.fractions(torch.as_tensor(ts), i_out, m, t, h).tolist()
+        want = [min(max((float(ts[i_out + q]) - t) / h, 0.0), 1.0)
+                for q in range(m)]
+        assert got == want and all(
+            math.copysign(1.0, a) == math.copysign(1.0, b)
+            for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("n", [1, 255, 257, 256 * 1024 + 3, 9**6])
+def test_norm_sum_order_follows_the_kernel(n):
+    """`norms_plain` sums in K6's `norms` order (`_norm_order_sum`): equal
+    bit for bit to the kernel's loops read literally, element by element
+    in Python floats: block b's thread t from 0 over b*256 + t + q*stride,
+    each block's shared-memory tree, the last block's thread t over
+    partials t, t + 256, ..., and its tree."""
+    v = np.random.RandomState(n % 1000).rand(n) ** 3
+    blocks = min(max(-(-n // 256), 1), 1024)
+    stride = blocks * 256
+
+    def tree(s):
+        s = list(s)
+        w = 128
+        while w:
+            for t in range(w):
+                s[t] = s[t] + s[t + w]
+            w //= 2
+        return s[0]
+
+    partial = []
+    for b in range(blocks):
+        sums = []
+        for t in range(256):
+            acc = 0.0
+            for i in range(b * 256 + t, n, stride):
+                acc = acc + float(v[i])
+            sums.append(acc)
+        partial.append(tree(sums))
+    sums = []
+    for t in range(256):
+        acc = 0.0
+        for b in range(t, blocks, 256):
+            acc = acc + partial[b]
+        sums.append(acc)
+    assert float(t_dop._norm_order_sum(torch.as_tensor(v))) == tree(sums)
+
+
+def test_tableau_equals_the_stage_terms():
+    """The tableau K6 uploads to the card (`tableau_arrays`) equals, row by
+    row, the terms the solver built for each launch before the table:
+    `_terms` of the initial step, A's rows 1-11, B, the extra rows and
+    E5/E3 over the stage rows in use, in both states of the first-same-
+    as-last swap (`tableau_terms`)."""
+    count, rows, coefs = t_dop.tableau_arrays()
+    assert count.dtype == np.int32 and coefs.dtype == np.float64
+    assert rows.shape == coefs.shape == (18, 16)
+    for which, terms in enumerate(t_dop.TABLEAU):
+        k = count[which]
+        assert list(zip(rows[which, :k].tolist(),
+                        coefs[which, :k].tolist())) == terms
+        assert not rows[which, k:].any() and not coefs[which, k:].any()
+    for swap in (0, 1):
+        r = list(range(16))
+        if swap:
+            r[0], r[12] = r[12], r[0]
+        assert t_dop.stage_rows(swap) == r
+        want = [[(r[0], 1.0)]]
+        want += [t_dop._terms(t_dop._A[i, :i], r[:i]) for i in range(1, 12)]
+        want.append(t_dop._terms(t_dop._B, r[:12]))
+        want += [t_dop._terms(t_dop._A_EXTRA[j, :13 + j], r[:13 + j])
+                 for j in range(3)]
+        want += [t_dop._terms(t_dop._E5, r[:13]),
+                 t_dop._terms(t_dop._E3, r[:13])]
+        assert [t_dop.tableau_terms(w, swap) for w in range(18)] == want
+    assert max(count) <= 16 and min(count) >= 1
 
 
 # --- (g) observables and the markov helpers ----------------------------------
@@ -454,8 +583,8 @@ def test_initial_states_equal_jax(name, kwargs):
 @pytest.mark.parametrize("tag,cl_k", [("ex4-chemical-turing", 4),
                                       ("ex6-mini-bff-lite", 2)])
 def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
-    """K3's and K4's plain versions (the CPU path of their wrappers)
-    against the JAX package's `_levels`, `pyramid` and the
+    """K3's and K4's plain versions (the CPU path of K3's wrapper and of
+    K5's, whose phase 0 is K4) against the JAX package's `_levels`, `pyramid` and the
     world-to-signature stage, and the plain ratio function (the
     yardstick of K5's ratio rule) against `_ratio_tables`."""
     jprog, tprog = _programs(tag, cl_k)
@@ -471,8 +600,8 @@ def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
     want = np.concatenate([np.asarray(r) for r in r_le[1:]]
                           + [np.asarray(r_re)])
     np.testing.assert_allclose(rat.numpy(), want, rtol=1e-14)
-    s = tdense.signature_weights(tdense.device_program(tprog, "cpu"), pt,
-                                 low)
+    s = torch.empty(tprog.num_signatures, dtype=torch.float64)
+    tdense.sweep(tdense.device_program(tprog, "cpu"), pt, low, s=s)
     jpyr = jmarkov.pyramid(jp, a, cl_k)
     wv = jprog.w_const * np.asarray(jmarkov.guarded_ratio_prod(
         jpyr, jnp.asarray(jprog.w_num), jnp.asarray(jprog.w_den)))
@@ -589,6 +718,86 @@ def k5_host_item(tmp_path_factory):
     return fn
 
 
+_K4_HOST_WEIGHTS = r"""
+#include "sweep_rule.cuh"
+extern "C" void k4_host_weights(int a, int k, const double* p,
+                                const double* low, const int* pair_num,
+                                const int* pair_den, const double* pair_const,
+                                int chain, const int* csr_ptr, int n_sig,
+                                double* s) {
+  K5Ctx c;
+  c.a = a;
+  c.k = k;
+  c.p = p;
+  c.low = low;
+  k5_levels(c);
+  K4Pairs w;
+  w.num = pair_num;
+  w.den = pair_den;
+  w.w_const = pair_const;
+  w.csr_ptr = csr_ptr;
+  w.chain = chain;
+  for (int g = 0; g < n_sig; ++g) {
+    double acc = 0.0;  // the pairs' weights in pair order, as K5's warp
+    for (int q = csr_ptr[g]; q < csr_ptr[g + 1]; ++q)
+      acc = acc + k4_pair_weight(c, w, q);
+    s[g] = acc;
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k4_host_weights(tmp_path_factory):
+    """K4's rule, K5's phase 0 (`csrc/sweep_rule.cuh:k4_pair_weight`, the
+    pairs' weights summed in pair order as K5's warp sums them), built
+    with the host's C++ compiler without contraction, for every
+    signature."""
+    cxx = next((c for c in (shutil.which(n) for n in ("g++", "c++",
+                                                      "clang++")) if c), None)
+    if cxx is None:
+        pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
+    out = tmp_path_factory.mktemp("k4")
+    (out / "k4.cpp").write_text(_K4_HOST_WEIGHTS)
+    lib = out / "libk4.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(cuda.CSRC_DIR), "-o", str(lib),
+                    str(out / "k4.cpp")], check=True, capture_output=True,
+                   timeout=120)
+    fn = ctypes.CDLL(str(lib)).k4_host_weights
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, i, p, p, p, p, p, i, p, i, p]
+    fn.restype = None
+    return fn
+
+
+@pytest.mark.parametrize("tag,cl_k", CASES, ids=IDS)
+def test_signature_weight_rule_matches_plain(k4_host_weights, tag, cl_k):
+    """K4's rule as K5's phase 0 runs it (each signature's sum forming its
+    worlds' chain products anew: ex4's 24 worlds serve two signatures
+    each; ex6-mini-bff-lite has 11,520 worlds and 4,536 signatures)
+    equals `signature_weights_plain` bit for bit, on a concentrated SPD
+    with exact zeros (the guard's 0 branch)."""
+    _, prog = _programs(tag, cl_k)
+    dp = tdense.device_program(prog, "cpu")
+    a, n = prog.size_a, prog.state_size
+    rng = np.random.RandomState(17)
+    p = _spd(rng, n, True)
+    p[rng.rand(n) < 0.2] = 0.0
+    p = torch.as_tensor(p / p.sum())
+    low = tdense.pyramid(p, a, cl_k)
+    got = torch.full((prog.num_signatures,), np.nan, dtype=torch.float64)
+    k4_host_weights(a, cl_k, _ptr(p), _ptr(low), _ptr(dp.pair_num),
+                    _ptr(dp.pair_den), _ptr(dp.pair_const),
+                    prog.w_num.shape[1], _ptr(dp.csr_ptr),
+                    prog.num_signatures, _ptr(got))
+    want = tdense.signature_weights_plain(dp, p, low)
+    assert torch.equal(got, want)
+    assert bool((want != 0).any())
+    if tag.startswith("ex4-chemical-turing"):
+        assert np.bincount(prog.pair_world).min() == 2
+
+
 def _dense_steps(dp, p, low, s):
     """Every step's dense vector by the plain step, in plan order."""
     a, k = dp.prog.size_a, dp.prog.cl_k
@@ -620,7 +829,7 @@ def test_sweep_rule_matches_plain_step(k5_host_item, tag, cl_k):
     plan = dp.plan
     p = torch.as_tensor(_spd(np.random.RandomState(13), n, True))
     low = tdense.pyramid(p, a, cl_k)
-    s = tdense.signature_weights(dp, p, low)
+    s = tdense.signature_weights_plain(dp, p, low)
     dense = _dense_steps(dp, p, low, s)
     work = torch.zeros(max(plan.work_size, 1), dtype=torch.float64)
     table = torch.as_tensor(plan.table)
@@ -676,7 +885,7 @@ def test_sweep_live_set_holds_every_nonzero(tag, cl_k):
     a = prog.size_a
     p = torch.as_tensor(_spd(np.random.RandomState(15), prog.state_size))
     low = tdense.pyramid(p, a, cl_k)
-    s = tdense.signature_weights(dp, p, low)
+    s = tdense.signature_weights_plain(dp, p, low)
     for i, t in _dense_steps(dp, p, low, s).items():
         st = dp.plan.steps[i]
         nonzero = set(torch.nonzero(t).reshape(-1).tolist())

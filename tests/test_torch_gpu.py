@@ -270,43 +270,48 @@ def test_pyramid_kernel_matches_plain(cuda, a, cl_k):
     assert torch.equal(low, tdense.pyramid(p, a, cl_k))
 
 
-@pytest.mark.parametrize("tag,cl_k", [("ex4-chemical-turing", 5),
-                                      ("ex5-msrtf-machine", 3),
-                                      ("ex6-mini-bff-lite", 2)])
+@pytest.mark.parametrize("tag,cl_k", EXACT_CASES
+                         + [("ex4-chemical-turing", k) for k in (5, 6, 7, 8)])
 def test_signature_weights_kernel_matches_plain(cuda, tag, cl_k):
-    """K4 (one launch) against its plain version, up to ex6-lite's
-    11,520 worlds and 4,536 signatures."""
+    """K4, K5's phase 0: the signature weights one K5 launch leaves in
+    ``s`` equal its plain version bit for bit (both sum each signature's
+    pairs in pair order from 0), up to ex6-lite's 11,520 worlds and 4,536
+    signatures and ex4 at cl_k 8."""
     prog, dp = _programs(tag, cl_k, cuda)
     p = torch.as_tensor(_spd(np.random.RandomState(1), prog.state_size),
                         device=cuda)
     low = tdense.pyramid_plain(p, prog.size_a, cl_k)
-    launches = tdense.signature_weights.launches
-    got = tdense.signature_weights(dp, p, low)
-    assert tdense.signature_weights.launches == launches + 1
-    _close(got, tdense.signature_weights_plain(dp, p, low))
+    s = torch.full((prog.num_signatures,), float("nan"),
+                   dtype=torch.float64, device=cuda)
+    launches = tdense.sweep.launches
+    tdense.sweep(dp, p, low, s=s)
+    assert tdense.sweep.launches == launches + 1
+    want = tdense.signature_weights_plain(dp, p, low)
+    assert torch.equal(s, want)
+    assert torch.equal(want, tdense.signature_weights_plain(dp, p, low))
 
 
 @pytest.mark.parametrize("tag,cl_k", EXACT_CASES
                          + [("ex4-chemical-turing", k) for k in (5, 6, 7, 8)])
 def test_sweep_kernel_matches_plain(cuda, tag, cl_k):
-    """K5 (one launch) against its plain version, on the same pyramid and
-    signature weights: each dy window's terms in the same order, so equal
-    to the plain version's own rounding (its scatters' atomics); two runs
-    the same bits."""
+    """K5 (one launch, the signature weights its phase 0) against the
+    plain versions, on the same pyramid: each dy window's terms in the
+    same order, so equal to the plain version's own rounding (its
+    scatters' atomics); two runs the same bits."""
     prog, dp = _programs(tag, cl_k, cuda)
     p = torch.as_tensor(_spd(np.random.RandomState(2), prog.state_size),
                         device=cuda)
     low = tdense.pyramid_plain(p, prog.size_a, cl_k)
     s = tdense.signature_weights_plain(dp, p, low)
     launches = tdense.sweep.launches
-    got = tdense.sweep(dp, p, low, s)
+    got = tdense.sweep(dp, p, low)
     assert tdense.sweep.launches == launches + 1
     _close(got, tdense.sweep_plain(dp, p, low, s))
     # Into a caller's row (a solver's stage row): the same bits, nothing
     # else of the tensor touched.
     rows = torch.full((2, prog.state_size), 7.0, dtype=torch.float64,
                       device=cuda)
-    assert tdense.sweep(dp, p, low, s, rows[1]).data_ptr() == \
+    assert tdense.sweep(dp, p, low, rows[1]).data_ptr() == \
         rows[1].data_ptr()
     assert torch.equal(rows[1], got) and bool((rows[0] == 7.0).all())
 
@@ -316,27 +321,29 @@ def test_dense_kernels_reject_bad_inputs(cuda):
     n = prog.state_size
     p = torch.as_tensor(_spd(np.random.RandomState(4), n), device=cuda)
     low = tdense.pyramid(p, 9, 3)
-    s = tdense.signature_weights(dp, p, low)
+    s = torch.empty(prog.num_signatures, dtype=torch.float64, device=cuda)
     with pytest.raises(TypeError, match="float64"):
         tdense.pyramid(p.float(), 9, 3)
     with pytest.raises(TypeError, match="float64"):
         tdense.pyramid(p[:-1], 9, 3)
     with pytest.raises(TypeError):
-        tdense.signature_weights(dp, p, low[:-1])
+        tdense.sweep(dp, p, low[:-1])
     with pytest.raises(ValueError):
-        tdense.signature_weights(dp, p, low.cpu())
+        tdense.sweep(dp, p, low.cpu())
     with pytest.raises(TypeError):
-        tdense.sweep(dp, p, low, s.float())
+        tdense.sweep(dp, p, low, s=s.float())
     with pytest.raises(TypeError):
-        tdense.sweep(dp, p, low, s, torch.empty(n + 1, dtype=torch.float64,
-                                                device=cuda)[1:][:-1])
+        tdense.sweep(dp, p, low, s=s[:-1])
+    with pytest.raises(TypeError):
+        tdense.sweep(dp, p, low, torch.empty(n + 1, dtype=torch.float64,
+                                             device=cuda)[1:][:-1])
     with pytest.raises(ValueError, match="cuda or cpu"):
         tdense.pyramid(p.to("meta"), 9, 3)
 
 
 @pytest.mark.parametrize("tag,cl_k", EXACT_CASES)
 def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
-    """The kernel path K3 -> K4 -> K5 (one C call) against the plain dp/dt
+    """The kernel path K3 -> K5 (one C call) against the plain dp/dt
     on the card, on a random and a concentrated SPD; float64; conserves
     probability; two runs the same bits; a NaN in p gives a non-finite
     dy, as the plain version's."""
@@ -355,6 +362,22 @@ def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
     assert not bool(torch.isfinite(fn(p)).all())
     assert not bool(torch.isfinite(tdense.dy_dt_dense(
         fn.device_program, p)).all())
+
+
+@pytest.mark.parametrize("cl_k", [5, 6, 7, 8])
+def test_dense_rhs_launches_three_times(cuda, cl_k):
+    """ex4's RHS on the card: K3's two launches and K5's one (K4 is its
+    phase 0), counted, through one C call."""
+    prog = tdense.compile_dense("ex4-chemical-turing", cl_k)
+    fn = tdense.make_dense_dy_dt(prog, device=cuda)
+    p = torch.full((prog.state_size,), 1.0 / prog.state_size,
+                   dtype=torch.float64, device=cuda)
+    before = tdense.pyramid.launches, tdense.sweep.launches
+    fn(p)
+    torch.cuda.synchronize(cuda)
+    got = (tdense.pyramid.launches - before[0],
+           tdense.sweep.launches - before[1])
+    assert got == (2, 1) and tdense.pyramid_launches(9, cl_k) == 2
 
 
 def test_dense_rhs_on_two_streams_at_once(cuda):
@@ -379,49 +402,132 @@ def test_dense_rhs_on_two_streams_at_once(cuda):
         assert all(torch.equal(g, want[q]) for g in got[q])
 
 
+def _k6_inputs(cuda, n, padded, seed=4):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    if padded:
+        ks = dop853.rows_tensor(16, n, cuda)
+        F = dop853.rows_tensor(7, n, cuda)
+        assert ks.stride(0) % 32 == 0 and ks.stride(0) > n
+    else:
+        ks = torch.empty((16, n), dtype=torch.float64, device=cuda)
+        F = torch.empty((7, n), dtype=torch.float64, device=cuda)
+    ks.copy_(torch.rand((16, n), generator=gen, dtype=torch.float64,
+                        device=cuda) - 0.5)
+    y = torch.rand(n, generator=gen, dtype=torch.float64, device=cuda)
+    return ks, F, y, y + 1e-3 * ks[3]
+
+
 @pytest.mark.parametrize("n", [9**5, 9**8], ids=["k5", "full"])
 def test_dop853_kernels_match_plain(cuda, n):
     """Each K6 kernel against its plain version on random stages, with
     the stages and the dense stack at a row stride of n and in the
-    solver's padded rows (`dop853.rows_tensor`)."""
-    gen = torch.Generator(device=cuda).manual_seed(4)
+    solver's padded rows (`dop853.rows_tensor`): `stage` from the card's
+    tableau at every row, in both swap states, and `dense_coeffs` the
+    plain version's bits; `norms` in one launch a call, one scratch for
+    all, the plain version's bits (its sums in the kernel's order) and
+    the same twice; one `dense_eval` launch for a step's samples."""
     before = [k.launches for k in dop853.KERNELS]
     for padded in (False, True):
-        if padded:
-            ks = dop853.rows_tensor(16, n, cuda)
-            F = dop853.rows_tensor(7, n, cuda)
-            assert ks.stride(0) % 32 == 0 and ks.stride(0) > n
-        else:
-            ks = torch.empty((16, n), dtype=torch.float64, device=cuda)
-            F = torch.empty((7, n), dtype=torch.float64, device=cuda)
-        ks.copy_(torch.rand((16, n), generator=gen, dtype=torch.float64,
-                            device=cuda) - 0.5)
-        y = torch.rand(n, generator=gen, dtype=torch.float64, device=cuda)
-        y_new = y + 1e-3 * ks[3]
+        ks, F, y, y_new = _k6_inputs(cuda, n, padded)
         rows = list(range(16))
-        terms = dop853._terms(dop853._A[11, :11], rows[:11])
         out, want = torch.empty_like(y), torch.empty_like(y)
-        _close(dop853.stage(y, ks, 0.37, terms, out),
-               dop853.stage_plain(y, ks, 0.37, terms, want))
-        kw = dict(y_new=y_new, ks=ks,
-                  terms5=dop853._terms(dop853._E5, rows[:13]),
-                  terms3=dop853._terms(dop853._E3, rows[:13]))
-        for mode, args in ((dop853._RMS, dict(f0=ks[0])),
-                           (dop853._RMS_DIFF, dict(f0=ks[0], f1=ks[1])),
-                           (dop853._ERR, kw)):
-            got = dop853.norms(mode, y, 1e-10, 1e-12, **args)
-            torch.testing.assert_close(
-                got, dop853.norms_plain(mode, y, 1e-10, 1e-12, **args),
-                rtol=1e-12, atol=0)
+        for swap in (0, 1):
+            for which in range(dop853._E5_ROW):
+                assert torch.equal(
+                    dop853.stage(y, ks, 0.37, which, out, swap),
+                    dop853.stage_plain(y, ks, 0.37,
+                                       dop853.tableau_terms(which, swap),
+                                       want)), (which, swap)
+        scratch = dop853.norm_scratch(cuda)
+        for swap in (0, 1):
+            for mode, args in ((dop853._RMS, dict(f0=ks[0])),
+                               (dop853._RMS_DIFF, dict(f0=ks[0], f1=ks[1])),
+                               (dop853._ERR, dict(y_new=y_new, ks=ks,
+                                                  swap=swap))):
+                got = dop853.norms(mode, y, 1e-10, 1e-12, scratch=scratch,
+                                   **args).clone()
+                assert torch.equal(got, dop853.norms(mode, y, 1e-10, 1e-12,
+                                                     **args))
+                plain = dict(args)
+                if mode == dop853._ERR:
+                    plain.pop("swap")
+                    plain.update(
+                        terms5=dop853.tableau_terms(dop853._E5_ROW, swap),
+                        terms3=dop853.tableau_terms(dop853._E3_ROW, swap))
+                assert torch.equal(got, dop853.norms_plain(
+                    mode, y, 1e-10, 1e-12, **plain)), (mode, swap)
         F_want = torch.empty((7, n), dtype=torch.float64, device=cuda)
-        _close(dop853.dense_coeffs(y, y_new, 0.37, ks[0], ks[12], ks, rows,
-                                   F),
-               dop853.dense_coeffs_plain(y, y_new, 0.37, ks[0], ks[12], ks,
-                                         rows, F_want))
-        _close(dop853.dense_eval(F, y, 0.3, out),
-               dop853.dense_eval_plain(F, y, 0.3, want))
+        assert torch.equal(
+            dop853.dense_coeffs(y, y_new, 0.37, ks[0], ks[12], ks, rows, F),
+            dop853.dense_coeffs_plain(y, y_new, 0.37, ks[0], ks[12], ks,
+                                      rows, F_want))
+        ts = torch.tensor([0.0, 1.0, 1.1, 1.3, 1.37, 1.5], dtype=torch.float64,
+                          device=cuda)
+        s_got = dop853.rows_tensor(5, n, cuda)
+        s_want = dop853.rows_tensor(5, n, cuda)
+        assert torch.equal(
+            dop853.dense_eval(F, y, ts, 1, 5, 1.0, 0.37, s_got),
+            dop853.dense_eval_plain(F, y, ts, 1, 5, 1.0, 0.37, s_want))
+    # stage: 16 rows x 2 swaps; norms: 3 modes x 2 swaps x 2 calls; one
+    # launch each of dense_coeffs and dense_eval; twice (two layouts).
     assert [k.launches - b for k, b in zip(dop853.KERNELS, before)] == \
-        [2, 12, 2, 2]
+        [64, 24, 2, 2]
+
+
+@pytest.mark.parametrize("n,m", [(9**5, 1), (9**5, 7), (9**5, 200),
+                                 (9**8, 8)])
+def test_dense_eval_step_matches_plain(cuda, n, m):
+    """One `dense_eval` launch for a step's m samples (chunks of 8 rows
+    on blockIdx.y) against the plain version's per-fraction evaluation,
+    bit for bit: sample times inside the step, one before (fraction 0)
+    and one past it (fraction 1); rows past m untouched."""
+    ks, F, y, y_new = _k6_inputs(cuda, n, True, seed=m)
+    dop853.dense_coeffs(y, y_new, 0.37, ks[0], ks[12], ks, list(range(16)),
+                        F)
+    del ks
+    rng = np.random.RandomState(m)
+    t, h = 2.0, 0.37
+    ts = np.concatenate([[0.0, t - 0.5],
+                         np.sort(t + h * rng.rand(max(m - 2, 0))),
+                         [t + h + 0.5]])[:m + 1]
+    ts_dev = torch.as_tensor(ts, device=cuda)
+    got = dop853.rows_tensor(m + 1, n, cuda)
+    got[m].fill_(7.0)
+    launches = dop853.dense_eval.launches
+    dop853.dense_eval(F, y, ts_dev, 1, m, t, h, got)
+    assert dop853.dense_eval.launches == launches + 1
+    want = dop853.rows_tensor(m, n, cuda)
+    dop853.dense_eval_plain(F, y, ts_dev, 1, m, t, h, want)
+    assert torch.equal(got[:m], want)
+    assert bool((got[m] == 7.0).all())
+    with pytest.raises(TypeError, match="float64"):
+        dop853.dense_eval(F, y, ts_dev.float(), 1, m, t, h, got)
+    with pytest.raises(ValueError):
+        dop853.dense_eval(F, y, ts_dev, 1, m + 1, t, h, got)
+
+
+def test_norms_on_two_streams_at_once(cuda):
+    """Two runs of `norms` queued on two streams in turn, each with its
+    own scratch (as two solves have): each gives the bits it gives alone,
+    every time."""
+    n = 9**6
+    ks, _, y, y_new = _k6_inputs(cuda, n, True)
+    ys = [y, y_new]
+    want = [dop853.norms(dop853._ERR, v, 1e-13, 1e-13, y_new=y_new, ks=ks)
+            .clone() for v in ys]
+    streams = [torch.cuda.Stream(cuda) for _ in ys]
+    scratch = [dop853.norm_scratch(cuda) for _ in ys]
+    torch.cuda.synchronize(cuda)
+    got = [[], []]
+    for _ in range(20):
+        for q, (v, st) in enumerate(zip(ys, streams)):
+            with torch.cuda.stream(st):
+                got[q].append(dop853.norms(
+                    dop853._ERR, v, 1e-13, 1e-13, y_new=y_new, ks=ks,
+                    scratch=scratch[q]).clone())
+    torch.cuda.synchronize(cuda)
+    for q in range(2):
+        assert all(torch.equal(g, want[q]) for g in got[q])
 
 
 def test_exact_canary_on_card(cuda):
