@@ -4,7 +4,8 @@ The JAX package beside this one is the reference; this package imports
 neither it nor `jax`. It keeps the reference's module layout where that
 helps a reader find the counterpart (`utils/config.py`, `markov.py`,
 `markov_tapes.py`, `engine/dsl.py`, `engine/enumerate.py`,
-`engine/compile.py`, `engine/dense.py`, `engine/ensemble.py`,
+`engine/compile.py`, `engine/dense.py`, `engine/rhs.py`, `engine/tree.py`,
+`engine/accumulate.py`, `engine/ensemble.py`,
 `models/problems.py`, `models/initial_states.py`, `ode/dop853.py`,
 `ode/integrate.py`, `ops/observables.py`).
 
@@ -17,8 +18,10 @@ versions.
 
 Ported so far: the ensemble engine's plane-stored FSM round
 (`engine.ensemble.run_ensemble`), `window_counts` and
-`sample_tapes_from_spd`; the exact SPD closure (`engine.build_dy_dt`,
-`engine/dense.py`, `ode.integrate.solve` with DOP853, `markov_tapes`).
+`sample_tapes_from_spd`; the exact SPD closure (`engine.build_dy_dt`
+with the dense, tree and chain engines, dual-SPD programs,
+`ode.integrate.solve` with DOP853 in one call or in checkpointed chunks,
+`markov_tapes`).
 ROADMAP.md lists what is still to come.
 """
 

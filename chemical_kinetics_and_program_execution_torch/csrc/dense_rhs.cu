@@ -18,7 +18,9 @@
 // levels k-m-1 .. 0. Each entry sums its A children in digit order, as
 // the plain version does. No ratio table is written: K5 forms each ratio
 // where it needs one. Bound: bytes, p read once and about A^k / (A - 1)
-// doubles written once.
+// doubles written once. A dual program's RHS runs it on each tape, into
+// the tape's block of ``low``; the gather engine (`gather_rhs.cu`) reads
+// it too.
 //
 // K4 `signature_weights` (`dense.py:464-468`: `markov.py:189
 // guarded_ratio_prod`, then `segment_sum`) is K5's phase 0, before its
@@ -55,7 +57,9 @@
 // one phase are read in a later one through L2 (`__ldcg`); the signature
 // weights, which no block reads before the barrier after phase 0, by
 // plain loads. A block unpacks a phase's items into shared memory, with
-// host-made multipliers for their divisors. Bound: bytes, dy written
+// host-made multipliers for their divisors. A dual program's items name
+// their tape by two offsets (`sweep_rule.cuh:F_POFF`): no branch on the
+// tape in the loop. Bound: bytes, dy written
 // once and each distinct entry of p and lv[k-1] that the live windows
 // need read once, with the signature weights and the plan. Steps whose
 // run is the trailing digits (lo = 1) read p and dy at scattered
@@ -162,26 +166,15 @@ struct K5Launch {
 // K5: phase 0 (K4), then every phase of the sweep, in one cooperative
 // launch. A block unpacks up to kStaged of a phase's items (fields and
 // divisors) into shared memory at a time, then takes their elements
-// grid-stride.
+// grid-stride. kDual: a dual program's plan, whose items read their
+// tapes' offsets (`sweep_rule.cuh`).
+template <bool kDual>
 __global__ void __launch_bounds__(kThreads, kK5BlocksPerSm)
 k5_sweep_kernel(K5Launch L) {
   __shared__ K5Item staged[kStaged];
   const unsigned stride = gridDim.x * kThreads;
   const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
-  const int lane = (int)(threadIdx.x & 31);
-  for (unsigned g = tid >> 5; g < (unsigned)L.n_sig; g += stride >> 5) {
-    const int q0 = L.pairs.csr_ptr[g], q1 = L.pairs.csr_ptr[g + 1];
-    double acc = 0.0;
-    for (int base = q0; base < q1; base += 32) {
-      const double w =
-          base + lane < q1 ? k4_pair_weight(L.ctx, L.pairs, base + lane)
-                           : 0.0;
-      const int count = q1 - base < 32 ? q1 - base : 32;
-      for (int j = 0; j < count; ++j)
-        acc = acc + __shfl_sync(0xffffffffu, w, j);
-    }
-    if (lane == 0) L.s[g] = acc;
-  }
+  k4_warp_weights(L.ctx, L.pairs, L.s, L.n_sig, tid, stride);
   for (int ph = 0; ph < L.n_phases; ++ph) {
     cg::this_grid().sync();
     if (ph == 0)  // no item of the first phase touches dy
@@ -191,8 +184,11 @@ k5_sweep_kernel(K5Launch L) {
          first += kStaged) {
       const int count = (int)(end - first < kStaged ? end - first : kStaged);
       __syncthreads();  // the previous chunk's elements are done
-      for (int q = threadIdx.x; q < count; q += kThreads)
-        staged[q] = k5_item(L.items + (first + q) * K5_FIELDS, L.ctx);
+      for (int q = threadIdx.x; q < count; q += kThreads) {
+        K5Item it = k5_item(L.items + (first + q) * K5_FIELDS, L.ctx);
+        if (!kDual) it.poff = it.loff = 0;  // a single tape's: not read
+        staged[q] = it;
+      }
       __syncthreads();
       const long long base = staged[0].start;
       const unsigned total =
@@ -206,8 +202,8 @@ k5_sweep_kernel(K5Launch L) {
           else
             hi = mid - 1;
         }
-        k5_element(L.ctx, staged[lo],
-                   (unsigned)(x - (staged[lo].start - base)));
+        k5_element<kDual>(L.ctx, staged[lo],
+                          (unsigned)(x - (staged[lo].start - base)));
       }
     }
   }
@@ -232,7 +228,8 @@ K3Levels k3_levels(int a, int k, int m) {
   return lv;
 }
 
-// The most blocks of k5_sweep_kernel that fit on the card at once.
+// The most blocks of k5_sweep_kernel<kDual> that fit on the card at once.
+template <bool kDual>
 int k5_resident_blocks() {
   static int cached[64];
   int dev = 0;
@@ -240,7 +237,7 @@ int k5_resident_blocks() {
   if (!cached[dev]) {
     int per_sm = 0, sms = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, k5_sweep_kernel, kThreads, 0) != cudaSuccess ||
+            &per_sm, k5_sweep_kernel<kDual>, kThreads, 0) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess)
       return 0;
@@ -301,6 +298,7 @@ extern "C" int ckpe_dense_sweep(const long long* items,
   L.ctx.work = work;
   L.ctx.dy = dy;
   k5_levels(L.ctx);
+  L.ctx.n_state = (unsigned)n;
   L.pairs.num = pair_num;
   L.pairs.den = pair_den;
   L.pairs.w_const = pair_const;
@@ -312,7 +310,9 @@ extern "C" int ckpe_dense_sweep(const long long* items,
   L.phase_ptr = phase_ptr;
   L.n_phases = n_phases;
   L.n = (unsigned)n;
-  const int resident = k5_resident_blocks();
+  const bool dual = L.ctx.n_state != L.ctx.pw[k];  // [program | data]
+  const int resident =
+      dual ? k5_resident_blocks<true>() : k5_resident_blocks<false>();
   if (resident <= 0) return (int)cudaErrorLaunchFailure;
   // About four elements a thread in the largest phase (a lane each for
   // a signature's pairs in phase 0), at most what fits.
@@ -321,16 +321,19 @@ extern "C" int ckpe_dense_sweep(const long long* items,
   long long want = (most + 4 * kThreads - 1) / (4 * kThreads);
   const int grid = (int)(want < 1 ? 1 : want > resident ? resident : want);
   void* args[] = {&L};
+  const void* kernel = dual ? (const void*)k5_sweep_kernel<true>
+                            : (const void*)k5_sweep_kernel<false>;
   const cudaError_t err = cudaLaunchCooperativeKernel(
-      (const void*)k5_sweep_kernel, dim3(grid), dim3(kThreads), args, 0,
-      stream);
+      kernel, dim3(grid), dim3(kThreads), args, 0, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// K3 -> K5 from one host call: K3's pyramid below p into ``low``, then
-// K5 (phase 0 and the sweep) with the arguments `ckpe_dense_sweep` takes.
-extern "C" int ckpe_dense_rhs(int m, const long long* items,
+// K3 -> K5 from one host call: K3's pyramid below each tape's p into its
+// block of ``low`` (``tapes`` 2 for a dual program: p and dy are then
+// [program | data], 2 A^k each), then K5 (phase 0 and the sweep) with
+// the arguments `ckpe_dense_sweep` takes.
+extern "C" int ckpe_dense_rhs(int tapes, int m, const long long* items,
                               const long long* phase_ptr, int n_phases,
                               long long max_phase, const int* table,
                               double* work, double* dy, long long n,
@@ -339,8 +342,14 @@ extern "C" int ckpe_dense_rhs(int m, const long long* items,
                               const double* pair_const, int chain,
                               const int* csr_ptr, int n_sig, double* s,
                               int a, int k, cudaStream_t stream) {
-  const int rc = ckpe_pyramid(p, a, k, m, low, stream);
-  if (rc) return rc;
+  if (tapes < 1 || tapes > 2 || k < 1 || k > kMaxK)
+    return (int)cudaErrorInvalidValue;
+  const K3Levels lv = k3_levels(a, k, m);
+  for (int t = 0; t < tapes; ++t) {
+    const int rc = ckpe_pyramid(p + (size_t)t * lv.pw[k], a, k, m,
+                                low + (size_t)t * (lv.one_slot + 1), stream);
+    if (rc) return rc;
+  }
   return ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table,
                           work, dy, n, p, low, pair_num, pair_den,
                           pair_const, chain, csr_ptr, n_sig, s, a, k, stream);

@@ -38,6 +38,13 @@
 // item (l0 > k; one element) walks the group's (rank, signature id,
 // sign) ops in member order.
 //
+// A dual program's items carry their tape as two offsets (F_POFF,
+// F_LOFF; 0 for a single-tape program): an item reads its tape's p (the
+// state vector from A^k on for the data tape) and levels (the tape's
+// block of ``low``) and writes its tape's half of dy. The functions that
+// read them take kDual: K5 runs a single-tape program's plan with kDual
+// false, which leaves the offsets (all 0) out of its index arithmetic.
+//
 // Plain C++ under `g++` as well, so a CPU test holds it to the plain step
 // (`engine/dense.py:sweep_step_plain`, `emit_plain`) for every element.
 
@@ -67,15 +74,18 @@ enum {
   F_OP, F_START, F_N, F_DST, F_SRC, F_HI, F_D, F_LO, F_SPAN, F_TAB, F_LEV,
   F_XN, F_XD, F_XLO, F_KIDS, F_SEED,
   // the multipliers of the divisors lo, d, ne, xn, hx, xlo, A, A^(lev-1)
-  F_M_LO, F_M_D, F_M_NE, F_M_XN, F_M_HX, F_M_XLO, F_M_A, F_M_PW1, K5_FIELDS,
+  F_M_LO, F_M_D, F_M_NE, F_M_XN, F_M_HX, F_M_XLO, F_M_A, F_M_PW1,
+  // the item's tape: offsets into p and dy, and into low
+  F_POFF, F_LOFF, K5_FIELDS,
 };
 
 constexpr int kMaxK = 16;
 
 struct K5Ctx {
   int a, k;
-  const double* p;              // level k
-  const double* low;            // [lv[k-1], ..., lv[0], 1]
+  const double* p;              // level k: the state vector
+  const double* low;            // [lv[k-1], ..., lv[0], 1], a block a tape
+  unsigned n_state;             // entries of p: A^k, 2 A^k for a dual program
   unsigned lv_off[kMaxK + 1];   // level j < k at low + lv_off[j]
   unsigned pw[kMaxK + 1];       // A^j
   const double* s;              // signature weights (phase 0's output)
@@ -135,6 +145,7 @@ K5_FN unsigned k5_r(unsigned x, const K5Div& v) {
 struct K5Item {
   int op, tab, lev, kids, seed;
   unsigned n, span, xd, n1;  // n1 = xn / A
+  unsigned poff, loff;       // the item's tape in p and dy, and in low
   long long start, dst, src;
   K5Div lo, d, ne, xn, hx, xlo, a, pw1;
 };
@@ -152,6 +163,8 @@ K5_FN K5Item k5_item(const long long* r, const K5Ctx& c) {
   it.span = (unsigned)r[F_SPAN];
   it.xd = (unsigned)r[F_XD];
   it.n1 = (unsigned)r[F_XN] / (unsigned)c.a;
+  it.poff = (unsigned)r[F_POFF];
+  it.loff = (unsigned)r[F_LOFF];
   it.start = r[F_START];
   it.dst = r[F_DST];
   it.src = r[F_SRC];
@@ -168,15 +181,25 @@ K5_FN K5Item k5_item(const long long* r, const K5Ctx& c) {
   return it;
 }
 
-K5_FN double k5_level(const K5Ctx& c, int j, unsigned x) {
-  return j == c.k ? c.p[x] : c.low[c.lv_off[j] + x];
+// The item's offsets into p and dy, and into low (0 unless kDual).
+template <bool kDual>
+K5_FN unsigned k5_poff(const K5Item& it) {
+  return kDual ? it.poff : 0u;
 }
 
+template <bool kDual>
+K5_FN double k5_level(const K5Ctx& c, const K5Item& it, int j, unsigned x) {
+  return j == c.k ? c.p[k5_poff<kDual>(it) + x]
+                  : c.low[(kDual ? it.loff : 0u) + c.lv_off[j] + x];
+}
+
+template <bool kDual>
 K5_FN double k5_ratio(const K5Ctx& c, const K5Item& it, unsigned j) {
   if (it.op == K5_RIGHT || it.op == K5_RSHIFT || it.op == K5_RSHIFT_RUN)
-    return k5_guarded(c.p[j], k5_level(c, c.k - 1, k5_q(j, it.a)));
-  return k5_guarded(k5_level(c, it.lev, j),
-                    k5_level(c, it.lev - 1, k5_r(j, it.pw1)));
+    return k5_guarded(c.p[k5_poff<kDual>(it) + j],
+                      k5_level<kDual>(c, it, c.k - 1, k5_q(j, it.a)));
+  return k5_guarded(k5_level<kDual>(c, it, it.lev, j),
+                    k5_level<kDual>(c, it, it.lev - 1, k5_r(j, it.pw1)));
 }
 
 // The source vector at compact index x (the seed's at live index x).
@@ -190,6 +213,7 @@ K5_FN double k5_src(const K5Ctx& c, const K5Item& it, unsigned x) {
 }
 
 // A compute item's value at compact index e.
+template <bool kDual>
 K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
   const int op = it.op;
   const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.d);
@@ -197,7 +221,7 @@ K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
   const unsigned j = (h * it.span + (unsigned)c.table[it.tab + i]) * it.lo.d +
                      (e - rest * it.lo.d);
   if (op == K5_IDENT) return k5_src(c, it, e);
-  const double r = k5_ratio(c, it, j);
+  const double r = k5_ratio<kDual>(c, it, j);
   switch (op) {
     case K5_EXTEND:
       return r * k5_src(c, it, k5_r(e, it.xn));
@@ -230,25 +254,27 @@ K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
 }
 
 // One element e of one item.
+template <bool kDual>
 K5_FN void k5_element(const K5Ctx& c, const K5Item& it, unsigned e) {
   if (it.op == K5_INTERIOR) {
     const int* ops = c.table + it.tab;
     for (int q = 0; q < it.lev; ++q) {
       const double w = c.s[ops[3 * q + 1]];
-      double* x = c.dy + ops[3 * q];
+      double* x = c.dy + k5_poff<kDual>(it) + ops[3 * q];
       *x = k5_load(x) + (ops[3 * q + 2] < 0 ? -w : w);
     }
     return;
   }
   if (it.op != K5_EMIT) {
-    c.work[it.dst + e] = k5_value(c, it, e);
+    c.work[it.dst + e] = k5_value<kDual>(c, it, e);
     return;
   }
   const unsigned lo = it.lo.d;
   const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.ne);
   const unsigned s = e - rest * lo, q = rest - h * it.ne.d;
   const int* tg = c.table + it.tab + 4 * q;  // rank, own, partners
-  const unsigned j = (h * it.span + (unsigned)tg[0]) * lo + s;
+  const unsigned j =
+      k5_poff<kDual>(it) + (h * it.span + (unsigned)tg[0]) * lo + s;
   const double* t = c.work + it.dst + (size_t)h * it.d.d * lo + s;
   double acc = k5_load(c.dy + j);
   if (tg[1] >= 0) acc = acc + (-k5_load(t + (size_t)tg[1] * lo));
@@ -269,6 +295,7 @@ K5_FN void k5_levels(K5Ctx& c) {
     pos += c.pw[j];
   }
   c.lv_off[c.k] = 0;
+  c.n_state = c.pw[c.k];
 }
 
 // K4's rule, K5's phase 0 (`engine/dense.py:signature_weights_plain`):
@@ -277,8 +304,9 @@ K5_FN void k5_levels(K5Ctx& c) {
 // w's guarded ratios in chain order (`k4_pair_weight`). The pairs lie in
 // CSR order (by signature, pair order kept), each with its world's
 // chain indices and w_const, so a world that serves several signatures
-// is formed anew for each. The pyramid is read as p below A^k and the
-// levels below p above.
+// is formed anew for each. The pyramid is read in two pieces: p below
+// the state size, the levels above (`engine/compile.py:
+// two_pointer_index`, which maps a dual program's indices there).
 struct K4Pairs {
   const int* num;       // [pairs, chain] pyramid indices
   const int* den;
@@ -290,30 +318,63 @@ struct K4Pairs {
 constexpr int kK4Batch = 4;  // chain factors whose loads issue together
 
 K5_FN double k4_pyramid(const K5Ctx& c, int x) {
-  const unsigned n = c.pw[c.k];
+  const unsigned n = c.n_state;
   return (unsigned)x < n ? c.p[x] : c.low[x - n];
 }
 
-K5_FN double k4_pair_weight(const K5Ctx& c, const K4Pairs& w, int q) {
-  const int* num = w.num + (size_t)q * w.chain;
-  const int* den = w.den + (size_t)q * w.chain;
+// A chain's guarded ratios multiplied in chain order (the loads issued
+// kK4Batch at a time). K8 forms an event's chain with it too.
+K5_FN double k4_chain_product(const K5Ctx& c, const int* num, const int* den,
+                              int chain) {
   double prod = 0.0;
-  for (int j0 = 0; j0 < w.chain; j0 += kK4Batch) {
+  for (int j0 = 0; j0 < chain; j0 += kK4Batch) {
     double vn[kK4Batch], vd[kK4Batch];
 #pragma unroll
     for (int u = 0; u < kK4Batch; ++u) {
-      if (j0 + u < w.chain) {
+      if (j0 + u < chain) {
         vn[u] = k4_pyramid(c, num[j0 + u]);
         vd[u] = k4_pyramid(c, den[j0 + u]);
       }
     }
 #pragma unroll
     for (int u = 0; u < kK4Batch; ++u) {
-      if (j0 + u < w.chain) {
+      if (j0 + u < chain) {
         const double g = k5_guarded(vn[u], vd[u]);
         prod = j0 + u == 0 ? g : prod * g;
       }
     }
   }
-  return w.w_const[q] * prod;
+  return prod;
 }
+
+K5_FN double k4_pair_weight(const K5Ctx& c, const K4Pairs& w, int q) {
+  return w.w_const[q] * k4_chain_product(c, w.num + (size_t)q * w.chain,
+                                         w.den + (size_t)q * w.chain,
+                                         w.chain);
+}
+
+#ifdef __CUDACC__
+// K4's signature weights, a warp a signature, grid-stride over the
+// warps of the launch (``tid`` the thread's index in it, ``stride`` its
+// threads): lane l forms the weight of pairs l, l + 32, ... and the warp
+// adds them from 0.0 in pair order by shuffles. K5's phase 0 and K7's
+// and K8's first launch.
+__device__ __forceinline__ void k4_warp_weights(const K5Ctx& c,
+                                                const K4Pairs& w, double* s,
+                                                int n_sig, unsigned tid,
+                                                unsigned stride) {
+  const int lane = (int)(tid & 31);
+  for (unsigned g = tid >> 5; g < (unsigned)n_sig; g += stride >> 5) {
+    const int q0 = w.csr_ptr[g], q1 = w.csr_ptr[g + 1];
+    double acc = 0.0;
+    for (int base = q0; base < q1; base += 32) {
+      const double x =
+          base + lane < q1 ? k4_pair_weight(c, w, base + lane) : 0.0;
+      const int count = q1 - base < 32 ? q1 - base : 32;
+      for (int j = 0; j < count; ++j)
+        acc = acc + __shfl_sync(0xffffffffu, x, j);
+    }
+    if (lane == 0) s[g] = acc;
+  }
+}
+#endif

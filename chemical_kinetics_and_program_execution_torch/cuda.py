@@ -4,8 +4,9 @@ Two kinds of library, both with a plain C interface (no PyTorch headers,
 so a build takes seconds) and both landing in `_build/` beside this file:
 
 - `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
-  `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`), which may
-  include headers from `csrc/`, into one shared library;
+  `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`; K7 and K8
+  `gather_rhs.cu`), which may include headers from `csrc/`, into one
+  shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1, one library per decision
   machine, from `engine/k1_source.py`).
@@ -151,8 +152,20 @@ def load() -> ctypes.CDLL:
     k5 = [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I,
           _P, _I, _I, _P]
     lib.ckpe_dense_sweep.argtypes = k5
-    # ckpe_dense_rhs(m, <ckpe_dense_sweep's arguments>)
-    lib.ckpe_dense_rhs.argtypes = [_I] + k5
+    # ckpe_dense_rhs(tapes, m, <ckpe_dense_sweep's arguments>)
+    lib.ckpe_dense_rhs.argtypes = [_I, _I] + k5
+    # ckpe_tree_rhs(p, low, n_state, a, k, pair_num, pair_den, pair_const,
+    #               chain, csr_ptr, n_sig, s, num, den, parent, level_ptr,
+    #               n_levels, vals, ent_val, ent_sig, tgt_ptr, n_tgt, dy,
+    #               stream)
+    head = [_P, _P, _L, _I, _I, _P, _P, _P, _I, _P, _I, _P]
+    tail = [_P, _P, _P, _P, _I, _P, _P]
+    lib.ckpe_tree_rhs.argtypes = head + [_P, _P, _P, _P, _I] + tail
+    # ckpe_chain_rhs(<the same head>, e_num, e_den, e_chain, n_ev, vals,
+    #                ent_val, ent_sig, tgt_ptr, n_tgt, dy, stream)
+    lib.ckpe_chain_rhs.argtypes = head + [_P, _P, _I, _L] + tail
+    # ckpe_gather_scatter(s, <the same tail>)
+    lib.ckpe_gather_scatter.argtypes = [_P] + tail
     # ckpe_k6_tableau(count, rows, coefs, n_rows)
     lib.ckpe_k6_tableau.argtypes = [_P, _P, _P, _I]
     # ckpe_k6_stage(y, ks, ks_ld, n, which, swap, h, out, stream)
@@ -170,6 +183,7 @@ def load() -> ctypes.CDLL:
     lib.ckpe_k6_dense_eval.argtypes = [_P, _L, _P, _L, _P, _L, _I, _D, _D,
                                        _P, _L, _P]
     for name in ("ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
+                 "ckpe_tree_rhs", "ckpe_chain_rhs", "ckpe_gather_scatter",
                  "ckpe_k6_tableau", "ckpe_k6_stage", "ckpe_k6_norms",
                  "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval"):
         getattr(lib, name).restype = _I

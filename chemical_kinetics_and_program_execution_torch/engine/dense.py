@@ -22,6 +22,15 @@ here, which the wrapper runs for a CPU tensor:
 On a card `make_dense_dy_dt`'s fn runs K3 and K5 from one C call
 (`dense_rhs`): 3 launches at ex4's cl_k 5-8.
 
+A dual-SPD program (`compile_dense_dual`) has separate program and data
+tape distributions: the state is ``[p_prog | p_data]``, each plan names
+its tape, groups never mix tapes, K3 runs on each tape into its block
+of the levels, and K5's items carry their tape as offsets into p, the
+levels and dy (``poff``, ``loff``), 0 in a single-tape plan, whose items
+are otherwise those of a program with no dual mode. World chains index
+the concatenated per-tape pyramid; `device_program` maps them to where
+the kernels read them (`compile.two_pointer_index`).
+
 The sweep plan follows `_apply_group` step for step: seed a one-hot
 vector, left-extend it to a (k-1)-context (phase A), emit and left-shift
 while a changed cell stays in frame (phase C), right-extend while a
@@ -53,8 +62,7 @@ be NaN, and a dense step's NaN * 0 spreads where K5 forms nothing: both
 give a non-finite dy, not the same one.
 
 Not ported yet (ROADMAP Queue 1 item 4): pruned programs with their mass
-tables (`BeamGuide`, ``with_mass``), dual-SPD programs and the streamed
-RHS.
+tables (`BeamGuide`, ``with_mass``) and the streamed RHS.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from .. import cuda
 from ..markov import guarded_ratio, pyramid_offsets
 from ..utils import config
 from . import dsl, enumerate as enum_mod
+from .compile import two_pointer_index
 
 _UNPORTED = "not ported yet (ROADMAP Queue 1 item 4)"
 
@@ -81,6 +90,7 @@ class SigPlan:
     length: int  # revealed length L0
     orig: tuple[int, ...]  # revealed original digits (left->right)
     adj: tuple[int, ...]  # adjusted digits
+    tape: int = 0  # dual-SPD programs: the tape's pyramid and dy half
 
 
 @dataclasses.dataclass
@@ -97,10 +107,14 @@ class DenseProgram:
     pair_world: np.ndarray
     pair_sig: np.ndarray
     plans: tuple[SigPlan, ...]
+    # Dual-SPD mode: the state is [p_prog | p_data], factor indices into
+    # the concatenated per-tape pyramid.
+    dual: bool = False
 
     @property
     def state_size(self) -> int:
-        return self.size_a**self.cl_k
+        n = self.size_a**self.cl_k
+        return 2 * n if self.dual else n
 
     @property
     def num_worlds(self) -> int:
@@ -149,16 +163,42 @@ def compile_dense(tag: str, cl_k: int, *,
         [(p.sid, p.length, p.orig, p.adj) for p in plans])
 
 
+def compile_dense_dual(tag: str, cl_k: int, *,
+                       max_worlds: int | None = None) -> DenseProgram:
+    """The dense program with separate program and data tape SPDs: world
+    chains offset into the concatenated per-tape pyramid, each plan
+    carrying its tape, as the JAX package's `compile_dense_dual`."""
+    from .compile import collect_signatures_dual
+
+    problem = dsl.get_problem(tag)
+    size_a = problem.size_a
+    half = pyramid_offsets(size_a, cl_k)[1] - 1
+    worlds = enum_mod.enumerate_worlds(problem, cl_k, max_worlds=max_worlds)
+    (_, sig_ids, pair_world, pair_sig,
+     w_num, w_den, w_const) = collect_signatures_dual(tag, worlds, half,
+                                                       2 * half)
+    plans = [(sid, length, _digits(io, length, size_a),
+              _digits(ia, length, size_a), ti)
+             for (ti, (io, ia, length)), sid in sig_ids.items()]
+    return program_from_arrays(tag, size_a, cl_k, w_num, w_den, w_const,
+                               pair_world, pair_sig, plans, dual=True)
+
+
 def program_from_arrays(tag: str, size_a: int, cl_k: int, w_num, w_den,
-                        w_const, pair_world, pair_sig, plans) -> DenseProgram:
+                        w_const, pair_world, pair_sig, plans,
+                        dual: bool = False) -> DenseProgram:
     """A :class:`DenseProgram` from its fields as numpy arrays and
-    ``plans`` as ``(sid, length, orig, adj)`` tuples, one a signature:
-    the JAX package's compiled program carried over as it is."""
+    ``plans`` as ``(sid, length, orig, adj)`` tuples, one a signature,
+    with the tape as a fifth item in a ``dual`` program's: the JAX
+    package's compiled program carried over as it is."""
     plans = tuple(SigPlan(sid=int(sid), length=int(length),
                           orig=tuple(int(x) for x in orig),
-                          adj=tuple(int(x) for x in adj))
-                  for sid, length, orig, adj in plans)
+                          adj=tuple(int(x) for x in adj),
+                          tape=int(tape[0]) if tape else 0)
+                  for sid, length, orig, adj, *tape in plans)
     _, pyr_total = pyramid_offsets(size_a, cl_k)
+    if dual:
+        pyr_total = 2 * (pyr_total - 1) + 1
     return DenseProgram(
         tag=tag, size_a=int(size_a), cl_k=int(cl_k),
         pyramid_size=pyr_total,
@@ -168,7 +208,7 @@ def program_from_arrays(tag: str, size_a: int, cl_k: int, w_num, w_den,
         w_const=np.asarray(w_const, dtype=np.float64),
         pair_world=np.asarray(pair_world, dtype=np.int32),
         pair_sig=np.asarray(pair_sig, dtype=np.int32),
-        plans=plans,
+        plans=plans, dual=bool(dual),
     )
 
 
@@ -209,10 +249,12 @@ def _group_plans(plans, a: int, k: int):
     by_key = defaultdict(list)
     for p in plans:
         ch = tuple(q for q in range(p.length) if p.orig[q] != p.adj[q])
-        by_key[(p.length, ch)].append(p)
+        # Dual-SPD plans also key on the tape: members of one group share
+        # its ratios and its dy half.
+        by_key[(p.tape, p.length, ch)].append(p)
 
     groups = []
-    for (l0, ch), members in by_key.items():
+    for (_, l0, ch), members in by_key.items():
         _, _, s0s = _sweep_meta(l0, ch, k)
         placed: list[dict] = []
         for p in members:
@@ -245,7 +287,9 @@ IDENT, EXTEND, SHIFT, RIGHT, RSHIFT, RSHIFT_RUN, EMIT, INTERIOR = range(8)
 ITEM_FIELDS = ("op", "start", "n", "dst", "src", "hi", "d", "lo", "span",
                "tab", "lev", "xn", "xd", "xlo", "kids", "seed",
                # multipliers of the item's divisors (`_magic`)
-               "m_lo", "m_d", "m_ne", "m_xn", "m_hx", "m_xlo", "m_a", "m_pw1")
+               "m_lo", "m_d", "m_ne", "m_xn", "m_hx", "m_xlo", "m_a", "m_pw1",
+               # the item's tape: its offset into p and dy, into the levels
+               "poff", "loff")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -270,6 +314,7 @@ class Step:
     kids: tuple = ()  # SHIFT, RSHIFT_RUN: source live indices of each i
     pairs: tuple = ()  # emission (orig, adj) run ranks; () emits nothing
     interior: tuple = ()  # INTERIOR: (rank, sid, sign) in member order
+    tape: int = 0  # dual-SPD programs: the tape whose p and dy it uses
 
     @property
     def n(self) -> int:
@@ -376,6 +421,7 @@ def _group_steps(l0: int, changed, members, a: int, k: int,
     m_l, m_r, _ = _sweep_meta(l0, changed, k)
     base = min(l0, k)
     sids = [m.sid for m in members]
+    tape = members[0].tape
     out: list[Step] = []
 
     def add(kind, lev, src, layout, kids=(), s0=None, seed=(),
@@ -391,7 +437,7 @@ def _group_steps(l0: int, changed, members, a: int, k: int,
             assert tuple(sorted({o for o, _ in pairs})) == ranks
         level = 0 if src < 0 else out[src - first_index].level + 1
         out.append(Step(kind, level, lev, src, seed, seed_size, hi,
-                        ranks, lo, span, kids, pairs))
+                        ranks, lo, span, kids, pairs, tape=tape))
         return first_index + len(out) - 1
 
     def seed(ranks, length):
@@ -428,7 +474,8 @@ def _group_steps(l0: int, changed, members, a: int, k: int,
                 ops.extend((_rank(m.adj[j:j + k], a), m.sid, 1)
                            for m in members)
         if ops:
-            out.append(Step(INTERIOR, 0, k, -1, interior=tuple(ops)))
+            out.append(Step(INTERIOR, 0, k, -1, interior=tuple(ops),
+                            tape=tape))
     if l0 <= k - 1:
         sd, sd_lay = seed([_rank(m.orig, a) for m in members], l0)
         cur, lay = -1, sd_lay
@@ -474,21 +521,24 @@ def _group_steps(l0: int, changed, members, a: int, k: int,
 
 
 def _emission_pattern(s: Step, a: int):
-    """What `_emissions_meet` reads of an emission: an INTERIOR item's
-    windows, or an EMIT step's run (its digit position and length, lo,
-    span and target ranks). An EMIT step's targets span every prefix and
-    suffix (its dense vector holds all A^k windows), so its windows are
-    exactly those whose run digits are a target rank."""
+    """What `_emissions_meet` reads of an emission: its tape, and an
+    INTERIOR item's windows or an EMIT step's run (its digit position and
+    length, lo, span and target ranks). An EMIT step's targets span every
+    prefix and suffix (its dense vector holds all A^k windows), so its
+    windows are exactly those whose run digits are a target rank."""
     if s.kind == INTERIOR:
-        return None, set(s.target_windows().tolist())
-    return (_ilog(s.lo, a), _ilog(s.span, a), s.lo, s.span), s.targets()
+        return s.tape, None, set(s.target_windows().tolist())
+    return (s.tape, (_ilog(s.lo, a), _ilog(s.span, a), s.lo, s.span),
+            s.targets())
 
 
 def _emissions_meet(x1, x2, a: int) -> bool:
     """Whether two emissions (`_emission_pattern`s) read and write a
-    common dy window: two EMIT steps where two of their target ranks
+    common dy window: two of one tape where two of their target ranks
     agree on the digits their runs share."""
-    (r1, t1), (r2, t2) = x1, x2
+    if x1[0] != x2[0]:
+        return False
+    (_, r1, t1), (_, r2, t2) = x1, x2
     if r1 is None and r2 is None:
         return bool(t1 & t2)
     if r1 is None or r2 is None:
@@ -539,8 +589,10 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
     """Every group's steps, their compact layouts and K5's items."""
     a, k = prog.size_a, prog.cl_k
     n = a**k
-    if n >= 2**31:
-        raise ValueError(f"A^k = {n} windows: K5 indexes them in 31 bits")
+    if prog.state_size >= 2**31:
+        raise ValueError(f"{prog.state_size} states: K5 indexes them in 31 "
+                         "bits")
+    low = low_size(prog) // (1 + prog.dual)  # a tape's block of the levels
     groups = _group_plans(prog.plans, a, k)
     steps: list[Step] = []
     for l0, changed, members in groups:
@@ -618,7 +670,8 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
             phase_ptr.append(len(items))
         row[1] = totals[p]
         totals[p] += row[2]
-        items.append(_with_magic(row, a, k))
+        tape = steps[i].tape
+        items.append(_with_magic(row, a, k) + [tape * n, tape * low])
     while len(phase_ptr) <= n_phases:
         phase_ptr.append(len(items))
     if any(x >= 2**31 for x in table):
@@ -630,7 +683,8 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
         item_step=np.asarray(item_step, dtype=np.int64),
         phase_ptr=np.asarray(phase_ptr, dtype=np.int64),
         table=np.asarray(table, dtype=np.int32),
-        work_size=work, max_phase=max(totals + [n]), num_groups=len(groups),
+        work_size=work, max_phase=max(totals + [prog.state_size]),
+        num_groups=len(groups),
     )
 
 
@@ -658,11 +712,13 @@ class DeviceProgram:
     table: torch.Tensor
 
 
-def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
-    """Plans ``prog``'s sweep and moves its tables to ``device``
-    (``cuda`` unless named)."""
-    device = config.get_device(device)
-    plan = sweep_plan(prog)
+def world_tables(prog, device: torch.device) -> dict:
+    """K4's tables of a program (`DenseProgram` or
+    `compile.CompiledProblem`) on ``device``: the worlds' chains, their
+    pyramid indices as the kernels read them
+    (`compile.two_pointer_index`), and each signature's pairs in CSR
+    order (pair order kept), each with its world's chain and w_const,
+    and as columns of world indices for the plain version."""
     order = np.argsort(prog.pair_sig, kind="stable")
     counts = np.bincount(prog.pair_sig, minlength=prog.num_signatures)
     csr_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
@@ -673,26 +729,40 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
     sig_pairs = np.full((max(counts.max(initial=0), 1), prog.num_signatures),
                         prog.num_worlds, dtype=np.int64)
     sig_pairs[rank, prog.pair_sig[order]] = csr_world
+    w_num, w_den = (two_pointer_index(x, prog.size_a, prog.cl_k, prog.dual)
+                    for x in (prog.w_num, prog.w_den))
 
     def dev(x, dtype):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=device)
 
     i32, f64 = torch.int32, config.DEFAULT_FLOAT
-    w_const = dev(prog.w_const, f64)
-    return DeviceProgram(
-        prog=prog, plan=plan, device=w_const.device,  # "cuda" -> "cuda:0"
-        w_num=dev(prog.w_num, i32), w_den=dev(prog.w_den, i32),
-        w_const=w_const,
-        csr_ptr=dev(csr_ptr, i32),
-        pair_num=dev(prog.w_num[csr_world], i32),
-        pair_den=dev(prog.w_den[csr_world], i32),
+    return dict(
+        w_num=dev(w_num, i32), w_den=dev(w_den, i32),
+        w_const=dev(prog.w_const, f64), csr_ptr=dev(csr_ptr, i32),
+        pair_num=dev(w_num[csr_world], i32),
+        pair_den=dev(w_den[csr_world], i32),
         pair_const=dev(prog.w_const[csr_world], f64),
-        sig_pairs=dev(sig_pairs, torch.int64),
+        sig_pairs=dev(sig_pairs, torch.int64))
+
+
+def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
+    """Plans ``prog``'s sweep and moves its tables to ``device``
+    (``cuda`` unless named)."""
+    device = config.get_device(device)
+    plan = sweep_plan(prog)
+    worlds = world_tables(prog, device)
+
+    def dev(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    return DeviceProgram(
+        prog=prog, plan=plan,
+        device=worlds["w_const"].device,  # "cuda" -> "cuda:0"
         items=dev(plan.items, torch.int64),
         phase_ptr=dev(plan.phase_ptr, torch.int64),
-        table=dev(plan.table, i32),
-    )
+        table=dev(plan.table, torch.int32), **worlds)
 
 
 def _digit_sum_last(x: torch.Tensor, a: int) -> torch.Tensor:
@@ -745,17 +815,21 @@ def pyramid_plain(p: torch.Tensor, a: int, k: int) -> torch.Tensor:
 pyramid_plain.calls = 0
 
 
-def pyramid(p: torch.Tensor, a: int, k: int) -> torch.Tensor:
+def pyramid(p: torch.Tensor, a: int, k: int,
+            out: torch.Tensor | None = None) -> torch.Tensor:
     """K3: the pyramid below a float64 SPD vector ``p`` [A^k] (see
-    `pyramid_plain`); the kernel for a CUDA tensor (`pyramid_launches`),
-    the plain version for a CPU one."""
+    `pyramid_plain`), into ``out`` (a new tensor when None); the kernel
+    for a CUDA tensor (`pyramid_launches`), the plain version for a CPU
+    one."""
+    size = pyramid_offsets(a, k)[1] - a**k
     if not cuda.on_card(p, "pyramid"):
-        return pyramid_plain(p, a, k)
+        low = pyramid_plain(p, a, k)
+        return low if out is None else out.copy_(low)
     if p.dtype != torch.float64 or p.shape != (a**k,):
         raise TypeError(f"p must be a float64 [{a**k}] tensor")
     p = p.contiguous()
-    low = torch.empty(pyramid_offsets(a, k)[1] - a**k, dtype=p.dtype,
-                      device=p.device)
+    low = (torch.empty(size, dtype=p.dtype, device=p.device) if out is None
+           else _checked_out(out, size, p.device))
     lib = cuda.load()
     with torch.cuda.device(p.device):
         rc = lib.ckpe_pyramid(p.data_ptr(), a, k, pyramid_tile_digits(a, k),
@@ -766,6 +840,29 @@ def pyramid(p: torch.Tensor, a: int, k: int) -> torch.Tensor:
 
 
 pyramid.launches = 0
+
+
+def low_size(prog) -> int:
+    """Doubles of the levels below p that a program's kernels read: K3's
+    output, one block a tape for a dual program."""
+    a, k = prog.size_a, prog.cl_k
+    return (1 + prog.dual) * (pyramid_offsets(a, k)[1] - a**k)
+
+
+def pyramids(prog, p: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    """K3 (its plain version when ``plain``) on each tape of the state
+    ``p``: the levels below it, one block a tape (`low_size`)."""
+    a, k, n = prog.size_a, prog.cl_k, prog.size_a**prog.cl_k
+    if not prog.dual:
+        return pyramid_plain(p, a, k) if plain else pyramid(p, a, k)
+    if plain:
+        return torch.cat([pyramid_plain(p[:n], a, k),
+                          pyramid_plain(p[n:], a, k)])
+    low = torch.empty(low_size(prog), dtype=p.dtype, device=p.device)
+    half = low.numel() // 2
+    for t in range(2):
+        pyramid(p[t * n:(t + 1) * n], a, k, out=low[t * half:(t + 1) * half])
+    return low
 
 
 def levels(p: torch.Tensor, low: torch.Tensor, a: int, k: int) -> list:
@@ -804,7 +901,7 @@ def signature_weights_plain(dp: DeviceProgram, p: torch.Tensor,
     for c in range(1, g.shape[1]):
         prod = prod * g[:, c]
     wv = torch.cat([dp.w_const * prod, prod.new_zeros(1)])
-    s = torch.zeros(dp.prog.num_signatures, dtype=p.dtype, device=p.device)
+    s = torch.zeros(dp.sig_pairs.shape[1], dtype=p.dtype, device=p.device)
     for col in dp.sig_pairs:
         s = s + wv[col]
     return s
@@ -815,11 +912,11 @@ signature_weights_plain.calls = 0
 
 def _check_pyramid(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor):
     prog = dp.prog
-    n = prog.state_size
+    n, m = prog.state_size, low_size(prog)
     if (p.dtype != torch.float64 or low.dtype != torch.float64
-            or p.shape != (n,) or low.shape != (prog.pyramid_size - n,)):
+            or p.shape != (n,) or low.shape != (m,)):
         raise TypeError(f"p must be a float64 [{n}] tensor and low K3's "
-                        f"float64 [{prog.pyramid_size - n}] output")
+                        f"float64 [{m}] output")
     if p.device != dp.device or low.device != dp.device:
         raise ValueError(f"p on {p.device}, low on {low.device}, the "
                          f"program on {dp.device}")
@@ -889,14 +986,19 @@ def named_tables(p, low, a, k) -> dict:
 def sweep_plain(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
                 s: torch.Tensor, out: torch.Tensor | None = None):
     """Plain version of K5: every group's dense sweep into ``out`` (a new
-    dy [A^k] when None), walking K5's items in their order, so each dy
-    window takes its terms in K5's (phase) order."""
+    dy when None), walking K5's items in their order, so each dy window
+    takes its terms in K5's (phase) order; a dual program's steps each
+    on their tape's p, levels and dy half."""
     sweep_plain.calls += 1
     a, k = dp.prog.size_a, dp.prog.cl_k
-    n = a**k
-    dy = (torch.zeros(n, dtype=s.dtype, device=s.device) if out is None
-          else _checked_out(out, n, s.device).zero_())
-    tables = named_tables(p, low, a, k)
+    n, n_state = a**k, dp.prog.state_size
+    dy = (torch.zeros(n_state, dtype=s.dtype, device=s.device)
+          if out is None else _checked_out(out, n_state, s.device).zero_())
+    tapes = 1 + dp.prog.dual
+    m = low.numel() // tapes
+    tables = [named_tables(p[t * n:(t + 1) * n], low[t * m:(t + 1) * m],
+                           a, k) for t in range(tapes)]
+    dys = [dy[t * n:(t + 1) * n] for t in range(tapes)]
     steps = dp.plan.steps
     # The vectors a later item still reads: the next steps and the emission.
     readers = collections.Counter(st.src for st in steps)
@@ -914,12 +1016,13 @@ def sweep_plain(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
                      dp.plan.item_step.tolist()):
         step = steps[i]
         if op == INTERIOR:
-            interior_plain(dy, s, step.interior)
+            interior_plain(dys[step.tape], s, step.interior)
         elif op == EMIT:
-            emit_plain(dy, read(i), step.lo, step.span, step.pairs)
+            emit_plain(dys[step.tape], read(i), step.lo, step.span,
+                       step.pairs)
         else:
             src = read(step.src) if step.src >= 0 else _seed_dense(step, s)
-            t = sweep_step_plain(step, src, tables, a)
+            t = sweep_step_plain(step, src, tables[step.tape], a)
             if readers[i]:
                 vecs[i] = t
     return dy
@@ -1009,21 +1112,22 @@ def dy_dt_dense(dp: DeviceProgram, p: torch.Tensor,
                 out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain dp/dt: K3's, K4's and K5's plain versions in turn, on ``p``'s
     device, into ``out`` as `sweep_plain`."""
-    a, k = dp.prog.size_a, dp.prog.cl_k
     p = p.reshape(-1)
-    low = pyramid_plain(p, a, k)
+    low = pyramids(dp.prog, p, plain=True)
     return sweep_plain(dp, p, low, signature_weights_plain(dp, p, low), out)
 
 
 def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
               out: torch.Tensor | None = None) -> torch.Tensor:
-    """dp/dt of a float64 ``p`` [A^k] into ``out`` (a new tensor when
-    None): on a card K3 and K5 (with K4 as its phase 0) through one C
-    call (`ckpe_dense_rhs`), on the CPU their plain versions."""
+    """dp/dt of a float64 ``p`` (the program's state) into ``out`` (a new
+    tensor when None): on a card K3 (once a tape) and K5 (with K4 as its
+    phase 0) through one C call (`ckpe_dense_rhs`), on the CPU their
+    plain versions."""
     a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
     if not cuda.on_card(p, "dense_rhs"):
         return dy_dt_dense(dp, p, out)
-    low = torch.empty(dp.prog.pyramid_size - n, dtype=torch.float64,
+    tapes = 1 + dp.prog.dual
+    low = torch.empty(low_size(dp.prog), dtype=torch.float64,
                       device=p.device)
     p, low = _check_pyramid(dp, p, low)
     dy = (torch.empty(n, dtype=torch.float64, device=p.device)
@@ -1031,11 +1135,11 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
     work, s = _work(dp, p), _weights_out(dp, None)
     lib = cuda.load()
     with torch.cuda.device(p.device):
-        rc = lib.ckpe_dense_rhs(pyramid_tile_digits(a, k),
+        rc = lib.ckpe_dense_rhs(tapes, pyramid_tile_digits(a, k),
                                 *_k5_args(dp, p, low, work, dy, s),
                                 cuda.stream(p))
     cuda.check(rc, "dense_rhs", lib)
-    pyramid.launches += pyramid_launches(a, k)
+    pyramid.launches += tapes * pyramid_launches(a, k)
     sweep.launches += 1
     return dy
 

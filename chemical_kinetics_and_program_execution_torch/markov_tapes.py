@@ -3,7 +3,8 @@
 Counterpart of the JAX package's `markov_tapes.py`: the analysis helpers,
 `get_dy_dt`, `ode_integrate`, `ode_integrate_ivp` and the import-time
 canary `_run_validation`. The RHS runs on ``device`` (``cuda`` unless
-named: the kernels K3-K5; on the CPU their plain versions).
+named: the kernels K3-K5, or K3 and K7 where `build_dy_dt` takes the
+tree engine; on the CPU their plain versions).
 ``backend="torch"`` solves on that device with the host-stepped DOP853
 (kernel K6), the counterpart of the JAX package's ``"jax"``;
 ``"scipy"`` stays the default, as there. The reference's per-world debug
@@ -89,6 +90,7 @@ def ode_integrate(*, tag, size_a, cl_k, p0, ts,
             rtol=kwargs.pop("rtol", 1.49012e-8),
             atol=kwargs.pop("atol", 1.49012e-8),
             chunk_size=kwargs.pop("chunk_size", None),
+            progress=kwargs.pop("progress", False),
             device=device,
         )
     if backend != "scipy":
@@ -102,21 +104,21 @@ def ode_integrate_ivp(*, tag, size_a, cl_k, p0, ts,
                       ivp_kwargs=types.MappingProxyType({}),
                       debug=False, backend="scipy", device=None):
     """`solve_ivp`-compatible solve reshaped to odeint layout;
-    ``backend="torch"`` takes ``method``, ``project``, ``return_info``
-    (and the unported ``chunk_size``/``checkpoint_path``) from
+    ``backend="torch"`` takes ``method``, ``chunk_size``, ``progress``,
+    ``checkpoint_path``, ``project`` and ``return_info`` from
     ``ivp_kwargs``."""
     p0 = _validate_p0(p0, size_a, cl_k)
     dy_dt = get_dy_dt(tag=tag, size_a=size_a, cl_k=cl_k, debug=debug,
                       device=device)
     kwargs = dict(ivp_kwargs)
     if backend == "torch":
-        kwargs.pop("progress", None)
         return solve(
             _device_rhs(dy_dt), p0, ts,
             rtol=kwargs.pop("rtol", 1e-3),
             atol=kwargs.pop("atol", 1e-6),
             method=kwargs.pop("method", None),
             chunk_size=kwargs.pop("chunk_size", None),
+            progress=kwargs.pop("progress", False),
             checkpoint_path=kwargs.pop("checkpoint_path", None),
             project=kwargs.pop("project", None),
             return_info=kwargs.pop("return_info", False),

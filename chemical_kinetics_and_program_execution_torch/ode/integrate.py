@@ -3,16 +3,21 @@
 Counterpart of the JAX package's `ode/integrate.py:solve` with its
 on-device ``"jax"`` backend, here ``"torch"``: the host-stepped DOP853
 with dense output (`dop853.odeint_dop853_dense`), the state on
-``device``. (`markov_tapes` keeps the reference's scipy solvers.)
+``device``, in one stepper call or in chunks, with checkpoints.
+(`markov_tapes` keeps the reference's scipy solvers.)
 
 Not ported yet: the ``dopri5`` stepper and the stiff ``kvaerno3`` (and
-the scipy stiff names that map onto it), the step-clamped
-``"dop853-step"``, chunked solves (``chunk_size``) and checkpoints
-(``checkpoint_path``); they raise NotImplementedError naming ROADMAP
-Queue 1 items 3 and 5.
+the scipy stiff names that map onto it) and the step-clamped
+``"dop853-step"``; they raise NotImplementedError naming ROADMAP Queue 1
+items 3 and 5.
 """
 
 from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
 
 import numpy as np
 import torch
@@ -20,15 +25,73 @@ import torch
 from ..utils import config
 from .dop853 import odeint_dop853_dense
 
-_UNPORTED = ("is not ported yet (ROADMAP Queue 1 items 3 and 5: chunking "
-             "and checkpoints, dopri5 and kvaerno3)")
+_UNPORTED = ("is not ported yet (ROADMAP Queue 1 items 3 and 5: dopri5 "
+             "and kvaerno3)")
 _NOT_PORTED = {"dopri5", "dop853-step", "kvaerno3", "lsoda", "radau",
                "bdf"}
 
 
+class _Checkpoint:
+    """A chunked solve's checkpoint: the rows in an ``.npy`` memmap at
+    ``path``, a JSON sidecar (``.meta.json``: a key of the solve, the
+    next sample, the step counts) and, with a projection, the full state
+    at the last finished chunk (``.y.npy``, checked by its sha1). Each
+    file is replaced whole, the meta last."""
+
+    def __init__(self, path, key, n_out, width, projected):
+        self.path, self.key, self.projected = path, key, projected
+        self.meta_path = path + ".meta.json"
+        self.y_path = path + ".y.npy"
+        self.mm, self.resume = None, None
+        if os.path.exists(path) and os.path.exists(self.meta_path):
+            with open(self.meta_path) as f:
+                meta = json.load(f)
+            y = None
+            if (meta.get("key") == key and projected
+                    and os.path.exists(self.y_path)):
+                cand = np.load(self.y_path)
+                if (meta.get("y_next") == meta.get("next")
+                        and hashlib.sha1(cand.tobytes()).hexdigest()
+                        == meta.get("y_sha1")):
+                    y = cand
+            if meta.get("key") == key and (not projected or y is not None):
+                self.mm = np.lib.format.open_memmap(path, mode="r+")
+                start = int(meta["next"])
+                self.resume = (start, int(meta.get("num_accepted", 0)),
+                               int(meta.get("num_rejected", 0)),
+                               y if projected else np.array(
+                                   self.mm[start - 1]))
+        if self.mm is None:
+            self.mm = np.lib.format.open_memmap(
+                path, mode="w+", dtype=np.float64, shape=(n_out, width))
+
+    def write(self, start, stop, rows, acc, rej, y):
+        self.mm[start:stop] = rows
+        self.mm.flush()
+        meta = {"key": self.key, "next": stop, "num_accepted": acc,
+                "num_rejected": rej}
+        if self.projected:
+            y_host = y.cpu().numpy()
+            meta["y_next"] = stop
+            meta["y_sha1"] = hashlib.sha1(y_host.tobytes()).hexdigest()
+            np.save(self.y_path + ".tmp", y_host)
+            os.replace(self.y_path + ".tmp.npy", self.y_path)
+        with open(self.meta_path + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(self.meta_path + ".tmp", self.meta_path)
+
+    def finish(self):
+        ys = np.array(self.mm)
+        del self.mm
+        for path in (self.path, self.meta_path, self.y_path):
+            if os.path.exists(path):
+                os.remove(path)
+        return ys
+
+
 def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
           max_steps=1_000_000, return_info=False, chunk_size=None,
-          checkpoint_path=None, project=None, device=None):
+          progress=False, checkpoint_path=None, project=None, device=None):
     """Integrates ``dy/dt = fn(y, t)`` sampling at ``ts``.
 
     Returns a numpy array ``[len(ts), n]`` like ``scipy.integrate.odeint``.
@@ -40,18 +103,30 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     such as "RK45" land there too, as in the JAX package), looser ones to
     dopri5, which is not ported.
 
+    ``chunk_size`` splits the sample grid into stepper calls of at most
+    that many samples: sample 0, then samples [1, 1 + c), [1 + c, 1 +
+    2c), ..., each call restarting the stepper from the state sampled at
+    its first time. These are the JAX package's chunks for its dense
+    stepper; it pads its last chunk to one static shape for XLA, which
+    the host-stepped solver has no need of. ``progress`` prints a line a
+    chunk.
+
+    ``checkpoint_path`` makes the solve resumable: finished chunks go
+    into an ``.npy`` memmap at that path with a JSON sidecar, and the
+    same solve called again resumes after the last finished chunk; the
+    files are removed when it completes.
+
     ``project`` maps sampled states ``[m, n]`` (a tensor on the device)
     to observables ``[m, n_obs]``; it is applied on the device as the
     samples are made, so the full state never leaves it, and the result
-    is ``[len(ts), n_obs]``; with ``return_info`` the final state rides
-    in ``info["y_final"]``. ``info`` also counts accepted and rejected
-    steps, RHS calls and the accepted steps that hold samples
-    (``num_sampled``: one `dense_eval` launch each on a card).
+    is ``[len(ts), n_obs]``; the full state sampled at ``ts[-1]`` rides
+    in ``info["y_final"]`` (with a checkpoint also in
+    ``<checkpoint_path>.y.npy``, which seeds a resume). ``info`` counts
+    accepted and rejected steps, RHS calls and the accepted steps that
+    hold samples (``num_sampled``: one `dense_eval` launch each on a
+    card); after a resume, RHS calls and sampled steps of this call
+    only.
     """
-    if chunk_size is not None:
-        raise NotImplementedError(f"chunk_size {_UNPORTED}")
-    if checkpoint_path is not None:
-        raise NotImplementedError(f"checkpoint_path {_UNPORTED}")
     ts = np.asarray(ts, dtype=np.float64)
     name = (method or "").lower()
     if not name:
@@ -59,28 +134,79 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     if name in _NOT_PORTED:
         raise NotImplementedError(f"method {name!r} {_UNPORTED}")
     dev = config.get_device(device)
-    y0 = torch.as_tensor(np.asarray(y0, dtype=np.float64).ravel(),
-                         device=dev)
-    sample_fn = project or (lambda s: s)
-    if len(ts) < 2:
-        out = sample_fn(y0[None])
+    y0_host = np.asarray(y0, dtype=np.float64).ravel()
+    y = torch.as_tensor(y0_host, device=dev)
+    n_out = len(ts)
+    last = {}
+
+    def sample_fn(block):
+        if project is None:
+            return block
+        last["y"] = block[-1].clone()  # the full state at the chunk's end
+        return project(block)
+
+    row0 = sample_fn(y[None])
+    if n_out < 2:
         info = {"num_accepted": 0, "num_rejected": 0, "num_rhs": 0,
                 "num_sampled": 0, "completed": True}
-    else:
-        out, stats = odeint_dop853_dense(fn_dy_dt, y0, ts, (rtol, atol),
-                                         max_steps=max_steps,
+        if project is not None:
+            info["y_final"] = y0_host
+        ys = row0.detach().cpu().numpy()
+        return (ys, info) if return_info else ys
+
+    chunk = n_out if not chunk_size else max(2, int(chunk_size))
+    ckpt, start, acc, rej = None, 0, 0, 0
+    if checkpoint_path:
+        key = hashlib.sha1(
+            ts.tobytes() + y0_host.tobytes()
+            + f"{rtol}:{atol}:{name}:{row0.shape[-1]}".encode()).hexdigest()
+        ckpt = _Checkpoint(checkpoint_path, key, n_out, row0.shape[-1],
+                           project is not None)
+        if ckpt.resume:
+            start, acc, rej, y_host = ckpt.resume
+            y = torch.as_tensor(y_host, device=dev)
+            if progress:
+                print(f"[ckpe.ode] resuming at sample {start}/{n_out} from "
+                      f"{checkpoint_path}", flush=True)
+    parts = []
+    if chunk < n_out and start == 0:
+        rows = row0.detach().cpu().numpy()
+        if ckpt:
+            ckpt.mm[0] = rows[0]
+        else:
+            parts.append(rows)
+        start = 1
+    rhs = sampled = 0
+    t_begin = time.time()
+    while start < n_out:
+        stop = min(start + chunk, n_out)
+        ts_chunk = ts[start:stop] if start == 0 else ts[start - 1:stop]
+        out, stats = odeint_dop853_dense(fn_dy_dt, y, ts_chunk,
+                                         (rtol, atol), max_steps=max_steps,
                                          sample_fn=sample_fn)
         if not stats.completed:
             raise RuntimeError(
                 f"ODE solve did not complete within max_steps={max_steps} "
-                f"(accepted={stats.num_accepted}, "
-                f"rejected={stats.num_rejected}).")
-        info = {"num_accepted": stats.num_accepted,
-                "num_rejected": stats.num_rejected,
-                "num_rhs": stats.num_rhs, "num_sampled": stats.num_sampled,
-                "completed": True}
-        y0 = stats.y_final
-    ys = out.detach().cpu().numpy()
+                f"(accepted={acc + stats.num_accepted}, "
+                f"rejected={rej + stats.num_rejected}).")
+        acc += stats.num_accepted
+        rej += stats.num_rejected
+        rhs += stats.num_rhs
+        sampled += stats.num_sampled
+        y = last["y"] if project is not None else out[-1]
+        rows = (out if start == 0 else out[1:]).detach().cpu().numpy()
+        if ckpt:
+            ckpt.write(start, stop, rows, acc, rej, y)
+        else:
+            parts.append(rows)
+        if progress:
+            print(f"[ckpe.ode] t={ts[stop - 1]:g}/{ts[-1]:g} "
+                  f"steps={acc}(+{rej} rej) {time.time() - t_begin:.0f}s",
+                  flush=True)
+        start = stop
+    ys = ckpt.finish() if ckpt else np.concatenate(parts)
+    info = {"num_accepted": acc, "num_rejected": rej, "num_rhs": rhs,
+            "num_sampled": sampled, "completed": True}
     if project is not None:
-        info["y_final"] = y0.cpu().numpy()
+        info["y_final"] = y.cpu().numpy()
     return (ys, info) if return_info else ys

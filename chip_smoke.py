@@ -11,9 +11,11 @@ Phases (each prints its wall time; every check raises on failure):
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
-2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2) and
-   one for K1's generated unit of each machine, each with its seconds
-   and its `-Xptxas -v` register, shared-memory and spill lines;
+2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2-K8)
+   and one for K1's generated unit of each machine, and beside them the
+   `g++` call of the C++ expander (`csrc/expander.cc`, a host library),
+   each with its seconds and the `-Xptxas -v` register, shared-memory
+   and spill lines;
 3. main path: `run_ensemble` at B=16384, L=4096, E=256 on
    ex5-msrtf-machine for 2,000 rounds, then `window_counts` at cl_k=3;
    K1 must launch exactly 2,000 times and the plain round never, K2
@@ -67,7 +69,28 @@ Phases (each prints its wall time; every check raises on failure):
    into a row at a stride of n and copied in; each kernel's time beside
    its bound, its plain version, the library call where one exists, and
    the host's cost a launch; `dense_eval` also at each cl_k 5 solve's
-   mean samples a step.
+   mean samples a step;
+7. the gather engine, dual SPDs and chunked solves: ex4 at cl_k 5
+   compiled through `compile_problem` (the C++ expander; its seconds,
+   events, tree nodes and table bytes); dp/dt by K7 (the prefix tree)
+   and K8 (the padded chains) equal to their plain versions on the card
+   bit for bit and within rtol 1e-12, atol 1e-14 of the dense RHS
+   (K3-K5), on p0 and on a random SPD with p[0] = -1e-13; their
+   launches an RHS, counted, no plain version called; each kernel's
+   time beside its byte bound and its plain version, the scatter stage
+   alone against `index_add_` of the same signed terms, the RHS against
+   the dense one; the main paths: ex4 scenario a solved at cl_k 5
+   through `build_dy_dt(engine="tree")` and through the chain engine,
+   each within 2e-6 rel of the oracle, with its steps and its gap to
+   phase 6's dense solve; the dense dual solves of
+   `examples/ex3_dual_tape.py` (both soups) and
+   `examples/ex4_dual_fuel.py` (pf 0.04) within 1e-10 abs of their
+   committed trajectories (K3 launched once a tape an RHS); at ex4 cl_k
+   5 (2 x 59,049 states) the dense dual RHS equal to the tree dual RHS
+   and, at p_prog = p_data, its halves' sum to the shared RHS; ex4
+   scenario b at cl_k 5 in chunks of 200 samples with a checkpoint
+   under chiprun_out/ equal to the one-call solve (rtol 1e-9, atol
+   1e-11), the checkpoint's files removed.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -76,26 +99,36 @@ The line before the last is the `kernels` JSON object; the last line is
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from chemical_kinetics_and_program_execution_torch import cuda, markov_tapes
+from chemical_kinetics_and_program_execution_torch import engine as tengine
+from chemical_kinetics_and_program_execution_torch.engine import (
+    compile as tcompile,
+)
 from chemical_kinetics_and_program_execution_torch.engine import (
     dense as tdense,
 )
+from chemical_kinetics_and_program_execution_torch.engine import native
+from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
 from chemical_kinetics_and_program_execution_torch.engine import k1_source
 from chemical_kinetics_and_program_execution_torch.models.initial_states import (  # noqa: E501
     chemical_turing_p0,
+    copolymerization_p0,
 )
 from chemical_kinetics_and_program_execution_torch.ode import dop853
+from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
 from chemical_kinetics_and_program_execution_torch.ops.observables import (
     seq_prob_projector,
 )
@@ -887,6 +920,494 @@ def exact_closure(dev, kernels):
     kernels["K5"]["rhs_ms"] = rhs
     kernels["K5"]["solves"] = solves
     kernels["K5"]["rhs_max_abs_err"] = max_err["RHS"]
+    return finals
+
+
+# --- Phase 7: the gather engine, dual SPDs, chunked solves ------------------
+
+GATHER_CL_K = 5
+GATHER_KERNELS = {
+    "K7": ("K7 tree_rhs", SRC + "gather_rhs.cu",
+           "the JAX package's engine/rhs.py:135 dy_dt_from_tables, :235 "
+           "make_dual_dy_dt (XLA)"),
+    "K8": ("K8 chain_rhs", SRC + "gather_rhs.cu",
+           "the JAX package's engine/rhs.py:216 dy_dt_from_chain_tables "
+           "(XLA)"),
+}
+GATHER_WRAPPERS = {"K7": trhs.tree_rhs, "K8": trhs.chain_rhs}
+GATHER_PLAIN = [trhs.tree_values_plain, trhs.chain_values_plain,
+                trhs.scatter_plain]
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+# The dual examples' committed trajectories (examples/ex3_dual_tape.py,
+# examples/ex4_dual_fuel.py), read and never written.
+DUAL_ABS = 1e-10
+
+
+def ex3_dual_y0(p_a_soup):
+    return np.concatenate([copolymerization_p0(5, p_a=p_a_soup).ravel(),
+                           copolymerization_p0(5, p_a=0.02).ravel()])
+
+
+def ex4_dual_y0():
+    p_fuel = chemical_turing_p0(4, tape_fraction=0.0, powered_fraction=0.04)
+    p_tape = chemical_turing_p0(4, tape_fraction=1.0, cursor_fraction=0.001,
+                                random01=True)
+    return np.concatenate([p_fuel.ravel(), p_tape.ravel()])
+
+
+# (label, rule, cl_k, y0, atol, artifact): the settings of
+# examples/ex3_dual_tape.py:33-59 (both soups) and
+# examples/ex4_dual_fuel.py:30-53 at pf 0.04 (rtol 1e-9, DOP853).
+DUAL_RUNS = [
+    ("ex3 dual (rich)", "ex3-copolymerization", 5,
+     lambda: ex3_dual_y0(0.06), 1e-11, "ex3_dual_tape_rich.npz"),
+    ("ex3 dual (same)", "ex3-copolymerization", 5,
+     lambda: ex3_dual_y0(0.02), 1e-11, "ex3_dual_tape_same.npz"),
+    ("ex4 dual fuel (pf 0.04)", EX4, 4, ex4_dual_y0, 1e-12,
+     "ex4_dual_fuel_pf0.04.npz"),
+]
+CHUNK, CHUNK_RTOL, CHUNK_ATOL = 200, 1e-9, 1e-11
+
+
+def zero_gather_counts():
+    zero_exact_counts()
+    for f in (*GATHER_WRAPPERS.values(), trhs.scatter, *GATHER_PLAIN):
+        if hasattr(f, "launches"):
+            f.launches = 0
+        else:
+            f.calls = 0
+
+
+def gather_counts():
+    """The launches of K3, K5, K6, K7 and K8 since `zero_gather_counts`,
+    and the plain versions' calls."""
+    counts = exact_launches()
+    counts.update({k: f.launches for k, f in GATHER_WRAPPERS.items()})
+    plain = sum(f.calls for f in EXACT_PLAIN + GATHER_PLAIN)
+    return counts, plain
+
+
+def nbytes(*tensors):
+    return sum(x.element_size() * x.numel() for x in tensors
+               if x is not None)
+
+
+def gather_bytes(t):
+    """Least bytes of K7 or K8 (``t``'s kind) for one RHS: every table
+    read once (the signature pairs, the tree's nodes or the chains, the
+    entries, the targets' CSR), p and the levels read once, the
+    signature weights and dy written once; and of the scatter stage
+    alone (the entries, the CSR, the values and weights read, dy
+    written)."""
+    n, n_sig = t.state_size, t.compiled.num_signatures
+    io = 8 * n + 8 * tdense.low_size(t.compiled) + 8 * n_sig + 8 * n
+    worlds = nbytes(t.pair_num, t.pair_den, t.pair_const, t.csr_ptr)
+    entries = nbytes(t.ent_val, t.ent_sig, t.tgt_ptr)
+    full = io + worlds + nbytes(t.num, t.den, t.parent) + entries
+    scatter = entries + 8 * t.num_values + 8 * n_sig + 8 * n
+    return full, scatter
+
+
+def entry_targets(t):
+    """Each scatter entry's target, as int64 on ``t``'s device."""
+    ptr = t.tgt_ptr.long()
+    return torch.repeat_interleave(
+        torch.arange(t.state_size, device=ptr.device), ptr[1:] - ptr[:-1])
+
+
+def signed_terms(t, vals, s):
+    g = t.ent_sig.long()
+    neg = g < 0
+    v = vals[t.ent_val.long()] * s[torch.where(neg, ~g, g)]
+    return torch.where(neg, -v, v)
+
+
+def random_spd_guarded(gen, n, dev):
+    """A Dirichlet(1) SPD with p[0] = -1e-13 (the noise guard's regime,
+    `tests/test_engine.py:136`)."""
+    p = device_spd(gen, n, dev)
+    p[0] = -1e-13
+    return p
+
+
+def solve_obs(fn, p0, dev, **kw):
+    """ex4's eight observables solved from ``p0`` by ``fn`` (an RHS taking
+    ``out=``) to t=2000 on the card; (observables at t=2000, info,
+    seconds)."""
+    def rhs(y, t, out=None):
+        return fn(y, out)
+
+    rhs.takes_out = True
+    proj = seq_prob_projector(list(SEQS.values()), 9, GATHER_CL_K)
+    t0 = time.perf_counter()
+    obs, info = solve(rhs, p0, np.linspace(0.0, T_END, N_SAMPLES),
+                      rtol=SOLVE_TOL, atol=SOLVE_TOL, method="dop853",
+                      project=proj, return_info=True, device=dev, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if obs.shape != (N_SAMPLES, len(SEQS)) or not np.isfinite(obs).all():
+        raise AssertionError(f"observables {obs.shape}")
+    return dict(zip(SEQS, obs[-1].tolist())), info, seconds
+
+
+def gather_rhs_checks(dev, gen, fns, dense_fn, compiled, max_err):
+    """K7 and K8 at ex4 cl_k 5 against their plain versions on the card
+    (bit for bit) and against the dense RHS (K3-K5), on p0 and on a
+    random SPD with p[0] = -1e-13; their launches an RHS, counted, with
+    no plain call; returns the inputs the timings use."""
+    k = GATHER_CL_K
+    p0 = torch.as_tensor(chemical_turing_p0(k, powered_fraction=0.04)
+                         .ravel(), device=dev)
+    inputs = (("chemical_turing_p0", p0),
+              ("random, p[0] = -1e-13",
+               random_spd_guarded(gen, compiled.state_size, dev)))
+    for name, p in inputs:
+        low = tdense.pyramids(compiled, p)
+        want_dense = dense_fn(p)
+        for key, fn in fns.items():
+            t = fn.tables
+            got = GATHER_WRAPPERS[key](t, p, low)
+            plain = trhs.gather_plain(t, p)
+            torch.cuda.synchronize()
+            err = float((got - plain).abs().max())
+            if not torch.equal(got, plain):
+                raise AssertionError(f"{key} on {name}: != plain, max |diff| "
+                                     f"{err}")
+            max_err[key] = max(max_err[key], err)
+            diff = float((got - want_dense).abs().max())
+            if not torch.allclose(got, want_dense, rtol=RHS_RTOL,
+                                  atol=RHS_ATOL):
+                raise AssertionError(f"{key} on {name}: != dense RHS, max "
+                                     f"|diff| {diff}")
+            max_err[key + " vs dense"] = max(max_err[key + " vs dense"], diff)
+    say(f"ex4 cl_k {k}: K7 and K8 == their plain versions on the card, bit "
+        f"for bit, and within rtol {RHS_RTOL}, atol {RHS_ATOL} of the dense "
+        f"RHS (K3-K5) on p0 and a random SPD with p[0] = -1e-13 (max |diff| "
+        f"from dense: K7 {max_err['K7 vs dense']:.3e}, K8 "
+        f"{max_err['K8 vs dense']:.3e})")
+    per_rhs = {}
+    for key, fn in fns.items():
+        zero_gather_counts()
+        fn(p0)
+        torch.cuda.synchronize()
+        counts, plain = gather_counts()
+        want = fn.tables.launches
+        if (counts[key] != want or plain
+                or counts["K3"] != tdense.pyramid_launches(9, k)):
+            raise AssertionError(f"{key}: launches an RHS {counts}, plain "
+                                 f"calls {plain}; {want} planned")
+        per_rhs[key] = {"K3": counts["K3"], key: counts[key]}
+    say(f"launches an RHS (counted; plain calls 0): tree {per_rhs['K7']}, "
+        f"chains {per_rhs['K8']}")
+    return p0, per_rhs
+
+
+def time_gather(dev, fns, dense_fn, compiled, p):
+    """Each of K7 and K8 on ``p``: the kernel, its plain version, its
+    byte bound, the scatter stage alone against `index_add_` of the same
+    signed terms (checked against it), and the RHS (K3 and the kernel)
+    against the dense RHS, on the card and as the host paces it."""
+    low = tdense.pyramids(compiled, p)
+    out = {}
+    for key, fn in fns.items():
+        t = fn.tables
+        kern = GATHER_WRAPPERS[key]
+        values = (trhs.tree_values_plain if t.kind == "tree"
+                  else trhs.chain_values_plain)
+        s = tdense.signature_weights_plain(t, p, low)
+        vals = values(t, p, low)
+        tgt = entry_targets(t)
+        terms = signed_terms(t, vals, s)
+        n = t.state_size
+
+        def library():
+            return torch.zeros(n, dtype=torch.float64,
+                               device=dev).index_add_(0, tgt, terms)
+
+        lib_dy = library()
+        sc_dy = trhs.scatter(t, vals, s)
+        torch.cuda.synchronize()
+        if not torch.allclose(lib_dy, sc_dy, rtol=RHS_RTOL, atol=RHS_ATOL):
+            raise AssertionError(f"{key}: index_add_ yardstick != scatter")
+        full_b, scatter_b = gather_bytes(t)
+        host = []
+        out[key] = {
+            "ms": cuda_ms(lambda: kern(t, p, low), 20, warmup=2, host=host),
+            "plain_ms": cuda_ms(lambda: trhs.scatter_plain(
+                t, values(t, p, low), tdense.signature_weights_plain(
+                    t, p, low)), 2, warmup=0),
+            "bound_ms": full_b / HBM_BYTES_PER_S * 1e3,
+            "library_ms": cuda_ms(library, 20, warmup=2),
+            "scatter_ms": cuda_ms(lambda: trhs.scatter(t, vals, s), 20,
+                                  warmup=2),
+            "scatter_bound_ms": scatter_b / HBM_BYTES_PER_S * 1e3,
+            "launches_per_call": t.launches,
+            "host_us_per_launch": host[0] * 1e3 / t.launches,
+            "rhs_ms": cuda_ms(lambda: fn(p), 20, warmup=2),
+            "rhs_paced_ms": wall_ms(lambda: fn(p), 20),
+            "bytes": full_b, "values": t.num_values,
+            "entries": t.ent_val.numel()}
+        del vals, tgt, terms, lib_dy, sc_dy
+    out["dense_rhs_ms"] = cuda_ms(lambda: dense_fn(p), 20, warmup=2)
+    out["dense_rhs_paced_ms"] = wall_ms(lambda: dense_fn(p), 20)
+    return out
+
+
+def dual_checks(dev, gen, dense_fn):
+    """The dual SPD programs: the examples' dense dual solves against
+    their committed trajectories (each solve's counts zeroed before and
+    read after: K3 twice an RHS, K5, K6 launched, no plain call), and at
+    ex4 cl_k 5 the dense dual RHS against the tree dual RHS and, at
+    p_prog = p_data, the halves' sum against the shared RHS."""
+    out, progs = {}, {}
+    for label, tag, k, make_y0, atol, artifact in DUAL_RUNS:
+        y0 = make_y0()
+        with np.load(EXAMPLES / artifact) as f:
+            want, ts = f["ode_ys"], f["ts"]
+        if (tag, k) not in progs:
+            progs[tag, k] = tdense.make_dense_dy_dt(
+                tdense.compile_dense_dual(tag, k), device=dev)
+        fn = progs[tag, k]
+
+        def rhs(y, t, out=None, fn=fn):
+            return fn(y, out)
+
+        rhs.takes_out = True
+        zero_gather_counts()
+        t0 = time.perf_counter()
+        got, info = solve(rhs, y0, ts, rtol=1e-9, atol=atol,
+                          method="dop853", return_info=True, device=dev)
+        seconds = time.perf_counter() - t0
+        counts, plain = gather_counts()
+        err = float(np.abs(got - want).max())
+        if got.shape != want.shape or not err <= DUAL_ABS:
+            raise AssertionError(f"{label}: {got.shape} against "
+                                 f"{want.shape}, max |diff| {err}")
+        if (plain or counts["K5"] != info["num_rhs"]
+                or counts["K3"] != 2 * info["num_rhs"] * tdense.
+                pyramid_launches(fn.device_program.prog.size_a, k)):
+            raise AssertionError(f"{label}: launches {counts}, RHS calls "
+                                 f"{info['num_rhs']}, plain calls {plain}")
+        out[label] = {"seconds": seconds, "max_abs_err": err,
+                      "accepted": info["num_accepted"],
+                      "rejected": info["num_rejected"],
+                      "rhs": info["num_rhs"], "launches": counts}
+        say(f"{label}, cl_k {k} ({2 * fn.device_program.prog.size_a**k} "
+            f"states): {seconds:.2f} s, {info['num_accepted']} accepted, "
+            f"{info['num_rejected']} rejected, {info['num_rhs']} RHS; max "
+            f"|diff| from examples/{artifact} {err:.3e} (bound {DUAL_ABS}); "
+            f"launches {counts}, plain calls 0")
+
+    # ex4 at cl_k 5: the dense dual RHS against the tree dual RHS.
+    k = GATHER_CL_K
+    t0 = time.perf_counter()
+    dual_c = tcompile.compile_problem_dual(EX4, k)
+    compile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree_dual = trhs.make_dual_dy_dt(dual_c, device=dev)
+    tables_s = time.perf_counter() - t0
+    dense_dual = tdense.make_dense_dy_dt(tdense.compile_dense_dual(EX4, k),
+                                         device=dev)
+    n = 9**k
+    pp = random_spd_guarded(gen, n, dev)
+    pd = device_spd(gen, n, dev, concentrated=True)
+    dense_dy = dense_dual(torch.cat([pp, pd]))
+    tree_dy = torch.cat(tree_dual(pp, pd))
+    diff = float((dense_dy - tree_dy).abs().max())
+    if not torch.allclose(dense_dy, tree_dy, rtol=RHS_RTOL, atol=RHS_ATOL):
+        raise AssertionError(f"dual ex4 cl_k {k}: dense != tree, {diff}")
+    eq = dense_dual(torch.cat([pp, pp]))
+    shared = dense_fn(pp)
+    sum_diff = float((eq[:n] + eq[n:] - shared).abs().max())
+    if not torch.allclose(eq[:n] + eq[n:], shared, rtol=RHS_RTOL,
+                          atol=RHS_ATOL):
+        raise AssertionError(f"dual ex4 cl_k {k}: halves != shared, "
+                             f"{sum_diff}")
+    zero_gather_counts()
+    dense_dual(torch.cat([pp, pd]))
+    tree_dual(pp, pd)
+    torch.cuda.synchronize()
+    counts, plain = gather_counts()
+    say(f"dual ex4 cl_k {k} (2 x {n} states): compile_problem_dual "
+        f"{compile_s:.2f} s ({dual_c.num_events} events), tree tables "
+        f"{tables_s:.2f} s ({tree_dual.state_fn.tables.num_values} nodes); "
+        f"dense dual == tree dual (max |diff| {diff:.3e}); at p_prog = "
+        f"p_data the halves sum to the shared RHS (max |diff| "
+        f"{sum_diff:.3e}); one RHS each: launches {counts} (K3 once a tape "
+        "an RHS), plain calls 0")
+    out["ex4 cl_k 5 dense vs tree"] = {"max_abs_diff": diff,
+                                       "halves_vs_shared": sum_diff,
+                                       "launches": counts,
+                                       "compile_s": compile_s,
+                                       "tables_s": tables_s}
+    if plain:
+        raise AssertionError("a plain version ran on the dual path")
+    return out
+
+
+def chunk_checks(dev):
+    """ex4 scenario b at cl_k 5 through `markov_tapes.ode_integrate_ivp`
+    in chunks of 200 samples with a checkpoint under chiprun_out/,
+    against the same solve in one call; the checkpoint's files gone
+    after."""
+    k = GATHER_CL_K
+    p0 = chemical_turing_p0(k, powered_fraction=0.01).ravel()
+    ts = np.linspace(0.0, T_END, N_SAMPLES)
+    ckpt_dir = Path("chiprun_out") / "checkpoints"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    ckpt = str(ckpt_dir / "ex4_b_k5.npy")
+    kw = dict(rtol=SOLVE_TOL, atol=SOLVE_TOL, method="DOP853",
+              return_info=True)
+    args = dict(tag=EX4, size_a=9, cl_k=k, p0=p0, ts=ts, backend="torch",
+                device=dev)
+    t0 = time.perf_counter()
+    full, info_full = markov_tapes.ode_integrate_ivp(**args, ivp_kwargs=kw)
+    full_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, info = markov_tapes.ode_integrate_ivp(
+        **args, ivp_kwargs=dict(kw, chunk_size=CHUNK, checkpoint_path=ckpt))
+    chunk_s = time.perf_counter() - t0
+    left = sorted(os.listdir(ckpt_dir))
+    err = float(np.abs(got - full).max())
+    if got.shape != full.shape or not np.allclose(got, full,
+                                                  rtol=CHUNK_RTOL,
+                                                  atol=CHUNK_ATOL):
+        raise AssertionError(f"chunked != unchunked: max |diff| {err}")
+    if left:
+        raise AssertionError(f"checkpoint files left: {left}")
+    ckpt_dir.rmdir()
+    rel = float(np.max(np.abs(got - full) / np.maximum(np.abs(full),
+                                                         1e-300)))
+    say(f"ex4 b cl_k {k}, chunks of {CHUNK} samples with a checkpoint: "
+        f"{chunk_s:.2f} s, {info['num_accepted']} accepted, "
+        f"{info['num_rejected']} rejected; one call {full_s:.2f} s, "
+        f"{info_full['num_accepted']} accepted; max |diff| {err:.3e} (within "
+        f"rtol {CHUNK_RTOL}, atol {CHUNK_ATOL}; largest rel {rel:.3e}); "
+        "checkpoint files removed")
+    return {"seconds": chunk_s, "unchunked_seconds": full_s,
+            "accepted": info["num_accepted"],
+            "unchunked_accepted": info_full["num_accepted"],
+            "max_abs_diff": err}
+
+
+def gather_phase(dev, kernels, dense_finals):
+    """Phase 7; adds K7 and K8 to ``kernels``."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    k = GATHER_CL_K
+    lib = cuda.load()
+    say("K7, K8 entry points in the library built in phase 2: "
+        + ", ".join(x for x in ("ckpe_tree_rhs", "ckpe_chain_rhs",
+                                "ckpe_gather_scatter") if hasattr(lib, x)))
+    t0 = time.perf_counter()
+    compiled = tcompile.compile_problem(EX4, k)
+    compile_s = time.perf_counter() - t0
+    host_bytes = sum(getattr(compiled, f).nbytes
+                     for f in tcompile._ARRAY_FIELDS)
+    t0 = time.perf_counter()
+    tree_fn = trhs.make_dy_dt(compiled, device=dev)
+    tree_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chain_fn = trhs.make_chain_dy_dt(compiled, device=dev)
+    chain_s = time.perf_counter() - t0
+    tt, ct = tree_fn.tables, chain_fn.tables
+    dev_bytes = {key: nbytes(t.num, t.den, t.parent, t.ent_val, t.ent_sig,
+                             t.tgt_ptr) for key, t in (("tree", tt),
+                                                       ("chains", ct))}
+    say(f"ex4 cl_k {k} through compile_problem (the C++ expander): "
+        f"{compile_s:.2f} s, {compiled.num_worlds} worlds, "
+        f"{compiled.num_signatures} signatures, {compiled.num_events} events "
+        f"(chains up to {compiled.e_num.shape[1]}), {len(compiled.ev_idx)} "
+        f"scatter entries, tables {host_bytes / 1e6:.1f} MB; tree tables "
+        f"{tree_s:.2f} s: {tt.num_values} nodes in {tt.num_levels} levels, "
+        f"{dev_bytes['tree'] / 1e6:.1f} MB on the card; chain tables "
+        f"{chain_s:.2f} s, {dev_bytes['chains'] / 1e6:.1f} MB")
+    dense_fn = tdense.make_dense_dy_dt(tdense.compile_dense(EX4, k),
+                                       device=dev)
+    fns = {"K7": tree_fn, "K8": chain_fn}
+    max_err = {"K7": 0.0, "K8": 0.0, "K7 vs dense": 0.0, "K8 vs dense": 0.0}
+    p0, per_rhs = gather_rhs_checks(dev, gen, fns, dense_fn, compiled,
+                                    max_err)
+    times = time_gather(dev, fns, dense_fn, compiled, p0)
+    for key in fns:
+        t = times[key]
+        say(f"{key} cl_k {k}: {t['ms'] * 1e3:.1f} us a call on the card "
+            f"({t['launches_per_call']} launches) against a bound of "
+            f"{t['bound_ms'] * 1e3:.1f} us ({t['bytes'] / 1e6:.1f} MB); "
+            f"plain {t['plain_ms'] * 1e3:.1f} us; scatter alone "
+            f"{t['scatter_ms'] * 1e3:.1f} us against a bound of "
+            f"{t['scatter_bound_ms'] * 1e3:.1f} us and index_add_ of the "
+            f"same signed terms {t['library_ms'] * 1e3:.1f} us; the RHS "
+            f"(K3 + {key}) {t['rhs_ms'] * 1e3:.1f} us on the card, "
+            f"{t['rhs_paced_ms'] * 1e3:.1f} as paced; host "
+            f"{t['host_us_per_launch']:.2f} us a launch")
+    say(f"dense RHS (K3-K5) on the same p: {times['dense_rhs_ms'] * 1e3:.1f}"
+        f" us on the card, {times['dense_rhs_paced_ms'] * 1e3:.1f} as paced")
+
+    # The main paths: ex4 scenario a solved through the tree engine
+    # (build_dy_dt(engine="tree")) and through the chain engine.
+    solves, main_launches = {}, {}
+    p0_host = chemical_turing_p0(k, powered_fraction=0.04).ravel()
+    t0 = time.perf_counter()
+    fn, prog = tengine.build_dy_dt(EX4, k, engine="tree", device=dev)
+    build_s = time.perf_counter() - t0
+    for key, label, f in (("K7", "tree", fn), ("K8", "chains", chain_fn)):
+        zero_gather_counts()
+        final, info, seconds = solve_obs(f, p0_host, dev)
+        counts, plain = gather_counts()
+        if plain or counts[key] == 0 or counts["K3"] == 0 or \
+                counts["K6"] == 0 or counts[key] != info["num_rhs"] * \
+                f.tables.launches:
+            raise AssertionError(f"{label} solve: launches {counts}, RHS "
+                                 f"{info['num_rhs']}, plain calls {plain}")
+        main_launches[key] = counts[key]
+        rel = max(abs(final[m] / ORACLE_A[m] - 1) for m in ORACLE_A)
+        gap = max(abs(final[m] / dense_finals["a", k][m] - 1)
+                  for m in ORACLE_A)
+        if not rel <= ORACLE_REL:
+            raise AssertionError(f"{label} solve: rel {rel} from ORACLE_A")
+        solves[label] = {"seconds": seconds, "accepted":
+                         info["num_accepted"], "rejected":
+                         info["num_rejected"], "rhs": info["num_rhs"],
+                         "launches": counts, "oracle_rel": rel,
+                         "dense_gap_rel": gap}
+        say(f"solve a, cl_k {k}, {label} engine"
+            + (f" (build_dy_dt {build_s:.2f} s)" if key == "K7" else "")
+            + f": {seconds:.2f} s, {info['num_accepted']} accepted, "
+            f"{info['num_rejected']} rejected, {info['num_rhs']} RHS; "
+            f"launches {counts}, plain calls 0; observables within "
+            f"{rel:.3e} rel of ORACLE_A (bound {ORACLE_REL}), {gap:.3e} rel "
+            "of phase 6's dense solve")
+    del fn, prog
+    dual = dual_checks(dev, gen, dense_fn)
+    chunked = chunk_checks(dev)
+    for key, (name, source, replaces) in GATHER_KERNELS.items():
+        t = times[key]
+        kernels[key] = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": main_launches[key],
+            "max_abs_err": max_err[key], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "library": "torch.Tensor.index_add_ of the signed terms (the "
+                       "scatter stage; scatter_ms is that stage alone)",
+            "scatter_ms": t["scatter_ms"],
+            "scatter_bound_ms": t["scatter_bound_ms"],
+            "launches_per_rhs": t["launches_per_call"],
+            "rhs_ms": t["rhs_ms"], "dense_rhs_ms": times["dense_rhs_ms"],
+            "max_abs_diff_from_dense": max_err[key + " vs dense"],
+            "shape": f"ex4 cl_k 5: {t['values']} "
+                     + ("nodes" if key == "K7" else "events")
+                     + f", {t['entries']} scatter entries",
+            "rule": SRC + "gather_rule.cuh", "solve": solves[
+                "tree" if key == "K7" else "chains"]}
+    kernels["K7"]["dual"] = dual
+    kernels["K7"]["chunked_solve"] = chunked
+    kernels["K7"]["compile"] = {"seconds": compile_s,
+                                "events": compiled.num_events,
+                                "nodes": tt.num_values,
+                                "table_bytes": host_bytes,
+                                "tree_tables_s": tree_s,
+                                "chain_tables_s": chain_s}
 
 
 def main(dev=None):
@@ -912,7 +1433,8 @@ def main(dev=None):
 
     with Phase("2 build"):
         machines = {tag: ens.compile_decision_machine(tag) for tag in TAGS}
-        jobs = {"K2-K6 (csrc/*.cu)": cuda.build}
+        jobs = {"K2-K8 (csrc/*.cu)": cuda.build,
+                "expander (csrc/expander.cc, g++)": native.build}
         for tag, dm in machines.items():
             src = k1_source.k1_source(dm)
             jobs[f"K1 {tag}"] = (lambda src=src: cuda.build_unit("k1", src))
@@ -920,13 +1442,15 @@ def main(dev=None):
             futures = {name: pool.submit(fn) for name, fn in jobs.items()}
             built = {name: f.result() for name, f in futures.items()}
         for name, (path, log, seconds) in built.items():
-            say(f"{name}: nvcc {seconds:.2f} s -> {path.name}"
+            tool = "g++" if name.startswith("expander") else "nvcc"
+            say(f"{name}: {tool} {seconds:.2f} s -> {path.name}"
                 if seconds else f"{name}: already built: {path.name}")
             for line in log.splitlines():
                 if any(w in line for w in ("Compiling entry", "registers",
                                            "spill", "smem")):
                     say("  " + line.strip())
         cuda.load()
+        native.load()
         for dm in machines.values():
             k1_source.k1_library(dm)
 
@@ -1212,7 +1736,10 @@ def main(dev=None):
             "window counts)")
 
     with Phase("6 the exact SPD closure (K3-K6)"):
-        exact_closure(dev, kernels)
+        dense_finals = exact_closure(dev, kernels)
+
+    with Phase("7 the gather engine (K7, K8), dual SPDs, chunked solves"):
+        gather_phase(dev, kernels, dense_finals)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -614,10 +614,9 @@ def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
 
 
 def test_unported_exact_paths_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t_build("ex4-chemical-turing", 3, engine="tree", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        t_build("ex4-chemical-turing", 3, engine="chains", device="cpu")
+    """Pruned programs, ``with_mass``, the unported steppers and the
+    debug dump raise; the gather engines and chunked or checkpointed
+    solves, ported since, do not (`tests/test_torch_gather.py`)."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tdense.compile_dense("ex4-chemical-turing", 3, prune_threshold=1e-3)
     prog = tdense.compile_dense("ex4-chemical-turing", 3)
@@ -625,8 +624,7 @@ def test_unported_exact_paths_raise():
         tdense.make_dense_dy_dt(prog, with_mass=True, device="cpu")
     fn = tdense.make_dense_dy_dt(prog, device="cpu")
     y0 = _ex4_p0(3, 0.04)
-    for kw in (dict(chunk_size=2), dict(checkpoint_path="ckpt"),
-               dict(method="dopri5"), dict(method="kvaerno3"),
+    for kw in (dict(method="dopri5"), dict(method="kvaerno3"),
                dict(method="dop853-step"), dict(rtol=1e-6, atol=1e-6)):
         with pytest.raises(NotImplementedError, match="Queue 1 items 3"):
             t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], **kw, device="cpu")
@@ -636,14 +634,25 @@ def test_unported_exact_paths_raise():
 
 
 def test_group_limit_raises_where_jax_falls_back(monkeypatch):
+    """Above DENSE_GROUP_LIMIT groups ``engine="auto"`` now falls back to
+    the tree engine, as the JAX package does (it raised until the tree
+    engine was ported); ``engine="dense"`` keeps the dense sweep."""
     from chemical_kinetics_and_program_execution_torch import engine
+    from chemical_kinetics_and_program_execution_torch.engine.compile import (
+        CompiledProblem,
+    )
 
     monkeypatch.setattr(engine, "DENSE_GROUP_LIMIT", 3)
-    with pytest.raises(NotImplementedError, match="DENSE_GROUP_LIMIT"):
-        engine.build_dy_dt("ex4-chemical-turing", 3, device="cpu")
-    fn, _ = engine.build_dy_dt("ex4-chemical-turing", 3, engine="dense",
-                               device="cpu")
-    assert fn(_ex4_p0(3, 0.04)).shape == (9**3,)
+    auto, compiled = engine.build_dy_dt("ex4-chemical-turing", 3,
+                                        device="cpu")
+    assert isinstance(compiled, CompiledProblem)
+    fn, prog = engine.build_dy_dt("ex4-chemical-turing", 3, engine="dense",
+                                  device="cpu")
+    assert isinstance(prog, tdense.DenseProgram)
+    p0 = _ex4_p0(3, 0.04)
+    assert fn(p0).shape == (9**3,)
+    np.testing.assert_allclose(auto(p0).numpy(), fn(p0).numpy(), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_entry_points_default_to_cuda():
@@ -690,7 +699,7 @@ extern "C" void k5_host_item(int a, int k, const double* p,
   c.dy = dy;
   k5_levels(c);
   const K5Item it = k5_item(item, c);
-  for (unsigned e = 0; e < it.n; ++e) k5_element(c, it, e);
+  for (unsigned e = 0; e < it.n; ++e) k5_element<false>(c, it, e);
 }
 """
 
@@ -932,11 +941,11 @@ def test_item_divisor_multipliers_are_exact():
     plans = [tdense.sweep_plan(tdense.compile_dense(tag, k))
              for tag, k in (("ex4-chemical-turing", 8),
                             ("ex6-mini-bff-lite", 2))]
-    n = len(tdense.ITEM_FIELDS)
+    m0 = tdense.ITEM_FIELDS.index("m_lo")
     divisors = {1, 2, 3, 2**31 - 1, 2**30 + 3}
     for plan in plans:
         # the plan's multipliers: those of divisors >= 1
-        assert plan.items[:, n - 8:].min() >= 2**31
+        assert plan.items[:, m0:m0 + 8].min() >= 2**31
         for row in plan.items.tolist():
             f = dict(zip(tdense.ITEM_FIELDS, row))
             divisors |= {max(f[x], 1) for x in ("lo", "d", "xn", "xlo")}

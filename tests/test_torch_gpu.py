@@ -15,8 +15,12 @@ import torch
 
 from chemical_kinetics_and_program_execution_torch import markov_tapes
 from chemical_kinetics_and_program_execution_torch.engine import (
+    compile as tcompile,
+)
+from chemical_kinetics_and_program_execution_torch.engine import (
     dense as tdense,
 )
+from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as tens,
 )
@@ -553,3 +557,124 @@ def test_exact_solve_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
     assert info["num_accepted"] == want_info["num_accepted"]
     assert info["num_rejected"] == want_info["num_rejected"]
+
+
+# --- K7, K8 and the dual K3/K5 ------------------------------------------------
+
+
+def _gather_input(cuda, compiled, seed):
+    """A concentrated SPD with exact zeros and p[0] = -1e-13 (the noise
+    guard), and the levels below it by K3's plain version."""
+    rng = np.random.RandomState(seed)
+    p = _spd(rng, compiled.state_size, concentrated=True)
+    p[rng.rand(p.size) < 0.2] = 0.0
+    p = p / p.sum()
+    p[0] = -1e-13
+    p = torch.as_tensor(p, device=cuda)
+    return p, tdense.pyramids(compiled, p, plain=True)
+
+
+@pytest.mark.parametrize("tag,cl_k,dual", [(t, k, False) for t, k in
+                                           EXACT_CASES]
+                         + [("ex4-chemical-turing", 4, False),
+                            ("ex3-copolymerization", 4, True),
+                            ("ex4-chemical-turing", 3, True)])
+def test_gather_kernels_match_plain(cuda, tag, cl_k, dual):
+    """K7 (a launch a tree level) and K8 against their plain versions on
+    the card on the same pyramid: the same products and every sum in
+    the same order, so the same bits; two runs the same bits; K7's
+    launches 2 + levels, K8's 3, and no plain version called."""
+    compiled = (tcompile.compile_problem_dual(tag, cl_k) if dual
+                else tcompile.compile_problem(tag, cl_k))
+    p, low = _gather_input(cuda, compiled, 6)
+    for t, kern in ((trhs.device_tables(compiled, cuda), trhs.tree_rhs),
+                    (trhs.chain_tables(compiled, cuda), trhs.chain_rhs)):
+        before = kern.launches
+        plain = (trhs.scatter_plain.calls, trhs.tree_values_plain.calls,
+                 trhs.chain_values_plain.calls)
+        got = kern(t, p, low)
+        assert kern.launches == before + t.launches
+        assert plain == (trhs.scatter_plain.calls,
+                         trhs.tree_values_plain.calls,
+                         trhs.chain_values_plain.calls)
+        assert torch.equal(got, trhs.gather_plain(t, p))
+        assert torch.equal(got, kern(t, p, low))
+        assert bool(got.any())
+
+
+@pytest.mark.parametrize("tag,cl_k", EXACT_CASES)
+def test_gather_rhs_matches_dense_on_card(cuda, tag, cl_k):
+    """The tree and chain engines' dp/dt on the card against the dense
+    RHS's, on a random and a concentrated SPD; each writes into ``out``."""
+    compiled = tcompile.compile_problem(tag, cl_k)
+    dense_fn = tdense.make_dense_dy_dt(tdense.compile_dense(tag, cl_k),
+                                       device=cuda)
+    rng = np.random.RandomState(8)
+    for make in (trhs.make_dy_dt, trhs.make_chain_dy_dt):
+        fn = make(compiled, device=cuda)
+        for concentrated in (False, True):
+            p = torch.as_tensor(_spd(rng, compiled.state_size, concentrated),
+                                device=cuda)
+            _close(fn(p), dense_fn(p))
+        rows = torch.full((2, compiled.state_size), 7.0, dtype=torch.float64,
+                          device=cuda)
+        assert fn(p, rows[1]).data_ptr() == rows[1].data_ptr()
+        assert torch.equal(rows[1], fn(p)) and bool((rows[0] == 7.0).all())
+
+
+@pytest.mark.parametrize("tag", ["ex1-radioactive-decay",
+                                 "ex2-ferromagnetic-chain",
+                                 "ex3-copolymerization",
+                                 "ex4-chemical-turing", "ex5-msrtf-machine"])
+def test_dual_dense_rhs_on_card(cuda, tag):
+    """A dual program's RHS on the card: K3 once a tape (its launches
+    counted), K5's items on their tapes; against the plain version on
+    the card and the tree dual engine; at p_prog = p_data the halves sum
+    to the shared RHS; K5's phase-0 weights equal K4's plain version."""
+    prog = tdense.compile_dense_dual(tag, 3)
+    fn = tdense.make_dense_dy_dt(prog, device=cuda)
+    tree = trhs.make_dual_dy_dt(tcompile.compile_problem_dual(tag, 3),
+                                device=cuda)
+    shared = tdense.make_dense_dy_dt(tdense.compile_dense(tag, 3),
+                                     device=cuda)
+    n = prog.size_a**3
+    rng = np.random.RandomState(9)
+    y = torch.as_tensor(np.concatenate([_spd(rng, n, True), _spd(rng, n)]),
+                        device=cuda)
+    before = tdense.pyramid.launches, tdense.sweep.launches
+    got = fn(y)
+    assert (tdense.pyramid.launches - before[0],
+            tdense.sweep.launches - before[1]) == (
+        2 * tdense.pyramid_launches(prog.size_a, 3), 1)
+    _close(got, tdense.dy_dt_dense(fn.device_program, y))
+    _close(got, torch.cat(tree(y[:n], y[n:])))
+    assert torch.equal(got, fn(y))
+    eq = fn(torch.cat([y[:n], y[:n]]))
+    _close(eq[:n] + eq[n:], shared(y[:n]))
+    dp = fn.device_program
+    low = tdense.pyramids(prog, y)
+    assert torch.equal(low, tdense.pyramids(prog, y, plain=True))
+    s = torch.full((prog.num_signatures,), float("nan"),
+                   dtype=torch.float64, device=cuda)
+    tdense.sweep(dp, y, low, s=s)
+    assert torch.equal(s, tdense.signature_weights_plain(dp, y, low))
+
+
+def test_gather_kernels_reject_bad_inputs(cuda):
+    compiled = tcompile.compile_problem("ex4-chemical-turing", 3)
+    t = trhs.device_tables(compiled, cuda)
+    c = trhs.chain_tables(compiled, cuda)
+    p, low = _gather_input(cuda, compiled, 1)
+    with pytest.raises(TypeError, match="float64"):
+        trhs.tree_rhs(t, p.float(), low)
+    with pytest.raises(TypeError):
+        trhs.tree_rhs(t, p, low[:-1])
+    with pytest.raises(ValueError):
+        trhs.tree_rhs(t, p, low.cpu())
+    with pytest.raises(TypeError, match="out must be"):
+        trhs.chain_rhs(c, p, low, torch.empty(3, dtype=torch.float64,
+                                              device=cuda))
+    with pytest.raises(ValueError, match="tree"):
+        trhs.tree_rhs(c, p, low)
+    with pytest.raises(ValueError, match="chain"):
+        trhs.chain_rhs(t, p, low)
