@@ -23,8 +23,21 @@ with the dense, tree and chain engines, dual-SPD programs,
 `ode.integrate.solve` with DOP853 in one call or in checkpointed chunks,
 `markov_tapes`).
 ROADMAP.md lists what is still to come.
+
+The top level exports the JAX package's names that are ported (all but
+`make_batched_dy_dt`); `make_dy_dt` is the tree engine's.
 """
 
-from .engine.dsl import DATA, PROGRAM, register_problem  # noqa: F401
+from . import markov  # noqa: F401
+from .engine import build_dy_dt  # noqa: F401
+from .engine.compile import compile_problem  # noqa: F401
+from .engine.dense import compile_dense, make_dense_dy_dt  # noqa: F401
+from .engine.dsl import (  # noqa: F401
+    DATA,
+    PROGRAM,
+    register_problem,
+    registered_problems,
+)
+from .engine.rhs import make_dy_dt  # noqa: F401
 
 __version__ = "0.1.0"

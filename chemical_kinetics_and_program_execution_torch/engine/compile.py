@@ -7,7 +7,8 @@ Counterpart of the JAX package's `engine/compile.py`. `_pad_chains` and
 pairs (stage 2), and each signature's accumulation events (stage 3)
 with the pre-sorted signed scatter. The events come from the C++
 expander (`native.py`) unless the caller asks for the Python one
-(``expander="python"``, the oracle). `compile_problem_dual` and
+(``expander="python"``, the oracle) or sets ``CKPE_NO_NATIVE``, as the
+JAX package's `engine/native.py` reads it. `compile_problem_dual` and
 `collect_signatures_dual` are the dual-SPD compilers. The JAX package's
 disk cache of compiled problems is not ported (ROADMAP).
 
@@ -19,6 +20,7 @@ above it from K3's levels (`dense.pyramid`), one block a tape.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -173,10 +175,15 @@ def collect_signatures_dual(tag: str, worlds, half: int, one_slot: int):
     return live, sig_ids, pair_world, pair_sig, w_num, w_den, w_const
 
 
-def _expand(size_a: int, cl_k: int, sigs, one_slot: int, expander: str):
+def _expand(size_a: int, cl_k: int, sigs, one_slot: int,
+            expander: str | None):
     """Every signature's events, signature by signature: (e_num, e_den,
     e_sig, tgt_orig, tgt_adj) by the C++ expander or, when asked, the
-    Python one; ``e_sig`` is the signature's position in ``sigs``."""
+    Python one (``expander`` None: the Python one where ``CKPE_NO_NATIVE``
+    is set, else the C++ one; a failed build raises all the same);
+    ``e_sig`` is the signature's position in ``sigs``."""
+    if expander is None:
+        expander = "python" if os.environ.get("CKPE_NO_NATIVE") else "native"
     if expander == "native":
         return native.expand_signatures(
             size_a, cl_k, np.array(list(sigs), dtype=np.int64).reshape(-1, 3),
@@ -213,10 +220,11 @@ def _signed_scatter(tgt_orig, tgt_adj):
 
 
 def compile_problem(tag: str, cl_k: int, *, max_worlds: int | None = None,
-                    expander: str = "native") -> CompiledProblem:
+                    expander: str | None = None) -> CompiledProblem:
     """Compiles ``tag`` into its event tables (`CompiledProblem`); the
     events by the C++ expander, or by `accumulate.Expander` when
-    ``expander="python"``."""
+    ``expander="python"`` or, with ``expander`` None, when
+    ``CKPE_NO_NATIVE`` is set."""
     problem = dsl.get_problem(tag)
     size_a = problem.size_a
     _, pyr_total = pyramid_offsets(size_a, cl_k)
@@ -239,7 +247,8 @@ def compile_problem(tag: str, cl_k: int, *, max_worlds: int | None = None,
 
 def compile_problem_dual(tag: str, cl_k: int, *,
                          max_worlds: int | None = None,
-                         expander: str = "native") -> CompiledDualProblem:
+                         expander: str | None = None
+                         ) -> CompiledDualProblem:
     """Compiles ``tag`` with separate program and data SPDs
     (`CompiledDualProblem`). Each (tape, signature) is expanded as the
     shared compile expands the signature; its chains are then moved into

@@ -7,6 +7,8 @@ Counterpart of the expander half of the JAX package's `engine/native.py`.
 the source and the flags, at first use. `compile.compile_problem` calls
 `expand_signatures`; a build or load that fails raises, and nothing
 falls back to the Python expander (`accumulate.Expander`) on its own.
+``CKPE_NO_NATIVE`` set selects the Python expander beforehand
+(`compile._expand`), and then nothing here is built.
 The native ex6 enumerator of that module is not ported (ROADMAP).
 """
 

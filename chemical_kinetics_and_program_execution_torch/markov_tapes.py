@@ -7,9 +7,12 @@ named: the kernels K3-K5, or K3 and K7 where `build_dy_dt` takes the
 tree engine; on the CPU their plain versions).
 ``backend="torch"`` solves on that device with the host-stepped DOP853
 (kernel K6), the counterpart of the JAX package's ``"jax"``;
-``"scipy"`` stays the default, as there. The reference's per-world debug
-dump (``debug=True``) needs `engine/reference.py`, not ported yet
-(ROADMAP Queue 1 item 5), and raises.
+``"scipy"`` stays the default, as there. ``debug=True`` computes as
+usual, as in the reference, which dumps its worlds only where
+``MARKOV_TAPES_DEBUG`` (or ``CKPE_DEBUG``) is set (`IS_DEBUG`); that dump
+needs `engine/reference.py`, not ported yet (ROADMAP Queue 1 item 4), so
+with the flag set ``debug=True`` raises. `init_gambit` is the
+reference's no-op.
 """
 
 from __future__ import annotations
@@ -28,16 +31,26 @@ from .markov import (  # noqa: F401  (re-exported API surface)
     tprint,
 )
 from .ode.integrate import solve
+from .utils import config
+
+IS_DEBUG = config.IS_DEBUG
+
+
+def init_gambit():
+    """No-op, as in the JAX package: there is no Scheme runtime to boot."""
 
 
 def get_dy_dt(*, tag, size_a, cl_k, debug=False, device=None):
     """Returns the ``(probs_in, t) -> dp/dt`` RHS of a registered problem,
     numpy in and out, with the reference's state-size validation; the
-    device function (tensors in and out) rides in ``.device_fn``."""
-    if debug:
+    device function (tensors in and out) rides in ``.device_fn``.
+    ``debug=True`` raises where `IS_DEBUG` is set (the world dump is not
+    ported) and changes nothing otherwise."""
+    if debug and IS_DEBUG:
         raise NotImplementedError(
-            "debug=True needs the reference engine's world dump "
-            "(engine/reference.py), not ported yet (ROADMAP Queue 1 item 5)")
+            "debug=True with MARKOV_TAPES_DEBUG or CKPE_DEBUG set needs the "
+            "reference engine's world dump (engine/reference.py), not "
+            "ported yet (ROADMAP Queue 1 item 4)")
     fn, compiled = build_dy_dt(tag, cl_k, device=device)
     if compiled.size_a != size_a:
         raise ValueError(

@@ -108,8 +108,9 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     2c), ..., each call restarting the stepper from the state sampled at
     its first time. These are the JAX package's chunks for its dense
     stepper; it pads its last chunk to one static shape for XLA, which
-    the host-stepped solver has no need of. ``progress`` prints a line a
-    chunk.
+    the host-stepped solver has no need of. Where ``chunk_size`` is None
+    it comes from ``CKPE_ODE_CHUNK`` when that is set, as in the JAX
+    package. ``progress`` prints a line a chunk.
 
     ``checkpoint_path`` makes the solve resumable: finished chunks go
     into an ``.npy`` memmap at that path with a JSON sidecar, and the
@@ -154,6 +155,9 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
         ys = row0.detach().cpu().numpy()
         return (ys, info) if return_info else ys
 
+    if chunk_size is None:  # as the JAX package's solve reads it
+        env = os.environ.get("CKPE_ODE_CHUNK")
+        chunk_size = int(env) if env else None
     chunk = n_out if not chunk_size else max(2, int(chunk_size))
     ckpt, start, acc, rej = None, 0, 0, 0
     if checkpoint_path:

@@ -1,13 +1,31 @@
-"""Device and dtype defaults for the PyTorch port.
+"""Device and dtype defaults and the debug flag of the PyTorch port.
 
 Counterpart of the JAX package's `utils/config.py`.
 There, float64 is switched on in JAX at import time; here every tensor
 on a float64 path names its dtype, and `DEFAULT_FLOAT` is that dtype.
+`IS_DEBUG` keeps the reference's flag, `MARKOV_TAPES_DEBUG` (or
+`CKPE_DEBUG`), read by the same rule.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+
+
+def _env_flag(*names: str, default: bool = False) -> bool:
+    """The first of ``names`` that is set: digits as an int's truth,
+    else true for "true", "yes" or "on" in any case."""
+    for name in names:
+        val = os.environ.get(name)
+        if val is not None:
+            return (bool(int(val)) if val.isdigit()
+                    else val.lower() in ("true", "yes", "on"))
+    return default
+
+
+IS_DEBUG = _env_flag("MARKOV_TAPES_DEBUG", "CKPE_DEBUG")
 
 # Host-side probability arithmetic (SPDs, bridge factors, times).
 DEFAULT_FLOAT = torch.float64

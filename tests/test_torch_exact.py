@@ -613,10 +613,12 @@ def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
 # --- (i) what is not ported raises --------------------------------------------------
 
 
-def test_unported_exact_paths_raise():
+def test_unported_exact_paths_raise(monkeypatch):
     """Pruned programs, ``with_mass``, the unported steppers and the
     debug dump raise; the gather engines and chunked or checkpointed
-    solves, ported since, do not (`tests/test_torch_gather.py`)."""
+    solves, ported since, do not (`tests/test_torch_gather.py`). The
+    dump raises only where the reference would dump (`IS_DEBUG`); without
+    the flag ``debug=True`` gives the JAX package's dp/dt."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         tdense.compile_dense("ex4-chemical-turing", 3, prune_threshold=1e-3)
     prog = tdense.compile_dense("ex4-chemical-turing", 3)
@@ -628,9 +630,81 @@ def test_unported_exact_paths_raise():
                dict(method="dop853-step"), dict(rtol=1e-6, atol=1e-6)):
         with pytest.raises(NotImplementedError, match="Queue 1 items 3"):
             t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], **kw, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_markov_tapes.get_dy_dt(tag="ex1-radioactive-decay", size_a=2,
-                                 cl_k=3, debug=True, device="cpu")
+    kw = dict(tag="ex4-chemical-turing", size_a=9, cl_k=3, debug=True)
+    monkeypatch.setattr(j_markov_tapes, "IS_DEBUG", False)
+    monkeypatch.setattr(t_markov_tapes, "IS_DEBUG", False)
+    np.testing.assert_allclose(
+        t_markov_tapes.get_dy_dt(**kw, device="cpu")(y0, 0.0),
+        j_markov_tapes.get_dy_dt(**kw)(y0, 0.0), rtol=1e-12, atol=1e-14)
+    monkeypatch.setattr(t_markov_tapes, "IS_DEBUG", True)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        t_markov_tapes.get_dy_dt(**kw, device="cpu")
+
+
+@pytest.mark.parametrize("name,value", [
+    ("MARKOV_TAPES_DEBUG", "1"), ("MARKOV_TAPES_DEBUG", "0"),
+    ("CKPE_DEBUG", "yes"), ("CKPE_DEBUG", "off"), (None, None)])
+def test_debug_flag_read_as_jax_reads_it(monkeypatch, name, value):
+    """`utils/config.py`'s `_env_flag` reads MARKOV_TAPES_DEBUG, then
+    CKPE_DEBUG, as the JAX package's does; its `IS_DEBUG` is the flag
+    and `markov_tapes.IS_DEBUG` that value."""
+    from chemical_kinetics_and_program_execution_torch.utils import (
+        config as t_config,
+    )
+    from chemical_kinetics_and_program_execution_tpu.utils import (
+        config as j_config,
+    )
+
+    for var in ("MARKOV_TAPES_DEBUG", "CKPE_DEBUG"):
+        monkeypatch.delenv(var, raising=False)
+    if name:
+        monkeypatch.setenv(name, value)
+    names = ("MARKOV_TAPES_DEBUG", "CKPE_DEBUG")
+    assert t_config._env_flag(*names) == j_config._env_flag(*names)
+    assert t_config._env_flag(*names) == (value in ("1", "yes"))
+    assert t_markov_tapes.IS_DEBUG is t_config.IS_DEBUG
+
+
+def _public_names(module):
+    """The public names a module of the JAX package defines or imports at
+    its top level (not ``import x`` of a whole package, not __future__),
+    read from its source."""
+    import ast
+    import inspect
+
+    names = set()
+    for node in ast.parse(inspect.getsource(module)).body:
+        if isinstance(node, ast.ImportFrom) and node.module != "__future__":
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_drop_in_surface_matches_jax():
+    """Every public name of the JAX package's top level and of its
+    `markov_tapes` exists in the port, but for `make_batched_dy_dt`
+    (ROADMAP Queue 1 item 3); the port's `make_dy_dt` is the tree
+    engine's; `init_gambit` is a no-op."""
+    import chemical_kinetics_and_program_execution_torch as tpkg
+    import chemical_kinetics_and_program_execution_tpu as jpkg
+    from chemical_kinetics_and_program_execution_torch.engine import rhs
+
+    missing = {name for module, port in ((jpkg, tpkg),
+                                         (j_markov_tapes, t_markov_tapes))
+               for name in _public_names(module) if not hasattr(port, name)}
+    assert missing == {"make_batched_dy_dt"}
+    assert {"build_dy_dt", "compile_dense", "markov",
+            "init_gambit"} <= _public_names(jpkg) | _public_names(
+                j_markov_tapes)
+    assert tpkg.make_dy_dt is rhs.make_dy_dt
+    assert tpkg.markov is tmarkov
+    assert set(tpkg.registered_problems()) <= set(
+        jpkg.registered_problems())
+    assert t_markov_tapes.init_gambit() is None
 
 
 def test_group_limit_raises_where_jax_falls_back(monkeypatch):

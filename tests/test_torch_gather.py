@@ -142,6 +142,33 @@ def test_native_expander_equals_python_expander(tag, cl_k):
         tcompile.compile_problem(tag, cl_k, expander="other")
 
 
+@pytest.mark.parametrize("tag,cl_k", [("ex4-chemical-turing", 3),
+                                       ("ex6-mini-bff-lite", 2)])
+def test_no_native_selects_python_expander(monkeypatch, tag, cl_k):
+    """With CKPE_NO_NATIVE set, `compile_problem` (and its dual) expand
+    by the Python expander, as the JAX package does: no g++ call and no
+    native expansion, the native expander's fields."""
+    _, native_tables = _compiled(tag, cl_k)
+    _, native_dual = _compiled("ex4-chemical-turing", 3, dual=True)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the native expander was used")
+
+    monkeypatch.setenv("CKPE_NO_NATIVE", "1")
+    monkeypatch.setattr(native, "expand_signatures", refuse)
+    monkeypatch.setattr(native, "build", refuse)
+    monkeypatch.setattr(subprocess, "run", refuse)
+    for got, want in (
+            (tcompile.compile_problem(tag, cl_k), native_tables),
+            (tcompile.compile_problem_dual("ex4-chemical-turing", 3),
+             native_dual)):
+        for name in tcompile._ARRAY_FIELDS:
+            np.testing.assert_array_equal(getattr(got, name),
+                                          getattr(want, name), err_msg=name)
+    with pytest.raises(AssertionError, match="native"):
+        tcompile.compile_problem(tag, cl_k, expander="native")
+
+
 @pytest.mark.parametrize("tag,cl_k", CASES, ids=IDS)
 def test_build_tree_equals_jax(tag, cl_k):
     """`build_tree`'s levels and event order, `recover_targets` and
@@ -716,6 +743,33 @@ def test_chunked_solve_matches_jax_chunked_on_ex4():
     tfn, _ = tmt.build_dy_dt("ex4-chemical-turing", 3, device="cpu")
     got, info = t_integrate.solve(lambda y, t: tfn(y), y0, ts, device="cpu",
                                   **kw)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12,
+                               atol=1e-14)
+    assert (info["num_accepted"], info["num_rejected"]) == (
+        int(want_info["num_accepted"]), int(want_info["num_rejected"]))
+
+
+def test_ode_chunk_variable_chunks_as_jax(monkeypatch):
+    """CKPE_ODE_CHUNK set and no ``chunk_size``: ex4 scenario b at cl_k 3
+    solves in the variable's chunks, as the JAX package's solve does:
+    the same samples as ``chunk_size=4`` bit for bit, the JAX package's
+    accepted and rejected steps, its samples at rtol 1e-12 (an absolute
+    floor of 1e-14)."""
+    y0 = t_init.chemical_turing_p0(3, powered_fraction=0.01).ravel()
+    ts = np.linspace(0.0, 60.0, 13)
+    kw = dict(rtol=1e-10, atol=1e-12, method="dop853", return_info=True)
+    tfn, _ = tmt.build_dy_dt("ex4-chemical-turing", 3, device="cpu")
+    explicit, explicit_info = t_integrate.solve(
+        lambda y, t: tfn(y), y0, ts, device="cpu", chunk_size=4, **kw)
+    monkeypatch.setenv("CKPE_ODE_CHUNK", "4")
+    jfn = jdense.make_dense_dy_dt(jdense.compile_dense(
+        "ex4-chemical-turing", 3))
+    want, want_info = j_integrate.solve(lambda y, t: jfn(y), y0, ts, **kw)
+    calls = _crash_after(monkeypatch, 99)
+    got, info = t_integrate.solve(lambda y, t: tfn(y), y0, ts, device="cpu",
+                                  **kw)
+    assert calls["n"] == 3  # samples 1-4, 5-8, 9-12
+    assert np.array_equal(got, explicit) and info == explicit_info
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12,
                                atol=1e-14)
     assert (info["num_accepted"], info["num_rejected"]) == (
