@@ -5,114 +5,337 @@
 // `make_dual_dy_dt` at `:235` is the same program on a dual problem's
 // tables) and `:216 dy_dt_from_chain_tables` (K8, the padded chains, the
 // structure-independent cross-check). Plain PyTorch versions:
-// `engine/rhs.py` `tree_values_plain`, `chain_values_plain`,
-// `scatter_plain`, with `engine/dense.py:signature_weights_plain`. The
-// pyramid comes from K3 (`dense_rhs.cu`, once a tape); the rules are
-// `gather_rule.cuh`. Built with `-fmad=false`, every sum in a fixed
-// order and no float atomic: the plain versions' bits.
+// `engine/rhs.py` `ratios_plain`, `tree_values_plain`,
+// `chain_values_plain`, `scatter_plain`, with
+// `engine/dense.py:signature_weights_plain`. The pyramid comes from K3
+// (`dense_rhs.cu`, once a tape); the rules are `gather_rule.cuh`. Built
+// with `-fmad=false`, every sum in a fixed order and no float atomic: the
+// plain versions' bits.
 //
-// One host call (`ckpe_tree_rhs`, `ckpe_chain_rhs`) launches, on one
-// stream:
-//   1. the signature weights: K4's rule (`sweep_rule.cuh:
-//      k4_warp_weights`), a warp a signature;
-//   2. K7: a launch a tree level, a thread a node, each node's ratio
-//      times its parent's value (the parents sit in the level before,
-//      sorted, so a warp's parent loads fall close together); K8: one
-//      launch, a thread an event's chain;
-//   3. the scatter: a warp a target over its run of the compile-time
-//      sorted entries (a CSR of targets made on the host), the event
-//      value and its signature weight multiplied where the entry is
-//      read, so no event vector is written.
-// K7 takes 2 + levels launches (9 at ex4 cl_k 5), K8 3.
+// One host call (`ckpe_tree_rhs`, `ckpe_chain_rhs`) makes two
+// cooperative launches on one stream:
+//   1. the values: phase 0 forms the guarded ratio of every entry of
+//      every level's (or column's) dictionary of distinct (num, den)
+//      pairs into ``ratio`` (about 105 k at ex4 cl_k 5, 0.8 MB, which L2
+//      holds) and the signature weights (K4's rule, `sweep_rule.cuh:
+//      k4_warp_weights`); then K7 forms the tree's upper levels, a grid
+//      barrier before each, a thread a node: its ratio, looked up by its
+//      pair id, times its parent's value (the parent implicit in the
+//      sorted child order: a tile's base plus a narrow offset); after
+//      one more barrier every leaf (an event: the tree's last level and
+//      the events that end above it) writes its value times its
+//      signature's weight straight into ``ev``, where the scatter reads
+//      it. K8 forms each event's chain product over the column-major
+//      chain ids, so a warp's load of a column is contiguous.
+//   2. the scatter: a warp an item (value block b, target t) over the
+//      item's run of 4-byte entries (the value's index, the sign in the
+//      top bit), blocks in turn; with more than one block, a grid
+//      barrier, then each target's partials added from block 0 up.
+// Two launches an RHS for either kernel (9 and 3 before the compact
+// tables).
 //
-// Bound: bytes. Each table read once (the tree's nodes 12 bytes each,
-// or the chains' 8 bytes a factor; the entries 8 bytes each; the CSR),
-// p and the levels read once, dy written once; the node (or event)
-// values are the launches' own intermediates. The entries' value loads
-// are gathers, a 32-byte sector for one 8-byte value where a target's
-// events lie far apart.
+// Bound: bytes. Each table read once: the dictionaries' pyramid indices
+// (8 bytes an entry), the pair ids, parent offsets and signatures (2
+// bytes each where 16 bits hold them, else 4), a tile's parent base (4
+// bytes a 256), the entries (4 bytes) and the items' CSR; p and the
+// levels read once, the signature weights and dy written once. The
+// ratios, the upper levels' node values (14 MB at ex4 cl_k 5), the event
+// values and the partials are the launches' own intermediates. What the
+// design does about it:
+//   - the tables: the int32 (num, den, parent) a node and the row-major
+//     [events, 7] chains become 16-bit ids and offsets, the 8-byte entry
+//     (value index, signed signature) 4 bytes, because the event value
+//     carries its signature's weight;
+//   - the ratio a node forms once for each distinct pair instead: two
+//     pyramid gathers a node become one lookup in an L2-resident table;
+//   - the launches: a launch a level and one for the weights become the
+//     phases of one launch; the last level's values no longer go out to
+//     device memory and back before the scatter reads them;
+//   - the scatter's gathers: a target's entries lie thousands of values
+//     apart, so a gather moves a 32-byte sector for one 8-byte value.
+//     The value array is cut into blocks that L2 holds (`rhs.py:
+//     SCATTER_BLOCK_BYTES`) and every target's entries into one item a
+//     block; the warps take the items block by block, so a block's
+//     values are gathered from L2 while its entries stream past
+//     (`__ldcs`) from device memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "gather_rule.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;  // grid-stride past this many blocks
+constexpr int kThreads = 256;  // == 1 << kTileShift: a tile a block
+constexpr int kMaxLevels = 24;  // tree levels or chain columns
+constexpr int kLevelFields = 13;  // a level's row (`rhs.LEVEL_FIELDS`)
+constexpr int kColumnFields = 3;  // a column's row (`rhs.COLUMN_FIELDS`)
+constexpr int kValueBlocksPerSm = 4;
+constexpr int kScatterBlocksPerSm = 8;
 
-struct GatherArgs {
-  K5Ctx ctx;           // p, low and n_state (the pyramid's two pieces)
-  K4Pairs pairs;       // each signature's pairs (K4's rule)
-  double* s;           // signature weights
+// Phase 0: every dictionary entry's ratio and the signature weights.
+struct GatherPrep {
+  K5Ctx ctx;      // p, low and n_state (the pyramid's two pieces)
+  K4Pairs pairs;  // each signature's pairs (K4's rule)
+  double* s;      // signature weights
   int n_sig;
-  double* vals;        // node (K7) or event (K8) values
-  const int* ent_val;  // per entry: its value's index in vals
-  const int* ent_sig;  // per entry: its signature, ~signature for a minus
-  const int* tgt_ptr;  // [n_tgt + 1] each target's run of entries
-  int n_tgt;
+  const int* dict_num;  // [n_dict] every dictionary's pairs
+  const int* dict_den;
+  double* ratio;  // [n_dict]
+  unsigned n_dict;
+};
+
+struct K7Level {
+  K7Slab node, leaf;  // its nodes (none at the last level), its leaves
+  const void* sig;    // each leaf's signature
+  unsigned n_node, n_leaf;
+  unsigned first;       // its dictionary's first entry in ``ratio``
+  unsigned node_first;  // its nodes' first value in ``nv``
+  unsigned leaf_first;  // its leaves' first value in ``ev``
+  int wide;
+};
+
+struct TreeLaunch {
+  GatherPrep g;
+  K7Level lv[kMaxLevels];
+  int n_levels;
+  double* nv;  // the upper levels' node values
+  double* ev;  // the event (leaf) values
+};
+
+struct ChainLaunch {
+  GatherPrep g;
+  K8Column col[kMaxLevels];
+  int n_cols;
+  const void* sig;
+  int sig_wide;
+  unsigned n_ev;
+  double* ev;
+};
+
+struct ScatterLaunch {
+  const double* ev;
+  const unsigned* ent;   // sorted by block, then target
+  const int* item_ptr;   // [n_blk * n_tgt + 1] item (b, t) at b * n_tgt + t
+  int n_tgt, n_blk;
+  double* part;  // [n_blk * n_tgt] the items' sums (n_blk > 1)
   double* dy;
 };
 
-int blocks_for(long long threads) {
-  const long long b = (threads + kThreads - 1) / kThreads;
-  return (int)(b < 1 ? 1 : b > kMaxBlocks ? kMaxBlocks : b);
+__device__ __forceinline__ void gather_prep(const GatherPrep& g, unsigned tid,
+                                            unsigned stride) {
+  for (unsigned q = tid; q < g.n_dict; q += stride)
+    g.ratio[q] = k7_ratio(g.ctx, g.dict_num[q], g.dict_den[q]);
+  k4_warp_weights(g.ctx, g.pairs, g.s, g.n_sig, tid, stride);
 }
 
-__global__ void __launch_bounds__(kThreads)
-gather_weights_kernel(GatherArgs g) {
-  k4_warp_weights(g.ctx, g.pairs, g.s, g.n_sig,
-                  blockIdx.x * kThreads + threadIdx.x, gridDim.x * kThreads);
-}
-
-// K7, one level: count nodes from ``num``, ``den``, ``parent`` (an index
-// into ``prev``, the level before; prev == nullptr at level 0).
-__global__ void __launch_bounds__(kThreads)
-tree_level_kernel(K5Ctx c, const int* __restrict__ num,
-                  const int* __restrict__ den, const int* __restrict__ parent,
-                  const double* __restrict__ prev, double* __restrict__ out,
-                  unsigned count) {
-  const unsigned stride = gridDim.x * kThreads;
-  for (unsigned i = blockIdx.x * kThreads + threadIdx.x; i < count;
-       i += stride) {
-    const double r = k7_ratio(c, num[i], den[i]);
-    out[i] = prev ? r * prev[parent[i]] : r;
+// Four elements of a uint16 or int32 index array from i (a multiple of
+// four): one 8- or 16-byte load.
+__device__ __forceinline__ void load4(const void* a, int wide, unsigned i,
+                                      unsigned x[4]) {
+  if (wide) {
+    const int4 v = *reinterpret_cast<const int4*>((const int*)a + i);
+    x[0] = (unsigned)v.x;
+    x[1] = (unsigned)v.y;
+    x[2] = (unsigned)v.z;
+    x[3] = (unsigned)v.w;
+  } else {
+    const uint2 v =
+        *reinterpret_cast<const uint2*>((const unsigned short*)a + i);
+    x[0] = v.x & 0xffffu;
+    x[1] = v.x >> 16;
+    x[2] = v.y & 0xffffu;
+    x[3] = v.y >> 16;
   }
 }
 
-// K8: each event's chain product.
-__global__ void __launch_bounds__(kThreads)
-chain_kernel(K5Ctx c, const int* __restrict__ num, const int* __restrict__ den,
-             int chain, unsigned n_ev, double* __restrict__ out) {
-  const unsigned stride = gridDim.x * kThreads;
-  for (unsigned e = blockIdx.x * kThreads + threadIdx.x; e < n_ev;
-       e += stride)
-    out[e] = k4_chain_product(c, num + (size_t)e * chain,
-                              den + (size_t)e * chain, chain);
+// A level's leaves into ``out``: four a thread (`k7_value`'s arithmetic
+// on each, times its signature's weight), their ids, offsets and
+// signatures loaded four at a time and every gather issued before the
+// first product; the last n % 4 one a thread.
+__device__ __forceinline__ void k7_leaves(const TreeLaunch& L,
+                                          const K7Level& lv,
+                                          const double* par, double* out,
+                                          unsigned tid, unsigned stride) {
+  const unsigned n4 = lv.n_leaf / 4;
+  for (unsigned j = tid; j < n4; j += stride) {
+    const unsigned i = 4 * j;
+    unsigned id[4], sig[4], off[4] = {0, 0, 0, 0};
+    load4(lv.leaf.id, lv.wide, i, id);
+    load4(lv.sig, lv.wide, i, sig);
+    long long base = 0;
+    if (par) {
+      load4(lv.leaf.off, lv.wide, i, off);
+      base = lv.leaf.base[i >> kTileShift];
+    }
+    double r[4], w[4], s[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      r[u] = L.g.ratio[lv.first + id[u]];
+      w[u] = par ? k5_load(par + base + off[u]) : 0.0;
+      s[u] = L.g.s[sig[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) out[i + u] = (par ? r[u] * w[u] : r[u]) * s[u];
+  }
+  for (unsigned i = 4 * n4 + tid; i < lv.n_leaf; i += stride)
+    out[i] = k7_value(L.g.ratio, lv.first, lv.leaf, lv.wide, par, i) *
+             L.g.s[k7_at(lv.sig, lv.wide, i)];
 }
 
-// The scatter: a warp a target, grid-stride.
-__global__ void __launch_bounds__(kThreads)
-scatter_kernel(GatherArgs g) {
-  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
+// K7. ``ratio``, ``s`` and the node values are written in one phase and
+// read in a later one: the ratios and weights, which no block reads
+// before the barrier after phase 0, by plain loads; the node values
+// through L2 (`k5_load`: a line of the level before may sit in L1).
+__global__ void __launch_bounds__(kThreads, kValueBlocksPerSm)
+k7_tree_kernel(const __grid_constant__ TreeLaunch L) {
   const unsigned stride = gridDim.x * kThreads;
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
+  gather_prep(L.g, tid, stride);
+  const double* prev = nullptr;
+  for (int l = 0; l + 1 < L.n_levels; ++l) {
+    const K7Level lv = L.lv[l];
+    cg::this_grid().sync();
+    double* out = L.nv + lv.node_first;
+    for (unsigned i = tid; i < lv.n_node; i += stride)
+      out[i] = k7_value(L.g.ratio, lv.first, lv.node, lv.wide, prev, i);
+    prev = out;
+  }
+  cg::this_grid().sync();
+  for (int l = 0; l < L.n_levels; ++l) {
+    const K7Level lv = L.lv[l];
+    k7_leaves(L, lv, l ? L.nv + L.lv[l - 1].node_first : nullptr,
+              L.ev + lv.leaf_first, tid, stride);
+  }
+}
+
+// K8: each event's chain product times its signature's weight, four
+// events a thread: a batch of kK4Batch columns' ids loaded four events
+// at a time, their ratios gathered, then multiplied into each event's
+// product in chain order (`k8_value`'s order); the last n % 4 one a
+// thread.
+__global__ void __launch_bounds__(kThreads, kValueBlocksPerSm)
+k8_chain_kernel(const __grid_constant__ ChainLaunch L) {
+  const unsigned stride = gridDim.x * kThreads;
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
+  gather_prep(L.g, tid, stride);
+  cg::this_grid().sync();
+  const unsigned n4 = L.n_ev / 4;
+  for (unsigned j = tid; j < n4; j += stride) {
+    const unsigned i = 4 * j;
+    double prod[4];
+    for (int c0 = 0; c0 < L.n_cols; c0 += kK4Batch) {
+      unsigned id[kK4Batch][4];
+#pragma unroll
+      for (int b = 0; b < kK4Batch; ++b)
+        if (c0 + b < L.n_cols)
+          load4(L.col[c0 + b].id, L.col[c0 + b].wide, i, id[b]);
+      double r[kK4Batch][4];
+#pragma unroll
+      for (int b = 0; b < kK4Batch; ++b)
+        if (c0 + b < L.n_cols)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            r[b][u] = L.g.ratio[L.col[c0 + b].first + id[b][u]];
+#pragma unroll
+      for (int b = 0; b < kK4Batch; ++b)
+        if (c0 + b < L.n_cols)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            prod[u] = c0 + b == 0 ? r[b][u] : prod[u] * r[b][u];
+    }
+    unsigned sig[4];
+    load4(L.sig, L.sig_wide, i, sig);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) L.ev[i + u] = prod[u] * L.g.s[sig[u]];
+  }
+  for (unsigned e = 4 * n4 + tid; e < L.n_ev; e += stride)
+    L.ev[e] = k8_value(L.g.ratio, L.col, L.n_cols, e) *
+              L.g.s[k7_at(L.sig, L.sig_wide, e)];
+}
+
+// The scatter: a warp an item, grid-stride, block by block; then (more
+// than one block) each target's fold.
+__global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm)
+gather_scatter_kernel(const __grid_constant__ ScatterLaunch S) {
+  const unsigned stride = gridDim.x * kThreads;
+  const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
   const int lane = (int)(threadIdx.x & 31);
-  for (unsigned t = tid >> 5; t < (unsigned)g.n_tgt; t += stride >> 5) {
-    double acc = k7_lane_sum(g.vals, g.ent_val, g.ent_sig, g.s,
-                             g.tgt_ptr[t], g.tgt_ptr[t + 1], lane);
+  const long long items = (long long)S.n_blk * S.n_tgt;
+  double* out = S.n_blk > 1 ? S.part : S.dy;
+  for (long long j = tid >> 5; j < items; j += stride >> 5) {
+    double acc =
+        k7_lane_sum(S.ev, S.ent, S.item_ptr[j], S.item_ptr[j + 1], lane);
     for (int off = kLanes / 2; off >= 1; off >>= 1)
       acc = acc + __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) g.dy[t] = acc;
+    if (lane == 0) out[j] = acc;
   }
+  if (S.n_blk == 1) return;
+  cg::this_grid().sync();
+  for (unsigned t = tid; t < (unsigned)S.n_tgt; t += stride)
+    S.dy[t] = k7_fold_blocks(S.part, S.n_tgt, S.n_blk, (int)t);
 }
 
-GatherArgs gather_args(const double* p, const double* low, long long n_state,
-                       int a, int k, const int* pair_num, const int* pair_den,
-                       const double* pair_const, int chain,
-                       const int* csr_ptr, int n_sig, double* s, double* vals,
-                       const int* ent_val, const int* ent_sig,
-                       const int* tgt_ptr, int n_tgt, double* dy) {
-  GatherArgs g;
+// The most blocks of ``kernel`` that fit on the current card at once.
+int resident_blocks(const void* kernel, int* cache) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= 64) return 0;
+  if (!cache[dev]) {
+    int per_sm = 0, sms = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, 0) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      return 0;
+    cache[dev] = per_sm * sms;
+  }
+  return cache[dev];
+}
+
+// A cooperative launch of ``kernel`` over about four of ``work``'s
+// elements a thread, at most what fits.
+int launch(const void* kernel, int* cache, long long work, void* arg,
+           cudaStream_t stream) {
+  const int resident = resident_blocks(kernel, cache);
+  if (resident <= 0) return (int)cudaErrorLaunchFailure;
+  const long long want = (work + 4 * kThreads - 1) / (4 * kThreads);
+  const int grid = (int)(want < 1 ? 1 : want > resident ? resident : want);
+  void* args[] = {arg};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int tree_cache[64], chain_cache[64], scatter_cache[64];
+
+int launch_scatter(const double* ev, const unsigned* ent, const int* item_ptr,
+                   int n_tgt, int n_blk, double* part, double* dy,
+                   cudaStream_t stream) {
+  if (n_tgt < 1 || n_blk < 1) return (int)cudaErrorInvalidValue;
+  ScatterLaunch S;
+  S.ev = ev;
+  S.ent = ent;
+  S.item_ptr = item_ptr;
+  S.n_tgt = n_tgt;
+  S.n_blk = n_blk;
+  S.part = part;
+  S.dy = dy;
+  return launch((const void*)gather_scatter_kernel, scatter_cache,
+                32LL * n_blk * n_tgt, &S, stream);
+}
+
+GatherPrep gather_prep_args(const double* p, const double* low,
+                            long long n_state, int a, int k,
+                            const int* pair_num, const int* pair_den,
+                            const double* pair_const, int chain,
+                            const int* csr_ptr, int n_sig, double* s,
+                            const int* dict_num, const int* dict_den,
+                            long long n_dict, double* ratio) {
+  GatherPrep g;
   g.ctx.a = a;
   g.ctx.k = k;
   g.ctx.p = p;
@@ -126,101 +349,109 @@ GatherArgs gather_args(const double* p, const double* low, long long n_state,
   g.pairs.chain = chain;
   g.s = s;
   g.n_sig = n_sig;
-  g.vals = vals;
-  g.ent_val = ent_val;
-  g.ent_sig = ent_sig;
-  g.tgt_ptr = tgt_ptr;
-  g.n_tgt = n_tgt;
-  g.dy = dy;
+  g.dict_num = dict_num;
+  g.dict_den = dict_den;
+  g.ratio = ratio;
+  g.n_dict = (unsigned)n_dict;
   return g;
 }
 
-int launch_weights(const GatherArgs& g, cudaStream_t stream) {
-  gather_weights_kernel<<<blocks_for(32LL * g.n_sig), kThreads, 0, stream>>>(
-      g);
-  return (int)cudaGetLastError();
-}
-
-int launch_scatter(const GatherArgs& g, cudaStream_t stream) {
-  scatter_kernel<<<blocks_for(32LL * g.n_tgt), kThreads, 0, stream>>>(g);
-  return (int)cudaGetLastError();
+long long phase0_work(const GatherPrep& g) {
+  return g.n_dict > 32LL * g.n_sig ? g.n_dict : 32LL * g.n_sig;
 }
 
 }  // namespace
 
-// K7: the signature weights, the tree's levels and the scatter. The
-// nodes of every level lie in ``num``, ``den``, ``parent`` (parent a
-// node's index in the level before) at the host array level_ptr[0 ..
-// n_levels]; ``vals`` holds every node's value.
-extern "C" int ckpe_tree_rhs(const double* p, const double* low,
-                             long long n_state, int a, int k,
-                             const int* pair_num, const int* pair_den,
-                             const double* pair_const, int chain,
-                             const int* csr_ptr, int n_sig, double* s,
-                             const int* num, const int* den,
-                             const int* parent, const long long* level_ptr,
-                             int n_levels, double* vals, const int* ent_val,
-                             const int* ent_sig, const int* tgt_ptr,
-                             int n_tgt, double* dy, cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || chain < 1 || n_levels < 1)
+// K7: phase 0, the tree's upper levels and its leaves (one cooperative
+// launch), then the scatter (one more). ``levels`` is a host array of
+// n_levels rows of kLevelFields int64 (`rhs.LEVEL_FIELDS`): counts,
+// offsets and the device pointers of each level's arrays.
+extern "C" int ckpe_tree_rhs(
+    const double* p, const double* low, long long n_state, int a, int k,
+    const int* pair_num, const int* pair_den, const double* pair_const,
+    int chain, const int* csr_ptr, int n_sig, double* s,
+    const int* dict_num, const int* dict_den, long long n_dict,
+    double* ratio, const long long* levels, int n_levels, double* nv,
+    double* ev, const unsigned* ent, const int* item_ptr, int n_tgt,
+    int n_blk, double* part, double* dy, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || chain < 1 || n_levels < 1 ||
+      n_levels > kMaxLevels)
     return (int)cudaErrorInvalidValue;
-  const GatherArgs g = gather_args(p, low, n_state, a, k, pair_num, pair_den,
-                                   pair_const, chain, csr_ptr, n_sig, s, vals,
-                                   ent_val, ent_sig, tgt_ptr, n_tgt, dy);
-  int rc = launch_weights(g, stream);
-  if (rc) return rc;
+  TreeLaunch L;
+  L.g = gather_prep_args(p, low, n_state, a, k, pair_num, pair_den,
+                         pair_const, chain, csr_ptr, n_sig, s, dict_num,
+                         dict_den, n_dict, ratio);
+  long long work = phase0_work(L.g), leaves = 0;
   for (int l = 0; l < n_levels; ++l) {
-    const long long first = level_ptr[l];
-    const long long count = level_ptr[l + 1] - first;
-    tree_level_kernel<<<blocks_for(count), kThreads, 0, stream>>>(
-        g.ctx, num + first, den + first, parent + first,
-        l ? vals + level_ptr[l - 1] : nullptr, vals + first,
-        (unsigned)count);
-    rc = (int)cudaGetLastError();
-    if (rc) return rc;
+    const long long* r = levels + (size_t)l * kLevelFields;
+    K7Level& lv = L.lv[l];
+    lv.n_node = (unsigned)r[0];
+    lv.n_leaf = (unsigned)r[1];
+    lv.wide = (int)r[2];
+    lv.first = (unsigned)r[3];
+    lv.node_first = (unsigned)r[4];
+    lv.leaf_first = (unsigned)r[5];
+    lv.node.id = (const void*)r[6];
+    lv.node.off = (const void*)r[7];
+    lv.node.base = (const int*)r[8];
+    lv.leaf.id = (const void*)r[9];
+    lv.leaf.off = (const void*)r[10];
+    lv.leaf.base = (const int*)r[11];
+    lv.sig = (const void*)r[12];
+    if (r[0] > work) work = r[0];
+    leaves += r[1];
   }
-  return launch_scatter(g, stream);
+  L.n_levels = n_levels;
+  L.nv = nv;
+  L.ev = ev;
+  const int rc = launch((const void*)k7_tree_kernel, tree_cache,
+                        leaves > work ? leaves : work, &L, stream);
+  if (rc) return rc;
+  return launch_scatter(ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream);
 }
 
-// K8: the signature weights, every event's chain product ([n_ev, e_chain]
-// ``e_num``, ``e_den``) into ``vals``, and the scatter.
-extern "C" int ckpe_chain_rhs(const double* p, const double* low,
-                              long long n_state, int a, int k,
-                              const int* pair_num, const int* pair_den,
-                              const double* pair_const, int chain,
-                              const int* csr_ptr, int n_sig, double* s,
-                              const int* e_num, const int* e_den, int e_chain,
-                              long long n_ev, double* vals,
-                              const int* ent_val, const int* ent_sig,
-                              const int* tgt_ptr, int n_tgt, double* dy,
-                              cudaStream_t stream) {
-  if (k < 1 || k > kMaxK || chain < 1 || e_chain < 1)
+// K8: phase 0 and every event's chain product (one cooperative launch),
+// then the scatter. ``cols`` is a host array of n_cols rows of
+// kColumnFields int64 (`rhs.COLUMN_FIELDS`): wide, the dictionary's
+// first entry, the device pointer of the column's ids.
+extern "C" int ckpe_chain_rhs(
+    const double* p, const double* low, long long n_state, int a, int k,
+    const int* pair_num, const int* pair_den, const double* pair_const,
+    int chain, const int* csr_ptr, int n_sig, double* s,
+    const int* dict_num, const int* dict_den, long long n_dict,
+    double* ratio, const long long* cols, int n_cols, const void* sig,
+    int sig_wide, long long n_ev, double* ev, const unsigned* ent,
+    const int* item_ptr, int n_tgt, int n_blk, double* part, double* dy,
+    cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || chain < 1 || n_cols < 1 || n_cols > kMaxLevels)
     return (int)cudaErrorInvalidValue;
-  const GatherArgs g = gather_args(p, low, n_state, a, k, pair_num, pair_den,
-                                   pair_const, chain, csr_ptr, n_sig, s, vals,
-                                   ent_val, ent_sig, tgt_ptr, n_tgt, dy);
-  int rc = launch_weights(g, stream);
+  ChainLaunch L;
+  L.g = gather_prep_args(p, low, n_state, a, k, pair_num, pair_den,
+                         pair_const, chain, csr_ptr, n_sig, s, dict_num,
+                         dict_den, n_dict, ratio);
+  for (int c = 0; c < n_cols; ++c) {
+    const long long* r = cols + (size_t)c * kColumnFields;
+    L.col[c].wide = (int)r[0];
+    L.col[c].first = (unsigned)r[1];
+    L.col[c].id = (const void*)r[2];
+  }
+  L.n_cols = n_cols;
+  L.sig = sig;
+  L.sig_wide = sig_wide;
+  L.n_ev = (unsigned)n_ev;
+  L.ev = ev;
+  const long long work = phase0_work(L.g);
+  const int rc = launch((const void*)k8_chain_kernel, chain_cache,
+                        n_ev > work ? n_ev : work, &L, stream);
   if (rc) return rc;
-  chain_kernel<<<blocks_for(n_ev), kThreads, 0, stream>>>(
-      g.ctx, e_num, e_den, e_chain, (unsigned)n_ev, vals);
-  rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return launch_scatter(g, stream);
+  return launch_scatter(ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream);
 }
 
-// The scatter stage alone (one launch): dy from ``vals`` and ``s`` as
-// K7's and K8's last launch forms it, for timing it apart.
-extern "C" int ckpe_gather_scatter(const double* s, double* vals,
-                                   const int* ent_val, const int* ent_sig,
-                                   const int* tgt_ptr, int n_tgt, double* dy,
+// The scatter alone (one launch): dy from the event values ``ev`` as
+// K7's and K8's second launch forms it, for timing it apart.
+extern "C" int ckpe_gather_scatter(const double* ev, const unsigned* ent,
+                                   const int* item_ptr, int n_tgt, int n_blk,
+                                   double* part, double* dy,
                                    cudaStream_t stream) {
-  GatherArgs g = {};
-  g.s = const_cast<double*>(s);
-  g.vals = vals;
-  g.ent_val = ent_val;
-  g.ent_sig = ent_sig;
-  g.tgt_ptr = tgt_ptr;
-  g.n_tgt = n_tgt;
-  g.dy = dy;
-  return launch_scatter(g, stream);
+  return launch_scatter(ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream);
 }

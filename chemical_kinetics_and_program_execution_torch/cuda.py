@@ -155,17 +155,18 @@ def load() -> ctypes.CDLL:
     # ckpe_dense_rhs(tapes, m, <ckpe_dense_sweep's arguments>)
     lib.ckpe_dense_rhs.argtypes = [_I, _I] + k5
     # ckpe_tree_rhs(p, low, n_state, a, k, pair_num, pair_den, pair_const,
-    #               chain, csr_ptr, n_sig, s, num, den, parent, level_ptr,
-    #               n_levels, vals, ent_val, ent_sig, tgt_ptr, n_tgt, dy,
-    #               stream)
-    head = [_P, _P, _L, _I, _I, _P, _P, _P, _I, _P, _I, _P]
-    tail = [_P, _P, _P, _P, _I, _P, _P]
-    lib.ckpe_tree_rhs.argtypes = head + [_P, _P, _P, _P, _I] + tail
-    # ckpe_chain_rhs(<the same head>, e_num, e_den, e_chain, n_ev, vals,
-    #                ent_val, ent_sig, tgt_ptr, n_tgt, dy, stream)
-    lib.ckpe_chain_rhs.argtypes = head + [_P, _P, _I, _L] + tail
-    # ckpe_gather_scatter(s, <the same tail>)
-    lib.ckpe_gather_scatter.argtypes = [_P] + tail
+    #               chain, csr_ptr, n_sig, s, dict_num, dict_den, n_dict,
+    #               ratio, levels, n_levels, nv, ev, ent, item_ptr, n_tgt,
+    #               n_blk, part, dy, stream)
+    head = [_P, _P, _L, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _L, _P]
+    tail = [_P, _P, _P, _I, _I, _P, _P, _P]
+    lib.ckpe_tree_rhs.argtypes = head + [_P, _I, _P] + tail
+    # ckpe_chain_rhs(<the same head>, cols, n_cols, sig, sig_wide, n_ev,
+    #                ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream)
+    lib.ckpe_chain_rhs.argtypes = head + [_P, _I, _P, _I, _L] + tail
+    # ckpe_gather_scatter(<the same tail>: ev, ent, item_ptr, n_tgt, n_blk,
+    #                     part, dy, stream)
+    lib.ckpe_gather_scatter.argtypes = tail
     # ckpe_k6_tableau(count, rows, coefs, n_rows)
     lib.ckpe_k6_tableau.argtypes = [_P, _P, _P, _I]
     # ckpe_k6_stage(y, ks, ks_ld, n, which, swap, h, out, stream)

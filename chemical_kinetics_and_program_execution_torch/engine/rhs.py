@@ -7,26 +7,41 @@ Counterpart of the JAX package's `engine/rhs.py`. From a
     pyr = the marginal pyramid of p (K3, `dense.pyramids`, once a tape)
     s   = signature weights: world chain products summed per signature
           (K4's rule)
-    v   = each event's chain product of guarded ratios, over the shared
-          prefix tree of chains (`tree.py`, kernel K7) or chain by chain
-          (kernel K8, the structure-independent cross-check)
-    dy  = for each window rank t, the sum over its entries of the
-          compile-time sorted signed scatter of +-(v[event] * s[sig])
+    R   = the guarded ratio of every distinct (num, den) pair of each
+          tree level or chain column (its dictionary)
+    ev  = each event's chain product of ratios times its signature's
+          weight, over the shared prefix tree of chains (`tree.py`,
+          kernel K7) or chain by chain (kernel K8, the structure-
+          independent cross-check)
+    dy  = for each window rank t, the sum of +ev over the events whose
+          adjusted window is t less the sum of ev over those whose
+          original window is t
 
 On a card K7 (`tree_rhs`) and K8 (`chain_rhs`) are hand-written CUDA
 (`csrc/gather_rhs.cu`, rules in `csrc/gather_rule.cuh`); on the CPU the
-same wrappers run their plain versions (`signature_weights_plain`,
-`tree_values_plain` or `chain_values_plain`, `scatter_plain`), which add
-every sum in the kernels' order, so the kernels equal them bit for bit.
+same wrappers run their plain versions (`ratios_plain`,
+`signature_weights_plain`, `tree_values_plain` or `chain_values_plain`,
+`scatter_plain`), which take every product and sum in the kernels'
+order, so the kernels equal them bit for bit.
 
 The tables are built on the host once (`device_tables`,
-`chain_tables`): the tree's levels, and the scatter as a CSR of targets
-whose entries each name a value and its signature, the sign folded into
-the signature (``~sig`` for a minus). Pyramid indices are mapped to the
-kernels' two-piece read (`compile.two_pointer_index`), so a dual
-problem's tables need no kernel of their own: its pyramid is K3 on each
-tape (the JAX package's `_build_pyramid`). `make_batched_dy_dt` (vmap)
-is not ported (ROADMAP).
+`chain_tables`) and are compact: a node, a leaf (an event of the tree)
+or a chain factor holds the id of its pair in its level's (column's)
+dictionary, a tree node or leaf its parent as an offset from its tile's
+first parent (children lie sorted under their parents), a leaf or an
+event its signature; each of these is 16 bits where a level's (column's)
+all fit, else 32 (``wide`` forces 32 everywhere, for tests). The tree's
+levels above the last are kept as built (`tree.build_tree`); its leaves
+are the events, each at the level where its chain ends, sorted by node,
+and their values are the event values in that order. The scatter's
+entries, an event value's index with a minus in the top bit, are
+sorted by block of event values (`SCATTER_BLOCK_BYTES`, so that a
+block's values sit in L2 while its entries are summed), then by target:
+item (b, t) is a run, its sums folded over the blocks in order.
+Pyramid indices are mapped to the kernels' two-piece read
+(`compile.two_pointer_index`), so a dual problem's tables need no
+kernel of their own: its pyramid is K3 on each tape (the JAX package's
+`_build_pyramid`). `make_batched_dy_dt` (vmap) is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -42,15 +57,56 @@ from ..utils import config
 from . import dense, tree as tree_mod
 from .compile import CompiledProblem, two_pointer_index
 
-LANES = 32  # a warp sums a target's entries (`csrc/gather_rule.cuh`)
+LANES = 32  # a warp sums an item's entries (`csrc/gather_rule.cuh`)
+TILE = 256  # nodes or leaves that share a parent base (`kTileShift`)
+# Event values a block of the scatter, in bytes: L2 (50 MB on an H100)
+# holds a block beside the entries streaming past.
+SCATTER_BLOCK_BYTES = 32 << 20
+_NARROW = 1 << 16  # ids, offsets and signatures below this: 16 bits
+_MINUS = 1 << 31  # an entry's sign bit
+# A tree level's row and a chain column's row as the C entry points read
+# them (int64 each; the arrays' device pointers last).
+LEVEL_FIELDS = ("n_node", "n_leaf", "wide", "first", "node_first",
+                "leaf_first", "node_id", "node_off", "node_base", "leaf_id",
+                "leaf_off", "leaf_base", "leaf_sig")
+COLUMN_FIELDS = ("wide", "first", "id")
+
+
+@dataclasses.dataclass
+class Slab:
+    """A tree level's nodes or leaves, or a chain column: ``id`` each
+    one's pair in its dictionary; below the root of a tree each one's
+    parent in the level before, ``base[i // TILE] + off[i]``; a leaf's
+    signature ``sig``. The narrow arrays are int16 holding uint16, or
+    int32 (`ids`)."""
+
+    id: torch.Tensor
+    off: torch.Tensor | None = None
+    base: torch.Tensor | None = None
+    sig: torch.Tensor | None = None
+
+
+@dataclasses.dataclass
+class Level:
+    """One tree level, or one chain column (``leaf`` its ids): where its
+    dictionary starts in the ratios (``first``), whether its arrays are
+    32-bit, its nodes (None at the last level and for a column) and
+    leaves, and where their values start (node values, event values)."""
+
+    first: int
+    wide: bool
+    node: Slab | None
+    leaf: Slab
+    node_first: int = 0
+    leaf_first: int = 0
 
 
 @dataclasses.dataclass
 class GatherTables:
     """A compiled problem's tables on one device, for the tree engine
-    (``kind`` "tree": the nodes of every level, ``level_ptr`` on the
-    host) or the chain engine ("chains": each event's padded chain).
-    The world fields are `dense.world_tables`'."""
+    (``kind`` "tree": ``levels``) or the chain engine ("chains": a
+    level a column, ``sig`` each event's signature). The world fields are
+    `dense.world_tables`'."""
 
     compiled: CompiledProblem
     kind: str
@@ -63,13 +119,16 @@ class GatherTables:
     pair_den: torch.Tensor
     pair_const: torch.Tensor
     sig_pairs: torch.Tensor
-    num: torch.Tensor  # tree: [nodes]; chains: [events, chain]
-    den: torch.Tensor
-    parent: torch.Tensor | None  # tree: index in the level before
-    level_ptr: np.ndarray | None  # tree: [levels + 1] int64, host
-    ent_val: torch.Tensor  # [entries] index of the entry's value
-    ent_sig: torch.Tensor  # [entries] signature, ~signature for a minus
-    tgt_ptr: torch.Tensor  # [state_size + 1] each target's entries
+    dict_num: torch.Tensor  # [n_dict] every dictionary's pairs, int32
+    dict_den: torch.Tensor
+    levels: list  # of Level
+    sig: torch.Tensor | None  # chains: [events]
+    ent: torch.Tensor  # [entries] value index, minus in the sign bit
+    item_ptr: torch.Tensor  # [n_blk * state_size + 1] item (b, t)'s run
+    n_blk: int
+    event_order: np.ndarray  # the compiled event of each event value
+    num_nodes: int  # the tree's nodes as built (all levels)
+    desc: np.ndarray  # the levels' rows for the C entry points
 
     @property
     def state_size(self) -> int:
@@ -77,164 +136,324 @@ class GatherTables:
 
     @property
     def num_values(self) -> int:
-        """Values the kernel forms: nodes (tree) or events (chains)."""
-        return self.num.shape[0]
+        """Event values the kernel forms and the scatter reads."""
+        return len(self.event_order)
+
+    @property
+    def num_node_values(self) -> int:
+        """Node values of the tree's levels above the last."""
+        return sum(lv.node.id.numel() for lv in self.levels if lv.node)
 
     @property
     def num_levels(self) -> int:
-        return len(self.level_ptr) - 1 if self.kind == "tree" else 0
+        return len(self.levels) if self.kind == "tree" else 0
 
     @property
     def launches(self) -> int:
-        """K7's or K8's launches an RHS: the weights, a launch a level or
-        one for the chains, the scatter."""
-        return 2 + (self.num_levels if self.kind == "tree" else 1)
+        """K7's or K8's launches an RHS: the values (phase 0, the
+        levels, the leaves or chains), the scatter."""
+        return 2
+
+    def sig_wide(self) -> bool:
+        return self.sig is not None and self.sig.dtype == torch.int32
 
 
-def _entries(ev_idx, ev_sign, ev_tgt, val_of_event, sig_of_event,
-             state_size: int):
-    """The scatter's entries as the kernels read them: (ent_val,
-    ent_sig, tgt_ptr) from the sorted signed scatter (``ev_idx``,
-    ``ev_sign``, ``ev_tgt``), ``val_of_event`` the index of each event's
-    value, ``sig_of_event`` its signature."""
-    if len(ev_idx) >= 2**31 or state_size >= 2**31:
-        raise ValueError("the scatter outgrows int32 indices")
-    ev_idx = np.asarray(ev_idx, dtype=np.int64)
-    sig = np.asarray(sig_of_event, dtype=np.int64)[ev_idx]
-    ent_sig = np.where(np.asarray(ev_sign) > 0, sig, ~sig)
-    counts = np.bincount(np.asarray(ev_tgt, dtype=np.int64),
-                         minlength=state_size)
-    tgt_ptr = np.concatenate([[0], np.cumsum(counts)])
-    return (np.asarray(val_of_event, dtype=np.int64)[ev_idx], ent_sig,
-            tgt_ptr)
+def ids(x: torch.Tensor) -> torch.Tensor:
+    """A narrow array's values as int64: int16 holds uint16."""
+    return x.long() & 0xFFFF if x.dtype == torch.int16 else x.long()
 
 
-def _tables(compiled, kind, device, num, den, parent, level_ptr, ent):
-    device = config.get_device(device)
-
-    def dev(x):
-        return torch.as_tensor(np.ascontiguousarray(x), dtype=torch.int32,
-                               device=device)
-
-    worlds = dense.world_tables(compiled, device)
-    remap = (lambda x: two_pointer_index(x, compiled.size_a, compiled.cl_k,
-                                         compiled.dual))
-    return GatherTables(
-        compiled=compiled, kind=kind, device=worlds["w_const"].device,
-        num=dev(remap(num)), den=dev(remap(den)),
-        parent=None if parent is None else dev(parent),
-        level_ptr=level_ptr, ent_val=dev(ent[0]), ent_sig=dev(ent[1]),
-        tgt_ptr=dev(ent[2]), **worlds)
+def _parent_tiles(parent: np.ndarray):
+    """``parent`` (sorted) as each tile's first parent and offsets."""
+    parent = np.asarray(parent, dtype=np.int64)
+    base = parent[::TILE]
+    return base, parent - np.repeat(base, TILE)[:len(parent)]
 
 
-def device_tables(compiled: CompiledProblem, device=None) -> GatherTables:
-    """The tree engine's tables on ``device`` (``cuda`` unless named):
-    the prefix tree of the event chains (`tree.build_tree`), events in
-    the tree's order, and the scatter re-sorted for that order."""
-    one_slot = compiled.pyramid_size - 1
-    tr = tree_mod.build_tree(compiled.e_num, compiled.e_den, one_slot,
-                             compiled.pyramid_size)
+def _dictionary(num: np.ndarray, den: np.ndarray, pyramid_size: int):
+    """The distinct (num, den) pairs in sorted order and each pair's id."""
+    key = torch.as_tensor(np.asarray(num, dtype=np.int64) * pyramid_size
+                          + np.asarray(den, dtype=np.int64))
+    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
+    uniq = uniq.numpy()
+    return uniq // pyramid_size, uniq % pyramid_size, inv.numpy()
+
+
+class _Builder:
+    """Collects the dictionaries and puts the narrow arrays on the
+    device."""
+
+    def __init__(self, compiled, device, wide):
+        self.compiled = compiled
+        self.device = config.get_device(device)
+        self.wide = wide
+        self.nums, self.dens, self.size = [], [], 0
+
+    def dictionary(self, num, den):
+        """Adds a level's (column's) dictionary; (its first entry, its
+        size, each pair's id)."""
+        dn, dd, pid = _dictionary(num, den, self.compiled.pyramid_size)
+        first = self.size
+        self.nums.append(dn)
+        self.dens.append(dd)
+        self.size += len(dn)
+        return first, len(dn), pid
+
+    def narrow(self, *arrays) -> bool:
+        """Whether these arrays (and every signature) fit 16 bits."""
+        return not self.wide and self.compiled.num_signatures <= _NARROW \
+            and all(len(x) == 0 or int(np.max(x)) < _NARROW for x in arrays)
+
+    def put(self, x, wide):
+        """``x`` on the device as int32 (``wide``) or as int16 holding
+        uint16."""
+        x = np.asarray(x)
+        x = x.astype(np.int32) if wide else x.astype(np.uint16).view(np.int16)
+        return torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+
+    def slab(self, pair_id, tiles, sig, wide):
+        return Slab(id=self.put(pair_id, wide),
+                    off=None if tiles is None else self.put(tiles[1], wide),
+                    base=None if tiles is None else self.put(tiles[0], True),
+                    sig=None if sig is None else self.put(sig, wide))
+
+    def remapped(self, x):
+        c = self.compiled
+        return two_pointer_index(np.concatenate(x) if x else
+                                 np.zeros(0, np.int64), c.size_a, c.cl_k,
+                                 c.dual)
+
+
+def _scatter_entries(compiled, event_order, block_bytes):
+    """The scatter's entries for event values in ``event_order``: (ent
+    int32, item_ptr int32, n_blk). Event value i is +-counted at its
+    event's adjusted (+) and original (-) windows; entries sorted by
+    (value block, target), + entries before - ones, each in value
+    order."""
+    n, n_tgt = len(event_order), compiled.state_size
     tgt_orig, tgt_adj = tree_mod.recover_targets(
         compiled.num_events, compiled.ev_idx, compiled.ev_sign,
         compiled.ev_tgt)
-    order = tr.event_order
-    ev_idx, ev_sign, ev_tgt = tree_mod.sorted_scatter(tgt_orig[order],
-                                                      tgt_adj[order])
-    sizes = [len(lv.num) for lv in tr.levels]
-    level_ptr = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
-    node_of_event = np.concatenate(
-        [lv.ev_node.astype(np.int64) + level_ptr[i]
-         for i, lv in enumerate(tr.levels)])
-    ent = _entries(ev_idx, ev_sign, ev_tgt, node_of_event,
-                   np.asarray(compiled.e_sig)[order], compiled.state_size)
-    cat = np.concatenate
-    return _tables(compiled, "tree", device, cat([lv.num for lv in tr.levels]),
-                   cat([lv.den for lv in tr.levels]),
-                   cat([lv.parent for lv in tr.levels]), level_ptr, ent)
+    n_blk = max(1, -(-8 * n // block_bytes))
+    per_blk = max(1, -(-n // n_blk))
+    if 2 * n >= 2**31 or n_blk * n_tgt >= 2**31:
+        raise ValueError("the scatter outgrows int32 indices")
+    pos = np.arange(n, dtype=np.int64)
+    blk = pos // per_blk * n_tgt
+    key = torch.as_tensor(np.concatenate(
+        [blk + tgt_adj[event_order], blk + tgt_orig[event_order]])
+        .astype(np.int32))
+    order = torch.sort(key, stable=True).indices.numpy()
+    ent = np.concatenate([pos, pos | _MINUS])[order]
+    counts = np.bincount(key.numpy(), minlength=n_blk * n_tgt)
+    item_ptr = np.concatenate([[0], np.cumsum(counts)])
+    return ent.astype(np.uint32).view(np.int32), item_ptr, n_blk
 
 
-def chain_tables(compiled: CompiledProblem, device=None) -> GatherTables:
+def _tables(b, kind, levels, sig, event_order, block_bytes, num_nodes):
+    ent, item_ptr, n_blk = _scatter_entries(b.compiled, event_order,
+                                            block_bytes)
+    worlds = dense.world_tables(b.compiled, b.device)
+    t = GatherTables(
+        compiled=b.compiled, kind=kind, device=worlds["w_const"].device,
+        dict_num=b.put(b.remapped(b.nums), True),
+        dict_den=b.put(b.remapped(b.dens), True), levels=levels, sig=sig,
+        ent=b.put(ent, True), item_ptr=b.put(item_ptr, True), n_blk=n_blk,
+        event_order=event_order, num_nodes=num_nodes,
+        desc=np.zeros(0, np.int64), **worlds)
+    t.desc = _descriptors(t)
+    return t
+
+
+def _descriptors(t: GatherTables) -> np.ndarray:
+    """The rows `ckpe_tree_rhs` (LEVEL_FIELDS) or `ckpe_chain_rhs`
+    (COLUMN_FIELDS) read, with the arrays' device pointers."""
+    def ptr(x):
+        return 0 if x is None else x.data_ptr()
+
+    rows = []
+    for lv in t.levels:
+        if t.kind == "chains":
+            rows.append([int(lv.wide), lv.first, ptr(lv.leaf.id)])
+            continue
+        node = lv.node or Slab(id=None)
+        rows.append([0 if lv.node is None else lv.node.id.numel(),
+                     lv.leaf.id.numel(), int(lv.wide), lv.first,
+                     lv.node_first, lv.leaf_first, ptr(node.id),
+                     ptr(node.off), ptr(node.base), ptr(lv.leaf.id),
+                     ptr(lv.leaf.off), ptr(lv.leaf.base), ptr(lv.leaf.sig)])
+    return np.ascontiguousarray(rows, dtype=np.int64)
+
+
+def device_tables(compiled: CompiledProblem, device=None, *,
+                  wide: bool = False,
+                  block_bytes: int = SCATTER_BLOCK_BYTES) -> GatherTables:
+    """The tree engine's tables on ``device`` (``cuda`` unless named):
+    the prefix tree of the event chains (`tree.build_tree`), its levels
+    above the last as built, every event a leaf at the level where its
+    chain ends (sorted by node), and the scatter over the leaves' values.
+    ``wide`` makes every id, offset and signature 32 bits (tests);
+    ``block_bytes`` sizes the scatter's value blocks."""
+    tr = tree_mod.build_tree(compiled.e_num, compiled.e_den,
+                             compiled.pyramid_size - 1,
+                             compiled.pyramid_size)
+    b = _Builder(compiled, device, wide)
+    e_sig = np.asarray(compiled.e_sig)
+    levels, orders = [], []
+    node_first = leaf_first = ended = 0
+    for l, lv in enumerate(tr.levels):
+        first, _, pid = b.dictionary(lv.num, lv.den)
+        o = np.argsort(lv.ev_node, kind="stable")
+        leaf_node = lv.ev_node[o]
+        events = tr.event_order[ended:ended + len(o)][o]
+        ended += len(o)
+        last = l == len(tr.levels) - 1
+        node_tiles = None if last or not l else _parent_tiles(lv.parent)
+        leaf_tiles = _parent_tiles(lv.parent[leaf_node]) if l else None
+        w = not b.narrow(pid, *(x[1] for x in (node_tiles, leaf_tiles)
+                                if x is not None))
+        node = None if last else b.slab(pid, node_tiles, None, w)
+        levels.append(Level(
+            first=first, wide=w, node=node,
+            leaf=b.slab(pid[leaf_node], leaf_tiles, e_sig[events], w),
+            node_first=node_first, leaf_first=leaf_first))
+        orders.append(events)
+        node_first += 0 if last else len(pid)
+        leaf_first += len(o)
+    return _tables(b, "tree", levels, None, np.concatenate(orders).astype(
+        np.int64), block_bytes, tr.num_nodes)
+
+
+def chain_tables(compiled: CompiledProblem, device=None, *,
+                 wide: bool = False,
+                 block_bytes: int = SCATTER_BLOCK_BYTES) -> GatherTables:
     """The chain engine's tables on ``device``: each event's padded chain
-    as compiled, and the compiled scatter."""
-    ent = _entries(compiled.ev_idx, compiled.ev_sign, compiled.ev_tgt,
-                   np.arange(compiled.num_events), compiled.e_sig,
-                   compiled.state_size)
-    return _tables(compiled, "chains", device, compiled.e_num,
-                   compiled.e_den, None, None, ent)
+    as compiled, a column at a time (column-major: a column's ids lie
+    together), each event's signature, and the scatter over the events
+    in compiled order. ``wide`` and ``block_bytes`` as in
+    `device_tables`."""
+    b = _Builder(compiled, device, wide)
+    levels = []
+    for c in range(compiled.e_num.shape[1]):
+        first, _, pid = b.dictionary(compiled.e_num[:, c],
+                                     compiled.e_den[:, c])
+        w = not b.narrow(pid)
+        levels.append(Level(first=first, wide=w, node=None,
+                            leaf=Slab(id=b.put(pid, w))))
+    e_sig = np.asarray(compiled.e_sig)
+    sig = b.put(e_sig, not b.narrow(e_sig))
+    return _tables(b, "chains", levels, sig,
+                   np.arange(compiled.num_events, dtype=np.int64),
+                   block_bytes, 0)
 
 
 # --- Plain versions ----------------------------------------------------------
 
 
-def tree_values_plain(t: GatherTables, p: torch.Tensor,
-                      low: torch.Tensor) -> torch.Tensor:
-    """Plain version of K7's levels: every node's value, level by level,
-    ``g(pyr[num], pyr[den]) * value[parent]`` (the ratio alone at level
-    0), pyr = [p, low]."""
-    tree_values_plain.calls += 1
+def ratios_plain(t: GatherTables, p: torch.Tensor,
+                 low: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7's and K8's phase 0 ratios: every dictionary
+    entry's ``g(pyr[num], pyr[den])``, pyr = [p, low]."""
     pyr = torch.cat([p, low])
-    out, prev = [], None
-    for lo, hi in zip(t.level_ptr[:-1], t.level_ptr[1:]):
-        r = guarded_ratio(pyr[t.num[lo:hi].long()], pyr[t.den[lo:hi].long()])
-        prev = r if prev is None else r * prev[t.parent[lo:hi].long()]
-        out.append(prev)
-    return torch.cat(out)
+    return guarded_ratio(pyr[t.dict_num.long()], pyr[t.dict_den.long()])
+
+
+def _slab_values(ratio, lv: Level, sl: Slab, prev):
+    """A level's node or leaf values, `gather_rule.cuh:k7_value`."""
+    r = ratio[lv.first + ids(sl.id)]
+    if prev is None:
+        return r
+    i = torch.arange(sl.id.numel(), device=r.device)
+    return r * prev[sl.base.long()[i // TILE] + ids(sl.off)]
+
+
+def tree_values_plain(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
+                      s: torch.Tensor) -> torch.Tensor:
+    """Plain version of K7's values launch: the event (leaf) values,
+    level by level ``R[id] * value[parent]`` (the ratio alone at level
+    0), each leaf's times its signature's weight ``s``."""
+    tree_values_plain.calls += 1
+    ratio = ratios_plain(t, p, low)
+    ev = torch.empty(t.num_values, dtype=p.dtype, device=p.device)
+    prev = None
+    for lv in t.levels:
+        v = _slab_values(ratio, lv, lv.leaf, prev)
+        ev[lv.leaf_first:lv.leaf_first + v.numel()] = v * s[ids(lv.leaf.sig)]
+        if lv.node is not None:
+            prev = _slab_values(ratio, lv, lv.node, prev)
+    return ev
 
 
 tree_values_plain.calls = 0
 
 
-def chain_values_plain(t: GatherTables, p: torch.Tensor,
-                       low: torch.Tensor) -> torch.Tensor:
-    """Plain version of K8's chains: each event's guarded ratios
-    multiplied in chain order."""
+def chain_values_plain(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
+                       s: torch.Tensor) -> torch.Tensor:
+    """Plain version of K8's values launch: each event's ratios
+    multiplied in chain order, times its signature's weight ``s``."""
     chain_values_plain.calls += 1
-    pyr = torch.cat([p, low])
-    g = guarded_ratio(pyr[t.num.long()], pyr[t.den.long()])
-    prod = g[:, 0].clone()
-    for c in range(1, g.shape[1]):
-        prod = prod * g[:, c]
-    return prod
+    ratio = ratios_plain(t, p, low)
+    prod = None
+    for col in t.levels:
+        r = ratio[col.first + ids(col.leaf.id)]
+        prod = r if prod is None else prod * r
+    return prod * s[ids(t.sig)]
 
 
 chain_values_plain.calls = 0
 
 
-def scatter_plain(t: GatherTables, vals: torch.Tensor, s: torch.Tensor,
+def entry_terms(t: GatherTables, ev: torch.Tensor) -> torch.Tensor:
+    """Each scatter entry's term: +-ev[index], the minus where the
+    entry's sign bit is set."""
+    e = t.ent.long()
+    v = ev[e & (_MINUS - 1)]
+    return torch.where(e < 0, -v, v)
+
+
+def entry_targets(t: GatherTables) -> torch.Tensor:
+    """Each scatter entry's target window, int64 on ``t``'s device."""
+    ptr = t.item_ptr.long()
+    items = torch.arange(t.n_blk * t.state_size, device=ptr.device)
+    return torch.repeat_interleave(items % t.state_size, ptr[1:] - ptr[:-1])
+
+
+def scatter_plain(t: GatherTables, ev: torch.Tensor,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K7's and K8's scatter, in the kernels' order: for
-    each target, lane l (of 32) adds the terms +-(vals[val] * s[sig]) of
-    its entries l, l + 32, ... from 0.0, then the partials are folded in
-    halves (lane l + 16 onto l, then 8, 4, 2, 1), as the warp's xor
-    butterfly gives lane 0."""
+    each item (value block b, target t), lane l (of 32) adds the terms
+    of its entries l, l + 32, ... from 0.0, then the partials are folded
+    in halves (lane l + 16 onto l, then 8, 4, 2, 1), as the warp's xor
+    butterfly gives lane 0; a target's item sums are then added from
+    block 0 up."""
     scatter_plain.calls += 1
     n_tgt = t.state_size
     if out is not None:
-        dense._checked_out(out, n_tgt, vals.device)
-    ptr = t.tgt_ptr.long()
-    g = t.ent_sig.long()
-    neg = g < 0
-    v = vals[t.ent_val.long()] * s[torch.where(neg, ~g, g)]
-    term = torch.where(neg, -v, v)
-    counts = ptr[1:] - ptr[:-1]
-    tgt = torch.repeat_interleave(torch.arange(n_tgt, device=ptr.device),
-                                  counts)
-    rank = torch.arange(term.numel(), device=ptr.device) - ptr[tgt]
-    slot = tgt * LANES + rank % LANES
+        dense._checked_out(out, n_tgt, ev.device)
+    n_items = t.n_blk * n_tgt
+    ptr = t.item_ptr.long()
+    term = entry_terms(t, ev)
+    item = torch.repeat_interleave(torch.arange(n_items, device=ptr.device),
+                                   ptr[1:] - ptr[:-1])
+    rank = torch.arange(term.numel(), device=ptr.device) - ptr[item]
+    slot = item * LANES + rank % LANES
     row = rank // LANES
     order = torch.argsort(row, stable=True)
     bounds = torch.bincount(row, minlength=1).cumsum(0).tolist()
-    part = torch.zeros(n_tgt * LANES, dtype=vals.dtype, device=vals.device)
+    part = torch.zeros(n_items * LANES, dtype=ev.dtype, device=ev.device)
     start = 0
-    for stop in bounds:  # one row of every target's lanes at a time
+    for stop in bounds:  # one row of every item's lanes at a time
         sel = order[start:stop]
         part.index_add_(0, slot[sel], term[sel])
         start = stop
-    x = part.view(n_tgt, LANES)
+    x = part.view(n_items, LANES)
     while x.shape[1] > 1:
         h = x.shape[1] // 2
         x = x[:, :h] + x[:, h:]
-    dy = x[:, 0]
+    x = x[:, 0].view(t.n_blk, n_tgt)
+    dy = x[0]
+    for b in range(1, t.n_blk):
+        dy = dy + x[b]
     return dy if out is None else out.copy_(dy)
 
 
@@ -258,41 +477,52 @@ def _check(t: GatherTables, p, low, out):
     return p.contiguous(), low.contiguous(), dy
 
 
-def _head(t: GatherTables, p, low, s):
+def _empty(n, device):
+    return torch.empty(max(n, 1), dtype=torch.float64, device=device)
+
+
+def _head(t: GatherTables, p, low):
+    """`ckpe_tree_rhs`'s and `ckpe_chain_rhs`'s first arguments (phase
+    0's), with the signature weights and ratios they write."""
     c = t.compiled
+    s = _empty(c.num_signatures, p.device)
+    ratio = _empty(t.dict_num.numel(), p.device)
     return (p.data_ptr(), low.data_ptr(), t.state_size, c.size_a, c.cl_k,
             t.pair_num.data_ptr(), t.pair_den.data_ptr(),
             t.pair_const.data_ptr(), t.pair_num.shape[1],
-            t.csr_ptr.data_ptr(), c.num_signatures, s.data_ptr())
+            t.csr_ptr.data_ptr(), c.num_signatures, s.data_ptr(),
+            t.dict_num.data_ptr(), t.dict_den.data_ptr(),
+            t.dict_num.numel(), ratio.data_ptr()), (s, ratio)
 
 
-def _tail(t: GatherTables, vals, dy, p):
-    return (vals.data_ptr(), t.ent_val.data_ptr(), t.ent_sig.data_ptr(),
-            t.tgt_ptr.data_ptr(), t.state_size, dy.data_ptr(),
-            cuda.stream(p))
+def _tail(t: GatherTables, ev, dy, stream_of):
+    """The scatter's arguments, with the partials buffer it writes."""
+    part = _empty(t.n_blk * t.state_size if t.n_blk > 1 else 0, ev.device)
+    return (ev.data_ptr(), t.ent.data_ptr(), t.item_ptr.data_ptr(),
+            t.state_size, t.n_blk, part.data_ptr(), dy.data_ptr(),
+            cuda.stream(stream_of)), part
 
 
 def tree_rhs(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
              out: torch.Tensor | None = None) -> torch.Tensor:
     """K7: dp/dt from the state ``p`` and the levels below it (``low``,
     `dense.pyramids`) over the tree's tables, into ``out`` (a new tensor
-    when None): on a card the signature weights, a launch a level and the
-    scatter from one C call, on the CPU the plain versions."""
+    when None): on a card two launches from one C call (the values, the
+    scatter), on the CPU the plain versions."""
     if t.kind != "tree":
         raise ValueError("tree_rhs needs the tree's tables (device_tables)")
     if not cuda.on_card(p, "tree_rhs"):
         s = dense.signature_weights_plain(t, p, low)
-        return scatter_plain(t, tree_values_plain(t, p, low), s, out)
+        return scatter_plain(t, tree_values_plain(t, p, low, s), out)
     p, low, dy = _check(t, p, low, out)
-    s = torch.empty(t.compiled.num_signatures, dtype=torch.float64,
-                    device=p.device)
-    vals = torch.empty(t.num_values, dtype=torch.float64, device=p.device)
+    nv = _empty(t.num_node_values, p.device)
+    ev = _empty(t.num_values, p.device)
+    head, keep = _head(t, p, low)
+    tail, part = _tail(t, ev, dy, p)
     lib = cuda.load()
     with torch.cuda.device(p.device):
-        rc = lib.ckpe_tree_rhs(
-            *_head(t, p, low, s), t.num.data_ptr(), t.den.data_ptr(),
-            t.parent.data_ptr(), t.level_ptr.ctypes.data, t.num_levels,
-            *_tail(t, vals, dy, p))
+        rc = lib.ckpe_tree_rhs(*head, t.desc.ctypes.data, len(t.levels),
+                               nv.data_ptr(), *tail)
     cuda.check(rc, "tree_rhs", lib)
     tree_rhs.launches += t.launches
     return dy
@@ -303,23 +533,23 @@ tree_rhs.launches = 0
 
 def chain_rhs(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
               out: torch.Tensor | None = None) -> torch.Tensor:
-    """K8: as `tree_rhs` over the padded chains (`chain_tables`): the
-    signature weights, every event's chain product and the scatter, 3
-    launches from one C call on a card."""
+    """K8: as `tree_rhs` over the chain tables (`chain_tables`): phase 0
+    and every event's chain product, then the scatter, two launches from
+    one C call on a card."""
     if t.kind != "chains":
         raise ValueError("chain_rhs needs the chain tables (chain_tables)")
     if not cuda.on_card(p, "chain_rhs"):
         s = dense.signature_weights_plain(t, p, low)
-        return scatter_plain(t, chain_values_plain(t, p, low), s, out)
+        return scatter_plain(t, chain_values_plain(t, p, low, s), out)
     p, low, dy = _check(t, p, low, out)
-    s = torch.empty(t.compiled.num_signatures, dtype=torch.float64,
-                    device=p.device)
-    vals = torch.empty(t.num_values, dtype=torch.float64, device=p.device)
+    ev = _empty(t.num_values, p.device)
+    head, keep = _head(t, p, low)
+    tail, part = _tail(t, ev, dy, p)
     lib = cuda.load()
     with torch.cuda.device(p.device):
-        rc = lib.ckpe_chain_rhs(
-            *_head(t, p, low, s), t.num.data_ptr(), t.den.data_ptr(),
-            t.num.shape[1], t.num_values, *_tail(t, vals, dy, p))
+        rc = lib.ckpe_chain_rhs(*head, t.desc.ctypes.data, len(t.levels),
+                                t.sig.data_ptr(), int(t.sig_wide()),
+                                t.num_values, *tail)
     cuda.check(rc, "chain_rhs", lib)
     chain_rhs.launches += t.launches
     return dy
@@ -328,26 +558,26 @@ def chain_rhs(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
 chain_rhs.launches = 0
 
 
-def scatter(t: GatherTables, vals: torch.Tensor, s: torch.Tensor,
+def scatter(t: GatherTables, ev: torch.Tensor,
             out: torch.Tensor | None = None) -> torch.Tensor:
-    """K7's and K8's scatter stage alone, one launch on a card (the
-    plain version on the CPU): dp/dt from the values ``vals`` (nodes or
-    events) and the signature weights ``s``. The RHS runs it inside
+    """K7's and K8's scatter alone, one launch on a card (the plain
+    version on the CPU): dp/dt from the event values ``ev`` (each
+    already times its signature's weight). The RHS runs it inside
     `tree_rhs` and `chain_rhs`; this times it apart."""
-    if not cuda.on_card(vals, "scatter"):
-        return scatter_plain(t, vals, s, out)
+    if not cuda.on_card(ev, "scatter"):
+        return scatter_plain(t, ev, out)
     n = t.state_size
-    n_sig = t.compiled.num_signatures
-    if (vals.shape != (t.num_values,) or s.shape != (n_sig,)
-            or vals.dtype != torch.float64 or s.dtype != torch.float64):
-        raise TypeError("vals and s must be the tables' float64 values and "
-                        "signature weights")
-    dy = (torch.empty(n, dtype=torch.float64, device=vals.device)
-          if out is None else dense._checked_out(out, n, vals.device))
+    if ev.shape != (t.num_values,) or ev.dtype != torch.float64:
+        raise TypeError("ev must be the tables' float64 event values")
+    if ev.device != t.device:
+        raise ValueError(f"ev on {ev.device}, the tables on {t.device}")
+    dy = (torch.empty(n, dtype=torch.float64, device=ev.device)
+          if out is None else dense._checked_out(out, n, ev.device))
+    ev = ev.contiguous()
+    tail, part = _tail(t, ev, dy, ev)
     lib = cuda.load()
-    with torch.cuda.device(vals.device):
-        rc = lib.ckpe_gather_scatter(s.contiguous().data_ptr(),
-                                     *_tail(t, vals.contiguous(), dy, vals))
+    with torch.cuda.device(ev.device):
+        rc = lib.ckpe_gather_scatter(*tail)
     cuda.check(rc, "scatter", lib)
     scatter.launches += 1
     return dy
@@ -367,7 +597,7 @@ def gather_plain(t: GatherTables, p: torch.Tensor,
     low = dense.pyramids(t.compiled, p, plain=True)
     s = dense.signature_weights_plain(t, p, low)
     values = tree_values_plain if t.kind == "tree" else chain_values_plain
-    return scatter_plain(t, values(t, p, low), s, out)
+    return scatter_plain(t, values(t, p, low, s), out)
 
 
 def dy_dt_from_tables(t: GatherTables, p: torch.Tensor,

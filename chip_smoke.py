@@ -72,14 +72,20 @@ Phases (each prints its wall time; every check raises on failure):
    mean samples a step;
 7. the gather engine, dual SPDs and chunked solves: ex4 at cl_k 5
    compiled through `compile_problem` (the C++ expander; its seconds,
-   events, tree nodes and table bytes); dp/dt by K7 (the prefix tree)
-   and K8 (the padded chains) equal to their plain versions on the card
-   bit for bit and within rtol 1e-12, atol 1e-14 of the dense RHS
-   (K3-K5), on p0 and on a random SPD with p[0] = -1e-13; their
-   launches an RHS, counted, no plain version called; each kernel's
-   time beside its byte bound and its plain version, the scatter stage
-   alone against `index_add_` of the same signed terms, the RHS against
-   the dense one; the main paths: ex4 scenario a solved at cl_k 5
+   events, tree nodes); the compact tables' build seconds and bytes on
+   the card beside the flat tables' (an int32 num, den and parent a
+   node, 8-byte entries), each tree level's and chain column's
+   dictionary size and id width, the scatter's value blocks; dp/dt by
+   K7 (the prefix tree) and K8 (the chains) equal to their plain
+   versions on the card bit for bit, twice the same bits, with 16-bit
+   ids and with every id 32 bits (the same dy), and within rtol 1e-12,
+   atol 1e-14 of the dense RHS (K3-K5), on p0 and on a random SPD with
+   p[0] = -1e-13; their launches an RHS (2), counted, no plain version
+   called; each kernel's time beside its byte bound over the compact
+   tables and over the flat ones and its plain version, the scatter
+   stage alone (in its value blocks and in one block) against
+   `index_add_` of the same signed terms, the RHS against the dense
+   one; the main paths: ex4 scenario a solved at cl_k 5
    through `build_dy_dt(engine="tree")` and through the chain engine,
    each within 2e-6 rel of the oracle, with its steps and its gap to
    phase 6's dense solve; the dense dual solves of
@@ -935,6 +941,7 @@ GATHER_KERNELS = {
            "(XLA)"),
 }
 GATHER_WRAPPERS = {"K7": trhs.tree_rhs, "K8": trhs.chain_rhs}
+GATHER_KEY = {"tree": "K7", "chains": "K8"}
 GATHER_PLAIN = [trhs.tree_values_plain, trhs.chain_values_plain,
                 trhs.scatter_plain]
 EXAMPLES = Path(__file__).resolve().parent / "examples"
@@ -992,34 +999,75 @@ def nbytes(*tensors):
                if x is not None)
 
 
+def table_bytes(t):
+    """Bytes of K7's or K8's own tables: the dictionaries' pyramid
+    indices, every level's (column's) ids, parent offsets and bases and
+    signatures, the entries and the items' CSR."""
+    slabs = [sl for lv in t.levels for sl in (lv.node, lv.leaf) if sl]
+    return nbytes(t.dict_num, t.dict_den, t.sig, t.ent, t.item_ptr,
+                  *(x for sl in slabs for x in (sl.id, sl.off, sl.base,
+                                                sl.sig)))
+
+
+def _io_bytes(t):
+    """p and the levels read once, the signature weights and dy written
+    once, each signature's pairs read once."""
+    n, n_sig = t.state_size, t.compiled.num_signatures
+    return (8 * n + 8 * tdense.low_size(t.compiled) + 8 * n_sig + 8 * n
+            + nbytes(t.pair_num, t.pair_den, t.pair_const, t.csr_ptr))
+
+
 def gather_bytes(t):
     """Least bytes of K7 or K8 (``t``'s kind) for one RHS: every table
-    read once (the signature pairs, the tree's nodes or the chains, the
-    entries, the targets' CSR), p and the levels read once, the
-    signature weights and dy written once; and of the scatter stage
-    alone (the entries, the CSR, the values and weights read, dy
+    read once (`table_bytes`), with `_io_bytes`; and of the scatter stage
+    alone (the entries and the items' CSR, the event values read, dy
     written)."""
-    n, n_sig = t.state_size, t.compiled.num_signatures
-    io = 8 * n + 8 * tdense.low_size(t.compiled) + 8 * n_sig + 8 * n
-    worlds = nbytes(t.pair_num, t.pair_den, t.pair_const, t.csr_ptr)
-    entries = nbytes(t.ent_val, t.ent_sig, t.tgt_ptr)
-    full = io + worlds + nbytes(t.num, t.den, t.parent) + entries
-    scatter = entries + 8 * t.num_values + 8 * n_sig + 8 * n
-    return full, scatter
+    scatter = nbytes(t.ent, t.item_ptr) + 8 * t.num_values + 8 * t.state_size
+    return _io_bytes(t) + table_bytes(t), scatter
 
 
-def entry_targets(t):
-    """Each scatter entry's target, as int64 on ``t``'s device."""
-    ptr = t.tgt_ptr.long()
-    return torch.repeat_interleave(
-        torch.arange(t.state_size, device=ptr.device), ptr[1:] - ptr[:-1])
+def flat_gather_bytes(t):
+    """The same least bytes over the flat tables the kernels read before
+    the compact ones: an int32 num, den and parent a tree node (the tree
+    as built), or an int32 num and den a chain slot; an int32 value
+    index and an int32 signed signature an entry; the targets' CSR."""
+    c = t.compiled
+    tables = (12 * t.num_nodes if t.kind == "tree"
+              else 8 * c.e_num.size)
+    entries = 8 * t.ent.numel() + 4 * (t.state_size + 1)
+    return _io_bytes(t) + tables + entries
 
 
-def signed_terms(t, vals, s):
-    g = t.ent_sig.long()
-    neg = g < 0
-    v = vals[t.ent_val.long()] * s[torch.where(neg, ~g, g)]
-    return torch.where(neg, -v, v)
+def one_block(t):
+    """``t`` with its scatter in one value block: the same entries,
+    sorted by target (stably), and the targets' CSR."""
+    tgt = trhs.entry_targets(t)
+    order = torch.sort(tgt, stable=True).indices
+    counts = torch.bincount(tgt, minlength=t.state_size)
+    ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
+    return dataclasses.replace(t, ent=t.ent[order].contiguous(),
+                               item_ptr=ptr, n_blk=1)
+
+
+def dict_sizes(t):
+    """Each tree level's or chain column's dictionary size."""
+    firsts = [lv.first for lv in t.levels] + [t.dict_num.numel()]
+    return [b - a for a, b in zip(firsts, firsts[1:])]
+
+
+def describe_tables(t):
+    """A line a tree level (its dictionary, width, nodes and leaves), or
+    one for the chain columns."""
+    sizes = dict_sizes(t)
+    if t.kind == "chains":
+        return [f"chain columns: dictionaries {sizes} pairs, ids "
+                f"{[32 if lv.wide else 16 for lv in t.levels]} bits, "
+                f"signatures {32 if t.sig_wide() else 16} bits"]
+    return [f"tree level {i}: dictionary {size} pairs, "
+            f"{32 if lv.wide else 16}-bit ids and offsets; "
+            f"{lv.node.id.numel() if lv.node else 0} nodes, "
+            f"{lv.leaf.id.numel()} leaves (events)"
+            for i, (lv, size) in enumerate(zip(t.levels, sizes))]
 
 
 def random_spd_guarded(gen, n, dev):
@@ -1050,11 +1098,13 @@ def solve_obs(fn, p0, dev, **kw):
     return dict(zip(SEQS, obs[-1].tolist())), info, seconds
 
 
-def gather_rhs_checks(dev, gen, fns, dense_fn, compiled, max_err):
+def gather_rhs_checks(dev, gen, fns, wide, dense_fn, compiled, max_err):
     """K7 and K8 at ex4 cl_k 5 against their plain versions on the card
-    (bit for bit) and against the dense RHS (K3-K5), on p0 and on a
-    random SPD with p[0] = -1e-13; their launches an RHS, counted, with
-    no plain call; returns the inputs the timings use."""
+    (bit for bit; twice, the same bits) and against the dense RHS
+    (K3-K5), on p0 and on a random SPD with p[0] = -1e-13, over the
+    16-bit tables (``fns``' own) and over ``wide`` (every id 32 bits),
+    which must give the same dy; their launches an RHS, counted, with no
+    plain call; returns the inputs the timings use."""
     k = GATHER_CL_K
     p0 = torch.as_tensor(chemical_turing_p0(k, powered_fraction=0.04)
                          .ravel(), device=dev)
@@ -1065,23 +1115,33 @@ def gather_rhs_checks(dev, gen, fns, dense_fn, compiled, max_err):
         low = tdense.pyramids(compiled, p)
         want_dense = dense_fn(p)
         for key, fn in fns.items():
-            t = fn.tables
-            got = GATHER_WRAPPERS[key](t, p, low)
-            plain = trhs.gather_plain(t, p)
-            torch.cuda.synchronize()
-            err = float((got - plain).abs().max())
-            if not torch.equal(got, plain):
-                raise AssertionError(f"{key} on {name}: != plain, max |diff| "
-                                     f"{err}")
-            max_err[key] = max(max_err[key], err)
-            diff = float((got - want_dense).abs().max())
-            if not torch.allclose(got, want_dense, rtol=RHS_RTOL,
+            kern = GATHER_WRAPPERS[key]
+            dys = []
+            for label, t in (("16-bit", fn.tables), ("32-bit", wide[key])):
+                got = kern(t, p, low)
+                again = kern(t, p, low)
+                plain = trhs.gather_plain(t, p)
+                torch.cuda.synchronize()
+                err = float((got - plain).abs().max())
+                if not torch.equal(got, plain):
+                    raise AssertionError(f"{key} {label} on {name}: != "
+                                         f"plain, max |diff| {err}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{key} {label} on {name}: two "
+                                         "runs differ")
+                dys.append(got)
+                max_err[key] = max(max_err[key], err)
+            if not torch.equal(dys[0], dys[1]):
+                raise AssertionError(f"{key} on {name}: 16-bit != 32-bit")
+            diff = float((dys[0] - want_dense).abs().max())
+            if not torch.allclose(dys[0], want_dense, rtol=RHS_RTOL,
                                   atol=RHS_ATOL):
                 raise AssertionError(f"{key} on {name}: != dense RHS, max "
                                      f"|diff| {diff}")
             max_err[key + " vs dense"] = max(max_err[key + " vs dense"], diff)
     say(f"ex4 cl_k {k}: K7 and K8 == their plain versions on the card, bit "
-        f"for bit, and within rtol {RHS_RTOL}, atol {RHS_ATOL} of the dense "
+        f"for bit, twice the same bits, 16-bit ids == 32-bit ids, and "
+        f"within rtol {RHS_RTOL}, atol {RHS_ATOL} of the dense "
         f"RHS (K3-K5) on p0 and a random SPD with p[0] = -1e-13 (max |diff| "
         f"from dense: K7 {max_err['K7 vs dense']:.3e}, K8 "
         f"{max_err['K8 vs dense']:.3e})")
@@ -1104,9 +1164,11 @@ def gather_rhs_checks(dev, gen, fns, dense_fn, compiled, max_err):
 
 def time_gather(dev, fns, dense_fn, compiled, p):
     """Each of K7 and K8 on ``p``: the kernel, its plain version, its
-    byte bound, the scatter stage alone against `index_add_` of the same
-    signed terms (checked against it), and the RHS (K3 and the kernel)
-    against the dense RHS, on the card and as the host paces it."""
+    byte bounds (the compact tables and the flat ones), the scatter
+    stage alone (its value blocks and one block) against `index_add_`
+    of the same signed terms (checked against it), and the RHS (K3 and
+    the kernel) against the dense RHS, on the card and as the host paces
+    it."""
     low = tdense.pyramids(compiled, p)
     out = {}
     for key, fn in fns.items():
@@ -1115,9 +1177,10 @@ def time_gather(dev, fns, dense_fn, compiled, p):
         values = (trhs.tree_values_plain if t.kind == "tree"
                   else trhs.chain_values_plain)
         s = tdense.signature_weights_plain(t, p, low)
-        vals = values(t, p, low)
-        tgt = entry_targets(t)
-        terms = signed_terms(t, vals, s)
+        ev = values(t, p, low, s)
+        tgt = trhs.entry_targets(t)
+        terms = trhs.entry_terms(t, ev)
+        t1 = one_block(t)
         n = t.state_size
 
         def library():
@@ -1125,29 +1188,35 @@ def time_gather(dev, fns, dense_fn, compiled, p):
                                device=dev).index_add_(0, tgt, terms)
 
         lib_dy = library()
-        sc_dy = trhs.scatter(t, vals, s)
+        sc_dy = trhs.scatter(t, ev)
+        one_dy = trhs.scatter(t1, ev)
         torch.cuda.synchronize()
-        if not torch.allclose(lib_dy, sc_dy, rtol=RHS_RTOL, atol=RHS_ATOL):
-            raise AssertionError(f"{key}: index_add_ yardstick != scatter")
+        for name, dy in (("scatter", sc_dy), ("one-block scatter", one_dy)):
+            if not torch.allclose(lib_dy, dy, rtol=RHS_RTOL, atol=RHS_ATOL):
+                raise AssertionError(f"{key}: index_add_ yardstick != {name}")
         full_b, scatter_b = gather_bytes(t)
         host = []
         out[key] = {
             "ms": cuda_ms(lambda: kern(t, p, low), 20, warmup=2, host=host),
-            "plain_ms": cuda_ms(lambda: trhs.scatter_plain(
-                t, values(t, p, low), tdense.signature_weights_plain(
-                    t, p, low)), 2, warmup=0),
+            "plain_ms": cuda_ms(lambda: trhs.scatter_plain(t, values(
+                t, p, low, tdense.signature_weights_plain(t, p, low))), 2,
+                warmup=0),
             "bound_ms": full_b / HBM_BYTES_PER_S * 1e3,
+            "bound_flat_tables_ms": flat_gather_bytes(t) / HBM_BYTES_PER_S
+            * 1e3,
             "library_ms": cuda_ms(library, 20, warmup=2),
-            "scatter_ms": cuda_ms(lambda: trhs.scatter(t, vals, s), 20,
-                                  warmup=2),
+            "scatter_ms": cuda_ms(lambda: trhs.scatter(t, ev), 20, warmup=2),
+            "scatter_one_block_ms": cuda_ms(lambda: trhs.scatter(t1, ev), 20,
+                                            warmup=2),
             "scatter_bound_ms": scatter_b / HBM_BYTES_PER_S * 1e3,
+            "value_blocks": t.n_blk,
             "launches_per_call": t.launches,
             "host_us_per_launch": host[0] * 1e3 / t.launches,
             "rhs_ms": cuda_ms(lambda: fn(p), 20, warmup=2),
             "rhs_paced_ms": wall_ms(lambda: fn(p), 20),
-            "bytes": full_b, "values": t.num_values,
-            "entries": t.ent_val.numel()}
-        del vals, tgt, terms, lib_dy, sc_dy
+            "bytes": full_b, "flat_bytes": flat_gather_bytes(t),
+            "values": t.num_values, "entries": t.ent.numel()}
+        del ev, tgt, terms, lib_dy, sc_dy, one_dy, t1
     out["dense_rhs_ms"] = cuda_ms(lambda: dense_fn(p), 20, warmup=2)
     out["dense_rhs_paced_ms"] = wall_ms(lambda: dense_fn(p), 20)
     return out
@@ -1230,7 +1299,7 @@ def dual_checks(dev, gen, dense_fn):
     counts, plain = gather_counts()
     say(f"dual ex4 cl_k {k} (2 x {n} states): compile_problem_dual "
         f"{compile_s:.2f} s ({dual_c.num_events} events), tree tables "
-        f"{tables_s:.2f} s ({tree_dual.state_fn.tables.num_values} nodes); "
+        f"{tables_s:.2f} s ({tree_dual.state_fn.tables.num_nodes} nodes); "
         f"dense dual == tree dual (max |diff| {diff:.3e}); at p_prog = "
         f"p_data the halves sum to the shared RHS (max |diff| "
         f"{sum_diff:.3e}); one RHS each: launches {counts} (K3 once a tape "
@@ -1310,34 +1379,47 @@ def gather_phase(dev, kernels, dense_finals):
     chain_fn = trhs.make_chain_dy_dt(compiled, device=dev)
     chain_s = time.perf_counter() - t0
     tt, ct = tree_fn.tables, chain_fn.tables
-    dev_bytes = {key: nbytes(t.num, t.den, t.parent, t.ent_val, t.ent_sig,
-                             t.tgt_ptr) for key, t in (("tree", tt),
-                                                       ("chains", ct))}
+    t0 = time.perf_counter()
+    wide = {"K7": trhs.device_tables(compiled, dev, wide=True),
+            "K8": trhs.chain_tables(compiled, dev, wide=True)}
+    wide_s = time.perf_counter() - t0
     say(f"ex4 cl_k {k} through compile_problem (the C++ expander): "
         f"{compile_s:.2f} s, {compiled.num_worlds} worlds, "
         f"{compiled.num_signatures} signatures, {compiled.num_events} events "
         f"(chains up to {compiled.e_num.shape[1]}), {len(compiled.ev_idx)} "
         f"scatter entries, tables {host_bytes / 1e6:.1f} MB; tree tables "
-        f"{tree_s:.2f} s: {tt.num_values} nodes in {tt.num_levels} levels, "
-        f"{dev_bytes['tree'] / 1e6:.1f} MB on the card; chain tables "
-        f"{chain_s:.2f} s, {dev_bytes['chains'] / 1e6:.1f} MB")
+        f"{tree_s:.2f} s: {tt.num_nodes} nodes in {tt.num_levels} levels, "
+        f"{tt.num_node_values} above the last; chain tables {chain_s:.2f} "
+        f"s; both with 32-bit ids {wide_s:.2f} s")
+    for key, t in (("tree", tt), ("chains", ct)):
+        say(f"{key} tables on the card: {table_bytes(t) / 1e6:.1f} MB "
+            f"(32-bit ids {table_bytes(wide[GATHER_KEY[key]]) / 1e6:.1f}; "
+            f"the flat tables {(flat_gather_bytes(t) - _io_bytes(t)) / 1e6:.1f}"
+            f"), {t.dict_num.numel()} dictionary entries, {t.n_blk} value "
+            f"blocks of the scatter")
+        for line in describe_tables(t):
+            say("  " + line)
     dense_fn = tdense.make_dense_dy_dt(tdense.compile_dense(EX4, k),
                                        device=dev)
     fns = {"K7": tree_fn, "K8": chain_fn}
     max_err = {"K7": 0.0, "K8": 0.0, "K7 vs dense": 0.0, "K8 vs dense": 0.0}
-    p0, per_rhs = gather_rhs_checks(dev, gen, fns, dense_fn, compiled,
+    p0, per_rhs = gather_rhs_checks(dev, gen, fns, wide, dense_fn, compiled,
                                     max_err)
+    del wide
     times = time_gather(dev, fns, dense_fn, compiled, p0)
     for key in fns:
         t = times[key]
         say(f"{key} cl_k {k}: {t['ms'] * 1e3:.1f} us a call on the card "
             f"({t['launches_per_call']} launches) against a bound of "
-            f"{t['bound_ms'] * 1e3:.1f} us ({t['bytes'] / 1e6:.1f} MB); "
-            f"plain {t['plain_ms'] * 1e3:.1f} us; scatter alone "
-            f"{t['scatter_ms'] * 1e3:.1f} us against a bound of "
-            f"{t['scatter_bound_ms'] * 1e3:.1f} us and index_add_ of the "
-            f"same signed terms {t['library_ms'] * 1e3:.1f} us; the RHS "
-            f"(K3 + {key}) {t['rhs_ms'] * 1e3:.1f} us on the card, "
+            f"{t['bound_ms'] * 1e3:.1f} us ({t['bytes'] / 1e6:.1f} MB; over "
+            f"the flat tables {t['bound_flat_tables_ms'] * 1e3:.1f} us, "
+            f"{t['flat_bytes'] / 1e6:.1f} MB); plain "
+            f"{t['plain_ms'] * 1e3:.1f} us; scatter alone "
+            f"{t['scatter_ms'] * 1e3:.1f} us in {t['value_blocks']} value "
+            f"blocks, {t['scatter_one_block_ms'] * 1e3:.1f} in one, against "
+            f"a bound of {t['scatter_bound_ms'] * 1e3:.1f} us and index_add_ "
+            f"of the same signed terms {t['library_ms'] * 1e3:.1f} us; the "
+            f"RHS (K3 + {key}) {t['rhs_ms'] * 1e3:.1f} us on the card, "
             f"{t['rhs_paced_ms'] * 1e3:.1f} as paced; host "
             f"{t['host_us_per_launch']:.2f} us a launch")
     say(f"dense RHS (K3-K5) on the same p: {times['dense_rhs_ms'] * 1e3:.1f}"
@@ -1390,21 +1472,23 @@ def gather_phase(dev, kernels, dense_finals):
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "library": "torch.Tensor.index_add_ of the signed terms (the "
                        "scatter stage; scatter_ms is that stage alone)",
+            "bound_flat_tables_ms": t["bound_flat_tables_ms"],
             "scatter_ms": t["scatter_ms"],
+            "scatter_one_block_ms": t["scatter_one_block_ms"],
+            "value_blocks": t["value_blocks"],
             "scatter_bound_ms": t["scatter_bound_ms"],
             "launches_per_rhs": t["launches_per_call"],
             "rhs_ms": t["rhs_ms"], "dense_rhs_ms": times["dense_rhs_ms"],
             "max_abs_diff_from_dense": max_err[key + " vs dense"],
-            "shape": f"ex4 cl_k 5: {t['values']} "
-                     + ("nodes" if key == "K7" else "events")
-                     + f", {t['entries']} scatter entries",
+            "shape": f"ex4 cl_k 5: {t['values']} events, "
+                     f"{t['entries']} scatter entries",
             "rule": SRC + "gather_rule.cuh", "solve": solves[
                 "tree" if key == "K7" else "chains"]}
     kernels["K7"]["dual"] = dual
     kernels["K7"]["chunked_solve"] = chunked
     kernels["K7"]["compile"] = {"seconds": compile_s,
                                 "events": compiled.num_events,
-                                "nodes": tt.num_values,
+                                "nodes": tt.num_nodes,
                                 "table_bytes": host_bytes,
                                 "tree_tables_s": tree_s,
                                 "chain_tables_s": chain_s}

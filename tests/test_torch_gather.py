@@ -195,6 +195,115 @@ def test_build_tree_equals_jax(tag, cl_k):
         np.testing.assert_array_equal(g, w)
 
 
+def _flat_tree_tables(tc):
+    """The tree's tables as they stood before the compact ones: int32
+    (num, den, parent) a node (pyramid indices as the kernels read
+    them), every event's node in the levels' concatenation, and the
+    sorted signed scatter's entries (event, sign, target) in tree
+    order."""
+    tr = ttree.build_tree(tc.e_num, tc.e_den, tc.pyramid_size - 1,
+                          tc.pyramid_size)
+    remap = (lambda x: tcompile.two_pointer_index(x, tc.size_a, tc.cl_k,
+                                                  tc.dual))
+    sizes = [len(lv.num) for lv in tr.levels]
+    level_ptr = np.concatenate([[0], np.cumsum(sizes)])
+    node_of = np.empty(tc.num_events, np.int64)
+    node_of[tr.event_order] = np.concatenate(
+        [lv.ev_node + level_ptr[i] for i, lv in enumerate(tr.levels)])
+    levels = [(remap(lv.num), remap(lv.den), lv.parent)
+              for lv in tr.levels]
+    return levels, node_of
+
+
+def _decode_slab(t, lv, sl):
+    """A slab's (num, den) pyramid indices and parents, from the compact
+    tables."""
+    i = trhs.ids(sl.id).numpy() + lv.first
+    num, den = t.dict_num.numpy()[i], t.dict_den.numpy()[i]
+    if sl.off is None:
+        return num, den, np.zeros(len(i), np.int64)
+    base = sl.base.numpy().astype(np.int64)
+    return num, den, base[np.arange(len(i)) // trhs.TILE] + trhs.ids(
+        sl.off).numpy()
+
+
+def _decode_entries(t):
+    """Each event value's (+ target, - target) from the compact scatter,
+    checking each value has one entry of each sign."""
+    tgt = trhs.entry_targets(t).numpy()
+    e = t.ent.numpy().astype(np.int64)
+    idx, minus = e & (2**31 - 1), e < 0
+    plus_t = np.full(t.num_values, -1, np.int64)
+    minus_t = np.full(t.num_values, -1, np.int64)
+    plus_t[idx[~minus]] = tgt[~minus]
+    minus_t[idx[minus]] = tgt[minus]
+    assert np.bincount(idx, minlength=t.num_values).tolist() == \
+        [2] * t.num_values
+    return plus_t, minus_t
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["16-bit", "32-bit"])
+@pytest.mark.parametrize("tag,cl_k,dual", [(t, k, False) for t, k in CASES]
+                         + [(t, 3, True) for t in DUAL_TAGS],
+                         ids=IDS + [f"{t}-dual" for t in DUAL_TAGS])
+def test_compact_tables_decode_to_flat_tables(tag, cl_k, dual, wide):
+    """The compact tables hold the flat ones exactly: the tree's levels
+    above the last (num, den, parent a node) as built, its last level's
+    nodes in its leaves, each event value's node, signature and two
+    signed targets (so each target's entries) as compiled; the chains'
+    columns as compiled. Three value blocks, so items split targets."""
+    _, tc = _compiled(tag, cl_k, dual)
+    kw = dict(wide=wide, block_bytes=_block_bytes(tc, 3))
+    t = trhs.device_tables(tc, "cpu", **kw)
+    c = trhs.chain_tables(tc, "cpu", **kw)
+    flat, node_of = _flat_tree_tables(tc)
+    assert t.num_levels == len(flat) and t.num_nodes == sum(
+        len(x[0]) for x in flat)
+    level_ptr = np.concatenate([[0], np.cumsum([len(x[0]) for x in flat])])
+    leaf_node = np.empty(t.num_values, np.int64)
+    for l, (lv, (num, den, parent)) in enumerate(zip(t.levels, flat)):
+        assert lv.wide == wide
+        if lv.node is not None:
+            got = _decode_slab(t, lv, lv.node)
+            for g, w in zip(got, (num, den, parent if l else got[2])):
+                np.testing.assert_array_equal(g, w)
+        # each leaf's node: the node of its level with its (parent, pair)
+        key = (parent.astype(np.int64) * 2**32
+               + num.astype(np.int64) * 2**16 + den) if l else (
+            num.astype(np.int64) * 2**16 + den)
+        ln, ld, lp = _decode_slab(t, lv, lv.leaf)
+        leaf_key = (lp * 2**32 + ln.astype(np.int64) * 2**16 + ld) if l \
+            else ln.astype(np.int64) * 2**16 + ld
+        order = np.argsort(key)
+        at = order[np.searchsorted(key, leaf_key, sorter=order)]
+        assert np.array_equal(key[at], leaf_key)
+        sl = slice(lv.leaf_first, lv.leaf_first + len(at))
+        leaf_node[sl] = level_ptr[l] + at
+        np.testing.assert_array_equal(trhs.ids(lv.leaf.sig).numpy(),
+                                      tc.e_sig[t.event_order[sl]])
+    assert sorted(t.event_order.tolist()) == list(range(tc.num_events))
+    np.testing.assert_array_equal(leaf_node, node_of[t.event_order])
+    tgt_orig, tgt_adj = ttree.recover_targets(tc.num_events, tc.ev_idx,
+                                              tc.ev_sign, tc.ev_tgt)
+    for tables in (t, c):
+        plus_t, minus_t = _decode_entries(tables)
+        np.testing.assert_array_equal(plus_t, tgt_adj[tables.event_order])
+        np.testing.assert_array_equal(minus_t,
+                                      tgt_orig[tables.event_order])
+        counts = np.bincount(trhs.entry_targets(tables).numpy(),
+                             minlength=tc.state_size)
+        np.testing.assert_array_equal(
+            counts, np.bincount(tc.ev_tgt, minlength=tc.state_size))
+        assert tables.n_blk == min(3, tc.num_events)
+    np.testing.assert_array_equal(c.event_order, np.arange(tc.num_events))
+    np.testing.assert_array_equal(trhs.ids(c.sig).numpy(), tc.e_sig)
+    for col, lv in enumerate(c.levels):
+        num, den, _ = _decode_slab(c, lv, lv.leaf)
+        for g, w in ((num, tc.e_num[:, col]), (den, tc.e_den[:, col])):
+            np.testing.assert_array_equal(g, tcompile.two_pointer_index(
+                w, tc.size_a, tc.cl_k, tc.dual))
+
+
 # --- dp/dt ---------------------------------------------------------------------
 
 
@@ -306,36 +415,63 @@ static K5Ctx ctx(int a, int k, const double* p, const double* low,
   c.n_state = n_state;
   return c;
 }
-extern "C" void k7_host_nodes(int a, int k, const double* p,
-                              const double* low, unsigned n_state,
-                              const int* num, const int* den,
-                              const int* parent, const long long* level_ptr,
-                              int n_levels, double* vals) {
-  const K5Ctx c = ctx(a, k, p, low, n_state);
-  for (int l = 0; l < n_levels; ++l)
-    for (long long i = level_ptr[l]; i < level_ptr[l + 1]; ++i) {
-      const double r = k7_ratio(c, num[i], den[i]);
-      vals[i] = l ? r * vals[level_ptr[l - 1] + parent[i]] : r;
-    }
-}
-extern "C" void k8_host_chains(int a, int k, const double* p,
+extern "C" void k7_host_ratios(int a, int k, const double* p,
                                const double* low, unsigned n_state,
-                               const int* num, const int* den, int chain,
-                               long long n_ev, double* vals) {
+                               const int* dict_num, const int* dict_den,
+                               long long n_dict, double* ratio) {
   const K5Ctx c = ctx(a, k, p, low, n_state);
-  for (long long e = 0; e < n_ev; ++e)
-    vals[e] = k4_chain_product(c, num + e * chain, den + e * chain, chain);
+  for (long long q = 0; q < n_dict; ++q)
+    ratio[q] = k7_ratio(c, dict_num[q], dict_den[q]);
 }
-extern "C" void k7_host_scatter(const double* vals, const int* ent_val,
-                                const int* ent_sig, const double* s,
-                                const int* tgt_ptr, int n_tgt, double* dy) {
-  for (int t = 0; t < n_tgt; ++t) {
+// K7's values launch after phase 0, as its threads walk it: the levels
+// above the last, then every level's leaves.
+extern "C" void k7_host_values(const double* ratio, const double* s,
+                               const long long* rows, int n_levels,
+                               double* nv, double* ev) {
+  const double* prev = nullptr;
+  for (int l = 0; l < n_levels; ++l) {
+    const long long* r = rows + l * 13;
+    const K7Slab node = {(const void*)r[6], (const void*)r[7],
+                         (const int*)r[8]};
+    for (long long i = 0; i < r[0]; ++i)
+      nv[r[4] + i] = k7_value(ratio, (unsigned)r[3], node, (int)r[2], prev,
+                              i);
+    prev = nv + r[4];
+  }
+  for (int l = 0; l < n_levels; ++l) {
+    const long long* r = rows + l * 13;
+    const K7Slab leaf = {(const void*)r[9], (const void*)r[10],
+                         (const int*)r[11]};
+    const double* par = l ? nv + rows[(l - 1) * 13 + 4] : nullptr;
+    for (long long i = 0; i < r[1]; ++i)
+      ev[r[5] + i] = k7_value(ratio, (unsigned)r[3], leaf, (int)r[2], par,
+                              i) * s[k7_at((const void*)r[12], (int)r[2], i)];
+  }
+}
+extern "C" void k8_host_values(const double* ratio, const double* s,
+                               const long long* rows, int n_cols,
+                               const void* sig, int sig_wide, long long n_ev,
+                               double* ev) {
+  K8Column cols[32];
+  for (int c = 0; c < n_cols; ++c)
+    cols[c] = {(const void*)rows[c * 3 + 2], (unsigned)rows[c * 3 + 1],
+               (int)rows[c * 3]};
+  for (long long e = 0; e < n_ev; ++e)
+    ev[e] = k8_value(ratio, cols, n_cols, e) * s[k7_at(sig, sig_wide, e)];
+}
+extern "C" void k7_host_scatter(const double* ev, const unsigned* ent,
+                                const int* item_ptr, int n_tgt, int n_blk,
+                                double* part, double* dy) {
+  double* out = n_blk > 1 ? part : dy;
+  for (long long j = 0; j < (long long)n_blk * n_tgt; ++j) {
     double x[kLanes];
     for (int l = 0; l < kLanes; ++l)
-      x[l] = k7_lane_sum(vals, ent_val, ent_sig, s, tgt_ptr[t],
-                         tgt_ptr[t + 1], l);
-    dy[t] = k7_fold32(x);
+      x[l] = k7_lane_sum(ev, ent, item_ptr[j], item_ptr[j + 1], l);
+    out[j] = k7_fold32(x);
   }
+  if (n_blk > 1)
+    for (int t = 0; t < n_tgt; ++t) dy[t] = k7_fold_blocks(part, n_tgt,
+                                                           n_blk, t);
 }
 extern "C" void k5_host_items(int a, int k, const double* p,
                               const double* low, const double* s,
@@ -373,11 +509,17 @@ def gather_host(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     i, u, ll, p = ctypes.c_int, ctypes.c_uint, ctypes.c_longlong, \
         ctypes.c_void_p
-    lib.k7_host_nodes.argtypes = [i, i, p, p, u, p, p, p, p, i, p]
-    lib.k8_host_chains.argtypes = [i, i, p, p, u, p, p, i, ll, p]
-    lib.k7_host_scatter.argtypes = [p, p, p, p, p, i, p]
+    lib.k7_host_ratios.argtypes = [i, i, p, p, u, p, p, ll, p]
+    lib.k7_host_values.argtypes = [p, p, p, i, p, p]
+    lib.k8_host_values.argtypes = [p, p, p, i, p, i, ll, p]
+    lib.k7_host_scatter.argtypes = [p, p, p, i, i, p, p]
     lib.k5_host_items.argtypes = [i, i, p, p, p, p, p, p, p, i]
     return lib
+
+
+def _block_bytes(compiled, blocks):
+    """A scatter block size that cuts the event values into ``blocks``."""
+    return 8 * max(1, -(-compiled.num_events // blocks))
 
 
 @pytest.mark.parametrize("tag,cl_k,dual", [
@@ -385,12 +527,17 @@ def gather_host(tmp_path_factory):
     ("ex1-radioactive-decay", 5, False), ("ex3-copolymerization", 3, True),
     ("ex4-chemical-turing", 3, True)])
 def test_gather_rules_match_plain(gather_host, tag, cl_k, dual):
-    """K7's node rule, K8's chain rule and the scatter's order (a lane's
-    partial from 0.0 over entries l, l + 32, ..., then the xor
-    butterfly's folds) built with g++: node values, chain values and dy
-    each equal to the plain versions (`tree_values_plain`,
-    `chain_values_plain`, `scatter_plain`) bit for bit, on a
-    concentrated SPD with exact zeros and a p[0] of -1e-13."""
+    """K7's and K8's rules built with g++, walked in the kernels' order:
+    phase 0's ratios (the dictionaries' guarded ratios), K7's node and
+    leaf values (ratio lookup times the parent's value, implicit in the
+    tiles' bases and offsets, times the signature's weight), K8's chain
+    products, and the blocked scatter's order (a lane's partial from 0.0
+    over entries l, l + 32, ... of an item, the xor butterfly's folds,
+    the blocks' partials from block 0 up): each equal to the plain
+    versions (`ratios_plain`, `tree_values_plain`, `chain_values_plain`,
+    `scatter_plain`) bit for bit, with 16-bit and with 32-bit ids, with
+    one and with three value blocks, on a concentrated SPD with exact
+    zeros and a p[0] of -1e-13."""
     _, tc = _compiled(tag, cl_k, dual)
     a, n = tc.size_a, tc.state_size
     rng = np.random.RandomState(19)
@@ -400,29 +547,49 @@ def test_gather_rules_match_plain(gather_host, tag, cl_k, dual):
     p[0] = -1e-13
     p = torch.as_tensor(p)
     low = tdense.pyramids(tc, p, plain=True)
-    head = (a, cl_k, _ptr(p), _ptr(low), n)
-    for t in (trhs.device_tables(tc, "cpu"), trhs.chain_tables(tc, "cpu")):
-        s = tdense.signature_weights_plain(t, p, low)
-        got = torch.full((t.num_values,), np.nan, dtype=torch.float64)
-        if t.kind == "tree":
-            gather_host.k7_host_nodes(*head, _ptr(t.num), _ptr(t.den),
-                                      _ptr(t.parent), _ptr(t.level_ptr),
-                                      t.num_levels, _ptr(got))
-            want = trhs.tree_values_plain(t, p, low)
-        else:
-            gather_host.k8_host_chains(*head, _ptr(t.num), _ptr(t.den),
-                                       t.num.shape[1], t.num_values,
-                                       _ptr(got))
-            want = trhs.chain_values_plain(t, p, low)
-        assert torch.equal(got, want), t.kind
-        dy = torch.full((n,), np.nan, dtype=torch.float64)
-        gather_host.k7_host_scatter(_ptr(got), _ptr(t.ent_val),
-                                    _ptr(t.ent_sig), _ptr(s),
-                                    _ptr(t.tgt_ptr), n, _ptr(dy))
-        assert torch.equal(dy, trhs.scatter_plain(t, want, s)), t.kind
-        assert bool((dy != 0).any())
-    if tag == "ex6-mini-bff-lite":  # targets of more than 32 entries
-        assert int((t.tgt_ptr[1:] - t.tgt_ptr[:-1]).max()) > trhs.LANES
+    dys = []
+    for wide, blocks in ((False, 1), (True, 1), (False, 3), (True, 3)):
+        kw = dict(wide=wide, block_bytes=_block_bytes(tc, blocks))
+        for t in (trhs.device_tables(tc, "cpu", **kw),
+                  trhs.chain_tables(tc, "cpu", **kw)):
+            assert t.n_blk == min(blocks, tc.num_events)
+            assert all(lv.wide == wide for lv in t.levels)
+            s = tdense.signature_weights_plain(t, p, low)
+            ratio = torch.full((t.dict_num.numel(),), np.nan,
+                               dtype=torch.float64)
+            gather_host.k7_host_ratios(a, cl_k, _ptr(p), _ptr(low), n,
+                                       _ptr(t.dict_num), _ptr(t.dict_den),
+                                       ratio.numel(), _ptr(ratio))
+            assert torch.equal(ratio, trhs.ratios_plain(t, p, low))
+            got = torch.full((t.num_values,), np.nan, dtype=torch.float64)
+            if t.kind == "tree":
+                nv = torch.full((max(t.num_node_values, 1),), np.nan,
+                                dtype=torch.float64)
+                gather_host.k7_host_values(_ptr(ratio), _ptr(s),
+                                           _ptr(t.desc), len(t.levels),
+                                           _ptr(nv), _ptr(got))
+                want = trhs.tree_values_plain(t, p, low, s)
+            else:
+                gather_host.k8_host_values(_ptr(ratio), _ptr(s),
+                                           _ptr(t.desc), len(t.levels),
+                                           _ptr(t.sig), int(t.sig_wide()),
+                                           t.num_values, _ptr(got))
+                want = trhs.chain_values_plain(t, p, low, s)
+            assert torch.equal(got, want), t.kind
+            dy = torch.full((n,), np.nan, dtype=torch.float64)
+            part = torch.full((t.n_blk * n,), np.nan, dtype=torch.float64)
+            gather_host.k7_host_scatter(_ptr(got), _ptr(t.ent),
+                                        _ptr(t.item_ptr), n, t.n_blk,
+                                        _ptr(part), _ptr(dy))
+            assert torch.equal(dy, trhs.scatter_plain(t, want)), t.kind
+            assert bool((dy != 0).any())
+            dys.append(dy)
+    for dy in dys[1:]:  # other orders of the same sums: rounding apart
+        np.testing.assert_allclose(dy.numpy(), dys[0].numpy(), rtol=RTOL,
+                                   atol=ATOL)
+    if tag == "ex6-mini-bff-lite":  # items of more than 32 entries
+        ptr = t.item_ptr
+        assert int((ptr[1:] - ptr[:-1]).max()) > trhs.LANES
 
 
 @pytest.mark.parametrize("tag", ["ex3-copolymerization",

@@ -574,52 +574,112 @@ def _gather_input(cuda, compiled, seed):
     return p, tdense.pyramids(compiled, p, plain=True)
 
 
+def _compile(tag, cl_k, dual):
+    return (tcompile.compile_problem_dual(tag, cl_k) if dual
+            else tcompile.compile_problem(tag, cl_k))
+
+
+def _gather_tables(compiled, cuda, wide, blocks):
+    """The tree's and the chains' tables on the card, their scatter in
+    ``blocks`` value blocks."""
+    kw = dict(wide=wide, block_bytes=8 * max(
+        1, -(-compiled.num_events // blocks)))
+    return ((trhs.device_tables(compiled, cuda, **kw), trhs.tree_rhs),
+            (trhs.chain_tables(compiled, cuda, **kw), trhs.chain_rhs))
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["16-bit", "32-bit"])
 @pytest.mark.parametrize("tag,cl_k,dual", [(t, k, False) for t, k in
                                            EXACT_CASES]
                          + [("ex4-chemical-turing", 4, False),
                             ("ex3-copolymerization", 4, True),
                             ("ex4-chemical-turing", 3, True)])
-def test_gather_kernels_match_plain(cuda, tag, cl_k, dual):
-    """K7 (a launch a tree level) and K8 against their plain versions on
-    the card on the same pyramid: the same products and every sum in
-    the same order, so the same bits; two runs the same bits; K7's
-    launches 2 + levels, K8's 3, and no plain version called."""
-    compiled = (tcompile.compile_problem_dual(tag, cl_k) if dual
-                else tcompile.compile_problem(tag, cl_k))
+def test_gather_kernels_match_plain(cuda, tag, cl_k, dual, wide):
+    """K7 and K8 against their plain versions on the card on the same
+    pyramid, with 16-bit and 32-bit ids, in one and in three value
+    blocks: the same products and every sum in the same order, so the
+    same bits; two runs the same bits; 2 launches an RHS each and no
+    plain version called."""
+    compiled = _compile(tag, cl_k, dual)
     p, low = _gather_input(cuda, compiled, 6)
-    for t, kern in ((trhs.device_tables(compiled, cuda), trhs.tree_rhs),
-                    (trhs.chain_tables(compiled, cuda), trhs.chain_rhs)):
-        before = kern.launches
-        plain = (trhs.scatter_plain.calls, trhs.tree_values_plain.calls,
-                 trhs.chain_values_plain.calls)
-        got = kern(t, p, low)
-        assert kern.launches == before + t.launches
-        assert plain == (trhs.scatter_plain.calls,
-                         trhs.tree_values_plain.calls,
-                         trhs.chain_values_plain.calls)
-        assert torch.equal(got, trhs.gather_plain(t, p))
-        assert torch.equal(got, kern(t, p, low))
-        assert bool(got.any())
+    for blocks in (1, 3):
+        for t, kern in _gather_tables(compiled, cuda, wide, blocks):
+            assert all(lv.wide == wide for lv in t.levels)
+            assert t.n_blk == min(blocks, compiled.num_events)
+            before = kern.launches
+            plain = (trhs.scatter_plain.calls, trhs.tree_values_plain.calls,
+                     trhs.chain_values_plain.calls)
+            got = kern(t, p, low)
+            assert kern.launches == before + t.launches == before + 2
+            assert plain == (trhs.scatter_plain.calls,
+                             trhs.tree_values_plain.calls,
+                             trhs.chain_values_plain.calls)
+            assert torch.equal(got, trhs.gather_plain(t, p))
+            assert torch.equal(got, kern(t, p, low))
+            assert bool(got.any())
 
 
-@pytest.mark.parametrize("tag,cl_k", EXACT_CASES)
-def test_gather_rhs_matches_dense_on_card(cuda, tag, cl_k):
-    """The tree and chain engines' dp/dt on the card against the dense
-    RHS's, on a random and a concentrated SPD; each writes into ``out``."""
-    compiled = tcompile.compile_problem(tag, cl_k)
-    dense_fn = tdense.make_dense_dy_dt(tdense.compile_dense(tag, cl_k),
-                                       device=cuda)
+@pytest.mark.parametrize("tag,cl_k,dual", [(t, k, False) for t, k in
+                                           EXACT_CASES]
+                         + [("ex4-chemical-turing", 3, True)])
+def test_gather_rhs_matches_dense_on_card(cuda, tag, cl_k, dual):
+    """The tree and chain engines' dp/dt on the card, with 16-bit and
+    32-bit ids (the same bits), against the dense RHS's, on a random and
+    a concentrated SPD; each writes into ``out``."""
+    compiled = _compile(tag, cl_k, dual)
+    prog = (tdense.compile_dense_dual(tag, cl_k) if dual
+            else tdense.compile_dense(tag, cl_k))
+    dense_fn = tdense.make_dense_dy_dt(prog, device=cuda)
     rng = np.random.RandomState(8)
-    for make in (trhs.make_dy_dt, trhs.make_chain_dy_dt):
-        fn = make(compiled, device=cuda)
+    n = compiled.state_size
+    for make, rhs in ((trhs.device_tables, trhs.dy_dt_from_tables),
+                      (trhs.chain_tables, trhs.dy_dt_from_chain_tables)):
+        fns = [trhs._closure(compiled, make(compiled, cuda, wide=wide), rhs)
+               for wide in (False, True)]
         for concentrated in (False, True):
-            p = torch.as_tensor(_spd(rng, compiled.state_size, concentrated),
-                                device=cuda)
-            _close(fn(p), dense_fn(p))
-        rows = torch.full((2, compiled.state_size), 7.0, dtype=torch.float64,
-                          device=cuda)
-        assert fn(p, rows[1]).data_ptr() == rows[1].data_ptr()
-        assert torch.equal(rows[1], fn(p)) and bool((rows[0] == 7.0).all())
+            p = torch.as_tensor(_spd(rng, n, concentrated), device=cuda)
+            got = fns[0](p)
+            _close(got, dense_fn(p))
+            assert torch.equal(got, fns[1](p))
+        for fn in fns:
+            rows = torch.full((2, n), 7.0, dtype=torch.float64, device=cuda)
+            assert fn(p, rows[1]).data_ptr() == rows[1].data_ptr()
+            assert torch.equal(rows[1], fn(p))
+            assert bool((rows[0] == 7.0).all())
+
+
+def _kernel_launches(fn):
+    """The CUDA kernels the profiler sees ``fn`` launch, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(k in e.name for k in ("k7_", "k8_", "gather_scatter"))]
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["16-bit", "32-bit"])
+@pytest.mark.parametrize("tag,cl_k,dual", [("ex4-chemical-turing", 4, False),
+                                           ("ex6-mini-bff-lite", 2, False),
+                                           ("ex3-copolymerization", 4, True)])
+def test_gather_rhs_launches_as_planned(cuda, tag, cl_k, dual, wide):
+    """`tree_rhs` and `chain_rhs` launch exactly `GatherTables.launches`
+    kernels an RHS, by the profiler's count of the card's kernels (the
+    values kernel, then the scatter) as by the wrappers' counts, with
+    one and with three value blocks."""
+    compiled = _compile(tag, cl_k, dual)
+    p, low = _gather_input(cuda, compiled, 2)
+    for blocks in (1, 3):
+        for t, kern in _gather_tables(compiled, cuda, wide, blocks):
+            kern(t, p, low)  # built and loaded before the count
+            before = kern.launches
+            names = _kernel_launches(lambda: kern(t, p, low))
+            assert kern.launches - before == t.launches == len(names) == 2
+            assert "gather_scatter" in names[-1]
+            assert ("k7_" if t.kind == "tree" else "k8_") in names[0]
 
 
 @pytest.mark.parametrize("tag", ["ex1-radioactive-decay",
@@ -660,10 +720,12 @@ def test_dual_dense_rhs_on_card(cuda, tag):
     assert torch.equal(s, tdense.signature_weights_plain(dp, y, low))
 
 
-def test_gather_kernels_reject_bad_inputs(cuda):
-    compiled = tcompile.compile_problem("ex4-chemical-turing", 3)
-    t = trhs.device_tables(compiled, cuda)
-    c = trhs.chain_tables(compiled, cuda)
+@pytest.mark.parametrize("wide", [False, True], ids=["16-bit", "32-bit"])
+@pytest.mark.parametrize("dual", [False, True], ids=["single", "dual"])
+def test_gather_kernels_reject_bad_inputs(cuda, wide, dual):
+    compiled = _compile("ex4-chemical-turing", 3, dual)
+    t = trhs.device_tables(compiled, cuda, wide=wide)
+    c = trhs.chain_tables(compiled, cuda, wide=wide)
     p, low = _gather_input(cuda, compiled, 1)
     with pytest.raises(TypeError, match="float64"):
         trhs.tree_rhs(t, p.float(), low)
@@ -678,3 +740,8 @@ def test_gather_kernels_reject_bad_inputs(cuda):
         trhs.tree_rhs(c, p, low)
     with pytest.raises(ValueError, match="chain"):
         trhs.chain_rhs(t, p, low)
+    ev = torch.zeros(t.num_values, dtype=torch.float64, device=cuda)
+    with pytest.raises(TypeError, match="event values"):
+        trhs.scatter(t, ev[:-1])
+    with pytest.raises(TypeError, match="event values"):
+        trhs.scatter(t, ev.float())
