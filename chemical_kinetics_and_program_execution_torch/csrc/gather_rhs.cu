@@ -12,52 +12,56 @@
 // with `-fmad=false`, every sum in a fixed order and no float atomic: the
 // plain versions' bits.
 //
-// One host call (`ckpe_tree_rhs`, `ckpe_chain_rhs`) makes two
-// cooperative launches on one stream:
-//   1. the values: phase 0 forms the guarded ratio of every entry of
-//      every level's (or column's) dictionary of distinct (num, den)
-//      pairs into ``ratio`` (about 105 k at ex4 cl_k 5, 0.8 MB, which L2
-//      holds) and the signature weights (K4's rule, `sweep_rule.cuh:
-//      k4_warp_weights`); then K7 forms the tree's upper levels, a grid
-//      barrier before each, a thread a node: its ratio, looked up by its
-//      pair id, times its parent's value (the parent implicit in the
-//      sorted child order: a tile's base plus a narrow offset); after
-//      one more barrier every leaf (an event: the tree's last level and
-//      the events that end above it) writes its value times its
-//      signature's weight straight into ``ev``, where the scatter reads
-//      it. K8 forms each event's chain product over the column-major
-//      chain ids, so a warp's load of a column is contiguous.
-//   2. the scatter: a warp an item (value block b, target t) over the
-//      item's run of 4-byte entries (the value's index, the sign in the
-//      top bit), blocks in turn; with more than one block, a grid
-//      barrier, then each target's partials added from block 0 up.
+// One host call (`ckpe_tree_rhs`, `ckpe_chain_rhs`) makes two launches
+// on one stream:
+//   1. the values, one cooperative launch: phase 0 forms the guarded
+//      ratio of every entry of every level's (or column's) dictionary
+//      of distinct (num, den) pairs into ``ratio`` (118,033 at ex4 cl_k
+//      5, 0.9 MB, which L2 holds) and the signature weights (K4's rule,
+//      `sweep_rule.cuh:k4_warp_weights`); then K7 forms the tree's upper
+//      levels, a grid barrier before each, a thread a node: its ratio,
+//      looked up by its pair id, times its parent's value (the parent
+//      implicit in the sorted child order: a tile's base plus a narrow
+//      offset); after one more barrier every leaf (an event: the tree's
+//      last level and the events that end above it) writes its value
+//      times its signature's weight straight into ``ev``, four leaves a
+//      thread. K8 forms each event's chain product over the
+//      column-major chain ids, four events a thread, the events sorted
+//      by their chains.
+//   2. the scatter: a warp a target over its run of 4-byte entries (the
+//      value's index, the sign in the top bit).
 // Two launches an RHS for either kernel (9 and 3 before the compact
 // tables).
 //
 // Bound: bytes. Each table read once: the dictionaries' pyramid indices
 // (8 bytes an entry), the pair ids, parent offsets and signatures (2
 // bytes each where 16 bits hold them, else 4), a tile's parent base (4
-// bytes a 256), the entries (4 bytes) and the items' CSR; p and the
-// levels read once, the signature weights and dy written once. The
-// ratios, the upper levels' node values (14 MB at ex4 cl_k 5), the event
-// values and the partials are the launches' own intermediates. What the
-// design does about it:
+// bytes a 256), the entries (4 bytes) and the targets' CSR; p and the
+// levels read once, the signature weights and dy written once: 174.6 MB
+// (K7) and 284.8 MB (K8) at ex4 cl_k 5, against 325.6 and 847.7 over the
+// flat tables. The ratios, the upper levels' node values (14 MB at ex4
+// cl_k 5), the event values and the weights are the launches' own
+// intermediates. What the design does about it:
 //   - the tables: the int32 (num, den, parent) a node and the row-major
 //     [events, 7] chains become 16-bit ids and offsets, the 8-byte entry
 //     (value index, signed signature) 4 bytes, because the event value
 //     carries its signature's weight;
 //   - the ratio a node forms once for each distinct pair instead: two
-//     pyramid gathers a node become one lookup in an L2-resident table;
+//     pyramid gathers a node become one lookup in a table that L2 (and
+//     for a level's or column's share, L1) holds;
 //   - the launches: a launch a level and one for the weights become the
-//     phases of one launch; the last level's values no longer go out to
-//     device memory and back before the scatter reads them;
-//   - the scatter's gathers: a target's entries lie thousands of values
-//     apart, so a gather moves a 32-byte sector for one 8-byte value.
-//     The value array is cut into blocks that L2 holds (`rhs.py:
-//     SCATTER_BLOCK_BYTES`) and every target's entries into one item a
-//     block; the warps take the items block by block, so a block's
-//     values are gathered from L2 while its entries stream past
-//     (`__ldcs`) from device memory.
+//     phases of one launch; the ids, offsets and signatures of four
+//     leaves (or a column's ids of four events) come in one 8-byte load
+//     and every gather is issued before the first product, so more
+//     loads are in flight a thread;
+//   - the scatter: its entries are gathers, a 32-byte sector for one
+//     8-byte value where a target's values lie thousands apart, so the
+//     sectors, not the bytes, set its time (not traced). The tree's
+//     leaf order and the chains sorted by their chains keep a target's
+//     values nearer each other than the compiled order does; the
+//     entries stream past once (`__ldcs`), leaving L2 to the values.
+//     Cutting the values into blocks that L2 holds, a target's entries
+//     summed block by block, was no faster on the card.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -73,7 +77,7 @@ constexpr int kMaxLevels = 24;  // tree levels or chain columns
 constexpr int kLevelFields = 13;  // a level's row (`rhs.LEVEL_FIELDS`)
 constexpr int kColumnFields = 3;  // a column's row (`rhs.COLUMN_FIELDS`)
 constexpr int kValueBlocksPerSm = 4;
-constexpr int kScatterBlocksPerSm = 8;
+constexpr int kMaxScatterBlocks = 132 * 16;  // grid-stride past these
 
 // Phase 0: every dictionary entry's ratio and the signature weights.
 struct GatherPrep {
@@ -117,10 +121,9 @@ struct ChainLaunch {
 
 struct ScatterLaunch {
   const double* ev;
-  const unsigned* ent;   // sorted by block, then target
-  const int* item_ptr;   // [n_blk * n_tgt + 1] item (b, t) at b * n_tgt + t
-  int n_tgt, n_blk;
-  double* part;  // [n_blk * n_tgt] the items' sums (n_blk > 1)
+  const unsigned* ent;  // sorted by target
+  const int* tgt_ptr;   // [n_tgt + 1] each target's run of entries
+  int n_tgt;
   double* dy;
 };
 
@@ -256,26 +259,19 @@ k8_chain_kernel(const __grid_constant__ ChainLaunch L) {
               L.g.s[k7_at(L.sig, L.sig_wide, e)];
 }
 
-// The scatter: a warp an item, grid-stride, block by block; then (more
-// than one block) each target's fold.
-__global__ void __launch_bounds__(kThreads, kScatterBlocksPerSm)
+// The scatter: a warp a target, grid-stride.
+__global__ void __launch_bounds__(kThreads)
 gather_scatter_kernel(const __grid_constant__ ScatterLaunch S) {
   const unsigned stride = gridDim.x * kThreads;
   const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
   const int lane = (int)(threadIdx.x & 31);
-  const long long items = (long long)S.n_blk * S.n_tgt;
-  double* out = S.n_blk > 1 ? S.part : S.dy;
-  for (long long j = tid >> 5; j < items; j += stride >> 5) {
+  for (unsigned t = tid >> 5; t < (unsigned)S.n_tgt; t += stride >> 5) {
     double acc =
-        k7_lane_sum(S.ev, S.ent, S.item_ptr[j], S.item_ptr[j + 1], lane);
+        k7_lane_sum(S.ev, S.ent, S.tgt_ptr[t], S.tgt_ptr[t + 1], lane);
     for (int off = kLanes / 2; off >= 1; off >>= 1)
       acc = acc + __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) out[j] = acc;
+    if (lane == 0) S.dy[t] = acc;
   }
-  if (S.n_blk == 1) return;
-  cg::this_grid().sync();
-  for (unsigned t = tid; t < (unsigned)S.n_tgt; t += stride)
-    S.dy[t] = k7_fold_blocks(S.part, S.n_tgt, S.n_blk, (int)t);
 }
 
 // The most blocks of ``kernel`` that fit on the current card at once.
@@ -310,22 +306,21 @@ int launch(const void* kernel, int* cache, long long work, void* arg,
   return (int)cudaGetLastError();
 }
 
-int tree_cache[64], chain_cache[64], scatter_cache[64];
+int tree_cache[64], chain_cache[64];
 
-int launch_scatter(const double* ev, const unsigned* ent, const int* item_ptr,
-                   int n_tgt, int n_blk, double* part, double* dy,
-                   cudaStream_t stream) {
-  if (n_tgt < 1 || n_blk < 1) return (int)cudaErrorInvalidValue;
+int launch_scatter(const double* ev, const unsigned* ent, const int* tgt_ptr,
+                   int n_tgt, double* dy, cudaStream_t stream) {
+  if (n_tgt < 1) return (int)cudaErrorInvalidValue;
   ScatterLaunch S;
   S.ev = ev;
   S.ent = ent;
-  S.item_ptr = item_ptr;
+  S.tgt_ptr = tgt_ptr;
   S.n_tgt = n_tgt;
-  S.n_blk = n_blk;
-  S.part = part;
   S.dy = dy;
-  return launch((const void*)gather_scatter_kernel, scatter_cache,
-                32LL * n_blk * n_tgt, &S, stream);
+  const long long want = (32LL * n_tgt + kThreads - 1) / kThreads;
+  const int grid = (int)(want > kMaxScatterBlocks ? kMaxScatterBlocks : want);
+  gather_scatter_kernel<<<grid, kThreads, 0, stream>>>(S);
+  return (int)cudaGetLastError();
 }
 
 GatherPrep gather_prep_args(const double* p, const double* low,
@@ -372,8 +367,8 @@ extern "C" int ckpe_tree_rhs(
     int chain, const int* csr_ptr, int n_sig, double* s,
     const int* dict_num, const int* dict_den, long long n_dict,
     double* ratio, const long long* levels, int n_levels, double* nv,
-    double* ev, const unsigned* ent, const int* item_ptr, int n_tgt,
-    int n_blk, double* part, double* dy, cudaStream_t stream) {
+    double* ev, const unsigned* ent, const int* tgt_ptr, int n_tgt,
+    double* dy, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || chain < 1 || n_levels < 1 ||
       n_levels > kMaxLevels)
     return (int)cudaErrorInvalidValue;
@@ -407,7 +402,7 @@ extern "C" int ckpe_tree_rhs(
   const int rc = launch((const void*)k7_tree_kernel, tree_cache,
                         leaves > work ? leaves : work, &L, stream);
   if (rc) return rc;
-  return launch_scatter(ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream);
+  return launch_scatter(ev, ent, tgt_ptr, n_tgt, dy, stream);
 }
 
 // K8: phase 0 and every event's chain product (one cooperative launch),
@@ -421,8 +416,7 @@ extern "C" int ckpe_chain_rhs(
     const int* dict_num, const int* dict_den, long long n_dict,
     double* ratio, const long long* cols, int n_cols, const void* sig,
     int sig_wide, long long n_ev, double* ev, const unsigned* ent,
-    const int* item_ptr, int n_tgt, int n_blk, double* part, double* dy,
-    cudaStream_t stream) {
+    const int* tgt_ptr, int n_tgt, double* dy, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || chain < 1 || n_cols < 1 || n_cols > kMaxLevels)
     return (int)cudaErrorInvalidValue;
   ChainLaunch L;
@@ -444,14 +438,13 @@ extern "C" int ckpe_chain_rhs(
   const int rc = launch((const void*)k8_chain_kernel, chain_cache,
                         n_ev > work ? n_ev : work, &L, stream);
   if (rc) return rc;
-  return launch_scatter(ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream);
+  return launch_scatter(ev, ent, tgt_ptr, n_tgt, dy, stream);
 }
 
 // The scatter alone (one launch): dy from the event values ``ev`` as
 // K7's and K8's second launch forms it, for timing it apart.
 extern "C" int ckpe_gather_scatter(const double* ev, const unsigned* ent,
-                                   const int* item_ptr, int n_tgt, int n_blk,
-                                   double* part, double* dy,
+                                   const int* tgt_ptr, int n_tgt, double* dy,
                                    cudaStream_t stream) {
-  return launch_scatter(ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream);
+  return launch_scatter(ev, ent, tgt_ptr, n_tgt, dy, stream);
 }

@@ -20,9 +20,8 @@
 //   K8 event        v = R[first_0 + id_0[e]] * R[first_1 + id_1[e]] * ...
 //                   in chain order (K4's `k4_chain_product`'s order), then
 //                   v * s[sig[e]]
-//   scatter         dy[t] = the fold over the value blocks b of the sums
-//                   over the entries q of item (b, t) of +-ev[q & kIndex]
-//                   (the top bit a minus)
+//   scatter         dy[t] = the sum over the entries q of target t of
+//                   +-ev[ent[q] & kIndex] (the top bit a minus)
 //
 // A node's or a chain factor's ratio is looked up, not formed there:
 // R[q] is the same function of the same two pyramid values, so the
@@ -30,13 +29,12 @@
 // offsets and signatures are uint16, or int32 where a level's (or
 // column's) are not all below 2^16 (``wide``); `k7_at` reads either.
 //
-// The scatter's entries are sorted by value block, then target: item
-// (b, t) is a contiguous run. A warp sums a run: lane l adds entries l,
-// l + 32, ... from 0.0 in entry order (`k7_lane_sum`), then the warp
-// folds its 32 partials by an xor butterfly, which lane 0 reads in the
-// order of `k7_fold32`; with more than one block a target's partials
-// are added from block 0 up (`k7_fold_blocks`). The plain version
-// (`engine/rhs.py:scatter_plain`) adds in that order too, so K7 and K8
+// The scatter's entries are sorted by target: target t's are a
+// contiguous run. A warp sums a run: lane l adds entries l, l + 32, ...
+// from 0.0 in entry order (`k7_lane_sum`), then the warp folds its 32
+// partials by an xor butterfly, which lane 0 reads in the order of
+// `k7_fold32`. The plain version (`engine/rhs.py:scatter_plain`) adds in
+// that order too, so K7 and K8
 // equal it bit for bit; no float atomics.
 //
 // Plain C++ under `g++` as well, so a CPU test holds these rules to the
@@ -122,7 +120,7 @@ K5_FN double k7_term(const double* ev, const unsigned* ent, long long q) {
   return (u & kMinus) ? -v : v;
 }
 
-// Lane ``lane``'s partial sum of the entries [q0, q1) of one item.
+// Lane ``lane``'s partial sum of the entries [q0, q1) of one target.
 K5_FN double k7_lane_sum(const double* ev, const unsigned* ent, long long q0,
                          long long q1, int lane) {
   double acc = 0.0;
@@ -137,12 +135,4 @@ K5_FN double k7_fold32(double* x) {
   for (int off = kLanes / 2; off >= 1; off >>= 1)
     for (int l = 0; l < off; ++l) x[l] = x[l] + x[l + off];
   return x[0];
-}
-
-// Target t's item sums ``part[b * n_tgt + t]`` added from block 0 up.
-K5_FN double k7_fold_blocks(const double* part, int n_tgt, int n_blk, int t) {
-  double x = k5_load(part + t);
-  for (int b = 1; b < n_blk; ++b)
-    x = x + k5_load(part + (long long)b * n_tgt + t);
-  return x;
 }

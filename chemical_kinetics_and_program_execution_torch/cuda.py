@@ -156,16 +156,16 @@ def load() -> ctypes.CDLL:
     lib.ckpe_dense_rhs.argtypes = [_I, _I] + k5
     # ckpe_tree_rhs(p, low, n_state, a, k, pair_num, pair_den, pair_const,
     #               chain, csr_ptr, n_sig, s, dict_num, dict_den, n_dict,
-    #               ratio, levels, n_levels, nv, ev, ent, item_ptr, n_tgt,
-    #               n_blk, part, dy, stream)
+    #               ratio, levels, n_levels, nv, ev, ent, tgt_ptr, n_tgt, dy,
+    #               stream)
     head = [_P, _P, _L, _I, _I, _P, _P, _P, _I, _P, _I, _P, _P, _P, _L, _P]
-    tail = [_P, _P, _P, _I, _I, _P, _P, _P]
+    tail = [_P, _P, _P, _I, _P, _P]
     lib.ckpe_tree_rhs.argtypes = head + [_P, _I, _P] + tail
     # ckpe_chain_rhs(<the same head>, cols, n_cols, sig, sig_wide, n_ev,
-    #                ev, ent, item_ptr, n_tgt, n_blk, part, dy, stream)
+    #                ev, ent, tgt_ptr, n_tgt, dy, stream)
     lib.ckpe_chain_rhs.argtypes = head + [_P, _I, _P, _I, _L] + tail
-    # ckpe_gather_scatter(<the same tail>: ev, ent, item_ptr, n_tgt, n_blk,
-    #                     part, dy, stream)
+    # ckpe_gather_scatter(<the same tail>: ev, ent, tgt_ptr, n_tgt, dy,
+    #                     stream)
     lib.ckpe_gather_scatter.argtypes = tail
     # ckpe_k6_tableau(count, rows, coefs, n_rows)
     lib.ckpe_k6_tableau.argtypes = [_P, _P, _P, _I]

@@ -35,9 +35,9 @@ levels above the last are kept as built (`tree.build_tree`); its leaves
 are the events, each at the level where its chain ends, sorted by node,
 and their values are the event values in that order. The scatter's
 entries, an event value's index with a minus in the top bit, are
-sorted by block of event values (`SCATTER_BLOCK_BYTES`, so that a
-block's values sit in L2 while its entries are summed), then by target:
-item (b, t) is a run, its sums folded over the blocks in order.
+sorted by target: a target's entries are a run. The chain tables hold
+the events sorted by their chains, so that events with a common prefix
+lie together.
 Pyramid indices are mapped to the kernels' two-piece read
 (`compile.two_pointer_index`), so a dual problem's tables need no
 kernel of their own: its pyramid is K3 on each tape (the JAX package's
@@ -57,11 +57,8 @@ from ..utils import config
 from . import dense, tree as tree_mod
 from .compile import CompiledProblem, two_pointer_index
 
-LANES = 32  # a warp sums an item's entries (`csrc/gather_rule.cuh`)
+LANES = 32  # a warp sums a target's entries (`csrc/gather_rule.cuh`)
 TILE = 256  # nodes or leaves that share a parent base (`kTileShift`)
-# Event values a block of the scatter, in bytes: L2 (50 MB on an H100)
-# holds a block beside the entries streaming past.
-SCATTER_BLOCK_BYTES = 32 << 20
 _NARROW = 1 << 16  # ids, offsets and signatures below this: 16 bits
 _MINUS = 1 << 31  # an entry's sign bit
 # A tree level's row and a chain column's row as the C entry points read
@@ -124,8 +121,7 @@ class GatherTables:
     levels: list  # of Level
     sig: torch.Tensor | None  # chains: [events]
     ent: torch.Tensor  # [entries] value index, minus in the sign bit
-    item_ptr: torch.Tensor  # [n_blk * state_size + 1] item (b, t)'s run
-    n_blk: int
+    tgt_ptr: torch.Tensor  # [state_size + 1] each target's run
     event_order: np.ndarray  # the compiled event of each event value
     num_nodes: int  # the tree's nodes as built (all levels)
     desc: np.ndarray  # the levels' rows for the C entry points
@@ -224,41 +220,35 @@ class _Builder:
                                  c.dual)
 
 
-def _scatter_entries(compiled, event_order, block_bytes):
+def _scatter_entries(compiled, event_order):
     """The scatter's entries for event values in ``event_order``: (ent
-    int32, item_ptr int32, n_blk). Event value i is +-counted at its
-    event's adjusted (+) and original (-) windows; entries sorted by
-    (value block, target), + entries before - ones, each in value
-    order."""
+    int32, tgt_ptr int32). Event value i is +-counted at its event's
+    adjusted (+) and original (-) windows; the entries sorted by target,
+    + entries before - ones, each in value order."""
     n, n_tgt = len(event_order), compiled.state_size
+    if 2 * n >= 2**31 or n_tgt >= 2**31:
+        raise ValueError("the scatter outgrows int32 indices")
     tgt_orig, tgt_adj = tree_mod.recover_targets(
         compiled.num_events, compiled.ev_idx, compiled.ev_sign,
         compiled.ev_tgt)
-    n_blk = max(1, -(-8 * n // block_bytes))
-    per_blk = max(1, -(-n // n_blk))
-    if 2 * n >= 2**31 or n_blk * n_tgt >= 2**31:
-        raise ValueError("the scatter outgrows int32 indices")
-    pos = np.arange(n, dtype=np.int64)
-    blk = pos // per_blk * n_tgt
     key = torch.as_tensor(np.concatenate(
-        [blk + tgt_adj[event_order], blk + tgt_orig[event_order]])
-        .astype(np.int32))
+        [tgt_adj[event_order], tgt_orig[event_order]]).astype(np.int32))
     order = torch.sort(key, stable=True).indices.numpy()
+    pos = np.arange(n, dtype=np.int64)
     ent = np.concatenate([pos, pos | _MINUS])[order]
-    counts = np.bincount(key.numpy(), minlength=n_blk * n_tgt)
-    item_ptr = np.concatenate([[0], np.cumsum(counts)])
-    return ent.astype(np.uint32).view(np.int32), item_ptr, n_blk
+    counts = np.bincount(key.numpy(), minlength=n_tgt)
+    tgt_ptr = np.concatenate([[0], np.cumsum(counts)])
+    return ent.astype(np.uint32).view(np.int32), tgt_ptr
 
 
-def _tables(b, kind, levels, sig, event_order, block_bytes, num_nodes):
-    ent, item_ptr, n_blk = _scatter_entries(b.compiled, event_order,
-                                            block_bytes)
+def _tables(b, kind, levels, sig, event_order, num_nodes):
+    ent, tgt_ptr = _scatter_entries(b.compiled, event_order)
     worlds = dense.world_tables(b.compiled, b.device)
     t = GatherTables(
         compiled=b.compiled, kind=kind, device=worlds["w_const"].device,
         dict_num=b.put(b.remapped(b.nums), True),
         dict_den=b.put(b.remapped(b.dens), True), levels=levels, sig=sig,
-        ent=b.put(ent, True), item_ptr=b.put(item_ptr, True), n_blk=n_blk,
+        ent=b.put(ent, True), tgt_ptr=b.put(tgt_ptr, True),
         event_order=event_order, num_nodes=num_nodes,
         desc=np.zeros(0, np.int64), **worlds)
     t.desc = _descriptors(t)
@@ -286,14 +276,12 @@ def _descriptors(t: GatherTables) -> np.ndarray:
 
 
 def device_tables(compiled: CompiledProblem, device=None, *,
-                  wide: bool = False,
-                  block_bytes: int = SCATTER_BLOCK_BYTES) -> GatherTables:
+                  wide: bool = False) -> GatherTables:
     """The tree engine's tables on ``device`` (``cuda`` unless named):
     the prefix tree of the event chains (`tree.build_tree`), its levels
     above the last as built, every event a leaf at the level where its
     chain ends (sorted by node), and the scatter over the leaves' values.
-    ``wide`` makes every id, offset and signature 32 bits (tests);
-    ``block_bytes`` sizes the scatter's value blocks."""
+    ``wide`` makes every id, offset and signature 32 bits (tests)."""
     tr = tree_mod.build_tree(compiled.e_num, compiled.e_den,
                              compiled.pyramid_size - 1,
                              compiled.pyramid_size)
@@ -321,30 +309,45 @@ def device_tables(compiled: CompiledProblem, device=None, *,
         node_first += 0 if last else len(pid)
         leaf_first += len(o)
     return _tables(b, "tree", levels, None, np.concatenate(orders).astype(
-        np.int64), block_bytes, tr.num_nodes)
+        np.int64), tr.num_nodes)
+
+
+def _chain_order(pair_ids) -> np.ndarray:
+    """Events sorted by their chains' pair ids, column 0 first (stably):
+    events that share a prefix lie together, so a warp's ratio lookups
+    for a shared column hit one entry, and the scatter's gathers fall
+    near each other as in the tree's order."""
+    order = torch.arange(len(pair_ids[0]))
+    for pid in reversed(pair_ids):
+        key = torch.as_tensor(pid)[order]
+        order = order[torch.sort(key, stable=True).indices]
+    return order.numpy()
 
 
 def chain_tables(compiled: CompiledProblem, device=None, *,
-                 wide: bool = False,
-                 block_bytes: int = SCATTER_BLOCK_BYTES) -> GatherTables:
+                 wide: bool = False) -> GatherTables:
     """The chain engine's tables on ``device``: each event's padded chain
     as compiled, a column at a time (column-major: a column's ids lie
-    together), each event's signature, and the scatter over the events
-    in compiled order. ``wide`` and ``block_bytes`` as in
+    together), each event's signature, and the scatter, the events
+    sorted by their chains (`_chain_order`). ``wide`` as in
     `device_tables`."""
     b = _Builder(compiled, device, wide)
-    levels = []
+    firsts, pids = [], []
     for c in range(compiled.e_num.shape[1]):
         first, _, pid = b.dictionary(compiled.e_num[:, c],
                                      compiled.e_den[:, c])
+        firsts.append(first)
+        pids.append(pid)
+    order = _chain_order(pids)
+    levels = []
+    for first, pid in zip(firsts, pids):
+        pid = pid[order]
         w = not b.narrow(pid)
         levels.append(Level(first=first, wide=w, node=None,
                             leaf=Slab(id=b.put(pid, w))))
-    e_sig = np.asarray(compiled.e_sig)
+    e_sig = np.asarray(compiled.e_sig)[order]
     sig = b.put(e_sig, not b.narrow(e_sig))
-    return _tables(b, "chains", levels, sig,
-                   np.arange(compiled.num_events, dtype=np.int64),
-                   block_bytes, 0)
+    return _tables(b, "chains", levels, sig, order.astype(np.int64), 0)
 
 
 # --- Plain versions ----------------------------------------------------------
@@ -413,47 +416,41 @@ def entry_terms(t: GatherTables, ev: torch.Tensor) -> torch.Tensor:
 
 def entry_targets(t: GatherTables) -> torch.Tensor:
     """Each scatter entry's target window, int64 on ``t``'s device."""
-    ptr = t.item_ptr.long()
-    items = torch.arange(t.n_blk * t.state_size, device=ptr.device)
-    return torch.repeat_interleave(items % t.state_size, ptr[1:] - ptr[:-1])
+    ptr = t.tgt_ptr.long()
+    return torch.repeat_interleave(
+        torch.arange(t.state_size, device=ptr.device), ptr[1:] - ptr[:-1])
 
 
 def scatter_plain(t: GatherTables, ev: torch.Tensor,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K7's and K8's scatter, in the kernels' order: for
-    each item (value block b, target t), lane l (of 32) adds the terms
-    of its entries l, l + 32, ... from 0.0, then the partials are folded
-    in halves (lane l + 16 onto l, then 8, 4, 2, 1), as the warp's xor
-    butterfly gives lane 0; a target's item sums are then added from
-    block 0 up."""
+    each target, lane l (of 32) adds the terms of its entries l, l + 32,
+    ... from 0.0, then the partials are folded in halves (lane l + 16
+    onto l, then 8, 4, 2, 1), as the warp's xor butterfly gives lane
+    0."""
     scatter_plain.calls += 1
     n_tgt = t.state_size
     if out is not None:
         dense._checked_out(out, n_tgt, ev.device)
-    n_items = t.n_blk * n_tgt
-    ptr = t.item_ptr.long()
+    ptr = t.tgt_ptr.long()
     term = entry_terms(t, ev)
-    item = torch.repeat_interleave(torch.arange(n_items, device=ptr.device),
-                                   ptr[1:] - ptr[:-1])
-    rank = torch.arange(term.numel(), device=ptr.device) - ptr[item]
-    slot = item * LANES + rank % LANES
+    tgt = entry_targets(t)
+    rank = torch.arange(term.numel(), device=ptr.device) - ptr[tgt]
+    slot = tgt * LANES + rank % LANES
     row = rank // LANES
     order = torch.argsort(row, stable=True)
     bounds = torch.bincount(row, minlength=1).cumsum(0).tolist()
-    part = torch.zeros(n_items * LANES, dtype=ev.dtype, device=ev.device)
+    part = torch.zeros(n_tgt * LANES, dtype=ev.dtype, device=ev.device)
     start = 0
-    for stop in bounds:  # one row of every item's lanes at a time
+    for stop in bounds:  # one row of every target's lanes at a time
         sel = order[start:stop]
         part.index_add_(0, slot[sel], term[sel])
         start = stop
-    x = part.view(n_items, LANES)
+    x = part.view(n_tgt, LANES)
     while x.shape[1] > 1:
         h = x.shape[1] // 2
         x = x[:, :h] + x[:, h:]
-    x = x[:, 0].view(t.n_blk, n_tgt)
-    dy = x[0]
-    for b in range(1, t.n_blk):
-        dy = dy + x[b]
+    dy = x[:, 0]
     return dy if out is None else out.copy_(dy)
 
 
@@ -496,11 +493,9 @@ def _head(t: GatherTables, p, low):
 
 
 def _tail(t: GatherTables, ev, dy, stream_of):
-    """The scatter's arguments, with the partials buffer it writes."""
-    part = _empty(t.n_blk * t.state_size if t.n_blk > 1 else 0, ev.device)
-    return (ev.data_ptr(), t.ent.data_ptr(), t.item_ptr.data_ptr(),
-            t.state_size, t.n_blk, part.data_ptr(), dy.data_ptr(),
-            cuda.stream(stream_of)), part
+    """The scatter's arguments."""
+    return (ev.data_ptr(), t.ent.data_ptr(), t.tgt_ptr.data_ptr(),
+            t.state_size, dy.data_ptr(), cuda.stream(stream_of))
 
 
 def tree_rhs(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
@@ -517,12 +512,11 @@ def tree_rhs(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
     p, low, dy = _check(t, p, low, out)
     nv = _empty(t.num_node_values, p.device)
     ev = _empty(t.num_values, p.device)
-    head, keep = _head(t, p, low)
-    tail, part = _tail(t, ev, dy, p)
+    head, buffers = _head(t, p, low)  # s, the ratios: the launch's
     lib = cuda.load()
     with torch.cuda.device(p.device):
         rc = lib.ckpe_tree_rhs(*head, t.desc.ctypes.data, len(t.levels),
-                               nv.data_ptr(), *tail)
+                               nv.data_ptr(), *_tail(t, ev, dy, p))
     cuda.check(rc, "tree_rhs", lib)
     tree_rhs.launches += t.launches
     return dy
@@ -543,13 +537,12 @@ def chain_rhs(t: GatherTables, p: torch.Tensor, low: torch.Tensor,
         return scatter_plain(t, chain_values_plain(t, p, low, s), out)
     p, low, dy = _check(t, p, low, out)
     ev = _empty(t.num_values, p.device)
-    head, keep = _head(t, p, low)
-    tail, part = _tail(t, ev, dy, p)
+    head, buffers = _head(t, p, low)  # s, the ratios: the launch's
     lib = cuda.load()
     with torch.cuda.device(p.device):
         rc = lib.ckpe_chain_rhs(*head, t.desc.ctypes.data, len(t.levels),
                                 t.sig.data_ptr(), int(t.sig_wide()),
-                                t.num_values, *tail)
+                                t.num_values, *_tail(t, ev, dy, p))
     cuda.check(rc, "chain_rhs", lib)
     chain_rhs.launches += t.launches
     return dy
@@ -574,10 +567,9 @@ def scatter(t: GatherTables, ev: torch.Tensor,
     dy = (torch.empty(n, dtype=torch.float64, device=ev.device)
           if out is None else dense._checked_out(out, n, ev.device))
     ev = ev.contiguous()
-    tail, part = _tail(t, ev, dy, ev)
     lib = cuda.load()
     with torch.cuda.device(ev.device):
-        rc = lib.ckpe_gather_scatter(*tail)
+        rc = lib.ckpe_gather_scatter(*_tail(t, ev, dy, ev))
     cuda.check(rc, "scatter", lib)
     scatter.launches += 1
     return dy

@@ -75,18 +75,17 @@ Phases (each prints its wall time; every check raises on failure):
    events, tree nodes); the compact tables' build seconds and bytes on
    the card beside the flat tables' (an int32 num, den and parent a
    node, 8-byte entries), each tree level's and chain column's
-   dictionary size and id width, the scatter's value blocks; dp/dt by
-   K7 (the prefix tree) and K8 (the chains) equal to their plain
-   versions on the card bit for bit, twice the same bits, with 16-bit
-   ids and with every id 32 bits (the same dy), and within rtol 1e-12,
-   atol 1e-14 of the dense RHS (K3-K5), on p0 and on a random SPD with
-   p[0] = -1e-13; their launches an RHS (2), counted, no plain version
-   called; each kernel's time beside its byte bound over the compact
-   tables and over the flat ones and its plain version, the scatter
-   stage alone (in its value blocks and in one block) against
-   `index_add_` of the same signed terms, the RHS against the dense
-   one; the main paths: ex4 scenario a solved at cl_k 5
-   through `build_dy_dt(engine="tree")` and through the chain engine,
+   dictionary size and id width; dp/dt by K7 (the prefix tree) and K8
+   (the chains) equal to their plain versions on the card bit for bit,
+   twice the same bits, with 16-bit ids and with every id 32 bits (the
+   same dy), and within rtol 1e-12, atol 1e-14 of the dense RHS
+   (K3-K5), on p0 and on a random SPD with p[0] = -1e-13; their
+   launches an RHS (2), counted, no plain version called; each
+   kernel's time beside its byte bound over the compact tables and
+   over the flat ones and its plain version, the scatter stage alone
+   against `index_add_` of the same signed terms, the RHS against the
+   dense one; the main paths: ex4 scenario a solved at cl_k 5 through
+   `build_dy_dt(engine="tree")` and through the chain engine,
    each within 2e-6 rel of the oracle, with its steps and its gap to
    phase 6's dense solve; the dense dual solves of
    `examples/ex3_dual_tape.py` (both soups) and
@@ -1002,9 +1001,9 @@ def nbytes(*tensors):
 def table_bytes(t):
     """Bytes of K7's or K8's own tables: the dictionaries' pyramid
     indices, every level's (column's) ids, parent offsets and bases and
-    signatures, the entries and the items' CSR."""
+    signatures, the entries and the targets' CSR."""
     slabs = [sl for lv in t.levels for sl in (lv.node, lv.leaf) if sl]
-    return nbytes(t.dict_num, t.dict_den, t.sig, t.ent, t.item_ptr,
+    return nbytes(t.dict_num, t.dict_den, t.sig, t.ent, t.tgt_ptr,
                   *(x for sl in slabs for x in (sl.id, sl.off, sl.base,
                                                 sl.sig)))
 
@@ -1020,9 +1019,9 @@ def _io_bytes(t):
 def gather_bytes(t):
     """Least bytes of K7 or K8 (``t``'s kind) for one RHS: every table
     read once (`table_bytes`), with `_io_bytes`; and of the scatter stage
-    alone (the entries and the items' CSR, the event values read, dy
+    alone (the entries and the targets' CSR, the event values read, dy
     written)."""
-    scatter = nbytes(t.ent, t.item_ptr) + 8 * t.num_values + 8 * t.state_size
+    scatter = nbytes(t.ent, t.tgt_ptr) + 8 * t.num_values + 8 * t.state_size
     return _io_bytes(t) + table_bytes(t), scatter
 
 
@@ -1036,17 +1035,6 @@ def flat_gather_bytes(t):
               else 8 * c.e_num.size)
     entries = 8 * t.ent.numel() + 4 * (t.state_size + 1)
     return _io_bytes(t) + tables + entries
-
-
-def one_block(t):
-    """``t`` with its scatter in one value block: the same entries,
-    sorted by target (stably), and the targets' CSR."""
-    tgt = trhs.entry_targets(t)
-    order = torch.sort(tgt, stable=True).indices
-    counts = torch.bincount(tgt, minlength=t.state_size)
-    ptr = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).to(torch.int32)
-    return dataclasses.replace(t, ent=t.ent[order].contiguous(),
-                               item_ptr=ptr, n_blk=1)
 
 
 def dict_sizes(t):
@@ -1165,10 +1153,9 @@ def gather_rhs_checks(dev, gen, fns, wide, dense_fn, compiled, max_err):
 def time_gather(dev, fns, dense_fn, compiled, p):
     """Each of K7 and K8 on ``p``: the kernel, its plain version, its
     byte bounds (the compact tables and the flat ones), the scatter
-    stage alone (its value blocks and one block) against `index_add_`
-    of the same signed terms (checked against it), and the RHS (K3 and
-    the kernel) against the dense RHS, on the card and as the host paces
-    it."""
+    stage alone against `index_add_` of the same signed terms (checked
+    against it), and the RHS (K3 and the kernel) against the dense RHS,
+    on the card and as the host paces it."""
     low = tdense.pyramids(compiled, p)
     out = {}
     for key, fn in fns.items():
@@ -1180,7 +1167,6 @@ def time_gather(dev, fns, dense_fn, compiled, p):
         ev = values(t, p, low, s)
         tgt = trhs.entry_targets(t)
         terms = trhs.entry_terms(t, ev)
-        t1 = one_block(t)
         n = t.state_size
 
         def library():
@@ -1189,11 +1175,9 @@ def time_gather(dev, fns, dense_fn, compiled, p):
 
         lib_dy = library()
         sc_dy = trhs.scatter(t, ev)
-        one_dy = trhs.scatter(t1, ev)
         torch.cuda.synchronize()
-        for name, dy in (("scatter", sc_dy), ("one-block scatter", one_dy)):
-            if not torch.allclose(lib_dy, dy, rtol=RHS_RTOL, atol=RHS_ATOL):
-                raise AssertionError(f"{key}: index_add_ yardstick != {name}")
+        if not torch.allclose(lib_dy, sc_dy, rtol=RHS_RTOL, atol=RHS_ATOL):
+            raise AssertionError(f"{key}: index_add_ yardstick != scatter")
         full_b, scatter_b = gather_bytes(t)
         host = []
         out[key] = {
@@ -1206,17 +1190,14 @@ def time_gather(dev, fns, dense_fn, compiled, p):
             * 1e3,
             "library_ms": cuda_ms(library, 20, warmup=2),
             "scatter_ms": cuda_ms(lambda: trhs.scatter(t, ev), 20, warmup=2),
-            "scatter_one_block_ms": cuda_ms(lambda: trhs.scatter(t1, ev), 20,
-                                            warmup=2),
             "scatter_bound_ms": scatter_b / HBM_BYTES_PER_S * 1e3,
-            "value_blocks": t.n_blk,
             "launches_per_call": t.launches,
             "host_us_per_launch": host[0] * 1e3 / t.launches,
             "rhs_ms": cuda_ms(lambda: fn(p), 20, warmup=2),
             "rhs_paced_ms": wall_ms(lambda: fn(p), 20),
             "bytes": full_b, "flat_bytes": flat_gather_bytes(t),
             "values": t.num_values, "entries": t.ent.numel()}
-        del ev, tgt, terms, lib_dy, sc_dy, one_dy, t1
+        del ev, tgt, terms, lib_dy, sc_dy
     out["dense_rhs_ms"] = cuda_ms(lambda: dense_fn(p), 20, warmup=2)
     out["dense_rhs_paced_ms"] = wall_ms(lambda: dense_fn(p), 20)
     return out
@@ -1395,8 +1376,7 @@ def gather_phase(dev, kernels, dense_finals):
         say(f"{key} tables on the card: {table_bytes(t) / 1e6:.1f} MB "
             f"(32-bit ids {table_bytes(wide[GATHER_KEY[key]]) / 1e6:.1f}; "
             f"the flat tables {(flat_gather_bytes(t) - _io_bytes(t)) / 1e6:.1f}"
-            f"), {t.dict_num.numel()} dictionary entries, {t.n_blk} value "
-            f"blocks of the scatter")
+            f"), {t.dict_num.numel()} dictionary entries")
         for line in describe_tables(t):
             say("  " + line)
     dense_fn = tdense.make_dense_dy_dt(tdense.compile_dense(EX4, k),
@@ -1415,10 +1395,9 @@ def gather_phase(dev, kernels, dense_finals):
             f"the flat tables {t['bound_flat_tables_ms'] * 1e3:.1f} us, "
             f"{t['flat_bytes'] / 1e6:.1f} MB); plain "
             f"{t['plain_ms'] * 1e3:.1f} us; scatter alone "
-            f"{t['scatter_ms'] * 1e3:.1f} us in {t['value_blocks']} value "
-            f"blocks, {t['scatter_one_block_ms'] * 1e3:.1f} in one, against "
-            f"a bound of {t['scatter_bound_ms'] * 1e3:.1f} us and index_add_ "
-            f"of the same signed terms {t['library_ms'] * 1e3:.1f} us; the "
+            f"{t['scatter_ms'] * 1e3:.1f} us against a bound of "
+            f"{t['scatter_bound_ms'] * 1e3:.1f} us and index_add_ of the "
+            f"same signed terms {t['library_ms'] * 1e3:.1f} us; the "
             f"RHS (K3 + {key}) {t['rhs_ms'] * 1e3:.1f} us on the card, "
             f"{t['rhs_paced_ms'] * 1e3:.1f} as paced; host "
             f"{t['host_us_per_launch']:.2f} us a launch")
@@ -1474,8 +1453,6 @@ def gather_phase(dev, kernels, dense_finals):
                        "scatter stage; scatter_ms is that stage alone)",
             "bound_flat_tables_ms": t["bound_flat_tables_ms"],
             "scatter_ms": t["scatter_ms"],
-            "scatter_one_block_ms": t["scatter_one_block_ms"],
-            "value_blocks": t["value_blocks"],
             "scatter_bound_ms": t["scatter_bound_ms"],
             "launches_per_rhs": t["launches_per_call"],
             "rhs_ms": t["rhs_ms"], "dense_rhs_ms": times["dense_rhs_ms"],

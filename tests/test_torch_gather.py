@@ -251,11 +251,10 @@ def test_compact_tables_decode_to_flat_tables(tag, cl_k, dual, wide):
     above the last (num, den, parent a node) as built, its last level's
     nodes in its leaves, each event value's node, signature and two
     signed targets (so each target's entries) as compiled; the chains'
-    columns as compiled. Three value blocks, so items split targets."""
+    columns as compiled, the events sorted by their chains."""
     _, tc = _compiled(tag, cl_k, dual)
-    kw = dict(wide=wide, block_bytes=_block_bytes(tc, 3))
-    t = trhs.device_tables(tc, "cpu", **kw)
-    c = trhs.chain_tables(tc, "cpu", **kw)
+    t = trhs.device_tables(tc, "cpu", wide=wide)
+    c = trhs.chain_tables(tc, "cpu", wide=wide)
     flat, node_of = _flat_tree_tables(tc)
     assert t.num_levels == len(flat) and t.num_nodes == sum(
         len(x[0]) for x in flat)
@@ -294,14 +293,16 @@ def test_compact_tables_decode_to_flat_tables(tag, cl_k, dual, wide):
                              minlength=tc.state_size)
         np.testing.assert_array_equal(
             counts, np.bincount(tc.ev_tgt, minlength=tc.state_size))
-        assert tables.n_blk == min(3, tc.num_events)
-    np.testing.assert_array_equal(c.event_order, np.arange(tc.num_events))
-    np.testing.assert_array_equal(trhs.ids(c.sig).numpy(), tc.e_sig)
+    assert sorted(c.event_order.tolist()) == list(range(tc.num_events))
+    np.testing.assert_array_equal(trhs.ids(c.sig).numpy(),
+                                  tc.e_sig[c.event_order])
     for col, lv in enumerate(c.levels):
         num, den, _ = _decode_slab(c, lv, lv.leaf)
         for g, w in ((num, tc.e_num[:, col]), (den, tc.e_den[:, col])):
             np.testing.assert_array_equal(g, tcompile.two_pointer_index(
-                w, tc.size_a, tc.cl_k, tc.dual))
+                w[c.event_order], tc.size_a, tc.cl_k, tc.dual))
+    ids = np.stack([trhs.ids(lv.leaf.id).numpy() for lv in c.levels], 1)
+    assert (np.lexsort(ids.T[::-1]) == np.arange(len(ids))).all()
 
 
 # --- dp/dt ---------------------------------------------------------------------
@@ -460,18 +461,13 @@ extern "C" void k8_host_values(const double* ratio, const double* s,
     ev[e] = k8_value(ratio, cols, n_cols, e) * s[k7_at(sig, sig_wide, e)];
 }
 extern "C" void k7_host_scatter(const double* ev, const unsigned* ent,
-                                const int* item_ptr, int n_tgt, int n_blk,
-                                double* part, double* dy) {
-  double* out = n_blk > 1 ? part : dy;
-  for (long long j = 0; j < (long long)n_blk * n_tgt; ++j) {
+                                const int* tgt_ptr, int n_tgt, double* dy) {
+  for (int t = 0; t < n_tgt; ++t) {
     double x[kLanes];
     for (int l = 0; l < kLanes; ++l)
-      x[l] = k7_lane_sum(ev, ent, item_ptr[j], item_ptr[j + 1], l);
-    out[j] = k7_fold32(x);
+      x[l] = k7_lane_sum(ev, ent, tgt_ptr[t], tgt_ptr[t + 1], l);
+    dy[t] = k7_fold32(x);
   }
-  if (n_blk > 1)
-    for (int t = 0; t < n_tgt; ++t) dy[t] = k7_fold_blocks(part, n_tgt,
-                                                           n_blk, t);
 }
 extern "C" void k5_host_items(int a, int k, const double* p,
                               const double* low, const double* s,
@@ -512,14 +508,9 @@ def gather_host(tmp_path_factory):
     lib.k7_host_ratios.argtypes = [i, i, p, p, u, p, p, ll, p]
     lib.k7_host_values.argtypes = [p, p, p, i, p, p]
     lib.k8_host_values.argtypes = [p, p, p, i, p, i, ll, p]
-    lib.k7_host_scatter.argtypes = [p, p, p, i, i, p, p]
+    lib.k7_host_scatter.argtypes = [p, p, p, i, p]
     lib.k5_host_items.argtypes = [i, i, p, p, p, p, p, p, p, i]
     return lib
-
-
-def _block_bytes(compiled, blocks):
-    """A scatter block size that cuts the event values into ``blocks``."""
-    return 8 * max(1, -(-compiled.num_events // blocks))
 
 
 @pytest.mark.parametrize("tag,cl_k,dual", [
@@ -531,13 +522,12 @@ def test_gather_rules_match_plain(gather_host, tag, cl_k, dual):
     phase 0's ratios (the dictionaries' guarded ratios), K7's node and
     leaf values (ratio lookup times the parent's value, implicit in the
     tiles' bases and offsets, times the signature's weight), K8's chain
-    products, and the blocked scatter's order (a lane's partial from 0.0
-    over entries l, l + 32, ... of an item, the xor butterfly's folds,
-    the blocks' partials from block 0 up): each equal to the plain
-    versions (`ratios_plain`, `tree_values_plain`, `chain_values_plain`,
-    `scatter_plain`) bit for bit, with 16-bit and with 32-bit ids, with
-    one and with three value blocks, on a concentrated SPD with exact
-    zeros and a p[0] of -1e-13."""
+    products, and the scatter's order (a lane's partial from 0.0
+    over entries l, l + 32, ... of a target, the xor butterfly's folds):
+    each equal to the plain versions (`ratios_plain`,
+    `tree_values_plain`, `chain_values_plain`, `scatter_plain`) bit for
+    bit, with 16-bit and with 32-bit ids (the same dy), on a concentrated
+    SPD with exact zeros and a p[0] of -1e-13."""
     _, tc = _compiled(tag, cl_k, dual)
     a, n = tc.size_a, tc.state_size
     rng = np.random.RandomState(19)
@@ -547,12 +537,10 @@ def test_gather_rules_match_plain(gather_host, tag, cl_k, dual):
     p[0] = -1e-13
     p = torch.as_tensor(p)
     low = tdense.pyramids(tc, p, plain=True)
-    dys = []
-    for wide, blocks in ((False, 1), (True, 1), (False, 3), (True, 3)):
-        kw = dict(wide=wide, block_bytes=_block_bytes(tc, blocks))
-        for t in (trhs.device_tables(tc, "cpu", **kw),
-                  trhs.chain_tables(tc, "cpu", **kw)):
-            assert t.n_blk == min(blocks, tc.num_events)
+    dys = {}
+    for wide in (False, True):
+        for t in (trhs.device_tables(tc, "cpu", wide=wide),
+                  trhs.chain_tables(tc, "cpu", wide=wide)):
             assert all(lv.wide == wide for lv in t.levels)
             s = tdense.signature_weights_plain(t, p, low)
             ratio = torch.full((t.dict_num.numel(),), np.nan,
@@ -577,18 +565,18 @@ def test_gather_rules_match_plain(gather_host, tag, cl_k, dual):
                 want = trhs.chain_values_plain(t, p, low, s)
             assert torch.equal(got, want), t.kind
             dy = torch.full((n,), np.nan, dtype=torch.float64)
-            part = torch.full((t.n_blk * n,), np.nan, dtype=torch.float64)
             gather_host.k7_host_scatter(_ptr(got), _ptr(t.ent),
-                                        _ptr(t.item_ptr), n, t.n_blk,
-                                        _ptr(part), _ptr(dy))
+                                        _ptr(t.tgt_ptr), n, _ptr(dy))
             assert torch.equal(dy, trhs.scatter_plain(t, want)), t.kind
             assert bool((dy != 0).any())
-            dys.append(dy)
-    for dy in dys[1:]:  # other orders of the same sums: rounding apart
-        np.testing.assert_allclose(dy.numpy(), dys[0].numpy(), rtol=RTOL,
-                                   atol=ATOL)
-    if tag == "ex6-mini-bff-lite":  # items of more than 32 entries
-        ptr = t.item_ptr
+            dys.setdefault(t.kind, []).append(dy)
+    for tree, chains in zip(dys["tree"], dys["chains"]):
+        assert torch.equal(tree, dys["tree"][0])
+        assert torch.equal(chains, dys["chains"][0])
+        np.testing.assert_allclose(chains.numpy(), tree.numpy(), rtol=RTOL,
+                                   atol=ATOL)  # another order of the sums
+    if tag == "ex6-mini-bff-lite":  # targets of more than 32 entries
+        ptr = t.tgt_ptr
         assert int((ptr[1:] - ptr[:-1]).max()) > trhs.LANES
 
 

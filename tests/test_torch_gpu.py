@@ -579,13 +579,11 @@ def _compile(tag, cl_k, dual):
             else tcompile.compile_problem(tag, cl_k))
 
 
-def _gather_tables(compiled, cuda, wide, blocks):
-    """The tree's and the chains' tables on the card, their scatter in
-    ``blocks`` value blocks."""
-    kw = dict(wide=wide, block_bytes=8 * max(
-        1, -(-compiled.num_events // blocks)))
-    return ((trhs.device_tables(compiled, cuda, **kw), trhs.tree_rhs),
-            (trhs.chain_tables(compiled, cuda, **kw), trhs.chain_rhs))
+def _gather_tables(compiled, cuda, wide):
+    """The tree's and the chains' tables on the card, with their
+    wrappers."""
+    return ((trhs.device_tables(compiled, cuda, wide=wide), trhs.tree_rhs),
+            (trhs.chain_tables(compiled, cuda, wide=wide), trhs.chain_rhs))
 
 
 @pytest.mark.parametrize("wide", [False, True], ids=["16-bit", "32-bit"])
@@ -596,27 +594,24 @@ def _gather_tables(compiled, cuda, wide, blocks):
                             ("ex4-chemical-turing", 3, True)])
 def test_gather_kernels_match_plain(cuda, tag, cl_k, dual, wide):
     """K7 and K8 against their plain versions on the card on the same
-    pyramid, with 16-bit and 32-bit ids, in one and in three value
-    blocks: the same products and every sum in the same order, so the
-    same bits; two runs the same bits; 2 launches an RHS each and no
-    plain version called."""
+    pyramid, with 16-bit and 32-bit ids: the same products and every
+    sum in the same order, so the same bits; two runs the same bits; 2
+    launches an RHS each and no plain version called."""
     compiled = _compile(tag, cl_k, dual)
     p, low = _gather_input(cuda, compiled, 6)
-    for blocks in (1, 3):
-        for t, kern in _gather_tables(compiled, cuda, wide, blocks):
-            assert all(lv.wide == wide for lv in t.levels)
-            assert t.n_blk == min(blocks, compiled.num_events)
-            before = kern.launches
-            plain = (trhs.scatter_plain.calls, trhs.tree_values_plain.calls,
-                     trhs.chain_values_plain.calls)
-            got = kern(t, p, low)
-            assert kern.launches == before + t.launches == before + 2
-            assert plain == (trhs.scatter_plain.calls,
-                             trhs.tree_values_plain.calls,
-                             trhs.chain_values_plain.calls)
-            assert torch.equal(got, trhs.gather_plain(t, p))
-            assert torch.equal(got, kern(t, p, low))
-            assert bool(got.any())
+    for t, kern in _gather_tables(compiled, cuda, wide):
+        assert all(lv.wide == wide for lv in t.levels)
+        before = kern.launches
+        plain = (trhs.scatter_plain.calls, trhs.tree_values_plain.calls,
+                 trhs.chain_values_plain.calls)
+        got = kern(t, p, low)
+        assert kern.launches == before + t.launches == before + 2
+        assert plain == (trhs.scatter_plain.calls,
+                         trhs.tree_values_plain.calls,
+                         trhs.chain_values_plain.calls)
+        assert torch.equal(got, trhs.gather_plain(t, p))
+        assert torch.equal(got, kern(t, p, low))
+        assert bool(got.any())
 
 
 @pytest.mark.parametrize("tag,cl_k,dual", [(t, k, False) for t, k in
@@ -668,18 +663,16 @@ def _kernel_launches(fn):
 def test_gather_rhs_launches_as_planned(cuda, tag, cl_k, dual, wide):
     """`tree_rhs` and `chain_rhs` launch exactly `GatherTables.launches`
     kernels an RHS, by the profiler's count of the card's kernels (the
-    values kernel, then the scatter) as by the wrappers' counts, with
-    one and with three value blocks."""
+    values kernel, then the scatter) as by the wrappers' counts."""
     compiled = _compile(tag, cl_k, dual)
     p, low = _gather_input(cuda, compiled, 2)
-    for blocks in (1, 3):
-        for t, kern in _gather_tables(compiled, cuda, wide, blocks):
-            kern(t, p, low)  # built and loaded before the count
-            before = kern.launches
-            names = _kernel_launches(lambda: kern(t, p, low))
-            assert kern.launches - before == t.launches == len(names) == 2
-            assert "gather_scatter" in names[-1]
-            assert ("k7_" if t.kind == "tree" else "k8_") in names[0]
+    for t, kern in _gather_tables(compiled, cuda, wide):
+        kern(t, p, low)  # built and loaded before the count
+        before = kern.launches
+        names = _kernel_launches(lambda: kern(t, p, low))
+        assert kern.launches - before == t.launches == len(names) == 2
+        assert "gather_scatter" in names[-1]
+        assert ("k7_" if t.kind == "tree" else "k8_") in names[0]
 
 
 @pytest.mark.parametrize("tag", ["ex1-radioactive-decay",
