@@ -26,8 +26,7 @@
 //      last level and the events that end above it) writes its value
 //      times its signature's weight straight into ``ev``, four leaves a
 //      thread. K8 forms each event's chain product over the
-//      column-major chain ids, four events a thread, the events sorted
-//      by their chains.
+//      column-major chain ids, four events a thread.
 //   2. the scatter: a warp a target over its run of 4-byte entries (the
 //      value's index, the sign in the top bit).
 // Two launches an RHS for either kernel (9 and 3 before the compact
@@ -57,9 +56,9 @@
 //   - the scatter: its entries are gathers, a 32-byte sector for one
 //     8-byte value where a target's values lie thousands apart, so the
 //     sectors, not the bytes, set its time (not traced). The tree's
-//     leaf order and the chains sorted by their chains keep a target's
-//     values nearer each other than the compiled order does; the
-//     entries stream past once (`__ldcs`), leaving L2 to the values.
+//     leaf order keeps a target's values nearer each other than the
+//     chains' compiled order does; the entries stream past once
+//     (`__ldcs`), leaving L2 to the values.
 //     Cutting the values into blocks that L2 holds, a target's entries
 //     summed block by block, was no faster on the card.
 
@@ -77,6 +76,7 @@ constexpr int kMaxLevels = 24;  // tree levels or chain columns
 constexpr int kLevelFields = 13;  // a level's row (`rhs.LEVEL_FIELDS`)
 constexpr int kColumnFields = 3;  // a column's row (`rhs.COLUMN_FIELDS`)
 constexpr int kValueBlocksPerSm = 4;
+constexpr int kK8Batch = 2;  // chain columns a batch of K8's loop
 constexpr int kMaxScatterBlocks = 132 * 16;  // grid-stride past these
 
 // Phase 0: every dictionary entry's ratio and the signature weights.
@@ -215,35 +215,38 @@ k7_tree_kernel(const __grid_constant__ TreeLaunch L) {
 }
 
 // K8: each event's chain product times its signature's weight, four
-// events a thread: a batch of kK4Batch columns' ids loaded four events
-// at a time, their ratios gathered, then multiplied into each event's
+// events a thread: kK8Batch columns' ids at a time loaded four events
+// at once, their ratios gathered, then multiplied into each event's
 // product in chain order (`k8_value`'s order); the last n % 4 one a
-// thread.
+// thread. Two columns a batch keep the loop within the launch's 64
+// registers (four spill).
 __global__ void __launch_bounds__(kThreads, kValueBlocksPerSm)
 k8_chain_kernel(const __grid_constant__ ChainLaunch L) {
   const unsigned stride = gridDim.x * kThreads;
   const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
   gather_prep(L.g, tid, stride);
   cg::this_grid().sync();
+  double* __restrict__ ev = L.ev;
+  const double* __restrict__ ratio = L.g.ratio;
   const unsigned n4 = L.n_ev / 4;
   for (unsigned j = tid; j < n4; j += stride) {
     const unsigned i = 4 * j;
     double prod[4];
-    for (int c0 = 0; c0 < L.n_cols; c0 += kK4Batch) {
-      unsigned id[kK4Batch][4];
+    for (int c0 = 0; c0 < L.n_cols; c0 += kK8Batch) {
+      unsigned id[kK8Batch][4];
 #pragma unroll
-      for (int b = 0; b < kK4Batch; ++b)
+      for (int b = 0; b < kK8Batch; ++b)
         if (c0 + b < L.n_cols)
           load4(L.col[c0 + b].id, L.col[c0 + b].wide, i, id[b]);
-      double r[kK4Batch][4];
+      double r[kK8Batch][4];
 #pragma unroll
-      for (int b = 0; b < kK4Batch; ++b)
+      for (int b = 0; b < kK8Batch; ++b)
         if (c0 + b < L.n_cols)
 #pragma unroll
           for (int u = 0; u < 4; ++u)
-            r[b][u] = L.g.ratio[L.col[c0 + b].first + id[b][u]];
+            r[b][u] = ratio[L.col[c0 + b].first + id[b][u]];
 #pragma unroll
-      for (int b = 0; b < kK4Batch; ++b)
+      for (int b = 0; b < kK8Batch; ++b)
         if (c0 + b < L.n_cols)
 #pragma unroll
           for (int u = 0; u < 4; ++u)
@@ -252,11 +255,11 @@ k8_chain_kernel(const __grid_constant__ ChainLaunch L) {
     unsigned sig[4];
     load4(L.sig, L.sig_wide, i, sig);
 #pragma unroll
-    for (int u = 0; u < 4; ++u) L.ev[i + u] = prod[u] * L.g.s[sig[u]];
+    for (int u = 0; u < 4; ++u) ev[i + u] = prod[u] * L.g.s[sig[u]];
   }
   for (unsigned e = 4 * n4 + tid; e < L.n_ev; e += stride)
-    L.ev[e] = k8_value(L.g.ratio, L.col, L.n_cols, e) *
-              L.g.s[k7_at(L.sig, L.sig_wide, e)];
+    ev[e] = k8_value(ratio, L.col, L.n_cols, e) *
+            L.g.s[k7_at(L.sig, L.sig_wide, e)];
 }
 
 // The scatter: a warp a target, grid-stride.

@@ -35,9 +35,7 @@ levels above the last are kept as built (`tree.build_tree`); its leaves
 are the events, each at the level where its chain ends, sorted by node,
 and their values are the event values in that order. The scatter's
 entries, an event value's index with a minus in the top bit, are
-sorted by target: a target's entries are a run. The chain tables hold
-the events sorted by their chains, so that events with a common prefix
-lie together.
+sorted by target: a target's entries are a run.
 Pyramid indices are mapped to the kernels' two-piece read
 (`compile.two_pointer_index`), so a dual problem's tables need no
 kernel of their own: its pyramid is K3 on each tape (the JAX package's
@@ -175,7 +173,7 @@ def _dictionary(num: np.ndarray, den: np.ndarray, pyramid_size: int):
     return uniq // pyramid_size, uniq % pyramid_size, inv.numpy()
 
 
-class _Builder:
+class _TableParts:
     """Collects the dictionaries and puts the narrow arrays on the
     device."""
 
@@ -186,14 +184,14 @@ class _Builder:
         self.nums, self.dens, self.size = [], [], 0
 
     def dictionary(self, num, den):
-        """Adds a level's (column's) dictionary; (its first entry, its
-        size, each pair's id)."""
+        """Adds a level's (column's) dictionary; (its first entry, each
+        pair's id)."""
         dn, dd, pid = _dictionary(num, den, self.compiled.pyramid_size)
         first = self.size
         self.nums.append(dn)
         self.dens.append(dd)
         self.size += len(dn)
-        return first, len(dn), pid
+        return first, pid
 
     def narrow(self, *arrays) -> bool:
         """Whether these arrays (and every signature) fit 16 bits."""
@@ -264,14 +262,18 @@ def _descriptors(t: GatherTables) -> np.ndarray:
     rows = []
     for lv in t.levels:
         if t.kind == "chains":
-            rows.append([int(lv.wide), lv.first, ptr(lv.leaf.id)])
+            row = dict(wide=lv.wide, first=lv.first, id=ptr(lv.leaf.id))
+            rows.append([int(row[f]) for f in COLUMN_FIELDS])
             continue
         node = lv.node or Slab(id=None)
-        rows.append([0 if lv.node is None else lv.node.id.numel(),
-                     lv.leaf.id.numel(), int(lv.wide), lv.first,
-                     lv.node_first, lv.leaf_first, ptr(node.id),
-                     ptr(node.off), ptr(node.base), ptr(lv.leaf.id),
-                     ptr(lv.leaf.off), ptr(lv.leaf.base), ptr(lv.leaf.sig)])
+        row = dict(n_node=0 if lv.node is None else lv.node.id.numel(),
+                   n_leaf=lv.leaf.id.numel(), wide=lv.wide, first=lv.first,
+                   node_first=lv.node_first, leaf_first=lv.leaf_first,
+                   node_id=ptr(node.id), node_off=ptr(node.off),
+                   node_base=ptr(node.base), leaf_id=ptr(lv.leaf.id),
+                   leaf_off=ptr(lv.leaf.off), leaf_base=ptr(lv.leaf.base),
+                   leaf_sig=ptr(lv.leaf.sig))
+        rows.append([int(row[f]) for f in LEVEL_FIELDS])
     return np.ascontiguousarray(rows, dtype=np.int64)
 
 
@@ -285,12 +287,12 @@ def device_tables(compiled: CompiledProblem, device=None, *,
     tr = tree_mod.build_tree(compiled.e_num, compiled.e_den,
                              compiled.pyramid_size - 1,
                              compiled.pyramid_size)
-    b = _Builder(compiled, device, wide)
+    b = _TableParts(compiled, device, wide)
     e_sig = np.asarray(compiled.e_sig)
     levels, orders = [], []
     node_first = leaf_first = ended = 0
     for l, lv in enumerate(tr.levels):
-        first, _, pid = b.dictionary(lv.num, lv.den)
+        first, pid = b.dictionary(lv.num, lv.den)
         o = np.argsort(lv.ev_node, kind="stable")
         leaf_node = lv.ev_node[o]
         events = tr.event_order[ended:ended + len(o)][o]
@@ -312,42 +314,24 @@ def device_tables(compiled: CompiledProblem, device=None, *,
         np.int64), tr.num_nodes)
 
 
-def _chain_order(pair_ids) -> np.ndarray:
-    """Events sorted by their chains' pair ids, column 0 first (stably):
-    events that share a prefix lie together, so a warp's ratio lookups
-    for a shared column hit one entry, and the scatter's gathers fall
-    near each other as in the tree's order."""
-    order = torch.arange(len(pair_ids[0]))
-    for pid in reversed(pair_ids):
-        key = torch.as_tensor(pid)[order]
-        order = order[torch.sort(key, stable=True).indices]
-    return order.numpy()
-
-
 def chain_tables(compiled: CompiledProblem, device=None, *,
                  wide: bool = False) -> GatherTables:
     """The chain engine's tables on ``device``: each event's padded chain
     as compiled, a column at a time (column-major: a column's ids lie
-    together), each event's signature, and the scatter, the events
-    sorted by their chains (`_chain_order`). ``wide`` as in
-    `device_tables`."""
-    b = _Builder(compiled, device, wide)
-    firsts, pids = [], []
-    for c in range(compiled.e_num.shape[1]):
-        first, _, pid = b.dictionary(compiled.e_num[:, c],
-                                     compiled.e_den[:, c])
-        firsts.append(first)
-        pids.append(pid)
-    order = _chain_order(pids)
+    together), each event's signature, and the scatter over the events
+    in compiled order. ``wide`` as in `device_tables`."""
+    b = _TableParts(compiled, device, wide)
     levels = []
-    for first, pid in zip(firsts, pids):
-        pid = pid[order]
+    for c in range(compiled.e_num.shape[1]):
+        first, pid = b.dictionary(compiled.e_num[:, c],
+                                     compiled.e_den[:, c])
         w = not b.narrow(pid)
         levels.append(Level(first=first, wide=w, node=None,
                             leaf=Slab(id=b.put(pid, w))))
-    e_sig = np.asarray(compiled.e_sig)[order]
+    e_sig = np.asarray(compiled.e_sig)
     sig = b.put(e_sig, not b.narrow(e_sig))
-    return _tables(b, "chains", levels, sig, order.astype(np.int64), 0)
+    return _tables(b, "chains", levels, sig,
+                   np.arange(compiled.num_events, dtype=np.int64), 0)
 
 
 # --- Plain versions ----------------------------------------------------------

@@ -644,10 +644,14 @@ def test_gather_rhs_matches_dense_on_card(cuda, tag, cl_k, dual):
 
 
 def _kernel_launches(fn):
-    """The CUDA kernels the profiler sees ``fn`` launch, by name."""
+    """The CUDA kernels the profiler sees ``fn`` launch, by name. A first
+    profile, over one small launch, starts the profiler's tracing: the
+    first profile a process takes can miss the kernels in it."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
