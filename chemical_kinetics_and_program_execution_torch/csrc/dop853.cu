@@ -1,15 +1,18 @@
-// K6 `dop853_arith`: the DOP853 stepper's vector arithmetic on the card.
+// K6 `dop853_arith`: the Runge-Kutta steppers' vector arithmetic on the card.
 //
-// Replaces the body of the JAX package's `ode/dop853.py:157
+// Replaces the bodies of the JAX package's `ode/dop853.py:157
 // odeint_dop853_dense` and its host-stepped twins `ode/streamed_solve.py`
 // `_lincomb`, `_error_norms`, `_rms_scaled`, `_rms_diff_scaled`,
-// `_dense_coeffs` and `_dense_eval` (XLA programs; no Pallas kernel).
-// Plain PyTorch versions: `ode/dop853.py` (`*_plain`). The host drives
-// the steps (`ode/dop853.py:odeint_dop853_dense`) and reads two scalars
-// a step; the state and the 16 stages ([16, n] float64, one tensor) stay
-// on the card. Stage rows lie ``ks_ld`` doubles apart and the stack's
-// rows ``f_ld`` apart: the solver rounds both up to a multiple of 32, so
-// each row starts on a 256-byte boundary (n = A^k is odd, and a row at a
+// `_dense_coeffs` and `_dense_eval`; of `ode/dop853.py:45 odeint_dop853`
+// (the step-clamped DOP853); and of `ode/dopri5.py:48 odeint_dopri5` with
+// `_rms_norm` (:43) (XLA programs; no Pallas kernel). Plain PyTorch
+// versions: `ode/dop853.py` (`*_plain`). The host drives the steps
+// (`ode/dop853.py:odeint_dop853_dense`, `odeint_dop853`,
+// `ode/dopri5.py:odeint_dopri5`) and reads one or two scalars a step; the
+// state and the stages ([16, n] or [7, n] float64, one tensor) stay on
+// the card. Stage rows lie ``ks_ld`` doubles apart and the stack's rows
+// ``f_ld`` apart: the solver rounds both up to a multiple of 32, so each
+// row starts on a 256-byte boundary (n = A^k is odd, and a row at a
 // stride of n would start 8 bytes into a sector every other row).
 //
 // At the solver's sizes (n = 9^5 is 231 blocks of 256 threads) a launch
@@ -17,25 +20,29 @@
 // call, ctypes, building its arguments) is larger than the card's time.
 // So the design cuts launches and what the host builds for each:
 //
-// - The tableau: DOP853's fixed stage combinations (`ode/dop853.py:
-//   TABLEAU`: the initial step's Euler row, A's rows 1-11, B, the three
-//   extra rows, E5 and E3), each as its nonzero (stage, coefficient)
-//   terms in stage order, live in `__constant__` memory, uploaded once a
-//   card (`ckpe_k6_tableau`). A launch names its row; a warp reads each
-//   term by broadcast. The one row map the solver makes, stage 0 and
-//   stage 12 swapping rows after an accepted step (first same as last),
-//   is one flag.
+// - The tableau: both methods' fixed stage combinations (`ode/dop853.py:
+//   TABLEAU`: the initial step's Euler row, DOP853's A rows 1-11, B, the
+//   three extra rows, E5 and E3, then Dormand-Prince 5(4)'s A rows 1-6,
+//   B5 and its error row B5 - B4), each as its nonzero (stage,
+//   coefficient) terms in stage order, live in `__constant__` memory,
+//   uploaded once a card (`ckpe_k6_tableau`). A launch names its row; a
+//   warp reads each term by broadcast. The one row map the solver makes,
+//   stage 0 and the first-same-as-last stage (12 for DOP853, 6 for
+//   dopri5: ``fsal``, a launch argument) swapping rows after an accepted
+//   step, is one flag.
 // - stage: y + h * sum_q c_q k_q, one elementwise launch, the sum taken
 //   in stage order (the plain version's order, `-fmad=false`).
-// - norms: the combined 5th/3rd-order error sums, and the initial-step
-//   rule's scaled sums, in one launch: a fixed grid whose blocks each
-//   reduce a fixed slice in a fixed tree and write a partial; the last
-//   block to finish (a `__threadfence` and an atomic ticket) reduces the
-//   partials in a fixed tree and resets the ticket. No float atomics:
-//   two runs give the same bits, the plain version's (it sums in this
-//   order, `ode/dop853.py:_norm_order_sum`). The partials, the ticket and
-//   the sums are the caller's scratch: one a solve, so two solves on two
-//   streams never share a ticket.
+// - norms: DOP853's combined 5th/3rd-order error sums, dopri5's one error
+//   sum of (h e / scale)^2, and the initial-step rule's scaled sums, in
+//   one launch: a fixed grid whose blocks each reduce a fixed slice in a
+//   fixed tree and write a partial; the last block to finish (a
+//   `__threadfence` and an atomic ticket) reduces the partials in a fixed
+//   tree and resets the ticket. No float atomics: two runs give the same
+//   bits, the plain version's (it sums in this order,
+//   `cuda.block_order_sum`). The partials, the ticket and the sums are
+//   the caller's scratch: one a solve, so two solves on two streams never
+//   share a ticket. The host takes the square root of the mean, as
+//   `_rms_norm` does.
 // - dense_coeffs: the 7-row continuous-output stack [7, n] in one launch.
 //   A thread loads each stage row that D reads once into registers and
 //   forms D's four combinations from them, each in stage order (the
@@ -52,9 +59,10 @@
 //   so a step with many samples fills the card.
 //
 // Bound: bytes. A stage reads y and its m nonzero stages and writes one
-// vector: (m + 2) n doubles; the error sums read y, y_new and 12 stages;
-// the coefficients read y, y_new and 12 stages and write 7 rows; an
-// evaluation of m samples reads the 7 rows and y and writes m vectors.
+// vector: (m + 2) n doubles; the error sums read y, y_new and the stages
+// their rows name (12 for DOP853, 6 for dopri5); the coefficients read
+// y, y_new and 12 stages and write 7 rows; an evaluation of m samples
+// reads the 7 rows and y and writes m vectors.
 
 #include <cuda_runtime.h>
 
@@ -63,9 +71,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxTerms = 16;
 constexpr int kReduceBlocks = 1024;
-constexpr int kTableRows = 18;  // `ode/dop853.py:TABLEAU`
-constexpr int kE5 = 16, kE3 = 17;
-constexpr int kFsal = 12;  // the stage that swaps rows with stage 0
+constexpr int kMaxRows = 32;  // `ode/dop853.py:TABLEAU` has 26
 constexpr int kEvalRows = 8;
 constexpr int kMaxEvalChunks = 65535;
 
@@ -75,7 +81,8 @@ struct Terms {
   double c[kMaxTerms];
 };
 
-__constant__ Terms c_tableau[kTableRows];
+__constant__ Terms c_tableau[kMaxRows];
+int g_rows = 0;  // rows uploaded (the same table on every card)
 
 struct DenseRows {
   int nu;                  // stage rows D reads, in stage order
@@ -83,42 +90,44 @@ struct DenseRows {
   double c[4][kMaxTerms];  // D row r's weight of row[u]; 0 where none
 };
 
-// The row of ks that holds stage r.
-__device__ __forceinline__ int stage_row(int r, int swap) {
-  return swap && (r == 0 || r == kFsal) ? kFsal - r : r;
+// The row of ks that holds stage r: stages 0 and fsal trade rows when
+// ``swap``.
+__device__ __forceinline__ int stage_row(int r, int swap, int fsal) {
+  return swap && (r == 0 || r == fsal) ? fsal - r : r;
 }
 
 // sum_q c_q ks[stage q] over tableau row `which`, in stage order.
 __device__ __forceinline__ double lincomb(const double* __restrict__ ks,
                                           long long ld, int which, int swap,
-                                          long long i) {
+                                          int fsal, long long i) {
   const Terms& t = c_tableau[which];
-  double acc = t.c[0] * ks[stage_row(t.row[0], swap) * ld + i];
+  double acc = t.c[0] * ks[stage_row(t.row[0], swap, fsal) * ld + i];
   for (int q = 1; q < t.n; ++q)
-    acc = acc + t.c[q] * ks[stage_row(t.row[q], swap) * ld + i];
+    acc = acc + t.c[q] * ks[stage_row(t.row[q], swap, fsal) * ld + i];
   return acc;
 }
 
 __global__ void __launch_bounds__(kThreads)
 k6_stage_kernel(const double* __restrict__ y, const double* __restrict__ ks,
-                long long ks_ld, long long n, int which, int swap, double h,
-                double* __restrict__ out) {
+                long long ks_ld, long long n, int which, int swap, int fsal,
+                double h, double* __restrict__ out) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  out[i] = y[i] + h * lincomb(ks, ks_ld, which, swap, i);
+  out[i] = y[i] + h * lincomb(ks, ks_ld, which, swap, fsal, i);
 }
 
-enum { kRms = 0, kRmsDiff = 1, kErr = 2 };
+enum { kRms = 0, kRmsDiff = 1, kErr = 2, kErrH = 3 };
 
 struct NormArgs {
-  int mode, swap;
+  int mode, swap, fsal;
+  int e0, e1;           // kErr: the rows E5 and E3; kErrH: the row e0
   long long n;
-  double rtol, atol;
-  const double* y;      // scale from y (and y_new in kErr)
+  double rtol, atol, h;
+  const double* y;      // scale from y (and y_new in kErr, kErrH)
   const double* y_new;
   const double* f0;     // kRms: f; kRmsDiff: f0
   const double* f1;     // kRmsDiff: f1
-  const double* ks;     // kErr: the stages, rows ks_ld apart
+  const double* ks;     // kErr, kErrH: the stages, rows ks_ld apart
   long long ks_ld;
   double* partial;      // 2 a block
   unsigned* ticket;     // 0 between launches
@@ -149,13 +158,21 @@ __global__ void __launch_bounds__(kThreads) k6_norms_kernel(NormArgs g) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < g.n;
        i += stride) {
-    if (g.mode == kErr) {
+    if (g.mode == kErr || g.mode == kErrH) {
       const double ay = fabs(g.y[i]), an = fabs(g.y_new[i]);
       const double scale = g.atol + (an > ay ? an : ay) * g.rtol;
-      const double e5 = lincomb(g.ks, g.ks_ld, kE5, g.swap, i) / scale;
-      const double e3 = lincomb(g.ks, g.ks_ld, kE3, g.swap, i) / scale;
-      s0 = s0 + e5 * e5;
-      s1 = s1 + e3 * e3;
+      if (g.mode == kErr) {
+        const double e5 =
+            lincomb(g.ks, g.ks_ld, g.e0, g.swap, g.fsal, i) / scale;
+        const double e3 =
+            lincomb(g.ks, g.ks_ld, g.e1, g.swap, g.fsal, i) / scale;
+        s0 = s0 + e5 * e5;
+        s1 = s1 + e3 * e3;
+      } else {  // dopri5: (h * e) / scale, as `_rms_norm`'s argument
+        const double u =
+            g.h * lincomb(g.ks, g.ks_ld, g.e0, g.swap, g.fsal, i) / scale;
+        s0 = s0 + u * u;
+      }
     } else {
       const double scale = g.atol + fabs(g.y[i]) * g.rtol;
       if (g.mode == kRms) {
@@ -273,9 +290,9 @@ int reduce_blocks(long long n) {
 // count[r] terms, (rows[r * 16 + q], coefs[r * 16 + q]) in stage order.
 extern "C" int ckpe_k6_tableau(const int* count, const int* rows,
                                const double* coefs, int n_rows) {
-  if (n_rows != kTableRows) return (int)cudaErrorInvalidValue;
-  Terms t[kTableRows];
-  for (int r = 0; r < kTableRows; ++r) {
+  if (n_rows < 1 || n_rows > kMaxRows) return (int)cudaErrorInvalidValue;
+  Terms t[kMaxRows] = {};
+  for (int r = 0; r < n_rows; ++r) {
     if (count[r] < 1 || count[r] > kMaxTerms)
       return (int)cudaErrorInvalidValue;
     t[r].n = count[r];
@@ -284,18 +301,21 @@ extern "C" int ckpe_k6_tableau(const int* count, const int* rows,
       t[r].c[q] = coefs[r * kMaxTerms + q];
     }
   }
-  return (int)cudaMemcpyToSymbol(c_tableau, t, sizeof(t));
+  const cudaError_t err = cudaMemcpyToSymbol(c_tableau, t, sizeof(t));
+  if (err == cudaSuccess) g_rows = n_rows;
+  return (int)err;
 }
 
 // Stage: out = y + h * sum_q c_q * ks[stage q] over tableau row `which`;
-// with `swap`, stages 0 and 12 each read the other's row.
+// with `swap`, stages 0 and fsal each read the other's row.
 extern "C" int ckpe_k6_stage(const double* y, const double* ks,
                              long long ks_ld, long long n, int which,
-                             int swap, double h, double* out,
+                             int swap, int fsal, double h, double* out,
                              cudaStream_t stream) {
-  if (which < 0 || which >= kTableRows) return (int)cudaErrorInvalidValue;
+  if (which < 0 || which >= g_rows || fsal < 1 || fsal >= kMaxTerms)
+    return (int)cudaErrorInvalidValue;
   k6_stage_kernel<<<blocks(n), kThreads, 0, stream>>>(y, ks, ks_ld, n, which,
-                                                      swap, h, out);
+                                                      swap, fsal, h, out);
   return (int)cudaGetLastError();
 }
 
@@ -303,18 +323,30 @@ extern "C" int ckpe_k6_stage(const double* y, const double* ks,
 // partials, the two sums, and the ticket (an unsigned, 0 between calls)
 // in the first bytes of scratch[2050]. mode 0: sum (y/scale)^2, sum
 // (f0/scale)^2; mode 1: sum ((f1-f0)/scale)^2; mode 2: sum (e5/scale)^2,
-// sum (e3/scale)^2 with e5, e3 the tableau's error rows.
+// sum (e3/scale)^2 with e5, e3 the tableau's rows e0 and e1; mode 3: sum
+// (h e/scale)^2 with e the row e0, and 0. Stages 0 and fsal trade rows
+// when ``swap``.
 extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
-                             const double* y, const double* y_new,
+                             double h, const double* y, const double* y_new,
                              const double* f0, const double* f1,
                              const double* ks, long long ks_ld, int swap,
-                             double* scratch, cudaStream_t stream) {
+                             int fsal, int e0, int e1, double* scratch,
+                             cudaStream_t stream) {
+  if (mode < kRms || mode > kErrH ||
+      ((mode == kErr || mode == kErrH) &&
+       (e0 < 0 || e0 >= g_rows || (mode == kErr && (e1 < 0 || e1 >= g_rows)) ||
+        fsal < 1 || fsal >= kMaxTerms)))
+    return (int)cudaErrorInvalidValue;
   NormArgs g;
   g.mode = mode;
   g.swap = swap;
+  g.fsal = fsal;
+  g.e0 = e0;
+  g.e1 = e1;
   g.n = n;
   g.rtol = rtol;
   g.atol = atol;
+  g.h = h;
   g.y = y;
   g.y_new = y_new;
   g.f0 = f0;

@@ -5,8 +5,8 @@ so a build takes seconds) and both landing in `_build/` beside this file:
 
 - `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
   `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`; K7 and K8
-  `gather_rhs.cu`), which may include headers from `csrc/`, into one
-  shared library;
+  `gather_rhs.cu`; K9 `world_mass.cu`), which may include headers from
+  `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1, one library per decision
   machine, from `engine/k1_source.py`).
@@ -169,12 +169,12 @@ def load() -> ctypes.CDLL:
     lib.ckpe_gather_scatter.argtypes = tail
     # ckpe_k6_tableau(count, rows, coefs, n_rows)
     lib.ckpe_k6_tableau.argtypes = [_P, _P, _P, _I]
-    # ckpe_k6_stage(y, ks, ks_ld, n, which, swap, h, out, stream)
-    lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _L, _I, _I, _D, _P, _P]
-    # ckpe_k6_norms(mode, n, rtol, atol, y, y_new, f0, f1, ks, ks_ld, swap,
-    #               scratch, stream)
-    lib.ckpe_k6_norms.argtypes = [_I, _L, _D, _D, _P, _P, _P, _P, _P, _L,
-                                  _I, _P, _P]
+    # ckpe_k6_stage(y, ks, ks_ld, n, which, swap, fsal, h, out, stream)
+    lib.ckpe_k6_stage.argtypes = [_P, _P, _L, _L, _I, _I, _I, _D, _P, _P]
+    # ckpe_k6_norms(mode, n, rtol, atol, h, y, y_new, f0, f1, ks, ks_ld,
+    #               swap, fsal, e0, e1, scratch, stream)
+    lib.ckpe_k6_norms.argtypes = [_I, _L, _D, _D, _D, _P, _P, _P, _P, _P, _L,
+                                  _I, _I, _I, _I, _P, _P]
     # ckpe_k6_dense_coeffs(y, y_new, f_old, f_new, ks, ks_ld, n, h, rows,
     #                      coefs, nu, out, f_ld, stream)
     lib.ckpe_k6_dense_coeffs.argtypes = [_P, _P, _P, _P, _P, _L, _L, _D,
@@ -183,7 +183,12 @@ def load() -> ctypes.CDLL:
     #                    stream)
     lib.ckpe_k6_dense_eval.argtypes = [_P, _L, _P, _L, _P, _L, _I, _D, _D,
                                        _P, _L, _P]
+    # ckpe_world_mass(p, low, n_state, n_low, num, den, m_const, chain,
+    #                 n_worlds, scratch, out, stream)
+    lib.ckpe_world_mass.argtypes = [_P, _P, _L, _L, _P, _P, _P, _I, _I, _P,
+                                    _P, _P]
     for name in ("ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
+                 "ckpe_world_mass",
                  "ckpe_tree_rhs", "ckpe_chain_rhs", "ckpe_gather_scatter",
                  "ckpe_k6_tableau", "ckpe_k6_stage", "ckpe_k6_norms",
                  "ckpe_k6_dense_coeffs", "ckpe_k6_dense_eval"):
@@ -191,6 +196,36 @@ def load() -> ctypes.CDLL:
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def block_order_sum(v: torch.Tensor) -> torch.Tensor:
+    """The sum of a float64 vector ``v`` in the order the reductions of K6
+    (`norms`) and K9 (`world_mass`) take it: at most 1,024 blocks of 256
+    threads, thread t of block b adding elements b*256 + t +
+    q*stride in turn from 0, each block's tree (the upper half added to
+    the lower, halving), then thread t adding partials t, t + 256, ...
+    from 0, and one more tree. (Padding adds exact zeros to sums that
+    start at +0.0, which leaves their bits as they are.)"""
+    n = v.numel()
+    blocks = min(max(-(-n // 256), 1), 1024)
+
+    def threads(x, width):  # [width] sums, each over x[t + q*width]
+        pad = x.new_zeros(-(-x.numel() // width) * width)
+        pad[:x.numel()] = x
+        acc = x.new_zeros(width)
+        for row in pad.view(-1, width):
+            acc = acc + row
+        return acc
+
+    def tree(x):  # [rows, 256] -> [rows]
+        w = 128
+        while w:
+            x = x[:, :w] + x[:, w:2 * w]
+            w //= 2
+        return x[:, 0]
+
+    partials = tree(threads(v, blocks * 256).view(blocks, 256))
+    return tree(threads(partials, 256).view(1, 256))[0]
 
 
 def on_card(tensor, name: str) -> bool:

@@ -22,6 +22,16 @@ here, which the wrapper runs for a CPU tensor:
 On a card `make_dense_dy_dt`'s fn runs K3 and K5 from one C call
 (`dense_rhs`): 3 launches at ex4's cl_k 5-8.
 
+A pruned program (`compile_dense` with ``prune_threshold > 0``: worlds
+whose weight under a reference SPD drops below the threshold are left
+out, `enumerate.BeamGuide`) keeps the kept worlds exact and carries mass
+tables over every enumerated world (``m_num``, ``m_den``, ``m_const``).
+``make_dense_dy_dt(with_mass=True)`` then returns the mass of the
+enumerated worlds under p beside dp/dt (exactly 1 for a complete
+multiverse, so 1 - mass is the weight the pruning lost at p): kernel K9
+`world_mass` (`csrc/world_mass.cu`, `csrc/mass_rule.cuh`), its own
+launch after K3 and K5, over the pyramid K3 built for the same p.
+
 A dual-SPD program (`compile_dense_dual`) has separate program and data
 tape distributions: the state is ``[p_prog | p_data]``, each plan names
 its tape, groups never mix tapes, K3 runs on each tape into its block
@@ -61,8 +71,7 @@ changed its bits either. For a p with a NaN or an infinity the ratio can
 be NaN, and a dense step's NaN * 0 spreads where K5 forms nothing: both
 give a non-finite dy, not the same one.
 
-Not ported yet (ROADMAP Queue 1 item 4): pruned programs with their mass
-tables (`BeamGuide`, ``with_mass``) and the streamed RHS.
+Not ported yet (ROADMAP Queue 1 item 3): the streamed RHS.
 """
 
 from __future__ import annotations
@@ -78,8 +87,6 @@ from ..markov import guarded_ratio, pyramid_offsets
 from ..utils import config
 from . import dsl, enumerate as enum_mod
 from .compile import two_pointer_index
-
-_UNPORTED = "not ported yet (ROADMAP Queue 1 item 4)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +114,12 @@ class DenseProgram:
     pair_world: np.ndarray
     pair_sig: np.ndarray
     plans: tuple[SigPlan, ...]
+    # Mass accounting over ALL enumerated worlds (no-change ones too):
+    # the weights sum to 1 for a complete multiverse, less when pruned.
+    m_num: np.ndarray | None = None
+    m_den: np.ndarray | None = None
+    m_const: np.ndarray | None = None
+    pruned: bool = False
     # Dual-SPD mode: the state is [p_prog | p_data], factor indices into
     # the concatenated per-tape pyramid.
     dual: bool = False
@@ -137,30 +150,46 @@ def compile_dense(tag: str, cl_k: int, *,
                   p_ref=None, prune_threshold: float = 0.0) -> DenseProgram:
     """Compiles a problem to its dense transfer-matrix program.
 
-    Pruning (``p_ref``, ``prune_threshold > 0``) needs the reference's
-    `BeamGuide`, which is not ported: it raises NotImplementedError.
+    For rules whose multiverse is too deep to enumerate (ex6-mini-bff at
+    its faithful parameters), pass ``prune_threshold > 0`` and a
+    reference SPD ``p_ref`` (uniform when None): paths whose weight
+    under ``p_ref`` drops below the threshold are skipped, kept paths
+    stay exact, and the program carries mass tables over every
+    enumerated world, so that ``make_dense_dy_dt(with_mass=True)``
+    reports the measured mass ``sum of the worlds' weights(p)`` per call.
+    As in the JAX package, ``p_ref`` without a threshold prunes nothing.
     """
-    if prune_threshold > 0.0 or p_ref is not None:
-        raise NotImplementedError(f"pruned dense programs are {_UNPORTED}")
     from .compile import _pad_chains, collect_signatures
 
     problem = dsl.get_problem(tag)
     size_a = problem.size_a
     _, pyr_total = pyramid_offsets(size_a, cl_k)
-    worlds = enum_mod.enumerate_worlds(problem, cl_k, max_worlds=max_worlds)
+    one_slot = pyr_total - 1
+    guide = None
+    if prune_threshold > 0.0:
+        if p_ref is None:
+            p_ref = np.full(size_a**cl_k, 1.0 / size_a**cl_k)
+        guide = enum_mod.BeamGuide(p_ref, size_a, cl_k, prune_threshold)
+    worlds = enum_mod.enumerate_worlds(problem, cl_k, max_worlds=max_worlds,
+                                       guide=guide)
     live, sig_ids, pair_world, pair_sig = collect_signatures(worlds)
-    w_num, w_den = _pad_chains([w.factors for w in live], pyr_total - 1)
+    w_num, w_den = _pad_chains([w.factors for w in live], one_slot)
     plans = tuple(
         SigPlan(sid=sid, length=length,
                 orig=_digits(io, length, size_a),
                 adj=_digits(ia, length, size_a))
         for (io, ia, length), sid in sig_ids.items()
     )
+    mass = None
+    if guide is not None:
+        m_num, m_den = _pad_chains([w.factors for w in worlds], one_slot)
+        mass = (m_num, m_den,
+                np.array([w.const for w in worlds], dtype=np.float64))
     return program_from_arrays(
         tag, size_a, cl_k, w_num, w_den,
         np.array([w.const for w in live], dtype=np.float64),
         pair_world, pair_sig,
-        [(p.sid, p.length, p.orig, p.adj) for p in plans])
+        [(p.sid, p.length, p.orig, p.adj) for p in plans], mass=mass)
 
 
 def compile_dense_dual(tag: str, cl_k: int, *,
@@ -186,11 +215,12 @@ def compile_dense_dual(tag: str, cl_k: int, *,
 
 def program_from_arrays(tag: str, size_a: int, cl_k: int, w_num, w_den,
                         w_const, pair_world, pair_sig, plans,
-                        dual: bool = False) -> DenseProgram:
+                        dual: bool = False, mass=None) -> DenseProgram:
     """A :class:`DenseProgram` from its fields as numpy arrays and
     ``plans`` as ``(sid, length, orig, adj)`` tuples, one a signature,
     with the tape as a fifth item in a ``dual`` program's: the JAX
-    package's compiled program carried over as it is."""
+    package's compiled program carried over as it is. ``mass`` is a
+    pruned program's ``(m_num, m_den, m_const)``."""
     plans = tuple(SigPlan(sid=int(sid), length=int(length),
                           orig=tuple(int(x) for x in orig),
                           adj=tuple(int(x) for x in adj),
@@ -199,6 +229,11 @@ def program_from_arrays(tag: str, size_a: int, cl_k: int, w_num, w_den,
     _, pyr_total = pyramid_offsets(size_a, cl_k)
     if dual:
         pyr_total = 2 * (pyr_total - 1) + 1
+    if mass is not None:
+        mass = dict(m_num=np.asarray(mass[0], dtype=np.int32),
+                    m_den=np.asarray(mass[1], dtype=np.int32),
+                    m_const=np.asarray(mass[2], dtype=np.float64),
+                    pruned=True)
     return DenseProgram(
         tag=tag, size_a=int(size_a), cl_k=int(cl_k),
         pyramid_size=pyr_total,
@@ -208,7 +243,7 @@ def program_from_arrays(tag: str, size_a: int, cl_k: int, w_num, w_den,
         w_const=np.asarray(w_const, dtype=np.float64),
         pair_world=np.asarray(pair_world, dtype=np.int32),
         pair_sig=np.asarray(pair_sig, dtype=np.int32),
-        plans=plans, dual=bool(dual),
+        plans=plans, dual=bool(dual), **(mass or {}),
     )
 
 
@@ -694,7 +729,7 @@ class DeviceProgram:
     device: for K4 each signature's pairs in CSR order (pair order kept),
     each with its world's chain indices and w_const, and the same pairs
     as columns of world indices for its plain version; K5's items and
-    table."""
+    table; a pruned program's mass tables for K9 (None otherwise)."""
 
     prog: DenseProgram
     plan: SweepPlan
@@ -710,6 +745,9 @@ class DeviceProgram:
     items: torch.Tensor
     phase_ptr: torch.Tensor
     table: torch.Tensor
+    m_num: torch.Tensor | None = None  # [worlds, chain]
+    m_den: torch.Tensor | None = None
+    m_const: torch.Tensor | None = None  # [worlds]
 
 
 def world_tables(prog, device: torch.device) -> dict:
@@ -757,12 +795,20 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=device)
 
+    mass = {}
+    if prog.m_const is not None:
+        mass = dict(
+            m_num=dev(two_pointer_index(prog.m_num, prog.size_a, prog.cl_k,
+                                        prog.dual), torch.int32),
+            m_den=dev(two_pointer_index(prog.m_den, prog.size_a, prog.cl_k,
+                                        prog.dual), torch.int32),
+            m_const=dev(prog.m_const, config.DEFAULT_FLOAT))
     return DeviceProgram(
         prog=prog, plan=plan,
         device=worlds["w_const"].device,  # "cuda" -> "cuda:0"
         items=dev(plan.items, torch.int64),
         phase_ptr=dev(plan.phase_ptr, torch.int64),
-        table=dev(plan.table, torch.int32), **worlds)
+        table=dev(plan.table, torch.int32), **worlds, **mass)
 
 
 def _digit_sum_last(x: torch.Tensor, a: int) -> torch.Tensor:
@@ -1105,30 +1151,109 @@ def sweep(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
 sweep.launches = 0
 
 
+# --- K9: the world mass --------------------------------------------------------
+
+# Scratch of one K9 launch, in doubles: 1,024 blocks' partials and the
+# ticket (`csrc/world_mass.cu:ckpe_world_mass`).
+_MASS_PARTIALS = 1024
+
+
+def mass_scratch(device) -> torch.Tensor:
+    """Scratch for `world_mass` on ``device``, its ticket 0: one for a
+    `make_dense_dy_dt` closure, reused by each of its calls (calls on two
+    streams at once need two)."""
+    return torch.zeros(_MASS_PARTIALS + 1, dtype=torch.float64,
+                       device=device)
+
+
+def world_mass_plain(dp: DeviceProgram, p: torch.Tensor,
+                     low: torch.Tensor) -> torch.Tensor:
+    """Plain version of K9: ``sum over the enumerated worlds w of
+    m_const[w] * prod_c g(pyr[m_num[w, c]], pyr[m_den[w, c]])``, the
+    product in chain order (K4's world weight), pyr = [p, low], the sum in
+    K9's order (`cuda.block_order_sum`); a 0-d float64 tensor."""
+    world_mass_plain.calls += 1
+    pyr = torch.cat([p, low])
+    g = guarded_ratio(pyr[dp.m_num.long()], pyr[dp.m_den.long()])
+    prod = g[:, 0].clone()
+    for c in range(1, g.shape[1]):
+        prod = prod * g[:, c]
+    return cuda.block_order_sum(dp.m_const * prod)
+
+
+world_mass_plain.calls = 0
+
+
+def world_mass(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
+               scratch: torch.Tensor | None = None) -> torch.Tensor:
+    """K9: the mass of a pruned program's enumerated worlds under p (see
+    `world_mass_plain`), from p and the pyramid below it (K3's ``low``):
+    a new 0-d float64 tensor on p's device, no host sync; the kernel for
+    CUDA tensors (one launch, its partials and ticket in ``scratch``:
+    `mass_scratch`, a new one when None), the plain version for CPU
+    ones."""
+    if dp.m_const is None:
+        raise ValueError(
+            "Program has no mass tables; compile with prune_threshold>0.")
+    if not cuda.on_card(p, "world_mass"):
+        return world_mass_plain(dp, p, low)
+    p, low = _check_pyramid(dp, p, low)
+    if not dp.m_const.numel():  # every path pruned: no world, no mass
+        return torch.zeros((), dtype=torch.float64, device=p.device)
+    if scratch is None:
+        scratch = mass_scratch(p.device)
+    elif (scratch.dtype != torch.float64 or scratch.device != p.device
+          or scratch.shape != (_MASS_PARTIALS + 1,)):
+        raise TypeError(f"world_mass: scratch must be a float64 "
+                        f"[{_MASS_PARTIALS + 1}] tensor on {p.device}")
+    out = torch.empty((), dtype=torch.float64, device=p.device)
+    lib = cuda.load()
+    with torch.cuda.device(p.device):
+        rc = lib.ckpe_world_mass(
+            p.data_ptr(), low.data_ptr(), p.numel(), low.numel(),
+            dp.m_num.data_ptr(), dp.m_den.data_ptr(), dp.m_const.data_ptr(),
+            dp.m_num.shape[1], dp.m_num.shape[0], scratch.data_ptr(),
+            out.data_ptr(), cuda.stream(p))
+    cuda.check(rc, "world_mass", lib)
+    world_mass.launches += 1
+    return out
+
+
+world_mass.launches = 0
+
+
 # --- dp/dt ---------------------------------------------------------------------
 
 
 def dy_dt_dense(dp: DeviceProgram, p: torch.Tensor,
-                out: torch.Tensor | None = None) -> torch.Tensor:
+                out: torch.Tensor | None = None,
+                low: torch.Tensor | None = None) -> torch.Tensor:
     """Plain dp/dt: K3's, K4's and K5's plain versions in turn, on ``p``'s
-    device, into ``out`` as `sweep_plain`."""
+    device, into ``out`` as `sweep_plain`; K3's levels also into ``low``
+    where one is given."""
     p = p.reshape(-1)
-    low = pyramids(dp.prog, p, plain=True)
-    return sweep_plain(dp, p, low, signature_weights_plain(dp, p, low), out)
+    levels = pyramids(dp.prog, p, plain=True)
+    if low is not None:
+        low.copy_(levels)
+    return sweep_plain(dp, p, levels,
+                       signature_weights_plain(dp, p, levels), out)
 
 
 def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
-              out: torch.Tensor | None = None) -> torch.Tensor:
+              out: torch.Tensor | None = None,
+              low: torch.Tensor | None = None) -> torch.Tensor:
     """dp/dt of a float64 ``p`` (the program's state) into ``out`` (a new
     tensor when None): on a card K3 (once a tape) and K5 (with K4 as its
     phase 0) through one C call (`ckpe_dense_rhs`), on the CPU their
-    plain versions."""
+    plain versions. K3's levels go into ``low`` (`low_size` doubles)
+    where one is given, else into a tensor of the call's own."""
     a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
     if not cuda.on_card(p, "dense_rhs"):
-        return dy_dt_dense(dp, p, out)
+        return dy_dt_dense(dp, p, out, low)
     tapes = 1 + dp.prog.dual
-    low = torch.empty(low_size(dp.prog), dtype=torch.float64,
-                      device=p.device)
+    if low is None:
+        low = torch.empty(low_size(dp.prog), dtype=torch.float64,
+                          device=p.device)
     p, low = _check_pyramid(dp, p, low)
     dy = (torch.empty(n, dtype=torch.float64, device=p.device)
           if out is None else _checked_out(out, n, p.device))
@@ -1151,12 +1276,21 @@ def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
     card (`dense_rhs`), their plain versions on the CPU. ``p`` is a
     tensor or an array of A^k values; it is moved to the device as
     float64. K5 writes dp/dt into ``out`` where one is given (a solver's
-    stage row), else into a new tensor. ``with_mass`` (pruned programs)
-    raises NotImplementedError."""
-    if with_mass:
-        raise NotImplementedError(f"with_mass is {_UNPORTED}")
+    stage row), else into a new tensor.
+
+    ``with_mass=True`` (pruned programs) makes ``fn`` return ``(dp/dt,
+    mass)``, the mass of the enumerated worlds under p (K9 after K3 and
+    K5, over the pyramid K3 built: a 0-d float64 tensor on the device,
+    no host sync); exactly 1 for a complete multiverse, so ``1 - mass``
+    is the weight the pruning lost at p; K9's scratch is the closure's
+    own (`mass_scratch`), so one closure serves one stream at a time. A
+    program with no mass tables raises ValueError."""
+    if with_mass and prog.m_num is None:
+        raise ValueError(
+            "Program has no mass tables; compile with prune_threshold>0.")
     dp = device_program(prog, device)
     n = prog.state_size
+    scratch = mass_scratch(dp.device) if with_mass else None
 
     def fn(p, out=None):
         p = torch.as_tensor(p, dtype=torch.float64,
@@ -1164,7 +1298,12 @@ def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
         if p.numel() != n:
             raise ValueError(f"p has {p.numel()} entries, the program "
                              f"{n}")
-        return dense_rhs(dp, p, out)
+        if not with_mass:
+            return dense_rhs(dp, p, out)
+        low = torch.empty(low_size(prog), dtype=torch.float64,
+                          device=dp.device)
+        dy = dense_rhs(dp, p, out, low)
+        return dy, world_mass(dp, p, low, scratch)
 
     fn.device_program = dp
     return fn

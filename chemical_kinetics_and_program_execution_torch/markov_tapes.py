@@ -5,8 +5,10 @@ Counterpart of the JAX package's `markov_tapes.py`: the analysis helpers,
 canary `_run_validation`. The RHS runs on ``device`` (``cuda`` unless
 named: the kernels K3-K5, or K3 and K7 where `build_dy_dt` takes the
 tree engine; on the CPU their plain versions).
-``backend="torch"`` solves on that device with the host-stepped DOP853
-(kernel K6), the counterpart of the JAX package's ``"jax"``;
+``backend="torch"`` solves on that device with the host-stepped steppers
+of `ode/integrate.py:solve` (dopri5 from tolerances of 1e-9 up, DOP853
+below; their arithmetic kernel K6), the counterpart of the JAX
+package's ``"jax"``;
 ``"scipy"`` stays the default, as there. ``debug=True`` computes as
 usual, as in the reference, which dumps its worlds only where
 ``MARKOV_TAPES_DEBUG`` (or ``CKPE_DEBUG``) is set (`IS_DEBUG`); that dump
@@ -91,8 +93,8 @@ def ode_integrate(*, tag, size_a, cl_k, p0, ts,
                   odeint_kwargs=types.MappingProxyType({}),
                   debug=False, backend="scipy", device=None):
     """`scipy.integrate.odeint`-compatible solve. ``backend="torch"``
-    switches to the host-stepped DOP853 on ``device`` with the rtol/atol
-    taken from ``odeint_kwargs``."""
+    switches to `solve` on ``device`` with the rtol/atol taken from
+    ``odeint_kwargs`` (by default 1.49012e-8: dopri5)."""
     p0 = _validate_p0(p0, size_a, cl_k)
     dy_dt = get_dy_dt(tag=tag, size_a=size_a, cl_k=cl_k, debug=debug,
                       device=device)

@@ -12,12 +12,18 @@ so the enumerated multiverse matches branch for branch:
 - ``ex4-chemical-turing``, ``ex4var1-`` and ``ex4var2-chemical-turing``
   (`problems.scm:186-434`),
 - ``ex5-msrtf-machine`` and ``ex5var1-`` (`problems.scm:439-527`),
-- ``ex6-mini-bff-lite``, the mini-BFF register machine at an
-  enumerable depth (`problems.scm:531-629`, repaired as in the JAX
-  package).
+- the mini-BFF register machine (`problems.scm:531-629`, repaired as in
+  the JAX package): ``ex6-mini-bff`` at its faithful parameters (fuel
+  10, heads 12 apart; not enumerable: compile it pruned, or with
+  ``max_worlds``), ``-lite`` and ``-midi`` at enumerable depths, and the
+  single-tape self-modifying ``ex6-mini-bff-self``, ``-self-lite`` and
+  ``-self-midi``; each carries ``native_ex6`` or ``native_ex6_self``
+  (fuel, d1_start) for the C++ enumerator (`engine/native.py`);
+- ``fuzz-wide-specs``, the wide-spec stress rule (beyond the
+  reference).
 
-The rate-parameter (``-p``) variants, the other ex6 registrations and
-the fuzz rule are not ported yet; ROADMAP.md lists them.
+The rate-parameter (``-p``) variants are not ported yet; ROADMAP.md
+lists them.
 """
 
 from __future__ import annotations
@@ -437,8 +443,56 @@ def _ex6_rule(fuel: int, d1_start: int = 12, *,
     return rule
 
 
+# Faithful parameters (fuel 10, heads 12 apart): every tape reveal is a
+# 12-way world split and copy ops reveal all intermediate cells, so the
+# full multiverse is astronomically large; compile it pruned or with
+# max_worlds set.
+_ex6_faithful = _ex6_rule(fuel=10)
+_ex6_faithful.native_ex6 = (10, 12)  # (fuel, d1_start) for the C++ twin
+register_problem("ex6-mini-bff", _EX6_SYMBOLS)(_ex6_faithful)
 # The "lite" variant keeps the full instruction set at an enumerable
 # depth: fuel 2 and the second data head next to the first (some 13k
 # execution paths).
-register_problem("ex6-mini-bff-lite", _EX6_SYMBOLS)(
-    _ex6_rule(fuel=2, d1_start=1))
+_ex6_lite = _ex6_rule(fuel=2, d1_start=1)
+_ex6_lite.native_ex6 = (2, 1)
+register_problem("ex6-mini-bff-lite", _EX6_SYMBOLS)(_ex6_lite)
+# The "midi" variant (fuel 4, heads 3 apart) sits between lite and
+# faithful.
+_ex6_midi = _ex6_rule(fuel=4, d1_start=3)
+_ex6_midi.native_ex6 = (4, 3)
+register_problem("ex6-mini-bff-midi", _EX6_SYMBOLS)(_ex6_midi)
+
+# Single-tape SELF-MODIFYING variants: opcodes and data live on one ring,
+# so plus/minus/comma/dot writes land in the instruction stream.
+_ex6_self = _ex6_rule(fuel=10, code_tape=DATA, data_tape=DATA)
+_ex6_self.native_ex6_self = (10, 12)
+register_problem("ex6-mini-bff-self", _EX6_SYMBOLS)(_ex6_self)
+_ex6_self_lite = _ex6_rule(fuel=2, d1_start=1,
+                           code_tape=DATA, data_tape=DATA)
+_ex6_self_lite.native_ex6_self = (2, 1)
+register_problem("ex6-mini-bff-self-lite", _EX6_SYMBOLS)(_ex6_self_lite)
+_ex6_self_midi = _ex6_rule(fuel=4, d1_start=3,
+                           code_tape=DATA, data_tape=DATA)
+_ex6_self_midi.native_ex6_self = (4, 3)
+register_problem("ex6-mini-bff-self-midi", _EX6_SYMBOLS)(_ex6_self_midi)
+
+
+# --- Wide-spec stress rule (beyond the reference) ------------------------------
+
+_FUZZ_A = 12
+
+
+@register_problem("fuzz-wide-specs", tuple(f"s{i}" for i in range(_FUZZ_A)))
+def fuzz_wide_specs(t):
+    """Stress rule with more than 63 deduplicated write specs and a
+    choose: the arithmetic write values make most (a, b) windows produce
+    a distinct (cells, values) spec, while the 3-cell window keeps every
+    engine cross-checkable."""
+    a = t.get(DATA, 0)
+    b = t.get(DATA, 1)
+    if t.choose([(0.7, True), (0.3, False)]):
+        t.set(DATA, -1, (a + b) % _FUZZ_A)
+        t.set(DATA, 0, (a * b + 7 * a + 1) % _FUZZ_A)
+        t.set(DATA, 1, (a * a + 5 * b) % _FUZZ_A)
+    else:
+        t.set(DATA, -1, (a * a + 7 * b) % _FUZZ_A)

@@ -1,6 +1,7 @@
-"""Host-stepped adaptive Dormand-Prince 8(5,3) with dense output (DOP853).
+"""Host-stepped adaptive Dormand-Prince 8(5,3) (DOP853), and kernel K6.
 
-Counterpart of the JAX package's `ode/dop853.py:odeint_dop853_dense`,
+`odeint_dop853_dense` is the counterpart of the JAX package's
+`ode/dop853.py:odeint_dop853_dense`,
 built the way its `ode/streamed_solve.py:dop853_streamed` is: torch has
 no ``while_loop``, so the host drives the steps, the state and the 16
 stages ([16, n] float64, one tensor) stay on the device, and the host
@@ -10,6 +11,8 @@ order error estimate, same controller (safety 0.9, factors 0.2-10,
 exponent -1/8) and the same initial-step rule, so the port walks the
 JAX stepper's step sequence; samples come from scipy's 7th-order
 continuous output, the steps are not clamped to the sample times.
+`odeint_dop853` is the step-clamped variant (``"dop853-step"``), and
+`ode/dopri5.py` steps Dormand-Prince 5(4) on K6's second table.
 
 The vector arithmetic is kernel K6 (`csrc/dop853.cu`): the stage states
 (`stage`), the error and initial-step sums (`norms`), the
@@ -46,7 +49,27 @@ _E3 = np.array(_dc.E3)  # [13], includes the f(t+h, y_new) stage
 _E5 = np.array(_dc.E5)
 _ERROR_EXPONENT = -1.0 / 8.0
 _SAFETY, _MIN_FACTOR, _MAX_FACTOR = 0.9, 0.2, 10.0
-_RMS, _RMS_DIFF, _ERR = 0, 1, 2  # modes of `norms`
+_RMS, _RMS_DIFF, _ERR, _ERR_H = 0, 1, 2, 3  # modes of `norms`
+
+# Dormand-Prince 5(4), as the JAX package's `ode/dopri5.py:25-39` writes
+# it (Python floats; B5 and B4 as float64 arrays, the error row their
+# difference): K6's second table. `ode/dopri5.py` steps with it.
+DP5_C = np.array([0.0, 1 / 5, 3 / 10, 4 / 5, 8 / 9, 1.0, 1.0])
+DP5_A = [
+    (),
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+]
+DP5_B5 = np.array([35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784,
+                   11 / 84, 0.0])
+DP5_B4 = np.array([5179 / 57600, 0.0, 7571 / 16695, 393 / 640,
+                   -92097 / 339200, 187 / 2100, 1 / 40])
+DP5_ERR = DP5_B5 - DP5_B4
+DP5_STAGES = 7
 
 
 def _terms(coefs, rows):
@@ -56,11 +79,15 @@ def _terms(coefs, rows):
 
 
 # The fixed stage combinations, by row: 0 the initial step's Euler
-# state, 1-11 A's rows (stage i), 12 B (y_new), 13-15 the extra stages,
-# 16 and 17 the error rows E5 and E3. Each row's terms name logical
-# stages; K6 holds the table in constant memory (`csrc/dop853.cu`).
+# state (both methods), 1-11 DOP853's A rows (stage i), 12 B (y_new),
+# 13-15 the extra stages, 16 and 17 the error rows E5 and E3; then
+# dopri5's A rows 1-6 at 18-23 (`DP5_ROWS[i]`), B5 at 24 and the error
+# row B5 - B4 at 25. Each row's terms name logical stages; K6 holds the
+# table in constant memory (`csrc/dop853.cu`).
 _EULER, _B_ROW, _E5_ROW, _E3_ROW = 0, _N_STAGES, 16, 17
 _STAGES = range(_N_EXTENDED)
+DP5_ROWS = (None,) + tuple(range(18, 18 + DP5_STAGES - 1))
+DP5_B5_ROW, DP5_ERR_ROW = 24, 25
 TABLEAU = tuple(
     [[(0, 1.0)]]
     + [_terms(_A[i, :i], _STAGES[:i]) for i in range(1, _N_STAGES)]
@@ -68,30 +95,35 @@ TABLEAU = tuple(
     + [_terms(_A_EXTRA[j, :_N_STAGES + 1 + j], _STAGES[:_N_STAGES + 1 + j])
        for j in range(_N_EXTENDED - _N_STAGES - 1)]
     + [_terms(_E5, _STAGES[:_N_STAGES + 1]),
-       _terms(_E3, _STAGES[:_N_STAGES + 1])])
+       _terms(_E3, _STAGES[:_N_STAGES + 1])]
+    + [_terms(DP5_A[i], range(i)) for i in range(1, DP5_STAGES)]
+    + [_terms(DP5_B5, range(DP5_STAGES)),
+       _terms(DP5_ERR, range(DP5_STAGES))])
 _MAX_TERMS = 16
 
 
-def stage_rows(swap: int) -> list:
-    """Row of the stage tensor that holds each stage: stage 0 and stage 12
-    swap rows after every accepted step (first same as last)."""
-    rows = list(_STAGES)
+def stage_rows(swap: int, fsal: int = _N_STAGES,
+               stages: int = _N_EXTENDED) -> list:
+    """Row of the stage tensor that holds each of ``stages`` stages: stage
+    0 and stage ``fsal`` (12 for DOP853, 6 for dopri5) swap rows after
+    every accepted step (first same as last)."""
+    rows = list(range(stages))
     if swap:
-        rows[0], rows[_N_STAGES] = rows[_N_STAGES], rows[0]
+        rows[0], rows[fsal] = rows[fsal], rows[0]
     return rows
 
 
-def tableau_terms(which: int, swap: int = 0):
+def tableau_terms(which: int, swap: int = 0, fsal: int = _N_STAGES):
     """Row ``which`` of `TABLEAU` as (row of the stage tensor, c) terms,
-    stage 0 and stage 12 swapped when ``swap``: what the plain versions
-    sum."""
-    rows = stage_rows(swap)
+    stage 0 and stage ``fsal`` swapped when ``swap``: what the plain
+    versions sum."""
+    rows = stage_rows(swap, fsal)
     return [(rows[r], c) for r, c in TABLEAU[which]]
 
 
 def tableau_arrays():
-    """`TABLEAU` as K6 uploads it: int32 term counts [18], int32 stages
-    [18, 16] and float64 coefficients [18, 16], zero past each count."""
+    """`TABLEAU` as K6 uploads it: int32 term counts [26], int32 stages
+    [26, 16] and float64 coefficients [26, 16], zero past each count."""
     count = np.asarray([len(t) for t in TABLEAU], dtype=np.int32)
     rows = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.int32)
     coefs = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.float64)
@@ -164,17 +196,18 @@ def stage_plain(y, ks, h: float, terms, out):
 stage_plain.calls = 0
 
 
-def stage(y, ks, h: float, which: int, out, swap: int = 0):
+def stage(y, ks, h: float, which: int, out, swap: int = 0,
+          fsal: int = _N_STAGES):
     """K6 stage state into ``out``: ``y + h * sum_q c_q * ks[row_q]`` over
-    `TABLEAU` row ``which``, stages 0 and 12 in each other's rows when
-    ``swap`` (`tableau_terms`); one launch, no host-built terms."""
+    `TABLEAU` row ``which``, stages 0 and ``fsal`` in each other's rows
+    when ``swap`` (`tableau_terms`); one launch, no host-built terms."""
     if not _on_card(y, "stage"):
-        return stage_plain(y, ks, h, tableau_terms(which, swap), out)
+        return stage_plain(y, ks, h, tableau_terms(which, swap, fsal), out)
     lib = _lib(y.device)
     with torch.cuda.device(y.device):
         rc = lib.ckpe_k6_stage(y.data_ptr(), ks.data_ptr(), _ld(ks, "stage"),
-                               y.numel(), which, swap, h, out.data_ptr(),
-                               cuda.stream(y))
+                               y.numel(), which, swap, fsal, h,
+                               out.data_ptr(), cuda.stream(y))
     cuda.check(rc, "stage", lib)
     stage.launches += 1
     return out
@@ -197,47 +230,23 @@ def norm_scratch(device) -> torch.Tensor:
     return torch.zeros(_NORM_SCRATCH, dtype=torch.float64, device=device)
 
 
-def _norm_order_sum(v: torch.Tensor) -> torch.Tensor:
-    """The sum of ``v`` in the order K6's `norms` takes it: 1,024 blocks
-    at most of 256 threads, thread t of block b adding elements b*256 + t
-    + q*stride in turn from 0, each block's tree (the upper half added to
-    the lower, halving), then thread t adding partials t, t + 256, ...
-    from 0, and one more tree. (Padding adds exact zeros to sums that
-    start at +0.0, which leaves their bits as they are.)"""
-    n = v.numel()
-    blocks = min(max(-(-n // 256), 1), _NORM_PARTIALS // 2)
-
-    def threads(x, width):  # [width] sums, each over x[t + q*width]
-        pad = x.new_zeros(-(-x.numel() // width) * width)
-        pad[:x.numel()] = x
-        acc = x.new_zeros(width)
-        for row in pad.view(-1, width):
-            acc = acc + row
-        return acc
-
-    def tree(x):  # [rows, 256] -> [rows]
-        w = 128
-        while w:
-            x = x[:, :w] + x[:, w:2 * w]
-            w //= 2
-        return x[:, 0]
-
-    partials = tree(threads(v, blocks * 256).view(blocks, 256))
-    return tree(threads(partials, 256).view(1, 256))[0]
-
-
 def norms_plain(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None,
-                ks=None, terms5=None, terms3=None):
+                ks=None, terms5=None, terms3=None, h=None):
     """Plain version of `norms`: two sums as a float64 [2] tensor, the
-    error sums over explicit ``terms5`` and ``terms3``, each element's
-    terms formed as the kernel forms them and summed in its order
-    (`_norm_order_sum`)."""
+    error sums over explicit ``terms5`` and ``terms3`` (``_ERR_H``: the
+    one error row ``terms5``, times ``h``), each element's terms formed
+    as the kernel forms them and summed in its order
+    (`cuda.block_order_sum`)."""
     norms_plain.calls += 1
-    if mode == _ERR:
+    if mode in (_ERR, _ERR_H):
         scale = atol + torch.maximum(y.abs(), y_new.abs()) * rtol
-        err5 = _lincomb_plain(ks, terms5) / scale
-        err3 = _lincomb_plain(ks, terms3) / scale
-        terms = (err5 * err5, err3 * err3)
+        if mode == _ERR:
+            err5 = _lincomb_plain(ks, terms5) / scale
+            err3 = _lincomb_plain(ks, terms3) / scale
+            terms = (err5 * err5, err3 * err3)
+        else:
+            u = h * _lincomb_plain(ks, terms5) / scale
+            terms = (u * u, torch.zeros_like(u))
     else:
         scale = atol + y.abs() * rtol
         if mode == _RMS:
@@ -246,29 +255,34 @@ def norms_plain(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None,
         else:
             u = (f1 - f0) / scale
             terms = (u * u, torch.zeros_like(u))
-    return torch.stack([_norm_order_sum(x) for x in terms])
+    return torch.stack([cuda.block_order_sum(x) for x in terms])
 
 
 norms_plain.calls = 0
 
 
 def norms(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None, ks=None,
-          swap: int = 0, scratch=None):
+          swap: int = 0, scratch=None, h: float = 0.0,
+          fsal: int = _N_STAGES, rows=(_E5_ROW, _E3_ROW)):
     """K6 sums, a float64 [2] tensor on ``y``'s device, one launch:
 
     - ``_RMS``: sum (y/scale)^2, sum (f0/scale)^2, scale = atol + |y| rtol;
     - ``_RMS_DIFF``: sum ((f1 - f0)/scale)^2, and 0;
     - ``_ERR``: sum (e5/scale)^2, sum (e3/scale)^2, scale = atol +
-      max(|y|, |y_new|) rtol, e5/e3 the stage sums of `TABLEAU`'s error
-      rows (stages 0 and 12 swapped when ``swap``).
+      max(|y|, |y_new|) rtol, e5/e3 the stage sums of `TABLEAU`'s rows
+      ``rows`` (DOP853's E5 and E3);
+    - ``_ERR_H``: sum (h e/scale)^2 with the same scale, e the stage sum
+      of the row ``rows[0]`` (dopri5's B5 - B4), and 0;
 
-    On a card the sums are a view of ``scratch`` (`norm_scratch`; a new
-    one when None), which the next call with it overwrites."""
+    stages 0 and ``fsal`` swapped when ``swap``. On a card the sums are a
+    view of ``scratch`` (`norm_scratch`; a new one when None), which the
+    next call with it overwrites."""
     if not _on_card(y, "norms"):
         terms = {}
+        if mode in (_ERR, _ERR_H):
+            terms = dict(terms5=tableau_terms(rows[0], swap, fsal), h=h)
         if mode == _ERR:
-            terms = dict(terms5=tableau_terms(_E5_ROW, swap),
-                         terms3=tableau_terms(_E3_ROW, swap))
+            terms["terms3"] = tableau_terms(rows[1], swap, fsal)
         return norms_plain(mode, y, rtol, atol, y_new=y_new, f0=f0, f1=f1,
                            ks=ks, **terms)
     if scratch is None:
@@ -284,9 +298,10 @@ def norms(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None, ks=None,
     lib = _lib(y.device)
     with torch.cuda.device(y.device):
         rc = lib.ckpe_k6_norms(
-            mode, y.numel(), rtol, atol, y.data_ptr(), ptr(y_new), ptr(f0),
-            ptr(f1), ptr(ks), 0 if ks is None else _ld(ks, "norms"), swap,
-            scratch.data_ptr(), cuda.stream(y))
+            mode, y.numel(), rtol, atol, h, y.data_ptr(), ptr(y_new),
+            ptr(f0), ptr(f1), ptr(ks), 0 if ks is None else _ld(ks, "norms"),
+            swap, fsal, rows[0], rows[-1], scratch.data_ptr(),
+            cuda.stream(y))
     cuda.check(rc, "norms", lib)
     norms.launches += 1
     return scratch[_NORM_PARTIALS:_NORM_PARTIALS + 2]
@@ -429,6 +444,76 @@ class SolveStats:
     y_final: torch.Tensor | None = None
 
 
+class _Stepper:
+    """What the host-stepped solvers share: the state ``y`` (a float64
+    copy of ``y0``), ``m`` stage rows on the device (`rows_tensor`), the
+    stage that trades rows with stage 0 (``fsal``) and the flag of that
+    swap, the error-sum scratch, the RHS written into a stage's row, the
+    sample rows and the counts."""
+
+    def __init__(self, fn, y0, ts, stages, fsal, sample_fn):
+        self.y = y0.reshape(-1).to(torch.float64, copy=True)
+        self.dev, self.n = self.y.device, self.y.numel()
+        self.ts = np.asarray(ts, dtype=np.float64)
+        self.K = rows_tensor(stages, self.n, self.dev)
+        self.stages, self.fsal, self.swap = stages, fsal, 0
+        self.rows = stage_rows(0, fsal, stages)  # logical stage -> row
+        self.scratch = norm_scratch(self.dev)
+        self.y_new = torch.empty_like(self.y)
+        self.fn, self.takes_out = fn, getattr(fn, "takes_out", False)
+        self.sample_fn = sample_fn or (lambda s: s)
+        self.stats = SolveStats()
+        self.out_rows = [self.sample_fn(self.y[None]).clone()]
+
+    def rhs(self, v, t, i):
+        """dp/dt at ``v`` into stage i's row."""
+        self.stats.num_rhs += 1
+        if self.takes_out:
+            self.fn(v, t, out=self.K[self.rows[i]])
+        else:
+            self.K[self.rows[i]].copy_(self.fn(v, t))
+
+    def stage(self, h, which, out):
+        return stage(self.y, self.K, h, which, out, self.swap, self.fsal)
+
+    def initial_step(self, rtol, atol, order):
+        """f0 into stage 0's row and the first step size (Hairer/Wanner,
+        scipy's `_select_initial_step`; the JAX package's
+        `ode/dopri5.py:72-86`, `ode/dop853.py:71-88`), error exponent
+        1 / ``order``."""
+        y, K, rows, n = self.y, self.K, self.rows, self.n
+        t0, t_end = float(self.ts[0]), float(self.ts[-1])
+        self.rhs(y, t0, 0)
+        d0, d1 = (math.sqrt(v / n) for v in
+                  norms(_RMS, y, rtol, atol, f0=K[rows[0]],
+                        scratch=self.scratch).tolist())
+        h0 = 1e-6 if (d0 < 1e-5 or d1 < 1e-5) else 0.01 * d0 / d1
+        self.stage(h0, _EULER, self.y_new)
+        self.rhs(self.y_new, t0 + h0, 1)
+        d2 = math.sqrt(norms(_RMS_DIFF, y, rtol, atol, f0=K[rows[0]],
+                             f1=K[rows[1]], scratch=self.scratch
+                             ).tolist()[0] / n) / h0
+        if d1 <= 1e-15 and d2 <= 1e-15:
+            h1 = max(1e-6, h0 * 1e-3)
+        else:
+            h1 = (0.01 / max(d1, d2)) ** (1.0 / order)
+        span = t_end - t0
+        return min(max(min(100 * h0, h1), 1e-14 * span), span)
+
+    def accept(self):
+        """The accepted step's y_new becomes y; stage ``fsal``'s row
+        becomes stage 0's."""
+        self.y, self.y_new = self.y_new, self.y
+        self.swap = 1 - self.swap
+        self.rows = stage_rows(self.swap, self.fsal, self.stages)
+        self.stats.num_accepted += 1
+
+    def finish(self, i_out):
+        self.stats.completed = i_out >= len(self.ts)
+        self.stats.y_final = self.y
+        return torch.cat(self.out_rows), self.stats
+
+
 def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
                         max_steps: int = 1_000_000, *, sample_fn=None):
     """Integrates ``dy/dt = fn(y, t)`` from ``y0`` (a float64 vector on
@@ -444,48 +529,12 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
     ``max_steps`` steps (``completed`` False).
     """
     rtol, atol = (float(x) for x in tols)
-    y = y0.reshape(-1).to(torch.float64, copy=True)
-    dev, n = y.device, y.numel()
-    ts = np.asarray(ts, dtype=np.float64)
-    ts_dev = torch.as_tensor(ts, device=dev)
+    st = _Stepper(fn, y0, ts, _N_EXTENDED, _N_STAGES, sample_fn)
+    ts, n, stats = st.ts, st.n, st.stats
+    ts_dev = torch.as_tensor(ts, device=st.dev)
     n_out = len(ts)
-    sample_fn = sample_fn or (lambda s: s)
-    stats = SolveStats()
-    K = rows_tensor(_N_EXTENDED, n, dev)
-    scratch = norm_scratch(dev)
-    swap = 0  # stages 0 and 12 in each other's rows of K
-    rows = stage_rows(swap)  # logical stage -> row of K
-
-    takes_out = getattr(fn, "takes_out", False)
-
-    def rhs(v, t, i):
-        stats.num_rhs += 1
-        if takes_out:
-            fn(v, t, out=K[rows[i]])
-        else:
-            K[rows[i]].copy_(fn(v, t))
-
-    out_rows = [sample_fn(y[None]).clone()]
     t0, t_end = float(ts[0]), float(ts[-1])
-    rhs(y, t0, 0)
-
-    # Initial step (Hairer/Wanner, scipy's _select_initial_step).
-    d0, d1 = (math.sqrt(v / n) for v in
-              norms(_RMS, y, rtol, atol, f0=K[rows[0]],
-                    scratch=scratch).tolist())
-    h0 = 1e-6 if (d0 < 1e-5 or d1 < 1e-5) else 0.01 * d0 / d1
-    y_new = torch.empty_like(y)
-    stage(y, K, h0, _EULER, y_new, swap)
-    rhs(y_new, t0 + h0, 1)
-    d2 = math.sqrt(norms(_RMS_DIFF, y, rtol, atol, f0=K[rows[0]],
-                         f1=K[rows[1]], scratch=scratch).tolist()[0]
-                   / n) / h0
-    if d1 <= 1e-15 and d2 <= 1e-15:
-        h1 = max(1e-6, h0 * 1e-3)
-    else:
-        h1 = (0.01 / max(d1, d2)) ** (1.0 / 8.0)
-    span = t_end - t0
-    dt = min(max(min(100 * h0, h1), 1e-14 * span), span)
+    dt = st.initial_step(rtol, atol, 8.0)
 
     F = None
     samples = None
@@ -494,12 +543,12 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
            and stats.num_accepted + stats.num_rejected < max_steps):
         h = min(dt, t_end - t)
         for i in range(1, _N_STAGES):
-            stage(y, K, h, i, y_new, swap)
-            rhs(y_new, t + _C[i] * h, i)
-        stage(y, K, h, _B_ROW, y_new, swap)
-        rhs(y_new, t + h, _N_STAGES)
-        n5, n3 = norms(_ERR, y, rtol, atol, y_new=y_new, ks=K, swap=swap,
-                       scratch=scratch).tolist()
+            st.stage(h, i, st.y_new)
+            st.rhs(st.y_new, t + _C[i] * h, i)
+        st.stage(h, _B_ROW, st.y_new)
+        st.rhs(st.y_new, t + h, _N_STAGES)
+        n5, n3 = norms(_ERR, st.y, rtol, atol, y_new=st.y_new, ks=st.K,
+                       swap=st.swap, scratch=st.scratch).tolist()
         denom = np.sqrt((n5 + 0.01 * n3) * n)
         err = max(abs(h) * n5 / max(denom, 1e-300), 1e-30)
         accept = err <= 1.0
@@ -513,29 +562,72 @@ def odeint_dop853_dense(fn, y0: torch.Tensor, ts, tols,
             while i_out + m < n_out and (ts[i_out + m] <= t_new or at_end):
                 m += 1
             if m:
+                y, K, rows = st.y, st.K, st.rows
                 scratch_y = torch.empty_like(y)
                 for s in range(_N_STAGES + 1, _N_EXTENDED):
-                    stage(y, K, h, s, scratch_y, swap)
-                    rhs(scratch_y, t + _C_EXTRA[s - _N_STAGES - 1] * h, s)
+                    st.stage(h, s, scratch_y)
+                    st.rhs(scratch_y, t + _C_EXTRA[s - _N_STAGES - 1] * h, s)
                 if F is None:
-                    F = rows_tensor(7, n, dev)
-                dense_coeffs(y, y_new, h, K[rows[0]], K[rows[_N_STAGES]],
+                    F = rows_tensor(7, n, st.dev)
+                dense_coeffs(y, st.y_new, h, K[rows[0]], K[rows[_N_STAGES]],
                              K, rows, F)
                 if samples is None or samples.shape[0] < m:
-                    samples = rows_tensor(m, n, dev)
+                    samples = rows_tensor(m, n, st.dev)
                 dense_eval(F, y, ts_dev, i_out, m, t, h, samples)
-                out_rows.append(sample_fn(samples[:m]).clone())
+                st.out_rows.append(st.sample_fn(samples[:m]).clone())
                 i_out += m
                 stats.num_sampled += 1
             t = t_new
-            y, y_new = y_new, y
-            swap = 1 - swap
-            rows = stage_rows(swap)
-            stats.num_accepted += 1
+            st.accept()
         else:
             stats.num_rejected += 1
         dt = dt_next
-    stats.completed = i_out >= n_out
-    stats.y_final = y
-    return torch.cat(out_rows), stats
+    return st.finish(i_out)
 
+
+def odeint_dop853(fn, y0: torch.Tensor, ts, tols,
+                  max_steps: int = 1_000_000, *, sample_fn=None):
+    """The step-clamped DOP853 (``method="dop853-step"``), counterpart of
+    the JAX package's `ode/dop853.py:45 odeint_dop853`: the same 12
+    stages, then ``f_new = fn(y_new)`` as the 13th (the next step's
+    first), the combined E5/E3 error norm and the controller clip(0.9
+    err^(-1/8), 0.2, 10), min(factor, 1) on a reject, no PI term; each
+    step clamped to land on the next sample time (reached when the step
+    covers 1 - 1e-14 of the way), no dense output. Same contract as
+    `odeint_dop853_dense`; the arithmetic is K6's."""
+    rtol, atol = (float(x) for x in tols)
+    st = _Stepper(fn, y0, ts, _N_STAGES + 1, _N_STAGES, sample_fn)
+    ts, n, stats = st.ts, st.n, st.stats
+    n_out = len(ts)
+    dt = st.initial_step(rtol, atol, 8.0)
+    y_stage = torch.empty_like(st.y)
+    t, i_out = float(ts[0]), 1
+    while (i_out < n_out
+           and stats.num_accepted + stats.num_rejected < max_steps):
+        t_target = float(ts[min(i_out, n_out - 1)])
+        h = min(dt, t_target - t)
+        hits_target = h >= (t_target - t) * (1 - 1e-14)
+        for i in range(1, _N_STAGES):
+            st.stage(h, i, y_stage)
+            st.rhs(y_stage, t + _C[i] * h, i)
+        st.stage(h, _B_ROW, st.y_new)
+        st.rhs(st.y_new, t + h, _N_STAGES)
+        n5, n3 = norms(_ERR, st.y, rtol, atol, y_new=st.y_new, ks=st.K,
+                       swap=st.swap, scratch=st.scratch).tolist()
+        denom = np.sqrt((n5 + 0.01 * n3) * n)
+        err = max(abs(h) * n5 / max(denom, 1e-300), 1e-30)
+        accept = err <= 1.0
+        factor = min(max(_SAFETY * err**_ERROR_EXPONENT, _MIN_FACTOR),
+                     _MAX_FACTOR)
+        dt_next = h * factor if accept else h * min(factor, 1.0)
+        if accept:
+            t = t_target if hits_target else t + h
+            if hits_target:
+                st.out_rows.append(st.sample_fn(st.y_new[None]).clone())
+                i_out += 1
+                stats.num_sampled += 1
+            st.accept()
+        else:
+            stats.num_rejected += 1
+        dt = dt_next
+    return st.finish(i_out)

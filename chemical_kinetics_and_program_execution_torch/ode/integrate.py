@@ -1,15 +1,15 @@
 """High-level ODE driver over an RHS on the device.
 
 Counterpart of the JAX package's `ode/integrate.py:solve` with its
-on-device ``"jax"`` backend, here ``"torch"``: the host-stepped DOP853
-with dense output (`dop853.odeint_dop853_dense`), the state on
-``device``, in one stepper call or in chunks, with checkpoints.
-(`markov_tapes` keeps the reference's scipy solvers.)
+on-device ``"jax"`` backend, here ``"torch"``: the host-stepped steppers
+(`dopri5.odeint_dopri5`, `dop853.odeint_dop853_dense`, the step-clamped
+`dop853.odeint_dop853`), the state on ``device``, in one stepper call or
+in chunks, with checkpoints. (`markov_tapes` keeps the reference's scipy
+solvers.)
 
-Not ported yet: the ``dopri5`` stepper and the stiff ``kvaerno3`` (and
-the scipy stiff names that map onto it) and the step-clamped
-``"dop853-step"``; they raise NotImplementedError naming ROADMAP Queue 1
-items 3 and 5.
+Not ported yet: the stiff ``kvaerno3`` and the scipy stiff names that
+map onto it; they raise NotImplementedError naming ROADMAP Queue 1 item
+4.
 """
 
 from __future__ import annotations
@@ -23,12 +23,17 @@ import numpy as np
 import torch
 
 from ..utils import config
-from .dop853 import odeint_dop853_dense
+from .dop853 import odeint_dop853, odeint_dop853_dense
+from .dopri5 import odeint_dopri5
 
-_UNPORTED = ("is not ported yet (ROADMAP Queue 1 items 3 and 5: dopri5 "
-             "and kvaerno3)")
-_NOT_PORTED = {"dopri5", "dop853-step", "kvaerno3", "lsoda", "radau",
-               "bdf"}
+_UNPORTED = "is not ported yet (ROADMAP Queue 1 item 4: kvaerno3)"
+_NOT_PORTED = {"kvaerno3", "lsoda", "radau", "bdf"}
+# The JAX package's steppers by name (`ode/integrate.py:31-37`): "dop853"
+# is the dense-output stepper, "dop853-step" clamps its steps to the
+# sample times. Looked up in globals() at each call, as there, so tests
+# can monkeypatch a stepper.
+_STEPPERS = {"dopri5": "odeint_dopri5", "dop853": "odeint_dop853_dense",
+             "dop853-step": "odeint_dop853"}
 
 
 class _Checkpoint:
@@ -101,14 +106,17 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     `dop853.odeint_dop853_dense`). By default tight tolerances (< 1e-9)
     route to DOP853 (``method`` "dop853" or "DOP853"; other scipy names
     such as "RK45" land there too, as in the JAX package), looser ones to
-    dopri5, which is not ported.
+    dopri5 (``method`` "dopri5"); "dop853-step" is the step-clamped
+    DOP853.
 
     ``chunk_size`` splits the sample grid into stepper calls of at most
-    that many samples: sample 0, then samples [1, 1 + c), [1 + c, 1 +
-    2c), ..., each call restarting the stepper from the state sampled at
-    its first time. These are the JAX package's chunks for its dense
-    stepper; it pads its last chunk to one static shape for XLA, which
-    the host-stepped solver has no need of. Where ``chunk_size`` is None
+    that many samples, each call restarting the stepper from the state
+    sampled at its first time, as the JAX package cuts them: for the
+    dense stepper sample 0, then samples [1, 1 + c), [1 + c, 1 + 2c),
+    ...; for the step-clamped ones samples [0, c), then [c, 2c), ...
+    (the JAX package pads the dense stepper's last chunk to one static
+    shape for XLA, which the host-stepped solver has no need of). Where
+    ``chunk_size`` is None
     it comes from ``CKPE_ODE_CHUNK`` when that is set, as in the JAX
     package. ``progress`` prints a line a chunk.
 
@@ -134,6 +142,9 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
         name = "dop853" if min(rtol, atol) < 1e-9 else "dopri5"
     if name in _NOT_PORTED:
         raise NotImplementedError(f"method {name!r} {_UNPORTED}")
+    if name not in _STEPPERS:
+        name = "dop853"  # scipy method names (DOP853, RK45, ...)
+    stepper = globals()[_STEPPERS[name]]
     dev = config.get_device(device)
     y0_host = np.asarray(y0, dtype=np.float64).ravel()
     y = torch.as_tensor(y0_host, device=dev)
@@ -173,7 +184,7 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
                 print(f"[ckpe.ode] resuming at sample {start}/{n_out} from "
                       f"{checkpoint_path}", flush=True)
     parts = []
-    if chunk < n_out and start == 0:
+    if chunk < n_out and start == 0 and name == "dop853":
         rows = row0.detach().cpu().numpy()
         if ckpt:
             ckpt.mm[0] = rows[0]
@@ -185,9 +196,8 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     while start < n_out:
         stop = min(start + chunk, n_out)
         ts_chunk = ts[start:stop] if start == 0 else ts[start - 1:stop]
-        out, stats = odeint_dop853_dense(fn_dy_dt, y, ts_chunk,
-                                         (rtol, atol), max_steps=max_steps,
-                                         sample_fn=sample_fn)
+        out, stats = stepper(fn_dy_dt, y, ts_chunk, (rtol, atol),
+                             max_steps=max_steps, sample_fn=sample_fn)
         if not stats.completed:
             raise RuntimeError(
                 f"ODE solve did not complete within max_steps={max_steps} "

@@ -95,7 +95,31 @@ Phases (each prints its wall time; every check raises on failure):
    and, at p_prog = p_data, its halves' sum to the shared RHS; ex4
    scenario b at cl_k 5 in chunks of 200 samples with a checkpoint
    under chiprun_out/ equal to the one-call solve (rtol 1e-9, atol
-   1e-11), the checkpoint's files removed.
+   1e-11), the checkpoint's files removed;
+8. loose-tolerance solves and pruned exact mode (K6's dopri5 rows, K9
+   `world_mass`): the main paths, each with every count set to 0 just
+   before and read just after, no plain version called, K6's launches
+   as the step counts say: (a) ex3var2 at cl_k 8 (65,536 states, 101
+   samples to t=200) and (b) ex3 at cl_k 6 (1,001 samples to t=1000)
+   through `markov_tapes.ode_integrate(backend="torch")` at rtol = atol =
+   1e-9, default routing (dopri5), within 1e-10 abs of
+   examples/ex3_var2_k8.npz and ex3_k6.npz; (c) the exact side of
+   examples/ex6_bff_self_spd.py (ex6-mini-bff-self pruned at 1e-7: 4,517
+   live worlds of 9,912, its RK4 through `make_dense_dy_dt(with_mass=
+   True)`), mass and cls_spd within 1e-11 abs of the artifact; (d)
+   examples/ex6_mini_bff.py's ten re-pruned dopri5 segments, each
+   segment's kept worlds and the final mass (abs 1e-10) equal to the
+   JAX package's CPU run; (e) ex4 scenario a at cl_k 5 by the
+   step-clamped DOP853 (``dop853-step``) at 1e-13, within 2e-6 rel of
+   the oracle, its steps beside the dense stepper's 29; each path's
+   seconds, steps, RHS calls and K6's launches by function. K6's dopri5
+   rows (every row, both swap states) and its error sum at 65,536 states
+   and K9 on the ex6-self program (p0 and a random SPD) and on ex5 at
+   threshold 1e-30 (mass 1) equal their plain versions bit for bit,
+   twice; ex6-self's dp/dt by K3 and K5 (417 phases) against the plain
+   version; the B5 stage and the error sum timed beside their bounds,
+   plain versions and, for the stage, `torch.addmv`; K9 beside its bound
+   and plain version.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -122,6 +146,7 @@ from chemical_kinetics_and_program_execution_torch.engine import (
 from chemical_kinetics_and_program_execution_torch.engine import (
     dense as tdense,
 )
+from chemical_kinetics_and_program_execution_torch.engine import dsl as tdsl
 from chemical_kinetics_and_program_execution_torch.engine import native
 from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
 from chemical_kinetics_and_program_execution_torch.engine import (
@@ -132,7 +157,7 @@ from chemical_kinetics_and_program_execution_torch.models.initial_states import 
     chemical_turing_p0,
     copolymerization_p0,
 )
-from chemical_kinetics_and_program_execution_torch.ode import dop853
+from chemical_kinetics_and_program_execution_torch.ode import dop853, dopri5
 from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
 from chemical_kinetics_and_program_execution_torch.ops.observables import (
     seq_prob_projector,
@@ -897,7 +922,7 @@ def exact_closure(dev, kernels):
                 f"bound of {t['bound_ms'] * 1e3:.2f} us; plain "
                 f"{t['plain_ms'] * 1e3:.1f} us; library "
                 + (f"{t['library_ms'] * 1e3:.2f} us ({lib_name})"
-                   if t["library_ms"] else "none")
+                   if t["library_ms"] is not None else "none")
                 + f"; host {t['host_us_per_launch']:.2f} us a launch")
     say("at cl_k 5 and 6 the working set (under 50 MB) sits in the 50 MB "
         "L2: those times are launches and host pacing, not bytes")
@@ -1471,6 +1496,477 @@ def gather_phase(dev, kernels, dense_finals):
                                 "chain_tables_s": chain_s}
 
 
+# --- Phase 8: loose-tolerance solves, pruned exact mode --------------------------
+
+LOOSE_TOL = 1e-9  # examples/ex3_copolymerization.py, ex6_mini_bff.py
+ARTIFACT_ABS = 1e-10
+# (path, rule, cl_k, t_end, samples, artifact): a is
+# examples/ex3_copolymerization.py's var2 run at cl_k 8 (65,536 states,
+# 101 samples), the repository's largest committed loose-tolerance solve;
+# b its ex3 run at cl_k 6. Both through `markov_tapes.ode_integrate` with
+# the examples' rtol = atol = 1e-9 and the default routing (dopri5).
+LOOSE_RUNS = [
+    ("a", "ex3var2-copolymerization", 8, 200.0, 101, "ex3_var2_k8.npz"),
+    ("b", "ex3-copolymerization", 6, 1000.0, 1001, "ex3_k6.npz"),
+]
+# Path c: the exact side of examples/ex6_bff_self_spd.py (its settings,
+# RK4 of 8 substeps a snapshot over the artifact's ts), held to the
+# artifact's mass and cls_spd.
+EX6_SELF, EX6_SELF_EPS, EX6_SELF_THR = "ex6-mini-bff-self", 0.02, 1e-7
+EX6_SELF_WORLDS = (4517, 9912)  # live, enumerated (the artifact's n_worlds)
+EX6_SELF_ABS = 1e-11
+# Path d: examples/ex6_mini_bff.py at its defaults; each segment's kept
+# worlds and the final mass from the JAX package's run on the CPU
+# (tests/test_torch_pruned.py holds the port to that package on the CPU).
+EX6_MINI = "ex6-mini-bff"
+EX6_MINI_COUNTS = [20, 20, 14, 12, 10, 10, 8, 8, 6, 6]
+EX6_MINI_FINAL_MASS = 0.32837033166511376
+EX6_MINI_ABS = 1e-10  # a tenth of the solve's tolerance
+DENSE_STEPS_A = 29  # phase 6's dense DOP853, ex4 a at cl_k 5
+STEP_CL_K = 5  # path e
+LOOSE_WRAPPERS = {"K3": [tdense.pyramid], "K5": [tdense.sweep],
+                  "K6": list(dop853.KERNELS), "K9": [tdense.world_mass]}
+K6_DP5 = ("K6 dop853_arith: dopri5 rows, error sum; step-clamped DOP853",
+          SRC + "dop853.cu",
+          "the JAX package's ode/dopri5.py:48 odeint_dopri5, :43 _rms_norm; "
+          "ode/dop853.py:45 odeint_dop853 (XLA)")
+K9 = ("K9 world_mass", SRC + "world_mass.cu",
+      "the JAX package's engine/dense.py:579 (make_dense_dy_dt with_mass: "
+      "jnp.sum of m_const * guarded_ratio_prod) (XLA)")
+
+
+def loose_launches():
+    return {k: sum(f.launches for f in fs)
+            for k, fs in LOOSE_WRAPPERS.items()}
+
+
+def zero_loose_counts():
+    zero_exact_counts()
+    tdense.world_mass.launches = 0
+    tdense.world_mass_plain.calls = 0
+
+
+def plain_calls():
+    return (sum(f.calls for f in EXACT_PLAIN)
+            + tdense.world_mass_plain.calls)
+
+
+class SolveInfo:
+    """For the duration, `markov_tapes`' `solve` also keeps each call's
+    ``info`` (steps, RHS calls) in ``self.infos``; the caller's result is
+    unchanged."""
+
+    def __enter__(self):
+        self.infos, self.saved = [], markov_tapes.solve
+
+        def solve_kept(*args, **kw):
+            want_info = kw.pop("return_info", False)
+            ys, info = self.saved(*args, return_info=True, **kw)
+            self.infos.append(info)
+            return (ys, info) if want_info else ys
+
+        markov_tapes.solve = solve_kept
+        return self
+
+    def __exit__(self, *exc):
+        markov_tapes.solve = self.saved
+        return False
+
+
+def iid_spd(psym, cl_k):
+    """The product SPD of iid symbols (the examples' `_common.iid_spd`)."""
+    out = np.array([1.0])
+    for _ in range(cl_k):
+        out = np.kron(out, np.asarray(psym, dtype=np.float64))
+    return out
+
+
+def mutant_class_masks(size_a, dot, cl_k):
+    """examples/ex6_bff_self_spd.py:63-75: [size_a, size_a**cl_k] 0/1
+    masks of the windows with exactly one non-dot symbol, equal to s."""
+    masks = np.zeros((size_a, size_a**cl_k))
+    for w in range(size_a**cl_k):
+        digs, r = [], w
+        for _ in range(cl_k):
+            r, d = divmod(r, size_a)
+            digs.append(d)
+        non = [d for d in digs if d != dot]
+        if len(non) == 1:
+            masks[non[0], w] = 1.0
+    return masks
+
+
+def counted_path(label, fn, need):
+    """Runs the main path ``fn`` with every count set to 0 just before and
+    read just after; raises unless each kernel of ``need`` launched and
+    no plain version ran. Returns (fn's result, seconds, launches, K6's
+    launches by function, host µs a K6 launch inside each wrapper)."""
+    zero_loose_counts()
+    t0 = time.perf_counter()
+    with K6HostClock() as clock:
+        result = fn()
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, k6, plain = loose_launches(), k6_launches(), plain_calls()
+    if plain or any(launches[k] == 0 for k in need):
+        raise AssertionError(f"path {label}: launches {launches}, plain "
+                             f"calls {plain}")
+    host_us = {name: clock.seconds[name] * 1e6 / k6[name]
+               for name in k6 if k6[name]}
+    return result, seconds, launches, k6, host_us
+
+
+def k6_steps_say(label, info, k6, fsal_stages):
+    """Raises unless K6 launched as the step count says (``fsal_stages``
+    stage launches a step: 7 for dopri5, 12 for dop853-step; one `norms`
+    a step and two for the initial step)."""
+    steps = info["num_accepted"] + info["num_rejected"]
+    want = {"stage": 1 + fsal_stages * steps, "norms": 2 + steps,
+            "dense_coeffs": 0, "dense_eval": 0}
+    if k6 != want:
+        raise AssertionError(f"path {label}: K6 launches {k6}, the steps "
+                             f"say {want}")
+
+
+def dopri5_kernel_checks(dev, gen, n):
+    """K6's dopri5 rows at n states: `stage` at every row of the second
+    table in both swap states and `norms` in dopri5's mode, each the
+    plain version's bits and the same twice; the B5 stage and the error
+    sum timed beside their bounds, their plain versions and, for the
+    stage, `torch.addmv`."""
+    ks = dop853.rows_tensor(7, n, dev)
+    ks.copy_(torch.rand((7, n), generator=gen, dtype=torch.float64,
+                        device=dev) - 0.5)
+    y = torch.rand(n, generator=gen, dtype=torch.float64, device=dev)
+    y_new = y + 1e-3 * ks[3]
+    fsal, h = dopri5.FSAL, 0.37
+    out, want = torch.empty_like(y), torch.empty_like(y)
+    rows = [dop853._EULER, *dop853.DP5_ROWS[1:], dop853.DP5_B5_ROW,
+            dop853.DP5_ERR_ROW]
+    scratch = dop853.norm_scratch(dev)
+    for swap in (0, 1):
+        for which in rows:
+            got = dop853.stage(y, ks, h, which, out, swap, fsal).clone()
+            plain = dop853.stage_plain(y, ks, h, dop853.tableau_terms(
+                which, swap, fsal), want)
+            torch.cuda.synchronize()
+            if not (torch.equal(got, plain) and torch.equal(
+                    got, dop853.stage(y, ks, h, which, out, swap, fsal))):
+                raise AssertionError(f"K6 dopri5 stage row {which} swap "
+                                     f"{swap} n={n}: != plain")
+        kw = dict(y_new=y_new, ks=ks, swap=swap, h=h, fsal=fsal,
+                  rows=(dop853.DP5_ERR_ROW,))
+        got = dop853.norms(dop853._ERR_H, y, LOOSE_TOL, LOOSE_TOL,
+                           scratch=scratch, **kw).clone()
+        plain = dop853.norms_plain(
+            dop853._ERR_H, y, LOOSE_TOL, LOOSE_TOL, y_new=y_new, ks=ks, h=h,
+            terms5=dop853.tableau_terms(dop853.DP5_ERR_ROW, swap, fsal))
+        if not (torch.equal(got, plain) and torch.equal(
+                got, dop853.norms(dop853._ERR_H, y, LOOSE_TOL, LOOSE_TOL,
+                                  scratch=scratch, **kw))):
+            raise AssertionError(f"K6 dopri5 error sum swap {swap} n={n}: "
+                                 "!= plain")
+    b5 = dop853.tableau_terms(dop853.DP5_B5_ROW, 0, fsal)
+    err = dop853.tableau_terms(dop853.DP5_ERR_ROW, 0, fsal)
+    kw = dict(y_new=y_new, ks=ks, h=h, fsal=fsal, rows=(dop853.DP5_ERR_ROW,))
+    coef = torch.as_tensor(h * dop853.DP5_B5, device=dev)
+    times = {}
+    for name, kern, plain, nbytes in (
+            ("stage (B5)",
+             lambda: dop853.stage(y, ks, h, dop853.DP5_B5_ROW, out, 0, fsal),
+             lambda: dop853.stage_plain(y, ks, h, b5, want),
+             8 * (len(b5) + 2) * n),
+            ("norms (B5 - B4)",
+             lambda: dop853.norms(dop853._ERR_H, y, LOOSE_TOL, LOOSE_TOL,
+                                  scratch=scratch, **kw),
+             lambda: dop853.norms_plain(dop853._ERR_H, y, LOOSE_TOL,
+                                        LOOSE_TOL, y_new=y_new, ks=ks, h=h,
+                                        terms5=err),
+             8 * (2 + len(err)) * n)):
+        host = []
+        times[name] = {"ms": cuda_ms(kern, 60, warmup=1, host=host),
+                       "plain_ms": cuda_ms(plain, 5, warmup=0),
+                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                       "library_ms": None, "host_us_per_launch": host[0] * 1e3}
+    lib_out = torch.addmv(y, ks.T, coef)
+    if not torch.allclose(lib_out, want, rtol=RHS_RTOL, atol=RHS_ATOL):
+        raise AssertionError("torch.addmv yardstick != dopri5's B5 stage")
+    times["stage (B5)"]["library_ms"] = cuda_ms(
+        lambda: torch.addmv(y, ks.T, coef), 60, warmup=1)
+    del ks, y, y_new
+    return times
+
+
+def world_mass_bytes(dp):
+    """K9's bytes: the chains (two int32 a factor), m_const and each
+    pyramid entry the chains name read once, the mass written."""
+    idx = torch.unique(torch.cat([dp.m_num.reshape(-1),
+                                  dp.m_den.reshape(-1)]))
+    return (8 * dp.m_num.numel() + 8 * dp.m_const.numel()
+            + 8 * idx.numel() + 8)
+
+
+def world_mass_checks(dev, gen, dp, p, label, mass_one=False):
+    """K9 against its plain version on ``p`` and on a random SPD, bit for
+    bit and the same bits twice (mass 1 within 1e-12 where
+    ``mass_one``); returns its time on ``p`` beside its bound and its
+    plain version."""
+    a, k = dp.prog.size_a, dp.prog.cl_k
+    scratch = tdense.mass_scratch(dev)
+    for q in (p, device_spd(gen, dp.prog.state_size, dev, True)):
+        low = tdense.pyramid_plain(q, a, k)
+        got = tdense.world_mass(dp, q, low, scratch).clone()
+        again = tdense.world_mass(dp, q, low, scratch)
+        plain = tdense.world_mass_plain(dp, q, low)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, plain) and torch.equal(got, again)):
+            raise AssertionError(f"K9 {label}: kernel {got.item()!r} != "
+                                 f"plain {plain.item()!r}")
+        if mass_one and abs(got.item() - 1.0) >= 1e-12:
+            raise AssertionError(f"K9 {label}: mass {got.item()!r}, not 1")
+    low = tdense.pyramid_plain(p, a, k)
+    host = []
+    return {"ms": cuda_ms(lambda: tdense.world_mass(dp, p, low, scratch),
+                          100, warmup=1, host=host),
+            "plain_ms": cuda_ms(lambda: tdense.world_mass_plain(dp, p, low),
+                                5, warmup=0),
+            "bound_ms": world_mass_bytes(dp) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None, "host_us_per_launch": host[0] * 1e3,
+            "worlds": dp.m_const.numel(), "chain": dp.m_num.shape[1]}
+
+
+def loose_phase(dev, kernels):
+    """Phase 8; adds K6's dopri5 rows and K9 to ``kernels``."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    say("K9 entry point in the library built in phase 2: "
+        + ("ckpe_world_mass" if hasattr(cuda.load(), "ckpe_world_mass")
+           else "missing"))
+    paths, totals = {}, {"K3": 0, "K5": 0, "K6": 0, "K9": 0}
+
+    def record(label, launches, **extra):
+        for key in totals:
+            totals[key] += launches.get(key, 0)
+        paths[label] = {"launches": launches, **extra}
+
+    # a, b: ex3var2 at cl_k 8 and ex3 at cl_k 6 by dopri5 (default routing).
+    k6_dp5 = {}
+    for label, tag, cl_k, t_end, samples, artifact in LOOSE_RUNS:
+        p0 = copolymerization_p0(cl_k).ravel()
+        ts = np.linspace(0.0, t_end, samples)
+
+        def run():
+            with SolveInfo() as kept:
+                ys = markov_tapes.ode_integrate(
+                    tag=tag, size_a=4, cl_k=cl_k, p0=p0, ts=ts,
+                    backend="torch", device=dev,
+                    odeint_kwargs=dict(rtol=LOOSE_TOL, atol=LOOSE_TOL))
+            return ys, kept.infos[0]
+
+        (ys, info), seconds, launches, k6, host_us = counted_path(
+            label, run, ("K3", "K5", "K6"))
+        k6_steps_say(label, info, k6, 7)
+        want = np.load(EXAMPLES / artifact)["ode_ys"]
+        if ys.shape != want.shape or not np.isfinite(ys).all():
+            raise AssertionError(f"path {label}: {ys.shape} against "
+                                 f"{want.shape}")
+        err = float(np.abs(ys - want).max())
+        if err > ARTIFACT_ABS:
+            raise AssertionError(f"path {label}: max |diff| {err} from "
+                                 f"examples/{artifact}")
+        record(label, launches, seconds=seconds, err=err,
+               accepted=info["num_accepted"], rejected=info["num_rejected"],
+               rhs=info["num_rhs"], k6_launches=k6,
+               k6_host_us_per_launch=host_us)
+        say(f"path {label}: {tag} cl_k {cl_k} ({4**cl_k} states, {samples} "
+            f"samples to t={t_end:g}) by dopri5 through "
+            f"markov_tapes.ode_integrate: {seconds:.2f} s, "
+            f"{info['num_accepted']} accepted, {info['num_rejected']} "
+            f"rejected, {info['num_rhs']} RHS calls "
+            f"({info['num_rhs'] / seconds:.0f} a second); launches "
+            f"{launches}, K6 {k6}; host us a K6 launch "
+            f"{({k: round(v, 2) for k, v in host_us.items()})}; max |diff| "
+            f"from examples/{artifact} {err:.3e} (within {ARTIFACT_ABS:g})")
+        if label == "a":
+            k6_dp5 = dopri5_kernel_checks(dev, gen, 4**cl_k)
+            say(f"K6 dopri5 rows at {4**cl_k} states: every row, both swap "
+                "states, and the error sum == plain, bit for bit, twice")
+        torch.cuda.empty_cache()
+
+    # c: the exact side of examples/ex6_bff_self_spd.py.
+    prob = tdsl.get_problem(EX6_SELF)
+    a, dot = prob.size_a, prob.symbols.index("dot")
+    p1 = np.full(a, EX6_SELF_EPS / (a - 1))
+    p1[dot] = 1.0 - EX6_SELF_EPS
+    p0 = iid_spd(p1, 3)
+    t0 = time.perf_counter()
+    prog = tdense.compile_dense(EX6_SELF, 3, p_ref=p0,
+                                prune_threshold=EX6_SELF_THR,
+                                max_worlds=20_000_000)
+    fn = tdense.make_dense_dy_dt(prog, with_mass=True, device=dev)
+    build_s = time.perf_counter() - t0
+    dp = fn.device_program
+    worlds = (prog.num_worlds, len(prog.m_const))
+    if worlds != EX6_SELF_WORLDS:
+        raise AssertionError(f"ex6-self: {worlds} worlds, "
+                             f"{EX6_SELF_WORLDS} wanted")
+    art = np.load(EXAMPLES / "ex6_bff_self_spd.npz")
+    if int(art["n_worlds"]) != prog.num_worlds:
+        raise AssertionError("ex6-self: the artifact's n_worlds")
+    say(f"ex6-self pruned at {EX6_SELF_THR:g}: {worlds[0]} live worlds of "
+        f"{worlds[1]} enumerated, {prog.num_signatures} signatures, "
+        f"{dp.plan.num_groups} groups, K5 in {dp.plan.num_phases} phases "
+        f"(work {dp.plan.work_size} doubles, items "
+        f"{dp.plan.items.shape[0]}, table {dp.plan.table.size}); compiled "
+        f"and on the card in {build_s:.2f} s")
+    p0_dev = torch.as_tensor(p0, device=dev)
+    for q in (p0_dev, device_spd(gen, prog.state_size, dev, True)):
+        dy, _ = fn(q)
+        held_to_plain(dy, tdense.dy_dt_dense(dp, q), "ex6-self dp/dt")
+    k9_self = world_mass_checks(dev, gen, dp, p0_dev, "ex6-self")
+    rhs_ms = cuda_ms(lambda: fn(p0_dev), 60, warmup=1)
+    masks = mutant_class_masks(a, dot, 3)
+    ts = art["ts"]
+
+    def rk4():
+        """examples/ex6_bff_self_spd.py:126-141 on the card."""
+        y = p0_dev.clone()
+        ys, mass = [y.clone()], [fn(y)[1]]
+        for i in range(len(ts) - 1):
+            h = (ts[i + 1] - ts[i]) / 8
+            for _ in range(8):
+                k1 = fn(y)[0]
+                k2 = fn(y + 0.5 * h * k1)[0]
+                k3 = fn(y + 0.5 * h * k2)[0]
+                k4 = fn(y + h * k3)[0]
+                y = y + (h / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+            ys.append(y.clone())
+            mass.append(fn(y)[1])
+        return (torch.stack(ys).cpu().numpy(),
+                torch.stack(mass).cpu().numpy())
+
+    (ys, mass), seconds, launches, _, _ = counted_path(
+        "c", rk4, ("K3", "K5", "K9"))
+    cls_spd = ys @ masks.T
+    err_mass = float(np.abs(mass - art["mass"]).max())
+    err_cls = float(np.abs(cls_spd - art["cls_spd"]).max())
+    if max(err_mass, err_cls) > EX6_SELF_ABS:
+        raise AssertionError(f"path c: mass {err_mass}, cls_spd {err_cls} "
+                             f"from examples/ex6_bff_self_spd.npz")
+    record("c", launches, seconds=seconds, mass_err=err_mass,
+           cls_spd_err=err_cls, rhs_ms=rhs_ms)
+    say(f"path c: ex6-self RK4, {8 * (len(ts) - 1)} substeps, "
+        f"{launches['K9']} RHS with mass: {seconds:.2f} s, launches "
+        f"{launches} (3 an RHS: K3, K5, K9); mass {mass[0]:.10f} -> "
+        f"{mass[-1]:.10f}; max |diff| from the artifact: mass "
+        f"{err_mass:.3e}, cls_spd {err_cls:.3e} (within {EX6_SELF_ABS:g}); "
+        f"an RHS with mass {rhs_ms * 1e3:.1f} us on the card")
+    ex5 = tdense.compile_dense("ex5-msrtf-machine", 3, prune_threshold=1e-30)
+    dp5 = tdense.device_program(ex5, dev)
+    world_mass_checks(dev, gen, dp5, device_spd(gen, ex5.state_size, dev),
+                      "ex5 at threshold 1e-30", mass_one=True)
+    say("K9 == plain, bit for bit, twice: ex6-self on p0 and a random SPD, "
+        "ex5 at threshold 1e-30 (mass 1 within 1e-12)")
+
+    # d: examples/ex6_mini_bff.py's re-pruned loop at its defaults.
+    psym = np.full(12, 0.1 / 11)
+    psym[0] = 0.9
+    ts = np.linspace(0.0, 50.0, 201)
+    seg = (len(ts) - 1) // 10
+
+    def mini_loop():
+        y, counts, masses, infos = iid_spd(psym, 3), [], [], []
+        for s in range(10):
+            prog = tdense.compile_dense(EX6_MINI, 3, p_ref=y,
+                                        prune_threshold=1e-4,
+                                        max_worlds=1_000_000)
+            fn = tdense.make_dense_dy_dt(prog, with_mass=True, device=dev)
+            ys, info = solve(lambda y_, t: fn(y_)[0], y,
+                             ts[s * seg:(s + 1) * seg + 1], rtol=LOOSE_TOL,
+                             atol=LOOSE_TOL, return_info=True, device=dev)
+            masses.extend(float(fn(yy)[1]) for yy in ys[1:])
+            y = ys[-1]
+            counts.append(prog.num_worlds)
+            infos.append(info)
+        return counts, masses, infos
+
+    (counts, masses, infos), seconds, launches, k6, _ = counted_path(
+        "d", mini_loop, ("K3", "K5", "K6", "K9"))
+    err = abs(masses[-1] - EX6_MINI_FINAL_MASS)
+    if counts != EX6_MINI_COUNTS or err > EX6_MINI_ABS:
+        raise AssertionError(f"path d: kept worlds {counts}, final mass "
+                             f"{masses[-1]!r}; the JAX package's "
+                             f"{EX6_MINI_COUNTS}, {EX6_MINI_FINAL_MASS!r}")
+    steps = [i["num_accepted"] + i["num_rejected"] for i in infos]
+    record("d", launches, seconds=seconds, counts=counts,
+           final_mass=masses[-1], steps=steps)
+    say(f"path d: ex6_mini_bff's 10 segments in {seconds:.2f} s: kept "
+        f"worlds {counts} (the JAX package's), steps {steps}, final mass "
+        f"{masses[-1]!r} ({err:.3e} from the JAX package's, within "
+        f"{EX6_MINI_ABS:g}), min {min(masses):.6f}; launches {launches}")
+
+    # e: ex4 a at cl_k 5 by the step-clamped DOP853.
+    proj = seq_prob_projector(list(SEQS.values()), 9, STEP_CL_K)
+    p0 = chemical_turing_p0(STEP_CL_K, powered_fraction=0.04).ravel()
+
+    def step_solve():
+        return markov_tapes.ode_integrate_ivp(
+            tag=EX4, size_a=9, cl_k=STEP_CL_K, p0=p0,
+            ts=np.linspace(0.0, T_END, N_SAMPLES), backend="torch",
+            device=dev, ivp_kwargs=dict(rtol=SOLVE_TOL, atol=SOLVE_TOL,
+                                        method="dop853-step", project=proj,
+                                        return_info=True))
+
+    (obs, info), seconds, launches, k6, host_us = counted_path(
+        "e", step_solve, ("K3", "K5", "K6"))
+    k6_steps_say("e", info, k6, 12)
+    final = dict(zip(SEQS, obs[-1].tolist()))
+    rel = max(abs(final[m] / ORACLE_A[m] - 1) for m in ORACLE_A)
+    if not rel <= ORACLE_REL:
+        raise AssertionError(f"path e: {final}, rel {rel} from the oracle")
+    record("e", launches, seconds=seconds, accepted=info["num_accepted"],
+           rejected=info["num_rejected"], rhs=info["num_rhs"], oracle_rel=rel,
+           k6_launches=k6, k6_host_us_per_launch=host_us)
+    say(f"path e: ex4 a cl_k {STEP_CL_K} by dop853-step at {SOLVE_TOL:g}: {seconds:.2f} "
+        f"s, {info['num_accepted']} accepted, {info['num_rejected']} "
+        f"rejected (the dense stepper: {DENSE_STEPS_A}), {info['num_rhs']} "
+        f"RHS; launches {launches}, K6 {k6}; host us a K6 launch "
+        f"{({k: round(v, 2) for k, v in host_us.items()})}; observables "
+        f"{rel:.3e} rel from the oracle (within {ORACLE_REL:g})")
+
+    dp5_launches = sum(paths[x]["launches"]["K6"] for x in ("a", "b", "d",
+                                                            "e"))
+    for name, t in k6_dp5.items():
+        say(f"K6 dopri5 {name} at {4**LOOSE_RUNS[0][2]} states: "
+            f"{t['ms'] * 1e3:.2f} us against a bound of "
+            f"{t['bound_ms'] * 1e3:.2f} us; plain {t['plain_ms'] * 1e3:.1f} "
+            f"us; library " + (f"{t['library_ms'] * 1e3:.2f} us "
+                               "(torch.addmv)" if t["library_ms"] is not None else "none")
+            + f"; host {t['host_us_per_launch']:.2f} us a launch")
+    say(f"K9 at ex6-self ({k9_self['worlds']} worlds, chains of "
+        f"{k9_self['chain']}): {k9_self['ms'] * 1e3:.2f} us against a bound "
+        f"of {k9_self['bound_ms'] * 1e3:.3f} us; plain "
+        f"{k9_self['plain_ms'] * 1e3:.1f} us; host "
+        f"{k9_self['host_us_per_launch']:.2f} us a launch")
+    stage = k6_dp5["stage (B5)"]
+    kernels["K6 dopri5"] = {
+        "name": K6_DP5[0], "route": "cuda", "source": K6_DP5[1],
+        "replaces": K6_DP5[2], "launches": dp5_launches, "max_abs_err": 0.0,
+        "ms": stage["ms"], "plain_ms": stage["plain_ms"],
+        "bound_ms": stage["bound_ms"], "bound_by": "bytes",
+        "library_ms": stage["library_ms"],
+        "shape": f"ex3var2 cl_k 8 ({4**8} states), the B5 stage",
+        "functions": k6_dp5, "paths": paths}
+    kernels["K9"] = {
+        "name": K9[0], "route": "cuda", "source": K9[1], "replaces": K9[2],
+        "launches": totals["K9"], "max_abs_err": 0.0, "ms": k9_self["ms"],
+        "plain_ms": k9_self["plain_ms"], "bound_ms": k9_self["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "rule": SRC + "mass_rule.cuh",
+        "shape": f"ex6-mini-bff-self cl_k 3 ({k9_self['worlds']} worlds, "
+                 f"chains of {k9_self['chain']})",
+        "host_us_per_launch": k9_self["host_us_per_launch"]}
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -1801,6 +2297,10 @@ def main(dev=None):
 
     with Phase("7 the gather engine (K7, K8), dual SPDs, chunked solves"):
         gather_phase(dev, kernels, dense_finals)
+
+    with Phase("8 loose-tolerance solves (K6's dopri5 rows), pruned exact "
+               "mode (K9)"):
+        loose_phase(dev, kernels)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

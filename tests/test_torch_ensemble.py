@@ -724,8 +724,10 @@ def test_ring_bridge_sampling_has_no_seam_artifact():
 
 
 def test_port_imports_no_jax():
-    """The port (every module of it, the exact closure's solve driven
-    once) imports neither jax nor the JAX package."""
+    """The port (every module of it, the exact closure's solves by DOP853
+    and dopri5 driven once, a pruned ex6 program through the C++
+    enumerator with its mass) imports neither jax nor the JAX
+    package."""
     code = (
         "import sys\n"
         "import chemical_kinetics_and_program_execution_torch as p\n"
@@ -740,13 +742,18 @@ def test_port_imports_no_jax():
         "from chemical_kinetics_and_program_execution_torch.models import "
         "initial_states\n"
         "from chemical_kinetics_and_program_execution_torch.ode import "
-        "dop853, integrate\n"
+        "dop853, dopri5, integrate\n"
         "from chemical_kinetics_and_program_execution_torch.ops import "
         "observables\n"
         "markov_tapes._run_validation(device='cpu')\n"
         "markov_tapes.ode_integrate_ivp(tag='ex1-radioactive-decay', "
         "size_a=2, cl_k=3, p0=[1/8] * 8, ts=[0, 1], backend='torch', "
         "device='cpu', ivp_kwargs=dict(rtol=1e-10, atol=1e-10))\n"
+        "markov_tapes.ode_integrate(tag='ex1-radioactive-decay', size_a=2, "
+        "cl_k=3, p0=[1/8] * 8, ts=[0, 1], backend='torch', device='cpu')\n"
+        "prog = dense.compile_dense('ex6-mini-bff', 2, prune_threshold=1e-3)\n"
+        "dense.make_dense_dy_dt(prog, with_mass=True, device='cpu')([1/144] "
+        "* 144)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'chemical_kinetics_and_program_execution_tpu'))]\n"
         "assert not bad, bad\n"

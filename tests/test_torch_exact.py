@@ -441,7 +441,8 @@ def test_dense_eval_fractions_equal_the_hosts():
 
 @pytest.mark.parametrize("n", [1, 255, 257, 256 * 1024 + 3, 9**6])
 def test_norm_sum_order_follows_the_kernel(n):
-    """`norms_plain` sums in K6's `norms` order (`_norm_order_sum`): equal
+    """`norms_plain` sums in K6's `norms` order (`cuda.block_order_sum`,
+    which K9's plain version takes too): equal
     bit for bit to the kernel's loops read literally, element by element
     in Python floats: block b's thread t from 0 over b*256 + t + q*stride,
     each block's shared-memory tree, the last block's thread t over
@@ -474,7 +475,7 @@ def test_norm_sum_order_follows_the_kernel(n):
         for b in range(t, blocks, 256):
             acc = acc + partial[b]
         sums.append(acc)
-    assert float(t_dop._norm_order_sum(torch.as_tensor(v))) == tree(sums)
+    assert float(cuda.block_order_sum(torch.as_tensor(v))) == tree(sums)
 
 
 def test_tableau_equals_the_stage_terms():
@@ -482,10 +483,11 @@ def test_tableau_equals_the_stage_terms():
     row, the terms the solver built for each launch before the table:
     `_terms` of the initial step, A's rows 1-11, B, the extra rows and
     E5/E3 over the stage rows in use, in both states of the first-same-
-    as-last swap (`tableau_terms`)."""
+    as-last swap (`tableau_terms`); dopri5's rows 18-25 follow them
+    (`tests/test_torch_solvers.py`)."""
     count, rows, coefs = t_dop.tableau_arrays()
     assert count.dtype == np.int32 and coefs.dtype == np.float64
-    assert rows.shape == coefs.shape == (18, 16)
+    assert rows.shape == coefs.shape == (len(t_dop.TABLEAU), 16) == (26, 16)
     for which, terms in enumerate(t_dop.TABLEAU):
         k = count[which]
         assert list(zip(rows[which, :k].tolist(),
@@ -614,22 +616,35 @@ def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
 
 
 def test_unported_exact_paths_raise(monkeypatch):
-    """Pruned programs, ``with_mass``, the unported steppers and the
-    debug dump raise; the gather engines and chunked or checkpointed
-    solves, ported since, do not (`tests/test_torch_gather.py`). The
-    dump raises only where the reference would dump (`IS_DEBUG`); without
-    the flag ``debug=True`` gives the JAX package's dp/dt."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tdense.compile_dense("ex4-chemical-turing", 3, prune_threshold=1e-3)
+    """The stiff stepper kvaerno3 and the scipy names that map onto it,
+    and the debug dump, raise NotImplementedError naming ROADMAP Queue 1
+    item 4; pruned programs, ``with_mass``, dopri5 (default routing at
+    loose tolerances) and dop853-step, ported since, do not
+    (`tests/test_torch_pruned.py`, `tests/test_torch_solvers.py`), nor
+    do the gather engines and chunked or checkpointed solves
+    (`tests/test_torch_gather.py`). ``with_mass`` on a program with no
+    mass tables raises the JAX package's ValueError. The dump raises
+    only where the reference would dump (`IS_DEBUG`); without the flag
+    ``debug=True`` gives the JAX package's dp/dt."""
+    pruned = tdense.compile_dense("ex4-chemical-turing", 3,
+                                  prune_threshold=1e-3)
+    assert pruned.pruned and pruned.m_num is not None
     prog = tdense.compile_dense("ex4-chemical-turing", 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(ValueError, match="no mass tables"):
         tdense.make_dense_dy_dt(prog, with_mass=True, device="cpu")
+    with pytest.raises(ValueError, match="no mass tables"):
+        jdense.make_dense_dy_dt(jdense.compile_dense("ex4-chemical-turing",
+                                                     3), with_mass=True)
     fn = tdense.make_dense_dy_dt(prog, device="cpu")
     y0 = _ex4_p0(3, 0.04)
-    for kw in (dict(method="dopri5"), dict(method="kvaerno3"),
-               dict(method="dop853-step"), dict(rtol=1e-6, atol=1e-6)):
-        with pytest.raises(NotImplementedError, match="Queue 1 items 3"):
-            t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], **kw, device="cpu")
+    for method in ("kvaerno3", "lsoda", "LSODA", "radau", "bdf"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+            t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], method=method,
+                    device="cpu")
+    for kw in (dict(method="dopri5"), dict(method="dop853-step"),
+               dict(rtol=1e-6, atol=1e-6)):
+        ys = t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], **kw, device="cpu")
+        assert ys.shape == (2, 9**3) and np.isfinite(ys).all()
     kw = dict(tag="ex4-chemical-turing", size_a=9, cl_k=3, debug=True)
     monkeypatch.setattr(j_markov_tapes, "IS_DEBUG", False)
     monkeypatch.setattr(t_markov_tapes, "IS_DEBUG", False)

@@ -24,10 +24,12 @@ from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as tens,
 )
+from chemical_kinetics_and_program_execution_torch.engine import dsl as tdsl
 from chemical_kinetics_and_program_execution_torch.models.initial_states import (  # noqa: E501
     chemical_turing_p0,
+    copolymerization_p0,
 )
-from chemical_kinetics_and_program_execution_torch.ode import dop853
+from chemical_kinetics_and_program_execution_torch.ode import dop853, dopri5
 from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
 
 pytestmark = pytest.mark.gpu
@@ -532,6 +534,124 @@ def test_norms_on_two_streams_at_once(cuda):
     torch.cuda.synchronize(cuda)
     for q in range(2):
         assert all(torch.equal(g, want[q]) for g in got[q])
+
+
+@pytest.mark.parametrize("n", [9**5, 4**8], ids=["k5", "ex3var2-k8"])
+def test_dopri5_rows_match_plain(cuda, n):
+    """K6's second table on the card: `stage` at the Euler row and at each
+    dopri5 row (A's rows 1-6, B5, B5 - B4), in both states of the swap of
+    stages 0 and 6, and `norms` in dopri5's mode (`_ERR_H`), each the
+    plain version's bits and the same bits twice."""
+    gen = torch.Generator(device=cuda).manual_seed(n % 1009)
+    ks = dop853.rows_tensor(7, n, cuda)
+    ks.copy_(torch.rand((7, n), generator=gen, dtype=torch.float64,
+                        device=cuda) - 0.5)
+    y = torch.rand(n, generator=gen, dtype=torch.float64, device=cuda)
+    y_new = y + 1e-3 * ks[3]
+    fsal = dopri5.FSAL
+    out, want = torch.empty_like(y), torch.empty_like(y)
+    rows = [dop853._EULER, *dop853.DP5_ROWS[1:], dop853.DP5_B5_ROW,
+            dop853.DP5_ERR_ROW]
+    before = (dop853.stage.launches, dop853.norms.launches)
+    for swap in (0, 1):
+        for which in rows:
+            got = dop853.stage(y, ks, 0.37, which, out, swap, fsal).clone()
+            assert torch.equal(got, dop853.stage(y, ks, 0.37, which, out,
+                                                 swap, fsal))
+            assert torch.equal(got, dop853.stage_plain(
+                y, ks, 0.37, dop853.tableau_terms(which, swap, fsal),
+                want)), (which, swap)
+        args = dict(y_new=y_new, ks=ks, swap=swap, h=0.37, fsal=fsal,
+                    rows=(dop853.DP5_ERR_ROW,))
+        got = dop853.norms(dop853._ERR_H, y, 1e-9, 1e-9, **args).clone()
+        assert torch.equal(got, dop853.norms(dop853._ERR_H, y, 1e-9, 1e-9,
+                                             **args))
+        assert torch.equal(got, dop853.norms_plain(
+            dop853._ERR_H, y, 1e-9, 1e-9, y_new=y_new, ks=ks, h=0.37,
+            terms5=dop853.tableau_terms(dop853.DP5_ERR_ROW, swap, fsal)))
+        assert got[1].item() == 0.0
+    assert (dop853.stage.launches - before[0],
+            dop853.norms.launches - before[1]) == (2 * 2 * len(rows), 4)
+
+
+def _pruned(tag, cl_k, thr, p_ref):
+    return tdense.compile_dense(tag, cl_k, p_ref=p_ref, prune_threshold=thr,
+                                max_worlds=20_000_000)
+
+
+def _dot_heavy_p0(tag, cl_k, eps):
+    prob = tdsl.get_problem(tag)
+    psym = np.full(prob.size_a, eps / (prob.size_a - 1))
+    psym[prob.symbols.index("dot")] = 1.0 - eps
+    out = np.array([1.0])
+    for _ in range(cl_k):
+        out = np.kron(out, psym)
+    return out
+
+
+@pytest.mark.parametrize("case", ["ex6-self", "ex5-tiny"])
+def test_world_mass_kernel_matches_plain(cuda, case):
+    """K9 against its plain version on the same pyramid, bit for bit, the
+    same bits twice, one launch a call: ex6-mini-bff-self at
+    `examples/ex6_bff_self_spd.py`'s settings (9,912 worlds) and ex5 at
+    a tiny threshold (every world kept: mass 1 within 1e-12); through
+    ``make_dense_dy_dt(with_mass=True)``, three launches (K3, K5, K9),
+    the mass K9's bits and dp/dt the kernels' without mass."""
+    if case == "ex6-self":
+        p_ref = _dot_heavy_p0("ex6-mini-bff-self", 3, 0.02)
+        prog = _pruned("ex6-mini-bff-self", 3, 1e-7, p_ref)
+        assert (prog.num_worlds, len(prog.m_const)) == (4517, 9912)
+    else:
+        prog = _pruned("ex5-msrtf-machine", 3, 1e-30, None)
+        p_ref = np.full(prog.state_size, 1.0 / prog.state_size)
+    dp = tdense.device_program(prog, cuda)
+    a, k = prog.size_a, prog.cl_k
+    rng = np.random.RandomState(31)
+    for p in (p_ref, _spd(rng, prog.state_size, concentrated=True)):
+        p = torch.as_tensor(p, device=cuda)
+        low = tdense.pyramid_plain(p, a, k)
+        before = tdense.world_mass.launches
+        got = tdense.world_mass(dp, p, low)
+        again = tdense.world_mass(dp, p, low, tdense.mass_scratch(cuda))
+        assert tdense.world_mass.launches == before + 2
+        want = tdense.world_mass_plain(dp, p, low)
+        assert got.shape == () and torch.equal(got, want)
+        assert torch.equal(got, again)
+        if case == "ex5-tiny":
+            assert abs(got.item() - 1.0) < 1e-12
+    fn = tdense.make_dense_dy_dt(prog, with_mass=True, device=cuda)
+    counts = (tdense.pyramid.launches, tdense.sweep.launches,
+              tdense.world_mass.launches)
+    dy, mass = fn(p)
+    assert (tdense.pyramid.launches - counts[0], tdense.sweep.launches
+            - counts[1], tdense.world_mass.launches - counts[2]) == (1, 1, 1)
+    assert torch.equal(mass, tdense.world_mass_plain(
+        dp, p, tdense.pyramid_plain(p, a, k)))
+    assert torch.equal(dy, tdense.make_dense_dy_dt(prog, device=cuda)(p))
+
+
+@pytest.mark.parametrize("method", ["dopri5", "dop853-step"])
+def test_loose_solve_on_card_matches_cpu(cuda, method):
+    """ex3var2 at cl_k 4 on `examples/ex3_copolymerization.py`'s grid
+    (1,001 samples to t = 200, rtol = atol = 1e-9): the solve through K3,
+    K5 and K6 walks the CPU's plain solve's steps; no plain version runs
+    on the card."""
+    y0 = copolymerization_p0(4).ravel()
+    ts = np.linspace(0.0, 200.0, 1001)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        dy_dt = markov_tapes.get_dy_dt(tag="ex3var2-copolymerization",
+                                       size_a=4, cl_k=4, device=dev)
+        plain = [f.calls for f in dop853.PLAIN]
+        out.append(solve(markov_tapes._device_rhs(dy_dt), y0, ts, rtol=1e-9,
+                         atol=1e-9, method=method, return_info=True,
+                         device=dev))
+        if dev.type == "cuda":
+            assert [f.calls for f in dop853.PLAIN] == plain
+    (got, info), (want, want_info) = out
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    assert info["num_accepted"] == want_info["num_accepted"]
+    assert info["num_rejected"] == want_info["num_rejected"]
 
 
 def test_exact_canary_on_card(cuda):
