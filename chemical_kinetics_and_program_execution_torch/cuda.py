@@ -5,11 +5,12 @@ so a build takes seconds) and both landing in `_build/` beside this file:
 
 - `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
   `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`; K7 and K8
-  `gather_rhs.cu`; K9 `world_mass.cu`), which may include headers from
-  `csrc/`, into one shared library;
+  `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
+  `pattern_scan.cu`; K13 `weighted_counts.cu`), which may include
+  headers from `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
-  which includes headers from `csrc/` (K1, one library per decision
-  machine, from `engine/k1_source.py`).
+  which includes headers from `csrc/` (K1 and K11, one library per
+  decision machine, from `engine/k1_source.py`).
 
 Each library is named by a hash of what goes into it (sources, included
 templates, flags): a changed source builds anew, an unchanged one loads
@@ -187,7 +188,22 @@ def load() -> ctypes.CDLL:
     #                 n_worlds, scratch, out, stream)
     lib.ckpe_world_mass.argtypes = [_P, _P, _L, _L, _P, _P, _P, _I, _I, _P,
                                     _P, _P]
-    for name in ("ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
+    # ckpe_table_rounds(p, d, u, u_f64, shifts, per_member, k0, n, B, L,
+    #                   E, p_lo, n_p, d_lo, n_d, pv, out_cum, out_world,
+    #                   rows, M, wr_mask, wr_val, stream)
+    lib.ckpe_table_rounds.argtypes = [_P, _P, _P, _I, _P] + [_I] * 10 + [
+        _P, _P, _P, _I, _I, _P, _P, _P]
+    # ckpe_pattern_scan(tape, elem, B, L, pattern, P, mode, out, t_hit,
+    #                   t_now, stream)
+    lib.ckpe_pattern_scan.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P, _P,
+                                      _P, _P]
+    # ckpe_weighted_counts(tape, w, B, L, size_a, cl_k, per, partial, hist,
+    #                      ticket, out, stream)
+    lib.ckpe_weighted_counts.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P,
+                                         _P, _P, _P]
+    for name in ("ckpe_table_rounds", "ckpe_pattern_scan",
+                 "ckpe_weighted_counts",
+                 "ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
                  "ckpe_world_mass",
                  "ckpe_tree_rhs", "ckpe_chain_rhs", "ckpe_gather_scatter",
                  "ckpe_k6_tableau", "ckpe_k6_stage", "ckpe_k6_norms",

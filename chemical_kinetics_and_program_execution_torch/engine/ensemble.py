@@ -1,12 +1,13 @@
 """Ensemble mode: step a batch of concrete tapes in lockstep.
 
-Counterpart of the JAX package's `engine/ensemble.py`,
-first slice: the decision-machine compiler, the stacked-plane FSM round
-behind `run_ensemble`, and the observables `window_counts` and
-`sample_tapes_from_spd`.
+Counterpart of the JAX package's `engine/ensemble.py`: the transition
+table and the decision-machine compilers, `run_ensemble` on the
+stacked-plane FSM round and on the rolled lattice rounds (transition
+tables, per-member sites, strides above 64), first passage, and the
+observables `window_counts`, `weighted_window_counts`,
+`contains_pattern`, `pattern_progress` and `sample_tapes_from_spd`.
 
-Two kernels carry the device work (sources in `csrc/`, built by
-`cuda.py`):
+Kernels carry the device work (sources in `csrc/`, built by `cuda.py`):
 
 - **K1** `plane_round` — one stratified round on the stacked int8 planes,
   in place, compiled for each decision machine (`k1_source.py` writes
@@ -17,6 +18,17 @@ Two kernels carry the device work (sources in `csrc/`, built by
   `probes/pallas_packed32.py:fsm_kernel_packed`, which compute the same
   round).
 - **K2** `window_counts` — the circular window histogram.
+- **K10** `table_round` — the transition-table round on [B, L] int32
+  tapes at any shift (`csrc/table_round.cu`), the reference's
+  `_apply_lattice_round`.
+- **K11** `lattice_round` — the FSM round on [B, L] int8 tapes at a
+  shared or a per-member shift, in each machine's K1 unit
+  (`csrc/lattice_round.cuh`), the reference's `_apply_lattice_round_fsm`
+  with `_roll_cols` and `_roll_rows`.
+- **K12** `pattern_scan` — `contains_pattern`, `pattern_progress` and
+  the first-passage update (`csrc/pattern_scan.cu`).
+- **K13** `weighted_window_counts` — K2's windows weighted by member,
+  summed in a fixed order (`csrc/weighted_counts.cu`).
 
 Each wrapper runs its plain PyTorch version (``*_plain``, beside it) for
 CPU tensors only; for a CUDA tensor it launches the kernel or raises.
@@ -29,8 +41,10 @@ advances time by ``-log1p(-E/L)``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -40,13 +54,8 @@ from ..utils import config
 from . import dsl, enumerate as enum_mod
 
 # Not ported yet; each raising path names the ROADMAP item that ports it.
-_TODO_TABLE = ("transition-table rounds (DeviceTable) are not ported yet: "
-               "ROADMAP.md Queue 1 item 'Ensemble, part 2' / Queue 2 item 8")
 _TODO_BITSLICE = ("the bit-sliced round is not ported yet: ROADMAP.md "
-                  "Queue 1 item 'Bit-sliced rounds' / Queue 2 items 10-11")
-_TODO_LATTICE = ("the rolled lattice round (independent_sites, or stride "
-                 "> 64) is not ported yet: ROADMAP.md Queue 1 item "
-                 "'Ensemble, part 2'")
+                  "Queue 1 item 'Bit-sliced rounds' / Queue 2 items 11-12")
 _TODO_TAU = ("tempered choose sampling (tau != 1) belongs to the weighted "
              "frontier, not ported yet: ROADMAP.md Queue 1 item "
              "'Weighted frontier'")
@@ -84,6 +93,176 @@ def _world_window_info(w, n_cells, n_p, p_lo, d_lo):
                 mask[cell] = True
                 val[cell] = adj_v
     return fixed_cells, fixed_vals, mask, val
+
+
+# --- Transition table: one outcome distribution per window content ------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TransitionTable:
+    """Dense per-window-content outcome table for one reaction rule
+    (host numpy, as the reference's)."""
+
+    tag: str
+    size_a: int
+    # Read-window offsets, inclusive: program cells site+p_lo..site+p_hi,
+    # data cells site+d_lo..site+d_hi.
+    p_lo: int
+    p_hi: int
+    d_lo: int
+    d_hi: int
+    out_cum: np.ndarray    # [rows, M] float64, cumulative outcome probs
+    out_world: np.ndarray  # [rows, M] int32, write spec of each slot
+    wr_mask: np.ndarray    # [W, n_cells] bool, does spec write this cell
+    wr_val: np.ndarray     # [W, n_cells] int32, written symbol
+
+    @property
+    def n_p(self) -> int:
+        return self.p_hi - self.p_lo + 1
+
+    @property
+    def n_d(self) -> int:
+        return self.d_hi - self.d_lo + 1
+
+    @property
+    def n_cells(self) -> int:
+        return self.n_p + self.n_d
+
+    @property
+    def num_rows(self) -> int:
+        return self.size_a**self.n_cells
+
+    @property
+    def span(self) -> int:
+        """Conservative conflict radius: events at site distance > span
+        touch disjoint cells on both tapes."""
+        return max(self.p_hi - self.p_lo, self.d_hi - self.d_lo) + 1
+
+    def summary(self) -> str:
+        return (
+            f"{self.tag}: window P[{self.p_lo}..{self.p_hi}] "
+            f"D[{self.d_lo}..{self.d_hi}] -> {self.num_rows} rows x "
+            f"{self.out_cum.shape[1]} outcomes, "
+            f"{len(self.wr_mask)} distinct writes"
+        )
+
+
+# The table's fields, as `transition_table_from_fields` takes them.
+_TABLE_FIELDS = ("tag", "size_a", "p_lo", "p_hi", "d_lo", "d_hi",
+                 "out_cum", "out_world", "wr_mask", "wr_val")
+
+
+def transition_table_from_fields(fields) -> TransitionTable:
+    """Builds a :class:`TransitionTable` from a mapping of its field
+    names to values, which is how a table compiled by the JAX package
+    crosses over (its ints and numpy arrays)."""
+    return TransitionTable(
+        tag=str(fields["tag"]),
+        **{k: int(fields[k]) for k in ("size_a", "p_lo", "p_hi", "d_lo",
+                                       "d_hi")},
+        out_cum=np.asarray(fields["out_cum"], np.float64),
+        out_world=np.asarray(fields["out_world"], np.int32),
+        wr_mask=np.asarray(fields["wr_mask"], bool),
+        wr_val=np.asarray(fields["wr_val"], np.int32))
+
+
+def compile_transition_table(tag: str, *, max_rows: int = 5_000_000,
+                             max_worlds: int | None = None
+                             ) -> TransitionTable:
+    """Builds the dense transition table for a registered problem: for
+    each content of the combined read window (one row, its radix rank),
+    the compatible execution paths' write specs in decision-tree order
+    with their cumulative probabilities."""
+    problem = dsl.get_problem(tag)
+    size_a = problem.size_a
+    # Branch structure is cl_k-independent; cl_k=2 keeps the reveal
+    # bookkeeping minimal.
+    worlds = [w for w in enum_mod.enumerate_worlds(
+        problem, 2, max_worlds=max_worlds) if w.const > 0.0]
+
+    p_lo, p_hi, d_lo, d_hi = _window_bounds(worlds)
+    n_p = p_hi - p_lo + 1
+    n_cells = n_p + (d_hi - d_lo + 1)
+    num_rows = size_a**n_cells
+    if num_rows > max_rows:
+        raise ValueError(
+            f"Problem {tag!r} reads a {n_cells}-cell window -> "
+            f"{num_rows} table rows > max_rows={max_rows}.")
+    pv = size_a ** np.arange(n_cells - 1, -1, -1)  # radix place values
+
+    wr_specs: dict[tuple, int] = {}
+    wr_mask_list: list[np.ndarray] = []
+    wr_val_list: list[np.ndarray] = []
+    row_chunks, spec_chunks, const_chunks, order_chunks = [], [], [], []
+    for n_world, w in enumerate(worlds):
+        fixed_cells, fixed_vals, mask, val = _world_window_info(
+            w, n_cells, n_p, p_lo, d_lo)
+        key = (tuple(np.flatnonzero(mask)), tuple(val[mask]))
+        if key not in wr_specs:
+            wr_specs[key] = len(wr_mask_list)
+            wr_mask_list.append(mask)
+            wr_val_list.append(val)
+        spec = wr_specs[key]
+
+        free = np.setdiff1d(np.arange(n_cells), np.asarray(fixed_cells))
+        base_rank = int(np.asarray(fixed_vals) @ pv[np.asarray(
+            fixed_cells, dtype=np.int64)]) if fixed_cells else 0
+        if free.size:
+            grids = np.meshgrid(*([np.arange(size_a)] * free.size),
+                                indexing="ij")
+            combos = np.stack([g.ravel() for g in grids], axis=1)
+            rows = base_rank + combos @ pv[free]
+        else:
+            rows = np.array([base_rank], dtype=np.int64)
+        row_chunks.append(rows)
+        spec_chunks.append(np.full(rows.shape, spec, np.int32))
+        const_chunks.append(np.full(rows.shape, w.const))
+        order_chunks.append(np.full(rows.shape, n_world, np.int64))
+
+    all_rows = np.concatenate(row_chunks)
+    all_specs = np.concatenate(spec_chunks)
+    all_consts = np.concatenate(const_chunks)
+    all_order = np.concatenate(order_chunks)
+
+    totals = np.zeros(num_rows)
+    np.add.at(totals, all_rows, all_consts)
+    if not np.allclose(totals, 1.0, atol=1e-9):
+        bad = int(np.argmax(np.abs(totals - 1.0)))
+        raise AssertionError(
+            f"Outcome probabilities for {tag!r} row {bad} sum to "
+            f"{totals[bad]}, not 1 — enumeration is inconsistent.")
+
+    # Group by row, in decision-tree order within a row.
+    perm = np.lexsort((all_order, all_rows))
+    all_rows, all_specs, all_consts = (
+        all_rows[perm], all_specs[perm], all_consts[perm])
+    counts = np.bincount(all_rows, minlength=num_rows)
+    m = int(counts.max())
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    slot = np.arange(len(all_rows)) - starts[all_rows]
+
+    out_world = np.zeros((num_rows, m), np.int32)
+    prob = np.zeros((num_rows, m), np.float64)
+    prob[all_rows, slot] = all_consts
+    out_world[all_rows, slot] = all_specs
+    cum = np.cumsum(prob, axis=1)
+    # Trailing slots repeat the last outcome with cum 1, so a uniform
+    # always lands on a valid slot; the last slot's cum is exactly 1.
+    filled = np.arange(m)[None, :] < counts[:, None]
+    out_cum = np.where(filled, cum, 1.0)
+    last = np.maximum(counts - 1, 0)
+    out_world = np.where(
+        filled, out_world, out_world[np.arange(num_rows), last][:, None])
+    out_cum[np.arange(num_rows), last] = 1.0
+
+    if config.IS_DEBUG:
+        print(f"[ckpe] transition table {tag}: rows={num_rows} m={m} "
+              f"writes={len(wr_mask_list)}")
+
+    return TransitionTable(
+        tag=tag, size_a=size_a, p_lo=p_lo, p_hi=p_hi, d_lo=d_lo, d_hi=d_hi,
+        out_cum=out_cum, out_world=out_world,
+        wr_mask=np.stack(wr_mask_list), wr_val=np.stack(wr_val_list))
 
 
 # --- Decision machine: the rule's decision DAG as packed int32 words ----------
@@ -755,8 +934,488 @@ def run_rounds(dm: DeviceMachine, p_st, d_st, shifts, uniforms=None):
     return p_st, d_st
 
 
+# --- Device tables and the rolled lattice rounds (K10, K11) -------------------
+#
+# The rolled rounds fire E sites a member at columns
+# (shift + e*stride) mod L, e in [0, E), at any shift in [0, L): one
+# shift shared by the batch, or one a member (independent sites). Site
+# e's window cell j on a tape with read offset lo sits at column
+# (shift + lo + e*stride + j) mod L. The reference rolls each tape so
+# that these cells land at fixed columns (`_roll_cols`, `_roll_rows`);
+# K10 and K11 index them in place instead.
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceTable:
+    """A :class:`TransitionTable` on a device (:func:`device_table`)."""
+
+    size_a: int
+    p_lo: int
+    d_lo: int
+    p_offs: torch.Tensor     # [n_p] int32 window offsets
+    d_offs: torch.Tensor     # [n_d]
+    pv: torch.Tensor         # [n_cells] int32 radix place values
+    out_cum: torch.Tensor    # [rows, M] float64 (or float32)
+    out_world: torch.Tensor  # [rows, M] int32
+    wr_mask: torch.Tensor    # [W, n_cells] bool
+    wr_val: torch.Tensor     # [W, n_cells] int32
+    span: int
+    # The weighted frontier's packed write decode (ROADMAP Queue 1 item
+    # 'Weighted frontier'): carried as the reference builds it, read by
+    # nothing here yet.
+    wr_words: torch.Tensor | None = None
+    n_wr_words: int = 0
+
+    @property
+    def n_p(self) -> int:
+        return self.p_offs.shape[0]
+
+    @property
+    def n_d(self) -> int:
+        return self.d_offs.shape[0]
+
+    @property
+    def n_cells(self) -> int:
+        return self.n_p + self.n_d
+
+    @property
+    def num_rows(self) -> int:
+        return self.out_cum.shape[0]
+
+
+def _float_dtype(dtype) -> torch.dtype:
+    """torch.float32 or torch.float64 from a torch, numpy or JAX float
+    type (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        found = dtype
+    else:
+        found = {np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}.get(np.dtype(dtype))
+    if found not in (torch.float32, torch.float64):
+        raise TypeError(f"table dtype must be float32 or float64, not "
+                        f"{dtype!r}")
+    return found
+
+
+def device_table(table: TransitionTable, dtype=None, *,
+                 device=None) -> DeviceTable:
+    """Moves a transition table to ``device`` (``cuda`` unless named).
+
+    ``dtype`` sets the precision of the cumulative probabilities, and so
+    of the uniforms a run draws for them: float64 by default, float32
+    when asked (outcome probabilities below ~1e-7 then lose resolution).
+    """
+    device = config.get_device(device)
+    n_cells = table.n_cells
+    pv = table.size_a ** np.arange(n_cells - 1, -1, -1)
+    # 5-bit (writes?<<4 | symbol) fields, 6 an int32 word, as the
+    # reference packs them; none past 8 words or 4-bit symbols.
+    wm = np.asarray(table.wr_mask)
+    wv = np.asarray(table.wr_val)
+    n_spec = wm.shape[0]
+    n_words = (n_spec + 5) // 6
+    wr_words = None
+    if n_words <= 8 and table.size_a <= 15:
+        packed = np.zeros((n_cells, n_words), np.int64)
+        for c in range(n_cells):
+            for s in range(n_spec):
+                field = (int(wm[s, c]) << 4) | (int(wv[s, c]) & 15)
+                packed[c, s // 6] |= field << (5 * (s % 6))
+        wr_words = torch.as_tensor(packed.astype(np.int32), device=device)
+    else:
+        n_words = 0
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+    return DeviceTable(
+        size_a=table.size_a, p_lo=table.p_lo, d_lo=table.d_lo,
+        p_offs=i32(np.arange(table.p_lo, table.p_hi + 1)),
+        d_offs=i32(np.arange(table.d_lo, table.d_hi + 1)),
+        pv=i32(pv),
+        out_cum=torch.as_tensor(np.asarray(table.out_cum), device=device,
+                                dtype=(torch.float64 if dtype is None
+                                       else _float_dtype(dtype))),
+        out_world=i32(table.out_world),
+        wr_mask=torch.as_tensor(np.asarray(table.wr_mask, bool),
+                                device=device),
+        wr_val=i32(table.wr_val),
+        span=table.span, wr_words=wr_words, n_wr_words=n_words)
+
+
+def _site_cols(L: int, E: int, lo: int, n: int, shift):
+    """Columns (shift + lo + e*stride + j) mod L, int64 [S, E, n], of
+    window cells j of sites e at each of the S shifts (S = 1 for a shared
+    shift, B for one a member)."""
+    dev = shift.device
+    base = (shift.to(torch.int64)[:, None] + lo
+            + torch.arange(E, device=dev) * (L // E))
+    return torch.remainder(base[..., None] + torch.arange(n, device=dev), L)
+
+
+def _gather_cells(tape, cols):
+    """tape[b, cols[b or 0, e, j]] as [B, E, n]."""
+    B = tape.shape[0]
+    cols = cols.expand(B, -1, -1)
+    return tape.gather(1, cols.reshape(B, -1)).reshape(cols.shape)
+
+
+def _scatter_cells(tape, cols, vals):
+    """tape[b, cols[b or 0, e, j]] = vals[b, e, j], in place."""
+    B = tape.shape[0]
+    tape.scatter_(1, cols.expand(B, -1, -1).reshape(B, -1),
+                  vals.reshape(B, -1).to(tape.dtype))
+
+
+def _shift_tensor(shift, device):
+    """A shared shift (int) or per-member shifts as a 1-D tensor."""
+    return torch.as_tensor(shift, device=device).reshape(-1)
+
+
+def table_rows(dt: DeviceTable, cells):
+    """Table row of each window (cells int32 [..., n_cells]) by the
+    reference's rule: the int32 radix sum sum_j cells[j] * pv[j], which
+    wraps, then the gather's index rule (a negative row plus the row
+    count, then clamped into [0, rows))."""
+    terms = (cells.to(torch.int64) * dt.pv.to(torch.int64)) & 0xFFFFFFFF
+    rank = terms.sum(-1) & 0xFFFFFFFF
+    rank = torch.where(rank >= 2**31, rank - 2**32, rank)
+    n = dt.num_rows
+    return torch.where(rank < 0, rank + n, rank).clamp(0, n - 1)
+
+
+def _table_specs(dt: DeviceTable, cells, uniforms):
+    """The write spec of each window: the slot count k = #(u > cum[row])
+    capped at M - 1, and out_world[row, k]."""
+    rows = table_rows(dt, cells)
+    cum = dt.out_cum[rows]
+    k = (uniforms[..., None] > cum).sum(-1).clamp(max=cum.shape[-1] - 1)
+    return dt.out_world[rows, k].to(torch.int64)
+
+
+def table_round_plain(dt: DeviceTable, ptape, dtape, shift, uniforms):
+    """K10's plain version: one transition-table round on int32 [B, L]
+    tapes at ``shift`` (an int, or a [1] or [B] tensor), in place;
+    ``uniforms`` [B, E] of the table's dtype."""
+    table_round_plain.calls += 1
+    B, L = ptape.shape
+    E = uniforms.shape[1]
+    shift = _shift_tensor(shift, ptape.device)
+    cp = _site_cols(L, E, dt.p_lo, dt.n_p, shift)
+    cd = _site_cols(L, E, dt.d_lo, dt.n_d, shift)
+    cells = torch.cat([_gather_cells(ptape, cp), _gather_cells(dtape, cd)],
+                      dim=-1)
+    spec = _table_specs(dt, cells, uniforms)
+    new = torch.where(dt.wr_mask[spec], dt.wr_val[spec], cells)
+    _scatter_cells(ptape, cp, new[..., :dt.n_p])
+    _scatter_cells(dtape, cd, new[..., dt.n_p:])
+
+
+table_round_plain.calls = 0
+
+
+def _apply_events_plain(dt: DeviceTable, ptape, dtape, sites, uniforms):
+    """The reference's scatter formulation of a round on ONE replica
+    ([L] tapes, [E] sites and uniforms): events whose windows could
+    overlap an earlier event's are dropped. Returns the new tapes and
+    the number of events applied. For tests: the cross-check of the
+    lattice round."""
+    n = ptape.shape[0]
+    p_idx = torch.remainder(sites[:, None].to(torch.int64)
+                            + dt.p_offs.to(torch.int64), n)
+    d_idx = torch.remainder(sites[:, None].to(torch.int64)
+                            + dt.d_offs.to(torch.int64), n)
+    cells_p, cells_d = ptape[p_idx], dtape[d_idx]
+    cells = torch.cat([cells_p, cells_d], dim=1)
+    spec = _table_specs(dt, cells, uniforms)
+    mask, vals = dt.wr_mask[spec], dt.wr_val[spec]
+    d = (sites[:, None] - sites[None, :]).abs()
+    d = torch.minimum(d, n - d)
+    apply = ~torch.tril(d <= 2 * dt.span, diagonal=-1).any(dim=1)
+    n_p = dt.n_p
+    delta_p = torch.where(mask[:, :n_p] & apply[:, None],
+                          vals[:, :n_p] - cells_p, 0)
+    delta_d = torch.where(mask[:, n_p:] & apply[:, None],
+                          vals[:, n_p:] - cells_d, 0)
+    ptape = ptape.clone().index_put_((p_idx,), delta_p, accumulate=True)
+    dtape = dtape.clone().index_put_((d_idx,), delta_d, accumulate=True)
+    return ptape, dtape, int(apply.sum())
+
+
+def lattice_round_plain(dm: DeviceMachine, ptape, dtape, shift, events,
+                        uniforms=None):
+    """K11's plain version: one FSM round on int8 [B, L] tapes at
+    ``shift`` (an int, or a [1] or [B] tensor), ``events`` sites a
+    member, in place; ``uniforms`` [B, E] float32 (read only by machines
+    with choose nodes). The walk and writes are K1's plain ones."""
+    lattice_round_plain.calls += 1
+    B, L = ptape.shape
+    shift = _shift_tensor(shift, ptape.device)
+    cp = _site_cols(L, events, dm.p_lo, dm.n_p, shift)
+    cd = _site_cols(L, events, dm.d_lo, dm.n_d, shift)
+    cells = torch.cat([_gather_cells(ptape, cp), _gather_cells(dtape, cd)],
+                      dim=-1)
+    planes = [cells[..., c] for c in range(dm.n_cells)]
+    spec = _walk_plain(dm, planes, uniforms if dm.has_choose else None)
+    new = torch.stack(_writes_plain(dm, spec, planes), dim=-1)
+    _scatter_cells(ptape, cp, new[..., :dm.n_p])
+    _scatter_cells(dtape, cd, new[..., dm.n_p:])
+
+
+lattice_round_plain.calls = 0
+
+
+def _roll_cols_plain(x, shift: int):
+    """The reference's `_roll_cols`: out[:, i] = x[:, (i + shift) mod L]."""
+    return torch.roll(x, -(shift % x.shape[1]), dims=1)
+
+
+def _roll_rows_plain(tape, shifts):
+    """The reference's `_roll_rows`: out[b, i] = tape[b, (i + shifts[b])
+    mod L]."""
+    L = tape.shape[1]
+    idx = torch.remainder(torch.arange(L, device=tape.device)[None, :]
+                          + shifts.to(torch.int64)[:, None], L)
+    return tape.gather(1, idx)
+
+
+def rolled_round_plain(rule, ptape, dtape, shift: int, events,
+                       uniforms=None):
+    """The reference's rolled round as it is written
+    (`_apply_lattice_round` for a table, `_apply_lattice_round_fsm` for
+    a machine): roll each tape by shift + lo, reshape to [B, E, stride],
+    resolve the first cells of each block, write them, roll back.
+    Returns new tapes. For tests: the literal twin of K10's and K11's
+    plain versions."""
+    B, L = ptape.shape
+    stride = L // events
+    rp = _roll_cols_plain(ptape, shift + rule.p_lo).reshape(B, events, stride)
+    rd = _roll_cols_plain(dtape, shift + rule.d_lo).reshape(B, events, stride)
+    n_p, n_d = rule.n_p, rule.n_d
+    cells = torch.cat([rp[:, :, :n_p], rd[:, :, :n_d]], dim=-1)
+    if isinstance(rule, DeviceTable):
+        spec = _table_specs(rule, cells, uniforms)
+        new = torch.where(rule.wr_mask[spec], rule.wr_val[spec], cells)
+    else:
+        planes = [cells[..., c] for c in range(rule.n_cells)]
+        spec = _walk_plain(rule, planes,
+                           uniforms if rule.has_choose else None)
+        new = torch.stack(_writes_plain(rule, spec, planes), dim=-1)
+    rp = rp.clone()
+    rd = rd.clone()
+    rp[:, :, :n_p] = new[..., :n_p]
+    rd[:, :, :n_d] = new[..., n_p:]
+    return (_roll_cols_plain(rp.reshape(B, L), -(shift + rule.p_lo)),
+            _roll_cols_plain(rd.reshape(B, L), -(shift + rule.d_lo)))
+
+
+def independent_rounds_rolled_plain(rule, ptape, dtape, shifts, events,
+                                    uniforms=None):
+    """The reference's independent-sites loop as it is written
+    (`run_ensemble`, JAX `engine/ensemble.py:1491-1523`): each member is
+    kept rolled by its phase, rolled by the change of phase each round
+    (``shifts`` [n, B]), stepped by the rolled round at shift 0, and
+    unrolled once at the end. Returns new tapes. For tests: the literal
+    twin of K10 and K11 at per-member shifts."""
+    B = ptape.shape[0]
+    L = ptape.shape[1]
+    phase = torch.zeros(B, dtype=torch.int64, device=ptape.device)
+    for j in range(shifts.shape[0]):
+        s = shifts[j].to(torch.int64)
+        delta = torch.remainder(s - phase, L)
+        ptape = _roll_rows_plain(ptape, delta)
+        dtape = _roll_rows_plain(dtape, delta)
+        ptape, dtape = rolled_round_plain(
+            rule, ptape, dtape, 0, events,
+            None if uniforms is None else uniforms[j])
+        phase = s
+    return _roll_rows_plain(ptape, -phase), _roll_rows_plain(dtape, -phase)
+
+
+def _reads_uniforms(rule) -> bool:
+    return isinstance(rule, DeviceTable) or rule.has_choose
+
+
+def _uniform_dtype(rule) -> torch.dtype:
+    return (rule.out_cum.dtype if isinstance(rule, DeviceTable)
+            else torch.float32)
+
+
+def _check_lattice(rule, ptape, dtape, shifts, k0, n, events, uniforms):
+    """Checks tapes, shifts ([rounds] shared or [rounds, B] a member) and
+    the uniforms of rounds [k0, k0+n) (``uniforms`` [n, B, E]) of a
+    rolled run."""
+    is_table = isinstance(rule, DeviceTable)
+    want = torch.int32 if is_table else torch.int8
+    if ptape.dtype != want or dtape.dtype != want:
+        raise TypeError(f"{'table' if is_table else 'machine'} rounds take "
+                        f"{want} tapes, got {ptape.dtype} and {dtape.dtype}")
+    if ptape.dim() != 2 or ptape.shape != dtape.shape:
+        raise ValueError(f"tapes must be two equal [B, L] tensors, got "
+                         f"{tuple(ptape.shape)} and {tuple(dtape.shape)}")
+    if not (ptape.is_contiguous() and dtape.is_contiguous()):
+        raise ValueError("tapes must be contiguous")
+    B, L = ptape.shape
+    _check_round_geometry(L, events, rule.span)
+    if shifts.dtype != torch.int32 or shifts.dim() not in (1, 2) or (
+            shifts.dim() == 2 and shifts.shape[1] != B):
+        raise TypeError("shifts must be int32 [rounds] (shared) or "
+                        f"[rounds, {B}] (one a member)")
+    if not shifts.is_contiguous():
+        raise ValueError("shifts must be contiguous")
+    if not (0 <= k0 and k0 + n <= shifts.shape[0]):
+        raise IndexError(f"rounds [{k0}, {k0 + n}) outside "
+                         f"shifts[0:{shifts.shape[0]}]")
+    dev = ptape.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"rolled rounds run on cuda or cpu tensors, not "
+                         f"{dev}")
+    named = [("dtape", dtape), ("shifts", shifts)]
+    if is_table:
+        named.append(("table", rule.out_cum))
+    for name, t in named:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, tapes on {dev}")
+    if _reads_uniforms(rule):
+        dt_u = _uniform_dtype(rule)
+        if (uniforms is None or uniforms.dtype != dt_u
+                or tuple(uniforms.shape) != (n, B, events)
+                or not uniforms.is_contiguous()):
+            raise ValueError(f"uniforms must be a contiguous {dt_u} "
+                             f"[{n}, {B}, {events}] tensor")
+        if uniforms.device != dev:
+            raise ValueError(f"uniforms on {uniforms.device}, tapes on {dev}")
+    if ptape.numel() >= 2**31:
+        raise ValueError("rolled rounds take tapes of fewer than 2**31 "
+                         "symbols")
+    if is_table and rule.n_cells > _K10_MAX_CELLS:
+        raise ValueError(f"K10 takes tables of at most {_K10_MAX_CELLS} "
+                         f"window cells, not {rule.n_cells}")
+
+
+_K10_MAX_CELLS = 24  # csrc/table_rule.cuh: K10_MAX_CELLS
+
+
+def _lattice_rounds(rule, ptape, dtape, shifts, k0, n, events, uniforms):
+    """Rounds [k0, k0+n) of a rolled run, checked by the caller: the
+    plain version a round on the CPU; on the card one C call that
+    launches K10 (a table) or K11 (a machine) once a round."""
+    per_member = shifts.dim() == 2
+    if ptape.device.type == "cpu":
+        plain = (table_round_plain if isinstance(rule, DeviceTable)
+                 else lattice_round_plain)
+        for j in range(n):
+            u = None if uniforms is None else uniforms[j]
+            if isinstance(rule, DeviceTable):
+                plain(rule, ptape, dtape, shifts[k0 + j], u)
+            else:
+                plain(rule, ptape, dtape, shifts[k0 + j], events, u)
+        return
+    B, L = ptape.shape
+    u_ptr = None if uniforms is None else uniforms.data_ptr()
+    with torch.cuda.device(ptape.device):
+        stream = cuda.stream(ptape)
+        if isinstance(rule, DeviceTable):
+            lib = cuda.load()
+            rc = lib.ckpe_table_rounds(
+                ptape.data_ptr(), dtape.data_ptr(), u_ptr,
+                int(rule.out_cum.dtype == torch.float64), shifts.data_ptr(),
+                int(per_member), int(k0), int(n), int(B), int(L),
+                int(events), int(rule.p_lo), int(rule.n_p), int(rule.d_lo),
+                int(rule.n_d), rule.pv.data_ptr(), rule.out_cum.data_ptr(),
+                rule.out_world.data_ptr(), int(rule.num_rows),
+                int(rule.out_cum.shape[1]), rule.wr_mask.data_ptr(),
+                rule.wr_val.data_ptr(), stream)
+            cuda.check(rc, "table_round", lib)
+            table_round.launches += n
+        else:
+            from .k1_source import k1_library  # k1_source imports this
+
+            lib = k1_library(rule)
+            rc = lib.ckpe_k11_rounds(ptape.data_ptr(), dtape.data_ptr(),
+                                     u_ptr, shifts.data_ptr(),
+                                     int(per_member), int(k0), int(n),
+                                     int(B), int(L), int(events), stream)
+            cuda.check(rc, "lattice_round", lib)
+            lattice_round.launches += n
+
+
+def _one_round(rule, ptape, dtape, shift, events, uniforms):
+    shifts = _shift_tensor(shift, ptape.device).to(torch.int32)
+    if shifts.numel() > 1:
+        shifts = shifts[None]
+    shifts = shifts.contiguous()
+    if uniforms is not None:
+        uniforms = uniforms[None]
+    _check_lattice(rule, ptape, dtape, shifts, 0, 1, events, uniforms)
+    _lattice_rounds(rule, ptape, dtape, shifts, 0, 1, events, uniforms)
+
+
+def table_round(dt: DeviceTable, ptape, dtape, shift, uniforms):
+    """One transition-table round on int32 [B, L] tapes, in place (K10):
+    ``shift`` an int or a [1] or [B] int32 tensor on the tapes' device,
+    ``uniforms`` [B, E] of the table's dtype. CPU tensors take
+    :func:`table_round_plain`."""
+    _one_round(dt, ptape, dtape, shift, uniforms.shape[1], uniforms)
+
+
+table_round.launches = 0
+
+
+def lattice_round(dm: DeviceMachine, ptape, dtape, shift, events,
+                  uniforms=None):
+    """One FSM round on int8 [B, L] tapes, in place (K11): ``shift`` an
+    int or a [1] or [B] int32 tensor on the tapes' device, ``events``
+    sites a member, ``uniforms`` [B, E] float32 (read only by machines
+    with choose nodes). CPU tensors take :func:`lattice_round_plain`."""
+    _one_round(dm, ptape, dtape, shift, events,
+               uniforms if dm.has_choose else None)
+
+
+lattice_round.launches = 0
+
+
+def run_lattice_rounds(rule, ptape, dtape, shifts, events, uniforms=None):
+    """Applies ``len(shifts)`` rolled rounds in place with explicit
+    draws: ``shifts`` int32 [n] (one a round, shared by the batch) or
+    [n, B] (one a member: independent sites), any values (taken mod L),
+    on the tapes' device; ``uniforms`` [n, B, E] (the table's dtype for
+    a :class:`DeviceTable`; float32 for a machine, read only when it has
+    choose nodes). Tapes are int32 [B, L] for a table, int8 for a
+    machine. Returns the tapes.
+
+    This is `run_ensemble`'s rolled loop without the random draws, so a
+    caller can feed it draws made elsewhere (the tests feed it the JAX
+    package's own). On the card all rounds go out from one C call."""
+    if not _reads_uniforms(rule):
+        uniforms = None
+    n = shifts.shape[0]
+    _check_lattice(rule, ptape, dtape, shifts, 0, n, events, uniforms)
+    _lattice_rounds(rule, ptape, dtape, shifts, 0, n, events, uniforms)
+    return ptape, dtape
+
+
 # Uniforms drawn ahead of the launches, at most this many a chunk.
 _UNIFORM_CHUNK = 2**25
+
+
+def _draw_chunks(gen, rule, B, events, num_steps, device):
+    """Yields (k0, n, uniforms) chunks of a run: uniforms [n, B, E] drawn
+    round by round into one buffer (None for a rule that reads none,
+    whose single chunk is every round)."""
+    if not _reads_uniforms(rule):
+        if num_steps:
+            yield 0, num_steps, None
+        return
+    chunk = max(1, min(num_steps, _UNIFORM_CHUNK // max(1, B * events)))
+    buf = torch.empty((chunk, B, events), dtype=_uniform_dtype(rule),
+                      device=device)
+    for k0 in range(0, num_steps, chunk):
+        n = min(chunk, num_steps - k0)
+        for j in range(n):
+            torch.rand((B, events), generator=gen, device=device,
+                       dtype=buf.dtype, out=buf[j])
+        yield k0, n, buf[:n]
 
 
 def run_ensemble(generator, tapes, dm, steps_events, *,
@@ -766,31 +1425,46 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     """Advances a batch of tape pairs with stratified lattice rounds.
 
     Each round fires the rule at E sites per replica arranged as a
-    randomly shifted lattice (shared by the batch): no conflicts, every
-    event applies. The tapes are stored as `stride` int8 planes and
-    stepped by K1 (:func:`plane_round`), the counterpart of the
-    reference's stacked-plane FSM round; the phase is drawn over
-    [0, stride), which fires the same site set as a full-tape shift.
+    randomly shifted lattice: no conflicts, every event applies. With a
+    :class:`DeviceMachine` at a stride L/E of at most 64 and shared
+    sites, the tapes are stored as `stride` int8 planes and stepped by
+    K1 (:func:`plane_round`), the phase drawn over [0, stride), which
+    fires the same site set as a full-tape shift. Otherwise the rolled
+    rounds run on [B, L] tapes with the shift drawn over [0, L): K10
+    (:func:`table_round`, int32 tapes) for a :class:`DeviceTable`, K11
+    (:func:`lattice_round`, int8 tapes) for a machine with
+    ``independent_sites`` or a stride above 64.
+
+    ``independent_sites=True`` draws the shift per member (each member
+    its own site history) instead of one a round shared by the batch;
+    per-member marginals are the same either way, cross-member
+    statistics are not (the reference's docstring explains when it
+    matters).
 
     Draws come from ``generator`` (a `torch.Generator` on the run's
-    device, or an int seed): first all ``num_steps`` shifts at once, as
-    one int32 tensor on the device, then each round's [B, E] float32
-    uniforms, round by round into a buffer of a chunk of rounds, which
-    one call then runs. Machines without choose nodes read no uniforms,
-    so none are drawn for them (the reference draws and discards them),
-    and one call runs every round. The stream is not the JAX package's;
-    :func:`run_rounds` takes explicit draws.
+    device, or an int seed): first all shifts at once ([num_steps], or
+    [num_steps, B] for independent sites) as one int32 tensor on the
+    device, then each round's [B, E] uniforms (float32 for a machine,
+    the table's dtype for a table), round by round into a buffer of a
+    chunk of rounds, which one call then runs. Machines without choose
+    nodes read no uniforms, so none are drawn for them (the reference
+    draws and discards them), and one call runs every round. The stream
+    is not the JAX package's; :func:`run_rounds` and
+    :func:`run_lattice_rounds` take explicit draws.
 
     Args:
       generator: `torch.Generator` on the run's device, or an int seed.
       tapes: (ptape [B, L], dtape [B, L]) integer tensors or arrays, or a
-        :class:`PlaneState` from an earlier call.
-      dm: compiled :class:`DeviceMachine`.
+        :class:`PlaneState` from an earlier plane-path call.
+      dm: compiled :class:`DeviceMachine` or :class:`DeviceTable`.
       steps_events: (num_steps, events_per_step). events_per_step must
-        divide L, L/E must exceed 2·span (for E > 1) and be <= 64.
-      bitslice: None or False run the FSM plane round (the reference
-        gates the two rounds bit-identical); True is not ported yet.
-      keep_planes: return a :class:`PlaneState` instead of tapes.
+        divide L; at E > 1 additionally L/E > 2·span (E = 1 needs only
+        span <= L).
+      independent_sites: one shift a member and round.
+      bitslice: None or False run the FSM round (the reference gates the
+        two rounds bit-identical); True is not ported yet.
+      keep_planes: return a :class:`PlaneState` instead of tapes (the
+        plane path only).
       device: where the run goes; ``cuda`` unless named.
 
     Returns:
@@ -798,51 +1472,78 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
       (applied int64 [num_steps] summed over replicas,
        times float64 [num_steps] cumulative).
     """
-    if not isinstance(dm, DeviceMachine):
-        raise NotImplementedError(_TODO_TABLE)
     if bitslice:
         raise NotImplementedError(_TODO_BITSLICE)
-    if independent_sites:
-        raise NotImplementedError(_TODO_LATTICE)
+    if not isinstance(dm, (DeviceMachine, DeviceTable)):
+        raise TypeError(f"run_ensemble takes a DeviceMachine or a "
+                        f"DeviceTable, not {type(dm).__name__}")
     num_steps, events = steps_events
     device = config.get_device(device)
-    if isinstance(tapes, PlaneState):
+    in_state = isinstance(tapes, PlaneState)
+    if in_state:
         B, L = tapes.batch, tapes.length
     else:
         ptape, dtape = (torch.as_tensor(t, device=device) for t in tapes)
         B, L = ptape.shape
     _check_round_geometry(L, events, dm.span)
     stride = L // events
-    if stride > _MAX_PLANE_STRIDE:
-        raise NotImplementedError(_TODO_LATTICE)
-    if isinstance(tapes, PlaneState):
-        if tapes.stride != stride:
-            raise ValueError(
-                f"PlaneState stride {tapes.stride} != L//events = "
-                f"{stride}: pack and continuation calls must use the "
-                "same events_per_step")
-        p_st = tapes.pbp.to(device=device, copy=True)
-        d_st = tapes.dbp.to(device=device, copy=True)
-    else:
-        p_st = _tape_to_planes(ptape.to(torch.int8), stride)
-        d_st = _tape_to_planes(dtape.to(torch.int8), stride)
+    use_planes = (isinstance(dm, DeviceMachine)
+                  and stride <= _MAX_PLANE_STRIDE and not independent_sites)
+    if in_state and not use_planes:
+        raise ValueError(
+            "PlaneState packed for the FSM plane round needs a "
+            f"plane-eligible call (machine, stride <= {_MAX_PLANE_STRIDE}, "
+            "not independent_sites)")
+    if keep_planes and not use_planes:
+        raise ValueError(
+            "keep_planes/PlaneState need a plane-path call (machine, "
+            "stride <= 64, not independent_sites)")
     gen = config.make_generator(generator, device)
-    shifts = torch.randint(0, stride, (num_steps,), generator=gen,
-                           device=device, dtype=torch.int32)
-    if num_steps:
-        chunk, buf = num_steps, None
-        if dm.has_choose:
-            chunk = max(1, min(num_steps, _UNIFORM_CHUNK // (B * events)))
-            buf = torch.empty((chunk, B, events), dtype=torch.float32,
-                              device=device)
-        _check_planes(dm, p_st, d_st, shifts, 0, chunk, buf)
-        for k0 in range(0, num_steps, chunk):
-            n = min(chunk, num_steps - k0)
-            uniforms = None if buf is None else buf[:n]
-            for j in range(n if dm.has_choose else 0):
-                torch.rand((B, events), generator=gen, device=device,
-                           dtype=torch.float32, out=uniforms[j])
+    if use_planes:
+        if in_state:
+            if tapes.stride != stride:
+                raise ValueError(
+                    f"PlaneState stride {tapes.stride} != L//events = "
+                    f"{stride}: pack and continuation calls must use the "
+                    "same events_per_step")
+            p_st = tapes.pbp.to(device=device, copy=True)
+            d_st = tapes.dbp.to(device=device, copy=True)
+        else:
+            p_st = _tape_to_planes(ptape.to(torch.int8), stride)
+            d_st = _tape_to_planes(dtape.to(torch.int8), stride)
+        shifts = torch.randint(0, stride, (num_steps,), generator=gen,
+                               device=device, dtype=torch.int32)
+        checked = False
+        for k0, n, uniforms in _draw_chunks(gen, dm, B, events, num_steps,
+                                            device):
+            if not checked:
+                _check_planes(dm, p_st, d_st, shifts, 0, n, uniforms)
+                checked = True
             _rounds(dm, p_st, d_st, shifts, k0, n, uniforms)
+        if keep_planes:
+            out = PlaneState(p_st, d_st, batch=B, length=L)
+        else:
+            out = (_planes_to_tape(p_st).to(torch.int32),
+                   _planes_to_tape(d_st).to(torch.int32))
+    else:
+        want = torch.int32 if isinstance(dm, DeviceTable) else torch.int8
+        pt = ptape.to(want).contiguous()
+        dt_ = dtape.to(want).contiguous()
+        if pt.data_ptr() == ptape.data_ptr():
+            pt = pt.clone()
+        if dt_.data_ptr() == dtape.data_ptr():
+            dt_ = dt_.clone()
+        shape = (num_steps, B) if independent_sites else (num_steps,)
+        shifts = torch.randint(0, L, shape, generator=gen, device=device,
+                               dtype=torch.int32)
+        checked = False
+        for k0, n, uniforms in _draw_chunks(gen, dm, B, events, num_steps,
+                                            device):
+            if not checked:
+                _check_lattice(dm, pt, dt_, shifts, 0, n, events, uniforms)
+                checked = True
+            _lattice_rounds(dm, pt, dt_, shifts, k0, n, events, uniforms)
+        out = (pt.to(torch.int32), dt_.to(torch.int32))
     applied = torch.full((num_steps,), B * events, dtype=torch.int64,
                          device=device)
     f64 = config.DEFAULT_FLOAT
@@ -850,20 +1551,257 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     # make the host wait for every queued round before it queues the rest.
     dt_round = float(-torch.log1p(torch.tensor(-events / L, dtype=f64)))
     times = torch.arange(1, num_steps + 1, dtype=f64, device=device) * dt_round
-    if keep_planes:
-        out = PlaneState(p_st, d_st, batch=B, length=L)
-    else:
-        out = (_planes_to_tape(p_st).to(torch.int32),
-               _planes_to_tape(d_st).to(torch.int32))
     return out, (applied, times)
+
+
+# --- K12: pattern scans and first passage -------------------------------------
+
+_SCAN_CONTAINS, _SCAN_PROGRESS, _SCAN_FIRST_PASSAGE = 0, 1, 2
+
+
+def _pattern_tensor(pattern, device):
+    return torch.as_tensor([int(s) for s in pattern], dtype=torch.int32,
+                           device=device)
+
+
+def pattern_scan_plain(tape, pattern, mode: int, *, t_hit=None, t_now=None):
+    """K12's plain version, as the reference computes `contains_pattern`
+    and `pattern_progress` (rolls of the [B, L] ``tape``, int8 or int32,
+    compared with each symbol of ``pattern``, an int32 [P] tensor).
+
+    mode 0 returns bool [B], whether the pattern occurs anywhere on the
+    ring (cyclically); mode 1 returns int32 [B], the longest prefix of
+    it that occurs; mode 2 sets ``t_hit`` (float64 [B], in place) to
+    ``t_now`` (a float64 [1] tensor) where the pattern occurs and
+    ``t_hit`` is still infinite, and returns it."""
+    pattern_scan_plain.calls += 1
+    B = tape.shape[0]
+    ok = torch.ones(tape.shape, dtype=torch.bool, device=tape.device)
+    best = torch.zeros(B, dtype=torch.int32, device=tape.device)
+    pat = [int(s) for s in pattern.tolist()]
+    for j, s in enumerate(pat):
+        ok = ok & (torch.roll(tape, -j, dims=1) == s)
+        best = torch.maximum(best, torch.where(
+            ok.any(dim=1), j + 1, 0).to(torch.int32))
+    if mode == _SCAN_PROGRESS:
+        return best
+    present = best == len(pat)
+    if mode == _SCAN_CONTAINS:
+        return present
+    t_hit.copy_(torch.where(present & torch.isinf(t_hit), t_now, t_hit))
+    return t_hit
+
+
+pattern_scan_plain.calls = 0
+
+
+def _check_scan(tape, pattern, mode, t_hit, t_now):
+    if tape.dtype not in (torch.int8, torch.int32) or tape.dim() != 2:
+        raise TypeError("tape must be an int8 or int32 [B, L] tensor")
+    if not tape.is_contiguous():
+        raise ValueError("tape must be contiguous")
+    if pattern.dtype != torch.int32 or pattern.dim() != 1:
+        raise TypeError("pattern must be an int32 [P] tensor")
+    named = [("pattern", pattern)]
+    if mode == _SCAN_FIRST_PASSAGE:
+        if (t_hit is None or t_hit.dtype != torch.float64
+                or tuple(t_hit.shape) != (tape.shape[0],)
+                or t_now is None or t_now.dtype != torch.float64):
+            raise ValueError("first passage takes t_hit float64 [B] and "
+                             "t_now float64 [1]")
+        named += [("t_hit", t_hit), ("t_now", t_now)]
+    for name, t in named:
+        if t.device != tape.device:
+            raise ValueError(f"{name} is on {t.device}, tape on "
+                             f"{tape.device}")
+    if tape.numel() >= 2**31:
+        raise ValueError("K12 takes tapes of fewer than 2**31 symbols")
+
+
+def pattern_scan(tape, pattern, mode: int, *, t_hit=None, t_now=None):
+    """K12 on a CUDA ``tape``, the plain version
+    (:func:`pattern_scan_plain`, which says what each mode returns) on a
+    CPU one. ``pattern`` is an int32 [P] tensor on the tape's device."""
+    _check_scan(tape, pattern, mode, t_hit, t_now)
+    if not cuda.on_card(tape, "K12"):
+        return pattern_scan_plain(tape, pattern, mode, t_hit=t_hit,
+                                  t_now=t_now)
+    B, L = tape.shape
+    if mode == _SCAN_CONTAINS:
+        out = torch.empty(B, dtype=torch.bool, device=tape.device)
+    elif mode == _SCAN_PROGRESS:
+        out = torch.empty(B, dtype=torch.int32, device=tape.device)
+    else:
+        out = t_hit
+    lib = cuda.load()
+    with torch.cuda.device(tape.device):
+        rc = lib.ckpe_pattern_scan(
+            tape.data_ptr(), tape.element_size(), int(B), int(L),
+            pattern.data_ptr(), int(pattern.numel()), int(mode),
+            None if mode == _SCAN_FIRST_PASSAGE else out.data_ptr(),
+            None if t_hit is None else t_hit.data_ptr(),
+            None if t_now is None else t_now.data_ptr(), cuda.stream(tape))
+    cuda.check(rc, "pattern_scan", lib)
+    pattern_scan.launches += 1
+    return out
+
+
+pattern_scan.launches = 0
+
+
+def _scan_input(tape, device):
+    tape = torch.as_tensor(tape, device=config.get_device(device))
+    if tape.dtype not in (torch.int8, torch.int32):
+        tape = tape.to(torch.int32)
+    return tape.contiguous()
+
+
+def contains_pattern(tape, pattern, *, device=None):
+    """[B] bool: does ``pattern`` occur anywhere on each ring tape
+    ([B, L], int8 or int32; other integer types are read as int32)?
+    K12 on ``device`` (``cuda`` unless named)."""
+    tape = _scan_input(tape, device)
+    return pattern_scan(tape, _pattern_tensor(pattern, tape.device),
+                        _SCAN_CONTAINS)
+
+
+def pattern_progress(tape, pattern, *, device=None):
+    """[B] int32: the longest prefix of ``pattern`` that occurs anywhere
+    on each ring (cyclically); ``len(pattern)`` means the whole pattern
+    is present. K12 on ``device`` (``cuda`` unless named)."""
+    tape = _scan_input(tape, device)
+    return pattern_scan(tape, _pattern_tensor(pattern, tape.device),
+                        _SCAN_PROGRESS)
+
+
+def _first_passage_rounds(dm, pt, dt_, pat, shifts, k0, n, events,
+                          uniforms, times, t_hit, data_tape):
+    """Rounds [k0, k0+n) of a first-passage run, checked by the caller:
+    each a K11 round at ``shifts[k]`` and K12's update of ``t_hit`` at
+    ``times[k + 1]``. On the card one C call launches both, round by
+    round."""
+    watch = dt_ if data_tape else pt
+    if pt.device.type == "cpu":
+        for j in range(n):
+            lattice_round_plain(dm, pt, dt_, shifts[k0 + j], events,
+                                None if uniforms is None else uniforms[j])
+            pattern_scan_plain(watch, pat, _SCAN_FIRST_PASSAGE, t_hit=t_hit,
+                               t_now=times[k0 + j + 1:k0 + j + 2])
+        return
+    from .k1_source import k1_library  # k1_source imports this module
+
+    lib = k1_library(dm)
+    scan_lib = cuda.load()
+    scan_fn = ctypes.cast(scan_lib.ckpe_pattern_scan, ctypes.c_void_p).value
+    B, L = pt.shape
+    with torch.cuda.device(pt.device):
+        rc = lib.ckpe_k11_first_passage(
+            pt.data_ptr(), dt_.data_ptr(),
+            None if uniforms is None else uniforms.data_ptr(),
+            shifts.data_ptr(), int(k0), int(n), int(B), int(L), int(events),
+            int(bool(data_tape)), pat.data_ptr(), int(pat.numel()),
+            t_hit.data_ptr(), times.data_ptr(), scan_fn, cuda.stream(pt))
+    cuda.check(rc, "first_passage (K11, K12)", lib)
+    lattice_round.launches += n
+    pattern_scan.launches += n
+
+
+def _first_passage(dm, pt, dt_, pattern, shifts, chunks, events, data_tape):
+    B, L = pt.shape
+    dev = pt.device
+    pat = _pattern_tensor(pattern, dev)
+    dt_round = -math.log1p(-events / L)
+    times = (torch.arange(shifts.shape[0] + 1, dtype=torch.float64,
+                          device=dev) * dt_round)
+    t_hit = torch.full((B,), math.inf, dtype=torch.float64, device=dev)
+    pattern_scan(dt_ if data_tape else pt, pat, _SCAN_FIRST_PASSAGE,
+                 t_hit=t_hit, t_now=times[:1])
+    checked = False
+    for k0, n, uniforms in chunks:
+        if not checked:
+            _check_lattice(dm, pt, dt_, shifts, 0, n, events, uniforms)
+            checked = True
+        _first_passage_rounds(dm, pt, dt_, pat, shifts, k0, n, events,
+                              uniforms, times, t_hit, data_tape)
+    return t_hit, torch.isfinite(t_hit), (pt.to(torch.int32),
+                                          dt_.to(torch.int32))
+
+
+def _int8_copy(tape, device):
+    t = torch.as_tensor(tape, device=device)
+    out = t.to(torch.int8).contiguous()
+    return out.clone() if out.data_ptr() == t.data_ptr() else out
+
+
+def first_passage_times(generator, tapes, dm, pattern, plan, *,
+                        data_tape: bool = True, device=None):
+    """Per-member first time ``pattern`` appears anywhere on the tape.
+
+    Evolves the B rings with rolled lattice rounds (K11, a shift shared
+    by the batch and drawn over [0, L) each round, as the reference's
+    `first_passage_times` does) and records each member's first round
+    whose post-state contains the pattern (K12), on the data tape or,
+    with ``data_tape=False``, the program tape; a pattern present at
+    the start gives t = 0. Resolution is one round; members that never
+    hit report ``inf``.
+
+    Draws come from ``generator`` (a `torch.Generator` on ``device`` or
+    an int seed): all shifts first, then the uniforms a chunk of rounds
+    at a time, as `run_ensemble` draws them; every round of a chunk,
+    K11 and K12 both, goes out from one C call.
+    :func:`first_passage_from_draws` takes explicit draws.
+
+    Args:
+      generator: `torch.Generator` or an int seed.
+      tapes: (ptape [B, L], dtape [B, L]) initial rings.
+      dm: compiled :class:`DeviceMachine`.
+      pattern: symbol-index sequence to detect (circularly).
+      plan: (max_rounds, events_per_round); events must divide L; at
+        E > 1 additionally L/events > 2·span.
+      data_tape: search the data tape (True) or the program tape.
+      device: where the run goes; ``cuda`` unless named.
+
+    Returns:
+      (t_hit float64 [B], ``inf`` if unhit; hit bool [B];
+       (ptape, dtape) int32 final tapes).
+    """
+    max_rounds, events = plan
+    device = config.get_device(device)
+    pt, dt_ = (_int8_copy(t, device) for t in tapes)
+    B, L = pt.shape
+    _check_round_geometry(L, events, dm.span)
+    gen = config.make_generator(generator, device)
+    shifts = torch.randint(0, L, (max_rounds,), generator=gen,
+                           device=device, dtype=torch.int32)
+    return _first_passage(dm, pt, dt_, pattern, shifts,
+                          _draw_chunks(gen, dm, B, events, max_rounds,
+                                       device),
+                          events, data_tape)
+
+
+def first_passage_from_draws(dm, tapes, pattern, shifts, events,
+                             uniforms=None, *, data_tape: bool = True):
+    """:func:`first_passage_times` with explicit draws on the tapes'
+    device: ``shifts`` int32 [rounds] (any values, taken mod L),
+    ``uniforms`` float32 [rounds, B, E] (read only by machines with
+    choose nodes). The tapes are copied, not changed."""
+    if shifts.dim() != 1:
+        raise TypeError("first passage takes one shift a round, int32 "
+                        "[rounds]")
+    pt, dt_ = (_int8_copy(t, shifts.device) for t in tapes)
+    _check_round_geometry(pt.shape[1], events, dm.span)
+    n = shifts.shape[0]
+    chunks = [(0, n, uniforms if dm.has_choose else None)] if n else []
+    return _first_passage(dm, pt, dt_, pattern, shifts, chunks, events,
+                          data_tape)
 
 
 # --- K2: window histogram -----------------------------------------------------
 
 
-def window_bins(tape, size_a: int, cl_k: int):
+def _window_ranks(tape, size_a: int, cl_k: int):
     """The bin of every circular length-cl_k window of the [B, L] int32
-    ``tape`` that the reference counts, as a flat int64 tensor.
+    ``tape`` ([B, L] int64) and whether the reference counts it.
 
     The reference's rank is an int32 Horner sum, which wraps; its
     scatter then reads a rank in [-n, 0) as bin rank + n (numpy's rule
@@ -873,11 +1811,18 @@ def window_bins(tape, size_a: int, cl_k: int):
     rank = torch.zeros(tape.shape, dtype=torch.int64, device=tape.device)
     for j in range(cl_k):
         rank = (rank * size_a + torch.roll(tape, -j, dims=1)) & 0xFFFFFFFF
-    rank = rank.reshape(-1)
     rank = torch.where(rank >= 2**31, rank - 2**32, rank)
     n_bins = size_a**cl_k
     rank = torch.where(rank < 0, rank + n_bins, rank)
-    return rank[(rank >= 0) & (rank < n_bins)]
+    return rank, (rank >= 0) & (rank < n_bins)
+
+
+def window_bins(tape, size_a: int, cl_k: int):
+    """The bin of every circular length-cl_k window of the [B, L] int32
+    ``tape`` that the reference counts (`_window_ranks`), as a flat int64
+    tensor in row-major order."""
+    rank, keep = _window_ranks(tape, size_a, cl_k)
+    return rank[keep]
 
 
 def window_counts_plain(tape, size_a: int, cl_k: int):
@@ -934,23 +1879,141 @@ def window_counts(tape, size_a: int, cl_k: int, *, device=None):
 window_counts.launches = 0
 
 
+# --- K13: weighted window histogram -------------------------------------------
+
+# K13's blocks: at most this many, and fewer where a block's share of the
+# partials (n_bins float64 and int32 counts each) would pass
+# _K13_SCRATCH_BYTES in all.
+_K13_MAX_BLOCKS = 256
+_K13_SCRATCH_BYTES = 1 << 26
+_K13_SHARED_BINS = 16384  # csrc/weighted_counts.cu: kSharedBins
+
+
+def k13_members_per_block(B: int, n_bins: int) -> int:
+    """Members each of K13's blocks takes, in order: block g takes
+    members [g*m, (g+1)*m). This fixes the order of the float64 sum that
+    K13 and its plain version both take."""
+    blocks = max(1, min(B, _K13_MAX_BLOCKS,
+                        _K13_SCRATCH_BYTES // (12 * n_bins)))
+    return -(-B // blocks)
+
+
+def _member_bins(tape, size_a: int, cl_k: int):
+    """(member, bin) of every window that the reference counts: the bins
+    of `window_bins`, each with the row it lies in."""
+    B, L = tape.shape
+    rank, keep = _window_ranks(tape, size_a, cl_k)
+    member = torch.arange(B, device=tape.device)[:, None].expand(B, L)
+    return member[keep], rank[keep]
+
+
+def weighted_window_counts_plain(tape, w, size_a: int, cl_k: int):
+    """K13's plain version: sum_b w[b] * counts_b / L, float64
+    [size_a**cl_k], over the int32 [B, L] ``tape`` and the normalised
+    float64 weights ``w`` [B], in K13's order: each member's windows
+    counted exactly (the bins of `window_bins`); block g of
+    `k13_members_per_block` adds w[b] * counts_b for its members b in
+    order from 0.0; the blocks' partials are added in block order from
+    0.0; the sum is divided by L."""
+    weighted_window_counts_plain.calls += 1
+    B, L = tape.shape
+    n_bins = size_a**cl_k
+    per = k13_members_per_block(B, n_bins)
+    groups = -(-B // per)
+    member, bins = _member_bins(tape, size_a, cl_k)
+    counts = torch.zeros(groups * per * n_bins, dtype=torch.int64,
+                         device=tape.device)
+    counts.index_add_(0, member * n_bins + bins, torch.ones_like(bins))
+    counts = counts.view(groups, per, n_bins)
+    wp = torch.zeros(groups * per, dtype=torch.float64, device=tape.device)
+    wp[:B] = w
+    wp = wp.view(groups, per)
+    acc = torch.zeros((groups, n_bins), dtype=torch.float64,
+                      device=tape.device)
+    for j in range(per):
+        acc = acc + wp[:, j, None] * counts[:, j].to(torch.float64)
+    total = torch.zeros(n_bins, dtype=torch.float64, device=tape.device)
+    for g in range(groups):
+        total = total + acc[g]
+    # A tensor divisor: PyTorch's CUDA division by a Python number
+    # multiplies by its reciprocal, which is not K13's quotient.
+    return total / torch.tensor(float(L), dtype=torch.float64,
+                                device=tape.device)
+
+
+weighted_window_counts_plain.calls = 0
+
+
+def weighted_window_counts(tape, weights, size_a: int, cl_k: int, *,
+                           device=None):
+    """Weighted empirical SPD from a batch of tapes:
+    sum_b w_b · counts_b / L with ``w = weights / weights.sum()``,
+    float64 [size_a**cl_k] (K13; finite weights).
+
+    ``tape`` [B, L] and ``weights`` [B] are moved to ``device``
+    (``cuda`` unless named). The counts are K2's windows by K2's rank
+    rule, out-of-range symbols included; the sum over members takes one
+    fixed order (:func:`weighted_window_counts_plain`), with no float
+    atomics."""
+    n_bins = size_a**cl_k
+    if n_bins >= 2**31:
+        raise ValueError(f"size_a**cl_k = {n_bins} bins exceed int32")
+    device = config.get_device(device)
+    tape = torch.as_tensor(tape, device=device).to(torch.int32).contiguous()
+    if tape.dim() != 2:
+        raise ValueError("tape must be [B, L]")
+    w = torch.as_tensor(weights, device=device).to(torch.float64)
+    if tuple(w.shape) != (tape.shape[0],):
+        raise ValueError(f"weights must be [{tape.shape[0]}], got "
+                         f"{tuple(w.shape)}")
+    w = (w / w.sum()).contiguous()
+    if not cuda.on_card(tape, "K13"):
+        return weighted_window_counts_plain(tape, w, size_a, cl_k)
+    B, L = tape.shape
+    per = k13_members_per_block(B, n_bins)
+    groups = -(-B // per)
+    out = torch.empty(n_bins, dtype=torch.float64, device=device)
+    partial = torch.empty(groups * n_bins, dtype=torch.float64,
+                          device=device)
+    hist = (torch.zeros(groups * n_bins, dtype=torch.int32, device=device)
+            if n_bins > _K13_SHARED_BINS else None)
+    ticket = torch.zeros(1, dtype=torch.int32, device=device)
+    lib = cuda.load()
+    with torch.cuda.device(device):
+        rc = lib.ckpe_weighted_counts(
+            tape.data_ptr(), w.data_ptr(), int(B), int(L), int(size_a),
+            int(cl_k), int(per), partial.data_ptr(),
+            None if hist is None else hist.data_ptr(), ticket.data_ptr(),
+            out.data_ptr(), cuda.stream(tape))
+    cuda.check(rc, "weighted_window_counts", lib)
+    weighted_window_counts.launches += 1
+    return out
+
+
+weighted_window_counts.launches = 0
+
+
 # --- Initial tapes from an SPD -------------------------------------------------
 
 
 def sample_tapes_from_spd(generator, spd, size_a: int, cl_k: int,
-                          batch: int, length: int, *, device=None):
+                          batch: int, length: int, *, ring: bool = True,
+                          device=None):
     """Draws int32 [batch, length] tape rings whose window statistics
     follow an SPD: symbols come from the SPD's order-(cl_k-1) Markov
-    chain (`markov.mpp_from_spd`), sampled as a circular Markov BRIDGE.
+    chain (`markov.mpp_from_spd`).
 
-    Each step's distribution is reweighted by the bridge factor
-    ``T^(r-1)[next_ctx, ctx0]`` (r symbols remaining), so the sequence
-    closes its own starting context and the ``cl_k-1`` windows crossing
-    the seam read Markov-consistent statistics. Only the columns of the
-    context transfer matrix at the sampled start contexts are kept, and
-    only until they flatten (the chain has mixed): a flat bridge cancels
-    in the per-step normalisation. If a start context cannot close its
-    cycle at all, the whole batch is drawn as a linear chain instead.
+    With ``ring=True`` (the default) the chain is sampled as a circular
+    Markov BRIDGE: each step's distribution is reweighted by the bridge
+    factor ``T^(r-1)[next_ctx, ctx0]`` (r symbols remaining), so the
+    sequence closes its own starting context and the ``cl_k-1`` windows
+    crossing the seam read Markov-consistent statistics. Only the
+    columns of the context transfer matrix at the sampled start contexts
+    are kept, and only until they flatten (the chain has mixed): a flat
+    bridge cancels in the per-step normalisation. If a start context
+    cannot close its cycle at all, the whole batch is drawn as a linear
+    chain instead. ``ring=False`` draws the linear chain, whose junction
+    at the seam reads windows the SPD may not hold.
 
     Host numpy builds the bridge table; the draws run in torch on
     ``device`` from ``generator`` (a `torch.Generator` there, or a seed).
@@ -975,29 +2038,30 @@ def sample_tapes_from_spd(generator, spd, size_a: int, cl_k: int,
         torch.as_tensor(marg_np / marg_np.sum(), device=device), batch,
         replacement=True, generator=gen)
 
-    # cols[r][c, j] = T^r[c, u_j] for the unique start contexts u_j.
-    u_starts, inv = np.unique(ctx.cpu().numpy(), return_inverse=True)
-    n_u = len(u_starts)
-    v = np.zeros((n_ctx, n_u))
-    v[u_starts, np.arange(n_u)] = 1.0
-    cols = []
-    flat_tol = 1e-13
-    for _ in range(length):
-        cols.append(v)
-        v = np.einsum("cs,csj->cj", mpp_np, v[nctx_np])
-        vmax = v.max(axis=0)
-        if np.all(vmax - v.min(axis=0) <= flat_tol * vmax):
-            break  # columns mixed: flat bridge from here on
-    n_kept = len(cols)
-    ring = True
-    if n_kept == length:
-        # Never mixed within the horizon: every sampled start must be
-        # able to close its cycle (T^length[u_j, u_j] > 0).
-        feas = np.array([float(mpp_np[u] @ cols[-1][nctx_np[u], j])
-                         for j, u in enumerate(u_starts)])
-        ring = not np.any(feas <= 0)
-    V = torch.as_tensor(np.stack(cols), device=device)
-    inv_t = torch.as_tensor(inv, device=device)[:, None]
+    n_kept = 0
+    if ring:
+        # cols[r][c, j] = T^r[c, u_j] for the unique start contexts u_j.
+        u_starts, inv = np.unique(ctx.cpu().numpy(), return_inverse=True)
+        n_u = len(u_starts)
+        v = np.zeros((n_ctx, n_u))
+        v[u_starts, np.arange(n_u)] = 1.0
+        cols = []
+        flat_tol = 1e-13
+        for _ in range(length):
+            cols.append(v)
+            v = np.einsum("cs,csj->cj", mpp_np, v[nctx_np])
+            vmax = v.max(axis=0)
+            if np.all(vmax - v.min(axis=0) <= flat_tol * vmax):
+                break  # columns mixed: flat bridge from here on
+        n_kept = len(cols)
+        if n_kept == length:
+            # Never mixed within the horizon: every sampled start must be
+            # able to close its cycle (T^length[u_j, u_j] > 0).
+            feas = np.array([float(mpp_np[u] @ cols[-1][nctx_np[u], j])
+                             for j, u in enumerate(u_starts)])
+            ring = not np.any(feas <= 0)
+        V = torch.as_tensor(np.stack(cols), device=device)
+        inv_t = torch.as_tensor(inv, device=device)[:, None]
 
     syms = torch.empty((length, batch), dtype=torch.int32, device=device)
     for step in range(length):

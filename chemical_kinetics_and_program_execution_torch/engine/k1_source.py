@@ -1,4 +1,5 @@
-"""K1's machine-specific source: the decision machine compiled into code.
+"""K1's and K11's machine-specific source: the decision machine compiled
+into code.
 
 :func:`k1_source` writes one CUDA translation unit for a
 :class:`~.ensemble.DeviceMachine` from the level plan that the plain
@@ -7,7 +8,9 @@ level, cell group, next-state table, choose threshold and write spec
 becomes an immediate, as the Pallas probes unroll the machine at trace
 time (`probes/pallas_plane_round.py:49`). The unit includes the
 hand-written template `csrc/plane_round.cuh` (loads, stores, sites per
-thread, launch loop), which documents the kernel's design.
+thread, launch loop), which documents the kernel's design, and at its
+end `csrc/lattice_round.cuh`, K11's rolled round over the same walk and
+writes.
 
 Two walks are written. The lane walk steps a thread's four sites at
 once, one byte lane each of a 32-bit word: a level's next state is an
@@ -280,6 +283,8 @@ def k1_source(dm: ens.DeviceMachine) -> str:
     lines += _walk_exact(levels, groups, dm.num_specs)
     lines += _walk_lanes(levels, groups, dm.num_specs)
     lines += _writes(dm)
+    lines += ["", "// K11, the rolled round, over the same walk and writes.",
+              '#include "lattice_round.cuh"']
     return "\n".join(lines) + "\n"
 
 
@@ -294,6 +299,17 @@ def _load(source: str) -> ctypes.CDLL:
     #                stream)
     lib.ckpe_k1_rounds.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.ckpe_k1_rounds.restype = _I
+    # ckpe_k11_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
+    #                 stream)
+    lib.ckpe_k11_rounds.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _P]
+    lib.ckpe_k11_rounds.restype = _I
+    # ckpe_k11_first_passage(p, d, uniforms, shifts, k0, n, B, L, E,
+    #                        data_tape, pattern, P, t_hit, times, scan,
+    #                        stream)
+    lib.ckpe_k11_first_passage.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                           _I, _I, _P, _I, _P, _P, _P, _P]
+    lib.ckpe_k11_first_passage.restype = _I
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p
     return lib

@@ -11,8 +11,9 @@ Phases (each prints its wall time; every check raises on failure):
 
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
-2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2-K8)
-   and one for K1's generated unit of each machine, and beside them the
+2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2-K10,
+   K12, K13) and one for the generated unit (K1 and K11) of each machine
+   (phase 3's three, ex3 and the fuzz rule of phase 9), and beside them the
    `g++` call of the C++ expander (`csrc/expander.cc`, a host library),
    each with its seconds and the `-Xptxas -v` register, shared-memory
    and spill lines;
@@ -119,7 +120,33 @@ Phases (each prints its wall time; every check raises on failure):
    twice; ex6-self's dp/dt by K3 and K5 (417 phases) against the plain
    version; the B5 stage and the error sum timed beside their bounds,
    plain versions and, for the stage, `torch.addmv`; K9 beside its bound
-   and plain version.
+   and plain version;
+9. the rolled lattice rounds (K10-K13) against exact answers, each path
+   with every count set to 0 just before and read just after, no plain
+   version called: (a) `run_ensemble` with ex5's transition table at
+   B=16384, L=4096, E=256 for 200 rounds (K10 200 times), one round at
+   explicit draws equal to `table_round_plain`, K10's tapes equal to
+   K11's on ex5's machine at float32-exact uniforms (shared and
+   per-member shifts); (b) the ex5 machine with independent sites (K11
+   200 times), one round at per-member shifts equal to the reference's
+   delta-rolled loop written out (`independent_rounds_rolled_plain`);
+   (c) ex4 at E=32 (stride 128) for 200 rounds, K11 equal to its plain
+   version at shifts 0, 5, 127 and 4095; (d) the master-equation gates
+   of the JAX package's tests/test_master.py at their settings, the
+   port's `engine/master.py` the oracle: :75 (z < 6), :248 seed 0,
+   :323 seed 702 through its transition table, :396 (total variation
+   < 0.05), :441 and :497 (first passage, z < 6); (e) the ensemble side
+   of examples/ex2_master_oracle.py (every snapshot within z < 6 of the
+   master equation), and examples/ex2_first_passage.py's and
+   ex4_ignition.py's first-passage runs on 12 and 8 generator seeds:
+   each committed artifact's hit fraction and quartiles within z < 6 of
+   the seeds' mean on the seeds' own scatter (`artifact_z`: one run's
+   members share each round's sites, so they are not independent draws;
+   seeds are), ex4's pooled survival within 0.02 of its closed form;
+   (f) K10, K11 (shared and per-member shifts), K12 and K13 each alone
+   at B=16384, L=4096, by CUDA events, beside its bound, its plain
+   version and, for K13, `torch.bincount`; K12 and K13 equal to their
+   plain versions bit for bit, twice.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -152,10 +179,15 @@ from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
+from chemical_kinetics_and_program_execution_torch import markov as tmarkov
 from chemical_kinetics_and_program_execution_torch.engine import k1_source
+from chemical_kinetics_and_program_execution_torch.engine import (
+    master as tmaster,
+)
 from chemical_kinetics_and_program_execution_torch.models.initial_states import (  # noqa: E501
     chemical_turing_p0,
     copolymerization_p0,
+    ferromagnet_p0,
 )
 from chemical_kinetics_and_program_execution_torch.ode import dop853, dopri5
 from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
@@ -258,11 +290,18 @@ def k1_bytes(dm, events=E):
 
 def yardstick_bins(tape, size_a, cl_k):
     """The bin of every window that the reference counts, found apart
-    from the port's `window_bins` for the `torch.bincount` yardstick:
-    each rank as sum_j tape[:, (i+j) mod L] * (size_a**(cl_k-1-j) mod
-    2**32), taken mod 2**32 by `torch.remainder` and read as an int32;
-    a rank in [-n, 0) counts in bin rank + n, any other outside [0, n)
-    is dropped."""
+    from the port's `window_bins` for the `torch.bincount` yardstick
+    (`yardstick_ranks`), flat in row-major order."""
+    rank, keep = yardstick_ranks(tape, size_a, cl_k)
+    return rank[keep]
+
+
+def yardstick_ranks(tape, size_a, cl_k):
+    """[B, L] bins of every window, found apart from the port's: each
+    rank as sum_j tape[:, (i+j) mod L] * (size_a**(cl_k-1-j) mod 2**32),
+    taken mod 2**32 by `torch.remainder` and read as an int32; a rank in
+    [-n, 0) counts in bin rank + n, any other outside [0, n) is dropped
+    (the mask, second)."""
     n, L = size_a**cl_k, tape.shape[1]
     cols = torch.arange(L, device=tape.device)
     rank = torch.zeros(tape.shape, dtype=torch.int64, device=tape.device)
@@ -272,7 +311,7 @@ def yardstick_bins(tape, size_a, cl_k):
         rank = torch.remainder(rank + torch.remainder(term, 2**32), 2**32)
     rank = torch.where(rank >= 2**31, rank - 2**32, rank)
     rank = torch.where(rank < 0, rank + n, rank)
-    return rank[(rank >= 0) & (rank < n)]
+    return rank, (rank >= 0) & (rank < n)
 
 
 def k2_bytes(n_bins):
@@ -1967,6 +2006,787 @@ def loose_phase(dev, kernels):
         "host_us_per_launch": k9_self["host_us_per_launch"]}
 
 
+# --- Phase 9: the rolled lattice rounds (K10-K13) against exact answers -------
+
+LATTICE_ROUNDS = 200
+# Machines phase 9 runs beside phase 3's (their K1 and K11 units built
+# in phase 2).
+LATTICE_TAGS = ["ex3-copolymerization"]
+WIDE_E = L // 128  # stride 128, above the plane path's 64
+EX2, EX3 = "ex2-ferromagnetic-chain", "ex3-copolymerization"
+LATTICE_WRAPPERS = {"K10": ens.table_round, "K11": ens.lattice_round,
+                    "K12": ens.pattern_scan,
+                    "K13": ens.weighted_window_counts}
+LATTICE_PLAIN = [ens.table_round_plain, ens.lattice_round_plain,
+                 ens.pattern_scan_plain, ens.weighted_window_counts_plain,
+                 ens.plane_round_plain, ens.window_counts_plain]
+LATTICE_KERNELS = {
+    "K10": ("K10 table_round", SRC + "table_round.cu",
+            "the JAX package's engine/ensemble.py:927 _apply_lattice_round "
+            "(XLA)"),
+    "K11": ("K11 lattice_round", SRC + "lattice_round.cuh",
+            "the JAX package's engine/ensemble.py:989 "
+            "_apply_lattice_round_fsm, :913 _roll_cols, :1229 _roll_rows "
+            "(XLA)"),
+    "K12": ("K12 pattern_scan", SRC + "pattern_scan.cu",
+            "the JAX package's engine/ensemble.py:1533 contains_pattern, "
+            ":2750 pattern_progress, the t_hit update of "
+            ":1580-1589 first_passage_times (XLA)"),
+    "K13": ("K13 weighted_window_counts", SRC + "weighted_counts.cu",
+            "the JAX package's engine/ensemble.py:2904 "
+            "weighted_window_counts (XLA)"),
+}
+# The gates' tolerance: |z| below this, as the JAX package's
+# tests/test_master.py and the examples hold them.
+Z_GATE = 6.0
+EX2FP = dict(cl_k=6, p_pair=0.02, B=4096, L=128, E=4, rounds=4800,
+             pattern=(1, 1, 1, 1), seeds=12)
+EX4IG = dict(cl_k=4, pf=0.16, cursor=0.02, B=4096, L=128, E=4,
+             t_max=60.0, sym_x=7, seeds=8)
+
+
+def fuzz_program(rng, size_a, depth):
+    """The fuzz statement grammar of the JAX package's tests
+    (tests/test_fuzz.py:31 `_gen_program`), which its master-equation
+    gates register as rules: the same program from the same seed."""
+    n = rng.randint(1, 3)
+    prog = []
+    for _ in range(n):
+        kind = rng.choice(["get_branch", "set", "choose_branch", "copy"]
+                          if depth > 0 else ["set", "copy"])
+        tape = bool(rng.randint(2))
+        idx = int(rng.randint(-1, 3))
+        if kind == "get_branch":
+            prog.append(("get_branch", tape, idx,
+                         [fuzz_program(rng, size_a, depth - 1)
+                          for _ in range(size_a)]))
+        elif kind == "choose_branch":
+            n_opts = int(rng.randint(2, 4))
+            w = rng.rand(n_opts) + 0.1
+            prog.append(("choose_branch", tuple(w / w.sum()),
+                         [fuzz_program(rng, size_a, depth - 1)
+                          for _ in range(n_opts)]))
+        elif kind == "set":
+            prog.append(("set", tape, idx, int(rng.randint(size_a))))
+        else:
+            src = bool(rng.randint(2))
+            prog.append(("copy", src, idx, not src,
+                         int(rng.randint(-1, 2))))
+    return prog
+
+
+def run_fuzz_program(t, prog, size_a):
+    """tests/test_fuzz.py:64 `_run_program`."""
+    for stmt in prog:
+        if stmt[0] == "get_branch":
+            run_fuzz_program(t, stmt[3][t.get(stmt[1], stmt[2])], size_a)
+        elif stmt[0] == "choose_branch":
+            k = t.vector_choose(list(stmt[1]), list(range(len(stmt[2]))))
+            run_fuzz_program(t, stmt[2][k], size_a)
+        elif stmt[0] == "set":
+            t.set(stmt[1], stmt[2], stmt[3])
+        else:
+            _, src, idx, dst, didx = stmt
+            t.set(dst, idx + didx, (t.get(src, idx) + 1) % size_a)
+
+
+def pin_data(stmts):
+    """tests/test_master.py:170-183: the program onto the data tape."""
+    out = []
+    for s in stmts:
+        if s[0] == "get_branch":
+            out.append((s[0], True, s[2], [pin_data(b) for b in s[3]]))
+        elif s[0] == "choose_branch":
+            out.append((s[0], s[1], [pin_data(b) for b in s[2]]))
+        elif s[0] == "set":
+            out.append((s[0], True, s[2], s[3]))
+        else:
+            out.append((s[0], True, s[2], True, s[4]))
+    return out
+
+
+def register_fuzz(seed, size_a, single_tape):
+    """The JAX package's fuzz rule of ``seed`` in the port's registry:
+    `_fuzz-master-*` (single tape, tests/test_master.py:161) or `_fuzz-*`
+    (two tapes, tests/test_fuzz.py:83)."""
+    if single_tape:
+        tag = f"_fuzz-master-{size_a}-{seed}"
+        prog = pin_data(fuzz_program(np.random.RandomState(7000 + seed),
+                                     size_a, 2))
+    else:
+        tag = f"_fuzz-{size_a}-{seed}"
+        prog = fuzz_program(np.random.RandomState(seed), size_a, 2)
+    if tag not in tdsl.registered_problems():
+        def rule(t, prog=prog, size_a=size_a):
+            run_fuzz_program(t, prog, size_a)
+
+        tdsl.register_problem(
+            tag, tuple(f"S{i}" for i in range(size_a)))(rule)
+    return tag
+
+
+def zero_lattice_counts():
+    for f in LATTICE_WRAPPERS.values():
+        f.launches = 0
+    ens.plane_round.launches = 0
+    ens.window_counts.launches = 0
+    for f in LATTICE_PLAIN:
+        f.calls = 0
+
+
+def lattice_path(label, fn, need, totals):
+    """Runs the main path ``fn`` with every count set to 0 just before and
+    read just after; raises unless each kernel of ``need`` launched and
+    no plain version ran; adds K10-K13's launches to ``totals``. Returns
+    (fn's result, seconds, launches, device ms by CUDA events)."""
+    zero_lattice_counts()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in LATTICE_WRAPPERS.items()}
+    launches["K1"] = ens.plane_round.launches
+    plain = sum(f.calls for f in LATTICE_PLAIN)
+    if plain or any(launches[k] == 0 for k in need):
+        raise AssertionError(f"path {label}: launches {launches}, plain "
+                             f"calls {plain}")
+    for k in LATTICE_WRAPPERS:
+        totals[k] = totals.get(k, 0) + launches[k]
+    return result, seconds, launches, start.elapsed_time(end)
+
+
+def lattice_say(label, what, seconds, rounds, launches, extra=""):
+    say(f"path {label}: {what}: {seconds:.3f} s, "
+        f"{rounds / seconds:.1f} rounds/s; launches "
+        f"{({k: v for k, v in launches.items() if v})}{extra}")
+
+
+def active_tapes(gen, tag, size_a, batch, length, dev):
+    p_sym, d_sym = ACTIVE_SYMBOLS.get(tag, (range(size_a),) * 2)
+    out = []
+    for sym in (p_sym, d_sym):
+        sym = torch.as_tensor(list(sym), dtype=torch.int32, device=dev)
+        out.append(sym[torch.randint(0, len(sym), (batch, length),
+                                     generator=gen, device=dev)])
+    return out
+
+
+def table_bytes_k10(dt, events, batch=B):
+    """Least bytes a K10 round moves: every window cell read (4 B), the
+    cells some spec writes written (4 B), a uniform a site, the table
+    read once."""
+    written = int(dt.wr_mask.any(dim=0).sum())
+    table = sum(t.numel() * t.element_size()
+                for t in (dt.out_cum, dt.out_world, dt.wr_mask, dt.wr_val))
+    return (batch * events * (4 * dt.n_cells + 4 * written
+                              + dt.out_cum.element_size()) + table)
+
+
+def weighted_yardstick(tape, w, size_a, cl_k):
+    """The bins and weights of `torch.bincount`'s weighted sum: each
+    counted window's bin (`yardstick_ranks`) with its member's weight."""
+    rank, keep = yardstick_ranks(tape, size_a, cl_k)
+    return rank[keep], w[:, None].expand(tape.shape)[keep]
+
+
+def z_of(reps, want, floor=None):
+    reps = np.stack(reps)
+    sem = reps.std(axis=0, ddof=1) / np.sqrt(len(reps))
+    scale = np.maximum(sem, 1e-6 if floor is None else floor)
+    return float((np.abs(reps.mean(axis=0) - want) / scale).max())
+
+
+def survival_z(curves, S_exact, batch):
+    curves = np.stack(curves)
+    sem = curves.std(axis=0, ddof=1) / np.sqrt(len(curves))
+    floor = np.sqrt(np.maximum(S_exact * (1 - S_exact), 1e-9)
+                    / (len(curves) * batch))
+    return float((np.abs(curves.mean(axis=0) - S_exact)
+                  / np.maximum(sem, floor)).max())
+
+
+def master_gates(dev, gen, totals, record):
+    """(d): the master-equation gates of the JAX package's
+    tests/test_master.py on the card, at their settings and gates, with
+    the port's master equation as the oracle."""
+    # :75, the ensemble dynamics: ex2, L=12, E=1, 18 rounds (shared
+    # sites: K1's plane path), 16 runs of 512, K13's marginals.
+    size_a, cl_k, Lm, rounds = 2, 3, 12, 18
+    spd = np.asarray(ferromagnet_p0(cl_k, p_pair=0.1)).reshape((2,) * cl_k)
+    p0 = tmaster.ring_trace_measure(spd, size_a, cl_k, Lm)
+    Q = tmaster.build_ring_generator(EX2, Lm)
+    t_end = rounds * -math.log1p(-1 / Lm)
+    want = tmaster.state_window_marginals(
+        tmaster.solve_master(Q, p0, [0.0, t_end])[-1], Lm, size_a, cl_k)
+    dm2 = ens.compile_decision_machine(EX2)
+    ones = torch.full((512,), 1 / 512, dtype=torch.float64, device=dev)
+
+    def dynamics():
+        reps = []
+        for _ in range(16):
+            d = ens.sample_tapes_from_spd(gen, spd, size_a, cl_k, 512, Lm,
+                                          ring=True, device=dev)
+            (_, d), _ = ens.run_ensemble(
+                gen, (torch.zeros_like(d), d), dm2, (rounds, 1), device=dev)
+            reps.append(ens.weighted_window_counts(d, ones, size_a, cl_k,
+                                                   device=dev).cpu().numpy())
+        return reps
+
+    reps, sec, la, _ = lattice_path("d:75", dynamics, ("K1", "K13"), totals)
+    z = z_of(reps, want)
+    moved = float(np.abs(want - tmaster.state_window_marginals(
+        p0, Lm, size_a, cl_k)).max())
+    if not (z < Z_GATE and moved > 1e-3):
+        raise AssertionError(f"test_master.py:75 gate: z {z}, moved {moved}")
+    record("d:75", la, seconds=sec, z=z)
+    lattice_say("d:75", "ex2 ensemble dynamics against the master equation "
+                f"(z {z:.2f} < {Z_GATE})", sec, 16 * rounds, la)
+
+    # :248, seed 0: a random single-tape rule, independent sites (K11).
+    tag = register_fuzz(0, 2, True)
+    dmf = ens.compile_decision_machine(tag)
+    Q = tmaster.build_ring_generator(tag, Lm)
+    p = np.full(2**Lm, 1.0 / 2**Lm)
+    for _ in range(12):
+        p = p + (Q @ p) / Lm
+    want = tmaster.state_window_marginals(p, Lm, 2, 3)
+
+    def fuzz():
+        reps = []
+        for _ in range(8):
+            d = torch.randint(0, 2, (512, Lm), generator=gen, device=dev,
+                              dtype=torch.int32)
+            (_, d), _ = ens.run_ensemble(gen, (torch.zeros_like(d), d), dmf,
+                                         (12, 1), independent_sites=True,
+                                         device=dev)
+            reps.append(ens.weighted_window_counts(d, ones, 2, 3,
+                                                   device=dev).cpu().numpy())
+        return reps
+
+    reps, sec, la, _ = lattice_path("d:248", fuzz, ("K11", "K13"), totals)
+    floor = np.sqrt(np.maximum(want, 1e-9) * np.clip(1 - want, 0, 1)
+                    / (8 * 512 * Lm / 3))
+    z = z_of(reps, want, floor)
+    if not (z < Z_GATE and np.stack(reps).mean(0)[want > 1e-3].min() > 0):
+        raise AssertionError(f"test_master.py:248 gate (seed 0): z {z}")
+    record("d:248", la, seconds=sec, z=z)
+    lattice_say("d:248", f"fuzz rule seed 0, independent sites (z {z:.2f})",
+                sec, 8 * 12, la)
+
+    # :323, seed 702 at L=10: a two-tape rule through its transition
+    # table (its machine's 155 write specs are beyond K11's unit),
+    # independent sites (K10), joint windows.
+    tag = register_fuzz(702, 2, False)
+    dtf = ens.device_table(ens.compile_transition_table(tag), device=dev)
+    Lp = 10
+    t0 = time.perf_counter()
+    Q = tmaster.build_pair_ring_generator(tag, Lp)
+    S = 2 ** (2 * Lp)
+    p = np.full(S, 1.0 / S)
+    for _ in range(12):
+        p = p + (Q @ p) / Lp
+    want = tmaster.pair_state_window_marginals(p, Lp, 2, 3)
+    host_s = time.perf_counter() - t0
+
+    def pair():
+        reps = []
+        for _ in range(8):
+            pt = torch.randint(0, 2, (512, Lp), generator=gen, device=dev,
+                               dtype=torch.int32)
+            dt = torch.randint(0, 2, (512, Lp), generator=gen, device=dev,
+                               dtype=torch.int32)
+            (pt, dt), _ = ens.run_ensemble(gen, (pt, dt), dtf, (12, 1),
+                                           independent_sites=True,
+                                           device=dev)
+            reps.append(ens.weighted_window_counts(
+                pt * 2 + dt, ones, 4, 3, device=dev).cpu().numpy())
+        return reps
+
+    reps, sec, la, _ = lattice_path("d:323", pair, ("K10", "K13"), totals)
+    floor = np.sqrt(np.maximum(want, 1e-9) * np.clip(1 - want, 0, 1)
+                    / (8 * 512 * Lp / 3))
+    z = z_of(reps, want, floor)
+    if not z < Z_GATE:
+        raise AssertionError(f"test_master.py:323 gate (seed 702): z {z}")
+    record("d:323", la, seconds=sec, z=z, master_host_s=host_s)
+    lattice_say("d:323", f"two-tape fuzz seed 702 by its table, independent "
+                f"sites (z {z:.2f}; the pair master equation {host_s:.1f} s "
+                "of host)", sec, 8 * 12, la)
+
+    # :396, ex3 on an L=5 ring, one round from a concrete pair (K11).
+    dm3 = ens.compile_decision_machine(EX3)
+    Q3 = tmaster.build_pair_ring_generator(EX3, 5).tocsc()
+    xp = torch.tensor([0, 1, 0, 0, 0], dtype=torch.int32, device=dev)
+    xd = torch.tensor([0, 2, 0, 0, 0], dtype=torch.int32, device=dev)
+    x = 0
+    for v in [0, 1, 0, 0, 0, 0, 2, 0, 0, 0]:
+        x = x * 4 + v
+    (pt2, dt2), sec, la, _ = lattice_path(
+        "d:396", lambda: ens.run_ensemble(
+            gen, (xp.repeat(4096, 1), xd.repeat(4096, 1)), dm3, (1, 1),
+            independent_sites=True, device=dev)[0], ("K11",), totals)
+    ranks = np.zeros(4096, np.int64)
+    for tape in (pt2.cpu().numpy(), dt2.cpu().numpy()):
+        for i in range(5):
+            ranks = ranks * 4 + tape[:, i]
+    emp = np.bincount(ranks, minlength=4**10) / 4096
+    col = np.zeros(4**10)
+    col[x] = 1.0
+    col += np.asarray(Q3[:, x].todense()).ravel() / 5
+    tv = 0.5 * float(np.abs(emp - col).sum())
+    if not (tv < 0.05 and col[x] < 1.0):
+        raise AssertionError(f"test_master.py:396 gate: tv {tv}")
+    record("d:396", la, seconds=sec, tv=tv)
+    lattice_say("d:396", f"ex3 at L=5, E=1 (total variation {tv:.4f} < "
+                "0.05)", sec, 1, la)
+
+    # :441, first passage on ex2 (K11 and K12).
+    pattern, rounds = (1, 1, 1), 60
+    spd = np.asarray(ferromagnet_p0(cl_k, p_pair=0.3)).reshape((2,) * cl_k)
+    p0 = tmaster.ring_trace_measure(spd, 2, cl_k, Lm)
+    hit = tmaster.ring_contains_pattern(Lm, 2, pattern)
+    S_exact = tmaster.discrete_survival(tmaster.build_ring_generator(EX2, Lm),
+                                        p0, hit, rounds, Lm)
+    dt_round = -math.log1p(-1 / Lm)
+
+    def passage():
+        curves = []
+        for _ in range(16):
+            d = ens.sample_tapes_from_spd(gen, spd, 2, cl_k, 512, Lm,
+                                          ring=True, device=dev)
+            t_hit, _, _ = ens.first_passage_times(
+                gen, (torch.zeros_like(d), d), dm2, pattern, (rounds, 1),
+                device=dev)
+            t_hit = t_hit.cpu().numpy()
+            curves.append([float((t_hit >= dt_round * (r + 0.5)).mean())
+                           for r in range(rounds + 1)])
+        return curves
+
+    curves, sec, la, _ = lattice_path("d:441", passage, ("K11", "K12"),
+                                      totals)
+    z = survival_z(curves, S_exact, 512)
+    if not (z < Z_GATE and S_exact[-1] < 0.85):
+        raise AssertionError(f"test_master.py:441 gate: z {z}")
+    record("d:441", la, seconds=sec, z=z)
+    lattice_say("d:441", f"ex2 first passage against the absorbing master "
+                f"equation (z {z:.2f})", sec, 16 * rounds, la)
+
+    # :497, two-tape first passage on ex3 at L=5 (K11 and K12).
+    p_prog = torch.tensor([0.6, 0.4, 0.0, 0.0], dtype=torch.float64)
+    p_data = torch.tensor([0.7, 0.0, 0.3, 0.0], dtype=torch.float64)
+    digits = tmaster._ring_digits(5, 4)
+
+    def iid_ring(probs):
+        w = np.ones(4**5)
+        for i in range(5):
+            w = w * probs.numpy()[digits[:, i]]
+        return w
+
+    p0 = np.kron(iid_ring(p_prog), iid_ring(p_data))
+    hit = tmaster.pair_ring_contains_pattern(5, 4, (1, 2))
+    S_exact = tmaster.discrete_survival(
+        tmaster.build_pair_ring_generator(EX3, 5), p0, hit, 60, 5)
+    dt_round = -math.log1p(-1 / 5)
+
+    def pair_passage():
+        curves = []
+        for _ in range(16):
+            pt = torch.multinomial(p_prog.to(dev), 512 * 5, True,
+                                   generator=gen).view(512, 5)
+            dt = torch.multinomial(p_data.to(dev), 512 * 5, True,
+                                   generator=gen).view(512, 5)
+            t_hit, _, _ = ens.first_passage_times(gen, (pt, dt), dm3, (1, 2),
+                                                  (60, 1), device=dev)
+            t_hit = t_hit.cpu().numpy()
+            curves.append([float((t_hit >= dt_round * (r + 0.5)).mean())
+                           for r in range(61)])
+        return curves
+
+    curves, sec, la, _ = lattice_path("d:497", pair_passage, ("K11", "K12"),
+                                      totals)
+    z = survival_z(curves, S_exact, 512)
+    if not (z < Z_GATE and 0.02 < 1 - S_exact[-1] < 0.9):
+        raise AssertionError(f"test_master.py:497 gate: z {z}")
+    record("d:497", la, seconds=sec, z=z)
+    lattice_say("d:497", f"ex3 first A-M bond against the pair kernel "
+                f"(z {z:.2f})", sec, 16 * 60, la)
+
+
+def example_runs(dev, gen, totals, record):
+    """(e): the examples' ensemble runs at their settings."""
+    # examples/ex2_master_oracle.py: B=8192, L=12, E=1, 24 snapshots of 2
+    # rounds, independent sites; p(DUD) at every snapshot within its gate.
+    Bm, Lm, snaps, per = 8192, 12, 24, 2
+    spd = np.asarray(ferromagnet_p0(5, p_pair=0.1)).reshape((2,) * 5)
+    ts = np.arange(snaps + 1) * per * -math.log1p(-1 / Lm)
+    p_states = tmaster.solve_master(tmaster.build_ring_generator(EX2, Lm),
+                                    tmaster.ring_trace_measure(spd, 2, 5,
+                                                               Lm), ts)
+    dud = 0 * 4 + 1 * 2 + 0
+    exact = np.array([tmaster.state_window_marginals(p, Lm, 2, 3)[dud]
+                      for p in p_states])
+    dm2 = ens.compile_decision_machine(EX2)
+    w = torch.full((Bm,), 1 / Bm, dtype=torch.float64, device=dev)
+
+    def oracle_run():
+        d = ens.sample_tapes_from_spd(gen, spd, 2, 5, Bm, Lm, ring=True,
+                                      device=dev)
+        pt = torch.zeros_like(d)
+        out = [ens.weighted_window_counts(d, w, 2, 3, device=dev)[dud]]
+        for _ in range(snaps):
+            (pt, d), _ = ens.run_ensemble(gen, (pt, d), dm2, (per, 1),
+                                          independent_sites=True,
+                                          device=dev)
+            out.append(ens.weighted_window_counts(d, w, 2, 3,
+                                                  device=dev)[dud])
+        return torch.stack(out).cpu().numpy()
+
+    emp, sec, la, _ = lattice_path("e:ex2_master_oracle", oracle_run,
+                                   ("K11", "K13"), totals)
+    se = np.sqrt(np.maximum(exact, 1e-9) / (Bm * Lm / 3))
+    z = float((np.abs(emp - exact) / np.maximum(se, 1e-9)).max())
+    if not z < Z_GATE:
+        raise AssertionError(f"ex2_master_oracle: max z {z}")
+    record("e:ex2_master_oracle", la, seconds=sec, z=z)
+    lattice_say("e:ex2_master_oracle", f"{snaps + 1} snapshots of p(DUD) "
+                f"(max z {z:.2f} < {Z_GATE})", sec, snaps * per, la)
+
+    # examples/ex2_first_passage.py: its run on several generator seeds,
+    # the committed artifact held to them.
+    c = EX2FP
+    p0 = np.asarray(ferromagnet_p0(c["cl_k"], p_pair=c["p_pair"],
+                                   corrected=True)).ravel()
+
+    def fp_runs():
+        out = []
+        for s in range(c["seeds"]):
+            g = torch.Generator(device=dev).manual_seed(4000 + s)
+            d = ens.sample_tapes_from_spd(g, p0, 2, c["cl_k"], c["B"],
+                                          c["L"], device=dev)
+            out.append(ens.first_passage_times(
+                g, (torch.zeros_like(d), d), dm2, c["pattern"],
+                (c["rounds"], c["E"]), device=dev)[0].cpu().numpy())
+        return out
+
+    runs, sec, la, _ = lattice_path("e:ex2_first_passage", fp_runs,
+                                    ("K11", "K12"), totals)
+    z, mean, sd, art = artifact_z("ex2_first_passage.npz", runs)
+    record("e:ex2_first_passage", la, seconds=sec, z=z.tolist(),
+           seeds_mean=mean.tolist(), seeds_sd=sd.tolist(),
+           artifact=art.tolist())
+    lattice_say("e:ex2_first_passage", f"{c['seeds']} seeds of {c['B']} x "
+                f"{c['rounds']} rounds; hit fraction and quartiles "
+                f"{np.round(mean, 4).tolist()} (sd {np.round(sd, 4).tolist()})"
+                f", the artifact's {np.round(art, 4).tolist()}, z "
+                f"{np.round(z, 2).tolist()}", sec, c["seeds"] * c["rounds"],
+                la)
+
+    # examples/ex4_ignition.py's first_passage_times call (first X on the
+    # program tape) on several seeds: the committed artifact held to them,
+    # and their pooled survival curve on the lattice closed form within
+    # the example's own gate (0.02).
+    c = EX4IG
+    rounds = int(round(c["t_max"] / -math.log1p(-c["E"] / c["L"])))
+    p_fuel = chemical_turing_p0(c["cl_k"], tape_fraction=0.0,
+                                powered_fraction=c["pf"]).reshape(
+        (9,) * c["cl_k"])
+    p_tape = chemical_turing_p0(c["cl_k"], tape_fraction=1.0,
+                                cursor_fraction=c["cursor"],
+                                random01=True).reshape((9,) * c["cl_k"])
+    p_fire = sum(float(np.squeeze(tmarkov.seq_prob(p_tape, (0, b1, b2))[0]))
+                 for b1 in (4, 5) for b2 in (4, 5))
+    a = p_fire * float(np.squeeze(tmarkov.seq_prob(p_fuel, (6,))[0]))
+    dm4 = ens.compile_decision_machine(EX4)
+
+    def ignition():
+        out = []
+        for s in range(c["seeds"]):
+            g = torch.Generator(device=dev).manual_seed(5000 + s)
+            pt = ens.sample_tapes_from_spd(g, p_fuel, 9, c["cl_k"], c["B"],
+                                           c["L"], ring=True, device=dev)
+            dt = ens.sample_tapes_from_spd(g, p_tape, 9, c["cl_k"], c["B"],
+                                           c["L"], ring=True, device=dev)
+            out.append(ens.first_passage_times(
+                g, (pt, dt), dm4, (c["sym_x"],), (rounds, c["E"]),
+                data_tape=False, device=dev)[0].cpu().numpy())
+        return out
+
+    runs, sec, la, _ = lattice_path("e:ex4_ignition", ignition,
+                                    ("K11", "K12"), totals)
+    z, mean, sd, art = artifact_z("ex4_ignition.npz", runs)
+    ts = np.linspace(0.0, c["t_max"], 300)
+    pooled = np.concatenate(runs)
+    surv = np.array([(pooled > t).mean() for t in ts])
+    dev_max = float(np.abs(surv - (1 - a + a * np.exp(-0.5 * ts)) ** c["L"])
+                    .max())
+    if not dev_max < 0.02:
+        raise AssertionError(f"ex4_ignition: survival {dev_max} from the "
+                             "closed form")
+    record("e:ex4_ignition", la, seconds=sec, z=z.tolist(),
+           seeds_mean=mean.tolist(), seeds_sd=sd.tolist(),
+           artifact=art.tolist(), survival_dev=dev_max)
+    lattice_say("e:ex4_ignition", f"{c['seeds']} seeds of {c['B']} x "
+                f"{rounds} rounds; pooled survival within {dev_max:.4f} of "
+                f"(1-a+a e^(-t/2))^L (gate 0.02); hit fraction and quartiles "
+                f"{np.round(mean, 4).tolist()} (sd {np.round(sd, 4).tolist()})"
+                f", the artifact's {np.round(art, 4).tolist()}, z "
+                f"{np.round(z, 2).tolist()}", sec, c["seeds"] * rounds, la)
+
+
+def hit_stats(t_hit):
+    """Hit fraction and the quartiles of the finite hit times."""
+    fin = t_hit[np.isfinite(t_hit)]
+    return np.array([np.isfinite(t_hit).mean(),
+                     *np.quantile(fin, [0.25, 0.5, 0.75])])
+
+
+def artifact_z(name, runs):
+    """The committed run ``examples/<name>`` (its ``t_hit``) against the
+    port's runs of the same settings on other seeds: each of `hit_stats`
+    as a z against the seeds' mean and empirical scatter. Members of one
+    run share each round's sites, so its members are not independent
+    draws; the seeds are. The artifact is one run, so its difference from
+    the seeds' mean has variance sd**2 (1 + 1/seeds). Raises unless every
+    z is below Z_GATE."""
+    art = hit_stats(np.load(EXAMPLES / name)["t_hit"])
+    stats = np.stack([hit_stats(r) for r in runs])
+    mean, sd = stats.mean(axis=0), stats.std(axis=0, ddof=1)
+    z = np.abs(art - mean) / (sd * math.sqrt(1 + 1 / len(runs)))
+    if not float(z.max()) < Z_GATE:
+        raise AssertionError(f"{name}: z {z} (artifact {art}, seeds {mean} "
+                             f"+- {sd})")
+    return z, mean, sd, art
+
+
+def lattice_phase(dev, kernels):
+    """Phase 9 (module docstring)."""
+    gen = torch.Generator(device=dev).manual_seed(909)
+    totals, paths = {}, {}
+    max_err = dict.fromkeys(LATTICE_WRAPPERS, 0)
+
+    def diff(name, pairs):
+        """The largest difference of the kernel's outputs from the plain
+        version's (``pairs``), kept for the kernels line."""
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs)
+        max_err[name] = max(max_err[name], err)
+        return err == 0.0
+
+    def record(label, launches, **kw):
+        paths[label] = {"launches": {k: v for k, v in launches.items() if v},
+                        **kw}
+
+    say("K10, K12, K13 in the library built in phase 2; K11 in each "
+        "machine's unit")
+    dm5 = ens.compile_decision_machine(MAIN_TAG)
+    tdt = ens.device_table(ens.compile_transition_table(MAIN_TAG), device=dev)
+    ptape = torch.randint(0, 3, (B, L), generator=gen, device=dev,
+                          dtype=torch.int32)
+    dtape = torch.zeros((B, L), dtype=torch.int32, device=dev)
+
+    def check_run(label, tapes, size_a):
+        for t in tapes:
+            if t.shape != (B, L) or t.dtype != torch.int32 or int(
+                    t.min()) < 0 or int(t.max()) >= size_a:
+                raise AssertionError(f"path {label}: tapes out of range")
+        if int((tapes[1] != dtape).sum()) == 0:
+            raise AssertionError(f"path {label}: the data tape never changed")
+
+    # (a) A transition table at full width (K10).
+    (tab, (_, times)), sec, la, ms = lattice_path(
+        "a", lambda: ens.run_ensemble(gen, (ptape, dtape), tdt,
+                                      (LATTICE_ROUNDS, E), device=dev),
+        ("K10",), totals)
+    if la["K10"] != LATTICE_ROUNDS or la["K11"] or la["K1"]:
+        raise AssertionError(f"path a: launches {la}")
+    check_run("a", tab, 5)
+    record("a", la, seconds=sec, device_ms=ms)
+    lattice_say("a", f"run_ensemble with ex5's table at B={B}, L={L}, E={E}",
+                sec, LATTICE_ROUNDS, la,
+                f"; {ms / LATTICE_ROUNDS * 1e3:.2f} us a round on the card "
+                f"(draws and conversions included), "
+                f"{B * E * LATTICE_ROUNDS / (ms * 1e-3):.4e} transitions/s")
+    s1 = torch.randint(0, L, (1,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    u64 = torch.rand((B, E), generator=gen, device=dev, dtype=torch.float64)
+    kp, kd = tab[0].clone(), tab[1].clone()
+    pp, pd = tab[0].clone(), tab[1].clone()
+    ens.table_round(tdt, kp, kd, s1, u64)
+    ens.table_round_plain(tdt, pp, pd, s1, u64)
+    torch.cuda.synchronize()
+    if not diff("K10", ((kp, pp), (kd, pd))):
+        raise AssertionError("K10 != plain at explicit draws")
+    u32 = torch.rand((B, E), generator=gen, device=dev)
+    for shift in (s1, torch.randint(0, L, (B,), generator=gen, device=dev,
+                                    dtype=torch.int32)):
+        kp, kd = tab[0].clone(), tab[1].clone()
+        mp, md = kp.to(torch.int8), kd.to(torch.int8)
+        ens.table_round(tdt, kp, kd, shift, u32.double())
+        ens.lattice_round(dm5, mp, md, shift, E, u32)
+        torch.cuda.synchronize()
+        if not (torch.equal(kp, mp.to(torch.int32))
+                and torch.equal(kd, md.to(torch.int32))):
+            raise AssertionError("K10 != K11 on ex5 at float32 uniforms")
+    say("K10 == table_round_plain at explicit draws, bit for bit; K10 == "
+        "K11 on ex5 at float32-exact uniforms (shared and per-member shifts)")
+
+    # (b) Independent sites at full width (K11).
+    (ind, _), sec, la, ms = lattice_path(
+        "b", lambda: ens.run_ensemble(gen, (ptape, dtape), dm5,
+                                      (LATTICE_ROUNDS, E),
+                                      independent_sites=True, device=dev),
+        ("K11",), totals)
+    if la["K11"] != LATTICE_ROUNDS or la["K10"] or la["K1"]:
+        raise AssertionError(f"path b: launches {la}")
+    check_run("b", ind, 5)
+    record("b", la, seconds=sec, device_ms=ms)
+    lattice_say("b", f"run_ensemble(independent_sites=True) on ex5's machine "
+                f"at B={B}, L={L}, E={E}", sec, LATTICE_ROUNDS, la,
+                f"; {ms / LATTICE_ROUNDS * 1e3:.2f} us a round on the card")
+    own = torch.randint(0, L, (1, B), generator=gen, device=dev,
+                        dtype=torch.int32)
+    kp, kd = ind[0].to(torch.int8), ind[1].to(torch.int8)
+    rp, rd = ens.independent_rounds_rolled_plain(dm5, kp.clone(), kd.clone(),
+                                                 own, E)
+    ens.run_lattice_rounds(dm5, kp, kd, own, E)
+    torch.cuda.synchronize()
+    if not diff("K11", ((kp, rp), (kd, rd))):
+        raise AssertionError("K11 != the JAX package's rolled loop")
+    say("K11 at per-member shifts == the reference's delta-rolled loop "
+        "(independent_rounds_rolled_plain), bit for bit")
+    del ind, rp, rd
+
+    # (c) A wide stride: ex4 at E=32, stride 128 (K11, shared shift).
+    dm4 = ens.compile_decision_machine(EX4)
+    wp, wd = active_tapes(gen, EX4, 9, B, L, dev)
+    (wide, _), sec, la, ms = lattice_path(
+        "c", lambda: ens.run_ensemble(gen, (wp, wd), dm4,
+                                      (LATTICE_ROUNDS, WIDE_E), device=dev),
+        ("K11",), totals)
+    if la["K11"] != LATTICE_ROUNDS or la["K1"]:
+        raise AssertionError(f"path c: launches {la}")
+    changed = int((wide[1] != wd).sum() + (wide[0] != wp).sum())
+    if not changed:
+        raise AssertionError("path c changed nothing")
+    record("c", la, seconds=sec, device_ms=ms, cells_changed=changed)
+    lattice_say("c", f"run_ensemble on ex4 at B={B}, L={L}, E={WIDE_E} "
+                f"(stride {L // WIDE_E})", sec, LATTICE_ROUNDS, la,
+                f"; {changed} cells changed")
+    w8 = [t.to(torch.int8) for t in wide]
+    for shift in (0, 5, 127, 4095):
+        u = torch.rand((B, WIDE_E), generator=gen, device=dev)
+        kp, kd = (t.clone() for t in w8)
+        pp, pd = (t.clone() for t in w8)
+        ens.lattice_round(dm4, kp, kd, shift, WIDE_E, u)
+        ens.lattice_round_plain(dm4, pp, pd, shift, WIDE_E, u)
+        torch.cuda.synchronize()
+        if not diff("K11", ((kp, pp), (kd, pd))):
+            raise AssertionError(f"K11 != plain on ex4 at shift {shift}")
+    say(f"K11 == lattice_round_plain on ex4 at E={WIDE_E}, shifts 0, 5, "
+        "127, 4095")
+    del wide, w8, wp, wd
+
+    # (d) The master-equation gates; (e) the examples.
+    master_gates(dev, gen, totals, record)
+    example_runs(dev, gen, totals, record)
+    say(f"phase 9 launches by kernel over its paths: {totals}")
+
+    # (f) Each kernel alone at the bench geometry, beside its bound, its
+    # plain version and, for K13, torch.bincount.
+    times = {}
+    pt32, dt32 = tab
+    s_shared = torch.randint(0, L, (1,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    s_own = torch.randint(0, L, (B,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    kp, kd = pt32.clone(), dt32.clone()
+    times["K10"] = {
+        "ms": cuda_ms(lambda: ens.table_round(tdt, kp, kd, s_shared, u64),
+                      50),
+        "plain_ms": cuda_ms(lambda: ens.table_round_plain(
+            tdt, kp, kd, s_shared, u64), 3),
+        "bound_ms": table_bytes_k10(tdt, E) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None}
+    p8, d8 = pt32.to(torch.int8), dt32.to(torch.int8)
+    for name, s in (("K11", s_shared), ("K11 per member", s_own)):
+        times[name] = {
+            "ms": cuda_ms(lambda: ens.lattice_round(dm5, p8, d8, s, E), 50),
+            "plain_ms": cuda_ms(lambda: ens.lattice_round_plain(
+                dm5, p8, d8, s, E), 3),
+            "bound_ms": k1_bytes(dm5) / HBM_BYTES_PER_S * 1e3,
+            "library_ms": None}
+    pat = torch.tensor([1, 1, 1], dtype=torch.int32, device=dev)
+    got = [ens.pattern_scan(d8, pat, 0) for _ in range(2)]
+    want = ens.pattern_scan_plain(d8, pat, 0)
+    prog = [ens.pattern_scan(d8, pat, 1) for _ in range(2)]
+    torch.cuda.synchronize()
+    want_prog = ens.pattern_scan_plain(d8, pat, 1)
+    if not diff("K12", [(g_, want) for g_ in got]
+                + [(g_, want_prog) for g_ in prog]):
+        raise AssertionError("K12 != plain")
+    times["K12"] = {
+        "ms": cuda_ms(lambda: ens.pattern_scan(d8, pat, 0), 50),
+        "plain_ms": cuda_ms(lambda: ens.pattern_scan_plain(d8, pat, 0), 3),
+        "bound_ms": (B * L + B) / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None, "present": int(want.sum())}
+    cl_k13 = 5
+    wts = torch.rand(B, generator=gen, device=dev, dtype=torch.float64)
+    wn = wts / wts.sum()
+    got = [ens.weighted_window_counts(dt32, wts, 5, cl_k13, device=dev)
+           for _ in range(2)]
+    want = ens.weighted_window_counts_plain(dt32, wn, 5, cl_k13)
+    bins, bw = weighted_yardstick(dt32, wn, 5, cl_k13)
+    lib = torch.bincount(bins, weights=bw, minlength=5**cl_k13) / L
+    torch.cuda.synchronize()
+    if not (diff("K13", [(g_, want) for g_ in got])
+            and torch.equal(got[0], got[1])):
+        raise AssertionError("K13 != plain")
+    lib_err = float(((lib - want).abs() / want.abs().clamp(min=1e-300))
+                    .max())
+    if not lib_err < 1e-9:
+        raise AssertionError(f"K13 against torch.bincount: rel {lib_err}")
+    times["K13"] = {
+        "ms": cuda_ms(lambda: ens.weighted_window_counts(
+            dt32, wts, 5, cl_k13, device=dev), 20),
+        "plain_ms": cuda_ms(lambda: ens.weighted_window_counts_plain(
+            dt32, wn, 5, cl_k13), 3),
+        "bound_ms": (B * L * 4 + B * 8 + 5**cl_k13 * 8) / HBM_BYTES_PER_S
+        * 1e3,
+        "library_ms": cuda_ms(lambda: torch.bincount(
+            bins, weights=bw, minlength=5**cl_k13), 20),
+        "bins": 5**cl_k13, "bincount_rel": lib_err}
+    for name, t in times.items():
+        say(f"{name} alone at B={B}, L={L}: {t['ms'] * 1e3:.2f} us against a "
+            f"bound of {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_ms'] / t['ms']:.3f} of it); plain "
+            f"{t['plain_ms']:.3f} ms; library "
+            + ("none" if t["library_ms"] is None
+               else f"{t['library_ms'] * 1e3:.2f} us (torch.bincount)"))
+    say("K12 == plain (contains, progress) and K13 == plain, twice each, "
+        "bit for bit")
+
+    shapes = {"K10": f"ex5 table, B={B}, L={L}, E={E}, float64 uniforms",
+              "K11": f"ex5 machine, B={B}, L={L}, E={E}, shared shift",
+              "K12": f"int8 [{B}, {L}], pattern (1, 1, 1)",
+              "K13": f"int32 [{B}, {L}], cl_k {cl_k13} ({5**cl_k13} bins)"}
+    for k, (name, src, replaces) in LATTICE_KERNELS.items():
+        t = times[k]
+        kernels[k] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": totals[k],
+            "max_abs_err": max_err[k], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "shape": shapes[k]}
+    kernels["K11"]["per_member"] = times["K11 per member"]
+    kernels["K10"]["paths"] = paths
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -1989,12 +2809,15 @@ def main(dev=None):
         say(smi_line)
 
     with Phase("2 build"):
-        machines = {tag: ens.compile_decision_machine(tag) for tag in TAGS}
-        jobs = {"K2-K8 (csrc/*.cu)": cuda.build,
+        machines = {tag: ens.compile_decision_machine(tag)
+                    for tag in TAGS + LATTICE_TAGS
+                    + [register_fuzz(0, 2, True)]}
+        jobs = {"K2-K10, K12, K13 (csrc/*.cu)": cuda.build,
                 "expander (csrc/expander.cc, g++)": native.build}
         for tag, dm in machines.items():
             src = k1_source.k1_source(dm)
-            jobs[f"K1 {tag}"] = (lambda src=src: cuda.build_unit("k1", src))
+            jobs[f"K1, K11 {tag}"] = (
+                lambda src=src: cuda.build_unit("k1", src))
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
             futures = {name: pool.submit(fn) for name, fn in jobs.items()}
             built = {name: f.result() for name, f in futures.items()}
@@ -2180,7 +3003,8 @@ def main(dev=None):
 
     with Phase("4 kernels against plain versions (full width)"):
         gen = torch.Generator(device=dev).manual_seed(1234)
-        for tag, dm in machines.items():
+        for tag in TAGS:
+            dm = machines[tag]
             for events in (E, E_TAIL):
                 kp, kd, u, err, changed = k1_against_plain(gen, tag, dm,
                                                            dev, events)
@@ -2301,6 +3125,10 @@ def main(dev=None):
     with Phase("8 loose-tolerance solves (K6's dopri5 rows), pruned exact "
                "mode (K9)"):
         loose_phase(dev, kernels)
+
+    with Phase("9 the rolled lattice rounds (K10-K13) against exact "
+               "answers"):
+        lattice_phase(dev, kernels)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

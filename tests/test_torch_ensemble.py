@@ -508,8 +508,7 @@ def test_plane_storage_roundtrip():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(bitslice=True), "bit-sliced"),
-    (dict(independent_sites=True), "lattice"),
+    (dict(bitslice=True), "bit-sliced round .* Queue 2 items 11-12"),
 ])
 def test_unported_run_options_raise(kwargs, match):
     _, tdm = _machines("ex5-msrtf-machine")
@@ -519,14 +518,6 @@ def test_unported_run_options_raise(kwargs, match):
 
 
 def test_unported_paths_raise():
-    _, tdm = _machines("ex5-msrtf-machine")
-    tapes = (np.zeros((4, 1024), np.int32),) * 2
-    table = jens.device_table(jens.compile_transition_table(
-        "ex2-ferromagnetic-chain"))
-    with pytest.raises(NotImplementedError, match="transition-table"):
-        tens.run_ensemble(0, tapes, table, (2, 64), device="cpu")
-    with pytest.raises(NotImplementedError, match="stride > 64"):
-        tens.run_ensemble(0, tapes, tdm, (2, 8), device="cpu")
     with pytest.raises(NotImplementedError, match="tau"):
         tens._choose_sampling_dist((0.5, 0.5), tau=0.5)
 

@@ -862,3 +862,158 @@ def test_gather_kernels_reject_bad_inputs(cuda, wide, dual):
         trhs.scatter(t, ev[:-1])
     with pytest.raises(TypeError, match="event values"):
         trhs.scatter(t, ev.float())
+
+
+# --- K10-K13: the rolled lattice rounds, pattern scans, weighted counts ----------
+
+
+def _rolled_draws(rng, tag, size_a, B, L, E, n, per_member):
+    p_sym, d_sym = _ACTIVE_SYMBOLS.get(tag, (range(size_a),) * 2)
+    pt = rng.choice(np.asarray(p_sym), (B, L)).astype(np.int32)
+    dt = rng.choice(np.asarray(d_sym), (B, L)).astype(np.int32)
+    pt[0, ::7] = size_a + 2  # out-of-range symbols in two rows
+    dt[1, ::5] = -3
+    shape = (n, B) if per_member else (n,)
+    shifts = rng.randint(-L, 2 * L, shape).astype(np.int32)
+    u = rng.rand(n, B, E)
+    pick = rng.randint(0, 3, (n, B, E))
+    u = np.where(pick == 0, u * 1e-3, np.where(pick == 1, 0.95 + 0.05 * u, u))
+    return pt, dt, shifts, u
+
+
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("tag,f32", [("ex5-msrtf-machine", False),
+                                     ("ex4-chemical-turing", False),
+                                     ("ex3-copolymerization", True)])
+def test_table_round_kernel_matches_plain(cuda, tag, f32, per_member):
+    """K10 and its plain version, both on the card, give identical tapes
+    after every round, at shared and per-member shifts, on float64 and
+    float32 tables, with symbols outside [0, size_a)."""
+    dt_ = tens.device_table(tens.compile_transition_table(tag),
+                            dtype=torch.float32 if f32 else None,
+                            device=cuda)
+    rng = np.random.RandomState(3)
+    B, L, E, n = 300, 512, 16, 12
+    pt, dt, shifts, u = _rolled_draws(rng, tag, dt_.size_a, B, L, E, n,
+                                      per_member)
+    u_t = torch.as_tensor(u, dtype=dt_.out_cum.dtype, device=cuda)
+    s_t = torch.as_tensor(shifts, device=cuda)
+    kp, kd = (torch.as_tensor(x, device=cuda) for x in (pt, dt))
+    pp, pd = kp.clone(), kd.clone()
+    launches = tens.table_round.launches
+    for k in range(n):
+        tens.table_round(dt_, kp, kd, s_t[k], u_t[k])
+        tens.table_round_plain(dt_, pp, pd, s_t[k], u_t[k])
+        torch.cuda.synchronize()
+        assert torch.equal(kp, pp) and torch.equal(kd, pd), k
+    assert tens.table_round.launches == launches + n
+    assert int((kd.cpu().numpy() != dt).sum() + (kp.cpu().numpy()
+                                                  != pt).sum()) > 0
+
+
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("tag,L,E", [("ex5-msrtf-machine", 512, 32),
+                                     ("ex4-chemical-turing", 1024, 8),
+                                     ("ex2-ferromagnetic-chain", 500, 5)])
+def test_lattice_round_kernel_matches_plain(cuda, tag, L, E, per_member):
+    """K11 and its plain version, both on the card, give identical int8
+    tapes after every round, at shared and per-member shifts, at strides
+    16 and above 64, with symbols outside [0, size_a); and all rounds
+    from one call (`run_lattice_rounds`) give the same tapes again."""
+    dm = tens.compile_decision_machine(tag)
+    rng = np.random.RandomState(4)
+    B, n = 257, 10
+    pt, dt, shifts, u = _rolled_draws(rng, tag, dm.size_a, B, L, E, n,
+                                      per_member)
+    u_t = torch.as_tensor(u, dtype=torch.float32, device=cuda)
+    s_t = torch.as_tensor(shifts, device=cuda)
+    start = [torch.as_tensor(x, device=cuda).to(torch.int8) for x in (pt, dt)]
+    kp, kd = (x.clone() for x in start)
+    pp, pd = (x.clone() for x in start)
+    launches = tens.lattice_round.launches
+    for k in range(n):
+        uk = u_t[k] if dm.has_choose else None
+        tens.lattice_round(dm, kp, kd, s_t[k], E, uk)
+        tens.lattice_round_plain(dm, pp, pd, s_t[k], E, uk)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, pp) and torch.equal(kd, pd), k
+    assert tens.lattice_round.launches == launches + n
+    cp, cd = (x.clone() for x in start)
+    tens.run_lattice_rounds(dm, cp, cd, s_t, E, u_t)
+    assert torch.equal(cp, kp) and torch.equal(cd, kd)
+    assert tens.lattice_round.launches == launches + 2 * n
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
+def test_pattern_scan_kernel_matches_plain(cuda, dtype):
+    """K12 equals its plain version in every mode, patterns across the
+    seam and longer than the ring included."""
+    rng = np.random.RandomState(5)
+    B, L = 1000, 300
+    tape = torch.as_tensor(rng.randint(0, 3, (B, L)), dtype=dtype,
+                           device=cuda)
+    tape[1, -2:] = 1
+    tape[1, 0] = 1
+    for pattern in [(1, 1, 1), (0, 1, 2), (2,), (1, 0) * 9, (), (0,) * 400]:
+        pat = torch.as_tensor(pattern, dtype=torch.int32, device=cuda)
+        for mode in (0, 1):
+            got = tens.pattern_scan(tape, pat, mode)
+            want = tens.pattern_scan_plain(tape, pat, mode)
+            assert torch.equal(got, want), (pattern, mode)
+        t0 = torch.where(torch.as_tensor(rng.rand(B) < 0.5, device=cuda),
+                         torch.inf, 1.5).to(torch.float64)
+        now = torch.tensor([2.5], dtype=torch.float64, device=cuda)
+        got = tens.pattern_scan(tape, pat, 2, t_hit=t0.clone(), t_now=now)
+        want = tens.pattern_scan_plain(tape, pat, 2, t_hit=t0.clone(),
+                                       t_now=now)
+        assert torch.equal(got, want), pattern
+
+
+@pytest.mark.parametrize("tag,pattern,data_tape", [
+    ("ex2-ferromagnetic-chain", (1, 1, 1, 1), True),
+    ("ex4-chemical-turing", (7,), False)])
+def test_first_passage_on_card_matches_cpu(cuda, tag, pattern, data_tape):
+    """The same explicit draws give the same hit times and tapes on the
+    card (K11 and K12 from one C call a chunk) and on the CPU."""
+    dm = tens.compile_decision_machine(tag)
+    rng = np.random.RandomState(6)
+    B, L, E, n = 128, 128, 4, 300
+    pt, dt, shifts, u = _rolled_draws(rng, tag, dm.size_a, B, L, E, n,
+                                      False)
+    if tag == "ex2-ferromagnetic-chain":
+        dt = (rng.rand(B, L) < 0.3).astype(np.int32)
+    else:  # no X (the pattern) at the start: cursors A over bits, fuel P
+        pt = rng.choice([5, 6], (B, L)).astype(np.int32)
+        dt = rng.choice([0, 4, 5], (B, L)).astype(np.int32)
+    u32 = u.astype(np.float32)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        out.append(tens.first_passage_from_draws(
+            dm, (torch.as_tensor(pt, device=dev),
+                 torch.as_tensor(dt, device=dev)), pattern,
+            torch.as_tensor(shifts, device=dev), E,
+            torch.as_tensor(u32, device=dev), data_tape=data_tape))
+    (t_k, h_k, (p_k, d_k)), (t_p, h_p, (p_p, d_p)) = out
+    assert torch.equal(t_k.cpu(), t_p) and torch.equal(h_k.cpu(), h_p)
+    assert torch.equal(p_k.cpu(), p_p) and torch.equal(d_k.cpu(), d_p)
+    assert int(h_p.sum()) > 0 and (t_p[h_p] > 0).any()
+
+
+@pytest.mark.parametrize("size_a,cl_k,B,L", [(5, 3, 2000, 700),
+                                             (9, 5, 300, 256),
+                                             (2, 14, 100, 1000)])
+def test_weighted_counts_kernel_matches_plain(cuda, size_a, cl_k, B, L):
+    """K13 equals its plain version bit for bit, twice (shared-memory
+    histograms, and device-memory ones above 16,384 bins), with symbols
+    outside [0, size_a)."""
+    rng = np.random.RandomState(size_a + cl_k)
+    tape = torch.as_tensor(rng.randint(-1, size_a, (B, L)), dtype=torch.int32,
+                           device=cuda)
+    w = torch.as_tensor(rng.rand(B) + 0.01, device=cuda)
+    launches = tens.weighted_window_counts.launches
+    a = tens.weighted_window_counts(tape, w, size_a, cl_k, device=cuda)
+    b = tens.weighted_window_counts(tape, w, size_a, cl_k, device=cuda)
+    plain = tens.weighted_window_counts_plain(tape, w / w.sum(), size_a,
+                                              cl_k)
+    assert tens.weighted_window_counts.launches == launches + 2
+    assert torch.equal(a, b) and torch.equal(a, plain)
