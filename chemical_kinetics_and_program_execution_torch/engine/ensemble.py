@@ -961,8 +961,8 @@ class DeviceTable:
     wr_val: torch.Tensor     # [W, n_cells] int32
     span: int
     # The weighted frontier's packed write decode (ROADMAP Queue 1 item
-    # 'Weighted frontier'): carried as the reference builds it, read by
-    # nothing here yet.
+    # 'Weighted frontier'): a field of the reference's table, left empty
+    # until the slice that reads it packs it.
     wr_words: torch.Tensor | None = None
     n_wr_words: int = 0
 
@@ -1006,24 +1006,7 @@ def device_table(table: TransitionTable, dtype=None, *,
     when asked (outcome probabilities below ~1e-7 then lose resolution).
     """
     device = config.get_device(device)
-    n_cells = table.n_cells
-    pv = table.size_a ** np.arange(n_cells - 1, -1, -1)
-    # 5-bit (writes?<<4 | symbol) fields, 6 an int32 word, as the
-    # reference packs them; none past 8 words or 4-bit symbols.
-    wm = np.asarray(table.wr_mask)
-    wv = np.asarray(table.wr_val)
-    n_spec = wm.shape[0]
-    n_words = (n_spec + 5) // 6
-    wr_words = None
-    if n_words <= 8 and table.size_a <= 15:
-        packed = np.zeros((n_cells, n_words), np.int64)
-        for c in range(n_cells):
-            for s in range(n_spec):
-                field = (int(wm[s, c]) << 4) | (int(wv[s, c]) & 15)
-                packed[c, s // 6] |= field << (5 * (s % 6))
-        wr_words = torch.as_tensor(packed.astype(np.int32), device=device)
-    else:
-        n_words = 0
+    pv = table.size_a ** np.arange(table.n_cells - 1, -1, -1)
 
     def i32(x):
         return torch.as_tensor(np.asarray(x, np.int32), device=device)
@@ -1040,7 +1023,7 @@ def device_table(table: TransitionTable, dtype=None, *,
         wr_mask=torch.as_tensor(np.asarray(table.wr_mask, bool),
                                 device=device),
         wr_val=i32(table.wr_val),
-        span=table.span, wr_words=wr_words, n_wr_words=n_words)
+        span=table.span)
 
 
 def _site_cols(L: int, E: int, lo: int, n: int, shift):
@@ -1780,18 +1763,26 @@ def first_passage_times(generator, tapes, dm, pattern, plan, *,
 
 
 def first_passage_from_draws(dm, tapes, pattern, shifts, events,
-                             uniforms=None, *, data_tape: bool = True):
+                             uniforms=None, *, data_tape: bool = True,
+                             rounds_per_call: int | None = None):
     """:func:`first_passage_times` with explicit draws on the tapes'
     device: ``shifts`` int32 [rounds] (any values, taken mod L),
     ``uniforms`` float32 [rounds, B, E] (read only by machines with
-    choose nodes). The tapes are copied, not changed."""
+    choose nodes). The tapes are copied, not changed. The rounds go out
+    ``rounds_per_call`` a C call (all in one when None), as
+    `first_passage_times` sends its chunks."""
     if shifts.dim() != 1:
         raise TypeError("first passage takes one shift a round, int32 "
                         "[rounds]")
     pt, dt_ = (_int8_copy(t, shifts.device) for t in tapes)
     _check_round_geometry(pt.shape[1], events, dm.span)
     n = shifts.shape[0]
-    chunks = [(0, n, uniforms if dm.has_choose else None)] if n else []
+    step = n if rounds_per_call is None else int(rounds_per_call)
+    if step < 1 and n:
+        raise ValueError("rounds_per_call must be at least 1")
+    u = uniforms if dm.has_choose else None
+    chunks = [(k0, min(step, n - k0), None if u is None else u[k0:k0 + step])
+              for k0 in range(0, n, max(step, 1))]
     return _first_passage(dm, pt, dt_, pattern, shifts, chunks, events,
                           data_tape)
 

@@ -127,7 +127,9 @@ Phases (each prints its wall time; every check raises on failure):
    B=16384, L=4096, E=256 for 200 rounds (K10 200 times), one round at
    explicit draws equal to `table_round_plain`, K10's tapes equal to
    K11's on ex5's machine at float32-exact uniforms (shared and
-   per-member shifts); (b) the ex5 machine with independent sites (K11
+   per-member shifts), and, where the uniforms choose the outcome, one
+   round on ex4's table (float64, 3 outcomes a row) and ex3's (float32,
+   2) equal to `table_round_plain`; (b) the ex5 machine with independent sites (K11
    200 times), one round at per-member shifts equal to the reference's
    delta-rolled loop written out (`independent_rounds_rolled_plain`);
    (c) ex4 at E=32 (stride 128) for 200 rounds, K11 equal to its plain
@@ -143,10 +145,16 @@ Phases (each prints its wall time; every check raises on failure):
    the seeds' mean on the seeds' own scatter (`artifact_z`: one run's
    members share each round's sites, so they are not independent draws;
    seeds are), ex4's pooled survival within 0.02 of its closed form;
+   on the card at those two runs' geometry, `first_passage_from_draws`
+   (K11 and K12 in mode 2, a few C calls of many rounds) equal, hit
+   times, hits and both tapes, to the loop of `lattice_round_plain` and
+   `pattern_scan_plain` at the same draws; K13 equal to its plain
+   version on the tapes of :75 and of ex2_master_oracle;
    (f) K10, K11 (shared and per-member shifts), K12 and K13 each alone
    at B=16384, L=4096, by CUDA events, beside its bound, its plain
    version and, for K13, `torch.bincount`; K12 and K13 equal to their
-   plain versions bit for bit, twice.
+   plain versions bit for bit, twice; path (a)'s round split into the
+   float64 draw alone and K10 over fresh shifts and uniforms.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2178,13 +2186,15 @@ def active_tapes(gen, tag, size_a, batch, length, dev):
 
 def table_bytes_k10(dt, events, batch=B):
     """Least bytes a K10 round moves: every window cell read (4 B), the
-    cells some spec writes written (4 B), a uniform a site, the table
-    read once."""
+    cells some spec writes written (4 B), a uniform a site where the
+    table has more than one outcome a row (with one, the slot is always
+    0 and no uniform is needed), the table read once."""
     written = int(dt.wr_mask.any(dim=0).sum())
     table = sum(t.numel() * t.element_size()
                 for t in (dt.out_cum, dt.out_world, dt.wr_mask, dt.wr_val))
-    return (batch * events * (4 * dt.n_cells + 4 * written
-                              + dt.out_cum.element_size()) + table)
+    uniform = dt.out_cum.element_size() if dt.out_cum.shape[1] > 1 else 0
+    return (batch * events * (4 * dt.n_cells + 4 * written + uniform)
+            + table)
 
 
 def weighted_yardstick(tape, w, size_a, cl_k):
@@ -2210,7 +2220,83 @@ def survival_z(curves, S_exact, batch):
                   / np.maximum(sem, floor)).max())
 
 
-def master_gates(dev, gen, totals, record):
+def first_passage_plain(dm, tapes, pattern, shifts, events, uniforms,
+                        data_tape):
+    """`first_passage_from_draws` written out with the plain versions on
+    the tapes' device: the scan at t = 0, then a `lattice_round_plain`
+    and a `pattern_scan_plain` (mode 2) a round."""
+    pt, dt = (t.to(torch.int8).clone() for t in tapes)
+    dev = pt.device
+    pat = torch.tensor(pattern, dtype=torch.int32, device=dev)
+    times = torch.arange(shifts.shape[0] + 1, dtype=torch.float64,
+                         device=dev) * -math.log1p(-events / pt.shape[1])
+    t_hit = torch.full((pt.shape[0],), math.inf, dtype=torch.float64,
+                       device=dev)
+    watch = dt if data_tape else pt
+    ens.pattern_scan_plain(watch, pat, 2, t_hit=t_hit, t_now=times[:1])
+    for k in range(shifts.shape[0]):
+        ens.lattice_round_plain(dm, pt, dt, shifts[k], events,
+                                None if uniforms is None else uniforms[k])
+        ens.pattern_scan_plain(watch, pat, 2, t_hit=t_hit,
+                               t_now=times[k + 1:k + 2])
+    return t_hit, torch.isfinite(t_hit), (pt.to(torch.int32),
+                                          dt.to(torch.int32))
+
+
+def first_passage_against_plain(label, dm, tapes, pattern, plan, per_call,
+                                data_tape, gen, diff):
+    """K11 and K12 as a first-passage run sends them (``per_call``
+    rounds a C call) against `first_passage_plain` at the same draws:
+    hit times, hits and both tapes bit for bit. Raises unless some
+    member hits after t = 0 and some never does, so the times are
+    compared where they change."""
+    rounds, events = plan
+    B, L = tapes[0].shape
+    dev = tapes[0].device
+    shifts = torch.randint(0, L, (rounds,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    u = (torch.rand((rounds, B, events), generator=gen, device=dev)
+         if dm.has_choose else None)
+    got = ens.first_passage_from_draws(dm, tapes, pattern, shifts, events,
+                                       u, data_tape=data_tape,
+                                       rounds_per_call=per_call)
+    want = first_passage_plain(dm, tapes, pattern, shifts, events, u,
+                               data_tape)
+    torch.cuda.synchronize()
+    t_k, h_k, (p_k, d_k) = got
+    t_p, h_p, (p_p, d_p) = want
+    same_t = torch.equal(t_k, t_p) and torch.equal(h_k, h_p)
+    if not (same_t and diff("K11", ((p_k, p_p), (d_k, d_p)))):
+        raise AssertionError(f"{label}: first passage on the card != the "
+                             "plain loop")
+    diff("K12", ((h_k, h_p),))
+    late = int((h_p & (t_p > 0)).sum())
+    if not (late and int(h_p.sum()) < B):
+        raise AssertionError(f"{label}: {late} members hit after t = 0, "
+                             f"{int(h_p.sum())} of {B} in all")
+    say(f"{label}: first_passage_from_draws at B={B}, L={L}, "
+        f"{rounds} rounds in calls of {per_call} == the plain loop (hit "
+        f"times, hits, both tapes), bit for bit; {int(h_p.sum())} hits, "
+        f"{late} after t = 0")
+
+
+def weighted_against_plain(label, tapes, w, size_a, cl_k, diff):
+    """K13 twice on each of ``tapes`` against its plain version, bit for
+    bit."""
+    for tape in tapes:
+        want = ens.weighted_window_counts_plain(tape, w / w.sum(), size_a,
+                                                cl_k)
+        got = [ens.weighted_window_counts(tape, w, size_a, cl_k,
+                                          device=tape.device)
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        if not diff("K13", [(g_, want) for g_ in got]):
+            raise AssertionError(f"{label}: K13 != plain")
+    say(f"{label}: K13 == plain on {len(tapes)} tapes of "
+        f"{list(tapes[0].shape)} ({size_a**cl_k} bins), twice, bit for bit")
+
+
+def master_gates(dev, gen, totals, record, diff):
     """(d): the master-equation gates of the JAX package's
     tests/test_master.py on the card, at their settings and gates, with
     the port's master equation as the oracle."""
@@ -2226,6 +2312,8 @@ def master_gates(dev, gen, totals, record):
     dm2 = ens.compile_decision_machine(EX2)
     ones = torch.full((512,), 1 / 512, dtype=torch.float64, device=dev)
 
+    seen = []
+
     def dynamics():
         reps = []
         for _ in range(16):
@@ -2233,11 +2321,13 @@ def master_gates(dev, gen, totals, record):
                                           ring=True, device=dev)
             (_, d), _ = ens.run_ensemble(
                 gen, (torch.zeros_like(d), d), dm2, (rounds, 1), device=dev)
+            seen.append(d)
             reps.append(ens.weighted_window_counts(d, ones, size_a, cl_k,
                                                    device=dev).cpu().numpy())
         return reps
 
     reps, sec, la, _ = lattice_path("d:75", dynamics, ("K1", "K13"), totals)
+    weighted_against_plain("d:75", seen, ones, size_a, cl_k, diff)
     z = z_of(reps, want)
     moved = float(np.abs(want - tmaster.state_window_marginals(
         p0, Lm, size_a, cl_k)).max())
@@ -2417,7 +2507,7 @@ def master_gates(dev, gen, totals, record):
                 f"(z {z:.2f})", sec, 16 * 60, la)
 
 
-def example_runs(dev, gen, totals, record):
+def example_runs(dev, gen, totals, record, diff):
     """(e): the examples' ensemble runs at their settings."""
     # examples/ex2_master_oracle.py: B=8192, L=12, E=1, 24 snapshots of 2
     # rounds, independent sites; p(DUD) at every snapshot within its gate.
@@ -2433,21 +2523,26 @@ def example_runs(dev, gen, totals, record):
     dm2 = ens.compile_decision_machine(EX2)
     w = torch.full((Bm,), 1 / Bm, dtype=torch.float64, device=dev)
 
+    seen = []
+
     def oracle_run():
         d = ens.sample_tapes_from_spd(gen, spd, 2, 5, Bm, Lm, ring=True,
                                       device=dev)
         pt = torch.zeros_like(d)
+        seen.append(d)
         out = [ens.weighted_window_counts(d, w, 2, 3, device=dev)[dud]]
         for _ in range(snaps):
             (pt, d), _ = ens.run_ensemble(gen, (pt, d), dm2, (per, 1),
                                           independent_sites=True,
                                           device=dev)
+            seen.append(d)
             out.append(ens.weighted_window_counts(d, w, 2, 3,
                                                   device=dev)[dud])
         return torch.stack(out).cpu().numpy()
 
     emp, sec, la, _ = lattice_path("e:ex2_master_oracle", oracle_run,
                                    ("K11", "K13"), totals)
+    weighted_against_plain("e:ex2_master_oracle", seen, w, 2, 3, diff)
     se = np.sqrt(np.maximum(exact, 1e-9) / (Bm * Lm / 3))
     z = float((np.abs(emp - exact) / np.maximum(se, 1e-9)).max())
     if not z < Z_GATE:
@@ -2485,6 +2580,11 @@ def example_runs(dev, gen, totals, record):
                 f", the artifact's {np.round(art, 4).tolist()}, z "
                 f"{np.round(z, 2).tolist()}", sec, c["seeds"] * c["rounds"],
                 la)
+    d = ens.sample_tapes_from_spd(gen, p0, 2, c["cl_k"], c["B"], c["L"],
+                                  device=dev)
+    first_passage_against_plain("e:ex2_first_passage", dm2,
+                                (torch.zeros_like(d), d), c["pattern"],
+                                (600, c["E"]), 250, True, gen, diff)
 
     # examples/ex4_ignition.py's first_passage_times call (first X on the
     # program tape) on several seeds: the committed artifact held to them,
@@ -2536,6 +2636,12 @@ def example_runs(dev, gen, totals, record):
                 f"{np.round(mean, 4).tolist()} (sd {np.round(sd, 4).tolist()})"
                 f", the artifact's {np.round(art, 4).tolist()}, z "
                 f"{np.round(z, 2).tolist()}", sec, c["seeds"] * rounds, la)
+    tapes = [ens.sample_tapes_from_spd(gen, p, 9, c["cl_k"], c["B"], c["L"],
+                                       ring=True, device=dev)
+             for p in (p_fuel, p_tape)]
+    first_passage_against_plain("e:ex4_ignition", dm4, tapes,
+                                (c["sym_x"],), (300, c["E"]), 128, False,
+                                gen, diff)
 
 
 def hit_stats(t_hit):
@@ -2634,6 +2740,39 @@ def lattice_phase(dev, kernels):
             raise AssertionError("K10 != K11 on ex5 at float32 uniforms")
     say("K10 == table_round_plain at explicit draws, bit for bit; K10 == "
         "K11 on ex5 at float32-exact uniforms (shared and per-member shifts)")
+    # ex5's table has one outcome a row, so its uniforms never decide:
+    # K10's compare and slot cap on tables where they do.
+    own = torch.randint(0, L, (B,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    for tag, size_a, dtype in ((EX4, 9, None), (EX3, 4, torch.float32)):
+        mt = ens.device_table(ens.compile_transition_table(tag), dtype,
+                              device=dev)
+        tp, td = active_tapes(gen, tag, size_a, B, L, dev)
+        u = torch.rand((B, E), generator=gen, device=dev,
+                       dtype=mt.out_cum.dtype)
+        for shift in (s1, own):
+            kp, kd = tp.clone(), td.clone()
+            pp, pd = tp.clone(), td.clone()
+            ens.table_round(mt, kp, kd, shift, u)
+            ens.table_round_plain(mt, pp, pd, shift, u)
+            torch.cuda.synchronize()
+            changed = int((kp != tp).sum() + (kd != td).sum())
+            if not (diff("K10", ((kp, pp), (kd, pd))) and changed):
+                raise AssertionError(f"K10 != plain on {tag}'s table "
+                                     f"(changed {changed})")
+        # The same round with every uniform 0 (slot 0 everywhere): the
+        # cells where it differs are those the uniforms decided.
+        zp, zd = tp.clone(), td.clone()
+        ens.table_round_plain(mt, zp, zd, own, torch.zeros_like(u))
+        decided = int((zp != kp).sum() + (zd != kd).sum())
+        if not decided:
+            raise AssertionError(f"{tag}'s table: no uniform decided")
+        say(f"K10 == table_round_plain on {tag}'s table "
+            f"({mt.out_cum.shape[1]} outcomes a row, {mt.out_cum.dtype}) "
+            f"at B={B}, L={L}, E={E}, shared and per-member shifts, bit "
+            f"for bit ({changed} cells changed, {decided} decided by the "
+            "uniforms)")
+        del mt, tp, td, kp, kd, pp, pd, zp, zd
 
     # (b) Independent sites at full width (K11).
     (ind, _), sec, la, ms = lattice_path(
@@ -2692,8 +2831,8 @@ def lattice_phase(dev, kernels):
     del wide, w8, wp, wd
 
     # (d) The master-equation gates; (e) the examples.
-    master_gates(dev, gen, totals, record)
-    example_runs(dev, gen, totals, record)
+    master_gates(dev, gen, totals, record, diff)
+    example_runs(dev, gen, totals, record, diff)
     say(f"phase 9 launches by kernel over its paths: {totals}")
 
     # (f) Each kernel alone at the bench geometry, beside its bound, its
@@ -2712,6 +2851,27 @@ def lattice_phase(dev, kernels):
             tdt, kp, kd, s_shared, u64), 3),
         "bound_ms": table_bytes_k10(tdt, E) / HBM_BYTES_PER_S * 1e3,
         "library_ms": None}
+    # Path (a)'s round, split: its float64 draw alone, and K10 over 8
+    # rounds of fresh shifts and uniforms, as the path sends them.
+    u_buf = torch.empty((8, B, E), dtype=torch.float64, device=dev)
+    s_fresh = torch.randint(0, L, (8,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    draw_ms = cuda_ms(lambda: torch.rand(
+        (B, E), generator=gen, device=dev, dtype=torch.float64,
+        out=u_buf[0]), 20)
+    for j in range(8):
+        torch.rand((B, E), generator=gen, device=dev, dtype=torch.float64,
+                   out=u_buf[j])
+    fresh_ms = cuda_ms(lambda: ens.run_lattice_rounds(
+        tdt, kp, kd, s_fresh, E, u_buf), 10) / 8
+    round_ms = paths["a"]["device_ms"] / LATTICE_ROUNDS
+    times["K10"]["path_a_us"] = {
+        "round": round_ms * 1e3, "draw": draw_ms * 1e3,
+        "k10_fresh_draws": fresh_ms * 1e3,
+        "rest": (round_ms - draw_ms - fresh_ms) * 1e3}
+    say("path a's round split: " + ", ".join(
+        f"{k} {v:.2f} us" for k, v in times["K10"]["path_a_us"].items()))
+    del u_buf
     p8, d8 = pt32.to(torch.int8), dt32.to(torch.int8)
     for name, s in (("K11", s_shared), ("K11 per member", s_own)):
         times[name] = {
@@ -2784,6 +2944,7 @@ def lattice_phase(dev, kernels):
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "shape": shapes[k]}
     kernels["K11"]["per_member"] = times["K11 per member"]
+    kernels["K10"]["path_a_us"] = times["K10"]["path_a_us"]
     kernels["K10"]["paths"] = paths
 
 

@@ -974,7 +974,8 @@ def test_pattern_scan_kernel_matches_plain(cuda, dtype):
     ("ex4-chemical-turing", (7,), False)])
 def test_first_passage_on_card_matches_cpu(cuda, tag, pattern, data_tape):
     """The same explicit draws give the same hit times and tapes on the
-    card (K11 and K12 from one C call a chunk) and on the CPU."""
+    card (K11 and K12 from one C call a chunk, here 70 rounds a call,
+    the last one short) and on the CPU."""
     dm = tens.compile_decision_machine(tag)
     rng = np.random.RandomState(6)
     B, L, E, n = 128, 128, 4, 300
@@ -992,7 +993,8 @@ def test_first_passage_on_card_matches_cpu(cuda, tag, pattern, data_tape):
             dm, (torch.as_tensor(pt, device=dev),
                  torch.as_tensor(dt, device=dev)), pattern,
             torch.as_tensor(shifts, device=dev), E,
-            torch.as_tensor(u32, device=dev), data_tape=data_tape))
+            torch.as_tensor(u32, device=dev), data_tape=data_tape,
+            rounds_per_call=70 if dev.type == "cuda" else None))
     (t_k, h_k, (p_k, d_k)), (t_p, h_p, (p_p, d_p)) = out
     assert torch.equal(t_k.cpu(), t_p) and torch.equal(h_k.cpu(), h_p)
     assert torch.equal(p_k.cpu(), p_p) and torch.equal(d_k.cpu(), d_p)

@@ -146,20 +146,18 @@ def test_decay_table_semantics():
                                  "fuzz-wide-specs"])
 @pytest.mark.parametrize("f32", [False, True], ids=["f64", "f32"])
 def test_device_table_matches_jax(tag, f32):
-    """Offsets, place values, outcome arrays (float64, or float32 when
-    asked) and the packed write words, as the JAX package places them;
-    a table built from the JAX table's fields gives the same."""
+    """Offsets, place values and outcome arrays (float64, or float32 when
+    asked), as the JAX package places them; a table built from the JAX
+    table's fields gives the same. The packed write words, which only
+    the weighted frontier reads, stay empty until it is ported."""
     jdt, tdt = _device_tables(tag, f32)
     for name in ("p_offs", "d_offs", "pv", "out_cum", "out_world",
                  "wr_mask", "wr_val"):
         _eq(getattr(tdt, name).numpy(), getattr(jdt, name))
     assert tdt.out_cum.dtype == (torch.float32 if f32 else torch.float64)
-    assert (tdt.size_a, tdt.p_lo, tdt.d_lo, tdt.span, tdt.n_wr_words) == (
-        jdt.size_a, jdt.p_lo, jdt.d_lo, jdt.span, jdt.n_wr_words)
-    if jdt.wr_words is None:
-        assert tdt.wr_words is None
-    else:
-        _eq(tdt.wr_words.numpy(), jdt.wr_words)
+    assert (tdt.size_a, tdt.p_lo, tdt.d_lo, tdt.span) == (
+        jdt.size_a, jdt.p_lo, jdt.d_lo, jdt.span)
+    assert tdt.wr_words is None and tdt.n_wr_words == 0
     jt = _tables(tag)[0]
     crossed = tens.transition_table_from_fields(
         {f.name: getattr(jt, f.name) for f in dataclasses.fields(jt)})
@@ -682,6 +680,46 @@ def test_first_passage_matches_jax_at_same_draws(tag, pattern, data_tape, L,
     _eq(tp, jp)
     _eq(td, jd)
     assert 0 < int(th.sum()) and (tt[th] > 0).any()
+
+
+def _first_passage_loop(dm, pt, dt, pattern, shifts, E, u, data_tape):
+    """First passage written out: the initial scan, then a plain K11
+    round and a plain K12 update a round."""
+    pt, dt = (torch.as_tensor(t).to(torch.int8) for t in (pt, dt))
+    pat = torch.tensor(pattern, dtype=torch.int32)
+    times = torch.arange(len(shifts) + 1, dtype=torch.float64) * (
+        -math.log1p(-E / pt.shape[1]))
+    t_hit = torch.full((pt.shape[0],), math.inf, dtype=torch.float64)
+    watch = dt if data_tape else pt
+    tens.pattern_scan_plain(watch, pat, 2, t_hit=t_hit, t_now=times[:1])
+    for k in range(len(shifts)):
+        tens.lattice_round_plain(dm, pt, dt, _t(shifts)[k], E,
+                                 _t(u)[k] if dm.has_choose else None)
+        tens.pattern_scan_plain(watch, pat, 2, t_hit=t_hit,
+                                t_now=times[k + 1:k + 2])
+    return t_hit, pt.to(torch.int32), dt.to(torch.int32)
+
+
+@pytest.mark.parametrize("per_call", [None, 1, 7, 40])
+def test_first_passage_in_calls_matches_round_loop(per_call):
+    """`first_passage_from_draws` sent in calls of ``per_call`` rounds
+    (the last one short) gives the hit times and tapes of the round
+    loop written out, on ex4 (choose nodes: each call reads its own
+    rows of the uniforms)."""
+    _, dm = _machines("ex4-chemical-turing")
+    rng = np.random.RandomState(21)
+    B, L, E, n = 12, 64, 4, 45
+    pt = rng.choice([5, 6], (B, L)).astype(np.int32)
+    dt = rng.choice([0, 4, 5], (B, L)).astype(np.int32)
+    shifts = rng.randint(0, L, n).astype(np.int32)
+    u = rng.rand(n, B, E).astype(np.float32)
+    t_hit, hit, (p, d) = tens.first_passage_from_draws(
+        dm, (pt, dt), (7,), _t(shifts), E, _t(u), data_tape=False,
+        rounds_per_call=per_call)
+    want, wp, wd = _first_passage_loop(dm, pt, dt, (7,), shifts, E, u, False)
+    assert torch.equal(t_hit, want) and torch.equal(hit, torch.isfinite(want))
+    assert torch.equal(p, wp) and torch.equal(d, wd)
+    assert 0 < int(hit.sum()) < B and (t_hit[hit] > 0).any()
 
 
 def test_first_passage_initial_hit_and_no_hit():
