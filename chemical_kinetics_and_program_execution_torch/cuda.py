@@ -6,11 +6,12 @@ so a build takes seconds) and both landing in `_build/` beside this file:
 - `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
   `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`; K7 and K8
   `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
-  `pattern_scan.cu`; K13 `weighted_counts.cu`), which may include
-  headers from `csrc/`, into one shared library;
+  `pattern_scan.cu`; K13 `weighted_counts.cu`; K15 `bitplanes.cu`),
+  which may include headers from `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1 and K11, one library per
-  decision machine, from `engine/k1_source.py`).
+  decision machine, from `engine/k1_source.py`; K14, one library per
+  bit-sliced circuit, from `engine/bitslice_source.py`).
 
 Each library is named by a hash of what goes into it (sources, included
 templates, flags): a changed source builds anew, an unchanged one loads
@@ -201,7 +202,13 @@ def load() -> ctypes.CDLL:
     #                      ticket, out, stream)
     lib.ckpe_weighted_counts.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P,
                                          _P, _P, _P]
+    # ckpe_bitplanes_pack(sym, elem, sb, se, sc, B, E, stride, inner_c, nb,
+    #                     transpose, out, stream), and _unpack alike
+    k15 = [_P, _I, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P]
+    lib.ckpe_bitplanes_pack.argtypes = k15
+    lib.ckpe_bitplanes_unpack.argtypes = k15
     for name in ("ckpe_table_rounds", "ckpe_pattern_scan",
+                 "ckpe_bitplanes_pack", "ckpe_bitplanes_unpack",
                  "ckpe_weighted_counts",
                  "ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
                  "ckpe_world_mass",

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's `engine/ensemble.py`: the transition
 table and the decision-machine compilers, `run_ensemble` on the
-stacked-plane FSM round and on the rolled lattice rounds (transition
-tables, per-member sites, strides above 64), first passage, and the
+bit-sliced round (`bitslice.py`: K14 and K15), on the stacked-plane FSM
+round and on the rolled lattice rounds (transition tables, per-member
+sites, strides above 64), first passage, and the
 observables `window_counts`, `weighted_window_counts`,
 `contains_pattern`, `pattern_progress` and `sample_tapes_from_spd`.
 
@@ -53,9 +54,7 @@ from .. import cuda
 from ..utils import config
 from . import dsl, enumerate as enum_mod
 
-# Not ported yet; each raising path names the ROADMAP item that ports it.
-_TODO_BITSLICE = ("the bit-sliced round is not ported yet: ROADMAP.md "
-                  "Queue 1 item 'Bit-sliced rounds' / Queue 2 items 11-12")
+# Not ported yet; the raising path names the ROADMAP item that ports it.
 _TODO_TAU = ("tempered choose sampling (tau != 1) belongs to the weighted "
              "frontier, not ported yet: ROADMAP.md Queue 1 item "
              "'Weighted frontier'")
@@ -365,6 +364,45 @@ def device_machine_from_fields(fields: dict) -> DeviceMachine:
         if name not in ("tag", "nodes", "wr_words"):
             kw[name] = int(kw[name])
     return DeviceMachine(nodes=tuple(nodes), **kw)
+
+
+def wr_field_host(words, s, wr_bits: int = 5):
+    """Host-side decode of one cell's packed write field(s): ``words`` a
+    `DeviceMachine.wr_words[c]` tuple, ``s`` a spec index or a numpy
+    array of them. Returns ``(writes?, symbol)`` numpy arrays."""
+    per = 31 // wr_bits
+    w = np.asarray(words, np.int64)
+    f = (w[np.asarray(s) // per] >> (wr_bits * (np.asarray(s) % per))
+         ) & ((1 << wr_bits) - 1)
+    return (f >> (wr_bits - 1)) == 1, f & ((1 << (wr_bits - 1)) - 1)
+
+
+def circuit_from_jax(circ):
+    """The port's form of a bit-sliced circuit tuple ``(ops, outputs, nb,
+    n_rand)`` compiled by the JAX package (`engine/bitslice.py`): the
+    same tuple with plain ints and strings."""
+    ops, outputs, nb, n_rand = circ
+    return (tuple((str(k), int(a), int(b)) for k, a, b in ops),
+            tuple(int(o) for o in outputs), int(nb), int(n_rand))
+
+
+def plane_state_from_jax(state, device=None):
+    """A :class:`PlaneState` on ``device`` (``cuda`` unless named) from
+    one of the JAX package: kind ``"bits"`` (uint32 words, read as the
+    int32 words of the same bits, in the reference's shape) or ``"fsm"``
+    (int8 stacked planes [stride, B, E])."""
+    device = config.get_device(device)
+
+    def words(x):
+        x = np.array(x)  # a writable copy
+        if x.dtype == np.uint32:
+            x = x.view(np.int32)
+        return torch.as_tensor(x, device=device)
+
+    return PlaneState(words(state.pbp), words(state.dbp),
+                      batch=int(state.batch), length=int(state.length),
+                      kind=str(state.kind), nb=int(state.nb),
+                      transpose=bool(state.transpose))
 
 
 def _pack_fields(vals, bits):
@@ -871,20 +909,28 @@ def _planes_to_tape(planes):
 
 
 class PlaneState:
-    """Plane-resident ensemble state, kind ``"fsm"`` (stacked int8
-    symbol planes ``pbp``, ``dbp``, each [stride, B, E]).
+    """Plane-resident ensemble state of kind ``"fsm"`` (stacked int8
+    symbol planes ``pbp``, ``dbp``, each [stride, B, E], for K1) or
+    ``"bits"`` (the bit-sliced round's int32 words, each [stride, nb,
+    B//32, E], or with ``transpose`` [stride, nb,
+    *bitslice.transposed_word_shape(E, B//32)], for K14).
 
     `run_ensemble(..., keep_planes=True)` returns one and accepts one in
     place of the ``(ptape, dtape)`` pair, so snapshot-style callers skip
     the per-call tape<->plane conversion. A state passed in is left as
-    it was: the run advances a copy.
+    it was: the run advances a copy. A state pins the path it was packed
+    for.
     """
 
-    kind = "fsm"
-
-    def __init__(self, pbp, dbp, *, batch, length):
+    def __init__(self, pbp, dbp, *, batch, length, kind="fsm", nb=0,
+                 transpose=False):
+        if kind not in ("fsm", "bits"):
+            raise ValueError(f"unknown PlaneState kind {kind!r}")
+        self.kind = kind
         self.pbp = pbp
         self.dbp = dbp
+        self.nb = nb
+        self.transpose = transpose
         self.batch = batch
         self.length = length
 
@@ -893,7 +939,13 @@ class PlaneState:
         return self.pbp.shape[0]
 
     def tapes(self):
-        """Decodes back to (ptape, dtape) int32 [B, L] tensors."""
+        """Decodes back to (ptape, dtape) int32 [B, L] tensors (kind
+        ``"bits"`` through K15)."""
+        if self.kind == "bits":
+            from . import bitslice as bs
+
+            return (bs.bitplanes_to_tapes(self.pbp, transpose=self.transpose),
+                    bs.bitplanes_to_tapes(self.dbp, transpose=self.transpose))
         return (_planes_to_tape(self.pbp).to(torch.int32),
                 _planes_to_tape(self.dbp).to(torch.int32))
 
@@ -1382,23 +1434,44 @@ def run_lattice_rounds(rule, ptape, dtape, shifts, events, uniforms=None):
 _UNIFORM_CHUNK = 2**25
 
 
-def _draw_chunks(gen, rule, B, events, num_steps, device):
-    """Yields (k0, n, uniforms) chunks of a run: uniforms [n, B, E] drawn
-    round by round into one buffer (None for a rule that reads none,
-    whose single chunk is every round)."""
-    if not _reads_uniforms(rule):
+def _chunks(num_steps, shape, dtype, device, draw):
+    """Yields (k0, n, draws) chunks of a run: ``draw(out)`` fills one
+    round's ``shape`` of ``dtype``, round by round, into a buffer of at
+    most `_UNIFORM_CHUNK` values (at least one round). A ``shape`` of
+    None draws nothing: one chunk of every round, its draws None."""
+    if shape is None:
         if num_steps:
             yield 0, num_steps, None
         return
-    chunk = max(1, min(num_steps, _UNIFORM_CHUNK // max(1, B * events)))
-    buf = torch.empty((chunk, B, events), dtype=_uniform_dtype(rule),
-                      device=device)
+    chunk = max(1, min(num_steps, _UNIFORM_CHUNK // max(1, math.prod(shape))))
+    buf = torch.empty((chunk,) + tuple(shape), dtype=dtype, device=device)
     for k0 in range(0, num_steps, chunk):
         n = min(chunk, num_steps - k0)
         for j in range(n):
-            torch.rand((B, events), generator=gen, device=device,
-                       dtype=buf.dtype, out=buf[j])
+            draw(buf[j])
         yield k0, n, buf[:n]
+
+
+def _draw_chunks(gen, rule, B, events, num_steps, device):
+    """Chunks of a run's [B, E] uniforms (`_chunks`; none for a rule
+    that reads none)."""
+    dtype = _uniform_dtype(rule)
+    return _chunks(num_steps, (B, events) if _reads_uniforms(rule) else None,
+                   dtype, device,
+                   lambda out: torch.rand((B, events), generator=gen,
+                                          device=device, dtype=dtype,
+                                          out=out))
+
+
+def _draw_word_chunks(gen, n_rand, wshape, num_steps, device):
+    """Chunks of a bit-sliced run's [n_rand, *wshape] random int32 words
+    (`_chunks`; none for a circuit that reads none)."""
+    from .bitslice import draw_rand_words
+
+    shape = (n_rand,) + tuple(wshape)
+    return _chunks(num_steps, shape if n_rand else None, torch.int32,
+                   device, lambda out: draw_rand_words(gen, shape, device,
+                                                       out=out))
 
 
 def run_ensemble(generator, tapes, dm, steps_events, *,
@@ -1410,9 +1483,11 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     Each round fires the rule at E sites per replica arranged as a
     randomly shifted lattice: no conflicts, every event applies. With a
     :class:`DeviceMachine` at a stride L/E of at most 64 and shared
-    sites, the tapes are stored as `stride` int8 planes and stepped by
-    K1 (:func:`plane_round`), the phase drawn over [0, stride), which
-    fires the same site set as a full-tape shift. Otherwise the rolled
+    sites, the phase is drawn over [0, stride), which fires the same
+    site set as a full-tape shift, and the tapes are stored as bit-plane
+    words stepped by the bit-sliced round (K14 on K15's words,
+    ``bitslice`` below) where the call is eligible, else as `stride`
+    int8 planes stepped by K1 (:func:`plane_round`). Otherwise the rolled
     rounds run on [B, L] tapes with the shift drawn over [0, L): K10
     (:func:`table_round`, int32 tapes) for a :class:`DeviceTable`, K11
     (:func:`lattice_round`, int8 tapes) for a machine with
@@ -1435,6 +1510,14 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     is not the JAX package's; :func:`run_rounds` and
     :func:`run_lattice_rounds` take explicit draws.
 
+    The bit-sliced round (``bitslice``) draws the shifts as the plane
+    path does, so a choose-free machine gives K1's tapes at the same
+    seed. A sampling circuit then draws each round's [n_rand, *word
+    shape] random int32 words (all 32 bits uniform) a chunk of rounds at
+    a time, as the uniforms are drawn; its stream is another than the
+    FSM path's, with the same law.
+    `bitslice.run_bitsliced_rounds` takes explicit draws.
+
     Args:
       generator: `torch.Generator` on the run's device, or an int seed.
       tapes: (ptape [B, L], dtape [B, L]) integer tensors or arrays, or a
@@ -1444,10 +1527,16 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
         divide L; at E > 1 additionally L/E > 2·span (E = 1 needs only
         span <= L).
       independent_sites: one shift a member and round.
-      bitslice: None or False run the FSM round (the reference gates the
-        two rounds bit-identical); True is not ported yet.
+      bitslice: the bit-sliced round (K14 on K15's words,
+        `bitslice.py`) where the call is eligible: a machine on the plane
+        path (stride <= 64, shared sites), B % 32 == 0, and the machine
+        choose-free and tabulable or sampleable. None (the default)
+        takes it wherever eligible (on the CPU only for circuits of at
+        most `bitslice.CPU_MAX_CIRCUIT_OPS` ops), as the reference does;
+        True raises where the call is not eligible; False keeps K1.
       keep_planes: return a :class:`PlaneState` instead of tapes (the
-        plane path only).
+        plane paths only: kind ``"bits"`` on the bit-sliced round,
+        ``"fsm"`` on K1's).
       device: where the run goes; ``cuda`` unless named.
 
     Returns:
@@ -1455,8 +1544,6 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
       (applied int64 [num_steps] summed over replicas,
        times float64 [num_steps] cumulative).
     """
-    if bitslice:
-        raise NotImplementedError(_TODO_BITSLICE)
     if not isinstance(dm, (DeviceMachine, DeviceTable)):
         raise TypeError(f"run_ensemble takes a DeviceMachine or a "
                         f"DeviceTable, not {type(dm).__name__}")
@@ -1472,23 +1559,86 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
     stride = L // events
     use_planes = (isinstance(dm, DeviceMachine)
                   and stride <= _MAX_PLANE_STRIDE and not independent_sites)
-    if in_state and not use_planes:
+    from . import bitslice as bs  # bitslice imports this module
+
+    # The reference's selection, with the CPU's circuit limit on the CPU.
+    eligible = (use_planes and B % 32 == 0
+                and (bs.machine_is_bitsliceable(dm)
+                     or bs.machine_is_sampleable(dm)))
+    use_bitslice = bitslice is not False and eligible and (
+        bitslice or bs.circuit_cpu_ok(dm, device))
+    if bitslice and not use_bitslice:
         raise ValueError(
-            "PlaneState packed for the FSM plane round needs a "
-            f"plane-eligible call (machine, stride <= {_MAX_PLANE_STRIDE}, "
-            "not independent_sites)")
-    if keep_planes and not use_planes:
+            "bitslice=True needs a plane-eligible machine "
+            f"and B % 32 == 0 (got B={B}, "
+            f"machine={getattr(dm, 'tag', dm)!r})")
+    if in_state:
+        if tapes.kind == "bits" and not use_bitslice:
+            raise ValueError(
+                "PlaneState packed for the bit-sliced round, but this "
+                "call resolves to a different path (bitslice="
+                f"{bitslice}, eligible={eligible})")
+        if tapes.kind == "fsm":
+            if not use_planes:
+                raise ValueError(
+                    "PlaneState packed for the FSM plane round needs a "
+                    "plane-eligible call (machine, stride <= "
+                    f"{_MAX_PLANE_STRIDE}, not independent_sites)")
+            use_bitslice = False
+        if tapes.stride != stride:
+            raise ValueError(
+                f"PlaneState stride {tapes.stride} != L//events = "
+                f"{stride}: pack and continuation calls must use the "
+                "same events_per_step")
+    if (keep_planes or in_state) and not (use_planes or use_bitslice):
         raise ValueError(
             "keep_planes/PlaneState need a plane-path call (machine, "
             "stride <= 64, not independent_sites)")
     gen = config.make_generator(generator, device)
-    if use_planes:
+    if use_bitslice:
+        circ = bs.machine_circuit(dm)
+        nb, n_rand = circ[2], circ[3]
+        # The larger of (events, packed members) goes minor, as the
+        # reference chooses.
+        transpose = events < B // 32
+        if transpose:
+            wshape = bs.transposed_word_shape(events, B // 32)
+            site_axis = -len(wshape)
+        else:
+            wshape = (B // 32, events)
+            site_axis = -1
         if in_state:
-            if tapes.stride != stride:
+            if tapes.nb != nb or tapes.transpose != transpose:
                 raise ValueError(
-                    f"PlaneState stride {tapes.stride} != L//events = "
-                    f"{stride}: pack and continuation calls must use the "
-                    "same events_per_step")
+                    f"PlaneState layout (nb={tapes.nb}, transpose="
+                    f"{tapes.transpose}) does not match this call "
+                    f"(nb={nb}, transpose={transpose})")
+            p_bp = tapes.pbp.to(device=device, copy=True)
+            d_bp = tapes.dbp.to(device=device, copy=True)
+        else:
+            p_bp = bs.tapes_to_bitplanes(ptape, stride, nb,
+                                         transpose=transpose)
+            d_bp = bs.tapes_to_bitplanes(dtape, stride, nb,
+                                         transpose=transpose)
+        shifts = torch.randint(0, stride, (num_steps,), generator=gen,
+                               device=device, dtype=torch.int32)
+        checked = False
+        for k0, n, words in _draw_word_chunks(gen, n_rand, wshape,
+                                              num_steps, device):
+            if not checked:
+                bs._check_words(dm, circ, p_bp, d_bp, shifts, 0, n, words,
+                                site_axis)
+                checked = True
+            bs._bitsliced_rounds(dm, circ, p_bp, d_bp, shifts, k0, n, words,
+                                 site_axis)
+        if keep_planes:
+            out = PlaneState(p_bp, d_bp, batch=B, length=L, kind="bits",
+                             nb=nb, transpose=transpose)
+        else:
+            out = (bs.bitplanes_to_tapes(p_bp, transpose=transpose),
+                   bs.bitplanes_to_tapes(d_bp, transpose=transpose))
+    elif use_planes:
+        if in_state:
             p_st = tapes.pbp.to(device=device, copy=True)
             d_st = tapes.dbp.to(device=device, copy=True)
         else:

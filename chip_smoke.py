@@ -12,12 +12,15 @@ Phases (each prints its wall time; every check raises on failure):
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
 2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2-K10,
-   K12, K13) and one for the generated unit (K1 and K11) of each machine
-   (phase 3's three, ex3 and the fuzz rule of phase 9), and beside them the
+   K12, K13, K15), one for the generated unit (K1 and K11) of each
+   machine (phase 3's three, ex3 and the fuzz rule of phase 9) and one
+   for the generated K14 unit of each of ex5's, ex4's and ex2's
+   bit-sliced circuits, and beside them the
    `g++` call of the C++ expander (`csrc/expander.cc`, a host library),
    each with its seconds and the `-Xptxas -v` register, shared-memory
    and spill lines;
-3. main path: `run_ensemble` at B=16384, L=4096, E=256 on
+3. main path: `run_ensemble(bitslice=False)` (the FSM plane path; the
+   default route is phase 10's) at B=16384, L=4096, E=256 on
    ex5-msrtf-machine for 2,000 rounds, then `window_counts` at cl_k=3;
    K1 must launch exactly 2,000 times and the plain round never, K2
    once; per-round time and transitions/s of the process's first call
@@ -135,7 +138,8 @@ Phases (each prints its wall time; every check raises on failure):
    (c) ex4 at E=32 (stride 128) for 200 rounds, K11 equal to its plain
    version at shifts 0, 5, 127 and 4095; (d) the master-equation gates
    of the JAX package's tests/test_master.py at their settings, the
-   port's `engine/master.py` the oracle: :75 (z < 6), :248 seed 0,
+   port's `engine/master.py` the oracle: :75 (z < 6; on K1 with
+   `bitslice=False`, the default route being phase 10's), :248 seed 0,
    :323 seed 702 through its transition table, :396 (total variation
    < 0.05), :441 and :497 (first passage, z < 6); (e) the ensemble side
    of examples/ex2_master_oracle.py (every snapshot within z < 6 of the
@@ -154,7 +158,29 @@ Phases (each prints its wall time; every check raises on failure):
    at B=16384, L=4096, by CUDA events, beside its bound, its plain
    version and, for K13, `torch.bincount`; K12 and K13 equal to their
    plain versions bit for bit, twice; path (a)'s round split into the
-   float64 draw alone and K10 over fresh shifts and uniforms.
+   float64 draw alone and K10 over fresh shifts and uniforms;
+10. the bit-sliced rounds (K14, K15), each path with every count set to 0
+   just before and read just after, no plain version called: (a)
+   `run_ensemble` with the default route on phase 3's input and seed
+   (ex5, B=16384, L=4096, E=256, the transposed [256, 512] words, 2,000
+   rounds), K14 2,000 times, K15 four times (two packs, two unpacks), K1
+   never, its tapes equal to phase 3's K1 run bit for bit, cold and warm
+   µs a round and transitions/s beside K1's; (b) ex4 with
+   `bench.py:393-452`'s tape mix at that geometry (the sampling circuit,
+   26 random words a round): K14 equal to `apply_round_bitsliced` over 8
+   rounds at the same shifts and random words, then 2,000 rounds of the
+   default against 2,000 of `bitslice=False`, window counts at cl_k 2
+   within 7 sigma + 3e-3 (n_eff = B*L/E), the round's random words'
+   draw timed alone; (c) config5
+   (`bench.py:229-263`: ex5 at B=10^7, L=32, E=2, the 3-D [2, S, P] word
+   view): K15 both ways equal to its plain version on the [B, L] tape
+   and on the FSM planes, 500 rounds of K14 equal to 500 of K1, two
+   `keep_planes` calls of 250 rounds equal to one 500-round call over the
+   same shifts; (d) `tests/test_master.py:75`'s gate through the default
+   route (ex2's sampling circuit) with the port's master equation as
+   the oracle (z < 6); K14 alone and K15's pack and unpack at (a), (b)
+   and (c), by CUDA events, beside their bounds and plain versions (no
+   library call computes either).
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -184,6 +210,12 @@ from chemical_kinetics_and_program_execution_torch.engine import (
 from chemical_kinetics_and_program_execution_torch.engine import dsl as tdsl
 from chemical_kinetics_and_program_execution_torch.engine import native
 from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
+from chemical_kinetics_and_program_execution_torch.engine import (
+    bitslice as tbs,
+)
+from chemical_kinetics_and_program_execution_torch.engine import (
+    bitslice_source,
+)
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
 )
@@ -2320,7 +2352,8 @@ def master_gates(dev, gen, totals, record, diff):
             d = ens.sample_tapes_from_spd(gen, spd, size_a, cl_k, 512, Lm,
                                           ring=True, device=dev)
             (_, d), _ = ens.run_ensemble(
-                gen, (torch.zeros_like(d), d), dm2, (rounds, 1), device=dev)
+                gen, (torch.zeros_like(d), d), dm2, (rounds, 1),
+                bitslice=False, device=dev)
             seen.append(d)
             reps.append(ens.weighted_window_counts(d, ones, size_a, cl_k,
                                                    device=dev).cpu().numpy())
@@ -2948,6 +2981,403 @@ def lattice_phase(dev, kernels):
     kernels["K10"]["paths"] = paths
 
 
+# --- Phase 10: the bit-sliced rounds (K14, K15) ------------------------------
+
+BITS_TAGS = [MAIN_TAG, EX4, EX2]  # their K14 units built in phase 2
+BITS_ROUNDS = NUM_STEPS
+C5_B, C5_L, C5_E, C5_ROUNDS = 10**7, 32, 2, 500  # bench.py:229-263
+BITS_WRAPPERS = {"K14": [tbs.bitslice_round],
+                 "K15": [tbs.pack_bitwords, tbs.unpack_bitwords],
+                 "K1": [ens.plane_round]}
+BITS_PLAIN = [tbs.apply_round_bitsliced, tbs.pack_bitwords_plain,
+              tbs.unpack_bitwords_plain, ens.plane_round_plain]
+BITS_KERNELS = {
+    "K14": ("K14 bitslice_round", SRC + "bitslice_round.cuh",
+            "the JAX package's engine/bitslice.py:882 apply_round_bitsliced "
+            "with :698 _eval_circuit (XLA)"),
+    "K15": ("K15 bitplanes", SRC + "bitplanes.cu",
+            "the JAX package's engine/bitslice.py:754 tapes_to_bitplanes, "
+            ":805 bitplanes_to_tapes, :841 stacked_planes_to_bitwords, "
+            ":864 bitwords_to_stacked_planes (XLA)"),
+}
+
+
+def bits_path(label, fn):
+    """Runs a bit-sliced main path with every count set to 0 just before
+    and read just after; raises if any plain version ran. Returns (fn's
+    result, seconds, launches, device ms by CUDA events)."""
+    for fns in BITS_WRAPPERS.values():
+        for f in fns:
+            f.launches = 0
+    for f in BITS_PLAIN:
+        f.calls = 0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: sum(f.launches for f in fns)
+                for k, fns in BITS_WRAPPERS.items()}
+    plain = sum(f.calls for f in BITS_PLAIN)
+    if plain:
+        raise AssertionError(f"path {label}: plain calls {plain}")
+    return result, seconds, launches, start.elapsed_time(end)
+
+
+def bits_round_bytes(dm, circ, cols):
+    """Least bytes a K14 round moves: every window word read and written
+    once, the random words read once, 4 B each, over ``cols`` word
+    columns."""
+    return (2 * dm.n_cells * circ[2] + circ[3]) * 4 * cols
+
+
+def bits_pack_bytes(batch, length, elem, nb):
+    """Least bytes K15 moves either way: each symbol (``elem`` B) once and
+    each word once (nb bits a symbol)."""
+    return batch * length * elem + batch * length * nb // 8
+
+
+def mix_tapes(gen, batch, length, dev):
+    """bench.py:393-452's ex4 tape mix: program P, X, O at 0.45, 0.45,
+    0.10; data A, B, C, D, I, O at 0.1 each but I and O at 0.3."""
+    out = []
+    for sym, p in (([6, 7, 5], [0.45, 0.45, 0.10]),
+                   ([0, 1, 2, 3, 4, 5], [0.1, 0.1, 0.1, 0.1, 0.3, 0.3])):
+        cdf = torch.tensor(np.cumsum(p)[:-1], dtype=torch.float32, device=dev)
+        u = torch.rand((batch, length), generator=gen, device=dev)
+        idx = torch.bucketize(u, cdf, right=True)
+        out.append(torch.tensor(sym, dtype=torch.int32, device=dev)[idx])
+    return out
+
+
+def time_k14(dm, circ, words, gen, dev, transpose, label):
+    """K14 alone (one launch a round, every phase in turn) against its
+    plain version at ``words``' geometry, beside its bound; both on the
+    same random words for a sampling circuit."""
+    kp, kd = (w.clone() for w in words)
+    axis = tbs.site_axis_of(kp, transpose)
+    E_, W, _ = tbs._word_dims(kp, axis)
+    stride = kp.shape[0]
+    cycle = torch.arange(stride, dtype=torch.int32, device=dev)
+    rw = (tbs.draw_rand_words(gen, (circ[3],) + tuple(kp.shape[2:]), dev)
+          if circ[3] else None)
+    it = iter(range(10**9))
+    ms = cuda_ms(lambda: tbs.bitslice_round(
+        dm, circ, kp, kd, cycle, next(it) % stride, rw, site_axis=axis), 200)
+    plain_ms = cuda_ms(lambda: tbs.apply_round_bitsliced(
+        dm, circ, kp, kd, int(next(it) % stride), site_axis=axis,
+        rand_words=rw), 2, warmup=1)
+    bound = bits_round_bytes(dm, circ, E_ * W) / HBM_BYTES_PER_S * 1e3
+    say(f"K14 {label}: {ms * 1e3:.2f} us a round against a bound of "
+        f"{bound * 1e3:.2f} us ({bits_round_bytes(dm, circ, E_ * W) / 1e6:.1f}"
+        f" MB, {bound / ms:.3f} of it); plain {plain_ms:.3f} ms; "
+        f"{len(circ[0])} ops, {E_ * W} word columns")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "library_ms": None, "ops": len(circ[0]), "columns": E_ * W}
+
+
+def time_k15(tape, stride, nb, transpose, label):
+    """K15's pack and unpack of ``tape`` ([B, L] int32) alone, against
+    their plain versions and bounds."""
+    B_, L_ = tape.shape
+    view = tape.view(B_, L_ // stride, stride)
+    words = tbs.pack_bitwords(view, nb, transpose=transpose)
+    out = torch.empty_like(tape)
+    target = out.view(B_, L_ // stride, stride)
+    bound = bits_pack_bytes(B_, L_, 4, nb) / HBM_BYTES_PER_S * 1e3
+    t = {"ms": cuda_ms(lambda: tbs.pack_bitwords(view, nb,
+                                                 transpose=transpose), 20),
+         "plain_ms": cuda_ms(lambda: tbs.pack_bitwords_plain(
+             view, nb, transpose=transpose), 2, warmup=1),
+         "bound_ms": bound, "library_ms": None,
+         "unpack": {
+             "ms": cuda_ms(lambda: tbs.unpack_bitwords(
+                 words, target, transpose=transpose), 20),
+             "plain_ms": cuda_ms(lambda: tbs.unpack_bitwords_plain(
+                 words, target, transpose=transpose), 2, warmup=1),
+             "bound_ms": bound}}
+    say(f"K15 {label}: pack {t['ms'] * 1e3:.2f} us, unpack "
+        f"{t['unpack']['ms'] * 1e3:.2f} us against a bound of "
+        f"{bound * 1e3:.2f} us each ({bits_pack_bytes(B_, L_, 4, nb) / 1e6:.1f}"
+        f" MB; {bound / t['ms']:.3f}, {bound / t['unpack']['ms']:.3f} of "
+        f"it); plain {t['plain_ms']:.3f}, {t['unpack']['plain_ms']:.3f} ms")
+    return t
+
+
+def k15_against_plain(tape, stride, nb, transpose, diff, label):
+    """K15 both ways against its plain version, bit for bit, on the
+    [B, L] tape and on the FSM planes [stride, B, E] it makes."""
+    B_, L_ = tape.shape
+    planes = ens._tape_to_planes(tape.to(torch.int8), stride)
+    for name, base, view in (
+            ("tape", tape, lambda t: t.view(B_, L_ // stride, stride)),
+            ("fsm planes", planes, lambda t: t.permute(1, 2, 0))):
+        words = tbs.pack_bitwords(view(base), nb, transpose=transpose)
+        plain = tbs.pack_bitwords_plain(view(base), nb, transpose=transpose)
+        out = torch.full_like(base, -1)
+        tbs.unpack_bitwords(words, view(out), transpose=transpose)
+        back = torch.full_like(base, -1)
+        tbs.unpack_bitwords_plain(words, view(back), transpose=transpose)
+        torch.cuda.synchronize()
+        if not (diff("K15", [(words, plain), (out, back)])
+                and torch.equal(out, base)):
+            raise AssertionError(f"K15 != plain on {label}, {name}")
+        del words, plain, out, back
+    say(f"K15 on {label}: pack and unpack == plain bit for bit on the "
+        "[B, L] tape and on the FSM planes, and unpack restores both")
+
+
+def bits_phase(dev, kernels, main_ref):
+    """Phase 10 (module docstring)."""
+    gen = torch.Generator(device=dev).manual_seed(1010)
+    max_err = {"K14": 0, "K15": 0}
+    times, paths = {}, {}
+
+    def diff(name, pairs):
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs)
+        max_err[name] = max(max_err[name], err)
+        return err == 0.0
+
+    # (a) ex5 at the bench geometry, the default route: K14 and K15.
+    dm5 = ens.compile_decision_machine(MAIN_TAG)
+    circ5 = tbs.machine_circuit(dm5)
+    ptape, dtape = main_ref["start"]
+    run_gen = torch.Generator(device=dev)
+
+    def run_a():
+        run_gen.set_state(main_ref["gen_state"])
+        return ens.run_ensemble(run_gen, (ptape, dtape), dm5,
+                                (BITS_ROUNDS, E), device=dev)
+
+    us = {}
+    for call in ("cold", "warm"):
+        ((pa, da), _), sec, la, ms = bits_path("a", run_a)
+        if (la["K14"] != BITS_ROUNDS or la["K15"] != 4 or la["K1"]):
+            raise AssertionError(f"path a ({call}): launches {la}")
+        k1_p, k1_d = main_ref["tapes"]
+        if not (torch.equal(pa, k1_p) and torch.equal(da, k1_d)):
+            raise AssertionError(f"path a ({call}): tapes != K1's")
+        us[call] = ms * 1e3 / BITS_ROUNDS
+        say(f"path a, {call}: run_ensemble (default: K14) on {MAIN_TAG} at "
+            f"B={B}, L={L}, E={E}, {BITS_ROUNDS} rounds: {us[call]:.2f} us "
+            f"a round, {B * E / (us[call] * 1e-6):.4e} transitions/s "
+            f"(K1's run {main_ref['us_round'][call]:.2f}); launches {la}; "
+            "tapes == K1's bit for bit")
+    paths["a"] = {"launches": la, "us_round": us,
+                  "k1_us_round": main_ref["us_round"]}
+    la_main = la
+    del pa, da
+    words = [tbs.tapes_to_bitplanes(t, STRIDE, circ5[2], transpose=True)
+             for t in main_ref["tapes"]]
+    times["K14"] = time_k14(dm5, circ5, words, gen, dev, True,
+                            f"ex5, B={B}, E={E}")
+    del words
+    times["K15"] = time_k15(main_ref["tapes"][0], STRIDE, circ5[2], True,
+                            f"int32 [{B}, {L}], nb {circ5[2]}")
+    k15_against_plain(main_ref["tapes"][1], STRIDE, circ5[2], True, diff,
+                      f"ex5's data tape [{B}, {L}]")
+
+    # (b) ex4, bench.py:393-452's tape mix, the sampling circuit.
+    dm4 = ens.compile_decision_machine(EX4)
+    circ4 = tbs.machine_circuit(dm4)
+    p4, d4 = mix_tapes(gen, B, L, dev)
+    kp, kd = (tbs.tapes_to_bitplanes(t, STRIDE, circ4[2], transpose=True)
+              for t in (p4, d4))
+    pp, pd = kp.clone(), kd.clone()
+    shifts = torch.randint(0, STRIDE, (8,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for k in range(8):
+        rw = tbs.draw_rand_words(gen, (circ4[3],) + tuple(kp.shape[2:]), dev)
+        tbs.bitslice_round(dm4, circ4, kp, kd, shifts, k, rw, site_axis=-2)
+        tbs.apply_round_bitsliced(dm4, circ4, pp, pd, shifts[k],
+                                  site_axis=-2, rand_words=rw)
+        torch.cuda.synchronize()
+        if not diff("K14", [(kp, pp), (kd, pd)]):
+            raise AssertionError(f"path b: K14 != plain at round {k}")
+    changed = int((tbs.bitplanes_to_tapes(kp, transpose=True) != p4).sum())
+    if changed == 0:
+        raise AssertionError("path b: 8 rounds changed no program cell")
+    say(f"path b: K14 == apply_round_bitsliced bit for bit over 8 rounds "
+        f"of ex4's sampling circuit ({circ4[3]} random words a round; "
+        f"{changed} program cells changed)")
+    del kp, kd, pp, pd
+    words = [tbs.tapes_to_bitplanes(t, STRIDE, circ4[2], transpose=True)
+             for t in (p4, d4)]
+    times["K14 ex4"] = time_k14(dm4, circ4, words, gen, dev, True,
+                                f"ex4, B={B}, E={E}")
+    del words
+    times["K15 ex4"] = time_k15(d4, STRIDE, circ4[2], True,
+                                f"int32 [{B}, {L}], nb {circ4[2]}")
+    state = gen.get_state()
+    ((bp, bd), _), sec_b, lb, ms_b = bits_path(
+        "b", lambda: ens.run_ensemble(gen, (p4, d4), dm4, (BITS_ROUNDS, E),
+                                      device=dev))
+    if lb["K14"] != BITS_ROUNDS or lb["K15"] != 4 or lb["K1"]:
+        raise AssertionError(f"path b: launches {lb}")
+    ((fp, fd), _), _, lf, ms_f = bits_path(
+        "b (K1)", lambda: ens.run_ensemble(gen, (p4, d4), dm4,
+                                           (BITS_ROUNDS, E), bitslice=False,
+                                           device=dev))
+    if lf["K1"] != BITS_ROUNDS or lf["K14"]:
+        raise AssertionError(f"path b (K1): launches {lf}")
+    n_eff = B * (L // E)
+    worst = 0.0
+    for a, b_ in ((fp, bp), (fd, bd)):
+        ca = ens.window_counts(a, dm4.size_a, 2, device=dev).cpu().numpy()
+        cb = ens.window_counts(b_, dm4.size_a, 2, device=dev).cpu().numpy()
+        pbar = 0.5 * (ca + cb)
+        gate = 7 * np.sqrt(2.0 * pbar * (1 - pbar) / n_eff) + 3e-3
+        if not (np.abs(ca - cb) < gate).all():
+            raise AssertionError(f"path b: window law, max dev "
+                                 f"{np.abs(ca - cb).max()}")
+        worst = max(worst, float((np.abs(ca - cb) / gate).max()))
+    moved = int((bd != d4).sum())
+    if moved == 0:
+        raise AssertionError("path b: the data tape never changed")
+    # The round's random words alone, as the path draws them.
+    buf = torch.empty((circ4[3], E, B // 32), dtype=torch.int32, device=dev)
+    draw_us = cuda_ms(lambda: tbs.draw_rand_words(gen, tuple(buf.shape),
+                                                  dev, out=buf), 50) * 1e3
+    del buf
+    paths["b"] = {"launches": lb, "us_round": ms_b * 1e3 / BITS_ROUNDS,
+                  "k1_us_round": ms_f * 1e3 / BITS_ROUNDS,
+                  "draw_us": draw_us, "law_worst_fraction_of_gate": worst}
+    say(f"path b: ex4 (bench.py:393-452's mix), {BITS_ROUNDS} rounds: "
+        f"default (K14) {paths['b']['us_round']:.2f} us a round, "
+        f"{B * E / (paths['b']['us_round'] * 1e-6):.4e} transitions/s, "
+        f"launches {lb}, of it the {circ4[3]} random words' draw "
+        f"{draw_us:.2f} us; bitslice=False (K1) "
+        f"{paths['b']['k1_us_round']:.2f} us; window counts at cl_k 2 "
+        f"within 7 sigma + 3e-3 (worst {worst:.3f} of the gate)")
+    del bp, bd, fp, fd, p4, d4
+    gen.set_state(state)
+
+    # (c) config5: ex5 at B=10^7, L=32, E=2, the 3-D word layout.
+    c5_stride = C5_L // C5_E
+    cp = torch.randint(0, 3, (C5_B, C5_L), generator=gen, device=dev,
+                       dtype=torch.int32)
+    cd = torch.zeros_like(cp)
+    wshape = tbs.transposed_word_shape(C5_E, C5_B // 32)
+    k15_against_plain(cp, c5_stride, circ5[2], True, diff,
+                      f"config5's program tape [{C5_B}, {C5_L}]")
+    c5_state = gen.get_state()
+    ((c5p, c5d), _), sec_c, lc, ms_c = bits_path(
+        "c", lambda: ens.run_ensemble(gen, (cp, cd), dm5, (C5_ROUNDS, C5_E),
+                                      device=dev))
+    if lc["K14"] != C5_ROUNDS or lc["K15"] != 4 or lc["K1"]:
+        raise AssertionError(f"path c: launches {lc}")
+    gen.set_state(c5_state)
+    ((k1p, k1d), _), _, lk, ms_k = bits_path(
+        "c (K1)", lambda: ens.run_ensemble(gen, (cp, cd), dm5,
+                                           (C5_ROUNDS, C5_E), bitslice=False,
+                                           device=dev))
+    if not (torch.equal(c5p, k1p) and torch.equal(c5d, k1d)):
+        raise AssertionError("path c: K14's tapes != K1's")
+    if int((c5d != cd).sum()) == 0:
+        raise AssertionError("path c: the data tape never changed")
+    del k1p, k1d
+    # Two keep_planes calls of 250 rounds against one 500-round call over
+    # the same shifts (the two calls' draws, replayed).
+    gen.set_state(c5_state)
+    half = C5_ROUNDS // 2
+    st, _ = ens.run_ensemble(gen, (cp, cd), dm5, (half, C5_E),
+                             keep_planes=True, device=dev)
+    if st.kind != "bits" or tuple(st.pbp.shape[2:]) != wshape:
+        raise AssertionError(f"path c: state {st.kind} {tuple(st.pbp.shape)}")
+    st, _ = ens.run_ensemble(gen, st, dm5, (half, C5_E), keep_planes=True,
+                             device=dev)
+    two = st.tapes()
+    gen.set_state(c5_state)
+    replay = torch.cat([torch.randint(0, c5_stride, (half,), generator=gen,
+                                      device=dev, dtype=torch.int32)
+                        for _ in range(2)])
+    one = [tbs.tapes_to_bitplanes(t, c5_stride, circ5[2], transpose=True)
+           for t in (cp, cd)]
+    tbs.run_bitsliced_rounds(dm5, circ5, one[0], one[1], replay,
+                             site_axis=-len(wshape))
+    one = [tbs.bitplanes_to_tapes(w, transpose=True) for w in one]
+    if not (torch.equal(two[0], one[0]) and torch.equal(two[1], one[1])):
+        raise AssertionError("path c: two keep_planes calls != one call")
+    del st, two, one
+    paths["c"] = {"launches": lc, "us_round": ms_c * 1e3 / C5_ROUNDS,
+                  "k1_us_round": ms_k * 1e3 / C5_ROUNDS, "seconds": sec_c}
+    say(f"path c: config5 (ex5, B={C5_B}, L={C5_L}, E={C5_E}, words "
+        f"{wshape}), {C5_ROUNDS} rounds: default (K14) "
+        f"{paths['c']['us_round']:.2f} us a round (conversions included), "
+        f"{C5_B * C5_E / (paths['c']['us_round'] * 1e-6):.4e} "
+        f"transitions/s, launches {lc}; K1 {paths['c']['k1_us_round']:.2f}"
+        " us a round; tapes == K1's bit for bit; two keep_planes calls of "
+        f"{half} == one call of {C5_ROUNDS} over the same shifts")
+    words = [tbs.tapes_to_bitplanes(t, c5_stride, circ5[2], transpose=True)
+             for t in (c5p, c5d)]
+    times["K14 config5"] = time_k14(dm5, circ5, words, gen, dev, True,
+                                    f"config5, words {wshape}")
+    del words
+    times["K15 config5"] = time_k15(c5p, c5_stride, circ5[2], True,
+                                    f"int32 [{C5_B}, {C5_L}], nb 3")
+    del cp, cd, c5p, c5d
+    torch.cuda.empty_cache()
+
+    # (d) tests/test_master.py:75 through the default route: ex2's
+    # sampling circuit, the port's master equation as the oracle.
+    size_a, cl_k, Lm, rounds = 2, 3, 12, 18
+    spd = np.asarray(ferromagnet_p0(cl_k, p_pair=0.1)).reshape((2,) * cl_k)
+    p0 = tmaster.ring_trace_measure(spd, size_a, cl_k, Lm)
+    Q = tmaster.build_ring_generator(EX2, Lm)
+    t_end = rounds * -math.log1p(-1 / Lm)
+    want = tmaster.state_window_marginals(
+        tmaster.solve_master(Q, p0, [0.0, t_end])[-1], Lm, size_a, cl_k)
+    dm2 = ens.compile_decision_machine(EX2)
+    ones = torch.full((512,), 1 / 512, dtype=torch.float64, device=dev)
+
+    def dynamics():
+        reps = []
+        for _ in range(16):
+            d = ens.sample_tapes_from_spd(gen, spd, size_a, cl_k, 512, Lm,
+                                          ring=True, device=dev)
+            (_, d), _ = ens.run_ensemble(
+                gen, (torch.zeros_like(d), d), dm2, (rounds, 1), device=dev)
+            reps.append(ens.weighted_window_counts(d, ones, size_a, cl_k,
+                                                   device=dev).cpu().numpy())
+        return reps
+
+    reps, sec_d, ld, _ = bits_path("d:75", dynamics)
+    if ld["K14"] != 16 * rounds or ld["K15"] != 64 or ld["K1"]:
+        raise AssertionError(f"path d: launches {ld}")
+    z = z_of(reps, want)
+    if not z < Z_GATE:
+        raise AssertionError(f"path d: test_master.py:75 gate, z {z}")
+    paths["d:75"] = {"launches": ld, "seconds": sec_d, "z": z}
+    say(f"path d: tests/test_master.py:75 through the default route (ex2's "
+        f"sampling circuit, K14): z {z:.2f} < {Z_GATE}; {sec_d:.3f} s; "
+        f"launches {ld}")
+
+    shapes = {"K14": f"ex5 circuit ({len(circ5[0])} ops), words [{STRIDE}, "
+                     f"{circ5[2]}, {E}, {B // 32}], one round",
+              "K15": f"pack of an int32 [{B}, {L}] tape, nb {circ5[2]}, "
+                     "transposed words"}
+    for k, (name, src, replaces) in BITS_KERNELS.items():
+        t = times[k]
+        kernels[k] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": la_main[k],
+            "max_abs_err": max_err[k], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"],
+            "shape": shapes[k]}
+    kernels["K14"]["ex4"] = times["K14 ex4"]
+    kernels["K14"]["config5"] = times["K14 config5"]
+    kernels["K14"]["paths"] = paths
+    kernels["K15"]["unpack"] = times["K15"]["unpack"]
+    kernels["K15"]["ex4"] = times["K15 ex4"]
+    kernels["K15"]["config5"] = times["K15 config5"]
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -2973,12 +3403,17 @@ def main(dev=None):
         machines = {tag: ens.compile_decision_machine(tag)
                     for tag in TAGS + LATTICE_TAGS
                     + [register_fuzz(0, 2, True)]}
-        jobs = {"K2-K10, K12, K13 (csrc/*.cu)": cuda.build,
+        jobs = {"K2-K10, K12, K13, K15 (csrc/*.cu)": cuda.build,
                 "expander (csrc/expander.cc, g++)": native.build}
         for tag, dm in machines.items():
             src = k1_source.k1_source(dm)
             jobs[f"K1, K11 {tag}"] = (
                 lambda src=src: cuda.build_unit("k1", src))
+        for tag in BITS_TAGS:
+            src = bitslice_source.k14_source(
+                machines[tag], tbs.machine_circuit(machines[tag]))
+            jobs[f"K14 {tag}"] = (
+                lambda src=src: cuda.build_unit("k14", src))
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
             futures = {name: pool.submit(fn) for name, fn in jobs.items()}
             built = {name: f.result() for name, f in futures.items()}
@@ -2994,6 +3429,9 @@ def main(dev=None):
         native.load()
         for dm in machines.values():
             k1_source.k1_library(dm)
+        for tag in BITS_TAGS:
+            bitslice_source.k14_library(machines[tag],
+                                        tbs.machine_circuit(machines[tag]))
 
     kernels = {}
     max_err = {"K1": 0, "K2": 0}
@@ -3022,7 +3460,7 @@ def main(dev=None):
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = ens.run_ensemble(gen, (ptape, dtape), dm, (NUM_STEPS, E),
-                                   device=dev)
+                                   bitslice=False, device=dev)
             end.record()
             spd = ens.window_counts(out[0][0], dm.size_a, CL_K, device=dev)
             torch.cuda.synchronize()
@@ -3072,6 +3510,10 @@ def main(dev=None):
                 f"{ms / NUM_STEPS * 1e3:.2f} us/round, "
                 f"{B * E * NUM_STEPS / (ms * 1e-3):.4e} transitions/s")
         say(f"first call's extra cost: {run_ms - warm_ms:.3f} ms")
+        main_ref = {"start": (ptape, dtape), "gen_state": gen_state,
+                    "tapes": (pt, dt),
+                    "us_round": {"cold": run_ms * 1e3 / NUM_STEPS,
+                                 "warm": warm_ms * 1e3 / NUM_STEPS}}
         say(f"SPD(cl_k={CL_K}) top windows: "
             f"{torch.topk(spd, 3).indices.tolist()}")
 
@@ -3290,6 +3732,10 @@ def main(dev=None):
     with Phase("9 the rolled lattice rounds (K10-K13) against exact "
                "answers"):
         lattice_phase(dev, kernels)
+
+    with Phase("10 the bit-sliced rounds (K14, K15)"):
+        bits_phase(dev, kernels, main_ref)
+        del main_ref
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

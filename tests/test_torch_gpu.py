@@ -25,6 +25,9 @@ from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as tens,
 )
 from chemical_kinetics_and_program_execution_torch.engine import dsl as tdsl
+from chemical_kinetics_and_program_execution_torch.engine import (
+    bitslice as tbs,
+)
 from chemical_kinetics_and_program_execution_torch.models.initial_states import (  # noqa: E501
     chemical_turing_p0,
     copolymerization_p0,
@@ -145,7 +148,8 @@ def test_run_ensemble_goes_through_the_kernel(cuda):
                                                              (B, L)))
     launches, calls = tens.plane_round.launches, tens.plane_round_plain.calls
     (pt, dt), (applied, times) = tens.run_ensemble(
-        torch.Generator(device=cuda).manual_seed(0), tapes, dm, (n, E))
+        torch.Generator(device=cuda).manual_seed(0), tapes, dm, (n, E),
+        bitslice=False)
     assert tens.plane_round.launches == launches + n
     assert tens.plane_round_plain.calls == calls
     assert pt.device.type == "cuda" and pt.dtype == torch.int32
@@ -1019,3 +1023,132 @@ def test_weighted_counts_kernel_matches_plain(cuda, size_a, cl_k, B, L):
                                               cl_k)
     assert tens.weighted_window_counts.launches == launches + 2
     assert torch.equal(a, b) and torch.equal(a, plain)
+
+
+# --- K14 and K15: the bit-sliced rounds ------------------------------------------
+
+# (B, L, E, transpose): the straight layout, the 2-D transposed [E, W]
+# and the reference's 3-D [E, S, P] view of it.
+_BIT_LAYOUTS = [(128, 1024, 64, False), (4096, 64, 4, True),
+                (32768, 32, 2, True)]
+
+
+def _bit_words(cuda, rng, dm, circ, B, L, E, transpose):
+    stride = L // E
+    tapes = [torch.as_tensor(rng.randint(0, dm.size_a, (B, L)),
+                             dtype=torch.int32, device=cuda)
+             for _ in range(2)]
+    return [tbs.tapes_to_bitplanes(t, stride, circ[2], transpose=transpose)
+            for t in tapes], tapes
+
+
+@pytest.mark.parametrize("B,L,E,transpose", _BIT_LAYOUTS,
+                         ids=["straight", "2d", "3d"])
+@pytest.mark.parametrize("tag", TAGS)
+def test_bitslice_round_kernel_matches_plain(cuda, tag, B, L, E, transpose):
+    """K14 and its plain version, both on the card, give identical words
+    after every round, one round at every phase (random words drawn for
+    the sampling circuits of ex4 and ex2)."""
+    dm = tens.compile_decision_machine(tag)
+    circ = tbs.machine_circuit(dm)
+    rng = np.random.RandomState(len(tag) + B)
+    (kp, kd), tapes = _bit_words(cuda, rng, dm, circ, B, L, E, transpose)
+    pp, pd = kp.clone(), kd.clone()
+    axis = tbs.site_axis_of(kp, transpose)
+    stride = L // E
+    shifts = torch.as_tensor(rng.permutation(stride), dtype=torch.int32,
+                             device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    launches = tbs.bitslice_round.launches
+    for k in range(stride):
+        rw = (tbs.draw_rand_words(gen, (circ[3],) + tuple(kp.shape[2:]),
+                                  cuda) if circ[3] else None)
+        tbs.bitslice_round(dm, circ, kp, kd, shifts, k, rw, site_axis=axis)
+        tbs.apply_round_bitsliced(dm, circ, pp, pd, shifts[k],
+                                  site_axis=axis, rand_words=rw)
+        torch.cuda.synchronize()
+        assert torch.equal(kp, pp) and torch.equal(kd, pd), k
+    assert tbs.bitslice_round.launches == launches + stride
+    out = tbs.bitplanes_to_tapes(kd, transpose=transpose)
+    assert int((out != tapes[1]).sum()) > 0
+
+
+def _symbol_views(cuda, rng, B, L, stride, dtype):
+    """The three layouts K15 reads, each as its [B, E, stride] view:
+    [B, L] tapes, the FSM planes [stride, B, E] and the frontier's
+    [stride, E, K] (K = B)."""
+    E = L // stride
+    tape = torch.as_tensor(rng.randint(0, 5, (B, L)), dtype=dtype,
+                           device=cuda)
+    planes = tens._tape_to_planes(tape.to(torch.int8), stride)
+    frontier = planes.permute(0, 2, 1).contiguous()
+    return {"tape": (tape, tape.view(B, E, stride)),
+            "fsm planes": (planes, planes.permute(1, 2, 0)),
+            "frontier": (frontier, frontier.permute(2, 1, 0))}
+
+
+@pytest.mark.parametrize("B,L,stride", [(32, 64, 16), (4096, 256, 16),
+                                        (1024, 32, 16)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_bitplanes_kernel_matches_plain(cuda, B, L, stride, dtype,
+                                        transpose):
+    """K15's pack and unpack equal their plain versions bit for bit on
+    the three layouts (int32 and int8 tapes, B = 32 too), and unpack
+    restores the symbols."""
+    rng = np.random.RandomState(B + L)
+    launches = (tbs.pack_bitwords.launches, tbs.unpack_bitwords.launches)
+    for name, (base, view) in _symbol_views(cuda, rng, B, L, stride,
+                                            dtype).items():
+        words = tbs.pack_bitwords(view, 3, transpose=transpose)
+        plain = tbs.pack_bitwords_plain(view, 3, transpose=transpose)
+        assert torch.equal(words, plain), name
+        out = torch.full_like(base, -1)
+        target = {"tape": lambda t: t.view(B, L // stride, stride),
+                  "fsm planes": lambda t: t.permute(1, 2, 0),
+                  "frontier": lambda t: t.permute(2, 1, 0)}[name]
+        tbs.unpack_bitwords(words, target(out), transpose=transpose)
+        back = torch.full_like(base, -1)
+        tbs.unpack_bitwords_plain(words, target(back), transpose=transpose)
+        assert torch.equal(out, back) and torch.equal(out, base), name
+    assert tbs.pack_bitwords.launches == launches[0] + 3
+    assert tbs.unpack_bitwords.launches == launches[1] + 3
+
+
+def test_bitsliced_run_on_card_matches_k1(cuda):
+    """A choose-free machine's default run takes K14 and K15 (K1 never)
+    and gives K1's tapes at the same seed; the random words of a
+    sampling run set member lane 31 about half the time."""
+    dm = tens.compile_decision_machine("ex5-msrtf-machine")
+    rng = np.random.RandomState(8)
+    B, L, E, n = 4096, 64, 4, 30
+    tapes = [rng.randint(0, dm.size_a, (B, L)) for _ in range(2)]
+    counts = (tbs.bitslice_round.launches, tens.plane_round.launches,
+              tbs.apply_round_bitsliced.calls)
+    (p1, d1), _ = tens.run_ensemble(3, tapes, dm, (n, E))
+    assert tbs.bitslice_round.launches == counts[0] + n
+    assert tens.plane_round.launches == counts[1]
+    assert tbs.apply_round_bitsliced.calls == counts[2]
+    (p2, d2), _ = tens.run_ensemble(3, tapes, dm, (n, E), bitslice=False)
+    assert torch.equal(p1, p2) and torch.equal(d1, d2)
+    words = tbs.draw_rand_words(torch.Generator(device=cuda).manual_seed(1),
+                                (1 << 16,), cuda)
+    lane31 = float((words < 0).double().mean())
+    assert abs(lane31 - 0.5) < 0.01
+
+
+def test_bitslice_kernels_reject_bad_launches(cuda):
+    """A launch the card refuses raises (no fallback): K14 on words of no
+    plane, K15 on symbols of a type it does not hold."""
+    dm = tens.compile_decision_machine("ex5-msrtf-machine")
+    circ = tbs.machine_circuit(dm)
+    empty = torch.zeros((0, circ[2], 2, 8), dtype=torch.int32, device=cuda)
+    launches = tbs.bitslice_round.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tbs.bitslice_round(dm, circ, empty, empty.clone(),
+                           torch.zeros(1, dtype=torch.int32, device=cuda),
+                           0)
+    assert tbs.bitslice_round.launches == launches
+    with pytest.raises(TypeError, match="int8 or int32"):
+        tbs.pack_bitwords(torch.zeros((32, 4, 4), dtype=torch.int64,
+                                      device=cuda), 3)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Times the port's `run_ensemble` on chip_smoke.py's main path: ex5 at
-B=16384, L=4096, E=256 for 2,000 rounds, the process's first call and
-then the same call again, by CUDA events.
+B=16384, L=4096, E=256 for 2,000 rounds on K1's plane path
+(``bitslice=False``), the process's first call and then the same call
+again, by CUDA events.
 
     python3 time_run_ensemble.py [--window-counts] [ROOT]
 
@@ -69,7 +70,7 @@ def main():
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         out = ens.run_ensemble(gen, (ptape, dtape), dm, (NUM_STEPS, E),
-                               device=dev)[0]
+                               bitslice=False, device=dev)[0]
         end.record()
         torch.cuda.synchronize()
         us.append(start.elapsed_time(end) * 1e3 / NUM_STEPS)
