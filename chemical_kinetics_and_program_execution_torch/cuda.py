@@ -6,12 +6,14 @@ so a build takes seconds) and both landing in `_build/` beside this file:
 - `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
   `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`; K7 and K8
   `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
-  `pattern_scan.cu`; K13 `weighted_counts.cu`; K15 `bitplanes.cu`),
+  `pattern_scan.cu`; K13 `weighted_counts.cu`; K15 `bitplanes.cu`; K16
+  and K18 `bff_round.cu`),
   which may include headers from `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1 and K11, one library per
   decision machine, from `engine/k1_source.py`; K14, one library per
-  bit-sliced circuit, from `engine/bitslice_source.py`).
+  bit-sliced circuit, from `engine/bitslice_source.py`; K17, one library
+  per BFF circuit, from `engine/bff_bitslice_source.py`).
 
 Each library is named by a hash of what goes into it (sources, included
 templates, flags): a changed source builds anew, an unchanged one loads
@@ -207,9 +209,15 @@ def load() -> ctypes.CDLL:
     k15 = [_P, _I, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P]
     lib.ckpe_bitplanes_pack.argtypes = k15
     lib.ckpe_bitplanes_unpack.argtypes = k15
+    # ckpe_bff_rounds(params, p, d, prov, shifts, per_member, k0, n, B, L,
+    #                 E, totals, u, vals, rate, stream)
+    lib.ckpe_bff_rounds.argtypes = [_P, _P, _P, _P, _P] + [_I] * 6 + [
+        _P, _P, _P, _D, _P]
+    # ckpe_bff_mutate(tape, prov, u, vals, rate, count, stream)
+    lib.ckpe_bff_mutate.argtypes = [_P, _P, _P, _P, _D, _L, _P]
     for name in ("ckpe_table_rounds", "ckpe_pattern_scan",
                  "ckpe_bitplanes_pack", "ckpe_bitplanes_unpack",
-                 "ckpe_weighted_counts",
+                 "ckpe_weighted_counts", "ckpe_bff_rounds", "ckpe_bff_mutate",
                  "ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
                  "ckpe_world_mass",
                  "ckpe_tree_rhs", "ckpe_chain_rhs", "ckpe_gather_scatter",

@@ -801,10 +801,10 @@ def _bitsliced_rounds(dm, circ, p_bp, d_bp, shifts, k0, n, rand_words,
     E, W, site_minor = _word_dims(p_bp, site_axis)
     r_ptr = rand_words.data_ptr() if n_rand else None
     with torch.cuda.device(p_bp.device):
-        rc = lib.ckpe_k14_rounds(p_bp.data_ptr(), d_bp.data_ptr(), r_ptr,
-                                 shifts.data_ptr(), int(k0), int(n), int(E),
-                                 int(W), int(site_minor), int(stride),
-                                 cuda.stream(p_bp))
+        rc = lib.ckpe_bs_rounds(p_bp.data_ptr(), d_bp.data_ptr(), r_ptr,
+                                shifts.data_ptr(), None, int(k0), int(n),
+                                int(E), int(W), int(site_minor), int(stride),
+                                cuda.stream(p_bp))
     cuda.check(rc, "bitslice_round", lib)
     bitslice_round.launches += n
 
@@ -812,9 +812,9 @@ def _bitsliced_rounds(dm, circ, p_bp, d_bp, shifts, k0, n, rand_words,
 def bitslice_round(dm, circ, p_bp, d_bp, shifts, k, rand_words=None, *,
                    site_axis: int = -1):
     """Round ``k`` of a run on bit-plane words, in place (K14): phase
-    ``shifts[k]`` (an int32 tensor on the words' device, read there),
-    ``rand_words`` [n_rand, *word shape] int32 for a sampling circuit.
-    CPU tensors take :func:`apply_round_bitsliced`."""
+    ``shifts[k]`` in [0, stride) (an int32 tensor on the words' device,
+    read there), ``rand_words`` [n_rand, *word shape] int32 for a
+    sampling circuit. CPU tensors take :func:`apply_round_bitsliced`."""
     if rand_words is not None:
         rand_words = rand_words[None]
     _check_words(dm, circ, p_bp, d_bp, shifts, k, 1, rand_words, site_axis)

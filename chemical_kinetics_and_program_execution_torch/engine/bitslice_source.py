@@ -1,13 +1,16 @@
-"""K14's circuit-specific source: a bit-sliced circuit compiled into code.
+"""The bit-sliced kernels' circuit-specific source: a circuit compiled
+into code.
 
-:func:`k14_source` writes one CUDA translation unit for a circuit
-``(ops, outputs, nb, n_rand)`` of `bitslice.py` and the window offsets of
-its machine: every gate becomes one ``uint32_t`` statement, so nvcc keeps
-the DAG in registers and fuses gates into LOP3s. The unit includes the
-hand-written template `csrc/bitslice_round.cuh` (loads, stores, the
-launch loop), which documents the kernel's design.
+:func:`unit_source` writes one CUDA translation unit for a circuit
+``(ops, outputs, nb, n_rand)`` and its machine's window offsets: every
+gate becomes one ``uint32_t`` statement, so nvcc keeps the DAG in
+registers and fuses gates into LOP3s. The unit includes the hand-written
+template `csrc/bitslice_round.cuh` (loads, stores, the counter planes'
+popcounts, the launch loop), which documents both kernels' design:
+:func:`k14_source` is K14's unit (every window cell written back, random
+words for a sampling circuit), `bff_bitslice_source.k17_source` K17's.
 
-:func:`k14_library` builds the unit with `cuda.build_unit` (one `nvcc`
+:func:`unit_library` builds a unit with `cuda.build_unit` (one `nvcc`
 call a circuit, cached on disk by a hash of the source, the template and
 the flags) and loads it once a process.
 """
@@ -33,36 +36,51 @@ def _gate(i: int, op) -> str:
     return f"  const uint32_t v{i} = v{a} {_BINARY[kind]} v{b};"
 
 
-def k14_source(dm, circ) -> str:
-    """The CUDA translation unit of K14 for circuit ``circ`` of machine
-    ``dm`` (deterministic: the same circuit and offsets give the same
-    text)."""
+def unit_source(kernel: str, what: str, circ, *, n_p: int, n_d: int,
+                p_lo: int, d_lo: int, write_p: bool, size_a: int,
+                threads: int) -> str:
+    """The translation unit of ``kernel`` ("K14" or "K17") for circuit
+    ``circ`` (``what`` names it in the header): the template's macros,
+    then `bs_circuit`. Deterministic: the same arguments give the same
+    text."""
     ops, outputs, nb, n_rand = circ
-    if len(outputs) != dm.n_cells * nb:
-        raise ValueError(f"{dm.tag}: a circuit of {len(outputs)} outputs "
-                         f"for {dm.n_cells} cells of {nb} bits")
     n_gates = sum(op[0] in _BINARY or op[0] == "not" for op in ops)
     lines = [
-        f"// K14 for the bit-sliced circuit of {dm.tag!r}: generated by",
+        f"// {kernel} for {what}: generated by",
         "// chemical_kinetics_and_program_execution_torch/engine/"
         "bitslice_source.py",
         "// from the circuit; the kernel is csrc/bitslice_round.cuh.",
-        f"// {dm.n_cells} window cells of {nb} bits, {n_rand} random words, "
-        f"{len(ops)} ops ({n_gates} gates).",
-        f"#define K14_N_P {dm.n_p}",
-        f"#define K14_N_D {dm.n_d}",
-        f"#define K14_P_LO {dm.p_lo}",
-        f"#define K14_D_LO {dm.d_lo}",
-        f"#define K14_NB {nb}",
-        f"#define K14_N_RAND {n_rand}",
+        f"// {n_p + n_d} window cells of {nb} bits, {n_rand} random words, "
+        f"{len(ops)} ops ({n_gates} gates), {len(outputs)} outputs.",
+        f"#define BS_N_P {n_p}",
+        f"#define BS_N_D {n_d}",
+        f"#define BS_P_LO {p_lo}",
+        f"#define BS_D_LO {d_lo}",
+        f"#define BS_NB {nb}",
+        f"#define BS_N_RAND {n_rand}",
+        f"#define BS_WRITE_P {int(write_p)}",
+        f"#define BS_SIZE_A {size_a}",
+        f"#define BS_THREADS {threads}",
         '#include "bitslice_round.cuh"',
         "",
-        "K14_FN void k14_circuit(const uint32_t* in, uint32_t* out) {",
+        "BS_FN void bs_circuit(const uint32_t* in, uint32_t* out) {",
     ]
     lines += [_gate(i, op) for i, op in enumerate(ops)]
     lines += [f"  out[{j}] = v{o};" for j, o in enumerate(outputs)]
     lines.append("}")
     return "\n".join(lines) + "\n"
+
+
+def k14_source(dm, circ) -> str:
+    """The CUDA translation unit of K14 for circuit ``circ`` of machine
+    ``dm``: every window cell written back, no counters."""
+    outputs, nb = circ[1], circ[2]
+    if len(outputs) != dm.n_cells * nb:
+        raise ValueError(f"{dm.tag}: a circuit of {len(outputs)} outputs "
+                         f"for {dm.n_cells} cells of {nb} bits")
+    return unit_source("K14", f"the bit-sliced circuit of {dm.tag!r}", circ,
+                       n_p=dm.n_p, n_d=dm.n_d, p_lo=dm.p_lo, d_lo=dm.d_lo,
+                       write_p=True, size_a=0, threads=256)
 
 
 _P = ctypes.c_void_p
@@ -71,13 +89,15 @@ _L = ctypes.c_longlong
 
 
 @functools.lru_cache(maxsize=None)
-def _load(source: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(cuda.build_unit("k14", source)[0]))
-    # ckpe_k14_rounds(p, d, rand, shifts, k0, n, E, W, site_minor, stride,
-    #                 stream)
-    lib.ckpe_k14_rounds.argtypes = [_P, _P, _P, _P, _I, _I, _I, _L, _I, _I,
-                                    _P]
-    lib.ckpe_k14_rounds.restype = _I
+def unit_library(stem: str, source: str) -> ctypes.CDLL:
+    """The unit ``source`` built as `_build/lib{stem}-{hash}.so` on first
+    use and loaded once a process."""
+    lib = ctypes.CDLL(str(cuda.build_unit(stem, source)[0]))
+    # ckpe_bs_rounds(p, d, rand, shifts, totals, k0, n, E, W, site_minor,
+    #                stride, stream)
+    lib.ckpe_bs_rounds.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
+                                   _I, _P]
+    lib.ckpe_bs_rounds.restype = _I
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p
     return lib
@@ -95,5 +115,6 @@ def k14_library(dm, circ) -> ctypes.CDLL:
     key = (id(dm), id(circ))
     hit = _by_circuit.get(key)
     if hit is None:
-        hit = _by_circuit[key] = (dm, circ, _load(k14_source(dm, circ)))
+        hit = _by_circuit[key] = (dm, circ,
+                                  unit_library("k14", k14_source(dm, circ)))
     return hit[2]

@@ -13,9 +13,10 @@ Phases (each prints its wall time; every check raises on failure):
    limit;
 2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2-K10,
    K12, K13, K15), one for the generated unit (K1 and K11) of each
-   machine (phase 3's three, ex3 and the fuzz rule of phase 9) and one
+   machine (phase 3's three, ex3 and the fuzz rule of phase 9), one
    for the generated K14 unit of each of ex5's, ex4's and ex2's
-   bit-sliced circuits, and beside them the
+   bit-sliced circuits and one for the generated K17 unit of each of the
+   BFF circuits of ex6-mini-bff, -self and -midi, and beside them the
    `g++` call of the C++ expander (`csrc/expander.cc`, a host library),
    each with its seconds and the `-Xptxas -v` register, shared-memory
    and spill lines;
@@ -180,7 +181,33 @@ Phases (each prints its wall time; every check raises on failure):
    route (ex2's sampling circuit) with the port's master equation as
    the oracle (z < 6); K14 alone and K15's pack and unpack at (a), (b)
    and (c), by CUDA events, beside their bounds and plain versions (no
-   library call computes either).
+   library call computes either);
+11. the BFF interpreter (K16-K18), each path with every count set to 0
+   just before and read just after, no plain version called: (a)
+   `run_ensemble_bff` on ex6-mini-bff at B=16384, L=4096, E=64
+   (`bench.py:454-497`'s geometry) for 200 rounds by the default route
+   (K17 200 times, K15 three times; cold and warm µs a round and site
+   events/s) and by `engine="scan"` (K16 200 times) at the same seed:
+   tapes and the [200, 12] opcode totals equal bit for bit, the totals
+   summing to rounds x B x E x fuel; (b) K16 on all of (a)'s 16,384
+   members, two-tape, self-modifying, lineage and per-member shifts,
+   K16 then K18 at rate 0.01, and K17 on (a)'s full-width words for the
+   circuits of ex6-mini-bff, -self and -midi, 2 rounds each equal to
+   their plain versions bit for bit; (c) the master-equation gates of
+   tests/test_bff.py (the conditioned generator, at the reference's
+   program ring, which never writes, and at one that does, the ring
+   master and the mutation kernel, z < 6, the port's master.py the
+   oracle), each first held bit for bit to the plain versions for 2
+   rounds at its own geometry (8,192 members, L=4, E=1, a shift a
+   member, the mutation gate's rate, lineage on the self-modifying
+   ring) through `run_bff_rounds`, and examples/ex6_bff_ensemble.py's
+   run (B 4,096, L 256, E 4, 640 rounds), K17 first held bit for bit to
+   its plain version for 2 rounds at that geometry, then the run held
+   to the claims of tests/test_oracles.py:538-561 on the port's own
+   run; (d) K16, K17 and K18 alone at (a)'s geometry by CUDA events
+   beside their bounds and plain versions (no library call computes
+   any: an interpreter, a gate DAG, a select), and the faithful K17
+   unit's build seconds, registers and spills.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -215,6 +242,13 @@ from chemical_kinetics_and_program_execution_torch.engine import (
 )
 from chemical_kinetics_and_program_execution_torch.engine import (
     bitslice_source,
+)
+from chemical_kinetics_and_program_execution_torch.engine import bff as tbff
+from chemical_kinetics_and_program_execution_torch.engine import (
+    bff_bitslice as tbb,
+)
+from chemical_kinetics_and_program_execution_torch.engine import (
+    bff_bitslice_source,
 )
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as ens,
@@ -3378,6 +3412,504 @@ def bits_phase(dev, kernels, main_ref):
     kernels["K15"]["config5"] = times["K15 config5"]
 
 
+# --- Phase 11: the BFF interpreter (K16-K18) ---------------------------------
+
+BFF_TAG, BFF_SELF = "ex6-mini-bff", "ex6-mini-bff-self"
+BFF_MIDI = "ex6-mini-bff-midi"
+BFF_UNIT_TAGS = [BFF_TAG, BFF_SELF, BFF_MIDI]  # their K17 units built in phase 2
+BFF_E, BFF_ROUNDS = 64, 200  # bench.py:464-469: stride 64 > 2*span = 62
+STRIDE_BFF = L // BFF_E
+INT32_OPS_PER_S = 16.7e12  # 3 integer pipes of 132 SMs at 1.98 GHz (K14's)
+BFF_WRAPPERS = {"K16": [tbff.bff_round], "K17": [tbb.bff_bitslice_round],
+                "K18": [tbff.bff_mutate],
+                "K15": [tbs.pack_bitwords, tbs.unpack_bitwords]}
+BFF_PLAIN = [tbff.bff_round_plain, tbff.bff_mutate_plain,
+             tbb.apply_bff_round_bitsliced, tbs.pack_bitwords_plain,
+             tbs.unpack_bitwords_plain]
+BFF_KERNELS = {
+    "K16": ("K16 bff_round", SRC + "bff_round.cu",
+            "the JAX package's engine/bff.py:461-550, the scan body of "
+            "_run_ensemble_bff: :162 bff_fire under :288 apply_bff_round and "
+            ":320 apply_bff_self_round (XLA)"),
+    "K17": ("K17 bff_bitslice_round", SRC + "bitslice_round.cuh",
+            "the JAX package's engine/bff_bitslice.py:318 "
+            "apply_bff_round_bitsliced with engine/bitslice.py:698 "
+            "_eval_circuit and the popcount of bff_bitslice.py:439-442 (XLA)"),
+    "K18": ("K18 bff_mutate", SRC + "bff_round.cu",
+            "the JAX package's engine/bff.py:506-518, the mutation step of "
+            "_run_ensemble_bff's scan body (XLA)"),
+}
+
+
+def bff_path(label, fn):
+    """Runs a BFF main path with every count set to 0 just before and
+    read just after; raises if any plain version ran. Returns (fn's
+    result, seconds, launches, device ms by CUDA events)."""
+    for fns in BFF_WRAPPERS.values():
+        for f in fns:
+            f.launches = 0
+    for f in BFF_PLAIN:
+        f.calls = 0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: sum(f.launches for f in fns)
+                for k, fns in BFF_WRAPPERS.items()}
+    plain = sum(f.calls for f in BFF_PLAIN)
+    if plain:
+        raise AssertionError(f"path {label}: plain calls {plain}")
+    return result, seconds, launches, start.elapsed_time(end)
+
+
+def k16_bytes(m, sites, written):
+    """Least bytes of a K16 round without lineage: each site's window read
+    once (n_p + n_d cells, the fetches' and heads' range), each cell the
+    round changed (``written``, counted on this run's tapes) written
+    once."""
+    return sites * ((0 if m.self_modifying else m.n_p) + m.n_d) + written
+
+
+def k17_work(m, circ, cols):
+    """(bytes, int32 operations) of a K17 round over ``cols`` word
+    columns: every window word read and every data word written once, 4 B
+    each; an operation a two-input gate. A LOP3 takes its inputs negated,
+    so a NOT costs nothing, and fusing chains of gates into one LOP3
+    would only lower the count: the operations' time is at most this."""
+    nb = circ[2]
+    n_in = ((0 if m.self_modifying else m.n_p) + m.n_d) * nb
+    gates = sum(op[0] in ("and", "or", "xor") for op in circ[0])
+    return cols * (n_in + m.n_d * nb) * 4, cols * gates
+
+
+def k18_bytes(u, rate):
+    """Least bytes of K18 without lineage on these draws: every uniform
+    read (8 B); the drawn symbol read and the cell written only where hit
+    (4 + 1 B)."""
+    return u.numel() * 8 + int((u < rate).sum()) * 5
+
+
+def pair_mi(tape, d, size_a):
+    """Mutual information (nats) of (tape[i], tape[i + d]) over every
+    member and site, on the tape's card (examples/ex6_bff_ensemble.py's
+    `pair_mi`)."""
+    a = tape.reshape(-1).long()
+    b = torch.roll(tape, -d, dims=1).reshape(-1).long()
+    joint = torch.bincount(a * size_a + b, minlength=size_a * size_a)
+    joint = joint.double().reshape(size_a, size_a)
+    joint /= joint.sum()
+    outer = torch.outer(joint.sum(1), joint.sum(0))
+    m = joint > 0
+    return float((joint[m] * torch.log(joint[m] / outer[m])).sum())
+
+
+def k17_against_plain(tag, pt, dt, E, shifts, diff, where):
+    """K17 and its plain version on the words of [B, L] tapes ``pt`` and
+    ``dt`` (the run's layout at E sites a round), one round at each of
+    ``shifts``: words and opcode totals bit for bit."""
+    mm = tbff.compile_bff(tag)
+    cc = tbb.compile_bff_circuit(mm)
+    B_, L_ = dt.shape
+    transpose = E < B_ // 32
+    words = [None if mm.self_modifying else tbs.tapes_to_bitplanes(
+        pt, L_ // E, cc[2], transpose=transpose),
+        tbs.tapes_to_bitplanes(dt, L_ // E, cc[2], transpose=transpose)]
+    axis = tbs.site_axis_of(words[1], transpose)
+    kd, pd = words[1].clone(), words[1].clone()
+    for k in range(len(shifts)):
+        got = tbb.bff_bitslice_round(mm, cc, words[0], kd, shifts, k,
+                                     site_axis=axis)
+        want = tbb.apply_bff_round_bitsliced(mm, cc, words[0], pd,
+                                             int(shifts[k]), site_axis=axis)
+        if not diff("K17", [(got, want), (kd, pd)]):
+            raise AssertionError(f"K17 != plain: {tag}, {where}, round {k}")
+    say(f"(b/c) K17 {tag} ({len(cc[0])} ops) on {where} (B={B_}, L={L_}, "
+        f"E={E}): {len(shifts)} rounds == plain bit for bit (words, "
+        "totals)")
+
+
+def scan_against_plain(label, m, tapes, prov, q, gen, dev, diff):
+    """2 rounds of `run_bff_rounds` on the card (K16, and K18 at rate
+    ``q``; one C call) at a shift a member and E=1, against
+    `bff_round_plain` and `bff_mutate_plain` on the same shifts and draws:
+    tapes, lineage and opcode totals bit for bit, some cell changed."""
+    dt = tapes if m.self_modifying else tapes[1]
+    Bn, Ln = dt.shape
+    shifts = torch.randint(0, Ln, (2, Bn), generator=gen, device=dev,
+                           dtype=torch.int32)
+    draws = None
+    if q:
+        draws = (torch.rand((2, Bn, Ln), generator=gen, device=dev,
+                            dtype=torch.float64),
+                 torch.randint(0, m.size_a, (2, Bn, Ln), generator=gen,
+                               device=dev, dtype=torch.int32))
+    got, got_tot = tbff.run_bff_rounds(m, tapes, shifts, 1,
+                                       mutation_draws=draws,
+                                       mutation_rate=q, prov=prov,
+                                       device=dev)
+    p8 = None if m.self_modifying else tapes[0].to(torch.int8)
+    d8 = dt.to(torch.int8)
+    pv = None if prov is None else prov.clone()
+    tots = []
+    for k in range(2):
+        tots.append(tbff.bff_round_plain(m, p8, d8, pv, shifts[k], 1))
+        if q:
+            tbff.bff_mutate_plain(d8, pv, draws[0][k], draws[1][k], q)
+    want_tot = torch.stack(tots)
+    if m.self_modifying:
+        got_d, got_v = (got, None) if prov is None else got
+    else:
+        got_d, got_v = got[1], None
+    pairs = [(got_tot, want_tot), (got_d, d8)] + (
+        [] if pv is None else [(got_v, pv)])
+    if not diff("K16", pairs) or (q and not diff("K18", pairs[1:])):
+        raise AssertionError(f"gate {label}: run_bff_rounds != plain")
+    if not bool((d8 != dt).any()):
+        raise AssertionError(f"gate {label}: no cell changed")
+    say(f"(c) {label}: 2 rounds of run_bff_rounds at the gate's geometry "
+        f"({Bn} members, L={Ln}, E=1, a shift a member"
+        f"{f', mutation {q}' if q else ''}"
+        f"{', lineage' if pv is not None else ''}) == plain bit for bit; "
+        f"{int((d8 != dt).sum())} cells changed")
+
+
+def bff_law_gates(dev, gen, record, diff):
+    """(c): twins of tests/test_bff.py's three master-equation gates, the
+    replicas one batch with independent sites (K16, K18), each held to
+    the plain versions at its geometry first, and
+    examples/ex6_bff_ensemble.py's run (K17, K15), K17 held to its plain
+    version at its geometry first, with the claims of
+    tests/test_oracles.py:538-561 on the port's own run."""
+    tm = tmaster
+    L, cl_k, rounds, n_keys, B_k = 4, 2, 24, 8, 1024
+
+    def gate(label, tag, Q, q, ptape):
+        m = tbff.compile_bff(tag)
+        A = m.size_a
+        mut = np.full((A, A), q / A)
+        mut[np.diag_indices(A)] += 1.0 - q
+        p = np.full(A ** L, 1.0 / A ** L)
+        for _ in range(rounds):
+            p = p + (Q @ p) / L
+            if q:
+                t = p.reshape((A,) * L)
+                for ax in range(L):
+                    t = np.moveaxis(np.tensordot(mut, t, axes=(1, ax)), 0,
+                                    ax)
+                p = t.ravel()
+        want = tm.state_window_marginals(p, L, A, cl_k)
+        tape = torch.randint(0, A, (n_keys * B_k, L), generator=gen,
+                             device=dev, dtype=torch.int32)
+        tapes = tape if ptape is None else (ptape, tape)
+        prov = (torch.arange(tape.numel(), dtype=torch.int32,
+                             device=dev).reshape(tape.shape)
+                if m.self_modifying else None)
+        # The gate's program never writes ([9 1 2 2] under the lite
+        # machine), so the two-tape check takes a random program a member.
+        scan_against_plain(label, m, tapes if ptape is None else (
+            torch.randint(0, A, ptape.shape, generator=gen, device=dev,
+                          dtype=torch.int32), tape),
+            prov, q, gen, dev, diff)
+
+        def run():
+            return tbff.run_ensemble_bff(gen, tapes, m, (rounds, 1),
+                                         independent_sites=True,
+                                         mutation_rate=q, device=dev)
+
+        (out, _), sec, la, _ = bff_path(label, run)
+        if la["K16"] != rounds or la["K18"] != (rounds if q else 0):
+            raise AssertionError(f"gate {label}: launches {la}")
+        out = out if ptape is None else out[1]
+        w = torch.full((B_k,), 1.0 / B_k, dtype=torch.float64, device=dev)
+        reps = [ens.weighted_window_counts(out[k * B_k:(k + 1) * B_k], w, A,
+                                           cl_k, device=dev).cpu().numpy()
+                for k in range(n_keys)]
+        floor = np.sqrt(np.maximum(want, 1e-9) * np.clip(1.0 - want, 0, 1)
+                        / (n_keys * B_k * L / cl_k))
+        z = z_of(reps, want, floor)
+        if not z < Z_GATE:
+            raise AssertionError(f"gate {label}: z {z}")
+        record[label] = {"z": z, "launches": la, "seconds": sec}
+        say(f"(c) {label}: z {z:.2f} < {Z_GATE} ({n_keys} x {B_k} members, "
+            f"L={L}, {rounds} rounds of E=1); launches {la}; {sec:.3f} s")
+
+    # The reference test's program ring (seed 3, [9 1 2 2]) never
+    # writes, so its law is the uniform start; seed 0's ([10 7 6 3])
+    # moves the window marginals up to 0.076 off uniform.
+    lite = "ex6-mini-bff-lite"
+    for seed, label in ((3, "test_bff.py conditioned master"),
+                        (0, "conditioned master, a writing program")):
+        pr = np.random.default_rng(seed).integers(0, 12, L)
+        ptape = torch.as_tensor(
+            np.tile(pr.astype(np.int32), (n_keys * B_k, 1)), device=dev)
+        gate(label, lite, tm.build_conditioned_ring_generator(lite, pr),
+             0.0, ptape)
+    Q = tm.build_ring_generator("ex6-mini-bff-self-lite", L)
+    gate("test_bff.py ring master", "ex6-mini-bff-self-lite", Q, 0.0, None)
+    gate("test_bff.py mutation kernel", "ex6-mini-bff-self-lite", Q, 0.05,
+         None)
+
+    # examples/ex6_bff_ensemble.py: B 4096, L 256, E 4, 640 rounds in 20
+    # calls, MI profile d 1-24 of the data tapes.
+    m = tbff.compile_bff(BFF_TAG)
+    A = m.size_a
+    Bx, Lx, Ex, snaps, per = 4096, 256, 4, 20, 32
+    pt = torch.randint(0, A, (Bx, Lx), generator=gen, device=dev,
+                       dtype=torch.int32)
+    dt = torch.randint(0, A, (Bx, Lx), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ds = np.arange(1, 25)
+    mi0 = np.array([pair_mi(dt, int(d), A) for d in ds])
+    k17_against_plain(BFF_TAG, pt, dt, Ex,
+                      torch.randint(0, Lx, (2,), generator=gen, device=dev,
+                                    dtype=torch.int32),
+                      diff, "examples/ex6_bff_ensemble.py's tapes")
+
+    def run():
+        p_, d_ = pt, dt
+        for _ in range(snaps):
+            (p_, d_), _ = tbff.run_ensemble_bff(gen, (p_, d_), m, (per, Ex),
+                                                device=dev)
+        return d_
+
+    d_end, sec, la, ms = bff_path("ex6_bff_ensemble", run)
+    if la["K17"] != snaps * per or la["K16"] or la["K15"] != 3 * snaps:
+        raise AssertionError(f"ex6_bff_ensemble: launches {la}")
+    mi = np.array([pair_mi(d_end, int(d), A) for d in ds])
+    marg = torch.bincount(d_end.reshape(-1).long(), minlength=A).double()
+    dev_m = (marg / marg.sum() - 1.0 / A).cpu().numpy()
+    copy = ((pt == m.dot) | (pt == m.comma)).double().mean(1)
+    lo = copy <= copy.median()
+    mi_lo = pair_mi(d_end[lo], 12, A)
+    mi_hi = pair_mi(d_end[~lo], 12, A)
+    shoulder = mi[ds >= 17].mean()
+    claims = {
+        "MI(12) / shoulder > 50": mi[11] / shoulder,
+        "MI(24) / MI(19) > 5": mi[23] / mi[18],
+        "MI(12) growth > 100": mi[11] / mi0[11],
+        "'zero' enrichment > 0.03": float(dev_m[m.zero]),
+        "MI_hi(12) / MI_lo(12) > 1.1": mi_hi / mi_lo,
+    }
+    ok = (claims["MI(12) / shoulder > 50"] > 50
+          and claims["MI(24) / MI(19) > 5"] > 5
+          and claims["MI(12) growth > 100"] > 100
+          and int(dev_m.argmax()) == m.zero
+          and claims["'zero' enrichment > 0.03"] > 0.03
+          and claims["MI_hi(12) / MI_lo(12) > 1.1"] > 1.1)
+    say(f"(c) examples/ex6_bff_ensemble.py on the port (B={Bx}, L={Lx}, "
+        f"E={Ex}, {snaps * per} rounds, default route): "
+        + ", ".join(f"{k}: {v:.4g}" for k, v in claims.items())
+        + f"; most enriched symbol {int(dev_m.argmax())}; launches {la}; "
+        f"{sec:.3f} s, {ms * 1e3 / (snaps * per):.2f} us a round")
+    if not ok:
+        raise AssertionError(f"ex6_bff_ensemble claims fail: {claims}")
+    record["ex6_bff_ensemble"] = {"claims": claims, "launches": la,
+                                  "seconds": sec}
+
+
+def bff_phase(dev, kernels, unit_builds):
+    """Phase 11 (module docstring)."""
+    gen = torch.Generator(device=dev).manual_seed(1111)
+    max_err = {"K16": 0, "K17": 0, "K18": 0}
+    m = tbff.compile_bff(BFF_TAG)
+    circ = tbb.compile_bff_circuit(m)
+    sites = B * BFF_E
+
+    def diff(name, pairs):
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in pairs)
+        max_err[name] = max(max_err[name], err)
+        return err == 0.0
+
+    # (a) Full width, the default route (K17 with K15) and the scan (K16)
+    # at the same seed, so at the same shifts.
+    ptape = torch.randint(0, m.size_a, (B, L), generator=gen, device=dev,
+                          dtype=torch.int32)
+    dtape = torch.randint(0, m.size_a, (B, L), generator=gen, device=dev,
+                          dtype=torch.int32)
+    paths, us = {}, {}
+
+    def run(engine):
+        return lambda: tbff.run_ensemble_bff(11, (ptape, dtape), m,
+                                             (BFF_ROUNDS, BFF_E),
+                                             engine=engine, device=dev)
+
+    for call in ("cold", "warm"):
+        ((pa, da), (ops_a, times_a)), sec, la, ms = bff_path(
+            "a:default", run("auto"))
+        if la["K17"] != BFF_ROUNDS or la["K15"] != 3 or la["K16"]:
+            raise AssertionError(f"path a ({call}): launches {la}")
+        us[call] = ms * 1e3 / BFF_ROUNDS
+        say(f"path a, {call}: run_ensemble_bff (default: K17) on {BFF_TAG} "
+            f"at B={B}, L={L}, E={BFF_E}, {BFF_ROUNDS} rounds: "
+            f"{us[call]:.2f} us a round, "
+            f"{sites / (us[call] * 1e-6):.4e} site events/s; launches {la}; "
+            f"{sec:.3f} s")
+    la_main = la
+    ((ps, ds_), (ops_s, times_s)), sec_s, ls, ms_s = bff_path(
+        "a:scan", run("scan"))
+    if ls["K16"] != BFF_ROUNDS or ls["K17"] or ls["K15"]:
+        raise AssertionError(f"path a (scan): launches {ls}")
+    us_scan = ms_s * 1e3 / BFF_ROUNDS
+    if not (torch.equal(pa, ps) and torch.equal(da, ds_)
+            and torch.equal(ops_a, ops_s) and torch.equal(times_a, times_s)
+            and torch.equal(pa, ptape)):
+        raise AssertionError("path a: the default route != the scan")
+    if int(ops_a.sum()) != BFF_ROUNDS * sites * m.fuel or ops_a.shape != (
+            BFF_ROUNDS, m.size_a):
+        raise AssertionError(f"path a: opcode totals {int(ops_a.sum())}")
+    want_t = -math.log1p(-BFF_E / L) * BFF_ROUNDS
+    if abs(float(times_a[-1]) - want_t) > 1e-12 * want_t:
+        raise AssertionError("path a: times")
+    changed = int((da != dtape).sum())
+    say(f"path a, scan (K16): {us_scan:.2f} us a round; launches {ls}; "
+        f"default == scan bit for bit (tapes and the {BFF_ROUNDS} x "
+        f"{m.size_a} opcode totals, sum {int(ops_a.sum())} = rounds x B x E x "
+        f"fuel); {changed} data cells changed")
+    paths["a"] = {"launches": la_main, "us_round": us,
+                  "scan_us_round": us_scan, "scan_launches": ls,
+                  "site_events_per_s": sites / (us["warm"] * 1e-6)}
+    del ps, ds_
+
+    # (b) Each kernel against its plain version on the card, 2 rounds on
+    # (a)'s full-width tapes and words.
+    pt8 = pa.to(torch.int8)
+    dt8 = da.to(torch.int8)
+    ms_ = tbff.compile_bff(BFF_SELF)
+    shifts = torch.randint(0, L, (2,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    per_member = torch.randint(0, L, (2, B), generator=gen, device=dev,
+                               dtype=torch.int32)
+    prov0 = torch.arange(B * L, dtype=torch.int32,
+                         device=dev).reshape(B, L)
+    variants = [("two-tape", m, pt8, None, shifts, 0.0),
+                ("self-modifying", ms_, None, None, shifts, 0.0),
+                ("lineage", ms_, None, prov0, shifts, 0.0),
+                ("per-member", m, pt8, None, per_member, 0.0),
+                ("mutation 0.01", ms_, None, prov0, shifts, 0.01)]
+    for name, mm, p_, v_, sh, rate in variants:
+        kd, pd = dt8.clone(), dt8.clone()
+        kv = None if v_ is None else v_.clone()
+        pv = None if v_ is None else v_.clone()
+        for k in range(2):
+            got = tbff.bff_round(mm, p_, kd, sh[k], BFF_E, prov=kv)
+            want = tbff.bff_round_plain(mm, p_, pd, pv, sh[k], BFF_E)
+            pairs = [(got, want), (kd, pd)] + (
+                [] if kv is None else [(kv, pv)])
+            if not diff("K16", pairs):
+                raise AssertionError(f"K16 != plain: {name}, round {k}")
+            if rate:
+                u = torch.rand(dt8.shape, generator=gen, device=dev,
+                               dtype=torch.float64)
+                vals = torch.randint(0, mm.size_a, dt8.shape, generator=gen,
+                                     device=dev, dtype=torch.int32)
+                tbff.bff_mutate(kd, kv, u, vals, rate)
+                tbff.bff_mutate_plain(pd, pv, u, vals, rate)
+                if not diff("K18", [(kd, pd), (kv, pv)]):
+                    raise AssertionError(f"K18 != plain, round {k}")
+        torch.cuda.synchronize()
+        say(f"(b) K16 {name} ({mm.tag}, all {B} members of (a)'s tapes)"
+            f"{' then K18' if rate else ''}: 2 rounds == plain bit for bit "
+            f"(tapes{', lineage' if kv is not None else ''}, totals); "
+            f"{int((kd != dt8).sum())} cells changed")
+    del pt8, dt8, prov0
+    transpose = BFF_E < B // 32
+    for tag in BFF_UNIT_TAGS:
+        k17_against_plain(tag, pa, da, BFF_E, shifts, diff,
+                          "(a)'s full-width tapes")
+    torch.cuda.empty_cache()
+
+    # (c) The law gates.
+    record = {}
+    bff_law_gates(dev, gen, record, diff)
+    paths["c"] = record
+
+    # (d) Each kernel alone at (a)'s geometry, by CUDA events.
+    times = {}
+    cyc = torch.randint(0, L, (64,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    p8, d8 = pa.to(torch.int8), da.to(torch.int8)
+    before = d8.clone()
+    tbff.bff_round(m, p8, d8, cyc[0], BFF_E)
+    written = int((d8 != before).sum())
+    del before
+    it = iter(range(10**9))
+    k16_ms = cuda_ms(lambda: tbff.bff_round(m, p8, d8, cyc[next(it) % 64],
+                                            BFF_E), 50)
+    k16_plain = cuda_ms(lambda: tbff.bff_round_plain(
+        m, p8, d8, None, cyc[next(it) % 64], BFF_E), 2, warmup=1)
+    b16 = k16_bytes(m, sites, written)
+    times["K16"] = {"ms": k16_ms, "plain_ms": k16_plain,
+                    "bound_ms": b16 / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "library_ms": None,
+                    "bytes": b16, "cells_written_a_round": written}
+    words = [tbs.tapes_to_bitplanes(t, STRIDE_BFF, circ[2],
+                                    transpose=transpose) for t in (pa, da)]
+    axis = tbs.site_axis_of(words[1], transpose)
+    E_, W, _ = tbs._word_dims(words[1], axis)
+    k17_ms = cuda_ms(lambda: tbb.bff_bitslice_round(
+        m, circ, words[0], words[1], cyc, next(it) % 64, site_axis=axis), 50)
+    k17_plain = cuda_ms(lambda: tbb.apply_bff_round_bitsliced(
+        m, circ, words[0], words[1], int(cyc[next(it) % 64]),
+        site_axis=axis), 2, warmup=1)
+    by, ops = k17_work(m, circ, E_ * W)
+    b_bytes, b_ops = by / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+    # b_ops is at least the operations' least time (k17_work): where it
+    # lies below the bytes' time, the bytes bound the round exactly.
+    times["K17"] = {"ms": k17_ms, "plain_ms": k17_plain,
+                    "bound_ms": max(b_bytes, b_ops),
+                    "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                    "library_ms": None, "bytes": by, "int32_ops": ops,
+                    "bytes_ms": b_bytes, "ops_ms": b_ops,
+                    "columns": E_ * W}
+    del words
+    u = torch.rand((B, L), generator=gen, device=dev, dtype=torch.float64)
+    vals = torch.randint(0, m.size_a, (B, L), generator=gen, device=dev,
+                         dtype=torch.int32)
+    k18_ms = cuda_ms(lambda: tbff.bff_mutate(d8, None, u, vals, 0.01), 20)
+    k18_plain = cuda_ms(lambda: tbff.bff_mutate_plain(d8, None, u, vals,
+                                                      0.01), 3)
+    b18 = k18_bytes(u, 0.01)
+    times["K18"] = {"ms": k18_ms, "plain_ms": k18_plain,
+                    "bound_ms": b18 / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "library_ms": None, "bytes": b18}
+    del u, vals, p8, d8
+    for k, t in times.items():
+        say(f"{k} alone at B={B}, L={L}, E={BFF_E}: {t['ms'] * 1e3:.2f} us a "
+            f"round against a bound of {t['bound_ms'] * 1e3:.2f} us "
+            f"({t['bound_by']}; {t['bound_ms'] / t['ms']:.3f} of it); plain "
+            f"{t['plain_ms']:.3f} ms")
+    build = unit_builds.get(BFF_TAG, {})
+    say(f"K17 {BFF_TAG} unit: nvcc {build.get('seconds', 0.0):.2f} s, "
+        f"{build.get('registers')} registers, {build.get('spill')}")
+    torch.cuda.empty_cache()
+
+    shapes = {"K16": f"{BFF_TAG}, int8 [{B}, {L}] tapes, E={BFF_E} "
+                     f"({sites} site events), shared shift",
+              "K17": f"{BFF_TAG} circuit ({len(circ[0])} ops), words "
+                     f"[{STRIDE_BFF}, {circ[2]}, {BFF_E}, {B // 32}]",
+              "K18": f"int8 [{B}, {L}] tape, float64 draws, rate 0.01"}
+    for k, (name, src, replaces) in BFF_KERNELS.items():
+        t = times[k]
+        kernels[k] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": {"K16": ls["K16"], "K17": la_main["K17"],
+                         "K18": record["test_bff.py mutation kernel"][
+                             "launches"]["K18"]}[k],
+            "max_abs_err": max_err[k], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "shape": shapes[k], "detail": t}
+    kernels["K17"]["paths"] = paths
+    kernels["K17"]["build"] = build
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -3414,6 +3946,13 @@ def main(dev=None):
                 machines[tag], tbs.machine_circuit(machines[tag]))
             jobs[f"K14 {tag}"] = (
                 lambda src=src: cuda.build_unit("k14", src))
+        bff_units = {}
+        for tag in BFF_UNIT_TAGS:
+            mm = tbff.compile_bff(tag)
+            src = bff_bitslice_source.k17_source(
+                mm, tbb.compile_bff_circuit(mm))
+            jobs[f"K17 {tag}"] = (
+                lambda src=src: cuda.build_unit("k17", src))
         with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
             futures = {name: pool.submit(fn) for name, fn in jobs.items()}
             built = {name: f.result() for name, f in futures.items()}
@@ -3425,6 +3964,13 @@ def main(dev=None):
                 if any(w in line for w in ("Compiling entry", "registers",
                                            "spill", "smem")):
                     say("  " + line.strip())
+            if name.startswith("K17 "):
+                regs = [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln]
+                spill = [ln.strip() for ln in log.splitlines()
+                         if "spill" in ln]
+                bff_units[name[4:]] = {"seconds": seconds,
+                                       "registers": regs, "spill": spill}
         cuda.load()
         native.load()
         for dm in machines.values():
@@ -3432,6 +3978,9 @@ def main(dev=None):
         for tag in BITS_TAGS:
             bitslice_source.k14_library(machines[tag],
                                         tbs.machine_circuit(machines[tag]))
+        for tag in BFF_UNIT_TAGS:
+            mm = tbff.compile_bff(tag)
+            bff_bitslice_source.k17_library(mm)
 
     kernels = {}
     max_err = {"K1": 0, "K2": 0}
@@ -3736,6 +4285,9 @@ def main(dev=None):
     with Phase("10 the bit-sliced rounds (K14, K15)"):
         bits_phase(dev, kernels, main_ref)
         del main_ref
+
+    with Phase("11 the BFF interpreter (K16-K18)"):
+        bff_phase(dev, kernels, bff_units)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

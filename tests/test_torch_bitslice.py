@@ -323,7 +323,7 @@ def _cxx():
 @pytest.fixture(scope="module")
 def k14_host_library(tmp_path_factory):
     """Builds K14's unit of a machine's circuit with the host's C++
-    compiler (once a machine) and returns its `ckpe_k14_host_round`."""
+    compiler (once a machine) and returns its `ckpe_bs_host_round`."""
     cxx = _cxx()
     if cxx is None:
         pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
@@ -340,9 +340,9 @@ def k14_host_library(tmp_path_factory):
                 [cxx, "-x", "c++", "-std=c++17", "-O1", "-shared", "-fPIC",
                  "-I", str(cuda.CSRC_DIR), "-o", str(lib), str(unit)],
                 check=True, capture_output=True, timeout=300)
-            fn = ctypes.CDLL(str(lib)).ckpe_k14_host_round
+            fn = ctypes.CDLL(str(lib)).ckpe_bs_host_round
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-                ctypes.c_longlong] + [ctypes.c_int] * 2
+                ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             built[tag] = fn
         return built[tag]
@@ -367,7 +367,7 @@ def test_generated_kernel_matches_plain_round(k14_host_library, tag, layout):
         r = None if rand[shift] is None else _i32(rand[shift])
         assert round_fn(kp.data_ptr(), kd.data_ptr(),
                         None if r is None else r.data_ptr(), shift, E, W,
-                        int(site_minor), stride) == 0
+                        int(site_minor), stride, None) == 0
         tbs.apply_round_bitsliced(tdm, tc, p, d, shift, site_axis=axis,
                                   rand_words=r)
         assert torch.equal(kp, p) and torch.equal(kd, d), shift

@@ -1152,3 +1152,193 @@ def test_bitslice_kernels_reject_bad_launches(cuda):
     with pytest.raises(TypeError, match="int8 or int32"):
         tbs.pack_bitwords(torch.zeros((32, 4, 4), dtype=torch.int64,
                                       device=cuda), 3)
+
+
+# --- The BFF interpreter: K16, K17, K18 -------------------------------------------------
+
+from chemical_kinetics_and_program_execution_torch.engine import (  # noqa: E402
+    bff as tbff,
+)
+from chemical_kinetics_and_program_execution_torch.engine import (  # noqa: E402
+    bff_bitslice as tbb,
+)
+
+_BFF_FAITHFUL, _BFF_SELF = "ex6-mini-bff", "ex6-mini-bff-self"
+
+
+def _bff_tapes(dev, m, B, L, seed):
+    """(ptape or None, dtape) int8 and a lineage ring on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pt = (None if m.self_modifying else
+          torch.randint(0, m.size_a, (B, L), generator=g, device=dev,
+                        dtype=torch.int8))
+    dt = torch.randint(0, m.size_a, (B, L), generator=g, device=dev,
+                       dtype=torch.int8)
+    prov = torch.arange(B * L, dtype=torch.int32, device=dev).reshape(B, L)
+    return pt, dt, prov, g
+
+
+# B=512, L=256, E=4; and the master-equation gates' geometry (a ring of 4
+# cells, one site a round, 8,192 members) for the lite machines.
+_K16_CASES = [
+    pytest.param(tag, mode, B, L, E, id=f"{tag}-{mode}{name}")
+    for tags, (B, L, E), name in (((_BFF_FAITHFUL, _BFF_SELF,
+                                    "ex6-mini-bff-self-lite"),
+                                   (512, 256, 4), ""),
+                                  (("ex6-mini-bff-lite",
+                                    "ex6-mini-bff-self-lite"),
+                                   (8192, 4, 1), "-L4E1"))
+    for tag in tags
+    for mode in ("shared", "per-member")
+    + (("lineage", "mutation") if "self" in tag else ())]
+
+
+@pytest.mark.parametrize("tag,mode,B,L,E", _K16_CASES)
+def test_bff_round_kernel_matches_plain(cuda, tag, mode, B, L, E):
+    """K16 (and K18 after it in the mutation mode) and their plain
+    versions, both on the card, give identical tapes, lineage and opcode
+    totals after each of 4 rounds: shared shifts past L and negative,
+    per-member shifts, the lineage ring, mutation at rate 0.2."""
+    m = tbff.compile_bff(tag)
+    pt, dt, prov, g = _bff_tapes(cuda, m, B, L, len(tag))
+    lineage = mode in ("lineage", "mutation")
+    n = 4
+    if mode == "per-member":
+        shifts = torch.randint(-3 * L, 3 * L, (n, B), generator=g,
+                               device=cuda, dtype=torch.int32)
+    else:
+        shifts = torch.tensor([0, L - 1, 5 * L + 3, -7], dtype=torch.int32,
+                              device=cuda)
+    kp = None if pt is None else pt.clone()
+    kd, kv = dt.clone(), prov.clone() if lineage else None
+    pp = None if pt is None else pt.clone()
+    pd, pv = dt.clone(), prov.clone() if lineage else None
+    launches = (tbff.bff_round.launches, tbff.bff_mutate.launches)
+    for k in range(n):
+        got = tbff.bff_round(m, kp, kd, shifts[k], E, prov=kv)
+        want = tbff.bff_round_plain(m, pp, pd, pv, shifts[k], E)
+        if mode == "mutation":
+            u = torch.rand((B, L), generator=g, device=cuda,
+                           dtype=torch.float64)
+            vals = torch.randint(0, m.size_a, (B, L), generator=g,
+                                 device=cuda, dtype=torch.int32)
+            tbff.bff_mutate(kd, kv, u, vals, 0.2)
+            tbff.bff_mutate_plain(pd, pv, u, vals, 0.2)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), k
+        assert torch.equal(kd, pd), k
+        if kv is not None:
+            assert torch.equal(kv, pv), k
+        if kp is not None:
+            assert torch.equal(kp, pp), k
+    assert tbff.bff_round.launches == launches[0] + n
+    assert tbff.bff_mutate.launches == launches[1] + (
+        n if mode == "mutation" else 0)
+    assert int((kd != dt).sum()) > 0
+
+
+def test_bff_rounds_in_one_call_match_plain(cuda):
+    """run_bff_rounds on the card (K16 and K18 from one C call a chunk)
+    equals the same rounds on the CPU's plain versions, per-member
+    shifts, lineage and mutation at the same draws."""
+    m = tbff.compile_bff(_BFF_SELF)
+    B, L, E, n = 256, 256, 4, 6
+    rng = np.random.RandomState(4)
+    tape = rng.randint(0, m.size_a, (B, L)).astype(np.int32)
+    prov = np.arange(B * L, dtype=np.int32).reshape(B, L)
+    shifts = rng.randint(0, L, (n, B)).astype(np.int32)
+    draws = (rng.rand(n, B, L), rng.randint(0, m.size_a, (n, B, L)).astype(
+        np.int32))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        (t, p), tot = tbff.run_bff_rounds(
+            m, tape, shifts, E, mutation_draws=draws, mutation_rate=0.05,
+            prov=prov, device=dev)
+        out.append((t.cpu(), p.cpu(), tot.cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+_K17_CASES = [
+    pytest.param(tag, B, L, E, id=f"{tag}-{name}")
+    for tag in (_BFF_FAITHFUL, _BFF_SELF, "ex6-mini-bff-midi",
+                "ex6-mini-bff-self-lite")
+    for name, (B, L, E) in (("straight", (1024, 512, 8)),
+                            ("transposed", (8192, 256, 4)))] + [
+    pytest.param(tag, 8192, 4, 1, id=f"{tag}-L4E1")
+    for tag in ("ex6-mini-bff-lite", "ex6-mini-bff-self-lite")]
+
+
+@pytest.mark.parametrize("tag,B,L,E", _K17_CASES)
+def test_bff_bitslice_kernel_matches_plain(cuda, tag, B, L, E):
+    """K17 and its plain version, both on the card, give identical words
+    and opcode totals after each round, at phases over the whole tape
+    (every cell spills somewhere, the offset-0 cell too), in both
+    layouts and on a ring of 4 cells with one site."""
+    m = tbff.compile_bff(tag)
+    circ = tbb.compile_bff_circuit(m)
+    pt, dt, _, g = _bff_tapes(cuda, m, B, L, B + len(tag))
+    stride = L // E
+    transpose = E < B // 32
+    words = [None if t is None else
+             tbs.tapes_to_bitplanes(t, stride, circ[2], transpose=transpose)
+             for t in (pt, dt)]
+    axis = tbs.site_axis_of(words[1], transpose)
+    shifts = torch.tensor([0, 3, stride, stride + 7, L - 1],
+                          dtype=torch.int32, device=cuda)
+    kd, pd = words[1].clone(), words[1].clone()
+    launches = tbb.bff_bitslice_round.launches
+    for k in range(len(shifts)):
+        got = tbb.bff_bitslice_round(m, circ, words[0], kd, shifts, k,
+                                     site_axis=axis)
+        want = tbb.apply_bff_round_bitsliced(m, circ, words[0], pd,
+                                             int(shifts[k]), site_axis=axis)
+        torch.cuda.synchronize()
+        assert torch.equal(kd, pd), k
+        assert torch.equal(got, want), k
+        assert int(got.sum()) == B * E * m.fuel
+    assert tbb.bff_bitslice_round.launches == launches + len(shifts)
+
+
+def test_bff_default_route_on_card_matches_scan(cuda):
+    """run_ensemble_bff on the card takes K17 with K15 (the faithful
+    circuit: auto has no size limit there) and gives the scan's (K16)
+    tapes and totals at the same seed; neither calls a plain version."""
+    m = tbff.compile_bff(_BFF_FAITHFUL)
+    B, L, E, n = 2048, 512, 8, 12
+    rng = np.random.RandomState(2)
+    tapes = [rng.randint(0, m.size_a, (B, L)) for _ in range(2)]
+    counts = (tbb.bff_bitslice_round.launches, tbff.bff_round.launches,
+              tbb.apply_bff_round_bitsliced.calls,
+              tbff.bff_round_plain.calls)
+    (p1, d1), (ops1, t1) = tbff.run_ensemble_bff(9, tapes, m, (n, E))
+    assert tbb.bff_bitslice_round.launches == counts[0] + n
+    assert tbff.bff_round.launches == counts[1]
+    (p2, d2), (ops2, t2) = tbff.run_ensemble_bff(9, tapes, m, (n, E),
+                                                 engine="scan")
+    assert tbff.bff_round.launches == counts[1] + n
+    assert tbb.apply_bff_round_bitsliced.calls == counts[2]
+    assert tbff.bff_round_plain.calls == counts[3]
+    assert torch.equal(p1, p2) and torch.equal(d1, d2)
+    assert torch.equal(ops1, ops2) and torch.equal(t1, t2)
+    assert int(ops1.sum()) == n * B * E * m.fuel
+
+
+def test_bff_kernels_reject_bad_launches(cuda):
+    """A launch the card refuses raises (no fallback): K17 on words of no
+    plane; K16's wrapper on a machine its counters cannot hold."""
+    m = tbff.compile_bff("ex6-mini-bff-self-lite")
+    circ = tbb.compile_bff_circuit(m)
+    empty = torch.zeros((0, circ[2], 2, 8), dtype=torch.int32, device=cuda)
+    launches = tbb.bff_bitslice_round.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tbb.bff_bitslice_round(m, circ, None, empty,
+                               torch.zeros(1, dtype=torch.int32,
+                                           device=cuda), 0)
+    assert tbb.bff_bitslice_round.launches == launches
+    import dataclasses
+
+    deep = dataclasses.replace(m, fuel=16)
+    t = torch.zeros((4, 64), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="4 bits"):
+        tbff.bff_round(deep, None, t, 0, 4)
