@@ -25,6 +25,17 @@
 // or one a member), and a thread stores only the cells its spec
 // changes. One launch a round; all rounds of a call from one C call.
 //
+// Tempered rounds (a unit with K1_LOGP: chooses sampled from q ~ p^tau,
+// tau != 1) replace the FSM route of the JAX package's
+// `engine/ensemble.py:2090 _blocked_rounds` with `:1170
+// _apply_plane_round_fsm_stacked(want_logp=True)` and the increments of
+// `:705 _machine_specs_planes_leveled` (the weighted frontier's rounds;
+// its [E, K] planes hold the same site lattice as a shared shift here).
+// One thread a member walks its E sites in order, each site's float32
+// increments summed level by level, the sites' sums added in float32
+// from 0 in site order, and that sum added to the member's float64
+// log-weight: the order of `ensemble.lattice_round_plain(lw=...)`.
+//
 // Bound: bytes. A round must read the cells the walk reveals and the
 // written cells some spec leaves alone, write the cells some spec
 // writes (`k1_source.cell_traffic`), a byte each, and read a float32
@@ -40,10 +51,15 @@ K1_FN int k11_col(long long a, int L) {
   return (int)(r < 0 ? r + L : r);
 }
 
+#ifndef K1_LOGP
+#define K1_LOGP 0
+#endif
+
 // One site on member rows prow, drow of length L, at base = shift +
-// e*stride, with uniform u.
+// e*stride, with uniform u; in a tempered unit, with lp non-null, the
+// walk adds the site's increments to *lp.
 K1_FN void k11_site(int8_t* prow, int8_t* drow, int L, long long base,
-                    double u) {
+                    double u, float* lp = nullptr) {
   int col[K1_N_CELLS];
   int c[K1_N_CELLS];
 #pragma unroll
@@ -52,7 +68,13 @@ K1_FN void k11_site(int8_t* prow, int8_t* drow, int L, long long base,
     col[k] = k11_col(base + off, L);
     c[k] = (int)(k < K1_N_P ? prow : drow)[col[k]];
   }
+#if K1_LOGP
+  const uint32_t spec =
+      (uint32_t)(lp ? k1_walk_exact_logp(c, u, lp) : k1_walk_exact(c, u));
+#else
+  (void)lp;
   const uint32_t spec = (uint32_t)k1_walk_exact(c, u);
+#endif
 #pragma unroll
   for (int k = 0; k < K1_N_CELLS; ++k) {
     if (!k1_written(k)) continue;
@@ -73,7 +95,59 @@ K1_FN void k11_thread(long long t, int8_t* p, int8_t* d, const float* u,
            K1_CHOOSE ? (double)u[t] : 0.0);
 }
 
+#if K1_LOGP
+// Member b of a tempered round at the shared shift: its E sites in
+// order, then lw[b] += the float32 sum of their increments.
+K1_FN void k11_member_logp(int b, int8_t* p, int8_t* d, const float* u,
+                           const int* shifts, int L, int E, double* lw) {
+  float s = 0.0f;
+  for (int e = 0; e < E; ++e) {
+    float lp = 0.0f;
+    k11_site(p + (long long)b * L, d + (long long)b * L, L,
+             (long long)shifts[0] + (long long)e * (L / E),
+             (double)u[(long long)b * E + e], &lp);
+    s = s + lp;
+  }
+  lw[b] = lw[b] + (double)s;
+}
+#endif
+
 #ifdef __CUDACC__
+
+#if K1_LOGP
+__global__ void __launch_bounds__(K1_THREADS)
+    k11_logp_kernel(int8_t* __restrict__ p, int8_t* __restrict__ d,
+                    const float* __restrict__ u,
+                    const int* __restrict__ shifts, int B, int L, int E,
+                    double* __restrict__ lw) {
+  const int b = blockIdx.x * K1_THREADS + threadIdx.x;
+  if (b >= B) return;
+  k11_member_logp(b, p, d, u, shifts, L, E, lw);
+}
+
+// Tempered rounds [k0, k0+n) at shared shifts, one launch a round:
+// round k0+j reads shifts[k0+j] and uniforms [j*B*E, (j+1)*B*E) and adds
+// each member's increments to lw [B] float64. Returns the first launch
+// error, or 0.
+extern "C" int ckpe_k11_rounds_logp(void* p, void* d, const void* uniforms,
+                                    const void* shifts, int k0, int n,
+                                    int B, int L, int E, void* lw,
+                                    void* stream) {
+  if (E <= 0 || L % E != 0 || (long long)B * L >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n <= 0) return (int)cudaGetLastError();
+  const unsigned blocks = (unsigned)((B + K1_THREADS - 1) / K1_THREADS);
+  for (int j = 0; j < n; ++j) {
+    k11_logp_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
+        (int8_t*)p, (int8_t*)d,
+        (const float*)uniforms + (long long)j * B * E,
+        (const int*)shifts + k0 + j, B, L, E, (double*)lw);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  return 0;
+}
+#endif
 
 __global__ void __launch_bounds__(K1_THREADS)
     k11_kernel(int8_t* __restrict__ p, int8_t* __restrict__ d,
@@ -163,5 +237,16 @@ extern "C" int ckpe_k11_host_round(int8_t* p, int8_t* d, const float* u,
     k11_thread(t, p, d, u, shifts, per_member, L, E);
   return 0;
 }
+
+#if K1_LOGP
+// The tempered kernel's per-member body for one round on the host.
+extern "C" int ckpe_k11_host_round_logp(int8_t* p, int8_t* d, const float* u,
+                                        const int* shifts, int B, int L,
+                                        int E, double* lw) {
+  if (E <= 0 || L % E != 0) return 1;
+  for (int b = 0; b < B; ++b) k11_member_logp(b, p, d, u, shifts, L, E, lw);
+  return 0;
+}
+#endif
 
 #endif

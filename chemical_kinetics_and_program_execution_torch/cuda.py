@@ -7,7 +7,7 @@ so a build takes seconds) and both landing in `_build/` beside this file:
   `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`; K7 and K8
   `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
   `pattern_scan.cu`; K13 `weighted_counts.cu`; K15 `bitplanes.cu`; K16
-  and K18 `bff_round.cu`),
+  and K18 `bff_round.cu`; K19-K22 `frontier.cu`),
   which may include headers from `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1 and K11, one library per
@@ -215,9 +215,29 @@ def load() -> ctypes.CDLL:
         _P, _P, _P, _D, _P]
     # ckpe_bff_mutate(tape, prov, u, vals, rate, count, stream)
     lib.ckpe_bff_mutate.argtypes = [_P, _P, _P, _P, _D, _L, _P]
+    # ckpe_content_hash(p, d, flag, K, L, stride, bits, out, stream)
+    lib.ckpe_content_hash.argtypes = [_P, _P, _P, _I, _I, _I, _I, _P, _P]
+    # ckpe_merge_resample(mode, hs, perm, lw, u, log_k, K, parent, new_lw,
+    #                     n_groups, fscr, iscr, lscr, stream)
+    lib.ckpe_merge_resample.argtypes = [_I, _P, _P, _P, _P, _D, _L, _P, _P,
+                                        _P, _P, _P, _P, _P]
+    # ckpe_gather_pair(p, d, parent, K, L, out_p, out_d, flag, out_flag,
+    #                  stream)
+    lib.ckpe_gather_pair.argtypes = [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P]
+    # ckpe_frontier_rank(p, d, lw, site, K, L, p_lo, n_p, d_lo, n_d, rows,
+    #                    M, pv, out_log, out_world, wr_mask, wr_val,
+    #                    rows_out, child, stream)
+    lib.ckpe_frontier_rank.argtypes = [_P] * 4 + [_I] * 8 + [_P] * 8
+    # ckpe_frontier_write(p, d, out_p, out_d, rows, idx, vals, site, K, L,
+    #                     p_lo, n_p, d_lo, n_d, rows, M, pv, out_log,
+    #                     out_world, wr_mask, wr_val, new_lw, stream)
+    lib.ckpe_frontier_write.argtypes = [_P] * 8 + [_I] * 8 + [_P] * 7
     for name in ("ckpe_table_rounds", "ckpe_pattern_scan",
                  "ckpe_bitplanes_pack", "ckpe_bitplanes_unpack",
                  "ckpe_weighted_counts", "ckpe_bff_rounds", "ckpe_bff_mutate",
+                 "ckpe_content_hash", "ckpe_merge_resample",
+                 "ckpe_gather_pair", "ckpe_frontier_rank",
+                 "ckpe_frontier_write",
                  "ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
                  "ckpe_world_mass",
                  "ckpe_tree_rhs", "ckpe_chain_rhs", "ckpe_gather_scatter",

@@ -19,8 +19,9 @@ from __future__ import annotations
 DENSE_GROUP_LIMIT = 600
 
 
-def build_dy_dt(tag: str, cl_k: int, *, engine: str = "auto",
-                max_worlds: int | None = None, device=None):
+def build_dy_dt(tag: str, cl_k: int, *, dtype=None, jit: bool = True,
+                engine: str = "auto", max_worlds: int | None = None,
+                device=None):
     """Compiles ``tag`` and returns ``(fn, program)``.
 
     ``fn(p, out=None)`` maps an SPD vector to dp/dt on ``device``
@@ -29,8 +30,12 @@ def build_dy_dt(tag: str, cl_k: int, *, engine: str = "auto",
     :class:`compile.CompiledProblem`. ``engine`` is ``"auto"`` (dense up
     to `DENSE_GROUP_LIMIT` signature groups, else the tree engine),
     ``"dense"``, ``"tree"`` or ``"chains"``; ``max_worlds`` bounds the
-    enumeration.
+    enumeration. ``dtype`` (None or float64) and ``jit`` (no effect) are
+    the reference's parameters, as in `dense.make_dense_dy_dt`.
     """
+    from ..utils import config
+
+    config.check_float64(dtype)
     if engine not in ("auto", "dense", "tree", "chains"):
         raise ValueError(f"unknown engine {engine!r}")
     if engine in ("auto", "dense"):
@@ -40,11 +45,13 @@ def build_dy_dt(tag: str, cl_k: int, *, engine: str = "auto",
         n_groups = len(dense_mod._group_plans(prog.plans, prog.size_a,
                                               prog.cl_k))
         if engine == "dense" or n_groups <= DENSE_GROUP_LIMIT:
-            return dense_mod.make_dense_dy_dt(prog, device=device), prog
+            return dense_mod.make_dense_dy_dt(prog, dtype, jit,
+                                              device=device), prog
     from . import rhs
     from .compile import compile_problem
 
     compiled = compile_problem(tag, cl_k, max_worlds=max_worlds)
     if engine == "chains":
-        return rhs.make_chain_dy_dt(compiled, device=device), compiled
-    return rhs.make_dy_dt(compiled, device=device), compiled
+        return rhs.make_chain_dy_dt(compiled, dtype, jit,
+                                     device=device), compiled
+    return rhs.make_dy_dt(compiled, dtype, jit, device=device), compiled

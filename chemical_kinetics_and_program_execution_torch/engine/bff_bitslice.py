@@ -303,7 +303,7 @@ def popcount_words(words):
 
 
 def apply_bff_round_bitsliced(mach: BffMachine, circ, p_bp, d_bp, shift, *,
-                              site_axis: int = -1):
+                              stride: int, site_axis: int = -1):
     """K17's plain version: one round of a BFF circuit on bit-plane words,
     in place on ``d_bp`` (``p_bp`` None for a self-modifying machine), at
     ``shift`` in [0, L). Returns the round's [size_a] int64 opcode
@@ -312,10 +312,14 @@ def apply_bff_round_bitsliced(mach: BffMachine, circ, p_bp, d_bp, shift, *,
     Window cell ``off`` lies in plane (shift + off) mod stride, rolled by
     floor((shift + off) / stride) along ``site_axis`` for every cell (the
     offset-0 cell too, as the reference); the program planes are read
-    only. All new words are made before any is written back."""
+    only. All new words are made before any is written back.
+    ``stride`` is the reference's parameter; it must equal the number of
+    planes of ``d_bp``."""
     apply_bff_round_bitsliced.calls += 1
     ops, outputs, nb, _ = circ
-    stride = d_bp.shape[0]
+    if stride != d_bp.shape[0]:
+        raise ValueError(f"stride={stride}, but d_bp holds {d_bp.shape[0]} "
+                         "planes")
     shift = int(shift)
     metas = [] if mach.self_modifying else [(p_bp, mach.p_lo, mach.n_p)]
     metas.append((d_bp, mach.d_lo, mach.n_d))
@@ -397,7 +401,7 @@ def _bitsliced_rounds(mach, circ, p_bp, d_bp, shifts, k0, n, site_axis,
         for j in range(n):
             totals[j] = apply_bff_round_bitsliced(
                 mach, circ, p_bp, d_bp, int(shifts[k0 + j]) % L,
-                site_axis=site_axis)
+                stride=d_bp.shape[0], site_axis=site_axis)
         return
     from .bff_bitslice_source import k17_library
 

@@ -71,7 +71,8 @@ changed its bits either. For a p with a NaN or an infinity the ratio can
 be NaN, and a dense step's NaN * 0 spreads where K5 forms nothing: both
 give a non-finite dy, not the same one.
 
-Not ported yet (ROADMAP Queue 1 item 3): the streamed RHS.
+Not ported yet (ROADMAP Queue 1, "The exact engines' other entry
+points"): the streamed RHS.
 """
 
 from __future__ import annotations
@@ -1269,8 +1270,8 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
     return dy
 
 
-def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
-                     device=None):
+def make_dense_dy_dt(prog: DenseProgram, dtype=None, jit: bool = True,
+                     with_mass: bool = False, *, device=None):
     """Builds ``fn(p, out=None) -> dp/dt`` (float64) for a dense program
     on ``device`` (``cuda`` unless named): K3 -> K5 in one C call on a
     card (`dense_rhs`), their plain versions on the CPU. ``p`` is a
@@ -1284,7 +1285,12 @@ def make_dense_dy_dt(prog: DenseProgram, *, with_mass: bool = False,
     no host sync); exactly 1 for a complete multiverse, so ``1 - mass``
     is the weight the pruning lost at p; K9's scratch is the closure's
     own (`mass_scratch`), so one closure serves one stream at a time. A
-    program with no mass tables raises ValueError."""
+    program with no mass tables raises ValueError.
+
+    ``dtype`` and ``jit`` are the reference's parameters, in its order:
+    ``dtype`` None or float64 (anything else raises: the exact path is
+    float64 throughout), ``jit`` changes nothing here."""
+    config.check_float64(dtype)
     if with_mass and prog.m_num is None:
         raise ValueError(
             "Program has no mass tables; compile with prune_threshold>0.")

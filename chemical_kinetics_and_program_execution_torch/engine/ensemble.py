@@ -6,7 +6,9 @@ bit-sliced round (`bitslice.py`: K14 and K15), on the stacked-plane FSM
 round and on the rolled lattice rounds (transition tables, per-member
 sites, strides above 64), first passage, and the
 observables `window_counts`, `weighted_window_counts`,
-`contains_pattern`, `pattern_progress` and `sample_tapes_from_spd`.
+`contains_pattern`, `pattern_progress` and `sample_tapes_from_spd`. The
+weighted frontier (`frontier.py`: K19-K22, tempered rounds) is
+re-exported under the reference's names.
 
 Kernels carry the device work (sources in `csrc/`, built by `cuda.py`):
 
@@ -53,12 +55,6 @@ import torch
 from .. import cuda
 from ..utils import config
 from . import dsl, enumerate as enum_mod
-
-# Not ported yet; the raising path names the ROADMAP item that ports it.
-_TODO_TAU = ("tempered choose sampling (tau != 1) belongs to the weighted "
-             "frontier, not ported yet: ROADMAP.md Queue 1 item "
-             "'Weighted frontier'")
-
 
 def _window_bounds(worlds):
     """Inclusive read-window extents (p_lo, p_hi, d_lo, d_hi) over all
@@ -532,14 +528,27 @@ def compile_decision_machine(tag: str, *, max_worlds: int | None = None
     )
 
 
-def _choose_sampling_dist(probs, tau: float = 1.0):
-    """Per-node sampling distribution and per-branch log-weight
-    increments. At ``tau = 1`` the distribution is ``probs`` exactly (no
-    renormalisation) and the increments are zero."""
-    if tau != 1.0:
-        raise NotImplementedError(_TODO_TAU)
+def _choose_sampling_dist(probs, tau: float):
+    """Static per-node sampling distribution q ∝ p^tau (on the support of
+    p) and per-branch importance increments log p − log q.
+
+    ``tau = 1`` gives q = p EXACTLY (no renormalisation) and increments
+    that are identically zero, so the walk is the tau-free one bit for
+    bit; ``tau -> 0`` explores every branch of nonzero probability
+    uniformly. The weighted frontier samples its chooses from q and
+    carries the increments in its log-weights.
+    """
     p = np.asarray(probs, dtype=np.float64)
-    return p, np.zeros_like(p)
+    if tau == 1.0:
+        return p, np.zeros_like(p)
+    q = np.where(p > 0, np.power(np.maximum(p, 1e-300), tau), 0.0)
+    q = q / q.sum()
+    delta = np.where(
+        p > 0,
+        np.log(np.maximum(p, 1e-300)) - np.log(np.maximum(q, 1e-300)),
+        0.0,
+    )
+    return q, delta
 
 
 @dataclasses.dataclass(frozen=True)
@@ -655,11 +664,13 @@ class _ChooseGroup:
     cum: tuple      # cum[0..n-2], float64 thresholds
     widths: tuple   # per-branch widths as the reference rounds them
     f32_div: bool
+    deltas: tuple   # per-branch importance increments, float32 values
 
 
 @functools.lru_cache(maxsize=None)
-def _choose_plan(dm: DeviceMachine):
-    """Per level, the :class:`_ChooseGroup` list in walk order."""
+def _choose_plan(dm: DeviceMachine, tau: float = 1.0):
+    """Per level, the :class:`_ChooseGroup` list in walk order, for
+    chooses sampled from q ∝ p^tau (`_choose_sampling_dist`)."""
     u_f32 = True  # the round's uniforms are float32
     out = []
     for lv in _level_plan(dm):
@@ -674,7 +685,7 @@ def _choose_plan(dm: DeviceMachine):
                 h += 1
             id_hi = lv.chooses[h - 1][0]
             g = h
-            q, _ = _choose_sampling_dist(probs)
+            q, delta = _choose_sampling_dist(probs, tau)
             cum = np.cumsum(q)
             width_f32 = u_f32
             widths = [float(np.float32(max(q[0], 1e-30))) if width_f32
@@ -691,7 +702,8 @@ def _choose_plan(dm: DeviceMachine):
                 u_f32 = False
             groups.append(_ChooseGroup(
                 id_lo, id_hi, tuple(float(c) for c in cum[:-1]),
-                tuple(widths), f32_div))
+                tuple(widths), f32_div,
+                tuple(float(np.float32(d)) for d in delta)))
         out.append(tuple(groups))
     return tuple(out)
 
@@ -716,16 +728,22 @@ def _unpack_field(words, widx, shift_amt, bits):
     return v & ((1 << bits) - 1)
 
 
-def _walk_plain(dm: DeviceMachine, cells, uniforms):
+def _walk_plain(dm: DeviceMachine, cells, uniforms, *, tau: float = 1.0,
+                want_logp: bool = False):
     """Level-synchronous FSM walk over per-cell planes -> write spec
     (int32). The plain counterpart of the reference's
-    `_machine_specs_planes_leveled` at tau = 1."""
+    `_machine_specs_planes_leveled`: chooses sampled from q ∝ p^tau, and
+    with ``want_logp`` also the float32 importance increment of each
+    site's path, summed level by level in float32 as the reference does
+    (returns ``(spec, logp)``)."""
     S = dm.num_specs
     shape = cells[0].shape
     device = cells[0].device
     state = torch.full(shape, S, dtype=torch.int32, device=device)
     u = None if uniforms is None else uniforms.to(torch.float64)
-    for lv, groups in zip(_level_plan(dm), _choose_plan(dm)):
+    logp = (torch.zeros(shape, dtype=torch.float32, device=device)
+            if want_logp else None)
+    for lv, groups in zip(_level_plan(dm), _choose_plan(dm, tau)):
         if lv.cell_groups:
             b = cells[lv.cell_groups[0][0]].to(torch.int32)
             for cell, lo in lv.cell_groups[1:]:
@@ -739,12 +757,18 @@ def _walk_plain(dm: DeviceMachine, cells, uniforms):
             lo_ = torch.zeros(shape, dtype=torch.float64, device=device)
             width = torch.full(shape, g.widths[0], dtype=torch.float64,
                                device=device)
+            dsel = (torch.full(shape, g.deltas[0], dtype=torch.float32,
+                               device=device) if want_logp else None)
             for j in range(1, len(g.widths)):
                 sel = u >= g.cum[j - 1]
                 bb = torch.where(sel, j, bb)
                 lo_ = torch.where(sel, g.cum[j - 1], lo_)
                 width = torch.where(sel, g.widths[j], width)
+                if want_logp:
+                    dsel = torch.where(sel, g.deltas[j], dsel)
             b = torch.where(mask, bb, b)
+            if want_logp:
+                logp = torch.where(mask, logp + dsel, logp)
             if g.f32_div:
                 nu = (u.to(torch.float32)
                       / torch.tensor(g.widths[0], dtype=torch.float32))
@@ -756,7 +780,7 @@ def _walk_plain(dm: DeviceMachine, cells, uniforms):
         nxt = _unpack_field(lv.trans_words, idx // fields,
                             lv.bits * (idx % fields), lv.bits)
         state = torch.where(state >= S, nxt, state)
-    return state
+    return (state, logp) if want_logp else state
 
 
 def _writes_plain(dm: DeviceMachine, spec, cells):
@@ -1012,11 +1036,6 @@ class DeviceTable:
     wr_mask: torch.Tensor    # [W, n_cells] bool
     wr_val: torch.Tensor     # [W, n_cells] int32
     span: int
-    # The weighted frontier's packed write decode (ROADMAP Queue 1 item
-    # 'Weighted frontier'): a field of the reference's table, left empty
-    # until the slice that reads it packs it.
-    wr_words: torch.Tensor | None = None
-    n_wr_words: int = 0
 
     @property
     def n_p(self) -> int:
@@ -1178,11 +1197,17 @@ def _apply_events_plain(dt: DeviceTable, ptape, dtape, sites, uniforms):
 
 
 def lattice_round_plain(dm: DeviceMachine, ptape, dtape, shift, events,
-                        uniforms=None):
+                        uniforms=None, *, tau: float = 1.0, lw=None):
     """K11's plain version: one FSM round on int8 [B, L] tapes at
     ``shift`` (an int, or a [1] or [B] tensor), ``events`` sites a
     member, in place; ``uniforms`` [B, E] float32 (read only by machines
-    with choose nodes). The walk and writes are K1's plain ones."""
+    with choose nodes). The walk and writes are K1's plain ones.
+
+    A tempered round (the weighted frontier's, `tempered_round`) samples
+    the chooses from q ∝ p^tau and, given ``lw`` (float64 [B]), adds to
+    it in place each member's importance increment: the sites' float32
+    increments summed in float32 in site order, as the reference sums
+    them over its site axis."""
     lattice_round_plain.calls += 1
     B, L = ptape.shape
     shift = _shift_tensor(shift, ptape.device)
@@ -1191,7 +1216,15 @@ def lattice_round_plain(dm: DeviceMachine, ptape, dtape, shift, events,
     cells = torch.cat([_gather_cells(ptape, cp), _gather_cells(dtape, cd)],
                       dim=-1)
     planes = [cells[..., c] for c in range(dm.n_cells)]
-    spec = _walk_plain(dm, planes, uniforms if dm.has_choose else None)
+    u = uniforms if dm.has_choose else None
+    if lw is not None and dm.has_choose:
+        spec, logp = _walk_plain(dm, planes, u, tau=tau, want_logp=True)
+        s = torch.zeros(B, dtype=torch.float32, device=ptape.device)
+        for e in range(events):
+            s = s + logp[:, e]
+        lw += s.to(torch.float64)
+    else:
+        spec = _walk_plain(dm, planes, u, tau=tau)
     new = torch.stack(_writes_plain(dm, spec, planes), dim=-1)
     _scatter_cells(ptape, cp, new[..., :dm.n_p])
     _scatter_cells(dtape, cd, new[..., dm.n_p:])
@@ -2216,3 +2249,21 @@ def sample_tapes_from_spd(generator, spd, size_a: int, cl_k: int,
         syms[step] = sym.to(torch.int32)
         ctx = nctx[ctx, sym]
     return syms.T.contiguous()
+
+
+# --- The weighted frontier (`frontier.py`) -------------------------------------
+
+_FRONTIER_NAMES = frozenset((
+    "run_weighted_frontier", "run_weighted_frontier_from_draws",
+    "run_weighted_frontier_blocked", "blocked_rounds_from_draws",
+    "weighted_first_passage", "weighted_first_passage_binned"))
+
+
+def __getattr__(name):
+    """The weighted frontier's names, from `frontier.py` (which imports
+    this module, so it is loaded on first use)."""
+    if name in _FRONTIER_NAMES:
+        from . import frontier
+
+        return getattr(frontier, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

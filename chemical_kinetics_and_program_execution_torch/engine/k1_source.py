@@ -92,51 +92,69 @@ def _lane_lookup(var: str, idx: str, table, indent: str) -> list[str]:
     return out
 
 
-def _choose_fn(li: int, groups, S: int) -> list[str]:
+def _choose_fn(li: int, groups, S: int, logp: bool) -> list[str]:
     """``bool k1_choose_l{li}(int v, double& u, int& b)``: the choose
     groups of level ``li`` as `ensemble._walk_plain` computes them. The
     group holding state ``v`` picks branch ``b`` from ``u``, and ``u`` is
     renormalised into it, in float64 (or by one float32 division where
     the reference's uniform is still float32); false when no group holds
     ``v``. The groups only pick constants; the one division comes after
-    them."""
+    them. With ``logp`` (a tempered walk) the function takes ``float&
+    lp`` too and adds the branch's float32 increment to it."""
     f32 = any(g.f32_div for g in groups)
-    out = [f"K1_FN bool k1_choose_l{li}(int v, double& u, int& b) {{",
+    lp_arg = ", float& lp" if logp else ""
+    out = [f"K1_FN bool k1_choose_l{li}(int v, double& u, int& b{lp_arg}) {{",
            "  bool hit = false;",
            "  int bb = 0;",
            "  double lo = 0.0, wd = 1.0;"]
+    if logp:
+        out.append("  float dl = 0.0f;")
     if f32:
         out.append("  bool f32 = false;")
+
+    def dl(g, j):  # the float32 increment, as an exact literal
+        return f" dl = (float){_hex(g.deltas[j])};" if logp else ""
+
     for g in groups:
         out.append(f"  if (v >= {S + g.id_lo} && v <= {S + g.id_hi}) {{")
         out.append("    hit = true;")
         if f32:
             out.append(f"    f32 = {str(g.f32_div).lower()};")
-        out.append(f"    bb = 0; lo = 0.0; wd = {_hex(g.widths[0])};")
+        out.append(f"    bb = 0; lo = 0.0; wd = {_hex(g.widths[0])};"
+                   + dl(g, 0))
         for j in range(1, len(g.widths)):
             c = _hex(g.cum[j - 1])
             out.append(f"    if (u >= {c}) {{ bb = {j}; lo = {c}; "
-                       f"wd = {_hex(g.widths[j])}; }}")
+                       f"wd = {_hex(g.widths[j])};{dl(g, j)} }}")
         out.append("  }")
     div = "K1_DDIV(K1_DSUB(u, lo), wd)"
     if f32:
         div = f"f32 ? (double)K1_FDIV((float)u, (float)wd) : {div}"
     out += ["  if (hit) {",
             "    b = bb;",
-            f"    u = {div};",
-            "  }",
+            f"    u = {div};"]
+    if logp:
+        out.append("    lp = lp + dl;")
+    out += ["  }",
             "  return hit;",
             "}"]
     return out
 
 
-def _walk_exact(levels, groups, S: int) -> list[str]:
+def _walk_exact(levels, groups, S: int, logp: bool) -> list[str]:
     """`ensemble._walk_plain` for one site, one block of code a level:
-    live states are S + local id, terminal ones (< S) the write spec."""
-    out = ["K1_FN int k1_walk_exact(const int* c, double u) {",
-           f"  int v = {S};",
-           "  int b;",
-           "  (void)u;"]
+    live states are S + local id, terminal ones (< S) the write spec.
+    With ``logp`` the walk is ``k1_walk_exact_logp(c, u, lp)``, which
+    adds the path's float32 increments to ``*lp`` level by level, and
+    ``k1_walk_exact`` calls it with a scratch sum."""
+    if logp:
+        out = ["K1_FN int k1_walk_exact_logp(const int* c, double u, "
+               "float* lp) {"]
+    else:
+        out = ["K1_FN int k1_walk_exact(const int* c, double u) {"]
+    out += [f"  int v = {S};",
+            "  int b;",
+            "  (void)u;"]
     for li, (lv, grp) in enumerate(zip(levels, groups)):
         if lv.cell_groups:
             out.append(f"  b = c[{lv.cell_groups[0][0]}];")
@@ -145,14 +163,20 @@ def _walk_exact(levels, groups, S: int) -> list[str]:
         else:
             out.append("  b = 0;")
         if grp:
-            out.append(f"  {{ int bb; if (k1_choose_l{li}(v, u, bb)) b = bb; }}")
+            lp = ", *lp" if logp else ""
+            out.append(f"  {{ int bb; if (k1_choose_l{li}(v, u, bb{lp})) "
+                       "b = bb; }")
         out += [f"  if (v >= {S}) v = k1_l{li}_exact((v - {S}) * "
                 f"{lv.max_deg} + b);"]
     out += ["  return v;", "}"]
+    if logp:
+        out += ["K1_FN int k1_walk_exact(const int* c, double u) {",
+                "  float lp = 0.0f;",
+                "  return k1_walk_exact_logp(c, u, &lp);", "}"]
     return out
 
 
-def _walk_lanes(levels, groups, S: int) -> list[str]:
+def _walk_lanes(levels, groups, S: int, logp: bool) -> list[str]:
     """The walk of four sites at once, one byte lane each: per level the
     branch lanes (cell groups by lane masks, choose nodes site by site),
     then the next state of every live lane by a lane lookup in the
@@ -171,10 +195,13 @@ def _walk_lanes(levels, groups, S: int) -> list[str]:
         else:
             out.append("  b = 0;")
         if grp:
+            lp = ", lp" if logp else ""
             out += ["#pragma unroll",
                     "  for (int j = 0; j < 4; ++j) {",
                     "    int bb;",
-                    f"    if (k1_choose_l{li}((v >> (8 * j)) & 0xff, u[j], bb))",
+                    *(["    float lp = 0.0f;"] if logp else []),
+                    f"    if (k1_choose_l{li}((v >> (8 * j)) & 0xff, u[j], "
+                    f"bb{lp}))",
                     "      b = (b & ~(0xffu << (8 * j))) | ((uint32_t)bb << "
                     "(8 * j));",
                     "  }"]
@@ -255,11 +282,15 @@ def _check_lanes(dm, levels) -> None:
             f"{widest}) and at most 128 symbols (here {dm.size_a})")
 
 
-def k1_source(dm: ens.DeviceMachine) -> str:
-    """The CUDA translation unit of K1 for machine ``dm`` (deterministic:
-    the same machine gives the same text)."""
+def k1_source(dm: ens.DeviceMachine, tau: float = 1.0) -> str:
+    """The CUDA translation unit of K1 and K11 for machine ``dm`` with
+    chooses sampled from q ∝ p^tau (deterministic: the same machine and
+    tau give the same text). A tempered unit (tau != 1, a machine with
+    choose nodes) also walks with the importance increments
+    (`K1_LOGP`: K11's `ckpe_k11_rounds_logp`)."""
     levels = ens._level_plan(dm)
-    groups = ens._choose_plan(dm)
+    groups = ens._choose_plan(dm, tau)
+    logp = tau != 1.0 and dm.has_choose
     _check_lanes(dm, levels)
     lines = [
         f"// K1 for decision machine {dm.tag!r}: generated by",
@@ -267,21 +298,24 @@ def k1_source(dm: ens.DeviceMachine) -> str:
         "// from the machine's level plan; the kernel is csrc/plane_round.cuh.",
         f"// {dm.n_cells} window cells, {len(levels)} levels, "
         f"{dm.num_specs} write specs.",
+        *([f"// Chooses sampled from q ~ p^{tau!r}, with the increments."]
+          if logp else []),
         f"#define K1_N_P {dm.n_p}",
         f"#define K1_N_D {dm.n_d}",
         f"#define K1_P_LO {dm.p_lo}",
         f"#define K1_D_LO {dm.d_lo}",
         f"#define K1_SIZE_A {dm.size_a}",
         f"#define K1_CHOOSE {int(dm.has_choose)}",
+        *(["#define K1_LOGP 1"] if logp else []),
         '#include "plane_round.cuh"',
         "",
     ]
     for li, (lv, grp) in enumerate(zip(levels, groups)):
         lines += _field_fn(f"k1_l{li}_exact", lv.trans_words, lv.bits)
         if grp:
-            lines += _choose_fn(li, grp, dm.num_specs)
-    lines += _walk_exact(levels, groups, dm.num_specs)
-    lines += _walk_lanes(levels, groups, dm.num_specs)
+            lines += _choose_fn(li, grp, dm.num_specs, logp)
+    lines += _walk_exact(levels, groups, dm.num_specs, logp)
+    lines += _walk_lanes(levels, groups, dm.num_specs, logp)
     lines += _writes(dm)
     lines += ["", "// K11, the rolled round, over the same walk and writes.",
               '#include "lattice_round.cuh"']
@@ -310,22 +344,30 @@ def _load(source: str) -> ctypes.CDLL:
     lib.ckpe_k11_first_passage.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _I, _P, _I, _P, _P, _P, _P]
     lib.ckpe_k11_first_passage.restype = _I
+    if "K1_LOGP 1" in source:
+        # ckpe_k11_rounds_logp(p, d, uniforms, shifts, k0, n, B, L, E, lw,
+        #                      stream)
+        lib.ckpe_k11_rounds_logp.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
+                                             _I, _P, _P]
+        lib.ckpe_k11_rounds_logp.restype = _I
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p
     return lib
 
 
-# Loaded libraries by machine identity (the machine is kept alive beside
-# its library): hashing a DeviceMachine walks all its fields, which
-# costs the host more than a launch.
-_by_machine: dict[int, tuple] = {}
+# Loaded libraries by machine identity and tau (the machine is kept alive
+# beside its library): hashing a DeviceMachine walks all its fields,
+# which costs the host more than a launch.
+_by_machine: dict[tuple, tuple] = {}
 
 
-def k1_library(dm: ens.DeviceMachine) -> ctypes.CDLL:
-    """K1 for ``dm``, built on first use and loaded once per process.
-    Libraries are keyed by the generated source, so two machines share
-    one only when their kernels are the same code."""
-    hit = _by_machine.get(id(dm))
+def k1_library(dm: ens.DeviceMachine, tau: float = 1.0) -> ctypes.CDLL:
+    """K1 and K11 for ``dm`` at sampling temperature ``tau``, built on
+    first use and loaded once per process. Libraries are keyed by the
+    generated source, so two machines share one only when their kernels
+    are the same code."""
+    key = (id(dm), float(tau))
+    hit = _by_machine.get(key)
     if hit is None:
-        hit = _by_machine[id(dm)] = (dm, _load(k1_source(dm)))
+        hit = _by_machine[key] = (dm, _load(k1_source(dm, tau)))
     return hit[1]

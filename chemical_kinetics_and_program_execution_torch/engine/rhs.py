@@ -603,26 +603,34 @@ def _closure(compiled, tables, rhs):
     return fn
 
 
-def make_dy_dt(compiled: CompiledProblem, *, device=None):
+def make_dy_dt(compiled: CompiledProblem, dtype=None, jit: bool = True, *,
+               device=None):
     """``fn(p, out=None) -> dp/dt`` (float64) on ``device`` (``cuda``
     unless named) by the tree engine: K3 and K7 on a card, their plain
     versions on the CPU; dp/dt goes into ``out`` where one is given (a
-    solver's stage row)."""
+    solver's stage row). ``dtype`` (None or float64) and ``jit`` (no
+    effect) are the reference's parameters, as in
+    `dense.make_dense_dy_dt`."""
+    config.check_float64(dtype)
     return _closure(compiled, device_tables(compiled, device),
                     dy_dt_from_tables)
 
 
-def make_chain_dy_dt(compiled: CompiledProblem, *, device=None):
+def make_chain_dy_dt(compiled: CompiledProblem, dtype=None,
+                     jit: bool = True, *, device=None):
     """As `make_dy_dt` by the chain engine (K3 and K8)."""
+    config.check_float64(dtype)
     return _closure(compiled, chain_tables(compiled, device),
                     dy_dt_from_chain_tables)
 
 
-def make_dual_dy_dt(compiled: CompiledProblem, *, device=None):
+def make_dual_dy_dt(compiled: CompiledProblem, dtype=None, jit: bool = True,
+                    *, device=None):
     """``fn(p_prog, p_data) -> (dy_prog, dy_data)`` for a
     `compile.CompiledDualProblem` by the tree engine; ``fn.state_fn`` is
-    its dp/dt of the whole state ``[p_prog | p_data]``."""
-    state_fn = make_dy_dt(compiled, device=device)
+    its dp/dt of the whole state ``[p_prog | p_data]``. ``dtype`` and
+    ``jit`` as in `make_dy_dt`."""
+    state_fn = make_dy_dt(compiled, dtype, jit, device=device)
     half = compiled.size_a**compiled.cl_k
 
     def fn(p_prog, p_data):

@@ -12,7 +12,8 @@ package's ``"jax"``;
 ``"scipy"`` stays the default, as there. ``debug=True`` computes as
 usual, as in the reference, which dumps its worlds only where
 ``MARKOV_TAPES_DEBUG`` (or ``CKPE_DEBUG``) is set (`IS_DEBUG`); that dump
-needs `engine/reference.py`, not ported yet (ROADMAP Queue 1 item 4), so
+needs `engine/reference.py`, not ported yet (ROADMAP Queue 1, "Host
+instruments"), so
 with the flag set ``debug=True`` raises. `init_gambit` is the
 reference's no-op.
 """
@@ -52,7 +53,7 @@ def get_dy_dt(*, tag, size_a, cl_k, debug=False, device=None):
         raise NotImplementedError(
             "debug=True with MARKOV_TAPES_DEBUG or CKPE_DEBUG set needs the "
             "reference engine's world dump (engine/reference.py), not "
-            "ported yet (ROADMAP Queue 1 item 4)")
+            "ported yet (ROADMAP Queue 1, 'Host instruments')")
     fn, compiled = build_dy_dt(tag, cl_k, device=device)
     if compiled.size_a != size_a:
         raise ValueError(

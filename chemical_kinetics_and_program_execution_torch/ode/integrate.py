@@ -8,8 +8,8 @@ in chunks, with checkpoints. (`markov_tapes` keeps the reference's scipy
 solvers.)
 
 Not ported yet: the stiff ``kvaerno3`` and the scipy stiff names that
-map onto it; they raise NotImplementedError naming ROADMAP Queue 1 item
-4.
+map onto it; they raise NotImplementedError naming ROADMAP Queue 1,
+"Derivative-based solvers and instruments".
 """
 
 from __future__ import annotations
@@ -26,7 +26,8 @@ from ..utils import config
 from .dop853 import odeint_dop853, odeint_dop853_dense
 from .dopri5 import odeint_dopri5
 
-_UNPORTED = "is not ported yet (ROADMAP Queue 1 item 4: kvaerno3)"
+_UNPORTED = ("is not ported yet (ROADMAP Queue 1, 'Derivative-based solvers "
+             "and instruments': kvaerno3)")
 _NOT_PORTED = {"kvaerno3", "lsoda", "radau", "bdf"}
 # The JAX package's steppers by name (`ode/integrate.py:31-37`): "dop853"
 # is the dense-output stepper, "dop853-step" clamps its steps to the
@@ -94,9 +95,10 @@ class _Checkpoint:
         return ys
 
 
-def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
-          max_steps=1_000_000, return_info=False, chunk_size=None,
-          progress=False, checkpoint_path=None, project=None, device=None):
+def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, backend=None,
+          method=None, max_steps=1_000_000, return_info=False,
+          chunk_size=None, progress=False, checkpoint_path=None,
+          project=None, device=None):
     """Integrates ``dy/dt = fn(y, t)`` sampling at ``ts``.
 
     Returns a numpy array ``[len(ts), n]`` like ``scipy.integrate.odeint``.
@@ -135,7 +137,20 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, method=None,
     hold samples (``num_sampled``: one `dense_eval` launch each on a
     card); after a resume, RHS calls and sampled steps of this call
     only.
+
+    ``backend`` is the reference's parameter: ``"jax"`` (its default),
+    ``"torch"`` and None all name this solver. ``"scipy"`` raises: its
+    host solvers call ``fn`` with numpy arrays, and the port's RHS
+    closures live on the device (`markov_tapes.ode_integrate_ivp` keeps
+    scipy's solvers).
     """
+    if backend == "scipy":
+        raise NotImplementedError(
+            "solve(backend='scipy') is not ported: the port's RHS closures "
+            "take device tensors; use markov_tapes.ode_integrate_ivp for "
+            "scipy's solvers")
+    if backend not in (None, "jax", "torch"):
+        raise ValueError(f"unknown backend {backend!r}")
     ts = np.asarray(ts, dtype=np.float64)
     name = (method or "").lower()
     if not name:

@@ -6,7 +6,7 @@ marginals) is a linear slice-sum of the SPD, and the Markov entropy rate
 a short reduction. Used through the ``project=`` parameter of
 `ode.integrate.solve`, so only the projected rows leave the device.
 Plain torch functions on the device of their input (ROADMAP Queue 2
-item 6 names `seq_prob_projector` for a later kernel).
+names `seq_prob_projector` for a later kernel or a fusion into K6).
 """
 
 from __future__ import annotations

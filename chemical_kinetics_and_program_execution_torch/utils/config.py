@@ -43,6 +43,23 @@ def get_device(device=None) -> torch.device:
     return dev
 
 
+def check_float64(dtype) -> None:
+    """Accepts the reference's ``dtype=`` of an exact-path factory: None
+    or float64 (a torch, numpy or JAX float64 type, or its name). The
+    exact path is float64 throughout, so any other type raises."""
+    if dtype is None or dtype is torch.float64:
+        return
+    import numpy as np
+
+    try:
+        ok = np.dtype(dtype) == np.float64
+    except TypeError:
+        ok = False
+    if not ok:
+        raise TypeError(f"the exact path is float64 throughout; dtype="
+                        f"{dtype!r} is not supported")
+
+
 def make_generator(seed_or_generator, device: torch.device) -> torch.Generator:
     """A `torch.Generator` on ``device``: an int seeds a new one, a
     generator is checked to live on ``device`` and returned as is."""

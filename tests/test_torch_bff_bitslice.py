@@ -163,7 +163,7 @@ def test_apply_round_bitsliced_matches_jax(tag, B, L, E):
             for k in range(4):
                 want[a] += _np_popcount(np.asarray(oh[4 * a + k])) << k
         got = tbb.apply_bff_round_bitsliced(tm, tc, tp, td, shift,
-                                            site_axis=axis)
+                                            stride=stride, site_axis=axis)
         np.testing.assert_array_equal(_u32(td), np.asarray(jd))
         np.testing.assert_array_equal(got.numpy(), want)
         assert int(got.sum()) == B * E * tm.fuel
@@ -414,6 +414,7 @@ def test_generated_unit_matches_plain_round(k17_host_library, tag, B, L, E):
                         kd.data_ptr(), None, shift, E_, W, int(site_minor),
                         stride, totals.ctypes.data) == 0
         want = tbb.apply_bff_round_bitsliced(tm, tc, tp, td, shift,
+                                             stride=td.shape[0],
                                              site_axis=axis)
         assert torch.equal(kd, td), shift
         np.testing.assert_array_equal(totals, want.numpy())

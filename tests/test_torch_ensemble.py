@@ -508,9 +508,16 @@ def test_plane_storage_roundtrip():
     np.testing.assert_array_equal(planes.numpy(), np.asarray(want))
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="tau"):
-        tens._choose_sampling_dist((0.5, 0.5), tau=0.5)
+@pytest.mark.parametrize("tau", [0.3, 0.5, 0.7])
+def test_choose_sampling_dist_matches_jax(tau):
+    """Tempered choose sampling (once the raise of an unported path):
+    q ∝ p^tau and the increments log p − log q equal the JAX package's
+    bit for bit, zero-probability branches included."""
+    for probs in ((0.5, 0.5), (0.1, 0.0, 0.6, 0.3), (1e-9, 1.0 - 1e-9)):
+        q, delta = tens._choose_sampling_dist(probs, tau)
+        jq, jdelta = jens._choose_sampling_dist(probs, tau)
+        np.testing.assert_array_equal(q, jq)
+        np.testing.assert_array_equal(delta, jdelta)
 
 
 def test_round_geometry_checks():

@@ -9,6 +9,8 @@ Without a card every test here skips. This file imports no jax and
 nothing of the JAX package.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,9 @@ from chemical_kinetics_and_program_execution_torch.engine import (
 from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
 from chemical_kinetics_and_program_execution_torch.engine import (
     ensemble as tens,
+)
+from chemical_kinetics_and_program_execution_torch.engine import (
+    frontier as tfr,
 )
 from chemical_kinetics_and_program_execution_torch.engine import dsl as tdsl
 from chemical_kinetics_and_program_execution_torch.engine import (
@@ -1292,7 +1297,9 @@ def test_bff_bitslice_kernel_matches_plain(cuda, tag, B, L, E):
         got = tbb.bff_bitslice_round(m, circ, words[0], kd, shifts, k,
                                      site_axis=axis)
         want = tbb.apply_bff_round_bitsliced(m, circ, words[0], pd,
-                                             int(shifts[k]), site_axis=axis)
+                                             int(shifts[k]),
+                                             stride=pd.shape[0],
+                                             site_axis=axis)
         torch.cuda.synchronize()
         assert torch.equal(kd, pd), k
         assert torch.equal(got, want), k
@@ -1342,3 +1349,147 @@ def test_bff_kernels_reject_bad_launches(cuda):
     t = torch.zeros((4, 64), dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="4 bits"):
         tbff.bff_round(deep, None, t, 0, 4)
+
+
+# --- The weighted frontier (K19-K22, K11's tempered rounds) --------------------
+
+def _frontier_tapes(rng, K, L, hi, device):
+    return [torch.as_tensor(rng.randint(0, hi, (K, L)), dtype=torch.int8,
+                            device=device) for _ in range(2)]
+
+
+@pytest.mark.parametrize("L,stride", [(64, 16), (64, 1), (30, 5)])
+@pytest.mark.parametrize("bits,flagged", [(4, False), (4, True), (8, False)])
+def test_content_hash_kernel_matches_plain(cuda, L, stride, bits, flagged):
+    rng = np.random.RandomState(L + bits)
+    K = 5003
+    pt, dt = _frontier_tapes(rng, K, L, 16, cuda)
+    dt[7] = dt[3]
+    pt[7] = pt[3]
+    flag = (torch.as_tensor(rng.rand(K) < 0.5, device=cuda)
+            if flagged else None)
+    n = tfr.content_hash.launches
+    got = tfr.content_hash(pt, dt, stride=stride, bits=bits, flag=flag)
+    assert tfr.content_hash.launches == n + 1
+    want = tfr.content_hash_plain(pt, dt, stride, bits, flag)
+    cpu = tfr.content_hash_plain(pt.cpu(), dt.cpu(), stride, bits,
+                                 None if flag is None else flag.cpu())
+    assert torch.equal(got, want) and torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("K", [1, 2, 33, 4096, 100003])
+def test_merge_resample_kernel_matches_plain(cuda, mode, K):
+    """K20 equals its plain version on the card bit for bit: parents (or
+    grp), new_lw and n_groups, with heavy duplication, hashes with the
+    top bit set and absorbed (-inf) members."""
+    rng = np.random.RandomState(K + mode)
+    pool = rng.randint(-2**63, 2**63 - 1, size=max(1, K // 7),
+                       dtype=np.int64)
+    h = torch.as_tensor(pool[rng.randint(0, len(pool), K)], device=cuda)
+    lw = torch.as_tensor(rng.normal(size=K) * 3.0, device=cuda)
+    lw[:K // 50] = -math.inf
+    u = torch.tensor(rng.rand(), dtype=torch.float64, device=cuda)
+    n = tfr.merge_resample.launches
+    got = tfr.merge_resample(h, lw, u, mode)
+    assert tfr.merge_resample.launches == n + 1
+    hs, perm = tfr.sort_hashes(h)
+    want = tfr.merge_resample_plain(hs, perm, lw, u, mode, math.log(K))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b.to(a.dtype)), mode
+
+
+@pytest.mark.parametrize("L", [64, 30])
+@pytest.mark.parametrize("flagged", [False, True])
+def test_gather_pair_kernel_matches_plain(cuda, L, flagged):
+    rng = np.random.RandomState(L)
+    K = 20011
+    pt = torch.as_tensor(rng.randint(-128, 128, (K, L)), dtype=torch.int8,
+                         device=cuda)
+    dt = torch.as_tensor(rng.randint(0, 16, (K, L)), dtype=torch.int8,
+                         device=cuda)
+    flag = (torch.as_tensor(rng.rand(K) < 0.5, device=cuda)
+            if flagged else None)
+    parent = torch.as_tensor(rng.randint(0, K, K), device=cuda)
+    n = tfr.gather_pair.launches
+    got = tfr.gather_pair(pt, dt, parent, flag)
+    assert tfr.gather_pair.launches == n + 1
+    for a, b in zip(got, tfr.gather_pair_plain(pt, dt, parent, flag)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tag", TAGS)
+def test_frontier_step_kernel_matches_plain(cuda, tag):
+    """K22 over 12 steps of the per-step beam equals its plain version
+    on the card: tapes bit for bit and weights bit for bit."""
+    tab = tens.device_table(tens.compile_transition_table(tag), device=cuda)
+    rng = np.random.RandomState(4)
+    K, L, steps = 4099, 32, 12
+    pt, dt = _frontier_tapes(rng, K, L, tab.size_a, cuda)
+    lw = torch.as_tensor(rng.normal(size=K), device=cuda)
+    sites = torch.as_tensor(rng.randint(0, L, steps), dtype=torch.int32,
+                            device=cuda)
+    out_log = tfr._out_log(tab).contiguous()
+    k = (pt.clone(), dt.clone(), lw.clone())
+    p = (pt.clone(), dt.clone(), lw.clone())
+    for s in range(steps):
+        k = tfr.frontier_step(tab, out_log, *k, sites, s)
+        p = tfr.frontier_step_plain(tab, out_log, *p, sites[s])
+        for a, b in zip(k, p):
+            assert torch.equal(a, b), (tag, s)
+
+
+@pytest.mark.parametrize("tag", ["ex2-ferromagnetic-chain",
+                                 "ex4-chemical-turing"])
+def test_tempered_round_kernel_matches_plain(cuda, tag):
+    """K11's tempered rounds (tau 0.5) equal the plain tempered round on
+    the card: tapes and log-weights bit for bit."""
+    dm = tens.compile_decision_machine(tag)
+    rng = np.random.RandomState(6)
+    K, L, E, n = 8192, 64, 4, 6
+    pt, dt = _frontier_tapes(rng, K, L, dm.size_a, cuda)
+    lw = torch.as_tensor(rng.normal(size=K), device=cuda)
+    shifts = torch.as_tensor(rng.randint(0, L // E, n), dtype=torch.int32,
+                             device=cuda)
+    u = torch.as_tensor(rng.rand(n, K, E).astype(np.float32), device=cuda)
+    k = [pt.clone(), dt.clone(), lw.clone()]
+    p = [pt.clone(), dt.clone(), lw.clone()]
+    launches = tfr.tempered_round.launches
+    tfr.tempered_round(dm, k[0], k[1], shifts, E, u, 0.5, k[2])
+    assert tfr.tempered_round.launches == launches + n
+    for j in range(n):
+        tens.lattice_round_plain(dm, p[0], p[1], shifts[j], E, u[j], tau=0.5,
+                                 lw=p[2])
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_blocked_frontier_on_card_runs_kernels(cuda):
+    """The blocked frontier and the per-step beam on the card launch
+    K11 (tempered), K19, K20, K21 and K22 and call no plain version."""
+    dm = tens.compile_decision_machine("ex2-ferromagnetic-chain")
+    rng = np.random.RandomState(8)
+    K, L = 4096, 64
+    tapes = [rng.randint(0, 2, (K, L)) for _ in range(2)]
+    lw = np.full(K, -math.log(K))
+    plain = [tfr.content_hash_plain, tfr.merge_resample_plain,
+             tfr.gather_pair_plain, tens.lattice_round_plain,
+             tfr.frontier_rank_plain, tfr.frontier_write_plain]
+    before = [f.calls for f in plain]
+    counts = [tfr.content_hash.launches, tfr.merge_resample.launches,
+              tfr.gather_pair.launches, tfr.tempered_round.launches]
+    (pt, dt), lw2, nu = tfr.run_weighted_frontier_blocked(
+        3, tapes, lw, dm, (2, 8, 4), tau=0.5)
+    assert [tfr.content_hash.launches, tfr.merge_resample.launches,
+            tfr.gather_pair.launches, tfr.tempered_round.launches] == [
+        counts[0] + 2, counts[1] + 2, counts[2] + 2, counts[3] + 16]
+    assert abs(float(torch.logsumexp(lw2, 0))) < 1e-12
+    assert nu.shape == (2,) and int(nu.min()) >= 1
+    tab = tens.device_table(
+        tens.compile_transition_table("ex2-ferromagnetic-chain"),
+        device=cuda)
+    n22 = tfr.frontier_step.launches
+    (pt, dt), lw3 = tfr.run_weighted_frontier(4, tapes, lw, tab, 10, K, 2)
+    assert tfr.frontier_step.launches == n22 + 20
+    assert [f.calls for f in plain] == before
+    assert abs(float(torch.logsumexp(lw3, 0))) < 1e-12

@@ -148,8 +148,8 @@ def test_decay_table_semantics():
 def test_device_table_matches_jax(tag, f32):
     """Offsets, place values and outcome arrays (float64, or float32 when
     asked), as the JAX package places them; a table built from the JAX
-    table's fields gives the same. The packed write words, which only
-    the weighted frontier reads, stay empty until it is ported."""
+    table's fields gives the same. The port keeps no packed write words:
+    its per-step frontier (K22) decodes from wr_mask and wr_val."""
     jdt, tdt = _device_tables(tag, f32)
     for name in ("p_offs", "d_offs", "pv", "out_cum", "out_world",
                  "wr_mask", "wr_val"):
@@ -157,7 +157,9 @@ def test_device_table_matches_jax(tag, f32):
     assert tdt.out_cum.dtype == (torch.float32 if f32 else torch.float64)
     assert (tdt.size_a, tdt.p_lo, tdt.d_lo, tdt.span) == (
         jdt.size_a, jdt.p_lo, jdt.d_lo, jdt.span)
-    assert tdt.wr_words is None and tdt.n_wr_words == 0
+    assert ({f.name for f in dataclasses.fields(jdt)}
+            - {f.name for f in dataclasses.fields(tdt)}
+            == {"wr_words", "n_wr_words"})
     jt = _tables(tag)[0]
     crossed = tens.transition_table_from_fields(
         {f.name: getattr(jt, f.name) for f in dataclasses.fields(jt)})
