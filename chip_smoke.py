@@ -234,7 +234,9 @@ Phases (each prints its wall time; every check raises on failure):
    1 and 0.5 (the test's budget), and on the L=12 ring the absorbing
    ESS-adaptive harness at tau 0.5 and the hit-flagged and binned ones
    at tau 1 against the port's master equation, checked as each harness
-   checks (every round, or at block ends: z < 6 over 16 seeds); each
+   checks (every round, or at block ends: z < 6 over 16 seeds), the
+   tempered test's collapse scenario by its thresholds and the binned
+   harness split against unsplit at `test_we_binned_*`'s geometry; each
    kernel alone by CUDA events beside its bound, its plain
    version and, for K21, `torch.index_select` of both tapes' rows, K20
    beside the sort's own time.
@@ -4191,7 +4193,7 @@ def first_passage_gates(dev, gen, diff):
     (1) `test_weighted_first_passage_matches_unweighted_and_is_tau_
     invariant`'s geometry (K=2048, L=64, E=4, 24 one-round blocks) at tau
     1 and 0.5 against brute force (K12 a round); (2) on the L=12 ring of
-    `test_tempered_first_passage_ess_adaptive`, against the port's master
+    `test_tempered_first_passage_ess_adaptive` (a), against the port's master
     equation (`engine/master.py`), z over 16 seeds: the absorbing
     ESS-adaptive harness at tau 0.5 (checked every round) against the
     survival checked every round (`discrete_survival`), the hit-flagged
@@ -4199,7 +4201,10 @@ def first_passage_gates(dev, gen, diff):
     at block ends only, against the survival checked at block ends
     (`block_survival`). The hit-flagged harness at tau < 1 is left out:
     the reference documents it as biased there (merges at block ends
-    prune the hit lineages), which is why it has the absorbing mode."""
+    prune the hit lineages), which is why it has the absorbing mode;
+    (3) that test's collapse scenario (b) by its own thresholds; (4) the
+    binned harness's unbiasedness at `test_we_binned_*`'s geometry
+    (split against no split, z < 6 over 16 seeds each)."""
     out = {}
     dm = ens.compile_decision_machine(EX2)
     K, L_, E_, n_rounds = 2048, 64, 4, 24
@@ -4275,6 +4280,64 @@ def first_passage_gates(dev, gen, diff):
         if not z < 6:
             raise AssertionError(f"(e2) {name}: z {z}")
         out[name] = {"z": z, "seconds": seconds}
+    # (3) test_tempered_first_passage_ess_adaptive's collapse scenario
+    # (ex2, K=2048, L=64, E=4, 2 blocks of 128 rounds, six U): tau 0.5
+    # with block-end merges only collapses (ESS below K/50, P(hit) below
+    # a fifth of the brute-force 0.033), the absorbing ESS-adaptive run
+    # holds its ESS above K/2 and P(hit) within 3x. The test reads one run
+    # of each; here the adaptive estimate is the mean of 4 runs, its
+    # single runs being heavy-tailed (0.007-0.070 seen on the CPU).
+    p0b = ferromagnet_p0(4, p_pair=0.05, corrected=True).ravel()
+    p_bf = 0.033  # the JAX test's brute force, per-round checks
+    got = {"adaptive": []}
+    for run in range(4):
+        dtape = ens.sample_tapes_from_spd(gen, p0b, 2, 4, K, L_, device=dev)
+        ptape = torch.zeros((K, L_), dtype=torch.int8, device=dev)
+        lw0 = torch.full((K,), -math.log(K), dtype=torch.float64, device=dev)
+        for name, kw in ((("plain", {}),) if run == 0 else ()) + (
+                ("adaptive", dict(ess_frac=0.5, check_every=4)),):
+            s, ess, *_ = tfr.weighted_first_passage(
+                gen, (ptape, dtape), lw0, dm, (1,) * 6, (2, 128, E_),
+                tau=0.5, device=dev, **kw)
+            res = (1.0 - float(s[-1]), float(ess[-1]))
+            if name == "plain":
+                got["plain"] = res
+            else:
+                got["adaptive"].append(res)
+    p_ad = float(np.mean([r[0] for r in got["adaptive"]]))
+    ess_ad = min(r[1] for r in got["adaptive"])
+    say(f"(e3) the collapse scenario at K={K}, L={L_}, 2 x 128 rounds, "
+        f"tau 0.5: block-end merges P(hit) {got['plain'][0]:.4f}, ESS "
+        f"{got['plain'][1]:.1f}; ESS-adaptive P(hit) "
+        f"{[round(r[0], 4) for r in got['adaptive']]}, mean {p_ad:.4f}, "
+        f"least ESS {ess_ad:.1f} (brute force {p_bf})")
+    if not (got["plain"][1] < K / 50 and got["plain"][0] < p_bf / 5
+            and ess_ad > K / 2 and p_bf / 3 < p_ad < 3 * p_bf):
+        raise AssertionError(f"(e3) {got}")
+    out["e3"] = got
+    # (4) test_we_binned_*'s unbiasedness geometry (ex2, K=256, L=64,
+    # plan (8, 4, 8), eight U from random tapes): WE splitting against
+    # plain Monte Carlo in the same harness (split=False), z on the seeds'
+    # scatter.
+    finals = {True: [], False: []}
+    for split in (True, False):
+        for seed in range(16):
+            dtp = torch.randint(0, 2, (256, L_), generator=gen, device=dev,
+                                dtype=torch.int32)
+            surv, _, _, _ = tfr.weighted_first_passage_binned(
+                gen, (torch.zeros_like(dtp), dtp),
+                torch.full((256,), -math.log(256), dtype=torch.float64,
+                           device=dev), dm, (1,) * 8, (8, 4, 8),
+                split=split, seed=seed, device=dev)
+            finals[split].append(1.0 - surv[-1])
+    a, b = (np.asarray(finals[k]) for k in (True, False))
+    sem = math.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b) + 1e-12)
+    z = abs(a.mean() - b.mean()) / sem
+    say(f"(e4) binned WE at test_we_binned_*'s geometry, 16 seeds each: "
+        f"split P(hit) {a.mean():.4f}, plain {b.mean():.4f}: z {z:.2f}")
+    if not z < 6:
+        raise AssertionError(f"(e4) z {z}")
+    out["e4"] = {"z": z, "split": a.mean(), "plain": b.mean()}
     # The absorbing harness reads its ESS trigger on the host once a
     # sub-block (the reference's lax.cond): the read's round trip alone,
     # after a device op as in the harness, and the harness's wall time a
