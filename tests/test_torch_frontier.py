@@ -121,7 +121,7 @@ def test_tempered_walk_matches_jax(tag, tau):
 
 @pytest.mark.parametrize("tag", ["ex2-ferromagnetic-chain",
                                  "ex4-chemical-turing"])
-def test_tempered_unit_rule_matches_plain(tag):
+def test_tempered_unit_rule_matches_plain(tag, tmp_path):
     """K11's tempered per-member body (the generated unit at tau 0.5,
     `ckpe_k11_host_round_logp`), built with the host's compiler, equals
     `lattice_round_plain(tau=0.5, lw=...)`: tapes bit for bit, lw bit
@@ -134,18 +134,14 @@ def test_tempered_unit_rule_matches_plain(tag):
     src = k1_source.k1_source(tdm, 0.5)
     assert "#define K1_LOGP 1" in src
     assert k1_source.k1_source(tdm, 1.0) == k1_source.k1_source(tdm)
-    import tempfile
-    from pathlib import Path
-
-    with tempfile.TemporaryDirectory() as tmp:
-        unit = Path(tmp) / "unit.cpp"
-        unit.write_text(src)
-        lib = Path(tmp) / "librule.so"
-        subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1",
-                        "-ffp-contract=off", "-shared", "-fPIC", "-I",
-                        str(cuda.CSRC_DIR), "-o", str(lib), str(unit)],
-                       check=True, capture_output=True, timeout=300)
-        fn = ctypes.CDLL(str(lib)).ckpe_k11_host_round_logp
+    unit = tmp_path / "unit.cpp"
+    unit.write_text(src)
+    lib = tmp_path / "librule.so"
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1",
+                    "-ffp-contract=off", "-shared", "-fPIC", "-I",
+                    str(cuda.CSRC_DIR), "-o", str(lib), str(unit)],
+                   check=True, capture_output=True, timeout=300)
+    fn = ctypes.CDLL(str(lib)).ckpe_k11_host_round_logp
     rng = np.random.RandomState(3)
     K, L, E = 96, 64, 4
     pt = torch.as_tensor(rng.randint(0, tdm.size_a, (K, L)), dtype=torch.int8)
