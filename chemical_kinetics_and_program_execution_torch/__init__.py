@@ -21,7 +21,8 @@ Ported so far: the ensemble engine's plane-stored FSM round
 `sample_tapes_from_spd`; the exact SPD closure (`engine.build_dy_dt`
 with the dense, tree and chain engines, dual-SPD programs,
 `ode.integrate.solve` with DOP853 in one call or in checkpointed chunks,
-`markov_tapes`).
+`markov_tapes`); thermodynamics (`ops.thermo`) and the host instruments
+(`ops.closure`, `ops.correlations`, `engine.reference`).
 ROADMAP.md lists what is still to come.
 
 The top level exports the JAX package's names that are ported (all but

@@ -10,7 +10,8 @@ time (`probes/pallas_plane_round.py:49`). The unit includes the
 hand-written template `csrc/plane_round.cuh` (loads, stores, sites per
 thread, launch loop), which documents the kernel's design, and at its
 end `csrc/lattice_round.cuh`, K11's rolled round over the same walk and
-writes.
+writes, and `csrc/thermo_round.cuh`, K23's and K24's rounds (K11's with
+the entropy ledgers of `ops/thermo.py`).
 
 Two walks are written. The lane walk steps a thread's four sites at
 once, one byte lane each of a 32-bit word: a level's next state is an
@@ -283,10 +284,10 @@ def _check_lanes(dm, levels) -> None:
 
 
 def k1_source(dm: ens.DeviceMachine, tau: float = 1.0) -> str:
-    """The CUDA translation unit of K1 and K11 for machine ``dm`` with
-    chooses sampled from q ∝ p^tau (deterministic: the same machine and
-    tau give the same text). A tempered unit (tau != 1, a machine with
-    choose nodes) also walks with the importance increments
+    """The CUDA translation unit of K1, K11, K23 and K24 for machine
+    ``dm`` with chooses sampled from q ∝ p^tau (deterministic: the same
+    machine and tau give the same text). A tempered unit (tau != 1, a
+    machine with choose nodes) also walks with the importance increments
     (`K1_LOGP`: K11's `ckpe_k11_rounds_logp`)."""
     levels = ens._level_plan(dm)
     groups = ens._choose_plan(dm, tau)
@@ -318,7 +319,9 @@ def k1_source(dm: ens.DeviceMachine, tau: float = 1.0) -> str:
     lines += _walk_lanes(levels, groups, dm.num_specs, logp)
     lines += _writes(dm)
     lines += ["", "// K11, the rolled round, over the same walk and writes.",
-              '#include "lattice_round.cuh"']
+              '#include "lattice_round.cuh"',
+              "// K23 and K24, K11's round with the entropy ledgers.",
+              '#include "thermo_round.cuh"']
     return "\n".join(lines) + "\n"
 
 
@@ -344,6 +347,17 @@ def _load(source: str) -> ctypes.CDLL:
     lib.ckpe_k11_first_passage.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
                                            _I, _I, _P, _I, _P, _P, _P, _P]
     lib.ckpe_k11_first_passage.restype = _I
+    # ckpe_k23_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
+    #                 sig_tab, irr_tab, S, sigma, n_irrev, stream)
+    lib.ckpe_k23_rounds.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [
+        _P, _P, _I, _P, _P, _P]
+    lib.ckpe_k23_rounds.restype = _I
+    # ckpe_k24_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
+    #                 g_prog, g_data, beta_eff, S, sigma, counts, spec_sig,
+    #                 stream)
+    lib.ckpe_k24_rounds.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [
+        _P, _P, ctypes.c_double, _I, _P, _P, _P, _P]
+    lib.ckpe_k24_rounds.restype = _I
     if "K1_LOGP 1" in source:
         # ckpe_k11_rounds_logp(p, d, uniforms, shifts, k0, n, B, L, E, lw,
         #                      stream)
@@ -362,8 +376,8 @@ _by_machine: dict[tuple, tuple] = {}
 
 
 def k1_library(dm: ens.DeviceMachine, tau: float = 1.0) -> ctypes.CDLL:
-    """K1 and K11 for ``dm`` at sampling temperature ``tau``, built on
-    first use and loaded once per process. Libraries are keyed by the
+    """K1, K11, K23 and K24 for ``dm`` at sampling temperature ``tau``,
+    built on first use and loaded once per process. Libraries are keyed by the
     generated source, so two machines share one only when their kernels
     are the same code."""
     key = (id(dm), float(tau))

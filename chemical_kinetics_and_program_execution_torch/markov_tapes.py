@@ -10,12 +10,10 @@ of `ode/integrate.py:solve` (dopri5 from tolerances of 1e-9 up, DOP853
 below; their arithmetic kernel K6), the counterpart of the JAX
 package's ``"jax"``;
 ``"scipy"`` stays the default, as there. ``debug=True`` computes as
-usual, as in the reference, which dumps its worlds only where
-``MARKOV_TAPES_DEBUG`` (or ``CKPE_DEBUG``) is set (`IS_DEBUG`); that dump
-needs `engine/reference.py`, not ported yet (ROADMAP Queue 1, "Host
-instruments"), so
-with the flag set ``debug=True`` raises. `init_gambit` is the
-reference's no-op.
+usual; where ``MARKOV_TAPES_DEBUG`` (or ``CKPE_DEBUG``) is set
+(`IS_DEBUG`) each RHS call also prints the rule's worlds
+(`engine/reference.py:dump_worlds`, at most 200), as the reference's
+debug path does. `init_gambit` is the reference's no-op.
 """
 
 from __future__ import annotations
@@ -47,13 +45,9 @@ def get_dy_dt(*, tag, size_a, cl_k, debug=False, device=None):
     """Returns the ``(probs_in, t) -> dp/dt`` RHS of a registered problem,
     numpy in and out, with the reference's state-size validation; the
     device function (tensors in and out) rides in ``.device_fn``.
-    ``debug=True`` raises where `IS_DEBUG` is set (the world dump is not
-    ported) and changes nothing otherwise."""
-    if debug and IS_DEBUG:
-        raise NotImplementedError(
-            "debug=True with MARKOV_TAPES_DEBUG or CKPE_DEBUG set needs the "
-            "reference engine's world dump (engine/reference.py), not "
-            "ported yet (ROADMAP Queue 1, 'Host instruments')")
+    ``debug=True`` with `IS_DEBUG` set prints the time and the rule's
+    worlds at the input SPD (`engine/reference.py:dump_worlds`, at most
+    200) on every call, and changes nothing otherwise."""
     fn, compiled = build_dy_dt(tag, cl_k, device=device)
     if compiled.size_a != size_a:
         raise ValueError(
@@ -69,6 +63,13 @@ def get_dy_dt(*, tag, size_a, cl_k, debug=False, device=None):
                 f"probability-array should have size {expected_size}, "
                 f"observed: {probs.size}"
             )
+        if debug and IS_DEBUG:
+            # The reference's per-world dump of (p_world, program, old and
+            # new sequences) at each RHS call.
+            from .engine.reference import dump_worlds
+
+            print(f"[ckpe] dy_dt t={t:.10g}")
+            dump_worlds(tag, cl_k, probs, limit=200)
         return fn(probs).cpu().numpy()
 
     dy_dt.compiled = compiled

@@ -1,1 +1,1 @@
-"""Observable projections of the port."""
+"""Observables, thermodynamics and the host instruments of the port."""

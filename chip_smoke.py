@@ -239,7 +239,35 @@ Phases (each prints its wall time; every check raises on failure):
    harness split against unsplit at `test_we_binned_*`'s geometry; each
    kernel alone by CUDA events beside its bound, its plain
    version and, for K21, `torch.index_select` of both tapes' rows, K20
-   beside the sort's own time.
+   beside the sort's own time;
+13. thermodynamics (K23 `sigma_round`, K24 `ledger_round`, in each
+   machine's unit built in phase 2, ex4var2's among them) and the host
+   instruments, each path with both counts set to 0 just before and read
+   just after, no plain version called: (a) `run_ensemble_sigma` on ex2
+   and `run_ensemble_ledger` on ex4var2 (examples/ex4var2_ledger.py's G,
+   beta_eff 2, its tape mix) at B=16384, L=4096, E=256 for 200 rounds,
+   each kernel launched once a round; ex2's sigma held to the rings'
+   Ising energy drop (J_eff 2, h -0.25) and ex4var2's to Phi(0) - Phi(T)
+   within 1e-8, the counts summing to rounds x E; ms a round by CUDA
+   events; each kernel alone beside its bound, its plain version and
+   K11's round without the sums (no library call: a walk with a table
+   gather); (b) examples/ex2_entropy_production.py's ensemble (B=8192,
+   L=12, E=1, 24 snapshots of 6 rounds, independent sites, bridge-sampled
+   rings, the port's generator) held to tests/test_thermo.py:432's gates
+   (z < 6 at every snapshot against the exact kernel, the IFT within 6
+   se, mean sig_tot > 0); (c) examples/ex4var2_ledger.py's ensemble panel
+   (B=4096, L=128, E=4, 512 rounds in 16 calls) and dual panel (cl_k 3,
+   the card's dense dual RHS) held to tests/test_thermo.py:387's claims
+   (book_err, decomp_err, gibbs_res below 1e-8, F monotone onto F_gibbs,
+   the fuel strokes at 12 and 7 nats) and the trajectory to
+   examples/ex4var2_ledger_dual.npz within abs 1e-10; (d) K23 on ex2 and
+   ex4-chemical-turing (irreversible: n_irrev > 0, its 531,441-window
+   tables built on the host) and K24 on ex4var2 and ex2, shared and
+   per-member shifts, E 1 and 256, against their plain versions bit for
+   bit; (e) examples/ex2_closure_error.py's rows (cl_k 3 and 4, 41
+   samples) through the port's closure on the card's RHS, within rtol
+   1e-8, atol 1e-14 of the same rows on the CPU and within 4e-9 of the
+   committed npz (the JAX package's own CPU run stands 1.4e-9 from it).
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -295,11 +323,16 @@ from chemical_kinetics_and_program_execution_torch.engine import (
 )
 from chemical_kinetics_and_program_execution_torch.models.initial_states import (  # noqa: E501
     chemical_turing_p0,
+    chemical_turing_v2_p0,
     copolymerization_p0,
     ferromagnet_p0,
 )
 from chemical_kinetics_and_program_execution_torch.ode import dop853, dopri5
 from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
+from chemical_kinetics_and_program_execution_torch.ops import (
+    closure as tclosure,
+)
+from chemical_kinetics_and_program_execution_torch.ops import thermo as tth
 from chemical_kinetics_and_program_execution_torch.ops.observables import (
     seq_prob_projector,
 )
@@ -4608,6 +4641,548 @@ def frontier_phase(dev, kernels):
     kernels["K22"]["ex5"] = times[f"K22 {MAIN_TAG}"]
 
 
+# --- Phase 13: thermodynamics (K23, K24) and the host instruments -----------
+
+TH_B, TH_L, TH_E, TH_ROUNDS = B, L, E, 200  # the ensemble's geometry (a)
+TH_BD = 4096  # members of (d)'s comparisons
+EX4V2 = "ex4var2-chemical-turing"
+TH_SYMS = ("A", "B", "C", "D", "I", "O", "P", "X", "S", "E")
+TH_G = {"A": -1.0, "B": -1.0, "C": -1.0, "D": 1.5, "I": 0.0, "O": 0.0,
+        "P": 6.0, "X": 0.0, "S": 0.0, "E": 1.0}  # examples/ex4var2_ledger.py
+TH_G_VEC = np.array([TH_G[s] for s in TH_SYMS])
+TH_BETA_EFF = 2.0
+# examples/ex2_entropy_production.py: ring, snapshots, members.
+EP = dict(L=12, E=1, rounds_per_snap=6, snaps=24, B=8192, cl_k=4)
+# examples/ex4var2_ledger.py: the ensemble panel and the dual panel.
+LG = dict(B=4096, L=128, rounds=512, E=4, chunks=16, dual_cl_k=3)
+CE = dict(cl_k=3, ts=np.linspace(0.0, 20.0, 41))  # ex2_closure_error.py
+CE_ARTIFACT_ATOL = 4e-9  # the JAX package's own CPU run: 1.37e-9 off
+TH_WRAPPERS = {"K23": tth.sigma_round, "K24": tth.ledger_round}
+TH_PLAIN = [tth.sigma_round_plain, tth.ledger_round_plain]
+TH_KERNELS = {
+    "K23": ("K23 sigma_round", SRC + "thermo_round.cuh",
+            "the JAX package's ops/thermo.py:339 run_ensemble_sigma's scan "
+            "body (:369-382) with :322 _round_sigma (XLA)"),
+    "K24": ("K24 ledger_round", SRC + "thermo_round.cuh",
+            "the JAX package's ops/thermo.py:424 run_ensemble_ledger's "
+            "scan body (:461-483) (XLA)"),
+}
+
+
+def thermo_path(label, fn):
+    """Runs a thermo path with K23's and K24's counts set to 0 just
+    before and read just after; raises if a plain version ran. Returns
+    (fn's result, launches, device ms by CUDA events, seconds)."""
+    for f in TH_WRAPPERS.values():
+        f.launches = 0
+    for f in TH_PLAIN:
+        f.calls = 0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in TH_WRAPPERS.items()}
+    plain = {f.__name__: f.calls for f in TH_PLAIN if f.calls}
+    if plain:
+        raise AssertionError(f"path {label}: plain calls {plain}")
+    return result, launches, start.elapsed_time(end), seconds
+
+
+def draw_symbols(gen, symbols, probs, shape, dev):
+    """int32 symbols drawn with the given probabilities on the card."""
+    cum = torch.tensor(np.cumsum(probs)[:-1], dtype=torch.float32, device=dev)
+    idx = torch.searchsorted(cum, torch.rand(shape, generator=gen,
+                                             device=dev), right=True)
+    return torch.tensor(symbols, dtype=torch.int32, device=dev)[idx]
+
+
+def ising_energy(dtape, J_eff, h):
+    """-J_eff sum s s' - h sum s over each ring (symbol 1 = spin +1)."""
+    s = dtape.to(torch.float64) * 2 - 1
+    return -(J_eff * (s * torch.roll(s, -1, dims=1)).sum(1) + h * s.sum(1))
+
+
+def thermo_bytes(dm, kernel, B_, E_, n_tab=0):
+    """Least bytes of one K23 or K24 round: K23 reads every window cell
+    (the rank), K24 the cells the walk reads and those some spec writes
+    (their G); both write the cells some spec writes, read a float32
+    uniform a site for a machine with choose nodes, the tables once and
+    read and write the per-member accumulators."""
+    read, written = k1_source.cell_traffic(dm)
+    n_read = dm.n_cells if kernel == "K23" else len(set(read) | set(written))
+    site = n_read + len(written) + (4 if dm.has_choose else 0)
+    if kernel == "K23":
+        return B_ * E_ * site + 9 * n_tab + B_ * (16 + 8)
+    S = dm.num_specs
+    return B_ * E_ * site + 16 * dm.size_a + B_ * (16 + S * (8 + 16))
+
+
+def thermo_round_against_plain(label, dm, kernel, tapes, E_, per_member,
+                               gen, diff, tabs=None, ledger=None, n=2):
+    """n rounds of K23 or K24 against the plain version on the card, bit
+    for bit (tapes and accumulators). Returns the kernel's state."""
+    pt, dt = (t.to(torch.int8).contiguous() for t in tapes)
+    B_, L_ = pt.shape
+    shifts = torch.randint(-L_, 2 * L_, (n, B_) if per_member else (n,),
+                           generator=gen, device=pt.device,
+                           dtype=torch.int32)
+    u = torch.rand((n, B_, E_), generator=gen, device=pt.device)
+    f64, i32 = torch.float64, torch.int32
+    if kernel == "K23":
+        accs = [torch.zeros(B_, dtype=f64, device=pt.device),
+                torch.zeros(B_, dtype=i32, device=pt.device)]
+    else:
+        S = dm.num_specs
+        accs = [torch.zeros(B_, dtype=f64, device=pt.device),
+                torch.zeros((B_, S), dtype=i32, device=pt.device),
+                torch.zeros((B_, S), dtype=f64, device=pt.device)]
+    k = [pt.clone(), dt.clone()] + [a.clone() for a in accs]
+    p = [pt.clone(), dt.clone()] + [a.clone() for a in accs]
+    for j in range(n):
+        if kernel == "K23":
+            tth.sigma_round(dm, k[0], k[1], shifts[j], E_, u[j], tabs,
+                            *k[2:])
+            tth.sigma_round_plain(dm, p[0], p[1], shifts[j], E_, u[j], tabs,
+                                  *p[2:])
+        else:
+            tth.ledger_round(dm, k[0], k[1], shifts[j], E_, u[j], ledger,
+                             *k[2:])
+            tth.ledger_round_plain(dm, p[0], p[1], shifts[j], E_, u[j],
+                                   ledger, *p[2:])
+    if not diff(kernel, list(zip(k, p))):
+        raise AssertionError(f"{kernel} != plain at {label}")
+    changed = int((k[0] != pt).sum() + (k[1] != dt).sum())
+    say(f"(d) {kernel} {label}: {n} rounds == plain bit for bit "
+        f"({changed} cells changed"
+        + (f", n_irrev {int(k[3].sum())}" if kernel == "K23" else "")
+        + ")")
+    return k
+
+
+def thermo_full_width(dev, gen, machines, t2):
+    """(a): run_ensemble_sigma on ex2 and run_ensemble_ledger on ex4var2
+    at the ensemble's geometry, then each kernel alone."""
+    dm2, dm4 = machines[EX2], machines[EX4V2]
+    tabs2 = tth.device_tables(t2, device=dev)
+    ledger = (torch.as_tensor(TH_G_VEC, device=dev),
+              torch.as_tensor(TH_G_VEC, device=dev), TH_BETA_EFF)
+    out = {}
+    # ex2: sigma, with the ring's Ising energy as its bookkeeping check
+    # (each flip's sigma is -beta dE at J_eff = 2J, h = -0.25).
+    pt2 = torch.zeros((TH_B, TH_L), dtype=torch.int32, device=dev)
+    dt2 = torch.randint(0, 2, (TH_B, TH_L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    (res, la, ms, sec) = thermo_path("a ex2 sigma", lambda: (
+        tth.run_ensemble_sigma(gen, (pt2, dt2), dm2, tabs2,
+                               (TH_ROUNDS, TH_E), device=dev)))
+    (p2f, d2f), sigma, nirr, times = res
+    if la["K23"] != TH_ROUNDS or la["K24"]:
+        raise AssertionError(f"a ex2: launches {la}")
+    book = float((sigma - (ising_energy(dt2, 2.0, -0.25)
+                           - ising_energy(d2f, 2.0, -0.25))).abs().max())
+    if not (book < 1e-8 and int(nirr.sum()) == 0
+            and bool(torch.isfinite(sigma).all()) and torch.equal(p2f, pt2)
+            and int(d2f.min()) >= 0 and int(d2f.max()) <= 1
+            and int((d2f != dt2).sum()) > 0):
+        raise AssertionError(f"a ex2: sigma bookkeeping {book}")
+    out["ex2"] = {"launches": la, "ms": ms, "ms_round": ms / TH_ROUNDS,
+                  "seconds": sec, "book_err": book,
+                  "sigma_mean": float(sigma.mean()),
+                  "flips": int((d2f != dt2).sum())}
+    say(f"(a) ex2 run_ensemble_sigma B={TH_B}, L={TH_L}, E={TH_E}, "
+        f"{TH_ROUNDS} rounds: launches {la}, {ms / TH_ROUNDS:.4f} ms a "
+        f"round (draws included), {sec:.3f} s; |sigma - beta dH| max "
+        f"{book:.3e}; mean sigma {float(sigma.mean()):.4f}")
+    # ex4var2: the ledger from examples/ex4var2_ledger.py's tape mix.
+    pt4 = draw_symbols(gen, [6, 7, 8, 9], [0.45, 0.05, 0.42, 0.08],
+                       (TH_B, TH_L), dev)
+    dt4 = draw_symbols(gen, [0, 4, 5], [0.08, 0.46, 0.46], (TH_B, TH_L), dev)
+    phi0 = tth.tape_potential(pt4, dt4, TH_G_VEC, TH_G_VEC, TH_BETA_EFF)
+    (res, la, ms, sec) = thermo_path("a ex4var2 ledger", lambda: (
+        tth.run_ensemble_ledger(gen, (pt4, dt4), dm4, ledger,
+                                (TH_ROUNDS, TH_E), device=dev)))
+    (p4f, d4f), sig4, (counts, spec_sig), _ = res
+    if la["K24"] != TH_ROUNDS or la["K23"]:
+        raise AssertionError(f"a ex4var2: launches {la}")
+    phiT = tth.tape_potential(p4f, d4f, TH_G_VEC, TH_G_VEC, TH_BETA_EFF)
+    book4 = float((sig4 - (phi0 - phiT)).abs().max())
+    decomp = float((spec_sig.sum(1) - sig4).abs().max())
+    if not (book4 < 1e-8 and decomp < 1e-8
+            and bool((counts.sum(1) == TH_ROUNDS * TH_E).all())
+            and float(sig4.abs().max()) > 0):
+        raise AssertionError(f"a ex4var2: bookkeeping {book4}, {decomp}")
+    out["ex4var2"] = {"launches": la, "ms": ms, "ms_round": ms / TH_ROUNDS,
+                      "seconds": sec, "book_err": book4,
+                      "decomp_err": decomp,
+                      "sigma_mean": float(sig4.mean())}
+    say(f"(a) ex4var2 run_ensemble_ledger at the same geometry: launches "
+        f"{la}, {ms / TH_ROUNDS:.4f} ms a round, {sec:.3f} s; |sigma - "
+        f"(Phi(0) - Phi(T))| max {book4:.3e}, decomposition {decomp:.3e}; "
+        f"mean sigma {float(sig4.mean()):.4f}; counts sum to rounds x E")
+    # Each kernel alone on the runs' final tapes, beside K11's round
+    # without the sums, its bound and its plain version.
+    times = {}
+    for kernel, dm, pt, dt, extra in (
+            ("K23", dm2, p2f, d2f, t2.sigma.size),
+            ("K24", dm4, p4f, d4f, 0)):
+        p8, d8 = pt.to(torch.int8), dt.to(torch.int8)
+        u = torch.rand((TH_B, TH_E), generator=gen, device=dev)
+        sh = torch.randint(0, TH_L, (1,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        f64 = torch.float64
+        if kernel == "K23":
+            accs = (torch.zeros(TH_B, dtype=f64, device=dev),
+                    torch.zeros(TH_B, dtype=torch.int32, device=dev))
+            run = (lambda: tth.sigma_round(dm, p8, d8, sh, TH_E, u, tabs2,
+                                           *accs))
+            plain = (lambda: tth.sigma_round_plain(dm, p8, d8, sh, TH_E, u,
+                                                   tabs2, *accs))
+        else:
+            S = dm.num_specs
+            accs = (torch.zeros(TH_B, dtype=f64, device=dev),
+                    torch.zeros((TH_B, S), dtype=torch.int32, device=dev),
+                    torch.zeros((TH_B, S), dtype=f64, device=dev))
+            run = (lambda: tth.ledger_round(dm, p8, d8, sh, TH_E, u, ledger,
+                                            *accs))
+            plain = (lambda: tth.ledger_round_plain(dm, p8, d8, sh, TH_E, u,
+                                                    ledger, *accs))
+        ms_k = cuda_ms(run, 20)
+        ms_p = cuda_ms(plain, 2, warmup=1)
+        ms_11 = cuda_ms(lambda: ens.lattice_round(dm, p8, d8, sh, TH_E, u),
+                        20)
+        by = thermo_bytes(dm, kernel, TH_B, TH_E, extra)
+        times[kernel] = {"ms": ms_k, "plain_ms": ms_p, "k11_ms": ms_11,
+                         "bound_ms": by / HBM_BYTES_PER_S * 1e3,
+                         "bound_by": "bytes", "library_ms": None,
+                         "bytes": by}
+        t = times[kernel]
+        say(f"{kernel} alone ({dm.tag}, B={TH_B}, L={TH_L}, E={TH_E}): "
+            f"{ms_k:.4f} ms a round against a bound of "
+            f"{t['bound_ms']:.4f} ms ({by / 1e6:.2f} MB, bytes; "
+            f"{t['bound_ms'] / ms_k:.4f} of it); plain {ms_p:.3f} ms; K11's "
+            f"round without the sums {ms_11:.4f} ms; library: none")
+        del p8, d8, u, accs
+    del pt2, dt2, p2f, d2f, pt4, dt4, p4f, d4f, counts, spec_sig
+    torch.cuda.empty_cache()
+    return out, times
+
+
+def entropy_example(dev, gen, dm2, t2):
+    """(b): the ensemble side of examples/ex2_entropy_production.py at
+    its geometry through the port's generator, held to the gates of
+    tests/test_thermo.py:432 (z < 6 at every snapshot against the exact
+    kernel's expectation, the IFT within 6 se, mean sig_tot > 0)."""
+    import scipy.sparse as sp
+
+    Lr, a, cl_k, Bm = EP["L"], dm2.size_a, EP["cl_k"], EP["B"]
+    spd = np.full((a,) * cl_k, 1.0 / a**cl_k)
+    Q = tmaster.build_ring_generator(EX2, Lr)
+    S = a**Lr
+    K = (sp.identity(S) + Q / Lr).tocsr()
+    p0_states = tmaster.ring_trace_measure(spd, a, cl_k, Lr)
+    digits = tmaster._ring_digits(Lr, a)
+
+    def window_marginals(p):
+        pw = np.zeros(t2.num_windows)
+        for i in range(Lr):
+            wr = np.zeros(S, dtype=np.int64)
+            for off in range(dm2.d_lo, dm2.d_lo + dm2.n_d):
+                wr = wr * a + digits[:, (i + off) % Lr]
+            for pd in range(a**dm2.n_p):
+                np.add.at(pw, pd * (a**dm2.n_d) + wr, p / (a**dm2.n_p))
+        return pw / Lr
+
+    p, acc, exp_cum = p0_states.copy(), 0.0, [0.0]
+    for _ in range(EP["snaps"]):
+        for _ in range(EP["rounds_per_snap"]):
+            rate, _ = tth.medium_entropy_rate_from_window_probs(
+                window_marginals(p), t2)
+            acc += rate * EP["E"]
+            p = K @ p
+        exp_cum.append(acc)
+    exp_cum = np.asarray(exp_cum)
+    tabs = tth.device_tables(t2, device=dev)
+    dtape = ens.sample_tapes_from_spd(gen, spd, a, cl_k, Bm, Lr, ring=True,
+                                      device=dev)
+    ptape = torch.zeros_like(dtape)
+    pows = torch.tensor([a ** (Lr - 1 - j) for j in range(Lr)],
+                        dtype=torch.int64, device=dev)
+
+    def ranks(tape):
+        return (tape.to(torch.int64) * pows).sum(1).cpu().numpy()
+
+    ln_p0 = np.log(p0_states[ranks(dtape)])
+
+    def run():
+        sig = torch.zeros(Bm, dtype=torch.float64, device=dev)
+        pt, dt_ = ptape, dtape
+        mean, se, nirr = [0.0], [0.0], 0
+        for _ in range(EP["snaps"]):
+            (pt, dt_), ds, ni, _ = tth.run_ensemble_sigma(
+                gen, (pt, dt_), dm2, tabs, (EP["rounds_per_snap"], EP["E"]),
+                independent_sites=True, device=dev)
+            sig = sig + ds
+            nirr += int(ni.sum())
+            mean.append(float(sig.mean()))
+            se.append(float(sig.std(correction=0)) / math.sqrt(Bm))
+        return sig, dt_, np.asarray(mean), np.asarray(se), nirr
+
+    (sig, dtf, mean, se, nirr), la, ms, sec = thermo_path("b", run)
+    rounds = EP["snaps"] * EP["rounds_per_snap"]
+    if la["K23"] != rounds or nirr:
+        raise AssertionError(f"b: launches {la}, n_irrev {nirr}")
+    z = np.abs(mean[1:] - exp_cum[1:]) / np.maximum(se[1:], 1e-12)
+    sig_tot = (sig.cpu().numpy() + ln_p0
+               - np.log(np.maximum(p[ranks(dtf)], 1e-300)))
+    ift = np.exp(-sig_tot)
+    ift_mean, ift_se = float(ift.mean()), float(ift.std() / math.sqrt(Bm))
+    say(f"(b) ex2_entropy_production's ensemble (B={Bm}, L={Lr}, E=1, "
+        f"{EP['snaps']} snapshots of {EP['rounds_per_snap']} rounds, "
+        f"independent sites): launches {la}, {ms:.1f} ms; final cum sigma "
+        f"{mean[-1]:.4f} +- {se[-1]:.4f} against {exp_cum[-1]:.4f}; "
+        f"max z {float(z.max()):.3f}; IFT {ift_mean:.4f} +- {ift_se:.4f}; "
+        f"mean sig_tot {float(sig_tot.mean()):.4f}")
+    if not (float(z.max()) < Z_GATE and abs(ift_mean - 1.0) < 6 * ift_se
+            and float(sig_tot.mean()) > 0.0):
+        raise AssertionError("b: the entropy-production gates fail")
+    return {"z_max": float(z.max()), "cum_mean": mean[-1],
+            "exp_cum": float(exp_cum[-1]), "ift_mean": ift_mean,
+            "ift_se": ift_se, "sig_tot_mean": float(sig_tot.mean()),
+            "launches": la, "ms": ms, "seconds": sec}
+
+
+def ledger_example(dev, gen, dm4):
+    """(c): examples/ex4var2_ledger.py's ensemble panel (K24, 16 calls)
+    and its dual panel (cl_k 3 through the card's dense dual RHS), held
+    to the claims of tests/test_thermo.py:387 and the dual trajectory to
+    examples/ex4var2_ledger_dual.npz."""
+    Bm, Lr, Er = LG["B"], LG["L"], LG["E"]
+    ledger = (TH_G_VEC, TH_G_VEC, TH_BETA_EFF)
+    pt0 = draw_symbols(gen, [6, 7, 8, 9], [0.45, 0.05, 0.42, 0.08], (Bm, Lr),
+                       dev)
+    dt0 = draw_symbols(gen, [0, 4, 5], [0.08, 0.46, 0.46], (Bm, Lr), dev)
+    phi0 = tth.tape_potential(pt0, dt0, *ledger)
+
+    def run():
+        S = dm4.num_specs
+        sig = torch.zeros(Bm, dtype=torch.float64, device=dev)
+        counts = torch.zeros((Bm, S), dtype=torch.int64, device=dev)
+        spec_sig = torch.zeros((Bm, S), dtype=torch.float64, device=dev)
+        pt, dt_ = pt0, dt0
+        for _ in range(LG["chunks"]):
+            (pt, dt_), ds, (dc, dss), _ = tth.run_ensemble_ledger(
+                gen, (pt, dt_), dm4, ledger,
+                (LG["rounds"] // LG["chunks"], Er), device=dev)
+            sig += ds
+            counts += dc
+            spec_sig += dss
+        return pt, dt_, sig, counts, spec_sig
+
+    (pt, dt_, sig, counts, spec_sig), la, ms, sec = thermo_path("c", run)
+    if la["K24"] != LG["rounds"]:
+        raise AssertionError(f"c: launches {la}")
+    phiT = tth.tape_potential(pt, dt_, *ledger)
+    book = float((sig - (phi0 - phiT)).abs().max())
+    decomp = float((spec_sig.sum(1) - sig).abs().max())
+    counts = counts.cpu().numpy()
+    tot_counts = counts.sum(0)
+    sigma_spec = np.where(tot_counts > 0, spec_sig.sum(0).cpu().numpy()
+                          / np.maximum(tot_counts, 1), 0.0)
+    mask, val = tth._machine_write_specs(dm4)
+    advance = np.array([any(mask[s, c] and TH_SYMS[val[s, c]] == "X"
+                            for c in range(dm4.n_p))
+                        for s in range(dm4.num_specs)])
+    adv = advance & (tot_counts > 0)
+    prev = {"B": "A", "C": "B", "D": "C"}
+    strokes = []
+    for s in np.flatnonzero(adv):
+        nxt = TH_SYMS[val[s, dm4.n_p + 1 - dm4.d_lo]]
+        want = TH_BETA_EFF * ((TH_G["P"] - TH_G["X"]) + TH_G[prev[nxt]]
+                              - TH_G[nxt])
+        strokes.append((nxt, float(sigma_spec[s]), want))
+    if not (book < 1e-8 and decomp < 1e-8 and adv.any()
+            and all(abs(g - w) < 1e-9 and min(abs(g - 12.0), abs(g - 7.0))
+                    < 1e-9 for _, g, w in strokes)):
+        raise AssertionError(f"c: book {book}, decomp {decomp}, strokes "
+                             f"{strokes}")
+    say(f"(c) ex4var2_ledger's ensemble (B={Bm}, L={Lr}, E={Er}, "
+        f"{LG['rounds']} rounds in {LG['chunks']} calls): launches {la}, "
+        f"{ms:.1f} ms; book_err {book:.3e}, decomp_err {decomp:.3e}; "
+        f"{int(counts[:, adv].sum())} fuel strokes of {int(counts.sum())} "
+        f"events at {sorted({round(g, 6) for _, g, _ in strokes})} nats")
+    # The dual panel through the card's dense dual RHS (K3, K5).
+    cl_k, a = LG["dual_cl_k"], dm4.size_a
+    dual = tdense.compile_dense_dual(EX4V2, cl_k)
+    fn = tdense.make_dense_dy_dt(dual, jit=False, device=dev)
+    p0 = chemical_turing_v2_p0(cl_k).ravel()
+    ts = np.concatenate([[0.0], np.geomspace(0.1, 2000.0, 40)])
+    t0 = time.perf_counter()
+    ys = solve(lambda y, t: fn(y), np.concatenate([p0, p0]), ts,
+               rtol=1e-10, atol=1e-13, device=dev)
+    solve_s = time.perf_counter() - t0
+    ref = np.load(EXAMPLES / "ex4var2_ledger_dual.npz")
+    dual_err = float(np.abs(ys - ref["ode_ys"]).max())
+    half = a**cl_k
+
+    def mean_g(spd):
+        return float(spd.reshape((a,) * cl_k).sum(axis=(1, 2)) @ TH_G_VEC)
+
+    def entropy(spd):
+        return float(tmarkov.markov_entropy(spd.reshape((a,) * cl_k)))
+
+    gsum = np.array([mean_g(y[:half]) + mean_g(y[half:]) for y in ys])
+    s_sum = np.array([entropy(y[:half]) + entropy(y[half:]) for y in ys])
+    heat = TH_BETA_EFF * (gsum[0] - gsum)
+    dS = s_sum - s_sum[0]
+    F = TH_BETA_EFF * gsum - s_sum
+    w = np.exp(-TH_BETA_EFF * TH_G_VEC)
+    p1 = w / w.sum()
+    gb = p1
+    for _ in range(cl_k - 1):
+        gb = np.multiply.outer(gb, p1)
+    gb = gb.ravel()
+    F_gibbs = TH_BETA_EFF * 2 * mean_g(gb) - 2 * entropy(gb)
+    gibbs_res = float(fn(np.concatenate([gb, gb])).abs().max())
+    say(f"(c) dual panel (cl_k {cl_k}, {len(ts)} samples, card RHS): solve "
+        f"{solve_s:.3f} s, max |y - ex4var2_ledger_dual.npz| {dual_err:.3e}; "
+        f"F {F[0]:.4f} -> {F[-1]:.4f} (F_gibbs {F_gibbs:.4f}), max dF "
+        f"{float(np.diff(F).max()):.3e}; gibbs_res {gibbs_res:.3e}; heat "
+        f"{heat[-1]:.4f}, dS {dS[-1]:.4f}")
+    if not (dual_err < DUAL_ABS and gibbs_res < 1e-8
+            and (np.diff(F) <= 1e-9).all() and F[-1] >= F_gibbs - 1e-9
+            and heat[-1] > 0 and heat[-1] > dS[-1]):
+        raise AssertionError("c: the dual panel's claims fail")
+    return {"book_err": book, "decomp_err": decomp, "strokes": strokes,
+            "launches": la, "ms": ms, "seconds": sec, "dual_err": dual_err,
+            "gibbs_res": gibbs_res, "solve_s": solve_s}
+
+
+def closure_example(dev):
+    """(e): examples/ex2_closure_error.py's computation through the
+    port's closure on the card's RHS and on the CPU: the card's rows
+    within rtol 1e-8, atol 1e-14 of the CPU's and within
+    CE_ARTIFACT_ATOL of the committed npz; the example's gates."""
+    k, ts = CE["cl_k"], CE["ts"]
+
+    def rows(d):
+        fns, ps = [], []
+        for kk in (k, k + 1):
+            fn = trhs.make_dy_dt(tcompile.compile_problem(EX2, kk), device=d)
+            fns.append(fn)
+            ps.append(solve(lambda y, t, fn=fn: fn(y),
+                            ferromagnet_p0(kk, p_pair=1 / 250).ravel(), ts,
+                            rtol=1e-11, atol=1e-14, device=d))
+        nus, integ = tclosure.integrate_defect(
+            EX2, k, ts, ps[0], compiled_pair=(fns[0], fns[1], 2))
+        gaps = np.array([np.abs(ps[1][i].reshape((2,) * (k + 1)).sum(-1)
+                                .ravel() - ps[0][i]).sum()
+                         for i in range(len(ts))])
+        return np.stack([nus, integ, gaps])
+
+    t0 = time.perf_counter()
+    card = rows(dev)
+    card_s = time.perf_counter() - t0
+    cpu = rows(torch.device("cpu"))
+    art = np.load(EXAMPLES / "ex2_closure_error.npz")["rows"]
+    err_cpu = float((np.abs(card - cpu)
+                     / (1e-14 + 1e-8 * np.abs(cpu))).max())
+    err_art = float(np.abs(card - art).max())
+    ratio = card[1, 1:] / card[2, 1:]
+    say(f"(e) ex2_closure_error (cl_k 3 and 4, {len(ts)} samples): card "
+        f"{card_s:.2f} s; card against CPU {err_cpu:.3f} of rtol 1e-8 + "
+        f"atol 1e-14; max |card - npz| {err_art:.3e} (held to "
+        f"{CE_ARTIFACT_ATOL}); integral/gap {ratio.min():.2f}-"
+        f"{ratio.max():.2f}")
+    if not (err_cpu <= 1.0 and err_art < CE_ARTIFACT_ATOL
+            and (ratio >= 1.0).all() and (ratio <= 10.0).all()):
+        raise AssertionError("e: the closure-error rows fail")
+    return {"card_s": card_s, "err_cpu": err_cpu, "err_artifact": err_art,
+            "ratio": [float(ratio.min()), float(ratio.max())]}
+
+
+def thermo_phase(dev, kernels, machines):
+    """Phase 13 (module docstring)."""
+    gen = torch.Generator(device=dev).manual_seed(1313)
+    max_err = {k: 0 for k in TH_KERNELS}
+
+    def diff(name, pairs):
+        err = max(float((a.double() - b.double()).abs().max())
+                  if a.numel() else 0.0 for a, b in pairs)
+        max_err[name] = max(max_err[name], err)
+        return all(torch.equal(a, b) for a, b in pairs)
+
+    dm2, dm4 = machines[EX2], machines[EX4V2]
+    t2 = tth.sigma_spec_tables(dm2)
+    paths, times = thermo_full_width(dev, gen, machines, t2)
+    paths["b"] = entropy_example(dev, gen, dm2, t2)
+    paths["c"] = ledger_example(dev, gen, dm4)
+
+    # (d) each kernel against its plain version at shared and per-member
+    # shifts, E 1 and 256, on ex2, ex4var2 and ex4 (irreversible).
+    t0 = time.perf_counter()
+    t4 = tth.sigma_spec_tables(machines[EX4])
+    build_s = time.perf_counter() - t0
+    say(f"(d) ex4-chemical-turing's tables ({t4.num_windows} windows x "
+        f"{machines[EX4].num_specs} specs, {int(t4.irrev.sum())} "
+        f"irreversible) built in {build_s:.1f} s on the host")
+    ledger = (torch.as_tensor(TH_G_VEC, device=dev),
+              torch.as_tensor(TH_G_VEC, device=dev), TH_BETA_EFF)
+    g2 = (torch.tensor([0.3, -0.7], dtype=torch.float64, device=dev),
+          torch.tensor([-1.1, 0.45], dtype=torch.float64, device=dev), 1.5)
+    Bd = TH_BD
+    for E_ in (1, TH_E):
+        for per_member in (False, True):
+            where = f"E={E_}, {'per-member' if per_member else 'shared'}"
+            tapes2 = (torch.randint(0, 2, (Bd, TH_L), generator=gen,
+                                    device=dev),) * 2
+            thermo_round_against_plain(
+                f"ex2 {where}", dm2, "K23", tapes2, E_, per_member, gen,
+                diff, tabs=tth.device_tables(t2, device=dev))
+            p_sym, d_sym = ACTIVE_SYMBOLS[EX4]
+            tapes4 = (draw_symbols(gen, list(p_sym), [1 / len(p_sym)]
+                                   * len(p_sym), (Bd, TH_L), dev),
+                      draw_symbols(gen, list(d_sym), [1 / len(d_sym)]
+                                   * len(d_sym), (Bd, TH_L), dev))
+            k = thermo_round_against_plain(
+                f"ex4 {where}", machines[EX4], "K23", tapes4, E_,
+                per_member, gen, diff,
+                tabs=tth.device_tables(t4, device=dev), n=4)
+            if E_ > 1 and int(k[3].sum()) == 0:
+                raise AssertionError("(d) ex4: no irreversible event")
+            tapes_v2 = (draw_symbols(gen, [6, 7, 8, 9], [0.4, 0.3, 0.2, 0.1],
+                                     (Bd, TH_L), dev),
+                        draw_symbols(gen, [0, 1, 2, 3, 4, 5],
+                                     [0.1, 0.1, 0.1, 0.1, 0.3, 0.3],
+                                     (Bd, TH_L), dev))
+            thermo_round_against_plain(
+                f"ex4var2 {where}", dm4, "K24", tapes_v2, E_, per_member,
+                gen, diff, ledger=ledger)
+            thermo_round_against_plain(
+                f"ex2 {where}", dm2, "K24", tapes2, E_, per_member, gen,
+                diff, ledger=g2)
+    del t4
+    paths["e"] = closure_example(dev)
+    shapes = {"K23": f"{EX2}, int8 [{TH_B}, {TH_L}] x2, E={TH_E}",
+              "K24": f"{EX4V2}, int8 [{TH_B}, {TH_L}] x2, E={TH_E}"}
+    for k, (name, src, replaces) in TH_KERNELS.items():
+        t = times[k]
+        main = paths["ex2" if k == "K23" else "ex4var2"]
+        kernels[k] = {
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": main["launches"][k],
+            "max_abs_err": max_err[k], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shape": shapes[k],
+            "k11_ms": t["k11_ms"], "run_ms_per_round": main["ms_round"],
+            "detail": t}
+    kernels["K23"]["paths"] = paths
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -4631,7 +5206,7 @@ def main(dev=None):
 
     with Phase("2 build"):
         machines = {tag: ens.compile_decision_machine(tag)
-                    for tag in TAGS + LATTICE_TAGS
+                    for tag in TAGS + LATTICE_TAGS + [EX4V2]
                     + [register_fuzz(0, 2, True)]}
         jobs = {"K2-K10, K12, K13, K15 (csrc/*.cu)": cuda.build,
                 "expander (csrc/expander.cc, g++)": native.build}
@@ -4995,6 +5570,9 @@ def main(dev=None):
 
     with Phase("12 the weighted frontier (K19-K22, K11's tempered rounds)"):
         frontier_phase(dev, kernels)
+
+    with Phase("13 thermodynamics (K23, K24) and the host instruments"):
+        thermo_phase(dev, kernels, machines)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -615,17 +615,17 @@ def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
 # --- (i) what is not ported raises --------------------------------------------------
 
 
-def test_unported_exact_paths_raise(monkeypatch):
-    """The stiff stepper kvaerno3 and the scipy names that map onto it,
-    and the debug dump, raise NotImplementedError naming ROADMAP Queue 1
-    item 4; pruned programs, ``with_mass``, dopri5 (default routing at
+def test_unported_exact_paths_raise(monkeypatch, capsys):
+    """The stiff stepper kvaerno3 and the scipy names that map onto it
+    raise NotImplementedError naming ROADMAP Queue 1 item 4; pruned programs, ``with_mass``, dopri5 (default routing at
     loose tolerances) and dop853-step, ported since, do not
     (`tests/test_torch_pruned.py`, `tests/test_torch_solvers.py`), nor
     do the gather engines and chunked or checkpointed solves
     (`tests/test_torch_gather.py`). ``with_mass`` on a program with no
-    mass tables raises the JAX package's ValueError. The dump raises
-    only where the reference would dump (`IS_DEBUG`); without the flag
-    ``debug=True`` gives the JAX package's dp/dt."""
+    mass tables raises the JAX package's ValueError. ``debug=True``
+    gives the JAX package's dp/dt, and where the reference dumps its
+    worlds (`IS_DEBUG`, ported since) the port prints the JAX package's
+    dump line for line."""
     pruned = tdense.compile_dense("ex4-chemical-turing", 3,
                                   prune_threshold=1e-3)
     assert pruned.pruned and pruned.m_num is not None
@@ -653,8 +653,15 @@ def test_unported_exact_paths_raise(monkeypatch):
         t_markov_tapes.get_dy_dt(**kw, device="cpu")(y0, 0.0),
         j_markov_tapes.get_dy_dt(**kw)(y0, 0.0), rtol=1e-12, atol=1e-14)
     monkeypatch.setattr(t_markov_tapes, "IS_DEBUG", True)
-    with pytest.raises(NotImplementedError, match="Host instruments"):
-        t_markov_tapes.get_dy_dt(**kw, device="cpu")
+    monkeypatch.setattr(j_markov_tapes, "IS_DEBUG", True)
+    capsys.readouterr()
+    got = t_markov_tapes.get_dy_dt(**kw, device="cpu")(y0, 0.5)
+    t_out = capsys.readouterr().out
+    want = j_markov_tapes.get_dy_dt(**kw)(y0, 0.5)
+    j_out = capsys.readouterr().out
+    assert t_out.count("p_world=") > 4
+    assert t_out == j_out
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
 
 
 @pytest.mark.parametrize("name,value", [

@@ -39,6 +39,7 @@ from chemical_kinetics_and_program_execution_torch.models.initial_states import 
 )
 from chemical_kinetics_and_program_execution_torch.ode import dop853, dopri5
 from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
+from chemical_kinetics_and_program_execution_torch.ops import thermo
 
 pytestmark = pytest.mark.gpu
 
@@ -1493,3 +1494,160 @@ def test_blocked_frontier_on_card_runs_kernels(cuda):
     assert tfr.frontier_step.launches == n22 + 20
     assert [f.calls for f in plain] == before
     assert abs(float(torch.logsumexp(lw3, 0))) < 1e-12
+
+
+# --- K23 and K24: the thermodynamic rounds ---------------------------------------
+
+_THERMO_TABLES = {}
+
+
+def _thermo_tables(tag, device):
+    if tag not in _THERMO_TABLES:
+        dm = tens.compile_decision_machine(tag)
+        _THERMO_TABLES[tag] = (dm, thermo.sigma_spec_tables(dm))
+    dm, t = _THERMO_TABLES[tag]
+    return dm, t, thermo.device_tables(t, device=device)
+
+
+def _thermo_start(rng, tag, B, L, odd=False):
+    """Tapes of the tag's mix; with ``odd`` a tenth of the cells hold
+    symbols outside [0, size_a)."""
+    pt, dt = _thermo_mix(rng, tag, B, L)
+    if odd:
+        size_a = tens.compile_decision_machine(tag).size_a
+        for t in (pt, dt):
+            pick = rng.rand(B, L) < 0.1
+            t[pick] = rng.randint(-3, size_a + 3, int(pick.sum()))
+    return pt, dt
+
+
+def _thermo_mix(rng, tag, B, L):
+    if tag == "ex4var2-chemical-turing":
+        pt = rng.choice([6, 7, 8, 9], (B, L), p=[0.4, 0.3, 0.2, 0.1])
+        dt = rng.choice(6, (B, L), p=[0.1, 0.1, 0.1, 0.1, 0.3, 0.3])
+    elif tag == "ex3-copolymerization":
+        pt = rng.choice(4, (B, L), p=[0.7, 0.1, 0.1, 0.1])
+        dt = rng.choice(4, (B, L), p=[0.6, 0.2, 0.1, 0.1])
+    else:
+        pt = rng.randint(0, 2, (B, L))
+        dt = rng.randint(0, 2, (B, L))
+    return pt.astype(np.int32), dt.astype(np.int32)
+
+
+def _thermo_draws(rng, B, L, E, n, per_member):
+    shifts = rng.randint(-L, 2 * L, (n, B) if per_member else n)
+    return (torch.as_tensor(shifts.astype(np.int32)),
+            torch.as_tensor(rng.rand(n, B, E).astype(np.float32)))
+
+
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("tag,L,E", [("ex2-ferromagnetic-chain", 512, 1),
+                                     ("ex2-ferromagnetic-chain", 512, 64),
+                                     ("ex3-copolymerization", 1024, 32)])
+def test_sigma_round_kernel_matches_plain(cuda, tag, L, E, per_member):
+    """K23 and its plain version, both on the card, round by round (a
+    tenth of the cells outside [0, size_a)): tapes, sigma and n_irrev
+    bit for bit; the from-draws run on the card equals
+    the CPU's (plain versions) bit for bit; ex3 counts irreversible
+    events."""
+    dm, _, tabs = _thermo_tables(tag, cuda)
+    rng = np.random.RandomState(23)
+    B, n = 333, 8
+    pt, dt = _thermo_start(rng, tag, B, L, odd=True)
+    shifts, u = _thermo_draws(rng, B, L, E, n, per_member)
+    start = [torch.as_tensor(x, device=cuda).to(torch.int8) for x in (pt, dt)]
+    k = [x.clone() for x in start] + [
+        torch.zeros(B, dtype=torch.float64, device=cuda),
+        torch.zeros(B, dtype=torch.int32, device=cuda)]
+    p = [x.clone() for x in k]
+    s_t, u_t = shifts.to(cuda), u.to(cuda)
+    launches = thermo.sigma_round.launches
+    for j in range(n):
+        thermo.sigma_round(dm, k[0], k[1], s_t[j], E, u_t[j], tabs, k[2],
+                           k[3])
+        thermo.sigma_round_plain(dm, p[0], p[1], s_t[j], E, u_t[j], tabs,
+                                 p[2], p[3])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, p)), j
+    assert thermo.sigma_round.launches == launches + n
+    run = thermo.run_ensemble_sigma_from_draws((pt, dt), dm, tabs, s_t, E,
+                                               u_t, device=cuda)
+    cpu = thermo.run_ensemble_sigma_from_draws(
+        (pt, dt), dm, thermo.device_tables(_THERMO_TABLES[tag][1], "cpu"),
+        shifts, E, u, device="cpu")
+    for a, b in zip((*run[0], *run[1:3]), (*cpu[0], *cpu[1:3])):
+        assert torch.equal(a.cpu(), b)
+    assert torch.equal(run[0][0].cpu(), k[0].cpu().to(torch.int32))
+    if tag == "ex3-copolymerization":
+        assert int(k[3].sum()) > 0 and not k[2].any()
+
+
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("tag,L,E", [("ex4var2-chemical-turing", 1024, 1),
+                                     ("ex4var2-chemical-turing", 1024, 64),
+                                     ("ex2-ferromagnetic-chain", 256, 32)])
+def test_ledger_round_kernel_matches_plain(cuda, tag, L, E, per_member):
+    """K24 and its plain version, both on the card, round by round (a
+    tenth of the cells outside [0, size_a)): tapes, sigma, counts and
+    spec_sig bit for bit; the from-draws run on the
+    card equals the CPU's bit for bit."""
+    dm = tens.compile_decision_machine(tag)
+    rng = np.random.RandomState(24)
+    B, n, S = 333, 8, dm.num_specs
+    g = (rng.randn(dm.size_a), rng.randn(dm.size_a), 1.7)
+    pt, dt = _thermo_start(rng, tag, B, L, odd=True)
+    shifts, u = _thermo_draws(rng, B, L, E, n, per_member)
+    start = [torch.as_tensor(x, device=cuda).to(torch.int8) for x in (pt, dt)]
+    k = [x.clone() for x in start] + [
+        torch.zeros(B, dtype=torch.float64, device=cuda),
+        torch.zeros((B, S), dtype=torch.int32, device=cuda),
+        torch.zeros((B, S), dtype=torch.float64, device=cuda)]
+    p = [x.clone() for x in k]
+    s_t, u_t = shifts.to(cuda), u.to(cuda)
+    g_t = (torch.as_tensor(g[0], device=cuda),
+           torch.as_tensor(g[1], device=cuda), g[2])
+    launches = thermo.ledger_round.launches
+    for j in range(n):
+        thermo.ledger_round(dm, k[0], k[1], s_t[j], E, u_t[j], g, *k[2:])
+        thermo.ledger_round_plain(dm, p[0], p[1], s_t[j], E, u_t[j], g_t,
+                                  *p[2:])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(k, p)), j
+    assert thermo.ledger_round.launches == launches + n
+    assert int(k[3].sum()) == B * E * n and k[2].abs().max() > 0
+    run = thermo.run_ensemble_ledger_from_draws((pt, dt), dm, g, s_t, E, u_t,
+                                                device=cuda)
+    cpu = thermo.run_ensemble_ledger_from_draws((pt, dt), dm, g, shifts, E,
+                                                u, device="cpu")
+    for a, b in zip((*run[0], run[1], *run[2]), (*cpu[0], cpu[1], *cpu[2])):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_thermo_runs_on_card_launch_kernels(cuda):
+    """`run_ensemble_sigma` and `run_ensemble_ledger` on the card launch
+    K23 and K24 once a round and call no plain version; the ledger keeps
+    its bookkeeping identity."""
+    dm, _, tabs = _thermo_tables("ex2-ferromagnetic-chain", cuda)
+    rng = np.random.RandomState(25)
+    tapes = _thermo_start(rng, "ex2-ferromagnetic-chain", 512, 256)
+    before = (thermo.sigma_round_plain.calls, thermo.ledger_round_plain.calls)
+    n23, n24 = thermo.sigma_round.launches, thermo.ledger_round.launches
+    (pt, dt), sigma, nirr, times = thermo.run_ensemble_sigma(
+        3, tapes, dm, tabs, (20, 16), independent_sites=True)
+    assert thermo.sigma_round.launches == n23 + 20
+    assert sigma.device.type == "cuda" and int(nirr.sum()) == 0
+    dm4 = tens.compile_decision_machine("ex4var2-chemical-turing")
+    g = np.array([-1.0, -1.0, -1.0, 1.5, 0.0, 0.0, 6.0, 0.0, 0.0, 1.0])
+    tapes = _thermo_start(rng, "ex4var2-chemical-turing", 512, 256)
+    phi0 = thermo.tape_potential(torch.as_tensor(tapes[0], device=cuda),
+                                 torch.as_tensor(tapes[1], device=cuda), g,
+                                 g, 2.0)
+    (pt, dt), sigma, (counts, spec_sig), _ = thermo.run_ensemble_ledger(
+        4, tapes, dm4, (g, g, 2.0), (30, 8))
+    assert thermo.ledger_round.launches == n24 + 30
+    assert (thermo.sigma_round_plain.calls,
+            thermo.ledger_round_plain.calls) == before
+    phi_t = thermo.tape_potential(pt, dt, g, g, 2.0)
+    assert float((sigma - (phi0 - phi_t)).abs().max()) < 1e-9
+    assert (counts.sum(dim=1) == 30 * 8).all()
+    assert float((spec_sig.sum(dim=1) - sigma).abs().max()) < 1e-9
