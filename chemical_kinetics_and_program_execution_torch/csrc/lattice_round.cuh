@@ -56,10 +56,13 @@ K1_FN int k11_col(long long a, int L) {
 #endif
 
 // One site on member rows prow, drow of length L, at base = shift +
-// e*stride, with uniform u; in a tempered unit, with lp non-null, the
-// walk adds the site's increments to *lp.
-K1_FN void k11_site(int8_t* prow, int8_t* drow, int L, long long base,
-                    double u, float* lp = nullptr) {
+// e*stride, with uniform u; returns the fired spec. In a tempered unit,
+// with lp non-null, the walk adds the site's increments to *lp; with
+// c_out and y_out non-null, the site's cells before and after its writes
+// go there (K23's and K24's sums read them).
+K1_FN int k11_site(int8_t* prow, int8_t* drow, int L, long long base,
+                   double u, float* lp = nullptr, int* c_out = nullptr,
+                   int* y_out = nullptr) {
   int col[K1_N_CELLS];
   int c[K1_N_CELLS];
 #pragma unroll
@@ -77,11 +80,17 @@ K1_FN void k11_site(int8_t* prow, int8_t* drow, int L, long long base,
 #endif
 #pragma unroll
   for (int k = 0; k < K1_N_CELLS; ++k) {
+    if (c_out) c_out[k] = c[k];
+    if (y_out) y_out[k] = c[k];
     if (!k1_written(k)) continue;
     const uint32_t x = (uint8_t)c[k];
     const uint32_t y = k1_write_lanes(k, spec, x) & 0xffu;
-    if (y != x) (k < K1_N_P ? prow : drow)[col[k]] = (int8_t)(uint8_t)y;
+    if (y != x) {
+      (k < K1_N_P ? prow : drow)[col[k]] = (int8_t)(uint8_t)y;
+      if (y_out) y_out[k] = (int)(int8_t)(uint8_t)y;
+    }
   }
+  return (int)spec;
 }
 
 // Site t = b*E + e of a round.

@@ -10,10 +10,11 @@
 // versions: `ops/thermo.py:sigma_round_plain`, `ledger_round_plain`.
 //
 // Sources. The generated unit of a machine (`engine/k1_source.py`)
-// includes this file after `lattice_round.cuh`, so a site is addressed
-// by K11's `k11_col` and walked by K1's exact walk (`k1_walk_exact`) and
-// writes (`k1_write_lanes`): the same draws land on the same cells as in
-// K11 and in the reference, whose thermo rounds always roll over [0, L).
+// includes this file after `lattice_round.cuh`, so a site is K11's own
+// (`k11_site`: the addressing of `k11_col`, K1's exact walk and writes,
+// with the cells before and after the writes returned): the same draws
+// land on the same cells as in K11 and in the reference, whose thermo
+// rounds always roll over [0, L).
 //
 // Design: one thread a member walks its E sites in site order. Site e at
 // shift s reads window cell j of a tape with read offset lo at column
@@ -39,33 +40,6 @@
 // float64 a spec).
 
 #pragma once
-
-// Site e of member b at base = shift + e*stride: the walk and the writes
-// of `k11_site`, with the pre-write cells in c, the new ones in y and the
-// fired spec returned.
-K1_FN int k23_site(int8_t* prow, int8_t* drow, int L, long long base,
-                   double u, int* c, int* y) {
-  int col[K1_N_CELLS];
-#pragma unroll
-  for (int k = 0; k < K1_N_CELLS; ++k) {
-    const int off = k < K1_N_P ? K1_P_LO + k : K1_D_LO + (k - K1_N_P);
-    col[k] = k11_col(base + off, L);
-    c[k] = (int)(k < K1_N_P ? prow : drow)[col[k]];
-  }
-  const int spec = k1_walk_exact(c, u);
-#pragma unroll
-  for (int k = 0; k < K1_N_CELLS; ++k) {
-    y[k] = c[k];
-    if (!k1_written(k)) continue;
-    const uint32_t x = (uint8_t)c[k];
-    const uint32_t v = k1_write_lanes(k, (uint32_t)spec, x) & 0xffu;
-    if (v != x) {
-      (k < K1_N_P ? prow : drow)[col[k]] = (int8_t)(uint8_t)v;
-      y[k] = (int)(int8_t)(uint8_t)v;
-    }
-  }
-  return spec;
-}
 
 // The reference's gather index rule for a table of n rows: a negative
 // index plus n, then clamped into [0, n) (`ops/thermo.py:_gather_index`).
@@ -95,9 +69,9 @@ K1_FN void k23_member(int b, int8_t* p, int8_t* d, const float* u,
   int nirr = 0;
   for (int e = 0; e < E; ++e) {
     int c[K1_N_CELLS], y[K1_N_CELLS];
-    const int spec = k23_site(
+    const int spec = k11_site(
         prow, drow, L, k23_base(shifts, per_member, b, e, L, E),
-        K1_CHOOSE ? (double)u[(long long)b * E + e] : 0.0, c, y);
+        K1_CHOOSE ? (double)u[(long long)b * E + e] : 0.0, nullptr, c, y);
     long long w = 0;
 #pragma unroll
     for (int k = 0; k < K1_N_CELLS; ++k) w = w * K1_SIZE_A + c[k];
@@ -126,9 +100,9 @@ K1_FN void k24_member(int b, int8_t* p, int8_t* d, const float* u,
   double s = 0.0;
   for (int e = 0; e < E; ++e) {
     int c[K1_N_CELLS], y[K1_N_CELLS];
-    const int spec = k23_site(
+    const int spec = k11_site(
         prow, drow, L, k23_base(shifts, per_member, b, e, L, E),
-        K1_CHOOSE ? (double)u[(long long)b * E + e] : 0.0, c, y);
+        K1_CHOOSE ? (double)u[(long long)b * E + e] : 0.0, nullptr, c, y);
     double dg = 0.0;
 #pragma unroll
     for (int k = 0; k < K1_N_CELLS; ++k) {
@@ -173,56 +147,60 @@ __global__ void __launch_bounds__(K1_THREADS)
              S, sigma, counts, spec_sig);
 }
 
-// Rounds [k0, k0+n) of a sigma run, one K23 launch a round on `stream`:
-// round k0+j reads shifts[k0+j] (shared) or shifts[(k0+j)*B + b] (per
-// member) and uniforms [j*B*E, (j+1)*B*E) (ignored by a machine without
-// choose nodes). Returns the first launch error, or 0.
-extern "C" int ckpe_k23_rounds(void* p, void* d, const void* uniforms,
-                               const void* shifts, int per_member, int k0,
-                               int n, int B, int L, int E,
-                               const void* sig_tab, const void* irr_tab,
-                               int S, void* sigma, void* n_irrev,
-                               void* stream) {
+// Rounds [k0, k0+n) of a K23 or K24 run, one launch a round on
+// `stream`: launch(blocks, u, s) starts round k0+j's kernel on uniforms
+// u = [j*B*E, (j+1)*B*E) (nullptr for a machine without choose nodes)
+// and shifts s = shifts[k0+j] (shared) or shifts[(k0+j)*B + b] (per
+// member). Returns the first launch error, or 0.
+template <class Launch>
+static inline int k23_rounds(const void* uniforms, const void* shifts,
+                             int per_member, int k0, int n, int B, int L,
+                             int E, int S, Launch launch) {
   if (k11_bad_geometry(B, L, E) || S <= 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || n <= 0) return (int)cudaGetLastError();
   const unsigned blocks = (unsigned)((B + K1_THREADS - 1) / K1_THREADS);
   const long long sites = (long long)B * E;
   for (int j = 0; j < n; ++j) {
-    k23_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
-        (int8_t*)p, (int8_t*)d,
-        K1_CHOOSE ? (const float*)uniforms + j * sites : nullptr,
-        (const int*)shifts + (long long)(k0 + j) * (per_member ? B : 1),
-        per_member, B, L, E, (const double*)sig_tab,
-        (const uint8_t*)irr_tab, S, (double*)sigma, (int*)n_irrev);
+    launch(blocks, K1_CHOOSE ? (const float*)uniforms + j * sites : nullptr,
+           (const int*)shifts + (long long)(k0 + j) * (per_member ? B : 1));
     const int rc = (int)cudaGetLastError();
     if (rc) return rc;
   }
   return 0;
 }
 
-// Rounds [k0, k0+n) of a ledger run, one K24 launch a round, as
-// `ckpe_k23_rounds`.
+// Rounds [k0, k0+n) of a sigma run (`k23_rounds`).
+extern "C" int ckpe_k23_rounds(void* p, void* d, const void* uniforms,
+                               const void* shifts, int per_member, int k0,
+                               int n, int B, int L, int E,
+                               const void* sig_tab, const void* irr_tab,
+                               int S, void* sigma, void* n_irrev,
+                               void* stream) {
+  return k23_rounds(
+      uniforms, shifts, per_member, k0, n, B, L, E, S,
+      [&](unsigned blocks, const float* u, const int* s) {
+        k23_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
+            (int8_t*)p, (int8_t*)d, u, s, per_member, B, L, E,
+            (const double*)sig_tab, (const uint8_t*)irr_tab, S,
+            (double*)sigma, (int*)n_irrev);
+      });
+}
+
+// Rounds [k0, k0+n) of a ledger run (`k23_rounds`).
 extern "C" int ckpe_k24_rounds(void* p, void* d, const void* uniforms,
                                const void* shifts, int per_member, int k0,
                                int n, int B, int L, int E,
                                const void* g_prog, const void* g_data,
                                double beta_eff, int S, void* sigma,
                                void* counts, void* spec_sig, void* stream) {
-  if (k11_bad_geometry(B, L, E) || S <= 0) return (int)cudaErrorInvalidValue;
-  if (B == 0 || n <= 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((B + K1_THREADS - 1) / K1_THREADS);
-  const long long sites = (long long)B * E;
-  for (int j = 0; j < n; ++j) {
-    k24_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
-        (int8_t*)p, (int8_t*)d,
-        K1_CHOOSE ? (const float*)uniforms + j * sites : nullptr,
-        (const int*)shifts + (long long)(k0 + j) * (per_member ? B : 1),
-        per_member, B, L, E, (const double*)g_prog, (const double*)g_data,
-        beta_eff, S, (double*)sigma, (int*)counts, (double*)spec_sig);
-    const int rc = (int)cudaGetLastError();
-    if (rc) return rc;
-  }
-  return 0;
+  return k23_rounds(
+      uniforms, shifts, per_member, k0, n, B, L, E, S,
+      [&](unsigned blocks, const float* u, const int* s) {
+        k24_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
+            (int8_t*)p, (int8_t*)d, u, s, per_member, B, L, E,
+            (const double*)g_prog, (const double*)g_data, beta_eff, S,
+            (double*)sigma, (int*)counts, (double*)spec_sig);
+      });
 }
 
 #else

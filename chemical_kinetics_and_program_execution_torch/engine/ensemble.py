@@ -1207,7 +1207,11 @@ def lattice_round_plain(dm: DeviceMachine, ptape, dtape, shift, events,
     the chooses from q ∝ p^tau and, given ``lw`` (float64 [B]), adds to
     it in place each member's importance increment: the sites' float32
     increments summed in float32 in site order, as the reference sums
-    them over its site axis."""
+    them over its site axis.
+
+    Returns what the thermodynamic sums read (`ops/thermo.py`): the
+    sites' cells before the writes and after them, [B, E, n_cells] in the
+    tapes' dtype, and the fired specs [B, E]."""
     lattice_round_plain.calls += 1
     B, L = ptape.shape
     shift = _shift_tensor(shift, ptape.device)
@@ -1228,6 +1232,7 @@ def lattice_round_plain(dm: DeviceMachine, ptape, dtape, shift, events,
     new = torch.stack(_writes_plain(dm, spec, planes), dim=-1)
     _scatter_cells(ptape, cp, new[..., :dm.n_p])
     _scatter_cells(dtape, cd, new[..., dm.n_p:])
+    return cells, new, spec
 
 
 lattice_round_plain.calls = 0

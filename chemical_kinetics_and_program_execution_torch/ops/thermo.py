@@ -331,24 +331,6 @@ def device_tables(tables: ThermoTables, device=None):
             torch.as_tensor(np.asarray(tables.irrev, bool), device=device))
 
 
-def _round_sites(dm, ptape, dtape, shift, events, uniforms):
-    """K11's plain round (`ensemble.lattice_round_plain`) that also
-    returns what the sums read: the pre-write cells [B, E, n_cells]
-    (int64), the new cells and the fired specs [B, E] (int64)."""
-    L = ptape.shape[1]
-    shift = ens._shift_tensor(shift, ptape.device)
-    cp = ens._site_cols(L, events, dm.p_lo, dm.n_p, shift)
-    cd = ens._site_cols(L, events, dm.d_lo, dm.n_d, shift)
-    cells = torch.cat([ens._gather_cells(ptape, cp),
-                       ens._gather_cells(dtape, cd)], dim=-1)
-    planes = [cells[..., c] for c in range(dm.n_cells)]
-    spec = ens._walk_plain(dm, planes, uniforms if dm.has_choose else None)
-    new = torch.stack(ens._writes_plain(dm, spec, planes), dim=-1)
-    ens._scatter_cells(ptape, cp, new[..., :dm.n_p])
-    ens._scatter_cells(dtape, cd, new[..., dm.n_p:])
-    return cells.to(torch.int64), new.to(torch.int64), spec.to(torch.int64)
-
-
 def _gather_index(idx, n: int):
     """The reference's gather index rule for a table of ``n`` rows: a
     negative index plus ``n``, then clamped into [0, n). Symbols outside
@@ -377,7 +359,8 @@ def sigma_round_plain(dm, ptape, dtape, shift, events, uniforms, tables,
     count of irreversible events."""
     sigma_round_plain.calls += 1
     sig_tab, irr_tab = tables
-    cells, _, spec = _round_sites(dm, ptape, dtape, shift, events, uniforms)
+    cells, _, spec = (x.long() for x in ens.lattice_round_plain(
+        dm, ptape, dtape, shift, events, uniforms))
     w = torch.zeros(spec.shape, dtype=torch.int64, device=spec.device)
     for c in range(dm.n_cells):
         w = w * dm.size_a + cells[..., c]
@@ -402,8 +385,8 @@ def ledger_round_plain(dm, ptape, dtape, shift, events, uniforms, ledger,
     each site's increment at its spec, in site order."""
     ledger_round_plain.calls += 1
     g_prog, g_data, beta_eff = ledger
-    cells, new, spec = _round_sites(dm, ptape, dtape, shift, events,
-                                    uniforms)
+    cells, new, spec = (x.long() for x in ens.lattice_round_plain(
+        dm, ptape, dtape, shift, events, uniforms))
     dg = torch.zeros(spec.shape, dtype=torch.float64, device=spec.device)
     a = dm.size_a
     for c in range(dm.n_cells):
