@@ -1,4 +1,5 @@
-// K3, K4 and K5: the exact SPD closure's dense dp/dt on the card.
+// K3, K4 and K5: the exact SPD closure's dense dp/dt on the card, and
+// K25, its J.v.
 //
 // They replace the jitted XLA program of the JAX package's
 // `engine/dense.py:dy_dt_dense` (the JAX package has no Pallas kernel on
@@ -66,6 +67,22 @@
 // windows, a 32-byte sector for few of them (`chip_smoke.py:
 // k5_sector_bytes` models that traffic); at cl_k 5 the phases' barriers
 // and small items, not bytes, set the time.
+//
+// K25 `dense_jvp` (`dense.py:dense_jvp`; plain `dense_jvp_plain`)
+// replaces `jax.jvp` of the JAX package's `engine/dense.py:441
+// dy_dt_dense`, which the Newton-Krylov steady states
+// (`ode/steady.py:347,525`) and the stiff stepper's Newton systems
+// (`ode/kvaerno3.py:79`) call (XLA; no Pallas kernel). It is K5's kernel
+// on pairs (`sweep_rule.cuh`'s rule with T = K25Dual): the same plan,
+// phases and barriers, its phase 0 K4's weights with their tangents,
+// every compact vector a (value, tangent) pair. It reads p and K3's
+// levels of p (which the RHS call before it saved), v and K3's levels
+// of v (`ckpe_dense_jvp_rhs` launches K3 on v first), and writes dy's
+// tangent, and dy itself where asked (the forward-mode dual call: K5's
+// bits, from the same values, in one launch where an RHS and a J.v would
+// take two). Bound: bytes, as K5's, with p, v and their top levels read
+// and pair-valued weights; the work buffer of pairs is twice K5's and a
+// product of pairs three products and a sum.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -152,10 +169,11 @@ k3_finish_kernel(double* __restrict__ low, K3Levels lv) {
   if (threadIdx.x == 0) low[lv.one_slot] = 1.0;
 }
 
+template <class T>
 struct K5Launch {
-  K5Ctx ctx;
+  K5CtxT<T> ctx;
   K4Pairs pairs;
-  double* s;  // the signature weights, phase 0's output (ctx.s)
+  T* s;  // the signature weights, phase 0's output (ctx.s)
   int n_sig;
   const long long* items;
   const long long* phase_ptr;
@@ -167,10 +185,10 @@ struct K5Launch {
 // launch. A block unpacks up to kStaged of a phase's items (fields and
 // divisors) into shared memory at a time, then takes their elements
 // grid-stride. kDual: a dual program's plan, whose items read their
-// tapes' offsets (`sweep_rule.cuh`).
-template <bool kDual>
+// tapes' offsets (`sweep_rule.cuh`). T: double for K5, K25Dual for K25.
+template <bool kDual, class T>
 __global__ void __launch_bounds__(kThreads, kK5BlocksPerSm)
-k5_sweep_kernel(K5Launch L) {
+k5_sweep_kernel(K5Launch<T> L) {
   __shared__ K5Item staged[kStaged];
   const unsigned stride = gridDim.x * kThreads;
   const unsigned tid = blockIdx.x * kThreads + threadIdx.x;
@@ -178,7 +196,7 @@ k5_sweep_kernel(K5Launch L) {
   for (int ph = 0; ph < L.n_phases; ++ph) {
     cg::this_grid().sync();
     if (ph == 0)  // no item of the first phase touches dy
-      for (unsigned x = tid; x < L.n; x += stride) L.ctx.dy[x] = 0.0;
+      for (unsigned x = tid; x < L.n; x += stride) k5_dy_set(L.ctx, x, T());
     const long long end = L.phase_ptr[ph + 1];
     for (long long first = L.phase_ptr[ph]; first < end;
          first += kStaged) {
@@ -228,8 +246,9 @@ K3Levels k3_levels(int a, int k, int m) {
   return lv;
 }
 
-// The most blocks of k5_sweep_kernel<kDual> that fit on the card at once.
-template <bool kDual>
+// The most blocks of k5_sweep_kernel<kDual, T> that fit on the card at
+// once.
+template <bool kDual, class T>
 int k5_resident_blocks() {
   static int cached[64];
   int dev = 0;
@@ -237,13 +256,68 @@ int k5_resident_blocks() {
   if (!cached[dev]) {
     int per_sm = 0, sms = 0;
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, k5_sweep_kernel<kDual>, kThreads, 0) != cudaSuccess ||
+            &per_sm, k5_sweep_kernel<kDual, T>, kThreads, 0) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess)
       return 0;
     cached[dev] = per_sm * sms;
   }
   return cached[dev];
+}
+
+// K5's or K25's one cooperative launch, its grid sized to about four
+// elements a thread in the largest phase (a lane each for a signature's
+// pairs in phase 0), at most what fits.
+template <class T>
+int k5_launch(K5Launch<T>& L, long long max_phase, cudaStream_t stream) {
+  const bool dual = L.ctx.n_state != L.ctx.pw[L.ctx.k];  // [program | data]
+  const int resident = dual ? k5_resident_blocks<true, T>()
+                            : k5_resident_blocks<false, T>();
+  if (resident <= 0) return (int)cudaErrorLaunchFailure;
+  const long long most =
+      max_phase > 32LL * L.n_sig ? max_phase : 32LL * L.n_sig;
+  long long want = (most + 4 * kThreads - 1) / (4 * kThreads);
+  const int grid = (int)(want < 1 ? 1 : want > resident ? resident : want);
+  void* args[] = {&L};
+  const void* kernel = dual ? (const void*)k5_sweep_kernel<true, T>
+                            : (const void*)k5_sweep_kernel<false, T>;
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kThreads), args, 0, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The launch's plan, pairs and pyramid (K5's and K25's arguments alike).
+template <class T>
+K5Launch<T> k5_args(const long long* items, const long long* phase_ptr,
+                    int n_phases, const int* table, T* work, double* dy,
+                    long long n, const double* p, const double* low,
+                    const int* pair_num, const int* pair_den,
+                    const double* pair_const, int chain, const int* csr_ptr,
+                    int n_sig, T* s, int a, int k) {
+  K5Launch<T> L = {};
+  L.ctx.a = a;
+  L.ctx.k = k;
+  L.ctx.p = p;
+  L.ctx.low = low;
+  L.ctx.s = s;
+  L.ctx.table = table;
+  L.ctx.work = work;
+  L.ctx.dy = dy;
+  k5_levels(L.ctx);
+  L.ctx.n_state = (unsigned)n;
+  L.pairs.num = pair_num;
+  L.pairs.den = pair_den;
+  L.pairs.w_const = pair_const;
+  L.pairs.csr_ptr = csr_ptr;
+  L.pairs.chain = chain;
+  L.s = s;
+  L.n_sig = n_sig;
+  L.items = items;
+  L.phase_ptr = phase_ptr;
+  L.n_phases = n_phases;
+  L.n = (unsigned)n;
+  return L;
 }
 
 }  // namespace
@@ -288,45 +362,10 @@ extern "C" int ckpe_dense_sweep(const long long* items,
                                 const int* csr_ptr, int n_sig, double* s,
                                 int a, int k, cudaStream_t stream) {
   if (k < 1 || k > kMaxK || chain < 1) return (int)cudaErrorInvalidValue;
-  K5Launch L;
-  L.ctx.a = a;
-  L.ctx.k = k;
-  L.ctx.p = p;
-  L.ctx.low = low;
-  L.ctx.s = s;
-  L.ctx.table = table;
-  L.ctx.work = work;
-  L.ctx.dy = dy;
-  k5_levels(L.ctx);
-  L.ctx.n_state = (unsigned)n;
-  L.pairs.num = pair_num;
-  L.pairs.den = pair_den;
-  L.pairs.w_const = pair_const;
-  L.pairs.csr_ptr = csr_ptr;
-  L.pairs.chain = chain;
-  L.s = s;
-  L.n_sig = n_sig;
-  L.items = items;
-  L.phase_ptr = phase_ptr;
-  L.n_phases = n_phases;
-  L.n = (unsigned)n;
-  const bool dual = L.ctx.n_state != L.ctx.pw[k];  // [program | data]
-  const int resident =
-      dual ? k5_resident_blocks<true>() : k5_resident_blocks<false>();
-  if (resident <= 0) return (int)cudaErrorLaunchFailure;
-  // About four elements a thread in the largest phase (a lane each for
-  // a signature's pairs in phase 0), at most what fits.
-  const long long most =
-      max_phase > 32LL * n_sig ? max_phase : 32LL * n_sig;
-  long long want = (most + 4 * kThreads - 1) / (4 * kThreads);
-  const int grid = (int)(want < 1 ? 1 : want > resident ? resident : want);
-  void* args[] = {&L};
-  const void* kernel = dual ? (const void*)k5_sweep_kernel<true>
-                            : (const void*)k5_sweep_kernel<false>;
-  const cudaError_t err = cudaLaunchCooperativeKernel(
-      kernel, dim3(grid), dim3(kThreads), args, 0, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  K5Launch<double> L = k5_args(items, phase_ptr, n_phases, table, work, dy,
+                               n, p, low, pair_num, pair_den, pair_const,
+                               chain, csr_ptr, n_sig, s, a, k);
+  return k5_launch(L, max_phase, stream);
 }
 
 // K3 -> K5 from one host call: K3's pyramid below each tape's p into its
@@ -353,4 +392,55 @@ extern "C" int ckpe_dense_rhs(int tapes, int m, const long long* items,
   return ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table,
                           work, dy, n, p, low, pair_num, pair_den,
                           pair_const, chain, csr_ptr, n_sig, s, a, k, stream);
+}
+
+// K25: the tangent of dp/dt along v into jdy (and its value into dy
+// unless dy is null), one cooperative launch; the arguments of
+// `ckpe_dense_sweep` with v and vlow (K3's levels of v) beside p and low,
+// ``work`` of pairs (2 * work_size doubles) and ``s`` of pairs (2 * n_sig
+// doubles).
+extern "C" int ckpe_dense_jvp(const long long* items,
+                              const long long* phase_ptr, int n_phases,
+                              long long max_phase, const int* table,
+                              double* work, double* jdy, double* dy,
+                              long long n, const double* p,
+                              const double* low, const double* v,
+                              const double* vlow, const int* pair_num,
+                              const int* pair_den, const double* pair_const,
+                              int chain, const int* csr_ptr, int n_sig,
+                              double* s, int a, int k, cudaStream_t stream) {
+  if (k < 1 || k > kMaxK || chain < 1) return (int)cudaErrorInvalidValue;
+  K5Launch<K25Dual> L = k5_args(
+      items, phase_ptr, n_phases, table, reinterpret_cast<K25Dual*>(work),
+      dy, n, p, low, pair_num, pair_den, pair_const, chain, csr_ptr, n_sig,
+      reinterpret_cast<K25Dual*>(s), a, k);
+  L.ctx.v = v;
+  L.ctx.vlow = vlow;
+  L.ctx.jdy = jdy;
+  return k5_launch(L, max_phase, stream);
+}
+
+// K3 on each tape of v into vlow, then K25: one host call a J.v.
+extern "C" int ckpe_dense_jvp_rhs(int tapes, int m, const long long* items,
+                                  const long long* phase_ptr, int n_phases,
+                                  long long max_phase, const int* table,
+                                  double* work, double* jdy, double* dy,
+                                  long long n, const double* p,
+                                  const double* low, const double* v,
+                                  double* vlow, const int* pair_num,
+                                  const int* pair_den,
+                                  const double* pair_const, int chain,
+                                  const int* csr_ptr, int n_sig, double* s,
+                                  int a, int k, cudaStream_t stream) {
+  if (tapes < 1 || tapes > 2 || k < 1 || k > kMaxK)
+    return (int)cudaErrorInvalidValue;
+  const K3Levels lv = k3_levels(a, k, m);
+  for (int t = 0; t < tapes; ++t) {
+    const int rc = ckpe_pyramid(v + (size_t)t * lv.pw[k], a, k, m,
+                                vlow + (size_t)t * (lv.one_slot + 1), stream);
+    if (rc) return rc;
+  }
+  return ckpe_dense_jvp(items, phase_ptr, n_phases, max_phase, table, work,
+                        jdy, dy, n, p, low, v, vlow, pair_num, pair_den,
+                        pair_const, chain, csr_ptr, n_sig, s, a, k, stream);
 }

@@ -5,7 +5,8 @@
 // `_lincomb`, `_error_norms`, `_rms_scaled`, `_rms_diff_scaled`,
 // `_dense_coeffs` and `_dense_eval`; of `ode/dop853.py:45 odeint_dop853`
 // (the step-clamped DOP853); and of `ode/dopri5.py:48 odeint_dopri5` with
-// `_rms_norm` (:43) (XLA programs; no Pallas kernel). Plain PyTorch
+// `_rms_norm` (:43), and of `ode/kvaerno3.py:54 _newton_stage` and :99
+// `odeint_kvaerno3` (XLA programs; no Pallas kernel). Plain PyTorch
 // versions: `ode/dop853.py` (`*_plain`). The host drives the steps
 // (`ode/dop853.py:odeint_dop853_dense`, `odeint_dop853`,
 // `ode/dopri5.py:odeint_dopri5`) and reads one or two scalars a step; the
@@ -58,6 +59,13 @@
 //   per-fraction Horner order. Chunks of kEvalRows rows go to blockIdx.y,
 //   so a step with many samples fills the card.
 //
+// - Kvaerno 3(2) (`ode/kvaerno3.py`), the third table: its stage bases
+//   g_s and Newton predictors are tableau rows (26-30) run by `stage`
+//   (with g_s as the base vector of the predictor); the Newton residual
+//   phi(z) = z - h gamma f(z) - g is `resid`, one elementwise launch; the
+//   Newton step's scaled norm fused with z += dz and the embedded error
+//   are two more `norms` modes (kNewton, kErrDiff).
+//
 // Bound: bytes. A stage reads y and its m nonzero stages and writes one
 // vector: (m + 2) n doubles; the error sums read y, y_new and the stages
 // their rows name (12 for DOP853, 6 for dopri5); the coefficients read
@@ -71,7 +79,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxTerms = 16;
 constexpr int kReduceBlocks = 1024;
-constexpr int kMaxRows = 32;  // `ode/dop853.py:TABLEAU` has 26
+constexpr int kMaxRows = 48;  // `ode/dop853.py:TABLEAU` has 31
 constexpr int kEvalRows = 8;
 constexpr int kMaxEvalChunks = 65535;
 
@@ -116,7 +124,8 @@ k6_stage_kernel(const double* __restrict__ y, const double* __restrict__ ks,
   out[i] = y[i] + h * lincomb(ks, ks_ld, which, swap, fsal, i);
 }
 
-enum { kRms = 0, kRmsDiff = 1, kErr = 2, kErrH = 3 };
+enum { kRms = 0, kRmsDiff = 1, kErr = 2, kErrH = 3, kNewton = 4,
+       kErrDiff = 5 };
 
 struct NormArgs {
   int mode, swap, fsal;
@@ -125,8 +134,9 @@ struct NormArgs {
   double rtol, atol, h;
   const double* y;      // scale from y (and y_new in kErr, kErrH)
   const double* y_new;
-  const double* f0;     // kRms: f; kRmsDiff: f0
+  const double* f0;     // kRms: f; kRmsDiff: f0; kNewton: dz; kErrDiff: z3
   const double* f1;     // kRmsDiff: f1
+  double* z;            // kNewton: the iterate, z += dz in place
   const double* ks;     // kErr, kErrH: the stages, rows ks_ld apart
   long long ks_ld;
   double* partial;      // 2 a block
@@ -158,7 +168,17 @@ __global__ void __launch_bounds__(kThreads) k6_norms_kernel(NormArgs g) {
   const long long stride = (long long)gridDim.x * kThreads;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < g.n;
        i += stride) {
-    if (g.mode == kErr || g.mode == kErrH) {
+    if (g.mode == kNewton) {  // Kvaerno 3(2): rms(dz / y_scale), z += dz
+      const double dz = g.f0[i];
+      const double u = dz / (g.atol + fabs(g.y[i]) * g.rtol);
+      s0 = s0 + u * u;
+      g.z[i] = g.z[i] + dz;
+    } else if (g.mode == kErrDiff) {  // its embedded error (y_new - z3)
+      const double ay = fabs(g.y[i]), an = fabs(g.y_new[i]);
+      const double scale = g.atol + (an > ay ? an : ay) * g.rtol;
+      const double u = (g.y_new[i] - g.f0[i]) / scale;
+      s0 = s0 + u * u;
+    } else if (g.mode == kErr || g.mode == kErrH) {
       const double ay = fabs(g.y[i]), an = fabs(g.y_new[i]);
       const double scale = g.atol + (an > ay ? an : ay) * g.rtol;
       if (g.mode == kErr) {
@@ -275,6 +295,15 @@ k6_dense_eval_kernel(const double* __restrict__ F, long long f_ld,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+k6_resid_kernel(const double* __restrict__ z, const double* __restrict__ g,
+                const double* __restrict__ f, double hg, long long n,
+                double* __restrict__ out) {
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  out[i] = (z[i] - hg * f[i]) - g[i];
+}
+
 unsigned blocks(long long n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
@@ -324,15 +353,18 @@ extern "C" int ckpe_k6_stage(const double* y, const double* ks,
 // in the first bytes of scratch[2050]. mode 0: sum (y/scale)^2, sum
 // (f0/scale)^2; mode 1: sum ((f1-f0)/scale)^2; mode 2: sum (e5/scale)^2,
 // sum (e3/scale)^2 with e5, e3 the tableau's rows e0 and e1; mode 3: sum
-// (h e/scale)^2 with e the row e0, and 0. Stages 0 and fsal trade rows
-// when ``swap``.
+// (h e/scale)^2 with e the row e0, and 0; mode 4 (Kvaerno 3(2)'s Newton
+// step): sum (f0/scale)^2 with scale = atol + |y| rtol, and f1 += f0 in
+// place (f1 the iterate z, f0 the update dz); mode 5 (its embedded
+// error): sum ((y_new - f0)/scale)^2 with mode 2's scale. Stages 0 and
+// fsal trade rows when ``swap``.
 extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
                              double h, const double* y, const double* y_new,
                              const double* f0, const double* f1,
                              const double* ks, long long ks_ld, int swap,
                              int fsal, int e0, int e1, double* scratch,
                              cudaStream_t stream) {
-  if (mode < kRms || mode > kErrH ||
+  if (mode < kRms || mode > kErrDiff ||
       ((mode == kErr || mode == kErrH) &&
        (e0 < 0 || e0 >= g_rows || (mode == kErr && (e1 < 0 || e1 >= g_rows)) ||
         fsal < 1 || fsal >= kMaxTerms)))
@@ -351,12 +383,21 @@ extern "C" int ckpe_k6_norms(int mode, long long n, double rtol, double atol,
   g.y_new = y_new;
   g.f0 = f0;
   g.f1 = f1;
+  g.z = const_cast<double*>(f1);  // kNewton: f1 names the iterate
   g.ks = ks;
   g.ks_ld = ks_ld;
   g.partial = scratch;
   g.out = scratch + 2 * kReduceBlocks;
   g.ticket = reinterpret_cast<unsigned*>(scratch + 2 * kReduceBlocks + 2);
   k6_norms_kernel<<<reduce_blocks(n), kThreads, 0, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+// Kvaerno 3(2)'s Newton residual: out = (z - hg * f) - g, elementwise.
+extern "C" int ckpe_k6_resid(const double* z, const double* g,
+                             const double* f, double hg, long long n,
+                             double* out, cudaStream_t stream) {
+  k6_resid_kernel<<<blocks(n), kThreads, 0, stream>>>(z, g, f, hg, n, out);
   return (int)cudaGetLastError();
 }
 

@@ -45,8 +45,30 @@
 // read them take kDual: K5 runs a single-tape program's plan with kDual
 // false, which leaves the offsets (all 0) out of its index arithmetic.
 //
+// K25 (`engine/dense.py:dense_jvp`, the J.v of dp/dt) runs this rule in
+// dual numbers: the functions below are templates on their value type T,
+// double for K5 and K25Dual, a (value, tangent) pair, for K25. The
+// pyramid is then read at the same index from [p | low] (values) and
+// [v | vlow] (tangents: K3 on v, the pyramid being linear); a product of
+// pairs is (a, da) * (b, db) = (a b, da b + a db), a sum adds values and
+// tangents apart; the seeds, the signature weights and the work buffer
+// hold pairs (16 bytes each); the emission writes the tangent of dy, and
+// its value too where the context's ``dy`` is set: the values K25 forms
+// are K5's, in K5's order, so one launch gives an RHS with K5's bits and
+// its J.v. The guarded ratio's tangent is, with m = max(n, d):
+//
+//   dg = n > 0 ? (dn - g dm) / m : 0,
+//   dm = d > n ? dd : (n > d ? dn : 0.5 (dn + dd)),
+//
+// one-sided 0 where n <= 0, the max's tangent split 0.5/0.5 at a tie (as
+// JAX's max rule splits it), and the quotient's tangent written as
+// (dn - g dm) / m, which is exactly 0 where n > d (g = 1, dm = dn).
+// JAX's rule, dn / m - n dm / m^2, agrees to rounding only.
+// `engine/dense.py:dense_jvp_plain` is K25's plain version.
+//
 // Plain C++ under `g++` as well, so a CPU test holds it to the plain step
-// (`engine/dense.py:sweep_step_plain`, `emit_plain`) for every element.
+// (`engine/dense.py:sweep_step_plain`, `emit_plain`) for every element,
+// and K25's run of it to `dense_jvp_plain`.
 
 #pragma once
 
@@ -81,24 +103,50 @@ enum {
 
 constexpr int kMaxK = 16;
 
-struct K5Ctx {
+// K25's value type: a value and its tangent along v.
+struct alignas(16) K25Dual {
+  double v, d;
+};
+
+// The rule's context on values of type T (`K5Ctx`: K5's doubles).
+template <class T>
+struct K5CtxT {
   int a, k;
   const double* p;              // level k: the state vector
   const double* low;            // [lv[k-1], ..., lv[0], 1], a block a tape
   unsigned n_state;             // entries of p: A^k, 2 A^k for a dual program
   unsigned lv_off[kMaxK + 1];   // level j < k at low + lv_off[j]
   unsigned pw[kMaxK + 1];       // A^j
-  const double* s;              // signature weights (phase 0's output)
+  const T* s;                   // signature weights (phase 0's output)
   const int* table;             // ranks, children, seeds, targets, ops
-  double* work;                 // every step's compact vector
-  double* dy;
+  T* work;                      // every step's compact vector
+  double* dy;                   // dp/dt (K25: its value, or null)
+  const double* v;              // K25 only: the tangent state, K3's levels
+  const double* vlow;           // of v (laid out as ``low``) and the
+  double* jdy;                  // tangent of dp/dt
 };
+
+using K5Ctx = K5CtxT<double>;
 
 K5_FN double k5_guarded(double num, double den) {
   const bool pos = num > 0.0;
   double m = den > num ? den : num;
   if (den != den) m = den;  // max propagates NaN, as torch.maximum does
   return (pos ? num : 0.0) / (pos ? m : 1.0);
+}
+
+K5_FN K25Dual k5_guarded(const K25Dual& n, const K25Dual& d) {
+  K25Dual r;
+  r.v = k5_guarded(n.v, d.v);
+  if (!(n.v > 0.0)) {
+    r.d = 0.0;
+    return r;
+  }
+  double m = d.v > n.v ? d.v : n.v;
+  if (d.v != d.v) m = d.v;
+  const double dm = d.v > n.v ? d.d : (n.v > d.v ? n.d : 0.5 * (n.d + d.d));
+  r.d = (n.d - r.v * dm) / m;
+  return r;
 }
 
 // A value written by another block in an earlier phase: from L2, not L1.
@@ -108,6 +156,85 @@ K5_FN double k5_load(const double* x) {
 #else
   return *x;
 #endif
+}
+
+K5_FN K25Dual k5_load(const K25Dual* x) {
+#if defined(__CUDA_ARCH__)
+  const double2 t = __ldcg(reinterpret_cast<const double2*>(x));
+  K25Dual r;
+  r.v = t.x;
+  r.d = t.y;
+  return r;
+#else
+  return *x;
+#endif
+}
+
+// The arithmetic on either value type.
+K5_FN double k5_add(double a, double b) { return a + b; }
+K5_FN double k5_mul(double a, double b) { return a * b; }
+K5_FN double k5_neg(double a) { return -a; }
+K5_FN double k5_scale(double w, double a) { return w * a; }
+
+K5_FN K25Dual k5_add(const K25Dual& a, const K25Dual& b) {
+  K25Dual r;
+  r.v = a.v + b.v;
+  r.d = a.d + b.d;
+  return r;
+}
+
+K5_FN K25Dual k5_mul(const K25Dual& a, const K25Dual& b) {
+  K25Dual r;
+  r.v = a.v * b.v;
+  r.d = a.d * b.v + a.v * b.d;
+  return r;
+}
+
+K5_FN K25Dual k5_neg(const K25Dual& a) {
+  K25Dual r;
+  r.v = -a.v;
+  r.d = -a.d;
+  return r;
+}
+
+K5_FN K25Dual k5_scale(double w, const K25Dual& a) {  // w has no tangent
+  K25Dual r;
+  r.v = w * a.v;
+  r.d = w * a.d;
+  return r;
+}
+
+// Entry q of a pyramid piece x (p or low), with the tangent's (v or
+// vlow) for a pair.
+K5_FN void k5_pick(double& r, const double* x, const double*, unsigned q) {
+  r = x[q];
+}
+
+K5_FN void k5_pick(K25Dual& r, const double* x, const double* dx,
+                   unsigned q) {
+  r.v = x[q];
+  r.d = dx[q];
+}
+
+// dy at window j, read and written: K25's tangent in jdy, its value in
+// dy where one is set.
+K5_FN double k5_dy_get(const K5Ctx& c, unsigned j) {
+  return k5_load(c.dy + j);
+}
+
+K5_FN void k5_dy_set(const K5Ctx& c, unsigned j, double x) { c.dy[j] = x; }
+
+K5_FN K25Dual k5_dy_get(const K5CtxT<K25Dual>& c, unsigned j) {
+  K25Dual r;
+  r.v = c.dy ? k5_load(c.dy + j) : 0.0;
+  r.d = k5_load(c.jdy + j);
+  return r;
+}
+
+K5_FN void k5_dy_set(const K5CtxT<K25Dual>& c, unsigned j,
+                     const K25Dual& x) {
+  c.jdy[j] = x.d;
+  if (c.dy) c.dy[j] = x.v;
 }
 
 // Division by a divisor fixed for an item, as a multiply and a shift:
@@ -152,7 +279,8 @@ struct K5Item {
 
 K5_FN long long k5_at_least_1(long long x) { return x < 1 ? 1 : x; }
 
-K5_FN K5Item k5_item(const long long* r, const K5Ctx& c) {
+template <class T>
+K5_FN K5Item k5_item(const long long* r, const K5CtxT<T>& c) {
   K5Item it;
   it.op = (int)r[F_OP];
   it.tab = (int)r[F_TAB];
@@ -187,52 +315,58 @@ K5_FN unsigned k5_poff(const K5Item& it) {
   return kDual ? it.poff : 0u;
 }
 
-template <bool kDual>
-K5_FN double k5_level(const K5Ctx& c, const K5Item& it, int j, unsigned x) {
-  return j == c.k ? c.p[k5_poff<kDual>(it) + x]
-                  : c.low[(kDual ? it.loff : 0u) + c.lv_off[j] + x];
+template <bool kDual, class T>
+K5_FN T k5_level(const K5CtxT<T>& c, const K5Item& it, int j, unsigned x) {
+  T r;
+  if (j == c.k)
+    k5_pick(r, c.p, c.v, k5_poff<kDual>(it) + x);
+  else
+    k5_pick(r, c.low, c.vlow, (kDual ? it.loff : 0u) + c.lv_off[j] + x);
+  return r;
 }
 
-template <bool kDual>
-K5_FN double k5_ratio(const K5Ctx& c, const K5Item& it, unsigned j) {
+template <bool kDual, class T>
+K5_FN T k5_ratio(const K5CtxT<T>& c, const K5Item& it, unsigned j) {
   if (it.op == K5_RIGHT || it.op == K5_RSHIFT || it.op == K5_RSHIFT_RUN)
-    return k5_guarded(c.p[k5_poff<kDual>(it) + j],
+    return k5_guarded(k5_level<kDual>(c, it, c.k, j),
                       k5_level<kDual>(c, it, c.k - 1, k5_q(j, it.a)));
   return k5_guarded(k5_level<kDual>(c, it, it.lev, j),
                     k5_level<kDual>(c, it, it.lev - 1, k5_r(j, it.pw1)));
 }
 
 // The source vector at compact index x (the seed's at live index x).
-K5_FN double k5_src(const K5Ctx& c, const K5Item& it, unsigned x) {
+template <class T>
+K5_FN T k5_src(const K5CtxT<T>& c, const K5Item& it, unsigned x) {
   if (it.src >= 0) return k5_load(c.work + it.src + x);
   const int* t = c.table;
   const int row = it.seed + (int)x;
-  double acc = 0.0;
-  for (int q = t[row]; q < t[row + 1]; ++q) acc = acc + c.s[t[q]];
+  T acc = T();
+  for (int q = t[row]; q < t[row + 1]; ++q) acc = k5_add(acc, c.s[t[q]]);
   return acc;
 }
 
-// A compute item's value at compact index e.
-template <bool kDual>
-K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
+// A compute item's value at compact index e. A product's two factors
+// commute bit for bit, in doubles and in pairs alike.
+template <bool kDual, class T>
+K5_FN T k5_value(const K5CtxT<T>& c, const K5Item& it, unsigned e) {
   const int op = it.op;
   const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.d);
   const unsigned i = rest - h * it.d.d;
   const unsigned j = (h * it.span + (unsigned)c.table[it.tab + i]) * it.lo.d +
                      (e - rest * it.lo.d);
   if (op == K5_IDENT) return k5_src(c, it, e);
-  const double r = k5_ratio<kDual>(c, it, j);
+  const T r = k5_ratio<kDual>(c, it, j);
   switch (op) {
     case K5_EXTEND:
-      return r * k5_src(c, it, k5_r(e, it.xn));
+      return k5_mul(r, k5_src(c, it, k5_r(e, it.xn)));
     case K5_RIGHT:
-      return k5_src(c, it, k5_q(e, it.a)) * r;
+      return k5_mul(r, k5_src(c, it, k5_q(e, it.a)));
     case K5_RSHIFT: {
       const unsigned cc = k5_q(e, it.a);
-      double sum = k5_src(c, it, cc);
+      T sum = k5_src(c, it, cc);
       for (unsigned dd = 1; dd < it.a.d; ++dd)
-        sum = sum + k5_src(c, it, dd * it.n1 + cc);
-      return sum * r;
+        sum = k5_add(sum, k5_src(c, it, dd * it.n1 + cc));
+      return k5_mul(r, sum);
     }
     default: {  // K5_SHIFT, K5_RSHIFT_RUN: the live children of i
       const int* t = c.table;
@@ -245,23 +379,24 @@ K5_FN double k5_value(const K5Ctx& c, const K5Item& it, unsigned e) {
         base = k5_r(k5_q(e, it.a), it.xlo);
         step = it.xlo.d;
       }
-      double sum = k5_src(c, it, base + (unsigned)t[t[row]] * step);
+      T sum = k5_src(c, it, base + (unsigned)t[t[row]] * step);
       for (int q = t[row] + 1; q < t[row + 1]; ++q)
-        sum = sum + k5_src(c, it, base + (unsigned)t[q] * step);
-      return op == K5_SHIFT ? r * sum : sum * r;
+        sum = k5_add(sum, k5_src(c, it, base + (unsigned)t[q] * step));
+      return k5_mul(r, sum);
     }
   }
 }
 
 // One element e of one item.
-template <bool kDual>
-K5_FN void k5_element(const K5Ctx& c, const K5Item& it, unsigned e) {
+template <bool kDual, class T>
+K5_FN void k5_element(const K5CtxT<T>& c, const K5Item& it, unsigned e) {
   if (it.op == K5_INTERIOR) {
     const int* ops = c.table + it.tab;
     for (int q = 0; q < it.lev; ++q) {
-      const double w = c.s[ops[3 * q + 1]];
-      double* x = c.dy + k5_poff<kDual>(it) + ops[3 * q];
-      *x = k5_load(x) + (ops[3 * q + 2] < 0 ? -w : w);
+      const T w = c.s[ops[3 * q + 1]];
+      const unsigned j = k5_poff<kDual>(it) + (unsigned)ops[3 * q];
+      k5_dy_set(c, j, k5_add(k5_dy_get(c, j),
+                             ops[3 * q + 2] < 0 ? k5_neg(w) : w));
     }
     return;
   }
@@ -275,16 +410,17 @@ K5_FN void k5_element(const K5Ctx& c, const K5Item& it, unsigned e) {
   const int* tg = c.table + it.tab + 4 * q;  // rank, own, partners
   const unsigned j =
       k5_poff<kDual>(it) + (h * it.span + (unsigned)tg[0]) * lo + s;
-  const double* t = c.work + it.dst + (size_t)h * it.d.d * lo + s;
-  double acc = k5_load(c.dy + j);
-  if (tg[1] >= 0) acc = acc + (-k5_load(t + (size_t)tg[1] * lo));
+  const T* t = c.work + it.dst + (size_t)h * it.d.d * lo + s;
+  T acc = k5_dy_get(c, j);
+  if (tg[1] >= 0) acc = k5_add(acc, k5_neg(k5_load(t + (size_t)tg[1] * lo)));
   for (int x = 0; x < tg[3]; ++x)
-    acc = acc + k5_load(t + (size_t)c.table[tg[2] + x] * lo);
-  c.dy[j] = acc;
+    acc = k5_add(acc, k5_load(t + (size_t)c.table[tg[2] + x] * lo));
+  k5_dy_set(c, j, acc);
 }
 
 // The context's level offsets and powers of A.
-K5_FN void k5_levels(K5Ctx& c) {
+template <class T>
+K5_FN void k5_levels(K5CtxT<T>& c) {
   unsigned pos = 0, size = 1;
   for (int j = 0; j <= c.k; ++j) {
     c.pw[j] = size;
@@ -317,18 +453,25 @@ struct K4Pairs {
 
 constexpr int kK4Batch = 4;  // chain factors whose loads issue together
 
-K5_FN double k4_pyramid(const K5Ctx& c, int x) {
+template <class T>
+K5_FN T k4_pyramid(const K5CtxT<T>& c, int x) {
   const unsigned n = c.n_state;
-  return (unsigned)x < n ? c.p[x] : c.low[x - n];
+  T r;
+  if ((unsigned)x < n)
+    k5_pick(r, c.p, c.v, (unsigned)x);
+  else
+    k5_pick(r, c.low, c.vlow, (unsigned)x - n);
+  return r;
 }
 
 // A chain's guarded ratios multiplied in chain order (the loads issued
 // kK4Batch at a time). K8 forms an event's chain with it too.
-K5_FN double k4_chain_product(const K5Ctx& c, const int* num, const int* den,
-                              int chain) {
-  double prod = 0.0;
+template <class T>
+K5_FN T k4_chain_product(const K5CtxT<T>& c, const int* num, const int* den,
+                         int chain) {
+  T prod = T();
   for (int j0 = 0; j0 < chain; j0 += kK4Batch) {
-    double vn[kK4Batch], vd[kK4Batch];
+    T vn[kK4Batch], vd[kK4Batch];
 #pragma unroll
     for (int u = 0; u < kK4Batch; ++u) {
       if (j0 + u < chain) {
@@ -339,40 +482,51 @@ K5_FN double k4_chain_product(const K5Ctx& c, const int* num, const int* den,
 #pragma unroll
     for (int u = 0; u < kK4Batch; ++u) {
       if (j0 + u < chain) {
-        const double g = k5_guarded(vn[u], vd[u]);
-        prod = j0 + u == 0 ? g : prod * g;
+        const T g = k5_guarded(vn[u], vd[u]);
+        prod = j0 + u == 0 ? g : k5_mul(prod, g);
       }
     }
   }
   return prod;
 }
 
-K5_FN double k4_pair_weight(const K5Ctx& c, const K4Pairs& w, int q) {
-  return w.w_const[q] * k4_chain_product(c, w.num + (size_t)q * w.chain,
-                                         w.den + (size_t)q * w.chain,
-                                         w.chain);
+template <class T>
+K5_FN T k4_pair_weight(const K5CtxT<T>& c, const K4Pairs& w, int q) {
+  return k5_scale(w.w_const[q],
+                  k4_chain_product(c, w.num + (size_t)q * w.chain,
+                                   w.den + (size_t)q * w.chain, w.chain));
 }
 
 #ifdef __CUDACC__
+__device__ __forceinline__ double k5_shfl(double x, int lane) {
+  return __shfl_sync(0xffffffffu, x, lane);
+}
+
+__device__ __forceinline__ K25Dual k5_shfl(const K25Dual& x, int lane) {
+  K25Dual r;
+  r.v = __shfl_sync(0xffffffffu, x.v, lane);
+  r.d = __shfl_sync(0xffffffffu, x.d, lane);
+  return r;
+}
+
 // K4's signature weights, a warp a signature, grid-stride over the
 // warps of the launch (``tid`` the thread's index in it, ``stride`` its
 // threads): lane l forms the weight of pairs l, l + 32, ... and the warp
-// adds them from 0.0 in pair order by shuffles. K5's phase 0 and K7's
-// and K8's first launch.
-__device__ __forceinline__ void k4_warp_weights(const K5Ctx& c,
-                                                const K4Pairs& w, double* s,
+// adds them from 0.0 in pair order by shuffles. K5's and K25's phase 0
+// and K7's and K8's first launch.
+template <class T>
+__device__ __forceinline__ void k4_warp_weights(const K5CtxT<T>& c,
+                                                const K4Pairs& w, T* s,
                                                 int n_sig, unsigned tid,
                                                 unsigned stride) {
   const int lane = (int)(tid & 31);
   for (unsigned g = tid >> 5; g < (unsigned)n_sig; g += stride >> 5) {
     const int q0 = w.csr_ptr[g], q1 = w.csr_ptr[g + 1];
-    double acc = 0.0;
+    T acc = T();
     for (int base = q0; base < q1; base += 32) {
-      const double x =
-          base + lane < q1 ? k4_pair_weight(c, w, base + lane) : 0.0;
+      const T x = base + lane < q1 ? k4_pair_weight(c, w, base + lane) : T();
       const int count = q1 - base < 32 ? q1 - base : 32;
-      for (int j = 0; j < count; ++j)
-        acc = acc + __shfl_sync(0xffffffffu, x, j);
+      for (int j = 0; j < count; ++j) acc = k5_add(acc, k5_shfl(x, j));
     }
     if (lane == 0) s[g] = acc;
   }

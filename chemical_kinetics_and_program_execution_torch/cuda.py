@@ -4,10 +4,10 @@ Two kinds of library, both with a plain C interface (no PyTorch headers,
 so a build takes seconds) and both landing in `_build/` beside this file:
 
 - `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
-  `window_counts.cu`; K3-K5 `dense_rhs.cu`; K6 `dop853.cu`; K7 and K8
-  `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
+  `window_counts.cu`; K3-K5 and K25 `dense_rhs.cu`; K6 `dop853.cu`; K7
+  and K8 `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
   `pattern_scan.cu`; K13 `weighted_counts.cu`; K15 `bitplanes.cu`; K16
-  and K18 `bff_round.cu`; K19-K22 `frontier.cu`),
+  and K18 `bff_round.cu`; K19-K22 `frontier.cu`; K26 `steady_aug.cu`),
   which may include headers from `csrc/`, into one shared library;
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1 and K11, one library per
@@ -158,6 +158,17 @@ def load() -> ctypes.CDLL:
     lib.ckpe_dense_sweep.argtypes = k5
     # ckpe_dense_rhs(tapes, m, <ckpe_dense_sweep's arguments>)
     lib.ckpe_dense_rhs.argtypes = [_I, _I] + k5
+    # ckpe_dense_jvp(items, phase_ptr, n_phases, max_phase, table, work,
+    #                jdy, dy, n, p, low, v, vlow, pair_num, pair_den,
+    #                pair_const, chain, csr_ptr, n_sig, s, a, k, stream), and
+    # ckpe_dense_jvp_rhs(tapes, m, <the same>)
+    k25 = k5[:7] + [_P] + k5[7:10] + [_P, _P] + k5[10:]
+    lib.ckpe_dense_jvp.argtypes = k25
+    lib.ckpe_dense_jvp_rhs.argtypes = [_I, _I] + k25
+    # ckpe_steady_aug(x, n, a, k, cons_w, n_c, c_norm, mode, partial,
+    #                 out, stream)
+    lib.ckpe_steady_aug.argtypes = [_P, _L, _I, _I, _P, _I, _D, _I, _P, _P,
+                                    _P]
     # ckpe_tree_rhs(p, low, n_state, a, k, pair_num, pair_den, pair_const,
     #               chain, csr_ptr, n_sig, s, dict_num, dict_den, n_dict,
     #               ratio, levels, n_levels, nv, ev, ent, tgt_ptr, n_tgt, dy,
@@ -179,6 +190,8 @@ def load() -> ctypes.CDLL:
     #               swap, fsal, e0, e1, scratch, stream)
     lib.ckpe_k6_norms.argtypes = [_I, _L, _D, _D, _D, _P, _P, _P, _P, _P, _L,
                                   _I, _I, _I, _I, _P, _P]
+    # ckpe_k6_resid(z, g, f, hg, n, out, stream)
+    lib.ckpe_k6_resid.argtypes = [_P, _P, _P, _D, _L, _P, _P]
     # ckpe_k6_dense_coeffs(y, y_new, f_old, f_new, ks, ks_ld, n, h, rows,
     #                      coefs, nu, out, f_ld, stream)
     lib.ckpe_k6_dense_coeffs.argtypes = [_P, _P, _P, _P, _P, _L, _L, _D,
@@ -239,6 +252,8 @@ def load() -> ctypes.CDLL:
                  "ckpe_gather_pair", "ckpe_frontier_rank",
                  "ckpe_frontier_write",
                  "ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
+                 "ckpe_dense_jvp", "ckpe_dense_jvp_rhs", "ckpe_steady_aug",
+                 "ckpe_k6_resid",
                  "ckpe_world_mass",
                  "ckpe_tree_rhs", "ckpe_chain_rhs", "ckpe_gather_scatter",
                  "ckpe_k6_tableau", "ckpe_k6_stage", "ckpe_k6_norms",

@@ -22,6 +22,13 @@ here, which the wrapper runs for a CPU tensor:
 On a card `make_dense_dy_dt`'s fn runs K3 and K5 from one C call
 (`dense_rhs`): 3 launches at ex4's cl_k 5-8.
 
+Its J.v (forward mode: `torch.func.jvp` on the closure, or a
+forward-AD dual, as the solvers pass it) is kernel K25 (`dense_jvp`):
+K5's kernel (`csrc/dense_rhs.cu`) and rule (`csrc/sweep_rule.cuh`) on
+(value, tangent) pairs, over K3's levels of p and of v;
+`dense_jvp_plain` is its plain version. The reverse mode is not ported
+(`REVERSE_MODE`).
+
 A pruned program (`compile_dense` with ``prune_threshold > 0``: worlds
 whose weight under a reference SPD drops below the threshold are left
 out, `enumerate.BeamGuide`) keeps the kept worlds exact and carries mass
@@ -749,6 +756,9 @@ class DeviceProgram:
     m_num: torch.Tensor | None = None  # [worlds, chain]
     m_den: torch.Tensor | None = None
     m_const: torch.Tensor | None = None  # [worlds]
+    csr_world: torch.Tensor | None = None  # [pairs]: each pair's world
+    # index tensors the plain dual sweep makes once (`_plain_tensors`)
+    plain_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
 def world_tables(prog, device: torch.device) -> dict:
@@ -804,9 +814,11 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
             m_den=dev(two_pointer_index(prog.m_den, prog.size_a, prog.cl_k,
                                         prog.dual), torch.int32),
             m_const=dev(prog.m_const, config.DEFAULT_FLOAT))
+    order = np.argsort(prog.pair_sig, kind="stable")
     return DeviceProgram(
         prog=prog, plan=plan,
         device=worlds["w_const"].device,  # "cuda" -> "cuda:0"
+        csr_world=dev(prog.pair_world[order], torch.int64),
         items=dev(plan.items, torch.int64),
         phase_ptr=dev(plan.phase_ptr, torch.int64),
         table=dev(plan.table, torch.int32), **worlds, **mass)
@@ -934,20 +946,21 @@ def ratio_tables_plain(p: torch.Tensor, low: torch.Tensor, a: int, k: int):
 
 
 def signature_weights_plain(dp: DeviceProgram, p: torch.Tensor,
-                            low: torch.Tensor):
+                            low: torch.Tensor, w_const=None):
     """Plain version of K4 (on the card K5's phase 0): ``s[sig] = sum over
     the pairs of sig of w_const[w] * prod_c g(pyr[w_num[w, c]],
     pyr[w_den[w, c]])``, the product in chain order, pyr = [p, low], the
     sum from 0 in pair order: a column of pairs at a time (`sig_pairs`),
     so on a card too, where an ``index_add_`` would add in no fixed
-    order."""
+    order. ``w_const`` [worlds] replaces the program's where given."""
     signature_weights_plain.calls += 1
     pyr = torch.cat([p, low])
     g = guarded_ratio(pyr[dp.w_num.long()], pyr[dp.w_den.long()])
     prod = g[:, 0].clone()
     for c in range(1, g.shape[1]):
         prod = prod * g[:, c]
-    wv = torch.cat([dp.w_const * prod, prod.new_zeros(1)])
+    wc = dp.w_const if w_const is None else w_const
+    wv = torch.cat([wc * prod, prod.new_zeros(1)])
     s = torch.zeros(dp.sig_pairs.shape[1], dtype=p.dtype, device=p.device)
     for col in dp.sig_pairs:
         s = s + wv[col]
@@ -1086,7 +1099,7 @@ def _checked_out(out: torch.Tensor, n: int, device) -> torch.Tensor:
     return out
 
 
-def _k5_args(dp, p, low, work, dy, s):
+def _k5_args(dp, p, low, work, dy, s, pair_const=None):
     """K5's arguments as `ckpe_dense_sweep` and `ckpe_dense_rhs` take
     them, less the stream: the plan, the work buffer, dy, the pyramid,
     each signature's pairs with their worlds' chains, and the signature
@@ -1098,9 +1111,22 @@ def _k5_args(dp, p, low, work, dy, s):
             plan.max_phase, dp.table.data_ptr(), work.data_ptr(),
             dy.data_ptr(), prog.state_size, p.data_ptr(), low.data_ptr(),
             dp.pair_num.data_ptr(), dp.pair_den.data_ptr(),
-            dp.pair_const.data_ptr(), prog.w_num.shape[1],
-            dp.csr_ptr.data_ptr(), prog.num_signatures, s.data_ptr(),
-            prog.size_a, prog.cl_k)
+            (dp.pair_const if pair_const is None else pair_const).data_ptr(),
+            prog.w_num.shape[1], dp.csr_ptr.data_ptr(), prog.num_signatures,
+            s.data_ptr(), prog.size_a, prog.cl_k)
+
+
+def pair_consts(dp, w_const=None):
+    """The pairs' w_const in CSR order as K4 reads them: the program's,
+    or a run-time float64 ``w_const`` [worlds] on its device gathered (a
+    torch gather, so a derivative can flow through it)."""
+    if w_const is None:
+        return dp.pair_const
+    if (w_const.dtype != torch.float64 or w_const.device != dp.device
+            or w_const.shape != (dp.prog.num_worlds,)):
+        raise TypeError(f"w_const must be a float64 [{dp.prog.num_worlds}] "
+                        f"tensor on {dp.device}")
+    return w_const[dp.csr_world].contiguous()
 
 
 def _work(dp, p):
@@ -1223,34 +1249,343 @@ def world_mass(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
 world_mass.launches = 0
 
 
+# --- K25: J.v -------------------------------------------------------------------
+
+REVERSE_MODE = ("ROADMAP Queue 1, 'Derivative-based solvers and instruments: "
+                "reverse mode'")
+
+
+def guarded_ratio_dual(num, den, dnum, dden):
+    """The guarded ratio g(n, d) = n > 0 ? n / m : 0 (m = max(n, d)) and
+    its tangent as K25 forms it (`csrc/sweep_rule.cuh:k5_guarded` on pairs): 0
+    where n <= 0 (one-sided), dm = dd where d > n, dn where n > d and
+    0.5 (dn + dd) at a tie (the max's tangent split as JAX's max rule
+    splits it), dg = (dn - g dm) / m, exactly 0 where n > d."""
+    g = guarded_ratio(num, den)
+    pos = num > 0
+    one = torch.ones((), dtype=num.dtype, device=num.device)
+    m = torch.where(pos, torch.maximum(num, den), one)
+    dm = torch.where(den > num, dden,
+                     torch.where(num > den, dnum, 0.5 * (dnum + dden)))
+    dg = torch.where(pos, (dnum - g * dm) / m, torch.zeros_like(g))
+    return g, dg
+
+
+def signature_weights_dual_plain(dp: DeviceProgram, p, low, v, vlow,
+                                 w_const=None):
+    """K4 in dual numbers (K25's phase 0): the signature weights and their
+    tangents along v, each chain's guarded ratios multiplied in pairs in
+    chain order (``(P, dP) (g, dg) = (P g, dP g + P dg)``), times w_const,
+    summed from 0 in pair order as `signature_weights_plain`."""
+    pyr, dpyr = torch.cat([p, low]), torch.cat([v, vlow])
+    num, den = dp.w_num.long(), dp.w_den.long()
+    g, dg = guarded_ratio_dual(pyr[num], pyr[den], dpyr[num], dpyr[den])
+    prod, dprod = g[:, 0].clone(), dg[:, 0].clone()
+    for c in range(1, g.shape[1]):
+        dprod = dprod * g[:, c] + prod * dg[:, c]
+        prod = prod * g[:, c]
+    wc = dp.w_const if w_const is None else w_const
+    zero = prod.new_zeros(1)
+    wv, dwv = torch.cat([wc * prod, zero]), torch.cat([wc * dprod, zero])
+    s = torch.zeros(dp.sig_pairs.shape[1], dtype=p.dtype, device=p.device)
+    ds = torch.zeros_like(s)
+    for col in dp.sig_pairs:
+        s = s + wv[col]
+        ds = ds + dwv[col]
+    return s, ds
+
+
+def _dual_step(step: Step, src: torch.Tensor, tables, a: int):
+    """`sweep_step_plain` in dual numbers: ``src`` the [2, N] stack of a
+    vector's values and tangents, each table a (value, tangent) pair;
+    every product ``r * x`` is (r x, dr x + r dx), K25's order
+    (`csrc/sweep_rule.cuh:k5_mul` on pairs). Digit sums run on the stack, each row
+    in digit order."""
+    kind = step.kind
+    if kind == IDENT:
+        return src
+    if kind == EXTEND:
+        x, r = src.repeat(1, a), tables["le", step.lev]
+    elif kind == SHIFT:
+        x, r = _digit_sum_last2(src, a).repeat(1, a), tables["le", step.lev]
+    elif kind == RIGHT:
+        x, r = torch.repeat_interleave(src, a, dim=1), tables["re"]
+    elif kind in (RSHIFT, RSHIFT_RUN):
+        x = torch.repeat_interleave(_digit_sum_first2(src, a), a, dim=1)
+        r = tables["re"]
+    else:
+        raise ValueError(f"step kind {kind} forms no vector")
+    r, dr = r
+    rx = x * r  # [r x, r dx]
+    return torch.stack([rx[0], dr * x[0] + rx[1]])
+
+
+def _digit_sum_last2(x: torch.Tensor, a: int) -> torch.Tensor:
+    x3 = x.reshape(2, -1, a)
+    c = x3[:, :, 0].clone()
+    for d in range(1, a):
+        c += x3[:, :, d]
+    return c
+
+
+def _digit_sum_first2(x: torch.Tensor, a: int) -> torch.Tensor:
+    x3 = x.reshape(2, a, -1)
+    c = x3[:, 0].clone()
+    for d in range(1, a):
+        c += x3[:, d]
+    return c
+
+
+def _dual_tables(p, low, v, vlow, a: int, k: int) -> dict:
+    """The ratio tables of `named_tables` with their tangents."""
+    lv, dlv = levels(p, low, a, k), levels(v, vlow, a, k)
+    tables = {("le", j): guarded_ratio_dual(
+        lv[j], lv[j - 1].repeat(a), dlv[j], dlv[j - 1].repeat(a))
+        for j in range(1, k + 1)}
+    tables["re"] = guarded_ratio_dual(
+        p, torch.repeat_interleave(lv[k - 1], a), v,
+        torch.repeat_interleave(dlv[k - 1], a))
+    return tables
+
+
+def _plain_tensors(dp: DeviceProgram, i: int):
+    """Step i's index tensors for the plain dual sweep, made once a
+    program: its seed's ranks and signature ids, its emission's orig and
+    adjusted run ranks."""
+    cache = dp.plain_cache
+    if i not in cache:
+        step, dev = dp.plan.steps[i], dp.device
+        seed = [torch.as_tensor([x[q] for x in step.seed], device=dev,
+                                dtype=torch.int64) for q in (0, 1)]
+        pairs = torch.as_tensor(step.pairs, device=dev,
+                                dtype=torch.int64).reshape(-1, 2)
+        cache[i] = (seed, pairs[:, 0], pairs[:, 1])
+    return cache[i]
+
+
+def dense_jvp_plain(dp: DeviceProgram, p: torch.Tensor, v: torch.Tensor,
+                    low: torch.Tensor | None = None, w_const=None,
+                    value: bool = False):
+    """Plain version of K25: J v, the tangent of dp/dt at ``p`` along
+    ``v``, as its own dual-number sweep in K25's order: K3's plain levels
+    of p (``low`` where given) and of v, K4 in pairs
+    (`signature_weights_dual_plain`), then `sweep_plain`'s walk of the
+    plan's items with every dense vector a [2, N] stack of values and
+    tangents (`_dual_step`), the emissions and interior ops into a zeroed
+    stack of dy and its tangent (`emit_plain`'s scatter on both rows: the
+    same terms in the same order). Not torch's forward AD through
+    `sweep_plain`, whose in-place ``index_add_`` and ``out=`` writes are
+    not known to carry tangents. ``value=True`` returns ``(dy, J v)``, dy
+    from the values (`sweep_plain`'s bits)."""
+    dense_jvp_plain.calls += 1
+    prog = dp.prog
+    a, k = prog.size_a, prog.cl_k
+    n = a**k
+    p, v = p.reshape(-1), v.reshape(-1)
+    if low is None:
+        low = pyramids(prog, p, plain=True)
+    vlow = pyramids(prog, v, plain=True)
+    s2 = torch.stack(signature_weights_dual_plain(dp, p, low, v, vlow,
+                                                  w_const))
+    tapes = 1 + prog.dual
+    m = low.numel() // tapes
+    tables = [_dual_tables(p[t * n:(t + 1) * n], low[t * m:(t + 1) * m],
+                           v[t * n:(t + 1) * n], vlow[t * m:(t + 1) * m],
+                           a, k) for t in range(tapes)]
+    dy2 = torch.zeros((2, prog.state_size), dtype=p.dtype, device=p.device)
+    steps = dp.plan.steps
+    readers = collections.Counter(st.src for st in steps)
+    readers.update(i for i, st in enumerate(steps) if st.pairs)
+    vecs = {}
+
+    def read(i):
+        t = vecs[i]
+        readers[i] -= 1
+        if not readers[i]:
+            del vecs[i]
+        return t
+
+    for op, i in zip(dp.plan.items[:, 0].tolist(),
+                     dp.plan.item_step.tolist()):
+        step = steps[i]
+        d2 = dy2[:, step.tape * n:(step.tape + 1) * n]
+        if op == INTERIOR:
+            for rank, sid, sign in step.interior:
+                d2[:, rank] += -s2[:, sid] if sign < 0 else s2[:, sid]
+        elif op == EMIT:
+            _, o, adj = _plain_tensors(dp, i)
+            d4 = d2.view(2, -1, step.span, step.lo)
+            sub = read(i).view(2, -1, step.span, step.lo)[:, :, o, :]
+            d4.index_add_(2, o, -sub)
+            d4.index_add_(2, adj, sub)
+        else:
+            if step.src >= 0:
+                src = read(step.src)
+            else:
+                (ranks, sids), _, _ = _plain_tensors(dp, i)
+                src = torch.zeros((2, step.seed_size), dtype=p.dtype,
+                                  device=p.device).index_add_(
+                                      1, ranks, s2[:, sids])
+            t = _dual_step(step, src, tables[step.tape], a)
+            if readers[i]:
+                vecs[i] = t
+    return (dy2[0], dy2[1]) if value else dy2[1]
+
+
+dense_jvp_plain.calls = 0
+
+
+def dense_jvp(dp: DeviceProgram, p: torch.Tensor, v: torch.Tensor,
+              low: torch.Tensor | None = None, w_const=None,
+              value: bool = False):
+    """K25: J v, the tangent of dp/dt at the float64 state ``p`` along
+    ``v`` (a new tensor), with ``low`` K3's levels of p (a call's own K3
+    when None) and ``w_const`` [worlds] a run-time weight vector in place
+    of the program's. On a card one C call (`ckpe_dense_jvp_rhs`): K3 on
+    each tape of v, then K25's one cooperative launch; on the CPU
+    `dense_jvp_plain`. ``value=True`` returns ``(dy, J v)``: K25 writes
+    dp/dt too (K5's bits), so one launch serves the forward-mode dual
+    call."""
+    if not cuda.on_card(p, "dense_jvp"):
+        return dense_jvp_plain(dp, p, v, low, w_const, value)
+    prog = dp.prog
+    a, k, n = prog.size_a, prog.cl_k, prog.state_size
+    tapes = 1 + prog.dual
+    if low is None:
+        low = pyramids(prog, p.reshape(-1))
+    p, low = _check_pyramid(dp, p.reshape(-1), low)
+    v = v.reshape(-1)
+    if v.dtype != torch.float64 or v.shape != (n,) or v.device != p.device:
+        raise TypeError(f"v must be a float64 [{n}] tensor on {p.device}")
+    v = v.contiguous()
+    vlow = torch.empty(low_size(prog), dtype=torch.float64, device=p.device)
+    jdy = torch.empty(n, dtype=torch.float64, device=p.device)
+    dy = torch.empty_like(jdy) if value else None
+    work = torch.empty(2 * max(dp.plan.work_size, 1), dtype=torch.float64,
+                       device=p.device)
+    s = torch.empty(2 * prog.num_signatures, dtype=torch.float64,
+                    device=p.device)
+    plan = dp.plan
+    lib = cuda.load()
+    with torch.cuda.device(p.device):
+        rc = lib.ckpe_dense_jvp_rhs(
+            tapes, pyramid_tile_digits(a, k), dp.items.data_ptr(),
+            dp.phase_ptr.data_ptr(), plan.num_phases, plan.max_phase,
+            dp.table.data_ptr(), work.data_ptr(), jdy.data_ptr(),
+            None if dy is None else dy.data_ptr(), n,
+            p.data_ptr(), low.data_ptr(), v.data_ptr(), vlow.data_ptr(),
+            dp.pair_num.data_ptr(), dp.pair_den.data_ptr(),
+            pair_consts(dp, w_const).data_ptr(), prog.w_num.shape[1],
+            dp.csr_ptr.data_ptr(), prog.num_signatures, s.data_ptr(), a, k,
+            cuda.stream(p))
+    cuda.check(rc, "dense_jvp", lib)
+    pyramid.launches += tapes * pyramid_launches(a, k)
+    dense_jvp.launches += 1
+    return (dy, jdy) if value else jdy
+
+
+dense_jvp.launches = 0
+
+
+def forward_dual(p):
+    """``(primal, tangent)`` of a forward-mode dual tensor that carries
+    nothing else (no torch.func wrapper, no autograd history), else
+    None: the closures then compute dp/dt and J v in one K25 launch and
+    return them as a dual."""
+    if (torch._C._functorch.is_functorch_wrapped_tensor(p)
+            or p.requires_grad):
+        return None
+    primal, tangent = torch.autograd.forward_ad.unpack_dual(p)
+    return None if tangent is None else (primal, tangent)
+
+
+def _unwrapped(t):
+    """The plain tensor under torch.func's wrappers (a kernel needs its
+    pointer)."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
+
+
+def transformed(t) -> bool:
+    """Whether ``t`` carries a derivative: wrapped by a torch.func
+    transform, a forward-mode dual, or tracked by autograd."""
+    return (torch._C._functorch.is_functorch_wrapped_tensor(t)
+            or t.requires_grad
+            or torch.autograd.forward_ad.unpack_dual(t).tangent is not None)
+
+
+class RHSFunction(torch.autograd.Function):
+    """dp/dt as a function torch's transforms can drive:
+    ``apply(p, rhs, jvp)`` with ``rhs(p) -> (dy, saved)`` and ``jvp(p,
+    saved, v) -> J v`` (None: the J.v is not ported and raises). forward
+    runs on plain tensors (a ctypes launch sees real pointers); the
+    forward-mode rule gets p and ``saved`` (K3's levels) unwrapped, and a
+    zero tangent (None) gives zeros without a launch. The reverse mode
+    raises NotImplementedError: `REVERSE_MODE`."""
+
+    @staticmethod
+    def forward(p, rhs, jvp):
+        with torch._C._DisableFuncTorch():  # plain tensors: no dispatch
+            return rhs(p)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        p, _, jvp = inputs
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_forward(p, output[1])
+        ctx.jvp_fn = jvp
+
+    @staticmethod
+    def jvp(ctx, p_t, *_):
+        if ctx.jvp_fn is None:
+            raise NotImplementedError(
+                f"the J.v of this RHS is not ported yet ({REVERSE_MODE})")
+        p, saved = (_unwrapped(x) for x in ctx.saved_tensors)
+        if p_t is None:
+            return torch.zeros_like(p), None
+        with torch._C._DisableFuncTorch():
+            return ctx.jvp_fn(p, saved, _unwrapped(p_t)), None
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"reverse mode through the RHS is not ported yet ({REVERSE_MODE})")
+
+
 # --- dp/dt ---------------------------------------------------------------------
 
 
 def dy_dt_dense(dp: DeviceProgram, p: torch.Tensor,
                 out: torch.Tensor | None = None,
-                low: torch.Tensor | None = None) -> torch.Tensor:
+                low: torch.Tensor | None = None,
+                w_const=None) -> torch.Tensor:
     """Plain dp/dt: K3's, K4's and K5's plain versions in turn, on ``p``'s
     device, into ``out`` as `sweep_plain`; K3's levels also into ``low``
-    where one is given."""
+    where one is given; ``w_const`` [worlds] replaces the program's."""
     p = p.reshape(-1)
     levels = pyramids(dp.prog, p, plain=True)
     if low is not None:
         low.copy_(levels)
     return sweep_plain(dp, p, levels,
-                       signature_weights_plain(dp, p, levels), out)
+                       signature_weights_plain(dp, p, levels, w_const), out)
 
 
 def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
               out: torch.Tensor | None = None,
-              low: torch.Tensor | None = None) -> torch.Tensor:
+              low: torch.Tensor | None = None,
+              w_const=None) -> torch.Tensor:
     """dp/dt of a float64 ``p`` (the program's state) into ``out`` (a new
     tensor when None): on a card K3 (once a tape) and K5 (with K4 as its
     phase 0) through one C call (`ckpe_dense_rhs`), on the CPU their
     plain versions. K3's levels go into ``low`` (`low_size` doubles)
-    where one is given, else into a tensor of the call's own."""
+    where one is given, else into a tensor of the call's own. A run-time
+    ``w_const`` [worlds] (the parametric path) replaces the program's:
+    dp/dt is linear in it, so the sweep is the same, with K4 reading the
+    pairs' constants from `pair_consts`."""
     a, k, n = dp.prog.size_a, dp.prog.cl_k, dp.prog.state_size
     if not cuda.on_card(p, "dense_rhs"):
-        return dy_dt_dense(dp, p, out, low)
+        return dy_dt_dense(dp, p, out, low, w_const)
     tapes = 1 + dp.prog.dual
     if low is None:
         low = torch.empty(low_size(dp.prog), dtype=torch.float64,
@@ -1259,15 +1594,46 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
     dy = (torch.empty(n, dtype=torch.float64, device=p.device)
           if out is None else _checked_out(out, n, p.device))
     work, s = _work(dp, p), _weights_out(dp, None)
+    consts = pair_consts(dp, w_const)
     lib = cuda.load()
     with torch.cuda.device(p.device):
         rc = lib.ckpe_dense_rhs(tapes, pyramid_tile_digits(a, k),
-                                *_k5_args(dp, p, low, work, dy, s),
+                                *_k5_args(dp, p, low, work, dy, s, consts),
                                 cuda.stream(p))
     cuda.check(rc, "dense_rhs", lib)
     pyramid.launches += tapes * pyramid_launches(a, k)
     sweep.launches += 1
     return dy
+
+
+def rhs_fn(dp: DeviceProgram, p: torch.Tensor,
+           out: torch.Tensor | None = None, w_const=None) -> torch.Tensor:
+    """dp/dt of a closure's float64 [A^k] ``p`` (``w_const`` [worlds] a
+    run-time weight vector, plain, in place of the program's): `dense_rhs`
+    for a plain tensor, into ``out`` where one is given; for a forward-AD
+    dual that carries nothing else, dp/dt and J v from one K25 launch,
+    returned as a dual; under any other transform `RHSFunction` (K3 ->
+    K5 forward, K25 its J.v, reverse mode raising). ``out=`` takes a
+    plain tensor only."""
+    if not transformed(p):
+        return dense_rhs(dp, p, out, w_const=w_const)
+    if out is not None:
+        raise ValueError("out= takes a plain tensor, not one under a "
+                         "transform")
+    dual = forward_dual(p)
+    if dual is not None:
+        return torch.autograd.forward_ad.make_dual(
+            *dense_jvp(dp, *dual, w_const=w_const, value=True))
+
+    def rhs(q):
+        low = torch.empty(low_size(dp.prog), dtype=torch.float64,
+                          device=dp.device)
+        return dense_rhs(dp, q, None, low, w_const), low
+
+    def jvp(q, low, v):
+        return dense_jvp(dp, q, v, low, w_const)
+
+    return RHSFunction.apply(p, rhs, jvp)[0]
 
 
 def make_dense_dy_dt(prog: DenseProgram, dtype=None, jit: bool = True,
@@ -1287,6 +1653,13 @@ def make_dense_dy_dt(prog: DenseProgram, dtype=None, jit: bool = True,
     own (`mass_scratch`), so one closure serves one stream at a time. A
     program with no mass tables raises ValueError.
 
+    Under a transform ``fn`` is `RHSFunction` (`torch.func.jvp`,
+    autograd): its J.v is K25 (`dense_jvp`) over the levels K3 built for
+    the primal call, its reverse mode raises NotImplementedError. A
+    forward-mode dual p (`torch.autograd.forward_ad`, as the solvers'
+    J.v take it: `ode/krylov.jvp`) gets dp/dt and J v from one K25
+    launch, as a dual. ``out=`` and ``with_mass`` take plain tensors.
+
     ``dtype`` and ``jit`` are the reference's parameters, in its order:
     ``dtype`` None or float64 (anything else raises: the exact path is
     float64 throughout), ``jit`` changes nothing here."""
@@ -1305,7 +1678,10 @@ def make_dense_dy_dt(prog: DenseProgram, dtype=None, jit: bool = True,
             raise ValueError(f"p has {p.numel()} entries, the program "
                              f"{n}")
         if not with_mass:
-            return dense_rhs(dp, p, out)
+            return rhs_fn(dp, p, out)
+        if transformed(p):
+            raise ValueError("with_mass takes a plain tensor, not one "
+                             "under a transform")
         low = torch.empty(low_size(prog), dtype=torch.float64,
                           device=dp.device)
         dy = dense_rhs(dp, p, out, low)

@@ -14,9 +14,13 @@ Rules must be *replayable*: deterministic given the values returned by
 effects). The enumerator (`engine/enumerate.py`) re-executes them many
 times; they never run on the device.
 
-The reference's rate-parameter hooks (``params``, ``prepare``) serve its
-gradient path, which this port has not reached; rules here run at fixed
-rates.
+A rule may declare rate parameters (``params`` with their defaults; it
+then takes ``(t, params)``) and a derived-parameter transform
+(``prepare``), as in the JAX package: `engine/parametric.py` replays
+each enumerated world's decisions with the parameters as float64
+tensors, so the weight arithmetic must stay torch-safe (``+ * /``,
+`math`-free for tensors: the `-p` rules use `models/problems.py`'s
+`_exp`, `_max0`, `_min1`).
 """
 
 from __future__ import annotations
@@ -35,28 +39,62 @@ class Problem:
     symbols: tuple[str, ...]
     rule: Callable
     doc: str = ""
+    # Declared rate parameters as ((name, default), ...) or None; a
+    # parametric rule has signature ``rule(t, params)``.
+    params: tuple[tuple[str, float], ...] | None = None
+    # Optional derived-parameter transform ``prepare(params) -> derived``
+    # (rate tables), which the rule then receives; declaring it lets a
+    # per-world replay loop build the tables once.
+    prepare: Callable | None = None
 
     @property
     def size_a(self) -> int:
         return len(self.symbols)
 
+    @property
+    def param_defaults(self) -> dict[str, float] | None:
+        return None if self.params is None else dict(self.params)
+
     def symbol_index(self, sym: str) -> int:
         return self.symbols.index(sym)
 
-    def call(self, t) -> None:
-        """Runs the rule on tape context ``t``."""
-        self.rule(t)
+    def prepare_params(self, params: dict):
+        """Applies the declared derived-parameter transform (identity
+        when none is declared)."""
+        return params if self.prepare is None else self.prepare(params)
+
+    def call(self, t, params: dict | None = None, *,
+             prepared: bool = False) -> None:
+        """Runs the rule on tape context ``t`` (with ``params`` when the
+        problem is parametric, its defaults when None); ``prepared``
+        marks ``params`` as already passed through `prepare_params`."""
+        if self.params is None:
+            self.rule(t)
+            return
+        if params is None:
+            params = self.param_defaults
+        if not prepared:
+            params = self.prepare_params(params)
+        self.rule(t, params)
 
 
 _REGISTRY: dict[str, Problem] = {}
 
 
-def register_problem(tag: str, symbols: Sequence[str], doc: str = ""):
-    """Decorator registering a reaction rule under ``tag``."""
+def register_problem(tag: str, symbols: Sequence[str], doc: str = "",
+                     params: dict[str, float] | None = None,
+                     prepare: Callable | None = None):
+    """Decorator registering a reaction rule under ``tag``; ``params``
+    declares named rate parameters with their defaults (the rule then
+    takes ``(t, params)``), ``prepare`` maps them to the object the rule
+    receives."""
 
     def deco(fn):
-        _REGISTRY[tag] = Problem(tag=tag, symbols=tuple(symbols), rule=fn,
-                                 doc=doc or (fn.__doc__ or ""))
+        _REGISTRY[tag] = Problem(
+            tag=tag, symbols=tuple(symbols), rule=fn,
+            doc=doc or (fn.__doc__ or ""),
+            params=None if params is None else tuple(params.items()),
+            prepare=prepare)
         return fn
 
     return deco

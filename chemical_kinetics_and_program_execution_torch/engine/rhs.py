@@ -590,6 +590,9 @@ def dy_dt_from_chain_tables(t: GatherTables, p: torch.Tensor,
 
 
 def _closure(compiled, tables, rhs):
+    """``fn(p, out=None)``; under a transform `dense.RHSFunction` with no
+    J.v: the tree and chain engines' J.v and vJ are the reverse-mode
+    item's work, and both raise NotImplementedError naming it."""
     n = compiled.state_size
 
     def fn(p, out=None):
@@ -597,6 +600,10 @@ def _closure(compiled, tables, rhs):
                             device=tables.device).reshape(-1)
         if p.numel() != n:
             raise ValueError(f"p has {p.numel()} entries, the program {n}")
+        if dense.transformed(p):
+            return dense.RHSFunction.apply(
+                p, lambda q: (rhs(tables, q, None), q.new_zeros(0)),
+                None)[0]
         return rhs(tables, p, out)
 
     fn.tables = tables

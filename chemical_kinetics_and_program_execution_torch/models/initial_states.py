@@ -2,11 +2,11 @@
 
 Counterpart of the JAX package's `models/initial_states.py` (numpy, so
 a copy): vectorised classifiers over the sorted symbol multiset of each
-window. The JAX package's `ferromagnet_p0_traced` (a jnp function for
-its gradient path) has no counterpart yet.
+window, and `ferromagnet_p0_traced`, a torch function of the pair density
+for the solves whose start is a parameter.
 
-All functions return a float64 array of shape ``[size_a]*cl_k`` summing
-to 1.
+All other functions return a float64 array of shape ``[size_a]*cl_k``
+summing to 1.
 """
 
 from __future__ import annotations
@@ -42,6 +42,25 @@ def ferromagnet_p0(cl_k: int, p_pair: float = 0.01,
     else:
         p0[0] = 1.0 - p_pair * (cl_k + 1)
     return p0.reshape([2] * cl_k)
+
+
+def ferromagnet_p0_traced(cl_k: int, p_pair):
+    """`ferromagnet_p0(corrected=True)` as a torch function of ``p_pair``
+    (a float or a 0-d float64 tensor, on whose device the result lies):
+    the flat ``[2**cl_k]`` float64 tensor, built from torch ops so that
+    a derivative in ``p_pair`` can flow through it."""
+    import torch
+
+    p_pair = torch.as_tensor(p_pair, dtype=torch.float64)
+    idx = [0b11 << k for k in range(cl_k - 1)] + [1, 1 << (cl_k - 1)]
+    p0 = torch.zeros(2**cl_k, dtype=torch.float64, device=p_pair.device)
+    p0 = p0.index_put((torch.tensor(idx, device=p_pair.device),),
+                      p_pair.expand(len(idx)))
+    corner = (1 << (cl_k - 1)) | 1
+    p0 = p0.index_put((torch.tensor([corner], device=p_pair.device),),
+                      (p_pair**2).reshape(1))
+    rest = 1.0 - p0.sum()
+    return torch.cat([rest.reshape(1), p0[1:]])
 
 
 def copolymerization_p0(cl_k: int, p_a: float = 0.02) -> np.ndarray:

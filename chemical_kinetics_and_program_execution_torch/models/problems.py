@@ -22,8 +22,11 @@ so the enumerated multiverse matches branch for branch:
 - ``fuzz-wide-specs``, the wide-spec stress rule (beyond the
   reference).
 
-The rate-parameter (``-p``) variants are not ported yet; ROADMAP.md
-lists them.
+- the rate-parameter (``-p``) variants ``ex2-ferromagnetic-chain-p``,
+  ``ex3var1-copolymerization-p``, ``ex3var2-copolymerization-p``,
+  ``ex4-chemical-turing-p`` and ``ex4var2-chemical-turing-p`` for
+  `engine/parametric.py`: their weights take floats at enumeration and
+  float64 tensors at replay (`_exp`, `_max0`, `_min1`).
 """
 
 from __future__ import annotations
@@ -69,6 +72,42 @@ def ex2_ferromagnetic_chain(t):
         factor_b = 1.0
     p_flip = factor_a * factor_b
     if t.choose([(p_flip, True), (1 - p_flip, False)]):
+        t.set_sym(DATA, 0, "D" if mid == "U" else "U")
+
+
+def _exp(x):
+    """exp in Python floats for concrete inputs (enumeration speed), in
+    torch for a tensor rate parameter (the parametric replay)."""
+    if isinstance(x, (int, float)):
+        return math.exp(x)
+    import torch
+
+    return torch.exp(x)
+
+
+def _max0(x):
+    if isinstance(x, (int, float)):
+        return max(0.0, x)
+    import torch
+
+    return torch.clamp(x, min=0.0)
+
+
+@register_problem("ex2-ferromagnetic-chain-p", ("D", "U"),
+                  params={"J": _EX2_J, "h": _EX2_H, "beta": _EX2_BETA})
+def ex2_ferromagnetic_chain_parametric(t, params):
+    """Parametric ex2: the physics of ``ex2-ferromagnetic-chain`` with
+    (J, h, beta) as run-time rate parameters; the field branch written
+    branch-free as exp(-2 beta max(0, +-h)), as in the JAX package."""
+    J, h, beta = params["J"], params["h"], params["beta"]
+    mid = t.get_sym(DATA, 0)
+    left = t.get_sym(DATA, -1)
+    right = t.get_sym(DATA, +1)
+    energy_j = (1 if left == mid else -1) + (1 if mid == right else -1)
+    factor_a = _exp(-(beta * J * (4 + 2 * energy_j)))
+    factor_b = _exp(-2.0 * beta * _max0(h if mid == "U" else -h))
+    p_flip = factor_a * factor_b
+    if t.choose([(p_flip, True), (1.0 - p_flip, False)]):
         t.set_sym(DATA, 0, "D" if mid == "U" else "U")
 
 
@@ -128,6 +167,62 @@ def ex3var2_copolymerization(t):
                         + (0 if d1_right == "O" else 1)) == 1:
                     # At a chain end; depolymerize at reduced rate.
                     if t.choose([(1.0, True), (50.0, False)]):
+                        t.set_sym(PROGRAM, 0, d0)
+                        t.set_sym(DATA, 0, "O")
+    else:
+        if (t.get_sym(PROGRAM, -1) == "O"
+                and t.get_sym(PROGRAM, +1) == "O"):
+            d0 = t.get_sym(DATA, 0)
+            if ((p0 == "A" and d0 in ("M", "N"))
+                    or (d0 == "A" and p0 in ("M", "N"))):
+                i = t.choose([(1.0, -1), (1.0, +1)])
+                if (t.get_sym(DATA, i) == "O"
+                        and t.get_sym(DATA, 2 * i) == "O"):
+                    t.set_sym(PROGRAM, 0, "O")
+                    t.set_sym(DATA, i, p0)
+
+
+@register_problem("ex3var1-copolymerization-p", ("O", "A", "M", "N"),
+                  params={"q_reject": 0.75})
+def ex3var1_copolymerization_parametric(t, params):
+    """Parametric ex3var1: the alternation-preference rejection
+    probability ``q_reject`` (default 3/4, the 75:25 weights) as a
+    run-time rate parameter."""
+    q = params["q_reject"]
+    p0 = t.get_sym(PROGRAM, 0)
+    if (p0 != "O" and t.get_sym(PROGRAM, -1) == "O"
+            and t.get_sym(PROGRAM, +1) == "O"):
+        d0 = t.get_sym(DATA, 0)
+        if ((p0 == "A" and d0 in ("M", "N"))
+                or (d0 == "A" and p0 in ("M", "N"))):
+            i = t.choose([(1.0, -1), (1.0, +1)])
+            if (t.get_sym(DATA, i) == "O"
+                    and t.get_sym(DATA, 2 * i) == "O"):
+                if (p0 != "A" and t.get_sym(DATA, -i) == p0
+                        and t.choose([(q, True), (1.0 - q, False)])):
+                    pass  # alternation preference: reject
+                else:
+                    t.set_sym(PROGRAM, 0, "O")
+                    t.set_sym(DATA, i, p0)
+
+
+@register_problem("ex3var2-copolymerization-p", ("O", "A", "M", "N"),
+                  params={"k_rev": 1.0 / 50.0})
+def ex3var2_copolymerization_parametric(t, params):
+    """Parametric ex3var2: the chain-end depolymerization rate ``k_rev``
+    relative to addition (default 1/50) as a run-time rate parameter."""
+    k = params["k_rev"]
+    p0 = t.get_sym(PROGRAM, 0)
+    if p0 == "O":
+        if (t.get_sym(PROGRAM, -1) == "O"
+                and t.get_sym(PROGRAM, +1) == "O"):
+            d0 = t.get_sym(DATA, 0)
+            if d0 != "O":
+                d1_right = t.get_sym(DATA, 1)
+                d1_left = t.get_sym(DATA, -1)
+                if ((0 if d1_left == "O" else 1)
+                        + (0 if d1_right == "O" else 1)) == 1:
+                    if t.choose([(k, True), (1.0, False)]):
                         t.set_sym(PROGRAM, 0, d0)
                         t.set_sym(DATA, 0, "O")
     else:
@@ -203,22 +298,43 @@ register_problem("ex4var1-chemical-turing", _EX4_SYMBOLS)(
 )
 
 
+@register_problem("ex4-chemical-turing-p", _EX4_SYMBOLS,
+                  params={"suppression": _EX4_SUPPRESSION})
+def ex4_chemical_turing_parametric(t, params):
+    """Parametric ex4: the reverse-reaction suppression factor (default
+    0.05) as a run-time rate parameter; keep it in (0, 1) so the
+    enumerated branch structure holds."""
+    s = params["suppression"]
+    _ex4_rule([(1.0 - s, False), (s, True)])(t)
+
+
 # Variant 2: detachable evaluator with free-enthalpy rate bookkeeping. The
 # rate tables are built at registration time with the reference's
-# setup-error checks; the JAX package's branch for traced rate parameters
-# has no counterpart here (the parametric rules are not ported).
+# setup-error checks, and from tensor rate parameters (the parametric
+# replay) without them, as the JAX package builds them from traced ones.
+
+def _min1(x):
+    if isinstance(x, (int, float)):
+        return min(1.0, x)
+    import torch
+
+    return torch.clamp(x, max=1.0)
+
 
 def _ex4var2_tables(beta, G_P, G_X, G_E, G_A, G_B, G_C, G_D):
-    """The delta-G-derived rate tables."""
+    """The delta-G-derived rate tables; the setup-error checks run for
+    concrete (Python number) parameters only."""
+    concrete = all(isinstance(v, (int, float))
+                   for v in (beta, G_P, G_X, G_E, G_A, G_B, G_C, G_D))
     delta_g_fastest = (G_B + G_X) - (G_A + G_P)
 
     def rate_factor(g_left, g_right):
-        r = math.exp(-(beta * (g_right - g_left - delta_g_fastest)))
-        if r > 1.001:
+        r = _exp(-(beta * (g_right - g_left - delta_g_fastest)))
+        if concrete and r > 1.001:
             raise ValueError(
                 "Setup error: Delta-G-fastest not actually fastest."
             )
-        return min(1.0, r)
+        return _min1(r)
 
     def rate_choices(g_left, g_right):
         r = rate_factor(g_left, g_right)
@@ -226,7 +342,7 @@ def _ex4var2_tables(beta, G_P, G_X, G_E, G_A, G_B, G_C, G_D):
 
     r_a = rate_factor(G_E, G_A)
     r_d = rate_factor(G_E, G_D)
-    if r_a + r_d > 1.0:
+    if concrete and r_a + r_d > 1.0:
         raise ValueError(
             "E->A+D rates too high to merge, given Delta-G-fastest."
         )
@@ -309,6 +425,16 @@ _EX4V2_SYMBOLS = ("A", "B", "C", "D", "I", "O", "P", "X", "S", "E")
 @register_problem("ex4var2-chemical-turing", _EX4V2_SYMBOLS)
 def ex4var2_chemical_turing(t):
     _ex4var2_rule(t, _EX4V2_RATES)
+
+
+@register_problem("ex4var2-chemical-turing-p", _EX4V2_SYMBOLS,
+                  params=dict(_EX4V2_G),
+                  prepare=lambda prm: _ex4var2_tables(**prm))
+def ex4var2_chemical_turing_parametric(t, r):
+    """Parametric ex4var2: the free-enthalpy landscape (seven G levels
+    and beta) as run-time rate parameters, the rate tables rebuilt from
+    them once a replay (the ``prepare`` hook)."""
+    _ex4var2_rule(t, r)
 
 
 # --- Example 5: MSRTF machine ------------------------------------------------

@@ -50,6 +50,9 @@ _E5 = np.array(_dc.E5)
 _ERROR_EXPONENT = -1.0 / 8.0
 _SAFETY, _MIN_FACTOR, _MAX_FACTOR = 0.9, 0.2, 10.0
 _RMS, _RMS_DIFF, _ERR, _ERR_H = 0, 1, 2, 3  # modes of `norms`
+# Kvaerno 3(2)'s modes: the Newton step's sum (dz / y_scale)^2 with
+# z += dz, and the embedded error's sum ((y_new - z3) / scale)^2.
+_NEWTON, _ERR_DIFF = 4, 5
 
 # Dormand-Prince 5(4), as the JAX package's `ode/dopri5.py:25-39` writes
 # it (Python floats; B5 and B4 as float64 arrays, the error row their
@@ -71,6 +74,17 @@ DP5_B4 = np.array([5179 / 57600, 0.0, 7571 / 16695, 393 / 640,
 DP5_ERR = DP5_B5 - DP5_B4
 DP5_STAGES = 7
 
+# Kvaerno 3(2) (ESDIRK, explicit first stage, stiffly accurate), as the
+# JAX package's `ode/kvaerno3.py:40-46` writes it: K6's third table.
+KV_GAMMA = 0.435866521508459
+KV_A31 = 0.490563388419108
+KV_A32 = 0.073570090080892
+KV_A41 = 0.308809969973036
+KV_A42 = 1.490563388254106
+KV_A43 = -1.235239879727145
+KV_C = (0.0, 2 * KV_GAMMA, 1.0, 1.0)
+KV_STAGES = 4
+
 
 def _terms(coefs, rows):
     """The nonzero (row, coefficient) terms of a stage combination, in
@@ -82,12 +96,18 @@ def _terms(coefs, rows):
 # state (both methods), 1-11 DOP853's A rows (stage i), 12 B (y_new),
 # 13-15 the extra stages, 16 and 17 the error rows E5 and E3; then
 # dopri5's A rows 1-6 at 18-23 (`DP5_ROWS[i]`), B5 at 24 and the error
-# row B5 - B4 at 25. Each row's terms name logical stages; K6 holds the
-# table in constant memory (`csrc/dop853.cu`).
+# row B5 - B4 at 25; then Kvaerno 3(2)'s stage bases g2, g3, g4 at 26-28
+# (``y + h sum_j a_sj k_j``; g2's row gamma k1) and the Newton
+# predictors ``g + h gamma k_{s-1}`` of stages 3 and 4 at 29 and 30
+# (stage 2's is row 26 on the base g2), `KV_G_ROWS` and `KV_PRED_ROWS`.
+# Each row's terms name logical stages; K6 holds the table in constant
+# memory (`csrc/dop853.cu`).
 _EULER, _B_ROW, _E5_ROW, _E3_ROW = 0, _N_STAGES, 16, 17
 _STAGES = range(_N_EXTENDED)
 DP5_ROWS = (None,) + tuple(range(18, 18 + DP5_STAGES - 1))
 DP5_B5_ROW, DP5_ERR_ROW = 24, 25
+KV_G_ROWS = (None, 26, 27, 28)  # stage s's base g_s
+KV_PRED_ROWS = (None, 26, 29, 30)  # stage s's predictor on g_s
 TABLEAU = tuple(
     [[(0, 1.0)]]
     + [_terms(_A[i, :i], _STAGES[:i]) for i in range(1, _N_STAGES)]
@@ -98,7 +118,10 @@ TABLEAU = tuple(
        _terms(_E3, _STAGES[:_N_STAGES + 1])]
     + [_terms(DP5_A[i], range(i)) for i in range(1, DP5_STAGES)]
     + [_terms(DP5_B5, range(DP5_STAGES)),
-       _terms(DP5_ERR, range(DP5_STAGES))])
+       _terms(DP5_ERR, range(DP5_STAGES))]
+    + [[(0, KV_GAMMA)], [(0, KV_A31), (1, KV_A32)],
+       [(0, KV_A41), (1, KV_A42), (2, KV_A43)],
+       [(1, KV_GAMMA)], [(2, KV_GAMMA)]])
 _MAX_TERMS = 16
 
 
@@ -122,8 +145,8 @@ def tableau_terms(which: int, swap: int = 0, fsal: int = _N_STAGES):
 
 
 def tableau_arrays():
-    """`TABLEAU` as K6 uploads it: int32 term counts [26], int32 stages
-    [26, 16] and float64 coefficients [26, 16], zero past each count."""
+    """`TABLEAU` as K6 uploads it: int32 term counts [31], int32 stages
+    [31, 16] and float64 coefficients [31, 16], zero past each count."""
     count = np.asarray([len(t) for t in TABLEAU], dtype=np.int32)
     rows = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.int32)
     coefs = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.float64)
@@ -238,6 +261,15 @@ def norms_plain(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None,
     as the kernel forms them and summed in its order
     (`cuda.block_order_sum`)."""
     norms_plain.calls += 1
+    if mode == _NEWTON:  # f0 = dz, f1 = z (updated in place)
+        u = f0 / (atol + y.abs() * rtol)
+        f1.add_(f0)
+        return torch.stack([cuda.block_order_sum(u * u),
+                            torch.zeros((), dtype=y.dtype, device=y.device)])
+    if mode == _ERR_DIFF:  # f0 = z3
+        u = (y_new - f0) / (atol + torch.maximum(y.abs(), y_new.abs()) * rtol)
+        return torch.stack([cuda.block_order_sum(u * u),
+                            torch.zeros((), dtype=y.dtype, device=y.device)])
     if mode in (_ERR, _ERR_H):
         scale = atol + torch.maximum(y.abs(), y_new.abs()) * rtol
         if mode == _ERR:
@@ -273,6 +305,11 @@ def norms(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None, ks=None,
       ``rows`` (DOP853's E5 and E3);
     - ``_ERR_H``: sum (h e/scale)^2 with the same scale, e the stage sum
       of the row ``rows[0]`` (dopri5's B5 - B4), and 0;
+    - ``_NEWTON``: sum (dz/scale)^2, scale = atol + |y| rtol, with dz =
+      ``f0``, fused with ``f1 += f0`` (the Newton iterate z = ``f1``
+      updated in place), and 0;
+    - ``_ERR_DIFF``: sum ((y_new - z3)/scale)^2, scale as ``_ERR``'s, z3
+      = ``f0``, and 0 (Kvaerno 3(2)'s embedded error);
 
     stages 0 and ``fsal`` swapped when ``swap``. On a card the sums are a
     view of ``scratch`` (`norm_scratch`; a new one when None), which the
@@ -308,6 +345,36 @@ def norms(mode, y, rtol, atol, *, y_new=None, f0=None, f1=None, ks=None,
 
 
 norms.launches = 0
+
+
+# --- K6: the Newton residual ---------------------------------------------------
+
+
+def resid_plain(z, g, f, hg: float, out):
+    """Plain version of `resid`: ``out = z - hg * f - g``."""
+    resid_plain.calls += 1
+    return torch.sub(z - hg * f, g, out=out)
+
+
+resid_plain.calls = 0
+
+
+def resid(z, g, f, hg: float, out):
+    """K6: an implicit stage's Newton residual phi(z) = z - hg f(z) - g
+    (the JAX package's `ode/kvaerno3.py:64-65`, in its order) into
+    ``out``; one launch."""
+    if not _on_card(z, "resid"):
+        return resid_plain(z, g, f, hg, out)
+    lib = _lib(z.device)
+    with torch.cuda.device(z.device):
+        rc = lib.ckpe_k6_resid(z.data_ptr(), g.data_ptr(), f.data_ptr(), hg,
+                               z.numel(), out.data_ptr(), cuda.stream(z))
+    cuda.check(rc, "resid", lib)
+    resid.launches += 1
+    return out
+
+
+resid.launches = 0
 
 
 # --- K6: continuous output -----------------------------------------------------
@@ -442,6 +509,8 @@ class SolveStats:
     num_sampled: int = 0  # accepted steps that hold samples
     completed: bool = False
     y_final: torch.Tensor | None = None
+    num_newton: int = 0  # Newton iterations (the stiff stepper)
+    num_jvp: int = 0  # J.v products in its Krylov solves
 
 
 class _Stepper:

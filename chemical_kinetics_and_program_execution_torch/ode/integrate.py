@@ -3,13 +3,9 @@
 Counterpart of the JAX package's `ode/integrate.py:solve` with its
 on-device ``"jax"`` backend, here ``"torch"``: the host-stepped steppers
 (`dopri5.odeint_dopri5`, `dop853.odeint_dop853_dense`, the step-clamped
-`dop853.odeint_dop853`), the state on ``device``, in one stepper call or
-in chunks, with checkpoints. (`markov_tapes` keeps the reference's scipy
-solvers.)
-
-Not ported yet: the stiff ``kvaerno3`` and the scipy stiff names that
-map onto it; they raise NotImplementedError naming ROADMAP Queue 1,
-"Derivative-based solvers and instruments".
+`dop853.odeint_dop853`, the stiff `kvaerno3.odeint_kvaerno3`), the state
+on ``device``, in one stepper call or in chunks, with checkpoints.
+(`markov_tapes` keeps the reference's scipy solvers.)
 """
 
 from __future__ import annotations
@@ -25,16 +21,17 @@ import torch
 from ..utils import config
 from .dop853 import odeint_dop853, odeint_dop853_dense
 from .dopri5 import odeint_dopri5
+from .kvaerno3 import odeint_kvaerno3
 
-_UNPORTED = ("is not ported yet (ROADMAP Queue 1, 'Derivative-based solvers "
-             "and instruments': kvaerno3)")
-_NOT_PORTED = {"kvaerno3", "lsoda", "radau", "bdf"}
-# The JAX package's steppers by name (`ode/integrate.py:31-37`): "dop853"
+# The JAX package's steppers by name (`ode/integrate.py:30-38`): "dop853"
 # is the dense-output stepper, "dop853-step" clamps its steps to the
-# sample times. Looked up in globals() at each call, as there, so tests
-# can monkeypatch a stepper.
+# sample times, and the scipy stiff names route to the stiff stepper.
+# Looked up in globals() at each call, as there, so tests can monkeypatch
+# a stepper.
 _STEPPERS = {"dopri5": "odeint_dopri5", "dop853": "odeint_dop853_dense",
-             "dop853-step": "odeint_dop853"}
+             "dop853-step": "odeint_dop853",
+             "kvaerno3": "odeint_kvaerno3", "lsoda": "odeint_kvaerno3",
+             "radau": "odeint_kvaerno3", "bdf": "odeint_kvaerno3"}
 
 
 class _Checkpoint:
@@ -109,7 +106,9 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, backend=None,
     route to DOP853 (``method`` "dop853" or "DOP853"; other scipy names
     such as "RK45" land there too, as in the JAX package), looser ones to
     dopri5 (``method`` "dopri5"); "dop853-step" is the step-clamped
-    DOP853.
+    DOP853; "kvaerno3" and the scipy stiff names "LSODA", "Radau" and
+    "BDF" (any case) the stiff Kvaerno 3(2), whose ``fn`` must take
+    forward-mode duals (the port's dense RHS does).
 
     ``chunk_size`` splits the sample grid into stepper calls of at most
     that many samples, each call restarting the stepper from the state
@@ -135,8 +134,9 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, backend=None,
     ``<checkpoint_path>.y.npy``, which seeds a resume). ``info`` counts
     accepted and rejected steps, RHS calls and the accepted steps that
     hold samples (``num_sampled``: one `dense_eval` launch each on a
-    card); after a resume, RHS calls and sampled steps of this call
-    only.
+    card), and for the stiff stepper its Newton iterations and J.v
+    products (``num_newton``, ``num_jvp``); after a resume, RHS calls and
+    sampled steps of this call only.
 
     ``backend`` is the reference's parameter: ``"jax"`` (its default),
     ``"torch"`` and None all name this solver. ``"scipy"`` raises: its
@@ -155,8 +155,6 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, backend=None,
     name = (method or "").lower()
     if not name:
         name = "dop853" if min(rtol, atol) < 1e-9 else "dopri5"
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"method {name!r} {_UNPORTED}")
     if name not in _STEPPERS:
         name = "dop853"  # scipy method names (DOP853, RK45, ...)
     stepper = globals()[_STEPPERS[name]]
@@ -206,7 +204,7 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, backend=None,
         else:
             parts.append(rows)
         start = 1
-    rhs = sampled = 0
+    rhs = sampled = newton = jvps = 0
     t_begin = time.time()
     while start < n_out:
         stop = min(start + chunk, n_out)
@@ -222,6 +220,8 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, backend=None,
         rej += stats.num_rejected
         rhs += stats.num_rhs
         sampled += stats.num_sampled
+        newton += stats.num_newton
+        jvps += stats.num_jvp
         y = last["y"] if project is not None else out[-1]
         rows = (out if start == 0 else out[1:]).detach().cpu().numpy()
         if ckpt:
@@ -236,6 +236,8 @@ def solve(fn_dy_dt, y0, ts, *, rtol=1e-9, atol=1e-9, backend=None,
     ys = ckpt.finish() if ckpt else np.concatenate(parts)
     info = {"num_accepted": acc, "num_rejected": rej, "num_rhs": rhs,
             "num_sampled": sampled, "completed": True}
+    if _STEPPERS[name] == "odeint_kvaerno3":
+        info.update(num_newton=newton, num_jvp=jvps)
     if project is not None:
         info["y_final"] = y.cpu().numpy()
     return (ys, info) if return_info else ys

@@ -12,7 +12,7 @@ Phases (each prints its wall time; every check raises on failure):
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
 2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2-K10,
-   K12, K13, K15), one for the generated unit (K1 and K11) of each
+   K12, K13, K15, K16, K18-K22, K25, K26), one for the generated unit (K1 and K11) of each
    machine (phase 3's three, ex3 and the fuzz rule of phase 9), one
    for the generated K14 unit of each of ex5's, ex4's and ex2's
    bit-sliced circuits and one for the generated K17 unit of each of the
@@ -275,7 +275,44 @@ Phases (each prints its wall time; every check raises on failure):
    examples/ex2_closure_error.py's rows (cl_k 3 and 4, 41 samples)
    through the port's closure on the card's RHS, within rtol 1e-8, atol
    1e-14 of the same rows on the CPU and within 4e-9 of the
-   committed npz (the JAX package's own CPU run stands 1.4e-9 from it).
+   committed npz (the JAX package's own CPU run stands 1.4e-9 from it);
+14. forward-mode derivatives (K25 `dense_jvp`: K5's kernel in
+   `csrc/dense_rhs.cu` and rule on (value, tangent) pairs; K26
+   `steady_aug` in `csrc/steady_aug.cu`; K6's third table: Kvaerno
+   3(2)'s rows 26-30, the Newton and error sums, the residual; all built
+   with the library in phase 2), each path with every count set to 0
+   just before and read just after, no plain version called: (a) K25
+   against `dense_jvp_plain` bit for bit on ex4 at cl_k 5 and 8, ex4var2
+   at cl_k 5, ex2 at cl_k 8, ex1 at cl_k 3 and ex3's dual program at
+   cl_k 5, each at two positive p (marginally consistent, iid on each
+   tape: every guarded ratio's numerator below its denominator; skewed,
+   the first symbol's law apart from the others': the numerator above
+   the denominator at many ratios) and at a random one with a third of
+   its windows zeroed (ties where a context keeps one live
+   continuation), its value path's dy equal to K5's bits, one K25
+   launch and K3 once a tape a call, a central difference the witness
+   at both positive p (1e-6 of max |J v|), each ratio's distance to a
+   kink of max checked to exceed the step; `torch.func.jvp` of the
+   closure; K25 alone beside K5 at the same p, its bound, its plain
+   version; (b) K26 (both modes) and K6's Kvaerno entries (both swap
+   states) against their plain versions bit for bit at ex4var2 cl_k 5's
+   size, their largest errors recorded, timed, stage g4 beside
+   `torch.addmv`; (c) `solve(method="kvaerno3")` on ex4var2 at cl_k 5
+   from `chemical_turing_v2_p0(5)` to t = 10 (5 samples) within
+   tests/test_ode.py:326's bounds of the port's DOP853, K25 launched
+   once a J v of the solver's count, its steps, Newton iterations and J v
+   printed and a step timed; the same solve with the solver's
+   forward-AD duals through `dense.RHSFunction` instead of the one-launch
+   shortcut, the same bits, ms a step of each; Robertson on the card
+   against scipy's Radau
+   (tests/test_ode.py:290); (d) tests/test_steady.py's steady states
+   through the card's RHS: ex2 at cl_k 3 (Gibbs within 1e-9, residual
+   <= 1e-12), ex1's corner, ex4var2 at cl_k 3 in support mode
+   (residual < 5e-8, dead windows exactly 0), the relaxation modes at
+   ex2 cl_k 3 and ex2 at cl_k 6 (Gibbs within 2e-9), K25 once a J_G v
+   and K26 once a J_G v and a G; (e) examples/ex2_correlations.py's
+   continuation over 11 betas on the card within 1e-9 of its committed
+   npz, its correlator within 1e-6 of the analytic Ising curve to d = 30.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -335,8 +372,21 @@ from chemical_kinetics_and_program_execution_torch.models.initial_states import 
     copolymerization_p0,
     ferromagnet_p0,
 )
+from chemical_kinetics_and_program_execution_torch.engine import (
+    parametric as tparam,
+)
+from chemical_kinetics_and_program_execution_torch.models import ferromagnet
 from chemical_kinetics_and_program_execution_torch.ode import dop853, dopri5
+from chemical_kinetics_and_program_execution_torch.ode import (
+    steady as tsteady,
+)
+from chemical_kinetics_and_program_execution_torch.ode.fixed import (
+    odeint_fixed,
+)
 from chemical_kinetics_and_program_execution_torch.ode.integrate import solve
+from chemical_kinetics_and_program_execution_torch.ode.kvaerno3 import (
+    odeint_kvaerno3,
+)
 from chemical_kinetics_and_program_execution_torch.ops import (
     closure as tclosure,
 )
@@ -5285,6 +5335,733 @@ def thermo_phase(dev, kernels, machines):
     kernels["K23"]["paths"] = paths
 
 
+# --- Phase 14: forward-mode derivatives (K25, K26, K6's Kvaerno rows) -------
+
+K25 = ("K25 dense_jvp", SRC + "dense_rhs.cu",
+       "jax.jvp of the JAX package's engine/dense.py:441 dy_dt_dense at "
+       "ode/steady.py:347,525 and ode/kvaerno3.py:79 (XLA)")
+K26 = ("K26 steady_aug", SRC + "steady_aug.cu",
+       "the JAX package's ode/steady.py:175-183 _ctcp, :232-249 _cons_vals, "
+       "_cons_embed and the normalization (XLA)")
+K6_KV = ("K6 dop853_arith: Kvaerno 3(2) rows, Newton and error sums, "
+         "residual", SRC + "dop853.cu",
+         "the JAX package's ode/kvaerno3.py:54 _newton_stage, :99 "
+         "odeint_kvaerno3 body (XLA)")
+# (tag, cl_k, dual): phase 6's ex4 programs, ex4var2 at cl_k 5 (100,000
+# states), ex2 at cl_k 8, ex1's corner rule and a dual program.
+JVP_CASES = [(EX4, 5, False), (EX4, 8, False), (EX4V2, 5, False),
+             (EX2, 8, False), ("ex1-radioactive-decay", 3, False),
+             (EX3, 5, True)]
+JVP_TIMED = ((EX4, 5), (EX4, 8))  # the kernels line's first, then bracketed
+KV_CL_K = 5
+KV_TS = np.linspace(0.0, 10.0, 5)
+KV_STEADY = dict(ex2=3, ex2_wide=6, ex4v2=3)
+CORR_CL_K, CORR_BETAS = 4, np.linspace(0.2, 1.2, 11)
+CORR_DETAIL, CORR_DS = (0.4, 0.8, 1.2), np.arange(1, 31)
+DERIV_PLAIN = [tdense.dense_jvp_plain, tdense.sweep_plain,
+               tdense.signature_weights_plain, tdense.pyramid_plain,
+               tsteady.steady_aug_plain, dop853.resid_plain, *dop853.PLAIN]
+
+
+def deriv_counts():
+    return {"K25": tdense.dense_jvp.launches, "K26": tsteady.steady_aug.launches,
+            "K3": tdense.pyramid.launches, "K5": tdense.sweep.launches,
+            "K6": sum(f.launches for f in dop853.KERNELS)
+            + dop853.resid.launches,
+            "plain": sum(f.calls for f in DERIV_PLAIN)}
+
+
+def zero_deriv_counts():
+    for f in (tdense.dense_jvp, tsteady.steady_aug, tdense.pyramid,
+              tdense.sweep, dop853.resid, *dop853.KERNELS):
+        f.launches = 0
+    for f in DERIV_PLAIN:
+        f.calls = 0
+
+
+def k25_bytes(dp):
+    """Least bytes of one K25 launch: J v written once; each distinct
+    entry of p and v and of their levels that the live windows read,
+    once; the pair-valued signature weights; the plan."""
+    prog, plan = dp.prog, dp.plan
+    return (8 * prog.state_size + 16 * k5_reads(dp)
+            + 16 * prog.num_signatures + plan.items.nbytes
+            + plan.phase_ptr.nbytes + plan.table.nbytes)
+
+
+def k25_alone(dp, p, low, v, vlow, jdy, work, s):
+    """K25's one cooperative launch (K3 on v done before), as
+    `dense_jvp` makes it."""
+    prog, plan = dp.prog, dp.plan
+    lib = cuda.load()
+    rc = lib.ckpe_dense_jvp(
+        dp.items.data_ptr(), dp.phase_ptr.data_ptr(), plan.num_phases,
+        plan.max_phase, dp.table.data_ptr(), work.data_ptr(),
+        jdy.data_ptr(), None, prog.state_size, p.data_ptr(), low.data_ptr(),
+        v.data_ptr(), vlow.data_ptr(), dp.pair_num.data_ptr(),
+        dp.pair_den.data_ptr(), dp.pair_const.data_ptr(),
+        prog.w_num.shape[1], dp.csr_ptr.data_ptr(), prog.num_signatures,
+        s.data_ptr(), prog.size_a, prog.cl_k, cuda.stream(p))
+    cuda.check(rc, "K25 alone", lib)
+
+
+def iid_state(gen, a, k, tapes, dev):
+    """A positive, marginally consistent state: on each tape the product
+    of k draws of one random symbol distribution. Consistency keeps each
+    guarded ratio's numerator below its denominator: the n < d branch."""
+    out = []
+    for _ in range(tapes):
+        sym = -torch.log1p(-torch.rand(a, generator=gen, device=dev,
+                                       dtype=torch.float64))
+        sym = sym / sym.sum()
+        p = sym
+        for _ in range(k - 1):
+            p = torch.outer(p, sym).reshape(-1)
+        out.append(p)
+    return torch.cat(out)
+
+
+def skewed_state(gen, a, k, tapes, dev):
+    """A positive state whose left and right marginals differ: on each
+    tape the first symbol drawn from q1(x) ~ 0.05^x, the others uniform,
+    each window times a draw from [0.8, 1.2]. A left ratio of level 2 or
+    more is about R = q1(x1) / (A q1(x2)): above 1 by a factor of 2 or
+    more where x2 > x1 (the n > d branch, whose tangent K25 writes as
+    exactly 0), below 1 by a factor of A where x2 <= x1; the noise moves
+    a ratio by at most 1.5x, so no near-tie is left for a central
+    difference to cross (`ratio_margin` checks it on the state drawn).
+    A random SPD's near-ties at cl_k 8's 43 M windows make a central
+    difference cross a kink of max(n, d) somewhere."""
+    q1 = 0.05 ** torch.arange(a, dtype=torch.float64, device=dev)
+    q1 = q1 / q1.sum()
+    flat = torch.full((a,), 1.0 / a, dtype=torch.float64, device=dev)
+    out = []
+    for _ in range(tapes):
+        p = q1
+        for _ in range(k - 1):
+            p = torch.outer(p, flat).reshape(-1)
+        p = p * (0.8 + 0.4 * torch.rand(a**k, generator=gen, device=dev,
+                                        dtype=torch.float64))
+        out.append(p / p.sum())
+    return torch.cat(out)
+
+
+def ratio_margin(dp, p, v, low, vlow):
+    """Every guarded ratio g(n, d) the sweep and K4 can form at ``p`` (on
+    each tape, each level's left ratios and the right ratios; K4's chain
+    pairs), with tangents along ``v``: ``(above, total, margin)``, the
+    ratios with n > d, all of them, and the least of |n - d| / |dn - dd|
+    and n / |dn|. A central difference of step eps crosses no kink of
+    max(n, d), nor n = 0, while eps is below the margin."""
+    prog = dp.prog
+    a, k = prog.size_a, prog.cl_k
+    size = a**k
+
+    def ratios():
+        for t in range(1 + prog.dual):
+            pt, vt = p[t * size:(t + 1) * size], v[t * size:(t + 1) * size]
+            lv = [pt.reshape(a**j, -1).sum(1) for j in range(k)] + [pt]
+            dv = [vt.reshape(a**j, -1).sum(1) for j in range(k)] + [vt]
+            for j in range(1, k + 1):
+                yield lv[j], lv[j - 1].repeat(a), dv[j], dv[j - 1].repeat(a)
+            yield (pt, torch.repeat_interleave(lv[k - 1], a), vt,
+                   torch.repeat_interleave(dv[k - 1], a))
+        pyr, dpyr = torch.cat([p, low]), torch.cat([v, vlow])
+        num, den = dp.pair_num.long(), dp.pair_den.long()
+        yield pyr[num], pyr[den], dpyr[num], dpyr[den]
+
+    above = total = 0
+    margin = math.inf
+    for n, d, dn, dd in ratios():
+        above += int((n > d).sum())
+        total += n.numel()
+        step = (dn - dd).abs()
+        cross = torch.where(step > 0, (n - d).abs() / step, math.inf)
+        zero = torch.where(dn != 0, n / dn.abs(), math.inf)
+        margin = min(margin, float(cross.min()), float(zero.min()))
+    return above, total, margin
+
+
+def jvp_against_plain(dev, gen, record):
+    """(a) K25 against its plain version, bit for bit, on every program of
+    JVP_CASES at two positive p (`iid_state`, every guarded ratio's n
+    below its d; `skewed_state`, n above d at many) and at a random one
+    with a third of its windows zeroed (ties, dead contexts); the value
+    path's dy equal to the RHS's (K5) bits; a central difference as the
+    witness at the positive p, where no kink lies within its step
+    (`ratio_margin`); each call one K25 launch and K3 once a tape on v,
+    counted."""
+    record["K25_fd"] = []
+    for tag, k, dual in JVP_CASES:
+        prog = (tdense.compile_dense_dual(tag, k) if dual
+                else tdense.compile_dense(tag, k))
+        dp = tdense.device_program(prog, dev)
+        n, a = prog.state_size, prog.size_a
+        tapes = 1 + dual
+        for which in ("consistent", "skewed", "zeroed"):
+            if which == "consistent":
+                p = iid_state(gen, a, k, tapes, dev)
+            elif which == "skewed":
+                p = skewed_state(gen, a, k, tapes, dev)
+            else:
+                p = device_spd(gen, n, dev)
+                p = torch.where(torch.rand(n, generator=gen, device=dev,
+                                           dtype=torch.float64) < 1 / 3,
+                                0.0, p)
+                p = p / p.sum()
+            z = torch.randn(n, generator=gen, device=dev,
+                            dtype=torch.float64)
+            v = z / n if which == "zeroed" else z * p
+            low = tdense.pyramids(prog, p)
+            zero_deriv_counts()
+            jv = tdense.dense_jvp(dp, p, v, low)
+            c = deriv_counts()
+            want = {"K25": 1, "K3": tapes * tdense.pyramid_launches(a, k)}
+            if c["K25"] != 1 or c["K3"] != want["K3"] or c["plain"]:
+                raise AssertionError(f"{tag} cl_k {k}: launches {c}, want "
+                                     f"{want}")
+            plain = tdense.dense_jvp_plain(dp, p, v, low)
+            dy, jv2 = tdense.dense_jvp(dp, p, v, low, value=True)
+            rhs = tdense.dense_rhs(dp, p)
+            torch.cuda.synchronize()
+            record["K25"] = max(record["K25"],
+                                float((jv - plain).abs().max()))
+            if not (torch.equal(jv, plain) and torch.equal(jv2, jv)
+                    and torch.equal(dy, rhs)):
+                raise AssertionError(f"K25 != plain on {tag} cl_k {k} "
+                                     f"({which})")
+            extra = ""
+            if which != "zeroed":
+                eps = 1e-6
+                above, total, margin = ratio_margin(
+                    dp, p, v, low, tdense.pyramids(prog, v))
+                if not margin > 2 * eps:
+                    raise AssertionError(f"{tag} cl_k {k} ({which}): a kink "
+                                         f"within {margin} of p along v")
+                if which == "skewed" and not above:
+                    raise AssertionError(f"{tag} cl_k {k}: no n > d")
+                fd = (tdense.dense_rhs(dp, p + eps * v)
+                      - tdense.dense_rhs(dp, p - eps * v)) / (2 * eps)
+                scale = float(jv.abs().max())
+                fd_err = float((jv - fd).abs().max())
+                record["K25_fd"].append(dict(
+                    program=f"{tag} cl_k {k}", state=which,
+                    rel_err=fd_err / scale, n_above_d=above, ratios=total,
+                    kink_margin=margin))
+                if not fd_err <= 1e-6 * scale:
+                    raise AssertionError(f"{tag} cl_k {k} ({which}): J v "
+                                         f"against the central difference "
+                                         f"{fd_err} of {scale}")
+                extra = (f"; central difference within {fd_err / scale:.2e}"
+                         f" (n > d at {above} of {total} ratios, the "
+                         f"nearest kink {margin:.2e} away, eps {eps:g})")
+            ties = 0
+            if which == "zeroed" and not dual:
+                lv = tdense.levels(p, low, a, k)
+                ties = int((lv[k] == torch.repeat_interleave(lv[k - 1], a))
+                           .logical_and(lv[k] > 0).sum())
+            say(f"K25 {tag} cl_k {k}{' dual' if dual else ''} ({n} states, "
+                f"{which}, {ties} ties at the last level): == plain bit for "
+                f"bit, dy == K5's{extra}; launches K25 1, K3 {c['K3']}")
+            if (tag, k) in JVP_TIMED and which == "consistent" and not dual:
+                time_k25(dp, p, low, v, record)
+            del p, v, low, jv, plain, dy, jv2, rhs
+        del dp
+        torch.cuda.empty_cache()
+    # The closure under torch.func.jvp (the Function's rule launches K25).
+    prog = tdense.compile_dense(EX4, 5)
+    fn = tdense.make_dense_dy_dt(prog, device=dev)
+    p = device_spd(gen, prog.state_size, dev)
+    v = torch.randn(prog.state_size, generator=gen, device=dev,
+                    dtype=torch.float64) * p
+    zero_deriv_counts()
+    dy, jv = torch.func.jvp(fn, (p,), (v,))
+    c = deriv_counts()
+    if not (c["K25"] == 1 and c["K5"] == 1 and c["plain"] == 0
+            and torch.equal(jv, tdense.dense_jvp_plain(fn.device_program, p,
+                                                       v))
+            and torch.equal(dy, fn(p))):
+        raise AssertionError(f"torch.func.jvp through the closure: {c}")
+    say(f"torch.func.jvp of the ex4 cl_k 5 closure: forward K3 + K5, J v by "
+        f"K25 ({c}), == plain bit for bit")
+
+
+def time_k25(dp, p, low, v, record):
+    """K25 alone and with K3 on v, beside K5 at the same p, the bound and
+    the plain version."""
+    prog = dp.prog
+    vlow = tdense.pyramids(prog, v)
+    jdy = torch.empty_like(p)
+    work = torch.empty(2 * max(dp.plan.work_size, 1), dtype=torch.float64,
+                       device=p.device)
+    s = torch.empty(2 * prog.num_signatures, dtype=torch.float64,
+                    device=p.device)
+    k25_alone(dp, p, low, v, vlow, jdy, work, s)
+    if not torch.equal(jdy, tdense.dense_jvp(dp, p, v, low)):
+        raise AssertionError("K25 alone != dense_jvp")
+    ms = cuda_ms(lambda: k25_alone(dp, p, low, v, vlow, jdy, work, s), 50)
+    call_ms = cuda_ms(lambda: tdense.dense_jvp(dp, p, v, low), 50)
+    k5_ms = cuda_ms(lambda: tdense.sweep(dp, p, low), 50)
+    rhs_ms = cuda_ms(lambda: tdense.dense_rhs(dp, p), 50)
+    plain_ms = cuda_ms(lambda: tdense.dense_jvp_plain(dp, p, v, low), 2,
+                       warmup=1)
+    bound = k25_bytes(dp) / HBM_BYTES_PER_S * 1e3
+    paced = wall_ms(lambda: tdense.dense_jvp(dp, p, v, low), 50)
+    tag, k = prog.tag, prog.cl_k
+    record.setdefault("K25_times", {})[k] = dict(
+        ms=ms, call_ms=call_ms, k5_ms=k5_ms, rhs_ms=rhs_ms,
+        plain_ms=plain_ms, bound_ms=bound, paced_ms=paced,
+        bytes=k25_bytes(dp))
+    say(f"K25 {tag} cl_k {k}: {ms * 1e3:.2f} us alone ({call_ms * 1e3:.2f} us "
+        f"with K3 on v, {paced * 1e3:.2f} us as the host paces the call), "
+        f"K5 at the same p {k5_ms * 1e3:.2f} us (the RHS {rhs_ms * 1e3:.2f} "
+        f"us); bound {bound * 1e3:.3f} us ({k25_bytes(dp) / 1e6:.3f} MB at "
+        f"3.35 TB/s); plain {plain_ms:.2f} ms; library: none")
+
+
+def aug_and_kvaerno_against_plain(dev, gen, record):
+    """(b) K26 (both modes) and K6's third table (rows 26-30, both swap
+    states; the Newton and error sums; the residual) against their plain
+    versions bit for bit at ex4var2 cl_k 5's size, twice the same bits,
+    the largest error of each recorded; each timed beside its bound and
+    plain version, and stage g4 beside `torch.addmv`."""
+    a, k = 10, KV_CL_K
+    n = a**k
+    x = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    w = torch.linalg.qr(torch.randn(a, 2, generator=gen, device=dev,
+                                    dtype=torch.float64))[0].T.contiguous()
+    c_norm = float(a) ** ((k - 1) / 2.0)
+    err26 = 0.0
+    for mode in (0, 1):
+        got = tsteady.steady_aug(x, a, k, w, c_norm, mode)
+        again = tsteady.steady_aug(x, a, k, w, c_norm, mode)
+        want = tsteady.steady_aug_plain(x, a, k, w, c_norm, mode)
+        err26 = max(err26, float((got - want).abs().max()),
+                    float((again - want).abs().max()))
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            raise AssertionError(f"K26 mode {mode} != plain")
+    record["K26"] = err26
+    low = tdense.pyramid(x, a, k)
+    scratch = torch.empty(n // a + a + 1, dtype=torch.float64, device=dev)
+    out = torch.empty_like(x)
+
+    def k26_alone():
+        lib = cuda.load()
+        rc = lib.ckpe_steady_aug(x.data_ptr(), low.data_ptr(), a, k,
+                                 w.data_ptr(), 2, c_norm, 0,
+                                 scratch.data_ptr(), out.data_ptr(),
+                                 cuda.stream(x))
+        cuda.check(rc, "K26 alone", lib)
+
+    k26_bytes = 8 * (2 * n + low.numel())
+    t = dict(ms=cuda_ms(k26_alone, 100),
+             call_ms=cuda_ms(lambda: tsteady.steady_aug(x, a, k, w, c_norm),
+                             100),
+             plain_ms=cuda_ms(lambda: tsteady.steady_aug_plain(
+                 x, a, k, w, c_norm), 3, warmup=1),
+             bound_ms=k26_bytes / HBM_BYTES_PER_S * 1e3, bytes=k26_bytes)
+    record["K26_times"] = t
+    say(f"K26 (n = {n}, 2 conserved weights) == plain bit for bit in both "
+        f"modes, twice: {t['ms'] * 1e3:.2f} us alone (two launches), "
+        f"{t['call_ms'] * 1e3:.2f} us with K3 on x; bound "
+        f"{t['bound_ms'] * 1e3:.2f} us; plain {t['plain_ms']:.3f} ms")
+    y, y_new, dz, f, g = (torch.randn(n, generator=gen, device=dev,
+                                      dtype=torch.float64) for _ in range(5))
+    ks = dop853.rows_tensor(4, n, dev)
+    ks.copy_(torch.randn((4, n), generator=gen, device=dev,
+                         dtype=torch.float64))
+    out2 = torch.empty_like(y)
+
+    def diff(x, y):
+        return float((x - y).abs().max())
+
+    err6 = 0.0
+    for which in (26, 27, 28, 29, 30):
+        for swap in (0, 1):
+            dop853.stage(y, ks, 0.37, which, out, swap, 3)
+            dop853.stage_plain(y, ks, 0.37, dop853.tableau_terms(
+                which, swap, 3), out2)
+            err6 = max(err6, diff(out, out2))
+            if not torch.equal(out, out2):
+                raise AssertionError(f"K6 row {which} swap {swap} != plain")
+    rtol, atol = 1e-8, 1e-10
+    for mode, kw in ((dop853._NEWTON, dict(f0=dz)),
+                     (dop853._ERR_DIFF, dict(y_new=y_new, f0=dz))):
+        z1, z2 = g.clone(), g.clone()
+        got = dop853.norms(mode, y, rtol, atol, f1=z1, **kw).clone()
+        want = dop853.norms_plain(mode, y, rtol, atol, f1=z2, **kw)
+        err6 = max(err6, diff(got, want), diff(z1, z2))
+        if not (torch.equal(got, want) and torch.equal(z1, z2)):
+            raise AssertionError(f"K6 norms mode {mode} != plain")
+    dop853.resid(y, g, f, 0.25, out)
+    want = dop853.resid_plain(y, g, f, 0.25, out2)
+    err6 = max(err6, diff(out, want))
+    if not torch.equal(out, want):
+        raise AssertionError("K6 resid != plain")
+    record["K6_kv"] = err6
+    # Stage g4 as one library call: y + h (a41 k1 + a42 k2 + a43 k3).
+    coef = torch.tensor([c for _, c in dop853.TABLEAU[28]],
+                        dtype=torch.float64, device=dev)
+    lib_g4 = torch.addmv(y, ks[:3].T, coef, alpha=0.37)
+    dop853.stage(y, ks, 0.37, 28, out)
+    if not torch.allclose(lib_g4, out, rtol=RHS_RTOL, atol=RHS_ATOL):
+        raise AssertionError("torch.addmv yardstick != Kvaerno's stage g4")
+    scratch6 = dop853.norm_scratch(dev)
+    zc = g.clone()
+    # (kernel, vectors moved, plain version, one library call or None).
+    # No single call forms the Newton sum fused with z += dz, the scaled
+    # error sum or the residual z - h gamma f - g: each takes a
+    # quotient or a subtraction before its reduction or a second call.
+    times = {
+        "stage g4 (row 28)": (lambda: dop853.stage(y, ks, 0.37, 28, out), 5,
+                              lambda: dop853.stage_plain(
+                                  y, ks, 0.37, dop853.tableau_terms(28),
+                                  out2),
+                              lambda: torch.addmv(y, ks[:3].T, coef,
+                                                  alpha=0.37)),
+        "Newton sum + update": (lambda: dop853.norms(
+            dop853._NEWTON, y, rtol, atol, f0=dz, f1=zc, scratch=scratch6),
+            4, lambda: dop853.norms_plain(dop853._NEWTON, y, rtol, atol,
+                                          f0=dz, f1=zc), None),
+        "embedded error sum": (lambda: dop853.norms(
+            dop853._ERR_DIFF, y, rtol, atol, y_new=y_new, f0=dz,
+            scratch=scratch6), 3, lambda: dop853.norms_plain(
+                dop853._ERR_DIFF, y, rtol, atol, y_new=y_new, f0=dz), None),
+        "residual": (lambda: dop853.resid(y, g, f, 0.25, out), 4,
+                     lambda: dop853.resid_plain(y, g, f, 0.25, out2), None),
+    }
+    record["K6_times"] = {}
+    for name, (fn, vecs, plain, library) in times.items():
+        t = dict(ms=cuda_ms(fn, 200), plain_ms=cuda_ms(plain, 5),
+                 bound_ms=8 * vecs * n / HBM_BYTES_PER_S * 1e3,
+                 library_ms=None if library is None
+                 else cuda_ms(library, 200))
+        record["K6_times"][name] = t
+        lib_say = ("none" if library is None
+                   else f"torch.addmv {t['library_ms'] * 1e3:.2f} us")
+        say(f"K6 Kvaerno {name} (n = {n}): == plain bit for bit; "
+            f"{t['ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us "
+            f"({vecs} vectors), plain {t['plain_ms'] * 1e3:.2f} us; "
+            f"library {lib_say}")
+
+
+def _rob(y, t):
+    d1 = -0.04 * y[0] + 1e4 * y[1] * y[2]
+    d3 = 3e7 * y[1] * y[1]
+    return torch.stack([d1, -d1 - d3, d3])
+
+
+def stiff_runs(dev, record):
+    """(c) kvaerno3 on ex4var2 at cl_k 5 through `solve` against the port's
+    DOP853 (`tests/test_ode.py:326`'s bounds), K25 launched once a J v
+    of the solver's count and no plain version called; Robertson against
+    scipy's Radau (`tests/test_ode.py:290`)."""
+    import scipy.integrate
+
+    prog = tdense.compile_dense(EX4V2, KV_CL_K)
+    fn = tdense.make_dense_dy_dt(prog, device=dev)
+    p0 = chemical_turing_v2_p0(KV_CL_K).ravel()
+    zero_deriv_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ys, info = solve(lambda y, t: fn(y), p0, KV_TS, rtol=1e-8, atol=1e-10,
+                     method="kvaerno3", device=dev, return_info=True)
+    seconds = time.perf_counter() - t0
+    c = deriv_counts()
+    if c["K25"] != info["num_jvp"] or c["plain"] or not c["K6"]:
+        raise AssertionError(f"kvaerno3: launches {c}, J v {info}")
+    ref = solve(lambda y, t: fn(y), p0, KV_TS, rtol=1e-10, atol=1e-12,
+                device=dev)
+    err = float(np.max(np.abs(ys - ref) / (1e-9 + 2e-6 * np.abs(ref))))
+    np.testing.assert_allclose(ys, ref, rtol=2e-6, atol=1e-9)
+    np.testing.assert_allclose(ys.sum(axis=1), 1.0, rtol=1e-7)
+    steps = info["num_accepted"] + info["num_rejected"]
+    routes = dual_routes(fn, p0, ys, dev)
+    record["kvaerno"] = dict(info=info, seconds=seconds, launches=c,
+                             ms_per_step=seconds * 1e3 / steps,
+                             dual_routes=routes)
+    say(f"kvaerno3 ex4var2 cl_k {KV_CL_K} ({prog.state_size} states) to t="
+        f"{KV_TS[-1]:g}: {info['num_accepted']} accepted, "
+        f"{info['num_rejected']} rejected, {info['num_newton']} Newton "
+        f"iterations, {info['num_jvp']} J v (K25 {c['K25']}, K3 {c['K3']}, "
+        f"K5 {c['K5']}, K6 {c['K6']}, plain 0) in {seconds:.2f} s "
+        f"({seconds * 1e3 / steps:.1f} ms a step); against DOP853 at "
+        f"1e-10/1e-12 within {err:.3f} of rtol 2e-6 + atol 1e-9")
+    ts = np.array([0.0, 1e-2, 1.0, 1e2, 1e4])
+    y0 = np.array([1.0, 0.0, 0.0])
+    t0 = time.perf_counter()
+    yr, rinfo = odeint_kvaerno3(_rob, torch.as_tensor(y0, device=dev), ts,
+                                (1e-8, 1e-10))
+    rs = time.perf_counter() - t0
+    want = scipy.integrate.solve_ivp(
+        lambda t, y: _rob(torch.as_tensor(y), t).numpy(), (0, 1e4), y0,
+        t_eval=ts, rtol=1e-10, atol=1e-12, method="Radau").y.T
+    if not (rinfo.completed and rinfo.num_accepted < 10_000):
+        raise AssertionError(f"Robertson: {rinfo}")
+    np.testing.assert_allclose(yr.cpu().numpy()[1:], want[1:], rtol=1e-6,
+                               atol=1e-12)
+    say(f"Robertson on the card: {rinfo.num_accepted} accepted, "
+        f"{rinfo.num_rejected} rejected, {rinfo.num_jvp} J v in {rs:.2f} s; "
+        f"== scipy Radau within rtol 1e-6, atol 1e-12")
+
+
+def dual_routes(fn, p0, ys, dev):
+    """The same kvaerno3 solve with the solvers' forward-AD duals answered
+    two ways: by one K25 launch that returns dp/dt and J v
+    (`dense.rhs_fn`'s shortcut), and through `dense.RHSFunction` (K3 and
+    K5 forward, then K3 on v and K25), in the order shortcut, Function,
+    Function, shortcut. Both give the solve's bits; ms a step on the
+    host's clock, the card drained at the end of each."""
+    out = {"shortcut": [], "function": []}
+    shortcut = tdense.forward_dual
+    for route in ("shortcut", "function", "function", "shortcut"):
+        tdense.forward_dual = (shortcut if route == "shortcut"
+                               else lambda p: None)
+        try:
+            zero_deriv_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, info = solve(lambda y, t: fn(y), p0, KV_TS, rtol=1e-8,
+                              atol=1e-10, method="kvaerno3", device=dev,
+                              return_info=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            tdense.forward_dual = shortcut
+        c = deriv_counts()
+        if not np.array_equal(got, ys) or c["plain"]:
+            raise AssertionError(f"kvaerno3 by the {route} route differs: "
+                                 f"{c}")
+        steps = info["num_accepted"] + info["num_rejected"]
+        out[route].append(dict(ms_per_step=ms / steps, K25=c["K25"],
+                               K5=c["K5"], K3=c["K3"]))
+    a = [r["ms_per_step"] for r in out["shortcut"]]
+    b = [r["ms_per_step"] for r in out["function"]]
+    say(f"kvaerno3's J v by route, ms a step (shortcut, Function, Function, "
+        f"shortcut): {a[0]:.2f}, {b[0]:.2f}, {b[1]:.2f}, {a[1]:.2f}; "
+        f"launches a solve: shortcut K25 {out['shortcut'][0]['K25']}, K5 "
+        f"{out['shortcut'][0]['K5']}; Function K25 "
+        f"{out['function'][0]['K25']}, K5 {out['function'][0]['K5']}; the "
+        f"same bits")
+    return out
+
+
+def steady_checks(label, info, c, extra=""):
+    """K25 once a J_G v, K26 once a J_G v and a G, no plain version."""
+    if (c["K25"] != info.matvecs or c["K26"] != info.matvecs + info.residuals
+            or c["plain"]):
+        raise AssertionError(f"{label}: launches {c}, {info}")
+    say(f"{label}: {info.iterations} PTC iterations, residual "
+        f"{info.residual:.3e}, {info.matvecs} J_G v (K25 {c['K25']}), "
+        f"{info.residuals} G (K26 {c['K26']} = J_G v + G){extra}")
+
+
+def steady_runs(dev, record):
+    """(d) the steady states of `tests/test_steady.py` through the card's
+    RHS, Gibbs from the port's `ising_gibbs_windows`."""
+    k = KV_STEADY["ex2"]
+    gibbs = ferromagnet.ising_gibbs_windows(k, J_eff=2.0, h=-0.25, beta=1.0)
+    zero_deriv_counts()
+    p_inf, info = tsteady.steady_state(EX2, k, np.full(2**k, 2.0**-k),
+                                       warm_t=5.0, device=dev)
+    c = deriv_counts()
+    err = float(np.abs(p_inf.cpu().numpy() - gibbs).max())
+    if not (info.converged and info.residual <= 1e-12 and err <= 1e-9):
+        raise AssertionError(f"ex2 cl_k {k}: {info}, Gibbs {err}")
+    steady_checks(f"ex2 cl_k {k} from uniform", info, c,
+                  f"; Gibbs within {err:.2e}")
+    record["steady"] = [(f"ex2 cl_k {k}", info, c)]
+    zero_deriv_counts()
+    p_inf, info = tsteady.steady_state("ex1-radioactive-decay", k,
+                                       np.full(2**k, 2.0**-k), warm_t=10.0,
+                                       device=dev)
+    c = deriv_counts()
+    if not (info.converged and abs(float(p_inf[0]) - 1) <= 1e-10
+            and float(p_inf[1:].abs().max()) < 1e-10):
+        raise AssertionError(f"ex1's corner: {info}")
+    steady_checks(f"ex1 cl_k {k} corner", info, c)
+    record["steady"].append((f"ex1 cl_k {k}", info, c))
+    k4 = KV_STEADY["ex4v2"]
+    fn, _ = tengine.build_dy_dt(EX4V2, k4, device=dev)
+    p0 = torch.as_tensor(chemical_turing_v2_p0(k4).ravel(), device=dev)
+    pw = torch.clamp(odeint_fixed(lambda y, t: fn(y), p0, [0.0, 1e3],
+                                  n_sub=200)[-1], min=0.0)
+    zero_deriv_counts()
+    solve_s = tsteady.make_steady_state(
+        lambda p, a: fn(p), size_a=10, cl_k=k4, conserved="support",
+        support_guess=pw.cpu().numpy(), delta0=1e12, max_iter=150,
+        gmres_restart=60, gmres_maxiter=4, device=dev)
+    p_inf, info = solve_s(pw, None)
+    c = deriv_counts()
+    dead = pw <= 1e-20
+    if not (info.residual < 5e-8 and float(p_inf[dead].abs().max()) == 0.0
+            and abs(float(p_inf.sum()) - 1) < 1e-6):
+        raise AssertionError(f"ex4var2 support mode: {info}")
+    steady_checks(f"ex4var2 cl_k {k4} support mode", info, c,
+                  f"; {int(dead.sum())} dead windows exactly 0")
+    record["steady"].append((f"ex4var2 cl_k {k4} support", info, c))
+    fn2, _ = tengine.build_dy_dt(EX2, k, device=dev)
+    zero_deriv_counts()
+    lams, resids = tsteady.relaxation_modes(
+        lambda p, a: fn2(p), torch.as_tensor(gibbs, device=dev), size_a=2,
+        cl_k=k, n_modes=4, krylov_m=8, device=dev)
+    tau = -1.0 / np.real(lams[0])
+    if not (np.all(resids < 1e-8) and np.all(np.real(lams) < 0)
+            and 50 < tau < 5000):
+        raise AssertionError(f"relaxation modes {lams} {resids}")
+    say(f"relaxation modes ex2 cl_k {k}: lambda {np.round(lams, 6)}, "
+        f"residuals < {resids.max():.1e}, tau {tau:.1f}; "
+        f"K25 {deriv_counts()['K25']}, K26 {deriv_counts()['K26']}")
+    kw = KV_STEADY["ex2_wide"]
+    gw = ferromagnet.ising_gibbs_windows(kw, J_eff=2.0, h=-0.25, beta=1.0)
+    zero_deriv_counts()
+    t0 = time.perf_counter()
+    p_inf, info = tsteady.steady_state(EX2, kw, np.full(2**kw, 2.0**-kw),
+                                       warm_t=5.0, device=dev)
+    seconds = time.perf_counter() - t0
+    c = deriv_counts()
+    err = float(np.abs(p_inf.cpu().numpy() - gw).max())
+    if not (info.converged and err <= 2e-9):
+        raise AssertionError(f"ex2 cl_k {kw}: {info}, Gibbs {err}")
+    steady_checks(f"ex2 cl_k {kw} from uniform", info, c,
+                  f"; Gibbs within {err:.2e}; {seconds:.2f} s")
+    record["steady"].append((f"ex2 cl_k {kw}", info, c))
+
+
+def analytic_ising(beta, j_eff=2.0, h=-0.25):
+    """`examples/ex2_correlations.py:analytic_ising`: (m, amp, ratio) with
+    C(d) = amp ratio^d for the 2 x 2 transfer matrix."""
+    s = np.array([-1.0, 1.0])
+    T = np.exp(beta * (j_eff * np.outer(s, s)
+                       + 0.5 * h * (s[:, None] + s[None, :])))
+    lam, u = np.linalg.eigh(T)
+    order = np.argsort(lam)[::-1]
+    lam, u = lam[order], u[:, order]
+    m = float(u[:, 0] @ (s * u[:, 0]))
+    amp = float(u[:, 0] @ (s * u[:, 1])) ** 2
+    return m, amp, lam[1] / lam[0]
+
+
+def correlations_example(dev, record):
+    """(e) `examples/ex2_correlations.py`'s continuation through the port
+    on the card: every solve converges, the 11 SPDs within 1e-9 of the
+    committed npz, the correlator on the analytic Ising curve within
+    1e-6 out to d = 30 (the example's own gate)."""
+    from chemical_kinetics_and_program_execution_torch.ops import (
+        correlations as tcorr,
+    )
+
+    pd = tparam.ParametricDense("ex2-ferromagnetic-chain-p", CORR_CL_K,
+                                device=dev)
+    defaults = pd.problem.param_defaults
+    solve_c = tsteady.make_steady_state(
+        lambda p, w: pd.dy_dt(p, w), size_a=2, cl_k=CORR_CL_K, tol=1e-13,
+        probe_args=pd.consts(defaults), device=dev)
+    zero_deriv_counts()
+    t0 = time.perf_counter()
+    spds, guess, its = [], torch.full((2**CORR_CL_K,), 2.0**-CORR_CL_K,
+                                      dtype=torch.float64, device=dev), []
+    matvecs = residuals = 0
+    for beta in CORR_BETAS:
+        prm = dict(defaults)
+        prm["beta"] = float(beta)
+        p_inf, info = solve_c(guess, pd.consts(prm))
+        if not info.converged:
+            raise AssertionError(f"no convergence at beta={beta:g}")
+        spds.append(p_inf.cpu().numpy())
+        its.append(info.iterations)
+        matvecs += info.matvecs
+        residuals += info.residuals
+        guess = p_inf
+    seconds = time.perf_counter() - t0
+    c = deriv_counts()
+    if (c["K25"] != matvecs or c["K26"] != matvecs + residuals
+            or c["plain"]):
+        raise AssertionError(f"ex2_correlations: launches {c}")
+    spds = np.stack(spds)
+    want = np.load(EXAMPLES / "ex2_correlations.npz")["spds"]
+    err = float(np.abs(spds - want).max())
+    if not err <= 1e-9:
+        raise AssertionError(f"ex2_correlations: {err} from the npz")
+    spin = {(0,): -1.0, (1,): 1.0}
+    worst = 0.0
+    for beta in CORR_DETAIL:
+        bi = int(np.argmin(np.abs(CORR_BETAS - beta)))
+        got = tcorr.observable_correlation(
+            spds[bi].reshape((2,) * CORR_CL_K), spin, spin, CORR_DS)
+        _, amp, ratio = analytic_ising(CORR_BETAS[bi])
+        worst = max(worst, float(np.max(np.abs(
+            got - amp * ratio ** CORR_DS.astype(float)))))
+    if not worst < 1e-6:
+        raise AssertionError(f"correlator off the analytic curve: {worst}")
+    record["correlations"] = dict(seconds=seconds, launches=c, its=its)
+    say(f"ex2_correlations through the port: 11 betas in {seconds:.2f} s "
+        f"(PTC iterations {its}), K25 {c['K25']}, K26 {c['K26']}; SPDs "
+        f"within {err:.2e} of examples/ex2_correlations.npz; correlator "
+        f"within {worst:.2e} of the analytic curve out to d = 30")
+
+
+def deriv_phase(dev, kernels):
+    """Phase 14: (a)-(e) above, and the `kernels` line's K25, K26 and K6
+    Kvaerno entries."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    record = {"K25": 0.0}
+    jvp_against_plain(dev, gen, record)
+    aug_and_kvaerno_against_plain(dev, gen, record)
+    stiff_runs(dev, record)
+    steady_runs(dev, record)
+    correlations_example(dev, record)
+    times25 = record["K25_times"]
+    t25 = times25[JVP_TIMED[0][1]]
+    t26, kv = record["K26_times"], record["kvaerno"]
+    steady = {label: {"iterations": info.iterations,
+                      "residual": info.residual, "matvecs": info.matvecs,
+                      "residuals": info.residuals, "K25": c["K25"],
+                      "K26": c["K26"]}
+              for label, info, c in record["steady"]}
+    kernels["K25"] = {
+        "name": K25[0], "route": "cuda", "source": K25[1],
+        "replaces": K25[2], "launches": kv["launches"]["K25"],
+        "max_abs_err": record["K25"],
+        "match": "bit-identical to dense_jvp_plain on every JVP_CASES "
+                 "program at a positive and a zeroed p",
+        "ms": t25["ms"], "plain_ms": t25["plain_ms"],
+        "bound_ms": t25["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "with_k3_on_v_ms": t25["call_ms"],
+        "k5_same_p_ms": t25["k5_ms"], "rhs_same_p_ms": t25["rhs_ms"],
+        "paced_ms": t25["paced_ms"], "steady": steady,
+        "central_difference": record["K25_fd"],
+        "by_cl_k": {str(k): t for k, t in times25.items()},
+        "correlations": record["correlations"]["launches"]["K25"]}
+    kernels["K26"] = {
+        "name": K26[0], "route": "cuda", "source": K26[1],
+        "replaces": K26[2],
+        "launches": sum(v["K26"] for v in steady.values())
+        + record["correlations"]["launches"]["K26"],
+        "max_abs_err": record["K26"], "match": "bit-identical, both modes",
+        "ms": t26["ms"], "plain_ms": t26["plain_ms"],
+        "bound_ms": t26["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "with_k3_ms": t26["call_ms"]}
+    k6 = record["K6_times"]
+    kernels["K6_kvaerno"] = {
+        "name": K6_KV[0], "route": "cuda", "source": K6_KV[1],
+        "replaces": K6_KV[2], "launches": kv["launches"]["K6"],
+        "max_abs_err": record["K6_kv"],
+        "match": "bit-identical: rows 26-30, both swaps; Newton and error "
+                 "sums; residual",
+        "ms": k6["Newton sum + update"]["ms"],
+        "plain_ms": k6["Newton sum + update"]["plain_ms"],
+        "bound_ms": k6["Newton sum + update"]["bound_ms"],
+        "bound_by": "bytes", "library_ms": None, "entries": k6,
+        "kvaerno3": {"accepted": kv["info"]["num_accepted"],
+                     "rejected": kv["info"]["num_rejected"],
+                     "newton": kv["info"]["num_newton"],
+                     "jvp": kv["info"]["num_jvp"],
+                     "seconds": kv["seconds"],
+                     "ms_per_step": kv["ms_per_step"],
+                     "dual_routes": kv["dual_routes"]}}
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -5310,7 +6087,8 @@ def main(dev=None):
         machines = {tag: ens.compile_decision_machine(tag)
                     for tag in TAGS + LATTICE_TAGS + [EX4V2]
                     + [register_fuzz(0, 2, True)]}
-        jobs = {"K2-K10, K12, K13, K15 (csrc/*.cu)": cuda.build,
+        jobs = {"K2-K10, K12, K13, K15, K16, K18-K22, K25, K26 "
+                "(csrc/*.cu)": cuda.build,
                 "expander (csrc/expander.cc, g++)": native.build}
         for tag, dm in machines.items():
             src = k1_source.k1_source(dm)
@@ -5675,6 +6453,9 @@ def main(dev=None):
 
     with Phase("13 thermodynamics (K23, K24) and the host instruments"):
         thermo_phase(dev, kernels, machines)
+
+    with Phase("14 forward-mode derivatives (K25, K26, K6's Kvaerno rows)"):
+        deriv_phase(dev, kernels)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

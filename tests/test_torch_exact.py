@@ -484,10 +484,11 @@ def test_tableau_equals_the_stage_terms():
     `_terms` of the initial step, A's rows 1-11, B, the extra rows and
     E5/E3 over the stage rows in use, in both states of the first-same-
     as-last swap (`tableau_terms`); dopri5's rows 18-25 follow them
-    (`tests/test_torch_solvers.py`)."""
+    (`tests/test_torch_solvers.py`), and Kvaerno 3(2)'s rows 26-30
+    (`tests/test_torch_steady.py`)."""
     count, rows, coefs = t_dop.tableau_arrays()
     assert count.dtype == np.int32 and coefs.dtype == np.float64
-    assert rows.shape == coefs.shape == (len(t_dop.TABLEAU), 16) == (26, 16)
+    assert rows.shape == coefs.shape == (len(t_dop.TABLEAU), 16) == (31, 16)
     for which, terms in enumerate(t_dop.TABLEAU):
         k = count[which]
         assert list(zip(rows[which, :k].tolist(),
@@ -617,8 +618,11 @@ def test_pyramid_ratios_and_signature_weights_match_jax(tag, cl_k):
 
 def test_unported_exact_paths_raise(monkeypatch, capsys):
     """The stiff stepper kvaerno3 and the scipy names that map onto it
-    raise NotImplementedError naming ROADMAP Queue 1 item 4; pruned programs, ``with_mass``, dopri5 (default routing at
-    loose tolerances) and dop853-step, ported since, do not
+    (kvaerno3, lsoda, LSODA, radau, bdf), ported since, route to
+    `odeint_kvaerno3` as the JAX package's `_STEPPERS` routes them (a spy
+    stands in for it here: `tests/test_torch_stiff.py` runs it); pruned
+    programs, ``with_mass``, dopri5 (default routing at
+    loose tolerances) and dop853-step, ported since, do not raise
     (`tests/test_torch_pruned.py`, `tests/test_torch_solvers.py`), nor
     do the gather engines and chunked or checkpointed solves
     (`tests/test_torch_gather.py`). ``with_mass`` on a program with no
@@ -637,11 +641,23 @@ def test_unported_exact_paths_raise(monkeypatch, capsys):
                                                      3), with_mass=True)
     fn = tdense.make_dense_dy_dt(prog, device="cpu")
     y0 = _ex4_p0(3, 0.04)
+    from chemical_kinetics_and_program_execution_torch.ode import (
+        integrate as t_integrate,
+    )
+
+    routed = []
+
+    def spy(*args, **kwargs):
+        routed.append(args[2].tolist())
+        return t_dop.odeint_dop853(*args, **kwargs)
+
+    monkeypatch.setattr(t_integrate, "odeint_kvaerno3", spy)
     for method in ("kvaerno3", "lsoda", "LSODA", "radau", "bdf"):
-        with pytest.raises(NotImplementedError,
-                           match="Derivative-based solvers"):
-            t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], method=method,
-                    device="cpu")
+        assert t_integrate._STEPPERS[method.lower()] == "odeint_kvaerno3"
+        ys = t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], method=method,
+                     device="cpu")
+        assert ys.shape == (2, 9**3) and np.isfinite(ys).all()
+    assert routed == [[0.0, 1.0]] * 5
     for kw in (dict(method="dopri5"), dict(method="dop853-step"),
                dict(rtol=1e-6, atol=1e-6)):
         ys = t_solve(lambda y, t: fn(y), y0, [0.0, 1.0], **kw, device="cpu")

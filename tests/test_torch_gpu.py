@@ -1651,3 +1651,104 @@ def test_thermo_runs_on_card_launch_kernels(cuda):
     assert float((sigma - (phi0 - phi_t)).abs().max()) < 1e-9
     assert (counts.sum(dim=1) == 30 * 8).all()
     assert float((spec_sig.sum(dim=1) - sigma).abs().max()) < 1e-9
+
+
+# --- Forward-mode derivatives: K25, K26, K6's Kvaerno entries ---------------
+
+
+def _jvp_state(n, dev, zeroed, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.rand(n, generator=g, device=dev, dtype=torch.float64) + 0.05
+    if zeroed:
+        p = torch.where(torch.rand(n, generator=g, device=dev,
+                                   dtype=torch.float64) < 1 / 3, 0.0, p)
+    v = torch.randn(n, generator=g, device=dev, dtype=torch.float64) * p
+    return p / p.sum(), v
+
+
+@pytest.mark.parametrize("tag,cl_k,dual", [
+    ("ex4-chemical-turing", 5, False), ("ex1-radioactive-decay", 3, False),
+    ("ex3-copolymerization", 3, True)])
+def test_k25_matches_plain(cuda, tag, cl_k, dual):
+    """K25 (`dense_jvp`) equals `dense_jvp_plain` bit for bit at a positive
+    p and at one with zeroed windows, one K25 launch a call; its value
+    path's dy equals the RHS's (K5) bits."""
+    prog = (tdense.compile_dense_dual(tag, cl_k) if dual
+            else tdense.compile_dense(tag, cl_k))
+    dp = tdense.device_program(prog, cuda)
+    for zeroed in (False, True):
+        p, v = _jvp_state(prog.state_size, cuda, zeroed, 25)
+        low = tdense.pyramids(prog, p)
+        before = tdense.dense_jvp.launches
+        jv = tdense.dense_jvp(dp, p, v, low)
+        assert tdense.dense_jvp.launches == before + 1
+        assert torch.equal(jv, tdense.dense_jvp_plain(dp, p, v, low))
+        dy, jv2 = tdense.dense_jvp(dp, p, v, low, value=True)
+        assert torch.equal(jv2, jv)
+        assert torch.equal(dy, tdense.dense_rhs(dp, p))
+
+
+def test_k26_and_kvaerno_entries_match_plain(cuda):
+    """K26 in both modes and K6's third table (rows 26-30 in both swap
+    states, the Newton and error sums, the residual) equal their plain
+    versions bit for bit."""
+    from chemical_kinetics_and_program_execution_torch.ode import steady
+
+    g = torch.Generator(device=cuda).manual_seed(26)
+    a, k = 10, 4
+    n = a**k
+    x = torch.randn(n, generator=g, device=cuda, dtype=torch.float64)
+    w = torch.linalg.qr(torch.randn(a, 2, generator=g, device=cuda,
+                                    dtype=torch.float64))[0].T.contiguous()
+    for mode in (0, 1):
+        assert torch.equal(steady.steady_aug(x, a, k, w, 31.6, mode),
+                           steady.steady_aug_plain(x, a, k, w, 31.6, mode))
+    y, y_new, dz, f, gg = (torch.randn(n, generator=g, device=cuda,
+                                       dtype=torch.float64) for _ in range(5))
+    ks = dop853.rows_tensor(4, n, cuda)
+    ks.copy_(torch.randn((4, n), generator=g, device=cuda,
+                         dtype=torch.float64))
+    out, out2 = torch.empty_like(y), torch.empty_like(y)
+    for which in (26, 27, 28, 29, 30):
+        for swap in (0, 1):
+            dop853.stage(y, ks, 0.3, which, out, swap, 3)
+            dop853.stage_plain(y, ks, 0.3, dop853.tableau_terms(
+                which, swap, 3), out2)
+            assert torch.equal(out, out2)
+    z1, z2 = gg.clone(), gg.clone()
+    got = dop853.norms(dop853._NEWTON, y, 1e-8, 1e-10, f0=dz, f1=z1).clone()
+    assert torch.equal(got, dop853.norms_plain(dop853._NEWTON, y, 1e-8,
+                                               1e-10, f0=dz, f1=z2))
+    assert torch.equal(z1, z2)
+    got = dop853.norms(dop853._ERR_DIFF, y, 1e-8, 1e-10, y_new=y_new,
+                       f0=dz).clone()
+    assert torch.equal(got, dop853.norms_plain(
+        dop853._ERR_DIFF, y, 1e-8, 1e-10, y_new=y_new, f0=dz))
+    assert torch.equal(dop853.resid(y, gg, f, 0.25, out),
+                       dop853.resid_plain(y, gg, f, 0.25, out2))
+
+
+def test_solver_paths_launch_k25_and_k26(cuda):
+    """kvaerno3 launches K25 once a J v of its count, the steady state K25
+    once a J_G v and K26 once a J_G v and a G; no plain version runs."""
+    from chemical_kinetics_and_program_execution_torch.ode import steady
+
+    prog = tdense.compile_dense("ex2-ferromagnetic-chain", 3)
+    fn = tdense.make_dense_dy_dt(prog, device=cuda)
+    plain = (tdense.dense_jvp_plain, tdense.sweep_plain,
+             steady.steady_aug_plain)
+    for f in plain:
+        f.calls = 0
+    tdense.dense_jvp.launches = steady.steady_aug.launches = 0
+    ys, info = solve(lambda y, t: fn(y), np.full(8, 0.125), [0.0, 0.3],
+                     rtol=1e-8, atol=1e-10, method="kvaerno3", device=cuda,
+                     return_info=True)
+    assert tdense.dense_jvp.launches == info["num_jvp"] > 0
+    tdense.dense_jvp.launches = 0
+    p_inf, sinfo = steady.steady_state("ex2-ferromagnetic-chain", 3,
+                                       np.full(8, 0.125), warm_t=5.0,
+                                       device=cuda)
+    assert sinfo.converged
+    assert tdense.dense_jvp.launches == sinfo.matvecs
+    assert steady.steady_aug.launches == sinfo.matvecs + sinfo.residuals
+    assert all(f.calls == 0 for f in plain)
