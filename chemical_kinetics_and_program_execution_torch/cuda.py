@@ -3,12 +3,15 @@
 Two kinds of library, both with a plain C interface (no PyTorch headers,
 so a build takes seconds) and both landing in `_build/` beside this file:
 
-- `build`: one `nvcc` call compiles every source `csrc/*.cu` (K2
+- `build`: one `nvcc` call compiles the sources `csrc/*.cu` (K2
   `window_counts.cu`; K3-K5 and K25 `dense_rhs.cu`; K6 `dop853.cu`; K7
   and K8 `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
   `pattern_scan.cu`; K13 `weighted_counts.cu`; K15 `bitplanes.cu`; K16
-  and K18 `bff_round.cu`; K19-K22 `frontier.cu`; K26 `steady_aug.cu`),
-  which may include headers from `csrc/`, into one shared library;
+  and K18 `bff_round.cu`; K19-K22 `frontier.cu`; K26 `steady_aug.cu`;
+  K27 `ssa_round.cu`; K28 `metropolis.cu`), which may include headers
+  from `csrc/`, into one shared library, and links into it the objects
+  that one `nvcc` call each has compiled first from `FMAD_SOURCES` (K29
+  `dopri5_batch.cu`, whose math library must contract as PyTorch's);
 - `build_unit`: one `nvcc` call compiles one generated translation unit,
   which includes headers from `csrc/` (K1 and K11, one library per
   decision machine, from `engine/k1_source.py`; K14, one library per
@@ -45,6 +48,16 @@ LIB_STEM = "libckpe_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# Sources compiled apart, with contraction allowed, into objects that
+# `build` links into the library. Their own arithmetic is written with
+# the round-to-nearest intrinsics, which are never contracted, so the
+# flag reaches only the CUDA math library inside them: its `pow` then has
+# the bits of PyTorch's `pow` on the card, which under -fmad=false it
+# does not for a few arguments in a million (measured on the H100).
+FMAD_SOURCES = ("dopri5_batch.cu",)
+OBJ_FLAGS = tuple(f for f in NVCC_FLAGS if f not in ("-fmad=false",
+                                                     "-shared")) + (
+    "-fmad=true", "-c")
 
 
 def sources() -> list[Path]:
@@ -52,7 +65,8 @@ def sources() -> list[Path]:
 
 
 def _digest(paths, text: str = "") -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + OBJ_FLAGS + FMAD_SOURCES)
+                       .encode())
     h.update(text.encode())
     for path in paths:
         h.update(path.name.encode())
@@ -83,7 +97,8 @@ def nvcc() -> str:
         "kernels cannot be built")
 
 
-def _compile(target: Path, inputs, extra=()) -> tuple[Path, str, float]:
+def _compile(target: Path, inputs, extra=(),
+             flags=NVCC_FLAGS) -> tuple[Path, str, float]:
     """One `nvcc` call from ``inputs`` into ``target`` unless it exists.
     Returns (target, nvcc's output with the `-Xptxas -v` resource lines,
     seconds spent; 0 when nothing was built)."""
@@ -92,7 +107,7 @@ def _compile(target: Path, inputs, extra=()) -> tuple[Path, str, float]:
     compiler = nvcc()
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    cmd = [compiler, *NVCC_FLAGS, *extra, "-o", str(tmp), *map(str, inputs)]
+    cmd = [compiler, *flags, *extra, "-o", str(tmp), *map(str, inputs)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -105,9 +120,26 @@ def _compile(target: Path, inputs, extra=()) -> tuple[Path, str, float]:
 
 
 def build() -> tuple[Path, str, float]:
-    """Compiles `csrc/*.cu` with one `nvcc` call unless the library for
-    these sources is already built; returns as `_compile`."""
-    return _compile(library_path(), sources())
+    """Compiles `csrc/*.cu` unless the library for these sources is
+    already built: each of `FMAD_SOURCES` into an object first, then one
+    `nvcc` call for the rest that links those objects in; returns as
+    `_compile` (the logs and seconds of both steps)."""
+    target = library_path()
+    if target.exists():
+        return target, "", 0.0
+    objs, logs, seconds = [], [], 0.0
+    rest = []
+    for src in sources():
+        if src.name not in FMAD_SOURCES:
+            rest.append(src)
+            continue
+        obj = target.with_name(f"{target.stem}-{src.stem}.o")
+        _, log, sec = _compile(obj, [src], flags=OBJ_FLAGS)
+        objs.append(obj)
+        logs.append(log)
+        seconds += sec
+    _, log, sec = _compile(target, rest + objs)
+    return target, "".join(logs) + log, seconds + sec
 
 
 def unit_library_path(stem: str, source: str) -> Path:
@@ -245,7 +277,22 @@ def load() -> ctypes.CDLL:
     #                     p_lo, n_p, d_lo, n_d, rows, M, pv, out_log,
     #                     out_world, wr_mask, wr_val, new_lw, stream)
     lib.ckpe_frontier_write.argtypes = [_P] * 8 + [_I] * 8 + [_P] * 7
+    # ckpe_ssa_rounds(order, stoich, rates, R, S, net_buf, is_double, u, B,
+    #                 E, t_state, n_state, t_out, n_out, stream)
+    lib.ckpe_ssa_net_bytes.argtypes = []
+    lib.ckpe_ssa_net_bytes.restype = _I
+    lib.ckpe_ssa_rounds.argtypes = [_P, _P, _P, _I, _I, _P, _I, _P, _L, _I,
+                                    _P, _P, _P, _P, _P]
+    # ckpe_metropolis(T, N, rounds, rs, thr, chains, sites, u, steps,
+    #                 count_first, counts, stream)
+    lib.ckpe_metropolis.argtypes = [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
+                                    _P, _P]
+    # ckpe_dopri5_batch(coef, has, B, y0, params, ts, n_out, rtol, atol,
+    #                   max_steps, ys, n_acc, n_rej, stream)
+    lib.ckpe_dopri5_batch.argtypes = [_P, _P, _I, _P, _P, _P, _I, _D, _D, _L,
+                                      _P, _P, _P, _P]
     for name in ("ckpe_table_rounds", "ckpe_pattern_scan",
+                 "ckpe_ssa_rounds", "ckpe_metropolis", "ckpe_dopri5_batch",
                  "ckpe_bitplanes_pack", "ckpe_bitplanes_unpack",
                  "ckpe_weighted_counts", "ckpe_bff_rounds", "ckpe_bff_mutate",
                  "ckpe_content_hash", "ckpe_merge_resample",

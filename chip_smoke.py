@@ -12,7 +12,8 @@ Phases (each prints its wall time; every check raises on failure):
 1. device: the card's name and count, and `nvidia-smi`'s name and power
    limit;
 2. build: `nvcc` calls started together, one for `csrc/*.cu` (K2-K10,
-   K12, K13, K15, K16, K18-K22, K25, K26), one for the generated unit (K1 and K11) of each
+   K12, K13, K15, K16, K18-K22, K25-K28, with K29's object compiled
+   first: `cuda.FMAD_SOURCES`), one for the generated unit (K1 and K11) of each
    machine (phase 3's three, ex3 and the fuzz rule of phase 9), one
    for the generated K14 unit of each of ex5's, ex4's and ex2's
    bit-sliced circuits and one for the generated K17 unit of each of the
@@ -312,7 +313,35 @@ Phases (each prints its wall time; every check raises on failure):
    ex2 cl_k 3 and ex2 at cl_k 6 (Gibbs within 2e-9), K25 once a J_G v
    and K26 once a J_G v and a G; (e) examples/ex2_correlations.py's
    continuation over 11 betas on the card within 1e-9 of its committed
-   npz, its correlator within 1e-6 of the analytic Ising curve to d = 30.
+   npz, its correlator within 1e-6 of the analytic Ising curve to d = 30;
+15. the companion simulators (K27 `ssa_round`, K28 `metropolis`, K29
+   `dopri5_batch`, built with the library in phase 2), each path with
+   every count set to 0 just before and read just after, no plain
+   version called: (a) `gillespie.ssa_batch_tm` at `bench_ssa`'s
+   geometry (the autocatalysis network, n0 = (0, 0, 2000), B = 65,536,
+   E = 1,000, float32), a first and a warm call, trajectories/s and
+   events/s (draws included); K27 against `ssa_round_plain` bit for bit
+   in float32 and float64 at B = 65,536 over 50 events; the moment gates
+   of the JAX package's tests/test_models.py:189 at full B (float32
+   against the float64 core and against 512 float64 `ssa_trajectories`:
+   5-sigma means, variance ratio 0.7-1.4, the largest z printed); (b)
+   `ferromagnet.mc_island_history` at examples/ex2_ferromagnet_mc.py's
+   geometry (100 chains x 50,000 sites, 4,000 steps of 500 trials in 20
+   rounds), steps/s; K28 against `metropolis_plain` bit for bit on all
+   100 chains over 20 steps (counts and chains); the run against the
+   committed JAX run examples/ferromagnet_mc_chain_counts.npz (for L =
+   1..4, each of ten 400-step blocks' trial mean within 5 combined
+   standard errors) and the analytic band of tests/test_models.py:107
+   against `analytic_p_history`; (c) `autocatalysis.integrate_sweep` of
+   examples/autocatalysis.py's 12 rows at 10,001 samples; K29 against
+   `_solve_batch_plain` on the first 1,001 samples (equal steps a
+   member, bit for bit); every final state within 1e-6 relative of
+   scipy's DOP853 at rtol 1e-12, atol 1e-14; the closed rows' 2A + 2B +
+   M to rtol 1e-7; `find_equilibrium` from the last set's first row to a
+   residual below 1e-10; each kernel alone at its path's launch (K27 a
+   chunk of 512 events, K28 one of 671 steps, K29 the sweep) beside its
+   bound and plain version; the phase's time printed and held under 90
+   s (examples/autocatalysis.py and the npz must be in the tree).
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -375,7 +404,11 @@ from chemical_kinetics_and_program_execution_torch.models.initial_states import 
 from chemical_kinetics_and_program_execution_torch.engine import (
     parametric as tparam,
 )
-from chemical_kinetics_and_program_execution_torch.models import ferromagnet
+from chemical_kinetics_and_program_execution_torch.models import (
+    autocatalysis,
+    ferromagnet,
+    gillespie,
+)
 from chemical_kinetics_and_program_execution_torch.ode import dop853, dopri5
 from chemical_kinetics_and_program_execution_torch.ode import (
     steady as tsteady,
@@ -6062,6 +6095,440 @@ def deriv_phase(dev, kernels):
                      "dual_routes": kv["dual_routes"]}}
 
 
+# --- Phase 15: the companion simulators (K27-K29) -----------------------------
+
+FP64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (data sheet)
+FP32_FLOPS = 67e12  # float32 outside the tensor cores (data sheet)
+SSA_NET = (1.0, 100.0, 1.0, 1.0, 100.0, 1.0, 10.0, 2.0)  # bench.py:274-276
+SSA_N0 = (0, 0, 2000)
+SSA_B, SSA_E = 65536, 1000  # bench_ssa's CKPE_BENCH_SSA_B and _E defaults
+SSA_CHECK_E, SSA_REF_T = 50, 512
+# examples/ex2_ferromagnet_mc.py:19-42 (rounds_per_step 20 by default).
+MC = dict(num_trials=100, chain_length=50_000, num_steps=4000,
+          trials_per_step=500, sites_per_pair=250, J=1.0, h=-0.25, beta=1.0,
+          rounds_per_step=20, seed=1000)
+MC_CHECK_STEPS, MC_BLOCKS, MC_T_MAX = 20, 10, 40.0
+AC_TS = np.linspace(0.0, 100.0, 10001)  # examples/autocatalysis.py:44
+AC_CHECK = 1001
+AC_RHS_FLOPS = 44  # csrc/dopri5_rule.cuh:ac_rhs, counted
+COMP_BUDGET_S = 90.0
+COMP_WRAPPERS = {"K27": gillespie.ssa_round, "K28": ferromagnet.metropolis,
+                 "K29": autocatalysis.dopri5_batch}
+COMP_PLAIN = [gillespie.ssa_round_plain, ferromagnet.metropolis_plain,
+              autocatalysis._solve_batch_plain]
+K27 = ("K27 ssa_round", SRC + "ssa_round.cu",
+       "the JAX package's models/gillespie.py:152 ssa_batch_tm (its "
+       "lax.scan body :194-226; XLA), wrapped by :239 ssa_batch and :250 "
+       "run_ssa_ensemble")
+K28 = ("K28 metropolis", SRC + "metropolis.cu",
+       "the JAX package's models/ferromagnet.py:95 simulate_metropolis "
+       "(do_round :111-126, island_counts :128-142; XLA), vmapped by :166 "
+       "mc_island_history")
+K29 = ("K29 dopri5_batch", SRC + "dopri5_batch.cu",
+       "the JAX package's models/autocatalysis.py:57 _solve_batch (vmap of "
+       "ode/dopri5.py:48 odeint_dopri5 over :29 dy_dt; XLA)")
+
+
+def comp_path(label, fn, need):
+    """``fn()`` with every count of phase 15 set to 0 just before and read
+    just after (a plain version called raises); returns (its result, the
+    launches, host seconds to the card's end)."""
+    for w in COMP_WRAPPERS.values():
+        w.launches = 0
+    for p in COMP_PLAIN:
+        p.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in COMP_WRAPPERS.items()}
+    plain = sum(p.calls for p in COMP_PLAIN)
+    say(f"{label}: {seconds:.4f} s, launches {launches}, plain calls {plain}")
+    if plain:
+        raise AssertionError(f"{label}: a plain version ran on the path")
+    need_launches(label, launches, need)
+    return out, launches, seconds
+
+
+def once_ms(fn):
+    """Milliseconds of one call of ``fn`` by CUDA events (host pacing
+    included: for the plain versions, thousands of small launches)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def ssa_flops_per_event(net):
+    """Float operations of one K27 event: a subtraction, a max and a
+    product a falling-factorial factor, the total and running sums, a
+    compare a reaction, log1p, the quotient and u1 * total."""
+    R = net.reactants.shape[0]
+    return 3 * int(net.reactants.sum()) + 3 * R + 4
+
+
+def k29_flops_per_step():
+    """Float64 operations of one K29 step: six rate-law evaluations, the
+    stage inputs (a product a term, the sums, h times and y plus), y_new,
+    the error (quotient, scale, norm) and the controller's three
+    powers."""
+    rows = autocatalysis.tableau_rows()
+    stage = sum(3 * (2 * len(t) + 1) for t in rows[:7])
+    err = 3 * (2 * len(rows[7]) + 1) + 3 * 2 + 7
+    return 6 * AC_RHS_FLOPS + stage + err + 9
+
+
+def ssa_part(dev, record):
+    """(a): the SSA at bench_ssa's geometry, K27 against plain, moments."""
+    net = gillespie.autocatalysis_network(*SSA_NET)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    gillespie.ssa_batch_tm(gen, SSA_N0, net, 4, 64, device=dev)  # warm
+    runs = {}
+    for label in ("first call", "warm call"):
+        (ts, ns), c, secs = comp_path(
+            f"(a) SSA float32 B={SSA_B} E={SSA_E}, {label}",
+            lambda: gillespie.ssa_batch_tm(gen, SSA_N0, net, SSA_E, SSA_B,
+                                           device=dev), ["K27"])
+        runs[label] = secs
+    if (ts.shape != (SSA_E, SSA_B) or ns.shape != (SSA_E, 3, SSA_B)
+            or ts.dtype != torch.float64 or ns.dtype != torch.int32):
+        raise AssertionError("SSA outputs' shapes or types")
+    if not (bool(torch.isfinite(ts).all()) and bool((ts[1:] >= ts[:-1]).all())
+            and int(ns.min()) >= 0 and bool((ts[0] > 0).all())):
+        raise AssertionError("SSA times not finite and increasing, or a "
+                             "count below 0")
+    secs = runs["warm call"]
+    say(f"(a) SSA: {SSA_B / secs:.6e} trajectories/s, "
+        f"{SSA_B * SSA_E / secs:.6e} events/s (warm, draws included); "
+        f"first call {runs['first call']:.4f} s")
+    final32 = ns[-1].T.double().cpu().numpy()
+    del ts, ns
+    # K27 against its plain version on the same draws, bit for bit.
+    err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        u = torch.rand((SSA_CHECK_E, 2, SSA_B), generator=gen, dtype=dtype,
+                       device=dev)
+        outs = []
+        for fn in (gillespie.ssa_round, gillespie.ssa_round_plain):
+            t = torch.zeros(SSA_B, dtype=torch.float64, device=dev)
+            n = torch.as_tensor(SSA_N0, dtype=torch.int32, device=dev)
+            n = n[:, None].expand(3, SSA_B).contiguous()
+            t_o = torch.empty((SSA_CHECK_E, SSA_B), dtype=torch.float64,
+                              device=dev)
+            n_o = torch.empty((SSA_CHECK_E, 3, SSA_B), dtype=torch.int32,
+                              device=dev)
+            fn(net, u, t, n, t_o, n_o)
+            outs.append((t_o, n_o))
+        torch.cuda.synchronize()
+        (tk, nk), (tp, np_) = outs
+        err = max(err, float((tk - tp).abs().max()),
+                  float((nk - np_).abs().max()))
+        if not (torch.equal(tk, tp) and torch.equal(nk, np_)):
+            raise AssertionError(f"K27 != plain ({dtype})")
+        say(f"(a) K27 == plain bit for bit, {dtype}, B={SSA_B}, "
+            f"{SSA_CHECK_E} events")
+    # The moment gates of tests/test_models.py:189 at full B.
+    (_, ns64), _, _ = comp_path(
+        "(a) SSA float64 core", lambda: gillespie.ssa_batch_tm(
+            gen, SSA_N0, net, SSA_E, SSA_B, torch.float64, device=dev),
+        ["K27"])
+    final64 = ns64[-1].T.double().cpu().numpy()
+    del ns64
+    _, ref = gillespie.ssa_trajectories(gen, SSA_N0, net, SSA_E, SSA_REF_T,
+                                        device=dev)
+    final_ref = ref[:, -1].double().cpu().numpy()
+    zmax = 0.0
+    for name, b in (("float64 core", final64),
+                    ("ssa_trajectories", final_ref)):
+        se = np.sqrt(final32.var(axis=0) / len(final32)
+                     + b.var(axis=0) / len(b))
+        diff = np.abs(final32.mean(axis=0) - b.mean(axis=0))
+        z = diff / np.maximum(se, 1e-300)
+        zmax = max(zmax, float(z.max()))
+        if not (diff <= 5 * se + 1e-9).all():
+            raise AssertionError(f"SSA means: float32 vs {name}: z {z}")
+        say(f"(a) float32 vs {name}: mean z by species {np.round(z, 3)}")
+    ratio = final32.var(axis=0) / np.maximum(final64.var(axis=0), 1e-9)
+    if not ((ratio > 0.7) & (ratio < 1.4)).all():
+        raise AssertionError(f"SSA variance ratio {ratio}")
+    say(f"(a) largest z {zmax:.4f}; variance ratio float32 / float64 "
+        f"{np.round(ratio, 4)}")
+    # K27 alone at the main path's launch (one chunk of events).
+    chunk = gillespie.DRAW_CHUNK // (2 * SSA_B)
+    u = torch.rand((chunk, 2, SSA_B), generator=gen, device=dev)
+    t = torch.zeros(SSA_B, dtype=torch.float64, device=dev)
+    n = torch.as_tensor(SSA_N0, dtype=torch.int32, device=dev)
+    n = n[:, None].expand(3, SSA_B).contiguous()
+    t_o = torch.empty((chunk, SSA_B), dtype=torch.float64, device=dev)
+    n_o = torch.empty((chunk, 3, SSA_B), dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: gillespie.ssa_round(net, u, t, n, t_o, n_o), 5)
+    plain_ms = once_ms(lambda: gillespie.ssa_round_plain(net, u, t, n, t_o,
+                                                         n_o))
+    nbytes_ = (u.numel() * 4 + t_o.numel() * 8 + n_o.numel() * 4
+               + 2 * (t.numel() * 8 + n.numel() * 4))
+    bytes_ms = nbytes_ / HBM_BYTES_PER_S * 1e3
+    ops_ms = ssa_flops_per_event(net) * chunk * SSA_B / FP32_FLOPS * 1e3
+    say(f"(a) K27 alone, {chunk} events x {SSA_B}: {ms:.4f} ms against a "
+        f"bound of {max(bytes_ms, ops_ms):.4f} ms ({nbytes_ / 1e6:.1f} MB; "
+        f"operations {ops_ms:.4f} ms); plain {plain_ms:.2f} ms")
+    record["K27"] = {
+        "name": K27[0], "route": "cuda", "source": K27[1], "replaces": K27[2],
+        "launches": c["K27"], "max_abs_err": err,
+        "match": f"bit-identical to ssa_round_plain, float32 and float64, "
+                 f"B={SSA_B}, {SSA_CHECK_E} events",
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None, "events_per_launch": chunk,
+        "trajectories_per_s": SSA_B / secs,
+        "events_per_s": SSA_B * SSA_E / secs,
+        "first_call_s": runs["first call"], "warm_call_s": secs,
+        "largest_z": zmax, "variance_ratio": ratio.tolist()}
+
+
+def mc_block_z(counts, ref):
+    """The largest z over L = 1..4 and ten 400-step blocks: the trial
+    mean of each block average of ``counts`` against ``ref``'s, in
+    combined standard errors."""
+    zmax = 0.0
+    width = counts.shape[1] // MC_BLOCKS
+    for L in range(1, 5):
+        for k in range(MC_BLOCKS):
+            a = counts[:, k * width:(k + 1) * width, L].mean(axis=1)
+            b = ref[:, k * width:(k + 1) * width, L].mean(axis=1)
+            se = math.sqrt(a.var(ddof=1) / len(a) + b.var(ddof=1) / len(b))
+            zmax = max(zmax, abs(a.mean() - b.mean()) / max(se, 1e-300))
+    return zmax
+
+
+def mc_part(dev, record):
+    """(b): the Metropolis chains at the example's geometry."""
+    T, N = MC["num_trials"], MC["chain_length"]
+    rounds = MC["rounds_per_step"]
+    rs = MC["trials_per_step"] // rounds
+    gen = torch.Generator(device=dev).manual_seed(MC["seed"])
+    ferromagnet.mc_island_history(num_trials=2, chain_length=64, num_steps=3,
+                                  trials_per_step=4, generator=gen,
+                                  rounds_per_step=2, device=dev)  # warm
+    kw = {k: v for k, v in MC.items() if k != "seed"}
+    counts, c, secs = comp_path(
+        f"(b) Metropolis {T} x {N} x {MC['num_steps']} steps",
+        lambda: ferromagnet.mc_island_history(generator=gen, device=dev,
+                                              **kw), ["K28"])
+    if counts.shape != (T, MC["num_steps"], 6) or (counts[..., 0] != 0).any():
+        raise AssertionError("Metropolis counts' shape or column 0")
+    if counts.min() < 0 or counts[:, 0, 2].sum() == 0:
+        raise AssertionError("Metropolis counts below 0, or no start pairs")
+    steps = MC["num_steps"] - 1
+    say(f"(b) Metropolis: {steps / secs:.4f} steps/s of the ensemble, "
+        f"{steps * T / secs:.6e} chain-steps/s, "
+        f"{steps * T * rs * rounds / secs:.6e} trials/s (draws included)")
+    ref = np.load(EXAMPLES / "ferromagnet_mc_chain_counts.npz")[
+        "chain_counts"]
+    zmax = mc_block_z(counts, ref)
+    if not zmax < 5:
+        raise AssertionError(f"Metropolis vs the committed JAX run: z {zmax}")
+    say(f"(b) against examples/ferromagnet_mc_chain_counts.npz: L = 1..4, "
+        f"{MC_BLOCKS} blocks, largest z {zmax:.4f} (< 5)")
+    analytic = ferromagnet.analytic_p_history(
+        beta=MC["beta"], J=MC["J"], h=MC["h"], t_max=MC_T_MAX,
+        t_steps=MC["num_steps"], p0_pair=1 / MC["sites_per_pair"],
+        device=dev)
+    half = MC["num_steps"] // 2
+    mc_mean = (counts[..., 1] / N)[:, half:].mean()
+    an_mean = analytic[half:, 0].mean()
+    if not 0.3 * an_mean < mc_mean < 3.0 * an_mean:
+        raise AssertionError(f"p(L=1): MC {mc_mean} vs analytic {an_mean}")
+    say(f"(b) p(L=1) second half: MC {mc_mean:.6e}, analytic {an_mean:.6e} "
+        f"(ratio {mc_mean / an_mean:.4f}, band 0.3-3)")
+    # K28 against its plain version, all chains, the first 20 steps.
+    thr = ferromagnet.acceptance_table(MC["J"], MC["h"], MC["beta"])
+    pair = torch.rand((T, N), generator=gen, dtype=torch.float64,
+                      device=dev) < 1.0 / MC["sites_per_pair"]
+    chains0 = (pair | torch.roll(pair, 1, dims=1)).to(torch.int32)
+    shape = (T, MC_CHECK_STEPS, rounds, rs)
+    sites = torch.randint(0, N, shape, generator=gen, dtype=torch.int32,
+                          device=dev)
+    u = torch.rand(shape, generator=gen, dtype=torch.float64, device=dev)
+    ck, cp = chains0.clone(), chains0.clone()
+    got = ferromagnet.metropolis(ck, sites, u, thr, True)
+    want = ferromagnet.metropolis_plain(
+        cp, sites, u, torch.as_tensor(thr, device=dev), True)
+    torch.cuda.synchronize()
+    err = max(int((got - want).abs().max()), int((ck - cp).abs().max()))
+    if not (torch.equal(got, want) and torch.equal(ck, cp)):
+        raise AssertionError("K28 != plain")
+    say(f"(b) K28 == plain bit for bit: {T} chains, {MC_CHECK_STEPS} steps, "
+        f"counts and chains ({int((ck != chains0).sum())} sites flipped)")
+    # K28 alone at the main path's launch (one chunk of steps).
+    chunk = ferromagnet.DRAW_CHUNK // (T * rounds * rs)
+    shape = (T, chunk, rounds, rs)
+    sites = torch.randint(0, N, shape, generator=gen, dtype=torch.int32,
+                          device=dev)
+    u = torch.rand(shape, generator=gen, dtype=torch.float64, device=dev)
+    ck = chains0.clone()
+    ms = cuda_ms(lambda: ferromagnet.metropolis(ck, sites, u, thr, False), 3,
+                 warmup=1)
+    plain_ms = once_ms(lambda: ferromagnet.metropolis_plain(
+        chains0.clone(), sites, u, torch.as_tensor(thr, device=dev), False))
+    nbytes_ = (sites.numel() * 4 + u.numel() * 8 + 2 * ck.numel() * 4
+               + T * chunk * 6 * 4)
+    bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+    say(f"(b) K28 alone, {chunk} steps x {T} chains: {ms:.4f} ms "
+        f"({ms * 1e3 / chunk:.3f} us a step) against a bound of "
+        f"{bound:.4f} ms ({nbytes_ / 1e6:.1f} MB); plain {plain_ms:.2f} ms")
+    record["K28"] = {
+        "name": K28[0], "route": "cuda", "source": K28[1], "replaces": K28[2],
+        "launches": c["K28"], "max_abs_err": err,
+        "match": f"bit-identical to metropolis_plain, {T} chains x {N} "
+                 f"sites, {MC_CHECK_STEPS} steps, counts and chains",
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        "bound_by": "bytes", "library_ms": None, "steps_per_launch": chunk,
+        "run_s": secs, "steps_per_s": steps / secs,
+        "chain_steps_per_s": steps * T / secs, "largest_z": zmax,
+        "p1_mc_over_analytic": mc_mean / an_mean}
+
+
+def example_rows():
+    """The 12 rows of examples/autocatalysis.py (its PARAM_SETS)."""
+    src = (EXAMPLES / "autocatalysis.py").read_text()
+    scope = {}
+    exec(src[src.index("PARAM_SETS = {"):src.index("STYLES")], scope)
+    return np.array(sum(scope["PARAM_SETS"].values(), []))
+
+
+def ac_rhs_numpy(t, y, p):
+    """The rate law in numpy, for scipy's reference solves."""
+    fa, ua, sa, fb, ub, sb, add, rem = p
+    ca, cb, cm = y
+    form_a, form_b = fa * cm * cm, fb * cm * cm
+    auto_a, auto_b = ua * ca * cm * cm, ub * cb * cm * cm
+    sda, sdb = fa / sa * ca, fb / sb * cb
+    ada, adb = ua / sa * ca * ca, ub / sb * cb * cb
+    return [form_a + auto_a - sda - ada - rem * ca,
+            form_b + auto_b - sdb - adb - rem * cb,
+            2 * (sda + sdb) + 2 * (ada + adb) - 2 * (form_a + form_b)
+            - 2 * (auto_a + auto_b) - rem * cm + add]
+
+
+def ac_part(dev, record):
+    """(c): the autocatalysis sweep, its gates and the equilibrium."""
+    from scipy.integrate import solve_ivp
+
+    rows = example_rows()
+    autocatalysis.integrate_sweep(rows, AC_TS[:3], device=dev)  # warm
+    (ys, info), c, secs = comp_path(
+        f"(c) autocatalysis sweep, {len(rows)} rows x {len(AC_TS)} samples",
+        lambda: autocatalysis.integrate_sweep(rows, AC_TS, device=dev),
+        ["K29"])
+    acc = info["num_accepted"].cpu().numpy()
+    rej = info["num_rejected"].cpu().numpy()
+    ys_np = ys.cpu().numpy()
+    if not (np.isfinite(ys_np).all() and (acc >= len(AC_TS) - 1).all()
+            and (ys_np[:, -1] != 0).any(axis=1).all()):
+        raise AssertionError("sweep: a sample not reached or not finite")
+    say(f"(c) sweep {secs:.4f} s; accepted steps {acc.tolist()}, rejected "
+        f"{rej.tolist()}")
+    worst = 0.0
+    for b, row in enumerate(rows):
+        sol = solve_ivp(ac_rhs_numpy, (AC_TS[0], AC_TS[-1]), row[:3],
+                        method="DOP853", rtol=1e-12, atol=1e-14,
+                        args=(row[3:],))
+        ref = sol.y[:, -1]
+        worst = max(worst, float(np.abs(ys_np[b, -1] - ref).max()
+                                 / np.abs(ref).max()))
+    if not worst < 1e-6:
+        raise AssertionError(f"sweep vs scipy DOP853: {worst}")
+    closed = [b for b, row in enumerate(rows) if row[9] == row[10] == 0]
+    cons = max(float(np.abs(tot / tot[0] - 1).max()) for tot in (
+        2 * ys_np[b, :, 0] + 2 * ys_np[b, :, 1] + ys_np[b, :, 2]
+        for b in closed))
+    if not cons < 1e-7:
+        raise AssertionError(f"closed rows' 2A + 2B + M drifts {cons}")
+    t0 = time.perf_counter()
+    y_eq, residual = autocatalysis.find_equilibrium(
+        ys_np[-4, -1], rows[-4, 3:], device=dev)
+    eq_s = time.perf_counter() - t0
+    if not residual < 1e-10:
+        raise AssertionError(f"find_equilibrium residual {residual}")
+    say(f"(c) final states within {worst:.3e} (relative) of scipy DOP853 at "
+        f"1e-12; closed rows {closed} conserve 2A + 2B + M to {cons:.3e}; "
+        f"find_equilibrium {eq_s:.3f} s, residual {residual:.3e}, "
+        f"y {y_eq.tolist()}")
+    # K29 against its plain version on the first 1,001 samples.
+    y0 = torch.as_tensor(rows[:, :3].copy(), device=dev)
+    p = torch.as_tensor(rows[:, 3:].copy(), device=dev)
+    ts = torch.as_tensor(AC_TS[:AC_CHECK], device=dev)
+    (yk, ak, rk), (yp, ap, rp) = (
+        autocatalysis.dopri5_batch(y0, p, ts, 200_000),
+        autocatalysis._solve_batch_plain(y0, p, ts, 200_000))
+    torch.cuda.synchronize()
+    if not (torch.equal(ak, ap) and torch.equal(rk, rp)):
+        raise AssertionError("K29 and plain take different steps")
+    err = float((yk - yp).abs().max())
+    rel = float(((yk - yp).abs() / yp.abs().clamp_min(1e-300)).max())
+    if not rel <= 1e-12:
+        raise AssertionError(f"K29 != plain: rel {rel}")
+    bits = torch.equal(yk, yp)
+    say(f"(c) K29 vs plain, first {AC_CHECK} samples: equal steps a member; "
+        f"{'bit for bit' if bits else f'largest rel diff {rel:.3e}'}")
+    ms = cuda_ms(lambda: autocatalysis.dopri5_batch(
+        y0, p, torch.as_tensor(AC_TS, device=dev), 200_000), 3, warmup=1)
+    ms_check = cuda_ms(lambda: autocatalysis.dopri5_batch(y0, p, ts,
+                                                          200_000), 3)
+    plain_ms = once_ms(lambda: autocatalysis._solve_batch_plain(
+        y0, p, ts, 200_000))
+    steps = acc + rej
+    flops = float(steps.sum()) * k29_flops_per_step()
+    ops_ms = flops / FP64_FLOPS * 1e3
+    bytes_ms = (ys.numel() + rows.size + len(AC_TS)) * 8 / HBM_BYTES_PER_S * 1e3
+    say(f"(c) K29 alone: the sweep {ms:.4f} ms ({ms * 1e3 / steps.max():.3f} "
+        f"us a step of the longest member, {int(steps.max())} steps), first "
+        f"{AC_CHECK} samples {ms_check:.4f} ms, plain there "
+        f"{plain_ms:.2f} ms; bound {max(ops_ms, bytes_ms):.6f} ms "
+        f"(operations {ops_ms:.6f}, bytes {bytes_ms:.6f})")
+    record["K29"] = {
+        "name": K29[0], "route": "cuda", "source": K29[1], "replaces": K29[2],
+        "launches": c["K29"], "max_abs_err": err,
+        "match": (f"bit-identical to _solve_batch_plain, first {AC_CHECK} "
+                  "samples, equal steps" if bits else
+                  f"rel {rel:.3e} of _solve_batch_plain, first {AC_CHECK} "
+                  "samples, equal steps"),
+        "ms": ms, "plain_ms": plain_ms, "plain_at": f"first {AC_CHECK} "
+        "samples (the sweep's plain run would take minutes)",
+        "ms_first_samples": ms_check,
+        "bound_ms": max(ops_ms, bytes_ms),
+        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+        "library_ms": None, "longest_member_steps": int(steps.max()),
+        "flops_per_step": k29_flops_per_step(), "sweep_s": secs,
+        "scipy_rel": worst, "conservation": cons,
+        "equilibrium": {"seconds": eq_s, "residual": residual}}
+
+
+def companions_phase(dev, kernels):
+    """Phase 15: (a)-(c) above, and the `kernels` line's K27, K28 and
+    K29. Builds the library on first use when run alone."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    t0 = time.perf_counter()
+    record = {}
+    ssa_part(dev, record)
+    mc_part(dev, record)
+    ac_part(dev, record)
+    seconds = time.perf_counter() - t0
+    say(f"phase 15's time on the card: {seconds:.2f} s (budget "
+        f"{COMP_BUDGET_S:.0f} s)")
+    if not seconds < COMP_BUDGET_S:
+        raise AssertionError(f"phase 15 took {seconds:.2f} s")
+    for k in ("K27", "K28", "K29"):
+        kernels[k] = record[k]
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -6087,7 +6554,7 @@ def main(dev=None):
         machines = {tag: ens.compile_decision_machine(tag)
                     for tag in TAGS + LATTICE_TAGS + [EX4V2]
                     + [register_fuzz(0, 2, True)]}
-        jobs = {"K2-K10, K12, K13, K15, K16, K18-K22, K25, K26 "
+        jobs = {"K2-K10, K12, K13, K15, K16, K18-K22, K25-K29 "
                 "(csrc/*.cu)": cuda.build,
                 "expander (csrc/expander.cc, g++)": native.build}
         for tag, dm in machines.items():
@@ -6456,6 +6923,9 @@ def main(dev=None):
 
     with Phase("14 forward-mode derivatives (K25, K26, K6's Kvaerno rows)"):
         deriv_phase(dev, kernels)
+
+    with Phase("15 the companion simulators (K27, K28, K29)"):
+        companions_phase(dev, kernels)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

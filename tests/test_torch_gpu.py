@@ -1752,3 +1752,134 @@ def test_solver_paths_launch_k25_and_k26(cuda):
     assert tdense.dense_jvp.launches == sinfo.matvecs
     assert steady.steady_aug.launches == sinfo.matvecs + sinfo.residuals
     assert all(f.calls == 0 for f in plain)
+
+
+# --- The companion simulators: K27, K28, K29 ---------------------------------
+
+from chemical_kinetics_and_program_execution_torch.models import (  # noqa: E402,E501
+    autocatalysis,
+    ferromagnet,
+    gillespie,
+)
+
+_SSA_NETS = {
+    "bench": (gillespie.autocatalysis_network(1.0, 100.0, 1.0, 1.0, 100.0,
+                                              1.0, 10.0, 2.0), (0, 0, 2000)),
+    # A -> 0: quiescent after 5 events (inf times, counts held).
+    "decay": (gillespie.ReactionNetwork(np.array([[1]]), np.array([[0]]),
+                                        np.array([1.0])), (5,)),
+}
+
+
+def _wide_network():
+    """32 reactions over 8 species, orders up to 3 a species and 8 factors
+    a reaction: K27's limits."""
+    rng = np.random.RandomState(12)
+    reactants = rng.randint(0, 3, (32, 8)) * (rng.rand(32, 8) < 0.3)
+    reactants[0] = [3, 3, 2, 0, 0, 0, 0, 0]
+    products = rng.randint(0, 3, (32, 8)) * (rng.rand(32, 8) < 0.3)
+    return (gillespie.ReactionNetwork(reactants, products,
+                                      rng.rand(32) * 1e-3),
+            tuple(rng.randint(20, 200, 8)))
+
+
+@pytest.mark.parametrize("name", ["bench", "decay", "wide"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [4099, 64])
+def test_ssa_round_kernel_matches_plain(cuda, name, dtype, B):
+    """K27 against `ssa_round_plain` on the same draws, in two calls (the
+    state carried): times and counts bit for bit, B not a multiple of 32
+    too."""
+    net, n0 = _wide_network() if name == "wide" else _SSA_NETS[name]
+    S, E = len(n0), 40
+    gen = torch.Generator(device=cuda).manual_seed(27)
+    u = torch.rand((E, 2, B), generator=gen, dtype=dtype, device=cuda)
+    out = []
+    for fn in (gillespie.ssa_round, gillespie.ssa_round_plain):
+        t = torch.zeros(B, dtype=torch.float64, device=cuda)
+        n = torch.as_tensor(np.asarray(n0, np.int32), device=cuda)[:, None]
+        n = n.expand(S, B).contiguous()
+        ts = torch.empty((E, B), dtype=torch.float64, device=cuda)
+        ns = torch.empty((E, S, B), dtype=torch.int32, device=cuda)
+        for e0, e1 in ((0, 17), (17, E)):
+            fn(net, u[e0:e1], t, n, ts[e0:e1], ns[e0:e1])
+        out.append((ts, ns, t, n))
+    torch.cuda.synchronize()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    if name == "decay":
+        assert bool(torch.isinf(out[0][0][-1]).all())
+
+
+def test_ssa_batch_tm_launches_k27(cuda):
+    net, n0 = _SSA_NETS["bench"]
+    gillespie.ssa_round.launches = gillespie.ssa_round_plain.calls = 0
+    ts, ns = gillespie.ssa_batch_tm(3, n0, net, 100, 1000, device=cuda)
+    assert gillespie.ssa_round.launches == 1
+    assert gillespie.ssa_round_plain.calls == 0
+    assert bool(torch.isfinite(ts).all()) and int(ns.min()) >= 0
+
+
+@pytest.mark.parametrize("J,h,trials,rounds,N,T", [
+    (1.0, -0.25, 500, 20, 50_000, 3),  # the example: 50 KB of chain
+    (0.5, 0.3, 64, 8, 1000, 5),  # h > 0
+    (0.3, -0.25, 24, 24, 999, 4),  # sequential: one trial a round
+    (0.4, -0.1, 30, 4, 333, 2)])  # 7 a round, 2 dropped
+@pytest.mark.parametrize("count_first", [True, False])
+def test_metropolis_kernel_matches_plain(cuda, J, h, trials, rounds, N, T,
+                                         count_first):
+    """K28 against `metropolis_plain` on the same draws: counts and
+    chains bit for bit."""
+    rs, steps = trials // rounds, 12
+    gen = torch.Generator(device=cuda).manual_seed(28)
+    chains = (torch.rand((T, N), generator=gen, device=cuda) < 0.3).to(
+        torch.int32)
+    sites = torch.randint(0, N, (T, steps, rounds, rs), generator=gen,
+                          dtype=torch.int32, device=cuda)
+    u = torch.rand((T, steps, rounds, rs), generator=gen,
+                   dtype=torch.float64, device=cuda)
+    thr = ferromagnet.acceptance_table(J, h, 1.0)
+    ck, cp = chains.clone(), chains.clone()
+    got = ferromagnet.metropolis(ck, sites, u, thr, count_first)
+    want = ferromagnet.metropolis_plain(
+        cp, sites, u, torch.as_tensor(thr, device=cuda), count_first)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(ck, cp)
+    assert not torch.equal(ck, chains)
+
+
+def test_mc_island_history_launches_k28(cuda):
+    ferromagnet.metropolis.launches = ferromagnet.metropolis_plain.calls = 0
+    counts = ferromagnet.mc_island_history(
+        num_trials=4, chain_length=2000, num_steps=50, trials_per_step=20,
+        rounds_per_step=4, device=cuda)
+    assert counts.shape == (4, 50, 6) and (counts[..., 0] == 0).all()
+    assert ferromagnet.metropolis.launches >= 1
+    assert ferromagnet.metropolis_plain.calls == 0
+
+
+_AC_ROWS = np.array([  # examples/autocatalysis.py's first and last rows
+    [0.0, 0.0, 1.0, 0.001, 20.0, 10.0, 0.001, 50.0, 20.0, 0.0, 0.0],
+    [0.2, 0.1, 0.4, 0.001, 20.0, 10.0, 0.001, 50.0, 20.0, 0.0, 0.0],
+    [0.0, 0.0, 1.0, 0.01, 20.0, 10.0, 0.01, 50.0, 20.0, 10.0, 10.0],
+    [0.0, 0.0, 1.0, 0.05, 20.0, 10.0, 0.05, 25.0, 10.0, 30.0, 30.0]])
+
+
+@pytest.mark.parametrize("n_out,max_steps", [(101, 200_000), (201, 150)])
+def test_dopri5_batch_kernel_matches_plain(cuda, n_out, max_steps):
+    """K29 against `_solve_batch_plain` on four example rows (and a cap
+    that stops every member early: later samples stay 0): equal steps a
+    member, samples within rtol 1e-12."""
+    y0 = torch.as_tensor(_AC_ROWS[:, :3].copy(), device=cuda)
+    p = torch.as_tensor(_AC_ROWS[:, 3:].copy(), device=cuda)
+    ts = torch.linspace(0.0, 0.01 * (n_out - 1), n_out, dtype=torch.float64,
+                        device=cuda)
+    ys, acc, rej = autocatalysis.dopri5_batch(y0, p, ts, max_steps)
+    want, acc_p, rej_p = autocatalysis._solve_batch_plain(y0, p, ts,
+                                                          max_steps)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_p) and torch.equal(rej, rej_p)
+    assert torch.equal(ys == 0, want == 0)
+    torch.testing.assert_close(ys, want, rtol=1e-12, atol=0)
+    if max_steps == 150:
+        assert bool(((acc + rej) == 150).all()) and bool((ys[:, -1] == 0).all())
