@@ -23,17 +23,32 @@
 // column 0 is 0 and longer runs count nowhere.
 //
 // Plain C++ under `g++` as well (`mc_host_run` runs the block's phases in
-// turn), so a CPU test holds the rule to the plain version.
+// turn, `mc_host_run_bits` on a chain held as bits), so a CPU test holds
+// the rule to the plain version.
 
 #pragma once
 
+#include <stdint.h>
+
 #ifdef __CUDACC__
 #define MC_FN __host__ __device__ __forceinline__
+#define MC_MEMBER __host__ __device__ __forceinline__
 #else
 #define MC_FN static inline
+#define MC_MEMBER inline
 #endif
 
 constexpr int kMcCols = 6;  // island-count columns: 0 (unused), L = 1..5
+
+// A chain held as bits, site i at bit i & 31 of word i >> 5: the form a
+// chain too long for a byte a site in shared memory takes. The rule
+// reads a chain through `chain[i]`, so a byte pointer or this serves.
+struct McBits {
+  const uint32_t* w;
+  MC_MEMBER int operator[](int i) const {
+    return (int)((w[i >> 5] >> (i & 31)) & 1u);
+  }
+};
 
 struct McArgs {
   int N, rounds, rs;
@@ -46,8 +61,9 @@ MC_FN int mc_wrap(int i, int N) {
 }
 
 // Phase 1 of trial i of a round: its flip survives.
-MC_FN bool mc_trial(const unsigned char* chain, const int* sites, int i,
-                    double u, const McArgs& a) {
+template <typename Chain>
+MC_FN bool mc_trial(const Chain& chain, const int* sites, int i, double u,
+                    const McArgs& a) {
   const int s = sites[i];
   const int left = chain[mc_wrap(s - 1, a.N)];
   const int mid = chain[s];
@@ -64,7 +80,8 @@ MC_FN bool mc_trial(const unsigned char* chain, const int* sites, int i,
 }
 
 // The islands that start at site i, added to cnt[1..5].
-MC_FN void mc_island_site(const unsigned char* c, int N, int i,
+template <typename Chain>
+MC_FN void mc_island_site(const Chain& c, int N, int i,
                           int (&cnt)[kMcCols]) {
   int run = 1 - c[mc_wrap(i - 1, N)];
   int j = i;
@@ -85,11 +102,13 @@ MC_FN void mc_island_site(const unsigned char* c, int N, int i,
 // each thread summing the sites t, t + threads, ... and the block's
 // partial sums added in thread order (integers: any order gives the
 // kernel's counts).
+// With ``bits`` the chain is held as `McBits` words, as the kernel holds
+// a chain too long for a byte a site, and a flip is an XOR of its bit.
 #include <vector>
-extern "C" int mc_host_run(int T, int N, int rounds, int rs,
-                           const double* thr, int* chains, const int* sites,
-                           const double* u, int steps, int count_first,
-                           int threads, int* counts) {
+static int mc_host_run_impl(int T, int N, int rounds, int rs,
+                            const double* thr, int* chains, const int* sites,
+                            const double* u, int steps, int count_first,
+                            int threads, int* counts, bool bits) {
   if (N < 1 || rs < 1 || threads < 1) return 1;
   McArgs a;
   a.N = N;
@@ -97,18 +116,31 @@ extern "C" int mc_host_run(int T, int N, int rounds, int rs,
   a.rs = rs;
   for (int q = 0; q < 6; ++q) a.thr[q] = thr[q];
   std::vector<unsigned char> c(N), flag(rs);
+  std::vector<uint32_t> w((N + 31) / 32);
+  const McBits cb{w.data()};
+  auto site = [&](int i) { return bits ? cb[i] : (int)c[i]; };
   auto count = [&](int* out) {
     long long tot[kMcCols] = {0, 0, 0, 0, 0, 0};
     for (int t = 0; t < threads; ++t) {
       int cnt[kMcCols] = {0, 0, 0, 0, 0, 0};
-      for (int i = t; i < N; i += threads) mc_island_site(c.data(), N, i, cnt);
+      for (int i = t; i < N; i += threads) {
+        if (bits)
+          mc_island_site(cb, N, i, cnt);
+        else
+          mc_island_site(c.data(), N, i, cnt);
+      }
       for (int L = 0; L < kMcCols; ++L) tot[L] += cnt[L];
     }
     for (int L = 0; L < kMcCols; ++L) out[L] = (int)tot[L];
   };
   const int rows = steps + (count_first ? 1 : 0);
   for (int ch = 0; ch < T; ++ch) {
-    for (int i = 0; i < N; ++i) c[i] = (unsigned char)chains[(long long)ch * N + i];
+    for (auto& x : w) x = 0;
+    for (int i = 0; i < N; ++i) {
+      const int v = chains[(long long)ch * N + i] & 1;
+      c[i] = (unsigned char)v;
+      w[i >> 5] |= (uint32_t)v << (i & 31);
+    }
     int* out = counts + (long long)ch * rows * kMcCols;
     if (count_first) {
       count(out);
@@ -118,15 +150,36 @@ extern "C" int mc_host_run(int T, int N, int rounds, int rs,
       for (int r = 0; r < rounds; ++r) {
         const long long base = (((long long)ch * steps + st) * rounds + r) * rs;
         for (int i = 0; i < rs; ++i)
-          flag[i] = mc_trial(c.data(), sites + base, i, u[base + i], a);
-        for (int i = 0; i < rs; ++i)
-          if (flag[i]) c[sites[base + i]] ^= 1;
+          flag[i] = bits ? mc_trial(cb, sites + base, i, u[base + i], a)
+                         : mc_trial(c.data(), sites + base, i, u[base + i], a);
+        for (int i = 0; i < rs; ++i) {
+          if (!flag[i]) continue;
+          const int s = sites[base + i];
+          c[s] ^= 1;
+          w[s >> 5] ^= 1u << (s & 31);
+        }
       }
       count(out);
       out += kMcCols;
     }
-    for (int i = 0; i < N; ++i) chains[(long long)ch * N + i] = c[i];
+    for (int i = 0; i < N; ++i) chains[(long long)ch * N + i] = site(i);
   }
   return 0;
+}
+
+extern "C" int mc_host_run(int T, int N, int rounds, int rs,
+                           const double* thr, int* chains, const int* sites,
+                           const double* u, int steps, int count_first,
+                           int threads, int* counts) {
+  return mc_host_run_impl(T, N, rounds, rs, thr, chains, sites, u, steps,
+                          count_first, threads, counts, false);
+}
+
+extern "C" int mc_host_run_bits(int T, int N, int rounds, int rs,
+                                const double* thr, int* chains,
+                                const int* sites, const double* u, int steps,
+                                int count_first, int threads, int* counts) {
+  return mc_host_run_impl(T, N, rounds, rs, thr, chains, sites, u, steps,
+                          count_first, threads, counts, true);
 }
 #endif

@@ -9,7 +9,11 @@
 //
 // One thread a trajectory, its S counts and its time in registers,
 // looping over the E events of a chunk; the network (a few hundred
-// bytes) sits in shared memory. Draws u [E, 2, B] come from the caller's
+// bytes) sits in shared memory. A network past the shared form's limits
+// (32 reactions, 8 species, 8 factors a reaction) takes the wide kernel:
+// the factor lists in global memory (read by every thread of a warp at
+// the same address, so from the L1 cache), the counts read and written
+// in the state array, one thread a trajectory as well. Draws u [E, 2, B] come from the caller's
 // generator; outputs are time-major t [E, B] float64 and n [E, S, B]
 // int32, so a warp's loads and stores coalesce. Bound: bytes, the draws
 // read once and the outputs written once (28 bytes an event in float32
@@ -38,6 +42,16 @@ __global__ void __launch_bounds__(kThreads)
   const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (b >= B) return;
   ssa_trajectory<T>(g, u, B, E, b, t_state, n_state, t_out, n_out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    k27_wide_kernel(SsaWide g, const T* __restrict__ u, long long B, int E,
+                    double* t_state, int* n_state, double* t_out,
+                    int* n_out) {
+  const long long b = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  ssa_wide_trajectory<T>(g, u, B, E, b, t_state, n_state, t_out, n_out);
 }
 
 }  // namespace
@@ -72,6 +86,31 @@ extern "C" int ckpe_ssa_rounds(const int* order, const int* stoich,
   else
     k27_kernel<float><<<blocks, kThreads, 0, stream>>>(
         dev_net, static_cast<const float*>(u), B, E, t_state, n_state, t_out,
+        n_out);
+  return (int)cudaGetLastError();
+}
+
+// The wide form of `ckpe_ssa_rounds`: the network as device arrays
+// (`SsaWide`: fac_lo [R + 1], fac_s and fac_j [fac_lo[R]], stoich [R, S]
+// int32, rates [R] float64), any R >= 1 and S >= 1.
+extern "C" int ckpe_ssa_rounds_wide(const int* fac_lo, const int* fac_s,
+                                    const int* fac_j, const int* stoich,
+                                    const double* rates, int R, int S,
+                                    int is_double, const void* u,
+                                    long long B, int E, double* t_state,
+                                    int* n_state, double* t_out, int* n_out,
+                                    cudaStream_t stream) {
+  if (R < 1 || S < 1 || B < 1 || E < 0) return (int)cudaErrorInvalidValue;
+  if (E == 0) return 0;
+  const SsaWide g{R, S, fac_lo, fac_s, fac_j, stoich, rates};
+  const unsigned blocks = (unsigned)((B + kThreads - 1) / kThreads);
+  if (is_double)
+    k27_wide_kernel<double><<<blocks, kThreads, 0, stream>>>(
+        g, static_cast<const double*>(u), B, E, t_state, n_state, t_out,
+        n_out);
+  else
+    k27_wide_kernel<float><<<blocks, kThreads, 0, stream>>>(
+        g, static_cast<const float*>(u), B, E, t_state, n_state, t_out,
         n_out);
   return (int)cudaGetLastError();
 }

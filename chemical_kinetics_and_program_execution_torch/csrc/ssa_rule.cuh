@@ -17,7 +17,11 @@
 // The network is launch data: `ssa_build_net` turns reactant orders,
 // stoichiometry and rates into each reaction's factor list (species s,
 // offset j) in the order s, then j, for R <= 32 reactions, S <= 8
-// species and at most 8 factors a reaction.
+// species and at most 8 factors a reaction. A network past any of those
+// limits takes the wide form (`SsaWide`): the same factor lists, built
+// by the caller, read from global memory, the counts kept in the state
+// array itself, and each reaction's propensity formed again for the
+// running sum (the same operations in the same order, so the same bits).
 //
 // Plain C++ under `g++` as well (`ssa_host_run`), so a CPU test holds the
 // rule to the plain version.
@@ -157,7 +161,95 @@ SSA_FN void ssa_trajectory(const SsaNet& g, const T* u, long long B, int E,
     if (s < g.S) n_state[s * B + b] = n[s];
 }
 
+// The wide form: factor q of reaction r (q in [fac_lo[r], fac_lo[r+1]))
+// is species fac_s[q] at offset fac_j[q]; stoich [R, S] row-major.
+struct SsaWide {
+  int R, S;
+  const int* fac_lo;
+  const int* fac_s;
+  const int* fac_j;
+  const int* stoich;
+  const double* rate;
+};
+
+// Reaction r's propensity at the counts n[s * B] (a trajectory's column).
+template <typename T>
+SSA_FN T ssa_wide_prop(const SsaWide& g, const int* n, long long B, int r) {
+  T p = (T)g.rate[r];
+  for (int q = g.fac_lo[r]; q < g.fac_lo[r + 1]; ++q) {
+    const T x = (T)n[(long long)g.fac_s[q] * B] - (T)g.fac_j[q];
+    p = p * (x > (T)0 ? x : (T)0);
+  }
+  return p;
+}
+
+// `ssa_event` in the wide form, on the counts n[s * B] in place.
+template <typename T>
+SSA_FN void ssa_wide_event(const SsaWide& g, int* n, long long B, double& t,
+                           T u0, T u1) {
+  T total = (T)0;
+  for (int r = 0; r < g.R; ++r) {
+    const T p = ssa_wide_prop<T>(g, n, B, r);
+    total = r == 0 ? p : total + p;
+  }
+  const bool alive = total > (T)0;
+  const T floor = (T)1e-30;
+  const T dt = alive ? -ssa_log1p(-u0) / (total > floor ? total : floor)
+                     : (T)INFINITY;
+  t = t + (double)dt;
+  const T uu = u1 * total;
+  T cum = (T)0;
+  int cnt = 0;
+  for (int r = 0; r < g.R; ++r) {
+    const T p = ssa_wide_prop<T>(g, n, B, r);
+    cum = r == 0 ? p : cum + p;
+    cnt += uu >= cum ? 1 : 0;
+  }
+  const int rr = cnt < g.R - 1 ? cnt : g.R - 1;
+  if (alive)
+    for (int s = 0; s < g.S; ++s)
+      n[(long long)s * B] += g.stoich[(long long)rr * g.S + s];
+}
+
+// `ssa_trajectory` in the wide form: the counts stay in n_state.
+template <typename T>
+SSA_FN void ssa_wide_trajectory(const SsaWide& g, const T* u, long long B,
+                                int E, long long b, double* t_state,
+                                int* n_state, double* t_out, int* n_out) {
+  double t = t_state[b];
+  int* n = n_state + b;
+  for (int e = 0; e < E; ++e) {
+    const T u0 = u[(2LL * e) * B + b];
+    const T u1 = u[(2LL * e + 1) * B + b];
+    ssa_wide_event<T>(g, n, B, t, u0, u1);
+    t_out[(long long)e * B + b] = t;
+    for (int s = 0; s < g.S; ++s)
+      n_out[((long long)e * g.S + s) * B + b] = n[(long long)s * B];
+  }
+  t_state[b] = t;
+}
+
 #ifndef __CUDACC__
+// The wide launch on the host: every trajectory in turn.
+extern "C" int ssa_host_run_wide(const int* fac_lo, const int* fac_s,
+                                 const int* fac_j, const int* stoich,
+                                 const double* rates, int R, int S,
+                                 int is_double, const void* u, long long B,
+                                 int E, double* t_state, int* n_state,
+                                 double* t_out, int* n_out) {
+  if (R < 1 || S < 1) return 1;
+  const SsaWide g{R, S, fac_lo, fac_s, fac_j, stoich, rates};
+  for (long long b = 0; b < B; ++b) {
+    if (is_double)
+      ssa_wide_trajectory<double>(g, (const double*)u, B, E, b, t_state,
+                                  n_state, t_out, n_out);
+    else
+      ssa_wide_trajectory<float>(g, (const float*)u, B, E, b, t_state,
+                                 n_state, t_out, n_out);
+  }
+  return 0;
+}
+
 // The launch on the host: every trajectory in turn (``is_double`` picks T).
 // Returns 0, or 1 when the network exceeds the limits.
 extern "C" int ssa_host_run(const int* order, const int* stoich,

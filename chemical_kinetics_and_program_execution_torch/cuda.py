@@ -242,9 +242,9 @@ def load() -> ctypes.CDLL:
     lib.ckpe_table_rounds.argtypes = [_P, _P, _P, _I, _P] + [_I] * 10 + [
         _P, _P, _P, _I, _I, _P, _P, _P]
     # ckpe_pattern_scan(tape, elem, B, L, pattern, P, mode, out, t_hit,
-    #                   t_now, stream)
+    #                   t_now, members, stream)
     lib.ckpe_pattern_scan.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P, _P,
-                                      _P, _P]
+                                      _P, _I, _P]
     # ckpe_weighted_counts(tape, w, B, L, size_a, cl_k, per, partial, hist,
     #                      ticket, out, stream)
     lib.ckpe_weighted_counts.argtypes = [_P, _P, _I, _I, _I, _I, _I, _P, _P,
@@ -283,16 +283,21 @@ def load() -> ctypes.CDLL:
     lib.ckpe_ssa_net_bytes.restype = _I
     lib.ckpe_ssa_rounds.argtypes = [_P, _P, _P, _I, _I, _P, _I, _P, _L, _I,
                                     _P, _P, _P, _P, _P]
+    # ckpe_ssa_rounds_wide(fac_lo, fac_s, fac_j, stoich, rates, R, S,
+    #                      is_double, u, B, E, t_state, n_state, t_out,
+    #                      n_out, stream)
+    lib.ckpe_ssa_rounds_wide.argtypes = [_P] * 5 + [_I, _I, _I, _P, _L, _I,
+                                                    _P, _P, _P, _P, _P]
     # ckpe_metropolis(T, N, rounds, rs, thr, chains, sites, u, steps,
-    #                 count_first, counts, stream)
+    #                 count_first, counts, bits, stream)
     lib.ckpe_metropolis.argtypes = [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
-                                    _P, _P]
+                                    _P, _I, _P]
     # ckpe_dopri5_batch(coef, has, B, y0, params, ts, n_out, rtol, atol,
     #                   max_steps, ys, n_acc, n_rej, stream)
     lib.ckpe_dopri5_batch.argtypes = [_P, _P, _I, _P, _P, _P, _I, _D, _D, _L,
                                       _P, _P, _P, _P]
     for name in ("ckpe_table_rounds", "ckpe_pattern_scan",
-                 "ckpe_ssa_rounds", "ckpe_metropolis", "ckpe_dopri5_batch",
+                 "ckpe_ssa_rounds", "ckpe_ssa_rounds_wide", "ckpe_metropolis", "ckpe_dopri5_batch",
                  "ckpe_bitplanes_pack", "ckpe_bitplanes_unpack",
                  "ckpe_weighted_counts", "ckpe_bff_rounds", "ckpe_bff_mutate",
                  "ckpe_content_hash", "ckpe_merge_resample",

@@ -478,3 +478,22 @@ def run_bitsliced_tapes(mach: BffMachine, ptape, dtape, shifts, events: int):
     if mach.self_modifying:
         return (d_out,), totals
     return (ptape.to(torch.int32), d_out), totals
+
+
+def run_ensemble_bff_bitsliced(generator, ts, mach: BffMachine,
+                               steps_events, *, device=None):
+    """The reference's name for the bit-sliced BFF run (mutation-free,
+    shared random sites): `bff.run_ensemble_bff` with
+    ``engine="bitslice"`` (raises where the call is not eligible), which
+    draws its shifts from ``generator`` and runs
+    :func:`run_bitsliced_tapes`. ``ts`` is the tape tuple, (ptape, dtape)
+    [B, L] for a two-tape machine or (tape,) for a self-modifying one.
+    Returns (the tape tuple, (op_totals int64 [num_steps, size_a], times
+    float64 [num_steps])), as the reference does."""
+    from .bff import run_ensemble_bff
+
+    ts = tuple(ts)
+    out, aux = run_ensemble_bff(
+        generator, ts[0] if mach.self_modifying else ts, mach, steps_events,
+        engine="bitslice", device=device)
+    return ((out,) if mach.self_modifying else tuple(out)), aux

@@ -24,12 +24,17 @@ Kernels carry the device work (sources in `csrc/`, built by `cuda.py`):
 - **K10** `table_round` — the transition-table round on [B, L] int32
   tapes at any shift (`csrc/table_round.cu`), the reference's
   `_apply_lattice_round`.
-- **K11** `lattice_round` — the FSM round on [B, L] int8 tapes at a
+- **K11** `lattice_round` — the FSM rounds on [B, L] int8 tapes at a
   shared or a per-member shift, in each machine's K1 unit
   (`csrc/lattice_round.cuh`), the reference's `_apply_lattice_round_fsm`
-  with `_roll_cols` and `_roll_rows`.
+  with `_roll_cols` and `_roll_rows`: all rounds of a call in one launch
+  on members held in shared memory (`k11_tile`), first passage's update
+  applied there after each round (calls of fewer than
+  `K11_RESIDENT_MIN_ROUNDS` rounds, and rows too long to keep, take a
+  launch a round).
 - **K12** `pattern_scan` — `contains_pattern`, `pattern_progress` and
-  the first-passage update (`csrc/pattern_scan.cu`).
+  the first-passage update at t = 0 (`csrc/pattern_scan.cu`, a warp a
+  member on rows staged in shared memory: `k12_members`).
 - **K13** `weighted_window_counts` — K2's windows weighted by member,
   summed in a fixed order (`csrc/weighted_counts.cu`).
 
@@ -1368,11 +1373,56 @@ def _check_lattice(rule, ptape, dtape, shifts, k0, n, events, uniforms):
 
 _K10_MAX_CELLS = 24  # csrc/table_rule.cuh: K10_MAX_CELLS
 
+# Shared memory on the H100: the most a block may have, and the most each
+# of two blocks an SM may have (228 KB an SM, 1 KB of it kept a block).
+SMEM_BLOCK, SMEM_PAIR = 232_448, 115_712
+_SMS = 132  # the H100's streaming multiprocessors
+
+
+# Calls of fewer rounds than this take K11's kernel of one launch a round:
+# loading and storing whole rows costs about what three rounds do at the
+# full width (on an H100, B=16384, L=4096, E=256: a one-round resident
+# call 153 µs, against 64 µs a round of that kernel and 42 µs a
+# resident round).
+K11_RESIDENT_MIN_ROUNDS = 4
+
+
+def k11_tile(B: int, L: int, events: int, pattern_len: int | None = None):
+    """K11's resident tile for a call at [B, L] with ``events`` sites a
+    member (`csrc/lattice_round.cuh`), for first passage when
+    ``pattern_len`` is given: (members a block, threads a block, bytes of
+    shared memory), or None where one member's rows do not fit a block
+    (2L past 227 KB), which takes the kernel of one launch a round.
+
+    A member holds both rows (each L rounded up to 4 bytes, then to 4
+    more than a multiple of 128: `csrc/lattice_round.cuh:k11_row_stride`),
+    and for first passage its hit time and a flag (12 bytes); the
+    pattern is stored once. The tile is as many members as two blocks an SM leave
+    room for (one block's worth where a member needs more), and no more
+    than spreads B over two blocks for each of the card's SMs; 512
+    threads where a round has 1,024 sites or more, else 256."""
+    Ls = -(-L // 4) * 4
+    Ls += (132 - Ls % 128) % 128
+    fp = pattern_len is not None
+    per = 2 * Ls + (12 if fp else 0)
+    fixed = 4 * pattern_len if fp else 0
+    if per + fixed > SMEM_BLOCK:
+        return None
+    cap = (SMEM_PAIR - fixed) // per
+    if cap < 1:
+        cap = (SMEM_BLOCK - fixed) // per
+    tile = max(1, min(cap, -(-B // (2 * _SMS))))
+    threads = 512 if tile * events >= 1024 else 256
+    return tile, threads, tile * per + fixed
+
 
 def _lattice_rounds(rule, ptape, dtape, shifts, k0, n, events, uniforms):
     """Rounds [k0, k0+n) of a rolled run, checked by the caller: the
     plain version a round on the CPU; on the card one C call that
-    launches K10 (a table) or K11 (a machine) once a round."""
+    launches K10 (a table) once a round, or K11 (a machine) once for all
+    n rounds on members held in shared memory (`k11_tile`; once a round
+    where the rows are too long for it or n is below
+    `K11_RESIDENT_MIN_ROUNDS`)."""
     per_member = shifts.dim() == 2
     if ptape.device.type == "cpu":
         plain = (table_round_plain if isinstance(rule, DeviceTable)
@@ -1405,12 +1455,15 @@ def _lattice_rounds(rule, ptape, dtape, shifts, k0, n, events, uniforms):
             from .k1_source import k1_library  # k1_source imports this
 
             lib = k1_library(rule)
+            tile = (k11_tile(B, L, events) if n >= K11_RESIDENT_MIN_ROUNDS
+                    else None)
             rc = lib.ckpe_k11_rounds(ptape.data_ptr(), dtape.data_ptr(),
                                      u_ptr, shifts.data_ptr(),
                                      int(per_member), int(k0), int(n),
-                                     int(B), int(L), int(events), stream)
+                                     int(B), int(L), int(events),
+                                     *(tile[:2] if tile else (0, 0)), stream)
             cuda.check(rc, "lattice_round", lib)
-            lattice_round.launches += n
+            lattice_round.launches += 1 if tile else n
 
 
 def _one_round(rule, ptape, dtape, shift, events, uniforms):
@@ -1766,6 +1819,22 @@ def pattern_scan_plain(tape, pattern, mode: int, *, t_hit=None, t_now=None):
 pattern_scan_plain.calls = 0
 
 
+def k12_members(L: int, elem: int, pattern_len: int) -> int:
+    """K12's members a block (`csrc/pattern_scan.cu`: a warp a member,
+    each staging its row of L symbols of ``elem`` bytes and the
+    ``pattern_len`` - 1 wrap cells in shared memory): up to 8, as many as
+    two blocks an SM leave room for (one block's worth where a row needs
+    more), or 0 where one staged row does not fit a block, which takes
+    the kernel of a block a member reading the row where it lies."""
+    cells = L + max(pattern_len - 1, 0)
+    row = -(-cells * elem // 16) * 16
+    fixed = -(-4 * pattern_len // 16) * 16
+    for budget in (SMEM_PAIR, SMEM_BLOCK):
+        if (budget - fixed) // row >= 1:
+            return min(8, (budget - fixed) // row)
+    return 0
+
+
 def _check_scan(tape, pattern, mode, t_hit, t_now):
     if tape.dtype not in (torch.int8, torch.int32) or tape.dim() != 2:
         raise TypeError("tape must be an int8 or int32 [B, L] tensor")
@@ -1811,7 +1880,9 @@ def pattern_scan(tape, pattern, mode: int, *, t_hit=None, t_now=None):
             pattern.data_ptr(), int(pattern.numel()), int(mode),
             None if mode == _SCAN_FIRST_PASSAGE else out.data_ptr(),
             None if t_hit is None else t_hit.data_ptr(),
-            None if t_now is None else t_now.data_ptr(), cuda.stream(tape))
+            None if t_now is None else t_now.data_ptr(),
+            k12_members(L, tape.element_size(), pattern.numel()),
+            cuda.stream(tape))
     cuda.check(rc, "pattern_scan", lib)
     pattern_scan.launches += 1
     return out
@@ -1849,8 +1920,10 @@ def _first_passage_rounds(dm, pt, dt_, pat, shifts, k0, n, events,
                           uniforms, times, t_hit, data_tape):
     """Rounds [k0, k0+n) of a first-passage run, checked by the caller:
     each a K11 round at ``shifts[k]`` and K12's update of ``t_hit`` at
-    ``times[k + 1]``. On the card one C call launches both, round by
-    round."""
+    ``times[k + 1]``. On the card one K11 launch runs them all, K12's
+    update applied to the members held in shared memory (`k11_tile`);
+    where the rows are too long for that, one C call launches K11 and
+    K12 a round each."""
     watch = dt_ if data_tape else pt
     if pt.device.type == "cpu":
         for j in range(n):
@@ -1862,19 +1935,26 @@ def _first_passage_rounds(dm, pt, dt_, pat, shifts, k0, n, events,
     from .k1_source import k1_library  # k1_source imports this module
 
     lib = k1_library(dm)
-    scan_lib = cuda.load()
-    scan_fn = ctypes.cast(scan_lib.ckpe_pattern_scan, ctypes.c_void_p).value
     B, L = pt.shape
+    tile = k11_tile(B, L, events, pat.numel())
+    scan_fn = None
+    if tile is None:
+        scan_fn = ctypes.cast(cuda.load().ckpe_pattern_scan,
+                              ctypes.c_void_p).value
     with torch.cuda.device(pt.device):
         rc = lib.ckpe_k11_first_passage(
             pt.data_ptr(), dt_.data_ptr(),
             None if uniforms is None else uniforms.data_ptr(),
             shifts.data_ptr(), int(k0), int(n), int(B), int(L), int(events),
             int(bool(data_tape)), pat.data_ptr(), int(pat.numel()),
-            t_hit.data_ptr(), times.data_ptr(), scan_fn, cuda.stream(pt))
+            t_hit.data_ptr(), times.data_ptr(), scan_fn,
+            *(tile[:2] if tile else (0, 0)), cuda.stream(pt))
     cuda.check(rc, "first_passage (K11, K12)", lib)
-    lattice_round.launches += n
-    pattern_scan.launches += n
+    if tile:
+        lattice_round.launches += 1
+    else:
+        lattice_round.launches += n
+        pattern_scan.launches += n
 
 
 def _first_passage(dm, pt, dt_, pattern, shifts, chunks, events, data_tape):

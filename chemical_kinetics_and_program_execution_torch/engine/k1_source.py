@@ -337,15 +337,15 @@ def _load(source: str) -> ctypes.CDLL:
     lib.ckpe_k1_rounds.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.ckpe_k1_rounds.restype = _I
     # ckpe_k11_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
-    #                 stream)
-    lib.ckpe_k11_rounds.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                    _P]
+    #                 tile, threads, stream)
+    lib.ckpe_k11_rounds.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_P]
     lib.ckpe_k11_rounds.restype = _I
     # ckpe_k11_first_passage(p, d, uniforms, shifts, k0, n, B, L, E,
     #                        data_tape, pattern, P, t_hit, times, scan,
-    #                        stream)
+    #                        tile, threads, stream)
     lib.ckpe_k11_first_passage.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                           _I, _I, _P, _I, _P, _P, _P, _P]
+                                           _I, _I, _P, _I, _P, _P, _P, _I,
+                                           _I, _P]
     lib.ckpe_k11_first_passage.restype = _I
     # ckpe_k23_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
     #                 sig_tab, irr_tab, S, sigma, n_irrev, stream)

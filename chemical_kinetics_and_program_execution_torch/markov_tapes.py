@@ -91,16 +91,22 @@ def _validate_p0(p0, size_a, cl_k):
     return p0
 
 
+# The device solver's names: the port's, and the reference's (its drop-in
+# callers pass "jax").
+_DEVICE_BACKENDS = ("torch", "jax")
+
+
 def ode_integrate(*, tag, size_a, cl_k, p0, ts,
                   odeint_kwargs=types.MappingProxyType({}),
                   debug=False, backend="scipy", device=None):
     """`scipy.integrate.odeint`-compatible solve. ``backend="torch"``
-    switches to `solve` on ``device`` with the rtol/atol taken from
+    (or ``"jax"``, the reference's name for its device solver) switches
+    to `solve` on ``device`` with the rtol/atol taken from
     ``odeint_kwargs`` (by default 1.49012e-8: dopri5)."""
     p0 = _validate_p0(p0, size_a, cl_k)
     dy_dt = get_dy_dt(tag=tag, size_a=size_a, cl_k=cl_k, debug=debug,
                       device=device)
-    if backend == "torch":
+    if backend in _DEVICE_BACKENDS:
         kwargs = dict(odeint_kwargs)
         return solve(
             _device_rhs(dy_dt), p0, ts,
@@ -121,14 +127,15 @@ def ode_integrate_ivp(*, tag, size_a, cl_k, p0, ts,
                       ivp_kwargs=types.MappingProxyType({}),
                       debug=False, backend="scipy", device=None):
     """`solve_ivp`-compatible solve reshaped to odeint layout;
-    ``backend="torch"`` takes ``method``, ``chunk_size``, ``progress``,
+    ``backend="torch"`` (or ``"jax"``, the reference's name for its
+    device solver) takes ``method``, ``chunk_size``, ``progress``,
     ``checkpoint_path``, ``project`` and ``return_info`` from
     ``ivp_kwargs``."""
     p0 = _validate_p0(p0, size_a, cl_k)
     dy_dt = get_dy_dt(tag=tag, size_a=size_a, cl_k=cl_k, debug=debug,
                       device=device)
     kwargs = dict(ivp_kwargs)
-    if backend == "torch":
+    if backend in _DEVICE_BACKENDS:
         return solve(
             _device_rhs(dy_dt), p0, ts,
             rtol=kwargs.pop("rtol", 1e-3),

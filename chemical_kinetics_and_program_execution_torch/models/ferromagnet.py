@@ -143,13 +143,39 @@ def metropolis_plain(chains: torch.Tensor, sites: torch.Tensor,
 metropolis_plain.calls = 0
 
 
+# The dynamic shared memory K28 may ask for: the H100's 232,448 bytes a
+# block less the kernel's static reduction rows, with room to spare.
+K28_SMEM_BYTES = 231_424
+
+
+def _k28_bytes(N: int, rs: int, bits: bool) -> int:
+    """K28's dynamic shared memory (`csrc/metropolis.cu`): the chain a
+    byte or a bit a site, rounded up to 16 bytes, then 5 bytes a trial."""
+    chain = -(-N // 32) * 4 if bits else N
+    return -(-chain // 16) * 16 + 5 * rs
+
+
+def k28_bits(N: int, rs: int) -> bool:
+    """Whether K28 holds chains of ``N`` sites as bits: exactly when a
+    byte a site does not fit a block's shared memory at ``rs`` trials a
+    round. Raises when neither form fits."""
+    if _k28_bytes(N, rs, False) <= K28_SMEM_BYTES:
+        return False
+    if _k28_bytes(N, rs, True) <= K28_SMEM_BYTES:
+        return True
+    raise ValueError(f"K28 takes chains of at most "
+                     f"{8 * (K28_SMEM_BYTES - 5 * rs - 15)} sites at {rs} "
+                     f"trials a round, not {N}")
+
+
 def metropolis(chains: torch.Tensor, sites: torch.Tensor, u: torch.Tensor,
                thr: np.ndarray, count_first: bool) -> torch.Tensor:
     """K28: the steps of ``sites`` [T, steps, rounds, rs] int32 and ``u``
     (float64, alike) on ``chains`` [T, N] int32 (advanced in place);
     counts [T, steps + count_first, 6] int32 (see `metropolis_plain`).
-    One launch on the card, a block a chain; the plain version on the
-    CPU. ``thr`` is `acceptance_table`'s."""
+    One launch on the card, a block a chain (held as bits where a byte
+    a site does not fit its shared memory: `k28_bits`); the plain version
+    on the CPU. ``thr`` is `acceptance_table`'s."""
     if not cuda.on_card(chains, "metropolis"):
         return metropolis_plain(
             chains, sites, u,
@@ -166,6 +192,7 @@ def metropolis(chains: torch.Tensor, sites: torch.Tensor, u: torch.Tensor,
     if sites.shape[0] != T or tuple(u.shape) != tuple(sites.shape):
         raise ValueError("metropolis: sites and u must be [T, steps, "
                          "rounds, rs] for chains [T, N]")
+    bits = k28_bits(N, rs)
     thr = np.ascontiguousarray(thr, dtype=np.float64)
     counts = torch.empty((T, steps + int(bool(count_first)), COUNT_COLUMNS),
                          dtype=torch.int32, device=chains.device)
@@ -174,7 +201,8 @@ def metropolis(chains: torch.Tensor, sites: torch.Tensor, u: torch.Tensor,
         rc = lib.ckpe_metropolis(T, N, rounds, rs, thr.ctypes.data,
                                  chains.data_ptr(), sites.data_ptr(),
                                  u.data_ptr(), steps, int(bool(count_first)),
-                                 counts.data_ptr(), cuda.stream(chains))
+                                 counts.data_ptr(), int(bits),
+                                 cuda.stream(chains))
     cuda.check(rc, "metropolis", lib)
     metropolis.launches += 1
     return counts

@@ -109,15 +109,37 @@ def autocatalysis_network(c_form_a, c_auto_a, c_stab_a,
         np.stack(reactants), np.stack(products), np.asarray(rates))
 
 
-def _check_network(net: ReactionNetwork) -> None:
+def _fits_shared(net: ReactionNetwork) -> bool:
+    """Whether K27's shared-memory form takes ``net`` (`csrc/ssa_rule.cuh`:
+    at most 32 reactions, 8 species and 8 factors a reaction, no negative
+    order); any other network takes its wide form."""
     R, S = net.reactants.shape
-    factors = int(np.max(net.reactants.sum(axis=1))) if R else 0
-    if not (1 <= R <= MAX_REACTIONS and 1 <= S <= MAX_SPECIES
-            and factors <= MAX_FACTORS and (net.reactants >= 0).all()):
-        raise ValueError(
-            f"K27 takes 1-{MAX_REACTIONS} reactions, 1-{MAX_SPECIES} "
-            f"species and reactant orders summing to at most {MAX_FACTORS} "
-            f"a reaction; got R={R}, S={S}, {factors} factors")
+    orders = np.maximum(net.reactants, 0).sum(axis=1)
+    return (R <= MAX_REACTIONS and S <= MAX_SPECIES
+            and int(orders.max()) <= MAX_FACTORS
+            and bool((net.reactants >= 0).all()))
+
+
+def _wide_tables(net: ReactionNetwork, device):
+    """K27's wide form of ``net``: each reaction's factor list (species s,
+    offset j for j < order, in the order s, then j: the plain version's
+    product order) as fac_lo [R + 1], fac_s and fac_j int32, stoich [R, S]
+    int32 and rates [R] float64, on ``device``."""
+    fac_s, fac_j, fac_lo = [], [], [0]
+    for row in net.reactants:
+        for s, m in enumerate(row.tolist()):
+            fac_s += [s] * max(m, 0)
+            fac_j += list(range(max(m, 0)))
+        fac_lo.append(len(fac_s))
+
+    def i32(x):
+        return torch.as_tensor(np.asarray(x, dtype=np.int32).reshape(-1),
+                               device=device)
+
+    return (i32(fac_lo), i32(fac_s + [0]), i32(fac_j + [0]),
+            i32(net.stoichiometry),
+            torch.as_tensor(np.asarray(net.rates, dtype=np.float64),
+                            device=device))
 
 
 # --- K27: events of the batch -------------------------------------------------
@@ -180,8 +202,10 @@ def ssa_round(network, u: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
     if not cuda.on_card(u, "ssa_round"):
         return ssa_round_plain(network, u, t, n, t_out, n_out)
     net = _as_network(network)
-    _check_network(net)
     R, S = net.reactants.shape
+    if R < 1 or S < 1:
+        raise ValueError(f"K27 takes at least one reaction and one "
+                         f"species; got R={R}, S={S}")
     E, two, B = u.shape
     if u.dtype not in (torch.float32, torch.float64) or two != 2:
         raise TypeError("u must be a float32 or float64 [E, 2, B] tensor")
@@ -194,18 +218,25 @@ def ssa_round(network, u: torch.Tensor, t: torch.Tensor, n: torch.Tensor,
             raise TypeError(f"ssa_round: expected a contiguous {dtype} "
                             f"{shape} tensor on {u.device}")
     u = u.contiguous()
-    order = np.ascontiguousarray(net.reactants, dtype=np.int32)
-    stoich = np.ascontiguousarray(net.stoichiometry, dtype=np.int32)
-    rates = np.ascontiguousarray(net.rates, dtype=np.float64)
     lib = cuda.load()
-    buf = torch.empty(lib.ckpe_ssa_net_bytes(), dtype=torch.uint8,
-                      device=u.device)
+    is_double = int(u.dtype == torch.float64)
+    outs = (t.data_ptr(), n.data_ptr(), t_out.data_ptr(), n_out.data_ptr(),
+            cuda.stream(u))
     with torch.cuda.device(u.device):
-        rc = lib.ckpe_ssa_rounds(
-            order.ctypes.data, stoich.ctypes.data, rates.ctypes.data, R, S,
-            buf.data_ptr(), int(u.dtype == torch.float64), u.data_ptr(), B,
-            E, t.data_ptr(), n.data_ptr(), t_out.data_ptr(),
-            n_out.data_ptr(), cuda.stream(u))
+        if _fits_shared(net):
+            order = np.ascontiguousarray(net.reactants, dtype=np.int32)
+            stoich = np.ascontiguousarray(net.stoichiometry, dtype=np.int32)
+            rates = np.ascontiguousarray(net.rates, dtype=np.float64)
+            buf = torch.empty(lib.ckpe_ssa_net_bytes(), dtype=torch.uint8,
+                              device=u.device)
+            rc = lib.ckpe_ssa_rounds(
+                order.ctypes.data, stoich.ctypes.data, rates.ctypes.data, R,
+                S, buf.data_ptr(), is_double, u.data_ptr(), B, E, *outs)
+        else:
+            tables = _wide_tables(net, u.device)
+            rc = lib.ckpe_ssa_rounds_wide(
+                *(x.data_ptr() for x in tables), R, S, is_double,
+                u.data_ptr(), B, E, *outs)
     cuda.check(rc, "ssa_round", lib)
     ssa_round.launches += 1
 
@@ -253,7 +284,6 @@ def ssa_batch_tm(generator, n0, network, num_events: int, batch: int,
     dev = get_device(device)
     gen = make_generator(generator, dev)
     net = _as_network(network)
-    _check_network(net)
     return _run_events(
         net, n0, lambda e0, c: torch.rand((c, 2, batch), generator=gen,
                                           dtype=dtype, device=dev),
@@ -267,7 +297,6 @@ def ssa_batch_tm_from_draws(n0, network, u: torch.Tensor, dtype=None):
     scan body forms it from ``jax.random.uniform(k, (2, B), dtype)``."""
     dtype = _check_dtype(dtype or u.dtype)
     net = _as_network(network)
-    _check_network(net)
     E, _, B = u.shape
     return _run_events(net, n0, lambda e0, c: u[e0:e0 + c], E, B, dtype,
                        u.device)
@@ -313,15 +342,22 @@ def _propensities(n, reactants, rates, max_order):
 
 
 def ssa_trajectories(generator, n0, network, num_events: int,
-                     num_trajectories: int = 1, device=None):
-    """``num_trajectories`` SSA jump chains of ``num_events`` events in
-    float64 (the JAX package's `ssa_trajectories`, vmapped there by its
-    callers, written out over a batch here): an exponential waiting time
-    ``-log1p(-u) / max(total, 1e-300)`` and the reaction drawn from
-    ``p / total`` (the JAX package's `choice`: the first running sum at
-    or above ``total * (1 - u)``), counts in int64; ``inf`` time and no
-    change once quiescent. Plain torch; the reference law of the float32
-    core. Returns (times [T, E] float64, counts [T, E, S] int64)."""
+                     num_trajectories: int | None = None, device=None):
+    """SSA jump chains of ``num_events`` events in float64 (the JAX
+    package's `ssa_trajectories`, vmapped there by its callers, written
+    out over a batch here): an exponential waiting time ``-log1p(-u) /
+    max(total, 1e-300)`` and the reaction drawn from ``p / total`` (the
+    JAX package's `choice`: the first running sum at or above ``total *
+    (1 - u)``), counts in int64; ``inf`` time and no change once
+    quiescent. Plain torch; the reference law of the float32 core.
+
+    Returns one chain in the JAX shapes, (times [E] float64, counts [E,
+    S] int64), or with ``num_trajectories`` = T a batch of T, (times [T,
+    E], counts [T, E, S])."""
+    if num_trajectories is None:
+        ts, ns = ssa_trajectories(generator, n0, network, num_events, 1,
+                                  device)
+        return ts[0], ns[0]
     dev = get_device(device)
     gen = make_generator(generator, dev)
     net = _as_network(network)

@@ -135,10 +135,12 @@ Phases (each prints its wall time; every check raises on failure):
    K11's on ex5's machine at float32-exact uniforms (shared and
    per-member shifts), and, where the uniforms choose the outcome, one
    round on ex4's table (float64, 3 outcomes a row) and ex3's (float32,
-   2) equal to `table_round_plain`; (b) the ex5 machine with independent sites (K11
-   200 times), one round at per-member shifts equal to the reference's
-   delta-rolled loop written out (`independent_rounds_rolled_plain`);
-   (c) ex4 at E=32 (stride 128) for 200 rounds, K11 equal to its plain
+   2) equal to `table_round_plain`; (b) the ex5 machine with independent
+   sites (K11's resident rounds: one launch for the 200 rounds), one
+   round at per-member shifts equal to the reference's delta-rolled loop
+   written out (`independent_rounds_rolled_plain`); (c) ex4 at E=32
+   (stride 128) for 200 rounds (one K11 launch a chunk of uniforms), K11
+   equal to its plain
    version at shifts 0, 5, 127 and 4095; (d) the master-equation gates
    of the JAX package's tests/test_master.py at their settings, the
    port's `engine/master.py` the oracle: :75 (z < 6; on K1 with
@@ -153,15 +155,22 @@ Phases (each prints its wall time; every check raises on failure):
    members share each round's sites, so they are not independent draws;
    seeds are), ex4's pooled survival within 0.02 of its closed form;
    on the card at those two runs' geometry, `first_passage_from_draws`
-   (K11 and K12 in mode 2, a few C calls of many rounds) equal, hit
-   times, hits and both tapes, to the loop of `lattice_round_plain` and
-   `pattern_scan_plain` at the same draws; K13 equal to its plain
-   version on the tapes of :75 and of ex2_master_oracle;
-   (f) K10, K11 (shared and per-member shifts), K12 and K13 each alone
-   at B=16384, L=4096, by CUDA events, beside its bound, its plain
-   version and, for K13, `torch.bincount`; K12 and K13 equal to their
-   plain versions bit for bit, twice; path (a)'s round split into the
-   float64 draw alone and K10 over fresh shifts and uniforms;
+   (K11's resident rounds with K12's update in shared memory, one K11
+   launch a C call of many rounds) equal, hit times, hits and both
+   tapes, to the loop of `lattice_round_plain` and `pattern_scan_plain`
+   at the same draws; K13 equal to its plain version on the tapes of :75
+   and of ex2_master_oracle; (g) K11's resident rounds at B=16384,
+   L=4096, E=256 (8 rounds in one launch, shared and per-member shifts)
+   and the fused first passage there (ex2, 30 rounds in calls of 10)
+   against the plain versions, then at a row too long to keep resident
+   (B=8, L=131,072: one launch a round), both ways;
+   (f) K10, K11 (one round a call, shared and per-member shifts; and 200
+   rounds a call, beside the bound of the call's bytes), K12 and K13
+   each alone at B=16384, L=4096, by CUDA events, beside its bound, its
+   plain version and, for K13, `torch.bincount`; K12 (modes 0-2, int8
+   and int32) and K13 equal to their plain versions bit for bit, twice;
+   path (a)'s round split into the float64 draw alone and K10 over fresh
+   shifts and uniforms;
 10. the bit-sliced rounds (K14, K15), each path with every count set to 0
    just before and read just after, no plain version called: (a)
    `run_ensemble` with the default route on phase 3's input and seed
@@ -321,14 +330,18 @@ Phases (each prints its wall time; every check raises on failure):
    geometry (the autocatalysis network, n0 = (0, 0, 2000), B = 65,536,
    E = 1,000, float32), a first and a warm call, trajectories/s and
    events/s (draws included); K27 against `ssa_round_plain` bit for bit
-   in float32 and float64 at B = 65,536 over 50 events; the moment gates
+   in float32 and float64 at B = 65,536 over 50 events, and K27's wide
+   form (the network in global memory) so at a network past each of its
+   shared-memory limits (33 reactions, 9 species, 9 factors); the moment gates
    of the JAX package's tests/test_models.py:189 at full B (float32
    against the float64 core and against 512 float64 `ssa_trajectories`:
    5-sigma means, variance ratio 0.7-1.4, the largest z printed); (b)
    `ferromagnet.mc_island_history` at examples/ex2_ferromagnet_mc.py's
    geometry (100 chains x 50,000 sites, 4,000 steps of 500 trials in 20
    rounds), steps/s; K28 against `metropolis_plain` bit for bit on all
-   100 chains over 20 steps (counts and chains); the run against the
+   100 chains over 20 steps (counts and chains), and on chains held as
+   bits (4 x 300,000 sites at 25 trials a round, past a byte a site in
+   shared memory) over 8 steps; the run against the
    committed JAX run examples/ferromagnet_mc_chain_counts.npz (for L =
    1..4, each of ten 400-step blocks' trial mean within 5 combined
    standard errors) and the analytic band of tests/test_models.py:107
@@ -2469,12 +2482,14 @@ def first_passage_plain(dm, tapes, pattern, shifts, events, uniforms,
 
 
 def first_passage_against_plain(label, dm, tapes, pattern, plan, per_call,
-                                data_tape, gen, diff):
+                                data_tape, gen, diff, need_late=True):
     """K11 and K12 as a first-passage run sends them (``per_call``
     rounds a C call) against `first_passage_plain` at the same draws:
-    hit times, hits and both tapes bit for bit. Raises unless some
-    member hits after t = 0 and some never does, so the times are
-    compared where they change."""
+    hit times, hits and both tapes bit for bit, and one K11 launch a C
+    call (one a round where the rows are too long to keep resident).
+    With ``need_late``, raises unless some member hits after t = 0 and
+    some never does, so the times are compared where they change.
+    Returns (K11 launches, C calls)."""
     rounds, events = plan
     B, L = tapes[0].shape
     dev = tapes[0].device
@@ -2482,9 +2497,11 @@ def first_passage_against_plain(label, dm, tapes, pattern, plan, per_call,
                            dtype=torch.int32)
     u = (torch.rand((rounds, B, events), generator=gen, device=dev)
          if dm.has_choose else None)
+    k11 = ens.lattice_round.launches
     got = ens.first_passage_from_draws(dm, tapes, pattern, shifts, events,
                                        u, data_tape=data_tape,
                                        rounds_per_call=per_call)
+    k11 = ens.lattice_round.launches - k11
     want = first_passage_plain(dm, tapes, pattern, shifts, events, u,
                                data_tape)
     torch.cuda.synchronize()
@@ -2494,15 +2511,24 @@ def first_passage_against_plain(label, dm, tapes, pattern, plan, per_call,
     if not (same_t and diff("K11", ((p_k, p_p), (d_k, d_p)))):
         raise AssertionError(f"{label}: first passage on the card != the "
                              "plain loop")
-    diff("K12", ((h_k, h_p),))
+    diff("K12", ((h_k, h_p), (t_k.nan_to_num(posinf=-1.0),
+                              t_p.nan_to_num(posinf=-1.0))))
+    calls = -(-rounds // (per_call or rounds))
+    resident = ens.k11_tile(B, L, events, len(pattern)) is not None
+    if k11 != (calls if resident else rounds):
+        raise AssertionError(f"{label}: {k11} K11 launches for {calls} C "
+                             f"calls of {rounds} rounds")
     late = int((h_p & (t_p > 0)).sum())
-    if not (late and int(h_p.sum()) < B):
+    if need_late and not (late and int(h_p.sum()) < B):
         raise AssertionError(f"{label}: {late} members hit after t = 0, "
                              f"{int(h_p.sum())} of {B} in all")
-    say(f"{label}: first_passage_from_draws at B={B}, L={L}, "
+    say(f"{label}: first_passage_from_draws at B={B}, L={L}, E={events}, "
         f"{rounds} rounds in calls of {per_call} == the plain loop (hit "
         f"times, hits, both tapes), bit for bit; {int(h_p.sum())} hits, "
-        f"{late} after t = 0")
+        f"{late} after t = 0; {k11} K11 launches "
+        + ("(resident: one a C call)" if resident else "(rows too long to "
+           "keep resident: one a round)"))
+    return k11, calls
 
 
 def weighted_against_plain(label, tapes, w, size_a, cl_k, diff):
@@ -2808,9 +2834,9 @@ def example_runs(dev, gen, totals, record, diff):
                 la)
     d = ens.sample_tapes_from_spd(gen, p0, 2, c["cl_k"], c["B"], c["L"],
                                   device=dev)
-    first_passage_against_plain("e:ex2_first_passage", dm2,
-                                (torch.zeros_like(d), d), c["pattern"],
-                                (600, c["E"]), 250, True, gen, diff)
+    fp_calls = [first_passage_against_plain(
+        "e:ex2_first_passage", dm2, (torch.zeros_like(d), d), c["pattern"],
+        (600, c["E"]), 250, True, gen, diff)]
 
     # examples/ex4_ignition.py's first_passage_times call (first X on the
     # program tape) on several seeds: the committed artifact held to them,
@@ -2865,9 +2891,66 @@ def example_runs(dev, gen, totals, record, diff):
     tapes = [ens.sample_tapes_from_spd(gen, p, 9, c["cl_k"], c["B"], c["L"],
                                        ring=True, device=dev)
              for p in (p_fuel, p_tape)]
-    first_passage_against_plain("e:ex4_ignition", dm4, tapes,
-                                (c["sym_x"],), (300, c["E"]), 128, False,
-                                gen, diff)
+    fp_calls.append(first_passage_against_plain(
+        "e:ex4_ignition", dm4, tapes, (c["sym_x"],), (300, c["E"]), 128,
+        False, gen, diff))
+    return fp_calls
+
+
+def resident_checks(dev, gen, dm5, tab, diff):
+    """(g): K11's resident rounds at the full width (shared and
+    per-member shifts: one launch a call) and the fused first passage at
+    the full width, each against its plain version; then a row too long
+    to keep resident (2L past 227 KB: one launch a round), both ways."""
+    start = [t.to(torch.int8) for t in tab]
+    rounds = 8
+    for shape in ((rounds,), (rounds, B)):
+        s_ = torch.randint(0, L, shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+        kp, kd = (t.clone() for t in start)
+        k11 = ens.lattice_round.launches
+        ens.run_lattice_rounds(dm5, kp, kd, s_, E)
+        k11 = ens.lattice_round.launches - k11
+        pp, pd = (t.clone() for t in start)
+        for k in range(rounds):
+            ens.lattice_round_plain(dm5, pp, pd, s_[k], E)
+        torch.cuda.synchronize()
+        if not (diff("K11", ((kp, pp), (kd, pd))) and k11 == 1):
+            raise AssertionError(f"K11 resident != plain at B={B}, L={L}, "
+                                 f"shifts {list(shape)} ({k11} launches)")
+    say(f"K11 resident == lattice_round_plain at B={B}, L={L}, E={E}, "
+        f"{rounds} rounds in one launch, shared and per-member shifts, bit "
+        "for bit")
+    dm2 = ens.compile_decision_machine(EX2)
+    d = (torch.rand((B, L), generator=gen, device=dev) < 0.3).to(torch.int32)
+    first_passage_against_plain(
+        "(g) full width", dm2, (torch.zeros_like(d), d), (1,) * 12, (30, E),
+        10, True, gen, diff)
+    Ll, Bl, El = 131_072, 8, 16
+    if ens.k11_tile(Bl, Ll, El) is not None:
+        raise AssertionError("the long row was kept resident")
+    lp, ld = active_tapes(gen, MAIN_TAG, 5, Bl, Ll, dev)
+    lp, ld = lp.to(torch.int8), ld.to(torch.int8)
+    s_ = torch.randint(0, Ll, (3, Bl), generator=gen, device=dev,
+                       dtype=torch.int32)
+    kp, kd = lp.clone(), ld.clone()
+    k11 = ens.lattice_round.launches
+    ens.run_lattice_rounds(dm5, kp, kd, s_, El)
+    k11 = ens.lattice_round.launches - k11
+    pp, pd = lp.clone(), ld.clone()
+    for k in range(3):
+        ens.lattice_round_plain(dm5, pp, pd, s_[k], El)
+    torch.cuda.synchronize()
+    if not (diff("K11", ((kp, pp), (kd, pd))) and k11 == 3):
+        raise AssertionError(f"K11 at L={Ll} != plain ({k11} launches)")
+    d = (torch.rand((Bl, Ll), generator=gen, device=dev) < 0.3).to(
+        torch.int32)
+    first_passage_against_plain(
+        "(g) long rows", dm2, (torch.zeros_like(d), d), (1,) * 12, (6, 4),
+        None, True, gen, diff, need_late=False)
+    say(f"K11 at a row too long to keep resident (B={Bl}, L={Ll}, 2L = "
+        f"{2 * Ll} bytes): one launch a round == plain, bit for bit, per-"
+        "member shifts and first passage")
 
 
 def hit_stats(t_hit):
@@ -3006,8 +3089,9 @@ def lattice_phase(dev, kernels):
                                       (LATTICE_ROUNDS, E),
                                       independent_sites=True, device=dev),
         ("K11",), totals)
-    if la["K11"] != LATTICE_ROUNDS or la["K10"] or la["K1"]:
-        raise AssertionError(f"path b: launches {la}")
+    if la["K11"] != 1 or la["K10"] or la["K1"]:
+        raise AssertionError(f"path b: launches {la} (one resident launch "
+                             f"for {LATTICE_ROUNDS} rounds)")
     check_run("b", ind, 5)
     record("b", la, seconds=sec, device_ms=ms)
     lattice_say("b", f"run_ensemble(independent_sites=True) on ex5's machine "
@@ -3033,8 +3117,10 @@ def lattice_phase(dev, kernels):
         "c", lambda: ens.run_ensemble(gen, (wp, wd), dm4,
                                       (LATTICE_ROUNDS, WIDE_E), device=dev),
         ("K11",), totals)
-    if la["K11"] != LATTICE_ROUNDS or la["K1"]:
-        raise AssertionError(f"path c: launches {la}")
+    chunk = max(1, ens._UNIFORM_CHUNK // (B * WIDE_E))
+    if la["K11"] != -(-LATTICE_ROUNDS // chunk) or la["K1"]:
+        raise AssertionError(f"path c: launches {la} (one resident launch "
+                             f"a chunk of {chunk} rounds)")
     changed = int((wide[1] != wd).sum() + (wide[0] != wp).sum())
     if not changed:
         raise AssertionError("path c changed nothing")
@@ -3058,8 +3144,11 @@ def lattice_phase(dev, kernels):
 
     # (d) The master-equation gates; (e) the examples.
     master_gates(dev, gen, totals, record, diff)
-    example_runs(dev, gen, totals, record, diff)
+    fp_calls = example_runs(dev, gen, totals, record, diff)
     say(f"phase 9 launches by kernel over its paths: {totals}")
+    # (g) K11's resident rounds and fused first passage at the full width
+    # and at rows too long to keep resident, against the plain versions.
+    resident_checks(dev, gen, dm5, tab, diff)
 
     # (f) Each kernel alone at the bench geometry, beside its bound, its
     # plain version and, for K13, torch.bincount.
@@ -3106,20 +3195,58 @@ def lattice_phase(dev, kernels):
                 dm5, p8, d8, s, E), 3),
             "bound_ms": k1_bytes(dm5) / HBM_BYTES_PER_S * 1e3,
             "library_ms": None}
+    # K11 resident: a call of LATTICE_ROUNDS rounds (path b's launch),
+    # per round, beside the bound of the same work over the call: the
+    # rows in and out once, a shift a round (a member), no uniforms (ex5).
+    s_call = torch.randint(0, L, (LATTICE_ROUNDS, B), generator=gen,
+                           device=dev, dtype=torch.int32)
+    call_ms = cuda_ms(lambda: ens.run_lattice_rounds(dm5, p8, d8, s_call,
+                                                     E), 5)
+    call_bytes = 4 * B * L + s_call.numel() * 4
+    tile = ens.k11_tile(B, L, E)
+    times["K11 resident"] = {
+        "us_a_round": call_ms / LATTICE_ROUNDS * 1e3,
+        "bound_call_us_a_round": call_bytes / HBM_BYTES_PER_S * 1e6
+        / LATTICE_ROUNDS, "call_bytes": call_bytes,
+        "members_a_block": tile[0], "threads": tile[1],
+        "smem_bytes": tile[2], "blocks": -(-B // tile[0])}
+    say(f"K11 resident, {LATTICE_ROUNDS} rounds a launch at B={B}, L={L}, "
+        f"E={E}, per-member shifts: {call_ms * 1e3 / LATTICE_ROUNDS:.3f} us "
+        f"a round against {times['K11 resident']['bound_call_us_a_round']:.3f}"
+        f" us a round for the call's {call_bytes / 1e6:.1f} MB (rows in and "
+        f"out once, the shifts); {tile[0]} members a block, {tile[1]} "
+        f"threads, {tile[2]} bytes of shared memory, "
+        f"{-(-B // tile[0])} blocks")
     pat = torch.tensor([1, 1, 1], dtype=torch.int32, device=dev)
-    got = [ens.pattern_scan(d8, pat, 0) for _ in range(2)]
-    want = ens.pattern_scan_plain(d8, pat, 0)
-    prog = [ens.pattern_scan(d8, pat, 1) for _ in range(2)]
+    k12_pairs = []
+    for tape in (d8, dt32):
+        want = ens.pattern_scan_plain(tape, pat, 0)
+        want_prog = ens.pattern_scan_plain(tape, pat, 1)
+        t0 = torch.where(torch.rand(B, generator=gen, device=dev) < 0.5,
+                         torch.inf, 1.5).to(torch.float64)
+        now = torch.tensor([2.5], dtype=torch.float64, device=dev)
+        want_t = ens.pattern_scan_plain(tape, pat, 2, t_hit=t0.clone(),
+                                        t_now=now)
+        for _ in range(2):
+            k12_pairs += [
+                (ens.pattern_scan(tape, pat, 0), want),
+                (ens.pattern_scan(tape, pat, 1), want_prog),
+                (ens.pattern_scan(tape, pat, 2, t_hit=t0.clone(),
+                                  t_now=now).nan_to_num(posinf=-1.0),
+                 want_t.nan_to_num(posinf=-1.0))]
     torch.cuda.synchronize()
-    want_prog = ens.pattern_scan_plain(d8, pat, 1)
-    if not diff("K12", [(g_, want) for g_ in got]
-                + [(g_, want_prog) for g_ in prog]):
+    if not diff("K12", k12_pairs):
         raise AssertionError("K12 != plain")
+    want = ens.pattern_scan_plain(d8, pat, 0)
     times["K12"] = {
         "ms": cuda_ms(lambda: ens.pattern_scan(d8, pat, 0), 50),
         "plain_ms": cuda_ms(lambda: ens.pattern_scan_plain(d8, pat, 0), 3),
         "bound_ms": (B * L + B) / HBM_BYTES_PER_S * 1e3,
-        "library_ms": None, "present": int(want.sum())}
+        "library_ms": None, "present": int(want.sum()),
+        "int32_ms": cuda_ms(lambda: ens.pattern_scan(dt32, pat, 0), 20),
+        "int32_bound_ms": (4 * B * L + B) / HBM_BYTES_PER_S * 1e3,
+        "members_a_block": ens.k12_members(L, 1, 3),
+        "int32_members_a_block": ens.k12_members(L, 4, 3)}
     cl_k13 = 5
     wts = torch.rand(B, generator=gen, device=dev, dtype=torch.float64)
     wn = wts / wts.sum()
@@ -3147,14 +3274,16 @@ def lattice_phase(dev, kernels):
             bins, weights=bw, minlength=5**cl_k13), 20),
         "bins": 5**cl_k13, "bincount_rel": lib_err}
     for name, t in times.items():
+        if "ms" not in t:
+            continue
         say(f"{name} alone at B={B}, L={L}: {t['ms'] * 1e3:.2f} us against a "
             f"bound of {t['bound_ms'] * 1e3:.2f} us "
             f"({t['bound_ms'] / t['ms']:.3f} of it); plain "
             f"{t['plain_ms']:.3f} ms; library "
             + ("none" if t["library_ms"] is None
                else f"{t['library_ms'] * 1e3:.2f} us (torch.bincount)"))
-    say("K12 == plain (contains, progress) and K13 == plain, twice each, "
-        "bit for bit")
+    say("K12 == plain (contains, progress, first passage; int8 and int32) "
+        "and K13 == plain, twice each, bit for bit")
 
     shapes = {"K10": f"ex5 table, B={B}, L={L}, E={E}, float64 uniforms",
               "K11": f"ex5 machine, B={B}, L={L}, E={E}, shared shift",
@@ -3170,6 +3299,16 @@ def lattice_phase(dev, kernels):
             "bound_by": "bytes", "library_ms": t["library_ms"],
             "shape": shapes[k]}
     kernels["K11"]["per_member"] = times["K11 per member"]
+    kernels["K11"]["resident"] = times["K11 resident"]
+    kernels["K12"].update({k: times["K12"][k] for k in (
+        "int32_ms", "int32_bound_ms", "members_a_block",
+        "int32_members_a_block")})
+    fp_tile = ens.k11_tile(EX2FP["B"], EX2FP["L"], EX2FP["E"],
+                           len(EX2FP["pattern"]))
+    kernels["K11"]["first_passage"] = {
+        "launches_a_c_call": max(k / c for k, c in fp_calls),
+        "members_a_block": fp_tile[0], "threads": fp_tile[1],
+        "smem_bytes": fp_tile[2]}
     kernels["K10"]["path_a_us"] = times["K10"]["path_a_us"]
     kernels["K10"]["paths"] = paths
 
@@ -6232,6 +6371,36 @@ def ssa_part(dev, record):
             raise AssertionError(f"K27 != plain ({dtype})")
         say(f"(a) K27 == plain bit for bit, {dtype}, B={SSA_B}, "
             f"{SSA_CHECK_E} events")
+    # K27's wide form (the network in global memory) past each limit.
+    for kind in ("reactions", "species", "factors"):
+        wnet, wn0 = ssa_past_limits(kind)
+        S = len(wn0)
+        for dtype in (torch.float32, torch.float64):
+            u = torch.rand((SSA_CHECK_E, 2, SSA_B), generator=gen,
+                           dtype=dtype, device=dev)
+            outs = []
+            for fn in (gillespie.ssa_round, gillespie.ssa_round_plain):
+                t = torch.zeros(SSA_B, dtype=torch.float64, device=dev)
+                n = torch.as_tensor(wn0, dtype=torch.int32, device=dev)
+                n = n[:, None].expand(S, SSA_B).contiguous()
+                t_o = torch.empty((SSA_CHECK_E, SSA_B), dtype=torch.float64,
+                                  device=dev)
+                n_o = torch.empty((SSA_CHECK_E, S, SSA_B), dtype=torch.int32,
+                                  device=dev)
+                fn(wnet, u, t, n, t_o, n_o)
+                outs.append((t_o, n_o))
+            torch.cuda.synchronize()
+            (tk, nk), (tp, np_) = outs
+            err = max(err, float((tk - tp).abs().max()),
+                      float((nk - np_).abs().max()))
+            moved = int((np_[-1] != np_[0]).sum())
+            if not (torch.equal(tk, tp) and torch.equal(nk, np_) and moved):
+                raise AssertionError(f"K27's wide form != plain ({kind}, "
+                                     f"{dtype}, {moved} counts moved)")
+        say(f"(a) K27's wide form == plain bit for bit past the {kind} "
+            f"limit ({wnet.reactants.shape[0]} reactions, {S} species, "
+            f"{int(wnet.reactants.sum(axis=1).max())} factors at most), "
+            f"float32 and float64, B={SSA_B}, {SSA_CHECK_E} events")
     # The moment gates of tests/test_models.py:189 at full B.
     (_, ns64), _, _ = comp_path(
         "(a) SSA float64 core", lambda: gillespie.ssa_batch_tm(
@@ -6280,7 +6449,8 @@ def ssa_part(dev, record):
         "name": K27[0], "route": "cuda", "source": K27[1], "replaces": K27[2],
         "launches": c["K27"], "max_abs_err": err,
         "match": f"bit-identical to ssa_round_plain, float32 and float64, "
-                 f"B={SSA_B}, {SSA_CHECK_E} events",
+                 f"B={SSA_B}, {SSA_CHECK_E} events; the wide form too, "
+                 "past each shared-memory limit",
         "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -6289,6 +6459,32 @@ def ssa_part(dev, record):
         "events_per_s": SSA_B * SSA_E / secs,
         "first_call_s": runs["first call"], "warm_call_s": secs,
         "largest_z": zmax, "variance_ratio": ratio.tolist()}
+
+
+def ssa_past_limits(kind):
+    """A network past one of K27's shared-memory limits (33 reactions, 9
+    species, 9 factors a reaction), with its start counts; the networks
+    of tests/test_torch_gillespie.py and tests/test_torch_gpu.py."""
+    rng = np.random.RandomState({"reactions": 1, "species": 2,
+                                 "factors": 3}[kind])
+    R, S = {"reactions": (33, 3), "species": (12, 9),
+            "factors": (5, 2)}[kind]
+    reactants = rng.randint(0, 2, (R, S))
+    if S > 8:
+        reactants[:, 8] = 0
+        reactants[0] = 0
+        reactants[0, 8] = 1
+    if kind == "factors":
+        reactants[1] = 0
+        reactants[1, 0] = 9
+    products = rng.randint(0, 3, (R, S))
+    rates = rng.uniform(0.2, 1.0, R) * 20.0 ** -reactants.sum(axis=1)
+    return (gillespie.ReactionNetwork(reactants, products, rates),
+            tuple([25] * S))
+
+
+# K28 past a byte a site in a block's shared memory: the chain as bits.
+MC_LONG = dict(T=4, N=300_000, rounds=20, rs=25, steps=8)
 
 
 def mc_block_z(counts, ref):
@@ -6365,6 +6561,33 @@ def mc_part(dev, record):
         raise AssertionError("K28 != plain")
     say(f"(b) K28 == plain bit for bit: {T} chains, {MC_CHECK_STEPS} steps, "
         f"counts and chains ({int((ck != chains0).sum())} sites flipped)")
+    # K28 on chains held as bits (past a byte a site in shared memory).
+    c_ = MC_LONG
+    if not ferromagnet.k28_bits(c_["N"], c_["rs"]):
+        raise AssertionError("K28 at MC_LONG does not take the bit chains")
+    long0 = (torch.rand((c_["T"], c_["N"]), generator=gen, device=dev)
+             < 0.3).to(torch.int32)
+    lshape = (c_["T"], c_["steps"], c_["rounds"], c_["rs"])
+    lsites = torch.randint(0, c_["N"], lshape, generator=gen,
+                           dtype=torch.int32, device=dev)
+    lu = torch.rand(lshape, generator=gen, dtype=torch.float64, device=dev)
+    lk, lp = long0.clone(), long0.clone()
+    got = ferromagnet.metropolis(lk, lsites, lu, thr, True)
+    want = ferromagnet.metropolis_plain(
+        lp, lsites, lu, torch.as_tensor(thr, device=dev), True)
+    torch.cuda.synchronize()
+    err = max(err, int((got - want).abs().max()), int((lk - lp).abs().max()))
+    if not (torch.equal(got, want) and torch.equal(lk, lp)
+            and not torch.equal(lk, long0)):
+        raise AssertionError("K28 on bit chains != plain")
+    bits_ms = cuda_ms(lambda: ferromagnet.metropolis(
+        long0.clone(), lsites, lu, thr, False), 3, warmup=1)
+    say(f"(b) K28 on bit chains == plain bit for bit: {c_['T']} chains x "
+        f"{c_['N']} sites ({ferromagnet._k28_bytes(c_['N'], c_['rs'], True)}"
+        f" bytes of shared memory a block, against "
+        f"{ferromagnet._k28_bytes(c_['N'], c_['rs'], False)} as bytes), "
+        f"{c_['steps']} steps of {c_['rounds']} rounds of {c_['rs']}; "
+        f"{bits_ms * 1e3 / c_['steps']:.3f} us a step")
     # K28 alone at the main path's launch (one chunk of steps).
     chunk = ferromagnet.DRAW_CHUNK // (T * rounds * rs)
     shape = (T, chunk, rounds, rs)
@@ -6391,7 +6614,8 @@ def mc_part(dev, record):
         "bound_by": "bytes", "library_ms": None, "steps_per_launch": chunk,
         "run_s": secs, "steps_per_s": steps / secs,
         "chain_steps_per_s": steps * T / secs, "largest_z": zmax,
-        "p1_mc_over_analytic": mc_mean / an_mean}
+        "p1_mc_over_analytic": mc_mean / an_mean,
+        "bit_chains": {**c_, "us_a_step": bits_ms * 1e3 / c_["steps"]}}
 
 
 def example_rows():

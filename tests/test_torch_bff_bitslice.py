@@ -207,6 +207,32 @@ def test_bitslice_matches_scan(tag, B, L, steps, events):
         np.testing.assert_array_equal(tops.numpy(), np.asarray(jops))
 
 
+@pytest.mark.parametrize("tag", [LITE, SELF_LITE])
+def test_run_ensemble_bff_bitsliced_name(tag):
+    """The reference's `run_ensemble_bff_bitsliced(key, ts, mach,
+    steps_events)` has a port name of the same arguments: the tape tuple
+    and (totals, times) back, as the JAX function returns them, and the
+    same bits as `run_ensemble_bff(engine="bitslice")` at the same
+    seed."""
+    jm, tm = _machines(tag)
+    B, L, steps, events = 32, 64, 3, 4
+    tapes = _as_tuple(_tapes(np.random.default_rng(3), tm, B, L))
+    got, (ops, times) = tbb.run_ensemble_bff_bitsliced(
+        9, tapes, tm, (steps, events), device="cpu")
+    jgot, (jops, jtimes) = jbb.run_ensemble_bff_bitsliced(
+        jax.random.PRNGKey(9), tuple(jnp.asarray(t) for t in tapes), jm,
+        (steps, events))
+    assert isinstance(got, tuple) and len(got) == len(jgot)
+    assert ops.shape == jops.shape and times.shape == jtimes.shape
+    np.testing.assert_allclose(times.numpy(), np.asarray(jtimes), rtol=1e-12)
+    want, (wops, _) = tbff.run_ensemble_bff(
+        9, tapes if len(tapes) == 2 else tapes[0], tm, (steps, events),
+        engine="bitslice", device="cpu")
+    for a, b in zip(got, _as_tuple(want), strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(ops, wops)
+
+
 @pytest.mark.parametrize("tag", [FAITHFUL, SELF])
 def test_faithful_circuit_bit_identity_on_cpu(tag):
     """Twin of tests/test_bff_bitslice.py's (B=32, L=512, E=8, 2 rounds),

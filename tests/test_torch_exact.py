@@ -272,6 +272,22 @@ def test_ode_integrate_ivp_torch_matches_jax_backend():
     np.testing.assert_allclose(info["y_final"], want[-1], rtol=0, atol=1e-12)
 
 
+@pytest.mark.parametrize("fn,kwarg", [("ode_integrate", "odeint_kwargs"),
+                                      ("ode_integrate_ivp", "ivp_kwargs")])
+def test_drop_in_jax_backend_solves_as_jax(fn, kwarg):
+    """The drop-in functions take the reference's ``backend="jax"`` as the
+    port's device solver: ex2 at cl_k 3 against the JAX package's
+    ``backend="jax"`` run of the same call (rtol 1e-12)."""
+    p0 = np.asarray(j_init.ferromagnet_p0(3, p_pair=0.1)).ravel()
+    args = dict(tag="ex2-ferromagnetic-chain", size_a=2, cl_k=3, p0=p0,
+                ts=np.linspace(0.0, 5.0, 11),
+                **{kwarg: dict(rtol=1e-11, atol=1e-11)})
+    want = getattr(j_markov_tapes, fn)(**args, backend="jax")
+    got = getattr(t_markov_tapes, fn)(**args, backend="jax", device="cpu")
+    assert got.shape == np.asarray(want).shape
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-12, atol=0)
+
+
 def test_dop853_dense_output_samples_inside_steps():
     """Many samples a step (the dense output, no clamped steps): the
     sample grid does not change the steps, and samples at the times both
@@ -726,8 +742,8 @@ def _public_names(module):
 def test_drop_in_surface_matches_jax():
     """Every public name of the JAX package's top level and of its
     `markov_tapes` exists in the port, but for `make_batched_dy_dt`
-    (ROADMAP Queue 1 item 3); the port's `make_dy_dt` is the tree
-    engine's; `init_gambit` is a no-op."""
+    (ROADMAP Queue 1, "The exact engines' other entry points"); the
+    port's `make_dy_dt` is the tree engine's; `init_gambit` is a no-op."""
     import chemical_kinetics_and_program_execution_torch as tpkg
     import chemical_kinetics_and_program_execution_tpu as jpkg
     from chemical_kinetics_and_program_execution_torch.engine import rhs

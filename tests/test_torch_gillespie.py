@@ -41,6 +41,28 @@ TWO = gillespie.ReactionNetwork(np.array([[2, 0], [0, 1]]),
                                 np.array([0.013, 0.7]))
 
 
+def _wide_net(kind):
+    """A network past K27's shared-memory limits: 33 reactions
+    ("reactions"), 9 species ("species"), a reaction of 9 factors
+    ("factors"), or all three ("all"), with its start counts."""
+    rng = np.random.RandomState({"reactions": 1, "species": 2, "factors": 3,
+                                 "all": 4}[kind])
+    R, S = {"reactions": (33, 3), "species": (12, 9), "factors": (5, 2),
+            "all": (33, 9)}[kind]
+    reactants = rng.randint(0, 2, (R, S))
+    if S > 8:
+        reactants[:, 8] = 0
+        reactants[0] = 0
+        reactants[0, 8] = 1
+    if kind in ("factors", "all"):
+        reactants[1] = 0
+        reactants[1, 0] = 9
+    products = rng.randint(0, 3, (R, S))
+    rates = rng.uniform(0.2, 1.0, R) * 20.0 ** -reactants.sum(axis=1)
+    return (gillespie.ReactionNetwork(reactants, products, rates),
+            tuple([25] * S))
+
+
 @pytest.fixture(autouse=True)
 def _one_thread():
     """One intra-op thread a test: the steps here are many short ops on
@@ -87,17 +109,20 @@ def test_xla_sums_in_reaction_order():
 
 @pytest.mark.parametrize("name,dtype", [
     ("autocatalysis", "float64"), ("autocatalysis", "float32"),
-    ("decay", "float32"), ("two", "float32"), ("two", "float64")])
+    ("decay", "float32"), ("two", "float32"), ("two", "float64"),
+    ("wide", "float64")])
 def test_batch_core_matches_jax_draws(name, dtype):
     """`ssa_batch_tm_from_draws` against the JAX package's `ssa_batch_tm`
     at the same key: the bench network (B=512, E=150), pure decay from
-    5 (quiescent after 5 events: inf times), and a two-reaction
-    network."""
+    5 (quiescent after 5 events: inf times), a two-reaction network, and
+    a network past K27's shared-memory limits (33 reactions, 9 species,
+    9 factors), which the CPU takes as the JAX package does."""
     net, n0, B, E = {
         "autocatalysis": (gillespie.autocatalysis_network(*BENCH_NET),
                           (0, 0, 2000), 512, 150),
         "decay": (DECAY, (5,), 256, 12),
-        "two": (TWO, (40, 3), 256, 120)}[name]
+        "two": (TWO, (40, 3), 256, 120),
+        "wide": _wide_net("all") + (128, 40)}[name]
     jdt = getattr(jnp, dtype)
     key = jax.random.PRNGKey(7)
     jts, jns = (np.asarray(x) for x in
@@ -125,10 +150,11 @@ _SSA_HOST = '#include "ssa_rule.cuh"\n'
 
 
 @pytest.fixture(scope="module")
-def ssa_host(tmp_path_factory):
+def ssa_lib(tmp_path_factory):
     """K27's rule (`csrc/ssa_rule.cuh`: the kernel's per-thread event
-    loop, every trajectory in turn) built with the host's C++ compiler
-    without contraction of products into sums."""
+    loop, every trajectory in turn, in the shared and the wide form)
+    built with the host's C++ compiler without contraction of products
+    into sums."""
     cxx = next((c for c in (shutil.which(n) for n in ("g++", "c++",
                                                       "clang++")) if c), None)
     if cxx is None:
@@ -140,11 +166,19 @@ def ssa_host(tmp_path_factory):
                     "-fPIC", "-I", str(cuda.CSRC_DIR), "-o", str(lib),
                     str(out / "k27.cpp")], check=True, capture_output=True,
                    timeout=120)
-    fn = ctypes.CDLL(str(lib)).ssa_host_run
+    lib = ctypes.CDLL(str(lib))
     i, p, q = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
-    fn.argtypes = [p, p, p, i, i, i, p, q, i, p, p, p, p]
-    fn.restype = i
-    return fn
+    lib.ssa_host_run.argtypes = [p, p, p, i, i, i, p, q, i, p, p, p, p]
+    lib.ssa_host_run.restype = i
+    lib.ssa_host_run_wide.argtypes = [p] * 5 + [i, i, i, p, q, i, p, p, p,
+                                                p]
+    lib.ssa_host_run_wide.restype = i
+    return lib
+
+
+@pytest.fixture(scope="module")
+def ssa_host(ssa_lib):
+    return ssa_lib.ssa_host_run
 
 
 @pytest.mark.parametrize("name", ["autocatalysis", "decay", "two"])
@@ -190,6 +224,39 @@ def test_ssa_rule_matches_plain(ssa_host, name, dtype):
     assert (np.isinf(got_t) == np.isinf(want_t.numpy())).all()
 
 
+@pytest.mark.parametrize("kind", ["reactions", "species", "factors",
+                                  "all"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ssa_wide_rule_matches_plain(ssa_lib, kind, dtype):
+    """K27's wide form (the factor lists the card reads from global
+    memory, `gillespie._wide_tables`) against `ssa_round_plain` on the
+    same draws, at a network past each shared-memory limit: counts
+    equal, times as in `test_ssa_rule_matches_plain`."""
+    net, n0 = _wide_net(kind)
+    R, S = net.reactants.shape
+    assert not gillespie._fits_shared(net)
+    B, E = 64, 40
+    gen = torch.Generator().manual_seed(5)
+    u = torch.rand((E, 2, B), generator=gen, dtype=dtype)
+    want_t, want_n = gillespie.ssa_batch_tm_from_draws(n0, net, u)
+    tables = [np.ascontiguousarray(x.numpy())
+              for x in gillespie._wide_tables(net, "cpu")]
+    t = np.zeros(B)
+    n = np.ascontiguousarray(np.broadcast_to(
+        np.asarray(n0, np.int32)[:, None], (S, B)))
+    got_t = np.empty((E, B))
+    got_n = np.empty((E, S, B), dtype=np.int32)
+    un = np.ascontiguousarray(u.numpy())
+    assert ssa_lib.ssa_host_run_wide(
+        *(x.ctypes.data for x in tables), R, S, int(dtype == torch.float64),
+        un.ctypes.data, B, E, t.ctypes.data, n.ctypes.data,
+        got_t.ctypes.data, got_n.ctypes.data) == 0
+    np.testing.assert_array_equal(got_n, want_n.numpy())
+    rtol = 1e-6 if dtype == torch.float32 else 1e-13
+    np.testing.assert_allclose(got_t, want_t.numpy(), rtol=rtol, atol=0)
+    assert (want_n[-1] != want_n[0]).any()
+
+
 def test_chunked_draws_carry_the_state(monkeypatch):
     """`ssa_batch_tm` in chunks of 7 events equals the core fed the same
     draws (the generator's stream chunk by chunk) in one call."""
@@ -206,10 +273,8 @@ def test_chunked_draws_carry_the_state(monkeypatch):
 
 
 def test_limits_raise():
-    big = gillespie.ReactionNetwork(np.ones((33, 1), int),
-                                    np.zeros((33, 1), int), np.ones(33))
-    with pytest.raises(ValueError, match="reactions"):
-        gillespie.ssa_batch_tm(0, (3,), big, 2, 4, device="cpu")
+    """The propensity type must be float32 or float64; any network runs
+    (the card takes K27's wide form past its shared-memory limits)."""
     with pytest.raises(TypeError):
         gillespie.ssa_batch_tm(0, (3,), DECAY, 2, 4, dtype=torch.float16,
                                device="cpu")

@@ -951,7 +951,134 @@ def test_lattice_round_kernel_matches_plain(cuda, tag, L, E, per_member):
     cp, cd = (x.clone() for x in start)
     tens.run_lattice_rounds(dm, cp, cd, s_t, E, u_t)
     assert torch.equal(cp, kp) and torch.equal(cd, kd)
-    assert tens.lattice_round.launches == launches + 2 * n
+    # One resident launch runs all n rounds of a call.
+    assert tens.lattice_round.launches == launches + n + 1
+
+
+def _plain_rounds(dm, start, s_t, E, u_t):
+    pp, pd = (x.clone() for x in start)
+    for k in range(s_t.shape[0]):
+        tens.lattice_round_plain(dm, pp, pd, s_t[k], E,
+                                 u_t[k] if dm.has_choose else None)
+    return pp, pd
+
+
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("tag,B,L,E,n", [
+    ("ex5-msrtf-machine", 16384, 4096, 256, 12),
+    ("ex4-chemical-turing", 16384, 4096, 32, 12),
+    ("ex5-msrtf-machine", 8, 131_072, 16, 3),
+    ("ex4-chemical-turing", 4, 120_000, 8, 3)])
+def test_resident_rounds_match_plain(cuda, tag, B, L, E, n, per_member):
+    """K11's resident rounds (`run_lattice_rounds`: one launch for every
+    round of the call) at the full width (B=16384, L=4096, E=256 and E=32
+    on ex4, whose uniforms decide), and rows too long to keep resident
+    (2L past 227 KB: one launch a round, `ensemble.k11_tile` None), equal
+    the plain rounds bit for bit."""
+    dm = tens.compile_decision_machine(tag)
+    rng = np.random.RandomState(11)
+    pt, dt, shifts, u = _rolled_draws(rng, tag, dm.size_a, B, L, E, n,
+                                      per_member)
+    u_t = torch.as_tensor(u, dtype=torch.float32, device=cuda)
+    s_t = torch.as_tensor(shifts, device=cuda)
+    start = [torch.as_tensor(x, device=cuda).to(torch.int8) for x in (pt, dt)]
+    kp, kd = (x.clone() for x in start)
+    launches = tens.lattice_round.launches
+    tens.run_lattice_rounds(dm, kp, kd, s_t, E, u_t)
+    resident = tens.k11_tile(B, L, E) is not None
+    assert resident == (L < 116_000)
+    assert tens.lattice_round.launches == launches + (1 if resident else n)
+    pp, pd = _plain_rounds(dm, start, s_t, E, u_t)
+    torch.cuda.synchronize()
+    assert torch.equal(kp, pp) and torch.equal(kd, pd)
+    assert not (torch.equal(kp, start[0]) and torch.equal(kd, start[1]))
+
+
+def _first_passage_plain(dm, tapes, pattern, shifts, E, u, data_tape):
+    pt, dt = (t.to(torch.int8).clone() for t in tapes)
+    pat = torch.tensor(pattern, dtype=torch.int32, device=pt.device)
+    times = torch.arange(shifts.shape[0] + 1, dtype=torch.float64,
+                         device=pt.device) * -math.log1p(-E / pt.shape[1])
+    t_hit = torch.full((pt.shape[0],), math.inf, dtype=torch.float64,
+                       device=pt.device)
+    watch = dt if data_tape else pt
+    tens.pattern_scan_plain(watch, pat, 2, t_hit=t_hit, t_now=times[:1])
+    for k in range(shifts.shape[0]):
+        tens.lattice_round_plain(dm, pt, dt, shifts[k], E,
+                                 u[k] if dm.has_choose else None)
+        tens.pattern_scan_plain(watch, pat, 2, t_hit=t_hit,
+                                t_now=times[k + 1:k + 2])
+    return t_hit, pt.to(torch.int32), dt.to(torch.int32)
+
+
+@pytest.mark.parametrize("tag,pattern,data_tape,B,L,n,per_call", [
+    ("ex2-ferromagnetic-chain", (1, 1, 1, 1), True, 4096, 128, 400, 150),
+    ("ex4-chemical-turing", (7,), False, 4096, 128, 300, 128),
+    ("ex2-ferromagnetic-chain", (1, 1, 1), True, 512, 4096, 40, None),
+    ("ex2-ferromagnetic-chain", (1, 1, 1), True, 4, 131_072, 6, None)])
+def test_fused_first_passage_matches_plain(cuda, tag, pattern, data_tape, B,
+                                           L, n, per_call):
+    """The fused first passage (K12's update inside K11's resident
+    rounds: one K11 launch a C call, K12 at t = 0 only) equals the plain
+    round-and-scan loop at the examples' geometry (B=4096, L=128, E=4),
+    at L=4096, and at rows too long to keep resident (a K11 and a K12
+    launch a round): hit times, hits and both tapes bit for bit."""
+    dm = tens.compile_decision_machine(tag)
+    rng = np.random.RandomState(12)
+    E = 4
+    if tag == "ex4-chemical-turing":
+        pt = rng.choice([5, 6], (B, L)).astype(np.int32)
+        dt = rng.choice([0, 4, 5], (B, L)).astype(np.int32)
+    else:
+        pt = np.zeros((B, L), np.int32)
+        dt = (rng.rand(B, L) < 0.25).astype(np.int32)
+    tapes = [torch.as_tensor(x, device=cuda) for x in (pt, dt)]
+    shifts = torch.as_tensor(rng.randint(0, L, n).astype(np.int32),
+                             device=cuda)
+    u = torch.as_tensor(rng.rand(n, B, E).astype(np.float32), device=cuda)
+    tens.lattice_round.launches = tens.pattern_scan.launches = 0
+    t_k, h_k, (p_k, d_k) = tens.first_passage_from_draws(
+        dm, tapes, pattern, shifts, E, u, data_tape=data_tape,
+        rounds_per_call=per_call)
+    calls = -(-n // (per_call or n))
+    resident = tens.k11_tile(B, L, E, len(pattern)) is not None
+    assert tens.lattice_round.launches == (calls if resident else n)
+    assert tens.pattern_scan.launches == (1 if resident else n + 1)
+    t_p, p_p, d_p = _first_passage_plain(dm, tapes, pattern, shifts, E, u,
+                                         data_tape)
+    torch.cuda.synchronize()
+    assert torch.equal(t_k, t_p) and torch.equal(h_k, torch.isfinite(t_p))
+    assert torch.equal(p_k, p_p) and torch.equal(d_k, d_p)
+    assert int(h_k.sum()) > 0
+
+
+@pytest.mark.parametrize("dtype,B,L", [
+    (torch.int8, 16384, 4096), (torch.int32, 16384, 4096),
+    (torch.int8, 77, 13), (torch.int32, 33, 45),
+    (torch.int8, 3, 240_000), (torch.int32, 3, 60_000)])
+def test_pattern_scan_staged_shapes(cuda, dtype, B, L):
+    """K12 (a warp a member on staged rows; a block a member where a row
+    cannot be staged, `ensemble.k12_members` 0) equals its plain version
+    in modes 0-2 at the full width, at rows whose bytes are not a
+    multiple of 16, and at rows too long to stage."""
+    rng = np.random.RandomState(13)
+    tape = torch.as_tensor(rng.randint(0, 3, (B, L)), dtype=dtype,
+                           device=cuda)
+    tape[0, -2:] = 1
+    tape[0, 0] = 1
+    for pattern in [(1, 1, 1), (2, 0, 1, 1), (1,) * 40, ()]:
+        pat = torch.as_tensor(pattern, dtype=torch.int32, device=cuda)
+        for mode in (0, 1):
+            got = tens.pattern_scan(tape, pat, mode)
+            want = tens.pattern_scan_plain(tape, pat, mode)
+            assert torch.equal(got, want), (pattern, mode)
+        t0 = torch.where(torch.as_tensor(rng.rand(B) < 0.5, device=cuda),
+                         torch.inf, 1.5).to(torch.float64)
+        now = torch.tensor([2.5], dtype=torch.float64, device=cuda)
+        got = tens.pattern_scan(tape, pat, 2, t_hit=t0.clone(), t_now=now)
+        want = tens.pattern_scan_plain(tape, pat, 2, t_hit=t0.clone(),
+                                       t_now=now)
+        assert torch.equal(got, want), pattern
 
 
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32])
@@ -1811,6 +1938,54 @@ def test_ssa_round_kernel_matches_plain(cuda, name, dtype, B):
         assert bool(torch.isinf(out[0][0][-1]).all())
 
 
+def _past_limits(kind):
+    """A network past one of K27's shared-memory limits (33 reactions, 9
+    species, 9 factors a reaction), as the CPU tests build it."""
+    rng = np.random.RandomState({"reactions": 1, "species": 2,
+                                 "factors": 3}[kind])
+    R, S = {"reactions": (33, 3), "species": (12, 9),
+            "factors": (5, 2)}[kind]
+    reactants = rng.randint(0, 2, (R, S))
+    if S > 8:
+        reactants[:, 8] = 0
+        reactants[0] = 0
+        reactants[0, 8] = 1
+    if kind == "factors":
+        reactants[1] = 0
+        reactants[1, 0] = 9
+    products = rng.randint(0, 3, (R, S))
+    rates = rng.uniform(0.2, 1.0, R) * 20.0 ** -reactants.sum(axis=1)
+    return (gillespie.ReactionNetwork(reactants, products, rates),
+            tuple([25] * S))
+
+
+@pytest.mark.parametrize("kind", ["reactions", "species", "factors"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ssa_round_wide_form_matches_plain(cuda, kind, dtype):
+    """K27's wide form (the network in global memory) at a network past
+    each shared-memory limit against `ssa_round_plain` on the same draws,
+    in two calls: times and counts bit for bit."""
+    net, n0 = _past_limits(kind)
+    assert not gillespie._fits_shared(net)
+    S, E, B = len(n0), 40, 4099
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    u = torch.rand((E, 2, B), generator=gen, dtype=dtype, device=cuda)
+    out = []
+    for fn in (gillespie.ssa_round, gillespie.ssa_round_plain):
+        t = torch.zeros(B, dtype=torch.float64, device=cuda)
+        n = torch.as_tensor(np.asarray(n0, np.int32), device=cuda)[:, None]
+        n = n.expand(S, B).contiguous()
+        ts = torch.empty((E, B), dtype=torch.float64, device=cuda)
+        ns = torch.empty((E, S, B), dtype=torch.int32, device=cuda)
+        for e0, e1 in ((0, 17), (17, E)):
+            fn(net, u[e0:e1], t, n, ts[e0:e1], ns[e0:e1])
+        out.append((ts, ns, t, n))
+    torch.cuda.synchronize()
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+    assert not torch.equal(out[0][1][-1], out[0][1][0])
+
+
 def test_ssa_batch_tm_launches_k27(cuda):
     net, n0 = _SSA_NETS["bench"]
     gillespie.ssa_round.launches = gillespie.ssa_round_plain.calls = 0
@@ -1843,6 +2018,29 @@ def test_metropolis_kernel_matches_plain(cuda, J, h, trials, rounds, N, T,
     got = ferromagnet.metropolis(ck, sites, u, thr, count_first)
     want = ferromagnet.metropolis_plain(
         cp, sites, u, torch.as_tensor(thr, device=cuda), count_first)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(ck, cp)
+    assert not torch.equal(ck, chains)
+
+
+def test_metropolis_bit_chains_match_plain(cuda):
+    """K28 past a byte a site in shared memory (300,000 sites at 25
+    trials a round: the chain held as bits) against `metropolis_plain`:
+    counts and chains bit for bit."""
+    T, N, rounds, rs, steps = 2, 300_000, 20, 25, 6
+    assert ferromagnet.k28_bits(N, rs)
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    chains = (torch.rand((T, N), generator=gen, device=cuda) < 0.3).to(
+        torch.int32)
+    sites = torch.randint(0, N, (T, steps, rounds, rs), generator=gen,
+                          dtype=torch.int32, device=cuda)
+    u = torch.rand((T, steps, rounds, rs), generator=gen,
+                   dtype=torch.float64, device=cuda)
+    thr = ferromagnet.acceptance_table(1.0, -0.25, 1.0)
+    ck, cp = chains.clone(), chains.clone()
+    got = ferromagnet.metropolis(ck, sites, u, thr, True)
+    want = ferromagnet.metropolis_plain(
+        cp, sites, u, torch.as_tensor(thr, device=cuda), True)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(ck, cp)
     assert not torch.equal(ck, chains)

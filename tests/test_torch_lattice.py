@@ -764,6 +764,165 @@ def test_first_passage_matches_occupancy_for_monotone_pattern():
         assert abs(cdf.mean() - occ.mean()) < 5 * se + 0.01, (r, cdf, occ)
 
 
+# --- K11's resident rounds and K12's staged scan, as the card runs them ----------
+
+_RES_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P,
+             _P]
+
+
+def _resident(host_lib, dm):
+    fn = host_lib(k1_source.k1_source(dm)).ckpe_k11_host_resident
+    fn.argtypes = _RES_ARGS
+    fn.restype = _I
+    return fn
+
+
+@pytest.mark.parametrize("tag,L,E,tile,n,per_member", [
+    ("ex5-msrtf-machine", 192, 8, 3, 6, False),
+    ("ex5-msrtf-machine", 192, 8, 4, 6, True),
+    ("ex4-chemical-turing", 200, 8, 3, 1, False),
+    ("ex4-chemical-turing", 200, 8, 2, 5, True),
+    ("ex4-chemical-turing", 200, 5, 3, 3, True),
+    ("ex3-copolymerization", 96, 4, 7, 4, True)])
+def test_resident_rounds_match_plain(host_lib, tag, L, E, tile, n,
+                                     per_member):
+    """K11's resident kernel as its host twin runs it (`csrc/
+    lattice_round.cuh:ckpe_k11_host_resident`: rows loaded into the
+    tile's buffer, 16 bytes at a time where L % 16 == 0, n rounds on
+    them, written back, tile after tile) equals n rounds of
+    `lattice_round_plain`: tiles that split B unevenly, shared and
+    per-member shifts, machines with choose nodes (ex4, ex3), n = 1, a
+    call that starts at k0 > 0, symbols out of range (the exact walk),
+    four sites a thread by K1's lane walk (E a multiple of 4) and a site
+    a thread (E = 5)."""
+    _, dm = _machines(tag)
+    fn = _resident(host_lib, dm)
+    rng = np.random.RandomState(31)
+    B, k0 = 7, 2
+    pt, dt = (x.astype(np.int8)
+              for x in _active_tapes(rng, tag, dm.size_a, B, L))
+    pt[0, ::11] = dm.size_a + 2
+    dt[1, ::7] = -3
+    shape = (k0 + n, B) if per_member else (k0 + n,)
+    shifts = rng.randint(-L, 2 * L, shape).astype(np.int32)
+    u = rng.rand(n, B, E).astype(np.float32)
+    kp, kd = pt.copy(), dt.copy()
+    assert fn(_ptr(kp), _ptr(kd), _ptr(u), _ptr(shifts), int(per_member),
+              k0, n, B, L, E, tile, 5, -1, None, 0, None, None) == 0
+    p, d = _t(pt), _t(dt)
+    for j in range(n):
+        tens.lattice_round_plain(dm, p, d, _t(shifts)[k0 + j], E, _t(u[j]))
+    _eq(kp, p)
+    _eq(kd, d)
+    assert (kp != pt).any() or (kd != dt).any()
+
+
+@pytest.mark.parametrize("tag,pattern,data_tape,L,tile,threads", [
+    ("ex2-ferromagnetic-chain", (1, 1, 1), True, 64, 5, 7),
+    ("ex4-chemical-turing", (7,), False, 64, 4, 128),
+    ("ex2-ferromagnetic-chain", (0, 1, 1, 0, 1), True, 40, 16, 100)])
+def test_resident_first_passage_matches_plain(host_lib, tag, pattern,
+                                              data_tape, L, tile, threads):
+    """K11's fused first passage as its host twin runs it (K12's update
+    of the watched rows in the tile's buffer after each round, the hit
+    times held beside them) equals the round loop written out: hit times
+    and both tapes, in two calls (the second from k0 > 0), tiles that
+    split B unevenly, blocks narrower and wider than a row, patterns
+    across the seam, a machine with choose nodes (ex4)."""
+    _, dm = _machines(tag)
+    fn = _resident(host_lib, dm)
+    rng = np.random.RandomState(41)
+    B, E, n = 11, 4, 30
+    if tag == "ex4-chemical-turing":
+        pt = rng.choice([5, 6], (B, L)).astype(np.int8)
+        dt = rng.choice([0, 4, 5], (B, L)).astype(np.int8)
+        dt[-3:] = 0  # no tape to fire on: never hit
+    else:
+        pt = np.zeros((B, L), np.int8)
+        dt = (rng.rand(B, L) < 0.3).astype(np.int8)
+        dt[3, -2:] = 1
+        dt[3, :1] = 1
+    shifts = rng.randint(0, L, n).astype(np.int32)
+    u = rng.rand(n, B, E).astype(np.float32)
+    want, wp, wd = _first_passage_loop(dm, pt.copy(), dt.copy(), pattern,
+                                       shifts, E, u, data_tape)
+    pat = np.asarray(pattern, np.int32)
+    times = np.arange(n + 1) * -math.log1p(-E / L)
+    watch = torch.as_tensor(dt if data_tape else pt)
+    t_hit = tens.pattern_scan_plain(
+        watch, torch.as_tensor(pat), 2,
+        t_hit=torch.full((B,), math.inf, dtype=torch.float64),
+        t_now=torch.zeros(1, dtype=torch.float64)).numpy().copy()
+    kp, kd = pt.copy(), dt.copy()
+    for k0, m in ((0, 13), (13, n - 13)):
+        uk = np.ascontiguousarray(u[k0:k0 + m])
+        assert fn(_ptr(kp), _ptr(kd), _ptr(uk), _ptr(shifts), 0, k0, m, B,
+                  L, E, tile, threads, int(data_tape), _ptr(pat), len(pat),
+                  _ptr(t_hit), _ptr(times)) == 0
+    _eq(t_hit, want)
+    _eq(kp.astype(np.int32), wp)
+    _eq(kd.astype(np.int32), wd)
+    hit = np.isfinite(t_hit)
+    assert 0 < hit.sum() < B and (t_hit[hit] > 0).any()
+
+
+@pytest.mark.parametrize("elem", [1, 4])
+def test_staged_scan_matches_plain(host_lib, elem):
+    """K12's staged scan as its host twin runs it (`pattern_rule.cuh:
+    ckpe_k12_host_staged`: the row staged with its P - 1 wrap cells, 16
+    bytes a lane where the row allows, int8 rows searched 4 bytes at a
+    time by the emulated `__vcmpeq4`, a lane's candidates walked, the
+    lanes' maximum) equals the plain version in every mode: patterns
+    across the seam, longer than the ring, empty, a first symbol no int8
+    holds, rows of 24, 13 and 32 symbols."""
+    fn = host_lib('#include "pattern_rule.cuh"\n').ckpe_k12_host_staged
+    fn.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P, _P, _P]
+    fn.restype = _I
+    dtype = np.int8 if elem == 1 else np.int32
+    rng = np.random.RandomState(10)
+    for B, L in ((12, 24), (9, 13), (6, 32)):
+        tape = _scan_tapes(rng, B, L, dtype)
+        tape[2, 3] = -1
+        for pattern in _PATTERNS + [(1,) * 30, (200, 1), (-1, 0)]:
+            pat = np.asarray(pattern, np.int32)
+            pat_t = torch.as_tensor(pat)
+            present = np.zeros(B, np.uint8)
+            progress = np.zeros(B, np.int32)
+            assert fn(_ptr(tape), elem, B, L, _ptr(pat), len(pat), 0,
+                      _ptr(present), None, None) == 0
+            fn(_ptr(tape), elem, B, L, _ptr(pat), len(pat), 1,
+               _ptr(progress), None, None)
+            _eq(present.astype(bool),
+                tens.pattern_scan_plain(_t(tape), pat_t, 0))
+            _eq(progress, tens.pattern_scan_plain(_t(tape), pat_t, 1))
+            t_hit = np.where(rng.rand(B) < 0.5, np.inf, 1.5)
+            t_now = np.array([2.25])
+            want = tens.pattern_scan_plain(_t(tape), pat_t, 2,
+                                           t_hit=_t(t_hit), t_now=_t(t_now))
+            fn(_ptr(tape), elem, B, L, _ptr(pat), len(pat), 2, None,
+               _ptr(t_hit), _ptr(t_now))
+            _eq(t_hit, want)
+
+
+def test_resident_geometry():
+    """K11's tile and K12's members by the geometry alone: the full
+    width two blocks an SM, the examples' first passage spread over the
+    card, rows too long to keep resident (2L past 227 KB) and rows too
+    long to stage take the kernels that read the tapes where they lie."""
+    assert tens.k11_tile(16384, 4096, 256) == (14, 512, 14 * 8200)
+    assert tens.k11_tile(4096, 128, 4, 4) == (16, 256, 16 * 276 + 16)
+    assert tens.k11_tile(3, 128, 4) == (1, 256, 264)
+    assert tens.k11_tile(64, 80_000, 16) == (1, 256, 160_008)
+    assert tens.k11_tile(64, 116_100, 16) == (1, 256, 232_200)
+    assert tens.k11_tile(64, 116_101, 16) is None
+    assert tens.k11_tile(64, 131_072, 16, 3) is None
+    assert tens.k12_members(4096, 1, 3) == 8
+    assert tens.k12_members(4096, 4, 3) == 7
+    assert tens.k12_members(40_000, 4, 1) == 1
+    assert tens.k12_members(60_000, 4, 1) == 0
+    assert tens.k12_members(200_000, 1, 1) == 1
+
+
 # --- K13: weighted window counts -------------------------------------------------
 
 

@@ -134,9 +134,10 @@ _MC_HOST = '#include "metropolis_rule.cuh"\n'
 
 
 @pytest.fixture(scope="module")
-def mc_host(tmp_path_factory):
+def mc_lib(tmp_path_factory):
     """K28's rule (`csrc/metropolis_rule.cuh`: the block's phases in turn
-    for each chain) built with the host's C++ compiler."""
+    for each chain, on a chain of bytes and on one of bits) built with
+    the host's C++ compiler."""
     cxx = next((c for c in (shutil.which(n) for n in ("g++", "c++",
                                                       "clang++")) if c), None)
     if cxx is None:
@@ -148,11 +149,17 @@ def mc_host(tmp_path_factory):
                     "-fPIC", "-I", str(cuda.CSRC_DIR), "-o", str(lib),
                     str(out / "k28.cpp")], check=True, capture_output=True,
                    timeout=120)
-    fn = ctypes.CDLL(str(lib)).mc_host_run
+    lib = ctypes.CDLL(str(lib))
     i, p = ctypes.c_int, ctypes.c_void_p
-    fn.argtypes = [i, i, i, i, p, p, p, p, i, i, i, p]
-    fn.restype = i
-    return fn
+    for fn in (lib.mc_host_run, lib.mc_host_run_bits):
+        fn.argtypes = [i, i, i, i, p, p, p, p, i, i, i, p]
+        fn.restype = i
+    return lib
+
+
+@pytest.fixture(scope="module")
+def mc_host(mc_lib):
+    return mc_lib.mc_host_run
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -185,6 +192,48 @@ def test_metropolis_rule_matches_plain(mc_host, case, count_first, threads,
     assert rc == 0
     np.testing.assert_array_equal(got, want.numpy())
     np.testing.assert_array_equal(host_chains, plain_chains.numpy())
+
+
+@pytest.mark.parametrize("N", [5, 301, 1000])
+def test_metropolis_bits_rule_matches_plain(mc_lib, N):
+    """K28's rule on a chain held as bits (the form the card takes past a
+    byte a site in shared memory: `mc_host_run_bits`, `McBits`) against
+    `metropolis_plain` on the same draws: chains and counts bit for bit,
+    on rings that end inside a word and on one of 5 sites."""
+    J, h, beta, trials, rounds = CASES[sorted(CASES)[0]]
+    rs = trials // rounds
+    T, steps = 3, 10
+    gen = torch.Generator().manual_seed(11)
+    chains = (torch.rand((T, N), generator=gen) < 0.4).to(torch.int32)
+    sites = torch.randint(0, N, (T, steps, rounds, rs), generator=gen,
+                          dtype=torch.int32)
+    u = torch.rand((T, steps, rounds, rs), generator=gen,
+                   dtype=torch.float64)
+    thr = ferromagnet.acceptance_table(J, h, beta)
+    host_chains = chains.numpy().copy()
+    plain_chains = chains.clone()
+    want = ferromagnet.metropolis(plain_chains, sites, u, thr, True)
+    got = np.zeros(tuple(want.shape), dtype=np.int32)
+    assert mc_lib.mc_host_run_bits(
+        T, N, rounds, rs, thr.ctypes.data, host_chains.ctypes.data,
+        sites.numpy().ctypes.data, u.numpy().ctypes.data, steps, 1, 32,
+        got.ctypes.data) == 0
+    np.testing.assert_array_equal(got, want.numpy())
+    np.testing.assert_array_equal(host_chains, plain_chains.numpy())
+    assert (host_chains != chains.numpy()).any()
+
+
+def test_k28_holds_long_chains_as_bits():
+    """K28's form by the geometry alone: a byte a site up to the block's
+    shared memory (the example's 50,000 sites; about 231,000 at 25
+    trials a round), bits past it (300,000 sites), an error past both."""
+    assert not ferromagnet.k28_bits(50_000, 25)
+    assert not ferromagnet.k28_bits(231_000, 25)
+    assert ferromagnet.k28_bits(232_000, 25)
+    assert ferromagnet.k28_bits(300_000, 25)
+    assert ferromagnet._k28_bytes(300_000, 25, True) == 37_504 + 125
+    with pytest.raises(ValueError, match="at most"):
+        ferromagnet.k28_bits(2_000_000, 25)
 
 
 def test_island_counts_match_stats():
