@@ -170,6 +170,16 @@ K5_FN K25Dual k5_load(const K25Dual* x) {
 #endif
 }
 
+// A step's vector: in shared memory where the block form keeps the work
+// buffer there (`csrc/dense_rhs.cu`), else from L2, as `k5_load`.
+template <class T>
+K5_FN T k5_work_load(const T* x) {
+#if defined(__CUDA_ARCH__)
+  if (__isShared(x)) return *x;
+#endif
+  return k5_load(x);
+}
+
 // The arithmetic on either value type.
 K5_FN double k5_add(double a, double b) { return a + b; }
 K5_FN double k5_mul(double a, double b) { return a * b; }
@@ -337,7 +347,7 @@ K5_FN T k5_ratio(const K5CtxT<T>& c, const K5Item& it, unsigned j) {
 // The source vector at compact index x (the seed's at live index x).
 template <class T>
 K5_FN T k5_src(const K5CtxT<T>& c, const K5Item& it, unsigned x) {
-  if (it.src >= 0) return k5_load(c.work + it.src + x);
+  if (it.src >= 0) return k5_work_load(c.work + it.src + x);
   const int* t = c.table;
   const int row = it.seed + (int)x;
   T acc = T();
@@ -412,9 +422,10 @@ K5_FN void k5_element(const K5CtxT<T>& c, const K5Item& it, unsigned e) {
       k5_poff<kDual>(it) + (h * it.span + (unsigned)tg[0]) * lo + s;
   const T* t = c.work + it.dst + (size_t)h * it.d.d * lo + s;
   T acc = k5_dy_get(c, j);
-  if (tg[1] >= 0) acc = k5_add(acc, k5_neg(k5_load(t + (size_t)tg[1] * lo)));
+  if (tg[1] >= 0)
+    acc = k5_add(acc, k5_neg(k5_work_load(t + (size_t)tg[1] * lo)));
   for (int x = 0; x < tg[3]; ++x)
-    acc = k5_add(acc, k5_load(t + (size_t)c.table[tg[2] + x] * lo));
+    acc = k5_add(acc, k5_work_load(t + (size_t)c.table[tg[2] + x] * lo));
   k5_dy_set(c, j, acc);
 }
 
@@ -432,6 +443,66 @@ K5_FN void k5_levels(K5CtxT<T>& c) {
   }
   c.lv_off[c.k] = 0;
   c.n_state = c.pw[c.k];
+}
+
+// The levels below p (and v) formed inside a K5 or K25 launch, its
+// leading phases in the block and cluster forms (`csrc/dense_rhs.cu`):
+// level j's phase (j = k - 1, ..., 0) forms ways * tapes * A^j entries,
+// entry x the piece (p's levels, then v's) x / (tapes A^j), its tape
+// and its index o. Each entry sums its A children, level j + 1 at o A
+// (p or v itself at j = k - 1), in digit order from the first, as K3
+// and `engine/dense.py:pyramid_plain` sum them; a level written in the
+// previous phase is read through L2 (`k5_load`). Level 0's phase also
+// writes the 1 above it (`k5_level_one`; for v too, as K3 on v writes
+// it).
+struct K5LevelOut {
+  double* lv;   // p's levels (null: made before the launch)
+  double* vlv;  // v's levels (null: none to form)
+  int tapes;
+  unsigned low_block;  // a tape's block of low: its levels and the 1
+};
+
+K5_FN unsigned k5_level_ways(const K5LevelOut& o) {
+  return (o.lv ? 1u : 0u) + (o.vlv ? 1u : 0u);
+}
+
+template <class T>
+K5_FN unsigned k5_level_count(const K5CtxT<T>& c, const K5LevelOut& o,
+                              int j) {
+  return k5_level_ways(o) * (unsigned)o.tapes * c.pw[j];
+}
+
+template <class T>
+K5_FN void k5_level_entry(const K5CtxT<T>& c, const K5LevelOut& o, int j,
+                          unsigned x) {
+  const unsigned a = (unsigned)c.a, m = c.pw[j];
+  const unsigned per = m * (unsigned)o.tapes;
+  const unsigned piece = x / per, r = x - piece * per;
+  const unsigned tape = r / m, q = r - tape * m;
+  const bool is_v = piece == 1 || !o.lv;
+  double* out = (is_v ? o.vlv : o.lv) + (size_t)tape * o.low_block;
+  double acc;
+  if (j == c.k - 1) {
+    const double* src =
+        (is_v ? c.v : c.p) + (size_t)tape * c.pw[c.k] + (size_t)q * a;
+    acc = src[0];
+    for (unsigned d = 1; d < a; ++d) acc = acc + src[d];
+  } else {
+    const double* src = out + c.lv_off[j + 1] + (size_t)q * a;
+    acc = k5_load(src);
+    for (unsigned d = 1; d < a; ++d) acc = acc + k5_load(src + d);
+  }
+  out[c.lv_off[j] + q] = acc;
+}
+
+// The 1 above level 0 of piece-and-tape y < ways * tapes.
+template <class T>
+K5_FN void k5_level_one(const K5CtxT<T>& c, const K5LevelOut& o,
+                        unsigned y) {
+  const unsigned piece = y / (unsigned)o.tapes;
+  const unsigned tape = y - piece * (unsigned)o.tapes;
+  const bool is_v = piece == 1 || !o.lv;
+  (is_v ? o.vlv : o.lv)[(size_t)tape * o.low_block + c.lv_off[0] + 1] = 1.0;
 }
 
 // K4's rule, K5's phase 0 (`engine/dense.py:signature_weights_plain`):

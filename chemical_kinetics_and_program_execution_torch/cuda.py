@@ -184,19 +184,21 @@ def load() -> ctypes.CDLL:
     lib.ckpe_pyramid.argtypes = [_P, _I, _I, _I, _P, _P]
     # ckpe_dense_sweep(items, phase_ptr, n_phases, max_phase, table, work,
     #                  dy, n, p, low, pair_num, pair_den, pair_const,
-    #                  chain, csr_ptr, n_sig, s, a, k, stream)
+    #                  chain, csr_ptr, n_sig, s, a, k, form, blocks,
+    #                  n_items, table_len, work_len, stream)
     k5 = [_P, _P, _I, _L, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _P, _I,
-          _P, _I, _I, _P]
+          _P, _I, _I, _I, _I, _I, _I, _L, _P]
     lib.ckpe_dense_sweep.argtypes = k5
     # ckpe_dense_rhs(tapes, m, <ckpe_dense_sweep's arguments>)
     lib.ckpe_dense_rhs.argtypes = [_I, _I] + k5
     # ckpe_dense_jvp(items, phase_ptr, n_phases, max_phase, table, work,
     #                jdy, dy, n, p, low, v, vlow, pair_num, pair_den,
-    #                pair_const, chain, csr_ptr, n_sig, s, a, k, stream), and
-    # ckpe_dense_jvp_rhs(tapes, m, <the same>)
+    #                pair_const, chain, csr_ptr, n_sig, s, a, k, form,
+    #                blocks, n_items, table_len, work_len, stream), and
+    # ckpe_dense_jvp_rhs(tapes, m, levels_p, <the same>)
     k25 = k5[:7] + [_P] + k5[7:10] + [_P, _P] + k5[10:]
     lib.ckpe_dense_jvp.argtypes = k25
-    lib.ckpe_dense_jvp_rhs.argtypes = [_I, _I] + k25
+    lib.ckpe_dense_jvp_rhs.argtypes = [_I, _I, _I] + k25
     # ckpe_steady_aug(x, n, a, k, cons_w, n_c, c_norm, mode, partial,
     #                 out, stream)
     lib.ckpe_steady_aug.argtypes = [_P, _L, _I, _I, _P, _I, _D, _I, _P, _P,
@@ -289,9 +291,12 @@ def load() -> ctypes.CDLL:
     lib.ckpe_ssa_rounds_wide.argtypes = [_P] * 5 + [_I, _I, _I, _P, _L, _I,
                                                     _P, _P, _P, _P, _P]
     # ckpe_metropolis(T, N, rounds, rs, thr, chains, sites, u, steps,
-    #                 count_first, counts, bits, stream)
+    #                 count_first, counts, stream)
     lib.ckpe_metropolis.argtypes = [_I, _I, _I, _I, _P, _P, _P, _P, _I, _I,
-                                    _P, _I, _P]
+                                    _P, _P]
+    # ckpe_metropolis_bytes(N, rounds, rs)
+    lib.ckpe_metropolis_bytes.argtypes = [_I, _I, _I]
+    lib.ckpe_metropolis_bytes.restype = _L
     # ckpe_dopri5_batch(coef, has, B, y0, params, ts, n_out, rtol, atol,
     #                   max_steps, ys, n_acc, n_rej, stream)
     lib.ckpe_dopri5_batch.argtypes = [_P, _P, _I, _P, _P, _P, _I, _D, _D, _L,

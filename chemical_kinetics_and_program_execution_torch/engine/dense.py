@@ -20,12 +20,15 @@ here, which the wrapper runs for a CPU tensor:
   (`_ratio_tables` there).
 
 On a card `make_dense_dy_dt`'s fn runs K3 and K5 from one C call
-(`dense_rhs`): 3 launches at ex4's cl_k 5-8.
+(`dense_rhs`) in the program's launch form (`launch_form`, chosen once
+a program by its largest phase): one block or one thread-block cluster,
+whose launch forms the levels itself (one launch an RHS), or the
+cooperative grid after K3 (3 launches at ex4's cl_k 5-8).
 
 Its J.v (forward mode: `torch.func.jvp` on the closure, or a
 forward-AD dual, as the solvers pass it) is kernel K25 (`dense_jvp`):
 K5's kernel (`csrc/dense_rhs.cu`) and rule (`csrc/sweep_rule.cuh`) on
-(value, tangent) pairs, over K3's levels of p and of v;
+(value, tangent) pairs, over the levels of p and of v, in K5's form;
 `dense_jvp_plain` is its plain version. The reverse mode is not ported
 (`REVERSE_MODE`).
 
@@ -731,13 +734,101 @@ def sweep_plan(prog: DenseProgram) -> SweepPlan:
     )
 
 
+# --- K5's and K25's launch forms --------------------------------------------
+
+LAUNCH_FORMS = ("grid", "block", "cluster")  # `csrc/dense_rhs.cu:kForm*`
+WIDE_THREADS = 1024  # the block and cluster forms' threads a block
+MAX_CLUSTER = 16  # blocks of a cluster (past 8 a non-portable size)
+# The chooser's limits (`launch_form`), set by `time_jvp.py`'s timings
+# on the H100: a block takes a launch whose largest phase
+# (`launch_elements`, a warp's lanes for each signature in phase 0
+# counted) is up to BLOCK_MOST elements; a cluster, at about
+# ELEMENTS_A_THREAD elements a thread, a plan whose largest phase is up
+# to CLUSTER_MOST (ex4 at cl_k 4, ex6-lite); past that the grid's
+# threads win over its barriers (ex4 and ex4var2 at cl_k 5).
+BLOCK_MOST = 8192
+CLUSTER_MOST = 32_768
+ELEMENTS_A_THREAD = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchForm:
+    """How K5 and K25 launch (`csrc/dense_rhs.cu:k5_launch`): ``kind``
+    an index of `LAUNCH_FORMS`; the block form one block of
+    `WIDE_THREADS`, its phases apart by ``__syncthreads``; the cluster
+    form one thread-block cluster of ``blocks`` such blocks, apart by the
+    cluster's hardware barrier; the grid form a cooperative launch that
+    sizes itself (``blocks`` 0), apart by the grid's sync. In the block
+    and cluster forms the launch also forms the levels below p (and v)
+    as its leading phases, so an RHS or a J.v is one launch; the grid
+    form runs K3 before it."""
+
+    kind: int
+    blocks: int = 0
+
+    @property
+    def fused_levels(self) -> bool:
+        return self.kind != 0
+
+
+def launch_elements(prog, plan) -> int:
+    """Elements of a K5 launch's largest phase: the plan's (dy's zeroing
+    counted), or a lane for each signature's pairs in phase 0."""
+    return max(plan.max_phase, 32 * prog.num_signatures)
+
+
+def launch_form(prog, plan) -> LaunchForm:
+    """K5's and K25's form for a program, chosen once on the host by its
+    largest phase: one block of 1,024 threads where `launch_elements`
+    fits `BLOCK_MOST`, one cluster of up to `MAX_CLUSTER` blocks of
+    1,024 (about `ELEMENTS_A_THREAD` elements a thread) where the plan's
+    largest phase fits `CLUSTER_MOST`, else the cooperative grid."""
+    most = launch_elements(prog, plan)
+    if most <= BLOCK_MOST:
+        return LaunchForm(1, 1)
+    each = -(-plan.max_phase // ELEMENTS_A_THREAD)
+    if plan.max_phase <= CLUSTER_MOST:
+        return LaunchForm(2, min(MAX_CLUSTER,
+                                 max(2, -(-each // WIDE_THREADS))))
+    return LaunchForm(0)
+
+
+def forms_for(dp) -> list:
+    """The forms a program can take, for timing them side by side: the
+    grid always; one block and a cluster of 16 up to 2^20 elements; the
+    chosen form."""
+    forms = [LaunchForm(0)]
+    if launch_elements(dp.prog, dp.plan) <= 1 << 20:
+        forms += [LaunchForm(1, 1), LaunchForm(2, MAX_CLUSTER)]
+    chosen = launch_form(dp.prog, dp.plan)
+    return forms + ([chosen] if chosen not in forms else [])
+
+
+def form_name(form: LaunchForm) -> str:
+    if form.kind == 0:
+        return "grid"
+    if form.kind == 1:
+        return "block"
+    return f"cluster of {form.blocks}"
+
+
+def rhs_pyramid_launches(dp) -> int:
+    """K3's launches in a `dense_rhs` call: none where K5's launch forms
+    the levels, else K3's once a tape."""
+    if dp.form.fused_levels:
+        return 0
+    return (1 + dp.prog.dual) * pyramid_launches(dp.prog.size_a,
+                                                 dp.prog.cl_k)
+
+
 @dataclasses.dataclass
 class DeviceProgram:
     """A :class:`DenseProgram`, its sweep plan and its tables on one
     device: for K4 each signature's pairs in CSR order (pair order kept),
     each with its world's chain indices and w_const, and the same pairs
     as columns of world indices for its plain version; K5's items and
-    table; a pruned program's mass tables for K9 (None otherwise)."""
+    table; a pruned program's mass tables for K9 (None otherwise); K5's
+    and K25's launch form (`launch_form`)."""
 
     prog: DenseProgram
     plan: SweepPlan
@@ -757,6 +848,8 @@ class DeviceProgram:
     m_den: torch.Tensor | None = None
     m_const: torch.Tensor | None = None  # [worlds]
     csr_world: torch.Tensor | None = None  # [pairs]: each pair's world
+    # K5's and K25's launch form on a card (`launch_form`)
+    form: LaunchForm | None = None
     # index tensors the plain dual sweep makes once (`_plain_tensors`)
     plain_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -816,7 +909,7 @@ def device_program(prog: DenseProgram, device=None) -> DeviceProgram:
             m_const=dev(prog.m_const, config.DEFAULT_FLOAT))
     order = np.argsort(prog.pair_sig, kind="stable")
     return DeviceProgram(
-        prog=prog, plan=plan,
+        prog=prog, plan=plan, form=launch_form(prog, plan),
         device=worlds["w_const"].device,  # "cuda" -> "cuda:0"
         csr_world=dev(prog.pair_world[order], torch.int64),
         items=dev(plan.items, torch.int64),
@@ -1099,21 +1192,35 @@ def _checked_out(out: torch.Tensor, n: int, device) -> torch.Tensor:
     return out
 
 
-def _k5_args(dp, p, low, work, dy, s, pair_const=None):
+def _k5_args(dp, p, low, work, dy, s, pair_const=None, n_phases=None):
     """K5's arguments as `ckpe_dense_sweep` and `ckpe_dense_rhs` take
-    them, less the stream: the plan, the work buffer, dy, the pyramid,
-    each signature's pairs with their worlds' chains, and the signature
-    weights ``s`` that phase 0 writes. The work buffer and ``s`` are a
-    call's own (`_work`, `_weights_out`), so two calls on two streams do
-    not share them."""
+    them, less the stream: the plan (its first ``n_phases`` phases where
+    given), the work buffer, dy, the pyramid, each signature's pairs with
+    their worlds' chains, the signature weights ``s`` that phase 0
+    writes, the program's launch form and the plan's sizes (items, table,
+    work buffer) that decide what a block of the block and cluster forms
+    copies into shared memory. The work buffer and ``s`` are a call's own
+    (`_work`, `_weights_out`), so two calls on two streams do not share
+    them."""
     prog, plan = dp.prog, dp.plan
-    return (dp.items.data_ptr(), dp.phase_ptr.data_ptr(), plan.num_phases,
+    return (dp.items.data_ptr(), dp.phase_ptr.data_ptr(),
+            plan.num_phases if n_phases is None else n_phases,
             plan.max_phase, dp.table.data_ptr(), work.data_ptr(),
             dy.data_ptr(), prog.state_size, p.data_ptr(), low.data_ptr(),
             dp.pair_num.data_ptr(), dp.pair_den.data_ptr(),
             (dp.pair_const if pair_const is None else pair_const).data_ptr(),
             prog.w_num.shape[1], dp.csr_ptr.data_ptr(), prog.num_signatures,
-            s.data_ptr(), prog.size_a, prog.cl_k)
+            s.data_ptr(), prog.size_a, prog.cl_k, dp.form.kind, dp.form.blocks,
+            plan.items.shape[0], plan.table.size, plan.work_size)
+
+
+def _k25_args(dp, p, low, v, vlow, work, jdy, dy, s, pair_const,
+              n_phases=None):
+    """K25's arguments as `ckpe_dense_jvp` takes them, less the stream:
+    `_k5_args`' with jdy before dy and v, vlow after p, low."""
+    a = _k5_args(dp, p, low, work, jdy, s, pair_const, n_phases)
+    return (a[:7] + (None if dy is None else dy.data_ptr(),) + a[7:10]
+            + (v.data_ptr(), vlow.data_ptr()) + a[10:])
 
 
 def pair_consts(dp, w_const=None):
@@ -1176,6 +1283,29 @@ def sweep(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor,
 
 
 sweep.launches = 0
+
+
+def bare_sweep(dp, p, low, dy, work, s, n_phases=None):
+    """K5's launch alone in the program's form, into ``dy`` (K3's levels
+    ``low`` made before; ``work`` and ``s`` the caller's, as `sweep`
+    makes them), cut to the plan's first ``n_phases`` phases where given:
+    a timing hook (`time_jvp.py`, `chip_smoke.py`), not counted."""
+    lib = cuda.load()
+    rc = lib.ckpe_dense_sweep(*_k5_args(dp, p, low, work, dy, s,
+                                        n_phases=n_phases), cuda.stream(p))
+    cuda.check(rc, "K5 alone", lib)
+
+
+def bare_jvp(dp, p, low, v, vlow, jdy, work, s, n_phases=None):
+    """K25's launch alone in the program's form, J v into ``jdy``, over
+    the levels ``low`` and ``vlow`` made before (``work`` and ``s`` of
+    pairs, as `dense_jvp` makes them), cut to the plan's first
+    ``n_phases`` phases where given: a timing hook, not counted."""
+    lib = cuda.load()
+    rc = lib.ckpe_dense_jvp(*_k25_args(dp, p, low, v, vlow, work, jdy, None,
+                                       s, dp.pair_const, n_phases),
+                            cuda.stream(p))
+    cuda.check(rc, "K25 alone", lib)
 
 
 # --- K9: the world mass --------------------------------------------------------
@@ -1439,10 +1569,13 @@ def dense_jvp(dp: DeviceProgram, p: torch.Tensor, v: torch.Tensor,
               low: torch.Tensor | None = None, w_const=None,
               value: bool = False):
     """K25: J v, the tangent of dp/dt at the float64 state ``p`` along
-    ``v`` (a new tensor), with ``low`` K3's levels of p (a call's own K3
+    ``v`` (a new tensor), with ``low`` K3's levels of p (made by the call
     when None) and ``w_const`` [worlds] a run-time weight vector in place
-    of the program's. On a card one C call (`ckpe_dense_jvp_rhs`): K3 on
-    each tape of v, then K25's one cooperative launch; on the CPU
+    of the program's. On a card one C call (`ckpe_dense_jvp_rhs`) in the
+    program's form (`launch_form`): in the block and cluster forms one
+    K25 launch whose leading phases form the levels of v (and of p when
+    ``low`` is None); in the grid form K3 on p when ``low`` is None, K3
+    on each tape of v, then K25's cooperative launch. On the CPU
     `dense_jvp_plain`. ``value=True`` returns ``(dy, J v)``: K25 writes
     dp/dt too (K5's bits), so one launch serves the forward-mode dual
     call."""
@@ -1451,8 +1584,12 @@ def dense_jvp(dp: DeviceProgram, p: torch.Tensor, v: torch.Tensor,
     prog = dp.prog
     a, k, n = prog.size_a, prog.cl_k, prog.state_size
     tapes = 1 + prog.dual
+    fused = dp.form.fused_levels
+    levels_p = low is None and fused
     if low is None:
-        low = pyramids(prog, p.reshape(-1))
+        low = (torch.empty(low_size(prog), dtype=torch.float64,
+                           device=p.device) if fused
+               else pyramids(prog, p.reshape(-1)))
     p, low = _check_pyramid(dp, p.reshape(-1), low)
     v = v.reshape(-1)
     if v.dtype != torch.float64 or v.shape != (n,) or v.device != p.device:
@@ -1465,21 +1602,15 @@ def dense_jvp(dp: DeviceProgram, p: torch.Tensor, v: torch.Tensor,
                        device=p.device)
     s = torch.empty(2 * prog.num_signatures, dtype=torch.float64,
                     device=p.device)
-    plan = dp.plan
     lib = cuda.load()
     with torch.cuda.device(p.device):
         rc = lib.ckpe_dense_jvp_rhs(
-            tapes, pyramid_tile_digits(a, k), dp.items.data_ptr(),
-            dp.phase_ptr.data_ptr(), plan.num_phases, plan.max_phase,
-            dp.table.data_ptr(), work.data_ptr(), jdy.data_ptr(),
-            None if dy is None else dy.data_ptr(), n,
-            p.data_ptr(), low.data_ptr(), v.data_ptr(), vlow.data_ptr(),
-            dp.pair_num.data_ptr(), dp.pair_den.data_ptr(),
-            pair_consts(dp, w_const).data_ptr(), prog.w_num.shape[1],
-            dp.csr_ptr.data_ptr(), prog.num_signatures, s.data_ptr(), a, k,
-            cuda.stream(p))
+            tapes, pyramid_tile_digits(a, k), int(levels_p),
+            *_k25_args(dp, p, low, v, vlow, work, jdy, dy, s,
+                       pair_consts(dp, w_const)), cuda.stream(p))
     cuda.check(rc, "dense_jvp", lib)
-    pyramid.launches += tapes * pyramid_launches(a, k)
+    if not fused:
+        pyramid.launches += tapes * pyramid_launches(a, k)
     dense_jvp.launches += 1
     return (dy, jdy) if value else jdy
 
@@ -1576,9 +1707,11 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
               low: torch.Tensor | None = None,
               w_const=None) -> torch.Tensor:
     """dp/dt of a float64 ``p`` (the program's state) into ``out`` (a new
-    tensor when None): on a card K3 (once a tape) and K5 (with K4 as its
-    phase 0) through one C call (`ckpe_dense_rhs`), on the CPU their
-    plain versions. K3's levels go into ``low`` (`low_size` doubles)
+    tensor when None): on a card one C call (`ckpe_dense_rhs`) in the
+    program's form (`launch_form`), one K5 launch whose leading phases
+    form the levels (block and cluster forms) or K3 once a tape and then
+    K5 (grid form), K4 K5's phase 0; on the CPU their plain versions.
+    The levels below p go into ``low`` (`low_size` doubles)
     where one is given, else into a tensor of the call's own. A run-time
     ``w_const`` [worlds] (the parametric path) replaces the program's:
     dp/dt is linear in it, so the sweep is the same, with K4 reading the
@@ -1601,7 +1734,7 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
                                 *_k5_args(dp, p, low, work, dy, s, consts),
                                 cuda.stream(p))
     cuda.check(rc, "dense_rhs", lib)
-    pyramid.launches += tapes * pyramid_launches(a, k)
+    pyramid.launches += rhs_pyramid_launches(dp)
     sweep.launches += 1
     return dy
 

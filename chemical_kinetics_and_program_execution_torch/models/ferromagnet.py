@@ -9,7 +9,9 @@ Counterpart of the JAX package's `models/ferromagnet.py`:
   source`` with the port's `ode/dopri5.py` (K6's second table on the
   card);
 - the Metropolis chain runs every chain of a batch on kernel K28
-  (`metropolis`, `csrc/metropolis.cu`, rule `csrc/metropolis_rule.cuh`;
+  (`metropolis`, `csrc/metropolis.cu`, rule `csrc/metropolis_rule.cuh`:
+  a block a chain held as bits, the rounds on one warp, the islands
+  counted a word at a time while the next step runs;
   `metropolis_plain` on the CPU): random-site flips on a ring of 0/1
   sites, each step's trials in conflict-masked rounds (a trial is tested
   against the round-start chain and dropped when an earlier trial of the
@@ -144,28 +146,34 @@ metropolis_plain.calls = 0
 
 
 # The dynamic shared memory K28 may ask for: the H100's 232,448 bytes a
-# block less the kernel's static reduction rows, with room to spare.
+# block less the kernel's static totals, with room to spare.
 K28_SMEM_BYTES = 231_424
 
 
-def _k28_bytes(N: int, rs: int, bits: bool) -> int:
-    """K28's dynamic shared memory (`csrc/metropolis.cu`): the chain a
-    byte or a bit a site, rounded up to 16 bytes, then 5 bytes a trial."""
-    chain = -(-N // 32) * 4 if bits else N
-    return -(-chain // 16) * 16 + 5 * rs
+def _up16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
-def k28_bits(N: int, rs: int) -> bool:
-    """Whether K28 holds chains of ``N`` sites as bits: exactly when a
-    byte a site does not fit a block's shared memory at ``rs`` trials a
-    round. Raises when neither form fits."""
-    if _k28_bytes(N, rs, False) <= K28_SMEM_BYTES:
-        return False
-    if _k28_bytes(N, rs, True) <= K28_SMEM_BYTES:
-        return True
-    raise ValueError(f"K28 takes chains of at most "
-                     f"{8 * (K28_SMEM_BYTES - 5 * rs - 15)} sites at {rs} "
-                     f"trials a round, not {N}")
+def k28_bytes(N: int, rounds: int, rs: int) -> int:
+    """K28's dynamic shared memory (`csrc/metropolis.cu:mc_layout`): the
+    chain of ``N`` sites as bits and its snapshot, each rounded up to 16
+    bytes, two buffers of a step's sites (int32) and uniforms (float64),
+    then two buffers of a step's conflict masks (a word a round) up to
+    32 trials a round, a flag a trial past it."""
+    words = _up16(4 * (-(-N // 32)))
+    return (2 * words + _up16(8 * rounds * rs) + 16 * rounds * rs
+            + (_up16(rs) if rs > 32 else _up16(8 * rounds)))
+
+
+def k28_check(N: int, rounds: int, rs: int) -> None:
+    """Raises unless K28's layout fits a block's shared memory: chains of
+    up to about 900,000 sites at the example's 500 trials a step."""
+    if k28_bytes(N, rounds, rs) > K28_SMEM_BYTES:
+        draws = k28_bytes(1, rounds, rs) - 32
+        raise ValueError(
+            f"K28 holds a chain and its snapshot as bits beside a step's "
+            f"draws twice ({draws} bytes at {rounds} rounds of {rs}): at "
+            f"most {4 * (K28_SMEM_BYTES - draws - 32)} sites, not {N}")
 
 
 def metropolis(chains: torch.Tensor, sites: torch.Tensor, u: torch.Tensor,
@@ -173,9 +181,10 @@ def metropolis(chains: torch.Tensor, sites: torch.Tensor, u: torch.Tensor,
     """K28: the steps of ``sites`` [T, steps, rounds, rs] int32 and ``u``
     (float64, alike) on ``chains`` [T, N] int32 (advanced in place);
     counts [T, steps + count_first, 6] int32 (see `metropolis_plain`).
-    One launch on the card, a block a chain (held as bits where a byte
-    a site does not fit its shared memory: `k28_bits`); the plain version
-    on the CPU. ``thr`` is `acceptance_table`'s."""
+    One launch on the card, a block a chain held as bits, the rounds on
+    one warp where rs <= 32 (`k28_check` raises where the layout does not
+    fit a block); the plain version on the CPU. ``thr`` is
+    `acceptance_table`'s."""
     if not cuda.on_card(chains, "metropolis"):
         return metropolis_plain(
             chains, sites, u,
@@ -192,7 +201,7 @@ def metropolis(chains: torch.Tensor, sites: torch.Tensor, u: torch.Tensor,
     if sites.shape[0] != T or tuple(u.shape) != tuple(sites.shape):
         raise ValueError("metropolis: sites and u must be [T, steps, "
                          "rounds, rs] for chains [T, N]")
-    bits = k28_bits(N, rs)
+    k28_check(N, rounds, rs)
     thr = np.ascontiguousarray(thr, dtype=np.float64)
     counts = torch.empty((T, steps + int(bool(count_first)), COUNT_COLUMNS),
                          dtype=torch.int32, device=chains.device)
@@ -201,8 +210,7 @@ def metropolis(chains: torch.Tensor, sites: torch.Tensor, u: torch.Tensor,
         rc = lib.ckpe_metropolis(T, N, rounds, rs, thr.ctypes.data,
                                  chains.data_ptr(), sites.data_ptr(),
                                  u.data_ptr(), steps, int(bool(count_first)),
-                                 counts.data_ptr(), int(bits),
-                                 cuda.stream(chains))
+                                 counts.data_ptr(), cuda.stream(chains))
     cuda.check(rc, "metropolis", lib)
     metropolis.launches += 1
     return counts

@@ -54,7 +54,8 @@ Phases (each prints its wall time; every check raises on failure):
    the 13 cases of the JAX package's `tests/test_engine.py:18-32` and on
    ex4 at cl_k 5-8 (43,046,721 states), K5's signature weights (its
    phase 0) equal to K4's plain version bit for bit on each; at each
-   cl_k 5-8 the launches an RHS (counted: 3, K3 2 and K5 1); from the
+   cl_k 5-8 the launches an RHS (counted, the grid form: 3, K3 2 and K5
+   1; 1 in the block and cluster forms); from the
    plan, printed but kept out of the `kernels` line: K5's phases, its
    live element-steps against a dense sweep's and a model of its sector
    traffic; each of K3-K6 alone against its plain version (K3 and K5
@@ -66,7 +67,8 @@ Phases (each prints its wall time; every check raises on failure):
    RHS's floor (p read once, dy written once); the main path: ex4
    scenarios a and b at cl_k 5 solved to t=2000 (2,001 samples, rtol =
    atol = 1e-13) through `markov_tapes.ode_integrate_ivp(backend=
-   "torch")`, K3, K5 and K6 each launched and no plain version called,
+   "torch")`, K5 and K6 each launched (K3 in the grid form) and no
+   plain version called,
    the eight observables at t=2000 equal to the reference's oracles to
    rel 2e-6; the same two solves at cl_k 6 (531,441 states) within rel
    0.05, abs 1e-9 of cl_k 5; each solve's seconds, steps, RHS calls a
@@ -300,11 +302,17 @@ Phases (each prints its wall time; every check raises on failure):
    the denominator at many ratios) and at a random one with a third of
    its windows zeroed (ties where a context keeps one live
    continuation), its value path's dy equal to K5's bits, one K25
-   launch and K3 once a tape a call, a central difference the witness
+   launch a call and K3 once a tape in the grid form only (none in the
+   block and cluster forms, `dense.launch_form`), K25 and K5 the same
+   bits in every form each program can take (`dense.forms_for`), each
+   program's form and launches a J v printed, a central difference the witness
    at both positive p (1e-6 of max |J v|), each ratio's distance to a
    kink of max checked to exceed the step; `torch.func.jvp` of the
    closure; K25 alone beside K5 at the same p, its bound, its plain
-   version; (b) K26 (both modes) and K6's Kvaerno entries (both swap
+   version; K25 and K5 at every shape of `time_jvp.py` (the phase's own
+   programs) in the chosen and the grid form, a J v call, K25 alone, K5
+   alone and an RHS call; (b) K26 (both modes) and K6's Kvaerno entries
+   (both swap
    states) against their plain versions bit for bit at ex4var2 cl_k 5's
    size, their largest errors recorded, timed, stage g4 beside
    `torch.addmv`; (c) `solve(method="kvaerno3")` on ex4var2 at cl_k 5
@@ -339,9 +347,10 @@ Phases (each prints its wall time; every check raises on failure):
    `ferromagnet.mc_island_history` at examples/ex2_ferromagnet_mc.py's
    geometry (100 chains x 50,000 sites, 4,000 steps of 500 trials in 20
    rounds), steps/s; K28 against `metropolis_plain` bit for bit on all
-   100 chains over 20 steps (counts and chains), and on chains held as
-   bits (4 x 300,000 sites at 25 trials a round, past a byte a site in
-   shared memory) over 8 steps; the run against the
+   100 chains over 20 steps (counts and chains), at 40 trials a round on
+   4,097 sites (a partial last word), one trial a round, a ring of 50
+   sites and a full warp of 32 trials on 64 sites (`MC_SHAPES`), and on
+   4 x 300,000 sites at 25 trials a round over 8 steps; the run against the
    committed JAX run examples/ferromagnet_mc_chain_counts.npz (for L =
    1..4, each of ten 400-step blocks' trial mean within 5 combined
    standard errors) and the analytic band of tests/test_models.py:107
@@ -440,6 +449,7 @@ from chemical_kinetics_and_program_execution_torch.ops import thermo as tth
 from chemical_kinetics_and_program_execution_torch.ops.observables import (
     seq_prob_projector,
 )
+import time_jvp
 from card_timing import cuda_ms, k2_tapes
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -721,8 +731,9 @@ def solve_ex4(dev, cl_k, powered):
     """One ex4 scenario through `markov_tapes.ode_integrate_ivp` on the
     card, observables projected there, the counts set to 0 just before
     and read just after, the host's time inside each K6 wrapper on its
-    clock (`K6HostClock`); raises unless K3, K5 and K6 each launched, no
-    plain version ran, and K6 launched as the step count says: one
+    clock (`K6HostClock`); raises unless K5 and K6 each launched (and K3
+    twice a K5 launch in the grid form, never in the block and cluster
+    forms), no plain version ran, and K6 launched as the step count says: one
     `dense_eval` an accepted step that holds samples, one `norms` a step
     and two for the initial step, 12 stages a step and 3 more a step
     that holds samples, one `dense_coeffs` a step that holds samples.
@@ -745,7 +756,10 @@ def solve_ex4(dev, cl_k, powered):
     plain = sum(f.calls for f in EXACT_PLAIN)
     if obs.shape != (N_SAMPLES, len(SEQS)) or not np.isfinite(obs).all():
         raise AssertionError(f"cl_k {cl_k}: observables {obs.shape}")
-    if plain or min(launches.values()) == 0:
+    k3_per_rhs = (0, tdense.pyramid_launches(9, cl_k))  # fused, or grid
+    if (plain or not launches["K5"] or not launches["K6"]
+            or launches["K3"] not in [x * launches["K5"]
+                                      for x in k3_per_rhs]):
         raise AssertionError(f"cl_k {cl_k}: launches {launches}, plain "
                              f"calls {plain}")
     steps, sampled = info["num_accepted"] + info["num_rejected"], \
@@ -1061,13 +1075,14 @@ def exact_closure(dev, kernels):
             max_err["RHS"] = max(max_err["RHS"], held_to_plain(
                 fn(p), tdense.dy_dt_dense(dp, p), f"ex4 cl_k {cl_k} {name}"))
         reps = 3 if cl_k >= 7 else 20
-        launches = tdense.pyramid_launches(9, cl_k) + dp.plan.num_launches
+        launches = tdense.rhs_pyramid_launches(dp) + dp.plan.num_launches
         zero_exact_counts()
         fn(p0)
         counted = sum(exact_launches().values())
-        if counted != launches or counted != 3:
+        if counted != launches or counted != (1 if dp.form.kind else 3):
             raise AssertionError(f"cl_k {cl_k}: {counted} launches an RHS, "
-                                 f"planned {launches}, 3 wanted")
+                                 f"planned {launches} in the "
+                                 f"{tdense.form_name(dp.form)} form")
         host = []
         # Plan arithmetic, printed below and kept out of the kernels line:
         # element-steps, bytes, and K5's traffic as modelled in sectors.
@@ -1544,8 +1559,8 @@ def dual_checks(dev, gen, dense_fn):
             raise AssertionError(f"{label}: {got.shape} against "
                                  f"{want.shape}, max |diff| {err}")
         if (plain or counts["K5"] != info["num_rhs"]
-                or counts["K3"] != 2 * info["num_rhs"] * tdense.
-                pyramid_launches(fn.device_program.prog.size_a, k)):
+                or counts["K3"] != info["num_rhs"] * tdense.
+                rhs_pyramid_launches(fn.device_program)):
             raise AssertionError(f"{label}: launches {counts}, RHS calls "
                                  f"{info['num_rhs']}, plain calls {plain}")
         out[label] = {"seconds": seconds, "max_abs_err": err,
@@ -1884,8 +1899,11 @@ def mutant_class_masks(size_a, dot, cl_k):
 def counted_path(label, fn, need):
     """Runs the main path ``fn`` with every count set to 0 just before and
     read just after; raises unless each kernel of ``need`` launched and
-    no plain version ran. Returns (fn's result, seconds, launches, K6's
-    launches by function, host µs a K6 launch inside each wrapper)."""
+    no plain version ran. (K3 runs on these paths only for a program in
+    the grid form: the block and cluster forms form the levels inside
+    K5's launch, `dense.launch_form`.) Returns (fn's result, seconds,
+    launches, K6's launches by function, host µs a K6 launch inside
+    each wrapper)."""
     zero_loose_counts()
     t0 = time.perf_counter()
     with K6HostClock() as clock:
@@ -2048,7 +2066,7 @@ def loose_phase(dev, kernels):
             return ys, kept.infos[0]
 
         (ys, info), seconds, launches, k6, host_us = counted_path(
-            label, run, ("K3", "K5", "K6"))
+            label, run, ("K5", "K6"))
         k6_steps_say(label, info, k6, 7)
         want = np.load(EXAMPLES / artifact)["ode_ys"]
         if ys.shape != want.shape or not np.isfinite(ys).all():
@@ -2130,7 +2148,7 @@ def loose_phase(dev, kernels):
                 torch.stack(mass).cpu().numpy())
 
     (ys, mass), seconds, launches, _, _ = counted_path(
-        "c", rk4, ("K3", "K5", "K9"))
+        "c", rk4, ("K5", "K9"))
     cls_spd = ys @ masks.T
     err_mass = float(np.abs(mass - art["mass"]).max())
     err_cls = float(np.abs(cls_spd - art["cls_spd"]).max())
@@ -2175,7 +2193,7 @@ def loose_phase(dev, kernels):
         return counts, masses, infos
 
     (counts, masses, infos), seconds, launches, k6, _ = counted_path(
-        "d", mini_loop, ("K3", "K5", "K6", "K9"))
+        "d", mini_loop, ("K5", "K6", "K9"))
     err = abs(masses[-1] - EX6_MINI_FINAL_MASS)
     if counts != EX6_MINI_COUNTS or err > EX6_MINI_ABS:
         raise AssertionError(f"path d: kept worlds {counts}, final mass "
@@ -2202,7 +2220,7 @@ def loose_phase(dev, kernels):
                                         return_info=True))
 
     (obs, info), seconds, launches, k6, host_us = counted_path(
-        "e", step_solve, ("K3", "K5", "K6"))
+        "e", step_solve, ("K5", "K6"))
     k6_steps_say("e", info, k6, 12)
     final = dict(zip(SEQS, obs[-1].tolist()))
     rel = max(abs(final[m] / ORACLE_A[m] - 1) for m in ORACLE_A)
@@ -5561,22 +5579,6 @@ def k25_bytes(dp):
             + plan.phase_ptr.nbytes + plan.table.nbytes)
 
 
-def k25_alone(dp, p, low, v, vlow, jdy, work, s):
-    """K25's one cooperative launch (K3 on v done before), as
-    `dense_jvp` makes it."""
-    prog, plan = dp.prog, dp.plan
-    lib = cuda.load()
-    rc = lib.ckpe_dense_jvp(
-        dp.items.data_ptr(), dp.phase_ptr.data_ptr(), plan.num_phases,
-        plan.max_phase, dp.table.data_ptr(), work.data_ptr(),
-        jdy.data_ptr(), None, prog.state_size, p.data_ptr(), low.data_ptr(),
-        v.data_ptr(), vlow.data_ptr(), dp.pair_num.data_ptr(),
-        dp.pair_den.data_ptr(), dp.pair_const.data_ptr(),
-        prog.w_num.shape[1], dp.csr_ptr.data_ptr(), prog.num_signatures,
-        s.data_ptr(), prog.size_a, prog.cl_k, cuda.stream(p))
-    cuda.check(rc, "K25 alone", lib)
-
-
 def iid_state(gen, a, k, tapes, dev):
     """A positive, marginally consistent state: on each tape the product
     of k draws of one random symbol distribution. Consistency keeps each
@@ -5661,8 +5663,11 @@ def jvp_against_plain(dev, gen, record):
     with a third of its windows zeroed (ties, dead contexts); the value
     path's dy equal to the RHS's (K5) bits; a central difference as the
     witness at the positive p, where no kink lies within its step
-    (`ratio_margin`); each call one K25 launch and K3 once a tape on v,
-    counted."""
+    (`ratio_margin`); each call one K25 launch, and K3 once a tape on v
+    in the grid form (none in the block and cluster forms, whose launch
+    forms v's levels), counted; K25 and K5 bit for bit in every form the
+    program can take (`dense.forms_for`), the levels of p given and made
+    in the call."""
     record["K25_fd"] = []
     for tag, k, dual in JVP_CASES:
         prog = (tdense.compile_dense_dual(tag, k) if dual
@@ -5670,6 +5675,15 @@ def jvp_against_plain(dev, gen, record):
         dp = tdense.device_program(prog, dev)
         n, a = prog.state_size, prog.size_a
         tapes = 1 + dual
+        chosen = dp.form
+        k3_jvp = 0 if chosen.fused_levels else tapes * \
+            tdense.pyramid_launches(a, k)
+        say(f"K25 {tag} cl_k {k}{' dual' if dual else ''}: the "
+            f"{tdense.form_name(chosen)} form "
+            f"({tdense.launch_elements(prog, dp.plan)} elements in the "
+            f"largest phase); a J v {1 + k3_jvp} launches (K25 1, K3 "
+            f"{k3_jvp}), a forward-mode dual call "
+            f"{1 + (0 if chosen.fused_levels else 2 * k3_jvp)}")
         for which in ("consistent", "skewed", "zeroed"):
             if which == "consistent":
                 p = iid_state(gen, a, k, tapes, dev)
@@ -5688,7 +5702,7 @@ def jvp_against_plain(dev, gen, record):
             zero_deriv_counts()
             jv = tdense.dense_jvp(dp, p, v, low)
             c = deriv_counts()
-            want = {"K25": 1, "K3": tapes * tdense.pyramid_launches(a, k)}
+            want = {"K25": 1, "K3": k3_jvp}
             if c["K25"] != 1 or c["K3"] != want["K3"] or c["plain"]:
                 raise AssertionError(f"{tag} cl_k {k}: launches {c}, want "
                                      f"{want}")
@@ -5702,6 +5716,21 @@ def jvp_against_plain(dev, gen, record):
                     and torch.equal(dy, rhs)):
                 raise AssertionError(f"K25 != plain on {tag} cl_k {k} "
                                      f"({which})")
+            for form in tdense.forms_for(dp):
+                dp.form = form
+                jv_f = tdense.dense_jvp(dp, p, v, low)
+                dy_f, jv_f2 = tdense.dense_jvp(dp, p, v, value=True)
+                rhs_f = tdense.dense_rhs(dp, p)
+                k5_f = tdense.sweep(dp, p, low)
+                torch.cuda.synchronize()
+                if not (torch.equal(jv_f, plain) and torch.equal(jv_f2, plain)
+                        and torch.equal(dy_f, rhs) and torch.equal(rhs_f, rhs)
+                        and torch.equal(k5_f, rhs)):
+                    raise AssertionError(
+                        f"{tag} cl_k {k} ({which}): K25 or K5 in the "
+                        f"{tdense.form_name(form)} form differs")
+                del jv_f, dy_f, jv_f2, rhs_f, k5_f
+            dp.form = chosen
             extra = ""
             if which != "zeroed":
                 eps = 1e-6
@@ -5734,7 +5763,9 @@ def jvp_against_plain(dev, gen, record):
                            .logical_and(lv[k] > 0).sum())
             say(f"K25 {tag} cl_k {k}{' dual' if dual else ''} ({n} states, "
                 f"{which}, {ties} ties at the last level): == plain bit for "
-                f"bit, dy == K5's{extra}; launches K25 1, K3 {c['K3']}")
+                f"bit, dy == K5's{extra}; launches K25 1, K3 {c['K3']}; "
+                f"K25 and K5 the same bits in the forms "
+                f"{[tdense.form_name(f) for f in tdense.forms_for(dp)]}")
             if (tag, k) in JVP_TIMED and which == "consistent" and not dual:
                 time_k25(dp, p, low, v, record)
             del p, v, low, jv, plain, dy, jv2, rhs
@@ -5758,6 +5789,48 @@ def jvp_against_plain(dev, gen, record):
         f"K25 ({c}), == plain bit for bit")
 
 
+def jvp_shapes(dev, record):
+    """K25 and K5 at every shape phase 14 launches them (`time_jvp.SHAPES`:
+    (c) ex4var2 cl_k 5, (d) ex2, ex1 and ex4var2 at cl_k 3 and ex2 at
+    cl_k 6, (e) ex2's parametric rule at cl_k 4, ex4 at cl_k 5 and 8), in
+    the chosen form and in the grid form: a J v call, K25 alone, K5
+    alone and an RHS call, device µs by CUDA events."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = []
+    for path, tag, k in time_jvp.SHAPES:
+        prog = tdense.compile_dense(tag, k)
+        dp = tdense.device_program(prog, dev)
+        p = time_jvp.positive_state(gen, prog.size_a, k, dev)
+        v = torch.randn(prog.state_size, generator=gen, device=dev,
+                        dtype=torch.float64) * p
+        low, vlow = tdense.pyramids(prog, p), tdense.pyramids(prog, v)
+        reps = 50 if prog.state_size < 10**6 else 5
+        chosen = dp.form
+        row = {"path": path, "tag": tag, "cl_k": k,
+               "form": tdense.form_name(chosen), "phases":
+               dp.plan.num_phases, "max_phase": dp.plan.max_phase,
+               "bound_ms": k25_bytes(dp) / HBM_BYTES_PER_S * 1e3}
+        for form in [chosen] + ([tdense.LaunchForm(0)] if chosen.kind
+                                else []):
+            dp.form = form
+            row[tdense.form_name(form)] = time_jvp.time_form(
+                tdense, cuda, dp, p, low, v, vlow, reps, False)
+        dp.form = chosen
+        out.append(row)
+        t = row[row["form"]]
+        g = row.get("grid", t)
+        say(f"step 0's shape {path} {tag} cl_k {k} ({prog.state_size} "
+            f"states, {dp.plan.num_phases} phases, {row['form']}): J v call "
+            f"{t['jvp_call_us']:.2f} us (grid {g['jvp_call_us']:.2f}), K25 "
+            f"alone {t['k25_us']:.2f} ({g['k25_us']:.2f}), K5 alone "
+            f"{t['k5_us']:.2f} ({g['k5_us']:.2f}), RHS call "
+            f"{t['rhs_call_us']:.2f} ({g['rhs_call_us']:.2f}); bound "
+            f"{row['bound_ms'] * 1e3:.3f} us")
+        del dp, p, v, low, vlow
+        torch.cuda.empty_cache()
+    record["K25_shapes"] = out
+
+
 def time_k25(dp, p, low, v, record):
     """K25 alone and with K3 on v, beside K5 at the same p, the bound and
     the plain version."""
@@ -5768,10 +5841,11 @@ def time_k25(dp, p, low, v, record):
                        device=p.device)
     s = torch.empty(2 * prog.num_signatures, dtype=torch.float64,
                     device=p.device)
-    k25_alone(dp, p, low, v, vlow, jdy, work, s)
+    tdense.bare_jvp(dp, p, low, v, vlow, jdy, work, s)
     if not torch.equal(jdy, tdense.dense_jvp(dp, p, v, low)):
         raise AssertionError("K25 alone != dense_jvp")
-    ms = cuda_ms(lambda: k25_alone(dp, p, low, v, vlow, jdy, work, s), 50)
+    ms = cuda_ms(lambda: tdense.bare_jvp(dp, p, low, v, vlow, jdy, work,
+                                         s), 50)
     call_ms = cuda_ms(lambda: tdense.dense_jvp(dp, p, v, low), 50)
     k5_ms = cuda_ms(lambda: tdense.sweep(dp, p, low), 50)
     rhs_ms = cuda_ms(lambda: tdense.dense_rhs(dp, p), 50)
@@ -5784,8 +5858,9 @@ def time_k25(dp, p, low, v, record):
         ms=ms, call_ms=call_ms, k5_ms=k5_ms, rhs_ms=rhs_ms,
         plain_ms=plain_ms, bound_ms=bound, paced_ms=paced,
         bytes=k25_bytes(dp))
-    say(f"K25 {tag} cl_k {k}: {ms * 1e3:.2f} us alone ({call_ms * 1e3:.2f} us "
-        f"with K3 on v, {paced * 1e3:.2f} us as the host paces the call), "
+    say(f"K25 {tag} cl_k {k} ({tdense.form_name(dp.form)}): {ms * 1e3:.2f} us "
+        f"alone ({call_ms * 1e3:.2f} us a J v call with v's levels, "
+        f"{paced * 1e3:.2f} us as the host paces the call), "
         f"K5 at the same p {k5_ms * 1e3:.2f} us (the RHS {rhs_ms * 1e3:.2f} "
         f"us); bound {bound * 1e3:.3f} us ({k25_bytes(dp) / 1e6:.3f} MB at "
         f"3.35 TB/s); plain {plain_ms:.2f} ms; library: none")
@@ -6179,6 +6254,7 @@ def deriv_phase(dev, kernels):
     gen = torch.Generator(device=dev).manual_seed(14)
     record = {"K25": 0.0}
     jvp_against_plain(dev, gen, record)
+    jvp_shapes(dev, record)
     aug_and_kvaerno_against_plain(dev, gen, record)
     stiff_runs(dev, record)
     steady_runs(dev, record)
@@ -6204,6 +6280,8 @@ def deriv_phase(dev, kernels):
         "paced_ms": t25["paced_ms"], "steady": steady,
         "central_difference": record["K25_fd"],
         "by_cl_k": {str(k): t for k, t in times25.items()},
+        "form": record["K25_shapes"][-2]["form"],
+        "by_shape": record["K25_shapes"],
         "correlations": record["correlations"]["launches"]["K25"]}
     kernels["K26"] = {
         "name": K26[0], "route": "cuda", "source": K26[1],
@@ -6483,8 +6561,15 @@ def ssa_past_limits(kind):
             tuple([25] * S))
 
 
-# K28 past a byte a site in a block's shared memory: the chain as bits.
+# K28 on long chains (87,008 bytes of shared memory a block).
 MC_LONG = dict(T=4, N=300_000, rounds=20, rs=25, steps=8)
+# K28's other forms, each against its plain version: 40 trials a round
+# (two round warps) on a ring whose last word is partial, one trial a
+# round, a ring below 64 sites (the count a site), a full warp of trials.
+MC_SHAPES = [dict(T=8, N=4_097, rounds=8, rs=40, steps=20),
+             dict(T=8, N=1_001, rounds=24, rs=1, steps=20),
+             dict(T=4, N=50, rounds=20, rs=25, steps=20),
+             dict(T=4, N=64, rounds=20, rs=32, steps=20)]
 
 
 def mc_block_z(counts, ref):
@@ -6561,10 +6646,31 @@ def mc_part(dev, record):
         raise AssertionError("K28 != plain")
     say(f"(b) K28 == plain bit for bit: {T} chains, {MC_CHECK_STEPS} steps, "
         f"counts and chains ({int((ck != chains0).sum())} sites flipped)")
-    # K28 on chains held as bits (past a byte a site in shared memory).
+    for c_ in MC_SHAPES:
+        ferromagnet.k28_check(c_["N"], c_["rounds"], c_["rs"])
+        x0 = (torch.rand((c_["T"], c_["N"]), generator=gen, device=dev)
+              < 0.3).to(torch.int32)
+        xshape = (c_["T"], c_["steps"], c_["rounds"], c_["rs"])
+        xs = torch.randint(0, c_["N"], xshape, generator=gen,
+                           dtype=torch.int32, device=dev)
+        xu = torch.rand(xshape, generator=gen, dtype=torch.float64,
+                        device=dev)
+        xk, xp = x0.clone(), x0.clone()
+        got = ferromagnet.metropolis(xk, xs, xu, thr, True)
+        want = ferromagnet.metropolis_plain(
+            xp, xs, xu, torch.as_tensor(thr, device=dev), True)
+        torch.cuda.synchronize()
+        err = max(err, int((got - want).abs().max()),
+                  int((xk - xp).abs().max()))
+        if not (torch.equal(got, want) and torch.equal(xk, xp)
+                and not torch.equal(xk, x0)):
+            raise AssertionError(f"K28 != plain at {c_}")
+        say(f"(b) K28 == plain bit for bit at {c_['T']} chains x {c_['N']} "
+            f"sites, {c_['steps']} steps of {c_['rounds']} rounds of "
+            f"{c_['rs']}: counts and chains")
+    # K28 on long chains.
     c_ = MC_LONG
-    if not ferromagnet.k28_bits(c_["N"], c_["rs"]):
-        raise AssertionError("K28 at MC_LONG does not take the bit chains")
+    ferromagnet.k28_check(c_["N"], c_["rounds"], c_["rs"])
     long0 = (torch.rand((c_["T"], c_["N"]), generator=gen, device=dev)
              < 0.3).to(torch.int32)
     lshape = (c_["T"], c_["steps"], c_["rounds"], c_["rs"])
@@ -6582,10 +6688,10 @@ def mc_part(dev, record):
         raise AssertionError("K28 on bit chains != plain")
     bits_ms = cuda_ms(lambda: ferromagnet.metropolis(
         long0.clone(), lsites, lu, thr, False), 3, warmup=1)
-    say(f"(b) K28 on bit chains == plain bit for bit: {c_['T']} chains x "
-        f"{c_['N']} sites ({ferromagnet._k28_bytes(c_['N'], c_['rs'], True)}"
-        f" bytes of shared memory a block, against "
-        f"{ferromagnet._k28_bytes(c_['N'], c_['rs'], False)} as bytes), "
+    say(f"(b) K28 on long chains == plain bit for bit: {c_['T']} chains x "
+        f"{c_['N']} sites "
+        f"({ferromagnet.k28_bytes(c_['N'], c_['rounds'], c_['rs'])}"
+        f" bytes of shared memory a block), "
         f"{c_['steps']} steps of {c_['rounds']} rounds of {c_['rs']}; "
         f"{bits_ms * 1e3 / c_['steps']:.3f} us a step")
     # K28 alone at the main path's launch (one chunk of steps).
@@ -6612,10 +6718,13 @@ def mc_part(dev, record):
                  f"sites, {MC_CHECK_STEPS} steps, counts and chains",
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
         "bound_by": "bytes", "library_ms": None, "steps_per_launch": chunk,
+        "us_a_step": ms * 1e3 / chunk,
+        "smem_bytes": ferromagnet.k28_bytes(N, rounds, rs),
+        "shapes_held": MC_SHAPES,
         "run_s": secs, "steps_per_s": steps / secs,
         "chain_steps_per_s": steps * T / secs, "largest_z": zmax,
         "p1_mc_over_analytic": mc_mean / an_mean,
-        "bit_chains": {**c_, "us_a_step": bits_ms * 1e3 / c_["steps"]}}
+        "long_chains": {**c_, "us_a_step": bits_ms * 1e3 / c_["steps"]}}
 
 
 def example_rows():

@@ -11,6 +11,7 @@ themselves run only on the card (`tests/test_torch_gpu.py`).
 """
 
 import ctypes
+import dataclasses
 import math
 import shutil
 import subprocess
@@ -1102,3 +1103,146 @@ def test_nan_entry_gives_nonfinite_dy():
     dp = fn.device_program
     assert not torch.isfinite(tdense.dy_dt_dense(
         dp, torch.as_tensor(p))).all()
+
+
+# --- K5's and K25's launch forms ------------------------------------------
+
+# The programs phase 14 of `chip_smoke.py` launches K25 on, by path: (c)
+# kvaerno3, (d) the steady states of `tests/test_steady.py`, (e)
+# `examples/ex2_correlations.py`; ex4 at cl_k 5.
+PHASE14_FORMS = {
+    ("ex4var2-chemical-turing", 5): "grid",  # (c)
+    ("ex2-ferromagnetic-chain", 3): "block",  # (d)
+    ("ex1-radioactive-decay", 3): "block",
+    ("ex4var2-chemical-turing", 3): "block",
+    ("ex2-ferromagnetic-chain", 6): "block",
+    ("ex2-ferromagnetic-chain-p", 4): "block",  # (e)
+    ("ex4-chemical-turing", 5): "grid",
+    ("ex4-chemical-turing", 4): "cluster",
+    ("ex6-mini-bff-lite", 2): "cluster",
+}
+
+
+@pytest.mark.parametrize("tag,cl_k", CASES + sorted(set(PHASE14_FORMS)
+                                                    - set(CASES)))
+def test_launch_form_chooser(tag, cl_k):
+    """`dense.launch_form` by a program's largest phase: one block of
+    1,024 threads up to `BLOCK_MOST` elements (a warp's lanes for each
+    signature counted), a cluster of 2 to 16 blocks of 1,024 (about four
+    elements a thread) where the plan's largest phase is up to
+    `CLUSTER_MOST`, else the grid; the form `device_program` stores; the
+    forms phase 14's programs and the cluster's two take; `forms_for`
+    lists the grid and the chosen form; the block and cluster forms need
+    no K3 launch an RHS."""
+    prog = tdense.compile_dense(tag, cl_k)
+    dp = tdense.device_program(prog, "cpu")
+    most = tdense.launch_elements(prog, dp.plan)
+    assert most == max(dp.plan.max_phase, 32 * prog.num_signatures)
+    form = dp.form
+    assert form == tdense.launch_form(prog, dp.plan)
+    if most <= tdense.BLOCK_MOST:
+        assert form == tdense.LaunchForm(1, 1)
+    elif dp.plan.max_phase <= tdense.CLUSTER_MOST:
+        assert form.kind == 2 and 2 <= form.blocks <= 16
+    else:
+        assert form == tdense.LaunchForm(0)
+    want = PHASE14_FORMS.get((tag, cl_k))
+    if want is not None:
+        assert tdense.LAUNCH_FORMS[form.kind] == want
+    forms = tdense.forms_for(dp)
+    assert forms[0] == tdense.LaunchForm(0) and form in forms
+    assert tdense.rhs_pyramid_launches(dp) == (
+        0 if form.kind else tdense.pyramid_launches(prog.size_a, cl_k))
+
+
+def test_launch_form_past_the_cluster():
+    """A plan past `CLUSTER_MOST` elements (ex4 at cl_k 5-8) takes the
+    cooperative grid, with K3 before it."""
+    prog = tdense.compile_dense("ex4-chemical-turing", 6)
+    plan = tdense.sweep_plan(prog)
+    assert plan.max_phase > tdense.CLUSTER_MOST
+    assert tdense.launch_form(prog, plan) == tdense.LaunchForm(0)
+    big = dataclasses.replace(plan, max_phase=43_046_721)
+    assert tdense.launch_form(prog, big).kind == 0
+
+
+_K5_HOST_LEVELS = r"""
+#include "sweep_rule.cuh"
+extern "C" void k5_host_levels(int a, int k, int tapes, const double* p,
+                               const double* v, double* low, double* vlow) {
+  K5CtxT<double> c = {};
+  c.a = a;
+  c.k = k;
+  k5_levels(c);
+  c.p = p;
+  c.v = v;
+  K5LevelOut o;
+  o.lv = low;
+  o.vlv = vlow;
+  o.tapes = tapes;
+  o.low_block = c.lv_off[0] + 2;
+  for (int j = k - 1; j >= 0; --j) {
+    const unsigned n = k5_level_count(c, o, j);
+    for (unsigned x = 0; x < n; ++x) k5_level_entry(c, o, j, x);
+    if (j == 0)
+      for (unsigned y = 0; y < k5_level_ways(o) * (unsigned)tapes; ++y)
+        k5_level_one(c, o, y);
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k5_host_levels(tmp_path_factory):
+    """The block and cluster forms' leading phases (`csrc/sweep_rule.cuh:
+    k5_level_entry`, `k5_level_one`), level after level, built with the
+    host's C++ compiler without contraction."""
+    cxx = next((c for c in (shutil.which(n) for n in ("g++", "c++",
+                                                      "clang++")) if c), None)
+    if cxx is None:
+        pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
+    out = tmp_path_factory.mktemp("k5levels")
+    (out / "levels.cpp").write_text(_K5_HOST_LEVELS)
+    lib = out / "liblevels.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(cuda.CSRC_DIR), "-o", str(lib),
+                    str(out / "levels.cpp")], check=True, capture_output=True,
+                   timeout=120)
+    fn = ctypes.CDLL(str(lib)).k5_host_levels
+    i, p = ctypes.c_int, ctypes.c_void_p
+    fn.argtypes = [i, i, i, p, p, p, p]
+    fn.restype = None
+    return fn
+
+
+@pytest.mark.parametrize("a,k,tapes,with_v", [
+    (2, 3, 1, True), (2, 6, 1, False), (10, 3, 1, True), (9, 5, 1, True),
+    (2, 13, 1, False), (5, 4, 2, True), (6, 3, 2, False), (3, 1, 1, True)])
+def test_in_launch_levels_match_pyramid_plain(k5_host_levels, a, k, tapes,
+                                              with_v):
+    """The levels a block- or cluster-form launch forms (of p, and of v
+    beside it) equal `pyramid_plain`'s bit for bit on every tape, the 1
+    above level 0 included: the same children summed in the same order.
+    A third of p's entries are exact zeros; v has both signs."""
+    rng = np.random.RandomState(a * 100 + k)
+    n = a**k
+    p = rng.dirichlet(np.ones(n) * 0.3, size=tapes)
+    p[rng.rand(tapes, n) < 1 / 3] = 0.0
+    v = rng.randn(tapes, n) * p
+    size = (n - 1) // (a - 1) + 1  # levels k - 1 .. 0, then the 1
+    low = np.full(tapes * size, np.nan)
+    vlow = np.full(tapes * size, np.nan)
+    k5_host_levels(a, k, tapes, p.ctypes.data,
+                   v.ctypes.data if with_v else None, low.ctypes.data,
+                   vlow.ctypes.data if with_v else None)
+    for t in range(tapes):
+        want = tdense.pyramid_plain(torch.as_tensor(p[t]), a, k).numpy()
+        assert want.size == size
+        np.testing.assert_array_equal(low[t * size:(t + 1) * size], want)
+        if with_v:
+            want_v = tdense.pyramid_plain(torch.as_tensor(v[t]), a,
+                                          k).numpy()
+            np.testing.assert_array_equal(vlow[t * size:(t + 1) * size],
+                                          want_v)
+    if not with_v:
+        assert np.isnan(vlow).all()

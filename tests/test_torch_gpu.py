@@ -313,15 +313,25 @@ def test_sweep_kernel_matches_plain(cuda, tag, cl_k):
     """K5 (one launch, the signature weights its phase 0) against the
     plain versions, on the same pyramid: each dy window's terms in the
     same order, so equal to the plain version's own rounding (its
-    scatters' atomics); two runs the same bits."""
+    scatters' atomics); two runs the same bits; in every launch form the
+    program can take (`dense.forms_for`: the grid, one block, a cluster,
+    the chosen form), each the others' bits, and `dense_rhs` (the levels
+    formed in the launch in the block and cluster forms) too."""
     prog, dp = _programs(tag, cl_k, cuda)
     p = torch.as_tensor(_spd(np.random.RandomState(2), prog.state_size),
                         device=cuda)
     low = tdense.pyramid_plain(p, prog.size_a, cl_k)
     s = tdense.signature_weights_plain(dp, p, low)
-    launches = tdense.sweep.launches
-    got = tdense.sweep(dp, p, low)
-    assert tdense.sweep.launches == launches + 1
+    chosen, by_form = dp.form, []
+    for form in tdense.forms_for(dp):
+        dp.form = form
+        launches = tdense.sweep.launches
+        by_form.append(tdense.sweep(dp, p, low))
+        assert tdense.sweep.launches == launches + 1
+        assert torch.equal(tdense.dense_rhs(dp, p), by_form[-1])
+    dp.form = chosen
+    got = by_form[-1]
+    assert all(torch.equal(x, got) for x in by_form)
     _close(got, tdense.sweep_plain(dp, p, low, s))
     # Into a caller's row (a solver's stage row): the same bits, nothing
     # else of the tensor touched.
@@ -382,8 +392,10 @@ def test_dense_rhs_on_card_matches_plain(cuda, tag, cl_k):
 
 @pytest.mark.parametrize("cl_k", [5, 6, 7, 8])
 def test_dense_rhs_launches_three_times(cuda, cl_k):
-    """ex4's RHS on the card: K3's two launches and K5's one (K4 is its
-    phase 0), counted, through one C call."""
+    """ex4's RHS on the card through one C call, counted: in the grid
+    form (cl_k 5-8) K3's two launches and K5's one (K4 is its phase 0);
+    in the block and cluster forms K5's one, its leading phases the
+    levels."""
     prog = tdense.compile_dense("ex4-chemical-turing", cl_k)
     fn = tdense.make_dense_dy_dt(prog, device=cuda)
     p = torch.full((prog.state_size,), 1.0 / prog.state_size,
@@ -393,7 +405,10 @@ def test_dense_rhs_launches_three_times(cuda, cl_k):
     torch.cuda.synchronize(cuda)
     got = (tdense.pyramid.launches - before[0],
            tdense.sweep.launches - before[1])
-    assert got == (2, 1) and tdense.pyramid_launches(9, cl_k) == 2
+    kind = fn.device_program.form.kind
+    assert kind == 0
+    assert got == ((0, 1) if kind else (2, 1))
+    assert tdense.pyramid_launches(9, cl_k) == 2
 
 
 def test_dense_rhs_on_two_streams_at_once(cuda):
@@ -634,7 +649,8 @@ def test_world_mass_kernel_matches_plain(cuda, case):
               tdense.world_mass.launches)
     dy, mass = fn(p)
     assert (tdense.pyramid.launches - counts[0], tdense.sweep.launches
-            - counts[1], tdense.world_mass.launches - counts[2]) == (1, 1, 1)
+            - counts[1], tdense.world_mass.launches - counts[2]) == (
+        tdense.rhs_pyramid_launches(fn.device_program), 1, 1)
     assert torch.equal(mass, tdense.world_mass_plain(
         dp, p, tdense.pyramid_plain(p, a, k)))
     assert torch.equal(dy, tdense.make_dense_dy_dt(prog, device=cuda)(p))
@@ -832,7 +848,7 @@ def test_dual_dense_rhs_on_card(cuda, tag):
     got = fn(y)
     assert (tdense.pyramid.launches - before[0],
             tdense.sweep.launches - before[1]) == (
-        2 * tdense.pyramid_launches(prog.size_a, 3), 1)
+        tdense.rhs_pyramid_launches(fn.device_program), 1)
     _close(got, tdense.dy_dt_dense(fn.device_program, y))
     _close(got, torch.cat(tree(y[:n], y[n:])))
     assert torch.equal(got, fn(y))
@@ -1799,20 +1815,74 @@ def _jvp_state(n, dev, zeroed, seed):
 def test_k25_matches_plain(cuda, tag, cl_k, dual):
     """K25 (`dense_jvp`) equals `dense_jvp_plain` bit for bit at a positive
     p and at one with zeroed windows, one K25 launch a call; its value
-    path's dy equals the RHS's (K5) bits."""
+    path's dy equals the RHS's (K5) bits; in every launch form the
+    program can take (`dense.forms_for`), each the others' bits, with p's
+    levels given and formed in the launch (low None)."""
     prog = (tdense.compile_dense_dual(tag, cl_k) if dual
             else tdense.compile_dense(tag, cl_k))
     dp = tdense.device_program(prog, cuda)
+    chosen = dp.form
     for zeroed in (False, True):
         p, v = _jvp_state(prog.state_size, cuda, zeroed, 25)
         low = tdense.pyramids(prog, p)
-        before = tdense.dense_jvp.launches
-        jv = tdense.dense_jvp(dp, p, v, low)
-        assert tdense.dense_jvp.launches == before + 1
-        assert torch.equal(jv, tdense.dense_jvp_plain(dp, p, v, low))
-        dy, jv2 = tdense.dense_jvp(dp, p, v, low, value=True)
-        assert torch.equal(jv2, jv)
-        assert torch.equal(dy, tdense.dense_rhs(dp, p))
+        want = tdense.dense_jvp_plain(dp, p, v, low)
+        for form in tdense.forms_for(dp):
+            dp.form = form
+            before = tdense.dense_jvp.launches
+            jv = tdense.dense_jvp(dp, p, v, low)
+            assert tdense.dense_jvp.launches == before + 1
+            assert torch.equal(jv, want), tdense.form_name(form)
+            dy, jv2 = tdense.dense_jvp(dp, p, v, value=True)
+            assert torch.equal(jv2, jv)
+            assert torch.equal(dy, tdense.dense_rhs(dp, p))
+        dp.form = chosen
+
+
+def _launch_calls(fn):
+    """The kernel launches ``fn`` makes, by the profiler's record of the
+    CUDA runtime's launch calls (cudaLaunchKernel, cudaLaunchKernelExC,
+    cudaLaunchCooperativeKernel), recorded as the host makes them; and
+    the names of the kernels the profiler saw run, for the message."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    calls = [e.name for e in events if e.name.startswith("cudaLaunch")]
+    kernels = [e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return calls, kernels
+
+
+@pytest.mark.parametrize("tag,cl_k,kind", [
+    ("ex2-ferromagnetic-chain", 3, 1), ("ex4var2-chemical-turing", 3, 1),
+    ("ex4-chemical-turing", 4, 2), ("ex6-mini-bff-lite", 2, 2)])
+def test_jvp_is_one_launch_in_fused_forms(cuda, tag, cl_k, kind):
+    """In the block and cluster forms a J.v is one launch, by the
+    profiler's count of the runtime's launch calls: `dense_jvp` with p's
+    levels given and made by the call (the forward-mode dual call's
+    case), and an RHS (`dense_rhs`) too; the grid form launches K3 before
+    K25."""
+    prog = tdense.compile_dense(tag, cl_k)
+    dp = tdense.device_program(prog, cuda)
+    assert dp.form.kind == kind
+    p, v = _jvp_state(prog.state_size, cuda, False, 7)
+    low = tdense.pyramids(prog, p)
+    for fn in (lambda: tdense.dense_jvp(dp, p, v, low),
+               lambda: tdense.dense_jvp(dp, p, v, value=True),
+               lambda: tdense.dense_rhs(dp, p)):
+        calls, kernels = _launch_calls(fn)
+        assert len(calls) == 1, (calls, kernels)
+    dp.form = tdense.LaunchForm(0)
+    calls, kernels = _launch_calls(lambda: tdense.dense_jvp(dp, p, v, low))
+    assert len(calls) == 1 + tdense.pyramid_launches(prog.size_a, cl_k), \
+        (calls, kernels)
 
 
 def test_k26_and_kvaerno_entries_match_plain(cuda):
@@ -1999,7 +2069,11 @@ def test_ssa_batch_tm_launches_k27(cuda):
     (1.0, -0.25, 500, 20, 50_000, 3),  # the example: 50 KB of chain
     (0.5, 0.3, 64, 8, 1000, 5),  # h > 0
     (0.3, -0.25, 24, 24, 999, 4),  # sequential: one trial a round
-    (0.4, -0.1, 30, 4, 333, 2)])  # 7 a round, 2 dropped
+    (0.4, -0.1, 30, 4, 333, 2),  # 7 a round, 2 dropped
+    (0.5, -0.25, 320, 8, 1001, 3),  # 40 a round: two round warps
+    (1.0, -0.25, 500, 20, 50, 3),  # a ring below 64: the count a site
+    (0.2, -0.1, 640, 20, 64, 2),  # 32 a round on a ring of 64
+    (1.0, -0.25, 500, 20, 4097, 2)])  # a partial last word
 @pytest.mark.parametrize("count_first", [True, False])
 def test_metropolis_kernel_matches_plain(cuda, J, h, trials, rounds, N, T,
                                          count_first):
@@ -2024,11 +2098,11 @@ def test_metropolis_kernel_matches_plain(cuda, J, h, trials, rounds, N, T,
 
 
 def test_metropolis_bit_chains_match_plain(cuda):
-    """K28 past a byte a site in shared memory (300,000 sites at 25
-    trials a round: the chain held as bits) against `metropolis_plain`:
-    counts and chains bit for bit."""
+    """K28 on long chains (300,000 sites at 25 trials a round, 87,168
+    bytes of shared memory a block) against `metropolis_plain`: counts
+    and chains bit for bit."""
     T, N, rounds, rs, steps = 2, 300_000, 20, 25, 6
-    assert ferromagnet.k28_bits(N, rs)
+    ferromagnet.k28_check(N, rounds, rs)
     gen = torch.Generator(device=cuda).manual_seed(29)
     chains = (torch.rand((T, N), generator=gen, device=cuda) < 0.3).to(
         torch.int32)

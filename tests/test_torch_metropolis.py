@@ -9,10 +9,12 @@ island counts of every step equal the JAX package's, and the final
 chains equal an independent sequential replay of the round rule
 (`_replay`). The six thresholds equal the JAX package's
 `_flip_acceptance` on every neighbourhood to an ulp of ``exp``. K28's rule
-(`csrc/metropolis_rule.cuh`, the block's phases in turn, built with the
-host's C++ compiler) gives the plain version's chains and counts bit for
-bit. Then the twins of the ferromagnet tests of `tests/test_models.py`
-(`:97`, `:107`, `:129`, `:135`).
+(`csrc/metropolis_rule.cuh`, built with the host's C++ compiler) gives
+the plain version's chains and counts bit for bit, run phase by phase
+on bytes and in the card's form (bits, the warp's conflict keys, the
+word count); the word count alone equals `island_counts_plain` on rings
+of every length class. Then the twins of the ferromagnet tests of
+`tests/test_models.py` (`:97`, `:107`, `:129`, `:135`).
 """
 
 import ctypes
@@ -130,14 +132,16 @@ def test_simulate_metropolis_matches_jax_draws(case):
     assert (chains.numpy() != chains0).any()
 
 
-_MC_HOST = '#include "metropolis_rule.cuh"\n'
+_MC_HOST = ('#include "metropolis_rule.cuh"\n'
+            'extern "C" unsigned mc_mask(const int* s, int n, int N, int i) '
+            '{ return mc_conflict_mask(s, n, N, i); }\n')
 
 
 @pytest.fixture(scope="module")
 def mc_lib(tmp_path_factory):
-    """K28's rule (`csrc/metropolis_rule.cuh`: the block's phases in turn
-    for each chain, on a chain of bytes and on one of bits) built with
-    the host's C++ compiler."""
+    """K28's rule (`csrc/metropolis_rule.cuh`: the rule's phases in turn
+    for each chain on a chain of bytes, the card's form on one of bits,
+    and the word count alone) built with the host's C++ compiler."""
     cxx = next((c for c in (shutil.which(n) for n in ("g++", "c++",
                                                       "clang++")) if c), None)
     if cxx is None:
@@ -154,6 +158,10 @@ def mc_lib(tmp_path_factory):
     for fn in (lib.mc_host_run, lib.mc_host_run_bits):
         fn.argtypes = [i, i, i, i, p, p, p, p, i, i, i, p]
         fn.restype = i
+    lib.mc_host_count_words.argtypes = [i, i, p, p]
+    lib.mc_host_count_words.restype = i
+    lib.mc_mask.argtypes = [p, i, i, i]
+    lib.mc_mask.restype = ctypes.c_uint
     return lib
 
 
@@ -194,13 +202,21 @@ def test_metropolis_rule_matches_plain(mc_host, case, count_first, threads,
     np.testing.assert_array_equal(host_chains, plain_chains.numpy())
 
 
-@pytest.mark.parametrize("N", [5, 301, 1000])
-def test_metropolis_bits_rule_matches_plain(mc_lib, N):
-    """K28's rule on a chain held as bits (the form the card takes past a
-    byte a site in shared memory: `mc_host_run_bits`, `McBits`) against
+@pytest.mark.parametrize("N,trials,rounds", [
+    pytest.param(5, 32, 8, id="5"), pytest.param(301, 32, 8, id="301"),
+    pytest.param(1000, 32, 8, id="1000"),
+    pytest.param(1000, 320, 8, id="1000-rs40"),
+    pytest.param(333, 16, 16, id="333-rs1"),
+    pytest.param(97, 500, 20, id="97-rs25")])
+def test_metropolis_bits_rule_matches_plain(mc_lib, N, trials, rounds):
+    """K28's rule in the card's form (`mc_host_run_bits`: the chain as
+    bits, `McBits`; a trial a lane of one warp with the conflicts by
+    `mc_conflict_mask`'s keys where rs <= 32, every earlier trial past
+    it; the islands by `mc_count_word` from 64 sites) against
     `metropolis_plain` on the same draws: chains and counts bit for bit,
-    on rings that end inside a word and on one of 5 sites."""
-    J, h, beta, trials, rounds = CASES[sorted(CASES)[0]]
+    on rings that end inside a word, on one of 5 sites, at 40 trials a
+    round (two warps' worth), one, and the example's 25."""
+    J, h, beta = CASES[sorted(CASES)[0]][:3]
     rs = trials // rounds
     T, steps = 3, 10
     gen = torch.Generator().manual_seed(11)
@@ -223,17 +239,56 @@ def test_metropolis_bits_rule_matches_plain(mc_lib, N):
     assert (host_chains != chains.numpy()).any()
 
 
+@pytest.mark.parametrize("N", [1, 2, 5, 6, 7, 31, 32, 33, 63, 64, 65, 97,
+                               1000, 50_000])
+def test_word_count_matches_plain(mc_lib, N):
+    """The card's island count (`mc_count_word`: a 32-bit word at a time,
+    the starts of exact-length up-runs as masks, the ring's last partial
+    word and its wrap; `mc_island_site` below 64 sites) equals
+    `island_counts_plain` on all-zero and all-one rings, rings of sparse
+    and dense random islands, and rings whose runs cross every word
+    boundary (period 33)."""
+    rng = np.random.RandomState(N)
+    rows = [np.zeros(N), np.ones(N)]
+    rows += [rng.rand(N) < q for q in (0.2, 0.5, 0.8, 0.95)]
+    rows.append(np.arange(N) % 33 < 5)
+    chains = np.stack(rows).astype(np.int32)
+    got = np.zeros((len(rows), 6), dtype=np.int32)
+    assert mc_lib.mc_host_count_words(len(rows), N, chains.ctypes.data,
+                                      got.ctypes.data) == 0
+    want = ferromagnet.island_counts_plain(torch.as_tensor(chains)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_metropolis_conflict_keys_match_distance(mc_lib):
+    """`mc_conflict_mask`'s keys (s >> 1, (s + 1) >> 1, the ring's two
+    ends) pick exactly the earlier trials within circular distance 1, on
+    rings of 1 to 70 sites, crowded rounds of 32 trials included."""
+    rng = np.random.RandomState(3)
+    for N in list(range(1, 12)) + [31, 32, 33, 64, 70]:
+        for _ in range(20):
+            s = rng.randint(0, N, 32).astype(np.int32)
+            for i in range(32):
+                got = mc_lib.mc_mask(s.ctypes.data, 32, N, i)
+                d = np.abs(s[:i].astype(int) - int(s[i]))
+                d = np.minimum(d, N - d)
+                want = sum(1 << j for j in np.flatnonzero(d <= 1))
+                assert got == want, (N, i)
+
+
 def test_k28_holds_long_chains_as_bits():
-    """K28's form by the geometry alone: a byte a site up to the block's
-    shared memory (the example's 50,000 sites; about 231,000 at 25
-    trials a round), bits past it (300,000 sites), an error past both."""
-    assert not ferromagnet.k28_bits(50_000, 25)
-    assert not ferromagnet.k28_bits(231_000, 25)
-    assert ferromagnet.k28_bits(232_000, 25)
-    assert ferromagnet.k28_bits(300_000, 25)
-    assert ferromagnet._k28_bytes(300_000, 25, True) == 37_504 + 125
+    """K28's one form, bits, by the geometry alone: the chain and its
+    snapshot as words beside two buffers of a step's draws and conflict
+    masks (24,672 bytes at the example's 50,000 sites and 20 rounds of
+    25; 87,168 at 300,000 sites), fitting a block up to about 877,000
+    sites there, an error past it."""
+    assert ferromagnet.k28_bytes(50_000, 20, 25) == 2 * 6_256 + 12_160
+    assert ferromagnet.k28_bytes(300_000, 20, 25) == 2 * 37_504 + 12_160
+    assert ferromagnet.k28_bytes(1000, 8, 40) == 2 * 128 + 24 * 320 + 48
+    for N in (50_000, 300_000, 877_000):
+        ferromagnet.k28_check(N, 20, 25)
     with pytest.raises(ValueError, match="at most"):
-        ferromagnet.k28_bits(2_000_000, 25)
+        ferromagnet.k28_check(2_000_000, 20, 25)
 
 
 def test_island_counts_match_stats():
