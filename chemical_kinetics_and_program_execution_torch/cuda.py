@@ -199,10 +199,10 @@ def load() -> ctypes.CDLL:
     k25 = k5[:7] + [_P] + k5[7:10] + [_P, _P] + k5[10:]
     lib.ckpe_dense_jvp.argtypes = k25
     lib.ckpe_dense_jvp_rhs.argtypes = [_I, _I, _I] + k25
-    # ckpe_steady_aug(x, n, a, k, cons_w, n_c, c_norm, mode, partial,
-    #                 out, stream)
-    lib.ckpe_steady_aug.argtypes = [_P, _L, _I, _I, _P, _I, _D, _I, _P, _P,
-                                    _P]
+    # ckpe_steady_aug(x, a, k, cons_w, n_c, c_norm, mode, f, cst, ww, mask,
+    #                 keep, form, low, scratch, out, stream)
+    lib.ckpe_steady_aug.argtypes = [_P, _I, _I, _P, _I, _D, _I, _P, _P, _P,
+                                    _P, _P, _I, _P, _P, _P, _P]
     # ckpe_tree_rhs(p, low, n_state, a, k, pair_num, pair_den, pair_const,
     #               chain, csr_ptr, n_sig, s, dict_num, dict_den, n_dict,
     #               ratio, levels, n_levels, nv, ev, ent, tgt_ptr, n_tgt, dy,
@@ -271,14 +271,17 @@ def load() -> ctypes.CDLL:
     # ckpe_gather_pair(p, d, parent, K, L, out_p, out_d, flag, out_flag,
     #                  stream)
     lib.ckpe_gather_pair.argtypes = [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P]
-    # ckpe_frontier_rank(p, d, lw, site, K, L, p_lo, n_p, d_lo, n_d, rows,
-    #                    M, pv, out_log, out_world, wr_mask, wr_val,
-    #                    rows_out, child, stream)
-    lib.ckpe_frontier_rank.argtypes = [_P] * 4 + [_I] * 8 + [_P] * 8
-    # ckpe_frontier_write(p, d, out_p, out_d, rows, idx, vals, site, K, L,
-    #                     p_lo, n_p, d_lo, n_d, rows, M, pv, out_log,
-    #                     out_world, wr_mask, wr_val, new_lw, stream)
-    lib.ckpe_frontier_write.argtypes = [_P] * 8 + [_I] * 8 + [_P] * 7
+    # ckpe_k22_workspace_bytes(K, M)
+    lib.ckpe_k22_workspace_bytes.argtypes = [_L, _I]
+    lib.ckpe_k22_workspace_bytes.restype = _L
+    # ckpe_k22_rank(p, d, lw, site, K, L, p_lo, n_p, d_lo, n_d, rows, M,
+    #               pv, out_log, out_world, wr_mask, wr_val, rows_out,
+    #               child, ws, new_lw, stream)
+    lib.ckpe_k22_rank.argtypes = [_P] * 4 + [_I] * 8 + [_P] * 10
+    # ckpe_k22_keep(p, d, out_p, out_d, rows, child, site, K, L, p_lo,
+    #               n_p, d_lo, n_d, rows, M, pv, out_log, out_world,
+    #               wr_mask, wr_val, ws, new_lw, stream)
+    lib.ckpe_k22_keep.argtypes = [_P] * 7 + [_I] * 8 + [_P] * 8
     # ckpe_ssa_rounds(order, stoich, rates, R, S, net_buf, is_double, u, B,
     #                 E, t_state, n_state, t_out, n_out, stream)
     lib.ckpe_ssa_net_bytes.argtypes = []
@@ -306,8 +309,7 @@ def load() -> ctypes.CDLL:
                  "ckpe_bitplanes_pack", "ckpe_bitplanes_unpack",
                  "ckpe_weighted_counts", "ckpe_bff_rounds", "ckpe_bff_mutate",
                  "ckpe_content_hash", "ckpe_merge_resample",
-                 "ckpe_gather_pair", "ckpe_frontier_rank",
-                 "ckpe_frontier_write",
+                 "ckpe_gather_pair", "ckpe_k22_rank", "ckpe_k22_keep",
                  "ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
                  "ckpe_dense_jvp", "ckpe_dense_jvp_rhs", "ckpe_steady_aug",
                  "ckpe_k6_resid",

@@ -28,8 +28,11 @@ Kernels (`csrc/frontier.cu`, built by `cuda.py`):
 - **K21** `gather_pair` — both tapes' rows (and a flag) of each slot's
   parent.
 - **K22** `frontier_step` — one step of the per-step beam: each member's
-  table row and children's weights, then (M > 1, after a stable
-  descending library sort) each slot's parent rows and writes.
+  table row and children's weights (at M = 1 its window written in
+  place, the weights shifted by their maximum), then at M > 1 a
+  hand-written top K (a radix select and a stable LSD radix sort of the
+  kept, `csrc/beam_rule.cuh`) and each slot's parent rows with its
+  writes. `BeamBuffers` holds a run's buffers.
 
 Each wrapper runs its plain PyTorch version (``*_plain``) for CPU
 tensors only; for a CUDA tensor it launches the kernel or raises. Each
@@ -1009,44 +1012,79 @@ def _k22_table_args(dtable, out_log):
             dtable.wr_val.data_ptr())
 
 
-def frontier_step(dtable, out_log, ptape, dtape, lw, sites, k: int):
+class BeamBuffers:
+    """K22's buffers for a run of the per-step beam at K members, L
+    cells and M outcomes on one card: the rows and children, the
+    select's and the sort's workspace (`csrc/frontier.cu:k22_ws`), and
+    two pairs of tapes and two weight vectors that the steps take in
+    turn, so a step allocates nothing."""
+
+    def __init__(self, K: int, L: int, M: int, device):
+        lib = cuda.load()
+        i8, f64 = torch.int8, torch.float64
+        self.K, self.L, self.M = K, L, M
+        self.rows = torch.empty(K, dtype=torch.int32, device=device)
+        self.child = torch.empty(K * M, dtype=f64, device=device)
+        self.ws = torch.empty(int(lib.ckpe_k22_workspace_bytes(K, M)),
+                              dtype=torch.uint8, device=device)
+        self.lws = [torch.empty(K, dtype=f64, device=device)
+                    for _ in range(2)]
+        self.tapes = ([(torch.empty((K, L), dtype=i8, device=device),
+                        torch.empty((K, L), dtype=i8, device=device))
+                       for _ in range(2)] if M > 1 else [])
+
+    def lw_out(self, lw):
+        """The weight buffer that is not ``lw``."""
+        return self.lws[1] if lw.data_ptr() == self.lws[0].data_ptr() \
+            else self.lws[0]
+
+    def tapes_out(self, ptape):
+        """The pair of tapes that is not ``ptape``'s."""
+        return self.tapes[1] if ptape.data_ptr() == \
+            self.tapes[0][0].data_ptr() else self.tapes[0]
+
+
+def frontier_step(dtable, out_log, ptape, dtape, lw, sites, k: int,
+                  bufs: BeamBuffers | None = None):
     """K22: step ``k`` of the per-step beam at the shared site
     ``sites[k]`` (int32 on the tapes' device, read there). At M = 1 the
-    tapes are updated in place; at M > 1 the K*M children are ranked by a
-    stable descending sort and the top K written into new tapes. Returns
-    (ptape, dtape, new_lw) with new_lw's largest entry 0."""
+    tapes are updated in place; at M > 1 the top K of the K*M children
+    (in a stable descending sort's order) are written into new tapes.
+    Returns (ptape, dtape, new_lw) with new_lw's largest entry 0. On a
+    card the step's outputs lie in ``bufs`` (new buffers when None): two
+    C calls at M > 1 (the rank; the select, the order and the write),
+    one at M = 1; int8 tapes and float64 weights."""
     K, L = ptape.shape
     M = out_log.shape[1]
     if not cuda.on_card(ptape, "frontier_step"):
         return frontier_step_plain(dtable, out_log, ptape, dtape, lw,
                                    sites[k])
-    dev = ptape.device
-    rows = torch.empty(K, dtype=torch.int32, device=dev)
-    child = torch.empty((K, M), dtype=torch.float64, device=dev)
+    if ptape.dtype != torch.int8 or dtape.dtype != torch.int8 or \
+            lw.dtype != torch.float64:
+        raise TypeError("K22 takes int8 tapes and float64 weights")
+    if bufs is None:
+        bufs = BeamBuffers(K, L, M, ptape.device)
+    lib = cuda.load()
+    st = cuda.stream(ptape)
     site = sites[k:k + 1]
     tab = _k22_table_args(dtable, out_log)
-    lib = cuda.load()
-    with torch.cuda.device(dev):
-        rc = lib.ckpe_frontier_rank(
+    new_lw = bufs.lw_out(lw)
+    with torch.cuda.device(ptape.device):
+        rc = lib.ckpe_k22_rank(
             ptape.data_ptr(), dtape.data_ptr(), lw.data_ptr(),
-            site.data_ptr(), int(K), int(L), *tab, rows.data_ptr(),
-            child.data_ptr(), cuda.stream(ptape))
+            site.data_ptr(), K, L, *tab, bufs.rows.data_ptr(),
+            bufs.child.data_ptr(), bufs.ws.data_ptr(), new_lw.data_ptr(), st)
     cuda.check(rc, "frontier_step (rank)", lib)
     frontier_step.launches += 1
     if M == 1:
-        top = child[:, 0]
-        return ptape, dtape, top - top.max()
-    vals, idx = torch.sort(child.reshape(-1), descending=True, stable=True)
-    vals, idx = vals[:K].contiguous(), idx[:K].contiguous()
-    op, od = torch.empty_like(ptape), torch.empty_like(dtape)
-    new_lw = torch.empty(K, dtype=torch.float64, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.ckpe_frontier_write(
+        return ptape, dtape, new_lw
+    op, od = bufs.tapes_out(ptape)
+    with torch.cuda.device(ptape.device):
+        rc = lib.ckpe_k22_keep(
             ptape.data_ptr(), dtape.data_ptr(), op.data_ptr(), od.data_ptr(),
-            rows.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-            site.data_ptr(), int(K), int(L), *tab, new_lw.data_ptr(),
-            cuda.stream(ptape))
-    cuda.check(rc, "frontier_step (write)", lib)
+            bufs.rows.data_ptr(), bufs.child.data_ptr(), site.data_ptr(), K,
+            L, *tab, bufs.ws.data_ptr(), new_lw.data_ptr(), st)
+    cuda.check(rc, "frontier_step (keep)", lib)
     frontier_step.launches += 1
     return op, od, new_lw
 
@@ -1084,8 +1122,11 @@ def run_weighted_frontier_from_draws(tapes, logw, dtable, sites, top_k: int,
     sites = torch.as_tensor(sites, dtype=torch.int32, device=dev).contiguous()
     out_log = _out_log(dtable).contiguous()
     M = out_log.shape[1]
+    bufs = BeamBuffers(K, L, M, dev) if cuda.on_card(
+        pt, "run_weighted_frontier") else None
     for k in range(sites.shape[0]):
-        pt, dt_, lw = frontier_step(dtable, out_log, pt, dt_, lw, sites, k)
+        pt, dt_, lw = frontier_step(dtable, out_log, pt, dt_, lw, sites, k,
+                                    bufs)
         if merge_every and M > 1 and k % merge_every == merge_every - 1:
             h = content_hash(pt, dt_, stride=1, bits=8)
             lw = _merge_weights_inplace(h, lw)

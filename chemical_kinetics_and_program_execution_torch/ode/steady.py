@@ -10,10 +10,13 @@ augmented system (its module docstring gives the why) is
 C the consistency defect, c_j the lifted conserved functionals, so that
 J_G v = J v - L(v): the J.v is forward mode through the RHS
 (`krylov.jvp`; kernel K25 for the port's dense RHS), L is kernel K26 (`steady_aug`,
-`csrc/steady_aug.cu`, after K3 on x) with its plain version
-`steady_aug_plain`. In support mode (``conserved="support"``) dead
+`csrc/steady_aug.cu`: one launch that forms x's levels itself in one
+block up to 10,000 entries, else two after K3 on x) with
+its plain version `steady_aug_plain`; K26 also takes the callers'
+arithmetic (F - L + constant, J v - L), so a G or a J_G v is the RHS or
+J v and one K26 call. In support mode (``conserved="support"``) dead
 windows are pinned to 0, L keeps its C^T C x term and adds W^T W x, a
-plain product.
+plain product, and K26 applies the mask.
 
 `make_steady_state`'s solve is the PTC loop of the JAX package's
 `:330-402` driven from the host: GMRES (`ode/krylov.py`) on ``(I - delta
@@ -136,19 +139,36 @@ def detect_conserved_marginals(fn, size_a: int, cl_k: int, args=None,
 # --- K26: the augmentation's linear map -------------------------------------
 
 _FULL, _CTC = 0, 1  # modes of `steady_aug`
+_SMEM_DOUBLES = 232_448 // 8  # a block's shared memory (227 KB), doubles
+AUG_FORMS = ("split", "block")  # `csrc/steady_aug.cu:kForm*`
+# The block form's most entries: `time_beam_aug.py` on an H100 80GB HBM3
+# at 700 W timed it faster than the split form at 10^4 (10.1 us against
+# 12.8) and slower at 4^7 = 16,384 (15.2 against 13.7).
+AUG_BLOCK_MOST = 10_000
 
 
-def steady_aug_plain(x: torch.Tensor, a: int, k: int, cons_w: torch.Tensor,
-                     c_norm: float, mode: int = _FULL) -> torch.Tensor:
-    """Plain version of K26: L(x) = C^T C x + (sum x)/S + sum_j c_j (c_j^T
-    x) (``mode`` 0), or C^T C x alone (``mode`` 1), each sum in K26's
-    order (`csrc/steady_aug.cu`): the levels of x as K3's plain version
-    forms them, the leading-digit sums in digit order, the conserved
-    values and their embedding summed from 0 in index order, every
-    division by a 0-d tensor (a CUDA tensor divided by a Python number
-    is multiplied by its reciprocal)."""
-    steady_aug_plain.calls += 1
-    x = x.reshape(-1)
+def block_doubles(a: int, k: int) -> int:
+    """Doubles of shared memory K26's block form takes at x [a^k]
+    (`csrc/steady_aug.cu:block_doubles`): x, its levels k-1 .. 0, the
+    defects, emb and lv[0] / S."""
+    n = a**k
+    return n + (n - 1) // (a - 1) + n // a + a + 1
+
+
+def aug_forms(a: int, k: int) -> list:
+    """Every launch form K26 can take at x [a^k]: the split form, and
+    the block where x and its levels fit its shared memory."""
+    return ["split"] + (["block"] if block_doubles(a, k) <= _SMEM_DOUBLES
+                        else [])
+
+
+def aug_form(a: int, k: int) -> str:
+    """K26's form for x [a^k]: one block where it fits and x has at most
+    `AUG_BLOCK_MOST` entries, else the split form."""
+    return aug_forms(a, k)[-1] if a**k <= AUG_BLOCK_MOST else "split"
+
+
+def _map_plain(x, a, k, cons_w, c_norm, mode):
     n = a**k
     tail = n // a
     low = pyramid_plain(x, a, k)
@@ -173,32 +193,98 @@ def steady_aug_plain(x: torch.Tensor, a: int, k: int, cons_w: torch.Tensor,
     return (out + div(low[below - 1], n)) + emb[i // tail]
 
 
+def steady_aug_plain(x: torch.Tensor, a: int, k: int, cons_w: torch.Tensor,
+                     c_norm: float, mode: int = _FULL, *, f=None,
+                     const=None, ww=None, mask=None,
+                     keep=None) -> torch.Tensor:
+    """Plain version of K26: L(x) = C^T C x + (sum x)/S + sum_j c_j (c_j^T
+    x) (``mode`` 0), or C^T C x alone (``mode`` 1), each sum in K26's
+    order (`csrc/steady_aug.cu`): the levels of x as K3's plain version
+    forms them, the leading-digit sums in digit order, the conserved
+    values and their embedding summed from 0 in index order, every
+    division by a 0-d tensor (a CUDA tensor divided by a Python number
+    is multiplied by its reciprocal). Then the callers' arithmetic, as
+    they compose it, each step where its input is given: L + ``ww``,
+    ``f`` - L, + ``const``, ``torch.where(mask, ., keep)``."""
+    steady_aug_plain.calls += 1
+    out = _map_plain(x.reshape(-1), a, k, cons_w, c_norm, mode)
+    if ww is not None:
+        out = out + ww
+    if f is not None:
+        out = f - out
+    if const is not None:
+        out = out + const
+    if mask is not None:
+        out = torch.where(mask, out, keep)
+    return out
+
+
 steady_aug_plain.calls = 0
 
 
+def _vector(t, n, device, name):
+    if t is None:
+        return None
+    t = t.reshape(-1).to(device=device, dtype=torch.float64).contiguous()
+    if t.numel() != n:
+        raise TypeError(f"{name} must have {n} entries")
+    return t
+
+
 def steady_aug(x: torch.Tensor, a: int, k: int, cons_w: torch.Tensor,
-               c_norm: float, mode: int = _FULL) -> torch.Tensor:
+               c_norm: float, mode: int = _FULL, *, f=None, const=None,
+               ww=None, mask=None, keep=None,
+               bufs: dict | None = None) -> torch.Tensor:
     """K26: L(x) (see `steady_aug_plain`) for a float64 x [a^k], with
-    ``cons_w`` [n_c, a] on x's device; on a card K3 on x, then K26's two
-    launches from one C call, on the CPU the plain version."""
+    ``cons_w`` [n_c, a] on x's device, and the callers' arithmetic on it
+    where its inputs are given (``mask`` bool [a^k] with ``keep``). On a
+    card one C call in the form `aug_form` picks: one launch in the block
+    form; K3, then two launches in the split form, whose
+    levels and defects go to ``bufs`` (a dict the caller keeps between
+    calls; new buffers when None). On the CPU the plain version."""
     if not cuda.on_card(x, "steady_aug"):
-        return steady_aug_plain(x, a, k, cons_w, c_norm, mode)
+        return steady_aug_plain(x, a, k, cons_w, c_norm, mode, f=f,
+                                const=const, ww=ww, mask=mask, keep=keep)
     n = a**k
     x = x.reshape(-1)
     if x.dtype != torch.float64 or x.numel() != n:
         raise TypeError(f"x must be a float64 [{n}] tensor")
+    if (mask is None) != (keep is None):
+        raise TypeError("mask and keep go together")
+    dev = x.device
     x = x.contiguous()
-    w = cons_w.to(device=x.device, dtype=torch.float64).contiguous()
-    low = pyramid(x, a, k)
-    scratch = torch.empty(n // a + a + 1, dtype=torch.float64,
-                          device=x.device)
+    w = cons_w.to(device=dev, dtype=torch.float64).contiguous()
+    f, const, ww, keep = (_vector(t, n, dev, name) for t, name in
+                          ((f, "f"), (const, "const"), (ww, "ww"),
+                           (keep, "keep")))
+    if mask is not None:
+        mask = mask.reshape(-1).to(device=dev, dtype=torch.bool).contiguous()
+        if mask.numel() != n:
+            raise TypeError(f"mask must have {n} entries")
+    form = aug_form(a, k)
+    low = scratch = None
+    if form == "split":
+        bufs = {} if bufs is None else bufs
+        if bufs.get("n") != (n, dev):
+            bufs["n"] = (n, dev)
+            bufs["low"] = pyramid(x, a, k)
+            bufs["scratch"] = torch.empty(n // a + a + 1,
+                                          dtype=torch.float64, device=dev)
+        else:
+            pyramid(x, a, k, out=bufs["low"])
+        low, scratch = bufs["low"], bufs["scratch"]
     out = torch.empty_like(x)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     lib = cuda.load()
-    with torch.cuda.device(x.device):
-        rc = lib.ckpe_steady_aug(x.data_ptr(), low.data_ptr(), a, k,
-                                 w.data_ptr(), w.shape[0], float(c_norm),
-                                 mode, scratch.data_ptr(), out.data_ptr(),
-                                 cuda.stream(x))
+    with torch.cuda.device(dev):
+        rc = lib.ckpe_steady_aug(
+            x.data_ptr(), a, k, w.data_ptr(), w.shape[0], float(c_norm),
+            mode, ptr(f), ptr(const), ptr(ww), ptr(mask), ptr(keep),
+            AUG_FORMS.index(form), ptr(low), ptr(scratch), out.data_ptr(),
+            cuda.stream(x))
     cuda.check(rc, "steady_aug", lib)
     steady_aug.launches += 1
     return out
@@ -224,6 +310,7 @@ class Augmentation:
         self.fn, self.a, self.k = fn, size_a, cl_k
         self.device = device
         self.mask = None
+        self._bufs = {}  # K26's split-form buffers, kept between calls
         self.support = isinstance(conserved, str) and conserved == "support"
         f64 = torch.float64
         if size_a is None:
@@ -258,13 +345,22 @@ class Augmentation:
     def has_conserved(self) -> bool:
         return self.a is not None and self.cons_w.shape[0] > 0
 
+    def _aug(self, x, f=None, const=None, keep=None):
+        """One K26 call: L(x), or ``f`` - L(x) (+ ``const``), and in
+        support mode L(x) = C^T C x + W^T W x (a library product first)
+        with ``keep`` off the support."""
+        if self.support:  # K26's mode 1 reads no weights
+            return steady_aug(
+                x, self.a, self.k, self.cons_w[:0, :self.a], 1.0, _CTC, f=f,
+                const=const, ww=self.cons_w.T @ (self.cons_w @ x),
+                mask=None if keep is None else self.mask, keep=keep,
+                bufs=self._bufs)
+        return steady_aug(x, self.a, self.k, self.cons_w, self.c_norm, f=f,
+                          const=const, bufs=self._bufs)
+
     def linear(self, x: torch.Tensor) -> torch.Tensor:
         """L(x): K26, and in support mode W^T W x besides."""
-        if self.support:  # K26's mode 1 reads no weights
-            return (steady_aug(x, self.a, self.k, self.cons_w[:0, :self.a],
-                               1.0, _CTC)
-                    + self.cons_w.T @ (self.cons_w @ x))
-        return steady_aug(x, self.a, self.k, self.cons_w, self.c_norm)
+        return self._aug(x)
 
     def cons_vals(self, p: torch.Tensor) -> torch.Tensor:
         if self.support:
@@ -301,9 +397,10 @@ class Augmentation:
         the masked p and p itself off the support."""
         if self.a is None:
             return self.fn(p, args)
-        pm = p if self.mask is None else torch.where(self.mask, p, 0.0)
-        out = (self.fn(pm, args) - self.linear(pm)) + const
-        return out if self.mask is None else torch.where(self.mask, out, p)
+        if self.mask is None:
+            return self._aug(p, self.fn(p, args), const)
+        pm = torch.where(self.mask, p, 0.0)
+        return self._aug(pm, self.fn(pm, args), const, keep=p)
 
     def jvp(self, p, v, args):
         """J_G v = J v - L(v) (masked in support mode)."""
@@ -315,8 +412,7 @@ class Augmentation:
         jv = jvp(lambda q: self.fn(q, args), p, vm)
         if self.a is None:
             return jv
-        out = jv - self.linear(vm)
-        return out if self.mask is None else torch.where(self.mask, out, v)
+        return self._aug(vm, jv, keep=None if self.mask is None else v)
 
 
 def make_steady_state(fn, *, size_a: int | None = None,

@@ -237,7 +237,12 @@ Phases (each prints its wall time; every check raises on failure):
    sampling circuit) with its peak memory, and the same checks; (c)
    `bench_frontier_per_step`'s geometry (K=10^6, L=32, 50 steps) on
    ex5's table (M = 1) and ex2's (M = 2), one K22 step each equal to
-   its plain version; (d) examples/ex2_ensemble_crosscheck.py's frontier
+   its plain version bit for bit from the run's weights, from uniform
+   ones and after a weight-only merge, the step's kernels by the
+   profiler (no library sort or top-k), its split (rank, select, order,
+   write) beside the parent design's and, at M = 2, `torch.sort` and
+   `torch.topk` of the K*M children; (d)
+   examples/ex2_ensemble_crosscheck.py's frontier
    through the port (K=8192, L=128, E=4, 4 seeds x 40 snapshots of 32
    rounds) against the exact closure by the port's `solve`, the
    example's gate (worst relative deviation of the seed mean < 0.10);
@@ -311,11 +316,17 @@ Phases (each prints its wall time; every check raises on failure):
    closure; K25 alone beside K5 at the same p, its bound, its plain
    version; K25 and K5 at every shape of `time_jvp.py` (the phase's own
    programs) in the chosen and the grid form, a J v call, K25 alone, K5
-   alone and an RHS call; (b) K26 (both modes) and K6's Kvaerno entries
-   (both swap
-   states) against their plain versions bit for bit at ex4var2 cl_k 5's
-   size, their largest errors recorded, timed, stage g4 beside
-   `torch.addmv`; (c) `solve(method="kvaerno3")` on ex4var2 at cl_k 5
+   alone and an RHS call; (b) K26 at (d)'s and (e)'s programs' sizes
+   and at n = 100,000 in every launch form each size can take (one
+   block where it fits, the split form after K3), both modes, the
+   callers' arithmetic fused (f - L + const, the support mask) and not,
+   against its plain version bit for bit; in the chosen form
+   (`steady.aug_form`) its kernels a call by the profiler (one in the
+   block form), µs a call beside its byte bound; K6's
+   Kvaerno entries (both swap states) against their plain versions bit
+   for bit at ex4var2 cl_k 5's size, their largest errors recorded,
+   timed, stage g4 beside `torch.addmv`; (c)
+   `solve(method="kvaerno3")` on ex4var2 at cl_k 5
    from `chemical_turing_v2_p0(5)` to t = 10 (5 samples) within
    tests/test_ode.py:326's bounds of the port's DOP853, K25 launched
    once a J v of the solver's count, its steps, Newton iterations and J v
@@ -449,6 +460,7 @@ from chemical_kinetics_and_program_execution_torch.ops import thermo as tth
 from chemical_kinetics_and_program_execution_torch.ops.observables import (
     seq_prob_projector,
 )
+import time_beam_aug
 import time_jvp
 from card_timing import cuda_ms, k2_tapes
 
@@ -4235,6 +4247,15 @@ FR_STRIDE = FR_L // FR_E
 FR_K_A, FR_BLOCKS_A = 1_000_000, 6     # (a), bench.py:326-333
 FR_K_B, FR_BLOCKS_B = 10_000_000, 3    # (b), config 5, bench.py:645-658
 FR_K_C, FR_L_C, FR_STEPS_C = 1_000_000, 32, 50  # (c), bench.py:363-392
+# K22's split a step at (c) in the parent design (a thread a member ranks,
+# a library sort, a thread a slot writes byte by byte), ms, by
+# time_beam_aug.py on an H100 80GB HBM3 at 700 W: M = 1 (ex5's table),
+# M = 2 (ex2's). Printed beside this run's split, never in the kernels
+# line: this run does not measure it.
+K22_PARENT_SPLIT = {False: {"rank": 0.09432, "max and shift": 0.01437},
+                    True: {"rank": 0.03532, "sort": 0.33467,
+                           "allocations and slices": 0.00034,
+                           "write": 0.73019}}
 FR_WRAPPERS = {"K19": tfr.content_hash, "K20": tfr.merge_resample,
                "K21": tfr.gather_pair, "K22": tfr.frontier_step,
                "K11t": tfr.tempered_round, "K11": ens.lattice_round,
@@ -4289,6 +4310,28 @@ def frontier_path(label, fn):
     if plain:
         raise AssertionError(f"path {label}: plain calls {plain}")
     return result, seconds, launches, start.elapsed_time(end)
+
+
+def launch_record(fn):
+    """One call of ``fn`` by torch.profiler, after an untraced call and a
+    traced warm-up: the CUDA runtime's launch calls as the host makes
+    them (cudaLaunchKernel, cudaLaunchKernelExC, ...), and the names of
+    the kernels and memsets the profiler saw run on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=acts):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    return ([e.name for e in events if e.name.startswith("cudaLaunch")],
+            [e.name for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA])
 
 
 def need_launches(label, launches, names):
@@ -4820,31 +4863,72 @@ def frontier_phase(dev, kernels):
             f"L={FR_L_C}, {FR_STEPS_C} steps: {ms / FR_STEPS_C:.3f} ms a "
             f"step, {FR_K_C * FR_STEPS_C / (ms * 1e-3):.4e} branch-steps/s; "
             f"launches {la}; {sec:.3f} s")
-        # One step against its plain version, and K22 alone.
+        # One step against its plain version from the run's weights, from
+        # uniform ones (whole groups of children tie) and after a
+        # weight-only merge (weights out of order), and K22 alone.
         out_log = tfr._out_log(tab).contiguous()
         p8, d8 = p2.to(torch.int8), d2.to(torch.int8)
         sites = torch.randint(0, FR_L_C, (1,), generator=gen, device=dev,
                               dtype=torch.int32)
-        k = tfr.frontier_step(tab, out_log, p8.clone(), d8.clone(),
-                              lw2.clone(), sites, 0)
-        want = tfr.frontier_step_plain(tab, out_log, p8.clone(), d8.clone(),
-                                       lw2.clone(), sites[0])
-        if not diff("K22", list(zip(k, want))):
-            raise AssertionError(f"K22 != plain on {tag}")
-        say(f"(c) {tag}: one K22 step == plain bit for bit")
+        uniform = torch.full_like(lw2, -math.log(FR_K_C))
+        merged = tfr._merge_weights_inplace(
+            tfr.content_hash(p8, d8, stride=1, bits=8), lw2)
+        for start, w0 in (("the run's weights", lw2), ("uniform", uniform),
+                          ("after a merge", merged)):
+            k = tfr.frontier_step(tab, out_log, p8.clone(), d8.clone(),
+                                  w0.clone(), sites, 0)
+            want = tfr.frontier_step_plain(tab, out_log, p8.clone(),
+                                           d8.clone(), w0.clone(), sites[0])
+            if not diff("K22", list(zip(k, want))):
+                raise AssertionError(f"K22 != plain on {tag} ({start})")
+            say(f"(c) {tag}: one K22 step == plain bit for bit from "
+                f"{start}")
+            del k, want
         # At M = 1 the step runs in place: the timed steps go on from the
         # last one's tapes.
+        bufs = tfr.BeamBuffers(FR_K_C, FR_L_C, M, dev)
         step_ms = cuda_ms(lambda: tfr.frontier_step(
-            tab, out_log, p8, d8, lw2, sites, 0), 10)
+            tab, out_log, p8, d8, lw2, sites, 0, bufs), 10)
         step_plain = cuda_ms(lambda: tfr.frontier_step_plain(
             tab, out_log, p8, d8, lw2, sites[0]), 3)
-        times[f"K22 {tag}"] = {
-            "ms": step_ms, "plain_ms": step_plain,
-            "bound_ms": step_bytes(tab, FR_K_C, FR_L_C) / HBM_BYTES_PER_S
-            * 1e3, "bound_by": "bytes", "library_ms": None}
-        say(f"K22 {tag}: {step_ms:.4f} ms a step (the sort of M > 1 "
-            f"included), bound {times[f'K22 {tag}']['bound_ms']:.4f} ms")
-        del pt, dt, lw, p2, d2, lw2, p8, d8, k, want, tab
+        split = {name: us * 1e-3 for name, us in time_beam_aug.k22_split(
+            lambda: tfr.frontier_step(tab, out_log, p8, d8, lw2, sites, 0,
+                                      bufs)).items()}
+        t = {"ms": step_ms, "plain_ms": step_plain,
+             "bound_ms": step_bytes(tab, FR_K_C, FR_L_C) / HBM_BYTES_PER_S
+             * 1e3, "bound_by": "bytes", "library_ms": None,
+             "split_ms": split}
+        if M > 1:
+            child = tfr.frontier_rank_plain(tab, out_log, p8.clone(),
+                                            d8.clone(), lw2,
+                                            sites[0])[1].reshape(-1)
+            t["library_ms"] = cuda_ms(lambda: torch.topk(child, FR_K_C), 10)
+            t["torch_sort_ms"] = cuda_ms(lambda: torch.sort(
+                child, descending=True, stable=True), 10)
+            del child
+        calls, names = launch_record(lambda: tfr.frontier_step(
+            tab, out_log, p8, d8, lw2, sites, 0, bufs))
+        foreign = [n for n in names if "k22_" not in n and "Memset" not in n]
+        if foreign or not names:
+            raise AssertionError(f"K22's step on {tag} ran {foreign or names}")
+        t["kernels_a_step"] = len(names)
+        times[f"K22 {tag}"] = t
+        say(f"K22 {tag}: {len(names)} kernels a step by the profiler, none "
+            f"a library sort or top-k")
+        say(f"K22 {tag}: {step_ms:.4f} ms a step, bound "
+            f"{t['bound_ms']:.4f} ms; split (ms, the kernels' device time "
+            "by the profiler) "
+            + (", ".join(f"{n} {v:.4f}" for n, v in split.items())
+               or "not measured (the profiler saw no kernel)")
+            + "; the parent design's, not measured in this run (step 0: "
+            "time_beam_aug.py on the parent, H100 80GB HBM3, 700.00 W) "
+            + ", ".join(f"{n} {v:.4f}" for n, v in
+                        K22_PARENT_SPLIT[M > 1].items())
+            + (f"; torch.sort of the {M * FR_K_C} children "
+               f"{t['torch_sort_ms']:.4f}, torch.topk "
+               f"{t['library_ms']:.4f}" if M > 1 else ""))
+        del bufs, uniform, merged
+        del pt, dt, lw, p2, d2, lw2, p8, d8, tab
         torch.cuda.empty_cache()
 
     # (d) and (e): the examples' and the tests' gates.
@@ -5553,6 +5637,9 @@ DERIV_PLAIN = [tdense.dense_jvp_plain, tdense.sweep_plain,
                tsteady.steady_aug_plain, dop853.resid_plain, *dop853.PLAIN]
 
 
+AUG_FORM = tsteady.aug_form  # K26's chooser, restored after each swap
+
+
 def deriv_counts():
     return {"K25": tdense.dense_jvp.launches, "K26": tsteady.steady_aug.launches,
             "K3": tdense.pyramid.launches, "K5": tdense.sweep.launches,
@@ -5866,52 +5953,92 @@ def time_k25(dp, p, low, v, record):
         f"3.35 TB/s); plain {plain_ms:.2f} ms; library: none")
 
 
-def aug_and_kvaerno_against_plain(dev, gen, record):
-    """(b) K26 (both modes) and K6's third table (rows 26-30, both swap
-    states; the Newton and error sums; the residual) against their plain
-    versions bit for bit at ex4var2 cl_k 5's size, twice the same bits,
-    the largest error of each recorded; each timed beside its bound and
-    plain version, and stage g4 beside `torch.addmv`."""
-    a, k = 10, KV_CL_K
+# K26's shapes: (label, a, k): phase 14's (d) and (e) programs (the
+# kernels line's: ex4var2 at cl_k 3), then n = 100,000 (ex4var2 at cl_k 5).
+K26_SHAPES = [("(d) ex2 and ex1 cl_k 3", 2, 3), ("(d) ex2 cl_k 6", 2, 6),
+              ("(d) ex4var2 cl_k 3 (support)", 10, 3),
+              ("(e) ex2's parametric rule cl_k 4", 2, 4),
+              ("n = 100,000", 10, 5)]
+
+
+def k26_shape(dev, gen, record, label, a, k):
+    """K26 at x [a^k] in every launch form it can take, both modes, the
+    callers' arithmetic fused or not, against its plain version bit for
+    bit (twice the same bits); then in the form `aug_form` chooses: the
+    kernels a call runs (profiler), µs a call of L(x) and of the fused G
+    (f - L + const) beside their byte bounds and the plain version."""
     n = a**k
-    x = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    x, f, cst, ww, keep = (torch.randn(n, generator=gen, device=dev,
+                                       dtype=torch.float64) for _ in range(5))
+    mask = torch.rand(n, generator=gen, device=dev) < 0.7
     w = torch.linalg.qr(torch.randn(a, 2, generator=gen, device=dev,
                                     dtype=torch.float64))[0].T.contiguous()
     c_norm = float(a) ** ((k - 1) / 2.0)
-    err26 = 0.0
-    for mode in (0, 1):
-        got = tsteady.steady_aug(x, a, k, w, c_norm, mode)
-        again = tsteady.steady_aug(x, a, k, w, c_norm, mode)
-        want = tsteady.steady_aug_plain(x, a, k, w, c_norm, mode)
-        err26 = max(err26, float((got - want).abs().max()),
-                    float((again - want).abs().max()))
-        if not (torch.equal(got, want) and torch.equal(got, again)):
-            raise AssertionError(f"K26 mode {mode} != plain")
-    record["K26"] = err26
-    low = tdense.pyramid(x, a, k)
-    scratch = torch.empty(n // a + a + 1, dtype=torch.float64, device=dev)
-    out = torch.empty_like(x)
-
-    def k26_alone():
-        lib = cuda.load()
-        rc = lib.ckpe_steady_aug(x.data_ptr(), low.data_ptr(), a, k,
-                                 w.data_ptr(), 2, c_norm, 0,
-                                 scratch.data_ptr(), out.data_ptr(),
-                                 cuda.stream(x))
-        cuda.check(rc, "K26 alone", lib)
-
-    k26_bytes = 8 * (2 * n + low.numel())
-    t = dict(ms=cuda_ms(k26_alone, 100),
-             call_ms=cuda_ms(lambda: tsteady.steady_aug(x, a, k, w, c_norm),
-                             100),
+    cases = [(0, {}), (0, dict(f=f, const=cst)), (0, dict(f=f)), (1, {}),
+             (1, dict(f=f, const=cst, ww=ww, mask=mask, keep=keep)),
+             (1, dict(f=f, ww=ww, mask=mask, keep=keep))]
+    chosen = tsteady.aug_form(a, k)
+    forms = tsteady.aug_forms(a, k)
+    try:
+        for form in forms:
+            tsteady.aug_form = lambda a_, k_, f_=form: f_
+            bufs = {}
+            for mode, kw in cases:
+                got = tsteady.steady_aug(x, a, k, w, c_norm, mode, bufs=bufs,
+                                         **kw)
+                again = tsteady.steady_aug(x, a, k, w, c_norm, mode,
+                                           bufs=bufs, **kw)
+                want = tsteady.steady_aug_plain(x, a, k, w, c_norm, mode,
+                                                **kw)
+                record["K26"] = max(record["K26"],
+                                    float((got - want).abs().max()),
+                                    float((again - want).abs().max()))
+                if not (torch.equal(got, want) and torch.equal(again, want)):
+                    raise AssertionError(f"K26 {label} {form} mode "
+                                         f"{mode} {sorted(kw)} != plain")
+    finally:
+        tsteady.aug_form = AUG_FORM
+    bufs = {}
+    k3 = tdense.pyramid.launches
+    calls, names = launch_record(lambda: tsteady.steady_aug(
+        x, a, k, w, c_norm, bufs=bufs))
+    if chosen == "block" and (len(calls) != 1 or
+                              tdense.pyramid.launches != k3):
+        raise AssertionError(f"K26 {label} ({chosen}): {calls} {names}, "
+                             f"K3 {tdense.pyramid.launches - k3}")
+    t = dict(label=label, n=n, form=chosen, kernels=len(calls),
+             forms_checked=forms,
+             ms=cuda_ms(lambda: tsteady.steady_aug(x, a, k, w, c_norm,
+                                                   bufs=bufs), 100),
+             fused_ms=cuda_ms(lambda: tsteady.steady_aug(
+                 x, a, k, w, c_norm, f=f, const=cst, bufs=bufs), 100),
              plain_ms=cuda_ms(lambda: tsteady.steady_aug_plain(
                  x, a, k, w, c_norm), 3, warmup=1),
-             bound_ms=k26_bytes / HBM_BYTES_PER_S * 1e3, bytes=k26_bytes)
-    record["K26_times"] = t
-    say(f"K26 (n = {n}, 2 conserved weights) == plain bit for bit in both "
-        f"modes, twice: {t['ms'] * 1e3:.2f} us alone (two launches), "
-        f"{t['call_ms'] * 1e3:.2f} us with K3 on x; bound "
-        f"{t['bound_ms'] * 1e3:.2f} us; plain {t['plain_ms']:.3f} ms")
+             bound_ms=16 * n / HBM_BYTES_PER_S * 1e3,
+             fused_bound_ms=32 * n / HBM_BYTES_PER_S * 1e3)
+    say(f"K26 {label} (n = {n}): == plain bit for bit in the forms "
+        f"{t['forms_checked']}, both modes, fused and not; "
+        f"{chosen}: {len(calls)} launch(es) a call {names}, L(x) "
+        f"{t['ms'] * 1e3:.2f} us (bound {t['bound_ms'] * 1e3:.3f}), fused "
+        f"G {t['fused_ms'] * 1e3:.2f} us (bound "
+        f"{t['fused_bound_ms'] * 1e3:.3f}); plain {t['plain_ms']:.3f} ms")
+    return t
+
+
+def aug_and_kvaerno_against_plain(dev, gen, record):
+    """(b) K26 at `K26_SHAPES` (`k26_shape`) and K6's third table (rows
+    26-30, both swap states; the Newton and error sums; the residual)
+    against their plain versions bit for bit at ex4var2 cl_k 5's size,
+    twice the same bits,
+    the largest error of each recorded; each timed beside its bound and
+    plain version, and stage g4 beside `torch.addmv`."""
+    n = 10**KV_CL_K
+    out = torch.empty(n, dtype=torch.float64, device=dev)
+    record["K26"] = 0.0
+    record["K26_shapes"] = [k26_shape(dev, gen, record, *sh)
+                            for sh in K26_SHAPES]
+    # The kernels line's: (d)'s most launched program, ex4var2 cl_k 3.
+    record["K26_times"] = record["K26_shapes"][2]
     y, y_new, dz, f, g = (torch.randn(n, generator=gen, device=dev,
                                       dtype=torch.float64) for _ in range(5))
     ks = dop853.rows_tensor(4, n, dev)
@@ -6288,10 +6415,13 @@ def deriv_phase(dev, kernels):
         "replaces": K26[2],
         "launches": sum(v["K26"] for v in steady.values())
         + record["correlations"]["launches"]["K26"],
-        "max_abs_err": record["K26"], "match": "bit-identical, both modes",
+        "max_abs_err": record["K26"],
+        "match": "bit-identical in every launch form, both modes, the "
+                 "callers' arithmetic fused and not",
         "ms": t26["ms"], "plain_ms": t26["plain_ms"],
         "bound_ms": t26["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "with_k3_ms": t26["call_ms"]}
+        "library_ms": None, "form": t26["form"],
+        "by_shape": record["K26_shapes"]}
     k6 = record["K6_times"]
     kernels["K6_kvaerno"] = {
         "name": K6_KV[0], "route": "cuda", "source": K6_KV[1],

@@ -592,6 +592,169 @@ def test_per_step_beam_matches_jax(tag):
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-12)
 
 
+# K22's top K as the card's launches run it, in turn: the radix select's
+# passes (stopping where a pass's keys are one key), the compaction by
+# tiles of K22_TILE (counts, their scan, each key's place), the LSD passes
+# by tiles (digit-major counts, their scan, the stable scatter), on the
+# rules of `csrc/beam_rule.cuh`.
+_K22_HOST = r"""
+#include <vector>
+#include "beam_rule.cuh"
+extern "C" int k22_host_top(const double* child, long long N, int K,
+                            int* out_idx) {
+  std::vector<uint64_t> key(N);
+  for (long long i = 0; i < N; ++i) key[i] = k22_desc_key(child[i]);
+  K22Sel s = {0, (unsigned)K, 0, 0, 0};
+  for (unsigned pass = 0; pass < K22_PASSES && !s.done; ++pass) {
+    unsigned hist[K22_BINS] = {0};
+    uint64_t lo = ~0ULL, hi = 0;
+    for (long long i = 0; i < N; ++i)
+      if (k22_in_pass(key[i], s, pass)) {
+        ++hist[k22_digit(key[i], pass)];
+        lo = key[i] < lo ? key[i] : lo;
+        hi = key[i] > hi ? key[i] : hi;
+      }
+    s = lo == hi ? k22_select_single(s, hi) : k22_select_step(s, hist, pass);
+  }
+  const long long tn = (N + K22_TILE - 1) / K22_TILE;
+  std::vector<unsigned> lt(tn + 1, 0), eq(tn + 1, 0);
+  for (long long i = 0; i < N; ++i) {
+    const int c = k22_kept_class(key[i], s);
+    lt[i / K22_TILE + 1] += c == 1;
+    eq[i / K22_TILE + 1] += c == 2;
+  }
+  for (long long t = 0; t < tn; ++t) {
+    lt[t + 1] += lt[t];
+    eq[t + 1] += eq[t];
+  }
+  std::vector<uint64_t> kk[2] = {std::vector<uint64_t>(K),
+                                 std::vector<uint64_t>(K)};
+  std::vector<int> ki[2] = {std::vector<int>(K), std::vector<int>(K)};
+  uint64_t all_and = ~0ULL, all_or = 0;
+  long long kept = 0;
+  for (long long t = 0; t < tn; ++t) {
+    unsigned a = lt[t], e = eq[t];
+    for (long long i = t * K22_TILE; i < N && i < (t + 1) * K22_TILE; ++i) {
+      const int c = k22_kept_class(key[i], s);
+      if (c == 1 || (c == 2 && e < s.need)) {
+        const unsigned pos = a + (e < s.need ? e : s.need);
+        if (pos >= (unsigned)K) return 1;
+        kk[0][pos] = key[i];
+        ki[0][pos] = (int)i;
+        all_and &= key[i];
+        all_or |= key[i];
+        ++kept;
+      }
+      a += c == 1;
+      e += c == 2;
+    }
+  }
+  if (kept != K) return 2;
+  const long long tk = (K + K22_TILE - 1) / K22_TILE;
+  for (unsigned pass = 0; pass < K22_PASSES; ++pass) {
+    if (!k22_varying(all_and, all_or, pass)) continue;
+    const unsigned par = k22_parity(all_and, all_or, pass);
+    std::vector<unsigned> cnt(K22_BINS * tk, 0);
+    for (long long i = 0; i < K; ++i)
+      ++cnt[k22_lsd_digit(kk[par][i], pass) * tk + i / K22_TILE];
+    unsigned run = 0;
+    for (auto& c : cnt) {
+      const unsigned x = c;
+      c = run;
+      run += x;
+    }
+    for (long long i = 0; i < K; ++i) {
+      const unsigned pos =
+          cnt[k22_lsd_digit(kk[par][i], pass) * tk + i / K22_TILE]++;
+      kk[par ^ 1][pos] = kk[par][i];
+      ki[par ^ 1][pos] = ki[par][i];
+    }
+  }
+  const unsigned fin = k22_parity(all_and, all_or, K22_PASSES);
+  for (long long i = 0; i < K; ++i) out_idx[i] = ki[fin][i];
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def k22_host(tmp_path_factory):
+    """K22's top K (`csrc/beam_rule.cuh` in the launches' sequence) built
+    with the host's C++ compiler."""
+    cxx = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)),
+               None)
+    if cxx is None:
+        pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
+    out = tmp_path_factory.mktemp("k22")
+    (out / "k22.cpp").write_text(_K22_HOST)
+    lib = out / "libk22.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-I", str(cuda.CSRC_DIR), "-o", str(lib),
+                    str(out / "k22.cpp")], check=True, capture_output=True,
+                   timeout=120)
+    fn = ctypes.CDLL(str(lib)).k22_host_top
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _beam_children(case, rng):
+    """(child [K*M], K): the K*M children lw[b] + out_log[row, m] of a
+    beam step at rows drawn from a table of 16 rows (some outcomes of
+    probability 0), in the cases the card's top K must order as the
+    stable descending sort does."""
+    K, M = {"block": (4099, 2), "tie_across_tiles": (5000, 2),
+            "three_outcomes": (3001, 3)}.get(case, (2500, 2))
+    out_log = np.log(rng.dirichlet(np.ones(M), size=16))
+    out_log[rng.random((16, M)) < 0.2] = -np.inf
+    rows = rng.integers(0, 16, K)
+    if case == "uniform":  # whole groups tie
+        lw = np.full(K, -math.log(K))
+    elif case == "presorted":  # a step's output: non-increasing
+        lw = -np.sort(rng.exponential(2.0, K))
+        lw -= lw[0]
+    elif case == "after_merge":  # out of order, dropped slots at -inf
+        lw = -np.sort(rng.exponential(2.0, K))
+        lw[rng.random(K) < 0.3] = -np.inf
+        lw = rng.permutation(lw)
+    elif case == "tie_across_tiles":
+        # the K-th key inside one value that spans the tiles' boundary at
+        # 4096 (children 3000-5999 all equal, the first 2,600 of them
+        # kept); the rest above or below
+        lw = np.where(np.arange(K) < 1200, 0.0, -5.0)
+        lw[1500:3000] = -1.0
+        out_log[:] = np.log(0.5)
+    else:  # "block", "three_outcomes": rounded weights, many ties
+        lw = np.round(-rng.exponential(1.0, K), 1)
+    child = (lw[:, None] + out_log[rows]).reshape(-1)
+    return child, K
+
+
+@pytest.mark.parametrize("case", ["uniform", "presorted", "after_merge",
+                                  "block", "tie_across_tiles",
+                                  "three_outcomes"])
+def test_k22_top_k_rule_matches_stable_sort(k22_host, case):
+    """K22's select and order (`csrc/beam_rule.cuh`, g++) keep the first
+    K of `torch.sort(stable=True, descending=True)` of the children, in
+    its order: uniform start weights (whole groups tie), -inf children,
+    weights a merge left out of order, presorted runs, K not a multiple
+    of the tiles (4099), a K-th key whose ties span a tile boundary, and
+    three outcomes a member."""
+    rng = np.random.default_rng(["uniform", "presorted", "after_merge",
+                                 "block", "tie_across_tiles",
+                                 "three_outcomes"].index(case))
+    child, K = _beam_children(case, rng)
+    got = np.zeros(K, dtype=np.int32)
+    assert k22_host(child.ctypes.data, child.size, K, got.ctypes.data) == 0
+    want = torch.sort(torch.as_tensor(child), descending=True,
+                      stable=True)[1][:K].numpy()
+    np.testing.assert_array_equal(got, want)
+    if case == "tie_across_tiles":
+        assert want[-1] == 5599
+        assert child[want[-1]] == child[4095] == child[4096] == child[5600]
+
+
 def _ex2_exact(cl_k, p0, t_end):
     fn = trhs.make_dy_dt(compile_problem("ex2-ferromagnetic-chain", cl_k),
                          device=CPU)

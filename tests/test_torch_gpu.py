@@ -1562,25 +1562,44 @@ def test_gather_pair_kernel_matches_plain(cuda, L, flagged):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("start,L", [("normal", 32), ("uniform", 32),
+                                     ("merge", 32), ("normal", 48),
+                                     ("normal", 30)])
 @pytest.mark.parametrize("tag", TAGS)
-def test_frontier_step_kernel_matches_plain(cuda, tag):
+def test_frontier_step_kernel_matches_plain(cuda, tag, start, L):
     """K22 over 12 steps of the per-step beam equals its plain version
-    on the card: tapes bit for bit and weights bit for bit."""
+    on the card: tapes bit for bit and weights bit for bit; from random
+    weights, from uniform ones (whole groups of children tie), and with
+    half the members duplicated and a weight-only merge after step 6
+    (weights out of order, dropped slots at -inf); rows of 32 and 48
+    bytes (16-byte vectors) and 30 (bytes); the kernel's steps in one
+    run's buffers (the tapes double-buffered)."""
     tab = tens.device_table(tens.compile_transition_table(tag), device=cuda)
     rng = np.random.RandomState(4)
-    K, L, steps = 4099, 32, 12
+    K, steps = 4099, 12
     pt, dt = _frontier_tapes(rng, K, L, tab.size_a, cuda)
-    lw = torch.as_tensor(rng.normal(size=K), device=cuda)
+    if start == "merge":
+        pt[1::2], dt[1::2] = pt[0:-1:2].clone(), dt[0:-1:2].clone()
+    lw = (torch.full((K,), -math.log(K), dtype=torch.float64, device=cuda)
+          if start == "uniform" else
+          torch.as_tensor(rng.normal(size=K), device=cuda))
     sites = torch.as_tensor(rng.randint(0, L, steps), dtype=torch.int32,
                             device=cuda)
     out_log = tfr._out_log(tab).contiguous()
+    bufs = tfr.BeamBuffers(K, L, out_log.shape[1], cuda)
     k = (pt.clone(), dt.clone(), lw.clone())
     p = (pt.clone(), dt.clone(), lw.clone())
     for s in range(steps):
-        k = tfr.frontier_step(tab, out_log, *k, sites, s)
+        k = tfr.frontier_step(tab, out_log, *k, sites, s, bufs)
         p = tfr.frontier_step_plain(tab, out_log, *p, sites[s])
         for a, b in zip(k, p):
-            assert torch.equal(a, b), (tag, s)
+            assert torch.equal(a, b), (tag, start, s)
+        if start == "merge" and s == 5:
+            h = tfr.content_hash(k[0], k[1], stride=1, bits=8)
+            k = (k[0], k[1], tfr._merge_weights_inplace(h, k[2]))
+            p = (p[0], p[1], tfr._merge_weights_inplace(h, p[2]))
+            if out_log.shape[1] > 1:
+                assert bool(torch.isinf(k[2]).any())
 
 
 @pytest.mark.parametrize("tag", ["ex2-ferromagnetic-chain",
@@ -1883,6 +1902,71 @@ def test_jvp_is_one_launch_in_fused_forms(cuda, tag, cl_k, kind):
     calls, kernels = _launch_calls(lambda: tdense.dense_jvp(dp, p, v, low))
     assert len(calls) == 1 + tdense.pyramid_launches(prog.size_a, cl_k), \
         (calls, kernels)
+
+
+# (a, k): phase 14's (d) and (e) programs (ex2 and ex1 at cl_k 3, ex2 at
+# cl_k 6, ex4var2 at cl_k 3, ex2's parametric rule at cl_k 4), n =
+# 100,000 (ex4var2 at cl_k 5) and the largest x the block form holds
+# (4^7, where the split form is chosen).
+_K26_SHAPES = [(2, 3), (2, 6), (10, 3), (2, 4), (10, 5), (4, 7)]
+
+
+@pytest.mark.parametrize("a,k", _K26_SHAPES)
+def test_k26_forms_match_plain(cuda, monkeypatch, a, k):
+    """K26 in every launch form it can take equals its plain version bit
+    for bit, both modes, the callers' arithmetic fused or not (f - L +
+    const; f - L; support mode's L + ww, f - L + const and the mask's
+    where), twice the same bits."""
+    from chemical_kinetics_and_program_execution_torch.ode import steady
+
+    g = torch.Generator(device=cuda).manual_seed(a * 100 + k)
+    n = a**k
+    x, f, cst, ww, keep = (torch.randn(n, generator=g, device=cuda,
+                                       dtype=torch.float64) for _ in range(5))
+    mask = torch.rand(n, generator=g, device=cuda) < 0.7
+    w = torch.linalg.qr(torch.randn(a, 2, generator=g, device=cuda,
+                                    dtype=torch.float64))[0].T.contiguous()
+    c_norm = float(a) ** ((k - 1) / 2.0)
+    cases = [(0, {}), (0, dict(f=f, const=cst)), (0, dict(f=f)),
+             (1, {}), (1, dict(ww=ww)),
+             (1, dict(f=f, const=cst, ww=ww, mask=mask, keep=keep)),
+             (1, dict(f=f, ww=ww, mask=mask, keep=keep))]
+    for form in steady.aug_forms(a, k):
+        monkeypatch.setattr(steady, "aug_form", lambda a_, k_, f_=form: f_)
+        bufs = {}
+        for mode, kw in cases:
+            got = steady.steady_aug(x, a, k, w, c_norm, mode, bufs=bufs, **kw)
+            again = steady.steady_aug(x, a, k, w, c_norm, mode, bufs=bufs,
+                                      **kw)
+            want = steady.steady_aug_plain(x, a, k, w, c_norm, mode, **kw)
+            assert torch.equal(got, want), (form, mode, sorted(kw))
+            assert torch.equal(again, want), (form, mode, sorted(kw))
+
+
+@pytest.mark.parametrize("a,k", [(2, 3), (10, 3), (10, 4), (10, 5)])
+def test_k26_is_one_launch_in_tile_forms(cuda, a, k):
+    """A K26 call in the block form is one kernel launch and runs no K3
+    (by the profiler's launch calls and the pyramid's count); in the
+    split form K3's launches come first, then two."""
+    from chemical_kinetics_and_program_execution_torch.ode import steady
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n = a**k
+    x, f = (torch.randn(n, generator=g, device=cuda, dtype=torch.float64)
+            for _ in range(2))
+    w = torch.zeros((0, a), dtype=torch.float64, device=cuda)
+    form = steady.aug_form(a, k)
+    bufs = {}
+    steady.steady_aug(x, a, k, w, 1.0, 0, f=f, bufs=bufs)
+    before = tdense.pyramid.launches
+    calls, kernels = _launch_calls(
+        lambda: steady.steady_aug(x, a, k, w, 1.0, 0, f=f, bufs=bufs))
+    if form == "block":
+        assert len(calls) == 1, (form, calls, kernels)
+        assert tdense.pyramid.launches == before
+    else:
+        assert len(calls) == 2 + tdense.pyramid_launches(a, k), (calls,
+                                                                 kernels)
 
 
 def test_k26_and_kvaerno_entries_match_plain(cuda):

@@ -14,6 +14,9 @@
   (relaxation modes against a dense eigendecomposition of J_G, built
   from the port's J_G v on the unit vectors). :135 (support mode) is in
   `tests/test_torch_steady_support.py`.
+- K26's fused entry: G, J_G v and L through the `Augmentation` (the
+  plain version with the callers' inputs) equal the callers' own
+  composition bit for bit; the launch form K26 takes at each size.
 """
 
 import jax.numpy as jnp
@@ -39,6 +42,7 @@ from chemical_kinetics_and_program_execution_torch.ode import steady as ts
 from chemical_kinetics_and_program_execution_torch.ode.fixed import (
     odeint_fixed,
 )
+from chemical_kinetics_and_program_execution_torch.ode.krylov import jvp
 
 CPU = torch.device("cpu")
 CL_K = 3
@@ -195,3 +199,66 @@ def test_relaxation_modes_match_dense_eigs():
                                rtol=1e-7)
     tau = -1.0 / np.real(lams[0])
     assert 50 < tau < 5000
+
+
+@pytest.mark.parametrize("which", ["residual", "jvp", "linear"])
+@pytest.mark.parametrize("tag,a,conserved", [
+    ("ex2-ferromagnetic-chain", 2, "auto"),
+    ("ex4var2-chemical-turing", 10, "explicit"),
+    ("ex4var2-chemical-turing", 10, "support"),
+])
+def test_fused_augmentation_equals_composition(which, tag, a, conserved):
+    """K26's fused entry (its plain version on the CPU: `steady_aug_plain`
+    with the callers' inputs) equals the callers' composition bit for
+    bit: G = (F(p) - L(p)) + const, J_G v = J v - L(v), L(x), in mode 0
+    and in support mode (L = C^T C x + W^T W x, the mask's where)."""
+    cons = _EX4V2_W if conserved == "explicit" else conserved
+    tf, _ = t_build(tag, CL_K, device="cpu")
+    n = a**CL_K
+    rng = np.random.default_rng(23)
+    guess = chemical_turing_v2_p0(CL_K).ravel() if conserved == "support" \
+        else None
+    aug = ts.Augmentation(lambda p, _a: tf(p), a, CL_K, cons, None, guess,
+                          1e-20, CPU)
+    p = torch.as_tensor(rng.dirichlet(np.ones(n)))
+    v = torch.as_tensor(rng.standard_normal(n))
+    mask = aug.mask
+
+    def lin(x):
+        if aug.support:
+            return (ts.steady_aug_plain(x, a, CL_K, aug.cons_w[:0, :a], 1.0,
+                                        ts._CTC)
+                    + aug.cons_w.T @ (aug.cons_w @ x))
+        return ts.steady_aug_plain(x, a, CL_K, aug.cons_w, aug.c_norm)
+
+    def where(out, keep):
+        return out if mask is None else torch.where(mask, out, keep)
+
+    pm = p if mask is None else torch.where(mask, p, 0.0)
+    vm = v if mask is None else torch.where(mask, v, 0.0)
+    if which == "residual":
+        const = aug.constant(aug.targets(p))
+        got = aug.residual(p, None, const)
+        want = where((tf(pm) - lin(pm)) + const, p)
+    elif which == "jvp":
+        got = aug.jvp(p, v, None)
+        want = where(jvp(tf, pm, vm) - lin(vm), v)
+    else:
+        got, want = aug.linear(vm), lin(vm)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("a,k,form", [
+    (2, 3, "block"), (2, 6, "block"), (2, 4, "block"), (10, 3, "block"),
+    (10, 4, "block"), (2, 13, "block"), (4, 7, "split"), (3, 9, "split"),
+    (20, 3, "block"), (10, 5, "split"), (10, 6, "split"), (2, 14, "split")])
+def test_k26_launch_form(a, k, form):
+    """K26's form by a^k: one block where x, its levels and defects fit
+    227 KB and x has at most 10,000 entries (every program of phase 14's
+    (d) and (e)), the split form beyond (n = 100,000; 4^7 fits but the
+    block measured slower there). `aug_forms` lists the block wherever it
+    fits."""
+    assert ts.aug_form(a, k) == form
+    fits = ts.block_doubles(a, k) <= ts._SMEM_DOUBLES
+    assert ts.aug_forms(a, k) == ["split", "block"][:1 + fits]
+    assert fits == (form == "block" or (a, k) == (4, 7))
