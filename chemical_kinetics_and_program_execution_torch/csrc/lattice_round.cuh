@@ -37,8 +37,8 @@
 // What bounds a round then is the walk's integer work, as for K1. First
 // passage applies K12's update (`pattern_rule.cuh`) to the watched rows
 // in shared memory after each round, so a C call of n rounds is one
-// launch, where it was 2n. The tempered entry keeps one launch a round
-// (below). The caller sizes the tile from
+// launch, where it was 2n. The tempered entry is resident too (below).
+// The caller sizes the tile from
 // the block's 227 KB (`ensemble.k11_tile`: two blocks an SM where their
 // rows fit, and enough blocks for the card's 132 SMs). Rows too long for
 // one member a block (2L past 227 KB, L past about 116,000) keep the
@@ -56,7 +56,14 @@
 // One thread a member walks its E sites in order, each site's float32
 // increments summed level by level, the sites' sums added in float32
 // from 0 in site order, and that sum added to the member's float64
-// log-weight: the order of `ensemble.lattice_round_plain(lw=...)`.
+// log-weight: the order of `ensemble.lattice_round_plain(lw=...)`. The
+// rounds of a call are resident as K11's are: a block loads a tile of
+// members' rows (an odd count of words a row, `k11_odd_stride`), each
+// thread runs all the call's rounds on its own members, four sites at
+// a time by the lane walk with a float32 sum a lane, their log-weights
+// in registers, and the rows go back once (`k11t_tile_rounds`;
+// `ensemble.k11_tempered_tile`); rows too long and calls of fewer than
+// four rounds keep a launch a round, a thread a member.
 //
 // Bound: bytes, by this count (what holds a resident round is the walk's
 // integer work). A round must read the cells the walk reveals and the
@@ -68,7 +75,8 @@
 // stride 16, so every 32-byte sector of both tapes is read and written
 // by a kernel that goes back to global memory each round. Over a call of
 // n resident rounds the rows cross once each way (4BL bytes) and each
-// round moves only its shifts and uniforms.
+// round moves only its shifts and uniforms (and, tempered, lw once each
+// way a call).
 
 #pragma once
 
@@ -160,6 +168,15 @@ K1_FN void k11_member_logp(int b, int8_t* p, int8_t* d, const float* u,
 #define K11_HD static inline
 #endif
 
+#ifdef __CUDACC__
+// A hint to bring the line holding p into L1.
+__device__ __forceinline__ void k11_prefetch(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+#else
+static inline void k11_prefetch(const void*) {}
+#endif
+
 // Row stride of a member in shared memory: L rounded up to 4 bytes, then
 // to 4 more than a multiple of 128, so that the same column of
 // neighbouring members lies in neighbouring banks.
@@ -237,8 +254,14 @@ K1_FN int k11_offset(int k, int L) {
 // else the exact walk site by site, as K1 does. The cells stored are
 // those whose byte changed. A site's column r + off (r its start, below
 // 2L) wraps by `k11_wrap`, its offset within (-L, L) (`k11_offset`).
-K1_FN void k11_four_sites(int8_t* prow, int8_t* drow, int L, int s, int e0,
-                          int stride, const float* u) {
+// Returns the four specs, a byte lane each. In a tempered unit, with lp
+// non-null, site j's increments are added to lp[j]; with x_out and
+// y_out non-null, each window cell's word before and after the writes
+// goes there (K24's resident rounds read them).
+K1_FN uint32_t k11_four_sites(int8_t* prow, int8_t* drow, int L, int s,
+                              int e0, int stride, const float* u,
+                              float* lp = nullptr, uint32_t* x_out = nullptr,
+                              uint32_t* y_out = nullptr) {
   int r = s % L;
   r = (r < 0 ? r + L : r) + e0 * stride;
   uint32_t x[K1_N_CELLS];
@@ -267,15 +290,30 @@ K1_FN void k11_four_sites(int8_t* prow, int8_t* drow, int L, int s, int e0,
 #pragma unroll
       for (int k = 0; k < K1_N_CELLS; ++k)
         c[k] = (int)(int8_t)(uint8_t)(x[k] >> (8 * j));
+#if K1_LOGP
+      spec |= (uint32_t)(lp ? k1_walk_exact_logp(c, uu[j], lp + j)
+                            : k1_walk_exact(c, uu[j])) << (8 * j);
+#else
       spec |= (uint32_t)k1_walk_exact(c, uu[j]) << (8 * j);
+#endif
     }
   } else {
+#if K1_LOGP
+    spec = lp ? k1_walk_lanes_logp(x, uu, lp) : k1_walk_lanes(x, uu);
+#else
+    (void)lp;
     spec = k1_walk_lanes(x, uu);
+#endif
   }
 #pragma unroll
   for (int k = 0; k < K1_N_CELLS; ++k) {
+    if (x_out) {
+      x_out[k] = x[k];
+      y_out[k] = x[k];
+    }
     if (!k1_written(k)) continue;
     const uint32_t y = k1_write_lanes(k, spec, x[k]);
+    if (y_out) y_out[k] = y;
     if (y == x[k]) continue;
     const int off = k11_offset(k, L);
     int8_t* row = k < K1_N_P ? prow : drow;
@@ -286,6 +324,7 @@ K1_FN void k11_four_sites(int8_t* prow, int8_t* drow, int L, int s, int e0,
         row[k11_wrap(r + j * stride + off, L)] = (int8_t)nb;
     }
   }
+  return spec;
 }
 
 // One round's sites of the tile's m members (b0 the first): member
@@ -350,42 +389,62 @@ K1_FN void k11_tile_hits(int tid, int nt, int m, int P, double* th,
   }
 }
 
-#ifdef __CUDACC__
+// Row stride of a member in the resident tempered rounds and K24's
+// (`thermo_round.cuh`): an odd count of 4-byte words, so that one column
+// of 32 neighbouring members lies in 32 banks (`k11_row_stride`'s 33
+// words mod 32 do the same at more bytes a row).
+K11_HD int k11_odd_stride(int L) { return 4 * (((L + 3) >> 2) | 1); }
 
 #if K1_LOGP
-__global__ void __launch_bounds__(K1_THREADS)
-    k11_logp_kernel(int8_t* __restrict__ p, int8_t* __restrict__ d,
-                    const float* __restrict__ u,
-                    const int* __restrict__ shifts, int B, int L, int E,
-                    double* __restrict__ lw) {
-  const int b = blockIdx.x * K1_THREADS + threadIdx.x;
-  if (b >= B) return;
-  k11_member_logp(b, p, d, u, shifts, L, E, lw);
-}
-
-// Tempered rounds [k0, k0+n) at shared shifts, one launch a round:
-// round k0+j reads shifts[k0+j] and uniforms [j*B*E, (j+1)*B*E) and adds
-// each member's increments to lw [B] float64. Returns the first launch
-// error, or 0.
-extern "C" int ckpe_k11_rounds_logp(void* p, void* d, const void* uniforms,
-                                    const void* shifts, int k0, int n,
-                                    int B, int L, int E, void* lw,
-                                    void* stream) {
-  if (E <= 0 || L % E != 0 || (long long)B * L >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || n <= 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((B + K1_THREADS - 1) / K1_THREADS);
-  for (int j = 0; j < n; ++j) {
-    k11_logp_kernel<<<blocks, K1_THREADS, 0, (cudaStream_t)stream>>>(
-        (int8_t*)p, (int8_t*)d,
-        (const float*)uniforms + (long long)j * B * E,
-        (const int*)shifts + k0 + j, B, L, E, (double*)lw);
-    const int rc = (int)cudaGetLastError();
-    if (rc) return rc;
+// Rounds [k0, k0+n) of a resident tempered tile of m members (b0 the
+// first; its rows at stride Ls in ``sp``, ``sd``), a thread a member:
+// thread tid owns members tid, tid + nt, ... for every round of the
+// call, so no other thread touches their rows and the rounds need no
+// barrier, and it keeps the member's float64 log-weight lw[b0 + i] in a
+// register from the first round to the last. A round walks the member's
+// E sites in site order, four at a time by the lane walk where E % 4 ==
+// 0 (`k11_four_sites`, each site's increments in its lane's sum), else
+// one by one (`k11_site`); sums the sites' float32 increments from 0 in
+// site order and adds that sum once to lw: the order of
+// `ensemble.lattice_round_plain(lw=...)`. Round k0+j reads shifts[k0+j]
+// and the uniforms u + j*sites, and prefetches the next round's.
+K1_FN void k11t_tile_rounds(int tid, int nt, int8_t* sp, int8_t* sd, int m,
+                            int L, int Ls, int E, int b0, long long sites,
+                            const float* u, const int* shifts, int k0, int n,
+                            double* lw) {
+  const int stride = L / E;
+  for (int i = tid; i < m; i += nt) {
+    int8_t* pr = sp + (long long)i * Ls;
+    int8_t* dr = sd + (long long)i * Ls;
+    double w = lw[b0 + i];
+    for (int j = 0; j < n; ++j) {
+      const float* ur = u + j * sites + (long long)(b0 + i) * E;
+      if (j + 1 < n) k11_prefetch(ur + sites);
+      const int s = shifts[k0 + j];
+      float sum = 0.0f;
+      if (E % 4 == 0) {
+        for (int e0 = 0; e0 < E; e0 += 4) {
+          float lp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          k11_four_sites(pr, dr, L, s, e0, stride, ur + e0, lp);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sum = sum + lp[q];
+        }
+      } else {
+        for (int e = 0; e < E; ++e) {
+          float lp = 0.0f;
+          k11_site(pr, dr, L, (long long)s + (long long)e * stride,
+                   (double)ur[e], &lp);
+          sum = sum + lp;
+        }
+      }
+      w = w + (double)sum;
+    }
+    lw[b0 + i] = w;
   }
-  return 0;
 }
 #endif
+
+#ifdef __CUDACC__
 
 __global__ void __launch_bounds__(K1_THREADS)
     k11_kernel(int8_t* __restrict__ p, int8_t* __restrict__ d,
@@ -413,11 +472,6 @@ static inline bool k11_bad_geometry(int B, int L, int E) {
 
 // The most dynamic shared memory a block may have (227 KB on the H100).
 #define K11_SMEM_MAX 232448
-
-// A hint to bring the line holding p into L1.
-__device__ __forceinline__ void k11_prefetch(const void* p) {
-  asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
-}
 
 // The resident rounds [k0, k0+n) of a tile a block (see the header).
 // ``watch`` is -1 without first passage, else the watched tape (0 the
@@ -510,6 +564,89 @@ static int k11_resident(void* p, void* d, const void* u, const void* shifts,
       (double*)t_hit, (const double*)times);
   return (int)cudaGetLastError();
 }
+
+#if K1_LOGP
+__global__ void __launch_bounds__(K1_THREADS)
+    k11_logp_kernel(int8_t* __restrict__ p, int8_t* __restrict__ d,
+                    const float* __restrict__ u,
+                    const int* __restrict__ shifts, int B, int L, int E,
+                    double* __restrict__ lw) {
+  const int b = blockIdx.x * K1_THREADS + threadIdx.x;
+  if (b >= B) return;
+  k11_member_logp(b, p, d, u, shifts, L, E, lw);
+}
+
+// The resident tempered rounds [k0, k0+n) of a tile a block: both rows of
+// each member into shared memory, the call's rounds (`k11t_tile_rounds`,
+// no barrier between them), the rows back. At most 512 threads, two
+// blocks an SM.
+__global__ void __launch_bounds__(512, 2)
+    k11t_resident_kernel(int8_t* __restrict__ p, int8_t* __restrict__ d,
+                         const float* __restrict__ u,
+                         const int* __restrict__ shifts, int k0, int n,
+                         int B, int L, int E, int tile, int vec,
+                         double* __restrict__ lw) {
+  extern __shared__ __align__(16) unsigned char k11_smem[];
+  const int Ls = k11_odd_stride(L);
+  const int b0 = blockIdx.x * tile;
+  const int m = min(tile, B - b0);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int8_t* sp = (int8_t*)k11_smem;
+  int8_t* sd = sp + (long long)tile * Ls;
+  int8_t* gp = p + (long long)b0 * L;
+  int8_t* gd = d + (long long)b0 * L;
+  k11_tile_copy(tid, nt, gp, sp, m, L, Ls, vec, true);
+  k11_tile_copy(tid, nt, gd, sd, m, L, Ls, vec, true);
+  __syncthreads();
+  k11t_tile_rounds(tid, nt, sp, sd, m, L, Ls, E, b0, (long long)B * E, u,
+                   shifts, k0, n, lw);
+  __syncthreads();
+  k11_tile_copy(tid, nt, gp, sp, m, L, Ls, vec, false);
+  k11_tile_copy(tid, nt, gd, sd, m, L, Ls, vec, false);
+}
+
+// Tempered rounds [k0, k0+n) at shared shifts: round k0+j reads
+// shifts[k0+j] and uniforms [j*B*E, (j+1)*B*E) and adds each member's
+// increments to lw [B] float64. With ``tile`` > 0 one resident launch of
+// ``tile`` members a block of ``threads`` (at most 512) threads; with
+// ``tile`` 0 (rows too long to keep resident, or a call of few rounds)
+// one launch a round, a thread a member. Returns the first launch error,
+// or cudaErrorInvalidValue where the tile's rows do not fit.
+extern "C" int ckpe_k11_rounds_logp(void* p, void* d, const void* uniforms,
+                                    const void* shifts, int k0, int n,
+                                    int B, int L, int E, void* lw, int tile,
+                                    int threads, void* stream) {
+  if (k11_bad_geometry(B, L, E)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || n <= 0) return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (tile > 0) {
+    const long long bytes = 2LL * tile * k11_odd_stride(L);
+    if (threads < 32 || threads > 512 || bytes > K11_SMEM_MAX)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        k11t_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int vec = L % 16 == 0 && (uintptr_t)p % 16 == 0 &&
+                    (uintptr_t)d % 16 == 0;
+    k11t_resident_kernel<<<(unsigned)((B + tile - 1) / tile), threads,
+                           (size_t)bytes, st>>>(
+        (int8_t*)p, (int8_t*)d, (const float*)uniforms, (const int*)shifts,
+        k0, n, B, L, E, tile, vec, (double*)lw);
+    return (int)cudaGetLastError();
+  }
+  const unsigned blocks = (unsigned)((B + K1_THREADS - 1) / K1_THREADS);
+  for (int j = 0; j < n; ++j) {
+    k11_logp_kernel<<<blocks, K1_THREADS, 0, st>>>(
+        (int8_t*)p, (int8_t*)d,
+        (const float*)uniforms + (long long)j * B * E,
+        (const int*)shifts + k0 + j, B, L, E, (double*)lw);
+    const int rc = (int)cudaGetLastError();
+    if (rc) return rc;
+  }
+  return 0;
+}
+#endif
 
 // Rounds [k0, k0+n) of a run on `stream`: round k0+j reads shifts[k0+j]
 // (shared) or shifts[(k0+j)*B + b] (per member) on the device and
@@ -663,6 +800,44 @@ extern "C" int ckpe_k11_host_round(int8_t* p, int8_t* d, const float* u,
 }
 
 #if K1_LOGP
+// The resident tempered kernel on the host (the CPU test of the tempered
+// unit): tile after tile, the rows copied into a buffer laid out as the
+// kernel's shared memory by every thread ``t`` < ``threads`` in turn,
+// each thread's rounds (`k11t_tile_rounds`), the rows copied back.
+// Arguments as `ckpe_k11_rounds_logp` takes them, on host arrays.
+extern "C" int ckpe_k11_host_resident_logp(int8_t* p, int8_t* d,
+                                           const float* u, const int* shifts,
+                                           int k0, int n, int B, int L, int E,
+                                           double* lw, int tile,
+                                           int threads) {
+  if (E <= 0 || L % E != 0 || tile < 1 || threads < 1) return 1;
+  const int Ls = k11_odd_stride(L);
+  const long long bytes = 2LL * tile * Ls;
+  int8_t* sp = (int8_t*)aligned_alloc(16, (bytes + 15) & ~15LL);
+  if (!sp) return 1;
+  int8_t* sd = sp + (long long)tile * Ls;
+  const bool vec = L % 16 == 0 && (uintptr_t)p % 16 == 0 &&
+                   (uintptr_t)d % 16 == 0;
+  for (int b0 = 0; b0 < B; b0 += tile) {
+    const int m = tile < B - b0 ? tile : B - b0;
+    int8_t* gp = p + (long long)b0 * L;
+    int8_t* gd = d + (long long)b0 * L;
+    for (int t = 0; t < threads; ++t) {
+      k11_tile_copy(t, threads, gp, sp, m, L, Ls, vec, true);
+      k11_tile_copy(t, threads, gd, sd, m, L, Ls, vec, true);
+    }
+    for (int t = 0; t < threads; ++t)
+      k11t_tile_rounds(t, threads, sp, sd, m, L, Ls, E, b0,
+                       (long long)B * E, u, shifts, k0, n, lw);
+    for (int t = 0; t < threads; ++t) {
+      k11_tile_copy(t, threads, gp, sp, m, L, Ls, vec, false);
+      k11_tile_copy(t, threads, gd, sd, m, L, Ls, vec, false);
+    }
+  }
+  free(sp);
+  return 0;
+}
+
 // The tempered kernel's per-member body for one round on the host.
 extern "C" int ckpe_k11_host_round_logp(int8_t* p, int8_t* d, const float* u,
                                         const int* shifts, int B, int L,

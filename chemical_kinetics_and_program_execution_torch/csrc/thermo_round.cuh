@@ -16,19 +16,34 @@
 // land on the same cells as in K11 and in the reference, whose thermo
 // rounds always roll over [0, L).
 //
-// Design: one thread a member walks its E sites in site order. Site e at
-// shift s reads window cell j of a tape with read offset lo at column
-// (s + lo + e*stride + j) mod L and stores only the cells its spec
-// changes (the caller's geometry check keeps a member's windows
-// disjoint). K23 forms the combined window rank (program cells then data
-// cells, big-endian; out-of-range symbols by the reference's gather
-// rule), reads sigma[w, spec] and irrev[w, spec], takes 0
-// where the jump is irreversible and counts it. K24 forms dg = sum_c
-// (G_c[old] - G_c[new]) from 0 in cell order, then beta_eff * dg, adds
-// it to its spec's share and counts the spec. A member's site
+// Design. K23: one thread a member walks its E sites in site order, a
+// launch a round. Site e at shift s reads window cell j of a tape with
+// read offset lo at column (s + lo + e*stride + j) mod L and stores only
+// the cells its spec changes (the caller's geometry check keeps a
+// member's windows disjoint). K23 forms the combined window rank
+// (program cells then data cells, big-endian; out-of-range symbols by
+// the reference's gather rule), reads sigma[w, spec] and irrev[w, spec],
+// takes 0 where the jump is irreversible and counts it; a member's site
 // increments are summed from 0 in site order and that sum is added once
-// to its float64 sigma. The member owns its rows, so nothing is atomic,
-// and the plain versions repeat this order bit for bit.
+// to its float64 sigma.
+//
+// K24: resident rounds, as K11's (`lattice_round.cuh`). A block owns a
+// tile of members for every round of a C call: both rows (an odd count
+// of words a row, `k11_odd_stride`) and the accumulators (sigma, counts
+// and spec_sig) go to shared memory once, with each tape's potential by
+// cell byte (the reference's gather rule applied once). A round's walk
+// runs four sites a thread by K1's lane walk where E % 4 == 0,
+// neighbouring threads on neighbouring members, else a site a thread;
+// each site stages beta_eff * dg, dg = sum_c (G_c[old] - G_c[new]) from
+// 0 in cell order, and its spec. After a barrier the ordered sums run a
+// thread each: sigma[i] += the staged increments from 0 in site order;
+// spec_sig[i, r] gains each increment of spec r in site order onto its
+// running value, and counts[i, r] their number. A barrier, the next
+// round; the rows and accumulators go back once. Nothing is atomic, and
+// the plain versions repeat this order bit for bit. Rows too long for a
+// block and calls of fewer than four rounds keep `k24_kernel`, a thread
+// a member in global memory, a launch a round. The caller sizes the
+// tile (`ops/thermo.py:k24_tile`).
 //
 // Bound: bytes. A round reads the cells the walk reveals and the written
 // cells some spec leaves alone, writes the cells some spec writes
@@ -37,7 +52,9 @@
 // and a byte of irrev a (window, spec); K24: two float64 potentials a
 // symbol) and reads and writes the per-member accumulators (K23: sigma
 // float64 and n_irrev int32; K24: sigma, and counts int32 and spec_sig
-// float64 a spec).
+// float64 a spec). Over a resident K24 call of n rounds the rows and
+// accumulators cross once each way and each round moves only its shifts
+// and uniforms.
 
 #pragma once
 
@@ -118,6 +135,194 @@ K1_FN void k24_member(int b, int8_t* p, int8_t* d, const float* u,
   sigma[b] = sigma[b] + s;
 }
 
+// --- K24's resident rounds: the phases of a tile, shared by the kernel
+// and its host twin, as K11's are (`lattice_round.cuh`).
+
+// Staged strides a member: the round's site increments (float64) at an
+// odd count, its specs (bytes) at an odd count of 4-byte words, so that
+// the sums' reads of neighbouring members fall in different banks.
+K11_HD int k24_sig_stride(int E) { return E | 1; }
+K11_HD int k24_spec_stride(int E) { return 4 * (((E + 3) >> 2) | 1); }
+
+// Shared memory of a tile: both rows a member (`k11_odd_stride`), then
+// float64 each tape's potential by cell byte (2 x 256: the reference's
+// gather rule applied once, `k23_index`), sigma, spec_sig [tile, S] and
+// the staged increments; int32 counts [tile, S]; the staged specs, a
+// byte a site (the walk's specs are below 128: `k1_source._check_lanes`).
+K11_HD long long k24_tile_bytes(int tile, int L, int E, int S) {
+  return 2LL * tile * k11_odd_stride(L) +
+         8LL * (512 + (long long)tile * (1 + S + k24_sig_stride(E))) +
+         4LL * tile * S + (long long)tile * k24_spec_stride(E);
+}
+
+struct K24Tile {
+  int8_t* sp;       // program rows [tile, Ls]
+  int8_t* sd;       // data rows
+  double* g;        // g_prog then g_data by cell byte, 256 each
+  double* sigma;    // [tile]
+  double* ss;       // spec_sig [tile, S]
+  double* stage;    // the round's site increments [tile, Es]
+  int* cnt;         // counts [tile, S]
+  uint8_t* spec;    // the round's fired specs [tile, Ep]
+  int Ls, Es, Ep;
+};
+
+K11_HD K24Tile k24_tile_at(unsigned char* smem, int tile, int L, int E,
+                           int S) {
+  K24Tile t;
+  t.Ls = k11_odd_stride(L);
+  t.Es = k24_sig_stride(E);
+  t.Ep = k24_spec_stride(E);
+  t.sp = (int8_t*)smem;
+  t.sd = t.sp + (long long)tile * t.Ls;
+  t.g = (double*)(t.sd + (long long)tile * t.Ls);
+  t.sigma = t.g + 512;
+  t.ss = t.sigma + tile;
+  t.stage = t.ss + (long long)tile * S;
+  t.cnt = (int*)(t.stage + (long long)tile * t.Es);
+  t.spec = (uint8_t*)(t.cnt + (long long)tile * S);
+  return t;
+}
+
+// Loads (or, with ``load`` false, stores) the tile's accumulators of
+// members [b0, b0+m): sigma, counts and spec_sig; a load also stages the
+// potentials by cell byte.
+K1_FN void k24_tile_accs(int tid, int nt, const K24Tile& t, int m, int b0,
+                         int S, const double* g_prog, const double* g_data,
+                         double* sigma, int* counts, double* spec_sig,
+                         bool load) {
+  if (load)
+    for (int k = tid; k < 512; k += nt)
+      t.g[k] = (k < 256 ? g_prog : g_data)[k23_index(
+          (int8_t)(uint8_t)(k & 255), K1_SIZE_A)];
+  for (int i = tid; i < m; i += nt) {
+    if (load)
+      t.sigma[i] = sigma[b0 + i];
+    else
+      sigma[b0 + i] = t.sigma[i];
+  }
+  const long long o = (long long)b0 * S;
+  for (int x = tid; x < m * S; x += nt) {
+    if (load) {
+      t.ss[x] = spec_sig[o + x];
+      t.cnt[x] = counts[o + x];
+    } else {
+      spec_sig[o + x] = t.ss[x];
+      counts[o + x] = t.cnt[x];
+    }
+  }
+}
+
+// Site e of tile member i: its increment beta_eff * dg, dg = sum_c
+// (G_c[old] - G_c[new]) from 0 in cell order over the cells' bytes
+// before (``c``) and after (``y``) the writes, byte ``j`` of each word,
+// and its spec, staged.
+K1_FN void k24_stage(const K24Tile& t, int i, int e, const uint32_t* c,
+                     const uint32_t* y, int j, int spec, double beta_eff) {
+  double dg = 0.0;
+#pragma unroll
+  for (int k = 0; k < K1_N_CELLS; ++k) {
+    const double* g = t.g + (k < K1_N_P ? 0 : 256);
+    dg = dg + (g[(c[k] >> (8 * j)) & 0xffu] - g[(y[k] >> (8 * j)) & 0xffu]);
+  }
+  t.stage[(long long)i * t.Es + e] = beta_eff * dg;
+  t.spec[(long long)i * t.Ep + e] = (uint8_t)spec;
+}
+
+// One round's walk of the tile's m members (b0 the first) at shifts
+// ``sh`` (the round's row), uniforms ``u`` (the round's [B, E]): four
+// sites a thread by K1's lane walk where E % 4 == 0, neighbouring
+// threads on neighbouring members (`k11_four_sites`, the cells' words
+// before and after the writes kept), else a site a thread
+// (`k11_site`); each site's increment and spec staged (`k24_stage`).
+K1_FN void k24_tile_sites(int tid, int nt, const K24Tile& t, int m, int L,
+                          int E, int b0, const float* u, const int* sh,
+                          int per_member, double beta_eff) {
+  const int stride = L / E;
+  if (E % 4 == 0) {
+    const int q = E / 4;
+    for (int w = tid; w < m * q; w += nt) {
+      const int gi = w / m;
+      const int i = w - gi * m;
+      const int e0 = 4 * gi;
+      uint32_t x[K1_N_CELLS], y[K1_N_CELLS];
+      const uint32_t spec = k11_four_sites(
+          t.sp + (long long)i * t.Ls, t.sd + (long long)i * t.Ls, L,
+          sh[per_member ? b0 + i : 0], e0, stride,
+          K1_CHOOSE ? u + (long long)(b0 + i) * E + e0 : nullptr, nullptr, x,
+          y);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        k24_stage(t, i, e0 + j, x, y, j, (int)((spec >> (8 * j)) & 0xffu),
+                  beta_eff);
+    }
+    return;
+  }
+  for (int w = tid; w < m * E; w += nt) {
+    const int i = w / E;
+    const int e = w - i * E;
+    int c[K1_N_CELLS], y[K1_N_CELLS];
+    const int spec = k11_site(
+        t.sp + (long long)i * t.Ls, t.sd + (long long)i * t.Ls, L,
+        (long long)sh[per_member ? b0 + i : 0] + (long long)e * stride,
+        K1_CHOOSE ? (double)u[(long long)(b0 + i) * E + e] : 0.0, nullptr, c,
+        y);
+    uint32_t cb[K1_N_CELLS], yb[K1_N_CELLS];
+#pragma unroll
+    for (int k = 0; k < K1_N_CELLS; ++k) {
+      cb[k] = (uint8_t)c[k];
+      yb[k] = (uint8_t)y[k];
+    }
+    k24_stage(t, i, e, cb, yb, 0, spec, beta_eff);
+  }
+}
+
+// Then the round's ordered sums, a thread each: sigma[i] += its staged
+// increments from 0 in site order; spec_sig[i, r] gains each increment
+// of spec r in site order, onto its running value, and counts[i, r]
+// their number (S + 1 threads a member). Four sites a step, their specs
+// read as one word and their increments loaded ahead of the adds, which
+// stay in site order.
+K1_FN void k24_tile_sums(int tid, int nt, const K24Tile& t, int m, int E,
+                         int S) {
+  for (int w = tid; w < m * (S + 1); w += nt) {
+    const int i = w / (S + 1);
+    const int r = w - i * (S + 1);
+    const double* st = t.stage + (long long)i * t.Es;
+    const uint8_t* sc = t.spec + (long long)i * t.Ep;
+    const int E4 = E & ~3;
+    if (r == S) {
+      double s = 0.0;
+      for (int e = 0; e < E4; e += 4) {
+        const double v0 = st[e], v1 = st[e + 1], v2 = st[e + 2],
+                     v3 = st[e + 3];
+        s = s + v0;
+        s = s + v1;
+        s = s + v2;
+        s = s + v3;
+      }
+      for (int e = E4; e < E; ++e) s = s + st[e];
+      t.sigma[i] = t.sigma[i] + s;
+      continue;
+    }
+    double a = t.ss[i * S + r];
+    int n = 0;
+    for (int e = 0; e < E4; e += 4) {
+      const uint32_t q = *(const uint32_t*)(sc + e);
+      const double v0 = st[e], v1 = st[e + 1], v2 = st[e + 2],
+                   v3 = st[e + 3];
+      if ((q & 0xffu) == (uint32_t)r) a = a + v0, ++n;
+      if (((q >> 8) & 0xffu) == (uint32_t)r) a = a + v1, ++n;
+      if (((q >> 16) & 0xffu) == (uint32_t)r) a = a + v2, ++n;
+      if ((q >> 24) == (uint32_t)r) a = a + v3, ++n;
+    }
+    for (int e = E4; e < E; ++e)
+      if (sc[e] == r) a = a + st[e], ++n;
+    t.ss[i * S + r] = a;
+    t.cnt[i * S + r] += n;
+  }
+}
+
 #ifdef __CUDACC__
 
 __global__ void __launch_bounds__(K1_THREADS)
@@ -186,13 +391,93 @@ extern "C" int ckpe_k23_rounds(void* p, void* d, const void* uniforms,
       });
 }
 
-// Rounds [k0, k0+n) of a ledger run (`k23_rounds`).
+// K24's resident rounds [k0, k0+n) of a tile a block: rows and
+// accumulators into shared memory once, then a round at a time the walk
+// (`k24_tile_sites`, the next round's draws prefetched), a barrier, the
+// ordered sums (`k24_tile_sums`), a barrier; the rows and accumulators
+// back once. At most 512 threads, two blocks an SM.
+__global__ void __launch_bounds__(512, 2) k24_resident_kernel(
+    int8_t* __restrict__ p, int8_t* __restrict__ d,
+    const float* __restrict__ u, const int* __restrict__ shifts,
+    int per_member, int k0, int n, int B, int L, int E,
+    const double* __restrict__ g_prog, const double* __restrict__ g_data,
+    double beta_eff, int S, int tile, int vec, double* __restrict__ sigma,
+    int* __restrict__ counts, double* __restrict__ spec_sig) {
+  extern __shared__ __align__(16) unsigned char k24_smem[];
+  const K24Tile t = k24_tile_at(k24_smem, tile, L, E, S);
+  const int b0 = blockIdx.x * tile;
+  const int m = min(tile, B - b0);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int8_t* gp = p + (long long)b0 * L;
+  int8_t* gd = d + (long long)b0 * L;
+  k11_tile_copy(tid, nt, gp, t.sp, m, L, t.Ls, vec, true);
+  k11_tile_copy(tid, nt, gd, t.sd, m, L, t.Ls, vec, true);
+  k24_tile_accs(tid, nt, t, m, b0, S, g_prog, g_data, sigma, counts,
+                spec_sig, true);
+  __syncthreads();
+  const long long sites = (long long)B * E;
+  // This thread's first member and uniform (its first group of four sites
+  // where E % 4 == 0, else its first site), whose next-round draws it
+  // prefetches into L1 while the round runs.
+  const int lanes = E % 4 == 0;
+  const int mine = tid < m * (lanes ? E / 4 : E);
+  const int i0 = lanes ? tid % m : tid / E;
+  const long long u0 = (long long)(b0 + i0) * E +
+                       (lanes ? 4 * (tid / m) : tid - i0 * E);
+  for (int j = 0; j < n; ++j) {
+    const int k = k0 + j;
+    if (mine && j + 1 < n) {
+      k11_prefetch(shifts + (long long)(k + 1) * (per_member ? B : 1) +
+                   (per_member ? b0 + i0 : 0));
+      if (K1_CHOOSE) k11_prefetch(u + (j + 1) * sites + u0);
+    }
+    k24_tile_sites(tid, nt, t, m, L, E, b0,
+                   K1_CHOOSE ? u + j * sites : nullptr,
+                   shifts + (long long)k * (per_member ? B : 1), per_member,
+                   beta_eff);
+    __syncthreads();
+    k24_tile_sums(tid, nt, t, m, E, S);
+    __syncthreads();
+  }
+  k11_tile_copy(tid, nt, gp, t.sp, m, L, t.Ls, vec, false);
+  k11_tile_copy(tid, nt, gd, t.sd, m, L, t.Ls, vec, false);
+  k24_tile_accs(tid, nt, t, m, b0, S, nullptr, nullptr, sigma, counts,
+                spec_sig, false);
+}
+
+// Rounds [k0, k0+n) of a ledger run: with ``tile`` > 0 one resident
+// launch of ``tile`` members a block of ``threads`` threads
+// (cudaErrorInvalidValue where the tile does not fit); with ``tile`` 0
+// (rows too long to keep resident, or a call of few rounds) one launch a
+// round (`k23_rounds`).
 extern "C" int ckpe_k24_rounds(void* p, void* d, const void* uniforms,
                                const void* shifts, int per_member, int k0,
                                int n, int B, int L, int E,
                                const void* g_prog, const void* g_data,
                                double beta_eff, int S, void* sigma,
-                               void* counts, void* spec_sig, void* stream) {
+                               void* counts, void* spec_sig, int tile,
+                               int threads, void* stream) {
+  if (tile > 0) {
+    if (k11_bad_geometry(B, L, E) || S <= 0 || S > 128)
+      return (int)cudaErrorInvalidValue;
+    if (B == 0 || n <= 0) return (int)cudaGetLastError();
+    const long long bytes = k24_tile_bytes(tile, L, E, S);
+    if (threads < 32 || threads > 512 || bytes > K11_SMEM_MAX)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        k24_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int vec = L % 16 == 0 && (uintptr_t)p % 16 == 0 &&
+                    (uintptr_t)d % 16 == 0;
+    k24_resident_kernel<<<(unsigned)((B + tile - 1) / tile), threads,
+                          (size_t)bytes, (cudaStream_t)stream>>>(
+        (int8_t*)p, (int8_t*)d, (const float*)uniforms, (const int*)shifts,
+        per_member, k0, n, B, L, E, (const double*)g_prog,
+        (const double*)g_data, beta_eff, S, tile, vec, (double*)sigma,
+        (int*)counts, (double*)spec_sig);
+    return (int)cudaGetLastError();
+  }
   return k23_rounds(
       uniforms, shifts, per_member, k0, n, B, L, E, S,
       [&](unsigned blocks, const float* u, const int* s) {
@@ -216,6 +501,58 @@ extern "C" int ckpe_k23_host_round(int8_t* p, int8_t* d, const float* u,
   for (int b = 0; b < B; ++b)
     k23_member(b, p, d, u, shifts, per_member, L, E, sig_tab, irr_tab, S,
                sigma, n_irrev);
+  return 0;
+}
+
+// K24's resident kernel on the host (the CPU test of the generated unit):
+// tile after tile, each of the kernel's phases run for every thread
+// ``t`` < ``threads`` in turn, on a buffer laid out as the kernel's
+// shared memory. Arguments as `ckpe_k24_rounds` takes them, on host
+// arrays.
+extern "C" int ckpe_k24_host_resident(int8_t* p, int8_t* d, const float* u,
+                                      const int* shifts, int per_member,
+                                      int k0, int n, int B, int L, int E,
+                                      const double* g_prog,
+                                      const double* g_data, double beta_eff,
+                                      int S, double* sigma, int* counts,
+                                      double* spec_sig, int tile,
+                                      int threads) {
+  if (E <= 0 || L % E != 0 || S <= 0 || S > 128 || tile < 1 || threads < 1)
+    return 1;
+  const long long bytes = k24_tile_bytes(tile, L, E, S);
+  unsigned char* smem = (unsigned char*)aligned_alloc(16, (bytes + 15) & ~15LL);
+  if (!smem) return 1;
+  const K24Tile t = k24_tile_at(smem, tile, L, E, S);
+  const bool vec = L % 16 == 0 && (uintptr_t)p % 16 == 0 &&
+                   (uintptr_t)d % 16 == 0;
+  const long long sites = (long long)B * E;
+  for (int b0 = 0; b0 < B; b0 += tile) {
+    const int m = tile < B - b0 ? tile : B - b0;
+    int8_t* gp = p + (long long)b0 * L;
+    int8_t* gd = d + (long long)b0 * L;
+    for (int w = 0; w < threads; ++w) {
+      k11_tile_copy(w, threads, gp, t.sp, m, L, t.Ls, vec, true);
+      k11_tile_copy(w, threads, gd, t.sd, m, L, t.Ls, vec, true);
+      k24_tile_accs(w, threads, t, m, b0, S, g_prog, g_data, sigma, counts,
+                    spec_sig, true);
+    }
+    for (int j = 0; j < n; ++j) {
+      const int k = k0 + j;
+      for (int w = 0; w < threads; ++w)
+        k24_tile_sites(w, threads, t, m, L, E, b0,
+                       K1_CHOOSE ? u + j * sites : nullptr,
+                       shifts + (long long)k * (per_member ? B : 1),
+                       per_member, beta_eff);
+      for (int w = 0; w < threads; ++w) k24_tile_sums(w, threads, t, m, E, S);
+    }
+    for (int w = 0; w < threads; ++w) {
+      k11_tile_copy(w, threads, gp, t.sp, m, L, t.Ls, vec, false);
+      k11_tile_copy(w, threads, gd, t.sd, m, L, t.Ls, vec, false);
+      k24_tile_accs(w, threads, t, m, b0, S, nullptr, nullptr, sigma, counts,
+                    spec_sig, false);
+    }
+  }
+  free(smem);
   return 0;
 }
 

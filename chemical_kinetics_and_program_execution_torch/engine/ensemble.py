@@ -1416,6 +1416,34 @@ def k11_tile(B: int, L: int, events: int, pattern_len: int | None = None):
     return tile, threads, tile * per + fixed
 
 
+def k11_odd_stride(L: int) -> int:
+    """Bytes a row in the resident tempered rounds and K24's: an odd
+    count of 4-byte words (`csrc/lattice_round.cuh:k11_odd_stride`), so
+    that one column of 32 neighbouring members lies in 32 banks."""
+    return 4 * ((-(-L // 4)) | 1)
+
+
+def k11_tempered_tile(B: int, L: int):
+    """The resident tile of K11's tempered entry for a call at [B, L]
+    (`csrc/lattice_round.cuh:k11t_tile_rounds`): (members a block, threads
+    a block, bytes of shared memory), or None where one member's rows do
+    not fit a block, which takes the launch a round.
+
+    A thread walks a member for every round of the call and keeps its
+    log-weight in a register, so a member costs shared memory only for
+    both rows (`k11_odd_stride`). The tile is as many members as two
+    blocks an SM leave room for (one block's worth where a member needs
+    more), at most 512 (a thread a member, two blocks an SM), and no more
+    than spreads B over two blocks for each of the card's SMs; the
+    threads are the tile rounded up to a warp."""
+    per = 2 * k11_odd_stride(L)
+    if per > SMEM_BLOCK:
+        return None
+    cap = SMEM_PAIR // per or SMEM_BLOCK // per
+    tile = max(1, min(cap, 512, -(-B // (2 * _SMS))))
+    return tile, -(-tile // 32) * 32, tile * per
+
+
 def _lattice_rounds(rule, ptape, dtape, shifts, k0, n, events, uniforms):
     """Rounds [k0, k0+n) of a rolled run, checked by the caller: the
     plain version a round on the CPU; on the card one C call that
@@ -1523,18 +1551,25 @@ def run_lattice_rounds(rule, ptape, dtape, shifts, events, uniforms=None):
 
 # Uniforms drawn ahead of the launches, at most this many a chunk.
 _UNIFORM_CHUNK = 2**25
+# The same for the callers of the resident tempered rounds and K24's
+# (`frontier._blocked_rounds`, `ops/thermo.py`'s ledger runs): a chunk is
+# one C call, whose rows cross between global and shared memory once, so
+# longer calls spread that cost over more rounds (67 rounds at K=10^6,
+# E=4, 64 at B=16384, E=256: 1 GiB of float32 uniforms). The draws are
+# the same whatever the chunk: a round's uniforms at a time, in order.
+_RESIDENT_CHUNK = 2**28
 
 
-def _chunks(num_steps, shape, dtype, device, draw):
+def _chunks(num_steps, shape, dtype, device, draw, limit=_UNIFORM_CHUNK):
     """Yields (k0, n, draws) chunks of a run: ``draw(out)`` fills one
     round's ``shape`` of ``dtype``, round by round, into a buffer of at
-    most `_UNIFORM_CHUNK` values (at least one round). A ``shape`` of
-    None draws nothing: one chunk of every round, its draws None."""
+    most ``limit`` values (at least one round). A ``shape`` of None draws
+    nothing: one chunk of every round, its draws None."""
     if shape is None:
         if num_steps:
             yield 0, num_steps, None
         return
-    chunk = max(1, min(num_steps, _UNIFORM_CHUNK // max(1, math.prod(shape))))
+    chunk = max(1, min(num_steps, limit // max(1, math.prod(shape))))
     buf = torch.empty((chunk,) + tuple(shape), dtype=dtype, device=device)
     for k0 in range(0, num_steps, chunk):
         n = min(chunk, num_steps - k0)
@@ -1543,15 +1578,16 @@ def _chunks(num_steps, shape, dtype, device, draw):
         yield k0, n, buf[:n]
 
 
-def _draw_chunks(gen, rule, B, events, num_steps, device):
-    """Chunks of a run's [B, E] uniforms (`_chunks`; none for a rule
-    that reads none)."""
+def _draw_chunks(gen, rule, B, events, num_steps, device,
+                 limit=_UNIFORM_CHUNK):
+    """Chunks of a run's [B, E] uniforms (`_chunks`, at most ``limit``
+    values a chunk; none for a rule that reads none)."""
     dtype = _uniform_dtype(rule)
     return _chunks(num_steps, (B, events) if _reads_uniforms(rule) else None,
                    dtype, device,
                    lambda out: torch.rand((B, events), generator=gen,
                                           device=device, dtype=dtype,
-                                          out=out))
+                                          out=out), limit)
 
 
 def _draw_word_chunks(gen, n_rand, wshape, num_steps, device):

@@ -422,8 +422,11 @@ def tempered_round(dm, ptape, dtape, shifts, events, uniforms, tau, lw):
     chooses sampled from q ∝ p^tau with ``uniforms`` float32 [n, K, E],
     each member's importance increments added to ``lw`` (float64 [K]).
     CPU tensors take `ensemble.lattice_round_plain`; CUDA ones K11's
-    tempered entry (`csrc/lattice_round.cuh`, a unit a machine and tau),
-    one launch a round."""
+    tempered entry (`csrc/lattice_round.cuh`, a unit a machine and tau):
+    one launch for all the rounds on members resident in shared memory
+    (`ensemble.k11_tempered_tile`), or a launch a round where the rows
+    do not fit a block or the rounds are fewer than
+    `ensemble.K11_RESIDENT_MIN_ROUNDS`."""
     n = shifts.shape[0]
     ens._check_lattice(dm, ptape, dtape, shifts, 0, n, events, uniforms)
     if shifts.dim() != 1:
@@ -439,13 +442,16 @@ def tempered_round(dm, ptape, dtape, shifts, events, uniforms, tau, lw):
 
     lib = k1_library(dm, tau)
     K, L = ptape.shape
+    tile = (ens.k11_tempered_tile(K, L)
+            if n >= ens.K11_RESIDENT_MIN_ROUNDS else None)
     with torch.cuda.device(ptape.device):
         rc = lib.ckpe_k11_rounds_logp(
             ptape.data_ptr(), dtape.data_ptr(), uniforms.data_ptr(),
             shifts.data_ptr(), 0, int(n), int(K), int(L), int(events),
-            lw.data_ptr(), cuda.stream(ptape))
+            lw.data_ptr(), *(tile[:2] if tile else (0, 0)),
+            cuda.stream(ptape))
     cuda.check(rc, "tempered_round", lib)
-    tempered_round.launches += n
+    tempered_round.launches += 1 if tile else n
 
 
 tempered_round.launches = 0
@@ -545,8 +551,10 @@ def _blocked_rounds(generator, ptape, dtape, lw, dm, *, rounds: int,
         chunks = ((k0, n, None, w) for k0, n, w in ens._draw_word_chunks(
             gen, circ[3], wshape, rounds, dev))
     else:
+        limit = (ens._RESIDENT_CHUNK if tau != 1.0 and dm.has_choose
+                 else ens._UNIFORM_CHUNK)
         chunks = ((k0, n, u, None) for k0, n, u in ens._draw_chunks(
-            gen, dm, K, events, rounds, dev))
+            gen, dm, K, events, rounds, dev, limit))
     return _blocked_rounds_run(dm, ptape, dtape, lw, events, tau, bitslice,
                                chunks, shifts)
 

@@ -181,8 +181,16 @@ def _walk_lanes(levels, groups, S: int, logp: bool) -> list[str]:
     """The walk of four sites at once, one byte lane each: per level the
     branch lanes (cell groups by lane masks, choose nodes site by site),
     then the next state of every live lane by a lane lookup in the
-    level's (node, branch) table."""
-    out = ["K1_FN uint32_t k1_walk_lanes(const uint32_t* x, double* u) {",
+    level's (node, branch) table. With ``logp`` the walk is
+    ``k1_walk_lanes_logp(x, u, lp)``, which adds each lane's float32
+    increments to ``lp[j]`` level by level, as `k1_walk_exact_logp` does
+    for one site, and ``k1_walk_lanes`` calls it with scratch sums."""
+    if logp:
+        head = ("K1_FN uint32_t k1_walk_lanes_logp(const uint32_t* x, "
+                "double* u, float* lp) {")
+    else:
+        head = "K1_FN uint32_t k1_walk_lanes(const uint32_t* x, double* u) {"
+    out = [head,
            f"  uint32_t v = {S}u * 0x01010101u;",
            "  uint32_t b, r;",
            "  (void)u;"]
@@ -196,11 +204,10 @@ def _walk_lanes(levels, groups, S: int, logp: bool) -> list[str]:
         else:
             out.append("  b = 0;")
         if grp:
-            lp = ", lp" if logp else ""
+            lp = ", lp[j]" if logp else ""
             out += ["#pragma unroll",
                     "  for (int j = 0; j < 4; ++j) {",
                     "    int bb;",
-                    *(["    float lp = 0.0f;"] if logp else []),
                     f"    if (k1_choose_l{li}((v >> (8 * j)) & 0xff, u[j], "
                     f"bb{lp}))",
                     "      b = (b & ~(0xffu << (8 * j))) | ((uint32_t)bb << "
@@ -217,6 +224,10 @@ def _walk_lanes(levels, groups, S: int, logp: bool) -> list[str]:
         out += _lane_lookup("r", "idx", table, "    ")
         out += ["    v = (v & ~live) | (r & live);", "  }"]
     out += ["  return v;", "}"]
+    if logp:
+        out += ["K1_FN uint32_t k1_walk_lanes(const uint32_t* x, double* u) {",
+                "  float lp[4] = {0.0f, 0.0f, 0.0f, 0.0f};",
+                "  return k1_walk_lanes_logp(x, u, lp);", "}"]
     return out
 
 
@@ -354,15 +365,15 @@ def _load(source: str) -> ctypes.CDLL:
     lib.ckpe_k23_rounds.restype = _I
     # ckpe_k24_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
     #                 g_prog, g_data, beta_eff, S, sigma, counts, spec_sig,
-    #                 stream)
+    #                 tile, threads, stream)
     lib.ckpe_k24_rounds.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [
-        _P, _P, ctypes.c_double, _I, _P, _P, _P, _P]
+        _P, _P, ctypes.c_double, _I, _P, _P, _P, _I, _I, _P]
     lib.ckpe_k24_rounds.restype = _I
     if "K1_LOGP 1" in source:
         # ckpe_k11_rounds_logp(p, d, uniforms, shifts, k0, n, B, L, E, lw,
-        #                      stream)
+        #                      tile, threads, stream)
         lib.ckpe_k11_rounds_logp.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I,
-                                             _I, _P, _P]
+                                             _I, _P, _I, _I, _P]
         lib.ckpe_k11_rounds_logp.restype = _I
     lib.ckpe_error_string.argtypes = [_I]
     lib.ckpe_error_string.restype = ctypes.c_char_p

@@ -20,8 +20,15 @@ The device part runs the ensemble with an entropy ledger:
 Both rounds are K11's rolled round (`csrc/lattice_round.cuh`: the shift
 over [0, L), shared by the batch or one a member, windows read where
 they lie) with the sums: K23 `sigma_round` and K24 `ledger_round`
-(`csrc/thermo_round.cuh`, in each machine's unit, `engine/k1_source.py`),
-one thread a member walking its E sites in order. On the CPU the plain
+(`csrc/thermo_round.cuh`, in each machine's unit, `engine/k1_source.py`).
+K23 walks a member's E sites in order on one thread, a launch a round.
+K24 runs all the rounds of a call in one launch on a tile of members
+whose rows and accumulators stay in shared memory (`k24_tile`): the
+walk over many threads stages each site's increment and spec, then a
+thread a member sums sigma and a thread a (member, spec) its share and
+count, each in site order; calls of fewer than
+`ensemble.K11_RESIDENT_MIN_ROUNDS` rounds, and rows too long to keep,
+take its launch a round, a thread a member. On the CPU the plain
 versions `sigma_round_plain` and `ledger_round_plain` run, which sum in
 the kernels' order: a member's site increments from 0 in site order,
 that sum added once to its float64 accumulator; each site's increment
@@ -461,10 +468,48 @@ def _sigma_rounds(dm, ptape, dtape, shifts, k0, n, events, uniforms,
     sigma_round.launches += n
 
 
+def k24_tile(B: int, L: int, events: int, num_specs: int):
+    """K24's resident tile for a call at [B, L] with ``events`` sites a
+    member (`csrc/thermo_round.cuh:k24_tile_bytes`): (members a block,
+    threads a block, bytes of shared memory), or None where one member
+    does not fit a block, which takes the launch a round.
+
+    A member holds both rows (`ensemble.k11_odd_stride`), sigma, its
+    counts and shares a spec (12 bytes each), and the round's staged
+    increments (float64, an odd count) and specs (a byte each, an odd
+    count of words); the two potentials are stored once, by cell byte
+    (4,096 bytes). The tile is as many members as two blocks an SM leave
+    room for (one block's worth where a member needs more), and no more
+    than spreads B over two blocks for each of the card's SMs; 512
+    threads where a round has 1,024 sites or more, else 256. Where the
+    walk's items (four sites where E % 4 == 0, else one) take more than
+    one pass of the threads, the tile is cut to whole passes (at phase
+    13 (a) 8 members, not 10: 106.98 µs a round against 119.79 on an
+    H100 80GB HBM3 at 700 W, `time_resident.py --k24-tiles`)."""
+    S = num_specs
+    per = (2 * ens.k11_odd_stride(L) + 8 * (1 + S + (events | 1)) + 4 * S
+           + 4 * ((-(-events // 4)) | 1))
+    fixed = 4096
+    if per + fixed > ens.SMEM_BLOCK:
+        return None
+    cap = (ens.SMEM_PAIR - fixed) // per or (ens.SMEM_BLOCK - fixed) // per
+    tile = max(1, min(cap, -(-B // (2 * ens._SMS))))
+    threads = 512 if tile * events >= 1024 else 256
+    items = events // 4 if events % 4 == 0 else events
+    per_pass = threads // items
+    if per_pass and tile > per_pass:
+        tile -= tile % per_pass
+    return tile, threads, tile * per + fixed
+
+
 def _ledger_rounds(dm, ptape, dtape, shifts, k0, n, events, uniforms,
                    ledger, sigma, counts, spec_sig):
-    """Rounds [k0, k0+n) of a ledger run, as :func:`_sigma_rounds` with
-    K24."""
+    """Rounds [k0, k0+n) of a ledger run, checked by the caller: the
+    plain version a round on the CPU; on the card one C call that
+    launches K24 once for the n rounds on members resident in shared
+    memory (`k24_tile`), or once a round where a member does not fit a
+    block or n is below `ensemble.K11_RESIDENT_MIN_ROUNDS` (``uniforms``
+    holds rounds [k0, k0+n))."""
     if not cuda.on_card(ptape, "ledger_round"):
         for j in range(n):
             ledger_round_plain(dm, ptape, dtape, shifts[k0 + j], events,
@@ -476,6 +521,8 @@ def _ledger_rounds(dm, ptape, dtape, shifts, k0, n, events, uniforms,
     B, L = ptape.shape
     lib = k1_library(dm)
     g_prog, g_data, beta_eff = ledger
+    tile = (k24_tile(B, L, events, dm.num_specs)
+            if n >= ens.K11_RESIDENT_MIN_ROUNDS else None)
     with torch.cuda.device(ptape.device):
         rc = lib.ckpe_k24_rounds(
             ptape.data_ptr(), dtape.data_ptr(),
@@ -484,9 +531,9 @@ def _ledger_rounds(dm, ptape, dtape, shifts, k0, n, events, uniforms,
             int(B), int(L), int(events), g_prog.data_ptr(),
             g_data.data_ptr(), float(beta_eff), int(dm.num_specs),
             sigma.data_ptr(), counts.data_ptr(), spec_sig.data_ptr(),
-            cuda.stream(ptape))
+            *(tile[:2] if tile else (0, 0)), cuda.stream(ptape))
     cuda.check(rc, "ledger_round", lib)
-    ledger_round.launches += n
+    ledger_round.launches += 1 if tile else n
 
 
 def _check_tables(dm, tables, device):
@@ -549,6 +596,25 @@ def ledger_round(dm, ptape, dtape, shift, events, uniforms, ledger, sigma,
 ledger_round.launches = 0
 
 
+def ledger_rounds(dm, ptape, dtape, shifts, events, uniforms, ledger, sigma,
+                  counts, spec_sig):
+    """``len(shifts)`` K24 rounds on int8 [B, L] tapes in one C call, in
+    place: ``shifts`` int32 [n] (shared) or [n, B] (one a member),
+    ``uniforms`` float32 [n, B, E] (read only by machines with choose
+    nodes), the rest as :func:`ledger_round`. On the card the resident
+    form where it applies (`_ledger_rounds`); CPU tensors take the plain
+    version a round."""
+    shifts = shifts.to(torch.int32).contiguous()
+    n = shifts.shape[0]
+    u = (uniforms.contiguous() if dm.has_choose and uniforms is not None
+         else None)
+    ledger = _ledger_tensors(dm, ledger, ptape.device)
+    _check_rounds(dm, ptape, dtape, shifts, 0, n, events, u,
+                  _ledger_accs(dm, sigma, counts, spec_sig))
+    _ledger_rounds(dm, ptape, dtape, shifts, 0, n, events, u, ledger, sigma,
+                   counts, spec_sig)
+
+
 # --- The runs -----------------------------------------------------------------
 
 
@@ -573,14 +639,16 @@ def _times(num_steps, events, L, device):
 
 
 def _draws(generator, dm, B, L, num_steps, events, independent_sites,
-           device):
+           device, limit=ens._UNIFORM_CHUNK):
     """The run's shifts (int32 [num_steps] or [num_steps, B], over [0,
-    L)) and its chunks of uniforms (`ensemble._draw_chunks`)."""
+    L)) and its chunks of uniforms (`ensemble._draw_chunks`, at most
+    ``limit`` values a chunk)."""
     gen = config.make_generator(generator, device)
     shape = (num_steps, B) if independent_sites else (num_steps,)
     shifts = torch.randint(0, L, shape, generator=gen, device=device,
                            dtype=torch.int32)
-    return shifts, ens._draw_chunks(gen, dm, B, events, num_steps, device)
+    return shifts, ens._draw_chunks(gen, dm, B, events, num_steps, device,
+                                    limit)
 
 
 def _explicit_draws(dm, shifts, uniforms, B, events, device):
@@ -710,7 +778,8 @@ def run_ensemble_ledger(generator, tapes, dm, ledger, steps_events, *,
     device = config.get_device(device)
     pt, dt_ = _start(tapes, dm, events, device)
     shifts, chunks = _draws(generator, dm, pt.shape[0], pt.shape[1],
-                            num_steps, events, independent_sites, device)
+                            num_steps, events, independent_sites, device,
+                            ens._RESIDENT_CHUNK)
     return _ledger_run(dm, pt, dt_, ledger, shifts, chunks, events, device)
 
 

@@ -227,12 +227,16 @@ Phases (each prints its wall time; every check raises on failure):
    `bench_frontier`'s geometry (ex5, K=10^6, L=64, plan (6, 512, 4),
    program tapes over 3 symbols) by the default route (K14 on K15's
    words), with `bitslice=False` (K11) and, on ex2 (ex5 has no choose
-   to temper), at tau 0.5 (K11's tempered rounds): ms a block, the
+   to temper), at tau 0.5 (K11's tempered rounds, resident: a launch a
+   call of 67 rounds, the block's chunk of draws): ms a block, the
    merge's share (K19, the sort, K20 and K21 alone on the final state),
    branch-steps/s and the last block's distinct members; K19 (with and
    without a flag), K20 (the w/m mode and the weight-only one) and K21
-   on the final state, and 4 tempered rounds on ex4 and ex2 at that
-   width, equal to their plain versions bit for bit; (b) config 5 (ex2,
+   on the final state, and tempered rounds on ex4 and ex2 at that
+   width in both forms (a resident call of 8 rounds, a call of 2 a
+   launch a round), equal to their plain versions bit for bit; K11t
+   alone: a resident call of 67 rounds (µs a round) and a one-round
+   call, each beside its bound; (b) config 5 (ex2,
    K=10^7, L=64, plan (3, 512, 4): the equal-weight merge, ex2's
    sampling circuit) with its peak memory, and the same checks; (c)
    `bench_frontier_per_step`'s geometry (K=10^6, L=32, 50 steps) on
@@ -247,7 +251,8 @@ Phases (each prints its wall time; every check raises on failure):
    rounds) against the exact closure by the port's `solve`, the
    example's gate (worst relative deviation of the seed mean < 0.10);
    (e) `weighted_first_passage` at the geometry of the JAX package's
-   test (K=2048, L=64, 24 one-round blocks) against brute force at tau
+   test (K=2048, L=64, 24 one-round blocks: at tau 0.5 K11t's launch a
+   round) against brute force at tau
    1 and 0.5 (the test's budget), and on the L=12 ring the absorbing
    ESS-adaptive harness at tau 0.5 and the hit-flagged and binned ones
    at tau 1 against the port's master equation, checked as each harness
@@ -263,7 +268,8 @@ Phases (each prints its wall time; every check raises on failure):
    just after, no plain version called: (a) `run_ensemble_sigma` on ex2
    and `run_ensemble_ledger` on ex4var2 (examples/ex4var2_ledger.py's G,
    beta_eff 2, its tape mix) at B=16384, L=4096, E=256 for 200 rounds,
-   each kernel launched once a round; ex2's sigma held to the rings'
+   K23 launched once a round, K24 once a C call (resident: its draws
+   come in chunks of 64 rounds, so 4 launches); ex2's sigma held to the rings'
    Ising energy drop (J_eff 2, h -0.25) and ex4var2's to Phi(0) - Phi(T)
    within 1e-8, the counts summing to rounds x E; ms a round by CUDA
    events of that first call, traced by `torch.profiler` (device time
@@ -272,20 +278,25 @@ Phases (each prints its wall time; every check raises on failure):
    call again (warm: the figure that stands) and of one more after the
    allocator's cache is emptied; each kernel alone beside its bound, its
    plain version and K11's round without the sums (no library call: a
-   walk with a table gather); (b) examples/ex2_entropy_production.py's
+   walk with a table gather), K24 as a resident call of 64 rounds (µs a
+   round) and a one-round call (a launch a round), each beside its
+   bound; (b) examples/ex2_entropy_production.py's
    ensemble (B=8192, L=12, E=1, 24 snapshots of 6 rounds, independent
    sites, bridge-sampled rings, the port's generator) held to
    tests/test_thermo.py:432's gates (z < 6 at every snapshot against the
    exact kernel, the IFT within 6 se, mean sig_tot > 0); (c)
    examples/ex4var2_ledger.py's ensemble panel (B=4096, L=128, E=4, 512
-   rounds in 16 calls) and dual panel (cl_k 3, the card's dense dual
+   rounds in 16 calls, each one resident K24 launch) and dual panel
+   (cl_k 3, the card's dense dual
    RHS) held to tests/test_thermo.py:387's claims (book_err, decomp_err,
    gibbs_res below 1e-8, F monotone onto F_gibbs, the fuel strokes at 12
    and 7 nats) and the trajectory to examples/ex4var2_ledger_dual.npz
    within abs 1e-10; (d) K23 on ex2 and
    ex4-chemical-turing (irreversible: n_irrev > 0, its 531,441-window
    tables built on the host) and K24 on ex4var2 and ex2 against their
-   plain versions bit for bit, shared and per-member shifts, at every
+   plain versions bit for bit, shared and per-member shifts, K24 in
+   both forms (single rounds, a launch each, then a resident call of 5
+   rounds), at every
    geometry of (a)-(c): B=16384, L=4096 at E 256 and 1, (b)'s B=8192,
    L=12, E=1 and (c)'s B=4096, L=128, E=4 (the `kernels` line's
    max_abs_err is that of (a)'s shape, machine and shared shifts); (e)
@@ -4247,6 +4258,9 @@ FR_STRIDE = FR_L // FR_E
 FR_K_A, FR_BLOCKS_A = 1_000_000, 6     # (a), bench.py:326-333
 FR_K_B, FR_BLOCKS_B = 10_000_000, 3    # (b), config 5, bench.py:645-658
 FR_K_C, FR_L_C, FR_STEPS_C = 1_000_000, 32, 50  # (c), bench.py:363-392
+# Tempered rounds a C call at (a): the block's draws come in chunks of at
+# most `ensemble._RESIDENT_CHUNK` uniforms (67 rounds at K=10^6, E=4).
+FR_CALL_ROUNDS = ens._RESIDENT_CHUNK // (FR_K_A * FR_E)
 # K22's split a step at (c) in the parent design (a thread a member ranks,
 # a library sort, a thread a slot writes byte by byte), ms, by
 # time_beam_aug.py on an H100 80GB HBM3 at 700 W: M = 1 (ex5's table),
@@ -4414,25 +4428,44 @@ def frontier_kernels_against_plain(label, pt, dt, lw, stride, gen, diff):
     del hs, perm, got
 
 
-def tempered_against_plain(label, dm, pt, dt, lw, gen, diff, n=4):
-    """n tempered rounds at tau 0.5 (K11's increment entry) against the
-    plain tempered round on the card: tapes and lw bit for bit."""
+def tempered_launches(K, L, n):
+    """K11's tempered launches for a call of n rounds: one where the
+    resident form takes it, else one a round."""
+    resident = (n >= ens.K11_RESIDENT_MIN_ROUNDS
+                and ens.k11_tempered_tile(K, L) is not None)
+    return 1 if resident else n
+
+
+def tempered_against_plain(label, dm, pt, dt, lw, gen, diff):
+    """Tempered rounds at tau 0.5 (K11's increment entry) in both forms,
+    a resident call of 8 rounds and a call of 2 (a launch a round),
+    against the plain tempered round on the card: tapes and lw bit for
+    bit, and each call's launches."""
     K, L = pt.shape
-    shifts = torch.randint(0, L // FR_E, (n,), generator=gen,
-                           device=pt.device, dtype=torch.int32)
-    u = torch.rand((n, K, FR_E), generator=gen, device=pt.device)
     k = [pt.clone(), dt.clone(), lw.clone()]
     p = [pt.clone(), dt.clone(), lw.clone()]
-    tfr.tempered_round(dm, k[0], k[1], shifts, FR_E, u, 0.5, k[2])
-    for j in range(n):
-        ens.lattice_round_plain(dm, p[0], p[1], shifts[j], FR_E, u[j],
-                                tau=0.5, lw=p[2])
-    if not diff("K11t", list(zip(k, p))):
-        raise AssertionError(f"tempered round != plain: {label}")
+    for n in (8, 2):
+        shifts = torch.randint(0, L // FR_E, (n,), generator=gen,
+                               device=pt.device, dtype=torch.int32)
+        u = torch.rand((n, K, FR_E), generator=gen, device=pt.device)
+        before = tfr.tempered_round.launches
+        tfr.tempered_round(dm, k[0], k[1], shifts, FR_E, u, 0.5, k[2])
+        got = tfr.tempered_round.launches - before
+        if got != tempered_launches(K, L, n):
+            raise AssertionError(f"{label}: {n} tempered rounds, {got} "
+                                 f"launches")
+        for j in range(n):
+            ens.lattice_round_plain(dm, p[0], p[1], shifts[j], FR_E, u[j],
+                                    tau=0.5, lw=p[2])
+        if not diff("K11t", list(zip(k, p))):
+            raise AssertionError(f"tempered round != plain: {label}, {n} "
+                                 f"rounds")
+        del u
     moved = int((k[2] != lw).sum())
     if not moved:
         raise AssertionError(f"{label}: no increment")
-    say(f"{label}: {n} tempered rounds (tau 0.5) == plain bit for bit; "
+    say(f"{label}: tempered rounds (tau 0.5) == plain bit for bit, a "
+        f"resident call of 8 rounds (1 launch) then a call of 2 (2); "
         f"{moved} of {K} weights moved, {int((k[1] != dt).sum())} data "
         "cells changed")
     return k
@@ -4444,8 +4477,18 @@ def frontier_bytes(K, L):
 
 
 def tempered_bytes(dm, K):
+    """Least bytes of one tempered round that goes to the tapes in global
+    memory: the cells the walk reads and writes, a float32 uniform a
+    site, lw read and written."""
     read, written = k1_source.cell_traffic(dm)
     return K * FR_E * (len(read) + len(written) + 4) + 16 * K
+
+
+def tempered_call_bytes(K, L, n):
+    """Least bytes of a resident call of n tempered rounds: the uniforms
+    and a shift a round, both rows of every member in and out once, lw
+    read and written once."""
+    return n * (K * FR_E * 4 + 4) + 4 * K * L + 16 * K
 
 
 def step_bytes(tab, K, L):
@@ -4740,6 +4783,15 @@ def frontier_phase(dev, kernels):
             "merge_parts_ms": parts}
         if tau != 1.0:
             launches_main["K11t"] = la["K11t"]
+            want = FR_BLOCKS_A * sum(
+                tempered_launches(FR_K_A, FR_L, min(FR_CALL_ROUNDS,
+                                                    FR_ROUNDS - k0))
+                for k0 in range(0, FR_ROUNDS, FR_CALL_ROUNDS))
+            if la["K11t"] != want:
+                raise AssertionError(f"a {label}: K11t launches "
+                                     f"{la['K11t']}, want {want}")
+            say(f"(a) {label}: K11t resident, {FR_CALL_ROUNDS} rounds a "
+                f"call, {la['K11t']} launches")
         else:
             for k in ("K19", "K20", "K21"):
                 launches_main.setdefault(k, la[k])
@@ -4768,23 +4820,44 @@ def frontier_phase(dev, kernels):
                 tempered_against_plain(f"(a) {tag}", dmt, tp, td, lw, gen,
                                        diff)
                 if tag == EX2:
-                    shifts = torch.randint(0, FR_STRIDE, (64,), generator=gen,
-                                           device=dev, dtype=torch.int32)
-                    u = torch.rand((64, FR_K_A, FR_E), generator=gen,
+                    # A call of the block's chunk of rounds (the main
+                    # path's, resident) and a one-round call (a launch a
+                    # round), each beside its bound.
+                    n_call = FR_CALL_ROUNDS
+                    shifts = torch.randint(0, FR_STRIDE, (n_call,),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int32)
+                    u = torch.rand((n_call, FR_K_A, FR_E), generator=gen,
                                    device=dev)
                     lwx = lw.clone()
+                    t_call = cuda_ms(lambda: tfr.tempered_round(
+                        dmt, tp, td, shifts, FR_E, u, 0.5, lwx), 5,
+                        warmup=1) / n_call
                     it = iter(range(10**9))
-                    t_ms = cuda_ms(lambda: tfr.tempered_round(
-                        dmt, tp, td, shifts[next(it) % 64:][:1], FR_E,
+                    t_one = cuda_ms(lambda: tfr.tempered_round(
+                        dmt, tp, td, shifts[next(it) % n_call:][:1], FR_E,
                         u[0:1], 0.5, lwx), 50)
                     t_plain = cuda_ms(lambda: ens.lattice_round_plain(
                         dmt, tp, td, shifts[0], FR_E, u[0], tau=0.5,
                         lw=lwx), 3, warmup=1)
                     times["K11t"] = {
-                        "ms": t_ms, "plain_ms": t_plain,
-                        "bound_ms": tempered_bytes(dmt, FR_K_A)
+                        "ms": t_call, "one_round_ms": t_one,
+                        "plain_ms": t_plain, "call_rounds": n_call,
+                        "tile": ens.k11_tempered_tile(FR_K_A, FR_L),
+                        "bound_ms": tempered_call_bytes(FR_K_A, FR_L, n_call)
+                        / n_call / HBM_BYTES_PER_S * 1e3,
+                        "one_round_bound_ms": tempered_bytes(dmt, FR_K_A)
                         / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                         "library_ms": None}
+                    t = times["K11t"]
+                    say(f"K11t alone ({EX2}, K={FR_K_A}, L={FR_L}, "
+                        f"E={FR_E}, tau 0.5): a resident call of {n_call} "
+                        f"rounds (tile {t['tile']}) {t_call * 1e3:.3f} µs a "
+                        f"round against {t['bound_ms'] * 1e3:.3f}; a "
+                        f"one-round call (a launch a round) "
+                        f"{t_one * 1e3:.3f} µs against "
+                        f"{t['one_round_bound_ms'] * 1e3:.3f}; plain "
+                        f"{t_plain:.3f} ms")
                     del u, lwx
                 del tp, td
         del out, pt, dt, lw, start
@@ -4958,7 +5031,8 @@ def frontier_phase(dev, kernels):
               "K20": f"{FR_K_B} members, equal weights (config 5)",
               "K21": f"int8 [{FR_K_B}, {FR_L}] x2 (config 5)",
               "K22": f"{EX2}'s table, K={FR_K_C}, L={FR_L_C}",
-              "K11t": f"{EX2}, K={FR_K_A}, L={FR_L}, E={FR_E}, tau 0.5"}
+              "K11t": f"{EX2}, K={FR_K_A}, L={FR_L}, E={FR_E}, tau 0.5, "
+                      f"resident calls of {FR_CALL_ROUNDS} rounds"}
     for k, (name, src, replaces) in FR_KERNELS.items():
         t = rows[k]
         kernels[k] = {
@@ -5056,10 +5130,35 @@ def thermo_bytes(dm, kernel, B_, E_, n_tab=0):
     return B_ * E_ * site + 16 * dm.size_a + B_ * (16 + S * (8 + 16))
 
 
+def thermo_call_bytes(dm, B_, L_, E_, n):
+    """Least bytes of a resident K24 call of n rounds: the uniforms (for a
+    machine with choose nodes) and a shift a round, both rows of every
+    member in and out once, G once, and sigma, counts and spec_sig read
+    and written once."""
+    u = B_ * E_ * 4 if dm.has_choose else 0
+    return (n * (u + 4) + 4 * B_ * L_ + 16 * dm.size_a
+            + 2 * B_ * (8 + 12 * dm.num_specs))
+
+
+def ledger_launches(dm, B_, L_, E_, rounds):
+    """K24's launches in a `run_ensemble_ledger` of ``rounds`` rounds: the
+    draws in chunks of at most `ensemble._RESIDENT_CHUNK` uniforms, a
+    chunk a C call, one launch a resident call and one a round
+    otherwise."""
+    per = (max(1, min(rounds, ens._RESIDENT_CHUNK // (B_ * E_)))
+           if dm.has_choose else rounds)
+    tile = tth.k24_tile(B_, L_, E_, dm.num_specs)
+    calls = [min(per, rounds - k0) for k0 in range(0, rounds, per)]
+    return sum(1 if tile and n >= ens.K11_RESIDENT_MIN_ROUNDS else n
+               for n in calls)
+
+
 def thermo_round_against_plain(label, dm, kernel, tapes, E_, per_member,
                                gen, tabs=None, ledger=None, n=2):
     """n rounds of K23 or K24 against the plain version on the card, bit
-    for bit (tapes and accumulators). Returns the kernel's state and the
+    for bit (tapes and accumulators), a round a call (a launch each); for
+    K24 then a call of 5 rounds more (`ledger_rounds`: resident, one
+    launch, where `k24_tile` fits). Returns the kernel's state and the
     largest absolute difference."""
     pt, dt = (t.to(torch.int8).contiguous() for t in tapes)
     B_, L_ = pt.shape
@@ -5089,12 +5188,33 @@ def thermo_round_against_plain(label, dm, kernel, tapes, E_, per_member,
                              *k[2:])
             tth.ledger_round_plain(dm, p[0], p[1], shifts[j], E_, u[j],
                                    ledger, *p[2:])
+    forms = f"{n} one-round calls"
+    if kernel == "K24":
+        n_res = 5
+        sh = torch.randint(-L_, 2 * L_,
+                           (n_res, B_) if per_member else (n_res,),
+                           generator=gen, device=pt.device, dtype=torch.int32)
+        ur = torch.rand((n_res, B_, E_), generator=gen, device=pt.device)
+        before = tth.ledger_round.launches
+        tth.ledger_rounds(dm, k[0], k[1], sh, E_, ur, ledger, *k[2:])
+        got = tth.ledger_round.launches - before
+        tile = tth.k24_tile(B_, L_, E_, dm.num_specs)
+        if got != (1 if tile else n_res):
+            raise AssertionError(f"(d) K24 {label}: {n_res} rounds in one "
+                                 f"call, {got} launches")
+        for j in range(n_res):
+            tth.ledger_round_plain(dm, p[0], p[1], sh[j], E_, ur[j], ledger,
+                                   *p[2:])
+        forms += (f", then a call of {n_res} "
+                  + (f"(resident, tile {tile[0]})" if tile
+                     else "(a launch a round)"))
+        del ur
     err = max(float((a.double() - b.double()).abs().max()) for a, b in
               zip(k, p))
     if not all(torch.equal(a, b) for a, b in zip(k, p)):
         raise AssertionError(f"{kernel} != plain at {label}: {err}")
     changed = int((k[0] != pt).sum() + (k[1] != dt).sum())
-    say(f"(d) {kernel} {label}: {n} rounds == plain bit for bit "
+    say(f"(d) {kernel} {label}: {forms} == plain bit for bit "
         f"({changed} cells changed"
         + (f", n_irrev {int(k[3].sum())}" if kernel == "K23" else "")
         + ")")
@@ -5135,7 +5255,7 @@ def thermo_traced_path(label, fn, kernel):
                         "cudaMemcpyAsync")}
     cpu_top = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])[:4]
     host.update({r[0][:40]: (r[1], r[2] / 1e3) for r in cpu_top})
-    name = "k23_kernel" if kernel == "K23" else "k24_kernel"
+    name = "k23_kernel" if kernel == "K23" else "k24_"
     own = sorted((e.time_range.start, e.time_range.elapsed_us())
                  for e in prof.events()
                  if name in e.name and e.device_type.name == "CUDA")
@@ -5158,17 +5278,18 @@ def thermo_traced_path(label, fn, kernel):
     return got + (out,)
 
 
-def thermo_repeats(label, fn, kernel):
+def thermo_repeats(label, fn, kernel, want):
     """The main path's call again (warm), then once more after the
     allocator's cache is emptied (its buffers taken from the card anew,
-    as on a first call), each launching ``kernel`` once a round."""
+    as on a first call), each launching ``kernel`` ``want`` times and
+    nothing else."""
     out = {}
     for key, what in (("ms_round_warm", "warm"),
                       ("ms_round_emptied", "after empty_cache")):
         if key == "ms_round_emptied":
             torch.cuda.empty_cache()
         _, la, ms, _ = thermo_path(f"{label}, {what}", fn)
-        if la[kernel] != TH_ROUNDS or sum(la.values()) != TH_ROUNDS:
+        if la[kernel] != want or sum(la.values()) != want:
             raise AssertionError(f"{label}, {what}: launches {la}")
         out[key] = ms / TH_ROUNDS
     say(f"(a) {label}: the same call again {out['ms_round_warm']:.4f} ms a "
@@ -5196,7 +5317,7 @@ def thermo_full_width(dev, gen, machines, t2):
     (res, la, ms, sec, trace) = thermo_traced_path("a ex2 sigma", run2,
                                                    "K23")
     (p2f, d2f), sigma, nirr, times = res
-    if la["K23"] != TH_ROUNDS or la["K24"]:
+    if la["K23"] != TH_ROUNDS or la["K24"]:  # K23: a launch a round
         raise AssertionError(f"a ex2: launches {la}")
     book = float((sigma - (ising_energy(dt2, 2.0, -0.25)
                            - ising_energy(d2f, 2.0, -0.25))).abs().max())
@@ -5213,7 +5334,7 @@ def thermo_full_width(dev, gen, machines, t2):
         f"{TH_ROUNDS} rounds: launches {la}, {ms / TH_ROUNDS:.4f} ms a "
         f"round (the first call, draws included), {sec:.3f} s; |sigma - "
         f"beta dH| max {book:.3e}; mean sigma {float(sigma.mean()):.4f}")
-    out["ex2"].update(thermo_repeats("ex2 sigma", run2, "K23"))
+    out["ex2"].update(thermo_repeats("ex2 sigma", run2, "K23", TH_ROUNDS))
     # ex4var2: the ledger from examples/ex4var2_ledger.py's tape mix.
     pt4 = draw_symbols(gen, [6, 7, 8, 9], [0.45, 0.05, 0.42, 0.08],
                        (TH_B, TH_L), dev)
@@ -5226,8 +5347,9 @@ def thermo_full_width(dev, gen, machines, t2):
     (res, la, ms, sec, trace4) = thermo_traced_path("a ex4var2 ledger",
                                                     run4, "K24")
     (p4f, d4f), sig4, (counts, spec_sig), _ = res
-    if la["K24"] != TH_ROUNDS or la["K23"]:
-        raise AssertionError(f"a ex4var2: launches {la}")
+    want4 = ledger_launches(dm4, TH_B, TH_L, TH_E, TH_ROUNDS)
+    if la["K24"] != want4 or la["K23"]:
+        raise AssertionError(f"a ex4var2: launches {la}, want {want4}")
     phiT = tth.tape_potential(p4f, d4f, TH_G_VEC, TH_G_VEC, TH_BETA_EFF)
     book4 = float((sig4 - (phi0 - phiT)).abs().max())
     decomp = float((spec_sig.sum(1) - sig4).abs().max())
@@ -5244,8 +5366,9 @@ def thermo_full_width(dev, gen, machines, t2):
         f"{la}, {ms / TH_ROUNDS:.4f} ms a round (the first call), {sec:.3f} "
         f"s; |sigma - (Phi(0) - Phi(T))| max {book4:.3e}, decomposition "
         f"{decomp:.3e}; mean sigma {float(sig4.mean()):.4f}; counts sum to "
-        f"rounds x E")
-    out["ex4var2"].update(thermo_repeats("ex4var2 ledger", run4, "K24"))
+        f"rounds x E; K24 resident, {want4} launches")
+    out["ex4var2"].update(thermo_repeats("ex4var2 ledger", run4, "K24",
+                                         want4))
     # Each kernel alone on the runs' final tapes, beside K11's round
     # without the sums, its bound and its plain version.
     times = {}
@@ -5284,10 +5407,32 @@ def thermo_full_width(dev, gen, machines, t2):
                          "bytes": by}
         t = times[kernel]
         say(f"{kernel} alone ({dm.tag}, B={TH_B}, L={TH_L}, E={TH_E}): "
+            f"{'a one-round call ' if kernel == 'K24' else ''}"
             f"{ms_k:.4f} ms a round against a bound of "
             f"{t['bound_ms']:.4f} ms ({by / 1e6:.2f} MB, bytes; "
             f"{t['bound_ms'] / ms_k:.4f} of it); plain {ms_p:.3f} ms; K11's "
             f"round without the sums {ms_11:.4f} ms; library: none")
+        if kernel == "K24":
+            # The main path's form: a resident call of a chunk's rounds.
+            n_call = min(TH_ROUNDS, ens._RESIDENT_CHUNK // (TH_B * TH_E))
+            shc = torch.randint(0, TH_L, (n_call,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            uc = torch.rand((n_call, TH_B, TH_E), generator=gen, device=dev)
+            ms_c = cuda_ms(lambda: tth.ledger_rounds(
+                dm, p8, d8, shc, TH_E, uc, ledger, *accs), 5,
+                warmup=1) / n_call
+            byc = thermo_call_bytes(dm, TH_B, TH_L, TH_E, n_call)
+            t.update({"one_round_ms": ms_k, "one_round_bound_ms":
+                      t["bound_ms"], "one_round_bytes": by, "ms": ms_c,
+                      "bound_ms": byc / n_call / HBM_BYTES_PER_S * 1e3,
+                      "bytes": byc, "call_rounds": n_call,
+                      "tile": tth.k24_tile(TH_B, TH_L, TH_E,
+                                           dm.num_specs)})
+            say(f"K24 alone, a resident call of {n_call} rounds (tile "
+                f"{t['tile']}): {ms_c:.4f} ms a round against a bound of "
+                f"{t['bound_ms']:.4f} ms ({byc / 1e6:.2f} MB a call; "
+                f"{t['bound_ms'] / ms_c:.4f} of it)")
+            del uc
         del p8, d8, u, accs
     del pt2, dt2, p2f, d2f, pt4, dt4, p4f, d4f, counts, spec_sig
     torch.cuda.empty_cache()
@@ -5406,8 +5551,10 @@ def ledger_example(dev, gen, dm4):
         return pt, dt_, sig, counts, spec_sig
 
     (pt, dt_, sig, counts, spec_sig), la, ms, sec = thermo_path("c", run)
-    if la["K24"] != LG["rounds"]:
-        raise AssertionError(f"c: launches {la}")
+    want = LG["chunks"] * ledger_launches(dm4, Bm, Lr, Er,
+                                          LG["rounds"] // LG["chunks"])
+    if la["K24"] != want:
+        raise AssertionError(f"c: launches {la}, want {want}")
     phiT = tth.tape_potential(pt, dt_, *ledger)
     book = float((sig - (phi0 - phiT)).abs().max())
     decomp = float((spec_sig.sum(1) - sig).abs().max())

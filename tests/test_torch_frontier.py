@@ -162,6 +162,90 @@ def test_tempered_unit_rule_matches_plain(tag, tmp_path):
         assert torch.equal(got, w)
 
 
+_TEMPERED_UNITS = {}
+
+
+def _tempered_unit(tag, tmp_path_factory):
+    """The generated unit of ``tag`` at tau 0.5, built once with the
+    host's compiler."""
+    cxx = next((c for c in ("g++", "c++", "clang++") if shutil.which(c)),
+               None)
+    if cxx is None:
+        pytest.skip("no C++ compiler (g++, c++, clang++) on PATH")
+    if tag not in _TEMPERED_UNITS:
+        d = tmp_path_factory.mktemp("tempered_unit")
+        (d / "unit.cpp").write_text(k1_source.k1_source(_dm(tag)[1], 0.5))
+        subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O1",
+                        "-ffp-contract=off", "-shared", "-fPIC", "-I",
+                        str(cuda.CSRC_DIR), "-o", str(d / "librule.so"),
+                        str(d / "unit.cpp")], check=True,
+                       capture_output=True, timeout=300)
+        _TEMPERED_UNITS[tag] = ctypes.CDLL(str(d / "librule.so"))
+    return _TEMPERED_UNITS[tag]
+
+
+@pytest.mark.parametrize("tag,L,E,tile,threads,n,k0", [
+    ("ex2-ferromagnetic-chain", 64, 4, 5, 3, 6, 2),
+    ("ex2-ferromagnetic-chain", 64, 4, 13, 32, 1, 0),
+    ("ex2-ferromagnetic-chain", 48, 3, 4, 4, 4, 0),
+    ("ex4-chemical-turing", 96, 8, 6, 4, 5, 1),
+    ("ex4-chemical-turing", 60, 5, 4, 2, 4, 3)])
+def test_tempered_resident_rounds_match_plain(tag, L, E, tile, threads, n,
+                                              k0, tmp_path_factory):
+    """K11's resident tempered rounds as their host twin runs them
+    (`csrc/lattice_round.cuh:ckpe_k11_host_resident_logp`: rows loaded
+    into the tile's buffer, a thread a member for all n rounds with its
+    log-weight held, rows written back, tile after tile) equal n rounds
+    of `lattice_round_plain(tau=0.5, lw=...)`: tapes and lw bit for bit;
+    tiles that split B unevenly, fewer threads than members, n = 1 and n
+    >= 4, a call from k0 > 0, shifts outside [0, L), four sites at a time
+    by the lane walk with a sum a lane (E a multiple of 4) and a site at
+    a time (E = 3, 5), symbols out of range (the exact walk)."""
+    _, tdm = _dm(tag)
+    fn = _tempered_unit(tag, tmp_path_factory).ckpe_k11_host_resident_logp
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [P] * 4 + [I] * 5 + [P, I, I]
+    fn.restype = I
+    rng = np.random.RandomState(17 + L + E)
+    B = 13
+    if tag == "ex4-chemical-turing":  # its tape mix, where chooses fire
+        pt = rng.choice([5, 6], (B, L)).astype(np.int8)
+        dt = rng.choice([0, 4, 5], (B, L)).astype(np.int8)
+    else:
+        pt = rng.randint(0, tdm.size_a, (B, L)).astype(np.int8)
+        dt = rng.randint(0, tdm.size_a, (B, L)).astype(np.int8)
+    pt[0, ::11] = tdm.size_a + 2
+    dt[1, ::7] = -3
+    shifts = rng.randint(-L, 2 * L, k0 + n).astype(np.int32)
+    u = rng.rand(n, B, E).astype(np.float32)
+    lw = rng.randn(B)
+    kp, kd, klw = pt.copy(), dt.copy(), lw.copy()
+    assert fn(kp.ctypes.data, kd.ctypes.data, u.ctypes.data,
+              shifts.ctypes.data, k0, n, B, L, E, klw.ctypes.data, tile,
+              threads) == 0
+    p, d, w = _t(pt.copy()), _t(dt.copy()), _t(lw.copy())
+    for j in range(n):
+        tens.lattice_round_plain(tdm, p, d, _t(shifts)[k0 + j:k0 + j + 1], E,
+                                 _t(u[j]), tau=0.5, lw=w)
+    np.testing.assert_array_equal(kp, p.numpy())
+    np.testing.assert_array_equal(kd, d.numpy())
+    np.testing.assert_array_equal(klw, w.numpy())
+    if tag == "ex2-ferromagnetic-chain":  # every site chooses (ex4 seldom)
+        assert (klw != lw).all()
+    assert (kp != pt).any() or (kd != dt).any()
+
+
+def test_tempered_tile_by_geometry():
+    """`ensemble.k11_tempered_tile`: phase 12 (a)'s K = 10^6, L = 64 keeps
+    512 members a block (two blocks an SM), a small K spreads over the
+    SMs, and rows past a block's shared memory take the launch a round."""
+    assert tens.k11_odd_stride(64) == 68 and tens.k11_odd_stride(61) == 68
+    assert tens.k11_odd_stride(4096) == 4100
+    assert tens.k11_tempered_tile(10**6, 64) == (512, 512, 512 * 136)
+    assert tens.k11_tempered_tile(4096, 64) == (16, 32, 16 * 136)
+    assert tens.k11_tempered_tile(8, 131_072) is None
+
+
 # --- K19 -------------------------------------------------------------------------
 
 

@@ -1602,14 +1602,17 @@ def test_frontier_step_kernel_matches_plain(cuda, tag, start, L):
                 assert bool(torch.isinf(k[2]).any())
 
 
+@pytest.mark.parametrize("n", [1, 3, 6])
 @pytest.mark.parametrize("tag", ["ex2-ferromagnetic-chain",
                                  "ex4-chemical-turing"])
-def test_tempered_round_kernel_matches_plain(cuda, tag):
+def test_tempered_round_kernel_matches_plain(cuda, tag, n):
     """K11's tempered rounds (tau 0.5) equal the plain tempered round on
-    the card: tapes and log-weights bit for bit."""
+    the card: tapes and log-weights bit for bit, in both forms: a call
+    of n >= 4 rounds is one resident launch, a shorter call a launch a
+    round."""
     dm = tens.compile_decision_machine(tag)
     rng = np.random.RandomState(6)
-    K, L, E, n = 8192, 64, 4, 6
+    K, L, E = 8192, 64, 4
     pt, dt = _frontier_tapes(rng, K, L, dm.size_a, cuda)
     lw = torch.as_tensor(rng.normal(size=K), device=cuda)
     shifts = torch.as_tensor(rng.randint(0, L // E, n), dtype=torch.int32,
@@ -1619,7 +1622,7 @@ def test_tempered_round_kernel_matches_plain(cuda, tag):
     p = [pt.clone(), dt.clone(), lw.clone()]
     launches = tfr.tempered_round.launches
     tfr.tempered_round(dm, k[0], k[1], shifts, E, u, 0.5, k[2])
-    assert tfr.tempered_round.launches == launches + n
+    assert tfr.tempered_round.launches == launches + (1 if n >= 4 else n)
     for j in range(n):
         tens.lattice_round_plain(dm, p[0], p[1], shifts[j], E, u[j], tau=0.5,
                                  lw=p[2])
@@ -1627,9 +1630,41 @@ def test_tempered_round_kernel_matches_plain(cuda, tag):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("K,L,E,n", [(1_000_000, 64, 4, 8),
+                                     (4099, 60, 5, 5), (8, 131_072, 4, 4)])
+def test_tempered_resident_matches_plain_at_width(cuda, K, L, E, n):
+    """K11's tempered entry on ex2 at tau 0.5 at phase 12 (a)'s width (K =
+    10^6, L = 64: 512 members a block), at a tile that splits K unevenly
+    with five sites a member (a site at a time), and at rows too long to
+    keep resident (a launch a round): tapes and lw bit for bit against
+    the plain round; launches 1 where the tile fits, else n."""
+    dm = tens.compile_decision_machine("ex2-ferromagnetic-chain")
+    rng = np.random.RandomState(K % 1000 + L)
+    pt, dt = _frontier_tapes(rng, K, L, dm.size_a, cuda)
+    dt[::97, ::13] = 5  # out of range: the exact walk
+    lw = torch.as_tensor(rng.normal(size=K), device=cuda)
+    shifts = torch.as_tensor(rng.randint(0, L // E, n), dtype=torch.int32,
+                             device=cuda)
+    u = torch.rand((n, K, E), device=cuda,
+                   generator=torch.Generator(device=cuda).manual_seed(K))
+    k = [pt.clone(), dt.clone(), lw.clone()]
+    p = [pt.clone(), dt.clone(), lw.clone()]
+    launches = tfr.tempered_round.launches
+    tfr.tempered_round(dm, k[0], k[1], shifts, E, u, 0.5, k[2])
+    resident = tens.k11_tempered_tile(K, L) is not None
+    assert tfr.tempered_round.launches == launches + (1 if resident else n)
+    for j in range(n):
+        tens.lattice_round_plain(dm, p[0], p[1], shifts[j], E, u[j], tau=0.5,
+                                 lw=p[2])
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+    assert bool((k[2] != lw).any())
+
+
 def test_blocked_frontier_on_card_runs_kernels(cuda):
     """The blocked frontier and the per-step beam on the card launch
-    K11 (tempered), K19, K20, K21 and K22 and call no plain version."""
+    K11 (tempered: one resident launch for each block's 8 rounds), K19,
+    K20, K21 and K22 and call no plain version."""
     dm = tens.compile_decision_machine("ex2-ferromagnetic-chain")
     rng = np.random.RandomState(8)
     K, L = 4096, 64
@@ -1645,7 +1680,7 @@ def test_blocked_frontier_on_card_runs_kernels(cuda):
         3, tapes, lw, dm, (2, 8, 4), tau=0.5)
     assert [tfr.content_hash.launches, tfr.merge_resample.launches,
             tfr.gather_pair.launches, tfr.tempered_round.launches] == [
-        counts[0] + 2, counts[1] + 2, counts[2] + 2, counts[3] + 16]
+        counts[0] + 2, counts[1] + 2, counts[2] + 2, counts[3] + 2]
     assert abs(float(torch.logsumexp(lw2, 0))) < 1e-12
     assert nu.shape == (2,) and int(nu.min()) >= 1
     tab = tens.device_table(
@@ -1777,6 +1812,11 @@ def test_ledger_round_kernel_matches_plain(cuda, tag, L, E, per_member):
         assert all(torch.equal(a, b) for a, b in zip(k, p)), j
     assert thermo.ledger_round.launches == launches + n
     assert int(k[3].sum()) == B * E * n and k[2].abs().max() > 0
+    # The same rounds in one call: one resident launch.
+    r = [x.clone() for x in start] + [torch.zeros_like(x) for x in k[2:]]
+    thermo.ledger_rounds(dm, r[0], r[1], s_t, E, u_t, g, *r[2:])
+    assert thermo.ledger_round.launches == launches + n + 1
+    assert all(torch.equal(a, b) for a, b in zip(r, p))
     run = thermo.run_ensemble_ledger_from_draws((pt, dt), dm, g, s_t, E, u_t,
                                                 device=cuda)
     cpu = thermo.run_ensemble_ledger_from_draws((pt, dt), dm, g, shifts, E,
@@ -1785,10 +1825,48 @@ def test_ledger_round_kernel_matches_plain(cuda, tag, L, E, per_member):
         assert torch.equal(a.cpu(), b)
 
 
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("B,L,E", [(16384, 4096, 256), (16384, 4096, 1),
+                                   (8192, 12, 1), (4096, 128, 4),
+                                   (333, 1000, 5), (8, 131_072, 4)])
+def test_ledger_resident_matches_plain_at_widths(cuda, B, L, E, per_member):
+    """K24's resident form at phase 13's geometries ((a) at E 256 and 1,
+    (b), (c)), at a tile that splits B unevenly with five sites a member,
+    and at rows too long to keep (a launch a round), on ex4var2 with a
+    tenth of the cells outside [0, size_a): five rounds in one call equal
+    five plain rounds, tapes, sigma, counts and spec_sig bit for bit;
+    launches 1 where the tile fits, else 5."""
+    tag = "ex4var2-chemical-turing"
+    dm = tens.compile_decision_machine(tag)
+    rng = np.random.RandomState(B % 977 + E)
+    n, S = 5, dm.num_specs
+    g = (rng.randn(dm.size_a), rng.randn(dm.size_a), 1.7)
+    pt, dt = _thermo_start(rng, tag, B, L, odd=True)
+    shifts, u = _thermo_draws(rng, B, L, E, n, per_member)
+    k = [torch.as_tensor(x, device=cuda).to(torch.int8) for x in (pt, dt)] + [
+        torch.as_tensor(rng.randn(B), device=cuda),
+        torch.as_tensor(rng.randint(0, 9, (B, S)).astype(np.int32),
+                        device=cuda),
+        torch.as_tensor(rng.randn(B, S), device=cuda)]
+    p = [x.clone() for x in k]
+    s_t, u_t = shifts.to(cuda), u.to(cuda)
+    g_t = (torch.as_tensor(g[0], device=cuda),
+           torch.as_tensor(g[1], device=cuda), g[2])
+    launches = thermo.ledger_round.launches
+    thermo.ledger_rounds(dm, k[0], k[1], s_t, E, u_t, g, *k[2:])
+    resident = thermo.k24_tile(B, L, E, S) is not None
+    assert thermo.ledger_round.launches == launches + (1 if resident else n)
+    for j in range(n):
+        thermo.ledger_round_plain(dm, p[0], p[1], s_t[j], E, u_t[j], g_t,
+                                  *p[2:])
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+
+
 def test_thermo_runs_on_card_launch_kernels(cuda):
-    """`run_ensemble_sigma` and `run_ensemble_ledger` on the card launch
-    K23 and K24 once a round and call no plain version; the ledger keeps
-    its bookkeeping identity."""
+    """`run_ensemble_sigma` on the card launches K23 once a round and
+    `run_ensemble_ledger` K24 once for its 30 rounds (one chunk of draws,
+    resident), and neither calls a plain version; the ledger keeps its
+    bookkeeping identity."""
     dm, _, tabs = _thermo_tables("ex2-ferromagnetic-chain", cuda)
     rng = np.random.RandomState(25)
     tapes = _thermo_start(rng, "ex2-ferromagnetic-chain", 512, 256)
@@ -1806,7 +1884,7 @@ def test_thermo_runs_on_card_launch_kernels(cuda):
                                  g, 2.0)
     (pt, dt), sigma, (counts, spec_sig), _ = thermo.run_ensemble_ledger(
         4, tapes, dm4, (g, g, 2.0), (30, 8))
-    assert thermo.ledger_round.launches == n24 + 30
+    assert thermo.ledger_round.launches == n24 + 1
     assert (thermo.sigma_round_plain.calls,
             thermo.ledger_round_plain.calls) == before
     phi_t = thermo.tape_potential(pt, dt, g, g, 2.0)

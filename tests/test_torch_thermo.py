@@ -540,6 +540,76 @@ def test_generated_ledger_round_matches_plain(tag, per_member, E,
     assert int(counts.sum() - want[3].sum()) == 0
 
 
+@pytest.mark.parametrize("tag,L,E,tile,threads,n,k0,per_member", [
+    (EX4V2, 64, 4, 5, 7, 6, 2, False),
+    (EX4V2, 64, 4, 3, 64, 4, 0, True),
+    (EX4V2, 60, 5, 4, 9, 5, 1, True),
+    (EX4V2, 72, 6, 13, 32, 1, 0, False),
+    (EX2, 64, 8, 4, 3, 4, 3, False),
+    (EX2, 64, 1, 6, 5, 7, 0, True)])
+def test_resident_ledger_rounds_match_plain(tag, L, E, tile, threads, n, k0,
+                                            per_member, tmp_path_factory):
+    """K24's resident rounds as their host twin runs them
+    (`csrc/thermo_round.cuh:ckpe_k24_host_resident`: rows and
+    accumulators loaded into the tile's buffer, each round's walk staging
+    its sites' increments and specs, then the ordered sums, a thread a
+    member's sigma and a thread a (member, spec), all written back once,
+    tile after tile) equal n rounds of `ledger_round_plain`: tapes,
+    sigma, counts and spec_sig bit for bit onto nonzero starting values;
+    tiles that split B unevenly, fewer threads than a phase's items, n =
+    1 and n >= 4, a call from k0 > 0, shared and per-member shifts past L
+    and below 0, four sites a thread by the lane walk (E a multiple of 4)
+    and a site a thread (E = 1, 5, 6), a tenth of the cells outside [0,
+    size_a)."""
+    lib = _unit(tag, tmp_path_factory)
+    _, tdm = _dm(tag)
+    B, S = 13, tdm.num_specs
+    rng = np.random.RandomState(L + E + n)
+    pt, dt = _start(tag, B, L, L + E)
+    for t in (pt, dt):
+        odd = rng.rand(B, L) < 0.1
+        t[odd] = rng.randint(-3, tdm.size_a + 3, int(odd.sum()))
+    pt, dt = pt.astype(np.int8), dt.astype(np.int8)
+    shape = (k0 + n, B) if per_member else (k0 + n,)
+    shifts = rng.randint(-2 * L, 3 * L, shape).astype(np.int32)
+    u = rng.rand(n, B, E).astype(np.float32)
+    gp, gd = rng.randn(tdm.size_a), rng.randn(tdm.size_a)
+    accs = [rng.randn(B), rng.randint(0, 9, (B, S)).astype(np.int32),
+            rng.randn(B, S)]
+    got = [pt.copy(), dt.copy()] + [a.copy() for a in accs]
+    fn = lib.ckpe_k24_host_resident
+    fn.argtypes = [_P] * 4 + [_I] * 6 + [_P, _P, ctypes.c_double, _I, _P,
+                                         _P, _P, _I, _I]
+    fn.restype = _I
+    assert fn(*(x.ctypes.data for x in (*got[:2], u, shifts)),
+              int(per_member), k0, n, B, L, E, gp.ctypes.data, gd.ctypes.data,
+              1.7, S, *(x.ctypes.data for x in got[2:]), tile, threads) == 0
+    want = [torch.as_tensor(x.copy()) for x in [pt, dt] + accs]
+    for j in range(n):
+        thermo.ledger_round_plain(tdm, want[0], want[1],
+                                  torch.as_tensor(shifts[k0 + j]), E,
+                                  torch.as_tensor(u[j]),
+                                  (torch.as_tensor(gp), torch.as_tensor(gd),
+                                   1.7), *want[2:])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert int(got[3].sum() - accs[1].sum()) == B * E * n
+    assert (got[2] != accs[0]).any() and (got[4] != accs[2]).any()
+
+
+def test_k24_tile_by_geometry():
+    """`k24_tile`: phase 13 (a)'s geometry on ex4var2 fits 10 members a
+    block at two blocks an SM and keeps 8, the walk's whole passes of 512
+    threads; at E = 1 13; (c)'s spreads B over the SMs; rows past a
+    block's shared memory take the launch a round."""
+    S = _dm(EX4V2)[1].num_specs
+    per = 2 * 4100 + 8 * (1 + S + 257) + 4 * S + 4 * 65
+    assert thermo.k24_tile(16384, 4096, 256, S) == (8, 512, 8 * per + 4096)
+    assert thermo.k24_tile(16384, 4096, 1, S)[:2] == (13, 256)
+    assert thermo.k24_tile(4096, 128, 4, S)[:2] == (16, 256)
+    assert thermo.k24_tile(8, 131_072, 4, S) is None
+
+
 def test_round_wrappers_run_plain_on_cpu():
     """`sigma_round` and `ledger_round` on CPU tensors run their plain
     versions (one call each, no launch) and equal them."""
