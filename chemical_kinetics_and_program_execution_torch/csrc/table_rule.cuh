@@ -41,19 +41,26 @@ K10_FN int k10_col(long long a, int L) {
   return (int)(r < 0 ? r + L : r);
 }
 
-// The row of a window of ``n`` cells by the reference's rule.
-K10_FN int k10_row(const int* cells, const int* pv, int n, int rows) {
-  uint32_t rank = 0;
-  for (int j = 0; j < n; ++j)
-    rank += (uint32_t)cells[j] * (uint32_t)pv[j];
+// The row of a window's wrapped radix sum by the gather's index rule.
+K10_FN int k10_clamp_row(uint32_t rank, int rows) {
   int r = (int)rank;
   if (r < 0) r += rows;
   return r < 0 ? 0 : (r >= rows ? rows - 1 : r);
 }
 
-// #(u > cum[m]) over the row's M slots, capped at M - 1.
+// The row of a window of ``n`` cells by the reference's rule.
+K10_FN int k10_row(const int* cells, const int* pv, int n, int rows) {
+  uint32_t rank = 0;
+  for (int j = 0; j < n; ++j)
+    rank += (uint32_t)cells[j] * (uint32_t)pv[j];
+  return k10_clamp_row(rank, rows);
+}
+
+// #(u > cum[m]) over the row's M slots, capped at M - 1: 0 where M == 1
+// whatever u, so no slot is read then.
 template <typename T>
 K10_FN int k10_slot(const T* cum, int M, T u) {
+  if (M == 1) return 0;
   int k = 0;
   for (int m = 0; m < M; ++m) k += u > cum[m] ? 1 : 0;
   return k < M - 1 ? k : M - 1;
@@ -105,10 +112,10 @@ extern "C" int ckpe_k10_host_round(int* p, int* d, const void* u, int u_f64,
       const long long i = (long long)b * E + e;
       if (u_f64)
         k10_site<double>(t, p + (long long)b * L, d + (long long)b * L, L,
-                         base, ((const double*)u)[i]);
+                         base, M > 1 ? ((const double*)u)[i] : 0.0);
       else
         k10_site<float>(t, p + (long long)b * L, d + (long long)b * L, L,
-                        base, ((const float*)u)[i]);
+                        base, M > 1 ? ((const float*)u)[i] : 0.0f);
     }
   return 0;
 }

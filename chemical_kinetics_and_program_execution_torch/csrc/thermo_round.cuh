@@ -16,16 +16,25 @@
 // land on the same cells as in K11 and in the reference, whose thermo
 // rounds always roll over [0, L).
 //
-// Design. K23: one thread a member walks its E sites in site order, a
-// launch a round. Site e at shift s reads window cell j of a tape with
-// read offset lo at column (s + lo + e*stride + j) mod L and stores only
-// the cells its spec changes (the caller's geometry check keeps a
-// member's windows disjoint). K23 forms the combined window rank
-// (program cells then data cells, big-endian; out-of-range symbols by
-// the reference's gather rule), reads sigma[w, spec] and irrev[w, spec],
-// takes 0 where the jump is irreversible and counts it; a member's site
-// increments are summed from 0 in site order and that sum is added once
-// to its float64 sigma.
+// Design. K23: site e at shift s reads window cell j of a tape with read
+// offset lo at column (s + lo + e*stride + j) mod L and stores only the
+// cells its spec changes (the caller's geometry check keeps a member's
+// windows disjoint). K23 forms the combined window rank (program cells
+// then data cells, big-endian; out-of-range symbols by the reference's
+// gather rule), reads sigma[w, spec] and irrev[w, spec], takes 0 where
+// the jump is irreversible and counts it; a member's site entries are
+// summed from 0 in site order and that sum is added once to its float64
+// sigma. Resident rounds, in K24's form (below): a block owns a tile of
+// members for every round of a C call, both rows (an odd count of words
+// a row), sigma and n_irrev in shared memory, and the tables too where
+// they fit (ex2's 16 x 3; the caller chooses by their size,
+// `ops/thermo.py:k23_tile`). A round's walk runs four sites a thread by
+// K1's lane walk where E % 4 == 0, else a site a thread, and stages each
+// site's entry (0.0 where irreversible) and flag; after a barrier a
+// thread a member sums the entries from 0 in site order and counts the
+// flags. Rows too long for a block and calls of fewer than four rounds
+// keep `k23_kernel`: a thread a member walks its E sites in order in
+// global memory, a launch a round.
 //
 // K24: resident rounds, as K11's (`lattice_round.cuh`). A block owns a
 // tile of members for every round of a C call: both rows (an odd count
@@ -52,9 +61,9 @@
 // and a byte of irrev a (window, spec); K24: two float64 potentials a
 // symbol) and reads and writes the per-member accumulators (K23: sigma
 // float64 and n_irrev int32; K24: sigma, and counts int32 and spec_sig
-// float64 a spec). Over a resident K24 call of n rounds the rows and
-// accumulators cross once each way and each round moves only its shifts
-// and uniforms.
+// float64 a spec). Over a resident call of n rounds (K23 or K24) the
+// rows and accumulators cross once each way and each round moves only
+// its shifts and uniforms.
 
 #pragma once
 
@@ -63,6 +72,14 @@
 K1_FN long long k23_index(long long i, long long n) {
   if (i < 0) i += n;
   return i < 0 ? 0 : (i >= n ? n - 1 : i);
+}
+
+// Rows of K23's tables: K1_SIZE_A^K1_N_CELLS window ranks.
+K11_HD long long k23_rows() {
+  long long rows = 1;
+#pragma unroll
+  for (int k = 0; k < K1_N_CELLS; ++k) rows *= K1_SIZE_A;
+  return rows;
 }
 
 K1_FN long long k23_base(const int* shifts, int per_member, int b, int e,
@@ -77,9 +94,7 @@ K1_FN void k23_member(int b, int8_t* p, int8_t* d, const float* u,
                       const int* shifts, int per_member, int L, int E,
                       const double* sig_tab, const uint8_t* irr_tab, int S,
                       double* sigma, int* n_irrev) {
-  long long rows = 1;
-#pragma unroll
-  for (int k = 0; k < K1_N_CELLS; ++k) rows *= K1_SIZE_A;
+  const long long rows = k23_rows();
   int8_t* prow = p + (long long)b * L;
   int8_t* drow = d + (long long)b * L;
   double s = 0.0;
@@ -323,6 +338,174 @@ K1_FN void k24_tile_sums(int tid, int nt, const K24Tile& t, int m, int E,
   }
 }
 
+// --- K23's resident rounds, in K24's form: the walk stages each site's
+// table entry (0.0 where irreversible) and flag, then a thread a member
+// sums the entries from 0 in site order and counts the flags.
+
+// Shared memory of a tile: both rows a member (`k11_odd_stride`); float64
+// the staged table (``n_tab`` entries, each sigma or 0.0 where
+// irreversible; 0 where the tables stay in global memory), sigma and the
+// round's entries (an odd count a member, `k24_sig_stride`); int32
+// n_irrev; the round's flags (a byte a site, an odd count of words,
+// `k24_spec_stride`); the staged table's irreversible flags (a byte an
+// entry).
+K11_HD long long k23_tile_bytes(int tile, int L, int E, long long n_tab) {
+  return 2LL * tile * k11_odd_stride(L) +
+         8LL * (n_tab + (long long)tile * (1 + k24_sig_stride(E))) +
+         4LL * tile + (long long)tile * k24_spec_stride(E) + n_tab;
+}
+
+struct K23Tile {
+  int8_t* sp;      // program rows [tile, Ls]
+  int8_t* sd;      // data rows
+  double* tab;     // the staged table [n_tab]: sigma, 0.0 where irreversible
+  double* sigma;   // [tile]
+  double* stage;   // the round's site entries [tile, Es]
+  int* nirr;       // n_irrev [tile]
+  uint8_t* flag;   // the round's irreversible flags [tile, Ep]
+  uint8_t* irr;    // the staged table's flags [n_tab]
+  long long n_tab;
+  int Ls, Es, Ep;
+};
+
+K11_HD K23Tile k23_tile_at(unsigned char* smem, int tile, int L, int E,
+                           long long n_tab) {
+  K23Tile t;
+  t.n_tab = n_tab;
+  t.Ls = k11_odd_stride(L);
+  t.Es = k24_sig_stride(E);
+  t.Ep = k24_spec_stride(E);
+  t.sp = (int8_t*)smem;
+  t.sd = t.sp + (long long)tile * t.Ls;
+  t.tab = (double*)(t.sd + (long long)tile * t.Ls);
+  t.sigma = t.tab + n_tab;
+  t.stage = t.sigma + tile;
+  t.nirr = (int*)(t.stage + (long long)tile * t.Es);
+  t.flag = (uint8_t*)(t.nirr + tile);
+  t.irr = t.flag + (long long)tile * t.Ep;
+  return t;
+}
+
+// Loads (or, with ``load`` false, stores) the tile's sigma and n_irrev of
+// members [b0, b0+m); a load also stages the tables where t.n_tab > 0.
+K1_FN void k23_tile_accs(int tid, int nt, const K23Tile& t, int m, int b0,
+                         const double* sig_tab, const uint8_t* irr_tab,
+                         double* sigma, int* n_irrev, bool load) {
+  if (load)
+    for (long long x = tid; x < t.n_tab; x += nt) {
+      const bool f = irr_tab[x] != 0;
+      t.tab[x] = f ? 0.0 : sig_tab[x];
+      t.irr[x] = f ? 1 : 0;
+    }
+  for (int i = tid; i < m; i += nt) {
+    if (load) {
+      t.sigma[i] = sigma[b0 + i];
+      t.nirr[i] = n_irrev[b0 + i];
+    } else {
+      sigma[b0 + i] = t.sigma[i];
+      n_irrev[b0 + i] = t.nirr[i];
+    }
+  }
+}
+
+// Site e of tile member i, its window cells ``c`` before the writes: the
+// entry at (the window's rank by the gather rule, spec), 0.0 where the
+// jump is irreversible, and its flag, staged; from the staged table, or
+// from the tables in global memory.
+K1_FN void k23_stage(const K23Tile& t, int i, int e, const int* c, int spec,
+                     int S, const double* sig_tab, const uint8_t* irr_tab) {
+  long long w = 0;
+#pragma unroll
+  for (int k = 0; k < K1_N_CELLS; ++k) w = w * K1_SIZE_A + c[k];
+  const long long at = k23_index(w, k23_rows()) * S + spec;
+  bool f;
+  double v;
+  if (t.n_tab) {
+    f = t.irr[at] != 0;
+    v = t.tab[at];
+  } else {
+    f = irr_tab[at] != 0;
+    v = f ? 0.0 : sig_tab[at];
+  }
+  t.stage[(long long)i * t.Es + e] = v;
+  t.flag[(long long)i * t.Ep + e] = f ? 1 : 0;
+}
+
+// One round's walk of the tile's m members, as `k24_tile_sites`: four
+// sites a thread by the lane walk where E % 4 == 0, neighbouring threads
+// on neighbouring members, else a site a thread; each site staged
+// (`k23_stage`).
+K1_FN void k23_tile_sites(int tid, int nt, const K23Tile& t, int m, int L,
+                          int E, int b0, const float* u, const int* sh,
+                          int per_member, int S, const double* sig_tab,
+                          const uint8_t* irr_tab) {
+  const int stride = L / E;
+  if (E % 4 == 0) {
+    const int q = E / 4;
+    for (int w = tid; w < m * q; w += nt) {
+      const int gi = w / m;
+      const int i = w - gi * m;
+      const int e0 = 4 * gi;
+      uint32_t x[K1_N_CELLS], y[K1_N_CELLS];
+      const uint32_t spec = k11_four_sites(
+          t.sp + (long long)i * t.Ls, t.sd + (long long)i * t.Ls, L,
+          sh[per_member ? b0 + i : 0], e0, stride,
+          K1_CHOOSE ? u + (long long)(b0 + i) * E + e0 : nullptr, nullptr, x,
+          y);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int c[K1_N_CELLS];
+#pragma unroll
+        for (int k = 0; k < K1_N_CELLS; ++k)
+          c[k] = (int)(int8_t)(uint8_t)(x[k] >> (8 * j));
+        k23_stage(t, i, e0 + j, c, (int)((spec >> (8 * j)) & 0xffu), S,
+                  sig_tab, irr_tab);
+      }
+    }
+    return;
+  }
+  for (int w = tid; w < m * E; w += nt) {
+    const int i = w / E;
+    const int e = w - i * E;
+    int c[K1_N_CELLS], y[K1_N_CELLS];
+    const int spec = k11_site(
+        t.sp + (long long)i * t.Ls, t.sd + (long long)i * t.Ls, L,
+        (long long)sh[per_member ? b0 + i : 0] + (long long)e * stride,
+        K1_CHOOSE ? (double)u[(long long)(b0 + i) * E + e] : 0.0, nullptr, c,
+        y);
+    k23_stage(t, i, e, c, spec, S, sig_tab, irr_tab);
+  }
+}
+
+// Then a thread a member: sigma[i] += its staged entries from 0 in site
+// order, four a step with their loads ahead of the adds; n_irrev[i] +=
+// its flags, a word of four at a time (each byte 0 or 1, so the
+// product's top byte is their sum).
+K1_FN void k23_tile_sums(int tid, int nt, const K23Tile& t, int m, int E) {
+  for (int i = tid; i < m; i += nt) {
+    const double* st = t.stage + (long long)i * t.Es;
+    const uint8_t* fl = t.flag + (long long)i * t.Ep;
+    const int E4 = E & ~3;
+    double s = 0.0;
+    int n = 0;
+    for (int e = 0; e < E4; e += 4) {
+      const double v0 = st[e], v1 = st[e + 1], v2 = st[e + 2],
+                   v3 = st[e + 3];
+      n += (int)((*(const uint32_t*)(fl + e) * 0x01010101u) >> 24);
+      s = s + v0;
+      s = s + v1;
+      s = s + v2;
+      s = s + v3;
+    }
+    for (int e = E4; e < E; ++e) {
+      s = s + st[e];
+      n += fl[e];
+    }
+    t.sigma[i] = t.sigma[i] + s;
+    t.nirr[i] += n;
+  }
+}
+
 #ifdef __CUDACC__
 
 __global__ void __launch_bounds__(K1_THREADS)
@@ -374,13 +557,91 @@ static inline int k23_rounds(const void* uniforms, const void* shifts,
   return 0;
 }
 
-// Rounds [k0, k0+n) of a sigma run (`k23_rounds`).
+// K23's resident rounds [k0, k0+n) of a tile a block: rows, sigma and
+// n_irrev (and the tables where ``n_tab`` > 0) into shared memory once,
+// then a round at a time the walk (`k23_tile_sites`, the next round's
+// draws prefetched), a barrier, the sums (`k23_tile_sums`), a barrier;
+// the rows and accumulators back once. At most 512 threads, two blocks
+// an SM.
+__global__ void __launch_bounds__(512, 2) k23_resident_kernel(
+    int8_t* __restrict__ p, int8_t* __restrict__ d,
+    const float* __restrict__ u, const int* __restrict__ shifts,
+    int per_member, int k0, int n, int B, int L, int E,
+    const double* __restrict__ sig_tab, const uint8_t* __restrict__ irr_tab,
+    int S, long long n_tab, int tile, int vec, double* __restrict__ sigma,
+    int* __restrict__ n_irrev) {
+  extern __shared__ __align__(16) unsigned char k23_smem[];
+  const K23Tile t = k23_tile_at(k23_smem, tile, L, E, n_tab);
+  const int b0 = blockIdx.x * tile;
+  const int m = min(tile, B - b0);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int8_t* gp = p + (long long)b0 * L;
+  int8_t* gd = d + (long long)b0 * L;
+  k11_tile_copy(tid, nt, gp, t.sp, m, L, t.Ls, vec, true);
+  k11_tile_copy(tid, nt, gd, t.sd, m, L, t.Ls, vec, true);
+  k23_tile_accs(tid, nt, t, m, b0, sig_tab, irr_tab, sigma, n_irrev, true);
+  __syncthreads();
+  const long long sites = (long long)B * E;
+  // This thread's first member and uniform, prefetched a round ahead
+  // (`k24_resident_kernel`).
+  const int lanes = E % 4 == 0;
+  const int mine = tid < m * (lanes ? E / 4 : E);
+  const int i0 = lanes ? tid % m : tid / E;
+  const long long u0 = (long long)(b0 + i0) * E +
+                       (lanes ? 4 * (tid / m) : tid - i0 * E);
+  for (int j = 0; j < n; ++j) {
+    const int k = k0 + j;
+    if (mine && j + 1 < n) {
+      k11_prefetch(shifts + (long long)(k + 1) * (per_member ? B : 1) +
+                   (per_member ? b0 + i0 : 0));
+      if (K1_CHOOSE) k11_prefetch(u + (j + 1) * sites + u0);
+    }
+    k23_tile_sites(tid, nt, t, m, L, E, b0,
+                   K1_CHOOSE ? u + j * sites : nullptr,
+                   shifts + (long long)k * (per_member ? B : 1), per_member,
+                   S, sig_tab, irr_tab);
+    __syncthreads();
+    k23_tile_sums(tid, nt, t, m, E);
+    __syncthreads();
+  }
+  k11_tile_copy(tid, nt, gp, t.sp, m, L, t.Ls, vec, false);
+  k11_tile_copy(tid, nt, gd, t.sd, m, L, t.Ls, vec, false);
+  k23_tile_accs(tid, nt, t, m, b0, nullptr, nullptr, sigma, n_irrev, false);
+}
+
+// Rounds [k0, k0+n) of a sigma run: with ``tile`` > 0 one resident launch
+// of ``tile`` members a block of ``threads`` threads, the tables staged
+// in shared memory where ``stage_tab`` (cudaErrorInvalidValue where the
+// tile does not fit); with ``tile`` 0 (rows too long to keep resident, or
+// a call of few rounds) one launch a round (`k23_rounds`).
 extern "C" int ckpe_k23_rounds(void* p, void* d, const void* uniforms,
                                const void* shifts, int per_member, int k0,
                                int n, int B, int L, int E,
                                const void* sig_tab, const void* irr_tab,
-                               int S, void* sigma, void* n_irrev,
-                               void* stream) {
+                               int S, void* sigma, void* n_irrev, int tile,
+                               int threads, int stage_tab, void* stream) {
+  if (tile > 0) {
+    if (k11_bad_geometry(B, L, E) || S <= 0)
+      return (int)cudaErrorInvalidValue;
+    if (B == 0 || n <= 0) return (int)cudaGetLastError();
+    const long long n_tab = stage_tab ? k23_rows() * S : 0;
+    const long long bytes = k23_tile_bytes(tile, L, E, n_tab);
+    if (threads < 32 || threads > 512 || bytes > K11_SMEM_MAX)
+      return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(
+        k23_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int vec = L % 16 == 0 && (uintptr_t)p % 16 == 0 &&
+                    (uintptr_t)d % 16 == 0;
+    k23_resident_kernel<<<(unsigned)((B + tile - 1) / tile), threads,
+                          (size_t)bytes, (cudaStream_t)stream>>>(
+        (int8_t*)p, (int8_t*)d, (const float*)uniforms, (const int*)shifts,
+        per_member, k0, n, B, L, E, (const double*)sig_tab,
+        (const uint8_t*)irr_tab, S, n_tab, tile, vec, (double*)sigma,
+        (int*)n_irrev);
+    return (int)cudaGetLastError();
+  }
   return k23_rounds(
       uniforms, shifts, per_member, k0, n, B, L, E, S,
       [&](unsigned blocks, const float* u, const int* s) {
@@ -501,6 +762,57 @@ extern "C" int ckpe_k23_host_round(int8_t* p, int8_t* d, const float* u,
   for (int b = 0; b < B; ++b)
     k23_member(b, p, d, u, shifts, per_member, L, E, sig_tab, irr_tab, S,
                sigma, n_irrev);
+  return 0;
+}
+
+// K23's resident kernel on the host (the CPU test of the generated unit):
+// tile after tile, each of the kernel's phases run for every thread
+// ``t`` < ``threads`` in turn, on a buffer laid out as the kernel's
+// shared memory. Arguments as `ckpe_k23_rounds` takes them, on host
+// arrays.
+extern "C" int ckpe_k23_host_resident(int8_t* p, int8_t* d, const float* u,
+                                      const int* shifts, int per_member,
+                                      int k0, int n, int B, int L, int E,
+                                      const double* sig_tab,
+                                      const uint8_t* irr_tab, int S,
+                                      double* sigma, int* n_irrev, int tile,
+                                      int threads, int stage_tab) {
+  if (E <= 0 || L % E != 0 || S <= 0 || tile < 1 || threads < 1) return 1;
+  const long long n_tab = stage_tab ? k23_rows() * S : 0;
+  const long long bytes = k23_tile_bytes(tile, L, E, n_tab);
+  unsigned char* smem = (unsigned char*)aligned_alloc(16, (bytes + 15) & ~15LL);
+  if (!smem) return 1;
+  const K23Tile t = k23_tile_at(smem, tile, L, E, n_tab);
+  const bool vec = L % 16 == 0 && (uintptr_t)p % 16 == 0 &&
+                   (uintptr_t)d % 16 == 0;
+  const long long sites = (long long)B * E;
+  for (int b0 = 0; b0 < B; b0 += tile) {
+    const int m = tile < B - b0 ? tile : B - b0;
+    int8_t* gp = p + (long long)b0 * L;
+    int8_t* gd = d + (long long)b0 * L;
+    for (int w = 0; w < threads; ++w) {
+      k11_tile_copy(w, threads, gp, t.sp, m, L, t.Ls, vec, true);
+      k11_tile_copy(w, threads, gd, t.sd, m, L, t.Ls, vec, true);
+      k23_tile_accs(w, threads, t, m, b0, sig_tab, irr_tab, sigma, n_irrev,
+                    true);
+    }
+    for (int j = 0; j < n; ++j) {
+      const int k = k0 + j;
+      for (int w = 0; w < threads; ++w)
+        k23_tile_sites(w, threads, t, m, L, E, b0,
+                       K1_CHOOSE ? u + j * sites : nullptr,
+                       shifts + (long long)k * (per_member ? B : 1),
+                       per_member, S, sig_tab, irr_tab);
+      for (int w = 0; w < threads; ++w) k23_tile_sums(w, threads, t, m, E);
+    }
+    for (int w = 0; w < threads; ++w) {
+      k11_tile_copy(w, threads, gp, t.sp, m, L, t.Ls, vec, false);
+      k11_tile_copy(w, threads, gd, t.sd, m, L, t.Ls, vec, false);
+      k23_tile_accs(w, threads, t, m, b0, nullptr, nullptr, sigma, n_irrev,
+                    false);
+    }
+  }
+  free(smem);
   return 0;
 }
 

@@ -240,9 +240,9 @@ def load() -> ctypes.CDLL:
                                     _P, _P]
     # ckpe_table_rounds(p, d, u, u_f64, shifts, per_member, k0, n, B, L,
     #                   E, p_lo, n_p, d_lo, n_d, pv, out_cum, out_world,
-    #                   rows, M, wr_mask, wr_val, stream)
+    #                   rows, M, wr_mask, wr_val, tile, threads, stream)
     lib.ckpe_table_rounds.argtypes = [_P, _P, _P, _I, _P] + [_I] * 10 + [
-        _P, _P, _P, _I, _I, _P, _P, _P]
+        _P, _P, _P, _I, _I, _P, _P, _I, _I, _P]
     # ckpe_pattern_scan(tape, elem, B, L, pattern, P, mode, out, t_hit,
     #                   t_now, members, stream)
     lib.ckpe_pattern_scan.argtypes = [_P, _I, _I, _I, _P, _I, _I, _P, _P,

@@ -21,9 +21,13 @@ Kernels carry the device work (sources in `csrc/`, built by `cuda.py`):
   `probes/pallas_packed32.py:fsm_kernel_packed`, which compute the same
   round).
 - **K2** `window_counts` — the circular window histogram.
-- **K10** `table_round` — the transition-table round on [B, L] int32
+- **K10** `table_round` — the transition-table rounds on [B, L] int32
   tapes at any shift (`csrc/table_round.cu`), the reference's
-  `_apply_lattice_round`.
+  `_apply_lattice_round`: all rounds of a call in one launch on members
+  held in shared memory (`k10_tile`, `csrc/table_resident.cuh`), a
+  launch a round for calls of fewer than `K11_RESIDENT_MIN_ROUNDS`
+  rounds and rows too long to keep; `run_ensemble` draws a table's
+  uniforms `_TABLE_CHUNK` at a time.
 - **K11** `lattice_round` — the FSM rounds on [B, L] int8 tapes at a
   shared or a per-member shift, in each machine's K1 unit
   (`csrc/lattice_round.cuh`), the reference's `_apply_lattice_round_fsm`
@@ -1416,6 +1420,40 @@ def k11_tile(B: int, L: int, events: int, pattern_len: int | None = None):
     return tile, threads, tile * per + fixed
 
 
+def k10_row_words(L: int) -> int:
+    """int32 words of a row resident in K10's shared memory: column c at
+    c + c // 32, a word of padding after every 32 columns
+    (`csrc/table_resident.cuh:k10_row_words`)."""
+    return L + (L + 31) // 32
+
+
+def k10_tile(B: int, L: int, events: int):
+    """K10's resident tile for a call at [B, L] with ``events`` sites a
+    member (`csrc/table_resident.cuh`): (members a block, threads a
+    block, bytes of shared memory), or None where one member's rows do
+    not fit a block (8 bytes a word of `k10_row_words`, past 227 KB: L
+    above about 28,000), which takes the kernel of one launch a round.
+
+    A member holds both int32 rows. The tile is as many members as two
+    blocks an SM leave room for (one block's worth where a member needs
+    more), and no more than spreads B over two blocks for each of the
+    card's SMs: at B=16384, L=4096 three members a block (two measure
+    the same; six at one block an SM measured slower). The threads (at
+    most 512, two blocks an SM) take the tile's sites in as few passes
+    as they allow, evenly, rounded up to a warp: at that width 384
+    threads of two sites each, which a thread takes together
+    (`k10_tile_sites`); 768 threads of one site measured slower."""
+    per = 8 * k10_row_words(L)
+    if per > SMEM_BLOCK:
+        return None
+    cap = SMEM_PAIR // per or SMEM_BLOCK // per
+    tile = max(1, min(cap, -(-B // (2 * _SMS))))
+    items = tile * events
+    passes = -(-items // 512)
+    threads = -(-(-(-items // passes)) // 32) * 32
+    return tile, threads, tile * per
+
+
 def k11_odd_stride(L: int) -> int:
     """Bytes a row in the resident tempered rounds and K24's: an odd
     count of 4-byte words (`csrc/lattice_round.cuh:k11_odd_stride`), so
@@ -1447,8 +1485,8 @@ def k11_tempered_tile(B: int, L: int):
 def _lattice_rounds(rule, ptape, dtape, shifts, k0, n, events, uniforms):
     """Rounds [k0, k0+n) of a rolled run, checked by the caller: the
     plain version a round on the CPU; on the card one C call that
-    launches K10 (a table) once a round, or K11 (a machine) once for all
-    n rounds on members held in shared memory (`k11_tile`; once a round
+    launches K10 (a table) or K11 (a machine) once for all n rounds on
+    members held in shared memory (`k10_tile`, `k11_tile`; once a round
     where the rows are too long for it or n is below
     `K11_RESIDENT_MIN_ROUNDS`)."""
     per_member = shifts.dim() == 2
@@ -1468,6 +1506,8 @@ def _lattice_rounds(rule, ptape, dtape, shifts, k0, n, events, uniforms):
         stream = cuda.stream(ptape)
         if isinstance(rule, DeviceTable):
             lib = cuda.load()
+            tile = (k10_tile(B, L, events) if n >= K11_RESIDENT_MIN_ROUNDS
+                    else None)
             rc = lib.ckpe_table_rounds(
                 ptape.data_ptr(), dtape.data_ptr(), u_ptr,
                 int(rule.out_cum.dtype == torch.float64), shifts.data_ptr(),
@@ -1476,9 +1516,10 @@ def _lattice_rounds(rule, ptape, dtape, shifts, k0, n, events, uniforms):
                 int(rule.n_d), rule.pv.data_ptr(), rule.out_cum.data_ptr(),
                 rule.out_world.data_ptr(), int(rule.num_rows),
                 int(rule.out_cum.shape[1]), rule.wr_mask.data_ptr(),
-                rule.wr_val.data_ptr(), stream)
+                rule.wr_val.data_ptr(), *(tile[:2] if tile else (0, 0)),
+                stream)
             cuda.check(rc, "table_round", lib)
-            table_round.launches += n
+            table_round.launches += 1 if tile else n
         else:
             from .k1_source import k1_library  # k1_source imports this
 
@@ -1551,13 +1592,18 @@ def run_lattice_rounds(rule, ptape, dtape, shifts, events, uniforms=None):
 
 # Uniforms drawn ahead of the launches, at most this many a chunk.
 _UNIFORM_CHUNK = 2**25
-# The same for the callers of the resident tempered rounds and K24's
-# (`frontier._blocked_rounds`, `ops/thermo.py`'s ledger runs): a chunk is
-# one C call, whose rows cross between global and shared memory once, so
-# longer calls spread that cost over more rounds (67 rounds at K=10^6,
-# E=4, 64 at B=16384, E=256: 1 GiB of float32 uniforms). The draws are
-# the same whatever the chunk: a round's uniforms at a time, in order.
+# The same for the callers of the resident tempered rounds, K23's and
+# K24's (`frontier._blocked_rounds`, `ops/thermo.py`'s sigma and ledger
+# runs): a chunk is one C call, whose rows cross between global and
+# shared memory once, so longer calls spread that cost over more rounds
+# (67 rounds at K=10^6, E=4, 64 at B=16384, E=256: 1 GiB of float32
+# uniforms). The draws are the same whatever the chunk: a round's
+# uniforms at a time, in order.
 _RESIDENT_CHUNK = 2**28
+# The same for `run_ensemble` with a table (K10's resident rounds), whose
+# uniforms are the table's float64 by default: 32 rounds at B=16384,
+# E=256, 1 GiB.
+_TABLE_CHUNK = 2**27
 
 
 def _chunks(num_steps, shape, dtype, device, draw, limit=_UNIFORM_CHUNK):
@@ -1797,8 +1843,10 @@ def run_ensemble(generator, tapes, dm, steps_events, *,
         shifts = torch.randint(0, L, shape, generator=gen, device=device,
                                dtype=torch.int32)
         checked = False
+        limit = (_TABLE_CHUNK if isinstance(dm, DeviceTable)
+                 else _UNIFORM_CHUNK)
         for k0, n, uniforms in _draw_chunks(gen, dm, B, events, num_steps,
-                                            device):
+                                            device, limit):
             if not checked:
                 _check_lattice(dm, pt, dt_, shifts, 0, n, events, uniforms)
                 checked = True

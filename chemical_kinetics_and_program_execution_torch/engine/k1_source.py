@@ -359,9 +359,10 @@ def _load(source: str) -> ctypes.CDLL:
                                            _I, _P]
     lib.ckpe_k11_first_passage.restype = _I
     # ckpe_k23_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
-    #                 sig_tab, irr_tab, S, sigma, n_irrev, stream)
+    #                 sig_tab, irr_tab, S, sigma, n_irrev, tile, threads,
+    #                 stage_tab, stream)
     lib.ckpe_k23_rounds.argtypes = [_P, _P, _P, _P] + [_I] * 6 + [
-        _P, _P, _I, _P, _P, _P]
+        _P, _P, _I, _P, _P, _I, _I, _I, _P]
     lib.ckpe_k23_rounds.restype = _I
     # ckpe_k24_rounds(p, d, uniforms, shifts, per_member, k0, n, B, L, E,
     #                 g_prog, g_data, beta_eff, S, sigma, counts, spec_sig,

@@ -21,14 +21,15 @@ Both rounds are K11's rolled round (`csrc/lattice_round.cuh`: the shift
 over [0, L), shared by the batch or one a member, windows read where
 they lie) with the sums: K23 `sigma_round` and K24 `ledger_round`
 (`csrc/thermo_round.cuh`, in each machine's unit, `engine/k1_source.py`).
-K23 walks a member's E sites in order on one thread, a launch a round.
-K24 runs all the rounds of a call in one launch on a tile of members
-whose rows and accumulators stay in shared memory (`k24_tile`): the
-walk over many threads stages each site's increment and spec, then a
-thread a member sums sigma and a thread a (member, spec) its share and
-count, each in site order; calls of fewer than
-`ensemble.K11_RESIDENT_MIN_ROUNDS` rounds, and rows too long to keep,
-take its launch a round, a thread a member. On the CPU the plain
+Each runs all the rounds of a call in one launch on a tile of members
+whose rows and accumulators stay in shared memory (`k23_tile`,
+`k24_tile`): the walk over many threads stages each site's entry (K23:
+its table entry, 0 where irreversible, and flag; K23's tables staged
+too where they are small) or increment and spec (K24), then a thread a
+member sums sigma (and counts the flags) and, for K24, a thread a
+(member, spec) its share and count, each in site order; calls of fewer
+than `ensemble.K11_RESIDENT_MIN_ROUNDS` rounds, and rows too long to
+keep, take a launch a round, a thread a member. On the CPU the plain
 versions `sigma_round_plain` and `ledger_round_plain` run, which sum in
 the kernels' order: a member's site increments from 0 in site order,
 that sum added once to its float64 accumulator; each site's increment
@@ -37,7 +38,9 @@ added to its spec's share in site order.
 Draws come from a `torch.Generator` (or an int seed) on the run's
 device: the shifts of every round at once, then each round's [B, E]
 float32 uniforms for a machine with choose nodes, as
-`ensemble.run_ensemble` draws them. `run_ensemble_sigma_from_draws` and
+`ensemble.run_ensemble` draws them, into chunks of
+`ensemble._RESIDENT_CHUNK` values (a chunk a C call: 64 rounds at
+B=16384, E=256). `run_ensemble_sigma_from_draws` and
 `run_ensemble_ledger_from_draws` take explicit draws (the tests feed
 them the JAX package's own).
 """
@@ -441,11 +444,54 @@ def _ledger_accs(dm, sigma, counts, spec_sig):
             ("spec_sig", spec_sig, torch.float64, dm.num_specs))
 
 
+# K23 stages its (window rank, spec) tables in shared memory where they
+# take at most this many bytes (9 an entry: the entry and its flag):
+# ex2's 16 x 3 take 432; ex4-chemical-turing's millions stay in global
+# memory, read through L2.
+K23_STAGED_TABLE_BYTES = 16384
+
+
+def k23_tile(B: int, L: int, events: int, num_specs: int, n_windows: int):
+    """K23's resident tile for a call at [B, L] with ``events`` sites a
+    member and tables of ``n_windows`` x ``num_specs`` entries
+    (`csrc/thermo_round.cuh:k23_tile_bytes`): (members a block, threads a
+    block, bytes of shared memory, whether the tables are staged), or None
+    where one member does not fit a block, which takes the launch a round.
+
+    A member holds both rows (`ensemble.k11_odd_stride`), sigma and
+    n_irrev (12 bytes), and the round's staged entries (float64, an odd
+    count) and flags (a byte each, an odd count of words); the tables are
+    staged once a block where they take at most `K23_STAGED_TABLE_BYTES`.
+    The tile follows `k24_tile`'s rule: as many members as two blocks an
+    SM leave room for (one block's worth where a member needs more), no
+    more than spreads B over two blocks for each of the card's SMs, 512
+    threads where a round has 1,024 sites or more, else 256, and cut to
+    the walk's whole passes of the threads (at phase 13 (a) 8 members)."""
+    n_tab = n_windows * num_specs
+    stage = 9 * n_tab <= K23_STAGED_TABLE_BYTES
+    fixed = 9 * n_tab if stage else 0
+    per = (2 * ens.k11_odd_stride(L) + 8 * (1 + (events | 1)) + 4
+           + 4 * ((-(-events // 4)) | 1))
+    if per + fixed > ens.SMEM_BLOCK:
+        return None
+    cap = (ens.SMEM_PAIR - fixed) // per or (ens.SMEM_BLOCK - fixed) // per
+    tile = max(1, min(cap, -(-B // (2 * ens._SMS))))
+    threads = 512 if tile * events >= 1024 else 256
+    items = events // 4 if events % 4 == 0 else events
+    per_pass = threads // items
+    if per_pass and tile > per_pass:
+        tile -= tile % per_pass
+    return tile, threads, tile * per + fixed, stage
+
+
 def _sigma_rounds(dm, ptape, dtape, shifts, k0, n, events, uniforms,
                   tables, sigma, n_irrev):
     """Rounds [k0, k0+n) of a sigma run, checked by the caller: the plain
     version a round on the CPU; on the card one C call that launches K23
-    once a round (``uniforms`` holds rounds [k0, k0+n))."""
+    once for the n rounds on members resident in shared memory
+    (`k23_tile`), or once a round where a member does not fit a block or
+    n is below `ensemble.K11_RESIDENT_MIN_ROUNDS` (``uniforms`` holds
+    rounds [k0, k0+n))."""
     if not cuda.on_card(ptape, "sigma_round"):
         for j in range(n):
             sigma_round_plain(dm, ptape, dtape, shifts[k0 + j], events,
@@ -456,6 +502,8 @@ def _sigma_rounds(dm, ptape, dtape, shifts, k0, n, events, uniforms,
 
     B, L = ptape.shape
     lib = k1_library(dm)
+    tile = (k23_tile(B, L, events, dm.num_specs, tables[0].shape[0])
+            if n >= ens.K11_RESIDENT_MIN_ROUNDS else None)
     with torch.cuda.device(ptape.device):
         rc = lib.ckpe_k23_rounds(
             ptape.data_ptr(), dtape.data_ptr(),
@@ -463,9 +511,11 @@ def _sigma_rounds(dm, ptape, dtape, shifts, k0, n, events, uniforms,
             shifts.data_ptr(), int(shifts.dim() == 2), int(k0), int(n),
             int(B), int(L), int(events), tables[0].data_ptr(),
             tables[1].data_ptr(), int(dm.num_specs), sigma.data_ptr(),
-            n_irrev.data_ptr(), cuda.stream(ptape))
+            n_irrev.data_ptr(),
+            *((tile[0], tile[1], int(tile[3])) if tile else (0, 0, 0)),
+            cuda.stream(ptape))
     cuda.check(rc, "sigma_round", lib)
-    sigma_round.launches += n
+    sigma_round.launches += 1 if tile else n
 
 
 def k24_tile(B: int, L: int, events: int, num_specs: int):
@@ -594,6 +644,25 @@ def ledger_round(dm, ptape, dtape, shift, events, uniforms, ledger, sigma,
 
 
 ledger_round.launches = 0
+
+
+def sigma_rounds(dm, ptape, dtape, shifts, events, uniforms, tables, sigma,
+                 n_irrev):
+    """``len(shifts)`` K23 rounds on int8 [B, L] tapes in one C call, in
+    place: ``shifts`` int32 [n] (shared) or [n, B] (one a member),
+    ``uniforms`` float32 [n, B, E] (read only by machines with choose
+    nodes), the rest as :func:`sigma_round`. On the card the resident
+    form where it applies (`_sigma_rounds`); CPU tensors take the plain
+    version a round."""
+    shifts = shifts.to(torch.int32).contiguous()
+    n = shifts.shape[0]
+    u = (uniforms.contiguous() if dm.has_choose and uniforms is not None
+         else None)
+    _check_tables(dm, tables, ptape.device)
+    _check_rounds(dm, ptape, dtape, shifts, 0, n, events, u,
+                  _sigma_accs(sigma, n_irrev))
+    _sigma_rounds(dm, ptape, dtape, shifts, 0, n, events, u, tables, sigma,
+                  n_irrev)
 
 
 def ledger_rounds(dm, ptape, dtape, shifts, events, uniforms, ledger, sigma,
@@ -731,7 +800,8 @@ def run_ensemble_sigma(generator, tapes, dm, tables_dev, steps_events, *,
     device = config.get_device(device)
     pt, dt_ = _start(tapes, dm, events, device)
     shifts, chunks = _draws(generator, dm, pt.shape[0], pt.shape[1],
-                            num_steps, events, independent_sites, device)
+                            num_steps, events, independent_sites, device,
+                            ens._RESIDENT_CHUNK)
     return _sigma_run(dm, pt, dt_, tables_dev, shifts, chunks, events,
                       device)
 

@@ -132,7 +132,9 @@ Phases (each prints its wall time; every check raises on failure):
 9. the rolled lattice rounds (K10-K13) against exact answers, each path
    with every count set to 0 just before and read just after, no plain
    version called: (a) `run_ensemble` with ex5's transition table at
-   B=16384, L=4096, E=256 for 200 rounds (K10 200 times), one round at
+   B=16384, L=4096, E=256 for 200 rounds (K10 resident: its float64
+   draws in chunks of `ensemble._TABLE_CHUNK`, 32 rounds, a launch a
+   chunk, 7 launches), one round at
    explicit draws equal to `table_round_plain`, K10's tapes equal to
    K11's on ex5's machine at float32-exact uniforms (shared and
    per-member shifts), and, where the uniforms choose the outcome, one
@@ -165,14 +167,19 @@ Phases (each prints its wall time; every check raises on failure):
    L=4096, E=256 (8 rounds in one launch, shared and per-member shifts)
    and the fused first passage there (ex2, 30 rounds in calls of 10)
    against the plain versions, then at a row too long to keep resident
-   (B=8, L=131,072: one launch a round), both ways;
-   (f) K10, K11 (one round a call, shared and per-member shifts; and 200
+   (B=8, L=131,072: one launch a round), both ways; K10's resident
+   rounds at the full width (6 rounds in one launch, ex5's and ex4's
+   tables, shared and per-member shifts) against the plain rounds, then
+   at a row too long to keep (B=8, L=32,768: one launch a round);
+   (f) K10 (a resident call of a chunk's 32 rounds on fresh draws, µs a
+   round beside the bound of the call's bytes, and a one-round call),
+   K11 (one round a call, shared and per-member shifts; and 200
    rounds a call, beside the bound of the call's bytes), K12 and K13
    each alone at B=16384, L=4096, by CUDA events, beside its bound, its
    plain version and, for K13, `torch.bincount`; K12 (modes 0-2, int8
    and int32) and K13 equal to their plain versions bit for bit, twice;
-   path (a)'s round split into the float64 draw alone and K10 over fresh
-   shifts and uniforms;
+   path (a)'s round split into the float64 draw alone, K10's resident
+   round over fresh shifts and uniforms and the rest;
 10. the bit-sliced rounds (K14, K15), each path with every count set to 0
    just before and read just after, no plain version called: (a)
    `run_ensemble` with the default route on phase 3's input and seed
@@ -268,7 +275,7 @@ Phases (each prints its wall time; every check raises on failure):
    just after, no plain version called: (a) `run_ensemble_sigma` on ex2
    and `run_ensemble_ledger` on ex4var2 (examples/ex4var2_ledger.py's G,
    beta_eff 2, its tape mix) at B=16384, L=4096, E=256 for 200 rounds,
-   K23 launched once a round, K24 once a C call (resident: its draws
+   K23 and K24 each launched once a C call (resident: their draws
    come in chunks of 64 rounds, so 4 launches); ex2's sigma held to the rings'
    Ising energy drop (J_eff 2, h -0.25) and ex4var2's to Phi(0) - Phi(T)
    within 1e-8, the counts summing to rounds x E; ms a round by CUDA
@@ -278,10 +285,11 @@ Phases (each prints its wall time; every check raises on failure):
    call again (warm: the figure that stands) and of one more after the
    allocator's cache is emptied; each kernel alone beside its bound, its
    plain version and K11's round without the sums (no library call: a
-   walk with a table gather), K24 as a resident call of 64 rounds (µs a
+   walk with a table gather), each as a resident call of 64 rounds (µs a
    round) and a one-round call (a launch a round), each beside its
    bound; (b) examples/ex2_entropy_production.py's
-   ensemble (B=8192, L=12, E=1, 24 snapshots of 6 rounds, independent
+   ensemble (B=8192, L=12, E=1, 24 snapshots of 6 rounds, each one
+   resident K23 launch, independent
    sites, bridge-sampled rings, the port's generator) held to
    tests/test_thermo.py:432's gates (z < 6 at every snapshot against the
    exact kernel, the IFT within 6 se, mean sig_tot > 0); (c)
@@ -294,9 +302,10 @@ Phases (each prints its wall time; every check raises on failure):
    within abs 1e-10; (d) K23 on ex2 and
    ex4-chemical-turing (irreversible: n_irrev > 0, its 531,441-window
    tables built on the host) and K24 on ex4var2 and ex2 against their
-   plain versions bit for bit, shared and per-member shifts, K24 in
+   plain versions bit for bit, shared and per-member shifts, each in
    both forms (single rounds, a launch each, then a resident call of 5
-   rounds), at every
+   rounds: ex2's tables staged in shared memory, ex4's read through
+   L2), at every
    geometry of (a)-(c): B=16384, L=4096 at E 256 and 1, (b)'s B=8192,
    L=12, E=1 and (c)'s B=4096, L=128, E=4 (the `kernels` line's
    max_abs_err is that of (a)'s shape, machine and shared shifts); (e)
@@ -2463,6 +2472,35 @@ def active_tapes(gen, tag, size_a, batch, length, dev):
     return out
 
 
+def chunk_launches(rounds, per, resident):
+    """Launches of a run of ``rounds`` rounds whose draws come ``per``
+    rounds a chunk, a chunk a C call: one a call where the call is
+    resident (``resident`` and at least `ensemble.K11_RESIDENT_MIN_ROUNDS`
+    rounds), else one a round."""
+    calls = [min(per, rounds - k0) for k0 in range(0, rounds, per)]
+    return sum(1 if resident and n >= ens.K11_RESIDENT_MIN_ROUNDS else n
+               for n in calls)
+
+
+def table_launches(B_, L_, E_, rounds):
+    """K10's launches in a `run_ensemble` of a table: its draws in chunks
+    of at most `ensemble._TABLE_CHUNK` uniforms (`chunk_launches`)."""
+    per = max(1, min(rounds, ens._TABLE_CHUNK // (B_ * E_)))
+    return chunk_launches(rounds, per, ens.k10_tile(B_, L_, E_) is not None)
+
+
+def table_call_bytes(dt, B_, L_, E_, n):
+    """Least bytes of a resident K10 call of n rounds: both int32 rows of
+    every member in and out once, a shift a round and, where the table
+    has more than one outcome a row, a uniform a site and round; the
+    table read once."""
+    u = (dt.out_cum.element_size() * B_ * E_ if dt.out_cum.shape[1] > 1
+         else 0)
+    table = sum(t.numel() * t.element_size()
+                for t in (dt.out_cum, dt.out_world, dt.wr_mask, dt.wr_val))
+    return n * (u + 4) + 16 * B_ * L_ + table
+
+
 def table_bytes_k10(dt, events, batch=B):
     """Least bytes a K10 round moves: every window cell read (4 B), the
     cells some spec writes written (4 B), a uniform a site where the
@@ -2994,6 +3032,62 @@ def resident_checks(dev, gen, dm5, tab, diff):
         "member shifts and first passage")
 
 
+def table_resident_checks(dev, gen, tdt, tab, diff):
+    """(g): K10's resident rounds (`run_lattice_rounds`: one launch a
+    call) at the full width on ex5's table (one outcome a row) and ex4's
+    (three, float64 uniforms that decide), shared and per-member shifts,
+    then at a row too long to keep resident (B=8, L=32,768: one launch a
+    round), each against the plain rounds bit for bit."""
+    rounds = 6
+    t4 = ens.device_table(ens.compile_transition_table(EX4), device=dev)
+    t4p, t4d = active_tapes(gen, EX4, 9, B, L, dev)
+    for name, dt_, start in (("ex5", tdt, tab), ("ex4", t4, (t4p, t4d))):
+        for shape in ((rounds,), (rounds, B)):
+            s_ = torch.randint(0, L, shape, generator=gen, device=dev,
+                               dtype=torch.int32)
+            u_ = torch.rand((rounds, B, E), generator=gen, device=dev,
+                            dtype=torch.float64)
+            kp, kd = (t.clone() for t in start)
+            k10 = ens.table_round.launches
+            ens.run_lattice_rounds(dt_, kp, kd, s_, E, u_)
+            k10 = ens.table_round.launches - k10
+            pp, pd = (t.clone() for t in start)
+            for k in range(rounds):
+                ens.table_round_plain(dt_, pp, pd, s_[k], u_[k])
+            torch.cuda.synchronize()
+            changed = int((kp != start[0]).sum() + (kd != start[1]).sum())
+            if not (diff("K10", ((kp, pp), (kd, pd))) and k10 == 1
+                    and changed):
+                raise AssertionError(
+                    f"K10 resident != plain on {name}'s table at B={B}, "
+                    f"L={L}, shifts {list(shape)} ({k10} launches, "
+                    f"{changed} cells changed)")
+    del t4, t4p, t4d, kp, kd, pp, pd, u_
+    say(f"K10 resident == table_round_plain at B={B}, L={L}, E={E}, "
+        f"{rounds} rounds in one launch, ex5's and ex4's tables, shared and "
+        "per-member shifts, bit for bit")
+    Ll, Bl, El = 32_768, 8, 16
+    if ens.k10_tile(Bl, Ll, El) is not None:
+        raise AssertionError("K10: the long row was kept resident")
+    lp, ld = active_tapes(gen, MAIN_TAG, 5, Bl, Ll, dev)
+    s_ = torch.randint(0, Ll, (4, Bl), generator=gen, device=dev,
+                       dtype=torch.int32)
+    u_ = torch.rand((4, Bl, El), generator=gen, device=dev,
+                    dtype=torch.float64)
+    kp, kd = lp.clone(), ld.clone()
+    k10 = ens.table_round.launches
+    ens.run_lattice_rounds(tdt, kp, kd, s_, El, u_)
+    k10 = ens.table_round.launches - k10
+    pp, pd = lp.clone(), ld.clone()
+    for k in range(4):
+        ens.table_round_plain(tdt, pp, pd, s_[k], u_[k])
+    torch.cuda.synchronize()
+    if not (diff("K10", ((kp, pp), (kd, pd))) and k10 == 4):
+        raise AssertionError(f"K10 at L={Ll} != plain ({k10} launches)")
+    say(f"K10 at a row too long to keep resident (B={Bl}, L={Ll}): one "
+        "launch a round == plain, bit for bit, per-member shifts")
+
+
 def hit_stats(t_hit):
     """Hit fraction and the quartiles of the finite hit times."""
     fin = t_hit[np.isfinite(t_hit)]
@@ -3053,13 +3147,15 @@ def lattice_phase(dev, kernels):
         if int((tapes[1] != dtape).sum()) == 0:
             raise AssertionError(f"path {label}: the data tape never changed")
 
-    # (a) A transition table at full width (K10).
+    # (a) A transition table at full width (K10: one resident launch a
+    # chunk of draws).
+    want10 = table_launches(B, L, E, LATTICE_ROUNDS)
     (tab, (_, times)), sec, la, ms = lattice_path(
         "a", lambda: ens.run_ensemble(gen, (ptape, dtape), tdt,
                                       (LATTICE_ROUNDS, E), device=dev),
         ("K10",), totals)
-    if la["K10"] != LATTICE_ROUNDS or la["K11"] or la["K1"]:
-        raise AssertionError(f"path a: launches {la}")
+    if la["K10"] != want10 or la["K11"] or la["K1"]:
+        raise AssertionError(f"path a: launches {la}, want K10 {want10}")
     check_run("a", tab, 5)
     record("a", la, seconds=sec, device_ms=ms)
     lattice_say("a", f"run_ensemble with ex5's table at B={B}, L={L}, E={E}",
@@ -3187,9 +3283,11 @@ def lattice_phase(dev, kernels):
     master_gates(dev, gen, totals, record, diff)
     fp_calls = example_runs(dev, gen, totals, record, diff)
     say(f"phase 9 launches by kernel over its paths: {totals}")
-    # (g) K11's resident rounds and fused first passage at the full width
-    # and at rows too long to keep resident, against the plain versions.
+    # (g) K11's resident rounds and fused first passage, and K10's
+    # resident rounds, at the full width and at rows too long to keep
+    # resident, against the plain versions.
     resident_checks(dev, gen, dm5, tab, diff)
+    table_resident_checks(dev, gen, tdt, tab, diff)
 
     # (f) Each kernel alone at the bench geometry, beside its bound, its
     # plain version and, for K13, torch.bincount.
@@ -3200,26 +3298,45 @@ def lattice_phase(dev, kernels):
     s_own = torch.randint(0, L, (B,), generator=gen, device=dev,
                           dtype=torch.int32)
     kp, kd = pt32.clone(), dt32.clone()
-    times["K10"] = {
-        "ms": cuda_ms(lambda: ens.table_round(tdt, kp, kd, s_shared, u64),
-                      50),
-        "plain_ms": cuda_ms(lambda: ens.table_round_plain(
-            tdt, kp, kd, s_shared, u64), 3),
-        "bound_ms": table_bytes_k10(tdt, E) / HBM_BYTES_PER_S * 1e3,
-        "library_ms": None}
-    # Path (a)'s round, split: its float64 draw alone, and K10 over 8
-    # rounds of fresh shifts and uniforms, as the path sends them.
-    u_buf = torch.empty((8, B, E), dtype=torch.float64, device=dev)
-    s_fresh = torch.randint(0, L, (8,), generator=gen, device=dev,
+    one_ms = cuda_ms(lambda: ens.table_round(tdt, kp, kd, s_shared, u64), 50)
+    one_bytes = table_bytes_k10(tdt, E)
+    # The main path's form: a resident call of a chunk's rounds
+    # (`ensemble._TABLE_CHUNK`) on fresh shifts and float64 uniforms, as
+    # path (a) sends them; then path (a)'s round split into its float64
+    # draw alone, that call's round and the rest.
+    n_call = min(LATTICE_ROUNDS, ens._TABLE_CHUNK // (B * E))
+    u_buf = torch.empty((n_call, B, E), dtype=torch.float64, device=dev)
+    s_fresh = torch.randint(0, L, (n_call,), generator=gen, device=dev,
                             dtype=torch.int32)
     draw_ms = cuda_ms(lambda: torch.rand(
         (B, E), generator=gen, device=dev, dtype=torch.float64,
         out=u_buf[0]), 20)
-    for j in range(8):
+    for j in range(n_call):
         torch.rand((B, E), generator=gen, device=dev, dtype=torch.float64,
                    out=u_buf[j])
     fresh_ms = cuda_ms(lambda: ens.run_lattice_rounds(
-        tdt, kp, kd, s_fresh, E, u_buf), 10) / 8
+        tdt, kp, kd, s_fresh, E, u_buf), 5, warmup=1) / n_call
+    call_bytes = table_call_bytes(tdt, B, L, E, n_call)
+    tile10 = ens.k10_tile(B, L, E)
+    times["K10"] = {
+        "ms": fresh_ms,
+        "plain_ms": cuda_ms(lambda: ens.table_round_plain(
+            tdt, kp, kd, s_shared, u64), 3),
+        "bound_ms": call_bytes / n_call / HBM_BYTES_PER_S * 1e3,
+        "library_ms": None, "call_rounds": n_call, "call_bytes": call_bytes,
+        "one_round_ms": one_ms, "one_round_bytes": one_bytes,
+        "one_round_bound_ms": one_bytes / HBM_BYTES_PER_S * 1e3,
+        "members_a_block": tile10[0], "threads": tile10[1],
+        "smem_bytes": tile10[2], "blocks": -(-B // tile10[0])}
+    say(f"K10 resident, a call of {n_call} rounds at B={B}, L={L}, E={E} "
+        f"(ex5's table, float64 uniforms, shared shifts): "
+        f"{fresh_ms * 1e3:.3f} us a round against "
+        f"{times['K10']['bound_ms'] * 1e3:.3f} us a round for the call's "
+        f"{call_bytes / 1e6:.1f} MB (rows in and out once, the shifts; one "
+        f"outcome a row, so no uniform); a one-round call {one_ms * 1e3:.2f}"
+        f" us against {one_bytes / HBM_BYTES_PER_S * 1e6:.2f}; {tile10[0]} "
+        f"members a block, {tile10[1]} threads, {tile10[2]} bytes of shared "
+        f"memory, {-(-B // tile10[0])} blocks")
     round_ms = paths["a"]["device_ms"] / LATTICE_ROUNDS
     times["K10"]["path_a_us"] = {
         "round": round_ms * 1e3, "draw": draw_ms * 1e3,
@@ -3326,7 +3443,9 @@ def lattice_phase(dev, kernels):
     say("K12 == plain (contains, progress, first passage; int8 and int32) "
         "and K13 == plain, twice each, bit for bit")
 
-    shapes = {"K10": f"ex5 table, B={B}, L={L}, E={E}, float64 uniforms",
+    shapes = {"K10": f"ex5 table, B={B}, L={L}, E={E}, float64 uniforms, "
+                     f"µs a round of a resident call of "
+                     f"{times['K10']['call_rounds']} rounds",
               "K11": f"ex5 machine, B={B}, L={L}, E={E}, shared shift",
               "K12": f"int8 [{B}, {L}], pattern (1, 1, 1)",
               "K13": f"int32 [{B}, {L}], cl_k {cl_k13} ({5**cl_k13} bins)"}
@@ -3351,6 +3470,10 @@ def lattice_phase(dev, kernels):
         "members_a_block": fp_tile[0], "threads": fp_tile[1],
         "smem_bytes": fp_tile[2]}
     kernels["K10"]["path_a_us"] = times["K10"]["path_a_us"]
+    kernels["K10"]["resident"] = {k: v for k, v in times["K10"].items()
+                                  if k not in ("path_a_us", "ms",
+                                               "plain_ms", "bound_ms",
+                                               "library_ms")}
     kernels["K10"]["paths"] = paths
 
 
@@ -5130,36 +5253,38 @@ def thermo_bytes(dm, kernel, B_, E_, n_tab=0):
     return B_ * E_ * site + 16 * dm.size_a + B_ * (16 + S * (8 + 16))
 
 
-def thermo_call_bytes(dm, B_, L_, E_, n):
-    """Least bytes of a resident K24 call of n rounds: the uniforms (for a
-    machine with choose nodes) and a shift a round, both rows of every
-    member in and out once, G once, and sigma, counts and spec_sig read
-    and written once."""
+def thermo_call_bytes(dm, B_, L_, E_, n, kernel="K24", n_tab=0):
+    """Least bytes of a resident K24 (or K23) call of n rounds: the
+    uniforms (for a machine with choose nodes) and a shift a round, both
+    rows of every member in and out once, G once (K23: its ``n_tab``
+    table entries, 9 bytes each), and sigma, counts and spec_sig (K23:
+    sigma and n_irrev) read and written once."""
     u = B_ * E_ * 4 if dm.has_choose else 0
+    if kernel == "K23":
+        return n * (u + 4) + 4 * B_ * L_ + 9 * n_tab + 2 * B_ * 12
     return (n * (u + 4) + 4 * B_ * L_ + 16 * dm.size_a
             + 2 * B_ * (8 + 12 * dm.num_specs))
 
 
-def ledger_launches(dm, B_, L_, E_, rounds):
-    """K24's launches in a `run_ensemble_ledger` of ``rounds`` rounds: the
-    draws in chunks of at most `ensemble._RESIDENT_CHUNK` uniforms, a
-    chunk a C call, one launch a resident call and one a round
-    otherwise."""
+def ledger_launches(dm, B_, L_, E_, rounds, kernel="K24", n_windows=0):
+    """K24's (or K23's) launches in a `run_ensemble_ledger` (or
+    `run_ensemble_sigma`) of ``rounds`` rounds: the draws in chunks of at
+    most `ensemble._RESIDENT_CHUNK` uniforms, a chunk a C call
+    (`chunk_launches`)."""
     per = (max(1, min(rounds, ens._RESIDENT_CHUNK // (B_ * E_)))
            if dm.has_choose else rounds)
-    tile = tth.k24_tile(B_, L_, E_, dm.num_specs)
-    calls = [min(per, rounds - k0) for k0 in range(0, rounds, per)]
-    return sum(1 if tile and n >= ens.K11_RESIDENT_MIN_ROUNDS else n
-               for n in calls)
+    tile = (tth.k24_tile(B_, L_, E_, dm.num_specs) if kernel == "K24" else
+            tth.k23_tile(B_, L_, E_, dm.num_specs, n_windows))
+    return chunk_launches(rounds, per, tile is not None)
 
 
 def thermo_round_against_plain(label, dm, kernel, tapes, E_, per_member,
                                gen, tabs=None, ledger=None, n=2):
     """n rounds of K23 or K24 against the plain version on the card, bit
-    for bit (tapes and accumulators), a round a call (a launch each); for
-    K24 then a call of 5 rounds more (`ledger_rounds`: resident, one
-    launch, where `k24_tile` fits). Returns the kernel's state and the
-    largest absolute difference."""
+    for bit (tapes and accumulators), a round a call (a launch each);
+    then a call of 5 rounds more (`sigma_rounds`, `ledger_rounds`:
+    resident, one launch, where `k23_tile` or `k24_tile` fits). Returns
+    the kernel's state and the largest absolute difference."""
     pt, dt = (t.to(torch.int8).contiguous() for t in tapes)
     B_, L_ = pt.shape
     shifts = torch.randint(-L_, 2 * L_, (n, B_) if per_member else (n,),
@@ -5189,26 +5314,33 @@ def thermo_round_against_plain(label, dm, kernel, tapes, E_, per_member,
             tth.ledger_round_plain(dm, p[0], p[1], shifts[j], E_, u[j],
                                    ledger, *p[2:])
     forms = f"{n} one-round calls"
-    if kernel == "K24":
-        n_res = 5
-        sh = torch.randint(-L_, 2 * L_,
-                           (n_res, B_) if per_member else (n_res,),
-                           generator=gen, device=pt.device, dtype=torch.int32)
-        ur = torch.rand((n_res, B_, E_), generator=gen, device=pt.device)
-        before = tth.ledger_round.launches
+    n_res = 5
+    sh = torch.randint(-L_, 2 * L_, (n_res, B_) if per_member else (n_res,),
+                       generator=gen, device=pt.device, dtype=torch.int32)
+    ur = torch.rand((n_res, B_, E_), generator=gen, device=pt.device)
+    wrapper = TH_WRAPPERS[kernel]
+    before = wrapper.launches
+    if kernel == "K23":
+        tth.sigma_rounds(dm, k[0], k[1], sh, E_, ur, tabs, *k[2:])
+        tile = tth.k23_tile(B_, L_, E_, dm.num_specs, tabs[0].shape[0])
+    else:
         tth.ledger_rounds(dm, k[0], k[1], sh, E_, ur, ledger, *k[2:])
-        got = tth.ledger_round.launches - before
         tile = tth.k24_tile(B_, L_, E_, dm.num_specs)
-        if got != (1 if tile else n_res):
-            raise AssertionError(f"(d) K24 {label}: {n_res} rounds in one "
-                                 f"call, {got} launches")
-        for j in range(n_res):
+    got = wrapper.launches - before
+    if got != (1 if tile else n_res):
+        raise AssertionError(f"(d) {kernel} {label}: {n_res} rounds in one "
+                             f"call, {got} launches")
+    for j in range(n_res):
+        if kernel == "K23":
+            tth.sigma_round_plain(dm, p[0], p[1], sh[j], E_, ur[j], tabs,
+                                  *p[2:])
+        else:
             tth.ledger_round_plain(dm, p[0], p[1], sh[j], E_, ur[j], ledger,
                                    *p[2:])
-        forms += (f", then a call of {n_res} "
-                  + (f"(resident, tile {tile[0]})" if tile
-                     else "(a launch a round)"))
-        del ur
+    forms += (f", then a call of {n_res} "
+              + (f"(resident, tile {tile[0]})" if tile
+                 else "(a launch a round)"))
+    del ur
     err = max(float((a.double() - b.double()).abs().max()) for a, b in
               zip(k, p))
     if not all(torch.equal(a, b) for a, b in zip(k, p)):
@@ -5255,7 +5387,7 @@ def thermo_traced_path(label, fn, kernel):
                         "cudaMemcpyAsync")}
     cpu_top = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])[:4]
     host.update({r[0][:40]: (r[1], r[2] / 1e3) for r in cpu_top})
-    name = "k23_kernel" if kernel == "K23" else "k24_"
+    name = "k23_" if kernel == "K23" else "k24_"
     own = sorted((e.time_range.start, e.time_range.elapsed_us())
                  for e in prof.events()
                  if name in e.name and e.device_type.name == "CUDA")
@@ -5317,8 +5449,10 @@ def thermo_full_width(dev, gen, machines, t2):
     (res, la, ms, sec, trace) = thermo_traced_path("a ex2 sigma", run2,
                                                    "K23")
     (p2f, d2f), sigma, nirr, times = res
-    if la["K23"] != TH_ROUNDS or la["K24"]:  # K23: a launch a round
-        raise AssertionError(f"a ex2: launches {la}")
+    want2 = ledger_launches(dm2, TH_B, TH_L, TH_E, TH_ROUNDS, "K23",
+                            t2.num_windows)
+    if la["K23"] != want2 or la["K24"]:
+        raise AssertionError(f"a ex2: launches {la}, want {want2}")
     book = float((sigma - (ising_energy(dt2, 2.0, -0.25)
                            - ising_energy(d2f, 2.0, -0.25))).abs().max())
     if not (book < 1e-8 and int(nirr.sum()) == 0
@@ -5331,10 +5465,11 @@ def thermo_full_width(dev, gen, machines, t2):
                   "sigma_mean": float(sigma.mean()),
                   "flips": int((d2f != dt2).sum())}
     say(f"(a) ex2 run_ensemble_sigma B={TH_B}, L={TH_L}, E={TH_E}, "
-        f"{TH_ROUNDS} rounds: launches {la}, {ms / TH_ROUNDS:.4f} ms a "
+        f"{TH_ROUNDS} rounds: launches {la} (K23 resident), "
+        f"{ms / TH_ROUNDS:.4f} ms a "
         f"round (the first call, draws included), {sec:.3f} s; |sigma - "
         f"beta dH| max {book:.3e}; mean sigma {float(sigma.mean()):.4f}")
-    out["ex2"].update(thermo_repeats("ex2 sigma", run2, "K23", TH_ROUNDS))
+    out["ex2"].update(thermo_repeats("ex2 sigma", run2, "K23", want2))
     # ex4var2: the ledger from examples/ex4var2_ledger.py's tape mix.
     pt4 = draw_symbols(gen, [6, 7, 8, 9], [0.45, 0.05, 0.42, 0.08],
                        (TH_B, TH_L), dev)
@@ -5407,32 +5542,36 @@ def thermo_full_width(dev, gen, machines, t2):
                          "bytes": by}
         t = times[kernel]
         say(f"{kernel} alone ({dm.tag}, B={TH_B}, L={TH_L}, E={TH_E}): "
-            f"{'a one-round call ' if kernel == 'K24' else ''}"
-            f"{ms_k:.4f} ms a round against a bound of "
+            f"a one-round call {ms_k:.4f} ms a round against a bound of "
             f"{t['bound_ms']:.4f} ms ({by / 1e6:.2f} MB, bytes; "
             f"{t['bound_ms'] / ms_k:.4f} of it); plain {ms_p:.3f} ms; K11's "
             f"round without the sums {ms_11:.4f} ms; library: none")
-        if kernel == "K24":
-            # The main path's form: a resident call of a chunk's rounds.
-            n_call = min(TH_ROUNDS, ens._RESIDENT_CHUNK // (TH_B * TH_E))
-            shc = torch.randint(0, TH_L, (n_call,), generator=gen,
-                                device=dev, dtype=torch.int32)
-            uc = torch.rand((n_call, TH_B, TH_E), generator=gen, device=dev)
+        # The main path's form: a resident call of a chunk's rounds.
+        n_call = min(TH_ROUNDS, ens._RESIDENT_CHUNK // (TH_B * TH_E))
+        shc = torch.randint(0, TH_L, (n_call,), generator=gen,
+                            device=dev, dtype=torch.int32)
+        uc = torch.rand((n_call, TH_B, TH_E), generator=gen, device=dev)
+        if kernel == "K23":
+            ms_c = cuda_ms(lambda: tth.sigma_rounds(
+                dm, p8, d8, shc, TH_E, uc, tabs2, *accs), 5,
+                warmup=1) / n_call
+            tile = tth.k23_tile(TH_B, TH_L, TH_E, dm.num_specs,
+                                t2.num_windows)
+        else:
             ms_c = cuda_ms(lambda: tth.ledger_rounds(
                 dm, p8, d8, shc, TH_E, uc, ledger, *accs), 5,
                 warmup=1) / n_call
-            byc = thermo_call_bytes(dm, TH_B, TH_L, TH_E, n_call)
-            t.update({"one_round_ms": ms_k, "one_round_bound_ms":
-                      t["bound_ms"], "one_round_bytes": by, "ms": ms_c,
-                      "bound_ms": byc / n_call / HBM_BYTES_PER_S * 1e3,
-                      "bytes": byc, "call_rounds": n_call,
-                      "tile": tth.k24_tile(TH_B, TH_L, TH_E,
-                                           dm.num_specs)})
-            say(f"K24 alone, a resident call of {n_call} rounds (tile "
-                f"{t['tile']}): {ms_c:.4f} ms a round against a bound of "
-                f"{t['bound_ms']:.4f} ms ({byc / 1e6:.2f} MB a call; "
-                f"{t['bound_ms'] / ms_c:.4f} of it)")
-            del uc
+            tile = tth.k24_tile(TH_B, TH_L, TH_E, dm.num_specs)
+        byc = thermo_call_bytes(dm, TH_B, TH_L, TH_E, n_call, kernel, extra)
+        t.update({"one_round_ms": ms_k, "one_round_bound_ms":
+                  t["bound_ms"], "one_round_bytes": by, "ms": ms_c,
+                  "bound_ms": byc / n_call / HBM_BYTES_PER_S * 1e3,
+                  "bytes": byc, "call_rounds": n_call, "tile": tile})
+        say(f"{kernel} alone, a resident call of {n_call} rounds (tile "
+            f"{t['tile']}): {ms_c:.4f} ms a round against a bound of "
+            f"{t['bound_ms']:.4f} ms ({byc / 1e6:.2f} MB a call; "
+            f"{t['bound_ms'] / ms_c:.4f} of it)")
+        del uc
         del p8, d8, u, accs
     del pt2, dt2, p2f, d2f, pt4, dt4, p4f, d4f, counts, spec_sig
     torch.cuda.empty_cache()
@@ -5500,9 +5639,12 @@ def entropy_example(dev, gen, dm2, t2):
         return sig, dt_, np.asarray(mean), np.asarray(se), nirr
 
     (sig, dtf, mean, se, nirr), la, ms, sec = thermo_path("b", run)
-    rounds = EP["snaps"] * EP["rounds_per_snap"]
-    if la["K23"] != rounds or nirr:
-        raise AssertionError(f"b: launches {la}, n_irrev {nirr}")
+    want = EP["snaps"] * ledger_launches(dm2, Bm, Lr, EP["E"],
+                                         EP["rounds_per_snap"], "K23",
+                                         t2.num_windows)
+    if la["K23"] != want or nirr:
+        raise AssertionError(f"b: launches {la} (want {want}), n_irrev "
+                             f"{nirr}")
     z = np.abs(mean[1:] - exp_cum[1:]) / np.maximum(se[1:], 1e-12)
     sig_tot = (sig.cpu().numpy() + ln_p0
                - np.log(np.maximum(p[ranks(dtf)], 1e-300)))

@@ -914,7 +914,9 @@ def _rolled_draws(rng, tag, size_a, B, L, E, n, per_member):
 def test_table_round_kernel_matches_plain(cuda, tag, f32, per_member):
     """K10 and its plain version, both on the card, give identical tapes
     after every round, at shared and per-member shifts, on float64 and
-    float32 tables, with symbols outside [0, size_a)."""
+    float32 tables, with symbols outside [0, size_a): one-round calls (a
+    launch a round), then all the rounds in one call (`run_lattice_rounds`:
+    one resident launch)."""
     dt_ = tens.device_table(tens.compile_transition_table(tag),
                             dtype=torch.float32 if f32 else None,
                             device=cuda)
@@ -935,6 +937,51 @@ def test_table_round_kernel_matches_plain(cuda, tag, f32, per_member):
     assert tens.table_round.launches == launches + n
     assert int((kd.cpu().numpy() != dt).sum() + (kp.cpu().numpy()
                                                   != pt).sum()) > 0
+    rp, rd = (torch.as_tensor(x, device=cuda) for x in (pt, dt))
+    launches = tens.table_round.launches
+    tens.run_lattice_rounds(dt_, rp, rd, s_t, E, u_t)
+    assert tens.k10_tile(B, L, E) is not None
+    assert tens.table_round.launches == launches + 1
+    torch.cuda.synchronize()
+    assert torch.equal(rp, pp) and torch.equal(rd, pd)
+
+
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("tag,B,L,E,n", [
+    ("ex5-msrtf-machine", 16384, 4096, 256, 6),
+    ("ex4-chemical-turing", 16384, 4096, 256, 5),
+    ("ex2-ferromagnetic-chain", 512, 10, 1, 12),
+    ("ex1-radioactive-decay", 4096, 1024, 64, 5),
+    ("ex5-msrtf-machine", 8, 32_768, 16, 4)])
+def test_table_resident_matches_plain_at_widths(cuda, tag, B, L, E, n,
+                                                per_member):
+    """K10's resident rounds (`run_lattice_rounds`: one launch for every
+    round of the call) at phase 9 (a)'s full width (ex5's table, one
+    outcome a row, so no uniform is read; ex4's, three a row, whose
+    uniforms decide), at d:323's 512 members of L = 10, E = 1, on ex1's
+    two-cell windows (the cell count at run time: the other tables'
+    windows take the unrolled forms), and at rows too long to keep
+    resident (`ensemble.k10_tile` None: one launch a round) equal n
+    plain rounds bit for bit, float64 uniforms."""
+    dt_ = tens.device_table(tens.compile_transition_table(tag), device=cuda)
+    rng = np.random.RandomState(B % 977 + E)
+    pt, dt, shifts, u = _rolled_draws(rng, tag, dt_.size_a, B, L, E, n,
+                                      per_member)
+    u_t = torch.as_tensor(u, dtype=torch.float64, device=cuda)
+    s_t = torch.as_tensor(shifts, device=cuda)
+    start = [torch.as_tensor(x, device=cuda) for x in (pt, dt)]
+    kp, kd = (x.clone() for x in start)
+    launches = tens.table_round.launches
+    tens.run_lattice_rounds(dt_, kp, kd, s_t, E, u_t)
+    resident = tens.k10_tile(B, L, E) is not None
+    assert resident == (L < 28_000)
+    assert tens.table_round.launches == launches + (1 if resident else n)
+    pp, pd = (x.clone() for x in start)
+    for k in range(n):
+        tens.table_round_plain(dt_, pp, pd, s_t[k], u_t[k])
+    torch.cuda.synchronize()
+    assert torch.equal(kp, pp) and torch.equal(kd, pd)
+    assert not (torch.equal(kp, start[0]) and torch.equal(kd, start[1]))
 
 
 @pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
@@ -1744,9 +1791,9 @@ def _thermo_draws(rng, B, L, E, n, per_member):
 def test_sigma_round_kernel_matches_plain(cuda, tag, L, E, per_member):
     """K23 and its plain version, both on the card, round by round (a
     tenth of the cells outside [0, size_a)): tapes, sigma and n_irrev
-    bit for bit; the from-draws run on the card equals
-    the CPU's (plain versions) bit for bit; ex3 counts irreversible
-    events."""
+    bit for bit; the from-draws run on the card (its 8 rounds in one
+    resident launch) equals the CPU's (plain versions) bit for bit; ex3
+    counts irreversible events."""
     dm, _, tabs = _thermo_tables(tag, cuda)
     rng = np.random.RandomState(23)
     B, n = 333, 8
@@ -1767,8 +1814,11 @@ def test_sigma_round_kernel_matches_plain(cuda, tag, L, E, per_member):
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(k, p)), j
     assert thermo.sigma_round.launches == launches + n
+    launches = thermo.sigma_round.launches
     run = thermo.run_ensemble_sigma_from_draws((pt, dt), dm, tabs, s_t, E,
                                                u_t, device=cuda)
+    assert thermo.k23_tile(B, L, E, dm.num_specs, tabs[0].shape[0])
+    assert thermo.sigma_round.launches == launches + 1
     cpu = thermo.run_ensemble_sigma_from_draws(
         (pt, dt), dm, thermo.device_tables(_THERMO_TABLES[tag][1], "cpu"),
         shifts, E, u, device="cpu")
@@ -1826,6 +1876,48 @@ def test_ledger_round_kernel_matches_plain(cuda, tag, L, E, per_member):
 
 
 @pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
+@pytest.mark.parametrize("tag,B,L,E", [
+    ("ex2-ferromagnetic-chain", 16384, 4096, 256),
+    ("ex2-ferromagnetic-chain", 16384, 4096, 1),
+    ("ex2-ferromagnetic-chain", 8192, 12, 1),
+    ("ex2-ferromagnetic-chain", 333, 1000, 5),
+    ("ex2-ferromagnetic-chain", 8, 131_072, 4),
+    ("ex3-copolymerization", 16384, 4096, 256)])
+def test_sigma_resident_matches_plain_at_widths(cuda, tag, B, L, E,
+                                                per_member):
+    """K23's resident form at phase 13's geometries ((a) at E 256 and 1,
+    (b)), at a tile that splits B unevenly with five sites a member, and
+    at rows too long to keep (a launch a round), on ex2 (its tables
+    staged in shared memory) and ex3 (its tables read through L2; it
+    fires irreversible jumps) with a tenth of the cells outside [0,
+    size_a): five rounds in one call (`sigma_rounds`) equal five plain
+    rounds, tapes, sigma and n_irrev bit for bit onto nonzero starting
+    values; launches 1 where the tile fits, else 5."""
+    dm, _, tabs = _thermo_tables(tag, cuda)
+    rng = np.random.RandomState(B % 977 + E)
+    n = 5
+    pt, dt = _thermo_start(rng, tag, B, L, odd=True)
+    shifts, u = _thermo_draws(rng, B, L, E, n, per_member)
+    k = [torch.as_tensor(x, device=cuda).to(torch.int8) for x in (pt, dt)] + [
+        torch.as_tensor(rng.randn(B), device=cuda),
+        torch.as_tensor(rng.randint(0, 9, B).astype(np.int32), device=cuda)]
+    p = [x.clone() for x in k]
+    s_t, u_t = shifts.to(cuda), u.to(cuda)
+    launches = thermo.sigma_round.launches
+    thermo.sigma_rounds(dm, k[0], k[1], s_t, E, u_t, tabs, *k[2:])
+    tile = thermo.k23_tile(B, L, E, dm.num_specs, tabs[0].shape[0])
+    assert (tile is not None) == (L < 100_000)
+    assert tile is None or tile[3] == (tag == "ex2-ferromagnetic-chain")
+    assert thermo.sigma_round.launches == launches + (1 if tile else n)
+    for j in range(n):
+        thermo.sigma_round_plain(dm, p[0], p[1], s_t[j], E, u_t[j], tabs,
+                                 *p[2:])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(k, p))
+    assert not torch.equal(k[1].cpu().to(torch.int32), torch.as_tensor(dt))
+
+
+@pytest.mark.parametrize("per_member", [False, True], ids=["shared", "own"])
 @pytest.mark.parametrize("B,L,E", [(16384, 4096, 256), (16384, 4096, 1),
                                    (8192, 12, 1), (4096, 128, 4),
                                    (333, 1000, 5), (8, 131_072, 4)])
@@ -1863,10 +1955,10 @@ def test_ledger_resident_matches_plain_at_widths(cuda, B, L, E, per_member):
 
 
 def test_thermo_runs_on_card_launch_kernels(cuda):
-    """`run_ensemble_sigma` on the card launches K23 once a round and
-    `run_ensemble_ledger` K24 once for its 30 rounds (one chunk of draws,
-    resident), and neither calls a plain version; the ledger keeps its
-    bookkeeping identity."""
+    """`run_ensemble_sigma` on the card launches K23 once for its 20
+    rounds and `run_ensemble_ledger` K24 once for its 30 (one chunk of
+    draws each, resident), and neither calls a plain version; the ledger
+    keeps its bookkeeping identity."""
     dm, _, tabs = _thermo_tables("ex2-ferromagnetic-chain", cuda)
     rng = np.random.RandomState(25)
     tapes = _thermo_start(rng, "ex2-ferromagnetic-chain", 512, 256)
@@ -1874,7 +1966,7 @@ def test_thermo_runs_on_card_launch_kernels(cuda):
     n23, n24 = thermo.sigma_round.launches, thermo.ledger_round.launches
     (pt, dt), sigma, nirr, times = thermo.run_ensemble_sigma(
         3, tapes, dm, tabs, (20, 16), independent_sites=True)
-    assert thermo.sigma_round.launches == n23 + 20
+    assert thermo.sigma_round.launches == n23 + 1
     assert sigma.device.type == "cuda" and int(nirr.sum()) == 0
     dm4 = tens.compile_decision_machine("ex4var2-chemical-turing")
     g = np.array([-1.0, -1.0, -1.0, 1.5, 0.0, 0.0, 6.0, 0.0, 0.0, 1.0])

@@ -545,6 +545,69 @@ def test_table_rule_matches_plain(host_lib, tag, f32):
         _eq(kd, d)
 
 
+@pytest.mark.parametrize("tag,f32,L,E,tile,threads,n,k0,per_member", [
+    ("ex5-msrtf-machine", False, 96, 4, 3, 7, 6, 2, False),
+    ("ex5-msrtf-machine", True, 96, 8, 2, 64, 4, 0, True),
+    ("ex3-copolymerization", True, 100, 5, 4, 9, 5, 1, True),
+    ("ex3-copolymerization", False, 90, 6, 13, 32, 4, 3, False),
+    ("ex2-ferromagnetic-chain", False, 64, 8, 5, 5, 1, 0, True),
+    ("ex2-ferromagnetic-chain", True, 40, 1, 6, 33, 7, 1, False),
+    ("ex1-radioactive-decay", False, 64, 8, 3, 16, 4, 1, True)])
+def test_resident_table_rounds_match_plain(host_lib, tag, f32, L, E, tile,
+                                           threads, n, k0, per_member):
+    """K10's resident rounds as their host twin runs them
+    (`csrc/table_resident.cuh:ckpe_k10_host_resident`: both int32 rows
+    loaded into the tile's buffer at padded columns, 16 bytes at a time
+    where L % 4 == 0, n rounds of a thread a site on them, written back,
+    tile after tile) equal n rounds of `table_round_plain` bit for bit:
+    tiles that split B unevenly, fewer threads than a round's sites, n =
+    1 and n >= 4, a call from k0 > 0, shared and per-member shifts past
+    L and below 0, float64 and float32 tables, one outcome a row (ex5:
+    no uniform read) and two (ex3, ex2, ex1), windows of 7, 8 and 4
+    cells (the unrolled forms) and of 2 (ex1: the count at run time),
+    symbols outside [0, size_a) whose radix sum wraps."""
+    fn = host_lib('#include "table_resident.cuh"\n').ckpe_k10_host_resident
+    fn.argtypes = ([_P, _P, _P, _I, _P] + [_I] * 6 + [_P, _P, _P, _I, _I,
+                                                      _P, _P] + [_I] * 6)
+    fn.restype = _I
+    _, tdt = _device_tables(tag, f32)
+    rng = np.random.RandomState(L + E + n)
+    B = 11
+    pt, dt = _active_tapes(rng, tag, tdt.size_a, B, L)
+    dt[0, ::7] = -2
+    dt[1, ::5] = 2**30 + 3
+    pt[2, ::9] = -(2**31) + 4
+    shape = (k0 + n, B) if per_member else (k0 + n,)
+    shifts = rng.randint(-L, 2 * L, shape).astype(np.int32)
+    u = rng.rand(n, B, E).astype(np.float32 if f32 else np.float64)
+    arrays = [np.ascontiguousarray(getattr(tdt, a).numpy()) for a in
+              ("pv", "out_cum", "out_world", "wr_mask", "wr_val")]
+    kp, kd = pt.copy(), dt.copy()
+    assert fn(_ptr(kp), _ptr(kd), _ptr(u), int(not f32), _ptr(shifts),
+              int(per_member), k0, n, B, L, E, _ptr(arrays[0]),
+              _ptr(arrays[1]), _ptr(arrays[2]), tdt.num_rows,
+              arrays[1].shape[1], _ptr(arrays[3]), _ptr(arrays[4]),
+              tdt.p_lo, tdt.n_p, tdt.d_lo, tdt.n_d, tile, threads) == 0
+    p, d = _t(pt), _t(dt)
+    for j in range(n):
+        tens.table_round_plain(tdt, p, d, _t(shifts)[k0 + j], _t(u[j]))
+    _eq(kp, p)
+    _eq(kd, d)
+    assert (kp != pt).any() or (kd != dt).any()
+
+
+def test_k10_tile_by_geometry():
+    """`k10_tile`: phase 9 (a)'s geometry fits three members a block at
+    two blocks an SM (384 threads, two sites each); d:323's 512 members
+    at L = 10, E = 1 spread over the SMs; a row of 28,000 fits one member
+    a block, one of 32,768 (8 bytes a padded word past 227 KB) takes the
+    launch a round."""
+    assert tens.k10_tile(16384, 4096, 256) == (3, 384, 3 * 33792)
+    assert tens.k10_tile(512, 10, 1) == (2, 32, 176)
+    assert tens.k10_tile(8, 28_000, 16) == (1, 32, 231_000)
+    assert tens.k10_tile(8, 32_768, 16) is None
+
+
 @pytest.mark.parametrize("tag", ["ex5-msrtf-machine", "ex4-chemical-turing",
                                  "ex2-ferromagnetic-chain",
                                  "ex3-copolymerization"])

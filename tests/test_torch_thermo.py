@@ -387,6 +387,37 @@ def test_run_draws_then_replays_from_draws(independent):
     assert torch.equal(led[0][1], out[0][1])
 
 
+def test_runs_draw_the_same_whatever_the_chunk(monkeypatch):
+    """`run_ensemble` with a table (its draws in chunks of
+    `ensemble._TABLE_CHUNK` uniforms, K10's resident calls) and
+    `run_ensemble_sigma` (`ensemble._RESIDENT_CHUNK`, K23's) give the same
+    tapes, sigma and n_irrev at one seed whatever the chunk: a round a
+    chunk, three rounds, and every round in one."""
+    _, tdm = _dm(EX2)
+    _, tt = _tables(EX2)
+    tdev = thermo.device_tables(tt, device="cpu")
+    tdt = tens.device_table(tens.compile_transition_table(EX2),
+                            device="cpu")
+    B, L, n, E = 8, 32, 10, 4
+    pt, dt = _start(EX2, B, L, 7)
+    runs = []
+    for rounds in (1, 3, n):
+        monkeypatch.setattr(tens, "_TABLE_CHUNK", rounds * B * E)
+        monkeypatch.setattr(tens, "_RESIDENT_CHUNK", rounds * B * E)
+        (tp, td), _ = tens.run_ensemble(5, (pt, dt), tdt, (n, E),
+                                        independent_sites=True,
+                                        device="cpu")
+        (sp, sd), sigma, nirr, _ = thermo.run_ensemble_sigma(
+            5, (pt, dt), tdm, tdev, (n, E), device="cpu")
+        runs.append((tp, td, sp, sd, sigma, nirr))
+    for run in runs[1:]:
+        for x, y in zip(run, runs[0]):
+            assert torch.equal(x, y)
+    assert (runs[0][1] != torch.as_tensor(dt)).any()
+    assert (runs[0][3] != torch.as_tensor(dt)).any()
+    assert runs[0][4].abs().sum() > 0
+
+
 def test_runs_check_their_inputs():
     """Bad tables, potentials, accumulators and uniforms raise; an entry
     point without ``device`` runs on ``cuda``, which raises without a
@@ -595,6 +626,83 @@ def test_resident_ledger_rounds_match_plain(tag, L, E, tile, threads, n, k0,
         np.testing.assert_array_equal(g, w.numpy())
     assert int(got[3].sum() - accs[1].sum()) == B * E * n
     assert (got[2] != accs[0]).any() and (got[4] != accs[2]).any()
+
+
+@pytest.mark.parametrize("tag,L,E,tile,threads,n,k0,per_member,stage", [
+    (EX2, 64, 4, 5, 7, 6, 2, False, True),
+    (EX2, 64, 4, 3, 64, 4, 0, True, False),
+    (EX2, 60, 5, 4, 9, 5, 1, True, True),
+    (EX2, 64, 1, 6, 5, 1, 0, False, True),
+    (EX3, 72, 6, 13, 32, 4, 3, False, False),
+    (EX3, 64, 8, 4, 3, 7, 0, True, True)])
+def test_resident_sigma_rounds_match_plain(tag, L, E, tile, threads, n, k0,
+                                           per_member, stage,
+                                           tmp_path_factory):
+    """K23's resident rounds as their host twin runs them
+    (`csrc/thermo_round.cuh:ckpe_k23_host_resident`: rows, sigma and
+    n_irrev loaded into the tile's buffer, the tables staged there or
+    read where they lie, each round's walk staging its sites' entries
+    and flags, then a thread a member's sum and count, all written back
+    once, tile after tile) equal n rounds of `sigma_round_plain`: tapes,
+    sigma and n_irrev bit for bit onto nonzero starting values; tiles
+    that split B unevenly, fewer threads than a phase's items, n = 1 and
+    n >= 4, a call from k0 > 0, shared and per-member shifts past L and
+    below 0, four sites a thread by the lane walk (E a multiple of 4) and
+    a site a thread (E = 1, 5, 6), a tenth of the cells outside [0,
+    size_a), random tables with a fifth of their entries irreversible."""
+    lib = _unit(tag, tmp_path_factory)
+    _, tdm = _dm(tag)
+    B = 13
+    rng = np.random.RandomState(L + E + n)
+    # Random entries (a fifth irreversible), so that every site's entry
+    # is inexact and the sums' order shows in the bits.
+    shape = (tdm.size_a**tdm.n_cells, tdm.num_specs)
+    sig_tab = torch.as_tensor(rng.randn(*shape))
+    irr_tab = torch.as_tensor(rng.rand(*shape) < 0.2)
+    pt, dt = _start(tag, B, L, L + E)
+    for t in (pt, dt):
+        odd = rng.rand(B, L) < 0.1
+        t[odd] = rng.randint(-3, tdm.size_a + 3, int(odd.sum()))
+    pt, dt = pt.astype(np.int8), dt.astype(np.int8)
+    shape = (k0 + n, B) if per_member else (k0 + n,)
+    shifts = rng.randint(-2 * L, 3 * L, shape).astype(np.int32)
+    u = rng.rand(n, B, E).astype(np.float32)
+    accs = [rng.randn(B), rng.randint(0, 9, B).astype(np.int32)]
+    got = [pt.copy(), dt.copy()] + [a.copy() for a in accs]
+    fn = lib.ckpe_k23_host_resident
+    fn.argtypes = [_P] * 4 + [_I] * 6 + [_P, _P, _I, _P, _P, _I, _I, _I]
+    fn.restype = _I
+    assert fn(*(x.ctypes.data for x in (*got[:2], u, shifts)),
+              int(per_member), k0, n, B, L, E, sig_tab.data_ptr(),
+              irr_tab.data_ptr(), tdm.num_specs,
+              *(x.ctypes.data for x in got[2:]), tile, threads,
+              int(stage)) == 0
+    want = [torch.as_tensor(x.copy()) for x in [pt, dt] + accs]
+    for j in range(n):
+        thermo.sigma_round_plain(tdm, want[0], want[1],
+                                 torch.as_tensor(shifts[k0 + j]), E,
+                                 torch.as_tensor(u[j]), (sig_tab, irr_tab),
+                                 *want[2:])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    assert (got[0] != pt).any() or (got[1] != dt).any()
+    assert (got[2] != accs[0]).any() and (got[3] != accs[1]).any()
+
+
+def test_k23_tile_by_geometry():
+    """`k23_tile`: phase 13 (a)'s geometry on ex2 fits 10 members a block
+    at two blocks an SM and keeps 8, the walk's whole passes of 512
+    threads, with ex2's 16 x 3 tables staged; (b)'s spreads B over the
+    SMs; tables past `K23_STAGED_TABLE_BYTES` stay in global memory; rows
+    past a block's shared memory take the launch a round."""
+    per = 2 * 4100 + 8 * (1 + 257) + 4 + 4 * 65
+    assert thermo.k23_tile(16384, 4096, 256, 3, 16) == (
+        8, 512, 8 * per + 9 * 48, True)
+    assert thermo.k23_tile(8192, 12, 1, 3, 16)[:2] == (32, 256)
+    big = thermo.K23_STAGED_TABLE_BYTES // 9 + 1
+    assert thermo.k23_tile(16384, 4096, 256, 1, big) == (8, 512, 8 * per,
+                                                         False)
+    assert thermo.k23_tile(8, 131_072, 4, 3, 16) is None
 
 
 def test_k24_tile_by_geometry():
