@@ -106,25 +106,17 @@
 
 #include "sweep_rule.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 constexpr int kThreads = 256;  // the grid form's block
 constexpr int kWideThreads = 1024;  // the block and cluster forms' most
 constexpr int kTileThreads = 512;
 constexpr int kFinishThreads = 1024;
-constexpr int kStaged = 32;  // K5 items unpacked into shared memory at once
 // K5 keeps 4 blocks an SM (64 registers a thread): at cl_k 7-8 its grid
 // is what fits, and phase 0's code at 66 registers left room for 3. The
 // block and cluster forms' 1,024 threads a block get the same 64.
 constexpr int kK5BlocksPerSm = 4;
 constexpr int kMaxCluster = 16;  // past 8 a non-portable cluster size
-
-// K5's and K25's launch forms (`engine/dense.py:LaunchForm`), by the
-// barrier between two phases: the cooperative grid's sync, one block's
-// __syncthreads, one thread-block cluster's hardware barrier.
-enum { kFormGrid = 0, kFormBlock = 1, kFormCluster = 2 };
 
 template <int F>
 struct K5Shape {  // the grid form
@@ -242,21 +234,6 @@ struct K5Launch {
   K5Stage stage;
 };
 
-// The barrier before each phase. The cluster's is the hardware one, its
-// arrive a release and its wait an acquire at the cluster's scope: what
-// one block wrote before it, every block of the cluster reads after it.
-template <int F>
-__device__ __forceinline__ void k5_barrier() {
-  if constexpr (F == kFormGrid) {
-    cg::this_grid().sync();
-  } else if constexpr (F == kFormCluster) {
-    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-  } else {
-    __syncthreads();
-  }
-}
-
 // K5: the levels (block and cluster forms, where asked), phase 0 (K4),
 // then every phase of the sweep, in one launch of form F, a barrier
 // before each phase. In the block and cluster forms each block first
@@ -264,7 +241,7 @@ __device__ __forceinline__ void k5_barrier() {
 // items unpacked (fields and divisors), the phase offsets, the table,
 // and in the block form the work buffer; the rule then reads the table
 // and work through the block's copy of the context. Otherwise (and
-// always in the grid form) a block unpacks up to kStaged of a phase's
+// always in the grid form) a block unpacks up to kK5Staged of a phase's
 // items into shared memory at a time. Each phase's elements are taken
 // in a loop strided by the launch's threads. kDual: a dual program's
 // plan, whose items read their tapes' offsets (`sweep_rule.cuh`). T:
@@ -272,7 +249,7 @@ __device__ __forceinline__ void k5_barrier() {
 template <int F, bool kDual, class T>
 __global__ void __launch_bounds__(K5Shape<F>::threads, K5Shape<F>::min_blocks)
 k5_sweep_kernel(K5Launch<T> L) {
-  __shared__ K5Item staged[kStaged];
+  __shared__ K5Item staged[kK5Staged];
   __shared__ K5CtxT<T> sctx;
   extern __shared__ __align__(16) unsigned char k5_dyn[];
   const unsigned threads = blockDim.x;
@@ -308,54 +285,15 @@ k5_sweep_kernel(K5Launch<T> L) {
     }
   }
   const K5CtxT<T>& c = *cp;
-  if constexpr (F != kFormGrid) {
-    if (L.lv.lv || L.lv.vlv) {
-      for (int j = c.k - 1; j >= 0; --j) {
-        const unsigned count = k5_level_count(c, L.lv, j);
-        for (unsigned x = tid; x < count; x += stride)
-          k5_level_entry(c, L.lv, j, x);
-        if (j == 0 && tid < k5_level_ways(L.lv) * (unsigned)L.lv.tapes)
-          k5_level_one(c, L.lv, tid);
-        k5_barrier<F>();
-      }
-    }
-  }
+  k5_form_levels<F>(c, L.lv, tid, stride);
   k4_warp_weights(c, L.pairs, L.s, L.n_sig, tid, stride);
   for (int ph = 0; ph < L.n_phases; ++ph) {
-    k5_barrier<F>();
+    k5_form_barrier<F>();
     if (ph == 0)  // no item of the first phase touches dy
       for (unsigned x = tid; x < L.n; x += stride) k5_dy_set(c, x, T());
-    const long long end = pp[ph + 1];
-    for (long long first = pp[ph]; first < end; first += kStaged) {
-      const int count = (int)(end - first < kStaged ? end - first : kStaged);
-      const K5Item* its = staged;
-      if (all) {
-        its = all + first;
-      } else {
-        __syncthreads();  // the previous chunk's elements are done
-        for (int q = threadIdx.x; q < count; q += threads) {
-          K5Item it = k5_item(L.items + (first + q) * K5_FIELDS, c);
-          if (!kDual) it.poff = it.loff = 0;  // a single tape's: not read
-          staged[q] = it;
-        }
-        __syncthreads();
-      }
-      const long long base = its[0].start;
-      const unsigned total =
-          (unsigned)(its[count - 1].start + its[count - 1].n - base);
-      for (unsigned x = tid; x < total; x += stride) {
-        int lo = 0, hi = count - 1;  // the last item starting <= x
-        while (lo < hi) {
-          const int mid = (lo + hi + 1) >> 1;
-          if (its[mid].start - base <= (long long)x)
-            lo = mid;
-          else
-            hi = mid - 1;
-        }
-        k5_element<kDual>(c, its[lo],
-                          (unsigned)(x - (its[lo].start - base)));
-      }
-    }
+    k5_phase_elements<kDual>(
+        c, L.items, all, pp[ph], pp[ph + 1], staged, tid, stride,
+        [&](const K5Item& it, unsigned e) { k5_element<kDual>(c, it, e); });
   }
 }
 

@@ -355,28 +355,34 @@ K5_FN T k5_src(const K5CtxT<T>& c, const K5Item& it, unsigned x) {
   return acc;
 }
 
-// A compute item's value at compact index e. A product's two factors
-// commute bit for bit, in doubles and in pairs alike.
+// A compute item's two factors at compact index e: its ratio r (not for
+// IDENT, which returns false) and the source operand x it multiplies.
 template <bool kDual, class T>
-K5_FN T k5_value(const K5CtxT<T>& c, const K5Item& it, unsigned e) {
+K5_FN bool k5_parts(const K5CtxT<T>& c, const K5Item& it, unsigned e, T& r,
+                    T& x) {
   const int op = it.op;
   const unsigned rest = k5_q(e, it.lo), h = k5_q(rest, it.d);
   const unsigned i = rest - h * it.d.d;
   const unsigned j = (h * it.span + (unsigned)c.table[it.tab + i]) * it.lo.d +
                      (e - rest * it.lo.d);
-  if (op == K5_IDENT) return k5_src(c, it, e);
-  const T r = k5_ratio<kDual>(c, it, j);
+  if (op == K5_IDENT) {
+    x = k5_src(c, it, e);
+    return false;
+  }
+  r = k5_ratio<kDual>(c, it, j);
   switch (op) {
     case K5_EXTEND:
-      return k5_mul(r, k5_src(c, it, k5_r(e, it.xn)));
+      x = k5_src(c, it, k5_r(e, it.xn));
+      break;
     case K5_RIGHT:
-      return k5_mul(r, k5_src(c, it, k5_q(e, it.a)));
+      x = k5_src(c, it, k5_q(e, it.a));
+      break;
     case K5_RSHIFT: {
       const unsigned cc = k5_q(e, it.a);
-      T sum = k5_src(c, it, cc);
+      x = k5_src(c, it, cc);
       for (unsigned dd = 1; dd < it.a.d; ++dd)
-        sum = k5_add(sum, k5_src(c, it, dd * it.n1 + cc));
-      return k5_mul(r, sum);
+        x = k5_add(x, k5_src(c, it, dd * it.n1 + cc));
+      break;
     }
     default: {  // K5_SHIFT, K5_RSHIFT_RUN: the live children of i
       const int* t = c.table;
@@ -389,12 +395,20 @@ K5_FN T k5_value(const K5CtxT<T>& c, const K5Item& it, unsigned e) {
         base = k5_r(k5_q(e, it.a), it.xlo);
         step = it.xlo.d;
       }
-      T sum = k5_src(c, it, base + (unsigned)t[t[row]] * step);
+      x = k5_src(c, it, base + (unsigned)t[t[row]] * step);
       for (int q = t[row] + 1; q < t[row + 1]; ++q)
-        sum = k5_add(sum, k5_src(c, it, base + (unsigned)t[q] * step));
-      return k5_mul(r, sum);
+        x = k5_add(x, k5_src(c, it, base + (unsigned)t[q] * step));
     }
   }
+  return true;
+}
+
+// A compute item's value at compact index e. A product's two factors
+// commute bit for bit, in doubles and in pairs alike.
+template <bool kDual, class T>
+K5_FN T k5_value(const K5CtxT<T>& c, const K5Item& it, unsigned e) {
+  T r, x;
+  return k5_parts<kDual>(c, it, e, r, x) ? k5_mul(r, x) : x;
 }
 
 // One element e of one item.
@@ -568,7 +582,443 @@ K5_FN T k4_pair_weight(const K5CtxT<T>& c, const K4Pairs& w, int q) {
                                    w.den + (size_t)q * w.chain, w.chain));
 }
 
+// --- K30: u^T J --------------------------------------------------------------
+//
+// K30 (`engine/dense.py:dense_vjp`; plain `dense_vjp_plain`, plan
+// `vjp_plan`) runs the sweep forward and then backward, each cotangent a
+// gather that one thread sums from 0.0 over a list fixed by the plan, in
+// plan order; no atomic anywhere. Its phases, each apart by a barrier:
+//
+// - the forward (`k30_forward`): every compute item of K5's rule, by
+//   level, keeping each element's ratio r in ``g`` and operand x in
+//   ``px`` besides its value t = r x in the work buffer (`k5_parts`);
+// - the reverse items by descending level (`k30_reverse`): element e of
+//   a step sums its emission's u[adj] - u[orig] (where its run is an
+//   original rank) and, for each reader in plan order, the reader's r x
+//   cotangent at the A elements that read e, in digit order (by the
+//   reader's kind: a tile reads e at e + d n, a repeat at e A + d, a
+//   trailing-digit sum at its parent rank with each leading digit d, a
+//   leading-digit sum at (e mod n / A) A + d); it then writes r x
+//   cotangent into ``g`` and cotangent x x into ``px`` (an IDENT step,
+//   which has no ratio, its cotangent into ``g``). The last reverse phase
+//   forms the seeds' cotangents (``xs``) the same way, and each
+//   ratio-table entry's cotangent (`k30_table_entry`): the ``px`` terms
+//   of the steps that read the table, in plan order, at the entry's
+//   window where it is live in the step, times the guarded ratio's
+//   partials (`k30_partials`) into ``q``;
+// - each signature weight's cotangent (`k30_signature`): its seeds' and
+//   its interior ops' +-u terms, in plan order;
+// - each world (`k30_world`): w_bar_v the sum of its pairs' signature
+//   cotangents in pair order, w_bar = w_bar_v prod g, and each chain
+//   factor's cotangent w_bar_v w_const (prefix product x suffix
+//   product: no division by a g that may be 0) times its partials, into
+//   ``q``;
+// - each pyramid entry's own terms (`k30_direct`): as a numerator, as a
+//   denominator by digit, then its chain factors' terms in ``q`` order;
+// - the pyramid's transpose into p_bar (`k30_pbar`): a thread an entry
+//   of p adds its ancestors' terms from level 0 down, as lv_bar[j + 1] =
+//   direct[j + 1] + lv_bar[j] repeated over the last digit.
+//
+// The guarded ratio's partials, with m = max(n, d), g = n / m, dm/dn 1
+// where n > d, 0 where d > n and 0.5 at a tie (JAX's max rule) and dm/dd
+// = 1 - dm/dn: dg/dn = (1 - g dm/dn) / m, dg/dd = -(g dm/dd) / m where n
+// > 0, and exactly 0 where n <= 0 (the JAX package's double-where form:
+// no NaN at a zero context).
+
+// A reverse item row (`engine/dense.py:RV_FIELDS`), then kK30Readers
+// reader blocks (`READER_FIELDS`).
+enum {
+  RV_START, RV_N, RV_OUT, RV_SEED, RV_IDENT, RV_HI, RV_D, RV_LO, RV_SPAN,
+  RV_RANKS, RV_ADJ, RV_POFF, RV_READERS, RV_FIELDS,
+};
+enum { RD_KIND, RD_DST, RD_P1, RD_P2, RD_P3, RD_PARENT, RD_FIELDS };
+constexpr int kK30Readers = 2;
+constexpr int kK30Row = RV_FIELDS + kK30Readers * RD_FIELDS;
+// A step's layout as the table entries read it (`STEP_FIELDS`).
+enum { ST_DST, ST_HI, ST_D, ST_LO, ST_SPAN, ST_RANKS, ST_FIELDS };
+constexpr int kK30MaxChain = 32;  // `engine/dense.py:MAX_CHAIN`
+
+struct K30Ctx {
+  const int* table;  // K5's, then the adjusted ranks and the parents
+  const long long* steps;  // ST_FIELDS a step
+  const int* tab_ptr;  // each (tape, table)'s steps, plan order
+  const int* tab_steps;
+  const int* sig_ptr;  // each signature's terms: [xs, u, -u] indices
+  const int* sig_terms;
+  const int* world_ptr;  // each world's pairs' signatures, pair order
+  const int* world_sigs;
+  const int* wt_pyr;  // the chain factors' pyramid terms, by entry
+  const int* wt_q;
+  int n_wt;
+  const int* w_num;  // [worlds, chain] pyramid indices (as K4's)
+  const int* w_den;
+  const double* w_const;  // [worlds]
+  int chain, n_worlds, n_sig, n_xs, tapes;
+  unsigned rat_len, off_re, low_block;
+  unsigned off_le[kMaxK + 1];  // r_le[j] at off_le[j] in a tape's tables
+  const double* u;  // the cotangent of dy
+  double* g;        // each element's r, then r x its cotangent
+  double* px;       // each element's x, then its cotangent x x
+  double* xs;       // the seeds' cotangents
+  double* sbar;     // the signature weights' cotangents
+  double* q;        // the partials (`engine/dense.py:vjp_partials`)
+  double* direct;   // each pyramid entry's own terms
+  double* pbar;     // u^T J in p
+  double* wbar;     // u^T J in w_const, or null
+};
+
+K5_FN void k30_partials(double n, double d, double& dn, double& dd) {
+  if (!(n > 0.0)) {
+    dn = 0.0;
+    dd = 0.0;
+    return;
+  }
+  double m = d > n ? d : n;
+  if (d != d) m = d;
+  const double g = n / m;
+  const double dmn = n > d ? 1.0 : (d > n ? 0.0 : 0.5);
+  const double dmd = 1.0 - dmn;
+  dn = (1.0 - g * dmn) / m;
+  dd = -(g * dmd) / m;
+}
+
+// The forward: K5's value of a compute item's element, its ratio and
+// operand kept.
+template <bool kDual>
+K5_FN void k30_forward(const K5Ctx& c, const K30Ctx& v, const K5Item& it,
+                       unsigned e) {
+  double r, x;
+  const long long at = it.dst + e;
+  if (k5_parts<kDual>(c, it, e, r, x)) {
+    c.work[at] = k5_mul(r, x);
+    v.g[at] = r;
+  } else {
+    c.work[at] = x;
+  }
+  v.px[at] = x;
+}
+
+// One element e of a reverse item (a step's vector, or a seed).
+K5_FN void k30_reverse(const K5Ctx& c, const K30Ctx& v, const long long* r,
+                       unsigned e) {
+  const unsigned a = (unsigned)c.a;
+  double acc = 0.0;
+  if (r[RV_ADJ] >= 0) {
+    const unsigned lo = (unsigned)r[RV_LO], nd = (unsigned)r[RV_D];
+    const unsigned rest = e / lo, s = e - rest * lo;
+    const unsigned h = rest / nd, i = rest - h * nd;
+    const unsigned hs = h * (unsigned)r[RV_SPAN];
+    const double* u = v.u + r[RV_POFF];
+    const unsigned w = (hs + (unsigned)v.table[r[RV_RANKS] + i]) * lo + s;
+    const unsigned wa = (hs + (unsigned)v.table[r[RV_ADJ] + i]) * lo + s;
+    acc = acc + (u[wa] - u[w]);
+  }
+  for (int q = 0; q < (int)r[RV_READERS]; ++q) {
+    const long long* b = r + RV_FIELDS + q * RD_FIELDS;
+    const double* gj = v.g + b[RD_DST];
+    const unsigned p1 = (unsigned)b[RD_P1];
+    switch ((int)b[RD_KIND]) {
+      case K5_IDENT:
+        acc = acc + k5_load(gj + e);
+        break;
+      case K5_EXTEND:
+        for (unsigned d = 0; d < a; ++d)
+          acc = acc + k5_load(gj + e + (size_t)d * p1);
+        break;
+      case K5_RIGHT:
+        for (unsigned d = 0; d < a; ++d)
+          acc = acc + k5_load(gj + (size_t)e * a + d);
+        break;
+      case K5_SHIFT: {
+        const unsigned hs = e / p1, i = e - hs * p1;
+        const unsigned par = (unsigned)v.table[b[RD_PARENT] + i];
+        const unsigned p2 = (unsigned)b[RD_P2], p3 = (unsigned)b[RD_P3];
+        for (unsigned d = 0; d < a; ++d)
+          acc = acc + k5_load(gj + (size_t)(d * p2 + hs) * p3 + par);
+        break;
+      }
+      case K5_RSHIFT: {
+        const unsigned cc = e % p1;
+        for (unsigned d = 0; d < a; ++d)
+          acc = acc + k5_load(gj + (size_t)cc * a + d);
+        break;
+      }
+      default: {  // K5_RSHIFT_RUN
+        const unsigned i = e / p1, s = e - i * p1;
+        const unsigned par = (unsigned)v.table[b[RD_PARENT] + i];
+        for (unsigned d = 0; d < a; ++d)
+          acc = acc + k5_load(gj + ((size_t)par * p1 + s) * a + d);
+      }
+    }
+  }
+  const long long at = r[RV_OUT] + e;
+  if (r[RV_SEED]) {
+    v.xs[at] = acc;
+  } else if (r[RV_IDENT]) {
+    v.g[at] = acc;
+  } else {
+    const double ratio = k5_load(v.g + at), x = k5_load(v.px + at);
+    v.g[at] = ratio * acc;
+    v.px[at] = acc * x;
+  }
+}
+
+// Entry x (over the tapes' ratio tables, `engine/dense.py:ratio_offsets`
+// a tape) of the ratio tables: its cotangent and partials into q[2 x],
+// q[2 x + 1].
+K5_FN void k30_table_entry(const K5Ctx& c, const K30Ctx& v, unsigned x) {
+  const unsigned a = (unsigned)c.a;
+  const unsigned t = x / v.rat_len, e = x - t * v.rat_len;
+  int slot, lev;
+  unsigned w;
+  if (e >= v.off_re) {
+    slot = c.k;
+    lev = c.k;
+    w = e - v.off_re;
+  } else {
+    lev = 1;
+    while (e >= v.off_le[lev] + c.pw[lev]) ++lev;
+    slot = lev - 1;
+    w = e - v.off_le[lev];
+  }
+  double acc = 0.0;
+  const int sl = (int)t * (c.k + 1) + slot;
+  for (int q = v.tab_ptr[sl]; q < v.tab_ptr[sl + 1]; ++q) {
+    const long long* st = v.steps + (size_t)v.tab_steps[q] * ST_FIELDS;
+    const unsigned lo = (unsigned)st[ST_LO], span = (unsigned)st[ST_SPAN];
+    const unsigned rest = w / lo, s = w - rest * lo;
+    const unsigned h = rest / span, rank = rest - h * span;
+    const int* ranks = v.table + st[ST_RANKS];
+    int i0 = 0, i1 = (int)st[ST_D] - 1;
+    while (i0 < i1) {  // the first live rank >= rank
+      const int mid = (i0 + i1) >> 1;
+      if ((unsigned)ranks[mid] < rank)
+        i0 = mid + 1;
+      else
+        i1 = mid;
+    }
+    if ((unsigned)ranks[i0] == rank)
+      acc = acc + k5_load(v.px + st[ST_DST] +
+                          ((size_t)h * st[ST_D] + i0) * lo + s);
+  }
+  const unsigned pbase = t * c.pw[c.k];
+  const unsigned lbase = c.n_state + t * v.low_block;
+  unsigned yn, yd;
+  if (slot == c.k) {
+    yn = pbase + w;
+    yd = lbase + c.lv_off[c.k - 1] + w / a;
+  } else {
+    yn = lev == c.k ? pbase + w : lbase + c.lv_off[lev] + w;
+    yd = lbase + c.lv_off[lev - 1] + w % c.pw[lev - 1];
+  }
+  double dn, dd;
+  k30_partials(k4_pyramid(c, (int)yn), k4_pyramid(c, (int)yd), dn, dd);
+  v.q[2 * (size_t)x] = acc * dn;
+  v.q[2 * (size_t)x + 1] = acc * dd;
+}
+
+// Signature g's weight's cotangent.
+K5_FN void k30_signature(const K5Ctx& c, const K30Ctx& v, int g) {
+  double acc = 0.0;
+  for (int q = v.sig_ptr[g]; q < v.sig_ptr[g + 1]; ++q) {
+    const int t = v.sig_terms[q];
+    double x;
+    if (t < v.n_xs)
+      x = k5_load(v.xs + t);
+    else if (t < v.n_xs + (int)c.n_state)
+      x = v.u[t - v.n_xs];
+    else
+      x = -v.u[t - v.n_xs - (int)c.n_state];
+    acc = acc + x;
+  }
+  v.sbar[g] = acc;
+}
+
+// World w: w_bar, and its chain factors' partials.
+K5_FN void k30_world(const K5Ctx& c, const K30Ctx& v, int w) {
+  double wv = 0.0;
+  for (int q = v.world_ptr[w]; q < v.world_ptr[w + 1]; ++q)
+    wv = wv + k5_load(v.sbar + v.world_sigs[q]);
+  const int n = v.chain;
+  double g[kK30MaxChain], dn[kK30MaxChain], dd[kK30MaxChain],
+      suf[kK30MaxChain];
+  for (int j = 0; j < n; ++j) {
+    const double num = k4_pyramid(c, v.w_num[(size_t)w * n + j]);
+    const double den = k4_pyramid(c, v.w_den[(size_t)w * n + j]);
+    g[j] = k5_guarded(num, den);
+    k30_partials(num, den, dn[j], dd[j]);
+  }
+  double prod = g[0];
+  for (int j = 1; j < n; ++j) prod = prod * g[j];
+  if (v.wbar) v.wbar[w] = wv * prod;
+  const double weight = wv * v.w_const[w];
+  suf[n - 1] = 1.0;
+  for (int j = n - 2; j >= 0; --j) suf[j] = suf[j + 1] * g[j + 1];
+  double pre = 1.0;
+  double* q = v.q + 2 * (size_t)v.tapes * v.rat_len + 2 * (size_t)w * n;
+  for (int j = 0; j < n; ++j) {
+    const double gb = weight * (pre * suf[j]);
+    q[2 * j] = gb * dn[j];
+    q[2 * j + 1] = gb * dd[j];
+    pre = pre * g[j];
+  }
+}
+
+// The partial of the ratio-table entry `entry` of tape t (side 0: as a
+// numerator, 1: as a denominator).
+K5_FN double k30_q(const K30Ctx& v, unsigned t, unsigned entry, int side) {
+  return k5_load(v.q + 2 * ((size_t)t * v.rat_len + entry) + side);
+}
+
+// Pyramid entry y ([p | low] coordinates, K4's): its own terms.
+K5_FN void k30_direct(const K5Ctx& c, const K30Ctx& v, unsigned y) {
+  const unsigned a = (unsigned)c.a, n = c.pw[c.k];
+  unsigned t, x;
+  int j;
+  if (y < c.n_state) {
+    t = y / n;
+    x = y - t * n;
+    j = c.k;
+  } else {
+    const unsigned z = y - c.n_state;
+    t = z / v.low_block;
+    const unsigned r = z - t * v.low_block;
+    if (r == c.lv_off[0] + 1) {  // the constant 1 above level 0
+      v.direct[y] = 0.0;
+      return;
+    }
+    j = c.k - 1;
+    while (r >= c.lv_off[j] + c.pw[j]) --j;
+    x = r - c.lv_off[j];
+  }
+  double acc = 0.0;
+  if (j == c.k) {
+    acc = acc + k30_q(v, t, v.off_le[c.k] + x, 0);
+    acc = acc + k30_q(v, t, v.off_re + x, 0);
+  } else if (j >= 1) {
+    acc = acc + k30_q(v, t, v.off_le[j] + x, 0);
+  }
+  if (j < c.k)
+    for (unsigned d = 0; d < a; ++d)
+      acc = acc + k30_q(v, t, v.off_le[j + 1] + d * c.pw[j] + x, 1);
+  if (j == c.k - 1)
+    for (unsigned d = 0; d < a; ++d)
+      acc = acc + k30_q(v, t, v.off_re + x * a + d, 1);
+  int lo = 0, hi = v.n_wt;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (v.wt_pyr[mid] < (int)y)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  for (int q = lo; q < v.n_wt && v.wt_pyr[q] == (int)y; ++q)
+    acc = acc + k5_load(v.q + v.wt_q[q]);
+  v.direct[y] = acc;
+}
+
+// Entry y of p: the pyramid's transpose.
+K5_FN void k30_pbar(const K5Ctx& c, const K30Ctx& v, unsigned y) {
+  const unsigned n = c.pw[c.k], t = y / n, x = y - t * n;
+  const double* lv = v.direct + c.n_state + (size_t)t * v.low_block;
+  double acc = k5_load(lv + c.lv_off[0]);
+  for (int j = 1; j < c.k; ++j)
+    acc = k5_load(lv + c.lv_off[j] + x / c.pw[c.k - j]) + acc;
+  v.pbar[y] = k5_load(v.direct + y) + acc;
+}
+
 #ifdef __CUDACC__
+#include <cooperative_groups.h>
+
+// K5's, K25's and K30's launch forms (`engine/dense.py:LaunchForm`), by
+// the barrier between two phases: the cooperative grid's sync, one
+// block's __syncthreads, one thread-block cluster's hardware barrier.
+enum { kFormGrid = 0, kFormBlock = 1, kFormCluster = 2 };
+
+constexpr int kK5Staged = 32;  // items unpacked into shared memory at once
+
+// The barrier before each phase of form F. The cluster's is the hardware
+// one, its arrive a release and its wait an acquire at the cluster's
+// scope: what one block wrote before it, every block of the cluster
+// reads after it.
+template <int F>
+__device__ __forceinline__ void k5_form_barrier() {
+  if constexpr (F == kFormGrid) {
+    cooperative_groups::this_grid().sync();
+  } else if constexpr (F == kFormCluster) {
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+// The block and cluster forms' leading phases: the levels ``o`` asks
+// for, from level k-1 down, a barrier after each (none in the grid form,
+// where K3 made them before the launch).
+template <int F, class T>
+__device__ __forceinline__ void k5_form_levels(const K5CtxT<T>& c,
+                                               const K5LevelOut& o,
+                                               unsigned tid,
+                                               unsigned stride) {
+  if constexpr (F != kFormGrid) {
+    if (!o.lv && !o.vlv) return;
+    for (int j = c.k - 1; j >= 0; --j) {
+      const unsigned count = k5_level_count(c, o, j);
+      for (unsigned x = tid; x < count; x += stride)
+        k5_level_entry(c, o, j, x);
+      if (j == 0 && tid < k5_level_ways(o) * (unsigned)o.tapes)
+        k5_level_one(c, o, tid);
+      k5_form_barrier<F>();
+    }
+  }
+}
+
+// One phase of K5's plan: ``op(item, e)`` for element e of each of the
+// items [begin, end), a thread an element in a loop strided by the
+// launch's threads (``tid`` the thread's index in it). The items are
+// read from ``all`` where the block holds the plan unpacked, else
+// unpacked from their rows (K5_FIELDS each) kK5Staged at a time into
+// ``staged`` (the block's shared array); an element finds its item by a
+// binary search on the items' starts. K5's values (`k5_element`) and
+// K30's forward (`k30_forward`).
+template <bool kDual, class T, class Op>
+__device__ __forceinline__ void k5_phase_elements(
+    const K5CtxT<T>& c, const long long* rows, const K5Item* all,
+    long long begin, long long end, K5Item* staged, unsigned tid,
+    unsigned stride, Op op) {
+  for (long long first = begin; first < end; first += kK5Staged) {
+    const int count =
+        (int)(end - first < kK5Staged ? end - first : kK5Staged);
+    const K5Item* its = staged;
+    if (all) {
+      its = all + first;
+    } else {
+      __syncthreads();  // the previous chunk's elements are done
+      for (int q = threadIdx.x; q < count; q += blockDim.x) {
+        K5Item it = k5_item(rows + (first + q) * K5_FIELDS, c);
+        if (!kDual) it.poff = it.loff = 0;  // a single tape's: not read
+        staged[q] = it;
+      }
+      __syncthreads();
+    }
+    const long long base = its[0].start;
+    const unsigned total =
+        (unsigned)(its[count - 1].start + its[count - 1].n - base);
+    for (unsigned x = tid; x < total; x += stride) {
+      int lo = 0, hi = count - 1;  // the last item starting <= x
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (its[mid].start - base <= (long long)x)
+          lo = mid;
+        else
+          hi = mid - 1;
+      }
+      op(its[lo], (unsigned)(x - (its[lo].start - base)));
+    }
+  }
+}
+
 __device__ __forceinline__ double k5_shfl(double x, int lane) {
   return __shfl_sync(0xffffffffu, x, lane);
 }

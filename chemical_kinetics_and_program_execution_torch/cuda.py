@@ -4,7 +4,8 @@ Two kinds of library, both with a plain C interface (no PyTorch headers,
 so a build takes seconds) and both landing in `_build/` beside this file:
 
 - `build`: one `nvcc` call compiles the sources `csrc/*.cu` (K2
-  `window_counts.cu`; K3-K5 and K25 `dense_rhs.cu`; K6 `dop853.cu`; K7
+  `window_counts.cu`; K3-K5 and K25 `dense_rhs.cu`; K30
+  `dense_vjp.cu`; K6 `dop853.cu`; K7
   and K8 `gather_rhs.cu`; K9 `world_mass.cu`; K10 `table_round.cu`; K12
   `pattern_scan.cu`; K13 `weighted_counts.cu`; K15 `bitplanes.cu`; K16
   and K18 `bff_round.cu`; K19-K22 `frontier.cu`; K26 `steady_aug.cu`;
@@ -199,6 +200,18 @@ def load() -> ctypes.CDLL:
     k25 = k5[:7] + [_P] + k5[7:10] + [_P, _P] + k5[10:]
     lib.ckpe_dense_jvp.argtypes = k25
     lib.ckpe_dense_jvp_rhs.argtypes = [_I, _I, _I] + k25
+    # ckpe_dense_vjp(tapes, levels_p, fwd, fwd_ptr, n_fwd, rv, rv_ptr, n_rv,
+    #                table, steps, tab_ptr, tab_steps, sig_ptr, sig_terms,
+    #                world_ptr, world_sigs, wt_pyr, wt_q, n_wt, w_num, w_den,
+    #                w_const, chain, n_worlds, pair_num, pair_den,
+    #                pair_const, csr_ptr, n_sig, n_xs, n_state, p, low, u,
+    #                scratch, work_len, n_q, pbar, wbar, a, k, form, blocks,
+    #                max_phase, stream)
+    lib.ckpe_dense_vjp.argtypes = (
+        [_I, _I, _P, _P, _I, _P, _P, _I] + [_P] * 10 + [_I, _P, _P, _P, _I,
+                                                        _I]
+        + [_P] * 4 + [_I, _I, _L] + [_P] * 4 + [_L, _L, _P, _P]
+        + [_I] * 4 + [_L, _P])
     # ckpe_steady_aug(x, a, k, cons_w, n_c, c_norm, mode, f, cst, ww, mask,
     #                 keep, form, low, scratch, out, stream)
     lib.ckpe_steady_aug.argtypes = [_P, _I, _I, _P, _I, _D, _I, _P, _P, _P,
@@ -311,7 +324,8 @@ def load() -> ctypes.CDLL:
                  "ckpe_content_hash", "ckpe_merge_resample",
                  "ckpe_gather_pair", "ckpe_k22_rank", "ckpe_k22_keep",
                  "ckpe_pyramid", "ckpe_dense_sweep", "ckpe_dense_rhs",
-                 "ckpe_dense_jvp", "ckpe_dense_jvp_rhs", "ckpe_steady_aug",
+                 "ckpe_dense_jvp", "ckpe_dense_jvp_rhs", "ckpe_dense_vjp",
+                 "ckpe_steady_aug",
                  "ckpe_k6_resid",
                  "ckpe_world_mass",
                  "ckpe_tree_rhs", "ckpe_chain_rhs", "ckpe_gather_scatter",

@@ -29,8 +29,14 @@ Its J.v (forward mode: `torch.func.jvp` on the closure, or a
 forward-AD dual, as the solvers pass it) is kernel K25 (`dense_jvp`):
 K5's kernel (`csrc/dense_rhs.cu`) and rule (`csrc/sweep_rule.cuh`) on
 (value, tangent) pairs, over the levels of p and of v, in K5's form;
-`dense_jvp_plain` is its plain version. The reverse mode is not ported
-(`REVERSE_MODE`).
+`dense_jvp_plain` is its plain version. Its v^T J (reverse mode:
+autograd's backward through the closure, in p and in a run-time
+w_const) is kernel K30 (`dense_vjp`, `csrc/dense_vjp.cu`): the sweep run
+forward and then transposed, each cotangent a gather in plan order
+(`vjp_plan`), then the ratios' partials, the world chains and the
+pyramid's transpose; `dense_vjp_plain` is its plain version. Second
+derivatives and the world mass's derivatives are not ported
+(`SECOND_ORDER`).
 
 A pruned program (`compile_dense` with ``prune_threshold > 0``: worlds
 whose weight under a reference SPD drops below the threshold are left
@@ -96,6 +102,7 @@ import torch
 from .. import cuda
 from ..markov import guarded_ratio, pyramid_offsets
 from ..utils import config
+from ..utils.autodiff import SECOND_ORDER, first_order_only
 from . import dsl, enumerate as enum_mod
 from .compile import two_pointer_index
 
@@ -1079,13 +1086,29 @@ def _check_pyramid(dp: DeviceProgram, p: torch.Tensor, low: torch.Tensor):
 # --- K5: the sweep -------------------------------------------------------------
 
 
+def ordered_add(out: torch.Tensor, idx, values: torch.Tensor
+                ) -> torch.Tensor:
+    """``out`` with ``values[q]`` added at ``idx[q]`` for q = 0, 1, ... in
+    turn, each entry's terms in list order, as a new tensor on ``out``'s
+    device: the CPU's ``index_add_`` (a loop in index order), or for a
+    card's tensors, whose ``index_add_`` adds in no fixed order, numpy's
+    unbuffered ``add.at`` on the host."""
+    if out.device.type == "cpu":
+        return out.clone().index_add_(
+            0, torch.as_tensor(np.asarray(idx, dtype=np.int64)), values)
+    acc = out.detach().cpu().numpy().copy()
+    np.add.at(acc, np.asarray(idx, dtype=np.int64),
+              values.detach().cpu().numpy())
+    return torch.as_tensor(acc, device=out.device)
+
+
 def _seed_dense(step: Step, s: torch.Tensor) -> torch.Tensor:
-    """A step's seed as a dense one-hot sum over ``step.seed_size`` ranks
-    (equal ranks in member order)."""
+    """A step's seed as a dense one-hot sum over ``step.seed_size`` ranks,
+    each from 0 in member order."""
     out = torch.zeros(step.seed_size, dtype=s.dtype, device=s.device)
-    ranks = torch.as_tensor([r for r, _ in step.seed], device=s.device)
+    ranks = [r for r, _ in step.seed]
     sids = torch.as_tensor([x for _, x in step.seed], device=s.device)
-    return out.index_add_(0, ranks, s[sids])
+    return ordered_add(out, ranks, s[sids])
 
 
 def sweep_step_plain(step: Step, src: torch.Tensor, tables: dict,
@@ -1093,19 +1116,34 @@ def sweep_step_plain(step: Step, src: torch.Tensor, tables: dict,
     """Plain version of one step's dense vector t (`_apply_group`'s):
     ``src`` is the dense previous vector (a seed made dense), ``tables``
     the ratio tables by name ("le", j) and "re"."""
+    x = step_operand(step, src, a)
+    return x if step.kind == IDENT else step_table(step, tables) * x
+
+
+def step_operand(step: Step, src: torch.Tensor, a: int) -> torch.Tensor:
+    """What a step multiplies by its ratio table, densely: the source
+    tiled (EXTEND), repeated (RIGHT), or summed over a digit in digit
+    order and then tiled (SHIFT) or repeated (RSHIFT, RSHIFT_RUN); the
+    source itself for IDENT."""
     kind = step.kind
     if kind == IDENT:
         return src
     if kind == EXTEND:
-        return tables["le", step.lev] * src.repeat(a)
+        return src.repeat(a)
     if kind == SHIFT:
-        return tables["le", step.lev] * _digit_sum_last(src, a).repeat(a)
+        return _digit_sum_last(src, a).repeat(a)
     if kind == RIGHT:
-        return torch.repeat_interleave(src, a) * tables["re"]
+        return torch.repeat_interleave(src, a)
     if kind in (RSHIFT, RSHIFT_RUN):
-        return torch.repeat_interleave(_digit_sum_first(src, a),
-                                       a) * tables["re"]
+        return torch.repeat_interleave(_digit_sum_first(src, a), a)
     raise ValueError(f"step kind {kind} forms no vector")
+
+
+def step_table(step: Step, tables):
+    """The ratio table a step multiplies by (``tables`` by name)."""
+    if step.kind in (EXTEND, SHIFT):
+        return tables["le", step.lev]
+    return tables["re"]
 
 
 def emit_plain(dy: torch.Tensor, t: torch.Tensor, lo: int, span: int,
@@ -1381,8 +1419,13 @@ world_mass.launches = 0
 
 # --- K25: J.v -------------------------------------------------------------------
 
+# What is not ported of the derivatives, by ROADMAP Queue 1 title: the
+# tree and chain engines' J.v and v^T J (slice (b) of the reverse mode),
+# and second derivatives (a backward through K30's backward, or through
+# a solver's adjoint) with the derivatives of the world mass (K9,
+# `make_dense_dy_dt(with_mass=True)`): `utils/autodiff.SECOND_ORDER`.
 REVERSE_MODE = ("ROADMAP Queue 1, 'Derivative-based solvers and instruments: "
-                "reverse mode'")
+                "reverse mode', slice (b): the tree and chain engines")
 
 
 def guarded_ratio_dual(num, den, dnum, dden):
@@ -1618,6 +1661,584 @@ def dense_jvp(dp: DeviceProgram, p: torch.Tensor, v: torch.Tensor,
 dense_jvp.launches = 0
 
 
+# --- K30: v^T J -----------------------------------------------------------------
+
+# Fields of a K30 reverse item row (`csrc/sweep_rule.cuh:RV_*`): an item
+# forms the cotangent of one step's compact vector (or of the seed a
+# first step reads), then up to `MAX_READERS` reader blocks of
+# `READER_FIELDS` each.
+RV_FIELDS = ("start", "n", "out", "seed", "ident", "hi", "d", "lo", "span",
+             "ranks", "adj", "poff", "readers")
+READER_FIELDS = ("kind", "dst", "p1", "p2", "p3", "parent")
+MAX_READERS = 2
+STEP_FIELDS = ("dst", "hi", "d", "lo", "span", "ranks")
+MAX_CHAIN = 32  # `csrc/sweep_rule.cuh:kK30MaxChain`
+
+
+@dataclasses.dataclass(frozen=True)
+class VjpPlan:
+    """K30's plan, made once a program on the host beside the sweep plan
+    (`vjp_plan`): the sweep's compute items by level (K5's rows, restarted
+    a phase), the reverse items (`RV_FIELDS`) in phases of descending
+    level and then the seeds, and the gather lists that turn the sweep's
+    scatter into sums each formed by one thread in plan order: each
+    ratio table's steps (``tab_ptr``, ``tab_steps``, over `STEP_FIELDS`
+    rows ``steps``), each signature's terms (indices into ``[seed
+    cotangents, u, -u]``), each world's signatures (pair order), and the
+    world chains' pyramid terms sorted by pyramid entry (``wt_pyr``,
+    ``wt_q``: indices into the partials, `vjp_partials`). ``table`` is
+    K5's with each emitting step's adjusted ranks and each SHIFT's and
+    RSHIFT_RUN's parents appended. ``readers`` lists each step's readers
+    in plan order, ``xs_off`` the seed cotangent's offset of each step
+    that reads a seed."""
+
+    fwd_items: np.ndarray
+    fwd_ptr: np.ndarray
+    rv_items: np.ndarray
+    rv_ptr: np.ndarray
+    table: np.ndarray
+    steps: np.ndarray
+    tab_ptr: np.ndarray
+    tab_steps: np.ndarray
+    sig_ptr: np.ndarray
+    sig_terms: np.ndarray
+    world_ptr: np.ndarray
+    world_sigs: np.ndarray
+    wt_pyr: np.ndarray
+    wt_q: np.ndarray
+    n_xs: int
+    rat_len: int
+    max_phase: int
+    readers: tuple
+    xs_off: dict
+
+    ARRAYS = ("fwd_items", "fwd_ptr", "rv_items", "rv_ptr", "table", "steps",
+              "tab_ptr", "tab_steps", "sig_ptr", "sig_terms", "world_ptr",
+              "world_sigs", "wt_pyr", "wt_q")
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the plan's arrays (what K30 reads besides p)."""
+        return sum(getattr(self, name).nbytes for name in self.ARRAYS)
+
+
+def vjp_partials(prog) -> int:
+    """Doubles of K30's partials buffer: two a ratio-table entry (the
+    cotangent times dg/dn, and times dg/dd) on each tape, then two a
+    world chain factor."""
+    _, rat_len = ratio_offsets(prog.size_a, prog.cl_k)
+    return 2 * ((1 + prog.dual) * rat_len + prog.w_num.size)
+
+
+def _table_slot(step: Step, k: int) -> int:
+    """A step's ratio table: lev - 1 for the left tables, k for r_re."""
+    return step.lev - 1 if step.kind in (EXTEND, SHIFT) else k
+
+
+def vjp_plan(prog: DenseProgram, plan: SweepPlan | None = None) -> VjpPlan:
+    """K30's plan for ``prog`` (its sweep plan made when not given)."""
+    plan = sweep_plan(prog) if plan is None else plan
+    a, k = prog.size_a, prog.cl_k
+    n = a**k
+    tapes = 1 + prog.dual
+    steps = plan.steps
+    if prog.w_num.shape[1] > MAX_CHAIN:
+        raise ValueError(f"chains of {prog.w_num.shape[1]} factors: K30 "
+                         f"takes up to {MAX_CHAIN}")
+    compute = [(row, i) for row, i in zip(plan.items.tolist(),
+                                          plan.item_step.tolist())
+               if row[0] not in (EMIT, INTERIOR)]
+    dst = {i: row[ITEM_FIELDS.index("dst")] for row, i in compute}
+    tab = {i: row[ITEM_FIELDS.index("tab")] for row, i in compute}
+    table = plan.table.tolist()
+
+    def phased(rows, phase_of, col):
+        """Rows grouped into phases (stable), each phase's elements
+        counted from 0: column ``col`` a row's start, ``col + 1`` its
+        elements."""
+        order = sorted(range(len(rows)), key=lambda q: phase_of[q])
+        ptr, out, total = [0], [], {}
+        for q in order:
+            p = phase_of[q]
+            while len(ptr) <= p:
+                ptr.append(len(out))
+            row = list(rows[q])
+            row[col] = total.get(p, 0)
+            total[p] = row[col] + row[col + 1]
+            out.append(row)
+        ptr.append(len(out))
+        return out, ptr, max(total.values(), default=0)
+
+    levels = 1 + max((s.level for s in steps if s.kind != INTERIOR),
+                     default=-1)
+    fwd_rows, fwd_ptr, fwd_most = phased(
+        [row for row, _ in compute], [steps[i].level for _, i in compute],
+        ITEM_FIELDS.index("start"))
+
+    readers = [[] for _ in steps]
+    for j, s in enumerate(steps):
+        if s.kind != INTERIOR and s.src >= 0:
+            readers[s.src].append(j)
+    if any(len(r) > MAX_READERS for r in readers):
+        raise ValueError(f"a step with more than {MAX_READERS} readers")
+
+    def reader_block(src_layout, j):
+        hi, ranks, lo, n_src = src_layout
+        s = steps[j]
+        p1 = p2 = p3 = 0
+        parent = -1
+        if s.kind == EXTEND:
+            p1 = n_src
+        elif s.kind == SHIFT:
+            assert lo == 1, "a SHIFT reads a source with lo 1"
+            p1, p2, p3 = len(ranks), hi, len(s.ranks)
+            parent = len(table)
+            table.extend(s.ranks.index(r // a) for r in ranks)
+        elif s.kind == RSHIFT:
+            assert hi > 1 and n_src % a == 0
+            p1 = n_src // a
+        elif s.kind == RSHIFT_RUN:
+            assert hi == 1, "an RSHIFT_RUN reads a source with hi 1"
+            p1 = lo
+            sub = s.span
+            parent = len(table)
+            table.extend(s.ranks.index(r % sub) for r in ranks)
+        return [s.kind, dst[j], p1, p2, p3, parent]
+
+    def rv_row(n_el, out, seed, ident, layout, ranks_tab, adj, poff, rd):
+        hi, ranks, lo, span = layout
+        blocks = [reader_block((hi, ranks, lo, n_el), j) for j in rd]
+        blocks += [[0] * len(READER_FIELDS)] * (MAX_READERS - len(rd))
+        return ([0, n_el, out, seed, ident, hi, len(ranks), lo, span,
+                 ranks_tab, adj, poff, len(rd)]
+                + [x for b in blocks for x in b])
+
+    rv, rv_phase, xs_off, n_xs = [], [], {}, 0
+    for i, s in enumerate(steps):
+        if s.kind == INTERIOR:
+            continue
+        adj = -1
+        if s.pairs:
+            adj = len(table)
+            to = dict(s.pairs)
+            table.extend(to[r] for r in s.ranks)
+        rv.append(rv_row(s.n, dst[i], 0, int(s.kind == IDENT),
+                         (s.hi, s.ranks, s.lo, s.span), tab[i], adj,
+                         s.tape * n, readers[i]))
+        rv_phase.append(levels - 1 - s.level)
+        if s.src < 0:
+            ranks = tuple(sorted({r for r, _ in s.seed}))
+            xs_off[i] = n_xs
+            rv.append(rv_row(len(ranks), n_xs, 1, 0,
+                             (1, ranks, 1, s.seed_size), -1, -1, 0, [i]))
+            rv_phase.append(levels)
+            n_xs += len(ranks)
+    rv_rows, rv_ptr, rv_most = phased(rv, rv_phase, 0)
+
+    # Each ratio table's steps, in plan order.
+    slots = [[] for _ in range(tapes * (k + 1))]
+    info = np.zeros((len(steps), len(STEP_FIELDS)), dtype=np.int64)
+    for i, s in enumerate(steps):
+        if s.kind in (INTERIOR, IDENT):
+            continue
+        info[i] = (dst[i], s.hi, len(s.ranks), s.lo, s.span, tab[i])
+        slots[s.tape * (k + 1) + _table_slot(s, k)].append(i)
+
+    # Each signature's terms in plan order: the interior ops' +-u and the
+    # seed cotangents of the seeds it sits in.
+    sig_terms = [[] for _ in range(prog.num_signatures)]
+    n_state = prog.state_size
+    for i, s in enumerate(steps):
+        if s.kind == INTERIOR:
+            for rank, sid, sign in s.interior:
+                x = s.tape * n + rank
+                sig_terms[sid].append(n_xs + x if sign > 0
+                                      else n_xs + n_state + x)
+        elif s.src < 0:
+            ranks = sorted({r for r, _ in s.seed})
+            for r, sid in s.seed:
+                sig_terms[sid].append(xs_off[i] + ranks.index(r))
+
+    worlds = [[] for _ in range(prog.num_worlds)]
+    for w, sig in zip(prog.pair_world.tolist(), prog.pair_sig.tolist()):
+        worlds[w].append(sig)
+
+    # The world chains' pyramid terms (the constant 1 left out), by entry.
+    _, rat_len = ratio_offsets(a, k)
+    base = 2 * tapes * rat_len
+    chain = prog.w_num.shape[1]
+    low_block = pyramid_offsets(a, k)[1] - n
+    terms = []
+    for name, side in (("w_num", 0), ("w_den", 1)):
+        idx = two_pointer_index(getattr(prog, name), a, k, prog.dual)
+        for w in range(prog.num_worlds):
+            for c in range(chain):
+                y = int(idx[w, c])
+                if y >= n_state and (y - n_state) % low_block == low_block - 1:
+                    continue
+                terms.append((y, base + 2 * (w * chain + c) + side))
+    terms.sort()
+
+    def csr(lists):
+        ptr = np.zeros(len(lists) + 1, dtype=np.int32)
+        ptr[1:] = np.cumsum([len(x) for x in lists])
+        flat = np.asarray([x for lst in lists for x in lst], dtype=np.int32)
+        return ptr, flat
+
+    tab_ptr, tab_steps = csr(slots)
+    sig_ptr, sig_terms = csr(sig_terms)
+    world_ptr, world_sigs = csr(worlds)
+    if max(table, default=0) >= 2**31 or base + 2 * prog.w_num.size >= 2**31:
+        raise ValueError("K30's tables outgrow int32")
+    pyr_size = n_state + tapes * low_block
+    return VjpPlan(
+        fwd_items=np.asarray(fwd_rows, dtype=np.int64).reshape(
+            -1, len(ITEM_FIELDS)),
+        fwd_ptr=np.asarray(fwd_ptr, dtype=np.int64),
+        rv_items=np.asarray(rv_rows, dtype=np.int64).reshape(
+            -1, len(RV_FIELDS) + MAX_READERS * len(READER_FIELDS)),
+        rv_ptr=np.asarray(rv_ptr, dtype=np.int64),
+        table=np.asarray(table, dtype=np.int32), steps=info,
+        tab_ptr=tab_ptr, tab_steps=tab_steps, sig_ptr=sig_ptr,
+        sig_terms=sig_terms, world_ptr=world_ptr, world_sigs=world_sigs,
+        wt_pyr=np.asarray([y for y, _ in terms], dtype=np.int32),
+        wt_q=np.asarray([q for _, q in terms], dtype=np.int32),
+        n_xs=n_xs, rat_len=rat_len,
+        max_phase=max(fwd_most, rv_most, tapes * rat_len, pyr_size,
+                      32 * prog.num_signatures, prog.num_worlds),
+        readers=tuple(tuple(r) for r in readers), xs_off=xs_off)
+
+
+def vjp_tables(dp: DeviceProgram) -> dict:
+    """K30's plan (`vjp_plan`) and its arrays on the program's device,
+    made once a program (kept in ``dp.plain_cache``)."""
+    cache = dp.plain_cache
+    if "vjp" not in cache:
+        vp = vjp_plan(dp.prog, dp.plan)
+        tensors = {
+            name: torch.as_tensor(
+                np.ascontiguousarray(getattr(vp, name)), device=dp.device,
+                dtype=torch.int64 if getattr(vp, name).dtype == np.int64
+                else torch.int32)
+            for name in VjpPlan.ARRAYS}
+        cache["vjp"] = dict(plan=vp, **tensors)
+    return cache["vjp"]
+
+
+def guarded_ratio_partials(num, den):
+    """The guarded ratio's partials (dg/dn, dg/dd), in the form K30 takes
+    them (`csrc/sweep_rule.cuh:k30_partials`): with m = max(n, d), g =
+    n / m and dm/dn = 1 where n > d, 0 where d > n and 0.5 at a tie (JAX's
+    max rule), dm/dd = 1 - dm/dn: dg/dn = (1 - g dm/dn) / m and dg/dd =
+    -(g dm/dd) / m where n > 0, exactly 0 where n <= 0 (no NaN at a zero
+    context: the JAX package's double-where form)."""
+    pos = num > 0
+    one = torch.ones((), dtype=num.dtype, device=num.device)
+    m = torch.where(pos, torch.maximum(num, den), one)
+    g = guarded_ratio(num, den)
+    half = torch.full((), 0.5, dtype=num.dtype, device=num.device)
+    dmn = torch.where(num > den, one, torch.where(den > num, 0.0 * one,
+                                                  half))
+    dmd = one - dmn
+    zero = torch.zeros((), dtype=num.dtype, device=num.device)
+    return (torch.where(pos, (one - g * dmn) / m, zero),
+            torch.where(pos, -(g * dmd) / m, zero))
+
+
+def _transpose_add(acc: torch.Tensor, step: Step, cot: torch.Tensor,
+                   a: int) -> torch.Tensor:
+    """``acc`` (a source vector's cotangent, dense) plus the transpose of
+    `step_operand` applied to ``cot`` (the reader's cotangent times its
+    ratio), one copy of the A a source entry feeds at a time, in digit
+    order: the terms K30 adds for each source element, in its order."""
+    if step.kind == IDENT:
+        return acc + cot
+    m = acc.numel()
+    if step.kind == EXTEND:  # source x feeds d * m + x
+        for d, row in enumerate(cot.view(a, m)):
+            acc = acc + row
+        return acc
+    if step.kind == RIGHT:  # source x feeds x * a + d
+        for d in range(a):
+            acc = acc + cot.view(m, a)[:, d]
+        return acc
+    if step.kind == SHIFT:  # source y * a + e feeds d * (m / a) + y
+        for d in range(a):
+            acc = (acc.view(m // a, a)
+                   + cot.view(a, m // a)[d][:, None]).reshape(-1)
+        return acc
+    # RSHIFT, RSHIFT_RUN: source e * (m / a) + y feeds y * a + d
+    for d in range(a):
+        acc = (acc.view(a, m // a)
+               + cot.view(m // a, a)[:, d][None, :]).reshape(-1)
+    return acc
+
+
+def _ordered_sums(values: torch.Tensor, ptr, flat, n_out: int
+                  ) -> torch.Tensor:
+    """``out[g] = sum over flat[ptr[g]:ptr[g+1]] of values[.]``, each sum
+    from 0 in list order (`ordered_add`)."""
+    seg = np.repeat(np.arange(n_out), np.diff(np.asarray(ptr)))
+    out = torch.zeros(n_out, dtype=values.dtype, device=values.device)
+    return ordered_add(out, seg, values[torch.as_tensor(
+        np.asarray(flat, dtype=np.int64), device=values.device)])
+
+
+def dense_vjp_plain(dp: DeviceProgram, p: torch.Tensor, u: torch.Tensor,
+                    low: torch.Tensor | None = None, w_const=None,
+                    want_w: bool = False):
+    """Plain version of K30: ``(p_bar, w_bar)``, the cotangents u^T J of
+    dp/dt at ``p`` in p and, where ``want_w``, in the worlds' weights
+    (``w_const`` [worlds] a run-time vector in place of the program's;
+    w_bar is None otherwise). Each cotangent is a sum from 0 of its terms
+    in the plan's order (`vjp_plan`), as K30 forms it:
+
+    - the forward: K3's plain levels (``low`` where given), K4's weights,
+      every step's dense vector t = r x (r its ratio table, x
+      `step_operand` of its source);
+    - the steps in reverse plan order: a step's cotangent is its
+      emission's u[adj] - u[orig] (each window whose run is an original
+      rank), then each reader's ratio times cotangent, transposed
+      (`_transpose_add`), readers in plan order; then its ratio's
+      cotangent term (cotangent times x) and its source's term (ratio
+      times cotangent); a seed's cotangent likewise from its step;
+    - each ratio-table entry: the terms of the steps that read it, in
+      plan order, times the guarded ratio's partials
+      (`guarded_ratio_partials`);
+    - each signature: its seeds' cotangents and its interior ops' +-u;
+      each world: its pairs' signatures (pair order) into w_bar_v, then
+      w_bar = w_bar_v prod g and each chain factor's cotangent w_bar_v
+      w_const (prefix product times suffix product), times its
+      partials;
+    - each pyramid entry: its numerator terms, its denominator terms by
+      digit, its chain factors' terms; then the pyramid's transpose,
+      level 0 up: lv_bar[j + 1] += lv_bar[j] repeated over the last
+      digit, into p_bar.
+
+    Non-live windows of a dense vector hold exact zeros (the module
+    docstring), so their terms change no bits of what K30 skips, but the
+    sign of a zero."""
+    dense_vjp_plain.calls += 1
+    prog = dp.prog
+    a, k = prog.size_a, prog.cl_k
+    n, n_state = a**k, prog.state_size
+    tapes = 1 + prog.dual
+    vt = vjp_tables(dp)
+    vp = vt["plan"]
+    p, u = p.reshape(-1), u.reshape(-1)
+    if low is None:
+        low = pyramids(prog, p, plain=True)
+    s = signature_weights_plain(dp, p, low, w_const)
+    m = low.numel() // tapes
+    off, rat_len = ratio_offsets(a, k)
+    # Every ratio-table entry's numerator and denominator, tape by tape
+    # in `ratio_offsets`' layout: the tables, and later their partials.
+    num, den = [], []
+    for t in range(tapes):
+        lv = levels(p[t * n:(t + 1) * n], low[t * m:(t + 1) * m], a, k)
+        num += [lv[j] for j in range(1, k + 1)] + [lv[k]]
+        den += [lv[j - 1].repeat(a) for j in range(1, k + 1)]
+        den.append(torch.repeat_interleave(lv[k - 1], a))
+    num, den = torch.cat(num), torch.cat(den)
+    rat = guarded_ratio(num, den)
+    tables = []
+    for t in range(tapes):
+        r = rat[t * rat_len:(t + 1) * rat_len]
+        named = {("le", j): r[off[j]:off[j] + a**j] for j in range(1, k + 1)}
+        named["re"] = r[off["re"]:]
+        tables.append(named)
+    steps = dp.plan.steps
+    ts, ops = {}, {}
+    for i, st in enumerate(steps):  # the forward, every vector kept
+        if st.kind == INTERIOR:
+            continue
+        src = ts[st.src] if st.src >= 0 else _seed_dense(st, s)
+        ops[i] = step_operand(st, src, a)
+        ts[i] = (ops[i] if st.kind == IDENT
+                 else step_table(st, tables[st.tape]) * ops[i])
+    cot, prods, seed_cot = {}, {}, {}
+    for i in range(len(steps) - 1, -1, -1):
+        st = steps[i]
+        if st.kind == INTERIOR:
+            continue
+        acc = torch.zeros_like(ts[i])
+        if st.pairs:
+            o, adj = (torch.as_tensor(x, device=p.device)
+                      for x in zip(*st.pairs))
+            u3 = u[st.tape * n:(st.tape + 1) * n].view(-1, st.span, st.lo)
+            acc3 = acc.view(-1, st.span, st.lo)
+            acc3[:, o, :] = acc3[:, o, :] + (u3[:, adj, :] - u3[:, o, :])
+        for j in vp.readers[i]:
+            acc = _transpose_add(acc, steps[j], cot[j], a)
+        if st.kind == IDENT:
+            cot[i] = acc
+        else:
+            cot[i] = step_table(st, tables[st.tape]) * acc
+            prods[i] = acc * ops[i]
+        if st.src < 0:
+            seed_cot[i] = _transpose_add(
+                torch.zeros(st.seed_size, dtype=p.dtype, device=p.device),
+                st, cot[i], a)
+    # Seed cotangents at their live ranks, laid out as K30's.
+    xs_all = torch.zeros(vp.n_xs, dtype=p.dtype, device=p.device)
+    for i, at in vp.xs_off.items():
+        ranks = sorted({r for r, _ in steps[i].seed})
+        xs_all[at:at + len(ranks)] = seed_cot[i][ranks]
+    # Ratio-table entries (each step's terms in plan order), then their
+    # partials.
+    rbar = torch.zeros(tapes * rat_len, dtype=p.dtype, device=p.device)
+    for i in sorted(prods):
+        st = steps[i]
+        at = st.tape * rat_len + (off[st.lev] if st.kind in (EXTEND, SHIFT)
+                                  else off["re"])
+        rbar[at:at + prods[i].numel()] += prods[i]
+    dn, dd = guarded_ratio_partials(num, den)
+    q = torch.stack([rbar * dn, rbar * dd], dim=1).reshape(-1)
+    # Signatures, worlds and the chains' partials.
+    values = torch.cat([xs_all, u, -u])
+    sbar = _ordered_sums(values, vp.sig_ptr, vp.sig_terms,
+                         prog.num_signatures)
+    wvbar = _ordered_sums(sbar, vp.world_ptr, vp.world_sigs,
+                          prog.num_worlds)
+    pyr = torch.cat([p, low])
+    w_num, w_den = pyr[dp.w_num.long()], pyr[dp.w_den.long()]
+    g = guarded_ratio(w_num, w_den)
+    dn, dd = guarded_ratio_partials(w_num, w_den)
+    chain = g.shape[1]
+    prod = g[:, 0].clone()
+    for c in range(1, chain):
+        prod = prod * g[:, c]
+    wc = dp.w_const if w_const is None else w_const
+    weight = wvbar * wc
+    pre = [torch.ones_like(prod)]
+    for c in range(1, chain):
+        pre.append(pre[-1] * g[:, c - 1])
+    suf = [torch.ones_like(prod)]
+    for c in range(chain - 2, -1, -1):
+        suf.insert(0, suf[0] * g[:, c + 1])
+    gbar = torch.stack([weight * (pre[c] * suf[c]) for c in range(chain)],
+                       dim=1)
+    qw = torch.stack([gbar * dn, gbar * dd], dim=2).reshape(-1)
+    q = torch.cat([q, qw])
+    # Each pyramid entry's direct terms, then the chains', then the
+    # pyramid's transpose.
+    direct = torch.zeros(pyr.numel(), dtype=p.dtype, device=p.device)
+    lv_off, _ = pyramid_offsets(a, k)
+    for t in range(tapes):
+        def qt(slot, x_start, size, side):
+            start = off["re"] if slot == k else off[slot + 1]
+            e = 2 * (t * rat_len + start + x_start) + side
+            return q[e:e + 2 * size:2]
+
+        for j in range(k + 1):
+            size = a**j
+            acc = torch.zeros(size, dtype=p.dtype, device=p.device)
+            if j == k:
+                acc = acc + qt(k - 1, 0, size, 0)
+                acc = acc + qt(k, 0, size, 0)
+            elif j >= 1:
+                acc = acc + qt(j - 1, 0, size, 0)
+            if j < k:
+                for d in range(a):
+                    acc = acc + qt(j, d * size, size, 1)
+            if j == k - 1:
+                for d in range(a):
+                    acc = acc + qt(k, 0, a * size, 1).view(size, a)[:, d]
+            at = (t * n if j == k
+                  else n_state + t * m + lv_off[j] - n)
+            direct[at:at + size] = acc
+    direct = ordered_add(direct, vp.wt_pyr, q[torch.as_tensor(
+        vp.wt_q.astype(np.int64), device=p.device)])
+    pbar = torch.empty(n_state, dtype=p.dtype, device=p.device)
+    for t in range(tapes):
+        def dlev(j):
+            at = n_state + t * m + lv_off[j] - n
+            return direct[at:at + a**j]
+
+        acc = dlev(0)
+        for j in range(1, k):
+            acc = dlev(j) + torch.repeat_interleave(acc, a)
+        pbar[t * n:(t + 1) * n] = (direct[t * n:(t + 1) * n]
+                                   + torch.repeat_interleave(acc, a))
+    return pbar, (wvbar * prod if want_w else None)
+
+
+dense_vjp_plain.calls = 0
+
+
+def _k30_scratch(dp, vp) -> int:
+    """Doubles of a K30 call's scratch (`csrc/dense_vjp.cu`)."""
+    prog = dp.prog
+    return (3 * max(dp.plan.work_size, 1) + vp.n_xs
+            + 2 * prog.num_signatures + vjp_partials(prog)
+            + prog.state_size + low_size(prog))
+
+
+def dense_vjp(dp: DeviceProgram, p: torch.Tensor, u: torch.Tensor,
+              low: torch.Tensor | None = None, w_const=None,
+              want_w: bool = False):
+    """K30: ``(p_bar, w_bar)``, u^T J of dp/dt at the float64 state ``p``
+    in p and, where ``want_w``, in the worlds' weights (None otherwise),
+    ``low`` K3's levels of p (made by the call when None) and
+    ``w_const`` [worlds] a run-time weight vector in place of the
+    program's. On a card one C call (`ckpe_dense_vjp`) in the program's
+    form (`launch_form`): one K30 launch, which in the block and cluster
+    forms also forms the levels when ``low`` is None; in the grid form K3
+    on each tape first where ``low`` is None. On the CPU
+    `dense_vjp_plain`."""
+    if not cuda.on_card(p, "dense_vjp"):
+        return dense_vjp_plain(dp, p, u, low, w_const, want_w)
+    prog = dp.prog
+    a, k, n = prog.size_a, prog.cl_k, prog.state_size
+    tapes = 1 + prog.dual
+    fused = dp.form.fused_levels
+    levels_p = low is None and fused
+    if low is None:
+        low = (torch.empty(low_size(prog), dtype=torch.float64,
+                           device=p.device) if fused
+               else pyramids(prog, p.reshape(-1)))
+    p, low = _check_pyramid(dp, p.reshape(-1), low)
+    u = u.reshape(-1)
+    if u.dtype != torch.float64 or u.shape != (n,) or u.device != p.device:
+        raise TypeError(f"u must be a float64 [{n}] tensor on {p.device}")
+    u = u.contiguous()
+    vt = vjp_tables(dp)
+    vp = vt["plan"]
+    consts = pair_consts(dp, w_const)  # checks a run-time w_const
+    wc = dp.w_const if w_const is None else w_const.contiguous()
+    scratch = torch.empty(_k30_scratch(dp, vp), dtype=torch.float64,
+                          device=p.device)
+    pbar = torch.empty(n, dtype=torch.float64, device=p.device)
+    wbar = (torch.empty(prog.num_worlds, dtype=torch.float64,
+                        device=p.device) if want_w else None)
+    lib = cuda.load()
+    with torch.cuda.device(p.device):
+        rc = lib.ckpe_dense_vjp(
+            tapes, int(levels_p), vt["fwd_items"].data_ptr(),
+            vt["fwd_ptr"].data_ptr(), len(vp.fwd_ptr) - 1,
+            vt["rv_items"].data_ptr(), vt["rv_ptr"].data_ptr(),
+            len(vp.rv_ptr) - 1, vt["table"].data_ptr(),
+            vt["steps"].data_ptr(), vt["tab_ptr"].data_ptr(),
+            vt["tab_steps"].data_ptr(), vt["sig_ptr"].data_ptr(),
+            vt["sig_terms"].data_ptr(), vt["world_ptr"].data_ptr(),
+            vt["world_sigs"].data_ptr(), vt["wt_pyr"].data_ptr(),
+            vt["wt_q"].data_ptr(), len(vp.wt_pyr), dp.w_num.data_ptr(),
+            dp.w_den.data_ptr(), wc.data_ptr(), prog.w_num.shape[1],
+            prog.num_worlds, dp.pair_num.data_ptr(), dp.pair_den.data_ptr(),
+            consts.data_ptr(), dp.csr_ptr.data_ptr(),
+            prog.num_signatures, vp.n_xs, n, p.data_ptr(), low.data_ptr(),
+            u.data_ptr(), scratch.data_ptr(), dp.plan.work_size,
+            vjp_partials(prog), pbar.data_ptr(),
+            None if wbar is None else wbar.data_ptr(), a, k, dp.form.kind,
+            dp.form.blocks, vp.max_phase, cuda.stream(p))
+    cuda.check(rc, "dense_vjp", lib)
+    dense_vjp.launches += 1
+    return pbar, wbar
+
+
+dense_vjp.launches = 0
+
+
 def forward_dual(p):
     """``(primal, tangent)`` of a forward-mode dual tensor that carries
     nothing else (no torch.func wrapper, no autograd history), else
@@ -1647,41 +2268,66 @@ def transformed(t) -> bool:
 
 
 class RHSFunction(torch.autograd.Function):
-    """dp/dt as a function torch's transforms can drive:
-    ``apply(p, rhs, jvp)`` with ``rhs(p) -> (dy, saved)`` and ``jvp(p,
-    saved, v) -> J v`` (None: the J.v is not ported and raises). forward
-    runs on plain tensors (a ctypes launch sees real pointers); the
-    forward-mode rule gets p and ``saved`` (K3's levels) unwrapped, and a
-    zero tangent (None) gives zeros without a launch. The reverse mode
-    raises NotImplementedError: `REVERSE_MODE`."""
+    """dp/dt as a function torch's transforms can drive: ``apply(p, w,
+    rhs, jvp, vjp)`` with ``w`` a run-time weight vector or None, ``rhs(p,
+    w) -> (dy, saved)``, ``jvp(p, w, saved, v, w_t) -> J v`` (the
+    tangent along v in p and w_t in w, either None) and ``vjp(p, w,
+    saved, u, want_w) -> (p_bar, w_bar)`` (None: not ported, and raises
+    NotImplementedError naming `REVERSE_MODE`). forward runs on plain
+    tensors (a ctypes launch sees real pointers); the derivative rules get
+    p, w and ``saved`` (K3's levels) unwrapped, and a zero tangent or
+    cotangent gives zeros without a launch. A backward run with
+    ``create_graph`` returns cotangents whose own backward raises
+    NotImplementedError naming `SECOND_ORDER`."""
 
     @staticmethod
-    def forward(p, rhs, jvp):
+    def forward(p, w, rhs, jvp, vjp):
         with torch._C._DisableFuncTorch():  # plain tensors: no dispatch
-            return rhs(p)
+            return rhs(p, w)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        p, _, jvp = inputs
+        p, w, _, jvp, vjp = inputs
         ctx.mark_non_differentiable(output[1])
-        ctx.save_for_forward(p, output[1])
-        ctx.jvp_fn = jvp
+        ctx.save_for_forward(p, output[1], w)
+        ctx.save_for_backward(p, output[1], w)
+        ctx.jvp_fn, ctx.vjp_fn = jvp, vjp
 
     @staticmethod
-    def jvp(ctx, p_t, *_):
+    def jvp(ctx, p_t, w_t, *_):
         if ctx.jvp_fn is None:
             raise NotImplementedError(
                 f"the J.v of this RHS is not ported yet ({REVERSE_MODE})")
-        p, saved = (_unwrapped(x) for x in ctx.saved_tensors)
-        if p_t is None:
+        p, saved, w = (None if x is None else _unwrapped(x)
+                       for x in ctx.saved_tensors)
+        if p_t is None and w_t is None:
             return torch.zeros_like(p), None
         with torch._C._DisableFuncTorch():
-            return ctx.jvp_fn(p, saved, _unwrapped(p_t)), None
+            return ctx.jvp_fn(p, w, saved,
+                              None if p_t is None else _unwrapped(p_t),
+                              None if w_t is None else _unwrapped(w_t)), None
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            f"reverse mode through the RHS is not ported yet ({REVERSE_MODE})")
+    def backward(ctx, g_dy, _g_saved):
+        if ctx.vjp_fn is None:
+            raise NotImplementedError(
+                "reverse mode through this RHS is not ported yet "
+                f"({REVERSE_MODE})")
+        p, saved, w = ctx.saved_tensors
+        want_p, want_w = ctx.needs_input_grad[:2]
+        if g_dy is None:
+            p_bar = torch.zeros_like(p)
+            w_bar = None if w is None else torch.zeros_like(w)
+        else:
+            with torch.no_grad():
+                p_bar, w_bar = ctx.vjp_fn(p.detach(), None if w is None
+                                          else w.detach(), saved,
+                                          g_dy.detach(), want_w)
+        what = "the dense RHS"
+        p_bar = first_order_only(p_bar, what, p, w, g_dy)
+        w_bar = first_order_only(w_bar, what, p, w, g_dy)
+        return (p_bar if want_p else None, w_bar if want_w else None,
+                None, None, None)
 
 
 # --- dp/dt ---------------------------------------------------------------------
@@ -1742,31 +2388,40 @@ def dense_rhs(dp: DeviceProgram, p: torch.Tensor,
 def rhs_fn(dp: DeviceProgram, p: torch.Tensor,
            out: torch.Tensor | None = None, w_const=None) -> torch.Tensor:
     """dp/dt of a closure's float64 [A^k] ``p`` (``w_const`` [worlds] a
-    run-time weight vector, plain, in place of the program's): `dense_rhs`
-    for a plain tensor, into ``out`` where one is given; for a forward-AD
-    dual that carries nothing else, dp/dt and J v from one K25 launch,
-    returned as a dual; under any other transform `RHSFunction` (K3 ->
-    K5 forward, K25 its J.v, reverse mode raising). ``out=`` takes a
-    plain tensor only."""
-    if not transformed(p):
+    run-time weight vector in place of the program's): `dense_rhs` for
+    plain tensors, into ``out`` where one is given; for a forward-AD dual
+    p that carries nothing else (and a plain w_const), dp/dt and J v from
+    one K25 launch, returned as a dual; under any other transform of p
+    or of w_const, `RHSFunction` (K3 -> K5 forward; K25 its J.v in p,
+    and dp/dt at the tangent its J.v in w_const, which dp/dt is linear
+    in; K30 its v^T J in both). ``out=`` takes plain tensors only."""
+    w_transformed = w_const is not None and transformed(w_const)
+    if not transformed(p) and not w_transformed:
         return dense_rhs(dp, p, out, w_const=w_const)
     if out is not None:
         raise ValueError("out= takes a plain tensor, not one under a "
                          "transform")
-    dual = forward_dual(p)
+    dual = None if w_transformed else forward_dual(p)
     if dual is not None:
         return torch.autograd.forward_ad.make_dual(
             *dense_jvp(dp, *dual, w_const=w_const, value=True))
 
-    def rhs(q):
+    def rhs(q, w):
         low = torch.empty(low_size(dp.prog), dtype=torch.float64,
                           device=dp.device)
-        return dense_rhs(dp, q, None, low, w_const), low
+        return dense_rhs(dp, q, None, low, w), low
 
-    def jvp(q, low, v):
-        return dense_jvp(dp, q, v, low, w_const)
+    def jvp(q, w, low, v, w_t):
+        jv = None if v is None else dense_jvp(dp, q, v, low, w)
+        if w_t is not None:
+            lin = dense_rhs(dp, q, None, None, w_t.contiguous())
+            jv = lin if jv is None else jv + lin
+        return jv
 
-    return RHSFunction.apply(p, rhs, jvp)[0]
+    def vjp(q, w, low, u, want_w):
+        return dense_vjp(dp, q, u, low, w, want_w)
+
+    return RHSFunction.apply(p, w_const, rhs, jvp, vjp)[0]
 
 
 def make_dense_dy_dt(prog: DenseProgram, dtype=None, jit: bool = True,
@@ -1787,11 +2442,13 @@ def make_dense_dy_dt(prog: DenseProgram, dtype=None, jit: bool = True,
     program with no mass tables raises ValueError.
 
     Under a transform ``fn`` is `RHSFunction` (`torch.func.jvp`,
-    autograd): its J.v is K25 (`dense_jvp`) over the levels K3 built for
-    the primal call, its reverse mode raises NotImplementedError. A
-    forward-mode dual p (`torch.autograd.forward_ad`, as the solvers'
+    autograd): its J.v is K25 (`dense_jvp`) and its v^T J K30
+    (`dense_vjp`), each over the levels K3 built for the primal call; a
+    second derivative raises NotImplementedError naming `SECOND_ORDER`.
+    A forward-mode dual p (`torch.autograd.forward_ad`, as the solvers'
     J.v take it: `ode/krylov.jvp`) gets dp/dt and J v from one K25
-    launch, as a dual. ``out=`` and ``with_mass`` take plain tensors.
+    launch, as a dual. ``out=`` takes a plain tensor; ``with_mass`` under
+    a transform raises NotImplementedError naming `SECOND_ORDER`.
 
     ``dtype`` and ``jit`` are the reference's parameters, in its order:
     ``dtype`` None or float64 (anything else raises: the exact path is
@@ -1813,8 +2470,9 @@ def make_dense_dy_dt(prog: DenseProgram, dtype=None, jit: bool = True,
         if not with_mass:
             return rhs_fn(dp, p, out)
         if transformed(p):
-            raise ValueError("with_mass takes a plain tensor, not one "
-                             "under a transform")
+            raise NotImplementedError(
+                "derivatives through the world mass are not ported yet "
+                f"({SECOND_ORDER})")
         low = torch.empty(low_size(prog), dtype=torch.float64,
                           device=dp.device)
         dy = dense_rhs(dp, p, out, low)

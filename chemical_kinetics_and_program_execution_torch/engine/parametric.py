@@ -14,11 +14,13 @@ differentiate it. Everything else is the dense program of
 
 :class:`ParametricDense` gives ``dy_dt(p, w_const)``: K3 -> K5 with a
 run-time w_const in place of the program's (dp/dt is linear in it, so
-the sweep is the same: `dense.dense_rhs`), and its J.v in p, K25 with
-the same w_const (`dense.dense_jvp`), under `torch.func.jvp`.
-`rate_sensitivity` (reverse mode through a fixed-grid solve) raises
-NotImplementedError naming ROADMAP Queue 1, "Derivative-based solvers
-and instruments: reverse mode", as does a derivative in w_const.
+the sweep is the same: `dense.dense_rhs`), its J.v in p, K25 with the
+same w_const (`dense.dense_jvp`), under `torch.func.jvp`, and its v^T J
+in p and in w_const, K30 (`dense.dense_vjp`), under autograd, which
+carries w_bar on through `traced_consts` to the parameters.
+`rate_sensitivity` is the JAX package's: one ``consts(params)`` a solve,
+passed through `ode/fixed.odeint_fixed`'s ``args``, and autograd back
+through the solve's adjoint.
 
 Validity domain, as in the JAX package: the parameters must keep every
 enumerated branch's weight sign fixed.
@@ -48,8 +50,9 @@ class _TracedReplay(_Replay):
     def choose(self, probs):
         k = self._decide(len(probs))
         w = probs[k]
-        w = torch.clamp(w, min=0.0) if isinstance(w, torch.Tensor) else max(
-            w, 0.0)
+        # torch.maximum's derivative at w = 0 splits as jnp.maximum's.
+        w = (torch.maximum(w, torch.zeros((), dtype=w.dtype, device=w.device))
+             if isinstance(w, torch.Tensor) else max(w, 0.0))
         self.t_const = self.t_const * w
         return k
 
@@ -115,19 +118,17 @@ class ParametricDense:
         """dp/dt at ``p`` with the worlds' weights ``w_const``: K3 -> K5
         on a card (into ``out`` where given), their plain versions on the
         CPU; under a transform `dense.RHSFunction`, whose J.v is K25
-        with the same weights."""
+        with the same weights and whose v^T J (in p and in ``w_const``,
+        under autograd) is K30."""
         dp = self.dp
         p = torch.as_tensor(p, dtype=torch.float64,
                             device=self.device).reshape(-1)
         if not isinstance(w_const, torch.Tensor):
             w_const = torch.as_tensor(np.asarray(w_const, np.float64))
-        if dense_mod.transformed(w_const):
-            raise NotImplementedError(
-                "a derivative in w_const is not ported yet "
-                f"({dense_mod.REVERSE_MODE})")
-        # Under a transform in p, a conversion wraps the tensor: unwrap.
-        w = dense_mod._unwrapped(w_const.to(dtype=torch.float64,
-                                            device=self.device))
+        w = w_const.to(dtype=torch.float64, device=self.device)
+        if not w.requires_grad:
+            # Under a transform in p, a conversion wraps the tensor.
+            w = dense_mod._unwrapped(w)
         return dense_mod.rhs_fn(dp, p, out, w)
 
     def __call__(self, p, params):
@@ -143,9 +144,33 @@ def make_parametric_dense(tag: str, cl_k: int, *, device=None):
 
 
 def rate_sensitivity(tag: str, cl_k: int, p0, ts, observable,
-                     params=None, n_sub: int = 8):
-    """The JAX package's ``(value, grads)`` of an observable of the final
-    state in every rate parameter: reverse mode through a fixed-grid
-    solve, not ported yet."""
-    raise NotImplementedError(
-        f"rate_sensitivity is not ported yet ({dense_mod.REVERSE_MODE})")
+                     params=None, n_sub: int = 8, *, device=None):
+    """``(value, grads)`` of a scalar observable of the final state and
+    its gradient in every declared rate parameter (a dict by name), as
+    the JAX package's (:153): one ``consts(params)`` a solve, passed
+    through `odeint_fixed`'s ``args``, and autograd back through the
+    solve's adjoint (K30 at each stage) and `traced_consts`. ``params``
+    defaults to the rule's declared defaults; ``device`` as
+    `ParametricDense`'s."""
+    from ..ode.fixed import odeint_fixed
+
+    pd = ParametricDense(tag, cl_k, device=config.get_device(device))
+    if params is None:
+        params = pd.problem.param_defaults
+    prm = {k: torch.tensor(float(v), dtype=torch.float64,
+                           requires_grad=True) for k, v in params.items()}
+    p0 = torch.as_tensor(np.asarray(p0, np.float64).reshape(-1)
+                         if not isinstance(p0, torch.Tensor) else p0,
+                         dtype=torch.float64, device=pd.device).reshape(-1)
+
+    def rhs(y, t, w_const):
+        return pd.dy_dt(y, w_const)
+
+    with torch.enable_grad():
+        ys = odeint_fixed(rhs, p0.detach(), ts, n_sub, args=pd.consts(prm))
+        value = observable(ys[-1])
+        grads = torch.autograd.grad(value, list(prm.values()),
+                                    allow_unused=True)
+    return value.detach(), {k: (torch.zeros((), dtype=torch.float64)
+                                if g is None else g)
+                            for k, g in zip(prm, grads)}

@@ -591,8 +591,9 @@ def dy_dt_from_chain_tables(t: GatherTables, p: torch.Tensor,
 
 def _closure(compiled, tables, rhs):
     """``fn(p, out=None)``; under a transform `dense.RHSFunction` with no
-    J.v: the tree and chain engines' J.v and vJ are the reverse-mode
-    item's work, and both raise NotImplementedError naming it."""
+    J.v and no v^T J: the tree and chain engines' are slice (b) of the
+    reverse-mode item, and both raise NotImplementedError naming it
+    (`dense.REVERSE_MODE`)."""
     n = compiled.state_size
 
     def fn(p, out=None):
@@ -602,8 +603,8 @@ def _closure(compiled, tables, rhs):
             raise ValueError(f"p has {p.numel()} entries, the program {n}")
         if dense.transformed(p):
             return dense.RHSFunction.apply(
-                p, lambda q: (rhs(tables, q, None), q.new_zeros(0)),
-                None)[0]
+                p, None, lambda q, _w: (rhs(tables, q, None),
+                                        q.new_zeros(0)), None, None)[0]
         return rhs(tables, p, out)
 
     fn.tables = tables

@@ -90,7 +90,9 @@ def _max0(x):
         return max(0.0, x)
     import torch
 
-    return torch.clamp(x, min=0.0)
+    # torch.maximum, not clamp: at x = 0 its derivative splits 0.5/0.5,
+    # as jnp.maximum's in the JAX package (clamp passes it all).
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 @register_problem("ex2-ferromagnetic-chain-p", ("D", "U"),
@@ -318,7 +320,9 @@ def _min1(x):
         return min(1.0, x)
     import torch
 
-    return torch.clamp(x, max=1.0)
+    # torch.minimum, not clamp: its derivative at x = 1 splits as
+    # jnp.minimum's does.
+    return torch.minimum(x, torch.ones((), dtype=x.dtype, device=x.device))
 
 
 def _ex4var2_tables(beta, G_P, G_X, G_E, G_A, G_B, G_C, G_D):

@@ -99,15 +99,24 @@ def _terms(coefs, rows):
 # row B5 - B4 at 25; then Kvaerno 3(2)'s stage bases g2, g3, g4 at 26-28
 # (``y + h sum_j a_sj k_j``; g2's row gamma k1) and the Newton
 # predictors ``g + h gamma k_{s-1}`` of stages 3 and 4 at 29 and 30
-# (stage 2's is row 26 on the base g2), `KV_G_ROWS` and `KV_PRED_ROWS`.
-# Each row's terms name logical stages; K6 holds the table in constant
-# memory (`csrc/dop853.cu`).
+# (stage 2's is row 26 on the base g2), `KV_G_ROWS` and `KV_PRED_ROWS`;
+# then the fixed grid's adjoint (`ode/fixed.py`), DP5's transposed
+# tableau: at 31-36 stage l's cotangent ``h (B5_l ybar + sum_{m > l}
+# A_ml z_m)`` over an [8, n] tensor holding z_m = k_bar_m^T J(Y_m) at
+# row m and ybar at row 7, on a zero base (`DP5_ADJ_ROWS[l]`; stage 6's
+# cotangent is 0: B5_6 = 0 and no stage follows), and at 37 ``ybar +
+# sum_l z_l`` (`DP5_ADJ_SUM`, with h = 1). Each row's terms name
+# logical stages; K6 holds the table in constant memory
+# (`csrc/dop853.cu`).
 _EULER, _B_ROW, _E5_ROW, _E3_ROW = 0, _N_STAGES, 16, 17
 _STAGES = range(_N_EXTENDED)
 DP5_ROWS = (None,) + tuple(range(18, 18 + DP5_STAGES - 1))
 DP5_B5_ROW, DP5_ERR_ROW = 24, 25
 KV_G_ROWS = (None, 26, 27, 28)  # stage s's base g_s
 KV_PRED_ROWS = (None, 26, 29, 30)  # stage s's predictor on g_s
+DP5_ADJ_YBAR = DP5_STAGES  # the adjoint tensor's row of ybar
+DP5_ADJ_ROWS = tuple(range(31, 31 + DP5_STAGES - 1))  # stages 0-5
+DP5_ADJ_SUM = 31 + DP5_STAGES - 1
 TABLEAU = tuple(
     [[(0, 1.0)]]
     + [_terms(_A[i, :i], _STAGES[:i]) for i in range(1, _N_STAGES)]
@@ -121,7 +130,12 @@ TABLEAU = tuple(
        _terms(DP5_ERR, range(DP5_STAGES))]
     + [[(0, KV_GAMMA)], [(0, KV_A31), (1, KV_A32)],
        [(0, KV_A41), (1, KV_A42), (2, KV_A43)],
-       [(1, KV_GAMMA)], [(2, KV_GAMMA)]])
+       [(1, KV_GAMMA)], [(2, KV_GAMMA)]]
+    + [_terms([DP5_B5[lo]] + [DP5_A[m][lo] for m in range(lo + 1,
+                                                         DP5_STAGES - 1)],
+              [DP5_ADJ_YBAR] + list(range(lo + 1, DP5_STAGES - 1)))
+       for lo in range(DP5_STAGES - 1)]
+    + [_terms([1.0] * (DP5_STAGES - 1), range(DP5_STAGES - 1))])
 _MAX_TERMS = 16
 
 
@@ -145,8 +159,8 @@ def tableau_terms(which: int, swap: int = 0, fsal: int = _N_STAGES):
 
 
 def tableau_arrays():
-    """`TABLEAU` as K6 uploads it: int32 term counts [31], int32 stages
-    [31, 16] and float64 coefficients [31, 16], zero past each count."""
+    """`TABLEAU` as K6 uploads it: int32 term counts [38], int32 stages
+    [38, 16] and float64 coefficients [38, 16], zero past each count."""
     count = np.asarray([len(t) for t in TABLEAU], dtype=np.int32)
     rows = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.int32)
     coefs = np.zeros((len(TABLEAU), _MAX_TERMS), dtype=np.float64)
@@ -233,10 +247,13 @@ def stage(y, ks, h: float, which: int, out, swap: int = 0,
                                out.data_ptr(), cuda.stream(y))
     cuda.check(rc, "stage", lib)
     stage.launches += 1
+    if which >= DP5_ADJ_ROWS[0]:
+        stage.adjoint_launches += 1
     return out
 
 
 stage.launches = 0
+stage.adjoint_launches = 0  # of `stage.launches`, on the adjoint rows
 
 
 # --- K6: norms -----------------------------------------------------------------

@@ -24,9 +24,13 @@ J_G) dp = delta G``, a non-finite step made no step, backtracking (at
 most 30 halvings) until the residual's rms falls, the switched-evolution
 relaxation of delta, and a host read of the residual and the accept
 flag each trial. The returned solve is a `torch.autograd.Function` whose
-backward (the JAX package's implicit gradient, `:404-448`) raises
-NotImplementedError naming ROADMAP Queue 1, "Derivative-based solvers
-and instruments: reverse mode". `relaxation_modes` runs shift-invert
+backward is the JAX package's implicit gradient (`:404-448`): u solves
+J_G(p_inf)^T u = g by GMRES at ``gmres_tol_bwd``, each matvec the RHS's
+v^T J at p_inf by autograd (K30 for the port's dense RHS) less L(u),
+K26 unchanged (L is symmetric), masked in support mode with u kept off
+the support (`Augmentation.vjp`); then args_bar = -(dF/dargs)^T u and
+p_guess_bar = -embed(vals(u)) where there are conserved values.
+`relaxation_modes` runs shift-invert
 Arnoldi on the host, one GMRES solve a step, the eigenproblem in numpy;
 `detect_support_invariants` and `detect_conserved_marginals` probe the
 RHS at states drawn from numpy's ``default_rng(0)``, as the JAX package
@@ -43,12 +47,12 @@ import torch
 
 from .. import cuda
 from ..engine.dense import (
-    REVERSE_MODE,
     _digit_sum_first,
     pyramid,
     pyramid_plain,
 )
 from ..utils import config
+from ..utils.autodiff import first_order_only, flatten_args
 from .krylov import gmres, jvp
 
 
@@ -414,6 +418,18 @@ class Augmentation:
             return jv
         return self._aug(vm, jv, keep=None if self.mask is None else v)
 
+    def vjp(self, p, u, args):
+        """J_G^T u = J^T u - L(u), L being symmetric (masked in support
+        mode: J^T and L at the masked u, u itself off the support), J^T u
+        the RHS's v^T J at p by autograd."""
+        um = u if self.mask is None else torch.where(self.mask, u, 0.0)
+        q = p.detach().requires_grad_(True)
+        with torch.enable_grad():
+            (ju,) = torch.autograd.grad(self.fn(q, args), q, um)
+        if self.a is None:
+            return ju
+        return self._aug(um, ju, keep=None if self.mask is None else u)
+
 
 def make_steady_state(fn, *, size_a: int | None = None,
                       cl_k: int | None = None,
@@ -433,15 +449,17 @@ def make_steady_state(fn, *, size_a: int | None = None,
     rms of G at most ``tol``. ``fn`` must take forward-mode duals (the
     port's dense RHS does: K25). ``p_inf`` is a float64 tensor on the
     device; ``info.matvecs`` counts the J_G v products, ``info.residuals``
-    the evaluations of G (each an RHS and an L). A backward pass
-    through ``solve`` raises NotImplementedError (the implicit gradient
-    is the reverse-mode item); ``gmres_tol_bwd`` is kept for it."""
+    the evaluations of G (each an RHS and an L). ``solve`` is
+    differentiable by autograd in ``p_guess`` and in ``args`` (a tensor,
+    or a tuple, list or dict of tensors) by the implicit gradient (module
+    docstring), its transposed system solved to ``gmres_tol_bwd``; ``fn``
+    must then take autograd's backward in p and in args (the port's dense
+    RHS does: K30)."""
     if (size_a is None) != (cl_k is None):
         raise ValueError("pass size_a and cl_k together (or neither)")
     device = config.get_device(device)
     aug = Augmentation(fn, size_a, cl_k, conserved, probe_args,
                        support_guess, support_floor, device)
-    del gmres_tol_bwd
 
     def ptc(p0, args):
         p = p0.to(torch.float64).reshape(-1).clone()
@@ -485,30 +503,74 @@ def make_steady_state(fn, *, size_a: int | None = None,
                              residual=gn, matvecs=matvecs,
                              residuals=residuals)
 
+    def implicit_grad(p_inf, g, args, leaf_args, leaves):
+        """(p_guess_bar, the cotangents of ``leaves``, which ``leaf_args``
+        holds where ``args`` holds their values): the JAX package's
+        solve_bwd (`:413-446`)."""
+        u, _ = gmres(lambda v: aug.vjp(p_inf, v, args), g,
+                     tol=gmres_tol_bwd, atol=0.0, restart=gmres_restart,
+                     maxiter=gmres_maxiter)
+        u = torch.where(torch.isfinite(u), u, 0.0)
+        leaf_bar = []
+        if leaves:
+            with torch.enable_grad():
+                leaf_bar = torch.autograd.grad(fn(p_inf, leaf_args), leaves,
+                                               u, allow_unused=True)
+            leaf_bar = [None if x is None else -x for x in leaf_bar]
+        if aug.has_conserved:
+            p_bar = -aug.cons_embed(aug.cons_vals(u))
+            if aug.mask is not None:
+                p_bar = torch.where(aug.mask, p_bar, 0.0)
+        else:
+            p_bar = torch.zeros_like(p_inf)
+        return p_bar, leaf_bar
+
     class _Solve(torch.autograd.Function):
+        """``apply(p_inf, p_guess, rebuild, *arg_tensors)``: the solve's
+        result, found before (the PTC loop takes forward-mode duals, which
+        a Function's forward does not carry), as a function of p_guess
+        and the args, its backward the implicit gradient."""
+
         @staticmethod
-        def forward(p_guess, args, info):
-            p_inf, i = ptc(p_guess, args)
-            info.append(i)
-            return p_inf
+        def forward(p_inf, p_guess, rebuild, *arg_tensors):
+            return p_inf.clone()
 
         @staticmethod
         def setup_context(ctx, inputs, output):
-            pass
+            _, _, rebuild, *arg_tensors = inputs
+            ctx.save_for_backward(output, *arg_tensors)
+            ctx.rebuild = rebuild
 
         @staticmethod
-        def backward(ctx, *grads):
-            raise NotImplementedError(
-                "the steady state's implicit gradient is not ported yet "
-                f"({REVERSE_MODE})")
+        def backward(ctx, g, _g_info=None):
+            p_inf, *arg_tensors = ctx.saved_tensors
+            need = ctx.needs_input_grad[3:]
+            leaves = [x.detach().requires_grad_(True) if want else x.detach()
+                      for x, want in zip(arg_tensors, need)]
+            p_bar, leaf_bar = implicit_grad(
+                p_inf.detach(), g.detach(),
+                ctx.rebuild([x.detach() for x in arg_tensors]),
+                ctx.rebuild(leaves),
+                [x for x, want in zip(leaves, need) if want])
+            # Under create_graph the cotangents carry no graph of their
+            # own (GMRES over graph-free v^T J products formed them): a
+            # second derivative through them raises.
+            what, anchors = "the steady state's solve", (p_inf, g,
+                                                          *arg_tensors)
+            it = iter(leaf_bar)
+            return ((None, first_order_only(p_bar, what, *anchors)
+                     if ctx.needs_input_grad[1] else None, None)
+                    + tuple(first_order_only(next(it), what, *anchors)
+                            if want else None for want in need))
 
     def solve(p_guess, args=None):
         p_guess = torch.as_tensor(p_guess, dtype=torch.float64,
                                   device=device).reshape(-1)
-        if p_guess.requires_grad or (isinstance(args, torch.Tensor)
-                                     and args.requires_grad):
-            info = []
-            return _Solve.apply(p_guess, args, info), info[0]
+        tensors, rebuild = flatten_args(args)
+        if p_guess.requires_grad or any(x.requires_grad for x in tensors):
+            p_inf, info = ptc(p_guess.detach(),
+                              rebuild([x.detach() for x in tensors]))
+            return _Solve.apply(p_inf, p_guess, rebuild, *tensors), info
         return ptc(p_guess, args)
 
     solve.augmentation = aug

@@ -395,6 +395,33 @@ Phases (each prints its wall time; every check raises on failure):
    chunk of 512 events, K28 one of 671 steps, K29 the sweep) beside its
    bound and plain version; the phase's time printed and held under 90
    s (examples/autocatalysis.py and the npz must be in the tree).
+16. reverse-mode derivatives (K30 `dense_vjp`, `csrc/dense_vjp.cu`, built
+   with the library in phase 2; K6's adjoint rows 31-37): (a) K30 against
+   `dense_vjp_plain` bit for bit, p_bar and w_bar, in every launch form
+   each program can take (`dense.forms_for`) at `VJP_CASES` (ex2 cl_k 5,
+   the inverse design's program, in the block form; the -p rules of ex2
+   and ex4var2 at cl_k 4 with a run-time w_const; ex4 cl_k 5 in the grid
+   form; a dual program), each at a positive p, one with a third of its
+   windows 0 (ties) and one with dead contexts; K30 timed at each in its
+   own form and at ex4 cl_k 8 (the median of 25 or 20 calls by CUDA
+   events, queued behind a sleep) beside its bound (bytes or float64
+   operations, the larger), its plan's bytes printed; K6's adjoint rows
+   against their plain versions at n = 32 and 10,000, timed at 10,000;
+   (b) examples/ex2_inverse_design.py's geometry (ex2 cl_k 5, 61 samples
+   on [0, 30], n_sub 8, p_pair from 1/500 to 1/77): the first gradient
+   through `odeint_fixed`'s adjoint against a central difference of the
+   port's solve (rtol 1e-6), the loss below 1e-20 within 12 Newton steps;
+   (c) `rate_sensitivity` at examples/ex4var2_thermo_sensitivity.py's
+   geometry (ex4var2-chemical-turing-p cl_k 4, 11 samples on [0, 100],
+   n_sub 100, p(IOIO)): each of the eight gradients against a central
+   difference (rtol 1e-5); (d) the implicit gradient at
+   examples/ex2_equilibrium.py's geometry (ex2-ferromagnetic-chain-p
+   cl_k 4, tol 1e-13, m at beta 0.7): against a central difference of
+   two solves and the analytic Ising derivative (rtol 1e-5); (b)-(d) are
+   the phase's main path, each with the counts of K30, K6's rows and the
+   forward's K3, K5, K25 and K26 set to 0 just before and read just
+   after (K30 and K5 launched on each, K6's adjoint rows on (b) and (c),
+   K25 and K26 on (d)), no plain version of any of them called.
 
 The line before the last is the `kernels` JSON object; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -453,6 +480,7 @@ from chemical_kinetics_and_program_execution_torch.models.initial_states import 
     chemical_turing_v2_p0,
     copolymerization_p0,
     ferromagnet_p0,
+    ferromagnet_p0_traced,
 )
 from chemical_kinetics_and_program_execution_torch.engine import (
     parametric as tparam,
@@ -7281,6 +7309,475 @@ def companions_phase(dev, kernels):
         kernels[k] = record[k]
 
 
+# --- Phase 16: reverse-mode derivatives (K30, K6's adjoint rows) --------------
+
+K30 = ("K30 dense_vjp", SRC + "dense_vjp.cu",
+       "jax.vjp of the JAX package's engine/dense.py:441 dy_dt_dense at "
+       "ode/steady.py:419,438, ode/fixed.py:121 and engine/parametric.py:153 "
+       "(XLA)")
+K6_ADJ = ("K6 dop853_arith: DP5's adjoint rows", SRC + "dop853.cu",
+          "the backward of the JAX package's ode/fixed.py:74 "
+          "_odeint_fixed_impl (XLA's transpose of its scan, jax.checkpoint "
+          "on each interval)")
+EX2P, EX4V2P = "ex2-ferromagnetic-chain-p", "ex4var2-chemical-turing-p"
+# (a)'s programs: (label, tag, cl_k, dual, parametric). ex2 cl_k 5 is the
+# inverse design's program (the block form), ex4 cl_k 5 the grid form.
+VJP_CASES = [("ex2 cl_k 5", EX2, 5, False, False),
+             ("ex2-p cl_k 4", EX2P, 4, False, True),
+             ("ex4var2-p cl_k 4", EX4V2P, 4, False, True),
+             ("ex4 cl_k 5", EX4, 5, False, False),
+             ("ex3 dual cl_k 4", EX3, 4, True, False)]
+VJP_TIMED_K8 = (EX4, 8)
+# examples/ex2_inverse_design.py, ex4var2_thermo_sensitivity.py and
+# ex2_equilibrium.py: their geometry.
+INV = dict(cl_k=5, ts=np.linspace(0.0, 30.0, 61), n_sub=8, guess=1 / 500.0,
+           target=1 / 77.0, obs=0b01100, steps=12)
+SENS = dict(cl_k=4, ts=np.linspace(0.0, 100.0, 11), n_sub=100, seq="IOIO",
+            syms="ABCDIOPXSE")
+EQ = dict(cl_k=4, tol=1e-13, beta=0.7)
+# The plain versions of every kernel that (b)-(d) run: K30 and K6's
+# rows, and the forward's K3, K4, K5, K25 and K26.
+REV_PLAIN = [tdense.dense_vjp_plain, tdense.dense_jvp_plain,
+             tdense.sweep_plain, tdense.signature_weights_plain,
+             tdense.pyramid_plain, tsteady.steady_aug_plain, *dop853.PLAIN]
+REV_RTOL = {"inverse": 1e-6, "sensitivity": 1e-5, "equilibrium": 1e-5}
+
+
+def zero_rev_counts():
+    for f in (tdense.dense_vjp, tdense.sweep, tdense.pyramid,
+              tdense.dense_jvp, tsteady.steady_aug, *dop853.KERNELS):
+        f.launches = 0
+    dop853.stage.adjoint_launches = 0
+    for f in REV_PLAIN:
+        f.calls = 0
+
+
+def rev_counts():
+    return {"K30": tdense.dense_vjp.launches,
+            "K6_adjoint": dop853.stage.adjoint_launches,
+            "K6": sum(f.launches for f in dop853.KERNELS)
+            - dop853.stage.adjoint_launches,
+            "K5": tdense.sweep.launches, "K3": tdense.pyramid.launches,
+            "K25": tdense.dense_jvp.launches,
+            "K26": tsteady.steady_aug.launches,
+            "plain": sum(f.calls for f in REV_PLAIN)}
+
+
+def rev_path(label, fn, need=("K30", "K6_adjoint", "K5")):
+    """Runs one path of phase 16 with the counts set to 0 just before and
+    read just after; raises unless each kernel in ``need`` launched and
+    no plain version ran. Returns (result, counts, seconds)."""
+    torch.cuda.synchronize()
+    zero_rev_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = rev_counts()
+    say(f"{label}: " + ", ".join(f"{x} {n}" for x, n in c.items()
+                                 if x != "plain")
+        + f" launches, plain calls {c['plain']}; {seconds:.2f} s")
+    if c["plain"]:
+        raise AssertionError(f"{label}: a plain version ran")
+    if not all(c[x] for x in need):
+        raise AssertionError(f"{label}: {need} did not all launch")
+    return out, c, seconds
+
+
+def median_ms(fn, reps=25):
+    """The median device milliseconds of ``reps`` calls of ``fn``, each
+    between its own CUDA events, queued behind a sleep so that the host's
+    pacing does not show."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in evs:
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in evs]))
+
+
+def k30_bound(dp, want_w):
+    """(bound ms, bound_by, bytes, ops) of one K30 call: p and u read and
+    p_bar written once, w_const read (and w_bar written) once, the plan
+    read once; against the float64 operations of its phases (each live
+    element's product and digit sum, its cotangent's A terms and two
+    products, the ratio partials, the chains and the pyramid's terms)."""
+    prog = dp.prog
+    vp = tdense.vjp_tables(dp)["plan"]
+    n, a = prog.state_size, prog.size_a
+    nbytes = (24 * n + 8 * prog.num_worlds * (2 if want_w else 1)
+              + vp.nbytes + dp.pair_num.numel() * 8 + dp.pair_const.numel() * 8
+              + dp.w_num.numel() * 8)
+    live = sum(st.n for st in dp.plan.steps if st.kind != tdense.INTERIOR)
+    tapes = 1 + prog.dual
+    ops = (live * (2 * a + 4) + tapes * vp.rat_len * 10
+           + prog.w_num.size * 14 + (n + tdense.low_size(prog)) * (2 * a + 2))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP64_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def vjp_states(gen, n, a, dev):
+    """(label, p): a positive p, one with a third of its windows exactly 0
+    (ties in the guarded ratio), one whose contexts starting with symbol
+    0 are dead (zero contexts)."""
+    pos = -torch.log1p(-torch.rand(n, generator=gen, device=dev,
+                                   dtype=torch.float64))
+    pos = pos / pos.sum()
+    zeros = torch.where(torch.rand(n, generator=gen, device=dev) < 1 / 3,
+                        0.0, pos)
+    dead = pos.clone()
+    dead[: n // a] = 0.0
+    return [("positive", pos), ("zeros and ties", zeros / zeros.sum()),
+            ("dead contexts", dead / dead.sum())]
+
+
+def vjp_against_plain(dev, gen, record):
+    """(a): K30 against `dense_vjp_plain` bit for bit (p_bar and w_bar) at
+    each of `VJP_CASES` in every launch form it can take, at the three
+    `vjp_states` (a run-time w_const for the parametric rules); K30 timed
+    at each program in its own form and at ex4 cl_k 8 beside its bound."""
+    times = {}
+    for label, tag, k, dual, parametric in VJP_CASES:
+        if parametric:
+            pd = tparam.ParametricDense(tag, k, device=dev)
+            dp = pd.dp
+            defaults = {x: float(v) for x, v in
+                        pd.problem.param_defaults.items()}
+            w_rt = pd.consts({x: v * 1.1 for x, v in defaults.items()})
+        else:
+            prog = (tdense.compile_dense_dual(tag, k) if dual
+                    else tdense.compile_dense(tag, k))
+            dp = tdense.device_program(prog, dev)
+            w_rt = None
+        prog = dp.prog
+        n = prog.state_size
+        chosen = dp.form
+        forms = tdense.forms_for(dp)
+        checks = 0
+        for state, p in vjp_states(gen, n, prog.size_a, dev):
+            u = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+            want_p, want_w = tdense.dense_vjp_plain(dp, p, u, w_const=w_rt,
+                                                    want_w=True)
+            for form in forms:
+                dp.form = form
+                got_p, got_w = tdense.dense_vjp(dp, p, u, w_const=w_rt,
+                                                want_w=True)
+                torch.cuda.synchronize()
+                err = max(float((got_p - want_p).abs().max()),
+                          float((got_w - want_w).abs().max()))
+                record["K30"] = max(record["K30"], err)
+                if not (torch.equal(got_p, want_p)
+                        and torch.equal(got_w, want_w)):
+                    raise AssertionError(
+                        f"K30 != dense_vjp_plain: {label}, {state}, "
+                        f"{tdense.form_name(form)}, max |diff| {err}")
+                checks += 1
+            dp.form = chosen
+        vp = tdense.vjp_tables(dp)["plan"]
+        p = vjp_states(gen, n, prog.size_a, dev)[0][1]
+        u = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+        low = tdense.pyramids(prog, p)
+        ms = median_ms(lambda: tdense.dense_vjp(dp, p, u, low, w_rt, True))
+        plain_ms = median_ms(lambda: tdense.dense_vjp_plain(
+            dp, p, u, low, w_rt, True), 5)
+        bound, by, nbytes, ops = k30_bound(dp, True)
+        times[label] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                            bound_by=by, bytes=nbytes, ops=ops,
+                            form=tdense.form_name(chosen),
+                            plan_bytes=vp.nbytes)
+        say(f"K30 {label} ({tdense.form_name(chosen)}; {checks} checks, "
+            f"every form {[tdense.form_name(f) for f in forms]}): "
+            f"{ms * 1e3:.2f} us median of 25; bound {bound * 1e3:.3f} us "
+            f"({by}: {nbytes / 1e6:.3f} MB, {ops / 1e6:.3f} M flops); plain "
+            f"{plain_ms:.2f} ms; plan {vp.nbytes / 1e6:.3f} MB")
+    tag, k = VJP_TIMED_K8
+    t0 = time.perf_counter()
+    dp = tdense.device_program(tdense.compile_dense(tag, k), dev)
+    vp = tdense.vjp_tables(dp)["plan"]
+    plan_s = time.perf_counter() - t0
+    n = dp.prog.state_size
+    p = vjp_states(gen, n, dp.prog.size_a, dev)[0][1]
+    u = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    low = tdense.pyramids(dp.prog, p)
+    ms = median_ms(lambda: tdense.dense_vjp(dp, p, u, low), 20)
+    bound, by, nbytes, ops = k30_bound(dp, False)
+    pbar, _ = tdense.dense_vjp(dp, p, u, low)
+    if not bool(torch.isfinite(pbar).all()):
+        raise AssertionError("K30 at ex4 cl_k 8: a non-finite p_bar")
+    times[f"ex4 cl_k {k}"] = dict(ms=ms, plain_ms=None, bound_ms=bound,
+                                  bound_by=by, bytes=nbytes, ops=ops,
+                                  form=tdense.form_name(dp.form),
+                                  plan_bytes=vp.nbytes)
+    say(f"K30 ex4 cl_k {k} ({tdense.form_name(dp.form)}, {n} states, "
+        f"{dp.plan.work_size} live elements): {ms:.3f} ms median of 20; "
+        f"bound {bound:.3f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+        f"{ops / 1e9:.3f} G flops); plan {vp.nbytes / 1e6:.1f} MB, made in "
+        f"{plan_s:.1f} s with the sweep's")
+    del dp, vp, p, u, low, pbar
+    torch.cuda.empty_cache()
+    record["K30_times"] = times
+
+
+def adjoint_rows_against_plain(dev, gen, record):
+    """K6's adjoint rows (`dop853.DP5_ADJ_ROWS`, `DP5_ADJ_SUM`) against
+    their plain versions bit for bit at (b)'s and (c)'s state sizes, each
+    timed at (c)'s beside its bound (the row's terms and the base read,
+    the output written)."""
+    times = {}
+    for n in (2 ** INV["cl_k"], 10 ** SENS["cl_k"]):
+        adj = dop853.rows_tensor(dop853.DP5_STAGES + 1, n, dev)
+        adj.copy_(torch.randn(adj.shape, generator=gen, device=dev,
+                              dtype=torch.float64))
+        base = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+        out = torch.empty_like(base)
+        ref = torch.empty_like(base)
+        for row in dop853.DP5_ADJ_ROWS + (dop853.DP5_ADJ_SUM,):
+            h = 1.0 if row == dop853.DP5_ADJ_SUM else 0.0375
+            dop853.stage(base, adj, h, row, out)
+            dop853.stage_plain(base, adj, h, dop853.tableau_terms(row), ref)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            record["K6_adj"] = max(record["K6_adj"], err)
+            if not torch.equal(out, ref):
+                raise AssertionError(f"K6 adjoint row {row} != plain at "
+                                     f"n {n}: {err}")
+            if n == 10 ** SENS["cl_k"]:
+                terms = len(dop853.TABLEAU[row])
+                ms = median_ms(lambda: dop853.stage(base, adj, h, row, out))
+                plain_ms = median_ms(lambda: dop853.stage_plain(
+                    base, adj, h, dop853.tableau_terms(row), ref))
+                bound = 8 * n * (terms + 2) / HBM_BYTES_PER_S * 1e3
+                times[row] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                  terms=terms)
+    for row, t in times.items():
+        say(f"K6 adjoint row {row} ({t['terms']} terms) at n = "
+            f"{10 ** SENS['cl_k']}: {t['ms'] * 1e3:.2f} us median of 25, "
+            f"plain {t['plain_ms'] * 1e3:.2f} us, bound "
+            f"{t['bound_ms'] * 1e3:.3f} us (bytes)")
+    record["K6_adj_times"] = times
+
+
+def inverse_design(dev, record):
+    """(b) examples/ex2_inverse_design.py through the port: ex2 cl_k 5,
+    61 samples on [0, 30], n_sub 8, p_pair from 1/500 to the hidden 1/77
+    by Newton on the squared residual of p(DUUD)(30) (x -= 2 v / g,
+    clipped to [1e-5, 0.2]); the first gradient against a central
+    difference of the port's forward solve (rtol 1e-6); the loss below
+    1e-20 within the example's 12 steps."""
+    cfg = INV
+    k = cfg["cl_k"]
+    fn, _ = tengine.build_dy_dt(EX2, k, device=dev)
+
+    def final(x):
+        ys = odeint_fixed(lambda y, t: fn(y),
+                          ferromagnet_p0_traced(k, x), cfg["ts"],
+                          n_sub=cfg["n_sub"])
+        return ys[-1, cfg["obs"]]
+
+    def at(x):
+        return torch.tensor(x, dtype=torch.float64, device=dev)
+
+    target = final(at(cfg["target"])).detach()
+
+    def loss_grad(x):
+        xl = at(x).requires_grad_(True)
+        v = (final(xl) - target) ** 2
+        (g,) = torch.autograd.grad(v, xl)
+        return float(v.detach()), float(g)
+
+    def newton():
+        x = cfg["guess"]
+        v0, g0 = loss_grad(x)
+        hist = [(x, v0)]
+        v, g = v0, g0
+        for _ in range(cfg["steps"]):
+            if v < 1e-28:
+                break
+            x = min(max(x - 2.0 * v / g, 1e-5), 0.2)
+            v, g = loss_grad(x)
+            hist.append((x, v))
+        return g0, hist
+
+    (g0, hist), counts, seconds = rev_path("(b) inverse design", newton)
+    eps = 1e-7
+    with torch.no_grad():
+        fd = (float((final(at(cfg["guess"] + eps)) - target) ** 2)
+              - float((final(at(cfg["guess"] - eps)) - target) ** 2)) / (
+            2 * eps)
+    rel = abs(g0 - fd) / abs(fd)
+    say(f"(b) first gradient {g0:.12e}, central difference {fd:.12e} "
+        f"(rel {rel:.2e}); Newton: " + ", ".join(
+            f"{x:.12g} ({v:.2e})" for x, v in hist))
+    if not rel <= REV_RTOL["inverse"]:
+        raise AssertionError("(b) the gradient misses the central "
+                             "difference")
+    best = min(v for _, v in hist)
+    if not (best < 1e-20 and abs(hist[-1][0] - cfg["target"]) < 1e-6):
+        raise AssertionError(f"(b) no recovery: loss {best:.3e}")
+    record["paths"]["inverse design"] = dict(
+        counts=counts, seconds=seconds, newton_steps=len(hist) - 1,
+        loss=best, grad_rel=rel)
+
+
+def sensitivity(dev, record):
+    """(c) `rate_sensitivity` at examples/ex4var2_thermo_sensitivity.py's
+    geometry: ex4var2-chemical-turing-p cl_k 4, 11 samples on [0, 100],
+    n_sub 100, p(IOIO) at T; every parameter's gradient against a
+    central difference of two forward solves (rtol 1e-5)."""
+    cfg = SENS
+    k = cfg["cl_k"]
+    pd = tparam.ParametricDense(EX4V2P, k, device=dev)
+    defaults = {x: float(v) for x, v in pd.problem.param_defaults.items()}
+    proj = seq_prob_projector([[cfg["syms"].index(c) for c in cfg["seq"]]],
+                              pd.prog.size_a, k)
+    p0 = chemical_turing_v2_p0(k).ravel()
+
+    def obs(y):
+        return proj(y[None, :])[0, 0]
+
+    (value, grads), counts, seconds = rev_path(
+        "(c) rate_sensitivity", lambda: tparam.rate_sensitivity(
+            EX4V2P, k, p0, cfg["ts"], obs, n_sub=cfg["n_sub"], device=dev))
+
+    def solve_at(prm):
+        ys = odeint_fixed(lambda y, t, w: pd.dy_dt(y, w), p0, cfg["ts"],
+                          n_sub=cfg["n_sub"], args=pd.consts(prm),
+                          device=dev)
+        return float(obs(ys[-1]))
+
+    worst = 0.0
+    for name in sorted(defaults):
+        eps = 1e-6 * max(1.0, abs(defaults[name]))
+        hi, lo = dict(defaults), dict(defaults)
+        hi[name] += eps
+        lo[name] -= eps
+        fd = (solve_at(hi) - solve_at(lo)) / (2 * eps)
+        g = float(grads[name])
+        rel = abs(g - fd) / max(abs(fd), 1e-300)
+        say(f"(c) d p({cfg['seq']}) / d {name}: {g:+.12e}, central "
+            f"difference {fd:+.12e} (rel {rel:.2e})")
+        if not abs(g - fd) <= REV_RTOL["sensitivity"] * abs(fd) + 1e-15:
+            raise AssertionError(f"(c) the gradient in {name} misses the "
+                                 "central difference")
+        worst = max(worst, rel)
+    say(f"(c) p({cfg['seq']})(T) = {float(value):.12e}; {len(defaults)} "
+        f"parameters, worst rel {worst:.2e}")
+    record["paths"]["rate_sensitivity"] = dict(
+        counts=counts, seconds=seconds, params=len(defaults),
+        worst_rel=worst)
+
+
+def equilibrium(dev, record):
+    """(d) the implicit gradient at examples/ex2_equilibrium.py's
+    geometry: ex2-ferromagnetic-chain-p cl_k 4, tol 1e-13, m = 2 p(U) - 1
+    at beta 0.7 from the Gibbs measure at 0.65 (a continuation step);
+    dm/dbeta against central differences of two solves and the analytic
+    Ising derivative (rtol 1e-5)."""
+    cfg = EQ
+    k = cfg["cl_k"]
+    pd = tparam.ParametricDense(EX2P, k, device=dev)
+    defaults = {x: torch.tensor(float(v), dtype=torch.float64)
+                for x, v in pd.problem.param_defaults.items()}
+    solve = tsteady.make_steady_state(lambda p, w: pd.dy_dt(p, w), size_a=2,
+                                      cl_k=k, tol=cfg["tol"],
+                                      probe_args=pd.consts(defaults),
+                                      device=dev)
+    guess = torch.as_tensor(ferromagnet.ising_gibbs_windows(
+        k, J_eff=2.0, h=-0.25, beta=cfg["beta"] - 0.05), device=dev)
+
+    def m_of(beta):
+        prm = dict(defaults)
+        prm["beta"] = beta
+        p_inf, info = solve(guess, pd.consts(prm))
+        if not info.converged:
+            raise AssertionError(f"(d) no convergence: {info}")
+        return 2.0 * p_inf.reshape(2, -1).sum(1)[1] - 1.0
+
+    def grad():
+        b = torch.tensor(cfg["beta"], dtype=torch.float64, requires_grad=True)
+        m = m_of(b)
+        (g,) = torch.autograd.grad(m, b)
+        return float(m.detach()), float(g)
+
+    (m, g), counts, seconds = rev_path("(d) implicit gradient", grad,
+                                       need=("K30", "K5", "K25", "K26"))
+    eps = 1e-4
+    fd = (float(m_of(torch.tensor(cfg["beta"] + eps, dtype=torch.float64)))
+          - float(m_of(torch.tensor(cfg["beta"] - eps,
+                                    dtype=torch.float64)))) / (2 * eps)
+
+    def analytic_m(beta):
+        pg = ferromagnet.ising_gibbs_windows(1, J_eff=2.0, h=-0.25,
+                                             beta=beta)
+        return 2.0 * pg[1] - 1.0
+
+    e2 = 1e-6
+    exact = (analytic_m(cfg["beta"] + e2) - analytic_m(cfg["beta"] - e2)) / (
+        2 * e2)
+    say(f"(d) m({cfg['beta']}) = {m:.12f} (analytic "
+        f"{analytic_m(cfg['beta']):.12f}); dm/dbeta {g:.12e}, central "
+        f"difference {fd:.12e}, analytic {exact:.12e}")
+    for what, want in (("central difference", fd), ("analytic", exact)):
+        if not abs(g - want) <= REV_RTOL["equilibrium"] * abs(want):
+            raise AssertionError(f"(d) the implicit gradient misses the "
+                                 f"{what}")
+    if counts["K6_adjoint"]:
+        raise AssertionError("(d) ran the fixed grid's adjoint")
+    record["paths"]["implicit gradient"] = dict(counts=counts,
+                                                seconds=seconds)
+
+
+def reverse_phase(dev, kernels):
+    """Phase 16: (a)-(d), and the `kernels` line's K30 and K6 adjoint
+    entries; (b)-(d) are the phase's main path, K30 and K6's adjoint rows
+    counted over them."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    record = {"K30": 0.0, "K6_adj": 0.0, "paths": {}}
+    vjp_against_plain(dev, gen, record)
+    adjoint_rows_against_plain(dev, gen, record)
+    inverse_design(dev, record)
+    sensitivity(dev, record)
+    equilibrium(dev, record)
+    paths = record["paths"]
+    k30_total = sum(p["counts"]["K30"] for p in paths.values())
+    adj_total = sum(p["counts"]["K6_adjoint"] for p in paths.values())
+    if not (k30_total and adj_total):
+        raise AssertionError("the main path did not launch K30 and K6's "
+                             "adjoint rows")
+    t30 = record["K30_times"]
+    first = t30[VJP_CASES[0][0]]
+    kernels["K30"] = {
+        "name": K30[0], "route": "cuda", "source": K30[1],
+        "replaces": K30[2], "launches": k30_total,
+        "max_abs_err": record["K30"],
+        "match": "bit-identical p_bar and w_bar to dense_vjp_plain at every "
+                 "VJP_CASES program, state and launch form",
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None, "form": first["form"], "by_program": t30,
+        "paths": {k: v["counts"] for k, v in paths.items()}}
+    t6 = record["K6_adj_times"]
+    row = dop853.DP5_ADJ_ROWS[0]
+    kernels["K6_adjoint"] = {
+        "name": K6_ADJ[0], "route": "cuda", "source": K6_ADJ[1],
+        "replaces": K6_ADJ[2], "launches": adj_total,
+        "max_abs_err": record["K6_adj"],
+        "match": "bit-identical: rows 31-37 at n = 32 and 10,000",
+        "ms": t6[row]["ms"], "plain_ms": t6[row]["plain_ms"],
+        "bound_ms": t6[row]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "by_row": {str(r): t for r, t in t6.items()},
+        "paths": {k: v for k, v in paths.items()}}
+    say(f"phase 16: {time.perf_counter() - t0:.1f} s")
+
+
 def main(dev=None):
     """Runs every phase on ``dev`` (the first CUDA card when None)."""
     if dev is None:
@@ -7306,7 +7803,7 @@ def main(dev=None):
         machines = {tag: ens.compile_decision_machine(tag)
                     for tag in TAGS + LATTICE_TAGS + [EX4V2]
                     + [register_fuzz(0, 2, True)]}
-        jobs = {"K2-K10, K12, K13, K15, K16, K18-K22, K25-K29 "
+        jobs = {"K2-K10, K12, K13, K15, K16, K18-K22, K25-K30 "
                 "(csrc/*.cu)": cuda.build,
                 "expander (csrc/expander.cc, g++)": native.build}
         for tag, dm in machines.items():
@@ -7678,6 +8175,9 @@ def main(dev=None):
 
     with Phase("15 the companion simulators (K27, K28, K29)"):
         companions_phase(dev, kernels)
+
+    with Phase("16 reverse-mode derivatives (K30, K6's adjoint rows)"):
+        reverse_phase(dev, kernels)
 
     say(json.dumps({"kernels": list(kernels.values())}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -501,11 +501,12 @@ def test_tableau_equals_the_stage_terms():
     `_terms` of the initial step, A's rows 1-11, B, the extra rows and
     E5/E3 over the stage rows in use, in both states of the first-same-
     as-last swap (`tableau_terms`); dopri5's rows 18-25 follow them
-    (`tests/test_torch_solvers.py`), and Kvaerno 3(2)'s rows 26-30
-    (`tests/test_torch_steady.py`)."""
+    (`tests/test_torch_solvers.py`), Kvaerno 3(2)'s rows 26-30
+    (`tests/test_torch_steady.py`) and the fixed grid's adjoint rows
+    31-37 (`tests/test_torch_reverse.py`)."""
     count, rows, coefs = t_dop.tableau_arrays()
     assert count.dtype == np.int32 and coefs.dtype == np.float64
-    assert rows.shape == coefs.shape == (len(t_dop.TABLEAU), 16) == (31, 16)
+    assert rows.shape == coefs.shape == (len(t_dop.TABLEAU), 16) == (38, 16)
     for which, terms in enumerate(t_dop.TABLEAU):
         k = count[which]
         assert list(zip(rows[which, :k].tolist(),

@@ -2409,3 +2409,67 @@ def test_dopri5_batch_kernel_matches_plain(cuda, n_out, max_steps):
     torch.testing.assert_close(ys, want, rtol=1e-12, atol=0)
     if max_steps == 150:
         assert bool(((acc + rej) == 150).all()) and bool((ys[:, -1] == 0).all())
+
+
+# --- Reverse-mode derivatives: K30 and K6's adjoint rows ----------------------
+
+
+@pytest.mark.parametrize("tag,cl_k,dual", [
+    ("ex2-ferromagnetic-chain", 5, False), ("ex4-chemical-turing", 3, False),
+    ("ex4-chemical-turing", 5, False), ("ex3-copolymerization", 3, True),
+    ("ex6-mini-bff-lite", 2, False)])
+def test_k30_matches_plain(cuda, tag, cl_k, dual):
+    """K30 (`dense_vjp`) equals `dense_vjp_plain` bit for bit (p_bar and
+    w_bar) in every launch form the program can take, at a positive p,
+    at one with a third of its windows 0 and a run-time w_const; one K30
+    launch a call, autograd's backward through the closure the same
+    bits."""
+    prog = (tdense.compile_dense_dual(tag, cl_k) if dual
+            else tdense.compile_dense(tag, cl_k))
+    dp = tdense.device_program(prog, cuda)
+    n = prog.state_size
+    gen = torch.Generator(device=cuda).manual_seed(30)
+    chosen = dp.form
+    for zero in (False, True):
+        p = torch.rand(n, generator=gen, device=cuda, dtype=torch.float64)
+        if zero:
+            p = torch.where(torch.rand(n, generator=gen, device=cuda) < 1 / 3,
+                            0.0, p)
+        p = p / p.sum()
+        u = torch.randn(n, generator=gen, device=cuda, dtype=torch.float64)
+        w = (torch.as_tensor(prog.w_const, device=cuda) * 1.25 if zero
+             else None)
+        want = tdense.dense_vjp_plain(dp, p, u, w_const=w, want_w=True)
+        for form in tdense.forms_for(dp):
+            dp.form = form
+            before = tdense.dense_vjp.launches
+            got = tdense.dense_vjp(dp, p, u, w_const=w, want_w=True)
+            assert tdense.dense_vjp.launches == before + 1
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1],
+                                                                want[1])
+        dp.form = chosen
+    fn = tdense.make_dense_dy_dt(prog, device=cuda)
+    q = p.clone().requires_grad_(True)
+    torch.dot(fn(q), u).backward()
+    assert torch.equal(q.grad, tdense.dense_vjp_plain(fn.device_program, p,
+                                                      u)[0])
+
+
+def test_k6_adjoint_rows_match_plain(cuda):
+    """K6's adjoint rows 31-37 equal their plain versions bit for bit,
+    each one launch counted as an adjoint launch."""
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    n = 10_000
+    adj = dop853.rows_tensor(8, n, cuda)
+    adj.copy_(torch.randn(adj.shape, generator=gen, device=cuda,
+                          dtype=torch.float64))
+    base = torch.randn(n, generator=gen, device=cuda, dtype=torch.float64)
+    out, ref = torch.empty_like(base), torch.empty_like(base)
+    before = dop853.stage.adjoint_launches
+    rows = dop853.DP5_ADJ_ROWS + (dop853.DP5_ADJ_SUM,)
+    for row in rows:
+        dop853.stage(base, adj, 0.0375, row, out)
+        dop853.stage_plain(base, adj, 0.0375, dop853.tableau_terms(row), ref)
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref)
+    assert dop853.stage.adjoint_launches == before + len(rows)

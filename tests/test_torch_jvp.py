@@ -19,8 +19,8 @@ plain versions:
   gmres(solve_method="batched")` at the callers' settings, a happy
   breakdown included (rtol 1e-10);
 - K6's third table (Kvaerno 3(2)) and its plain modes;
-- what is not ported raises NotImplementedError naming ROADMAP Queue 1,
-  "Derivative-based solvers and instruments: reverse mode".
+- what the reverse mode does not cover yet raises NotImplementedError
+  naming its ROADMAP Queue 1 item.
 """
 
 import ctypes
@@ -44,9 +44,6 @@ from chemical_kinetics_and_program_execution_torch.engine import (
 from chemical_kinetics_and_program_execution_torch.engine import (
     dense as tdense,
 )
-from chemical_kinetics_and_program_execution_torch.engine import (
-    parametric as tparam,
-)
 from chemical_kinetics_and_program_execution_torch.engine import rhs as trhs
 from chemical_kinetics_and_program_execution_torch.ode import dop853 as t_dop
 from chemical_kinetics_and_program_execution_torch.ode import fixed as tfixed
@@ -69,7 +66,9 @@ CASES = [
     ("ex6-mini-bff-lite", 2),
 ]
 IDS = [f"{tag}-{k}" for tag, k in CASES]
-REVERSE = "Derivative-based solvers and instruments: reverse mode"
+SLICE_B = ("Derivative-based solvers and instruments: reverse mode', "
+           r"slice \(b\)")
+SECOND_ORDER = "Second derivatives and derivatives of the world mass"
 RTOL = 1e-12  # and the floor 1e-12 max|J v|
 
 
@@ -201,13 +200,13 @@ def test_zero_tangent_gives_zeros_without_a_call():
 
     class Ctx:
         saved_tensors = (torch.ones(4, dtype=torch.float64),
-                         torch.zeros(2, dtype=torch.float64))
+                         torch.zeros(2, dtype=torch.float64), None)
 
         @staticmethod
         def jvp_fn(*args):
             calls.append(args)
 
-    out, _ = tdense.RHSFunction.jvp(Ctx(), None)
+    out, _ = tdense.RHSFunction.jvp(Ctx(), None, None)
     assert torch.equal(out, torch.zeros(4, dtype=torch.float64))
     assert not calls
     x = torch.ones(3, dtype=torch.float64)
@@ -438,7 +437,7 @@ def test_kvaerno_rows_and_modes():
     assert T[29] == [(1, g)] and T[30] == [(2, g)]
     assert t_dop.KV_C == j_kv._C
     count, _, _ = t_dop.tableau_arrays()
-    assert len(count) == len(T) == 31
+    assert len(count) == len(T) == 38
     rng = np.random.default_rng(8)
     y, dz, z, y_new, f, gg = (torch.as_tensor(rng.standard_normal(300))
                               for _ in range(6))
@@ -470,35 +469,42 @@ def test_kvaerno_rows_and_modes():
 
 
 def test_reverse_mode_raises():
-    """Backward through the dense closure, through the tree and chain
-    closures (and their J.v), through `odeint_fixed` and through
-    `make_steady_state`'s solve, and `grad_observable` and
-    `rate_sensitivity`, raise NotImplementedError naming the
-    reverse-mode item."""
-    prog = tdense.compile_dense("ex1-radioactive-decay", 3)
-    fn = tdense.make_dense_dy_dt(prog, device="cpu")
+    """What the reverse mode does not cover yet raises NotImplementedError
+    naming its ROADMAP item: backward through the tree and chain closures
+    and their J.v (the reverse mode's slice (b)); a second backward
+    through the dense closure's K30 backward, through `odeint_fixed`'s
+    adjoint in its args and through `make_steady_state`'s implicit
+    gradient (a Newton step's grad of grad, as examples/
+    ex2_rate_recovery.py:77 takes it), and a derivative through
+    `make_dense_dy_dt(with_mass=True)` (the second derivatives and the
+    world mass)."""
     p = torch.full((8,), 0.125, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=REVERSE):
-        fn(p).sum().backward()
     compiled = tcompile.compile_problem("ex1-radioactive-decay", 3)
     for make in (trhs.make_dy_dt, trhs.make_chain_dy_dt):
         gf = make(compiled, device="cpu")
-        with pytest.raises(NotImplementedError, match=REVERSE):
+        with pytest.raises(NotImplementedError, match=SLICE_B):
             gf(p).sum().backward()
-        with pytest.raises(NotImplementedError, match=REVERSE):
+        with pytest.raises(NotImplementedError, match=SLICE_B):
             torch.func.jvp(gf, (p.detach(),), (p.detach(),))
-    ys = tfixed.odeint_fixed(lambda y, t: fn(y), p, [0.0, 0.5], n_sub=2)
-    with pytest.raises(NotImplementedError, match=REVERSE):
-        ys[-1].sum().backward()
-    with pytest.raises(NotImplementedError, match=REVERSE):
-        tfixed.grad_observable(lambda y, t: fn(y), p.detach(), [0.0, 1.0],
-                               lambda y: y.sum())
-    with pytest.raises(NotImplementedError, match=REVERSE):
-        tparam.rate_sensitivity("ex2-ferromagnetic-chain-p", 3, None,
-                                [0.0, 1.0], lambda y: y[0])
-    solve = tst.make_steady_state(lambda q, a: fn(q), size_a=2, cl_k=3,
-                                  device="cpu", max_iter=3)
-    p_inf, info = solve(p, None)
-    assert info.iterations <= 3
-    with pytest.raises(NotImplementedError, match=REVERSE):
-        p_inf.sum().backward()
+    prog = tdense.compile_dense("ex1-radioactive-decay", 3)
+    fn = tdense.make_dense_dy_dt(prog, device="cpu")
+    (g,) = torch.autograd.grad(fn(p).pow(2).sum(), p, create_graph=True)
+    with pytest.raises(NotImplementedError, match=SECOND_ORDER):
+        g.sum().backward()
+    beta = torch.tensor(0.7, dtype=torch.float64, requires_grad=True)
+    ys = tfixed.odeint_fixed(lambda y, t, b: -b * fn(y), p.detach(),
+                             [0.0, 0.5], n_sub=2, args=beta**2,
+                             device="cpu")
+    (g,) = torch.autograd.grad(ys[-1].pow(2).sum(), beta, create_graph=True)
+    with pytest.raises(NotImplementedError, match=SECOND_ORDER):
+        g.backward()
+    solve = tst.make_steady_state(lambda q, w: w - q, device="cpu")
+    p_inf, _ = solve(p.detach(), beta**2 * p.detach())
+    (g,) = torch.autograd.grad(p_inf.pow(2).sum(), beta, create_graph=True)
+    with pytest.raises(NotImplementedError, match=SECOND_ORDER):
+        g.backward()
+    pruned = tdense.compile_dense("ex1-radioactive-decay", 3,
+                                  prune_threshold=1e-30)
+    mass_fn = tdense.make_dense_dy_dt(pruned, device="cpu", with_mass=True)
+    with pytest.raises(NotImplementedError, match=SECOND_ORDER):
+        mass_fn(p)
